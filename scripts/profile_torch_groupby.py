@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
-"""Where the device time of the port's main-path groupby goes, on one GPU.
+"""Where the device time of the port's groupbys goes, on one GPU.
 
     python3 scripts/profile_torch_groupby.py [N ...]    (default: 1e8 4e8)
+    python3 scripts/profile_torch_groupby.py --h2o
 
-Builds the chip_smoke.py table on the card (int64 key with K = 100
-categories, float64 value, seed 42), warms the query up, then runs
-``groupby("i1", agg={sum, count}, sort=True)`` REPS times under
-torch.profiler, each call ended by ``torch.cuda.synchronize()``.
+The first form builds the chip_smoke.py main-path table on the card (int64
+key with K = 100 categories, float64 value, seed 42) and profiles
+``groupby("i1", agg={sum, count}, sort=True)``.  ``--h2o`` builds
+chip_smoke.py's H2O-groupby-shaped table (1e8 rows) and profiles its q2,
+2-D binby, q3 and q5 queries.  Each query is warmed up, then run REPS times
+under torch.profiler, each call ended by ``torch.cuda.synchronize()``.
 
 Device time counts only the activities that ran on the card (kernels,
 memcpy, memset), never the host-side aten operators that launched them:
 the busy time is the union of those activities' intervals, and the busy
 share is that union over the host wall time of the profiled calls.  Also
-prints the device time per kernel name, per query.  Exits non-zero when
-the profiler saw no device activity.
+prints the device time per kernel name, per query, and splits it into the
+port's grid kernels (B1, B2, B3 and their folds) and everything else torch
+ran (the binning prolog, offsets, state adds).  Exits non-zero when the
+profiler saw no device activity.
 """
 
 import os
@@ -41,15 +46,12 @@ def busy_us(intervals):
     return total
 
 
-def profile(n, vt):
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    i1 = torch.randint(0, K, (n,), generator=gen, device="cuda", dtype=torch.int64)
-    x = torch.rand(n, generator=gen, device="cuda", dtype=torch.float64)
-    df = vt.from_dataset(vt.DatasetArrays({"i1": i1, "x": x})).categorize("i1", labels=range(K))
+# kernel names of csrc/*.cu
+GRID_KERNELS = ("grid_partials", "window_partials", "partition_count", "partition_scatter",
+                "partition_partials", "fold_partials")
 
-    def query():
-        return df.groupby("i1", agg={"s": vt.agg.sum("x"), "c": "count"}, sort=True)
 
+def profile(label, query):
     for _ in range(2):
         query()
     torch.cuda.synchronize()
@@ -68,11 +70,30 @@ def profile(n, vt):
     per_name = {}
     for e in device:
         per_name[e.name] = per_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    print(f"N={n}: wall {wall_us / REPS / 1e3!r} ms per query (host clock), device busy "
+    grid = sum(us for name, us in per_name.items() if any(k in name for k in GRID_KERNELS))
+    print(f"{label}: wall {wall_us / REPS / 1e3!r} ms per query (host clock), device busy "
           f"{busy / REPS / 1e3!r} ms per query, busy share {busy / wall_us!r}, "
-          f"idle share {1 - busy / wall_us!r}", flush=True)
+          f"idle share {1 - busy / wall_us!r}; grid kernels {grid / REPS / 1e3!r} ms, "
+          f"other device work {(sum(per_name.values()) - grid) / REPS / 1e3!r} ms",
+          flush=True)
     for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {us / REPS / 1e3:10.4f} ms  {name[:100]}")
+
+
+def main_path(n, vt):
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    i1 = torch.randint(0, K, (n,), generator=gen, device="cuda", dtype=torch.int64)
+    x = torch.rand(n, generator=gen, device="cuda", dtype=torch.float64)
+    df = vt.from_dataset(vt.DatasetArrays({"i1": i1, "x": x})).categorize("i1", labels=range(K))
+    profile(f"N={n}", lambda: df.groupby("i1", agg={"s": vt.agg.sum("x"), "c": "count"},
+                                         sort=True))
+
+
+def h2o(vt):
+    import chip_smoke
+    df, _ = chip_smoke.make_h2o(vt)
+    for name, query in chip_smoke.h2o_queries(vt).items():
+        profile(f"H2O {name} N={chip_smoke.H2O_ROWS}", lambda: query(df))
 
 
 def main():
@@ -81,9 +102,11 @@ def main():
         return 1
     sys.path.insert(0, HERE)
     import vaex_tpu_torch as vt
-    sizes = [int(float(a)) for a in sys.argv[1:]] or [100_000_000, 400_000_000]
-    for n in sizes:
-        profile(n, vt)
+    if sys.argv[1:] == ["--h2o"]:
+        h2o(vt)
+        return 0
+    for n in [int(float(a)) for a in sys.argv[1:]] or [100_000_000, 400_000_000]:
+        main_path(n, vt)
     return 0
 
 

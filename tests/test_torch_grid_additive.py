@@ -142,12 +142,12 @@ def test_plan_fits_the_shared_memory_budget(G, C):
     for n in (0, 1, 10 ** 6, 4 * 10 ** 8):
         n_ctas, warps = ga.plan(n, G, C, sm_count=132)
         assert 1 <= warps <= ga.MAX_WARPS and n_ctas >= 1
-        assert warps * (C * G + 32) * 8 <= ga.SMEM_BUDGET
+        assert warps * ga.warp_bytes(C, G) <= ga.SMEM_BUDGET
         assert ga.plan(n, G, C, sm_count=132) == (n_ctas, warps)  # reproducible
 
 
 def test_fits_bounds():
-    G_max = (ga.SMEM_BUDGET // 8 - 32) // 3
+    G_max = ga.SMEM_BUDGET // (8 * 3) - ga.STAGE_ROWS
     assert ga.fits(G_max, 1, 1, True)
     assert not ga.fits(G_max + 1, 1, 1, True)
     assert not ga.fits(10, ga.MAX_COLS, 1, False)

@@ -27,135 +27,61 @@
 // as a kernel parameter, so no column is stacked or copied first.
 // A per-CTA grid updated with shared-memory atomics would instead be bound
 // by atomic contention when G is small (G = 1 for df.sum: every lane of
-// every warp hits one word).  The design:
-//   * every warp owns a private [C, G] grid in shared memory, so no two
-//     warps ever touch one word and no atomics are needed;
-//   * inside a warp, __match_any_sync groups the lanes that share a bin;
-//     the lowest lane of each group adds the group's values in lane order
-//     with a plain read-modify-write, so a bin costs one update per warp
-//     step however many lanes hit it;
-//   * at the end the CTA folds its warps' grids in warp order into one
-//     partial [C, G]; a second kernel folds the CTA partials in CTA order.
+// every warp hits one word).  The design is the ordered scheme of
+// grid_common.cuh with one window covering the whole grid: every warp owns
+// a private [C, G] grid, a bin costs one update per warp step however many
+// lanes hit it, the CTA folds its warps in warp order and a second kernel
+// folds the CTA partials in CTA order.
 // Every addition happens in an order fixed by (N, G, the column count and
 // the SM count), so float results are reproducible from run to run and
 // integer results are exact.
 //
 // Shared-memory budget: SMEM_BUDGET bytes per CTA (below the 227 KB a
 // Hopper block may take as dynamic shared memory).  A CTA holds
-// warps * (C * G + 32) 8-byte words; the wrapper picks warps in [1, 8] to
-// fit, so any G with (C * G + 32) * 8 <= SMEM_BUDGET runs here.
+// warps * C * (G + STAGE_ROWS) 8-byte words; the wrapper picks warps in
+// [1, 8] to fit, so any G with C * (G + STAGE_ROWS) * 8 <= SMEM_BUDGET runs
+// here.  Wider
+// grids go to grid_window.cu (B2) or grid_partition.cu (B3).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define SMEM_BUDGET (192 * 1024)
-#define MAX_COLS 32
-#define FULL_MASK 0xffffffffu
-
-struct Columns {
-    const void* ptr[MAX_COLS];  // n_int int64 columns, then n_float float columns
-    int is_f32[MAX_COLS];       // float columns only: 1 for float32, 0 for float64
-};
-
-__device__ __forceinline__ double load_float(const void* col, int is_f32, long long r) {
-    double v = is_f32 ? (double)__ldg((const float*)col + r) : __ldg((const double*)col + r);
-    return v != v ? 0.0 : v;  // NaN adds nothing
-}
+#include "grid_common.cuh"
 
 // One CTA: warps_per_cta private warp grids, grid-stride over rows in warp
-// steps of 32, then one [C, G] partial written to scratch[blockIdx.x].
+// steps of U * 32, then one [C, G] partial written to scratch[blockIdx.x].
+template <int U>
 __global__ void grid_partials(const int* __restrict__ idx, long long n, int G, int count,
                               Columns cols, int n_int, int n_float,
                               unsigned long long* __restrict__ scratch) {
     extern __shared__ unsigned long long smem[];
     const int C = count + n_int + n_float;
-    const int CG = C * G;
     const int warps = blockDim.x >> 5;
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
-    unsigned long long* grid_i = smem + (size_t)warp * CG;  // rows [0, count + n_int)
-    double* grid_f = reinterpret_cast<double*>(grid_i + (size_t)(count + n_int) * G);
-    unsigned long long* stage_i = smem + (size_t)warps * CG + warp * 32;
-    double* stage_f = reinterpret_cast<double*>(stage_i);
+    unsigned long long* grid = smem + (size_t)warp * C * G;
+    unsigned long long* stage = smem + (size_t)warps * C * G + (size_t)warp * C * STAGE_ROWS;
 
-    // all-zero bits are 0 for both the integer and the double words
-    for (int j = threadIdx.x; j < warps * (CG + 32); j += blockDim.x) smem[j] = 0ull;
+    zero_smem(smem, smem_words(warps, C, G));
     __syncthreads();
 
+    // a warp takes rows base + u * warp_step + lane, u < U
     const long long warp_step = (long long)gridDim.x * warps * 32;
     for (long long base = ((long long)blockIdx.x * warps + warp) * 32; base < n;
-         base += warp_step) {  // trip count is uniform across the warp
-        const long long r = base + lane;
-        int b = -1;
-        if (r < n) {
-            const int t = __ldg(idx + r);
-            if ((unsigned)t < (unsigned)G) b = t;
-        }
-        const unsigned group = __match_any_sync(FULL_MASK, b);
-        const bool lead = b >= 0 && lane == __ffs(group) - 1;
-        if (count && lead) grid_i[b] += (unsigned long long)__popc(group);
-        for (int k = 0; k < n_int; ++k) {
-            stage_i[lane] = b >= 0 ? (unsigned long long)__ldg((const long long*)cols.ptr[k] + r)
-                                   : 0ull;
-            __syncwarp();
-            if (lead) {
-                unsigned long long s = 0ull;
-                for (unsigned m = group; m; m &= m - 1) s += stage_i[__ffs(m) - 1];
-                grid_i[(size_t)(count + k) * G + b] += s;
+         base += U * warp_step) {  // trip count is uniform across the warp
+        int b[U];
+        long long r[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            r[u] = base + u * warp_step + lane;
+            b[u] = -1;
+            if (r[u] < n) {
+                const int t = __ldg(idx + r[u]);
+                if ((unsigned)t < (unsigned)G) b[u] = t;
             }
-            __syncwarp();
         }
-        for (int k = 0; k < n_float; ++k) {
-            stage_f[lane] = b >= 0 ? load_float(cols.ptr[n_int + k], cols.is_f32[n_int + k], r)
-                                   : 0.0;
-            __syncwarp();
-            if (lead) {
-                double s = 0.0;
-                for (unsigned m = group; m; m &= m - 1) s += stage_f[__ffs(m) - 1];
-                grid_f[(size_t)k * G + b] += s;
-            }
-            __syncwarp();
-        }
+        warp_add(b, r, lane, count, cols, n_int, n_float, G, grid, stage);
     }
     __syncthreads();
-
-    // fold the warp grids in warp order into this CTA's partial
-    unsigned long long* out = scratch + (size_t)blockIdx.x * CG;
-    const int CG_int = (count + n_int) * G;
-    for (int j = threadIdx.x; j < CG; j += blockDim.x) {
-        if (j < CG_int) {
-            unsigned long long s = 0ull;
-            for (int w = 0; w < warps; ++w) s += smem[(size_t)w * CG + j];
-            out[j] = s;
-        } else {
-            double s = 0.0;
-            for (int w = 0; w < warps; ++w)
-                s += reinterpret_cast<const double*>(smem)[(size_t)w * CG + j];
-            reinterpret_cast<double*>(out)[j] = s;
-        }
-    }
-}
-
-// One warp per output word: lane l adds partials l, l + 32, ... in order,
-// then a fixed shuffle tree adds the lanes.
-__global__ void fold_partials(const unsigned long long* __restrict__ scratch, int n_parts,
-                              int CG, int CG_int, long long* __restrict__ out_int,
-                              double* __restrict__ out_float) {
-    const int j = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-    const int lane = threadIdx.x & 31;
-    if (j >= CG) return;  // whole warps leave together
-    if (j < CG_int) {
-        unsigned long long s = 0ull;
-        for (int p = lane; p < n_parts; p += 32) s += scratch[(size_t)p * CG + j];
-        for (int o = 16; o; o >>= 1) s += __shfl_down_sync(FULL_MASK, s, o);
-        if (lane == 0) out_int[j] = (long long)s;
-    } else {
-        double s = 0.0;
-        for (int p = lane; p < n_parts; p += 32)
-            s += reinterpret_cast<const double*>(scratch)[(size_t)p * CG + j];
-        for (int o = 16; o; o >>= 1) s += __shfl_down_sync(FULL_MASK, s, o);
-        if (lane == 0) out_float[j - CG_int] = s;
-    }
+    fold_warps(smem, warps, C, count + n_int, G, G, G, 0,
+               scratch + (size_t)blockIdx.x * C * G);
 }
 
 extern "C" {
@@ -169,42 +95,27 @@ int grid_additive_max_cols(void) { return MAX_COLS; }
 //   int_cols / float_cols: HOST arrays of device pointers;
 //   float_is_f32: HOST array, one flag per float column;
 //   scratch: device [n_ctas, C, G] 8-byte words, C = count + n_int + n_float.
+//   unroll: rows per lane and warp step, 1 or UNROLL.
 int grid_additive_run(const int* idx, long long n, int G, int count,
                       const void* const* int_cols, int n_int,
                       const void* const* float_cols, const int* float_is_f32, int n_float,
-                      int n_ctas, int warps, unsigned long long* scratch,
+                      int n_ctas, int warps, int unroll, unsigned long long* scratch,
                       long long* out_int, double* out_float, void* stream) {
     const int C = count + n_int + n_float;
     if (G < 1 || C < 1 || n_int + n_float > MAX_COLS || warps < 1 || warps > 32 ||
-        n_ctas < 1 || n < 0)
+        n_ctas < 1 || n < 0 || (unroll != 1 && unroll != UNROLL))
         return -1;
-    const size_t smem = (size_t)warps * ((size_t)C * G + 32) * sizeof(unsigned long long);
+    const size_t smem = smem_words(warps, C, G) * sizeof(unsigned long long);
     if (smem > SMEM_BUDGET) return -1;
-    Columns cols;
-    for (int k = 0; k < n_int; ++k) {
-        cols.ptr[k] = int_cols[k];
-        cols.is_f32[k] = 0;
-    }
-    for (int k = 0; k < n_float; ++k) {
-        cols.ptr[n_int + k] = float_cols[k];
-        cols.is_f32[n_int + k] = float_is_f32[k];
-    }
+    const Columns cols = make_columns(int_cols, n_int, float_cols, float_is_f32, n_float);
     cudaStream_t s = (cudaStream_t)stream;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            grid_partials, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    grid_partials<<<n_ctas, warps * 32, smem, s>>>(idx, n, G, count, cols, n_int, n_float,
-                                                    scratch);
-    cudaError_t e = cudaGetLastError();
+    auto kernel = unroll == 1 ? grid_partials<1> : grid_partials<UNROLL>;
+    cudaError_t e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return (int)e;
-    const int CG = C * G;
-    const int threads = 256;
-    const int blocks = (int)(((long long)CG * 32 + threads - 1) / threads);
-    fold_partials<<<blocks, threads, 0, s>>>(scratch, n_ctas, CG, (count + n_int) * G,
-                                             out_int, out_float);
-    return (int)cudaGetLastError();
+    kernel<<<n_ctas, warps * 32, smem, s>>>(idx, n, G, count, cols, n_int, n_float, scratch);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    return (int)launch_fold(scratch, n_ctas, C * G, (count + n_int) * G, out_int, out_float, s);
 }
 
 const char* grid_additive_error_string(int code) {

@@ -99,15 +99,18 @@ class DataFrame:
             vmax = self._evaluate_rows(column, 0, len(self)).max()
             labels = np.arange(int(min_value), int(vmax) + 1)
             min_value = int(min_value)
-        df._categories[column] = {"labels": list(labels), "N": len(labels),
-                                  "min_value": min_value}
+        # kept as an array: a groupby reads the labels on every call, and a
+        # list of 1e6 labels takes tens of ms to become one
+        labels = np.asarray(labels)
+        df._categories[column] = {"labels": labels, "N": len(labels), "min_value": min_value}
         return df
 
     def is_category(self, column):
         return str(column) in self._categories
 
     def category_labels(self, column, aslist=True):
-        return self._categories[str(column)]["labels"]
+        labels = self._categories[str(column)]["labels"]
+        return labels.tolist() if aslist else labels
 
     def category_count(self, column):
         return self._categories[str(column)]["N"]
@@ -183,6 +186,45 @@ class DataFrame:
     def mean(self, expression, binby=(), selection=None, delay=False, edges=False):
         return self._compute_agg("mean", expression, binby, selection, delay, edges)
 
+    # ---------------------------------------------------------------- order
+    def take(self, indices):
+        """The rows at ``indices`` (host ints): numpy columns are indexed on
+        the host, tensor columns on their device."""
+        indices = np.asarray(indices, dtype=np.int64)
+        columns = {}
+        for name in self.dataset:
+            col = self.dataset[name]
+            if isinstance(col, torch.Tensor):
+                columns[name] = col[torch.as_tensor(indices, device=col.device)]
+            else:
+                columns[name] = col[indices]
+        df = self.copy()
+        df.dataset = DatasetArrays(columns)
+        return df
+
+    def sort(self, by, ascending=True):
+        """The rows ordered by the key column(s): a stable lexicographic
+        argsort of the keys on the host, then a take
+        (vaex_tpu/dataframe.py:1523-1553)."""
+        by = [str(b) for b in (by if isinstance(by, (list, tuple)) else [by])]
+        ascending = (list(ascending) if isinstance(ascending, (list, tuple))
+                     else [ascending] * len(by))
+        keys = []
+        for name, asc in zip(by, ascending):
+            data = np.ma.getdata(self.evaluate(name))
+            if not asc:
+                if data.dtype.kind in "OUS":
+                    if len(by) > 1:
+                        raise NotImplementedError(
+                            "a descending string key among several sort keys is not ported "
+                            "yet (ROADMAP queue A9)")
+                    return self.take(np.argsort(data, kind="stable")[::-1])
+                data = _descending(data)
+            keys.append(data)
+        if len(keys) == 1:
+            return self.take(np.argsort(keys[0], kind="stable"))
+        return self.take(np.lexsort(keys[::-1]))
+
     def groupby(self, by=None, agg=None, sort=False, ascending=True):
         from .groupby import GroupBy
         gb = GroupBy(self, by=by, sort=sort, ascending=ascending)
@@ -213,3 +255,14 @@ class DataFrame:
     def __repr__(self):
         return (f"<vaex_tpu_torch.DataFrame rows={len(self)} "
                 f"columns={self.get_column_names()}>")
+
+
+def _descending(data):
+    """A key whose ascending order is the descending order of ``data``."""
+    if data.dtype.kind == "i":
+        return ~data  # -x - 1: exact, where -x overflows at the minimum
+    if data.dtype.kind == "u":
+        return np.iinfo(data.dtype).max - data
+    if data.dtype.kind == "b":
+        return ~data
+    return -data.astype(np.float64)

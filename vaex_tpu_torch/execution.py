@@ -115,6 +115,8 @@ class ExecutorLocal(Executor):
             "tiles": n_tiles,
             "device": str(device),
             "tasks": [t.name for t in tasks],
+            # the grid kernel each aggregation task took: "b1", "b2" or "b3"
+            "strategies": [t.strategy for t in tasks if isinstance(t, TaskAggregations)],
         })
         if len(self.trace_log) > 1000:
             del self.trace_log[:500]

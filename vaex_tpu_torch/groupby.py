@@ -1,10 +1,15 @@
-"""GroupBy over one categorical key.
+"""GroupBy over categorical keys.
 
 The port of the zero-pass plan of ``vaex_tpu/groupby.py``: a
-:class:`GrouperCategory` bins the key with its category metadata, one
+:class:`GrouperCategory` bins each key with its category metadata, one
 aggregation pass fills the grids, and ``_assemble`` builds the result
-frame.  Set-based groupers (non-category keys), several keys and BinBy are
-not ported yet (ROADMAP queue A6).
+frame.  One key keeps every category, empty ones included.  Several keys
+take the cartesian grid of their categories and drop the combinations no
+row has, which an extra ``count("*")`` grid tells, as vaex_tpu does while
+the product of the cardinalities is at most ``COMBINE_MIN_PRODUCT``.  Past
+that vaex_tpu fuses the keys into one set-based ``GrouperCombined``; that,
+the set-based groupers of non-category keys and BinBy are not ported yet
+(ROADMAP queue A6).
 """
 
 from __future__ import annotations
@@ -21,6 +26,9 @@ from .ops.binners import BinnerOrdinal
 from .utils import trace
 
 GROUPERS_PENDING = "not ported yet (ROADMAP queue A6)"
+# vaex_tpu/groupby.py:_should_combine: several keys whose cardinalities
+# multiply past this take GrouperCombined instead of the cartesian grid
+COMBINE_MIN_PRODUCT = 1_000_000
 
 
 class GrouperCategory:
@@ -35,7 +43,8 @@ class GrouperCategory:
         self.ascending = ascending
         self.N = df.category_count(self.expression)
         self.min_value = df.category_offset(self.expression)
-        self.bin_values = np.asarray(df.category_labels(self.expression))
+        self.bin_values = df.category_labels(self.expression, aslist=False)
+        self.bin_values_raw = self.bin_values  # in code order, as the grid
         self.binner = BinnerOrdinal(self.expression, self.min_value, self.N)
         self.sort_indices = None
         if sort:
@@ -48,23 +57,28 @@ class GrouperCategory:
 
 
 class GroupBy:
-    """df.groupby with one categorical key."""
+    """df.groupby over one or more categorical keys."""
 
     def __init__(self, df, by, sort=False, ascending=True):
         self.df = df.copy()
         self.sort = sort
         by = list(by) if isinstance(by, (list, tuple)) else [by]
-        if len(by) != 1:
-            raise NotImplementedError(f"groupby over {len(by)} keys is {GROUPERS_PENDING}")
-        name = by[0].expression if isinstance(by[0], Expression) else str(by[0])
-        if not self.df.is_category(name):
+        self.by_names = [b.expression if isinstance(b, Expression) else str(b) for b in by]
+        self.ascending = (list(ascending) if isinstance(ascending, (list, tuple))
+                          else [ascending] * len(by))
+        for name in self.by_names:
+            if not self.df.is_category(name):
+                raise NotImplementedError(
+                    f"groupby over the non-category key {name!r} is {GROUPERS_PENDING}")
+        self.groupers = [GrouperCategory(name, self.df, sort=sort, ascending=asc)
+                         for name, asc in zip(self.by_names, self.ascending)]
+        product = int(np.prod([max(g.N, 1) for g in self.groupers], dtype=np.float64))
+        if len(self.groupers) > 1 and product > COMBINE_MIN_PRODUCT:
             raise NotImplementedError(
-                f"groupby over the non-category key {name!r} is {GROUPERS_PENDING}")
-        if not isinstance(ascending, bool):
-            [ascending] = ascending
-        self.grouper = GrouperCategory(name, self.df, sort=sort, ascending=ascending)
-        self.by_name = name
-        self.binners = (self.grouper.binner,)
+                f"groupby over {len(self.groupers)} keys with {product} combinations "
+                f"(> {COMBINE_MIN_PRODUCT}) needs the set-based GrouperCombined, which is "
+                f"{GROUPERS_PENDING}")
+        self.binners = tuple(g.binner for g in self.groupers)
 
     def _parse_actions(self, actions):
         """(output name, descriptor) pairs, named as vaex_tpu names them."""
@@ -94,7 +108,7 @@ class GroupBy:
                 elif callable(s):
                     columns = ([name] if name is not None else
                                [c for c in self.df.get_column_names()
-                                if c != self.by_name and not c.startswith("__")])
+                                if c not in self.by_names and not c.startswith("__")])
                     for column in columns:
                         desc = s(column)
                         out.append((desc.pretty_name() if (multiple or name is None)
@@ -105,23 +119,51 @@ class GroupBy:
 
     def agg(self, actions):
         parsed = self._parse_actions(actions)
+        ndim = len(self.binners)
         promises = []
         for name, desc in parsed:
             [p] = desc.add_tasks(self.df, self.binners)
-            promises.append((name, p))
+            promises.append((name, desc, p))
+        # several keys: the count grid tells which combinations some row has
+        counts = next((p for _, desc, p in promises if _is_count_star(desc)), None)
+        if ndim > 1 and counts is None:
+            [counts] = agg_module.count("*").add_tasks(self.df, self.binners)
         with trace("groupby agg pass (execute)"):
             self.df.execute()
-        grids = {name: agg_module.extract_central(p.get(), 1) for name, p in promises}
+        grids = {name: agg_module.extract_central(p.get(), ndim) for name, _, p in promises}
         with trace("groupby assemble"):
-            return self._assemble(grids)
+            if ndim == 1:
+                return self._assemble_one(grids)
+            return self._assemble_cartesian(
+                grids, agg_module.extract_central(counts.get(), ndim))
 
-    def _assemble(self, grids):
+    def _assemble_one(self, grids):
         from . import from_dict
-        g = self.grouper
-        columns = {self.by_name: g.bin_values}
+        g = self.groupers[0]
+        columns = {self.by_names[0]: g.bin_values}
         order = None
         if g.sort_indices is not None:
             order = torch.as_tensor(np.ascontiguousarray(g.sort_indices))
         for name, grid in grids.items():
             columns[name] = grid if order is None else grid[order.to(grid.device)]
         return from_dict(columns)
+
+    def _assemble_cartesian(self, grids, counts):
+        """The observed cells of the cartesian grid, in row-major order of the
+        category codes, then sorted by the keys when ``sort``
+        (vaex_tpu/groupby.py:963-982).  Unlike vaex_tpu, which sorts them
+        ascending whatever ``ascending`` says, each key sorts in its own
+        direction."""
+        from . import from_dict
+        keep = torch.nonzero(counts.reshape(-1) > 0).squeeze(1)
+        cells = np.unravel_index(keep.cpu().numpy(), tuple(counts.shape))
+        columns = {name: g.bin_values_raw[codes]
+                   for name, g, codes in zip(self.by_names, self.groupers, cells)}
+        for name, grid in grids.items():
+            columns[name] = grid.reshape(-1)[keep.to(grid.device)]
+        df = from_dict(columns)
+        return df.sort(self.by_names, ascending=self.ascending) if self.sort else df
+
+
+def _is_count_star(desc):
+    return desc.name == "count" and desc.expression in (None, "*")

@@ -11,7 +11,7 @@ import torch
 
 from .delayed import Promise
 from .ops.binners import fuse_bins, grid_shape, grid_size
-from .ops.grid_additive import fits, grid_additive
+from .ops.grid_plan import grid_sums
 
 
 class Task(Promise):
@@ -37,7 +37,9 @@ class TaskAggregations(Task):
 
     ``subtasks`` holds the AggOperations the descriptors of
     :mod:`vaex_tpu_torch.agg` registered; every one is additive and rides
-    one call of the grid kernel per tile.
+    one call of a grid kernel per tile, the one :mod:`.ops.grid_plan` picks
+    for the grid size (B1, B2 or B3).  ``strategy`` names the kernel of the
+    last tile; the executor writes it into the pass's ``trace_log`` entry.
     """
 
     def __init__(self, df, binners):
@@ -45,6 +47,7 @@ class TaskAggregations(Task):
         self.binners = tuple(binners)
         self.subtasks = []
         self.subtask_promises = []
+        self.strategy = None
 
     def add_subtask(self, operation):
         self.subtasks.append(operation)
@@ -82,12 +85,7 @@ class TaskAggregations(Task):
             else:
                 slots.append(("float", len(float_cols)))
                 float_cols.append(col)
-        if idx.is_cuda and not fits(G, len(int_cols), len(float_cols), count):
-            raise NotImplementedError(
-                f"a grid of G={G} bins with {len(int_cols) + len(float_cols) + count} "
-                f"columns is past the shared memory of the grid kernel; the wider-grid "
-                f"kernels are not ported yet (ROADMAP queue B2/B3)")
-        int_sums, float_sums = grid_additive(idx, int_cols, float_cols, G, count)
+        self.strategy, int_sums, float_sums = grid_sums(idx, int_cols, float_cols, G, count)
         new_state = []
         for op, s, (kind, k) in zip(self.subtasks, state, slots):
             if kind == "count":
