@@ -6,7 +6,7 @@
 Run from the root of the repository on a machine with a CUDA card.  It
 
 1. prints the card's name and power limit, and the torch and CUDA versions;
-2. builds the three grid kernels from vaex_tpu_torch/csrc with nvcc, one
+2. builds the five grid kernels from vaex_tpu_torch/csrc with nvcc, one
    nvcc per source, all at once;
 3. holds B1 (grid_additive) against its plain PyTorch version on the card,
    at G in {1, 103, 512, largest that fits} and N in {0, 1, 1_000_003, 1e8}:
@@ -17,12 +17,18 @@ Run from the root of the repository on a machine with a CUDA card.  It
    floats, at G in {B1 limit + 1, 10 609, B2 limit, B2 limit + 1, 100 003,
    1 000 003} through the kernel the plan picks (printed), plus B3 on
    pre-sorted keys at G = 1 000 003;
-5. drives the main path through the public API: a device-resident table
+5. holds the moment kernels B4 (grid_moments) and B5 (grid_moments_window)
+   against their plain versions, through the kernel the plan picks
+   (printed), for the terms of var (an f64 column) and of corr (two f64
+   columns), with NaN among both, at G in {1, 103, B4's limit at C = 6,
+   that + 1, 10 609, B5's limit} and N in {0, 1, 1_000_003, 1e8}: counts
+   exact, float sums to rtol 1e-9 and atol 1e-9;
+6. drives the main path through the public API: a device-resident table
    of N = 1e8 and 4e8 rows (int64 key with K = 100 categories, float64
    value, made on the card from seed 42), categorize, then
    groupby(sum, count, sort=True) and df.sum, checked against
    torch.bincount / index_add_, with B1's launch count;
-6. drives the wide-grid path through the public API: an H2O-groupby-shaped
+7. drives the wide-grid path through the public API: an H2O-groupby-shaped
    table of N = 1e8 rows made on the card from seed 42 (id4, id5 int64 in
    1..100, id6 int64 in 1..1e6, v1, v2 int64 in 1..5, v3 float64 in
    [0, 100)), the keys categorized, then q2 groupby(["id4", "id5"],
@@ -31,10 +37,18 @@ Run from the root of the repository on a machine with a CUDA card.  It
    {"v1", "v2", "v3": sum}), each checked against torch.bincount /
    index_add_, with each kernel's launch count and the strategy each pass
    recorded;
-7. times the main-path groupby and the four wide queries against plain
-   PyTorch (5 repetitions, medians), and every kernel against its plain
-   version and against its HBM floor at the copy bandwidth measured in
-   the same run.
+8. drives the statistics path through the public API on the same table:
+   q6's sd part groupby(["id4", "id5"], {"sd_v3": std("v3", ddof=1)},
+   sort=True), q9 groupby(["id4", "id5"], {"r2": corr("v1", "v2")}), q7
+   groupby("id6", {"max_v1": max("v1"), "min_v2": min("v2")}),
+   df.std("v3") and df.std("v3", binby=["id4"]), each checked against
+   plain torch (index_add_ of the formed moments, then the same formula;
+   scatter_reduce for q7), with B4's and B5's launch counts and the
+   strategies;
+9. times the main-path groupby, the four wide queries and the five
+   statistics against plain PyTorch (5 repetitions, medians), and every
+   kernel against its plain version and against its HBM floor at the copy
+   bandwidth measured in the same run.
 
 It exits non-zero on any failure.  The line before the last is a JSON
 object with every kernel's launches, error and times; the last line is
@@ -166,6 +180,40 @@ def wide_kernels_vs_plain(plan, gw):
     return worst
 
 
+def moment_kernels_vs_plain(plan, gw, agg):
+    """Phase 5: B4 and B5 against their plain versions; returns the worst
+    float error of each."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    worst = {plan.B4: 0.0, plan.B5: 0.0}
+    b4_limit = plan.b4_max_g(6)
+    for label, terms in (("var", agg.VAR_TERMS), ("corr", agg.CORR_TERMS)):
+        C = len(terms)
+        b5_limit = plan.B5_MAX_WINDOWS * gw.window_width(C)
+        for G in (1, 103, b4_limit, b4_limit + 1, 10_609, b5_limit):
+            name = plan.moment_strategy(max(KERNEL_SIZES), G, C)
+            print(f"plan at G={G} ({label}, {C} terms): {name}", flush=True)
+            check(name in (plan.B4, plan.B5), f"a moment kernel at G={G}")
+            for n in KERNEL_SIZES:
+                idx = torch.randint(0, G + G // 8 + 1, (n,), generator=gen, device="cuda",
+                                    dtype=torch.int32)
+                x, y = (torch.randn(n, generator=gen, device="cuda", dtype=torch.float64) * 100
+                        for _ in range(2))
+                x[::97] = float("nan")
+                y[::89] = float("nan")
+                bases = [x] if label == "var" else [x, y]
+                got = plan.MOMENT_KERNELS[name](idx, bases, terms, G)
+                want = plan.MOMENT_PLAIN[name](idx, bases, terms, G)
+                torch.cuda.synchronize()
+                what = f"{name} {label} G={G} N={n}"
+                check(torch.equal(got[0], want[0]), f"counts, {what}")
+                check(torch.allclose(got[1], want[1], rtol=RTOL, atol=ATOL), f"sums, {what}")
+                err = (got[1] - want[1]).abs().max().item() if n else 0.0
+                worst[name] = max(worst[name], err)
+                print(f"{what} vs plain: counts exact, f64 max abs err {err!r}", flush=True)
+                del idx, x, y, bases
+    return worst
+
+
 def make_table(n, vt):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     i1 = torch.randint(0, K, (n,), generator=gen, device="cuda", dtype=torch.int64)
@@ -185,7 +233,7 @@ def plain_query(i1, x):
 
 
 def main_path(n, vt):
-    """Phase 5 at one size: the query through the public API, checked."""
+    """Phase 6 at one size: the query through the public API, checked."""
     df, i1, x = make_table(n, vt)
     out = run_query(df, vt)
     torch.cuda.synchronize()
@@ -214,7 +262,7 @@ def copy_bandwidth(x):
 
 
 def timings(n, df, i1, x, vt, ga, label):
-    """Phase 7 at one main-path size: end-to-end query and B1 times, in turns."""
+    """Phase 9 at one main-path size: end-to-end query and B1 times, in turns."""
     port_s, plain_s = [], []
     for _ in range(REPS):
         for fn, times in ((lambda: plain_query(i1, x), plain_s),
@@ -332,7 +380,7 @@ def h2o_check(name, out, want):
 
 
 def h2o_path(vt, plan):
-    """Phase 6: the four queries once, checked; returns the table and the
+    """Phase 7: the four queries once, checked; returns the table and the
     launches of each kernel during them."""
     df, cols = make_h2o(vt)
     plain = h2o_plain(cols)
@@ -353,8 +401,143 @@ def h2o_path(vt, plan):
     return df, cols, launches
 
 
+def stats_queries(vt):
+    a = vt.agg
+    return {
+        "q6-sd": lambda df: df.groupby(["id4", "id5"], agg={"sd_v3": a.std("v3", ddof=1)},
+                                       sort=True),
+        "q9": lambda df: df.groupby(["id4", "id5"], agg={"r2": a.corr("v1", "v2")}),
+        "q7": lambda df: df.groupby("id6", agg={"max_v1": a.max("v1"), "min_v2": a.min("v2")}),
+        "df.std": lambda df: df.std("v3"),
+        "std by id4": lambda df: df.std("v3", binby=["id4"]),
+    }
+
+
+def stats_plain(cols):
+    """The five statistics in plain torch: index_add_ of the formed moments
+    and the same formulas, scatter_reduce for q7."""
+    f64 = torch.float64
+    pair = (cols["id4"] - 1) * H2O_K + (cols["id5"] - 1)
+    id4, id6 = cols["id4"] - 1, cols["id6"] - 1
+    v1, v2, v3 = cols["v1"].to(f64), cols["v2"].to(f64), cols["v3"]
+
+    def per(keys, size, v):
+        return torch.zeros(size, dtype=f64, device=v.device).index_add_(0, keys, v)
+
+    def std(keys, size, ddof):
+        n = per(keys, size, torch.ones_like(v3))
+        mean = per(keys, size, v3) / n
+        var = torch.clamp(per(keys, size, v3 * v3) / n - mean ** 2, min=0.0)
+        return n, torch.sqrt(var * n / (n - ddof))
+
+    def corr():
+        n = per(pair, H2O_K ** 2, torch.ones_like(v3))
+        ex, ey = per(pair, H2O_K ** 2, v1) / n, per(pair, H2O_K ** 2, v2) / n
+        cov = per(pair, H2O_K ** 2, v1 * v2) / n - ex * ey
+        vx = per(pair, H2O_K ** 2, v1 * v1) / n - ex ** 2
+        vy = per(pair, H2O_K ** 2, v2 * v2) / n - ey ** 2
+        return n, cov / torch.sqrt(vx * vy)
+
+    def extremes():
+        out = []
+        for v, mode, fill in ((cols["v1"], "amax", -(2 ** 63)), (cols["v2"], "amin", 2 ** 63 - 1)):
+            grid = torch.full((H2O_K6,), fill, dtype=torch.int64, device=v.device)
+            out.append(grid.scatter_reduce_(0, id6, v, mode, include_self=True))
+        return out
+    return {
+        "q6-sd": lambda: std(pair, H2O_K ** 2, 1),
+        "q9": corr,
+        "q7": extremes,
+        "df.std": lambda: torch.std(v3, correction=0),
+        "std by id4": lambda: std(id4, H2O_K, 0)[1],
+    }
+
+
+def stats_check(name, out, want):
+    """One statistic against its plain torch answer."""
+    host = lambda t: t.cpu().numpy()  # noqa: E731
+    close = lambda got, w, what: check(torch.allclose(  # noqa: E731
+        torch.as_tensor(got, dtype=torch.float64), w.cpu(), rtol=RTOL, atol=ATOL), what)
+    if name in ("q6-sd", "q9"):
+        n, value = want
+        keep = (n > 0).cpu()
+        cells = torch.nonzero(keep).squeeze(1)
+        check(out["id4"].tolist() == (cells // H2O_K + 1).tolist(), f"{name} id4 keys")
+        check(out["id5"].tolist() == (cells % H2O_K + 1).tolist(), f"{name} id5 keys")
+        column = "sd_v3" if name == "q6-sd" else "r2"
+        close(out.evaluate(column), value.cpu()[keep], f"{name} {column}")
+    elif name == "q7":
+        vmax, vmin = want
+        check((out.evaluate("max_v1") == host(vmax)).all(), "q7 max_v1 exact")
+        check((out.evaluate("min_v2") == host(vmin)).all(), "q7 min_v2 exact")
+        check(out.evaluate("max_v1").dtype.name == "int64", "q7 keeps int64")
+    else:
+        close(out, want, name)
+
+
+def stats_path(vt, plan, df, cols):
+    """Phase 8: the statistics once, checked; returns the launches of each
+    kernel during them."""
+    plain = stats_plain(cols)
+    kernels = {**plan.KERNELS, **plan.MOMENT_KERNELS}
+    for kernel in kernels.values():
+        kernel.launches = 0
+    outs = {}
+    for name, query in stats_queries(vt).items():
+        outs[name] = query(df)
+        print(f"stats {name} N={H2O_ROWS}: pass strategies "
+              f"{df.executor.trace_log[-1]['strategies']}", flush=True)
+    torch.cuda.synchronize()
+    launches = {name: kernel.launches for name, kernel in kernels.items()}
+    for name, out in outs.items():
+        stats_check(name, out, plain[name]())
+        print(f"stats {name}: checked against plain torch (ints exact, floats rtol {RTOL})",
+              flush=True)
+    print(f"launches during the statistics path: {launches}", flush=True)
+    return launches
+
+
+def stats_timings(df, cols, vt, plan, agg, label):
+    """Phase 9 for the statistics: query medians and B4/B5 kernel times at
+    the shapes of std by id4 (G = 103, v3) and q9 (G = 10 609, v1 and v2)."""
+    plain = stats_plain(cols)
+    for name, query in stats_queries(vt).items():
+        plain_med, plain_s = median_s(plain[name])
+        port_med, port_s = median_s(lambda: query(df))
+        print(f"[{label}] stats {name} N={H2O_ROWS}: median {port_med!r} s (port) vs "
+              f"{plain_med!r} s (plain torch), reps {REPS}; port s {port_s}; "
+              f"plain s {plain_s}", flush=True)
+    copy_bw, _ = copy_bandwidth(cols["v3"])
+    G2 = (H2O_K + 3) ** 2
+    shapes = {
+        plan.B4: ((cols["id4"] + 1).to(torch.int32), H2O_K + 3, [cols["v3"]], agg.VAR_TERMS,
+                  12, "idx 4 + v3 8"),
+        plan.B5: (((cols["id4"] + 1) * (H2O_K + 3) + cols["id5"] + 1).to(torch.int32), G2,
+                  [cols["v1"], cols["v2"]], agg.CORR_TERMS, 20, "idx 4 + v1 8 + v2 8"),
+    }
+    results = {}
+    for name, (idx, G, bases, terms, bytes_per_row, bytes_note) in shapes.items():
+        check(plan.moment_strategy(H2O_ROWS, G, len(terms)) == name, f"{name} at G={G}")
+        args = (idx, bases, terms, G)
+        kernel_ms = cuda_ms(lambda: plan.MOMENT_KERNELS[name](*args), 5)
+        plain_ms = cuda_ms(lambda: plan.MOMENT_PLAIN[name](*args), 2)
+        got = plan.MOMENT_KERNELS[name](*args)
+        want = plan.MOMENT_PLAIN[name](*args)
+        check(torch.equal(got[0], want[0]), f"{name} counts at the query shape")
+        check(torch.allclose(got[1], want[1], rtol=RTOL, atol=ATOL), f"{name} sums")
+        err = (got[1] - want[1]).abs().max().item()
+        floor_ms = H2O_ROWS * bytes_per_row / copy_bw * 1e3
+        print(f"[{label}] {name} N={H2O_ROWS} G={G} ({len(terms)} terms): kernel {kernel_ms!r} "
+              f"ms vs plain {plain_ms!r} ms; HBM floor at {bytes_per_row} B/row ({bytes_note}) "
+              f"{floor_ms!r} ms, kernel at {floor_ms / kernel_ms!r} of it; max abs err {err!r}",
+              flush=True)
+        results[name] = (kernel_ms, plain_ms, err)
+        del idx
+    return results
+
+
 def h2o_timings(df, cols, vt, plan, label):
-    """Phase 7 for the wide path: query medians and B2/B3 kernel times."""
+    """Phase 9 for the wide path: query medians and B2/B3 kernel times."""
     plain = h2o_plain(cols)
     for name, query in h2o_queries(vt).items():
         plain_med, plain_s = median_s(plain[name])
@@ -404,6 +587,7 @@ def main():
         return 1
     sys.path.insert(0, HERE)
     import vaex_tpu_torch as vt
+    from vaex_tpu_torch import agg
     from vaex_tpu_torch.ops import grid_additive as ga
     from vaex_tpu_torch.ops import grid_plan as plan
     from vaex_tpu_torch.ops import grid_window as gw
@@ -413,7 +597,8 @@ def main():
     print(label)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    sources = {plan.B1: "grid_additive", plan.B2: "grid_window", plan.B3: "grid_partition"}
+    sources = {plan.B1: "grid_additive", plan.B2: "grid_window", plan.B3: "grid_partition",
+               plan.B4: "grid_moments", plan.B5: "grid_moments_window"}
     for name, (path, seconds, log) in kernel_build.build(*sources.values()).items():
         print(f"built {os.path.relpath(path, HERE)} in {seconds:.1f} s")
         for line in log.splitlines():
@@ -424,8 +609,10 @@ def main():
     print(f"kernel vs plain passed; largest G that fits B1: {g_max}", flush=True)
     wide_kernels_vs_plain(plan, gw)
     print("wide kernels vs plain passed", flush=True)
+    moment_kernels_vs_plain(plan, gw, agg)
+    print("moment kernels vs plain passed", flush=True)
 
-    for kernel in plan.KERNELS.values():
+    for kernel in (*plan.KERNELS.values(), *plan.MOMENT_KERNELS.values()):
         kernel.launches = 0
     tables = {n: main_path(n, vt) for n in MAIN_SIZES}
     main_launches = {name: kernel.launches for name, kernel in plan.KERNELS.items()}
@@ -437,15 +624,26 @@ def main():
     h2o_df, h2o_cols, h2o_launches = h2o_path(vt, plan)
     for name in (plan.B2, plan.B3):
         check(h2o_launches[name] > 0, f"{sources[name]} was not launched during the H2O path")
+    stats_launches = stats_path(vt, plan, h2o_df, h2o_cols)
+    for name in (plan.B4, plan.B5):
+        check(stats_launches[name] > 0,
+              f"{sources[name]} was not launched during the statistics path")
     wide = h2o_timings(h2o_df, h2o_cols, vt, plan, label)
+    moments = stats_timings(h2o_df, h2o_cols, vt, plan, agg, label)
 
     kernel_ms, plain_ms, err = results[MAIN_SIZES[0]]
     measured = {plan.B1: (main_launches[plan.B1], err, kernel_ms, plain_ms),
                 plan.B2: (h2o_launches[plan.B2], *wide[plan.B2][2:], *wide[plan.B2][:2]),
-                plan.B3: (h2o_launches[plan.B3], *wide[plan.B3][2:], *wide[plan.B3][:2])}
+                plan.B3: (h2o_launches[plan.B3], *wide[plan.B3][2:], *wide[plan.B3][:2]),
+                plan.B4: (stats_launches[plan.B4], *moments[plan.B4][2:],
+                          *moments[plan.B4][:2]),
+                plan.B5: (stats_launches[plan.B5], *moments[plan.B5][2:],
+                          *moments[plan.B5][:2])}
     replaces = {plan.B1: "vaex_tpu/ops/pallas_gridagg.py:474",
                 plan.B2: "vaex_tpu/ops/pallas_gridagg.py:239",
-                plan.B3: "vaex_tpu/ops/pallas_partition.py:72"}
+                plan.B3: "vaex_tpu/ops/pallas_partition.py:72",
+                plan.B4: "vaex_tpu/ops/pallas_gridagg.py:45",
+                plan.B5: "vaex_tpu/ops/pallas_gridagg.py:126"}
     print(json.dumps({"kernels": [{
         "name": sources[name],
         "route": "cuda",

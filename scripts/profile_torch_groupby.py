@@ -8,16 +8,17 @@ The first form builds the chip_smoke.py main-path table on the card (int64
 key with K = 100 categories, float64 value, seed 42) and profiles
 ``groupby("i1", agg={sum, count}, sort=True)``.  ``--h2o`` builds
 chip_smoke.py's H2O-groupby-shaped table (1e8 rows) and profiles its q2,
-2-D binby, q3 and q5 queries.  Each query is warmed up, then run REPS times
-under torch.profiler, each call ended by ``torch.cuda.synchronize()``.
+2-D binby, q3 and q5 queries and the statistics q6-sd, q7 and q9.  Each
+query is warmed up, then run REPS times under torch.profiler, each call
+ended by ``torch.cuda.synchronize()``.
 
 Device time counts only the activities that ran on the card (kernels,
 memcpy, memset), never the host-side aten operators that launched them:
 the busy time is the union of those activities' intervals, and the busy
 share is that union over the host wall time of the profiled calls.  Also
 prints the device time per kernel name, per query, and splits it into the
-port's grid kernels (B1, B2, B3 and their folds) and everything else torch
-ran (the binning prolog, offsets, state adds).  Exits non-zero when the
+port's grid kernels (B1-B5 and their folds) and everything else torch ran
+(the binning prolog, offsets, state adds, and min/max's scatter_reduce).  Exits non-zero when the
 profiler saw no device activity.
 """
 
@@ -48,7 +49,8 @@ def busy_us(intervals):
 
 # kernel names of csrc/*.cu
 GRID_KERNELS = ("grid_partials", "window_partials", "partition_count", "partition_scatter",
-                "partition_partials", "fold_partials")
+                "partition_partials", "fold_partials", "moment_partials",
+                "moment_window_partials")
 
 
 def profile(label, query):
@@ -92,7 +94,9 @@ def main_path(n, vt):
 def h2o(vt):
     import chip_smoke
     df, _ = chip_smoke.make_h2o(vt)
-    for name, query in chip_smoke.h2o_queries(vt).items():
+    stats = chip_smoke.stats_queries(vt)
+    queries = {**chip_smoke.h2o_queries(vt), **{q: stats[q] for q in ("q6-sd", "q7", "q9")}}
+    for name, query in queries.items():
         profile(f"H2O {name} N={chip_smoke.H2O_ROWS}", lambda: query(df))
 
 

@@ -13,7 +13,10 @@ import pytest
 import torch
 
 import vaex_tpu_torch
+from vaex_tpu_torch import agg
 from vaex_tpu_torch.ops import grid_additive as ga
+from vaex_tpu_torch.ops import grid_extreme as ge
+from vaex_tpu_torch.ops import grid_moments as gm
 from vaex_tpu_torch.ops import grid_partition as gp
 from vaex_tpu_torch.ops import grid_plan
 from vaex_tpu_torch.ops import grid_window as gw
@@ -75,7 +78,7 @@ def test_groupby_past_b1_runs_on_the_wide_kernels(cuda):
     df = df.categorize("k", labels=list(range(K)))
     launches = {name: k.launches for name, k in grid_plan.KERNELS.items()}
     out = df.groupby("k", agg={"s": vaex_tpu_torch.agg.sum("x"), "c": "count"})
-    [strategy] = df.executor.trace_log[-1]["strategies"]
+    [strategy] = [s["additive"] for s in df.executor.trace_log[-1]["strategies"]]
     assert strategy in ("b2", "b3")
     assert grid_plan.KERNELS[strategy].launches > launches[strategy]
     npt.assert_array_equal(out["c"].tolist(), np.bincount(keys, minlength=K))
@@ -148,3 +151,108 @@ def test_groupby_on_the_card(cuda):
     npt.assert_array_equal(out["c"].tolist(), np.bincount(keys, minlength=100))
     npt.assert_allclose(out["s"].tolist(), np.bincount(keys, x, minlength=100),
                         rtol=1e-9, atol=1e-9)
+
+
+def _moment_inputs(n, G, kind, device, seed=0):
+    """idx with ~1/8 of the rows dropping; var of an f64 column with NaN, or
+    corr of that column and an int64 one."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    idx = torch.randint(0, G + G // 8 + 1, (n,), generator=g, device=device,
+                        dtype=torch.int32)
+    x = torch.randn(n, generator=g, device=device, dtype=torch.float64) * 100
+    x[::17] = float("nan")
+    if kind == "var":
+        return idx, [x], agg.VAR_TERMS
+    y = torch.randint(1, 6, (n,), generator=g, device=device, dtype=torch.int64)
+    return idx, [x, y], agg.CORR_TERMS
+
+
+@pytest.mark.parametrize("name,G", [("b4", 1), ("b4", 42), ("b4", 213), ("b5", 300),
+                                    ("b5", 10_609), ("b5", 100_003)])
+@pytest.mark.parametrize("kind", ["var", "corr"])
+@pytest.mark.parametrize("n", [0, 1, 300_007])
+def test_moment_kernel_matches_plain(cuda, name, G, kind, n):
+    kernel, plain = grid_plan.MOMENT_KERNELS[name], grid_plan.MOMENT_PLAIN[name]
+    idx, bases, terms = _moment_inputs(n, G, kind, cuda)
+    before = kernel.launches
+    got = kernel(idx, bases, terms, G)
+    assert kernel.launches == before + 1
+    want = plain(idx, bases, terms, G)
+    torch.cuda.synchronize()
+    npt.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+    npt.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(), rtol=1e-9, atol=1e-9)
+
+
+def test_b4_is_reproducible(cuda):
+    idx, bases, terms = _moment_inputs(1_000_000, 103, "corr", cuda, seed=1)
+    a = gm.grid_moments(idx, bases, terms, 103)
+    b = gm.grid_moments(idx, bases, terms, 103)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_moments_past_the_windows_take_b3(cuda):
+    """Past B5's windows the terms are formed as columns and B3 adds them."""
+    G = 200_003  # 49 windows at 6 terms
+    idx, bases, terms = _moment_inputs(300_007, G, "corr", cuda, seed=3)
+    before = gp.grid_partition.launches
+    name, counts, sums = grid_plan.moment_sums(idx, bases, terms, G)
+    assert name == "b3" and gp.grid_partition.launches == before + 1
+    want = gm.grid_moments_reference(idx, bases, terms, G)
+    torch.cuda.synchronize()
+    npt.assert_array_equal(counts.cpu().numpy(), want[0].cpu().numpy())
+    npt.assert_allclose(sums.cpu().numpy(), want[1].cpu().numpy(), rtol=1e-9, atol=1e-9)
+
+
+def test_moments_past_b3_raise_naming_a6(cuda):
+    idx = torch.zeros(10, dtype=torch.int32, device=cuda)
+    x = torch.zeros(10, dtype=torch.float64, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A6"):
+        grid_plan.moment_sums(idx, [x], agg.VAR_TERMS, 10 ** 9)
+
+
+def test_moment_wrappers_raise_where_their_kernel_does_not_fit(cuda):
+    idx = torch.zeros(10, dtype=torch.int32, device=cuda)
+    x = torch.zeros(10, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        gm.grid_moments(idx, [x], agg.VAR_TERMS, 10 ** 5)
+    with pytest.raises(ValueError, match="does not fit"):
+        gm.grid_moments_window(idx, [x], agg.VAR_TERMS, 2 ** 30)
+
+
+def test_statistics_on_the_card(cuda):
+    """groupby std / corr / min / max on a card-resident frame, with a masked
+    column (host-side, copied tile by tile): the masked form equals the NaN
+    form, and the kernels the plan picks were launched."""
+    rng = np.random.default_rng(4)
+    n, K = 200_000, 100
+    keys = rng.integers(0, K, n)
+    x = rng.normal(0, 1, n)
+    mask = rng.random(n) < 0.1
+    v = rng.integers(1, 6, n)
+    df = vaex_tpu_torch.from_arrays(k=keys, x=x, v=v, xn=np.where(mask, np.nan, x),
+                                    xm=np.ma.MaskedArray(x, mask)).to_device(cuda)
+    df = df.categorize("k", labels=list(range(K)))
+    launches = {name: k.launches for name, k in grid_plan.MOMENT_KERNELS.items()}
+    a = vaex_tpu_torch.agg
+    out = df.groupby("k", agg={"sm": a.std("xm"), "sn": a.std("xn"), "rm": a.corr("xm", "v"),
+                               "rn": a.corr("xn", "v"), "mm": a.max("xm"), "mn": a.max("xn")})
+    [strategy] = df.executor.trace_log[-1]["strategies"]
+    assert strategy["extremes"] == "torch"
+    for name in strategy["moments"].split("+"):
+        assert grid_plan.MOMENT_KERNELS[name].launches > launches[name]
+    for m, nan in (("sm", "sn"), ("rm", "rn"), ("mm", "mn")):
+        npt.assert_allclose(out[m].tolist(), out[nan].tolist(), rtol=1e-12, atol=1e-12)
+    valid = ~mask
+    want = [np.std(x[valid & (keys == k)]) for k in range(K)]
+    npt.assert_allclose(out["sm"].tolist(), want, rtol=1e-9)
+    npt.assert_allclose(df.std("x"), np.std(x), rtol=1e-9)
+    npt.assert_array_equal(df.minmax("v"), [1, 5])
+
+
+def test_extremes_on_the_card_keep_int64(cuda):
+    idx = torch.tensor([0, 1, 1, 3, -1], dtype=torch.int32, device=cuda)
+    col = torch.tensor([2 ** 62 + 1, 5, -(2 ** 62) - 3, 7, 0], dtype=torch.int64, device=cuda)
+    got = ge.grid_extreme(ge.extreme_bins(idx, 3), col, 3, "min")
+    assert got.dtype == torch.int64
+    npt.assert_array_equal(got.cpu().numpy(),
+                           [2 ** 62 + 1, -(2 ** 62) - 3, np.iinfo(np.int64).max])

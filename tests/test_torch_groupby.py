@@ -130,17 +130,19 @@ def test_to_device_cpu_stages_tensors():
         **arrays).to_device("cpu").dataset.fingerprint()
 
 
-@pytest.mark.parametrize("query", ["non_category_key", "two_keys", "min", "uint_sum",
-                                   "selection"])
+@pytest.mark.parametrize("query", ["non_category_key", "two_keys", "min", "first",
+                                   "uint_sum", "selection"])
 def test_outside_the_slice_raises_not_implemented(query):
     arrays = seeded_arrays(9, 100, k=K)
     arrays["u"] = np.arange(100, dtype=np.uint32)
+    arrays["b"] = arrays["iv"] > 0
     df = vaex_tpu_torch.from_arrays(**arrays).to_device("cpu").categorize(
         "k", labels=list(range(K)))
     run = {
         "non_category_key": lambda: df.groupby("iv", agg="count"),
         "two_keys": lambda: df.groupby(["k", "iv"], agg="count"),
-        "min": lambda: df.groupby("k", agg={"x": "min"}),
+        "min": lambda: df.groupby("k", agg={"b": "min"}),  # of a bool column
+        "first": lambda: df.groupby("k", agg={"x": "first"}),
         "uint_sum": lambda: df.groupby("k", agg={"s": vaex_tpu_torch.agg.sum("u")}),
         "selection": lambda: df.sum("x", selection="x > 0"),
     }[query]

@@ -1,15 +1,23 @@
-"""Aggregator descriptors: ``vaex_tpu_torch.agg.count/sum/mean``.
+"""Aggregator descriptors: ``vaex_tpu_torch.agg.count/sum/mean/var/std/
+covar/corr/min/max``.
 
 A descriptor is a small declarative object; ``add_tasks`` binds it to a
 DataFrame and a binner stack by registering an :class:`AggOperation` on the
-pass's shared :class:`~vaex_tpu_torch.tasks.TaskAggregations`.  Every
-operation of this slice is additive: it hands the grid kernel
-(:mod:`vaex_tpu_torch.ops.grid_additive`) one column, or the implicit count,
-and adds the kernel's per-bin sums to its state.
+pass's shared :class:`~vaex_tpu_torch.tasks.TaskAggregations`.  An
+operation is one of three kinds, each batched per tile with the others of
+its kind:
+
+* ``additive`` (:class:`OpCount`, :class:`OpSum`): one column, or the
+  implicit count, for the grid kernels B1-B3 (:mod:`.ops.grid_plan`);
+* ``moments`` (:class:`OpMoments`): base columns and the terms formed from
+  them, for the moment kernels B4/B5 (:mod:`.ops.grid_moments`);
+* ``extreme`` (:class:`OpMin`, :class:`OpMax`): one column for
+  :mod:`.ops.grid_extreme`.
 
 Dtype contract (vaex_tpu/agg.py): count -> int64; sum upcasts int/bool ->
-int64 and float -> float64; mean is a float64 finisher over sum and count.
-Sums of uint columns need uint64 arithmetic torch barely has, and raise.
+int64 and float -> float64; mean, var, std, covar and corr are float64
+finishers; min and max keep the input dtype.  Sums of uint columns need
+uint64 arithmetic torch barely has, and raise.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import torch
 
 from .datatype import DataType
 from .delayed import delayed
+from .ops.grid_extreme import identity
 from .utils import find_valid_name
 
 PENDING = "not ported yet (ROADMAP queue A5)"
@@ -33,6 +42,7 @@ class AggOperation:
     """One aggregator bound into a pass."""
 
     name = "op"
+    kind = "additive"
 
     def __init__(self, expressions, dtype_in=None):
         self.expressions = [str(e) for e in expressions if e is not None]
@@ -48,6 +58,9 @@ class AggOperation:
 
     def apply_kernel(self, state, sums):
         return state + sums
+
+    def get_result(self, state, shape):
+        return state.reshape(shape)
 
 
 class OpCount(AggOperation):
@@ -92,6 +105,70 @@ class OpSum(AggOperation):
         if x.mask is not None:
             d = d.masked_fill(x.mask, 0)
         return (kind, d)
+
+
+class OpMoments(AggOperation):
+    """Per-bin sums of moment terms over base expressions, in the contract of
+    :mod:`.ops.grid_moments`: ``terms`` index ``expressions``.  One op per
+    descriptor, where vaex_tpu schedules one ``OpSumMoment`` per column; the
+    pass batches the ops of a tile into as few kernel calls as the kernels'
+    ``MAX_BASES`` / ``MAX_TERMS`` allow.  The state and the result are
+    (counts [n_count, ...] int64, sums [n_float, ...] float64)."""
+
+    name = "moments"
+    kind = "moments"
+
+    def __init__(self, expressions, terms):
+        super().__init__(expressions)
+        self.terms = [tuple(t) for t in terms]
+        self.n_count = len([t for t in self.terms if t[0] < 0])
+
+    def initial_state(self, G, device):
+        return (torch.zeros((self.n_count, G), dtype=torch.int64, device=device),
+                torch.zeros((len(self.terms) - self.n_count, G), dtype=torch.float64,
+                            device=device))
+
+    def apply_kernel(self, state, sums):
+        return (state[0] + sums[0], state[1] + sums[1])
+
+    def get_result(self, state, shape):
+        return tuple(s.reshape(s.shape[0], *shape) for s in state)
+
+
+class OpExtreme(AggOperation):
+    """Per-bin min or max (``mode``) of one column, in its own dtype; empty
+    cells hold the identity (+-inf, or the integer dtype's max / min), and
+    NaN and missing values drop (vaex_tpu/agg.py:417-516)."""
+
+    kind = "extreme"
+    mode = None
+
+    @property
+    def name(self):
+        return self.mode
+
+    def initial_state(self, G, device):
+        dt = DataType(self.dtype_in)
+        if dt.numpy.kind not in "iuf":
+            raise NotImplementedError(f"{self.mode} of a {dt.name} column is {PENDING}")
+        return torch.full((G,), identity(dt.torch, self.mode), dtype=dt.torch, device=device)
+
+    def extreme_input(self, ctx):
+        """(values, valid or None) of one tile."""
+        x = ctx.expr(self.expressions[0])
+        return x.data, None if x.mask is None else ~x.mask
+
+    def apply_kernel(self, state, grid):
+        grid = grid.to(state.dtype)
+        return torch.minimum(state, grid) if self.mode == "min" else torch.maximum(state, grid)
+
+
+class OpMin(OpExtreme):
+    mode = "min"
+
+
+class OpMax(OpExtreme):
+    mode = "max"
 
 
 class AggregatorDescriptor:
@@ -153,6 +230,96 @@ class AggregatorDescriptorMean(AggregatorDescriptor):
         return [finish(sum_task, count_task)]
 
 
+# moment terms over bases [x] and [x, y] (ops/grid_moments.py): every term
+# counts only rows where all the bases it names are valid
+VAR_TERMS = [(0, -1, -1, -1), (0, 0, -1, -1), (-1, -1, 0, -1)]  # x, x*x, count
+# x*y, x and y where both are valid, count of such rows; corr adds x*x, y*y
+COVAR_TERMS = [(0, 1, -1, -1), (0, -1, 1, -1), (1, -1, 0, -1), (-1, -1, 0, 1)]
+CORR_TERMS = COVAR_TERMS + [(0, 0, 1, -1), (1, 1, 0, -1)]
+
+
+def _moments(df, binners, expressions, terms):
+    op = OpMoments(expressions, terms)
+    return df.executor.schedule_aggregation(df, binners, op)
+
+
+class AggregatorDescriptorVar(AggregatorDescriptor):
+    """var/std via raw moments E[x^2] - E[x]^2 (vaex_tpu/agg.py:1089-1121)."""
+
+    def __init__(self, expression, std=False, ddof=0, selection=None, edges=False):
+        super().__init__("std" if std else "var", expression, selection, edges)
+        self.std = std
+        self.ddof = ddof
+
+    def add_tasks(self, df, binners):
+        moments = _moments(df, binners, [self.expression], VAR_TERMS)
+        std, ddof = self.std, self.ddof
+
+        @delayed
+        def finish(r):
+            (n,), (m1, m2) = r
+            n = n.to(torch.float64)
+            mean = m1 / n
+            # E[x^2] >= E[x]^2: clamp the rounding residue (NaN stays NaN)
+            var = m2 / n - mean ** 2
+            var = torch.maximum(var, torch.zeros_like(var))
+            if ddof:
+                var = torch.where(n > ddof, var * n / (n - ddof), torch.nan)
+            return torch.sqrt(var) if std else var
+        return [finish(moments)]
+
+
+class AggregatorDescriptorCovar(AggregatorDescriptor):
+    """Per-cell covariance E[xy] - E[x]E[y] over the rows where both x and y
+    are valid (vaex_tpu/agg.py:1124-1164)."""
+
+    def __init__(self, x, y, selection=None, edges=False, ddof=0):
+        super().__init__("covar", x, selection, edges)
+        self.y = str(y)
+        self.ddof = ddof
+
+    def pretty_name(self, name=None):
+        return find_valid_name(name or f"{self.expression}_{self.y}_{self.name}")
+
+    def add_tasks(self, df, binners):
+        moments = _moments(df, binners, [self.expression, self.y], COVAR_TERMS)
+        ddof = self.ddof
+
+        @delayed
+        def finish(r):
+            (c,), (mxy, mx, my) = r
+            c = c.to(torch.float64)
+            cov = mxy / c - (mx / c) * (my / c)
+            if ddof:
+                cov = cov * c / (c - ddof)
+            return cov
+        return [finish(moments)]
+
+
+class AggregatorDescriptorCorr(AggregatorDescriptorCovar):
+    """Per-cell Pearson correlation (H2O q9; vaex_tpu/agg.py:1167-1195)."""
+
+    def __init__(self, x, y, selection=None, edges=False):
+        super().__init__(x, y, selection, edges)
+        self.name = "corr"
+
+    def add_tasks(self, df, binners):
+        moments = _moments(df, binners, [self.expression, self.y], CORR_TERMS)
+
+        @delayed
+        def finish(r):
+            (c,), (mxy, mx, my, mxx, myy) = r
+            c = c.to(torch.float64)
+            ex, ey = mx / c, my / c
+            cov = mxy / c - ex * ey
+            vx = mxx / c - ex ** 2
+            vy = myy / c - ey ** 2
+            r = cov / torch.sqrt(vx * vy)
+            # a constant operand has no variance: NaN, not a 0-division's inf
+            return torch.where(torch.isfinite(r), r, torch.nan)
+        return [finish(moments)]
+
+
 def count(expression="*", selection=None, edges=False):
     return AggregatorDescriptorBasic("count", expression, OpCount, selection, edges)
 
@@ -165,4 +332,31 @@ def mean(expression, selection=None, edges=False):
     return AggregatorDescriptorMean(expression, selection, edges)
 
 
-aggregates = {"count": count, "sum": sum, "mean": mean}
+def min(expression, selection=None, edges=False):  # noqa: A001
+    return AggregatorDescriptorBasic("min", expression, OpMin, selection, edges)
+
+
+def max(expression, selection=None, edges=False):  # noqa: A001
+    return AggregatorDescriptorBasic("max", expression, OpMax, selection, edges)
+
+
+def var(expression, ddof=0, selection=None, edges=False):
+    return AggregatorDescriptorVar(expression, std=False, ddof=ddof, selection=selection,
+                                   edges=edges)
+
+
+def std(expression, ddof=0, selection=None, edges=False):
+    return AggregatorDescriptorVar(expression, std=True, ddof=ddof, selection=selection,
+                                   edges=edges)
+
+
+def covar(x, y, selection=None, edges=False, ddof=0):
+    return AggregatorDescriptorCovar(x, y, selection=selection, edges=edges, ddof=ddof)
+
+
+def corr(x, y, selection=None, edges=False):
+    return AggregatorDescriptorCorr(x, y, selection=selection, edges=edges)
+
+
+aggregates = {"count": count, "sum": sum, "mean": mean, "min": min, "max": max,
+              "std": std, "var": var, "corr": corr, "covar": covar}

@@ -2,8 +2,10 @@
 
 The slice of ``vaex_tpu/dataframe.py`` on the main path: a DataFrame owns
 an immutable Dataset plus category metadata; ``to_device`` stages columns
-as tensors on a torch device; ``count`` / ``sum`` / ``mean`` and
-``groupby`` build aggregation tasks that one pass of the executor runs.
+as tensors on a torch device; the statistics (``count``, ``sum``, ``mean``,
+``var``, ``std``, ``min``, ``max``, ``minmax``, ``covar``,
+``correlation``) and ``groupby`` build aggregation tasks that one pass of
+the executor runs.
 """
 
 from __future__ import annotations
@@ -156,12 +158,13 @@ class DataFrame:
         return tuple(binners)
 
     def _compute_agg(self, name, expression, binby=(), selection=None, delay=False,
-                     edges=False):
+                     edges=False, **agg_kwargs):
         binners = self._create_binners(binby) if binby else ()
         if name == "count" and (expression is None or str(expression) == "*"):
             desc = agg_module.count("*", selection=selection)
         else:
-            desc = agg_module.aggregates[name](str(expression), selection=selection)
+            desc = agg_module.aggregates[name](str(expression), selection=selection,
+                                               **agg_kwargs)
         [promise] = desc.add_tasks(self, binners)
         ndim = len(binners)
 
@@ -171,7 +174,9 @@ class DataFrame:
             if ndim and not edges:
                 return agg_module.extract_central(grid, ndim)
             return grid if ndim else grid.reshape(())[()]
-        result = finish(promise)
+        return self._delay(delay, finish(promise))
+
+    def _delay(self, delay, result):
         if delay:
             return result
         self.execute()
@@ -185,6 +190,65 @@ class DataFrame:
 
     def mean(self, expression, binby=(), selection=None, delay=False, edges=False):
         return self._compute_agg("mean", expression, binby, selection, delay, edges)
+
+    def min(self, expression, binby=(), selection=None, delay=False, edges=False):
+        return self._compute_agg("min", expression, binby, selection, delay, edges)
+
+    def max(self, expression, binby=(), selection=None, delay=False, edges=False):
+        return self._compute_agg("max", expression, binby, selection, delay, edges)
+
+    def var(self, expression, binby=(), selection=None, delay=False, edges=False, ddof=0):
+        return self._compute_agg("var", expression, binby, selection, delay, edges, ddof=ddof)
+
+    def std(self, expression, binby=(), selection=None, delay=False, edges=False, ddof=0):
+        return self._compute_agg("std", expression, binby, selection, delay, edges, ddof=ddof)
+
+    def minmax(self, expression, binby=(), selection=None, delay=False):
+        """[min, max] of an expression, or of each of a list of them, stacked
+        on the last axis (vaex_tpu/dataframe.py:895-921)."""
+        multi = isinstance(expression, (list, tuple))
+        pairs = [(self.min(e, binby, selection, delay=True),
+                  self.max(e, binby, selection, delay=True))
+                 for e in (expression if multi else [expression])]
+
+        @delayed
+        def finish(*grids):
+            out = [np.stack([grids[i], grids[i + 1]], axis=-1) for i in range(0, len(grids), 2)]
+            return np.stack(out) if multi else out[0]
+        return self._delay(delay, finish(*[g for pair in pairs for g in pair]))
+
+    def covar(self, x, y, binby=(), selection=None, delay=False):
+        """cov(x, y) = E[xy] - E[x]E[y], each mean over its own valid rows
+        (vaex_tpu/dataframe.py:1027-1038)."""
+        x, y = str(x), str(y)
+        mean_xy = self.mean(f"({x}) * ({y})", binby, selection, delay=True)
+        mean_x = self.mean(x, binby, selection, delay=True)
+        mean_y = self.mean(y, binby, selection, delay=True)
+
+        @delayed
+        def finish(mxy, mx, my):
+            return np.asarray(mxy) - np.asarray(mx) * np.asarray(my)
+        return self._delay(delay, finish(mean_xy, mean_x, mean_y))
+
+    def correlation(self, x, y=None, binby=(), selection=None, delay=False):
+        """Pearson correlation covar(x, y) / (std(x) std(y)), or the matrix
+        of a list of expressions when y is None
+        (vaex_tpu/dataframe.py:1040-1058)."""
+        if y is None:
+            if not isinstance(x, (list, tuple)):
+                raise ValueError("provide y or a list of expressions")
+            return np.array([[self.correlation(a, b, binby, selection) for b in x]
+                             for a in x])
+        x, y = str(x), str(y)
+        cov = self.covar(x, y, binby, selection, delay=True)
+        std_x = self.std(x, binby, selection, delay=True)
+        std_y = self.std(y, binby, selection, delay=True)
+
+        @delayed
+        def finish(c, sx, sy):
+            with np.errstate(divide="ignore", invalid="ignore"):
+                return np.asarray(c) / (np.asarray(sx) * np.asarray(sy))
+        return self._delay(delay, finish(cov, std_x, std_y))
 
     # ---------------------------------------------------------------- order
     def take(self, indices):

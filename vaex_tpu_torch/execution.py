@@ -115,7 +115,8 @@ class ExecutorLocal(Executor):
             "tiles": n_tiles,
             "device": str(device),
             "tasks": [t.name for t in tasks],
-            # the grid kernel each aggregation task took: "b1", "b2" or "b3"
+            # per aggregation task, the kernel each kind of aggregator took, e.g.
+            # {"additive": "b1", "moments": "b5", "extremes": "torch"}
             "strategies": [t.strategy for t in tasks if isinstance(t, TaskAggregations)],
         })
         if len(self.trace_log) > 1000:

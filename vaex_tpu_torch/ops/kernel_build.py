@@ -2,7 +2,7 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``vaex_tpu_torch/_build/<name>-<key>.so``,
-where the key hashes the source, the shared header ``grid_common.cuh`` and
+where the key hashes the source, every header of ``csrc`` (``*.cuh``) and
 the flags.  A library is built at first use; :func:`build` starts one
 ``nvcc`` per source, all at once, so that a caller that needs several
 kernels waits for the slowest build only.
@@ -22,7 +22,6 @@ import time
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PACKAGE, "csrc")
 BUILD_DIR = os.path.join(_PACKAGE, "_build")
-HEADERS = ("grid_common.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -31,9 +30,14 @@ def source(name):
     return os.path.join(CSRC, f"{name}.cu")
 
 
+def headers():
+    """Every header of csrc, in name order: a source may include any of them."""
+    return sorted(os.path.join(CSRC, x) for x in os.listdir(CSRC) if x.endswith(".cuh"))
+
+
 def _target(name):
     h = hashlib.sha256()
-    for path in (source(name), *(os.path.join(CSRC, x) for x in HEADERS)):
+    for path in (source(name), *headers()):
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -11,7 +11,9 @@ import torch
 
 from .delayed import Promise
 from .ops.binners import fuse_bins, grid_shape, grid_size
-from .ops.grid_plan import grid_sums
+from .ops.grid_extreme import extreme_bins, grid_extreme
+from .ops.grid_moments import MAX_BASES, MAX_TERMS
+from .ops.grid_plan import grid_sums, moment_sums
 
 
 class Task(Promise):
@@ -36,10 +38,15 @@ class TaskAggregations(Task):
     """All aggregations of one pass that share a binner stack.
 
     ``subtasks`` holds the AggOperations the descriptors of
-    :mod:`vaex_tpu_torch.agg` registered; every one is additive and rides
-    one call of a grid kernel per tile, the one :mod:`.ops.grid_plan` picks
-    for the grid size (B1, B2 or B3).  ``strategy`` names the kernel of the
-    last tile; the executor writes it into the pass's ``trace_log`` entry.
+    :mod:`vaex_tpu_torch.agg` registered.  Per tile, each kind rides its own
+    batch: the additive ops one call of the grid kernel that
+    :mod:`.ops.grid_plan` picks for the grid size (B1, B2 or B3), the moment
+    ops as few calls of the moment kernel it picks (B4, B5, or B3 over
+    formed terms) as ``MAX_BASES`` / ``MAX_TERMS`` allow, the extremes one
+    :func:`.ops.grid_extreme.grid_extreme` each.  ``strategy`` maps each
+    kind of the last tile to its kernel, e.g. ``{"additive": "b1",
+    "moments": "b5", "extremes": "torch"}``; the executor writes it into
+    the pass's ``trace_log`` entry.
     """
 
     def __init__(self, df, binners):
@@ -72,10 +79,33 @@ class TaskAggregations(Task):
     def update(self, state, ctx):
         G = grid_size(self.binners)
         idx = self._flat_indices(ctx)
+        new_state = list(state)
+        self.strategy = {}
+        kinds = {}
+        for i, op in enumerate(self.subtasks):
+            kinds.setdefault(op.kind, []).append(i)
+        if "additive" in kinds:
+            self.strategy["additive"] = self._update_additive(kinds["additive"], new_state,
+                                                              idx, G, ctx)
+        if "moments" in kinds:
+            names = [self._update_moments(batch, new_state, idx, G, ctx)
+                     for batch in _moment_batches(self.subtasks, kinds["moments"])]
+            self.strategy["moments"] = "+".join(dict.fromkeys(names))
+        if "extreme" in kinds:
+            bins = extreme_bins(idx, G)
+            for i in kinds["extreme"]:
+                op = self.subtasks[i]
+                values, valid = op.extreme_input(ctx)
+                new_state[i] = op.apply_kernel(new_state[i],
+                                               grid_extreme(bins, values, G, op.mode, valid))
+            self.strategy["extremes"] = "torch"
+        return new_state
+
+    def _update_additive(self, members, new_state, idx, G, ctx):
         int_cols, float_cols, slots = [], [], []
         count = False
-        for op in self.subtasks:
-            kind, col = op.kernel_input(ctx)
+        for i in members:
+            kind, col = self.subtasks[i].kernel_input(ctx)
             if kind == "count":
                 count = True
                 slots.append(("count", 0))
@@ -85,17 +115,31 @@ class TaskAggregations(Task):
             else:
                 slots.append(("float", len(float_cols)))
                 float_cols.append(col)
-        self.strategy, int_sums, float_sums = grid_sums(idx, int_cols, float_cols, G, count)
-        new_state = []
-        for op, s, (kind, k) in zip(self.subtasks, state, slots):
+        name, int_sums, float_sums = grid_sums(idx, int_cols, float_cols, G, count)
+        for i, (kind, k) in zip(members, slots):
             if kind == "count":
                 sums = int_sums[0]
             elif kind == "int":
                 sums = int_sums[int(count) + k]
             else:
                 sums = float_sums[k]
-            new_state.append(op.apply_kernel(s, sums))
-        return new_state
+            new_state[i] = self.subtasks[i].apply_kernel(new_state[i], sums)
+        return name
+
+    def _update_moments(self, batch, new_state, idx, G, ctx):
+        bases = [moment_base(ctx.expr(e)) for e in batch.bases]
+        name, counts, sums = moment_sums(idx, bases, batch.terms, G)
+        # each term's row among the kernel's count rows or float rows
+        rows, n_count, n_float = [], 0, 0
+        for a, *_ in batch.terms:
+            rows.append(n_count if a < 0 else n_float)
+            n_count, n_float = n_count + (a < 0), n_float + (a >= 0)
+        for i, slots in batch.members:
+            op = self.subtasks[i]
+            c = [rows[k] for k in slots if batch.terms[k][0] < 0]
+            f = [rows[k] for k in slots if batch.terms[k][0] >= 0]
+            new_state[i] = op.apply_kernel(new_state[i], (counts[c], sums[f]))
+        return name
 
     def _flat_indices(self, ctx):
         if self.binners:
@@ -105,8 +149,64 @@ class TaskAggregations(Task):
 
     def finalize(self, state):
         shape = grid_shape(self.binners)
-        results = [s.reshape(shape) for s in state]
+        results = [op.get_result(s, shape) for op, s in zip(self.subtasks, state)]
         self.fulfill(results)
         for sub, r in zip(self.subtask_promises, results):
             sub.fulfill(r)
         return results
+
+
+def moment_base(x):
+    """A base column of the moment kernels from one tile's NA: int64,
+    float32 or float64, with NaN in the masked rows (as float64)."""
+    d = x.data
+    if d.is_floating_point():
+        if d.dtype not in (torch.float32, torch.float64):
+            d = d.to(torch.float64)
+    else:
+        d = d.to(torch.int64)
+    if x.mask is not None:
+        d = d.to(torch.float64).masked_fill(x.mask, torch.nan)
+    return d.contiguous()
+
+
+class _MomentBatch:
+    """The OpMoments of one kernel call: their base expressions and terms,
+    both deduplicated, and per op the batch term of each of its terms."""
+
+    def __init__(self):
+        self.bases, self.terms, self.keys, self.members = [], [], [], []
+
+    def add(self, i, op):
+        """Take op i if the batch stays within the kernels' limits."""
+        bases = self.bases + [e for e in dict.fromkeys(op.expressions) if e not in self.bases]
+        if len(bases) > MAX_BASES:
+            return False
+        where = [bases.index(e) for e in op.expressions]
+        terms, keys, slots = list(self.terms), list(self.keys), []
+        for term in op.terms:
+            a, b, v0, v1 = (where[j] if j >= 0 else -1 for j in term)
+            if b >= 0 and b < a:
+                a, b = b, a
+            # a term is its factors and the bases it needs valid
+            key = (a, b, frozenset(j for j in (a, b, v0, v1) if j >= 0))
+            if key not in keys:
+                keys.append(key)
+                terms.append((a, b, v0, v1))
+            slots.append(keys.index(key))
+        if len(terms) > MAX_TERMS:
+            return False
+        self.bases, self.terms, self.keys = bases, terms, keys
+        self.members.append((i, slots))
+        return True
+
+
+def _moment_batches(subtasks, members):
+    """The moment ops of a pass, packed in order into kernel calls (one op
+    alone always fits: at most 2 bases and 6 terms)."""
+    batches = [_MomentBatch()]
+    for i in members:
+        if not batches[-1].add(i, subtasks[i]):
+            batches.append(_MomentBatch())
+            batches[-1].add(i, subtasks[i])
+    return batches
