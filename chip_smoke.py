@@ -6,8 +6,8 @@
 Run from the root of the repository on a machine with a CUDA card.  It
 
 1. prints the card's name and power limit, and the torch and CUDA versions;
-2. builds the five grid kernels from vaex_tpu_torch/csrc with nvcc, one
-   nvcc per source, all at once;
+2. builds the six kernels (five grid kernels and the set probe) from
+   vaex_tpu_torch/csrc with nvcc, one nvcc per source, all at once;
 3. holds B1 (grid_additive) against its plain PyTorch version on the card,
    at G in {1, 103, 512, largest that fits} and N in {0, 1, 1_000_003, 1e8}:
    int64 values from +-2^62 (sums wrap) and the count exact, float64 from
@@ -48,10 +48,34 @@ Run from the root of the repository on a machine with a CUDA card.  It
 9. times the main-path groupby, the four wide queries and the five
    statistics against plain PyTorch (5 repetitions, medians), and every
    kernel against its plain version and against its HBM floor at the copy
-   bandwidth measured in the same run.
+   bandwidth measured in the same run;
+10. holds B6 (probe) against its plain version (searchsorted, gather,
+    compare): int64 and float64 keys, M in {1, 64, 500, 2048, the limit of
+    its shared-memory kernel} and, through its two-level kernel for wider
+    sets, M in {that limit + 1, 50 000, 1 000 003}, N in {0, 1, 1_000_003,
+    1e8}, rows that hit, miss, lie below the first and above the last key,
+    and -0.0 and NaN among the floats; exact;
+11. drives the set-based path through the public API on the H2O-shaped
+    table WITHOUT categorize: df.count(selection=df.id6.isin(v)) and
+    df[df.id6.isin(v)].groupby("id4", {"v1": sum, "v3": mean}) with v = 500
+    ids drawn from seed 42, the same count with 50 000 ids (a set past the
+    shared-memory kernel: the two-level one), groupby over the raw id4 (dense
+    grouper, B1) and
+    the raw id6 (dense grouper, B3), groupby over k = id4 * 1_000_003 and
+    k = (id6 % 2000) * 1_000_003 (set grouper: set build, then the ordinals
+    through B6 at M = 100 and 2000) and k = id6 * 1_000_003 (M = 1e6: the
+    two-level kernel, then B3), df.id6.nunique() and df.id4.unique(),
+    each checked against plain torch (isin, unique, bincount, index_add_),
+    with B6's launch count and the probe route each pass recorded;
+12. times those queries against plain PyTorch (the dense pre-pass included
+    and, beside it, remembered), and B6 at the isin shapes (500 and 50 000
+    ids) against its plain version and torch.isin.
 
 It exits non-zero on any failure.  The line before the last is a JSON
-object with every kernel's launches, error and times; the last line is
+object with every kernel's launches, error, times, bound (the larger of the
+bytes it must move over the card's published memory rate and its operations
+over the published peak) and, where one exists, the time of the PyTorch
+library call that computes the same function; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -74,6 +98,20 @@ H2O_K = 100  # id4, id5 cardinality
 H2O_K6 = H2O_ROWS // 100  # id6 cardinality
 REPS = 5
 RTOL = ATOL = 1e-9
+ISIN_VALUES = 500
+ISIN_WIDE_VALUES = 50_000  # past the probe's shared-memory kernel
+WIDE_FACTOR = 1_000_003  # spreads a key's values over a range past 2^22
+# set-grouper keys and their set sizes
+SET_KEYS = {"k100": 100, "k2000": 2000, "k1e6": H2O_K6}
+# NVIDIA's H100 SXM data sheet: HBM bytes/s; float32 operations/s outside the
+# tensor cores.  Integer adds and compares are counted at the float32 rate,
+# float64 operations at half of it.
+# beside the keys every kernel has: the index_add_ alone for B4 and B5; for
+# B6 torch.isin and its two-level kernel at the wide isin shape
+EXTRA_KEYS = ("library_add_ms", "isin_ms", "wide_launches", "wide_ms", "wide_plain_ms",
+              "wide_library_ms", "wide_isin_ms", "wide_bound_ms", "wide_max_abs_err")
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"int": 67e12, "f64": 33.5e12}
 
 
 def check(ok, message):
@@ -261,6 +299,35 @@ def copy_bandwidth(x):
     return 2 * x.numel() * x.element_size() / (copy_ms * 1e-3), copy_ms
 
 
+def bound(n_bytes, ops):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of ``n_bytes`` (every input read once, every output written once) over
+    PEAK_BYTES and the operations ``ops`` ({kind: count}) over PEAK_OPS."""
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    ops_ms = sum(count / PEAK_OPS[kind] for kind, count in ops.items()) * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def additive_bound(n, G, n_int, n_float, count=True):
+    """The bound of one additive grid call: int32 idx and 8-byte columns in,
+    [C, G] 8-byte sums out; one add per row and column."""
+    C = int(count) + n_int + n_float
+    return bound(n * (4 + 8 * (n_int + n_float)) + 8 * C * G,
+                 {"int": n * (int(count) + n_int), "f64": n * n_float})
+
+
+def library_additive_ms(idx, int_cols, float_cols, G, reps=2):
+    """The PyTorch library calls for an additive grid call: ``bincount`` for
+    the count and one ``index_add_`` per column (idx within [0, G))."""
+    idx = idx.to(torch.int64)
+
+    def run():
+        torch.bincount(idx, minlength=G)
+        for col in (*int_cols, *float_cols):
+            torch.zeros(G, dtype=col.dtype, device=col.device).index_add_(0, idx, col)
+    return cuda_ms(run, reps)
+
+
 def timings(n, df, i1, x, vt, ga, label):
     """Phase 9 at one main-path size: end-to-end query and B1 times, in turns."""
     port_s, plain_s = [], []
@@ -299,7 +366,12 @@ def timings(n, df, i1, x, vt, ga, label):
     print(f"[{label}] N={n}: copy bandwidth {copy_bw / 1e12!r} TB/s (read + write, "
           f"{copy_ms!r} ms); kernel HBM floor at 12 B/row {floor_ms!r} ms, kernel at "
           f"{floor_ms / kernel_ms!r} of it", flush=True)
-    return kernel_ms, plain_ms, err
+    library_ms = library_additive_ms(idx, [], [x], G)
+    bound_ms, bound_by = additive_bound(n, G, 0, 1)
+    print(f"[{label}] N={n} G={G}: bincount + index_add_ (the library calls) {library_ms!r} "
+          f"ms; bound {bound_ms!r} ms by {bound_by} at {PEAK_BYTES / 1e12} TB/s", flush=True)
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "err": err, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 # ------------------------------------------------------- the H2O-shaped path
@@ -497,7 +569,27 @@ def stats_path(vt, plan, df, cols):
     return launches
 
 
-def stats_timings(df, cols, vt, plan, agg, label):
+def library_moments_ms(idx, bases, terms, G, gm):
+    """The PyTorch library call for a moment kernel: the terms formed as an
+    [N, A] float64 matrix (what the TPU kernels are handed), then one
+    ``index_add_``.  Returns the time of both and of the ``index_add_``
+    alone."""
+    idx = idx.to(torch.int64)
+
+    def formed():
+        count_cols, float_cols = gm.form_terms(idx, bases, terms)
+        return torch.stack([c.to(torch.float64) for c in count_cols] + float_cols, dim=1)
+
+    def add(matrix):
+        out = torch.zeros(G, len(terms), dtype=torch.float64, device=idx.device)
+        return out.index_add_(0, idx, matrix)
+    matrix = formed()
+    add_ms = cuda_ms(lambda: add(matrix), 2)
+    del matrix
+    return cuda_ms(lambda: add(formed()), 2), add_ms
+
+
+def stats_timings(df, cols, vt, plan, agg, gm, label):
     """Phase 9 for the statistics: query medians and B4/B5 kernel times at
     the shapes of std by id4 (G = 103, v3) and q9 (G = 10 609, v1 and v2)."""
     plain = stats_plain(cols)
@@ -531,7 +623,20 @@ def stats_timings(df, cols, vt, plan, agg, label):
               f"ms vs plain {plain_ms!r} ms; HBM floor at {bytes_per_row} B/row ({bytes_note}) "
               f"{floor_ms!r} ms, kernel at {floor_ms / kernel_ms!r} of it; max abs err {err!r}",
               flush=True)
-        results[name] = (kernel_ms, plain_ms, err)
+        # in: idx and the base columns; out: one 8-byte row of G per term;
+        # a multiply and an add per float term, an add per count term
+        n_float = sum(a >= 0 for a, *_ in terms)
+        bound_ms, bound_by = bound(
+            H2O_ROWS * bytes_per_row + 8 * len(terms) * G,
+            {"f64": 2 * H2O_ROWS * n_float, "int": H2O_ROWS * (len(terms) - n_float)})
+        library_ms, add_ms = library_moments_ms(idx, bases, terms, G, gm)
+        print(f"[{label}] {name}: bound {bound_ms!r} ms by {bound_by} at "
+              f"{PEAK_BYTES / 1e12} TB/s; formed terms + one index_add_ of the [N, "
+              f"{len(terms)}] float64 matrix (the library call) {library_ms!r} ms, the "
+              f"index_add_ alone {add_ms!r} ms", flush=True)
+        results[name] = {"ms": kernel_ms, "plain_ms": plain_ms, "err": err,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                         "library_add_ms": add_ms}
         del idx
     return results
 
@@ -573,9 +678,255 @@ def h2o_timings(df, cols, vt, plan, label):
               f"ms vs plain {plain_ms!r} ms; HBM floor at {bytes_per_row} B/row "
               f"({bytes_note}) {floor_ms!r} ms, kernel at {floor_ms / kernel_ms!r} of it; "
               f"max abs err {err!r}", flush=True)
-        results[name] = (kernel_ms, plain_ms, err)
+        library_ms = library_additive_ms(idx, [cols["v1"]], [cols["v3"]], G)
+        bound_ms, bound_by = additive_bound(H2O_ROWS, G, 1, 1)
+        print(f"[{label}] {name}: bincount + 2 index_add_ (the library calls) {library_ms!r} "
+              f"ms; bound {bound_ms!r} ms by {bound_by} (idx 4 + v1 8 + v3 8 B/row in, "
+              f"3 x G x 8 B out) at {PEAK_BYTES / 1e12} TB/s", flush=True)
+        results[name] = {"ms": kernel_ms, "plain_ms": plain_ms, "err": err,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
         del idx
     return results
+
+# ------------------------------------------------------- the set-based path
+def probe_inputs(gen, n, M, float_keys):
+    """M sorted unique keys and n rows: hits, misses, rows below the first
+    and above the last key and, for floats, -0.0 and NaN."""
+    keys = torch.randperm(4 * M, generator=gen, device="cuda")[:M].sort().values - M
+    x = torch.randint(-M - 5, 3 * M + 6, (n,), generator=gen, device="cuda", dtype=torch.int64)
+    if float_keys:
+        keys, x = keys.to(torch.float64) * 0.5, x.to(torch.float64) * 0.5
+        x[::7] = -0.0
+        x[3::11] = float("nan")
+    return keys, x
+
+
+def probe_vs_plain(probe):
+    """Phase 10: B6 against its plain version, exact; returns the largest
+    difference of any ordinal (0 when every check passed)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    worst = 0
+    for float_keys in (False, True):
+        for M in (1, 64, 500, 2048, probe.MAX_KEYS, probe.MAX_KEYS + 1, 50_000, 1_000_003):
+            for n in KERNEL_SIZES:
+                keys, x = probe_inputs(gen, n, M, float_keys)
+                before = probe.probe.wide_launches
+                got = probe.probe(keys, x)
+                want = probe.probe_reference(keys, x)
+                torch.cuda.synchronize()
+                wide = M > probe.MAX_KEYS
+                what = f"b6{'-wide' if wide else ''} {keys.dtype} M={M} N={n}"
+                check(probe.probe.wide_launches - before == int(wide),
+                      f"the kernel of the set's size, {what}")
+                diff = int((got - want).abs().max()) if n else 0
+                worst = max(worst, diff)
+                check(got.dtype == torch.int32 and torch.equal(got, want), f"ordinals, {what}")
+                hits = int((got >= 0).sum())
+                if float_keys and n > 11:
+                    check(bool((got[torch.isnan(x)] == -1).all()), f"NaN rows give -1, {what}")
+                    zero = torch.nonzero(keys == 0)
+                    if zero.numel():
+                        check(bool((got[torch.signbit(x) & (x == 0)] == int(zero[0])).all()),
+                              f"-0.0 rows find the key 0.0, {what}")
+                print(f"{what} vs plain: exact, {hits} rows hit", flush=True)
+                del keys, x, got, want
+    return worst
+
+
+def make_sets_table(vt, cols):
+    """The H2O-shaped columns WITHOUT categorize, plus two keys whose range
+    is past 2^22 (so they take the set grouper), and the isin values."""
+    cols = dict(cols)
+    cols["k100"] = cols["id4"] * WIDE_FACTOR
+    cols["k2000"] = (cols["id6"] % SET_KEYS["k2000"]) * WIDE_FACTOR
+    cols["k1e6"] = cols["id6"] * WIDE_FACTOR
+    ids = torch.randperm(H2O_K6, generator=torch.Generator().manual_seed(SEED)) + 1
+    values = {"isin": ids[:ISIN_VALUES].numpy(), "isin wide": ids[:ISIN_WIDE_VALUES].numpy()}
+    return vt.from_dataset(vt.DatasetArrays(cols)), cols, values
+
+
+def sets_queries(vt, values):
+    agg = {"v1": "sum", "v3": "mean"}
+    return {
+        "isin count": lambda df: df.count(selection=df.id6.isin(values["isin"])),
+        "isin wide count": lambda df: df.count(selection=df.id6.isin(values["isin wide"])),
+        "isin groupby": lambda df: df[df.id6.isin(values["isin"])].groupby("id4", agg=agg),
+        "raw id4": lambda df: df.groupby("id4", agg=agg),
+        "raw id6": lambda df: df.groupby("id6", agg=agg),
+        "set k100": lambda df: df.groupby("k100", agg={"v1": "sum"}),
+        "set k2000": lambda df: df.groupby("k2000", agg={"v1": "sum"}),
+        "set k1e6": lambda df: df.groupby("k1e6", agg={"v1": "sum"}),
+        "nunique id6": lambda df: df.id6.nunique(),
+        "unique id4": lambda df: df.id4.unique(),
+    }
+
+
+# what each query's last pass must record: the probe route, and the kernel
+# of its additive aggregation (None: the last pass is a set build)
+SETS_EXPECT = {"isin count": ("b6", "b1"), "isin wide count": ("b6-wide", "b1"),
+               "isin groupby": ("b6", "b1"), "raw id4": (None, "b1"), "raw id6": (None, "b3"),
+               "set k100": ("b6", "b1"), "set k2000": ("b6", "b2"),
+               "set k1e6": ("b6-wide", "b3"),
+               "nunique id6": (None, None), "unique id4": (None, None)}
+
+
+def sets_plain(cols, values):
+    """The same answers in plain torch: isin, unique, aminmax, bincount and
+    index_add_.  A groupby gives (keys, counts, v1 sums[, v3 sums])."""
+    values = {name: torch.as_tensor(v, device="cuda") for name, v in values.items()}
+
+    def grouped(key, keep=None, v3=True):
+        k, v1 = cols[key], cols["v1"]
+        if keep is not None:
+            k, v1 = k[keep], v1[keep]
+        lo, hi = (int(v) for v in torch.aminmax(k))
+        size, k = hi - lo + 1, k - lo
+        out = [torch.arange(lo, hi + 1, device="cuda"), torch.bincount(k, minlength=size),
+               torch.zeros(size, dtype=torch.int64, device="cuda").index_add_(0, k, v1)]
+        if v3:
+            w = cols["v3"] if keep is None else cols["v3"][keep]
+            out.append(torch.zeros(size, dtype=torch.float64, device="cuda").index_add_(0, k, w))
+        return out
+
+    def by_set(key):
+        keys, inverse, counts = torch.unique(cols[key], return_inverse=True, return_counts=True)
+        sums = torch.zeros(keys.numel(), dtype=torch.int64, device="cuda")
+        return keys, counts, sums.index_add_(0, inverse, cols["v1"])
+    return {
+        "isin count": lambda: torch.isin(cols["id6"], values["isin"]).sum(),
+        "isin wide count": lambda: torch.isin(cols["id6"], values["isin wide"]).sum(),
+        "isin groupby": lambda: grouped("id4", torch.isin(cols["id6"], values["isin"])),
+        "raw id4": lambda: grouped("id4"),
+        "raw id6": lambda: grouped("id6"),
+        "set k100": lambda: by_set("k100"),
+        "set k2000": lambda: by_set("k2000"),
+        "set k1e6": lambda: by_set("k1e6"),
+        "nunique id6": lambda: torch.unique(cols["id6"]).numel(),
+        "unique id4": lambda: torch.unique(cols["id4"]),
+    }
+
+
+def sets_check(name, out, want):
+    """One set-based query's result against its plain torch answer."""
+    if name in ("isin count", "isin wide count"):
+        check(int(out) == int(want), f"{name} {int(out)} equals torch.isin's {int(want)}")
+    elif name == "nunique id6":
+        check(out == want, f"nunique {out} equals torch.unique's {want}")
+    elif name == "unique id4":
+        check(out == want.tolist(), "unique id4 in order")
+    else:
+        key = out.get_column_names()[0]
+        keys, counts, v1, *v3 = (t.cpu() for t in want)
+        keep = counts > 0
+        check(out.get_column_names() == [key, "v1"] + ["v3"] * len(v3), f"{name} columns")
+        check(torch.equal(torch.as_tensor(out.evaluate(key)), keys[keep]),
+              f"{name} keys in order")
+        check(torch.equal(torch.as_tensor(out.evaluate("v1")), v1[keep]), f"{name} v1 sums exact")
+        if v3:
+            check(torch.allclose(torch.as_tensor(out.evaluate("v3")), (v3[0] / counts)[keep],
+                                 rtol=RTOL, atol=ATOL), f"{name} v3 means")
+
+
+def sets_path(vt, plan, probe, cols):
+    """Phase 11: the set-based queries once, checked; returns the table, the
+    isin values and the launches of each kernel during them."""
+    df, cols, values = make_sets_table(vt, cols)
+    plain = sets_plain(cols, values)
+    kernels = {**plan.KERNELS, "b6": probe.probe}
+    for kernel in kernels.values():
+        kernel.launches = 0
+    probe.probe.wide_launches = 0
+    outs = {}
+    for name, query in sets_queries(vt, values).items():
+        before, before_wide = probe.probe.launches, probe.probe.wide_launches
+        outs[name] = query(df)
+        log = df.executor.trace_log[-1]
+        route, kernel = SETS_EXPECT[name]
+        additive = [s.get("additive") for s in log["strategies"]]
+        print(f"sets {name} N={H2O_ROWS}: last pass probe {log['probe']}, strategies "
+              f"{log['strategies']}, B6 launches {probe.probe.launches - before}", flush=True)
+        check(log["probe"] == route, f"{name}: probe route {log['probe']}, expected {route}")
+        check(additive == ([kernel] if kernel else []), f"{name}: additive kernels {additive}")
+        check((probe.probe.launches > before) == (route is not None), f"{name}: B6 launches")
+        check((probe.probe.wide_launches > before_wide) == (route == "b6-wide"),
+              f"{name}: launches of B6's two-level kernel")
+    torch.cuda.synchronize()
+    launches = {name: kernel.launches for name, kernel in kernels.items()}
+    launches["b6-wide"] = probe.probe.wide_launches
+    for name, out in outs.items():
+        sets_check(name, out, plain[name]())
+        print(f"sets {name}: checked against plain torch (ints and keys exact, floats rtol "
+              f"{RTOL})", flush=True)
+    print(f"launches during the set-based path: {launches}", flush=True)
+    return df, cols, values, launches
+
+
+def sets_timings(df, cols, values, vt, probe, setops, label):
+    """Phase 12: query medians (a groupby over a raw key with its pre-pass,
+    and with the pre-pass remembered) and B6 at the isin shape."""
+    plain = sets_plain(cols, values)
+
+    def fresh(query):
+        def run():
+            df.dataset.remembered.clear()
+            return query(df)
+        return run
+    for name, query in sets_queries(vt, values).items():
+        plain_med, plain_s = median_s(plain[name])
+        port_med, port_s = median_s(fresh(query))
+        again_med, _ = median_s(lambda: query(df))
+        print(f"[{label}] sets {name} N={H2O_ROWS}: median {port_med!r} s (port; {again_med!r} "
+              f"s with the dense pre-pass remembered) vs {plain_med!r} s (plain torch), reps "
+              f"{REPS}; port s {port_s}; plain s {plain_s}", flush=True)
+    copy_bw, _ = copy_bandwidth(cols["v3"])
+    x = cols["id6"]
+
+    def library_probe(keys):
+        # the PyTorch calls that compute the kernel's function
+        idx = torch.searchsorted(keys, x).clamp_(max=keys.numel() - 1)
+        return torch.where(keys[idx] == x, idx, -1).to(torch.int32)
+    results = {}
+    for name, ids in values.items():
+        keys = torch.as_tensor(ids, device="cuda").sort().values
+        M = keys.numel()
+        kernel_ms = cuda_ms(lambda: probe.probe(keys, x), 5)
+        plain_ms = cuda_ms(lambda: probe.probe_reference(keys, x), 2)
+        library_ms = cuda_ms(lambda: library_probe(keys), 2)
+        isin_ms = cuda_ms(lambda: torch.isin(x, keys), 2)
+        got, want = probe.probe(keys, x), probe.probe_reference(keys, x)
+        check(torch.equal(got, want), f"b6 at the {name} shape")
+        check(torch.equal(got, library_probe(keys)), f"b6 equals the library calls, {name}")
+        check(torch.equal(got >= 0, torch.isin(x, keys)), "b6 membership equals torch.isin")
+        err = float((got - want).abs().max())
+        # in: the rows and the keys; out: an int32 per row; a compare per level
+        # of the search and one for equality
+        bound_ms, bound_by = bound(H2O_ROWS * 12 + 8 * M,
+                                   {"int": H2O_ROWS * (M.bit_length() + 1)})
+        floor_ms = H2O_ROWS * 12 / copy_bw * 1e3
+        print(f"[{label}] {setops.probe_route(M)} N={H2O_ROWS} M={M} (int64 id6 among the "
+              f"{name} values): kernel {kernel_ms!r} ms vs plain (searchsorted + gather + "
+              f"compare) {plain_ms!r} ms, the same as library calls {library_ms!r} ms, "
+              f"torch.isin (membership only) {isin_ms!r} ms; HBM floor at 12 B/row (x 8 + out "
+              f"4) {floor_ms!r} ms at the copy bandwidth, kernel at {floor_ms / kernel_ms!r} of "
+              f"it; bound {bound_ms!r} ms by {bound_by} at {PEAK_BYTES / 1e12} TB/s; max abs "
+              f"err {err!r}", flush=True)
+        results[name] = {"ms": kernel_ms, "plain_ms": plain_ms, "err": err,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                         "isin_ms": isin_ms}
+        del keys, got, want
+    for key, M_set in SET_KEYS.items():
+        set_keys = torch.unique(cols[key])
+        check(set_keys.numel() == M_set, f"{key} has {M_set} distinct values")
+        ms = cuda_ms(lambda: probe.probe(set_keys, cols[key]), 5)
+        p_ms = cuda_ms(lambda: probe.probe_reference(set_keys, cols[key]), 2)
+        print(f"[{label}] {setops.probe_route(M_set)} N={H2O_ROWS} M={M_set} (the set grouper "
+              f"of {key}): kernel {ms!r} ms vs plain {p_ms!r} ms", flush=True)
+    # the entry of the kernels line: the shared-memory kernel at the isin
+    # shape, the two-level kernel at the wide isin shape beside it
+    wide = results["isin wide"]
+    return {**results["isin"], "wide_ms": wide["ms"], "wide_plain_ms": wide["plain_ms"],
+            "wide_library_ms": wide["library_ms"], "wide_isin_ms": wide["isin_ms"],
+            "wide_bound_ms": wide["bound_ms"], "wide_max_abs_err": wide["err"]}
 
 
 def main():
@@ -591,14 +942,15 @@ def main():
     from vaex_tpu_torch.ops import grid_additive as ga
     from vaex_tpu_torch.ops import grid_plan as plan
     from vaex_tpu_torch.ops import grid_window as gw
-    from vaex_tpu_torch.ops import kernel_build
+    from vaex_tpu_torch.ops import grid_moments as gm
+    from vaex_tpu_torch.ops import kernel_build, probe, setops
 
     label = card()
     print(label)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     sources = {plan.B1: "grid_additive", plan.B2: "grid_window", plan.B3: "grid_partition",
-               plan.B4: "grid_moments", plan.B5: "grid_moments_window"}
+               plan.B4: "grid_moments", plan.B5: "grid_moments_window", "b6": "probe"}
     for name, (path, seconds, log) in kernel_build.build(*sources.values()).items():
         print(f"built {os.path.relpath(path, HERE)} in {seconds:.1f} s")
         for line in log.splitlines():
@@ -611,8 +963,10 @@ def main():
     print("wide kernels vs plain passed", flush=True)
     moment_kernels_vs_plain(plan, gw, agg)
     print("moment kernels vs plain passed", flush=True)
+    probe_vs_plain(probe)
+    print("probe kernel vs plain passed", flush=True)
 
-    for kernel in (*plan.KERNELS.values(), *plan.MOMENT_KERNELS.values()):
+    for kernel in (*plan.KERNELS.values(), *plan.MOMENT_KERNELS.values(), probe.probe):
         kernel.launches = 0
     tables = {n: main_path(n, vt) for n in MAIN_SIZES}
     main_launches = {name: kernel.launches for name, kernel in plan.KERNELS.items()}
@@ -629,31 +983,43 @@ def main():
         check(stats_launches[name] > 0,
               f"{sources[name]} was not launched during the statistics path")
     wide = h2o_timings(h2o_df, h2o_cols, vt, plan, label)
-    moments = stats_timings(h2o_df, h2o_cols, vt, plan, agg, label)
+    moments = stats_timings(h2o_df, h2o_cols, vt, plan, agg, gm, label)
+    del h2o_df
 
-    kernel_ms, plain_ms, err = results[MAIN_SIZES[0]]
-    measured = {plan.B1: (main_launches[plan.B1], err, kernel_ms, plain_ms),
-                plan.B2: (h2o_launches[plan.B2], *wide[plan.B2][2:], *wide[plan.B2][:2]),
-                plan.B3: (h2o_launches[plan.B3], *wide[plan.B3][2:], *wide[plan.B3][:2]),
-                plan.B4: (stats_launches[plan.B4], *moments[plan.B4][2:],
-                          *moments[plan.B4][:2]),
-                plan.B5: (stats_launches[plan.B5], *moments[plan.B5][2:],
-                          *moments[plan.B5][:2])}
+    sets_df, sets_cols, values, sets_launches = sets_path(vt, plan, probe, h2o_cols)
+    check(sets_launches["b6"] > 0, "probe was not launched during the set-based path")
+    check(sets_launches["b6-wide"] > 0,
+          "the probe's two-level kernel was not launched during the set-based path")
+    sets = sets_timings(sets_df, sets_cols, values, vt, probe, setops, label)
+    sets["wide_launches"] = sets_launches["b6-wide"]
+
+    measured = {plan.B1: (main_launches[plan.B1], results[MAIN_SIZES[0]]),
+                plan.B2: (h2o_launches[plan.B2], wide[plan.B2]),
+                plan.B3: (h2o_launches[plan.B3], wide[plan.B3]),
+                plan.B4: (stats_launches[plan.B4], moments[plan.B4]),
+                plan.B5: (stats_launches[plan.B5], moments[plan.B5]),
+                "b6": (sets_launches["b6"], sets)}
     replaces = {plan.B1: "vaex_tpu/ops/pallas_gridagg.py:474",
                 plan.B2: "vaex_tpu/ops/pallas_gridagg.py:239",
                 plan.B3: "vaex_tpu/ops/pallas_partition.py:72",
                 plan.B4: "vaex_tpu/ops/pallas_gridagg.py:45",
-                plan.B5: "vaex_tpu/ops/pallas_gridagg.py:126"}
+                plan.B5: "vaex_tpu/ops/pallas_gridagg.py:126",
+                "b6": "vaex_tpu/ops/pallas_probe.py:37"}
+    print(label)
     print(json.dumps({"kernels": [{
         "name": sources[name],
         "route": "cuda",
         "source": f"vaex_tpu_torch/csrc/{sources[name]}.cu",
         "replaces": replaces[name],
         "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": p_ms,
-    } for name, (launches, err, ms, p_ms) in measured.items()]}))
+        "max_abs_err": m["err"],
+        "ms": m["ms"],
+        "plain_ms": m["plain_ms"],
+        "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"],
+        "library_ms": m["library_ms"],
+        **{key: value for key, value in m.items() if key in EXTRA_KEYS},
+    } for name, (launches, m) in measured.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

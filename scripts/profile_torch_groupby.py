@@ -3,23 +3,28 @@
 
     python3 scripts/profile_torch_groupby.py [N ...]    (default: 1e8 4e8)
     python3 scripts/profile_torch_groupby.py --h2o
+    python3 scripts/profile_torch_groupby.py --sets
 
 The first form builds the chip_smoke.py main-path table on the card (int64
 key with K = 100 categories, float64 value, seed 42) and profiles
 ``groupby("i1", agg={sum, count}, sort=True)``.  ``--h2o`` builds
 chip_smoke.py's H2O-groupby-shaped table (1e8 rows) and profiles its q2,
-2-D binby, q3 and q5 queries and the statistics q6-sd, q7 and q9.  Each
-query is warmed up, then run REPS times under torch.profiler, each call
-ended by ``torch.cuda.synchronize()``.
+2-D binby, q3 and q5 queries and the statistics q6-sd, q7 and q9.
+``--sets`` profiles chip_smoke.py's set-based queries on the same table
+without categorize (isin as a selection and a filter, groupby over raw keys
+through the dense and the set grouper, nunique, unique), each with its
+pre-passes.  Each query is warmed up, then run REPS times under
+torch.profiler, each call ended by ``torch.cuda.synchronize()``.
 
 Device time counts only the activities that ran on the card (kernels,
 memcpy, memset), never the host-side aten operators that launched them:
 the busy time is the union of those activities' intervals, and the busy
 share is that union over the host wall time of the profiled calls.  Also
 prints the device time per kernel name, per query, and splits it into the
-port's grid kernels (B1-B5 and their folds) and everything else torch ran
-(the binning prolog, offsets, state adds, and min/max's scatter_reduce).  Exits non-zero when the
-profiler saw no device activity.
+port's kernels (B1-B5 with their folds, and the probe B6) and everything
+else torch ran (the binning prolog, offsets, state adds, min/max's
+scatter_reduce, a set build's sorts).  Exits non-zero when the profiler saw
+no device activity.
 """
 
 import os
@@ -50,7 +55,7 @@ def busy_us(intervals):
 # kernel names of csrc/*.cu
 GRID_KERNELS = ("grid_partials", "window_partials", "partition_count", "partition_scatter",
                 "partition_partials", "fold_partials", "moment_partials",
-                "moment_window_partials")
+                "moment_window_partials", "probe_rows")
 
 
 def profile(label, query):
@@ -75,7 +80,7 @@ def profile(label, query):
     grid = sum(us for name, us in per_name.items() if any(k in name for k in GRID_KERNELS))
     print(f"{label}: wall {wall_us / REPS / 1e3!r} ms per query (host clock), device busy "
           f"{busy / REPS / 1e3!r} ms per query, busy share {busy / wall_us!r}, "
-          f"idle share {1 - busy / wall_us!r}; grid kernels {grid / REPS / 1e3!r} ms, "
+          f"idle share {1 - busy / wall_us!r}; the port's kernels {grid / REPS / 1e3!r} ms, "
           f"other device work {(sum(per_name.values()) - grid) / REPS / 1e3!r} ms",
           flush=True)
     for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:12]:
@@ -100,6 +105,18 @@ def h2o(vt):
         profile(f"H2O {name} N={chip_smoke.H2O_ROWS}", lambda: query(df))
 
 
+def sets(vt):
+    import chip_smoke
+    _, cols = chip_smoke.make_h2o(vt)
+    df, _, values = chip_smoke.make_sets_table(vt, cols)
+
+    def fresh(query):  # every call runs its dense pre-pass again
+        df.dataset.remembered.clear()
+        return query(df)
+    for name, query in chip_smoke.sets_queries(vt, values).items():
+        profile(f"sets {name} N={chip_smoke.H2O_ROWS}", lambda: fresh(query))
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_torch_groupby: no CUDA device", file=sys.stderr)
@@ -108,6 +125,9 @@ def main():
     import vaex_tpu_torch as vt
     if sys.argv[1:] == ["--h2o"]:
         h2o(vt)
+        return 0
+    if sys.argv[1:] == ["--sets"]:
+        sets(vt)
         return 0
     for n in [int(float(a)) for a in sys.argv[1:]] or [100_000_000, 400_000_000]:
         main_path(n, vt)

@@ -20,6 +20,7 @@ from vaex_tpu_torch.ops import grid_moments as gm
 from vaex_tpu_torch.ops import grid_partition as gp
 from vaex_tpu_torch.ops import grid_plan
 from vaex_tpu_torch.ops import grid_window as gw
+from vaex_tpu_torch.ops import probe
 
 pytestmark = pytest.mark.cuda
 
@@ -256,3 +257,148 @@ def test_extremes_on_the_card_keep_int64(cuda):
     assert got.dtype == torch.int64
     npt.assert_array_equal(got.cpu().numpy(),
                            [2 ** 62 + 1, -(2 ** 62) - 3, np.iinfo(np.int64).max])
+
+
+def _probe_inputs(n, M, float_keys, device, seed=0):
+    """M sorted unique keys and n rows with hits, misses, rows below the
+    first and above the last key and, for floats, -0.0 and NaN."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    keys = torch.unique(torch.randint(-3 * M, 3 * M + 1, (2 * M,), generator=g, device=device))
+    keys = keys[torch.randperm(keys.numel(), generator=g, device=device)[:M]].sort().values
+    x = torch.randint(-3 * M - 5, 3 * M + 6, (n,), generator=g, device=device)
+    if float_keys:
+        keys, x = keys.to(torch.float64) * 0.5, x.to(torch.float64) * 0.5
+        x[::7] = -0.0
+        x[3::11] = float("nan")
+    if n:
+        x[::5] = keys[torch.randint(0, keys.numel(), (len(x[::5]),), generator=g, device=device)]
+    return keys, x
+
+
+@pytest.mark.parametrize("float_keys", [False, True])
+@pytest.mark.parametrize("M", [1, 64, 500, 2048, 16_384, probe.MAX_KEYS])
+@pytest.mark.parametrize("n", [0, 1, 300_007])
+def test_probe_kernel_matches_plain(cuda, float_keys, M, n):
+    keys, x = _probe_inputs(n, M, float_keys, cuda)
+    assert 1 <= keys.numel() <= M
+    narrow = torch.float32 if float_keys else torch.int32
+    for rows in (x, x.to(narrow), x.to(torch.float16 if float_keys else torch.int8)):
+        before = probe.probe.launches
+        got = probe.probe(keys, rows)
+        assert probe.probe.launches == before + 1
+        want = probe.probe_reference(keys, rows)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32
+        npt.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+        if float_keys and n:
+            assert (got[torch.isnan(rows)] == -1).all()  # NaN finds nothing
+
+
+def test_probe_finds_zero_for_negative_zero(cuda):
+    keys = torch.tensor([-1.5, 0.0, 2.0], dtype=torch.float64, device=cuda)
+    x = torch.tensor([-0.0, 0.0, float("nan"), 2.0, -2.0, 9.0], dtype=torch.float64, device=cuda)
+    assert probe.probe(keys, x).tolist() == [1, 1, -1, 2, -1, -1]
+
+
+@pytest.mark.parametrize("float_keys", [False, True])
+@pytest.mark.parametrize("M", [probe.MAX_KEYS + 1, 50_000, 1_000_003])
+@pytest.mark.parametrize("n", [0, 1, 300_007])
+def test_wide_probe_kernel_matches_plain(cuda, float_keys, M, n):
+    keys, x = _probe_inputs(n, M, float_keys, cuda)
+    assert keys.numel() > probe.MAX_KEYS
+    narrow = torch.float32 if float_keys else torch.int32
+    for rows in (x, x.to(narrow)):
+        before = probe.probe.wide_launches
+        got = probe.probe(keys, rows)
+        assert probe.probe.wide_launches == before + 1
+        want = probe.probe_reference(keys, rows)
+        torch.cuda.synchronize()
+        npt.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("top", [1, 2, 3, 8, 50])
+@pytest.mark.parametrize("M", [1, 2, 3, 5, 17, 64, 129, 1000])
+def test_wide_probe_kernel_at_every_sample_distance(cuda, monkeypatch, M, top):
+    """The two-level kernel on small sets (the shared-memory kernel switched
+    off), so that few samples, a last stretch shorter than the others and a
+    lone key are all searched."""
+    monkeypatch.setattr(probe, "MAX_KEYS", 0)
+    monkeypatch.setattr(probe, "TOP_KEYS", top)
+    for float_keys in (False, True):
+        keys, x = _probe_inputs(10_007, M, float_keys, cuda, seed=M + top)
+        before = probe.probe.wide_launches
+        got = probe.probe(keys, x)
+        assert probe.probe.wide_launches == before + 1
+        npt.assert_array_equal(got.cpu().numpy(), probe.probe_reference(keys, x).cpu().numpy())
+
+
+def test_probe_wrapper_raises_past_the_kernel(cuda):
+    keys = torch.arange(4, device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        probe.probe(keys[:0], keys)
+
+
+def test_isin_of_a_wide_set_on_the_card(cuda):
+    """isin of 50 000 ids, a set past the shared-memory kernel: the pass
+    records the two-level route and launches it."""
+    rng = np.random.default_rng(9)
+    k = rng.integers(0, 400_000, 300_000)
+    values = rng.choice(400_000, 50_000, replace=False)
+    df = vaex_tpu_torch.from_arrays(k=k).to_device(cuda)
+    before = probe.probe.wide_launches
+    assert int(df.count(selection=df.k.isin(values))) == int(np.isin(k, values).sum())
+    assert df.executor.trace_log[-1]["probe"] == "b6-wide"
+    assert probe.probe.wide_launches > before
+
+
+def test_set_paths_on_the_card(cuda):
+    """isin as a selection and a filter, a raw-key groupby through the set
+    grouper and through the dense one, unique and nunique, on a card-resident
+    frame: the probe kernel is launched and the answers are numpy's."""
+    rng = np.random.default_rng(6)
+    n = 200_000
+    k = rng.integers(0, 300, n)
+    wide = k * 1_000_003
+    x = rng.normal(0, 1, n)
+    df = vaex_tpu_torch.from_arrays(k=k, wide=wide, x=x).to_device(cuda)
+    values = rng.choice(300, 40, replace=False)
+    before = probe.probe.launches
+    assert int(df.count(selection=df.k.isin(values))) == int(np.isin(k, values).sum())
+    assert df.executor.trace_log[-1]["probe"] == "b6" and probe.probe.launches > before
+    out = df[df.k.isin(values)].groupby(
+        "wide", agg={"c": "count", "s": vaex_tpu_torch.agg.sum("x")})
+    keep = np.isin(k, values)
+    want_keys, want_counts = np.unique(wide[keep], return_counts=True)
+    npt.assert_array_equal(out["wide"].tolist(), want_keys)
+    npt.assert_array_equal(out["c"].tolist(), want_counts)
+    npt.assert_allclose(out["s"].tolist(), [x[keep & (wide == w)].sum() for w in want_keys],
+                        rtol=1e-9, atol=1e-9)
+    dense = df.groupby("k", agg={"c": "count"})
+    assert df.executor.trace_log[-1]["probe"] is None
+    npt.assert_array_equal(dense["c"].tolist(), np.bincount(k, minlength=300))
+    assert df.wide.nunique() == 300 and df.unique("k") == list(range(300))
+
+
+def test_float_and_masked_keys_on_the_card(cuda):
+    """Set groupers over a float key with NaN, -0.0 and infinities and over
+    a masked int key (tiled from the host into the pass), and a combined
+    grouper over both, on the card: the groups and counts are numpy's."""
+    rng = np.random.default_rng(8)
+    n = 100_000
+    f = rng.choice([1.5, -0.0, 0.0, np.nan, np.inf, -np.inf, 7.25], n)
+    m = np.ma.MaskedArray(rng.integers(0, 9, n), rng.random(n) < 0.1)
+    df = vaex_tpu_torch.from_arrays(f=f, m=m, x=rng.normal(0, 1, n)).to_device(cuda)
+    out = df.groupby("f", agg={"c": "count"}, sort=True)
+    assert df.executor.trace_log[-1]["probe"] == "b6"
+    finite = f[~np.isnan(f)]
+    keys, counts = np.unique(finite, return_counts=True)
+    npt.assert_array_equal(out["f"].tolist()[:-1], keys)
+    assert np.isnan(out["f"].tolist()[-1])
+    npt.assert_array_equal(out["c"].tolist(), [*counts, int(np.isnan(f).sum())])
+    out = df.groupby("m", agg={"c": "count"}, sort=True)
+    keys, counts = np.unique(m.compressed(), return_counts=True)
+    assert out["m"].tolist() == [*keys.tolist(), None]
+    npt.assert_array_equal(out["c"].tolist(), [*counts, int(m.mask.sum())])
+    both = df.groupby(["f", "m"], agg={"c": "count"}, assume_sparse=True)
+    assert int(np.sum(both["c"].tolist())) == n
+    assert len(both) == len(df.groupby(["f", "m"], agg={"c": "count"}, assume_sparse=False))

@@ -118,13 +118,18 @@ def test_count_binby_two_categories():
 
 
 def test_three_keys_past_the_cartesian_grid_raise_naming_a6():
+    """Three category keys with 100 * 100 * 101 > 1e6 combinations fuse into
+    one combined grouper, as in vaex_tpu (the name is from when the port
+    raised here)."""
     arrays = _two_keys(14, n=100)
     arrays["k3"] = arrays["k"] % 50
-    df = vaex_tpu_torch.from_arrays(**arrays).to_device("cpu")
+    ref, port = same_frames(arrays)
     for name, k in (("k", 100), ("k2", 100), ("k3", 101)):
-        df = df.categorize(name, labels=list(range(k)))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A6"):
-        df.groupby(["k", "k2", "k3"], agg="count")
+        ref, port = (df.categorize(name, labels=list(range(k))) for df in (ref, port))
+    gb = port.groupby(["k", "k2", "k3"], sort=True)
+    assert gb.combined is not None
+    assert_same_frame(ref.groupby(["k", "k2", "k3"], agg="count", sort=True), gb.agg("count"))
+    assert port.executor.trace_log[-1]["probe"] == "b6"
 
 
 @pytest.mark.parametrize("ascending", [True, False, [True, False], [False, True]])

@@ -260,6 +260,26 @@ def test_grid_extreme_matches_numpy(mode, dtype):
     npt.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("dtype", ["float64", "float32", "int64", "int32"])
+@pytest.mark.parametrize("mode", ["min", "max"])
+def test_extreme_of_rows_matches_grid_extreme(mode, dtype):
+    """The one-cell reduction of a statistic without binby equals the grid
+    version at G = 1: NaN and invalid rows drop, no row gives the identity."""
+    from vaex_tpu_torch.ops import grid_extreme as ge
+    rng = np.random.default_rng(13)
+    n = 3000
+    col = torch.from_numpy((rng.normal(0, 1e3, n)).astype(dtype))
+    if col.is_floating_point():
+        col[::7] = float("nan")
+    zeros = torch.zeros(n, dtype=torch.int64)
+    for valid in (None, torch.from_numpy(rng.random(n) < 0.5), torch.zeros(n, dtype=torch.bool)):
+        got = ge.extreme_of_rows(col, mode, valid)
+        assert got.dtype == col.dtype and got.shape == (1,)
+        assert torch.equal(got, ge.grid_extreme(zeros, col, 1, mode, valid))
+    empty = ge.extreme_of_rows(col[:0], mode)
+    assert empty.tolist() == [ge.identity(col.dtype, mode)]
+
+
 def test_aggregator_names_match_vaex_tpu():
     ref, port = _frames(_h2o(11, n=2000), {"id4": 100})
     for spec in ({"v3": ["std", "var", "min", "max"]}, ["std", "max"]):

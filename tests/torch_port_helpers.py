@@ -28,9 +28,30 @@ def seeded_arrays(seed, n, k, key_low=0, key_high=None, nan_every=0):
     }
 
 
+def key_arrays(seed, n):
+    """Raw key columns of every kind the set-based paths take, and values:
+    ``k`` int64 in a narrow range, ``w`` int64 over a range past 2^22, ``f``
+    float64 with NaN, -0.0 and both infinities, ``m`` a masked int64, ``fm`` a
+    masked float64 with NaN, ``b`` int32; ``x`` float64, ``iv`` int64."""
+    rng = np.random.default_rng(seed)
+    fm = rng.choice([0.5, 2.0, np.nan, -3.25], n)
+    return {
+        "k": rng.integers(-3, 40, n).astype(np.int64),
+        "w": rng.integers(0, 50, n).astype(np.int64) * 1_000_003,
+        "f": rng.choice([1.5, -0.0, 0.0, np.nan, np.inf, -np.inf, 7.25, -2.0], n),
+        "m": np.ma.MaskedArray(rng.integers(0, 9, n).astype(np.int64), rng.random(n) < 0.1),
+        "fm": np.ma.MaskedArray(fm, rng.random(n) < 0.15),
+        "b": rng.integers(0, 7, n).astype(np.int32),
+        "x": rng.normal(0, 10, n),
+        "iv": rng.integers(-100, 100, n).astype(np.int64),
+    }
+
+
 def same_frames(arrays, category=None, labels=None, tile_rows=None):
     """The same frame in both packages: (vaex_tpu frame, port frame on the
-    CPU device), both categorized on ``category`` when given."""
+    CPU device), both categorized on ``category`` when given.  Masked and
+    NaN-bearing columns cross as they are: the port keeps a masked column on
+    the host and tiles it into the pass."""
     ref = vaex_tpu.from_arrays(**arrays)
     port = vaex_tpu_torch.from_arrays(**arrays).to_device("cpu")
     if category is not None:
@@ -42,13 +63,36 @@ def same_frames(arrays, category=None, labels=None, tile_rows=None):
     return ref, port
 
 
+def same_set(oset_ref, oset_port):
+    """A vaex_tpu SortedSet and the port's hold the same keys, counts and
+    NaN / null slots."""
+    npt.assert_array_equal(np.asarray(oset_port.keys), np.asarray(oset_ref.keys))
+    assert oset_port.keys.dtype == np.asarray(oset_ref.keys).dtype
+    if oset_ref.counts is None:
+        assert oset_port.counts is None
+    else:
+        npt.assert_array_equal(oset_port.counts, np.asarray(oset_ref.counts))
+    for name in ("n_keys", "count", "nan_count", "null_count", "nan_ordinal", "null_ordinal",
+                 "has_nan", "has_null"):
+        assert getattr(oset_port, name) == getattr(oset_ref, name), name
+
+
+def _values(column):
+    """A result column as a float or int array; a missing value as NaN."""
+    values = column.tolist()
+    if any(v is None for v in values):
+        return np.asarray([np.nan if v is None else v for v in values], dtype=np.float64), [
+            v is None for v in values]
+    return np.asarray(values), None
+
+
 def assert_same_frame(ref, port):
     """Column names, order and values: ints exact, floats to the contract."""
     assert port.get_column_names() == ref.get_column_names()
     for name in ref.get_column_names():
-        want = np.asarray(ref[name].tolist())
-        got = np.asarray(port[name].tolist())
+        (want, want_null), (got, got_null) = _values(ref[name]), _values(port[name])
         assert got.shape == want.shape, name
+        assert got_null == want_null, name
         if want.dtype.kind == "f" or got.dtype.kind == "f":
             npt.assert_allclose(got, want, rtol=RTOL, atol=ATOL, err_msg=name)
         else:

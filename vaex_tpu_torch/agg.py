@@ -14,6 +14,10 @@ its kind:
 * ``extreme`` (:class:`OpMin`, :class:`OpMax`): one column for
   :mod:`.ops.grid_extreme`.
 
+A descriptor's ``selection=`` (a boolean expression) sends its operation to
+the aggregation task of that selection, whose bin indices drop the rows the
+selection marks False: the kernels need no validity column for it.
+
 Dtype contract (vaex_tpu/agg.py): count -> int64; sum upcasts int/bool ->
 int64 and float -> float64; mean, var, std, covar and corr are float64
 finishers; min and max keep the input dtype.  Sums of uint columns need
@@ -171,13 +175,23 @@ class OpMax(OpExtreme):
     mode = "max"
 
 
+def selection_expression(selection):
+    """A ``selection=`` argument as a boolean expression string, or None.
+    Only ad-hoc expressions are ported: the rows they mark False drop from
+    the aggregation, as the rows a filter drops do."""
+    if selection is None or selection is False:
+        return None
+    if selection is True or isinstance(selection, (list, tuple)):
+        raise NotImplementedError(
+            f"named selections (selection=True, select()) and lists of selections are {PENDING}")
+    return str(selection)
+
+
 class AggregatorDescriptor:
     def __init__(self, name, expression=None, selection=None, edges=False):
-        if selection is not None and selection is not False:
-            raise NotImplementedError(f"aggregations with a selection are {PENDING}")
         self.name = name
         self.expression = str(expression) if expression is not None else None
-        self.selection = None
+        self.selection = selection_expression(selection)
         self.edges = edges
 
     @property
@@ -207,7 +221,7 @@ class AggregatorDescriptorBasic(AggregatorDescriptor):
 
     def add_tasks(self, df, binners):
         op = self.op_class(self.expressions, dtype_in=self._input_dtype(df))
-        return [df.executor.schedule_aggregation(df, binners, op)]
+        return [df.executor.schedule_aggregation(df, binners, op, self.selection)]
 
 
 class AggregatorDescriptorMean(AggregatorDescriptor):
@@ -217,10 +231,10 @@ class AggregatorDescriptorMean(AggregatorDescriptor):
         super().__init__("mean", expression, selection, edges)
 
     def add_tasks(self, df, binners):
-        [sum_task] = AggregatorDescriptorBasic("sum", self.expression, OpSum).add_tasks(
-            df, binners)
-        [count_task] = AggregatorDescriptorBasic("count", self.expression, OpCount).add_tasks(
-            df, binners)
+        [sum_task] = AggregatorDescriptorBasic("sum", self.expression, OpSum,
+                                               self.selection).add_tasks(df, binners)
+        [count_task] = AggregatorDescriptorBasic("count", self.expression, OpCount,
+                                                 self.selection).add_tasks(df, binners)
 
         @delayed
         def finish(s, c):
@@ -238,9 +252,9 @@ COVAR_TERMS = [(0, 1, -1, -1), (0, -1, 1, -1), (1, -1, 0, -1), (-1, -1, 0, 1)]
 CORR_TERMS = COVAR_TERMS + [(0, 0, 1, -1), (1, 1, 0, -1)]
 
 
-def _moments(df, binners, expressions, terms):
+def _moments(df, binners, expressions, terms, selection=None):
     op = OpMoments(expressions, terms)
-    return df.executor.schedule_aggregation(df, binners, op)
+    return df.executor.schedule_aggregation(df, binners, op, selection)
 
 
 class AggregatorDescriptorVar(AggregatorDescriptor):
@@ -252,7 +266,7 @@ class AggregatorDescriptorVar(AggregatorDescriptor):
         self.ddof = ddof
 
     def add_tasks(self, df, binners):
-        moments = _moments(df, binners, [self.expression], VAR_TERMS)
+        moments = _moments(df, binners, [self.expression], VAR_TERMS, self.selection)
         std, ddof = self.std, self.ddof
 
         @delayed
@@ -282,7 +296,8 @@ class AggregatorDescriptorCovar(AggregatorDescriptor):
         return find_valid_name(name or f"{self.expression}_{self.y}_{self.name}")
 
     def add_tasks(self, df, binners):
-        moments = _moments(df, binners, [self.expression, self.y], COVAR_TERMS)
+        moments = _moments(df, binners, [self.expression, self.y], COVAR_TERMS,
+                           self.selection)
         ddof = self.ddof
 
         @delayed
@@ -304,7 +319,8 @@ class AggregatorDescriptorCorr(AggregatorDescriptorCovar):
         self.name = "corr"
 
     def add_tasks(self, df, binners):
-        moments = _moments(df, binners, [self.expression, self.y], CORR_TERMS)
+        moments = _moments(df, binners, [self.expression, self.y], CORR_TERMS,
+                           self.selection)
 
         @delayed
         def finish(r):

@@ -5,7 +5,12 @@ an immutable Dataset plus category metadata; ``to_device`` stages columns
 as tensors on a torch device; the statistics (``count``, ``sum``, ``mean``,
 ``var``, ``std``, ``min``, ``max``, ``minmax``, ``covar``,
 ``correlation``) and ``groupby`` build aggregation tasks that one pass of
-the executor runs.
+the executor runs.  ``filter`` (or ``df[<boolean expression>]``) keeps a
+boolean expression every pass evaluates per tile; ``selection=`` does the
+same for one statistic.  The set API (``isin``, ``unique``, ``nunique``,
+``value_counts``, ``map``) and the groupers of uncategorized keys build
+:class:`~vaex_tpu_torch.ops.setops.SortedSet` variables (``_set``), which
+expressions name and passes probe on their device.
 """
 
 from __future__ import annotations
@@ -17,15 +22,17 @@ import torch
 
 from . import agg as agg_module
 from . import array_types, settings
-from .column import column_device
 from .dataset import Dataset, DatasetArrays
 from .datatype import DataType, dtype_of, has_torch_dtype
 from .delayed import delayed
-from .execution import ExecutorLocal, _tile
+from .execution import ExecutorLocal, TileContext, _tile, pass_inputs
 from .expression import Expression
 from .ops.binners import BinnerOrdinal
-from .scopes import DeviceScope, column_names
-from .utils import valid_expression_name
+from .scopes import DeviceScope
+from .tasks import TaskSetCreate
+from .utils import fingerprint, valid_expression_name
+
+FILTERED_PENDING = "of a filtered DataFrame is not ported yet (ROADMAP queue A9)"
 
 
 class DataFrame:
@@ -40,6 +47,9 @@ class DataFrame:
         self.column_names: List[str] = list(dataset)
         self._categories: Dict[str, dict] = {}
         self._tile_rows = None  # rows per tile of a pass (None: settings.TILE_ROWS)
+        self.variables: Dict[str, object] = {}  # sets and arrays that expressions name
+        self._filter = None  # the boolean expression of a filtered frame
+        self._filtered_length = None
 
     def copy(self, column_names=None):
         df = DataFrame.__new__(DataFrame)
@@ -48,6 +58,52 @@ class DataFrame:
         df.column_names = list(column_names if column_names is not None else self.column_names)
         df._categories = dict(self._categories)
         df._tile_rows = self._tile_rows
+        df.variables = dict(self.variables)
+        df._filter = self._filter
+        df._filtered_length = self._filtered_length
+        return df
+
+    # ----------------------------------------------------------- variables
+    def add_variable(self, name, value, unique=False):
+        """Keep ``value`` (a SortedSet or an array) under a name expressions
+        can use; returns the name.  With ``unique`` the name is the value's
+        content hash, so the same payload gives the same expression string
+        and is kept once."""
+        if unique:
+            fp = value.fingerprint() if hasattr(value, "fingerprint") else fingerprint(value)
+            name = f"__{name}_{str(fp)[:12]}"
+            if name in self.variables:
+                return name
+        self.variables[name] = value
+        return name
+
+    def fingerprint(self):
+        """Content hash of what a pass over this frame reads: the dataset
+        (sampled), the filter and the variables."""
+        return fingerprint("dataframe", self.dataset.fingerprint(), self._filter, self.variables)
+
+    # -------------------------------------------------------------- filters
+    @property
+    def filter_expression(self):
+        return self._filter
+
+    @property
+    def filtered(self):
+        return self._filter is not None
+
+    def filter(self, expression, mode="and"):
+        """A frame that keeps the rows where the boolean ``expression`` holds
+        (missing counts as False), combined with the frame's filter by
+        ``mode``: "and", "or" or "replace"."""
+        if mode not in ("and", "or", "replace"):
+            raise ValueError(f"filter mode must be 'and', 'or' or 'replace', got {mode!r}")
+        df = self.copy()
+        expression = str(expression)
+        if self._filter is not None and mode != "replace":
+            symbol = "&" if mode == "and" else "|"
+            expression = f"(({self._filter}) {symbol} ({expression}))"
+        df._filter = expression
+        df._filtered_length = None
         return df
 
     # ------------------------------------------------------------- columns
@@ -62,20 +118,31 @@ class DataFrame:
         expression = str(expression)
         if expression in self.dataset:
             return dtype_of(self.dataset[expression])
-        return DataType(self._evaluate_rows(expression, 0, min(1, len(self))).dtype)
+        rows = min(1, self.dataset.row_count)
+        return DataType(self._evaluate_rows(expression, 0, rows, filtered=False).dtype)
 
     def __len__(self):
-        return self.dataset.row_count
+        """The number of rows; of a filtered frame the rows its filter keeps
+        (one count pass, remembered)."""
+        if not self.filtered:
+            return self.dataset.row_count
+        if self._filtered_length is None:
+            self._filtered_length = int(self.count())
+        return self._filtered_length
 
     def dataset_for_execution(self):
         return self.dataset
 
     def __getitem__(self, item):
-        if isinstance(item, (str, Expression)):
+        if isinstance(item, str):
             return Expression(self, item)
+        if isinstance(item, Expression):
+            return self.filter(item.expression)
         if isinstance(item, (list, tuple)):
             return self.copy(column_names=[str(c) for c in item])
         if isinstance(item, slice):
+            if self.filtered:
+                raise NotImplementedError(f"a slice {FILTERED_PENDING}")
             start, stop, step = item.indices(len(self))
             if step != 1:
                 raise ValueError("slices with a step are not supported")
@@ -121,15 +188,26 @@ class DataFrame:
         return self._categories[str(column)]["min_value"]
 
     # ------------------------------------------------------------ evaluation
-    def _evaluate_rows(self, expression, i1, i2):
-        """An expression over rows [i1, i2), eagerly, as a host array."""
-        names = column_names(expression)
-        scope = DeviceScope({n: _tile(self.dataset[n], i1, i2, column_device(self.dataset[n]))
-                             for n in names})
-        value = scope.evaluate(str(expression))
-        data = array_types.to_numpy(value.data)
-        if value.mask is not None:
-            mask = array_types.to_numpy(value.mask)
+    def _evaluate_rows(self, expression, i1, i2, filtered=True):
+        """An expression over rows [i1, i2), eagerly, as a host array; of a
+        filtered frame the rows the filter keeps, unless ``filtered`` is off."""
+        expression = str(expression)
+        expressions = [expression]
+        if filtered and self.filtered:
+            expressions.append(self._filter)
+        names, device, variables = pass_inputs(self, self.dataset, expressions)
+        tile = {n: _tile(self.dataset[n], i1, i2, device) for n in names}
+        ctx = TileContext(DeviceScope(tile, variables), i2 - i1, device)
+        value = ctx.expr(expression)
+        data, mask = value.data, value.mask
+        if data.dim() == 0:  # a constant expression
+            data = data.expand(i2 - i1)
+        if len(expressions) > 1:
+            keep = ctx.boolean(self._filter)
+            data, mask = data[keep], None if mask is None else mask[keep]
+        data = array_types.to_numpy(data)
+        if mask is not None:
+            mask = array_types.to_numpy(mask)
             if mask.any():
                 return np.ma.MaskedArray(data, mask)
         return data
@@ -137,9 +215,9 @@ class DataFrame:
     def evaluate(self, expression):
         """Values of an expression as a host numpy (masked) array."""
         expression = str(expression)
-        if expression in self.dataset:
+        if expression in self.dataset and not self.filtered:
             return array_types.to_numpy(self.dataset[expression][:])
-        return self._evaluate_rows(expression, 0, len(self))
+        return self._evaluate_rows(expression, 0, self.dataset.row_count)
 
     # ---------------------------------------------------------- aggregation
     def execute(self):
@@ -160,6 +238,8 @@ class DataFrame:
     def _compute_agg(self, name, expression, binby=(), selection=None, delay=False,
                      edges=False, **agg_kwargs):
         binners = self._create_binners(binby) if binby else ()
+        if isinstance(selection, Expression):
+            selection = selection.expression
         if name == "count" and (expression is None or str(expression) == "*"):
             desc = agg_module.count("*", selection=selection)
         else:
@@ -254,6 +334,8 @@ class DataFrame:
     def take(self, indices):
         """The rows at ``indices`` (host ints): numpy columns are indexed on
         the host, tensor columns on their device."""
+        if self.filtered:
+            raise NotImplementedError(f"take {FILTERED_PENDING}")
         indices = np.asarray(indices, dtype=np.int64)
         columns = {}
         for name in self.dataset:
@@ -289,12 +371,64 @@ class DataFrame:
             return self.take(np.argsort(keys[0], kind="stable"))
         return self.take(np.lexsort(keys[::-1]))
 
-    def groupby(self, by=None, agg=None, sort=False, ascending=True):
+    def groupby(self, by=None, agg=None, sort=False, ascending=True, assume_sparse="auto",
+                row_limit=None):
+        """Group by one or more keys: categories, raw int keys of a narrow
+        range (dense), any other numeric key (a set of its values), or, with
+        ``assume_sparse`` (True, or "auto" past 1e6 combinations), several keys
+        fused into one set of the observed combinations.  ``row_limit`` raises
+        RowLimitException when a key's set grows past it."""
         from .groupby import GroupBy
-        gb = GroupBy(self, by=by, sort=sort, ascending=ascending)
+        gb = GroupBy(self, by=by, sort=sort, ascending=ascending, combine=assume_sparse,
+                     row_limit=row_limit)
         if agg is None:
             return gb
         return gb.agg(agg)
+
+    # ------------------------------------------------------------- set API
+    def _set(self, expression, keep_counts=False, limit=None, limit_raise=True):
+        """The SortedSet of an expression's values over the rows the filter
+        keeps, built by one pass on the pass device."""
+        task = TaskSetCreate(self, str(expression), keep_counts=keep_counts,
+                             limit=limit if limit_raise else None)
+        self.executor.schedule(task)
+        self.execute()
+        return task.get()
+
+    def unique(self, expression, return_inverse=False, dropna=False, dropnan=False,
+               dropmissing=False, selection=None, limit=None, limit_raise=True,
+               array_type="list"):
+        """The distinct values in ascending order, then NaN, then None for a
+        missing value, unless dropped; with ``return_inverse`` also each
+        row's index into them."""
+        expression = str(expression)
+        df = self if selection is None else self.filter(agg_module.selection_expression(selection))
+        oset = df._set(expression, limit=limit, limit_raise=limit_raise)
+        keys = oset.key_array(masked=True)
+        take = list(range(oset.n_keys))
+        if oset.has_nan and not (dropna or dropnan):
+            take.append(oset.nan_ordinal)
+        if oset.has_null and not (dropna or dropmissing):
+            take.append(oset.null_ordinal)
+        values = keys[take] if len(take) != len(keys) else keys
+        if array_type in ("list", "python"):
+            values = values.tolist(None) if isinstance(values, np.ma.MaskedArray) else (
+                values.tolist())
+        if return_inverse:
+            return values, self.evaluate_ordinal(expression, oset)
+        return values
+
+    def evaluate_ordinal(self, expression, oset):
+        var = self.add_variable("set_inverse", oset, unique=True)
+        return self.evaluate(f"_ordinal_values({expression}, {var})")
+
+    def isin(self, values, column_names=None):
+        """True where any of the columns holds one of ``values``."""
+        exprs = [self[name].isin(values) for name in column_names or self.get_column_names()]
+        expr = exprs[0]
+        for e in exprs[1:]:
+            expr = expr | e
+        return expr
 
     # -------------------------------------------------------------- devices
     def to_device(self, device=None, column_names=None):

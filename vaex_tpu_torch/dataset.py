@@ -24,6 +24,9 @@ class Dataset(collections.abc.Mapping):
         self._row_count = 0
         self._ids = {}
         self._fingerprint = None
+        # facts derived from the columns' content (a key's range, a filter's
+        # row count), kept for the life of the node by whoever derives them
+        self.remembered = {}
 
     def __getitem__(self, name):
         return self._columns[name]

@@ -8,8 +8,13 @@ device-resident table is read in place; a tile of a host array is copied to
 the pass device.  Torch runs eagerly: each tile's expression evaluation and
 binning are separate kernels, then the grid kernel runs.
 
+A filtered DataFrame's filter is evaluated once per tile into
+``TileContext.row_valid`` (masked rows count as False); every task drops the
+rows it marks False.  The variables an expression names (sets, arrays) are
+resolved once per pass (:func:`.scopes.resolve_variables`).
+
 Not ported yet (ROADMAP queue A): the whole-pass loop, the host stage for
-string expressions, filters and selections, the mesh, the result cache.
+string expressions, named selections, the mesh, the result cache.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 
 from . import array_types, settings
 from .ops.nullable import NA
-from .scopes import DeviceScope, column_names
+from .scopes import DeviceScope, column_names, resolve_variables, variable_names
 from .tasks import TaskAggregations
 from .utils import trace
 
@@ -29,13 +34,30 @@ from .utils import trace
 class TileContext:
     """Everything a task's ``update`` can ask for about one tile."""
 
-    def __init__(self, scope: DeviceScope, n_rows, device):
+    def __init__(self, scope: DeviceScope, n_rows, device, row_valid=None):
         self.scope = scope
         self.n_rows = n_rows
         self.device = device
+        # bool [n_rows], False for the rows the frame's filter drops; None
+        # when every row counts
+        self.row_valid = row_valid
 
     def expr(self, expression) -> NA:
         return self.scope.evaluate(str(expression))
+
+    def boolean(self, expression):
+        """A boolean expression as a bool tensor, False where it is missing."""
+        value = self.expr(expression)
+        valid = value.data.to(torch.bool)
+        return valid if value.mask is None else valid & ~value.mask
+
+    def selection_valid(self, selection):
+        """The rows that pass the filter and ``selection`` (a boolean
+        expression or None); None when every row does."""
+        if selection is None:
+            return self.row_valid
+        valid = self.boolean(selection)
+        return valid if self.row_valid is None else valid & self.row_valid
 
 
 class Executor:
@@ -50,13 +72,16 @@ class Executor:
         self.tasks.append(task)
         return task
 
-    def schedule_aggregation(self, df, binners, op):
+    def schedule_aggregation(self, df, binners, op, selection=None):
+        """Queue ``op`` on the pending aggregation task of ``df`` with the
+        same binners and selection, or on a new one."""
         binners = tuple(binners)
         for task in self.tasks:
             if (isinstance(task, TaskAggregations) and task.df is df
-                    and task.binners == binners and not task.done):
+                    and task.binners == binners and task.selection == selection
+                    and not task.done):
                 return task.add_subtask(op)
-        task = TaskAggregations(df, binners)
+        task = TaskAggregations(df, binners, selection)
         sub = task.add_subtask(op)
         self.schedule(task)
         return sub
@@ -86,15 +111,11 @@ class ExecutorLocal(Executor):
         self.passes += 1
         t_start = time.perf_counter()
         dataset = df.dataset_for_execution()
-        names = set()
-        for task in tasks:
-            for expr in task.expressions:
-                names |= column_names(expr)
-        missing = names - set(dataset)
-        if missing:
-            raise NameError(f"column(s) {sorted(missing)} do not exist")
-        names = sorted(names)
-        device = _pass_device(dataset, names)
+        filter_expression = df.filter_expression
+        expressions = [expr for task in tasks for expr in task.expressions]
+        if filter_expression is not None:
+            expressions.append(filter_expression)
+        names, device, variables = pass_inputs(df, dataset, expressions)
         n_total = dataset.row_count
         T = df._tile_rows or settings.TILE_ROWS
         states = [t.initial_state(device) for t in tasks]
@@ -102,7 +123,9 @@ class ExecutorLocal(Executor):
         for i1 in range(0, max(n_total, 1), T):
             i2 = min(i1 + T, n_total)
             tile = {name: _tile(dataset[name], i1, i2, device) for name in names}
-            ctx = TileContext(DeviceScope(tile), i2 - i1, device)
+            ctx = TileContext(DeviceScope(tile, variables), i2 - i1, device)
+            if filter_expression is not None:
+                ctx.row_valid = ctx.boolean(filter_expression)
             states = [t.update(s, ctx) for t, s in zip(tasks, states)]
             n_tiles += 1
         for task, state in zip(tasks, states):
@@ -118,9 +141,28 @@ class ExecutorLocal(Executor):
             # per aggregation task, the kernel each kind of aggregator took, e.g.
             # {"additive": "b1", "moments": "b5", "extremes": "torch"}
             "strategies": [t.strategy for t in tasks if isinstance(t, TaskAggregations)],
+            # the route the pass's set probes took ("b6", "b6-wide"), None
+            # when it probed no set
+            "probe": "+".join(sorted({v.route for v in variables.values()
+                                      if getattr(v, "route", None)})) or None,
         })
         if len(self.trace_log) > 1000:
             del self.trace_log[:500]
+
+
+def pass_inputs(df, dataset, expressions):
+    """What a pass of ``df`` over ``expressions`` reads: the sorted names of
+    its columns, its device, and its variables resolved on that device."""
+    names, used_variables = set(), set()
+    for expr in expressions:
+        names |= column_names(expr, df.variables)
+        used_variables |= variable_names(expr, df.variables)
+    missing = names - set(dataset)
+    if missing:
+        raise NameError(f"column(s) {sorted(missing)} do not exist")
+    names = sorted(names)
+    device = _pass_device(dataset, names)
+    return names, device, resolve_variables(df.variables, sorted(used_variables), device)
 
 
 def _pass_device(dataset, names):

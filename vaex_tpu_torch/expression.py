@@ -94,5 +94,70 @@ class Expression(metaclass=Meta):
     def __len__(self):
         return len(self.df)
 
+    # -- set-based operations (vaex_tpu/expression.py:262-329) ---------------
+    def unique(self, dropna=False, dropnan=False, dropmissing=False, array_type="python",
+               limit=None, limit_raise=True):
+        return self.df.unique(self.expression, dropna=dropna, dropnan=dropnan,
+                              dropmissing=dropmissing, array_type=array_type, limit=limit,
+                              limit_raise=limit_raise)
+
+    def nunique(self, dropna=False, dropnan=False, dropmissing=False):
+        """The number of distinct values; NaN and a missing value count as
+        one each unless dropped."""
+        oset = self.df._set(self.expression)
+        n = oset.count
+        if (dropna or dropnan) and oset.has_nan:
+            n -= 1
+        if (dropna or dropmissing) and oset.has_null:
+            n -= 1
+        return n
+
+    def value_counts(self, dropna=False, dropnan=False, dropmissing=False, ascending=False):
+        """A pandas Series value -> number of rows, ordered by the count; a
+        missing value is indexed as "missing"."""
+        import pandas as pd
+        oset = self.df._set(self.expression, keep_counts=True)
+        keys, counts = list(oset.keys), list(oset.counts)
+        if oset.has_nan and not (dropna or dropnan):
+            keys.append(np.nan)
+            counts.append(oset.nan_count)
+        if oset.has_null and not (dropna or dropmissing):
+            keys.append("missing")
+            counts.append(oset.null_count)
+        counts = np.asarray(counts, np.int64)
+        order = np.argsort(counts, kind="stable")
+        if not ascending:
+            order = order[::-1]
+        return pd.Series(counts[order], index=[keys[i] for i in order])
+
+    def isin(self, values):
+        """True where the value is one of ``values``: rewrites to
+        ``isin_set(expression, <set variable>)``."""
+        var = self.df.add_variable("isin_set", _set_of(values), unique=True)
+        return Expression(self.df, f"isin_set({self.expression}, {var})")
+
+    def map(self, mapper):
+        """Each value through the dict ``mapper`` (numeric keys and values);
+        a value that is not a key gives a missing value."""
+        keys = np.asarray(list(mapper.keys()))
+        values = np.asarray(list(mapper.values()))
+        oset = _set_of(keys)
+        # the choices in ordinal order of the keys
+        choices = np.zeros(oset.count, dtype=values.dtype)
+        choices[np.asarray(oset.map_ordinal(keys), np.int64)] = values
+        set_var = self.df.add_variable("map_set", oset, unique=True)
+        choices_var = self.df.add_variable("map_choices", choices, unique=True)
+        return Expression(
+            self.df, f"_choose(_ordinal_values({self.expression}, {set_var}), {choices_var})")
+
+
+def _set_of(values):
+    """The SortedSet of a host list or array of numeric values."""
+    from .ops.setops import SortedSet
+    values = values if isinstance(values, np.ndarray) else np.asarray(values)
+    oset = SortedSet("string" if values.dtype.kind in "OUS" else values.dtype)
+    oset.update(values)
+    return oset
+
 
 install_all_on_expression()

@@ -1,6 +1,9 @@
 """The expression-namespace functions of the slice: ``astype``, ``where``,
-``abs`` and the NaN/null helpers (``isnan``, ``ismissing``, ``isna``,
-``notna``), with ``vaex_tpu``'s semantics (NaN and null are distinct).
+``abs``, the NaN/null helpers (``isnan``, ``ismissing``, ``isna``,
+``notna``), with ``vaex_tpu``'s semantics (NaN and null are distinct), and
+the set-based internals ``_ordinal_values``, ``isin_set`` and ``_choose``,
+whose set argument is a variable the scope resolves to a
+:class:`~vaex_tpu_torch.ops.setops.DeviceSetHandle`.
 Arithmetic and comparisons are the operators of
 :class:`~vaex_tpu_torch.ops.nullable.NA`.
 """
@@ -10,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from .datatype import torch_dtype
+from .ops import setops
 from .ops.nullable import NA, as_operand
 from .registry import register_function
 
@@ -68,3 +72,29 @@ register_function(name="notna", device=_notna)(None)
 register_function(name="where", device=_where)(None)
 register_function(name="astype", device=_astype)(None)
 register_function(name="abs", device=_abs)(None)
+
+
+def _ordinal_values(x, oset):
+    """The ordinal of each value in the set (int32; -1 for a value that is
+    not in it)."""
+    return NA(setops.device_map_ordinal(oset, _na(x)))
+
+
+def _isin_set(x, oset):
+    return NA(setops.device_isin(oset, _na(x)))
+
+
+def _choose(codes, choices):
+    """``choices[codes]``; codes outside the table, and masked codes, give a
+    missing value."""
+    codes = _na(codes)
+    table = choices.data if isinstance(choices, NA) else torch.as_tensor(as_operand(choices))
+    table = table.to(codes.data.device)
+    oob = (codes.data < 0) | (codes.data >= table.shape[0])
+    safe = codes.data.clamp(0, max(table.shape[0] - 1, 0)).to(torch.int64)
+    return NA(table[safe], oob if codes.mask is None else codes.mask | oob)
+
+
+register_function(name="_ordinal_values", device=_ordinal_values)(None)
+register_function(name="isin_set", device=_isin_set)(None)
+register_function(name="_choose", device=_choose)(None)

@@ -1,15 +1,28 @@
-"""GroupBy over categorical keys.
+"""GroupBy over categorical and raw numeric keys.
 
-The port of the zero-pass plan of ``vaex_tpu/groupby.py``: a
-:class:`GrouperCategory` bins each key with its category metadata, one
-aggregation pass fills the grids, and ``_assemble`` builds the result
-frame.  One key keeps every category, empty ones included.  Several keys
-take the cartesian grid of their categories and drop the combinations no
-row has, which an extra ``count("*")`` grid tells, as vaex_tpu does while
-the product of the cardinalities is at most ``COMBINE_MIN_PRODUCT``.  Past
-that vaex_tpu fuses the keys into one set-based ``GrouperCombined``; that,
-the set-based groupers of non-category keys and BinBy are not ported yet
-(ROADMAP queue A6).
+The port of the multi-pass plan of ``vaex_tpu/groupby.py``:
+
+* a category key bins with its metadata and needs no pre-pass
+  (:class:`GrouperCategory`); it keeps every category, empty ones included;
+* a raw integer key without missing values whose range is at most
+  ``DENSE_RANGE_MAX`` bins on its values over [lo, hi]
+  (:class:`GrouperDense`): one fused min + max + count pre-pass over all
+  such keys, remembered per frame, and the cells no row has are dropped
+  with a ``count("*")`` grid;
+* any other numeric key builds the :class:`~.ops.setops.SortedSet` of its
+  values in one pass (:class:`Grouper`) and bins on
+  ``_ordinal_values(key, set)``, the probe of kernel B6.  Ordinals are
+  positions in sorted order, so ``sort=True`` is the natural order: the keys
+  ascending, then the NaN group, then the missing one;
+* several keys take the cartesian grid of their bins and drop the
+  combinations no row has while the product of the cardinalities is at most
+  ``COMBINE_MIN_PRODUCT``; past it (or with ``combine=True``) they fuse into
+  one int64 key whose set holds the observed combinations
+  (:class:`GrouperCombined`).
+
+One aggregation pass fills the grids and ``_assemble`` builds the result
+frame.  String keys, ``BinnerTime`` and BinBy are not ported yet (ROADMAP
+queue A6).
 """
 
 from __future__ import annotations
@@ -23,28 +36,38 @@ from . import agg as agg_module
 from .agg import AggregatorDescriptor
 from .expression import Expression
 from .ops.binners import BinnerOrdinal
-from .utils import trace
+from .ops.setops import RowLimitException  # noqa: F401  (vaex_tpu exports it here too)
+from .utils import fingerprint, trace
 
-GROUPERS_PENDING = "not ported yet (ROADMAP queue A6)"
 # vaex_tpu/groupby.py:_should_combine: several keys whose cardinalities
 # multiply past this take GrouperCombined instead of the cartesian grid
 COMBINE_MIN_PRODUCT = 1_000_000
+# a raw integer key bins on its values while its range is at most this
+DENSE_RANGE_MAX = 1 << 22
+# the most facts remembered on one dataset node before they are dropped
+REMEMBERED_MAX = 256
+
+
+def _descending(grouper):
+    """Reverse a grouper whose bins are in ascending order."""
+    grouper.sort_indices = np.arange(grouper.N)[::-1]
+    grouper.bin_values = grouper.bin_values[::-1]
 
 
 class GrouperCategory:
     """Zero-pass grouper using category metadata."""
 
+    dense = False
+
     def __init__(self, expression, df, sort=False, ascending=True):
-        if isinstance(expression, Expression):
-            expression = expression.expression
         self.df = df
         self.expression = str(expression)
-        self.sort = sort
-        self.ascending = ascending
         self.N = df.category_count(self.expression)
         self.min_value = df.category_offset(self.expression)
         self.bin_values = df.category_labels(self.expression, aslist=False)
         self.bin_values_raw = self.bin_values  # in code order, as the grid
+        self.ordinal_expression = (f"(astype({self.expression}, 'int64') - {self.min_value})"
+                                   if self.min_value else f"astype({self.expression}, 'int64')")
         self.binner = BinnerOrdinal(self.expression, self.min_value, self.N)
         self.sort_indices = None
         if sort:
@@ -56,29 +79,231 @@ class GrouperCategory:
                 self.bin_values = self.bin_values[order]
 
 
-class GroupBy:
-    """df.groupby over one or more categorical keys."""
+class Grouper:
+    """One key through the set of its values: a set-build pass, then the
+    ordinal of each row's value as the bin."""
 
-    def __init__(self, df, by, sort=False, ascending=True):
+    dense = False
+
+    def __init__(self, expression, df, sort=False, ascending=True, row_limit=None):
+        self.df = df
+        self.expression = str(expression)
+        self.set = df._set(self.expression, limit=row_limit)
+        self.bin_values = self.set.key_array(masked=True)
+        self.bin_values_raw = self.bin_values
+        self.N = self.set.count
+        var = df.add_variable("grouper_set", self.set, unique=True)
+        self.ordinal_expression = f"_ordinal_values({self.expression}, {var})"
+        self.binner = BinnerOrdinal(self.ordinal_expression, 0, self.N)
+        self.sort_indices = None
+        if sort and not ascending:
+            _descending(self)
+
+
+class GrouperDense:
+    """A raw integer key whose bins are its values over [lo, hi].  Only valid
+    for a key without missing values (the caller checks); the cells no row
+    has are dropped at assembly with the count grid."""
+
+    dense = True
+
+    def __init__(self, expression, df, lo, hi, sort=False, ascending=True):
+        self.df = df
+        self.expression = str(expression)
+        self.lo = int(lo)
+        self.N = int(hi) - self.lo + 1
+        self.bin_values = np.arange(self.lo, int(hi) + 1, dtype=np.int64)
+        self.bin_values_raw = self.bin_values
+        self.ordinal_expression = (f"(astype({self.expression}, 'int64') - {self.lo})"
+                                   if self.lo else f"astype({self.expression}, 'int64')")
+        self.binner = BinnerOrdinal(self.expression, self.lo, self.N)
+        self.sort_indices = None
+        if sort and not ascending:
+            _descending(self)
+
+
+class GrouperCombined:
+    """Several groupers fused into one int64 key, ``sum(ordinal_i *
+    multiplier_i)``, whose set holds exactly the observed combinations; the
+    fused keys are split back into each grouper's bin values on the set's
+    device."""
+
+    dense = False
+
+    def __init__(self, groupers, df, row_limit=None):
+        self.df = df
+        self.groupers = groupers
+        if np.prod([max(g.N, 1) for g in groupers], dtype=np.float64) >= 2 ** 62:
+            raise ValueError("groupby key cardinality product overflows int64; use fewer or "
+                             "lower-cardinality keys")
+        multipliers = [1] * len(groupers)
+        for i in range(len(groupers) - 2, -1, -1):
+            multipliers[i] = multipliers[i + 1] * max(groupers[i + 1].N, 1)
+        parts = [f"astype({g.ordinal_expression}, 'int64') * {m}" if m != 1
+                 else f"astype({g.ordinal_expression}, 'int64')"
+                 for g, m in zip(groupers, multipliers)]
+        self.expression = " + ".join(f"({p})" for p in parts)
+        # in the set-build pass, count the rows outside each dense member's
+        # range: they would fuse into another combination's key
+        outside = [df.count(selection=f"(({g.expression}) < {g.lo}) | "
+                                      f"(({g.expression}) > {g.lo + g.N - 1})", delay=True)
+                   for g in groupers if g.dense]
+        with trace("grouper-combined set build"):
+            self.set = df._set(self.expression, limit=row_limit)
+        if any(int(count.get()) for count in outside):
+            raise StaleRange(self.expression)
+        self.N = self.set.n_keys
+        var = df.add_variable("grouper_set", self.set, unique=True)
+        self.ordinal_expression = f"_ordinal_values({self.expression}, {var})"
+        self.binner = BinnerOrdinal(self.ordinal_expression, 0, self.N)
+        self.sort_indices = None
+        with trace("grouper-combined decode"):
+            self.bin_values_per_key = self._decode(multipliers)
+
+    def _decode(self, multipliers):
+        """Per grouper the bin value of every fused key: one floor-divide
+        per key on the device; a dense grouper adds its offset, a numeric
+        label table is gathered on the device, any other on the host."""
+        rem = self.set.device_keys(self.set.device).to(torch.int64)
+        out = []
+        for g, m in zip(self.groupers, multipliers):
+            ordinals = rem // m if m != 1 else rem
+            if m != 1:
+                rem = rem - ordinals * m
+            values = g.bin_values_raw
+            if g.dense:
+                out.append(ordinals + g.lo)
+            elif isinstance(values, np.ma.MaskedArray) or values.dtype.kind not in "biuf":
+                out.append(values[ordinals.cpu().numpy()])
+            else:
+                out.append(torch.as_tensor(values).to(ordinals.device)[ordinals])
+        return out
+
+
+def _frame_key(df):
+    """What, beside the dataset node itself, decides the rows a pass over
+    ``df`` sees."""
+    return (df._filter, fingerprint(df.variables) if df.variables else None)
+
+
+def _sampled_range_too_wide(df, name):
+    """True when about 4000 rows of an unfiltered frame's column already
+    span more than DENSE_RANGE_MAX: the whole column then does too, and the
+    key needs no pre-pass to be sent to the set grouper."""
+    if df.filtered or name not in df.dataset:
+        return False
+    col = df.dataset[name]
+    if isinstance(col, np.ma.MaskedArray) or len(col) == 0:
+        return False
+    sample = col[::max(1, len(col) // 4096)]
+    return int(sample.max()) - int(sample.min()) + 1 > DENSE_RANGE_MAX
+
+
+def _dense_candidates(names, df, row_limit):
+    """One fused min + max + count pass over all raw integer keys: {name:
+    (lo, hi, n_valid)}.  The same pass counts the rows of a filtered frame.
+    Both are remembered on the dataset node per filter and variables, so
+    that repeated groupbys over one table skip the pre-pass; the aggregation
+    checks a remembered range against the rows it bins (:func:`_forget`)."""
+    if row_limit is not None:  # a row limit needs the exact number of groups
+        return {}
+    memo = df.dataset.remembered
+    if len(memo) > REMEMBERED_MAX:
+        memo.clear()
+    frame = _frame_key(df)
+    out, pending = {}, {}
+    for name in names:
+        key = ("dense", frame, name)
+        if key not in memo:
+            dtype = df.data_type(name).numpy
+            if (dtype.kind in "iu" and dtype != np.uint64
+                    and not _sampled_range_too_wide(df, name)):
+                pending[name] = (df.minmax(name, delay=True), df.count(name, delay=True))
+                continue
+            memo[key] = None
+        if memo[key] is not None:
+            out[name] = memo[key]
+    length = None
+    if df.filtered and df._filtered_length is None:
+        if ("length", frame) in memo:
+            df._filtered_length = memo[("length", frame)]
+        else:
+            length = df.count(delay=True)
+    if not pending and length is None:
+        return out
+    df.execute()
+    if length is not None:
+        df._filtered_length = memo[("length", frame)] = int(length.get())
+    for name, (minmax, count) in pending.items():
+        n_valid = int(count.get())
+        lo, hi = (int(v) for v in minmax.get()) if n_valid else (0, -1)
+        out[name] = memo[("dense", frame, name)] = (lo, hi, n_valid)
+    return out
+
+
+def _forget(df):
+    """Drop what is remembered of ``df``'s rows: a pass found rows outside a
+    remembered range, so a column changed in place since it was measured."""
+    df.dataset.remembered.clear()
+    df._filtered_length = None
+
+
+class StaleRange(Exception):
+    """Rows lie outside the range a dense grouper was built on."""
+
+
+def _make_grouper(name, df, sort, ascending, row_limit, dense_info):
+    if df.is_category(name):
+        return GrouperCategory(name, df, sort=sort, ascending=ascending)
+    info = dense_info.get(name)
+    if info is not None:
+        lo, hi, n_valid = info
+        if 0 < hi - lo + 1 <= DENSE_RANGE_MAX and n_valid == len(df):
+            return GrouperDense(name, df, lo, hi, sort=sort, ascending=ascending)
+    return Grouper(name, df, sort=sort, ascending=ascending, row_limit=row_limit)
+
+
+def _should_combine(groupers, combine):
+    if combine is True or combine is False:
+        return combine
+    product = 1.0
+    for g in groupers:
+        product *= max(g.N, 1)
+    return product > COMBINE_MIN_PRODUCT
+
+
+class GroupBy:
+    """df.groupby over one or more keys."""
+
+    def __init__(self, df, by, sort=False, ascending=True, combine="auto", row_limit=None):
         self.df = df.copy()
         self.sort = sort
         by = list(by) if isinstance(by, (list, tuple)) else [by]
         self.by_names = [b.expression if isinstance(b, Expression) else str(b) for b in by]
         self.ascending = (list(ascending) if isinstance(ascending, (list, tuple))
                           else [ascending] * len(by))
-        for name in self.by_names:
-            if not self.df.is_category(name):
-                raise NotImplementedError(
-                    f"groupby over the non-category key {name!r} is {GROUPERS_PENDING}")
-        self.groupers = [GrouperCategory(name, self.df, sort=sort, ascending=asc)
+        self.combine = combine
+        self.row_limit = row_limit
+        try:
+            self._plan()
+        except StaleRange:
+            _forget(self.df)
+            self._plan()
+
+    def _plan(self):
+        """The groupers and binners, from what is remembered of the keys'
+        ranges or from a fresh pre-pass."""
+        raw = [name for name in self.by_names if not self.df.is_category(name)]
+        with trace("dense-candidates pre-pass"):
+            dense_info = _dense_candidates(raw, self.df, self.row_limit)
+        self.groupers = [_make_grouper(name, self.df, self.sort, asc, self.row_limit, dense_info)
                          for name, asc in zip(self.by_names, self.ascending)]
-        product = int(np.prod([max(g.N, 1) for g in self.groupers], dtype=np.float64))
-        if len(self.groupers) > 1 and product > COMBINE_MIN_PRODUCT:
-            raise NotImplementedError(
-                f"groupby over {len(self.groupers)} keys with {product} combinations "
-                f"(> {COMBINE_MIN_PRODUCT}) needs the set-based GrouperCombined, which is "
-                f"{GROUPERS_PENDING}")
-        self.binners = tuple(g.binner for g in self.groupers)
+        self.combined = None
+        self.by = self.groupers
+        if len(self.groupers) > 1 and _should_combine(self.groupers, self.combine):
+            self.combined = GrouperCombined(self.groupers, self.df, row_limit=self.row_limit)
+            self.by = [self.combined]
+        self.binners = tuple(g.binner for g in self.by)
 
     def _parse_actions(self, actions):
         """(output name, descriptor) pairs, named as vaex_tpu names them."""
@@ -118,39 +343,69 @@ class GroupBy:
         return out
 
     def agg(self, actions):
+        try:
+            return self._agg(actions)
+        except StaleRange:
+            _forget(self.df)
+            self._plan()
+            return self._agg(actions)
+
+    def _agg(self, actions):
         parsed = self._parse_actions(actions)
         ndim = len(self.binners)
         promises = []
         for name, desc in parsed:
             [p] = desc.add_tasks(self.df, self.binners)
             promises.append((name, desc, p))
-        # several keys: the count grid tells which combinations some row has
-        counts = next((p for _, desc, p in promises if _is_count_star(desc)), None)
-        if ndim > 1 and counts is None:
-            [counts] = agg_module.count("*").add_tasks(self.df, self.binners)
+        # the count grid tells which cells some row has.  A combined
+        # grouper's cells are the observed combinations and a set grouper's
+        # bins the observed keys, so neither needs it
+        counts = None
+        if (self.combined is None and ndim > 1) or any(g.dense for g in self.by):
+            counts = next((p for _, desc, p in promises if _is_count_star(desc)), None)
+            if counts is None:
+                [counts] = agg_module.count("*").add_tasks(self.df, self.binners)
         with trace("groupby agg pass (execute)"):
             self.df.execute()
         grids = {name: agg_module.extract_central(p.get(), ndim) for name, _, p in promises}
+        if counts is not None:
+            counts = counts.get()
+            # a row in an edge cell of a dense grouper's axis lies outside
+            # the range the grouper was built on
+            for axis, g in enumerate(self.by):
+                if g.dense:
+                    edges = torch.tensor([0, 1, g.N + 2], device=counts.device)
+                    if int(counts.index_select(axis, edges).sum()):
+                        raise StaleRange(g.expression)
+            counts = agg_module.extract_central(counts, ndim)
         with trace("groupby assemble"):
+            if self.combined is not None:
+                return self._assemble_combined(grids)
             if ndim == 1:
-                return self._assemble_one(grids)
-            return self._assemble_cartesian(
-                grids, agg_module.extract_central(counts.get(), ndim))
+                return self._assemble_one(grids, counts)
+            return self._assemble_cartesian(grids, counts)
 
-    def _assemble_one(self, grids):
+    def _assemble_one(self, grids, counts):
+        """One key: its bins in order; of a dense grouper the bins some row
+        has, compacted by a gather on the grids' device."""
         from . import from_dict
         g = self.groupers[0]
-        columns = {self.by_names[0]: g.bin_values}
-        order = None
-        if g.sort_indices is not None:
+        keys, order = g.bin_values, None
+        if g.dense:
+            order = torch.nonzero(counts > 0).squeeze(1)
+            if g.sort_indices is not None:
+                order = order.flip(0)
+            keys = order + g.lo
+        elif g.sort_indices is not None:
             order = torch.as_tensor(np.ascontiguousarray(g.sort_indices))
+        columns = {self.by_names[0]: keys}
         for name, grid in grids.items():
             columns[name] = grid if order is None else grid[order.to(grid.device)]
         return from_dict(columns)
 
     def _assemble_cartesian(self, grids, counts):
         """The observed cells of the cartesian grid, in row-major order of the
-        category codes, then sorted by the keys when ``sort``
+        bins, then sorted by the keys when ``sort``
         (vaex_tpu/groupby.py:963-982).  Unlike vaex_tpu, which sorts them
         ascending whatever ``ascending`` says, each key sorts in its own
         direction."""
@@ -161,9 +416,18 @@ class GroupBy:
                    for name, g, codes in zip(self.by_names, self.groupers, cells)}
         for name, grid in grids.items():
             columns[name] = grid.reshape(-1)[keep.to(grid.device)]
-        df = from_dict(columns)
+        return self._sorted(from_dict(columns))
+
+    def _assemble_combined(self, grids):
+        """The cells of a combined grouper are the observed combinations."""
+        from . import from_dict
+        columns = dict(zip(self.by_names, self.combined.bin_values_per_key))
+        columns.update(grids)
+        return self._sorted(from_dict(columns))
+
+    def _sorted(self, df):
         return df.sort(self.by_names, ascending=self.ascending) if self.sort else df
 
 
 def _is_count_star(desc):
-    return desc.name == "count" and desc.expression in (None, "*")
+    return desc.name == "count" and desc.expression in (None, "*") and desc.selection is None

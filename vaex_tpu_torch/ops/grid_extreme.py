@@ -14,9 +14,11 @@ scatter-min.
 bin takes the rows that drop (outside [0, G), NaN or missing) and is cut
 off: ``amin``/``amax`` would carry a NaN into any bin it reached, so a NaN
 row must only ever reach that one.  :func:`extreme_bins` computes the int64
-bins of a tile once for all its extreme columns.  Empty bins keep the
-identity: +-inf for floats, the integer dtype's max (min) or min (max), as
-vaex_tpu's ``min_identity`` and ``max_identity`` (``gridagg.py:474-487``).
+bins of a tile once for all its extreme columns.  A statistic without binby
+has one cell and takes :func:`extreme_of_rows`, a plain reduction.  Empty
+bins keep the identity: +-inf for floats, the integer dtype's max (min) or
+min (max), as vaex_tpu's ``min_identity`` and ``max_identity``
+(``gridagg.py:474-487``).
 The result keeps the column's dtype: int64 extremes never pass through a
 double.
 """
@@ -59,3 +61,20 @@ def grid_extreme(bins, col, G, mode, valid=None):
     out = torch.full((G + 1,), identity(col.dtype, mode), dtype=col.dtype, device=col.device)
     out.scatter_reduce_(0, bins, col, MODES[mode], include_self=True)
     return out[:G]
+
+
+def extreme_of_rows(col, mode, valid=None):
+    """``mode`` of ``col`` [N] over the rows where ``valid`` holds (every row
+    when it is None), NaN rows left out, as a [1] tensor: the one-cell grid
+    of a statistic without binby.  A reduction, where :func:`grid_extreme`
+    would run N atomics on one address."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
+    drop = torch.isnan(col) if col.is_floating_point() else None
+    if valid is not None:
+        drop = ~valid if drop is None else drop | ~valid
+    if drop is not None:
+        col = col.masked_fill(drop, identity(col.dtype, mode))
+    if not col.numel():
+        return torch.full((1,), identity(col.dtype, mode), dtype=col.dtype, device=col.device)
+    return (col.amin() if mode == "min" else col.amax()).reshape(1)

@@ -77,12 +77,15 @@ def build(*names):
 
 
 @functools.lru_cache(maxsize=None)
-def library(name, smem_budget, max_cols):
+def library(name, smem_budget, max_cols=None):
     """The loaded library of ``csrc/<name>.cu``, built if needed; checks that
-    its SMEM_BUDGET and MAX_COLS agree with the wrapper's."""
+    its SMEM_BUDGET and (for a kernel that takes columns) MAX_COLS agree
+    with the wrapper's."""
     path = build(name)[name][0]
     lib = ctypes.CDLL(path)
     for suffix, want in (("smem_budget", smem_budget), ("max_cols", max_cols)):
+        if want is None:
+            continue
         fn = getattr(lib, f"{name}_{suffix}")
         fn.restype = ctypes.c_int
         if fn() != want:

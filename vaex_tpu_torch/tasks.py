@@ -9,11 +9,13 @@ from __future__ import annotations
 
 import torch
 
+from .datatype import DataType
 from .delayed import Promise
 from .ops.binners import fuse_bins, grid_shape, grid_size
-from .ops.grid_extreme import extreme_bins, grid_extreme
+from .ops.grid_extreme import extreme_bins, extreme_of_rows, grid_extreme
 from .ops.grid_moments import MAX_BASES, MAX_TERMS
 from .ops.grid_plan import grid_sums, moment_sums
+from .ops.setops import RowLimitException, SortedSet
 
 
 class Task(Promise):
@@ -35,7 +37,10 @@ class Task(Promise):
 
 
 class TaskAggregations(Task):
-    """All aggregations of one pass that share a binner stack.
+    """All aggregations of one pass that share a binner stack and a
+    selection (a boolean expression, or None).  The rows the frame's filter
+    or the selection drops get the bin index -1, which every grid kernel
+    and ``grid_extreme`` leave out.
 
     ``subtasks`` holds the AggOperations the descriptors of
     :mod:`vaex_tpu_torch.agg` registered.  Per tile, each kind rides its own
@@ -49,9 +54,12 @@ class TaskAggregations(Task):
     the pass's ``trace_log`` entry.
     """
 
-    def __init__(self, df, binners):
+    def __init__(self, df, binners, selection=None):
         super().__init__(df, [b.expression for b in binners], name="aggregations")
         self.binners = tuple(binners)
+        self.selection = None if selection is None else str(selection)
+        if self.selection is not None:
+            self.expressions.append(self.selection)
         self.subtasks = []
         self.subtask_promises = []
         self.strategy = None
@@ -78,12 +86,13 @@ class TaskAggregations(Task):
 
     def update(self, state, ctx):
         G = grid_size(self.binners)
-        idx = self._flat_indices(ctx)
         new_state = list(state)
         self.strategy = {}
         kinds = {}
         for i, op in enumerate(self.subtasks):
             kinds.setdefault(op.kind, []).append(i)
+        # without binners the extremes reduce the valid rows and need no index
+        idx = self._flat_indices(ctx) if self.binners or kinds.keys() - {"extreme"} else None
         if "additive" in kinds:
             self.strategy["additive"] = self._update_additive(kinds["additive"], new_state,
                                                               idx, G, ctx)
@@ -92,12 +101,20 @@ class TaskAggregations(Task):
                      for batch in _moment_batches(self.subtasks, kinds["moments"])]
             self.strategy["moments"] = "+".join(dict.fromkeys(names))
         if "extreme" in kinds:
-            bins = extreme_bins(idx, G)
+            if self.binners:
+                bins = extreme_bins(idx, G)
+            else:
+                rows = ctx.selection_valid(self.selection)
             for i in kinds["extreme"]:
                 op = self.subtasks[i]
                 values, valid = op.extreme_input(ctx)
-                new_state[i] = op.apply_kernel(new_state[i],
-                                               grid_extreme(bins, values, G, op.mode, valid))
+                if self.binners:
+                    grid = grid_extreme(bins, values, G, op.mode, valid)
+                else:
+                    if rows is not None:
+                        valid = rows if valid is None else valid & rows
+                    grid = extreme_of_rows(values, op.mode, valid)
+                new_state[i] = op.apply_kernel(new_state[i], grid)
             self.strategy["extremes"] = "torch"
         return new_state
 
@@ -142,10 +159,14 @@ class TaskAggregations(Task):
         return name
 
     def _flat_indices(self, ctx):
+        valid = ctx.selection_valid(self.selection)
         if self.binners:
             indices = [b.to_bins(ctx.expr(b.expression)) for b in self.binners]
-            return fuse_bins(self.binners, indices)
-        return torch.zeros(ctx.n_rows, dtype=torch.int32, device=ctx.device)
+            idx = fuse_bins(self.binners, indices)
+            return idx if valid is None else idx.masked_fill(~valid, -1)
+        if valid is None:
+            return torch.zeros(ctx.n_rows, dtype=torch.int32, device=ctx.device)
+        return valid.to(torch.int32) - 1
 
     def finalize(self, state):
         shape = grid_shape(self.binners)
@@ -154,6 +175,63 @@ class TaskAggregations(Task):
         for sub, r in zip(self.subtask_promises, results):
             sub.fulfill(r)
         return results
+
+
+class TaskSetCreate(Task):
+    """The sorted set of an expression's values over the rows the frame's
+    filter keeps: per tile a ``torch.unique`` of the rows that are neither
+    NaN nor missing, merged into the running set on the pass device; NaN and
+    missing rows are counted apart.  ``limit`` is checked as the set grows.
+    Fulfilled with a :class:`~vaex_tpu_torch.ops.setops.SortedSet` whose keys
+    stay on the pass device."""
+
+    def __init__(self, df, expression, keep_counts=False, limit=None):
+        super().__init__(df, [expression], name="set-create")
+        self.keep_counts = keep_counts
+        self.limit = limit
+
+    def initial_state(self, device):
+        return {"keys": None, "counts": None, "nan": 0, "null": 0}
+
+    def update(self, state, ctx):
+        x = ctx.expr(self.expressions[0])
+        data, keep = x.data, ctx.row_valid
+        if x.mask is not None:
+            null = x.mask if keep is None else x.mask & keep
+            state["null"] += int(null.sum())
+            keep = ~x.mask if keep is None else keep & ~x.mask
+        if data.is_floating_point():
+            nan = torch.isnan(data) if keep is None else torch.isnan(data) & keep
+            n_nan = int(nan.sum())
+            if n_nan:
+                state["nan"] += n_nan
+                keep = ~nan if keep is None else keep & ~nan
+        if keep is not None:
+            data = data[keep]
+        if self.keep_counts:
+            keys, counts = torch.unique(data, sorted=True, return_counts=True)
+            if state["keys"] is not None:
+                keys, inverse = torch.unique(torch.cat([state["keys"], keys]), sorted=True,
+                                             return_inverse=True)
+                counts = torch.zeros_like(keys, dtype=torch.int64).index_add_(
+                    0, inverse, torch.cat([state["counts"], counts]))
+            state["counts"] = counts
+        else:
+            keys = torch.unique(data, sorted=True)
+            if state["keys"] is not None:
+                keys = torch.unique(torch.cat([state["keys"], keys]), sorted=True)
+        state["keys"] = keys
+        count = keys.shape[0] + (state["nan"] > 0) + (state["null"] > 0)
+        if self.limit is not None and count > self.limit:
+            raise RowLimitException(f"set grew to {count} unique values, which exceeds the "
+                                    f"limit of {self.limit}")
+        return state
+
+    def finalize(self, state):
+        oset = SortedSet.from_device(DataType(state["keys"].dtype).numpy, state["keys"],
+                                     state["counts"], state["nan"], state["null"], self.limit)
+        self.fulfill(oset)
+        return oset
 
 
 def moment_base(x):
