@@ -6,7 +6,8 @@
 Run from the root of the repository on a machine with a CUDA card.  It
 
 1. prints the card's name and power limit, and the torch and CUDA versions;
-2. builds the six kernels (five grid kernels and the set probe) from
+2. builds the seven kernels (five grid kernels, the min/max mode B3x that
+   shares grid_partition.cu with B3, and the set probe) from
    vaex_tpu_torch/csrc with nvcc, one nvcc per source, all at once;
 3. holds B1 (grid_additive) against its plain PyTorch version on the card,
    at G in {1, 103, 512, largest that fits} and N in {0, 1, 1_000_003, 1e8}:
@@ -69,7 +70,26 @@ Run from the root of the repository on a machine with a CUDA card.  It
     with B6's launch count and the probe route each pass recorded;
 12. times those queries against plain PyTorch (the dense pre-pass included
     and, beside it, remembered), and B6 at the isin shapes (500 and 50 000
-    ids) against its plain version and torch.isin.
+    ids) against its plain version and torch.isin;
+13. holds B3x (grid_partition_extreme, the min/max mode of the partitioned
+    kernel) against its plain version (scatter_reduce_ with a drop bin) at G
+    in {1, 103, 10 609, 67 081, 1 000 003, 1 054 729} and N in {0, 1,
+    1_000_003, 1e8}: an int64 min, an f64 max with NaN, +-inf and -0.0, an
+    f32 min, an f64 min and an int64 max under a validity mask, alone and
+    with count + int64 + f64 sums riding the same partition; extremes exact
+    by value, int sums exact, float sums to rtol 1e-9;
+14. drives the binned-statistics path through the public API: beside the
+    H2O-shaped columns (id4 and id6 categorized) x, y float64 normal, v
+    float64 uniform in [0, 100) with 1% NaN and t int64, made on the card
+    from seed 42, 1e8 rows: limits(["x", "y"], "minmax"), limits("x",
+    "99.7%"), count(binby=[x, y], shape=256), mean(v, binby=[x, y],
+    shape=1024), max(v, binby=[x, y], shape=1024) (G = 1 054 729),
+    minmax(v, binby=x, shape=128), q7 on id6, groupby(id6, {sum v1, max v1,
+    min v2}) (sums and extremes from one scatter) and first(v, t,
+    binby=id4), each checked against plain torch on the same tensors, with
+    the route each pass recorded and B3x's launch count;
+15. times those queries against plain PyTorch, and B3x at the shape of the
+    2-D max against its plain version and scatter_reduce_.
 
 It exits non-zero on any failure.  The line before the last is a JSON
 object with every kernel's launches, error, times, bound (the larger of the
@@ -929,6 +949,282 @@ def sets_timings(df, cols, values, vt, probe, setops, label):
             "wide_bound_ms": wide["bound_ms"], "wide_max_abs_err": wide["err"]}
 
 
+# ------------------------------------------------- the binned-statistics path
+EXTREME_GS = (1, 103, 10_609, 67_081, 1_000_003, 1_054_729)
+BINBY_EXPECT = {  # what the last pass of each query must record
+    "max 2-D 1024": {"extremes": "b3x"},
+    "minmax by x 128": {"extremes": "b3x-direct"},
+    "q7": {"extremes": "b3x"},
+    "sum max min by id6": {"additive": "b3", "extremes": "b3x", "scatter": "shared"},
+    "first by id4": {"first": "b3x-direct"},
+}
+
+
+def extreme_kernel_vs_plain(gp, ge):
+    """Phase 13: B3x against its plain version, alone and with sums riding
+    the partition; returns the worst float error of the sums (the extremes
+    are exact or the phase fails)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    modes = ["min", "max", "min", "min", "max"]
+    worst = 0.0
+    for n in KERNEL_SIZES:
+        ints = torch.randint(-(2 ** 62), 2 ** 62, (n,), generator=gen, device="cuda",
+                             dtype=torch.int64)
+        f64 = torch.randn(n, generator=gen, device="cuda", dtype=torch.float64) * 100
+        f64[::7] = float("nan")
+        f64[1::11] = float("inf")
+        f64[2::11] = float("-inf")
+        f64[3::5] = 0.0
+        f64[4::5] = -0.0
+        f32 = torch.randn(n, generator=gen, device="cuda", dtype=torch.float32)
+        valid = torch.rand(n, generator=gen, device="cuda") < 0.8
+        summed = torch.randn(n, generator=gen, device="cuda", dtype=torch.float64) * 100
+        cols = [ints, f64, f32, f64, ints]
+        valids = [None, None, None, valid, valid]
+        for G in EXTREME_GS:
+            idx = torch.randint(-2, G + G // 8 + 1, (n,), generator=gen, device="cuda",
+                                dtype=torch.int32)
+            want = ge.grid_extreme_batch(idx, cols, modes, valids, G)
+            got, _, _ = gp.grid_partition_extreme(idx, cols, modes, valids, G)
+            both, int_sums, float_sums = gp.grid_partition_extreme(
+                idx, cols, modes, valids, G, [ints], [summed], True)
+            want_i, want_f = gp.grid_partition_reference(idx, [ints], [summed], G, True)
+            torch.cuda.synchronize()
+            what = f"b3x G={G} N={n}"
+            for k, (a, b, w) in enumerate(zip(got, both, want)):
+                check(a.dtype == w.dtype and torch.equal(a, w),
+                      f"{modes[k]} of {w.dtype} column {k} alone, {what}")
+                check(b.dtype == w.dtype and torch.equal(b, w),
+                      f"{modes[k]} of {w.dtype} column {k} beside sums, {what}")
+            check(torch.equal(int_sums, want_i), f"int sums beside extremes, {what}")
+            check(torch.allclose(float_sums, want_f, rtol=RTOL, atol=ATOL),
+                  f"f64 sums beside extremes, {what}")
+            err = (float_sums - want_f).abs().max().item() if n else 0.0
+            worst = max(worst, err)
+            route = "b3x-direct" if gp.extreme_direct_fits(G, len(cols)) else "b3x"
+            print(f"{what} vs plain: five extremes exact alone ({route}) and beside sums "
+                  f"(b3x), int sums exact, f64 sums max abs err {err!r}", flush=True)
+            del idx, want, got, both
+    return worst
+
+
+def make_binby(vt, cols):
+    """The H2O-shaped columns (id4, id6 categorized) beside continuous axes
+    x, y, a value v with 1% NaN and an order column t, made on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    n = H2O_ROWS
+    new = {"x": torch.randn(n, generator=gen, device="cuda", dtype=torch.float64),
+           "y": torch.randn(n, generator=gen, device="cuda", dtype=torch.float64),
+           "v": torch.rand(n, generator=gen, device="cuda", dtype=torch.float64) * 100,
+           "t": torch.randint(0, 2 ** 62, (n,), generator=gen, device="cuda", dtype=torch.int64)}
+    new["v"][torch.rand(n, generator=gen, device="cuda") < 0.01] = float("nan")
+    cols = {**{k: cols[k] for k in ("id4", "id6", "v1", "v2")}, **new}
+    df = vt.from_dataset(vt.DatasetArrays(cols))
+    df = df.categorize("id4", min_value=1, labels=range(1, H2O_K + 1))
+    df = df.categorize("id6", min_value=1, labels=range(1, H2O_K6 + 1))
+    return df, cols
+
+
+def binby_queries(vt):
+    a = vt.agg
+    return {
+        "limits minmax": lambda df: df.limits(["x", "y"], "minmax"),
+        "limits 99.7%": lambda df: df.limits("x", "99.7%"),
+        "count 2-D 256": lambda df: df.count(binby=["x", "y"], shape=256),
+        "mean 2-D 1024": lambda df: df.mean("v", binby=["x", "y"], shape=1024),
+        "max 2-D 1024": lambda df: df.max("v", binby=["x", "y"], shape=1024),
+        "minmax by x 128": lambda df: df.minmax("v", binby="x", shape=128),
+        "q7": lambda df: df.groupby("id6", agg={"max_v1": a.max("v1"), "min_v2": a.min("v2")}),
+        "sum max min by id6": lambda df: df.groupby(
+            "id6", agg={"s": a.sum("v1"), "hi": a.max("v1"), "lo": a.min("v2")}),
+        "first by id4": lambda df: df.first("v", "t", binby="id4"),
+    }
+
+
+def binby_plain(cols):
+    """The same answers in plain torch: aminmax, bincount, index_add_ and
+    scatter_reduce_ over bins computed with the binner's formula."""
+    x, y, v, t = cols["x"], cols["y"], cols["v"], cols["t"]
+    id4, id6 = cols["id4"] - 1, cols["id6"] - 1
+    f64 = torch.float64
+
+    def limits(c):
+        lo, hi = torch.aminmax(c)
+        return float(lo), float(hi)
+
+    def axis(c, bins):
+        """(bin, inside) of a continuous axis over its own min and max."""
+        lo, hi = limits(c)
+        b = torch.floor((c - lo) / (hi - lo) * bins).to(torch.int64)
+        return b, (c >= lo) & (c < hi) & (b < bins)
+
+    def cells(bins):
+        bx, inx = axis(x, bins)
+        by, iny = axis(y, bins)
+        keep = inx & iny
+        return (bx * bins + by)[keep], keep
+
+    def percent():
+        lo, hi = limits(x)
+        b, inside = axis(x, 1024)
+        counts = torch.bincount(b[inside], minlength=1024).cpu().numpy()
+        return lo, hi, counts
+
+    def mean(bins):
+        cell, keep = cells(bins)
+        w = v[keep]
+        ok = ~torch.isnan(w)
+        n = torch.bincount(cell[ok], minlength=bins * bins)
+        s = torch.zeros(bins * bins, dtype=f64, device="cuda").index_add_(0, cell[ok], w[ok])
+        return torch.where(n > 0, s / n, torch.nan).reshape(bins, bins)
+
+    def extreme(cell, w, size, mode):
+        ok = ~torch.isnan(w) if w.is_floating_point() else torch.ones_like(w, dtype=torch.bool)
+        if w.is_floating_point():
+            fill = float("-inf") if mode == "amax" else float("inf")
+        else:
+            fill = -(2 ** 63) if mode == "amax" else 2 ** 63 - 1
+        out = torch.full((size,), fill, dtype=w.dtype, device="cuda")
+        return out.scatter_reduce_(0, cell[ok], w[ok], mode, include_self=True)
+
+    def max2d(bins):
+        cell, keep = cells(bins)
+        return extreme(cell, v[keep], bins * bins, "amax").reshape(bins, bins)
+
+    def minmax1d(bins):
+        b, inside = axis(x, bins)
+        return torch.stack([extreme(b[inside], v[inside], bins, "amin"),
+                            extreme(b[inside], v[inside], bins, "amax")], dim=-1)
+
+    def first():
+        ok = ~torch.isnan(v)
+        order = t.to(f64)  # the order is compared as float64
+        best = torch.full((H2O_K,), float("inf"), dtype=f64, device="cuda")
+        best.scatter_reduce_(0, id4[ok], order[ok], "amin", include_self=True)
+        winner = ok & (order == best[id4])
+        rows = torch.arange(v.numel(), device="cuda")
+        row = torch.full((H2O_K,), v.numel(), dtype=torch.int64, device="cuda")
+        row.scatter_reduce_(0, id4[winner], rows[winner], "amin", include_self=True)
+        return v[row]
+    return {
+        "limits minmax": lambda: [limits(x), limits(y)],
+        "limits 99.7%": percent,
+        "count 2-D 256": lambda: torch.bincount(cells(256)[0], minlength=256 * 256),
+        "mean 2-D 1024": lambda: mean(1024),
+        "max 2-D 1024": lambda: max2d(1024),
+        "minmax by x 128": lambda: minmax1d(128),
+        "q7": lambda: (extreme(id6, cols["v1"], H2O_K6, "amax"),
+                       extreme(id6, cols["v2"], H2O_K6, "amin")),
+        "sum max min by id6": lambda: (
+            torch.zeros(H2O_K6, dtype=torch.int64, device="cuda").index_add_(0, id6, cols["v1"]),
+            extreme(id6, cols["v1"], H2O_K6, "amax"), extreme(id6, cols["v2"], H2O_K6, "amin")),
+        "first by id4": first,
+    }
+
+
+def binby_check(name, out, want):
+    """One binned statistic against its plain torch answer."""
+    import numpy as np
+    same = lambda got, w, what: check(  # noqa: E731
+        torch.equal(torch.as_tensor(np.asarray(got)), w.cpu()), what)
+    if name == "limits minmax":
+        check([tuple(pair) for pair in out] == want, f"limits {out} equal aminmax's {want}")
+    elif name == "limits 99.7%":
+        lo, hi, counts = want
+        cumulative = np.concatenate([[0], np.cumsum(counts) / counts.sum()])
+        edges = np.linspace(lo, hi, 1025)
+        expect = [np.interp(q, cumulative, edges) for q in (0.0015, 0.9985)]
+        check(np.allclose(out, expect, rtol=RTOL, atol=ATOL), f"limits {out} against {expect}")
+    elif name == "count 2-D 256":
+        same(out, want.reshape(256, 256), "2-D counts exact")
+    elif name == "mean 2-D 1024":
+        check(torch.allclose(torch.as_tensor(out), want.cpu(), rtol=RTOL, atol=ATOL,
+                             equal_nan=True), "2-D means")
+    elif name in ("max 2-D 1024", "minmax by x 128", "first by id4"):
+        same(out, want, f"{name} exact")
+    else:
+        names = ["max_v1", "min_v2"] if name == "q7" else ["s", "hi", "lo"]
+        for column, w in zip(names, want):
+            same(out.evaluate(column), w, f"{name} {column} exact")
+        check(out.evaluate(names[0]).dtype.name == "int64", f"{name} keeps int64")
+
+
+def binby_path(vt, plan, gp, cols):
+    """Phase 14: the binned statistics once, checked; returns the table and
+    the launches of each kernel during them."""
+    df, cols = make_binby(vt, cols)
+    plain = binby_plain(cols)
+    kernels = {**plan.KERNELS, **plan.MOMENT_KERNELS, plan.B3X: gp.grid_partition_extreme}
+    for kernel in kernels.values():
+        kernel.launches = 0
+    outs = {}
+    for name, query in binby_queries(vt).items():
+        before = gp.grid_partition_extreme.launches
+        outs[name] = query(df)
+        strategies = df.executor.trace_log[-1]["strategies"]
+        print(f"binby {name} N={H2O_ROWS}: pass strategies {strategies}, B3x launches "
+              f"{gp.grid_partition_extreme.launches - before}", flush=True)
+        if name in BINBY_EXPECT:
+            check(strategies == [BINBY_EXPECT[name]],
+                  f"{name}: strategies {strategies}, expected {BINBY_EXPECT[name]}")
+            check(gp.grid_partition_extreme.launches > before, f"{name}: B3x launches")
+    torch.cuda.synchronize()
+    launches = {name: kernel.launches for name, kernel in kernels.items()}
+    for name, out in outs.items():
+        binby_check(name, out, plain[name]())
+        print(f"binby {name}: checked against plain torch (counts, extremes and first exact, "
+              f"floats rtol {RTOL})", flush=True)
+    print(f"launches during the binned-statistics path: {launches}", flush=True)
+    return df, cols, launches
+
+
+def binby_timings(df, cols, vt, gp, ge, label):
+    """Phase 15: query medians, and B3x at the shape of the 2-D max (G =
+    1 054 729, one f64 column with NaN) against its plain version and
+    scatter_reduce_ alone."""
+    from vaex_tpu_torch.ops.binners import BinnerScalar, fuse_bins
+    from vaex_tpu_torch.ops.nullable import NA
+    plain = binby_plain(cols)
+    for name, query in binby_queries(vt).items():
+        plain_med, plain_s = median_s(plain[name])
+        port_med, port_s = median_s(lambda: query(df))
+        print(f"[{label}] binby {name} N={H2O_ROWS}: median {port_med!r} s (port) vs "
+              f"{plain_med!r} s (plain torch), reps {REPS}; port s {port_s}; "
+              f"plain s {plain_s}", flush=True)
+    binners = [BinnerScalar(c, *(float(m) for m in torch.aminmax(cols[c])), 1024)
+               for c in ("x", "y")]
+    prolog_ms = cuda_ms(lambda: fuse_bins(binners, [b.to_bins(NA(cols[b.expression]))
+                                                    for b in binners]), 3)
+    idx = fuse_bins(binners, [b.to_bins(NA(cols[b.expression])) for b in binners])
+    G = binners[0].shape * binners[1].shape
+    args = (idx, [cols["v"]], ["max"], [None], G)
+    kernel_ms = cuda_ms(lambda: gp.grid_partition_extreme(*args), 5)
+    plain_ms = cuda_ms(lambda: ge.grid_extreme_batch(*args), 2)
+    got = gp.grid_partition_extreme(*args)[0][0]
+    want = ge.grid_extreme_batch(*args)[0]
+    check(torch.equal(got, want), "b3x at the query shape")
+    # the library call alone: the bins as int64, the NaN rows sent to a drop bin
+    bins = ge.extreme_bins(idx, G).masked_fill(torch.isnan(cols["v"]), G)
+
+    def library():
+        out = torch.full((G + 1,), float("-inf"), dtype=torch.float64, device="cuda")
+        return out.scatter_reduce_(0, bins, cols["v"], "amax", include_self=True)
+    library_ms = cuda_ms(library, 2)
+    check(torch.equal(library()[:G], want), "b3x equals scatter_reduce_")
+    # in: idx 4 B and the column 8 B per row; out: the grid; a compare per row
+    bound_ms, bound_by = bound(H2O_ROWS * 12 + 8 * G, {"f64": H2O_ROWS})
+    copy_bw, _ = copy_bandwidth(cols["v"])
+    floor_ms = H2O_ROWS * 12 / copy_bw * 1e3
+    print(f"[{label}] b3x N={H2O_ROWS} G={G} (max of v over the 2-D grid): kernel {kernel_ms!r} "
+          f"ms vs plain {plain_ms!r} ms, scatter_reduce_ alone (the library call) "
+          f"{library_ms!r} ms; HBM floor at 12 B/row {floor_ms!r} ms at the copy bandwidth, "
+          f"kernel at {floor_ms / kernel_ms!r} of it; bound {bound_ms!r} ms by {bound_by} at "
+          f"{PEAK_BYTES / 1e12} TB/s; the two scalar binners and the fuse (eager torch) "
+          f"{prolog_ms!r} ms", flush=True)
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "err": 0.0, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -940,6 +1236,8 @@ def main():
     import vaex_tpu_torch as vt
     from vaex_tpu_torch import agg
     from vaex_tpu_torch.ops import grid_additive as ga
+    from vaex_tpu_torch.ops import grid_extreme as ge
+    from vaex_tpu_torch.ops import grid_partition as gp
     from vaex_tpu_torch.ops import grid_plan as plan
     from vaex_tpu_torch.ops import grid_window as gw
     from vaex_tpu_torch.ops import grid_moments as gm
@@ -950,8 +1248,10 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     sources = {plan.B1: "grid_additive", plan.B2: "grid_window", plan.B3: "grid_partition",
-               plan.B4: "grid_moments", plan.B5: "grid_moments_window", "b6": "probe"}
-    for name, (path, seconds, log) in kernel_build.build(*sources.values()).items():
+               plan.B4: "grid_moments", plan.B5: "grid_moments_window", "b6": "probe",
+               plan.B3X: "grid_partition"}  # B3x is the min/max mode of B3's source
+    for name, (path, seconds, log) in kernel_build.build(*dict.fromkeys(
+            sources.values())).items():
         print(f"built {os.path.relpath(path, HERE)} in {seconds:.1f} s")
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -965,8 +1265,11 @@ def main():
     print("moment kernels vs plain passed", flush=True)
     probe_vs_plain(probe)
     print("probe kernel vs plain passed", flush=True)
+    extreme_kernel_vs_plain(gp, ge)
+    print("min/max kernel vs plain passed", flush=True)
 
-    for kernel in (*plan.KERNELS.values(), *plan.MOMENT_KERNELS.values(), probe.probe):
+    for kernel in (*plan.KERNELS.values(), *plan.MOMENT_KERNELS.values(), probe.probe,
+                   gp.grid_partition_extreme):
         kernel.launches = 0
     tables = {n: main_path(n, vt) for n in MAIN_SIZES}
     main_launches = {name: kernel.launches for name, kernel in plan.KERNELS.items()}
@@ -992,22 +1295,30 @@ def main():
           "the probe's two-level kernel was not launched during the set-based path")
     sets = sets_timings(sets_df, sets_cols, values, vt, probe, setops, label)
     sets["wide_launches"] = sets_launches["b6-wide"]
+    del sets_df, sets_cols
+
+    binby_df, binby_cols, binby_launches = binby_path(vt, plan, gp, h2o_cols)
+    check(binby_launches[plan.B3X] > 0,
+          "grid_partition_extreme was not launched during the binned-statistics path")
+    extremes = binby_timings(binby_df, binby_cols, vt, gp, ge, label)
 
     measured = {plan.B1: (main_launches[plan.B1], results[MAIN_SIZES[0]]),
                 plan.B2: (h2o_launches[plan.B2], wide[plan.B2]),
                 plan.B3: (h2o_launches[plan.B3], wide[plan.B3]),
                 plan.B4: (stats_launches[plan.B4], moments[plan.B4]),
                 plan.B5: (stats_launches[plan.B5], moments[plan.B5]),
-                "b6": (sets_launches["b6"], sets)}
+                "b6": (sets_launches["b6"], sets),
+                plan.B3X: (binby_launches[plan.B3X], extremes)}
     replaces = {plan.B1: "vaex_tpu/ops/pallas_gridagg.py:474",
                 plan.B2: "vaex_tpu/ops/pallas_gridagg.py:239",
                 plan.B3: "vaex_tpu/ops/pallas_partition.py:72",
                 plan.B4: "vaex_tpu/ops/pallas_gridagg.py:45",
                 plan.B5: "vaex_tpu/ops/pallas_gridagg.py:126",
-                "b6": "vaex_tpu/ops/pallas_probe.py:37"}
+                "b6": "vaex_tpu/ops/pallas_probe.py:37",
+                plan.B3X: "vaex_tpu/ops/pallas_partition.py:287"}
     print(label)
     print(json.dumps({"kernels": [{
-        "name": sources[name],
+        "name": "grid_partition_extreme" if name == plan.B3X else sources[name],
         "route": "cuda",
         "source": f"vaex_tpu_torch/csrc/{sources[name]}.cu",
         "replaces": replaces[name],

@@ -4,6 +4,7 @@
     python3 scripts/profile_torch_groupby.py [N ...]    (default: 1e8 4e8)
     python3 scripts/profile_torch_groupby.py --h2o
     python3 scripts/profile_torch_groupby.py --sets
+    python3 scripts/profile_torch_groupby.py --binby
 
 The first form builds the chip_smoke.py main-path table on the card (int64
 key with K = 100 categories, float64 value, seed 42) and profiles
@@ -13,7 +14,10 @@ chip_smoke.py's H2O-groupby-shaped table (1e8 rows) and profiles its q2,
 ``--sets`` profiles chip_smoke.py's set-based queries on the same table
 without categorize (isin as a selection and a filter, groupby over raw keys
 through the dense and the set grouper, nunique, unique), each with its
-pre-passes.  Each query is warmed up, then run REPS times under
+pre-passes.  ``--binby`` profiles chip_smoke.py's binned statistics over
+continuous axes on that table plus x, y, v and t (limits, 2-D count, mean
+and max, minmax by x, q7, sums and extremes by id6 from one scatter, first).
+Each query is warmed up, then run REPS times under
 torch.profiler, each call ended by ``torch.cuda.synchronize()``.
 
 Device time counts only the activities that ran on the card (kernels,
@@ -21,9 +25,9 @@ memcpy, memset), never the host-side aten operators that launched them:
 the busy time is the union of those activities' intervals, and the busy
 share is that union over the host wall time of the profiled calls.  Also
 prints the device time per kernel name, per query, and splits it into the
-port's kernels (B1-B5 with their folds, and the probe B6) and everything
-else torch ran (the binning prolog, offsets, state adds, min/max's
-scatter_reduce, a set build's sorts).  Exits non-zero when the profiler saw
+port's kernels (B1-B5 with their folds, the min/max mode B3x and the probe
+B6) and everything else torch ran (the binning prolog, offsets, state adds,
+a set build's sorts).  Exits non-zero when the profiler saw
 no device activity.
 """
 
@@ -55,7 +59,8 @@ def busy_us(intervals):
 # kernel names of csrc/*.cu
 GRID_KERNELS = ("grid_partials", "window_partials", "partition_count", "partition_scatter",
                 "partition_partials", "fold_partials", "moment_partials",
-                "moment_window_partials", "probe_rows")
+                "moment_window_partials", "probe_rows", "partition_extremes",
+                "fold_extremes")
 
 
 def profile(label, query):
@@ -117,6 +122,15 @@ def sets(vt):
         profile(f"sets {name} N={chip_smoke.H2O_ROWS}", lambda: fresh(query))
 
 
+def binby(vt):
+    import chip_smoke
+    _, cols = chip_smoke.make_h2o(vt)
+    df, _ = chip_smoke.make_binby(vt, cols)
+    del cols
+    for name, query in chip_smoke.binby_queries(vt).items():
+        profile(f"binby {name} N={chip_smoke.H2O_ROWS}", lambda: query(df))
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_torch_groupby: no CUDA device", file=sys.stderr)
@@ -128,6 +142,9 @@ def main():
         return 0
     if sys.argv[1:] == ["--sets"]:
         sets(vt)
+        return 0
+    if sys.argv[1:] == ["--binby"]:
+        binby(vt)
         return 0
     for n in [int(float(a)) for a in sys.argv[1:]] or [100_000_000, 400_000_000]:
         main_path(n, vt)

@@ -4,6 +4,7 @@ the cut-offs of vaex_tpu_torch/ops/grid_plan.py.
 
     python3 scripts/sweep_grid_kernels.py [N]              (default N = 1e8)
     python3 scripts/sweep_grid_kernels.py [N] --moments
+    python3 scripts/sweep_grid_kernels.py [N] --extremes
 
 Builds every kernel (one nvcc per source, all at once), checks each
 against the plain index_add_ version at N = 1_000_003 (ints exact, floats
@@ -21,6 +22,16 @@ windows), B3 over the formed term columns and, at a few G, the plain
 version, for C = 3 (var of an f64 column: x, x*x, count) and C = 6 (corr of
 two int64 columns, as H2O's q9: x*y, x, y, x*x, y*y, count), with a NaN
 in every 97th f64 value.
+
+``--extremes`` sweeps the min/max kernel B3x, the source of
+``extreme_strategy``'s routes: it checks B3x against its plain version
+(``scatter_reduce_`` with a drop bin) at N = 1_000_003 for int64, f64 (NaN,
++-inf, -0.0), f32, a validity and sums riding along, by value; then times,
+for E = 1, 2 and 4 f64 columns (min, max alternating; a NaN in every 97th
+value) across G: B3x as the plan routes it, B3x forced through the
+partition where the direct route would fit, and ``scatter_reduce_`` per
+column; and, from G = 32 768 on, count + f64 sum on B3 and one max on B3x
+as two calls against one call that shares the scatter.
 """
 
 import os
@@ -109,6 +120,92 @@ def sweep_moments(n, gen):
     return 0
 
 
+EXTREME_GS = (1, 8, 103, 1024, 4096, 10609, 24576, 32768, 67081, 262144, 1000003, 1054729)
+
+
+def extreme_inputs(n, E, gen):
+    cols = []
+    for _ in range(E):
+        x = torch.rand(n, generator=gen, device="cuda", dtype=torch.float64) * 100
+        x[::97] = float("nan")
+        cols.append(x)
+    return cols, ["min" if e % 2 else "max" for e in range(E)], [None] * E
+
+
+def same_by_value(got, want):
+    return all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+
+
+def sweep_extremes(n, gen):
+    from vaex_tpu_torch.ops import grid_extreme as ge
+    from vaex_tpu_torch.ops import grid_partition as gp
+    from vaex_tpu_torch.ops import grid_plan
+    m = 1_000_003
+    ints = torch.randint(-(2 ** 62), 2 ** 62, (m,), generator=gen, device="cuda",
+                         dtype=torch.int64)
+    f64 = torch.randn(m, generator=gen, device="cuda", dtype=torch.float64)
+    f64[::7] = float("nan")
+    f64[1::11] = float("inf")
+    f64[2::11] = float("-inf")
+    f64[3::5] = 0.0
+    f64[4::5] = -0.0
+    f32 = torch.randn(m, generator=gen, device="cuda", dtype=torch.float32)
+    valid = torch.rand(m, generator=gen, device="cuda") < 0.8
+    summed = torch.randn(m, generator=gen, device="cuda", dtype=torch.float64)
+    cols, modes = [ints, f64, f32, f64, ints], ["min", "max", "min", "min", "max"]
+    valids = [None, None, None, valid, valid]
+    for G in (1, 103, 10609, 67081, 1000003):
+        idx = torch.randint(-2, G + G // 8 + 1, (m,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        want = ge.grid_extreme_batch(idx, cols, modes, valids, G)
+        routes = {"planned": gp.extreme_direct_fits}
+        if gp.extreme_direct_fits(G, len(cols)):
+            routes["partition"] = lambda G, E: False
+        for route, fits in routes.items():
+            planned, gp.extreme_direct_fits = gp.extreme_direct_fits, fits
+            got = gp.grid_partition_extreme(idx, cols, modes, valids, G)[0]
+            shared = gp.grid_partition_extreme(idx, cols, modes, valids, G, [ints], [summed],
+                                               True)
+            gp.extreme_direct_fits = planned
+            sums = gp.grid_partition_reference(idx, [ints], [summed], G, True)
+            torch.cuda.synchronize()
+            parts = {"alone": same_by_value(got, want),
+                     "beside sums": same_by_value(shared[0], want),
+                     "int sums": torch.equal(shared[1], sums[0]),
+                     "float sums": torch.allclose(shared[2], sums[1], rtol=1e-9, atol=1e-9)}
+            bad = [name for name, ok in parts.items() if not ok]
+            print(f"check G={G} b3x {route}: {'MISMATCH in ' + ', '.join(bad) if bad else 'ok'}",
+                  flush=True)
+            if bad:
+                return 1
+    del ints, f64, f32, valid, summed, cols
+    for E in (1, 2, 4):
+        cols, modes, valids = extreme_inputs(n, E, gen)
+        for G in EXTREME_GS:
+            idx = torch.randint(0, G, (n,), generator=gen, device="cuda", dtype=torch.int32)
+            row = {grid_plan.extreme_strategy(n, G, E): cuda_ms(
+                lambda: gp.grid_partition_extreme(idx, cols, modes, valids, G))}
+            if gp.extreme_direct_fits(G, E):
+                planned, gp.extreme_direct_fits = gp.extreme_direct_fits, lambda G, E: False
+                row["b3x forced"] = cuda_ms(
+                    lambda: gp.grid_partition_extreme(idx, cols, modes, valids, G))
+                gp.extreme_direct_fits = planned
+            if G > 1:  # at G = 1 it is 1e8 atomics on one address: minutes
+                row["scatter_reduce_"] = cuda_ms(
+                    lambda: ge.grid_extreme_batch(idx, cols, modes, valids, G), 1)
+            if E == 1 and G >= 32768:
+                def apart():
+                    gp.grid_partition(idx, [], cols, G, True)
+                    gp.grid_partition_extreme(idx, cols, modes, valids, G)
+                row["b3 + b3x apart"] = cuda_ms(apart)
+                row["b3 + b3x shared"] = cuda_ms(lambda: gp.grid_partition_extreme(
+                    idx, cols, modes, valids, G, [], cols, True))
+            print(f"extremes E={E} G={G} N={n}: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
+            del idx
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("sweep_grid_kernels: no CUDA device", file=sys.stderr)
@@ -119,10 +216,12 @@ def main():
     from vaex_tpu_torch.ops import grid_window as gw
     from vaex_tpu_torch.ops import kernel_build
     moments = "--moments" in sys.argv
-    args = [a for a in sys.argv[1:] if a != "--moments"]
+    extremes = "--extremes" in sys.argv
+    args = [a for a in sys.argv[1:] if a not in ("--moments", "--extremes")]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     sources = (("grid_moments", "grid_moments_window", "grid_partition") if moments else
+               ("grid_partition",) if extremes else
                ("grid_additive", "grid_window", "grid_partition"))
     for name, (path, seconds, log) in kernel_build.build(*sources).items():
         print(f"built {name} in {seconds:.1f} s")
@@ -133,6 +232,8 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(42)
     if moments:
         return sweep_moments(n, gen)
+    if extremes:
+        return sweep_extremes(n, gen)
     bad = 0
     for G in (8182, 10609, 100003, 1000003):  # correctness, small N
         idx = torch.randint(0, G + G // 8 + 1, (1_000_003,), generator=gen, device="cuda",

@@ -238,7 +238,7 @@ def test_statistics_on_the_card(cuda):
     out = df.groupby("k", agg={"sm": a.std("xm"), "sn": a.std("xn"), "rm": a.corr("xm", "v"),
                                "rn": a.corr("xn", "v"), "mm": a.max("xm"), "mn": a.max("xn")})
     [strategy] = df.executor.trace_log[-1]["strategies"]
-    assert strategy["extremes"] == "torch"
+    assert strategy["extremes"] == "b3x-direct"
     for name in strategy["moments"].split("+"):
         assert grid_plan.MOMENT_KERNELS[name].launches > launches[name]
     for m, nan in (("sm", "sn"), ("rm", "rn"), ("mm", "mn")):
@@ -257,6 +257,126 @@ def test_extremes_on_the_card_keep_int64(cuda):
     assert got.dtype == torch.int64
     npt.assert_array_equal(got.cpu().numpy(),
                            [2 ** 62 + 1, -(2 ** 62) - 3, np.iinfo(np.int64).max])
+
+
+def _extreme_inputs(n, G, device, seed=0):
+    """idx with drops on both sides of [0, G); an int64 column past 2^53, an
+    f64 one with NaN, +-inf and both zeros, an f32 one, a validity."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    idx = torch.randint(-2, G + G // 8 + 1, (n,), generator=g, device=device, dtype=torch.int32)
+    ints = torch.randint(-(2 ** 62), 2 ** 62, (n,), generator=g, device=device,
+                         dtype=torch.int64)
+    f64 = torch.randn(n, generator=g, device=device, dtype=torch.float64) * 100
+    f64[::7] = float("nan")
+    f64[1::11] = float("inf")
+    f64[2::11] = float("-inf")
+    f64[3::5] = 0.0
+    f64[4::5] = -0.0
+    f32 = torch.randn(n, generator=g, device=device, dtype=torch.float32)
+    valid = torch.rand(n, generator=g, device=device) < 0.8
+    return idx, [ints, f64, f32, f64, ints], ["min", "max", "min", "min", "max"], [
+        None, None, None, valid, valid]
+
+
+@pytest.mark.parametrize("G", [1, 103, 4_915, 4_916, 67_081, 1_000_003])
+@pytest.mark.parametrize("n", [0, 1, 300_007])
+def test_extreme_kernel_matches_plain(cuda, G, n):
+    """B3x over the raw rows (five columns fit up to G = 4915) and over a
+    partition, alone and with sums riding the partition: exact by value."""
+    idx, cols, modes, valids = _extreme_inputs(n, G, cuda, seed=G)
+    assert gp.extreme_direct_fits(G, len(cols)) == (G <= 4_915)
+    before = gp.grid_partition_extreme.launches
+    got, none_i, none_f = gp.grid_partition_extreme(idx, cols, modes, valids, G)
+    summed = torch.randn(n, device=cuda, dtype=torch.float64)
+    both, int_sums, float_sums = gp.grid_partition_extreme(idx, cols, modes, valids, G,
+                                                           [cols[0]], [summed], True)
+    assert gp.grid_partition_extreme.launches == before + 2
+    assert none_i is None and none_f is None
+    want = ge.grid_extreme_batch(idx, cols, modes, valids, G)
+    want_i, want_f = gp.grid_partition_reference(idx, [cols[0]], [summed], G, True)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, both, want):
+        assert a.dtype == b.dtype == w.dtype
+        assert torch.equal(a, w) and torch.equal(b, w)
+    assert torch.equal(int_sums, want_i)
+    npt.assert_allclose(float_sums.cpu().numpy(), want_f.cpu().numpy(), rtol=1e-9, atol=1e-9)
+
+
+def test_extreme_kernel_on_sorted_keys_and_one_hot_cell(cuda):
+    """Pre-sorted keys (whole runs in one bucket) and every row in one cell
+    of a wide grid."""
+    G = 1_000_003
+    idx, cols, modes, valids = _extreme_inputs(500_009, G, cuda, seed=5)
+    for keys in (torch.sort(idx).values, torch.full_like(idx, 777_777)):
+        got = gp.grid_partition_extreme(keys, cols, modes, valids, G)[0]
+        want = ge.grid_extreme_batch(keys, cols, modes, valids, G)
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+def test_extreme_wrapper_raises_where_its_kernel_does_not_fit(cuda):
+    idx = torch.zeros(10, dtype=torch.int32, device=cuda)
+    x = torch.zeros(10, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        gp.grid_partition_extreme(idx, [x], ["min"], [None], 2 ** 30)
+    with pytest.raises(ValueError, match="does not fit"):
+        gp.grid_partition_extreme(idx, [x] * (gp.MAX_EXT + 1), ["min"] * (gp.MAX_EXT + 1),
+                                  [None] * (gp.MAX_EXT + 1), 100)
+    with pytest.raises(ValueError, match="contiguous"):
+        gp.grid_partition_extreme(idx[::2], [x[::2]], ["min"], [None], 100)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A6"):
+        grid_plan.grid_extremes(idx, [x], ["min"], [None], 10 ** 9)
+
+
+def test_binned_statistics_on_the_card(cuda):
+    """The continuous-axis path on a card-resident frame against the same
+    frame on the CPU device: limits, a 2-D count, the wide 2-D max on B3x,
+    minmax over one axis, sums and extremes from one scatter, first, a
+    datetime min."""
+    rng = np.random.default_rng(6)
+    n, K = 300_000, 250_000
+    v = rng.uniform(0, 100, n)
+    v[::97] = np.nan
+    arrays = dict(x=rng.normal(0, 1, n), y=rng.normal(0, 1, n), v=v,
+                  iv=rng.integers(-(2 ** 40), 2 ** 40, n), t=rng.permutation(n),
+                  id6=rng.integers(0, K, n), k=rng.integers(0, 20, n),
+                  d=(np.datetime64("2020-01-01") + rng.integers(0, 999, n).astype("m8[D]")))
+    a = vaex_tpu_torch.agg
+    frames = []
+    for device in ("cpu", cuda):
+        df = vaex_tpu_torch.from_arrays(**arrays).to_device(device)
+        df = df.categorize("id6", labels=np.arange(K)).categorize("k", labels=list(range(20)))
+        df._tile_rows = 120_000
+        frames.append(df)
+    cpu, card = frames
+    calls = {
+        "limits": (lambda df: df.limits(["x", "y"], "minmax"), None),
+        "count": (lambda df: df.count(binby=["x", "y"], shape=64), {"additive": "b2"}),
+        "max": (lambda df: df.max("v", binby=["x", "y"], shape=300), {"extremes": "b3x"}),
+        "minmax": (lambda df: df.minmax(["v", "iv"], binby="x", shape=128),
+                   {"extremes": "b3x-direct"}),
+        "first": (lambda df: df.first("iv", "t", binby="k"), {"first": "b3x-direct"}),
+        "datetime": (lambda df: df.minmax("d", binby="k"), {"extremes": "b3x-direct"}),
+    }
+    for name, (call, strategy) in calls.items():
+        before = gp.grid_partition_extreme.launches
+        got, want = call(card), call(cpu)
+        assert np.asarray(got).dtype == np.asarray(want).dtype, name
+        npt.assert_array_equal(np.asarray(got), np.asarray(want), err_msg=name)
+        if strategy is not None:
+            assert card.executor.trace_log[-1]["strategies"] == [strategy], name
+            assert card.executor.trace_log[-1]["device"].startswith("cuda")
+            if "extremes" in strategy or "first" in strategy:
+                assert gp.grid_partition_extreme.launches > before, name
+    aggs = {"s": a.sum("iv"), "hi": a.max("iv"), "lo": a.min("v"), "n": "count"}
+    before = gp.grid_partition_extreme.launches, gp.grid_partition.launches
+    got, want = card.groupby("id6", agg=aggs), cpu.groupby("id6", agg=aggs)
+    assert card.executor.trace_log[-1]["strategies"] == [
+        {"additive": "b3", "extremes": "b3x", "scatter": "shared"}]
+    # one call a tile computes both: B3's own wrapper is not called
+    assert gp.grid_partition_extreme.launches == before[0] + 3
+    assert gp.grid_partition.launches == before[1]
+    for name in ("s", "hi", "lo", "n"):
+        npt.assert_array_equal(got.evaluate(name), want.evaluate(name), err_msg=name)
 
 
 def _probe_inputs(n, M, float_keys, device, seed=0):

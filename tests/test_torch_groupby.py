@@ -135,7 +135,8 @@ def test_to_device_cpu_stages_tensors():
 def test_outside_the_slice_raises_not_implemented(query):
     """What is still outside the port raises naming its ROADMAP item; what
     has been ported since (a raw key, a raw key beside a category, a
-    selection) gives vaex_tpu's result."""
+    selection, first) gives vaex_tpu's result, and min of a bool column
+    numpy's (vaex_tpu raises on the identity of a bool)."""
     arrays = seeded_arrays(9, 100, k=K)
     arrays["u"] = np.arange(100, dtype=np.uint32)
     arrays["b"] = arrays["iv"] > 0
@@ -144,13 +145,19 @@ def test_outside_the_slice_raises_not_implemented(query):
         "non_category_key": lambda df: df.groupby("iv", agg="count", sort=True),
         "two_keys": lambda df: df.groupby(["k", "iv"], agg="count", sort=True),
         "selection": lambda df: df.sum("x", selection="x > 0"),
+        "first": lambda df: df.groupby("k", agg={"x": "first"}),
     }
     pending = {
-        "min": lambda: port.groupby("k", agg={"b": "min"}),  # of a bool column
-        "first": lambda: port.groupby("k", agg={"x": "first"}),
         "uint_sum": lambda: port.groupby("k", agg={"s": vaex_tpu_torch.agg.sum("u")}),
     }
-    if query == "selection":
+    if query == "min":  # of a bool column
+        out = port.groupby("k", agg={"b": "min"})
+        want = [bool(arrays["b"][arrays["k"] == g].min()) if (arrays["k"] == g).any() else True
+                for g in range(K)]
+        assert out["b"].tolist() == want and out.evaluate("b").dtype == np.bool_
+        with pytest.raises(ValueError, match="Invalid integer data type"):
+            ref.groupby("k", agg={"b": "min"})
+    elif query == "selection":
         npt.assert_allclose(float(ported[query](port)), float(ported[query](ref)),
                             rtol=1e-6, atol=1e-7)
     elif query in ported:

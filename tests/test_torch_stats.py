@@ -108,7 +108,7 @@ def _aggs(pkg, kind):
 @pytest.mark.parametrize("kind,strategy", [
     ("var", {"moments": "b4"}),  # C = 3 at G = 103
     ("corr", {"moments": "b5"}),  # past B4's grid at C = 6
-    ("extremes", {"extremes": "torch"}),
+    ("extremes", {"extremes": "b3x-direct"}),  # the min/max kernel, no partition
 ])
 def test_groupby_one_key(kind, strategy):
     """G = 103; categories 98..100 have no row: NaN moments, min/max
@@ -137,14 +137,15 @@ def test_groupby_two_keys_q6_sd_and_q9():
 
 def test_groupby_wide_key_takes_b3_q7():
     """One key past B5's windows (K = 250 000): the moments ride B3 over the
-    formed term columns; H2O q7's max/min keep int64."""
+    formed term columns; H2O q7's max/min keep int64 through the min/max
+    kernel's partition."""
     K = 250_000
     ref, port = _frames(_h2o(7, n=100_000, k6=K), {"id6": K})
     aggs = lambda pkg: {"sd": pkg.agg.std("v3"), "r2": pkg.agg.corr("v1", "v2"),  # noqa: E731
                         "max_v1": pkg.agg.max("v1"), "min_v2": pkg.agg.min("v2")}
     want = ref.groupby("id6", agg=aggs(vaex_tpu))
     got = port.groupby("id6", agg=aggs(vaex_tpu_torch))
-    assert _strategies(port) == [{"moments": "b3", "extremes": "torch"}]
+    assert _strategies(port) == [{"moments": "b3", "extremes": "b3x"}]
     assert got.evaluate("max_v1").dtype == want.evaluate("max_v1").dtype == np.int64
     assert_same_frame(want, got)
 

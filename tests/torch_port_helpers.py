@@ -47,6 +47,41 @@ def key_arrays(seed, n):
     }
 
 
+def binby_arrays(seed, n, k=20):
+    """Columns for binned statistics over continuous axes: ``x``, ``y`` float64
+    normal axes (``x`` with NaN), ``xf`` a float32 axis, ``xi`` an int64 one,
+    ``xm`` a masked axis; ``v`` float64 in [0, 100) with NaN, ``w`` float32,
+    ``iv`` int64 near 2^40, ``vm`` a masked float64, ``b`` bool; ``t`` an
+    order column (a permutation: no ties), ``tt`` one with ties; ``d`` a
+    datetime64[ns] with NaT, ``td`` a timedelta64[s]; ``k`` an int64 key in
+    [0, k) and ``id6`` one in [0, n // 10)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, n)
+    x[::53] = np.nan
+    v = rng.uniform(0, 100, n)
+    v[::97] = np.nan
+    d = (np.datetime64("2020-01-01") + rng.integers(0, 1000, n).astype("m8[D]")).astype("M8[ns]")
+    d[::41] = np.datetime64("NaT")
+    return {
+        "x": x,
+        "y": rng.normal(0, 1, n),
+        "xf": rng.normal(0, 1, n).astype(np.float32),
+        "xi": rng.integers(-50, 50, n).astype(np.int64),
+        "xm": np.ma.MaskedArray(rng.normal(0, 1, n), rng.random(n) < 0.1),
+        "v": v,
+        "w": rng.normal(0, 1, n).astype(np.float32),
+        "iv": rng.integers(-(2 ** 40), 2 ** 40, n).astype(np.int64),
+        "vm": np.ma.MaskedArray(rng.normal(0, 10, n), rng.random(n) < 0.15),
+        "b": rng.random(n) < 0.5,
+        "t": rng.permutation(n).astype(np.int64),
+        "tt": rng.integers(0, 50, n).astype(np.int64),
+        "d": d,
+        "td": rng.integers(-10 ** 6, 10 ** 6, n).astype("m8[s]"),
+        "k": rng.integers(0, k, n).astype(np.int64),
+        "id6": rng.integers(0, max(n // 10, 1), n).astype(np.int64),
+    }
+
+
 def same_frames(arrays, category=None, labels=None, tile_rows=None):
     """The same frame in both packages: (vaex_tpu frame, port frame on the
     CPU device), both categorized on ``category`` when given.  Masked and

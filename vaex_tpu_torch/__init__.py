@@ -22,6 +22,7 @@ from .dataframe import DataFrame
 from .dataset import Dataset, DatasetArrays  # noqa: F401
 from .delayed import delayed  # noqa: F401
 from .expression import Expression  # noqa: F401
+from .groupby import BinnerTime  # noqa: F401
 from .ops.setops import RowLimitException  # noqa: F401
 from .registry import register_function  # noqa: F401
 

@@ -1,5 +1,5 @@
 """Aggregator descriptors: ``vaex_tpu_torch.agg.count/sum/mean/var/std/
-covar/corr/min/max``.
+covar/corr/min/max/first``.
 
 A descriptor is a small declarative object; ``add_tasks`` binds it to a
 DataFrame and a binner stack by registering an :class:`AggOperation` on the
@@ -11,8 +11,10 @@ its kind:
   implicit count, for the grid kernels B1-B3 (:mod:`.ops.grid_plan`);
 * ``moments`` (:class:`OpMoments`): base columns and the terms formed from
   them, for the moment kernels B4/B5 (:mod:`.ops.grid_moments`);
-* ``extreme`` (:class:`OpMin`, :class:`OpMax`): one column for
-  :mod:`.ops.grid_extreme`.
+* ``extreme`` (:class:`OpMin`, :class:`OpMax`): one column, with a validity,
+  for the min/max kernel B3x (:func:`.ops.grid_plan.grid_extremes`);
+* ``first`` (:class:`OpFirst`): a value column and an order column; the
+  pass takes two per-bin mins through the same kernel.
 
 A descriptor's ``selection=`` (a boolean expression) sends its operation to
 the aggregation task of that selection, whose bin indices drop the rows the
@@ -20,8 +22,10 @@ selection marks False: the kernels need no validity column for it.
 
 Dtype contract (vaex_tpu/agg.py): count -> int64; sum upcasts int/bool ->
 int64 and float -> float64; mean, var, std, covar and corr are float64
-finishers; min and max keep the input dtype.  Sums of uint columns need
-uint64 arithmetic torch barely has, and raise.
+finishers; min, max and first keep the input dtype.  ``datetime64`` and
+``timedelta64`` columns travel as int64 and their min, max and first are
+viewed back (:func:`view_logical`); NaT never wins.  Sums of uint columns
+need uint64 arithmetic torch barely has, and raise.
 """
 
 from __future__ import annotations
@@ -37,9 +41,20 @@ from .utils import find_valid_name
 PENDING = "not ported yet (ROADMAP queue A5)"
 
 
+NAT = np.iinfo(np.int64).min  # NaT in the int64 view of a datetime or timedelta
+
+
 def extract_central(grid, ndim):
     """Strip the +3 edges from the leading ndim axes."""
     return grid[tuple(slice(2, -1) for _ in range(ndim))]
+
+
+def view_logical(grid, dtype):
+    """A host int64 grid as the ``datetime64`` / ``timedelta64`` dtype it
+    stands for (vaex_tpu/agg.py:519-525); any other grid as it is."""
+    if dtype is not None and DataType(dtype).is_temporal:
+        return np.asarray(grid).view(DataType(dtype).numpy)
+    return grid
 
 
 class AggOperation:
@@ -141,8 +156,9 @@ class OpMoments(AggOperation):
 
 class OpExtreme(AggOperation):
     """Per-bin min or max (``mode``) of one column, in its own dtype; empty
-    cells hold the identity (+-inf, or the integer dtype's max / min), and
-    NaN and missing values drop (vaex_tpu/agg.py:417-516)."""
+    cells hold the identity (+-inf, or the integer dtype's max / min; True /
+    False for a bool min / max), and NaN, NaT and missing values drop
+    (vaex_tpu/agg.py:417-516)."""
 
     kind = "extreme"
     mode = None
@@ -151,20 +167,54 @@ class OpExtreme(AggOperation):
     def name(self):
         return self.mode
 
-    def initial_state(self, G, device):
+    def _state_dtype(self):
         dt = DataType(self.dtype_in)
-        if dt.numpy.kind not in "iuf":
+        if dt.is_temporal:
+            return torch.int64
+        if dt.numpy.kind not in "biuf":
             raise NotImplementedError(f"{self.mode} of a {dt.name} column is {PENDING}")
-        return torch.full((G,), identity(dt.torch, self.mode), dtype=dt.torch, device=device)
+        return dt.torch
+
+    def initial_state(self, G, device):
+        dtype = self._state_dtype()
+        if dtype == torch.bool:
+            return torch.full((G,), self.mode == "min", dtype=dtype, device=device)
+        return torch.full((G,), identity(dtype, self.mode), dtype=dtype, device=device)
 
     def extreme_input(self, ctx):
-        """(values, valid or None) of one tile."""
-        x = ctx.expr(self.expressions[0])
-        return x.data, None if x.mask is None else ~x.mask
+        """(values, valid or None) of one tile, as the min/max kernel takes
+        them."""
+        return _extreme_input(ctx.expr(self.expressions[0]), self.dtype_in)
 
     def apply_kernel(self, state, grid):
+        if state.dtype == torch.bool:
+            # over {0, 1} the widened column's identities are the int64 ones
+            grid = grid.clamp(0, 1).to(torch.bool)
+            return state & grid if self.mode == "min" else state | grid
+        if not state.dtype.is_floating_point and state.dtype != grid.dtype:
+            # a narrower integer column was widened: so were its identities
+            info = torch.iinfo(state.dtype)
+            grid = grid.clamp(info.min, info.max)
         grid = grid.to(state.dtype)
         return torch.minimum(state, grid) if self.mode == "min" else torch.maximum(state, grid)
+
+
+def _extreme_input(x, dtype_in):
+    """(column, valid or None) of an NA for the min/max kernel: int64,
+    float64 or float32; the NaT rows of a datetime or timedelta are invalid
+    (vaex_tpu/agg.py:56-66)."""
+    valid = None if x.mask is None else ~x.mask
+    data = x.data
+    if data.is_floating_point():  # narrower floats widen to float32
+        if data.dtype not in (torch.float32, torch.float64):
+            data = data.to(torch.float32)
+    else:  # ints and bools widen to int64
+        data = data.to(torch.int64)
+    data = data.contiguous()
+    if dtype_in is not None and DataType(dtype_in).is_temporal:
+        not_nat = data != NAT
+        valid = not_nat if valid is None else valid & not_nat
+    return data, valid
 
 
 class OpMin(OpExtreme):
@@ -173,6 +223,49 @@ class OpMin(OpExtreme):
 
 class OpMax(OpExtreme):
     mode = "max"
+
+
+class OpFirst(AggOperation):
+    """Per bin the value of the row with the smallest order value; among
+    equal orders the earliest row wins, across tiles too.  Rows whose value
+    or order is NaN or missing take no part; a bin without such a row holds
+    0 (vaex_tpu/agg.py:528-566, ops/gridagg.py:84-127).  The order is
+    compared as float64, as there.  The state is (values [G] in the input
+    dtype, orders [G] float64)."""
+
+    name = "first"
+    kind = "first"
+
+    def initial_state(self, G, device):
+        dt = DataType(self.dtype_in)
+        dtype = torch.int64 if dt.is_temporal else dt.torch
+        return (torch.zeros(G, dtype=dtype, device=device),
+                torch.full((G,), float("inf"), dtype=torch.float64, device=device))
+
+    def first_input(self, ctx):
+        """(values, order as float64, valid or None) of one tile."""
+        x = ctx.expr(self.expressions[0])
+        order = ctx.expr(self.expressions[1])
+        valid = None
+        for na in (x, order):
+            if na.mask is not None:
+                valid = ~na.mask if valid is None else valid & ~na.mask
+            if na.data.is_floating_point():
+                ok = ~torch.isnan(na.data)
+                valid = ok if valid is None else valid & ok
+        if DataType(self.dtype_in).is_temporal:
+            ok = x.data != NAT
+            valid = ok if valid is None else valid & ok
+        return x.data, order.data.to(torch.float64).contiguous(), valid
+
+    def apply_first(self, state, tile_values, tile_order, found):
+        values, orders = state
+        take = found & (tile_order < orders)
+        return (torch.where(take, tile_values.to(values.dtype), values),
+                torch.where(take, tile_order, orders))
+
+    def get_result(self, state, shape):
+        return state[0].reshape(shape)
 
 
 def selection_expression(selection):
@@ -213,6 +306,11 @@ class AggregatorDescriptor:
             return DataType(np.dtype("int64"))
         return DataType(df.data_type(self.expression))
 
+    def logical_dtype(self, df):
+        """The ``datetime64`` / ``timedelta64`` dtype the result's int64
+        stands for (:func:`view_logical`), or None."""
+        return None
+
 
 class AggregatorDescriptorBasic(AggregatorDescriptor):
     def __init__(self, name, expression, op_class, selection=None, edges=False):
@@ -221,6 +319,25 @@ class AggregatorDescriptorBasic(AggregatorDescriptor):
 
     def add_tasks(self, df, binners):
         op = self.op_class(self.expressions, dtype_in=self._input_dtype(df))
+        return [df.executor.schedule_aggregation(df, binners, op, self.selection)]
+
+    def logical_dtype(self, df):
+        dtype = self._input_dtype(df)
+        keeps_dtype = self.name in ("min", "max", "first")
+        return dtype.numpy if keeps_dtype and dtype.is_temporal else None
+
+
+class AggregatorDescriptorFirst(AggregatorDescriptorBasic):
+    """The value at the smallest ``order_expression`` (the expression itself
+    when none is given; vaex_tpu/agg.py:1374-1388)."""
+
+    def __init__(self, expression, order_expression=None, selection=None, edges=False):
+        super().__init__("first", expression, OpFirst, selection, edges)
+        self.order_expression = str(order_expression if order_expression is not None
+                                    else expression)
+
+    def add_tasks(self, df, binners):
+        op = OpFirst([self.expression, self.order_expression], dtype_in=self._input_dtype(df))
         return [df.executor.schedule_aggregation(df, binners, op, self.selection)]
 
 
@@ -356,6 +473,10 @@ def max(expression, selection=None, edges=False):  # noqa: A001
     return AggregatorDescriptorBasic("max", expression, OpMax, selection, edges)
 
 
+def first(expression, order_expression=None, selection=None, edges=False):
+    return AggregatorDescriptorFirst(expression, order_expression, selection, edges)
+
+
 def var(expression, ddof=0, selection=None, edges=False):
     return AggregatorDescriptorVar(expression, std=False, ddof=ddof, selection=selection,
                                    edges=edges)
@@ -375,4 +496,4 @@ def corr(x, y, selection=None, edges=False):
 
 
 aggregates = {"count": count, "sum": sum, "mean": mean, "min": min, "max": max,
-              "std": std, "var": var, "corr": corr, "covar": covar}
+              "first": first, "std": std, "var": var, "corr": corr, "covar": covar}

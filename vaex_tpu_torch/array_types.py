@@ -23,11 +23,14 @@ def to_numpy(x):
 
 
 def to_tensor(x, device) -> torch.Tensor:
-    """A numpy array (or tensor) as a tensor on ``device``; raises for dtypes
-    torch has no tensor type for."""
+    """A numpy array (or tensor) as a tensor on ``device``; a datetime64 or
+    timedelta64 array as its int64 view; raises for dtypes torch has no
+    tensor type for."""
     if isinstance(x, torch.Tensor):
         return x.to(device)
     x = np.asarray(x)
+    if x.dtype.kind in "Mm":
+        x = x.view(np.int64)
     return torch.as_tensor(np.ascontiguousarray(x), dtype=torch_dtype(x.dtype)).to(device)
 
 

@@ -3,9 +3,11 @@
 The slice of ``vaex_tpu/dataframe.py`` on the main path: a DataFrame owns
 an immutable Dataset plus category metadata; ``to_device`` stages columns
 as tensors on a torch device; the statistics (``count``, ``sum``, ``mean``,
-``var``, ``std``, ``min``, ``max``, ``minmax``, ``covar``,
-``correlation``) and ``groupby`` build aggregation tasks that one pass of
-the executor runs.  ``filter`` (or ``df[<boolean expression>]``) keeps a
+``var``, ``std``, ``min``, ``max``, ``minmax``, ``first``, ``covar``,
+``correlation``), ``groupby`` and ``binby`` build aggregation tasks that one
+pass of the executor runs.  ``binby=`` takes category axes and continuous
+ones, binned over ``limits`` (explicit, ``"minmax"`` or ``"<p>%"``) in
+``shape`` bins.  ``filter`` (or ``df[<boolean expression>]``) keeps a
 boolean expression every pass evaluates per tile; ``selection=`` does the
 same for one statistic.  The set API (``isin``, ``unique``, ``nunique``,
 ``value_counts``, ``map``) and the groupers of uncategorized keys build
@@ -27,7 +29,7 @@ from .datatype import DataType, dtype_of, has_torch_dtype
 from .delayed import delayed
 from .execution import ExecutorLocal, TileContext, _tile, pass_inputs
 from .expression import Expression
-from .ops.binners import BinnerOrdinal
+from .ops.binners import BinnerOrdinal, BinnerScalar
 from .scopes import DeviceScope
 from .tasks import TaskSetCreate
 from .utils import fingerprint, valid_expression_name
@@ -117,7 +119,9 @@ class DataFrame:
         """dtype of a column, or of an expression evaluated over one row."""
         expression = str(expression)
         if expression in self.dataset:
-            return dtype_of(self.dataset[expression])
+            logical = self.dataset.logical.get(expression)
+            return DataType(logical) if logical is not None else dtype_of(
+                self.dataset[expression])
         rows = min(1, self.dataset.row_count)
         return DataType(self._evaluate_rows(expression, 0, rows, filtered=False).dtype)
 
@@ -215,114 +219,305 @@ class DataFrame:
     def evaluate(self, expression):
         """Values of an expression as a host numpy (masked) array."""
         expression = str(expression)
+        logical = self.dataset.logical.get(expression)
         if expression in self.dataset and not self.filtered:
-            return array_types.to_numpy(self.dataset[expression][:])
-        return self._evaluate_rows(expression, 0, self.dataset.row_count)
+            values = array_types.to_numpy(self.dataset[expression][:])
+        else:
+            values = self._evaluate_rows(expression, 0, self.dataset.row_count)
+        # a datetime or timedelta column comes back from its int64 form
+        return values.view(logical) if logical is not None and values.dtype.kind == "i" else values
 
     # ---------------------------------------------------------- aggregation
     def execute(self):
         self.executor.execute()
 
-    def _create_binners(self, binby):
-        binby = [str(b) for b in (binby if isinstance(binby, (list, tuple)) else [binby])]
+    def _create_binners(self, binby, limits=None, shape=128):
+        """The binner stack of ``binby``: a category axis bins on its codes,
+        any other on ``[vmin, vmax)`` from ``limits`` (see :meth:`limits`) in
+        ``shape`` bins (an int, or one per axis)."""
+        binby = _ensure_list(binby)
+        if not binby:
+            return ()
+        shapes = list(shape) if isinstance(shape, (list, tuple)) else [shape] * len(binby)
+        if len(shapes) != len(binby):
+            raise ValueError(f"shape {shape!r} does not match the {len(binby)} binby axes")
+        limits = self._axis_limits(binby, limits)
         binners = []
-        for expr in binby:
-            if not self.is_category(expr):
-                raise NotImplementedError(
-                    f"binby over the non-category {expr!r} is not ported yet "
-                    f"(ROADMAP queue A5)")
-            binners.append(BinnerOrdinal(expr, self.category_offset(expr),
-                                         self.category_count(expr)))
+        for expr, (vmin, vmax), bins in zip(binby, limits, shapes):
+            if self.is_category(expr):
+                binners.append(BinnerOrdinal(expr, self.category_offset(expr),
+                                             self.category_count(expr)))
+            else:
+                binners.append(BinnerScalar(expr, vmin, vmax, bins))
         return tuple(binners)
 
-    def _compute_agg(self, name, expression, binby=(), selection=None, delay=False,
-                     edges=False, **agg_kwargs):
-        binners = self._create_binners(binby) if binby else ()
+    def _axis_limits(self, binby, limits):
+        """One ``[vmin, vmax]`` per axis of ``binby`` (a list) from a limits
+        spec; explicit pairs and category axes take no pass."""
+        if len(binby) == 1 and _is_pair(limits):
+            limits = [limits]
+        return self.limits(binby, limits)
+
+    def _compute_agg(self, name, expression, binby=(), limits=None, shape=128,
+                     selection=None, delay=False, edges=False, **agg_kwargs):
+        """One statistic of an expression, or of each of a list of them
+        (stacked on the first axis), over the grid of ``binby``
+        (vaex_tpu/dataframe.py:785-832)."""
+        binners = self._create_binners(binby, limits, shape)
         if isinstance(selection, Expression):
             selection = selection.expression
-        if name == "count" and (expression is None or str(expression) == "*"):
-            desc = agg_module.count("*", selection=selection)
-        else:
-            desc = agg_module.aggregates[name](str(expression), selection=selection,
-                                               **agg_kwargs)
-        [promise] = desc.add_tasks(self, binners)
+        multi = isinstance(expression, (list, tuple))
+        promises, logical = [], []
+        for expr in (expression if multi else [expression]):
+            if name == "count" and (expr is None or str(expr) == "*"):
+                desc = agg_module.count("*", selection=selection)
+            else:
+                desc = agg_module.aggregates[name](str(expr), selection=selection,
+                                                   **agg_kwargs)
+            [promise] = desc.add_tasks(self, binners)
+            promises.append(promise)
+            logical.append(desc.logical_dtype(self))
         ndim = len(binners)
 
         @delayed
-        def finish(grid):
-            grid = array_types.to_numpy(grid)
-            if ndim and not edges:
-                return agg_module.extract_central(grid, ndim)
-            return grid if ndim else grid.reshape(())[()]
-        return self._delay(delay, finish(promise))
+        def finish(*grids):
+            out = []
+            for grid, dtype in zip(grids, logical):
+                grid = agg_module.view_logical(array_types.to_numpy(grid), dtype)
+                if ndim and not edges:
+                    grid = agg_module.extract_central(grid, ndim)
+                out.append(grid if ndim else grid.reshape(())[()])
+            if multi:
+                return np.stack(out) if ndim else np.array(out)
+            return out[0]
+        return self._delay(delay, finish(*promises))
 
     def _delay(self, delay, result):
         if delay:
             return result
-        self.execute()
+        if not result.done:  # a result that needed no pass flushes nothing
+            self.execute()
         return result.get()
 
-    def count(self, expression=None, binby=(), selection=None, delay=False, edges=False):
-        return self._compute_agg("count", expression, binby, selection, delay, edges)
+    def count(self, expression=None, binby=(), limits=None, shape=128, selection=None,
+              delay=False, edges=False):
+        return self._compute_agg("count", expression, binby, limits, shape, selection, delay,
+                                 edges)
 
-    def sum(self, expression, binby=(), selection=None, delay=False, edges=False):
-        return self._compute_agg("sum", expression, binby, selection, delay, edges)
+    def sum(self, expression, binby=(), limits=None, shape=128, selection=None, delay=False,
+            edges=False):
+        return self._compute_agg("sum", expression, binby, limits, shape, selection, delay,
+                                 edges)
 
-    def mean(self, expression, binby=(), selection=None, delay=False, edges=False):
-        return self._compute_agg("mean", expression, binby, selection, delay, edges)
+    def mean(self, expression, binby=(), limits=None, shape=128, selection=None, delay=False,
+             edges=False):
+        return self._compute_agg("mean", expression, binby, limits, shape, selection, delay,
+                                 edges)
 
-    def min(self, expression, binby=(), selection=None, delay=False, edges=False):
-        return self._compute_agg("min", expression, binby, selection, delay, edges)
+    def min(self, expression, binby=(), limits=None, shape=128, selection=None, delay=False,
+            edges=False):
+        return self._compute_agg("min", expression, binby, limits, shape, selection, delay,
+                                 edges)
 
-    def max(self, expression, binby=(), selection=None, delay=False, edges=False):
-        return self._compute_agg("max", expression, binby, selection, delay, edges)
+    def max(self, expression, binby=(), limits=None, shape=128, selection=None, delay=False,
+            edges=False):
+        return self._compute_agg("max", expression, binby, limits, shape, selection, delay,
+                                 edges)
 
-    def var(self, expression, binby=(), selection=None, delay=False, edges=False, ddof=0):
-        return self._compute_agg("var", expression, binby, selection, delay, edges, ddof=ddof)
+    def var(self, expression, binby=(), limits=None, shape=128, selection=None, delay=False,
+            edges=False, ddof=0):
+        return self._compute_agg("var", expression, binby, limits, shape, selection, delay,
+                                 edges, ddof=ddof)
 
-    def std(self, expression, binby=(), selection=None, delay=False, edges=False, ddof=0):
-        return self._compute_agg("std", expression, binby, selection, delay, edges, ddof=ddof)
+    def std(self, expression, binby=(), limits=None, shape=128, selection=None, delay=False,
+            edges=False, ddof=0):
+        return self._compute_agg("std", expression, binby, limits, shape, selection, delay,
+                                 edges, ddof=ddof)
 
-    def minmax(self, expression, binby=(), selection=None, delay=False):
+    def first(self, expression, order_expression=None, binby=(), limits=None, shape=128,
+              selection=None, delay=False, edges=False):
+        """Per cell the value at the smallest ``order_expression`` (the
+        expression itself when none is given); ties go to the earliest row."""
+        return self._compute_agg(
+            "first", expression, binby, limits, shape, selection, delay, edges,
+            order_expression=None if order_expression is None else str(order_expression))
+
+    def minmax(self, expression, binby=(), limits=None, shape=128, selection=None,
+               delay=False):
         """[min, max] of an expression, or of each of a list of them, stacked
         on the last axis (vaex_tpu/dataframe.py:895-921)."""
         multi = isinstance(expression, (list, tuple))
-        pairs = [(self.min(e, binby, selection, delay=True),
-                  self.max(e, binby, selection, delay=True))
-                 for e in (expression if multi else [expression])]
+        binners = self._create_binners(binby, limits, shape)
+        if isinstance(selection, Expression):
+            selection = selection.expression
+        promises, logical = [], []
+        for e in (expression if multi else [expression]):
+            for make in (agg_module.min, agg_module.max):
+                desc = make(str(e), selection=selection)
+                promises += desc.add_tasks(self, binners)
+            logical.append(desc.logical_dtype(self))
+        ndim = len(binners)
 
         @delayed
         def finish(*grids):
-            out = [np.stack([grids[i], grids[i + 1]], axis=-1) for i in range(0, len(grids), 2)]
+            out = []
+            for k, dtype in enumerate(logical):
+                pair = [agg_module.view_logical(array_types.to_numpy(g), dtype)
+                        for g in grids[2 * k:2 * k + 2]]
+                if ndim:
+                    pair = [agg_module.extract_central(g, ndim) for g in pair]
+                    out.append(np.stack(pair, axis=-1))
+                else:
+                    out.append(np.array([g.reshape(())[()] for g in pair]))
             return np.stack(out) if multi else out[0]
-        return self._delay(delay, finish(*[g for pair in pairs for g in pair]))
+        return self._delay(delay, finish(*promises))
 
-    def covar(self, x, y, binby=(), selection=None, delay=False):
+    def limits(self, expression, value=None, selection=None, delay=False):
+        """``[vmin, vmax]`` of an axis from a limits spec: None or "minmax"
+        (one minmax pass; a category axis takes its code range), "<p>%" (the
+        central p percent, :meth:`limits_percentage`) or an explicit pair.  A
+        list of expressions takes one spec for all or one per axis, and its
+        minmax axes share one pass (vaex_tpu/dataframe.py:923-945)."""
+        if isinstance(expression, (list, tuple)):
+            exprs = [str(e) for e in expression]
+            if value is None or isinstance(value, str) or _is_pair(value):
+                values = [value] * len(exprs)
+            else:
+                values = list(value)
+            if len(values) != len(exprs):
+                raise ValueError(f"{len(values)} limits for {len(exprs)} expressions")
+            results = [self.limits(e, v, selection, delay=True) for e, v in zip(exprs, values)]
+
+            @delayed
+            def gather(*pairs):
+                return list(pairs)
+            return self._delay(delay, gather(*results))
+        expression = str(expression)
+        if value is None or (isinstance(value, str) and value == "minmax"):
+            if self.is_category(expression):
+                offset = self.category_offset(expression)
+                return self._delay(delay, _resolved(
+                    [offset, offset + self.category_count(expression)]))
+
+            @delayed
+            def as_floats(pair):
+                return [float(v) for v in pair]
+            return self._delay(delay, as_floats(self.minmax(expression, selection=selection,
+                                                            delay=True)))
+        if isinstance(value, str):
+            return self._delay(delay, _resolved(self.limits_percentage(
+                expression, float(value.rstrip("%")), selection=selection)))
+        value = list(value)
+        if len(value) != 2:
+            raise ValueError(f"limits of {expression!r} must be a [vmin, vmax] pair, got "
+                             f"{value!r}")
+        return self._delay(delay, _resolved([float(v) for v in value]))
+
+    def limits_percentage(self, expression, percentage=99.73, selection=None):
+        """The limits that hold the central ``percentage`` percent of the
+        values: a 1024-bin count grid over [min, max], then interpolation on
+        the host (vaex_tpu/dataframe.py:947-966)."""
+        vmin, vmax = self.minmax(expression, selection=selection)
+        if vmin == vmax:
+            return [vmin, vmax]
+        shape = 1024
+        counts = self.count(binby=[expression], limits=[[vmin, vmax]], shape=shape,
+                            selection=selection)
+        cumulative = np.cumsum(counts).astype(np.float64)
+        total = cumulative[-1]
+        if total == 0:
+            return [vmin, vmax]
+        cumulative /= total
+        fraction = (100.0 - percentage) / 100.0 / 2
+        edges_x = np.linspace(vmin, vmax, shape + 1)
+        lo = np.interp(fraction, np.concatenate([[0], cumulative]), edges_x)
+        hi = np.interp(1 - fraction, np.concatenate([[0], cumulative]), edges_x)
+        return [float(lo), float(hi)]
+
+    def percentile_approx(self, expression, percentage=50.0, binby=(), limits=None, shape=128,
+                          percentile_shape=1024 * 16, percentile_limits="minmax",
+                          selection=None):
+        """Approximate percentiles from a count grid over the expression's
+        range (per cell of ``binby``, with a trailing axis for it), cumulated
+        and interpolated on the host (vaex_tpu/dataframe.py:968-1018)."""
+        multi = isinstance(expression, (list, tuple))
+        many = isinstance(percentage, (list, tuple))
+        percentages = list(percentage) if many else [percentage]
+        binby = _ensure_list(binby)
+        out = []
+        for expr in (expression if multi else [expression]):
+            expr = str(expr)
+            lim = self.limits(expr, percentile_limits, selection=selection)
+            vmin, vmax = lim
+            if vmin == vmax:
+                out.append(vmin)
+                continue
+            edges_x = np.linspace(vmin, vmax, percentile_shape + 1)
+            if binby:
+                counts = self.count(binby=binby + [expr],
+                                    limits=self._axis_limits(binby, limits) + [lim],
+                                    shape=[shape] * len(binby) + [percentile_shape]
+                                    if not isinstance(shape, (list, tuple))
+                                    else list(shape) + [percentile_shape],
+                                    selection=selection)
+                cells = np.cumsum(np.asarray(counts, dtype=np.float64), axis=-1)
+                grid_shape = cells.shape[:-1]
+                cells = cells.reshape(-1, percentile_shape)
+                values = np.full((len(percentages), cells.shape[0]), np.nan)
+                for ci, cum in enumerate(cells):
+                    if cum[-1] == 0:
+                        continue
+                    cum0 = np.concatenate([[0], cum])
+                    for pi, p in enumerate(percentages):
+                        values[pi, ci] = np.interp(p / 100.0 * cum[-1], cum0, edges_x)
+                values = values.reshape((len(percentages),) + grid_shape)
+                out.append(values if many else values[0])
+                continue
+            counts = self.count(binby=[expr], limits=[lim], shape=percentile_shape,
+                                selection=selection)
+            cum0 = np.concatenate([[0], np.cumsum(counts).astype(np.float64)])
+            values = [float(np.interp(p / 100.0 * cum0[-1], cum0, edges_x))
+                      for p in percentages]
+            out.append(values if many else values[0])
+        return out if multi else out[0]
+
+    def median_approx(self, expression, binby=(), limits=None, shape=128,
+                      percentile_shape=1024 * 16, percentile_limits="minmax", selection=None):
+        return self.percentile_approx(expression, 50.0, binby=binby, limits=limits,
+                                      shape=shape, percentile_shape=percentile_shape,
+                                      percentile_limits=percentile_limits, selection=selection)
+
+    def covar(self, x, y, binby=(), limits=None, shape=128, selection=None, delay=False):
         """cov(x, y) = E[xy] - E[x]E[y], each mean over its own valid rows
         (vaex_tpu/dataframe.py:1027-1038)."""
         x, y = str(x), str(y)
-        mean_xy = self.mean(f"({x}) * ({y})", binby, selection, delay=True)
-        mean_x = self.mean(x, binby, selection, delay=True)
-        mean_y = self.mean(y, binby, selection, delay=True)
+        binby = _ensure_list(binby)
+        limits = self._axis_limits(binby, limits)  # once for the three means
+        mean_xy = self.mean(f"({x}) * ({y})", binby, limits, shape, selection, delay=True)
+        mean_x = self.mean(x, binby, limits, shape, selection, delay=True)
+        mean_y = self.mean(y, binby, limits, shape, selection, delay=True)
 
         @delayed
         def finish(mxy, mx, my):
             return np.asarray(mxy) - np.asarray(mx) * np.asarray(my)
         return self._delay(delay, finish(mean_xy, mean_x, mean_y))
 
-    def correlation(self, x, y=None, binby=(), selection=None, delay=False):
+    def correlation(self, x, y=None, binby=(), limits=None, shape=128, selection=None,
+                    delay=False):
         """Pearson correlation covar(x, y) / (std(x) std(y)), or the matrix
         of a list of expressions when y is None
         (vaex_tpu/dataframe.py:1040-1058)."""
         if y is None:
             if not isinstance(x, (list, tuple)):
                 raise ValueError("provide y or a list of expressions")
-            return np.array([[self.correlation(a, b, binby, selection) for b in x]
-                             for a in x])
+            return np.array([[self.correlation(a, b, binby, limits, shape, selection)
+                              for b in x] for a in x])
         x, y = str(x), str(y)
-        cov = self.covar(x, y, binby, selection, delay=True)
-        std_x = self.std(x, binby, selection, delay=True)
-        std_y = self.std(y, binby, selection, delay=True)
+        binby = _ensure_list(binby)
+        limits = self._axis_limits(binby, limits)  # once for all five passes' tasks
+        cov = self.covar(x, y, binby, limits, shape, selection, delay=True)
+        std_x = self.std(x, binby, limits, shape, selection, delay=True)
+        std_y = self.std(y, binby, limits, shape, selection, delay=True)
 
         @delayed
         def finish(c, sx, sy):
@@ -345,7 +540,7 @@ class DataFrame:
             else:
                 columns[name] = col[indices]
         df = self.copy()
-        df.dataset = DatasetArrays(columns)
+        df.dataset = DatasetArrays(columns, self.dataset.logical)
         return df
 
     def sort(self, by, ascending=True):
@@ -384,6 +579,16 @@ class DataFrame:
         if agg is None:
             return gb
         return gb.agg(agg)
+
+    def binby(self, by=None, agg=None, limits=None, shape=128, sort=False):
+        """Aggregations over the grid of ``by`` as an N-d array with the
+        axes' bin centres or labels as coordinates
+        (:class:`~vaex_tpu_torch.groupby.BinBy`)."""
+        from .groupby import BinBy
+        bb = BinBy(self, by=by, limits=limits, shape=shape, sort=sort)
+        if agg is None:
+            return bb
+        return bb.agg(agg)
 
     # ------------------------------------------------------------- set API
     def _set(self, expression, keep_counts=False, limit=None, limit_raise=True):
@@ -434,8 +639,9 @@ class DataFrame:
     def to_device(self, device=None, column_names=None):
         """Stage columns as tensors on ``device`` (default ``settings.DEVICE``).
 
-        Columns whose dtype has a torch tensor type move; masked columns and
-        the rest stay host-side.  Torch raises when the device does not
+        Columns whose dtype has a torch tensor type move (a datetime64 or
+        timedelta64 column as int64; the dataset remembers its dtype);
+        masked columns and the rest stay host-side.  Torch raises when the device does not
         exist: there is no silent CPU run."""
         device = torch.device(device or settings.DEVICE)
         names = column_names or self.get_column_names(hidden=True)
@@ -447,12 +653,32 @@ class DataFrame:
                 col = array_types.to_tensor(col, device)
             columns[name] = col
         df = self.copy()
-        df.dataset = DatasetArrays(columns)
+        df.dataset = DatasetArrays(columns, self.dataset.logical)
         return df
 
     def __repr__(self):
         return (f"<vaex_tpu_torch.DataFrame rows={len(self)} "
                 f"columns={self.get_column_names()}>")
+
+
+def _ensure_list(x):
+    if x is None:
+        return []
+    return [str(e) for e in x] if isinstance(x, (list, tuple)) else [str(x)]
+
+
+def _is_pair(limits):
+    """True for one explicit ``[vmin, vmax]`` (numbers, not limit specs)."""
+    return (isinstance(limits, (list, tuple, np.ndarray)) and len(limits) == 2
+            and np.isscalar(limits[0]) and not isinstance(limits[0], str))
+
+
+def _resolved(value):
+    """A promise that already holds ``value``."""
+    @delayed
+    def give():
+        return value
+    return give()
 
 
 def _descending(data):

@@ -24,6 +24,9 @@ class Dataset(collections.abc.Mapping):
         self._row_count = 0
         self._ids = {}
         self._fingerprint = None
+        # the numpy datetime64 / timedelta64 dtype of the columns that hold
+        # one, whether as a numpy array or as an int64 tensor
+        self.logical = {}
         # facts derived from the columns' content (a key's range, a filter's
         # row count), kept for the life of the node by whoever derives them
         self.remembered = {}
@@ -65,7 +68,8 @@ class Dataset(collections.abc.Mapping):
                 step = max(1, n // 2048)
                 parts.append(hash_array_data(array_types.to_numpy(col[::step])))
                 parts.append(hash_array_data(array_types.to_numpy(col[n - 1000:n])))
-            fp = fingerprint("col-sampled", parts, str(dtype_of(col))) + f"-n{n}"
+            fp = fingerprint("col-sampled", parts, str(dtype_of(col)),
+                             str(self.logical.get(name))) + f"-n{n}"
         self._ids[name] = fp
         return fp
 
@@ -73,15 +77,20 @@ class Dataset(collections.abc.Mapping):
         if start == 0 and end == self.row_count:
             return self
         return DatasetArrays({name: col[start:end]
-                              for name, col in self._columns.items()})
+                              for name, col in self._columns.items()}, self.logical)
 
 
 class DatasetArrays(Dataset):
     """In-memory dict of columns."""
 
-    def __init__(self, columns: Dict[str, object]):
+    def __init__(self, columns: Dict[str, object], logical=None):
         super().__init__()
         self._columns = dict(columns)
+        self.logical = {name: np.dtype(dt) for name, dt in (logical or {}).items()
+                        if name in self._columns}
+        for name, col in self._columns.items():
+            if isinstance(col, np.ndarray) and col.dtype.kind in "Mm":
+                self.logical[name] = col.dtype
         lengths = {name: len(col) for name, col in self._columns.items()}
         if len(set(lengths.values())) > 1:
             raise ValueError(f"columns have unequal lengths: {lengths}")

@@ -1,7 +1,9 @@
 """DataType: one logical type for numpy arrays and torch tensors.
 
 The counterpart of ``vaex_tpu/datatype.py`` for the numeric slice of the
-port; arrow types are not ported yet.  ``upcast`` follows the dtype
+port; arrow types are not ported yet.  A ``datetime64`` or ``timedelta64``
+column is an int64 tensor on a device (its epoch count; NaT is the int64
+minimum) and keeps its numpy dtype as the logical one.  ``upcast`` follows the dtype
 contract of the aggregators: int/bool -> int64, uint -> uint64,
 float -> float64.
 """
@@ -32,13 +34,15 @@ def torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, DataType):
         dtype = dtype.numpy
     npdt = np.dtype(dtype)
+    if npdt.kind in "Mm":
+        return torch.int64
     if npdt not in _NUMPY_TO_TORCH:
         raise TypeError(f"no torch dtype for {npdt}")
     return _NUMPY_TO_TORCH[npdt]
 
 
 def has_torch_dtype(dtype) -> bool:
-    return np.dtype(dtype) in _NUMPY_TO_TORCH
+    return np.dtype(dtype) in _NUMPY_TO_TORCH or np.dtype(dtype).kind in "Mm"
 
 
 class DataType:
@@ -56,6 +60,11 @@ class DataType:
     @property
     def torch(self) -> torch.dtype:
         return torch_dtype(self.internal)
+
+    @property
+    def is_temporal(self):
+        """datetime64 or timedelta64: int64 on a device."""
+        return self.internal.kind in "Mm"
 
     @property
     def is_unsigned(self):

@@ -139,7 +139,7 @@ class ExecutorLocal(Executor):
             "device": str(device),
             "tasks": [t.name for t in tasks],
             # per aggregation task, the kernel each kind of aggregator took, e.g.
-            # {"additive": "b1", "moments": "b5", "extremes": "torch"}
+            # {"additive": "b3", "scatter": "shared", "moments": "b5", "extremes": "b3x"}
             "strategies": [t.strategy for t in tasks if isinstance(t, TaskAggregations)],
             # the route the pass's set probes took ("b6", "b6-wide"), None
             # when it probed no set

@@ -21,8 +21,10 @@ The port of the multi-pass plan of ``vaex_tpu/groupby.py``:
   (:class:`GrouperCombined`).
 
 One aggregation pass fills the grids and ``_assemble`` builds the result
-frame.  String keys, ``BinnerTime`` and BinBy are not ported yet (ROADMAP
-queue A6).
+frame.  :class:`BinBy` (``df.binby``) keeps the grid instead: category axes
+and continuous ones binned over limits, returned as an N-d array with
+coordinates.  :class:`BinnerTime` groups a datetime key by calendar periods.
+String keys are not ported yet (ROADMAP queue A6).
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ import torch
 from . import agg as agg_module
 from .agg import AggregatorDescriptor
 from .expression import Expression
-from .ops.binners import BinnerOrdinal
+from . import array_types
+from .dataset import DatasetArrays
+from .ops.binners import BinnerOrdinal, BinnerScalar
 from .ops.setops import RowLimitException  # noqa: F401  (vaex_tpu exports it here too)
 from .utils import fingerprint, trace
 
@@ -180,6 +184,71 @@ class GrouperCombined:
         return out
 
 
+class BinnerTime:
+    """A datetime key grouped by periods of ``every`` x ``resolution`` ("W",
+    "D", "h", "m", "s", "M" or "Y"), counted from the period of the earliest
+    value; every period up to the latest is a group, rows or not
+    (vaex_tpu/groupby.py:298-357).  The period of each row is computed once
+    on the host with numpy's datetime arithmetic and rides the passes as a
+    hidden int64 column on the frame's device; NaT and missing rows fall
+    outside every period."""
+
+    dense = False
+
+    def __init__(self, expression, resolution="W", df=None, every=1):
+        if isinstance(expression, Expression):
+            df = df or expression.df
+            expression = expression.expression
+        self.df = df
+        self.expression = str(expression)
+        self.resolution = resolution
+        self.every = every
+        self.sort_indices = None
+        data, mask = array_types.data_and_mask(df.evaluate(self.expression))
+        missing = np.isnat(data) if mask is None else np.isnat(data) | mask
+        unit = f"M8[{resolution}]"
+        periods = data.astype(unit).view("i8")
+        start = data[~missing].min().astype(unit) if not missing.all() else np.datetime64(0, resolution)
+        codes = (periods - start.view("i8")) // every
+        codes[missing] = -1
+        self.N = int(codes.max()) + 1 if not missing.all() else 0
+        self.bin_values = start + np.arange(self.N) * np.timedelta64(every, resolution)
+        self.bin_values_raw = self.bin_values
+        self.codes = codes.astype(np.int64)
+        # the name must be the same in every process: a content fingerprint
+        self.column = f"__btime_{fingerprint(self.expression, resolution, every)[:16]}"
+        self.ordinal_expression = self.column
+        self.binner = BinnerOrdinal(self.column, 0, self.N)
+
+    def bind(self, df):
+        """Add the period column to ``df`` (a GroupBy's own copy), on the
+        device of its tensor columns."""
+        if self.column in df.dataset:
+            return
+        device = next((c.device for c in df.dataset.values() if isinstance(c, torch.Tensor)),
+                      None)
+        codes = self.codes if device is None else torch.as_tensor(self.codes).to(device)
+        df.dataset = DatasetArrays({**dict(df.dataset.items()), self.column: codes},
+                                   df.dataset.logical)
+        df.column_names = df.column_names + [self.column]
+
+    @classmethod
+    def per_week(cls, expression, df=None):
+        return cls(expression, "W", df)
+
+    @classmethod
+    def per_day(cls, expression, df=None):
+        return cls(expression, "D", df)
+
+    @classmethod
+    def per_month(cls, expression, df=None):
+        return cls(expression, "M", df)
+
+    @classmethod
+    def per_year(cls, expression, df=None):
+        return cls(expression, "Y", df)
+
+
 def _frame_key(df):
     """What, beside the dataset node itself, decides the rows a pass over
     ``df`` sees."""
@@ -253,6 +322,9 @@ class StaleRange(Exception):
 
 
 def _make_grouper(name, df, sort, ascending, row_limit, dense_info):
+    if isinstance(name, BinnerTime):
+        name.bind(df)
+        return name
     if df.is_category(name):
         return GrouperCategory(name, df, sort=sort, ascending=ascending)
     info = dense_info.get(name)
@@ -279,7 +351,10 @@ class GroupBy:
         self.df = df.copy()
         self.sort = sort
         by = list(by) if isinstance(by, (list, tuple)) else [by]
-        self.by_names = [b.expression if isinstance(b, Expression) else str(b) for b in by]
+        # a key is a name, an Expression or a BinnerTime made beforehand
+        self.by_keys = [b if isinstance(b, BinnerTime) else
+                        b.expression if isinstance(b, Expression) else str(b) for b in by]
+        self.by_names = [b.expression if isinstance(b, BinnerTime) else b for b in self.by_keys]
         self.ascending = (list(ascending) if isinstance(ascending, (list, tuple))
                           else [ascending] * len(by))
         self.combine = combine
@@ -293,11 +368,12 @@ class GroupBy:
     def _plan(self):
         """The groupers and binners, from what is remembered of the keys'
         ranges or from a fresh pre-pass."""
-        raw = [name for name in self.by_names if not self.df.is_category(name)]
+        raw = [key for key in self.by_keys
+               if not isinstance(key, BinnerTime) and not self.df.is_category(key)]
         with trace("dense-candidates pre-pass"):
             dense_info = _dense_candidates(raw, self.df, self.row_limit)
-        self.groupers = [_make_grouper(name, self.df, self.sort, asc, self.row_limit, dense_info)
-                         for name, asc in zip(self.by_names, self.ascending)]
+        self.groupers = [_make_grouper(key, self.df, self.sort, asc, self.row_limit, dense_info)
+                         for key, asc in zip(self.by_keys, self.ascending)]
         self.combined = None
         self.by = self.groupers
         if len(self.groupers) > 1 and _should_combine(self.groupers, self.combine):
@@ -368,6 +444,7 @@ class GroupBy:
         with trace("groupby agg pass (execute)"):
             self.df.execute()
         grids = {name: agg_module.extract_central(p.get(), ndim) for name, _, p in promises}
+        self._logical = {name: desc.logical_dtype(self.df) for name, desc, _ in promises}
         if counts is not None:
             counts = counts.get()
             # a row in an edge cell of a dense grouper's axis lies outside
@@ -401,7 +478,7 @@ class GroupBy:
         columns = {self.by_names[0]: keys}
         for name, grid in grids.items():
             columns[name] = grid if order is None else grid[order.to(grid.device)]
-        return from_dict(columns)
+        return from_dict(self._viewed(columns))
 
     def _assemble_cartesian(self, grids, counts):
         """The observed cells of the cartesian grid, in row-major order of the
@@ -416,14 +493,23 @@ class GroupBy:
                    for name, g, codes in zip(self.by_names, self.groupers, cells)}
         for name, grid in grids.items():
             columns[name] = grid.reshape(-1)[keep.to(grid.device)]
-        return self._sorted(from_dict(columns))
+        return self._sorted(from_dict(self._viewed(columns)))
 
     def _assemble_combined(self, grids):
         """The cells of a combined grouper are the observed combinations."""
         from . import from_dict
         columns = dict(zip(self.by_names, self.combined.bin_values_per_key))
         columns.update(grids)
-        return self._sorted(from_dict(columns))
+        return self._sorted(from_dict(self._viewed(columns)))
+
+    def _viewed(self, columns):
+        """The result columns, a datetime or timedelta min / max / first back
+        in its dtype on the host."""
+        for name, dtype in self._logical.items():
+            if dtype is not None:
+                columns[name] = agg_module.view_logical(array_types.to_numpy(columns[name]),
+                                                        dtype)
+        return columns
 
     def _sorted(self, df):
         return df.sort(self.by_names, ascending=self.ascending) if self.sort else df
@@ -431,3 +517,79 @@ class GroupBy:
 
 def _is_count_star(desc):
     return desc.name == "count" and desc.expression in (None, "*") and desc.selection is None
+
+
+class BinBy(GroupBy):
+    """``df.binby``: the aggregations over the whole grid of ``by``, empty
+    cells included, as an N-d array (vaex_tpu/groupby.py:1021-1073).  A
+    category axis has its labels as coordinates, a continuous one the centres
+    of its ``shape`` bins over ``limits`` (as :meth:`DataFrame.limits` reads
+    them).  ``agg`` returns an ``xarray.DataArray`` (one aggregation) or
+    ``Dataset`` (several) when xarray is installed, else a
+    :class:`BinnedArray` or a dict of them."""
+
+    def __init__(self, df, by, limits=None, shape=128, sort=False):
+        self.df = df.copy()
+        self.sort = sort
+        by = list(by) if isinstance(by, (list, tuple)) else [by]
+        self.by_names = [b.expression if isinstance(b, Expression) else str(b) for b in by]
+        self.binners = self.df._create_binners(self.by_names, limits, shape)
+        self.coords = []
+        for name, binner in zip(self.by_names, self.binners):
+            if isinstance(binner, BinnerScalar):
+                width = (binner.vmax - binner.vmin) / binner.bins
+                self.coords.append(np.linspace(binner.vmin, binner.vmax, binner.bins + 1)[:-1]
+                                   + width / 2)
+            else:
+                self.coords.append(np.asarray(self.df.category_labels(name, aslist=False)))
+
+    def agg(self, actions):
+        parsed = self._parse_actions(actions)
+        promises = [(name, desc, desc.add_tasks(self.df, self.binners)[0])
+                    for name, desc in parsed]
+        self.df.execute()
+        ndim = len(self.binners)
+        arrays = {}
+        for name, desc, p in promises:
+            grid = agg_module.view_logical(array_types.to_numpy(p.get()),
+                                           desc.logical_dtype(self.df))
+            arrays[name] = agg_module.extract_central(grid, ndim)
+        return _to_xarray(arrays, self.by_names, self.coords)
+
+
+def _to_xarray(arrays, dims, coords):
+    try:
+        import xarray
+    except ImportError:
+        if len(arrays) == 1:
+            [grid] = arrays.values()
+            return BinnedArray(grid, dims, coords)
+        return {name: BinnedArray(grid, dims, coords) for name, grid in arrays.items()}
+    if len(arrays) == 1:
+        [grid] = arrays.values()
+        return xarray.DataArray(grid, dims=dims, coords=dict(zip(dims, coords)))
+    return xarray.Dataset({name: (dims, grid) for name, grid in arrays.items()},
+                          coords=dict(zip(dims, coords)))
+
+
+class BinnedArray:
+    """The least of ``xarray.DataArray`` a binby result needs: ``values``,
+    ``dims`` and ``coords``."""
+
+    def __init__(self, values, dims, coords):
+        self.values = values
+        self.dims = tuple(dims)
+        self.coords = dict(zip(dims, coords))
+
+    def __array__(self, dtype=None, copy=None):
+        return np.asarray(self.values, dtype=dtype)
+
+    def __getitem__(self, item):
+        return self.values[item]
+
+    @property
+    def shape(self):
+        return self.values.shape
+
+    def __repr__(self):
+        return f"BinnedArray(dims={self.dims}, shape={self.values.shape})"

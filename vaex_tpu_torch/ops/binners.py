@@ -3,7 +3,8 @@
 Every grid dimension has ``bins + 3`` cells: index 0 = NaN/missing, 1 =
 underflow, ``[2, bins + 2)`` = data, ``bins + 2`` = overflow
 (vaex_tpu/ops/binners.py).  Here ``to_bins`` runs eagerly on one tile's
-tensors.  ``BinnerScalar`` (range binning) is not ported yet.
+tensors.  :class:`BinnerScalar` bins a continuous axis over ``[vmin, vmax)``,
+:class:`BinnerOrdinal` an integer or categorical one; a grid may mix them.
 """
 
 from __future__ import annotations
@@ -11,7 +12,62 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import fingerprint
 from .nullable import NA
+
+
+class BinnerScalar:
+    """Range binner: ``index = floor((v - vmin) / (vmax - vmin) * bins) + 2``;
+    ``v < vmin`` underflows (1), ``v >= vmax`` overflows (``bins + 2``), NaN
+    and missing values land in 0.  A float32 column is binned in float32,
+    every other dtype in float64 (vaex_tpu/ops/binners.py:23-65)."""
+
+    def __init__(self, expression, vmin, vmax, bins):
+        self.expression = str(expression)
+        self.vmin = vmin
+        self.vmax = vmax
+        self.bins = int(bins)
+
+    @property
+    def shape(self):
+        return self.bins + 3
+
+    def to_bins(self, x: NA):
+        data = x.data
+        fdata = data if data.dtype == torch.float32 else data.to(torch.float64)
+        # the limits and their span in the binning dtype, on the host
+        scalar = np.float32 if fdata.dtype == torch.float32 else np.float64
+        vmin, vmax = float(scalar(self.vmin)), float(scalar(self.vmax))
+        span = float(scalar(vmax) - scalar(vmin))
+        if span != 0:
+            scaled = (fdata - vmin).div_(span)
+        else:  # everything lands on the underflow / overflow edges
+            scaled = torch.zeros_like(fdata)
+        # NaN and values far outside are set below; they must not wrap in the cast
+        idx = scaled.mul_(self.bins).floor_().nan_to_num_(0).clamp_(-1, self.bins)
+        idx = idx.to(torch.int32).add_(2)
+        # in place: idx is this call's own tensor
+        idx.masked_fill_(fdata < vmin, 1).masked_fill_(fdata >= vmax, self.bins + 2)
+        if data.is_floating_point():
+            idx.masked_fill_(torch.isnan(data), 0)
+        if x.mask is not None:
+            idx.masked_fill_(x.mask, 0)
+        return idx
+
+    def __repr__(self):
+        return f"BinnerScalar({self.expression!r}, {self.vmin}, {self.vmax}, {self.bins})"
+
+    def fingerprint(self):
+        return fingerprint("binner-scalar", self.expression, float(self.vmin),
+                           float(self.vmax), self.bins)
+
+    def __eq__(self, other):
+        return (isinstance(other, BinnerScalar) and self.expression == other.expression
+                and self.vmin == other.vmin and self.vmax == other.vmax
+                and self.bins == other.bins)
+
+    def __hash__(self):
+        return hash(self.fingerprint())
 
 
 class BinnerOrdinal:
@@ -56,6 +112,9 @@ class BinnerOrdinal:
     def __eq__(self, other):
         return (isinstance(other, BinnerOrdinal) and self.expression == other.expression
                 and self.min_value == other.min_value and self.count == other.count)
+
+    def fingerprint(self):
+        return fingerprint("binner-ordinal", self.expression, self.min_value, self.count)
 
     def __hash__(self):
         return hash((self.expression, self.min_value, self.count))

@@ -12,9 +12,9 @@ import torch
 from .datatype import DataType
 from .delayed import Promise
 from .ops.binners import fuse_bins, grid_shape, grid_size
-from .ops.grid_extreme import extreme_bins, extreme_of_rows, grid_extreme
+from .ops.grid_extreme import extreme_of_rows
 from .ops.grid_moments import MAX_BASES, MAX_TERMS
-from .ops.grid_plan import grid_sums, moment_sums
+from .ops.grid_plan import grid_extremes, grid_sums_and_extremes, moment_sums
 from .ops.setops import RowLimitException, SortedSet
 
 
@@ -47,11 +47,17 @@ class TaskAggregations(Task):
     batch: the additive ops one call of the grid kernel that
     :mod:`.ops.grid_plan` picks for the grid size (B1, B2 or B3), the moment
     ops as few calls of the moment kernel it picks (B4, B5, or B3 over
-    formed terms) as ``MAX_BASES`` / ``MAX_TERMS`` allow, the extremes one
-    :func:`.ops.grid_extreme.grid_extreme` each.  ``strategy`` maps each
-    kind of the last tile to its kernel, e.g. ``{"additive": "b1",
-    "moments": "b5", "extremes": "torch"}``; the executor writes it into
-    the pass's ``trace_log`` entry.
+    formed terms) as ``MAX_BASES`` / ``MAX_TERMS`` allow, all the extremes
+    one batch of the min/max kernel B3x
+    (:func:`.ops.grid_plan.grid_extremes`), which shares the partition of
+    the additive batch where that is on ``b3`` (``"scatter": "shared"``).
+    A ``first`` is two per-bin mins through the same route, of the order
+    values and then of the row numbers among the rows that hold the winning
+    order.  Without binners the grid is one cell and an extreme is a plain
+    reduction over the rows (``"reduce"``).  ``strategy`` maps each kind of
+    the last tile to its kernel, e.g. ``{"additive": "b1", "moments": "b5",
+    "extremes": "b3x-direct"}``; the executor writes it into the pass's
+    ``trace_log`` entry.
     """
 
     def __init__(self, df, binners, selection=None):
@@ -93,32 +99,32 @@ class TaskAggregations(Task):
             kinds.setdefault(op.kind, []).append(i)
         # without binners the extremes reduce the valid rows and need no index
         idx = self._flat_indices(ctx) if self.binners or kinds.keys() - {"extreme"} else None
-        if "additive" in kinds:
-            self.strategy["additive"] = self._update_additive(kinds["additive"], new_state,
-                                                              idx, G, ctx)
+        # the extremes of a binned task ride the additive batch's call
+        riders = kinds.get("extreme", []) if self.binners else []
+        if "additive" in kinds or riders:
+            self._update_additive(kinds.get("additive", []), riders, new_state, idx, G, ctx)
         if "moments" in kinds:
             names = [self._update_moments(batch, new_state, idx, G, ctx)
                      for batch in _moment_batches(self.subtasks, kinds["moments"])]
             self.strategy["moments"] = "+".join(dict.fromkeys(names))
-        if "extreme" in kinds:
-            if self.binners:
-                bins = extreme_bins(idx, G)
-            else:
-                rows = ctx.selection_valid(self.selection)
+        if "extreme" in kinds and not self.binners:
+            rows = ctx.selection_valid(self.selection)
             for i in kinds["extreme"]:
                 op = self.subtasks[i]
                 values, valid = op.extreme_input(ctx)
-                if self.binners:
-                    grid = grid_extreme(bins, values, G, op.mode, valid)
-                else:
-                    if rows is not None:
-                        valid = rows if valid is None else valid & rows
-                    grid = extreme_of_rows(values, op.mode, valid)
+                if rows is not None:
+                    valid = rows if valid is None else valid & rows
+                grid = extreme_of_rows(values, op.mode, valid)
                 new_state[i] = op.apply_kernel(new_state[i], grid)
-            self.strategy["extremes"] = "torch"
+            self.strategy["extremes"] = "reduce"
+        if "first" in kinds:
+            names = [self._update_first(i, new_state, idx, G, ctx) for i in kinds["first"]]
+            self.strategy["first"] = "+".join(dict.fromkeys(names))
         return new_state
 
-    def _update_additive(self, members, new_state, idx, G, ctx):
+    def _update_additive(self, members, riders, new_state, idx, G, ctx):
+        """One tile's additive batch (``members``) and its binned extremes
+        (``riders``): one call each, or one for both."""
         int_cols, float_cols, slots = [], [], []
         count = False
         for i in members:
@@ -132,7 +138,22 @@ class TaskAggregations(Task):
             else:
                 slots.append(("float", len(float_cols)))
                 float_cols.append(col)
-        name, int_sums, float_sums = grid_sums(idx, int_cols, float_cols, G, count)
+        cols, valids = [], []
+        for i in riders:
+            values, valid = self.subtasks[i].extreme_input(ctx)
+            cols.append(values)
+            valids.append(valid)
+        modes = [self.subtasks[i].mode for i in riders]
+        if members:
+            name, ext_name, shared, int_sums, float_sums, grids = grid_sums_and_extremes(
+                idx, int_cols, float_cols, G, count, cols, modes, valids)
+            self.strategy["additive"] = name
+            if shared:
+                self.strategy["scatter"] = "shared"
+        else:
+            ext_name, grids = grid_extremes(idx, cols, modes, valids, G)
+        if riders:
+            self.strategy["extremes"] = ext_name
         for i, (kind, k) in zip(members, slots):
             if kind == "count":
                 sums = int_sums[0]
@@ -141,6 +162,28 @@ class TaskAggregations(Task):
             else:
                 sums = float_sums[k]
             new_state[i] = self.subtasks[i].apply_kernel(new_state[i], sums)
+        for i, grid in zip(riders, grids):
+            new_state[i] = self.subtasks[i].apply_kernel(new_state[i], grid)
+
+    def _update_first(self, i, new_state, idx, G, ctx):
+        """One tile of a ``first``: per bin the smallest order value, then the
+        earliest of the rows that hold it, then that row's value; a bin's
+        state changes only where the tile's order is strictly smaller, so
+        among equal orders the earliest row of the whole pass wins."""
+        op = self.subtasks[i]
+        values, order, valid = op.first_input(ctx)
+        name, (tile_order,) = grid_extremes(idx, [order], ["min"], [valid], G)
+        # a row wins where it is valid and holds its bin's smallest order
+        inside = (idx >= 0) & (idx < G)
+        winner = inside & (order == tile_order[idx.clamp(0, G - 1).to(torch.int64)])
+        if valid is not None:
+            winner &= valid
+        rows = torch.arange(idx.shape[0], dtype=torch.int64, device=idx.device)
+        _, (first_row,) = grid_extremes(idx, [rows], ["min"], [winner], G)
+        n = idx.shape[0]
+        found = first_row < n  # an empty bin holds the int64 max
+        tile_values = values[first_row.clamp(max=max(n - 1, 0))] if n else values.new_zeros(G)
+        new_state[i] = op.apply_first(new_state[i], tile_values, tile_order, found)
         return name
 
     def _update_moments(self, batch, new_state, idx, G, ctx):
