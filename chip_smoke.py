@@ -19,7 +19,11 @@ Run from the root of the repository on a machine with a CUDA card.  It
    {B1 limit + 1, 10 609, B2 limit, B2 limit + 1, 100 003, 1 000 003,
    4 000 037} through the kernel the plan picks (printed) and, past B2's
    limit, through both routes of B3, plus both routes on pre-sorted keys,
-   on one key and on a Zipf(1.1) draw at G = 1 000 003;
+   on one key and on a Zipf(1.1) draw at G = 1 000 003; then B2 at the
+   edges of its thread-block cluster, G = k * W and k * W + 1 for k = 1 ..
+   8 windows of the widest window W, at C = 1 (count), 2 (+ int64), 3
+   (+ f64 with NaN) and 4 (+ f32), N = 1_000_003 (past 8 windows the
+   wrapper must refuse);
 5. holds the moment kernels B4 (grid_moments) and B5 (grid_moments_window)
    against their plain versions, through the kernel the plan picks
    (printed), for the terms of var (an f64 column) and of corr (two f64
@@ -53,27 +57,34 @@ Run from the root of the repository on a machine with a CUDA card.  It
    statistics against plain PyTorch (5 repetitions, medians), and every
    kernel against its plain version and against its HBM floor at the copy
    bandwidth measured in the same run;
-10. holds B6 (probe) against its plain version (searchsorted, gather,
-    compare): int64 and float64 keys, M in {1, 64, 500, 2048, the limit of
-    its shared-memory kernel} and, through its two-level kernel for wider
-    sets, M in {that limit + 1, 50 000, 1 000 003}, N in {0, 1, 1_000_003,
-    1e8}, rows that hit, miss, lie below the first and above the last key,
-    and -0.0 and NaN among the floats; exact;
+10. holds both routes of B6 (probe: a static search tree, wholly in
+    shared memory on b6, its top levels there and the rest in global memory
+    on b6-wide) against its plain version (searchsorted, gather, compare):
+    int64 and float64 keys, M in {1, 15, 16, 17, 64, 500, 2048, MAX_KEYS,
+    MAX_KEYS + 1, 50 000, b6's limit on 4-byte keys and that + 1,
+    1 000 003} (an int set of 16 384 keys or more whose range is below
+    2^32 on 4-byte keys, and the same sets spread past 2^32 on 8-byte
+    keys), N in {0, 1, 1_000_003, 1e8}, rows that hit, miss, lie below the
+    first and above the last key, and -0.0 and NaN among the floats; a set
+    holding INT64_MIN and INT64_MAX, one holding +-inf, 0.0 and the largest
+    float, and int sets spanning exactly 2^32 - 1 (4-byte keys) and 2^32
+    (8-byte keys); exact, with the route and its launches asserted;
 11. drives the set-based path through the public API on the H2O-shaped
     table WITHOUT categorize: df.count(selection=df.id6.isin(v)) and
     df[df.id6.isin(v)].groupby("id4", {"v1": sum, "v3": mean}) with v = 500
-    ids drawn from seed 42, the same count with 50 000 ids (a set past the
-    shared-memory kernel: the two-level one), groupby over the raw id4 (dense
+    ids drawn from seed 42, the same count with 50 000 ids (b6 on 4-byte
+    keys), groupby over the raw id4 (dense
     grouper, B1) and
     the raw id6 (dense grouper, B3), groupby over k = id4 * 1_000_003 and
     k = (id6 % 2000) * 1_000_003 (set grouper: set build, then the ordinals
-    through B6 at M = 100 and 2000) and k = id6 * 1_000_003 (M = 1e6: the
-    two-level kernel, then B3), df.id6.nunique() and df.id4.unique(),
+    through B6 at M = 100 and 2000, then B1 and B2) and k = id6 * 1_000_003
+    (M = 1e6: b6-wide, then B3), df.id6.nunique() and df.id4.unique(),
     each checked against plain torch (isin, unique, bincount, index_add_),
     with B6's launch count and the probe route each pass recorded;
 12. times those queries against plain PyTorch (the dense pre-pass included
     and, beside it, remembered), and B6 at the isin shapes (500 and 50 000
-    ids) against its plain version and torch.isin;
+    ids: b6) and at the set grouper of k1e6 (b6-wide) against its plain
+    version and torch.isin, on a tree built before the timing;
 13. holds B3x (grid_partition_extreme, the min/max mode of the partitioned
     kernel) against its plain version (scatter_reduce_ with a drop bin) at G
     in {1, 103, 10 609, 67 081, 1 000 003, 1 054 729} and N in {0, 1,
@@ -89,9 +100,12 @@ Run from the root of the repository on a machine with a CUDA card.  It
     "99.7%"), count(binby=[x, y], shape=256), mean(v, binby=[x, y],
     shape=1024), max(v, binby=[x, y], shape=1024) (G = 1 054 729),
     minmax(v, binby=x, shape=128), q7 on id6, groupby(id6, {sum v1, max v1,
-    min v2}) (sums and extremes from one scatter) and first(v, t,
-    binby=id4), each checked against plain torch on the same tensors, with
-    the route each pass recorded and B3x's launch count;
+    min v2}) (sums and extremes from one scatter), first(v, t, binby=id4)
+    and first(v, t53, binby=id4) with int64 orders past 2^53 (compared as
+    int64: the float64 answer differs), each checked against plain torch on
+    the same tensors, with the route each pass recorded and B3x's launch
+    count; and first on a small card frame where a cell's only order is
+    INT64_MAX;
 15. times those queries against plain PyTorch, and B3x at the shape of the
     2-D max against its plain version and scatter_reduce_, and over the raw
     rows (b3x-direct) at the shape of minmax by x.
@@ -132,14 +146,15 @@ SET_KEYS = {"k100": 100, "k2000": 2000, "k1e6": H2O_K6}
 # tensor cores.  Integer adds and compares are counted at the float32 rate,
 # float64 operations at half of it.
 # beside the keys every kernel has: the index_add_ alone for B4 and B5; for
-# B6 torch.isin and its two-level kernel at the wide isin shape; for B3 its
-# resident route at the same shape and the partition's phases; for B3x the
-# route over the raw rows at the shape of minmax by x
+# B6 torch.isin, its b6-wide route at the 1e6-key set grouper and b6 at the
+# 50 000 ids; for B3 its resident route at the same shape and the
+# partition's phases; for B3x the route over the raw rows at the shape of
+# minmax by x
 EXTRA_KEYS = ("library_add_ms", "isin_ms", "wide_launches", "wide_ms", "wide_plain_ms",
               "wide_library_ms", "wide_isin_ms", "wide_bound_ms", "wide_max_abs_err",
               "l2_launches", "l2_ms", "l2_plain_ms", "l2_max_abs_err", "count_ms",
               "scatter_ms", "sums_ms", "direct_ms", "direct_plain_ms", "direct_library_ms",
-              "direct_bound_ms")
+              "direct_bound_ms", "isin_wide_ms")
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"int": 67e12, "f64": 33.5e12}
 
@@ -246,7 +261,7 @@ def wide_kernels_vs_plain(plan, gw):
     """Phase 4: B2 and both routes of B3 against their plain versions;
     returns the worst float error of each."""
     C = 3  # count + one int + one float column
-    b2_limit = plan.B2_MAX_WINDOWS * gw.window_width(C)
+    b2_limit = plan.b2_max_windows(C) * gw.cluster_width(C, True)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     worst = {plan.B2: 0.0, plan.B3: 0.0, plan.B3_L2: 0.0}
     for G in (plan.B1_MAX_G + 1, 10_609, b2_limit, b2_limit + 1, 100_003, 1_000_003,
@@ -276,10 +291,49 @@ def wide_kernels_vs_plain(plan, gw):
             print(f"{route} vs plain on {kind} keys G={G} N={idx.numel()}: ints exact, no "
                   f"other path, f64 max abs err {err!r}", flush=True)
         del idx
+    worst[plan.B2] = max(worst[plan.B2], cluster_edges_vs_plain(gw, gen))
     return worst
 
 
-def moment_kernels_vs_plain(plan, gw, agg):
+def cluster_edges_vs_plain(gw, gen, n=1_000_003):
+    """B2 against its plain version at the edges of its cluster: G = k * W
+    and k * W + 1 for k = 1 .. MAX_CLUSTER windows of the widest window W,
+    at C = 1 (count), 2 (+ int64), 3 (+ f64 with NaN) and 4 (+ f32); one
+    window past the cluster the wrapper refuses.  Returns the worst float
+    error."""
+    worst = 0.0
+    for C in (1, 2, 3, 4):
+        idx0, ints, floats = random_inputs(gen, n, 1, nan=True)
+        ints, floats = [ints] if C >= 2 else [], [floats] if C >= 3 else []
+        if C == 4:
+            floats.append(torch.randn(n, generator=gen, device="cuda", dtype=torch.float32))
+        W = gw.cluster_width(C, True)
+        for k in range(1, gw.MAX_CLUSTER + 1):
+            for G in (k * W, k * W + 1):
+                idx = torch.randint(-2, G + G // 8 + 1, (n,), generator=gen, device="cuda",
+                                    dtype=torch.int32)
+                idx[:4] = torch.tensor([0, W - 1, W, G - 1], dtype=torch.int32)
+                if not gw.fits(G, C, True):
+                    try:
+                        gw.grid_window(idx, ints, floats, G, True)
+                    except ValueError:
+                        print(f"b2 C={C} G={G}: past the cluster, refused", flush=True)
+                        continue
+                    check(False, f"b2 takes G={G} at C={C}, past its cluster")
+                got_i, got_f = gw.grid_window(idx, ints, floats, G, True)
+                want_i, want_f = gw.grid_window_reference(idx, ints, floats, G, True)
+                torch.cuda.synchronize()
+                what = f"b2 C={C} G={G} windows={gw.cluster_windows(G, C, True)}"
+                check(torch.equal(got_i, want_i), f"int64 sums and count, {what}")
+                check(torch.allclose(got_f, want_f, rtol=RTOL, atol=ATOL), f"floats, {what}")
+                err = (got_f - want_f).abs().max().item() if got_f.numel() else 0.0
+                worst = max(worst, err)
+                print(f"{what} N={n} vs plain: ints exact, float max abs err {err!r}",
+                      flush=True)
+    return worst
+
+
+def moment_kernels_vs_plain(plan, gm, agg):
     """Phase 5: B4 and B5 against their plain versions; returns the worst
     float error of each."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -287,7 +341,7 @@ def moment_kernels_vs_plain(plan, gw, agg):
     b4_limit = plan.b4_max_g(6)
     for label, terms in (("var", agg.VAR_TERMS), ("corr", agg.CORR_TERMS)):
         C = len(terms)
-        b5_limit = plan.B5_MAX_WINDOWS * gw.window_width(C)
+        b5_limit = plan.B5_MAX_WINDOWS * gm.window_width(C)
         for G in (1, 103, b4_limit, b4_limit + 1, 10_609, b5_limit):
             name = plan.moment_strategy(max(KERNEL_SIZES), G, C)
             print(f"plan at G={G} ({label}, {C} terms): {name}", flush=True)
@@ -799,11 +853,13 @@ def partition_phases(idx, ints, floats, G, label):
     return {"count_ms": count_ms, "scatter_ms": rows_ms - count_ms, "sums_ms": sums_ms}
 
 # ------------------------------------------------------- the set-based path
-def probe_inputs(gen, n, M, float_keys):
-    """M sorted unique keys and n rows: hits, misses, rows below the first
-    and above the last key and, for floats, -0.0 and NaN."""
-    keys = torch.randperm(4 * M, generator=gen, device="cuda")[:M].sort().values - M
-    x = torch.randint(-M - 5, 3 * M + 6, (n,), generator=gen, device="cuda", dtype=torch.int64)
+def probe_inputs(gen, n, M, float_keys, spread=1):
+    """M sorted unique keys (over a range of about 4M, times ``spread``) and
+    n rows: hits, misses, rows below the first and above the last key and,
+    for floats, -0.0 and NaN."""
+    keys = (torch.randperm(4 * M, generator=gen, device="cuda")[:M].sort().values - M) * spread
+    x = torch.randint(-M - 5, 3 * M + 6, (n,), generator=gen, device="cuda",
+                      dtype=torch.int64) * spread
     if float_keys:
         keys, x = keys.to(torch.float64) * 0.5, x.to(torch.float64) * 0.5
         x[::7] = -0.0
@@ -811,35 +867,84 @@ def probe_inputs(gen, n, M, float_keys):
     return keys, x
 
 
+I64 = torch.iinfo(torch.int64)
+
+
+def probe_edge_sets(gen, n):
+    """(label, keys, rows): a set holding the int64 extremes, one holding
+    +-inf, 0.0 and the largest finite float (rows with -0.0 and NaN), and
+    int sets spanning exactly 2^32 - 1 (4-byte keys) and 2^32 (8-byte)."""
+    ints = torch.tensor([I64.min, I64.min + 1, -5, 0, 7, I64.max - 1, I64.max], device="cuda")
+    floats = torch.tensor([-float("inf"), -1.5, 0.0, 2.0, torch.finfo(torch.float64).max,
+                           float("inf")], device="cuda", dtype=torch.float64)
+    pick = lambda cands: cands[torch.randint(0, cands.numel(), (n,), generator=gen,  # noqa
+                                             device="cuda")]
+    int_rows = pick(torch.cat([ints, torch.tensor([I64.min + 2, 3, I64.max - 2],
+                                                  device="cuda")]))
+    float_rows = pick(torch.cat([floats, torch.tensor([-0.0, float("nan"), 1.0],
+                                                      dtype=torch.float64, device="cuda")]))
+    out = [("int64 extremes", ints, int_rows), ("float extremes", floats, float_rows)]
+    lo = -(2 ** 40)
+    for span in (2 ** 32 - 1, 2 ** 32):
+        inner = torch.randperm(2 ** 20, generator=gen, device="cuda")[:60_000] * 4093 + 1
+        keys = torch.cat([torch.tensor([0, span], device="cuda"), inner]).unique() + lo
+        rows = torch.cat([keys, keys + 1, keys - 1, torch.tensor(
+            [lo + 2 ** 32, lo - 2 ** 32, lo + 2 ** 33], device="cuda")])
+        out.append((f"int64 span {span}", keys, pick(rows)))
+    return out
+
+
 def probe_vs_plain(probe):
-    """Phase 10: B6 against its plain version, exact; returns the largest
-    difference of any ordinal (0 when every check passed)."""
+    """Phase 10: both routes of B6 against the plain version, exact; returns
+    the largest difference of any ordinal (0 when every check passed)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     worst = 0
+
+    def one(keys, x, what, narrow=None):
+        nonlocal worst
+        tree = probe.build_tree(keys, probe.compare_dtype(keys, x))
+        check(tree.route == probe.probe_route(keys.numel(), tree.key_bytes),
+              f"the route of the set's size, {what}")
+        if narrow is not None:
+            check((tree.kind == probe.KIND_NARROW) == narrow, f"4-byte keys {narrow}, {what}")
+        before = probe.probe.wide_launches
+        got = probe.probe(keys, x, tree)
+        want = probe.probe_reference(keys, x)
+        torch.cuda.synchronize()
+        what = f"{tree.route} kind {tree.kind} {keys.dtype} {what}"
+        check(probe.probe.wide_launches - before == int(tree.route == probe.B6_WIDE),
+              f"launches of the route, {what}")
+        worst = max(worst, int((got - want).abs().max()) if x.numel() else 0)
+        check(got.dtype == torch.int32 and torch.equal(got, want), f"ordinals, {what}")
+        if keys.is_floating_point() and x.numel() > 11:
+            check(bool((got[torch.isnan(x)] == -1).all()), f"NaN rows give -1, {what}")
+            zero = torch.nonzero(keys == 0)
+            if zero.numel():
+                check(bool((got[torch.signbit(x) & (x == 0)] == int(zero[0])).all()),
+                      f"-0.0 rows find the key 0.0, {what}")
+        print(f"{what} vs plain: exact, {int((got >= 0).sum())} rows hit", flush=True)
+        return tree
+
+    sizes = (1, 15, 16, 17, 64, 500, 2048, probe.MAX_KEYS, probe.MAX_KEYS + 1, 50_000,
+             probe.NARROW_MAX_KEYS, probe.NARROW_MAX_KEYS + 1, 1_000_003)
     for float_keys in (False, True):
-        for M in (1, 64, 500, 2048, probe.MAX_KEYS, probe.MAX_KEYS + 1, 50_000, 1_000_003):
+        for M in sizes:
             for n in KERNEL_SIZES:
                 keys, x = probe_inputs(gen, n, M, float_keys)
-                before = probe.probe.wide_launches
-                got = probe.probe(keys, x)
-                want = probe.probe_reference(keys, x)
-                torch.cuda.synchronize()
-                wide = M > probe.MAX_KEYS
-                what = f"b6{'-wide' if wide else ''} {keys.dtype} M={M} N={n}"
-                check(probe.probe.wide_launches - before == int(wide),
-                      f"the kernel of the set's size, {what}")
-                diff = int((got - want).abs().max()) if n else 0
-                worst = max(worst, diff)
-                check(got.dtype == torch.int32 and torch.equal(got, want), f"ordinals, {what}")
-                hits = int((got >= 0).sum())
-                if float_keys and n > 11:
-                    check(bool((got[torch.isnan(x)] == -1).all()), f"NaN rows give -1, {what}")
-                    zero = torch.nonzero(keys == 0)
-                    if zero.numel():
-                        check(bool((got[torch.signbit(x) & (x == 0)] == int(zero[0])).all()),
-                              f"-0.0 rows find the key 0.0, {what}")
-                print(f"{what} vs plain: exact, {hits} rows hit", flush=True)
-                del keys, x, got, want
+                one(keys, x, f"M={M} N={n}")
+                if not float_keys and M > probe.MAX_KEYS and n in (1, 1_000_003):
+                    # the same set spread past 2^32: 8-byte keys
+                    keys, x = probe_inputs(gen, n, M, False, spread=WIDE_FACTOR)
+                    one(keys, x, f"spread M={M} N={n}", narrow=False)
+                del keys, x
+    for label, keys, x in probe_edge_sets(gen, 1_000_003):
+        narrow = {"int64 span 4294967295": True, "int64 span 4294967296": False}.get(label)
+        tree = one(keys, x, f"{label} M={keys.numel()}", narrow)
+        if narrow is not None:  # the same sets forced onto 4-byte keys, where allowed
+            forced = probe.build_tree(keys, narrow=True)
+            check((forced.kind == probe.KIND_NARROW) == narrow, f"forced narrow, {label}")
+            check(torch.equal(probe.probe(keys, x, forced), probe.probe_reference(keys, x)),
+                  f"ordinals, {label} forced narrow")
     return worst
 
 
@@ -873,7 +978,7 @@ def sets_queries(vt, values):
 
 # what each query's last pass must record: the probe route, and the kernel
 # of its additive aggregation (None: the last pass is a set build)
-SETS_EXPECT = {"isin count": ("b6", "b1"), "isin wide count": ("b6-wide", "b1"),
+SETS_EXPECT = {"isin count": ("b6", "b1"), "isin wide count": ("b6", "b1"),
                "isin groupby": ("b6", "b1"), "raw id4": (None, "b1"), "raw id6": (None, "b3"),
                "set k100": ("b6", "b1"), "set k2000": ("b6", "b2"),
                "set k1e6": ("b6-wide", "b3-l2"),
@@ -962,7 +1067,7 @@ def sets_path(vt, plan, probe, cols):
               f"{name}: launches of {kernel}")
         check((probe.probe.launches > before) == (route is not None), f"{name}: B6 launches")
         check((probe.probe.wide_launches > before_wide) == (route == "b6-wide"),
-              f"{name}: launches of B6's two-level kernel")
+              f"{name}: launches of B6's b6-wide route")
     torch.cuda.synchronize()
     launches = {name: kernel.launches for name, kernel in kernels.items()}
     launches["b6-wide"] = probe.probe.wide_launches
@@ -974,7 +1079,7 @@ def sets_path(vt, plan, probe, cols):
     return df, cols, values, launches
 
 
-def sets_timings(df, cols, values, vt, probe, setops, label):
+def sets_timings(df, cols, values, vt, probe, label):
     """Phase 12: query medians (a groupby over a raw key with its pre-pass,
     and with the pre-pass remembered) and B6 at the isin shape."""
     plain = sets_plain(cols, values)
@@ -994,52 +1099,59 @@ def sets_timings(df, cols, values, vt, probe, setops, label):
     copy_bw, _ = copy_bandwidth(cols["v3"])
     x = cols["id6"]
 
-    def library_probe(keys):
+    def library_probe(keys, x):
         # the PyTorch calls that compute the kernel's function
         idx = torch.searchsorted(keys, x).clamp_(max=keys.numel() - 1)
         return torch.where(keys[idx] == x, idx, -1).to(torch.int32)
     results = {}
-    for name, ids in values.items():
-        keys = torch.as_tensor(ids, device="cuda").sort().values
+    shapes = {name: (torch.as_tensor(ids, device="cuda").sort().values, x)
+              for name, ids in values.items()}
+    shapes["set k1e6"] = (torch.unique(cols["k1e6"]), cols["k1e6"])
+    for name, (keys, x) in shapes.items():
         M = keys.numel()
-        kernel_ms = cuda_ms(lambda: probe.probe(keys, x), 5)
+        tree = probe.build_tree(keys)
+        kernel_ms = cuda_ms(lambda: probe.probe(keys, x, tree), 5)
         plain_ms = cuda_ms(lambda: probe.probe_reference(keys, x), 2)
-        library_ms = cuda_ms(lambda: library_probe(keys), 2)
+        library_ms = cuda_ms(lambda: library_probe(keys, x), 2)
         isin_ms = cuda_ms(lambda: torch.isin(x, keys), 2)
-        got, want = probe.probe(keys, x), probe.probe_reference(keys, x)
+        got, want = probe.probe(keys, x, tree), probe.probe_reference(keys, x)
         check(torch.equal(got, want), f"b6 at the {name} shape")
-        check(torch.equal(got, library_probe(keys)), f"b6 equals the library calls, {name}")
+        check(torch.equal(got, library_probe(keys, x)), f"b6 equals the library calls, {name}")
         check(torch.equal(got >= 0, torch.isin(x, keys)), "b6 membership equals torch.isin")
         err = float((got - want).abs().max())
         # in: the rows and the keys; out: an int32 per row; a compare per level
-        # of the search and one for equality
+        # of a binary search and one for equality
         bound_ms, bound_by = bound(H2O_ROWS * 12 + 8 * M,
                                    {"int": H2O_ROWS * (M.bit_length() + 1)})
         floor_ms = H2O_ROWS * 12 / copy_bw * 1e3
-        print(f"[{label}] {setops.probe_route(M)} N={H2O_ROWS} M={M} (int64 id6 among the "
-              f"{name} values): kernel {kernel_ms!r} ms vs plain (searchsorted + gather + "
-              f"compare) {plain_ms!r} ms, the same as library calls {library_ms!r} ms, "
+        print(f"[{label}] {tree.route} N={H2O_ROWS} M={M} ({name}; {tree.key_bytes}-byte keys, "
+              f"levels {tree.counts}): kernel {kernel_ms!r} ms vs plain (searchsorted + "
+              f"gather + compare) {plain_ms!r} ms, the same as library calls {library_ms!r} ms, "
               f"torch.isin (membership only) {isin_ms!r} ms; HBM floor at 12 B/row (x 8 + out "
               f"4) {floor_ms!r} ms at the copy bandwidth, kernel at {floor_ms / kernel_ms!r} of "
               f"it; bound {bound_ms!r} ms by {bound_by} at {PEAK_BYTES / 1e12} TB/s; max abs "
               f"err {err!r}", flush=True)
         results[name] = {"ms": kernel_ms, "plain_ms": plain_ms, "err": err,
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-                         "isin_ms": isin_ms}
-        del keys, got, want
+                         "isin_ms": isin_ms, "route": tree.route}
+        del keys, got, want, tree
     for key, M_set in SET_KEYS.items():
         set_keys = torch.unique(cols[key])
         check(set_keys.numel() == M_set, f"{key} has {M_set} distinct values")
-        ms = cuda_ms(lambda: probe.probe(set_keys, cols[key]), 5)
+        tree = probe.build_tree(set_keys)
+        ms = cuda_ms(lambda: probe.probe(set_keys, cols[key], tree), 5)
         p_ms = cuda_ms(lambda: probe.probe_reference(set_keys, cols[key]), 2)
-        print(f"[{label}] {setops.probe_route(M_set)} N={H2O_ROWS} M={M_set} (the set grouper "
-              f"of {key}): kernel {ms!r} ms vs plain {p_ms!r} ms", flush=True)
-    # the entry of the kernels line: the shared-memory kernel at the isin
-    # shape, the two-level kernel at the wide isin shape beside it
-    wide = results["isin wide"]
+        print(f"[{label}] {tree.route} N={H2O_ROWS} M={M_set} (the set grouper of {key}): "
+              f"kernel {ms!r} ms vs plain {p_ms!r} ms", flush=True)
+    # the entry of the kernels line: b6 at the isin shape, b6-wide at the
+    # set grouper of k1e6 beside it (the 50 000 ids take b6 on 4-byte keys)
+    check(results["isin"]["route"] == probe.B6 and results["isin wide"]["route"] == probe.B6
+          and results["set k1e6"]["route"] == probe.B6_WIDE, "the routes of the timed sets")
+    wide = results["set k1e6"]
     return {**results["isin"], "wide_ms": wide["ms"], "wide_plain_ms": wide["plain_ms"],
             "wide_library_ms": wide["library_ms"], "wide_isin_ms": wide["isin_ms"],
-            "wide_bound_ms": wide["bound_ms"], "wide_max_abs_err": wide["err"]}
+            "wide_bound_ms": wide["bound_ms"], "wide_max_abs_err": wide["err"],
+            "isin_wide_ms": results["isin wide"]["ms"]}
 
 
 # ------------------------------------------------- the binned-statistics path
@@ -1051,6 +1163,7 @@ BINBY_EXPECT = {  # what the last pass of each query must record
     "q7": {"extremes": "b3x"},
     "sum max min by id6": {"additive": "b3", "extremes": "b3x", "scatter": "shared"},
     "first by id4": {"first": "b3x-direct"},
+    "first by id4 past 2^53": {"first": "b3x-direct"},
 }
 
 
@@ -1116,7 +1229,10 @@ def make_binby(vt, cols):
     new = {"x": torch.randn(n, generator=gen, device="cuda", dtype=torch.float64),
            "y": torch.randn(n, generator=gen, device="cuda", dtype=torch.float64),
            "v": torch.rand(n, generator=gen, device="cuda", dtype=torch.float64) * 100,
-           "t": torch.randint(0, 2 ** 62, (n,), generator=gen, device="cuda", dtype=torch.int64)}
+           "t": torch.randint(0, 2 ** 62, (n,), generator=gen, device="cuda", dtype=torch.int64),
+           # nanosecond-like orders past 2^53, where float64 ties neighbours
+           "t53": 2 ** 60 + torch.randint(0, 2 ** 28, (n,), generator=gen, device="cuda",
+                                          dtype=torch.int64)}
     new["v"][torch.rand(n, generator=gen, device="cuda") < 0.01] = float("nan")
     cols = {**{k: cols[k] for k in ("id4", "id6", "v1", "v2")}, **new}
     df = vt.from_dataset(vt.DatasetArrays(cols))
@@ -1138,6 +1254,7 @@ def binby_queries(vt):
         "sum max min by id6": lambda df: df.groupby(
             "id6", agg={"s": a.sum("v1"), "hi": a.max("v1"), "lo": a.min("v2")}),
         "first by id4": lambda df: df.first("v", "t", binby="id4"),
+        "first by id4 past 2^53": lambda df: df.first("v", "t53", binby="id4"),
     }
 
 
@@ -1196,10 +1313,13 @@ def binby_plain(cols):
         return torch.stack([extreme(b[inside], v[inside], bins, "amin"),
                             extreme(b[inside], v[inside], bins, "amax")], dim=-1)
 
-    def first():
+    def first(order):
+        """The value of the row with the smallest order per id4, the earliest
+        among equal orders; an int64 order compares as int64 (a float64
+        one as float64)."""
         ok = ~torch.isnan(v)
-        order = t.to(f64)  # the order is compared as float64
-        best = torch.full((H2O_K,), float("inf"), dtype=f64, device="cuda")
+        top = I64.max if order.dtype == torch.int64 else float("inf")
+        best = torch.full((H2O_K,), top, dtype=order.dtype, device="cuda")
         best.scatter_reduce_(0, id4[ok], order[ok], "amin", include_self=True)
         winner = ok & (order == best[id4])
         rows = torch.arange(v.numel(), device="cuda")
@@ -1218,7 +1338,9 @@ def binby_plain(cols):
         "sum max min by id6": lambda: (
             torch.zeros(H2O_K6, dtype=torch.int64, device="cuda").index_add_(0, id6, cols["v1"]),
             extreme(id6, cols["v1"], H2O_K6, "amax"), extreme(id6, cols["v2"], H2O_K6, "amin")),
-        "first by id4": first,
+        "first by id4": lambda: first(t),
+        "first by id4 past 2^53": lambda: first(cols["t53"]),
+        "first by id4 past 2^53 as float64": lambda: first(cols["t53"].to(f64)),
     }
 
 
@@ -1240,7 +1362,7 @@ def binby_check(name, out, want):
     elif name == "mean 2-D 1024":
         check(torch.allclose(torch.as_tensor(out), want.cpu(), rtol=RTOL, atol=ATOL,
                              equal_nan=True), "2-D means")
-    elif name in ("max 2-D 1024", "minmax by x 128", "first by id4"):
+    elif name in ("max 2-D 1024", "minmax by x 128", "first by id4", "first by id4 past 2^53"):
         same(out, want, f"{name} exact")
     else:
         names = ["max_v1", "min_v2"] if name == "q7" else ["s", "hi", "lo"]
@@ -1272,14 +1394,39 @@ def binby_path(vt, plan, gp, cols):
                 route = plan.B3X if route == plan.B3X_DIRECT else route
                 check(route not in kernels or kernels[route].launches > before[route],
                       f"{name}: launches of {route}")
+    outs["first of an int64 max order"] = first_at_int64_max(vt)
     torch.cuda.synchronize()
     launches = {name: kernel.launches for name, kernel in kernels.items()}
     for name, out in outs.items():
+        if name == "first of an int64 max order":
+            continue  # checked where it ran
         binby_check(name, out, plain[name]())
         print(f"binby {name}: checked against plain torch (counts, extremes and first exact, "
               f"floats rtol {RTOL})", flush=True)
+    as_float = plain["first by id4 past 2^53 as float64"]().cpu()
+    check(not torch.equal(torch.as_tensor(outs["first by id4 past 2^53"]), as_float),
+          "orders past 2^53 compared as float64 give another first")
     print(f"launches during the binned-statistics path: {launches}", flush=True)
     return df, cols, launches
+
+
+def first_at_int64_max(vt):
+    """``first`` on the card where a cell's only order is the int64 maximum
+    (B3x's image of it is its empty-cell mark) and two orders past 2^53
+    differ by 1: numpy's argmin-based answer."""
+    import numpy as np
+    k = np.array([0, 0, 1, 1, 2, 3, 3], np.int64)
+    o = np.array([2 ** 60 + 1, 2 ** 60, 5, 4, I64.max, I64.max, I64.max - 1], np.int64)
+    v = np.array([1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0])
+    df = vt.from_arrays(k=k, o=o, v=v).to_device("cuda")
+    df = df.categorize("k", labels=list(range(5)))
+    out = df.first("v", "o", binby="k")
+    want = [2.0, 4.0, 5.0, 7.0, 0.0]
+    check(np.asarray(out).tolist() == want, f"first at the int64 max order: {out}, want {want}")
+    route = df.executor.trace_log[-1]["strategies"]
+    check(route == [{"first": "b3x-direct"}], f"first at the int64 max order took {route}")
+    print(f"binby first of an int64 max order on the card: {want}, route {route}", flush=True)
+    return out
 
 
 def binby_timings(df, cols, vt, gp, ge, label):
@@ -1366,7 +1513,7 @@ def main():
     from vaex_tpu_torch.ops import grid_plan as plan
     from vaex_tpu_torch.ops import grid_window as gw
     from vaex_tpu_torch.ops import grid_moments as gm
-    from vaex_tpu_torch.ops import kernel_build, probe, setops
+    from vaex_tpu_torch.ops import kernel_build, probe
 
     label = card()
     print(label)
@@ -1387,7 +1534,7 @@ def main():
     print(f"kernel vs plain passed; largest G that fits B1: {g_max}", flush=True)
     wide_kernels_vs_plain(plan, gw)
     print("wide kernels vs plain passed", flush=True)
-    moment_kernels_vs_plain(plan, gw, agg)
+    moment_kernels_vs_plain(plan, gm, agg)
     print("moment kernels vs plain passed", flush=True)
     probe_vs_plain(probe)
     print("probe kernel vs plain passed", flush=True)
@@ -1419,8 +1566,8 @@ def main():
     sets_df, sets_cols, values, sets_launches = sets_path(vt, plan, probe, h2o_cols)
     check(sets_launches["b6"] > 0, "probe was not launched during the set-based path")
     check(sets_launches["b6-wide"] > 0,
-          "the probe's two-level kernel was not launched during the set-based path")
-    sets = sets_timings(sets_df, sets_cols, values, vt, probe, setops, label)
+          "the probe's b6-wide route was not launched during the set-based path")
+    sets = sets_timings(sets_df, sets_cols, values, vt, probe, label)
     sets["wide_launches"] = sets_launches["b6-wide"]
     del sets_df, sets_cols
 

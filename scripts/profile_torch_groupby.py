@@ -57,9 +57,9 @@ def busy_us(intervals):
 
 
 # kernel names of csrc/*.cu
-GRID_KERNELS = ("grid_partials", "window_partials", "partition_count", "partition_scatter",
+GRID_KERNELS = ("grid_partials", "window_cluster", "partition_count", "partition_scatter",
                 "partition_sums", "resident_add", "fold_partials", "moment_partials",
-                "moment_window_partials", "probe_rows", "partition_extremes",
+                "moment_window_partials", "probe_tree", "partition_extremes",
                 "fold_extremes")
 
 

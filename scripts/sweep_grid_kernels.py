@@ -5,6 +5,7 @@ the cut-offs of vaex_tpu_torch/ops/grid_plan.py.
     python3 scripts/sweep_grid_kernels.py [N]              (default N = 1e8)
     python3 scripts/sweep_grid_kernels.py [N] --moments
     python3 scripts/sweep_grid_kernels.py [N] --extremes
+    python3 scripts/sweep_grid_kernels.py [N] --b2
 
     python3 scripts/sweep_grid_kernels.py ... --baseline DIR
 
@@ -12,15 +13,27 @@ Builds every kernel (one nvcc per source, all at once), checks each
 against the plain index_add_ version at N = 1_000_003 on uniform, sorted,
 single-key and Zipf(1.1) keys (ints exact, floats to rtol 1e-9), then
 times, with CUDA events, B1 (where its grid fits, at 1 and 4 rows per lane
-and warp step), B2 (up to 256 windows), B3's partition route at three
+and warp step), B2 (up to its cluster limit), B3's partition route at three
 sub-grid budgets, its resident route (b3-l2) and bincount + index_add_ (the
 library calls), at N rows of uniform keys, for C = 2 (count + f64), 3
 (count + int64 + f64) and 4 (count + 2 int64 + f64) channels, with the
 partition's phases at three G; then the partition's phases at other launch
 constants and both routes on the skewed keys at G = 1 000 003.  Prints one line per (C, G) and exits non-zero on a
-mismatch.  ``--baseline DIR`` times beside them the B3 and B3x of another
-checkout of this repository unpacked under DIR (its own build directory),
-in the same process, in turns.
+mismatch.  ``--baseline DIR`` times beside them the B2, B3 and B3x of
+another checkout of this repository unpacked under DIR (its own build
+directory), in the same process, in turns.
+
+``--b2`` sweeps B2's cluster kernel, the source of ``B2_MAX_WINDOWS``: it
+prints the atomic instructions of B2's SASS (``cuobjdump -sass``; of the
+baseline's too), checks the kernel against the plain version at
+N = 1_000_003, then times, for C = 1 (count), 2, 3 and 4 at
+G = k windows of the widest window (k = 1..8, the cluster size): B2 as
+planned, the baseline's B2, both routes of B3 and the library calls, with
+the clusters the occupancy query allows; and at the query shapes (q2: count
++ an int64 column of values 1..5; count + int64 + f64 at G = 10 609 and
+32 768; the 2-D count at G = 67 081; the count at G = 10 609; the set
+grouper of 2000 keys; the 99.7% histogram) B2 and the baseline's B2 in
+turns, on small and on large int64 values.
 
 ``--moments`` sweeps the moment kernels instead, the source of
 ``moment_strategy``'s cut-offs: it checks B4 and B5 against their plain
@@ -46,6 +59,7 @@ G = 1 000 003, on sorted, single-key and Zipf(1.1) keys.
 """
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -121,7 +135,7 @@ def sweep_moments(n, gen):
             row = {}
             if gm.fits(G, C):
                 row["b4"] = cuda_ms(lambda: gm.grid_moments(idx, bases, terms, G))
-            if gw.n_windows(G, C) <= 64:
+            if gm.n_windows(G, C) <= 64:
                 row["b5"] = cuda_ms(lambda: gm.grid_moments_window(idx, bases, terms, G))
 
             def b3():
@@ -136,7 +150,7 @@ def sweep_moments(n, gen):
                 row["b3-l2"] = cuda_ms(b3_l2)
             if G in (1, 103, 10609, 1000003):
                 row["plain"] = cuda_ms(lambda: gm.grid_moments_reference(idx, bases, terms, G), 1)
-            print(f"moments C={C} G={G} N={n} windows={gw.n_windows(G, C)}: "
+            print(f"moments C={C} G={G} N={n} windows={gm.n_windows(G, C)}: "
                   + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
             del idx
     return 0
@@ -267,18 +281,136 @@ def sweep_extremes(n, gen, old=None):
     return 0
 
 
+def sass_ops(path, prefixes):
+    """{kernel: {opcode: count}} of the instructions whose opcode starts with
+    one of ``prefixes`` in the SASS of the library at ``path``."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True).stdout
+    found, kernel = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :")[1].strip()
+            continue
+        for token in line.replace(";", " ").split():
+            if token.startswith(prefixes):
+                ops = found.setdefault(kernel, {})
+                ops[token] = ops.get(token, 0) + 1
+    return found
+
+
+def print_sass(label, path, prefixes):
+    for kernel, ops in sass_ops(path, prefixes).items():
+        print(f"sass {label} {kernel}: " + ", ".join(f"{op} x{c}" for op, c in sorted(ops.items())),
+              flush=True)
+
+
+# the shapes the query paths send to B2, and G = 32 768 at C = 3
+B2_SHAPES = ((10609, 2, "q2 shape: count + int64 1..5"), (10609, 3, "count + int64 + f64"),
+             (32768, 3, "count + int64 + f64"), (67081, 1, "2-D count, shape 256"),
+             (10609, 1, "count(binby=[id4, id5]), the count beside B5"),
+             (2003, 2, "set grouper of 2000 keys: count + int64"),
+             (1027, 1, "limits 99.7%: the percentile's histogram"))
+
+
+def b2_columns(n, C, gen, small):
+    """C - 1 value columns beside the count: int64 (1..5 when ``small``,
+    else +-2^62) and, from C = 3 on, one f64 column last."""
+    n_float = 1 if C >= 3 else 0
+    high = (6, 1) if small else (2 ** 62, -(2 ** 62))
+    ints = [torch.randint(high[1], high[0], (n,), generator=gen, device="cuda",
+                          dtype=torch.int64) for _ in range(C - 1 - n_float)]
+    floats = [torch.rand(n, generator=gen, device="cuda", dtype=torch.float64) * 100
+              for _ in range(n_float)]
+    return ints, floats
+
+
+def sweep_b2(n, gen, old):
+    """``--b2``: B2's cluster sizes against the baseline and B3."""
+    from vaex_tpu_torch.ops import grid_additive as ga
+    from vaex_tpu_torch.ops import grid_partition as gp
+    from vaex_tpu_torch.ops import grid_window as gw
+    from vaex_tpu_torch.ops import kernel_build
+    print_sass("b2", kernel_build.build("grid_window")["grid_window"][0], ("ATOM", "RED"))
+    if old is not None:
+        print_sass("b2 baseline", old.kernel_build.build("grid_window")["grid_window"][0],
+                   ("ATOM", "RED"))
+    bad = 0
+    m = 1_000_003
+    for C in (1, 2, 3, 4):
+        ints, floats = b2_columns(m, C, gen, small=False)
+        if floats:
+            floats[0][::13] = float("nan")
+        W = gw.cluster_width(C, True)
+        for G in (129, 10609, W, W + 1, 3 * W + 1, gw.MAX_CLUSTER * W):
+            idx = torch.randint(-3, G + G // 8, (m,), generator=gen, device="cuda",
+                                dtype=torch.int32)
+            want = ga.grid_additive_reference(idx, ints, floats, G, True)
+            ok = close(gw.grid_window(idx, ints, floats, G, True), want)
+            bad += not ok
+            print(f"check b2 C={C} G={G}: {'ok' if ok else 'MISMATCH'}", flush=True)
+    if bad:
+        return 1
+    for C in (1, 2, 3, 4):
+        ints, floats = b2_columns(n, C, gen, small=False)
+        W = gw.cluster_width(C, True)
+        for k in range(1, gw.MAX_CLUSTER + 1):
+            G = k * W
+            idx = torch.randint(0, G, (n,), generator=gen, device="cuda", dtype=torch.int32)
+            Wk, n_win = gw.cluster_window(G, C, True)
+            row = {"b2": cuda_ms(lambda: gw.grid_window(idx, ints, floats, G, True))}
+            if old is not None:
+                row["b2 baseline"] = cuda_ms(lambda: old.grid_window(idx, ints, floats, G, True))
+            row["b2 again"] = cuda_ms(lambda: gw.grid_window(idx, ints, floats, G, True))
+            if G >= 4096:
+                if gp.shape(n, G, C) is not None:
+                    row["b3"] = cuda_ms(lambda: gp.grid_partition(idx, ints, floats, G, True))
+                row["b3-l2"] = cuda_ms(lambda: gp.grid_resident(idx, ints, floats, G, True))
+            row["library"] = library_additive_ms(idx, ints, floats, G, 1)
+            clusters = gw.max_clusters(idx.device.index, n_win, gw.window_bytes(Wk, C, True))
+            print(f"b2 C={C} G={G} N={n} windows={n_win} W={Wk} clusters={clusters}: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
+            del idx
+        del ints, floats
+    for G, C, what in B2_SHAPES:
+        idx = torch.randint(0, G, (n,), generator=gen, device="cuda", dtype=torch.int32)
+        for small in (True, False):
+            if C < 2 and not small:
+                continue
+            ints, floats = b2_columns(n, C, gen, small)
+            row = {}
+            for turn in range(2):
+                row[f"b2.{turn}"] = cuda_ms(lambda: gw.grid_window(idx, ints, floats, G, True))
+                if old is not None:
+                    row[f"baseline.{turn}"] = cuda_ms(
+                        lambda: old.grid_window(idx, ints, floats, G, True))
+            print(f"b2 shape G={G} C={C} ({what}; {'small' if small else 'large'} ints) N={n} "
+                  f"windows={gw.cluster_windows(G, C, True)}: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
+            del ints, floats
+        del idx
+    return 0
+
+
 def load_baseline(path):
-    """The ``grid_partition`` module of another checkout of this repository
-    (``--baseline DIR``), loaded beside this one to time the two in turns."""
+    """The kernel modules of another checkout of this repository
+    (``--baseline DIR``), loaded beside this one to time the two in turns:
+    its ``grid_partition`` (with ``grid_window``, ``probe`` and
+    ``kernel_build`` as attributes)."""
     own = {k: sys.modules.pop(k) for k in list(sys.modules) if k.startswith("vaex_tpu_torch")}
     sys.path.insert(0, path)
     try:
         import vaex_tpu_torch.ops.grid_partition as old
+        import vaex_tpu_torch.ops.grid_window as old_window
+        import vaex_tpu_torch.ops.kernel_build as old_build
+        import vaex_tpu_torch.ops.probe as old_probe
     finally:
         sys.path.remove(path)
         for k in [k for k in sys.modules if k.startswith("vaex_tpu_torch")]:
             del sys.modules[k]
         sys.modules.update(own)
+    old.grid_window, old.probe, old.kernel_build = (old_window.grid_window, old_probe,
+                                                    old_build)
     return old
 
 
@@ -304,7 +436,8 @@ def main():
     from vaex_tpu_torch.ops import kernel_build
     moments = "--moments" in sys.argv
     extremes = "--extremes" in sys.argv
-    args = [a for a in sys.argv[1:] if a not in ("--moments", "--extremes")]
+    b2 = "--b2" in sys.argv
+    args = [a for a in sys.argv[1:] if a not in ("--moments", "--extremes", "--b2")]
     old = None
     if "--baseline" in args:
         at = args.index("--baseline")
@@ -314,6 +447,7 @@ def main():
                          capture_output=True, text=True).stdout.strip())
     sources = (("grid_moments", "grid_moments_window", "grid_partition") if moments else
                ("grid_partition",) if extremes else
+               ("grid_window", "grid_partition") if b2 else
                ("grid_additive", "grid_window", "grid_partition"))
     for name, (path, seconds, log) in kernel_build.build(*sources).items():
         print(f"built {name} in {seconds:.1f} s")
@@ -326,6 +460,8 @@ def main():
         return sweep_moments(n, gen)
     if extremes:
         return sweep_extremes(n, gen, old)
+    if b2:
+        return sweep_b2(n, gen, old)
     bad = 0
     m = 1_000_003
     ints, floats = columns(m, 3, gen)
@@ -338,7 +474,7 @@ def main():
             want = ga.grid_additive_reference(idx, ints, floats, G, True)
             for kern in ((ga.grid_additive,) if ga.fits(G, 1, 2, True) else ()) + (
                     gw.grid_window, gp.grid_partition, gp.grid_resident):
-                if kern is gw.grid_window and gw.n_windows(G, 4) > 256:
+                if kern is gw.grid_window and not gw.fits(G, 4, True):
                     continue
                 got = kern(idx, ints, floats, G, True)
                 torch.cuda.synchronize()
@@ -369,7 +505,7 @@ def main():
                     row[f"b1u{u}"] = cuda_ms(
                         lambda: ga.grid_additive(idx, ints, floats, G, True))
                 ga.unroll = planned
-            if gw.n_windows(G, C) <= 256:
+            if gw.fits(G, C, True):
                 row["b2"] = cuda_ms(lambda: gw.grid_window(idx, ints, floats, G, True))
             if G >= 4096:
                 for sub in SUB_GRIDS:
@@ -386,7 +522,7 @@ def main():
             if G in (10609, 1000003):
                 row["plain"] = cuda_ms(
                     lambda: ga.grid_additive_reference(idx, ints, floats, G, True), 1)
-            print(f"C={C} G={G} N={n} windows={gw.n_windows(G, C)}: "
+            print(f"C={C} G={G} N={n} windows={gw.cluster_windows(G, C, True)}: "
                   + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
             if C == 3 and G in (67081, 1000003, 16000057):
                 partition_phases(idx, ints, floats, G, "phases")

@@ -19,6 +19,7 @@ import torch
 
 import vaex_tpu
 import vaex_tpu_torch
+from vaex_tpu_torch import settings
 from torch_port_helpers import ATOL, RTOL, assert_same_frame, binby_arrays, same_frames
 from vaex_tpu.ops import binners as ref_binners
 from vaex_tpu.ops.nullable import NA as RefNA
@@ -389,7 +390,8 @@ def test_binby_returns_the_grid_with_coordinates(frames):
     assert port.binby("x", shape=4).binners[0].bins == 4  # without agg: the BinBy itself
 
 
-def test_datetime_columns_cross_as_int64_and_come_back():
+def test_datetime_columns_cross_as_int64_and_come_back(monkeypatch):
+    monkeypatch.setattr(settings, "DEVICE", "cpu")  # the host frame's passes
     arrays = binby_arrays(5, 2_000)
     host = vaex_tpu_torch.from_arrays(**arrays)
     port = host.to_device("cpu")
@@ -459,7 +461,8 @@ def test_binner_time_matches_vaex_tpu(resolution, every):
     npt.assert_array_equal(both.evaluate("n"), np.asarray(ref_both.evaluate("n")))
 
 
-def test_binner_time_leaves_nat_and_missing_rows_out():
+def test_binner_time_leaves_nat_and_missing_rows_out(monkeypatch):
+    monkeypatch.setattr(settings, "DEVICE", "cpu")  # a masked column stays a host array
     t = np.array(["2020-01-01", "NaT", "2020-01-02", "2020-01-09", "2020-01-03"], dtype="M8[ns]")
     df = vaex_tpu_torch.from_arrays(t=np.ma.MaskedArray(t, [False, False, False, False, True]),
                                     y=np.arange(5.0))
@@ -470,3 +473,48 @@ def test_binner_time_leaves_nat_and_missing_rows_out():
     for make in (vaex_tpu_torch.BinnerTime.per_day, vaex_tpu_torch.BinnerTime.per_month,
                  vaex_tpu_torch.BinnerTime.per_year):
         assert make(df.t).N >= 1
+
+
+@pytest.mark.parametrize("kind", ["int64", "datetime64[ns]"])
+def test_first_keeps_int64_orders_apart_past_2_53(kind):
+    """Orders that differ by 1 above 2^53 tie as float64 (vaex_tpu compares
+    them so); the port keeps an int or temporal order int64 and gives
+    numpy's argmin-based answer, tile by tile too.  A cell whose only order
+    is the int64 maximum takes its value, not the empty cell's 0."""
+    rng = np.random.default_rng(21)
+    n = 3_000
+    k = rng.integers(0, 6, n)
+    order = 1_700_000_000_000_000_000 + rng.permutation(n)  # ns since 1970, past 2^53
+    value = rng.normal(0, 1, n)
+    k = np.append(k, 6)  # cell 6: one row at the largest order
+    order = np.append(order, np.iinfo(np.int64).max)
+    value = np.append(value, 42.0)
+    assert np.unique(order.astype(np.float64)).size < order.size  # float64 ties them
+    want = [value[k == g][np.argmin(order[k == g])] for g in range(7)] + [0.0]
+    o = order if kind == "int64" else order.view("M8[ns]")
+    df = vaex_tpu_torch.from_arrays(k=k, o=o, v=value).to_device("cpu")
+    df = df.categorize("k", labels=list(range(8)))
+    for tile_rows in (None, 700):
+        df._tile_rows = tile_rows
+        npt.assert_array_equal(df.first("v", "o", binby="k"), want)
+    got = df.groupby("k", agg={"f": vaex_tpu_torch.agg.first("v", "o")})
+    npt.assert_array_equal(got["f"].tolist(), want)
+
+
+def test_first_int_and_infinite_orders_match_vaex_tpu():
+    """Where float64 holds the orders exactly, the port's int64 compare and
+    vaex_tpu's float64 compare agree; an order of +inf wins over an empty
+    cell in both (among the tied rows vaex_tpu takes the backend's scatter
+    order, the port the earliest row)."""
+    rng = np.random.default_rng(22)
+    n = 4_000
+    arrays = {"k": rng.integers(0, 9, n), "t": rng.integers(-2 ** 40, 2 ** 40, n),
+              "f": rng.normal(0, 1, n), "v": rng.normal(0, 1, n)}
+    arrays["f"][arrays["k"] == 8] = np.inf  # cell 8: every order +inf
+    ref, port = same_frames(arrays, "k", labels=list(range(9)))
+    for order in ("t", "f"):
+        want = ref.first("v", order, binby="k")
+        got = port.first("v", order, binby="k")
+        npt.assert_array_equal(got[:8], np.asarray(want)[:8])
+    assert np.asarray(want)[8] in arrays["v"][arrays["k"] == 8]
+    assert got[8] == arrays["v"][arrays["k"] == 8][0]

@@ -100,6 +100,10 @@ def test_wide_kernel_matches_plain(cuda, name, G, n):
     idx, ints, floats = _inputs(n, G, cuda)
     floats[::17] = float("nan")
     f32 = floats.to(torch.float32)
+    if name == "b2" and not gw.fits(G, 4, True):  # past B2's cluster of 8 windows
+        with pytest.raises(ValueError, match="does not fit"):
+            kernel(idx, [ints], [floats, f32], G, count=True)
+        return
     before = kernel.launches
     got = kernel(idx, [ints], [floats, f32], G, count=True)
     assert kernel.launches == before + 1
@@ -107,6 +111,48 @@ def test_wide_kernel_matches_plain(cuda, name, G, n):
     torch.cuda.synchronize()
     npt.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
     npt.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(), rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+def test_window_cluster_edges_match_plain(cuda, C):
+    """B2 at G = k * W and k * W + 1 for every cluster size k: C = 1
+    (count), 2 (+ int64), 3 (+ f64 with NaN), 4 (+ f32); one launch per
+    call; past the cluster it raises."""
+    W = gw.cluster_width(C, True)
+    n = 200_003
+    for k in range(1, gw.MAX_CLUSTER + 1):
+        for G in (k * W, k * W + 1):
+            idx, ints, floats = _inputs(n, G, cuda, seed=k)
+            floats[::17] = float("nan")
+            int_cols = [ints] if C >= 2 else []
+            float_cols = ([floats] if C >= 3 else []) + ([floats.float()] if C == 4 else [])
+            if not gw.fits(G, C, True):
+                with pytest.raises(ValueError, match="does not fit"):
+                    gw.grid_window(idx, int_cols, float_cols, G, True)
+                continue
+            before = gw.grid_window.launches
+            got = gw.grid_window(idx, int_cols, float_cols, G, True)
+            assert gw.grid_window.launches == before + 1
+            want = gw.grid_window_reference(idx, int_cols, float_cols, G, True)
+            torch.cuda.synchronize()
+            npt.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+            npt.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(), rtol=1e-9,
+                                atol=1e-9)
+
+
+def test_window_sums_carry_into_the_high_word(cuda):
+    """The local int64 adds, two 32-bit adds, carry into the high word,
+    beside the native 64-bit adds other CTAs of the cluster make into the
+    same word."""
+    n, W = 300_007, gw.cluster_width(2, True)
+    G = 3 * W
+    g = torch.Generator(device=cuda).manual_seed(5)
+    idx = torch.randint(0, 4, (n,), generator=g, device=cuda, dtype=torch.int32) * W
+    for v in (torch.full((n,), 2 ** 32 - 1, device=cuda), torch.full((n,), -1, device=cuda),
+              torch.randint(-(2 ** 63), 2 ** 63 - 1, (n,), generator=g, device=cuda)):
+        got = gw.grid_window(idx, [v], [], G, True)[0]
+        want = gw.grid_window_reference(idx, [v], [], G, True)[0]
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("G", [103, 1_000_003])
@@ -485,32 +531,95 @@ def test_probe_finds_zero_for_negative_zero(cuda):
 @pytest.mark.parametrize("M", [probe.MAX_KEYS + 1, 50_000, 1_000_003])
 @pytest.mark.parametrize("n", [0, 1, 300_007])
 def test_wide_probe_kernel_matches_plain(cuda, float_keys, M, n):
-    keys, x = _probe_inputs(n, M, float_keys, cuda)
-    assert keys.numel() > probe.MAX_KEYS
-    narrow = torch.float32 if float_keys else torch.int32
-    for rows in (x, x.to(narrow)):
-        before = probe.probe.wide_launches
-        got = probe.probe(keys, rows)
-        assert probe.probe.wide_launches == before + 1
-        want = probe.probe_reference(keys, rows)
-        torch.cuda.synchronize()
-        npt.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    """Sets past ``MAX_KEYS``: an int set whose range is below 2^32 on
+    4-byte keys (``b6`` to twice the keys), spread past 2^32 on 8-byte keys,
+    and float sets, each on the route of its size."""
+    for spread in ((1, 1_000_003) if not float_keys else (1,)):
+        keys, x = _probe_inputs(n, M, float_keys, cuda)
+        keys, x = keys * spread, x * spread
+        assert keys.numel() > probe.MAX_KEYS
+        tree = probe.build_tree(keys)
+        assert (tree.kind == probe.KIND_NARROW) == (not float_keys and spread == 1)
+        assert tree.route == probe.probe_route(keys.numel(), tree.key_bytes)
+        narrow = torch.float32 if float_keys else torch.int32
+        for rows in (x, x.to(narrow)) if spread == 1 else (x,):
+            before = probe.probe.launches, probe.probe.wide_launches
+            got = probe.probe(keys, rows, tree)
+            assert probe.probe.launches == before[0] + 1
+            assert probe.probe.wide_launches == before[1] + (tree.route == probe.B6_WIDE)
+            want = probe.probe_reference(keys, rows)
+            torch.cuda.synchronize()
+            npt.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
-@pytest.mark.parametrize("top", [1, 2, 3, 8, 50])
-@pytest.mark.parametrize("M", [1, 2, 3, 5, 17, 64, 129, 1000])
+@pytest.mark.parametrize("top", [0, 1, 2, 10])
+@pytest.mark.parametrize("M", [1, 2, 3, 7, 8, 9, 17, 64, 81, 1000, 30_000])
 def test_wide_probe_kernel_at_every_sample_distance(cuda, monkeypatch, M, top):
-    """The two-level kernel on small sets (the shared-memory kernel switched
-    off), so that few samples, a last stretch shorter than the others and a
-    lone key are all searched."""
-    monkeypatch.setattr(probe, "MAX_KEYS", 0)
-    monkeypatch.setattr(probe, "TOP_KEYS", top)
-    for float_keys in (False, True):
+    """The b6-wide route on small sets (``MAX_KEYS`` switched off), with
+    ``top`` nodes' worth of shared memory, so that levels in shared memory,
+    levels in global memory, a padded last node and a lone key are all
+    searched, for int, 4-byte and float keys."""
+    for name in ("MAX_KEYS", "NARROW_MAX_KEYS"):
+        monkeypatch.setattr(probe, name, 0)
+    monkeypatch.setattr(probe, "WIDE_SMEM", top * probe.LINE_BYTES)
+    for float_keys, narrow in ((False, False), (False, True), (True, False)):
         keys, x = _probe_inputs(10_007, M, float_keys, cuda, seed=M + top)
+        tree = probe.build_tree(keys, narrow=narrow)
+        assert tree.route == probe.B6_WIDE and tree.smem <= top * probe.LINE_BYTES
         before = probe.probe.wide_launches
-        got = probe.probe(keys, x)
+        got = probe.probe(keys, x, tree)
         assert probe.probe.wide_launches == before + 1
         npt.assert_array_equal(got.cpu().numpy(), probe.probe_reference(keys, x).cpu().numpy())
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+@pytest.mark.parametrize("M", [1, 3, 4, 5, 15, 16, 17, 500, 50_000])
+def test_probe_layouts_match_plain(cuda, narrow, M):
+    """Both key widths (4-byte keys forced on or off) on the route of the
+    set's size give the plain ordinals, for 8- and 4-byte rows."""
+    keys, x = _probe_inputs(100_003, M, False, cuda, seed=M)
+    tree = probe.build_tree(keys, narrow=narrow)
+    assert (tree.kind == probe.KIND_NARROW) == narrow
+    for rows in (x, x.to(torch.int32)):
+        npt.assert_array_equal(probe.probe(keys, rows, tree).cpu().numpy(),
+                               probe.probe_reference(keys, rows).cpu().numpy())
+
+
+@pytest.mark.parametrize("float_keys", [False, True])
+def test_probe_at_the_sentinel_edge_keys(cuda, float_keys):
+    """INT64_MIN / INT64_MAX and -inf / +inf are keys the pad never
+    matches; -0.0 finds 0.0; NaN finds nothing; on both routes."""
+    if float_keys:
+        keys = torch.tensor([-np.inf, -1.5, 0.0, 2.0, np.finfo(np.float64).max, np.inf],
+                            dtype=torch.float64, device=cuda)
+        x = torch.tensor([np.inf, -np.inf, -0.0, np.nan, 2.0, 1.0, np.finfo(np.float64).max],
+                         dtype=torch.float64, device=cuda)
+    else:
+        i64 = np.iinfo(np.int64)
+        keys = torch.tensor([i64.min, -5, 0, 7, i64.max - 1, i64.max], device=cuda)
+        x = torch.tensor([i64.max, i64.min, i64.max - 1, 3, 7, 0, i64.min + 1], device=cuda)
+    for M in (keys.numel(), 3, 2, 1):
+        k = keys[-M:]
+        want = probe.probe_reference(k, x).cpu().numpy()
+        npt.assert_array_equal(probe.probe(k, x).cpu().numpy(), want)
+        with pytest.MonkeyPatch.context() as mp:  # the b6-wide route
+            mp.setattr(probe, "MAX_KEYS", 0)
+            npt.assert_array_equal(probe.probe(k, x).cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("span", [2 ** 32 - 1, 2 ** 32])
+def test_probe_of_an_int_set_at_the_4_byte_range(cuda, span):
+    lo = -(2 ** 40)
+    g = torch.Generator(device=cuda).manual_seed(span % 97)
+    inner = torch.randperm(2 ** 20, generator=g, device=cuda)[:40_000] * 4093 + 1
+    keys = torch.cat([torch.tensor([0, span], device=cuda), inner]).unique() + lo
+    x = torch.cat([keys, keys + 1, keys - 1,
+                   torch.tensor([lo + 2 ** 32, lo - 2 ** 32, lo + 2 ** 33], device=cuda)])
+    tree = probe.build_tree(keys)
+    assert (tree.kind == probe.KIND_NARROW) == (span < 2 ** 32)
+    assert tree.route == probe.probe_route(keys.numel(), tree.key_bytes)
+    npt.assert_array_equal(probe.probe(keys, x, tree).cpu().numpy(),
+                           probe.probe_reference(keys, x).cpu().numpy())
 
 
 def test_probe_wrapper_raises_past_the_kernel(cuda):
@@ -520,16 +629,20 @@ def test_probe_wrapper_raises_past_the_kernel(cuda):
 
 
 def test_isin_of_a_wide_set_on_the_card(cuda):
-    """isin of 50 000 ids, a set past the shared-memory kernel: the pass
-    records the two-level route and launches it."""
+    """isin of 50 000 ids: over a range below 2^32 the set takes b6 on
+    4-byte keys; spread past 2^32 it takes b6-wide, and the pass records
+    the route it launched."""
     rng = np.random.default_rng(9)
     k = rng.integers(0, 400_000, 300_000)
     values = rng.choice(400_000, 50_000, replace=False)
-    df = vaex_tpu_torch.from_arrays(k=k).to_device(cuda)
-    before = probe.probe.wide_launches
-    assert int(df.count(selection=df.k.isin(values))) == int(np.isin(k, values).sum())
-    assert df.executor.trace_log[-1]["probe"] == "b6-wide"
-    assert probe.probe.wide_launches > before
+    for spread, route in ((1, "b6"), (1_000_003, "b6-wide")):
+        df = vaex_tpu_torch.from_arrays(k=k * spread).to_device(cuda)
+        before = probe.probe.launches, probe.probe.wide_launches
+        assert int(df.count(selection=df.k.isin(values * spread))) == \
+            int(np.isin(k, values).sum())
+        assert df.executor.trace_log[-1]["probe"] == route
+        assert probe.probe.launches > before[0]
+        assert (probe.probe.wide_launches > before[1]) == (route == "b6-wide")
 
 
 def test_set_paths_on_the_card(cuda):
@@ -583,3 +696,34 @@ def test_float_and_masked_keys_on_the_card(cuda):
     both = df.groupby(["f", "m"], agg={"c": "count"}, assume_sparse=True)
     assert int(np.sum(both["c"].tolist())) == n
     assert len(both) == len(df.groupby(["f", "m"], agg={"c": "count"}, assume_sparse=False))
+
+
+def test_host_frame_runs_on_the_card(cuda, monkeypatch):
+    """A frame of host arrays that no one staged runs its passes on the
+    card (``settings.DEVICE``), its tiles copied there; staged on the CPU it
+    stays there."""
+    from vaex_tpu_torch import settings
+    monkeypatch.setattr(settings, "DEVICE", "cuda")
+    rng = np.random.default_rng(12)
+    x = rng.normal(0, 1, 100_000)
+    df = vaex_tpu_torch.from_arrays(x=x)
+    npt.assert_allclose(df.sum("x"), x.sum(), rtol=1e-9)
+    assert df.executor.trace_log[-1]["device"].startswith("cuda")
+    cpu = df.to_device("cpu")
+    npt.assert_allclose(cpu.sum("x"), x.sum(), rtol=1e-9)
+    assert cpu.executor.trace_log[-1]["device"] == "cpu"
+
+
+def test_first_on_the_card_keeps_int64_orders(cuda):
+    """first with int64 orders past 2^53 that differ by 1, and a cell whose
+    only order is INT64_MAX (B3x's image of it is its empty-cell mark):
+    numpy's argmin-based answer, on the direct route of B3x."""
+    k = np.array([0, 0, 1, 1, 2, 3, 3], np.int64)
+    i64 = np.iinfo(np.int64)
+    o = np.array([2 ** 60 + 1, 2 ** 60, 5, 4, i64.max, i64.max, i64.max - 1], np.int64)
+    v = np.arange(1.0, 8.0)
+    for order in (o, o.view("M8[ns]")):
+        df = vaex_tpu_torch.from_arrays(k=k, o=order, v=v).to_device(cuda)
+        df = df.categorize("k", labels=list(range(5)))
+        npt.assert_array_equal(df.first("v", "o", binby="k"), [2.0, 4.0, 5.0, 7.0, 0.0])
+        assert df.executor.trace_log[-1]["strategies"] == [{"first": "b3x-direct"}]

@@ -140,7 +140,7 @@ def test_reference_matches_numpy(plain, G):
 def test_window_reference_cuts_the_kernels_windows():
     """B5's plain version adds window by window: at C = 6 a window holds
     4096 bins, so G = 10 609 takes three, the last one narrower."""
-    assert gw.window_width(6) == 4096 and gw.n_windows(10_609, 6) == 3
+    assert gm.window_width(6) == 4096 and gm.n_windows(10_609, 6) == 3
     idx, x, y = _inputs(5, 30_000, 10_609)
     bases = _bases("corr", x, y)
     args = (torch.from_numpy(idx), bases, agg.CORR_TERMS, 10_609)
@@ -152,7 +152,7 @@ def test_window_reference_cuts_the_kernels_windows():
 @pytest.mark.parametrize("C", [3, 6])
 def test_moment_plan_boundaries(C):
     n = 10 ** 8
-    W = gw.window_width(C)
+    W = gm.window_width(C)
     g4 = grid_plan.b4_max_g(C)
     assert g4 == {3: 213, 6: 42}[C]  # one warp's grid of 8 KiB
     assert grid_plan.moment_strategy(n, 1, C) == "b4"  # df.std

@@ -28,6 +28,7 @@ from jax.experimental import pallas as pl
 
 from vaex_tpu.ops import pallas_gridagg, pallas_partition
 from vaex_tpu_torch.ops import grid_additive as ga
+from vaex_tpu_torch.ops import grid_moments as gm
 from vaex_tpu_torch.ops import grid_partition as gp
 from vaex_tpu_torch.ops import grid_plan
 from vaex_tpu_torch.ops import grid_window as gw
@@ -229,12 +230,56 @@ def test_resident_reference_returns_views_of_one_buffer():
 
 @pytest.mark.parametrize("C", [1, 2, 3, 4, 8])
 def test_window_plan_fits_its_kernel(C):
-    W = gw.window_width(C)
-    assert C * W * 8 <= ga.SMEM_BUDGET < C * (W + 1) * 8
-    for G in (257, W, W + 1, 64 * W):
-        W2, n_win, n_slices = gw.plan(10 ** 8, G, C, sm_count=132)
-        assert W2 == W and (n_win - 1) * W < G <= n_win * W
-        assert 1 <= n_slices <= 65535
+    """B2's cluster: the fewest windows of at most ``cluster_width`` bins (a
+    32-bit count and 8-byte sums a bin; even), of equal even width, at most
+    ``MAX_CLUSTER`` of them; as many clusters as the occupancy query allows,
+    fewer for few rows."""
+    for count in (True, False):
+        W = gw.cluster_width(C, count)
+        per_bin = 4 * count + 8 * (C - count)
+        assert W % 2 == 0 and W * per_bin <= gw.CLUSTER_SMEM < (W + 2) * per_bin
+        assert gw.window_bytes(W, C, count) == W * per_bin
+        for G in (1, 257, W, W + 1, 2 * W + 1, gw.MAX_CLUSTER * W):
+            W2, n_win, n_clusters = gw.plan(10 ** 8, G, C, count, max_clusters=16)
+            assert W2 <= W and W2 % 2 == 0 and (n_win - 1) * W2 < G <= n_win * W2
+            assert n_win == gw.cluster_windows(G, C, count) <= gw.MAX_CLUSTER
+            assert gw.fits(G, C, count) and n_clusters == 16
+            assert gw.plan(1, G, C, count, max_clusters=16)[2] == 1
+            rows_per_cta = gw.WARPS * ga.STAGE_ROWS * ga.MIN_STEPS_PER_WARP
+            assert gw.plan(3 * n_win * rows_per_cta, G, C, count, max_clusters=16)[2] == 3
+        assert not gw.fits(gw.MAX_CLUSTER * W + 1, C, count)
+    # B5 keeps its [C, W] 8-byte words within SMEM_BUDGET
+    assert C * gm.window_width(C) * 8 <= ga.SMEM_BUDGET < C * (gm.window_width(C) + 1) * 8
+
+
+@pytest.mark.parametrize("G,C,n_win,W", [
+    (10_609, 2, 1, 10_610),  # q2: count + v1, one window, a cluster of one CTA
+    (10_609, 3, 1, 10_610),  # count + int64 + f64: 20 bytes a bin fit one CTA
+    (32_768, 3, 3, 10_924),
+    (67_081, 1, 2, 33_542),  # count(binby=[x, y], shape=256)
+    (1_027, 1, 1, 1_028),  # limits(x, "99.7%"): the percentile's histogram
+])
+def test_window_plan_at_the_query_shapes(G, C, n_win, W):
+    assert gw.cluster_window(G, C, True) == (W, n_win)
+    assert gw.plan(10 ** 8, G, C, True, max_clusters=132 // n_win) == (W, n_win, 132 // n_win)
+    # 2^26 rows (one tile) still give every CTA of 33 clusters its share
+    assert gw.plan(2 ** 26, G, C, True, max_clusters=33)[2] == \
+        min(33, -(-2 ** 26 // (2 ** 17 * n_win)))
+
+
+def test_window_reference_cuts_the_clusters_windows():
+    """B2's plain version adds the kernel's windows one after the other:
+    their edges (k * W and k * W + 1) keep every row once."""
+    rng = np.random.default_rng(7)
+    C, W = 2, gw.cluster_width(2, True)
+    for G in (W - 1, W, W + 1, 3 * W + 1):
+        idx = torch.from_numpy(rng.integers(-2, G + 3, 20_000).astype(np.int32))
+        idx[:4] = torch.tensor([0, W - 1, min(W, G - 1), G - 1], dtype=torch.int32)
+        vals = torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, 20_000))
+        got = gw.grid_window_reference(idx, [vals], [], G, True)
+        want = ga.grid_additive_reference(idx, [vals], [], G, True)
+        npt.assert_array_equal(got[0].numpy(), want[0].numpy())
+        assert gw.cluster_windows(G, C, True) == -(-G // W)
 
 
 def _strategy(G, C, n=10 ** 8):
@@ -243,12 +288,13 @@ def _strategy(G, C, n=10 ** 8):
 
 @pytest.mark.parametrize("C", [1, 2, 3, 4])
 def test_plan_boundaries(C):
-    W = gw.window_width(C)
+    W = gw.cluster_width(C, True)
     assert _strategy(1, C) == "b1"  # df.sum
     assert _strategy(grid_plan.B1_MAX_G, C) == "b1"
     assert _strategy(grid_plan.B1_MAX_G + 1, C) == "b2"
-    assert _strategy(grid_plan.B2_MAX_WINDOWS * W, C) == "b2"
-    past_b2 = grid_plan.B2_MAX_WINDOWS * W + 1
+    assert grid_plan.b2_max_windows(C) == (4 if C <= 2 else 2)
+    assert _strategy(grid_plan.b2_max_windows(C) * W, C) == "b2"
+    past_b2 = grid_plan.b2_max_windows(C) * W + 1
     assert _strategy(past_b2, C) == ("b3-l2" if past_b2 >= gp.RESIDENT_MIN_G else "b3")
     assert _strategy(gp.RESIDENT_MIN_G - 1, C) in ("b2", "b3")
     assert _strategy(max(past_b2, gp.RESIDENT_MIN_G), C) == "b3-l2"

@@ -16,6 +16,7 @@ import torch
 
 import vaex_tpu
 import vaex_tpu_torch
+from vaex_tpu_torch import settings
 from torch_port_helpers import assert_same_frame, same_frames, seeded_arrays
 
 K = 100
@@ -128,6 +129,44 @@ def test_to_device_cpu_stages_tensors():
     npt.assert_array_equal(df[10:25]["iv"].tolist(), arrays["iv"][10:25])
     assert df.dataset.fingerprint() == vaex_tpu_torch.from_arrays(
         **arrays).to_device("cpu").dataset.fingerprint()
+
+
+def test_host_frame_runs_on_the_settings_device(monkeypatch):
+    """A frame of host arrays that no one staged runs its passes on
+    ``settings.DEVICE``: the CPU when asked for, else the card, and without
+    one torch raises rather than the pass quietly running on the CPU."""
+    arrays = seeded_arrays(9, 500, k=K)
+    df = vaex_tpu_torch.from_arrays(**arrays)
+    monkeypatch.setattr(settings, "DEVICE", "cpu")
+    npt.assert_allclose(df.sum("x"), arrays["x"].sum(), rtol=1e-12)
+    assert df.executor.trace_log[-1]["device"] == "cpu"
+    monkeypatch.setattr(settings, "DEVICE", "cuda")
+    if torch.cuda.is_available():
+        npt.assert_allclose(df.sum("x"), arrays["x"].sum(), rtol=1e-9)
+        assert df.executor.trace_log[-1]["device"].startswith("cuda")
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            df.sum("x")
+
+
+def test_staged_and_derived_frames_keep_their_device(monkeypatch):
+    """A frame staged with ``to_device("cpu")`` runs there whatever
+    ``settings.DEVICE`` says, even a pass over its host-side masked column
+    alone; a groupby's result frame keeps the device of the pass that made
+    it, and so do its slices and sorts."""
+    monkeypatch.setattr(settings, "DEVICE", "cuda")
+    arrays = seeded_arrays(10, 600, k=K)
+    m = np.ma.MaskedArray(np.arange(600.0), np.arange(600) % 4 == 0)
+    df = vaex_tpu_torch.from_arrays(m=m).to_device("cpu")
+    assert isinstance(df.dataset["m"], np.ma.MaskedArray)
+    assert df.sum("m") == m.sum() and df.executor.trace_log[-1]["device"] == "cpu"
+    port = vaex_tpu_torch.from_arrays(**arrays).to_device("cpu").categorize(
+        "k", labels=list(range(K)))
+    out = port.groupby("k", agg={"s": vaex_tpu_torch.agg.sum("x")}, sort=True)
+    assert out.dataset.device == torch.device("cpu")
+    npt.assert_allclose(out.sum("s"), arrays["x"].sum(), rtol=1e-9)
+    assert out.executor.trace_log[-1]["device"] == "cpu"
+    assert out[5:9].dataset.device == out.sort("s").dataset.device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("query", ["non_category_key", "two_keys", "min", "first",

@@ -237,21 +237,31 @@ class OpFirst(AggOperation):
     """Per bin the value of the row with the smallest order value; among
     equal orders the earliest row wins, across tiles too.  Rows whose value
     or order is NaN or missing take no part; a bin without such a row holds
-    0 (vaex_tpu/agg.py:528-566, ops/gridagg.py:84-127).  The order is
-    compared as float64, as there.  The state is (values [G] in the input
-    dtype, orders [G] float64)."""
+    0 (vaex_tpu/agg.py:528-566, ops/gridagg.py:84-127).  The order keeps
+    its type: int64 for an int, bool or temporal order, so that nanosecond
+    timestamps past 2^53 stay apart, float64 for a float order (vaex_tpu
+    compares every order as float64).  The state is (values [G] in the
+    input dtype, orders [G] int64 or float64 starting at the type's
+    maximum, seen [G] bool): ``seen`` lets an order equal to that maximum
+    win over an empty cell."""
 
     name = "first"
     kind = "first"
+
+    def __init__(self, expressions, dtype_in=None, order_float=True):
+        super().__init__(expressions, dtype_in)
+        self.order_dtype = torch.float64 if order_float else torch.int64
 
     def initial_state(self, G, device):
         dt = DataType(self.dtype_in)
         dtype = torch.int64 if dt.is_temporal else dt.torch
         return (torch.zeros(G, dtype=dtype, device=device),
-                torch.full((G,), float("inf"), dtype=torch.float64, device=device))
+                torch.full((G,), identity(self.order_dtype, "min"), dtype=self.order_dtype,
+                           device=device),
+                torch.zeros(G, dtype=torch.bool, device=device))
 
     def first_input(self, ctx):
-        """(values, order as float64, valid or None) of one tile."""
+        """(values, order in the state's type, valid or None) of one tile."""
         x = ctx.expr(self.expressions[0])
         order = ctx.expr(self.expressions[1])
         valid = None
@@ -264,13 +274,13 @@ class OpFirst(AggOperation):
         if DataType(self.dtype_in).is_temporal:
             ok = x.data != NAT
             valid = ok if valid is None else valid & ok
-        return x.data, order.data.to(torch.float64).contiguous(), valid
+        return x.data, order.data.to(self.order_dtype).contiguous(), valid
 
     def apply_first(self, state, tile_values, tile_order, found):
-        values, orders = state
-        take = found & (tile_order < orders)
+        values, orders, seen = state
+        take = found & ((tile_order < orders) | ~seen)
         return (torch.where(take, tile_values.to(values.dtype), values),
-                torch.where(take, tile_order, orders))
+                torch.where(take, tile_order, orders), seen | found)
 
     def get_result(self, state, shape):
         return state[0].reshape(shape)
@@ -349,7 +359,9 @@ class AggregatorDescriptorFirst(AggregatorDescriptorBasic):
                                     else expression)
 
     def add_tasks(self, df, binners):
-        op = OpFirst([self.expression, self.order_expression], dtype_in=self._input_dtype(df))
+        order_float = DataType(df.data_type(self.order_expression)).numpy.kind == "f"
+        op = OpFirst([self.expression, self.order_expression], dtype_in=self._input_dtype(df),
+                     order_float=order_float)
         return [df.executor.schedule_aggregation(df, binners, op, self.selection)]
 
 

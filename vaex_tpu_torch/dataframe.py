@@ -540,7 +540,7 @@ class DataFrame:
             else:
                 columns[name] = col[indices]
         df = self.copy()
-        df.dataset = DatasetArrays(columns, self.dataset.logical)
+        df.dataset = DatasetArrays(columns, self.dataset.logical, self.dataset.device)
         return df
 
     def sort(self, by, ascending=True):
@@ -641,8 +641,9 @@ class DataFrame:
 
         Columns whose dtype has a torch tensor type move (a datetime64 or
         timedelta64 column as int64; the dataset remembers its dtype);
-        masked columns and the rest stay host-side.  Torch raises when the device does not
-        exist: there is no silent CPU run."""
+        masked columns and the rest stay host-side, and the passes over them run on
+        ``device`` too.  Torch raises when the device does not exist: there is no
+        silent CPU run."""
         device = torch.device(device or settings.DEVICE)
         names = column_names or self.get_column_names(hidden=True)
         columns = {}
@@ -653,7 +654,7 @@ class DataFrame:
                 col = array_types.to_tensor(col, device)
             columns[name] = col
         df = self.copy()
-        df.dataset = DatasetArrays(columns, self.dataset.logical)
+        df.dataset = DatasetArrays(columns, self.dataset.logical, device)
         return df
 
     def __repr__(self):

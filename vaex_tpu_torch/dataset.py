@@ -12,6 +12,7 @@ import collections.abc
 from typing import Dict
 
 import numpy as np
+import torch
 
 from . import array_types
 from .datatype import dtype_of
@@ -30,6 +31,9 @@ class Dataset(collections.abc.Mapping):
         # facts derived from the columns' content (a key's range, a filter's
         # row count), kept for the life of the node by whoever derives them
         self.remembered = {}
+        # the device the columns were staged to (DataFrame.to_device) or the
+        # pass that made them ran on; None for arrays no one placed
+        self.device = None
 
     def __getitem__(self, name):
         return self._columns[name]
@@ -77,15 +81,16 @@ class Dataset(collections.abc.Mapping):
         if start == 0 and end == self.row_count:
             return self
         return DatasetArrays({name: col[start:end]
-                              for name, col in self._columns.items()}, self.logical)
+                              for name, col in self._columns.items()}, self.logical, self.device)
 
 
 class DatasetArrays(Dataset):
     """In-memory dict of columns."""
 
-    def __init__(self, columns: Dict[str, object], logical=None):
+    def __init__(self, columns: Dict[str, object], logical=None, device=None):
         super().__init__()
         self._columns = dict(columns)
+        self.device = None if device is None else torch.device(device)
         self.logical = {name: np.dtype(dt) for name, dt in (logical or {}).items()
                         if name in self._columns}
         for name, col in self._columns.items():

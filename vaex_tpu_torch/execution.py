@@ -1,12 +1,16 @@
 """The pass executor: an eager tile loop over the columns a pass needs.
 
 One pass collects the queued tasks of a DataFrame, picks the pass device
-(the device of its tensor columns; the CPU when every column is a host
-array), walks the rows in tiles of ``TILE_ROWS``, and calls every task's
-``update`` once per tile.  A tile of a tensor column is a view, so a
-device-resident table is read in place; a tile of a host array is copied to
-the pass device.  Torch runs eagerly: each tile's expression evaluation and
-binning are separate kernels, then the grid kernel runs.
+(the device of its tensor columns; when every column is a host array, the
+device the frame was staged to or, for a frame no one staged,
+``settings.DEVICE``), walks the rows in tiles of ``TILE_ROWS``, and calls
+every task's ``update`` once per tile.  A tile of a tensor column is a view,
+so a device-resident table is read in place; a tile of a host array is
+copied to the pass device.  So a host frame's query runs on the card unless
+the caller stages it elsewhere (``to_device("cpu")``) or sets
+``settings.DEVICE``; without a card torch raises.  Torch runs eagerly: each
+tile's expression evaluation and binning are separate kernels, then the
+grid kernel runs.
 
 A filtered DataFrame's filter is evaluated once per tile into
 ``TileContext.row_valid`` (masked rows count as False); every task drops the
@@ -167,13 +171,16 @@ def pass_inputs(df, dataset, expressions):
 
 def _pass_device(dataset, names):
     """The device of the pass's tensor columns (the dataset's, when the pass
-    reads none); the CPU when all its columns are host arrays."""
+    reads none); when all its columns are host arrays, the device the
+    dataset was placed on, else ``settings.DEVICE``."""
     devices = {dataset[n].device for n in names if isinstance(dataset[n], torch.Tensor)}
     if not devices:
         devices = {c.device for c in dataset.values() if isinstance(c, torch.Tensor)}
     if len(devices) > 1:
         raise ValueError(f"a pass reads columns on several devices: {sorted(map(str, devices))}")
-    return devices.pop() if devices else torch.device("cpu")
+    if devices:
+        return devices.pop()
+    return dataset.device or torch.device(settings.DEVICE)
 
 
 def _tile(col, i1, i2, device) -> NA:

@@ -229,7 +229,7 @@ class BinnerTime:
                       None)
         codes = self.codes if device is None else torch.as_tensor(self.codes).to(device)
         df.dataset = DatasetArrays({**dict(df.dataset.items()), self.column: codes},
-                                   df.dataset.logical)
+                                   df.dataset.logical, df.dataset.device)
         df.column_names = df.column_names + [self.column]
 
     @classmethod
@@ -465,7 +465,6 @@ class GroupBy:
     def _assemble_one(self, grids, counts):
         """One key: its bins in order; of a dense grouper the bins some row
         has, compacted by a gather on the grids' device."""
-        from . import from_dict
         g = self.groupers[0]
         keys, order = g.bin_values, None
         if g.dense:
@@ -478,7 +477,7 @@ class GroupBy:
         columns = {self.by_names[0]: keys}
         for name, grid in grids.items():
             columns[name] = grid if order is None else grid[order.to(grid.device)]
-        return from_dict(self._viewed(columns))
+        return self._frame(columns, grids)
 
     def _assemble_cartesian(self, grids, counts):
         """The observed cells of the cartesian grid, in row-major order of the
@@ -486,21 +485,28 @@ class GroupBy:
         (vaex_tpu/groupby.py:963-982).  Unlike vaex_tpu, which sorts them
         ascending whatever ``ascending`` says, each key sorts in its own
         direction."""
-        from . import from_dict
         keep = torch.nonzero(counts.reshape(-1) > 0).squeeze(1)
         cells = np.unravel_index(keep.cpu().numpy(), tuple(counts.shape))
         columns = {name: g.bin_values_raw[codes]
                    for name, g, codes in zip(self.by_names, self.groupers, cells)}
         for name, grid in grids.items():
             columns[name] = grid.reshape(-1)[keep.to(grid.device)]
-        return self._sorted(from_dict(self._viewed(columns)))
+        return self._sorted(self._frame(columns, grids))
 
     def _assemble_combined(self, grids):
         """The cells of a combined grouper are the observed combinations."""
-        from . import from_dict
         columns = dict(zip(self.by_names, self.combined.bin_values_per_key))
         columns.update(grids)
-        return self._sorted(from_dict(self._viewed(columns)))
+        return self._sorted(self._frame(columns, grids))
+
+    def _frame(self, columns, grids):
+        """The result frame; it keeps the device of the pass that made
+        ``grids``, so that a query on it runs there too."""
+        from . import from_dict
+        df = from_dict(self._viewed(columns))
+        df.dataset.device = next((g.device for g in grids.values()
+                                  if isinstance(g, torch.Tensor)), None)
+        return df
 
     def _viewed(self, columns):
         """The result columns, a datetime or timedelta min / max / first back

@@ -40,14 +40,14 @@ import ctypes
 import torch
 
 from . import kernel_build
-from .grid_additive import (SMEM_BUDGET, check_cuda, grid_additive_reference, plan,
-                            warp_bytes)
-from .grid_window import WARPS, grid_window_reference
-from .grid_window import plan as window_plan
+from .grid_additive import (MIN_STEPS_PER_WARP, SM_SMEM, SM_THREADS, SMEM_BUDGET, STAGE_ROWS,
+                            check_cuda, grid_additive_reference, plan, warp_bytes)
+from .grid_window import grid_window_reference
 
 # mirror MAX_BASES / MAX_TERMS in csrc/moments_common.cuh (checked at load)
 MAX_BASES = 4
 MAX_TERMS = 16
+WINDOW_WARPS = 32  # warps per B5 CTA, all sharing its window
 BASE_KINDS = {torch.float64: 0, torch.float32: 1, torch.int64: 2}
 
 
@@ -129,7 +129,8 @@ def grid_moments_window_reference(idx, bases, terms, G):
     """The plain PyTorch version of B5: the term columns, then the kernel's
     bin windows one after the other, each an ``index_add_``."""
     count_cols, float_cols = form_terms(idx, bases, terms)
-    return grid_window_reference(idx, count_cols, float_cols, int(G), False)
+    return grid_window_reference(idx, count_cols, float_cols, int(G), False,
+                                 window_width(len(terms)))
 
 
 def fits(G, C):
@@ -152,6 +153,28 @@ def _library(name):
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     return lib, run
+
+
+def window_width(C):
+    """The widest window of B5: its [C, W] 8-byte words fill ``SMEM_BUDGET``."""
+    return SMEM_BUDGET // (8 * C)
+
+
+def n_windows(G, C):
+    """Windows of ``window_width(C)`` bins a grid of G bins takes in B5."""
+    return -(-G // window_width(C))
+
+
+def window_plan(n, G, C, sm_count):
+    """(W, n_win, n_slices) of one B5 launch: a CTA per window and row
+    slice, the CTAs of all windows together filling the card once."""
+    W = window_width(C)
+    n_win = n_windows(G, C)
+    smem = C * W * 8
+    resident = sm_count * max(1, min(SM_THREADS // (WINDOW_WARPS * 32), SM_SMEM // smem))
+    rows_per_cta = WINDOW_WARPS * STAGE_ROWS * MIN_STEPS_PER_WARP
+    n_slices = max(1, min(resident // n_win, -(-n // rows_per_cta), 65535))
+    return W, n_win, n_slices
 
 
 def _launch(name, idx, bases, terms, G, W, n_parts, warps):
@@ -217,7 +240,7 @@ def grid_moments_window(idx, bases, terms, G):
         raise ValueError(f"grid_moments_window: G={G} with {C} terms does not fit the kernel")
     sm_count = torch.cuda.get_device_properties(idx.device).multi_processor_count
     W, _, n_slices = window_plan(idx.shape[0], G, C, sm_count)
-    out = _launch("grid_moments_window", idx, bases, terms, G, W, n_slices, WARPS)
+    out = _launch("grid_moments_window", idx, bases, terms, G, W, n_slices, WINDOW_WARPS)
     grid_moments_window.launches += 1
     return out
 

@@ -3,8 +3,8 @@ grid size G and the channel count C (count + int columns + float columns):
 
 * ``b1`` (:mod:`.grid_additive`) while G <= ``B1_MAX_G`` and one warp's
   [C, G] grid fits shared memory;
-* ``b2`` (:mod:`.grid_window`) while the grid takes at most
-  ``B2_MAX_WINDOWS`` bin windows;
+* ``b2`` (:mod:`.grid_window`) while its thread-block cluster takes at
+  most :func:`b2_max_windows` bin windows;
 * ``b3-l2`` (:func:`.grid_partition.grid_resident`, B3's resident route)
   while the [C, G] grid stays in the card's L2
   (:func:`.grid_partition.resident_fits`: G >= 131 072 and C * G * 8 bytes
@@ -18,10 +18,15 @@ The cut-offs were measured on an NVIDIA H100 80GB HBM3 at its 700 W limit,
 1e8 uniform keys, C = 2, 3 and 4 channels (``scripts/sweep_grid_kernels.py``;
 PERF.md, section 6): at G = 103 B1 beat B2 at every C (0.957 / 1.064 /
 1.568 against 1.157 / 1.539 / 1.906 ms), at G = 256 B2 beat B1 at C = 2
-and 4 (0.985 / 1.714 against 1.075 / 2.029 ms).  B2 beat both routes of B3
-at 3 and 4 windows (C = 2 at G = 32 768: 2.000 against 2.572 ms; C = 3
-there: 3.284 against 3.629) and lost at 6 (C = 2 at G = 67 081: 3.333
-against 2.458; C = 4 at G = 32 768: 5.611 against 4.565).  ``b3-l2`` against
+and 4 (0.985 / 1.714 against 1.075 / 2.029 ms).  B2's cluster
+(``--b2``: G = k windows of the widest window, count + int64 columns + one
+f64 from C = 3) beat both routes of B3 to 4 windows at C = 1 and 2 (C = 1:
+1.160 against 1.208 ms for ``b3-l2``; C = 2: 2.272 against 2.473) and lost
+at 5 (1.334 against 1.195; 2.620 against 2.500); at C = 3 and 4 it beat
+them at 2 windows (2.536 against 3.632 for ``b3``; 3.147 against 4.620) and
+lost at 3 (4.270 against 3.644; 5.346 against 4.626): every row that lands
+in another CTA's window is an atomic through distributed shared memory,
+and those grow with the channels.  ``b3-l2`` against
 ``b3``: 2.423 against 2.769 ms at G = 200 003 and 2.434 against 2.952 at
 1 000 003 for C = 2; 3.664 against 3.728 and 3.710 against 4.098 for C = 3
 (a tie at 100 003: 3.681 against 3.670); 4.846 against 5.276 at 500 003 for
@@ -81,7 +86,10 @@ B3X, B3X_DIRECT = "b3x", "b3x-direct"
 # sub-grid narrows as columns are added, and past four a second call is faster
 B3X_BATCH = 4
 B1_MAX_G = 128
-B2_MAX_WINDOWS = 4
+# B2's cluster size while it beat B3: at most B2_MAX_WINDOWS[0] windows up
+# to B2_FEW_CHANNELS channels, B2_MAX_WINDOWS[1] past them
+B2_FEW_CHANNELS = 2
+B2_MAX_WINDOWS = (4, 2)
 # B4 while one warp's ordered grid (grid_additive.warp_bytes) takes at most
 # this many bytes, i.e. while 3 or more CTAs of 8 warps fit an SM
 B4_MAX_WARP_BYTES = 8 << 10
@@ -114,9 +122,14 @@ def strategy(n, G, n_int, n_float, count):
         raise ValueError(f"nothing to add: G={G}, no columns and no count")
     if G <= B1_MAX_G and grid_additive.fits(G, n_int, n_float, count):
         return B1
-    if grid_window.n_windows(G, C) <= B2_MAX_WINDOWS:
+    if grid_window.cluster_windows(G, C, count) <= b2_max_windows(C):
         return B2
     return _wide(n, G, C)
+
+
+def b2_max_windows(C):
+    """The most windows of B2's cluster the plan gives a grid of C channels."""
+    return B2_MAX_WINDOWS[C > B2_FEW_CHANNELS]
 
 
 def _past_b3(n, G):
@@ -153,7 +166,7 @@ def moment_strategy(n, G, C):
                          f"{grid_moments.MAX_TERMS} terms")
     if G <= b4_max_g(C) and grid_moments.fits(G, C):
         return B4
-    if grid_window.n_windows(G, C) <= B5_MAX_WINDOWS:
+    if grid_moments.n_windows(G, C) <= B5_MAX_WINDOWS:
         return B5
     return _wide(n, G, C)
 

@@ -8,56 +8,85 @@ columns summed mod 2^64; f32/f64 columns summed in f64 with NaN adding
 nothing; an implicit count.  Returns ``(int_sums [count + k, G] int64,
 float_sums [m, G] float64)``.
 
-The grid is cut into windows of ``W`` bins; a CTA keeps one [C, W] window
-grid in shared memory, shared by its warps and updated with 64-bit
-shared-memory atomics, and the CTAs of a window all walk the rows and keep
-those that fall in it.  Integer sums are exact; float sums are not
-reproducible run to run (the order of the atomic adds varies).  The plain
-version adds the same windows one after the other, so the window
-arithmetic runs on the CPU too.  Source:
-``vaex_tpu_torch/csrc/grid_window.cu``.
+The grid is cut into ``n_win`` windows of ``W`` bins, at most
+``MAX_CLUSTER``, and a thread-block cluster of ``n_win`` CTAs holds them
+all in its distributed shared memory, one window per CTA: each CTA walks
+its own rows once and adds each into the window that owns its bin, its own
+or a neighbour's; a grid of one window is a plain launch, no cluster, which
+measured faster (PERF.md, section 6).  A window holds a 32-bit count and an
+8-byte word per value column for each bin (:func:`cluster_width`); a call
+takes fewer than 2^32 rows.  Integer sums are exact; float sums are not reproducible
+run to run (the order of the atomic adds varies).  The plain version adds
+the same windows one after the other, so the window arithmetic runs on the
+CPU too.  Source: ``vaex_tpu_torch/csrc/grid_window.cu``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import kernel_build
-from .grid_additive import (MAX_COLS, MIN_STEPS_PER_WARP, SM_SMEM, SM_THREADS, SMEM_BUDGET,
-                            STAGE_ROWS, check_cuda, check_inputs, grid_additive_reference,
-                            n_channels)
+from .grid_additive import (MAX_COLS, MIN_STEPS_PER_WARP, STAGE_ROWS, check_cuda, check_inputs,
+                            grid_additive_reference, n_channels)
 
-WARPS = 32  # warps per CTA, all sharing its window grid
-
-
-def window_width(C):
-    """Bins per window: a CTA's [C, W] words fill the budget."""
-    return SMEM_BUDGET // (8 * C)
+WARPS = 32  # warps per CTA, all sharing its window
+MAX_CLUSTER = 8  # the portable cluster size; mirrors csrc/grid_window.cu (checked at load)
+# a cluster CTA's shared memory; mirrors CLUSTER_SMEM in csrc/grid_window.cu
+CLUSTER_SMEM = 227 * 1024
 
 
-def n_windows(G, C):
-    return -(-G // window_width(C))
+def window_bytes(W, C, count):
+    """Shared memory of one CTA's window of W bins: a 32-bit count (where
+    ``count``) and an 8-byte word per value column for each bin."""
+    count = int(bool(count))
+    return W * (4 * count + 8 * (C - count))
 
 
-def plan(n, G, C, sm_count):
-    """(W, n_win, n_slices) of one launch: the CTAs of all windows together
-    fill the card once."""
-    W = window_width(C)
-    n_win = -(-G // W)
-    smem = C * W * 8
-    resident = sm_count * max(1, min(SM_THREADS // (WARPS * 32), SM_SMEM // smem))
+def cluster_width(C, count):
+    """The widest window of one B2 CTA within ``CLUSTER_SMEM``; even, so the
+    value planes stay 8-byte aligned."""
+    return (CLUSTER_SMEM // window_bytes(1, C, count)) & ~1
+
+
+def cluster_windows(G, C, count):
+    """B2's cluster size for a grid of G bins: windows of at most
+    ``cluster_width`` bins."""
+    return -(-G // cluster_width(C, count))
+
+
+def fits(G, C, count):
+    """True when one cluster holds the grid."""
+    return 1 <= C and cluster_windows(G, C, count) <= MAX_CLUSTER
+
+
+def cluster_window(G, C, count):
+    """(W, n_win): the fewest windows that hold the grid, of equal even
+    width."""
+    n_win = cluster_windows(G, C, count)
+    W = -(-G // n_win)
+    return W + (W & 1), n_win
+
+
+def plan(n, G, C, count, max_clusters):
+    """(W, n_win, n_clusters) of one launch: as many clusters as the card
+    holds at once (``max_clusters``, from the occupancy query), fewer when
+    the rows would give a CTA less than its share of work."""
+    W, n_win = cluster_window(G, C, count)
     rows_per_cta = WARPS * STAGE_ROWS * MIN_STEPS_PER_WARP
-    n_slices = max(1, min(resident // n_win, -(-n // rows_per_cta), 65535))
-    return W, n_win, n_slices
+    n_clusters = max(1, min(max_clusters, -(-n // (rows_per_cta * n_win))))
+    return W, n_win, n_clusters
 
 
-def grid_window_reference(idx, int_cols, float_cols, G, count):
-    """The plain PyTorch version: the windows of the kernel one after the
-    other, each an ``index_add_`` of the rows that fall in it."""
+def grid_window_reference(idx, int_cols, float_cols, G, count, W=None):
+    """The plain PyTorch version: the windows of the kernel (of W bins; B2's
+    cluster windows by default) one after the other, each an ``index_add_``
+    of the rows that fall in it."""
     G = int(G)
-    W = window_width(n_channels(len(int_cols), len(float_cols), count))
+    if W is None:
+        W, _ = cluster_window(G, n_channels(len(int_cols), len(float_cols), count), count)
     int_sums = torch.empty((int(bool(count)) + len(int_cols), G), dtype=torch.int64,
                            device=idx.device)
     float_sums = torch.empty((len(float_cols), G), dtype=torch.float64, device=idx.device)
@@ -72,15 +101,38 @@ def grid_window_reference(idx, int_cols, float_cols, G, count):
 
 
 def _library():
-    lib = kernel_build.library("grid_window", SMEM_BUDGET, MAX_COLS)
+    lib = kernel_build.library("grid_window", CLUSTER_SMEM, MAX_COLS)
+    fn = lib.grid_window_max_cluster
+    fn.restype = ctypes.c_int
+    if fn() != MAX_CLUSTER:
+        raise RuntimeError("grid_window_max_cluster disagrees with its wrapper")
+    lib.grid_window_clusters.restype = ctypes.c_int
+    lib.grid_window_clusters.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.grid_window_run.restype = ctypes.c_int
     lib.grid_window_run.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def max_clusters(device_index, n_win, smem):
+    """The clusters of ``n_win`` CTAs of ``smem`` bytes of window each that
+    the card holds at once (``cudaOccupancyMaxActiveClusters``; one window:
+    the plain launch's resident CTAs)."""
+    lib = _library()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.grid_window_clusters(n_win, smem, WARPS, ctypes.byref(out))
+    kernel_build.raise_on_error(lib, "grid_window", err)
+    if out.value < 1:
+        raise RuntimeError(f"grid_window: no cluster of {n_win} CTAs of {smem} bytes of window "
+                           f"fits the card")
+    return out.value
 
 
 def grid_window(idx, int_cols, float_cols, G, count):
@@ -93,25 +145,30 @@ def grid_window(idx, int_cols, float_cols, G, count):
         return grid_window_reference(idx, int_cols, float_cols, G, count)
     check_cuda("grid_window", idx, int_cols, float_cols)
     C = n_channels(len(int_cols), len(float_cols), count)
-    if len(int_cols) + len(float_cols) > MAX_COLS or C * G >= 2 ** 31:
-        raise ValueError(f"grid_window: G={G} with {C} channels does not fit the kernel")
+    if len(int_cols) + len(float_cols) > MAX_COLS or not fits(G, C, count):
+        raise ValueError(f"grid_window: G={G} with {C} channels does not fit the kernel "
+                         f"(at most {MAX_CLUSTER} windows of {cluster_width(C, count)} bins)")
     n = idx.shape[0]
+    if n >= 2 ** 32:
+        raise ValueError(f"grid_window: {n} rows in one call; its 32-bit counts take fewer "
+                         f"than 2^32")
     device = idx.device
-    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
-    W, _, n_slices = plan(n, G, C, sm_count)
+    W, n_win = cluster_window(G, C, count)
+    W, n_win, n_clusters = plan(n, G, C, count,
+                                max_clusters(device.index, n_win, window_bytes(W, C, count)))
     int_sums = torch.empty((int(bool(count)) + len(int_cols), G), dtype=torch.int64,
                            device=device)
     float_sums = torch.empty((len(float_cols), G), dtype=torch.float64, device=device)
-    scratch = torch.empty(n_slices * C * G, dtype=torch.int64, device=device)
+    scratch = torch.empty(n_clusters * C * G, dtype=torch.int64, device=device)
     int_ptrs, float_ptrs, float_f32 = kernel_build.column_args(int_cols, float_cols)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.grid_window_run(
-            idx.data_ptr(), n, G, W, int(bool(count)),
+            idx.data_ptr(), n, G, W, n_win, int(bool(count)),
             ctypes.addressof(int_ptrs), len(int_cols),
             ctypes.addressof(float_ptrs), ctypes.addressof(float_f32), len(float_cols),
-            n_slices, WARPS, scratch.data_ptr(),
+            n_clusters, WARPS, scratch.data_ptr(),
             int_sums.data_ptr(), float_sums.data_ptr(), stream)
     kernel_build.raise_on_error(lib, "grid_window", err)
     grid_window.launches += 1

@@ -9,8 +9,10 @@ natural order of every set-based grouper.
 A set built by a pass (:class:`vaex_tpu_torch.tasks.TaskSetCreate`) keeps its
 keys as a tensor on the pass device; the host copy is made when ``keys`` is
 first read.  Inside a pass :func:`device_map_ordinal` and :func:`device_isin`
-probe a :class:`DeviceSetHandle` through kernel B6 (:mod:`.probe`): its
-shared-memory search while the set fits one, its two-level search past that.
+probe a :class:`DeviceSetHandle` through kernel B6 (:mod:`.probe`), which
+walks a search tree built once per set: wholly in shared memory while it
+fits (``b6``), its top levels there and the rest in global memory past that
+(``b6-wide``).
 
 String, arrow and dictionary keys wait for the host scope (ROADMAP queue A3)
 and raise; ``SortedIndex`` waits for ``join.py`` (queue A8).
@@ -29,7 +31,6 @@ from .nullable import NA
 
 STRINGS_PENDING = ("sets of string keys are not ported yet: they wait for the host scope "
                    "(ROADMAP queue A3)")
-B6, B6_WIDE = "b6", "b6-wide"
 
 
 class RowLimitException(Exception):
@@ -86,6 +87,7 @@ class SortedSet:
         self._counts = np.empty(0, np.int64) if keep_counts else None
         self._device_keys = None  # the keys as a tensor, where a pass left or needs them
         self._device_counts = None
+        self.trees = {}  # device -> {compare dtype: B6's search tree}
         self._n_keys = 0
         self._fingerprint = None
 
@@ -110,6 +112,7 @@ class SortedSet:
     def _set_host(self, keys, counts):
         self._keys, self._counts, self._n_keys = keys, counts, len(keys)
         self._device_keys = self._device_counts = self._fingerprint = None
+        self.trees = {}
         self._check_limit()
 
     def update(self, values):
@@ -270,20 +273,32 @@ def _shrink_codes(codes, count):
 class DeviceSetHandle:
     """What a pass sees of a SortedSet: the key tensor on the pass device and
     the set's metadata.  ``route`` is the probe route taken last (``b6`` or
-    ``b6-wide``), which the executor writes into ``trace_log``."""
+    ``b6-wide``), which the executor writes into ``trace_log``.  ``trees``
+    keeps the search layout of B6 (:func:`.probe.build_tree`) per compare
+    dtype, built at the first probe on the card: a handle made by :meth:`of`
+    shares the set's, so every tile of a pass and every later pass reuse one
+    build."""
 
-    def __init__(self, keys, n_keys, has_nan, has_null, temporal=False):
+    def __init__(self, keys, n_keys, has_nan, has_null, temporal=False, trees=None):
         self.keys = keys
         self.n_keys = n_keys
         self.has_nan = has_nan
         self.has_null = has_null
         self.temporal = temporal  # rows that hold NaT are missing
         self.route = None
+        self.trees = {} if trees is None else trees
 
     @classmethod
     def of(cls, oset, device):
-        return cls(oset.device_keys(device), oset.n_keys, oset.has_nan, oset.has_null,
-                   oset.is_temporal)
+        keys = oset.device_keys(device)
+        return cls(keys, oset.n_keys, oset.has_nan, oset.has_null, oset.is_temporal,
+                   oset.trees.setdefault(keys.device, {}))
+
+    def tree(self, dtype):
+        """The search layout of the keys compared in ``dtype``."""
+        if dtype not in self.trees:
+            self.trees[dtype] = probe_module.build_tree(self.keys, dtype)
+        return self.trees[dtype]
 
     @property
     def nan_ordinal(self):
@@ -298,18 +313,18 @@ class DeviceSetHandle:
         return self.n_keys + int(self.has_nan) + int(self.has_null)
 
 
-def probe_route(n_keys):
-    """Which of B6's two kernels a set of ``n_keys`` takes on the card:
-    ``b6`` (the keys in shared memory) while they fit, else ``b6-wide`` (the
-    keys in global memory, every S-th in shared memory)."""
-    return B6 if n_keys <= probe_module.MAX_KEYS else B6_WIDE
-
-
 def device_probe(handle, data):
     """Sorted keys x data -> int32 ordinals, -1 where unmatched.  CUDA
-    tensors go through the kernel, CPU tensors through its plain version;
-    the route recorded is the one the card takes."""
-    handle.route = probe_route(handle.n_keys)
+    tensors go through the kernel on the handle's tree, CPU tensors through
+    its plain version, with no tree; the route recorded is the one the card
+    takes."""
+    dtype = probe_module.compare_dtype(handle.keys, data)
+    if data.device.type == "cuda":
+        tree = handle.tree(dtype)
+        handle.route = tree.route
+        return probe_module.probe(handle.keys, data, tree)
+    handle.route = probe_module.probe_route(
+        handle.n_keys, probe_module.key_bytes(handle.keys, dtype))
     return probe_module.probe(handle.keys, data)
 
 

@@ -2,7 +2,9 @@
 
 Env var (optional):
   VAEX_TPU_TORCH_DEVICE     device that ``DataFrame.to_device()`` stages to
-                            when none is given (default 'cuda')
+                            when none is given, and that a pass over a frame
+                            of host arrays no one staged runs on (default
+                            'cuda': without a card such a pass raises)
 
 A pass runs eagerly, tile by tile; every tile costs a few kernel launches
 and one fold of the kernel's per-CTA partials, so tiles are large.  On an
