@@ -12,7 +12,11 @@ Run from the root of the repository on a machine with a CUDA card.  It
 3. holds B1 (grid_additive) against its plain PyTorch version on the card,
    at G in {1, 103, 512, largest that fits} and N in {0, 1, 1_000_003, 1e8}:
    int64 values from +-2^62 (sums wrap) and the count exact, float64 from
-   N(0, 100) to rtol 1e-9 and atol 1e-9;
+   N(0, 100) to rtol 1e-9 and atol 1e-9; then both of its routes (the
+   lane-private grids and the warp-private ones) at the lane route's edges,
+   G in {1, 2, 103, 128} with the count alone, f64, f32 with NaN, int64 +
+   f64 and two int64 + f64, columns starting at row 0 and at an odd row,
+   the planned route asserted;
 4. holds the wide-grid kernels B2 (grid_window) and B3 (grid_partition:
    its partition route b3 and its resident route b3-l2) against their
    plain versions the same way, with some NaN among the floats, at G in
@@ -29,12 +33,16 @@ Run from the root of the repository on a machine with a CUDA card.  It
    (printed), for the terms of var (an f64 column) and of corr (two f64
    columns), with NaN among both, at G in {1, 103, B4's limit at C = 6,
    that + 1, 10 609, B5's limit} and N in {0, 1, 1_000_003, 1e8}: counts
-   exact, float sums to rtol 1e-9 and atol 1e-9;
+   exact, float sums to rtol 1e-9 and atol 1e-9; then B5 where its parts
+   change (a term group or a window one bin past full) on columns starting
+   at an odd row, and at G = 10 609 on f32 and int64 bases, on one key and
+   on a Zipf(1.1) draw, its parts asserted;
 6. drives the main path through the public API: a device-resident table
    of N = 1e8 and 4e8 rows (int64 key with K = 100 categories, float64
    value, made on the card from seed 42), categorize, then
    groupby(sum, count, sort=True) and df.sum, checked against
-   torch.bincount / index_add_, with B1's launch count;
+   torch.bincount / index_add_, with B1's launch count and its lane route
+   asserted;
 7. drives the wide-grid path through the public API: an H2O-groupby-shaped
    table of N = 1e8 rows made on the card from seed 42 (id4, id5 int64 in
    1..100, id6 int64 in 1..1e6, v1, v2 int64 in 1..5, v3 float64 in
@@ -51,12 +59,14 @@ Run from the root of the repository on a machine with a CUDA card.  It
    groupby("id6", {"max_v1": max("v1"), "min_v2": min("v2")}),
    df.std("v3") and df.std("v3", binby=["id4"]), each checked against
    plain torch (index_add_ of the formed moments, then the same formula;
-   scatter_reduce for q7), with B4's and B5's launch counts and the
-   strategies;
+   scatter_reduce for q7), with B4's and B5's launch counts, the
+   strategies and B5's parts asserted per query (q6-sd one part, q9
+   three);
 9. times the main-path groupby, the five wide queries and the five
    statistics against plain PyTorch (5 repetitions, medians), and every
    kernel against its plain version and against its HBM floor at the copy
-   bandwidth measured in the same run;
+   bandwidth measured in the same run (B1 also on its warp route and at
+   the isin count's G = 1, B5 also at q6-sd's shape);
 10. holds both routes of B6 (probe: a static search tree, wholly in
     shared memory on b6, its top levels there and the rest in global memory
     on b6-wide) against its plain version (searchsorted, gather, compare):
@@ -145,7 +155,9 @@ SET_KEYS = {"k100": 100, "k2000": 2000, "k1e6": H2O_K6}
 # NVIDIA's H100 SXM data sheet: HBM bytes/s; float32 operations/s outside the
 # tensor cores.  Integer adds and compares are counted at the float32 rate,
 # float64 operations at half of it.
-# beside the keys every kernel has: the index_add_ alone for B4 and B5; for
+# beside the keys every kernel has: the index_add_ alone for B4 and B5, and
+# B5 at q6-sd's shape (var, one window); for B1 the isin count's shape
+# (G = 1, count alone) and the main path's shape on the warp route; for
 # B6 torch.isin, its b6-wide route at the 1e6-key set grouper and b6 at the
 # 50 000 ids; for B3 its resident route at the same shape and the
 # partition's phases; for B3x the route over the raw rows at the shape of
@@ -154,7 +166,9 @@ EXTRA_KEYS = ("library_add_ms", "isin_ms", "wide_launches", "wide_ms", "wide_pla
               "wide_library_ms", "wide_isin_ms", "wide_bound_ms", "wide_max_abs_err",
               "l2_launches", "l2_ms", "l2_plain_ms", "l2_max_abs_err", "count_ms",
               "scatter_ms", "sums_ms", "direct_ms", "direct_plain_ms", "direct_library_ms",
-              "direct_bound_ms", "isin_wide_ms")
+              "direct_bound_ms", "isin_wide_ms", "var_ms", "var_plain_ms", "var_bound_ms",
+              "var_library_ms", "var_max_abs_err", "g1_ms", "g1_plain_ms", "g1_bound_ms",
+              "g1_library_ms", "g1_max_abs_err", "warp_ms")
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"int": 67e12, "f64": 33.5e12}
 
@@ -229,9 +243,52 @@ def kernel_vs_plain(ga):
             err = same_sums(ga.grid_additive, ga.grid_additive_reference,
                             *random_inputs(gen, n, G), G, f"B1 G={G} N={n}")
             worst = max(worst, err)
-            print(f"kernel vs plain G={G} N={n}: ints exact, f64 max abs err {err!r}",
-                  flush=True)
-    return g_max, worst
+            print(f"kernel vs plain G={G} N={n} ({ga.grid_additive.last_route} route): ints "
+                  f"exact, f64 max abs err {err!r}", flush=True)
+    return g_max, max(worst, route_edges_vs_plain(ga, gen))
+
+
+def route_edges_vs_plain(ga, gen, n=1_000_003):
+    """B1 at the edges of its two routes (G = 1: sums in registers; 2; the
+    main path's 103; B1's last bin, 128; the count alone, f64, f32 with NaN,
+    int64 + f64, two int64 + f64), on columns that start at row 0 and at an
+    odd row of their storage; both routes where both fit, the planned one
+    asserted.  Returns the worst float error."""
+    worst = 0.0
+    planned = ga.route
+    for G in (1, 2, 103, 128):
+        idx, ints, f64 = random_inputs(gen, n + 1, G, nan=True)
+        f32 = torch.randn(n + 1, generator=gen, device="cuda", dtype=torch.float32)
+        f32[::89] = float("nan")
+        for name, int_cols, float_cols in (("count", [], []), ("count + f64", [], [f64]),
+                                           ("count + f32", [], [f32]),
+                                           ("count + int64 + f64", [ints], [f64]),
+                                           ("count + 2 int64 + f64", [ints, ints], [f64])):
+            for offset in (0, 1):
+                args = (idx[offset:offset + n], [c[offset:offset + n] for c in int_cols],
+                        [c[offset:offset + n] for c in float_cols], G)
+                want = planned(G, len(int_cols), len(float_cols), True)
+                for how in (ga.LANE, ga.WARP):
+                    if how == ga.LANE and ga.lane_warp_bytes(
+                            G, len(int_cols), len(float_cols), True) > ga.CLUSTER_SMEM:
+                        continue
+                    ga.route = lambda *a, how=how: how
+                    try:
+                        got_i, got_f = ga.grid_additive(*args, count=True)
+                    finally:
+                        ga.route = planned
+                    want_i, want_f = ga.grid_additive_reference(*args, count=True)
+                    torch.cuda.synchronize()
+                    what = f"B1 {how} G={G} {name} offset {offset}"
+                    check(torch.equal(got_i, want_i), f"ints and count, {what}")
+                    check(torch.allclose(got_f, want_f, rtol=RTOL, atol=ATOL), f"floats, {what}")
+                    err = (got_f - want_f).abs().max().item() if got_f.numel() else 0.0
+                    worst = max(worst, err)
+                    print(f"{what} N={n}{' (planned)' if how == want else ''} vs plain: ints "
+                          f"exact, float max abs err {err!r}", flush=True)
+                ga.grid_additive(*args, count=True)
+                check(ga.grid_additive.last_route == want, f"B1's planned route at G={G}, {name}")
+    return worst
 
 
 def skewed_keys(kind, gen, n, G, drop_every=17):
@@ -333,6 +390,53 @@ def cluster_edges_vs_plain(gw, gen, n=1_000_003):
     return worst
 
 
+# (kind, G) where B5's parts change: a group of terms one bin past what
+# fits splits, one window one bin past a float plane of 227 KiB
+B5_EDGES = (("var", 11_622), ("var", 11_623), ("var", 29_056), ("var", 29_057),
+            ("corr", 5_282), ("corr", 5_283), ("corr", 9_686), ("corr", 19_370),
+            ("corr", 19_371), ("corr", 29_056), ("corr", 29_057), ("corr", 60_000))
+
+
+def window_edges_vs_plain(gm, agg, gen, n=1_000_003):
+    """B5 where its parts change (B5_EDGES), on columns that start at an odd
+    row of their storage; at q9's G = 10 609 on f32 and int64 bases, on one
+    key and on a Zipf(1.1) draw; the parts asserted.  Returns the worst
+    float error."""
+    worst = 0.0
+    cases = [(label, G, "uniform", 1, (torch.float64, torch.int64)) for label, G in B5_EDGES]
+    cases += [(label, 10_609, keys, 0, dtypes) for label in ("var", "corr")
+              for keys in ("single", "zipf")
+              for dtypes in ((torch.float64, torch.int64), (torch.float32, torch.float32))]
+    for label, G, keys, offset, dtypes in cases:
+        terms = agg.VAR_TERMS if label == "var" else agg.CORR_TERMS
+        if keys == "uniform":
+            idx = torch.randint(-2, G + G // 8 + 1, (n + offset,), generator=gen, device="cuda",
+                                dtype=torch.int32)[offset:]
+        else:
+            idx = skewed_keys(keys, gen, n, G)
+        bases = []
+        for j, dtype in enumerate(dtypes[:len(terms) // 3]):
+            if dtype == torch.int64:
+                b = torch.randint(-1000, 1000, (n + offset,), generator=gen, device="cuda")
+            else:
+                b = torch.randn(n + offset, generator=gen, device="cuda", dtype=dtype) * 100
+                b[j::97 - 8 * j] = float("nan")
+            bases.append(b[offset:])
+        got = gm.grid_moments_window(idx, bases, terms, G)
+        want = gm.grid_moments_window_reference(idx, bases, terms, G)
+        torch.cuda.synchronize()
+        W, n_win, bounds = gm.part_plan(G, len(terms))
+        what = (f"b5 {label} G={G} {keys} keys, bases {[str(b.dtype) for b in bases]}, offset "
+                f"{offset}, {n_win} windows of {W} bins x term groups {bounds}")
+        check(gm.grid_moments_window.last_parts == n_win * (len(bounds) - 1), f"parts, {what}")
+        check(torch.equal(got[0], want[0]), f"counts, {what}")
+        check(torch.allclose(got[1], want[1], rtol=RTOL, atol=ATOL), f"sums, {what}")
+        err = (got[1] - want[1]).abs().max().item()
+        worst = max(worst, err)
+        print(f"{what} N={n} vs plain: counts exact, f64 max abs err {err!r}", flush=True)
+    return worst
+
+
 def moment_kernels_vs_plain(plan, gm, agg):
     """Phase 5: B4 and B5 against their plain versions; returns the worst
     float error of each."""
@@ -341,7 +445,8 @@ def moment_kernels_vs_plain(plan, gm, agg):
     b4_limit = plan.b4_max_g(6)
     for label, terms in (("var", agg.VAR_TERMS), ("corr", agg.CORR_TERMS)):
         C = len(terms)
-        b5_limit = plan.B5_MAX_WINDOWS * gm.window_width(C)
+        b5_limit = max(G for G in range(b4_limit + 1, 400_000, 97)
+                       if gm.n_parts(G, C) <= plan.B5_MAX_PARTS)
         for G in (1, 103, b4_limit, b4_limit + 1, 10_609, b5_limit):
             name = plan.moment_strategy(max(KERNEL_SIZES), G, C)
             print(f"plan at G={G} ({label}, {C} terms): {name}", flush=True)
@@ -364,6 +469,7 @@ def moment_kernels_vs_plain(plan, gm, agg):
                 worst[name] = max(worst[name], err)
                 print(f"{what} vs plain: counts exact, f64 max abs err {err!r}", flush=True)
                 del idx, x, y, bases
+    worst[plan.B5] = max(worst[plan.B5], window_edges_vs_plain(gm, agg, gen))
     return worst
 
 
@@ -387,9 +493,11 @@ def plain_query(i1, x):
 
 def main_path(n, vt):
     """Phase 6 at one size: the query through the public API, checked."""
+    from vaex_tpu_torch.ops import grid_additive as ga
     df, i1, x = make_table(n, vt)
     out = run_query(df, vt)
     torch.cuda.synchronize()
+    routes = [(df.executor.trace_log[-1]["strategies"], ga.grid_additive.last_route)]
     want_c, want_s = plain_query(i1, x)
     got_c = torch.as_tensor(out["c"].tolist())
     got_s = torch.as_tensor(out["s"].tolist(), dtype=torch.float64)
@@ -401,6 +509,9 @@ def main_path(n, vt):
     total = float(df.sum("x"))
     check(abs(total - x.sum().item()) <= RTOL * abs(total), f"df.sum at N={n}")
     log = df.executor.trace_log[-1]
+    routes.append((log["strategies"], ga.grid_additive.last_route))
+    # the groupby (G = 103) and df.sum (G = 1) on B1's lane route
+    check(routes == [([{"additive": "b1"}], ga.LANE)] * 2, f"B1's routes at N={n}: {routes}")
     print(f"main path N={n}: counts exact, sums and df.sum within rtol {RTOL}; "
           f"last pass: {log['tiles']} tiles of {log['tile_rows']} rows on {log['device']}, "
           f"strategies {log['strategies']}", flush=True)
@@ -485,8 +596,32 @@ def timings(n, df, i1, x, vt, ga, label):
     bound_ms, bound_by = additive_bound(n, G, 0, 1)
     print(f"[{label}] N={n} G={G}: bincount + index_add_ (the library calls) {library_ms!r} "
           f"ms; bound {bound_ms!r} ms by {bound_by} at {PEAK_BYTES / 1e12} TB/s", flush=True)
+    # the same shape on B1's warp route, beside the planned lane route
+    planned = ga.route
+    ga.route = lambda *a: ga.WARP
+    try:
+        warp_ms = cuda_ms(lambda: ga.grid_additive(idx, [], [x], G, count=True), 10)
+    finally:
+        ga.route = planned
+    # the isin count's shape: G = 1, the count alone, the rows outside it at -1
+    g1 = (i1 < K // 2).to(torch.int32) - 1
+    g1_ms = cuda_ms(lambda: ga.grid_additive(g1, [], [], 1, count=True), 10)
+    check(ga.grid_additive.last_route == ga.LANE, "the isin count's shape on the lane route")
+    g1_plain_ms = cuda_ms(lambda: ga.grid_additive_reference(g1, [], [], 1, count=True), 10)
+    got1 = ga.grid_additive(g1, [], [], 1, count=True)[0]
+    want1 = ga.grid_additive_reference(g1, [], [], 1, count=True)[0]
+    check(torch.equal(got1, want1), f"the count at G = 1, N={n}")
+    g1_err = float((got1 - want1).abs().max())
+    g1_library_ms = cuda_ms(lambda: torch.count_nonzero(g1 + 1), 10)
+    g1_bound_ms, _ = additive_bound(n, 1, 0, 0)
+    print(f"[{label}] N={n} G={G}: B1 warp route {warp_ms!r} ms (planned {planned(G, 0, 1, True)} "
+          f"{kernel_ms!r}); the isin count's shape (G = 1, count alone): kernel {g1_ms!r} ms vs "
+          f"plain {g1_plain_ms!r} ms, count_nonzero {g1_library_ms!r} ms, bound {g1_bound_ms!r} "
+          f"ms", flush=True)
     return {"ms": kernel_ms, "plain_ms": plain_ms, "err": err, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms, "warp_ms": warp_ms, "g1_ms": g1_ms,
+            "g1_plain_ms": g1_plain_ms, "g1_bound_ms": g1_bound_ms,
+            "g1_library_ms": g1_library_ms, "g1_max_abs_err": g1_err}
 
 
 # ------------------------------------------------------- the H2O-shaped path
@@ -678,6 +813,13 @@ def stats_check(name, out, want):
         close(out, want, name)
 
 
+# the moment kernel of each statistic's last pass and, for B5, its parts
+# (q6-sd: var at G = 10 609, one part; q9: corr, one window of three term
+# groups)
+STATS_EXPECT = {"q6-sd": ("b5", 1), "q9": ("b5", 3), "q7": (None, None),
+                "df.std": ("b4", None), "std by id4": ("b4", None)}
+
+
 def stats_path(vt, plan, df, cols):
     """Phase 8: the statistics once, checked; returns the launches of each
     kernel during them."""
@@ -685,11 +827,19 @@ def stats_path(vt, plan, df, cols):
     kernels = {**plan.KERNELS, **plan.MOMENT_KERNELS}
     for kernel in kernels.values():
         kernel.launches = 0
+    window = plan.MOMENT_KERNELS[plan.B5]
     outs = {}
     for name, query in stats_queries(vt).items():
+        window.last_parts = None
         outs[name] = query(df)
-        print(f"stats {name} N={H2O_ROWS}: pass strategies "
-              f"{df.executor.trace_log[-1]['strategies']}", flush=True)
+        strategies = df.executor.trace_log[-1]["strategies"]
+        print(f"stats {name} N={H2O_ROWS}: pass strategies {strategies}, B5 parts "
+              f"{window.last_parts}", flush=True)
+        kernel, parts = STATS_EXPECT[name]
+        moments = [s.get("moments") for s in strategies]
+        check(moments == [kernel], f"{name}: moment kernels {moments}, expected {kernel}")
+        check(window.last_parts == parts, f"{name}: B5's parts {window.last_parts}, expected "
+                                          f"{parts}")
     torch.cuda.synchronize()
     launches = {name: kernel.launches for name, kernel in kernels.items()}
     for name, out in outs.items():
@@ -737,9 +887,13 @@ def stats_timings(df, cols, vt, plan, agg, gm, label):
                   12, "idx 4 + v3 8"),
         plan.B5: (((cols["id4"] + 1) * (H2O_K + 3) + cols["id5"] + 1).to(torch.int32), G2,
                   [cols["v1"], cols["v2"]], agg.CORR_TERMS, 20, "idx 4 + v1 8 + v2 8"),
+        # q6-sd's shape: var of v3 over the same grid, one window
+        "b5 var": (((cols["id4"] + 1) * (H2O_K + 3) + cols["id5"] + 1).to(torch.int32), G2,
+                   [cols["v3"]], agg.VAR_TERMS, 12, "idx 4 + v3 8"),
     }
     results = {}
-    for name, (idx, G, bases, terms, bytes_per_row, bytes_note) in shapes.items():
+    for label, (idx, G, bases, terms, bytes_per_row, bytes_note) in shapes.items():
+        name = label.split()[0]
         check(plan.moment_strategy(H2O_ROWS, G, len(terms)) == name, f"{name} at G={G}")
         args = (idx, bases, terms, G)
         kernel_ms = cuda_ms(lambda: plan.MOMENT_KERNELS[name](*args), 5)
@@ -750,10 +904,11 @@ def stats_timings(df, cols, vt, plan, agg, gm, label):
         check(torch.allclose(got[1], want[1], rtol=RTOL, atol=ATOL), f"{name} sums")
         err = (got[1] - want[1]).abs().max().item()
         floor_ms = H2O_ROWS * bytes_per_row / copy_bw * 1e3
-        print(f"[{label}] {name} N={H2O_ROWS} G={G} ({len(terms)} terms): kernel {kernel_ms!r} "
-              f"ms vs plain {plain_ms!r} ms; HBM floor at {bytes_per_row} B/row ({bytes_note}) "
-              f"{floor_ms!r} ms, kernel at {floor_ms / kernel_ms!r} of it; max abs err {err!r}",
-              flush=True)
+        form = f", {gm.grid_moments_window.last_parts} parts" if name == plan.B5 else ""
+        print(f"[{label}] {name} N={H2O_ROWS} G={G} ({len(terms)} terms{form}): kernel "
+              f"{kernel_ms!r} ms vs plain {plain_ms!r} ms; HBM floor at {bytes_per_row} B/row "
+              f"({bytes_note}) {floor_ms!r} ms, kernel at {floor_ms / kernel_ms!r} of it; max "
+              f"abs err {err!r}", flush=True)
         # in: idx and the base columns; out: one 8-byte row of G per term;
         # a multiply and an add per float term, an add per count term
         n_float = sum(a >= 0 for a, *_ in terms)
@@ -765,10 +920,15 @@ def stats_timings(df, cols, vt, plan, agg, gm, label):
               f"{PEAK_BYTES / 1e12} TB/s; formed terms + one index_add_ of the [N, "
               f"{len(terms)}] float64 matrix (the library call) {library_ms!r} ms, the "
               f"index_add_ alone {add_ms!r} ms", flush=True)
-        results[name] = {"ms": kernel_ms, "plain_ms": plain_ms, "err": err,
-                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-                         "library_add_ms": add_ms}
+        results[label] = {"ms": kernel_ms, "plain_ms": plain_ms, "err": err,
+                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                          "library_add_ms": add_ms}
         del idx
+    # one entry of the kernels line for B5: q9's shape, q6-sd's beside it
+    var = results.pop("b5 var")
+    results[plan.B5].update(var_ms=var["ms"], var_plain_ms=var["plain_ms"],
+                            var_bound_ms=var["bound_ms"], var_library_ms=var["library_ms"],
+                            var_max_abs_err=var["err"])
     return results
 
 
@@ -979,7 +1139,8 @@ def sets_queries(vt, values):
 # what each query's last pass must record: the probe route, and the kernel
 # of its additive aggregation (None: the last pass is a set build)
 SETS_EXPECT = {"isin count": ("b6", "b1"), "isin wide count": ("b6", "b1"),
-               "isin groupby": ("b6", "b1"), "raw id4": (None, "b1"), "raw id6": (None, "b3"),
+               "isin groupby": ("b6", "b2"), "raw id4": (None, "b2"),
+               "raw id6": (None, "b3"),
                "set k100": ("b6", "b1"), "set k2000": ("b6", "b2"),
                "set k1e6": ("b6-wide", "b3-l2"),
                "nunique id6": (None, None), "unique id4": (None, None)}

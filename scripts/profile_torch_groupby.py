@@ -57,9 +57,9 @@ def busy_us(intervals):
 
 
 # kernel names of csrc/*.cu
-GRID_KERNELS = ("grid_partials", "window_cluster", "partition_count", "partition_scatter",
-                "partition_sums", "resident_add", "fold_partials", "moment_partials",
-                "moment_window_partials", "probe_tree", "partition_extremes",
+GRID_KERNELS = ("grid_partials", "lane_partials", "window_cluster", "partition_count",
+                "partition_scatter", "partition_sums", "resident_add", "fold_partials",
+                "moment_partials", "moment_window_walk", "probe_tree", "partition_extremes",
                 "fold_extremes")
 
 

@@ -5,6 +5,7 @@ the cut-offs of vaex_tpu_torch/ops/grid_plan.py.
     python3 scripts/sweep_grid_kernels.py [N]              (default N = 1e8)
     python3 scripts/sweep_grid_kernels.py [N] --moments
     python3 scripts/sweep_grid_kernels.py [N] --extremes
+    python3 scripts/sweep_grid_kernels.py [N] --b1
     python3 scripts/sweep_grid_kernels.py [N] --b2
 
     python3 scripts/sweep_grid_kernels.py ... --baseline DIR
@@ -21,7 +22,8 @@ partition's phases at three G; then the partition's phases at other launch
 constants and both routes on the skewed keys at G = 1 000 003.  Prints one line per (C, G) and exits non-zero on a
 mismatch.  ``--baseline DIR`` times beside them the B2, B3 and B3x of
 another checkout of this repository unpacked under DIR (its own build
-directory), in the same process, in turns.
+directory), in the same process, in turns; with ``--b1`` and ``--moments``
+its B1 and B4/B5 too.
 
 ``--b2`` sweeps B2's cluster kernel, the source of ``B2_MAX_WINDOWS``: it
 prints the atomic instructions of B2's SASS (``cuobjdump -sass``; of the
@@ -35,14 +37,33 @@ the clusters the occupancy query allows; and at the query shapes (q2: count
 grouper of 2000 keys; the 99.7% histogram) B2 and the baseline's B2 in
 turns, on small and on large int64 values.
 
+``--b1`` sweeps B1's two routes, the source of ``LANE_MIN_WARPS``,
+``B1_MAX_G`` and the plan's B2 past the lane route: it prints the atomics
+of B1's SASS, checks both routes against the plain version at
+N = 1_000_003 (G = 1, 103, 128, 512; the count alone, + f64, + int64 +
+f64, + two int64 + f64; an f32 column beside;
+columns starting at row 0 and at an odd row; floats bit-equal run to run),
+then times the lane route, the warp route, the baseline's B1 and B2, in
+turns, at G = 1 .. 256 for C = 1 to 4 and 6, the warp route against B2 at
+the narrowest grids of the warp route for C = 6 to 32, and B1 against the
+baseline at the shapes of the main path, the isin count, df.sum and
+chip_smoke.py's phase 3.
+
 ``--moments`` sweeps the moment kernels instead, the source of
-``moment_strategy``'s cut-offs: it checks B4 and B5 against their plain
-versions at N = 1_000_003 (counts exact, floats to rtol 1e-9; it stops
-there on a mismatch), then times B4 (where its grid fits), B5 (up to 64
-windows), both routes of B3 over the formed term columns and, at a few G,
-the plain version, for C = 3 (var of an f64 column: x, x*x, count) and C = 6 (corr of
-two int64 columns, as H2O's q9: x*y, x, y, x*x, y*y, count), with a NaN
-in every 97th f64 value.
+``moment_strategy``'s cut-offs: it prints the atomics of B4's and B5's SASS
+(and the baseline's), checks B4 and B5 against their plain versions at
+N = 1_000_003 (counts exact, floats to rtol 1e-9; it stops there on a
+mismatch), breaks B5 down at G = 10 609 and 3000 (the walk with a count,
+then the base loads and the terms added one at a time through the
+run-time tables, then var's and corr's terms through the tables beside
+their compiled sets) and, with ``--baseline``, times B5 against the
+baseline's at q6-sd's and q9's shapes in turns; then times B4 (where
+its grid fits), B5 (up to 64 parts) and the baseline's B5, both routes of
+B3 over the formed term columns and, at a few G, the plain version, for
+C = 3 (var of an f64 column: x, x*x, count) and C = 6 (corr of two int64
+columns, as H2O's q9: x*y, x, y, x*x, y*y, count), with a NaN in every
+97th f64 value; and B5 against the baseline at G = 10 609 on sorted keys,
+one key and a Zipf(1.1) draw.
 
 ``--extremes`` sweeps the min/max kernel B3x, the source of
 ``extreme_strategy``'s routes: it checks B3x against its plain version
@@ -108,13 +129,38 @@ def moment_inputs(n, C, gen):
     return v, agg.CORR_TERMS
 
 
-def sweep_moments(n, gen):
+# B5's breakdown at q6-sd / q9's G: terms added one at a time through the
+# run-time tables (SET_ANY in csrc/moments_common.cuh), then var's and corr's
+# terms through the tables beside their compiled sets.  There the count needs
+# fewer bases than the compiled set's (var: every row; corr: x alone, and its
+# int64 bases cannot be NaN), which keeps the batch off the compiled set with
+# the same loads and, for corr, the same sums
+B5_STEPS = (("walk + count", 0, [(-1, -1, -1, -1)]),
+            ("+ x loads (the count needs x)", 1, [(-1, -1, 0, -1)]),
+            ("+ x", 1, [(-1, -1, 0, -1), (0, -1, -1, -1)]),
+            ("+ x*x, a count of every row (var's terms from the tables)", 1,
+             [(-1, -1, -1, -1), (0, -1, -1, -1), (0, 0, -1, -1)]),
+            ("var, compiled", 1, None),
+            ("corr's count (x and y int64: nothing to load)", 2, [(-1, -1, 0, 1)]),
+            ("+ x*y, x, y", 2, [(-1, -1, 0, 1), (0, 1, 0, 1), (0, -1, 0, 1), (1, -1, 0, 1)]),
+            ("+ x*x, y*y, the count needing x alone (corr's terms from the tables)", 2,
+             [(-1, -1, 0, -1), (0, 1, 0, 1), (0, -1, 0, 1), (1, -1, 0, 1), (0, 0, 0, 1),
+              (1, 1, 0, 1)]),
+            ("corr, compiled", 2, None))
+
+
+def sweep_moments(n, gen, old):
+    from vaex_tpu_torch import agg
     from vaex_tpu_torch.ops import grid_moments as gm
     from vaex_tpu_torch.ops import grid_partition as gp
-    from vaex_tpu_torch.ops import grid_window as gw
+    from vaex_tpu_torch.ops import kernel_build
+    for name in ("grid_moments", "grid_moments_window"):
+        print_sass(name, kernel_build.build(name)[name][0], ("ATOM", "RED"))
+        if old is not None:
+            print_sass(f"{name} baseline", old.kernel_build.build(name)[name][0], ("ATOM", "RED"))
     for C in (3, 6):
-        for G in (103, 3968, 10609, 100003):
-            idx = torch.randint(0, G + G // 8 + 1, (1_000_003,), generator=gen, device="cuda",
+        for G in (103, 3968, 10609, 11623, 29057, 100003):
+            idx = torch.randint(-1, G + G // 8 + 1, (1_000_003,), generator=gen, device="cuda",
                                 dtype=torch.int32)
             bases, terms = moment_inputs(1_000_003, C, gen)
             want = gm.grid_moments_reference(idx, bases, terms, G)
@@ -128,6 +174,32 @@ def sweep_moments(n, gen):
                       flush=True)
                 if not ok:
                     return 1
+    x = torch.randn(n, generator=gen, device="cuda", dtype=torch.float64) * 100
+    x[::97] = float("nan")
+    v = [torch.randint(1, 6, (n,), generator=gen, device="cuda") for _ in range(2)]
+    for G in (10609, 3000):
+        idx = torch.randint(0, G, (n,), generator=gen, device="cuda", dtype=torch.int32)
+        for label, nb, terms in B5_STEPS:
+            bases = [x] if nb == 1 else v[:nb]
+            if terms is None:
+                terms = agg.VAR_TERMS if nb == 1 else agg.CORR_TERMS
+            parts = gm.n_parts(G, len(terms), sum(t[0] < 0 for t in terms))
+            ms = cuda_ms(lambda: gm.grid_moments_window(idx, bases, terms, G))
+            print(f"b5 breakdown G={G} N={n} {label} (parts {parts}): {ms:.3f} ms", flush=True)
+        del idx
+    if old is not None:  # q6-sd's and q9's shapes, in turns
+        idx = torch.randint(0, 10609, (n,), generator=gen, device="cuda", dtype=torch.int32)
+        for C in (3, 6):
+            bases, terms = moment_inputs(n, C, gen)
+            row = {}
+            for turn in range(3):
+                row[f"b5.{turn}"] = cuda_ms(
+                    lambda: gm.grid_moments_window(idx, bases, terms, 10609), 5)
+                row[f"baseline.{turn}"] = cuda_ms(
+                    lambda: old.grid_moments.grid_moments_window(idx, bases, terms, 10609), 5)
+            print(f"b5 against the baseline C={C} G=10609 N={n}: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
+        del idx
     for C in (3, 6):
         bases, terms = moment_inputs(n, C, gen)
         for G in MOMENT_GS:
@@ -135,8 +207,11 @@ def sweep_moments(n, gen):
             row = {}
             if gm.fits(G, C):
                 row["b4"] = cuda_ms(lambda: gm.grid_moments(idx, bases, terms, G))
-            if gm.n_windows(G, C) <= 64:
+            if gm.n_parts(G, C) <= 64:
                 row["b5"] = cuda_ms(lambda: gm.grid_moments_window(idx, bases, terms, G))
+                if old is not None and baseline_parts(old, G, C) <= 64:
+                    row["b5 baseline"] = cuda_ms(
+                        lambda: old.grid_moments.grid_moments_window(idx, bases, terms, G))
 
             def b3():
                 counts, floats = gm.form_terms(idx, bases, terms)
@@ -150,10 +225,30 @@ def sweep_moments(n, gen):
                 row["b3-l2"] = cuda_ms(b3_l2)
             if G in (1, 103, 10609, 1000003):
                 row["plain"] = cuda_ms(lambda: gm.grid_moments_reference(idx, bases, terms, G), 1)
-            print(f"moments C={C} G={G} N={n} windows={gm.n_windows(G, C)}: "
+            print(f"moments C={C} G={G} N={n} parts={gm.n_parts(G, C)}: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
+            del idx
+    # skewed keys at q9's G
+    G = 10609
+    for C in (3, 6):
+        bases, terms = moment_inputs(n, C, gen)
+        for kind in SKEWS:
+            idx = keys(kind, n, G, gen)
+            row = {"b5": cuda_ms(lambda: gm.grid_moments_window(idx, bases, terms, G), 1)}
+            if old is not None:
+                row["baseline"] = cuda_ms(
+                    lambda: old.grid_moments.grid_moments_window(idx, bases, terms, G), 1)
+            print(f"moments C={C} G={G} N={n} {kind} keys: "
                   + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
             del idx
     return 0
+
+
+def baseline_parts(old, G, C):
+    """The CTAs a row is walked by in the baseline's B5: its parts, or its
+    windows where it cuts windows only."""
+    gm = old.grid_moments
+    return gm.n_parts(G, C) if hasattr(gm, "n_parts") else gm.n_windows(G, C)
 
 
 EXTREME_GS = (1, 8, 103, 1024, 4096, 10609, 24576, 32768, 67081, 262144, 1000003, 1054729)
@@ -300,9 +395,12 @@ def sass_ops(path, prefixes):
 
 
 def print_sass(label, path, prefixes):
-    for kernel, ops in sass_ops(path, prefixes).items():
+    found = sass_ops(path, prefixes)
+    for kernel, ops in found.items():
         print(f"sass {label} {kernel}: " + ", ".join(f"{op} x{c}" for op, c in sorted(ops.items())),
               flush=True)
+    if not found:
+        print(f"sass {label}: no instruction starting with {', '.join(prefixes)}", flush=True)
 
 
 # the shapes the query paths send to B2, and G = 32 768 at C = 3
@@ -392,14 +490,125 @@ def sweep_b2(n, gen, old):
     return 0
 
 
+# B1's shapes: (G, int64 columns, f64 columns, what); the count is always on
+B1_SHAPES = ((103, 0, 1, "main path: count + f64"), (1, 0, 0, "the isin count"),
+             (1, 0, 1, "df.sum: count + f64"), (103, 1, 1, "phase 3: count + int64 + f64"),
+             (1, 1, 1, "phase 3 at G = 1"), (512, 1, 1, "phase 3 at G = 512"),
+             (8064, 1, 1, "phase 3 at the widest G"), (103, 0, 0, "count by id4"),
+             (103, 1, 0, "count + int64"))
+B1_GS = (1, 8, 32, 64, 72, 96, 103, 128)
+# (int64 columns beside the count and one f64, G): the narrowest grids on
+# which B1 takes its warp route, and a few bins past them: the plan gives
+# such grids to B2
+B1_WARP_EDGES = ((4, 42), (4, 48), (7, 27), (7, 32), (11, 19), (11, 24), (15, 14), (15, 16),
+                 (30, 8), (30, 16))
+
+
+def sweep_b1(n, gen, old):
+    """``--b1``: B1's two routes against the baseline's B1 and against B2,
+    the source of ``LANE_MIN_WARPS`` and ``B1_MAX_G``."""
+    from vaex_tpu_torch.ops import grid_additive as ga
+    from vaex_tpu_torch.ops import grid_window as gw
+    from vaex_tpu_torch.ops import kernel_build
+    print_sass("b1", kernel_build.build("grid_additive")["grid_additive"][0], ("ATOM", "RED"))
+    m = 1_000_003
+    planned = ga.route
+    bad = 0
+    for G in (1, 103, 128, 512):
+        for n_int, n_float in ((0, 0), (0, 1), (1, 1), (2, 1)):
+            for how in (ga.LANE, ga.WARP):
+                if how == ga.LANE and lane_too_wide(ga, G, n_int, n_float):
+                    continue
+                for off in (0, 1):  # a call whose first row is at an odd offset
+                    idx = torch.randint(-2, G + G // 8 + 1, (m + 1,), generator=gen,
+                                        device="cuda", dtype=torch.int32)[off:]
+                    ints = [torch.randint(-(2 ** 63), 2 ** 63 - 1, (m + 1,), generator=gen,
+                                          device="cuda")[off:] for _ in range(n_int)]
+                    floats = [torch.randn(m + 1, generator=gen, device="cuda",
+                                          dtype=torch.float64 if k == 0 else torch.float32)[off:]
+                              for k in range(n_float)]
+                    for f in floats:
+                        f[::13] = float("nan")
+                    ga.route = lambda *a, how=how: how
+                    got = ga.grid_additive(idx, ints, floats, G, True)
+                    again = ga.grid_additive(idx, ints, floats, G, True)
+                    ga.route = planned
+                    want = ga.grid_additive_reference(idx, ints, floats, G, True)
+                    ok = close(got, want) and torch.equal(got[1], again[1])
+                    bad += not ok
+                    print(f"check b1 {how} G={G} ints={n_int} floats={n_float} offset={off}: "
+                          f"{'ok, floats bit-equal run to run' if ok else 'MISMATCH'}", flush=True)
+    if bad:
+        return 1
+    x = torch.rand(n, generator=gen, device="cuda", dtype=torch.float64) * 100
+    v = torch.randint(1, 6, (n,), generator=gen, device="cuda")
+    for G in B1_GS + (256,):
+        idx = torch.randint(0, G, (n,), generator=gen, device="cuda", dtype=torch.int32)
+        for n_int, n_float in ((0, 0), (0, 1), (1, 1), (2, 1), (4, 1)):
+            ints, floats = [v] * n_int, [x] * n_float
+            row = {}
+            for turn in range(2):
+                for how in (ga.LANE, ga.WARP):
+                    if how == ga.LANE and lane_too_wide(ga, G, n_int, n_float):
+                        continue
+                    if how == ga.WARP and not ga.fits(G, n_int, n_float, True):
+                        continue
+                    ga.route = lambda *a, how=how: how
+                    row[f"{how}.{turn}"] = cuda_ms(
+                        lambda: ga.grid_additive(idx, ints, floats, G, True))
+                    ga.route = planned
+                if old is not None and ga.fits(G, n_int, n_float, True):
+                    row[f"baseline.{turn}"] = cuda_ms(
+                        lambda: old.grid_additive(idx, ints, floats, G, True))
+            row["b2"] = cuda_ms(lambda: gw.grid_window(idx, ints, floats, G, True))
+            C = 1 + n_int + n_float
+            print(f"b1 G={G} C={C} (count + {n_int} int64 + {n_float} f64) N={n} planned "
+                  f"{planned(G, n_int, n_float, True)} lane warps "
+                  f"{ga.CLUSTER_SMEM // ga.lane_warp_bytes(G, n_int, n_float, True)}: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
+        del idx
+    for n_int, G in B1_WARP_EDGES:
+        idx = torch.randint(0, G, (n,), generator=gen, device="cuda", dtype=torch.int32)
+        ints, floats = [v] * n_int, [x]
+        row = {}
+        for turn in range(2):
+            row[f"warp.{turn}"] = cuda_ms(lambda: ga.grid_additive(idx, ints, floats, G, True))
+            row[f"b2.{turn}"] = cuda_ms(lambda: gw.grid_window(idx, ints, floats, G, True))
+        print(f"b1 warp edge G={G} C={n_int + 2} (count + {n_int} int64 + 1 f64) N={n} planned "
+              f"{planned(G, n_int, 1, True)}: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
+        del idx
+    for G, n_int, n_float, what in B1_SHAPES:
+        idx = torch.randint(0, G + 3, (n,), generator=gen, device="cuda", dtype=torch.int32)
+        ints, floats = [v] * n_int, [x] * n_float
+        row = {}
+        for turn in range(2):
+            row[f"b1.{turn}"] = cuda_ms(lambda: ga.grid_additive(idx, ints, floats, G, True))
+            if old is not None:
+                row[f"baseline.{turn}"] = cuda_ms(
+                    lambda: old.grid_additive(idx, ints, floats, G, True))
+        print(f"b1 shape G={G} ({what}) N={n} route {planned(G, n_int, n_float, True)}: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
+        del idx
+    return 0
+
+
+def lane_too_wide(ga, G, n_int, n_float):
+    """True where no warp of lane grids fits one CTA."""
+    return ga.lane_warp_bytes(G, n_int, n_float, True) > ga.CLUSTER_SMEM
+
+
 def load_baseline(path):
     """The kernel modules of another checkout of this repository
     (``--baseline DIR``), loaded beside this one to time the two in turns:
-    its ``grid_partition`` (with ``grid_window``, ``probe`` and
-    ``kernel_build`` as attributes)."""
+    its ``grid_partition`` (with ``grid_window``, ``grid_additive``, the
+    module ``grid_moments``, ``probe`` and ``kernel_build`` as
+    attributes)."""
     own = {k: sys.modules.pop(k) for k in list(sys.modules) if k.startswith("vaex_tpu_torch")}
     sys.path.insert(0, path)
     try:
+        import vaex_tpu_torch.ops.grid_additive as old_additive
+        import vaex_tpu_torch.ops.grid_moments as old_moments
         import vaex_tpu_torch.ops.grid_partition as old
         import vaex_tpu_torch.ops.grid_window as old_window
         import vaex_tpu_torch.ops.kernel_build as old_build
@@ -411,6 +620,7 @@ def load_baseline(path):
         sys.modules.update(own)
     old.grid_window, old.probe, old.kernel_build = (old_window.grid_window, old_probe,
                                                     old_build)
+    old.grid_additive, old.grid_moments = old_additive.grid_additive, old_moments
     return old
 
 
@@ -436,8 +646,9 @@ def main():
     from vaex_tpu_torch.ops import kernel_build
     moments = "--moments" in sys.argv
     extremes = "--extremes" in sys.argv
+    b1 = "--b1" in sys.argv
     b2 = "--b2" in sys.argv
-    args = [a for a in sys.argv[1:] if a not in ("--moments", "--extremes", "--b2")]
+    args = [a for a in sys.argv[1:] if a not in ("--moments", "--extremes", "--b1", "--b2")]
     old = None
     if "--baseline" in args:
         at = args.index("--baseline")
@@ -447,6 +658,7 @@ def main():
                          capture_output=True, text=True).stdout.strip())
     sources = (("grid_moments", "grid_moments_window", "grid_partition") if moments else
                ("grid_partition",) if extremes else
+               ("grid_additive", "grid_window") if b1 else
                ("grid_window", "grid_partition") if b2 else
                ("grid_additive", "grid_window", "grid_partition"))
     for name, (path, seconds, log) in kernel_build.build(*sources).items():
@@ -457,9 +669,11 @@ def main():
     n = int(float(args[0])) if args else 100_000_000
     gen = torch.Generator(device="cuda").manual_seed(42)
     if moments:
-        return sweep_moments(n, gen)
+        return sweep_moments(n, gen, old)
     if extremes:
         return sweep_extremes(n, gen, old)
+    if b1:
+        return sweep_b1(n, gen, old)
     if b2:
         return sweep_b2(n, gen, old)
     bad = 0

@@ -727,3 +727,146 @@ def test_first_on_the_card_keeps_int64_orders(cuda):
         df = df.categorize("k", labels=list(range(5)))
         npt.assert_array_equal(df.first("v", "o", binby="k"), [2.0, 4.0, 5.0, 7.0, 0.0])
         assert df.executor.trace_log[-1]["strategies"] == [{"first": "b3x-direct"}]
+
+
+# (kind, G) where B5's parts change: a group of terms one bin past what
+# fits splits, one window one bin past a float plane of 227 KiB
+B5_EDGES = [("var", 11_622), ("var", 11_623), ("var", 29_056), ("var", 29_057),
+            ("corr", 5_282), ("corr", 5_283), ("corr", 9_686), ("corr", 19_370),
+            ("corr", 19_371), ("corr", 29_056), ("corr", 29_057), ("corr", 60_000)]
+
+
+def _b5_bases(kind, n, device, seed, dtypes=(torch.float64, torch.int64)):
+    """var of one base or corr of two, of the given dtypes, with NaN in
+    every float base."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    bases = []
+    for j, dtype in enumerate(dtypes[:1] if kind == "var" else dtypes):
+        if dtype == torch.int64:
+            bases.append(torch.randint(-1000, 1000, (n,), generator=g, device=device))
+        else:
+            b = torch.randn(n, generator=g, device=device, dtype=dtype) * 100
+            b[j::13 + j] = float("nan")
+            bases.append(b)
+    return bases, agg.VAR_TERMS if kind == "var" else agg.CORR_TERMS
+
+
+def _same_moments(got, want):
+    torch.cuda.synchronize()
+    npt.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+    npt.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(), rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("kind,G", B5_EDGES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_window_kernel_at_its_edges(cuda, kind, G, offset):
+    """B5 against its plain version where its parts change, on columns that
+    start at row 0 or at an odd row of their storage (a slice)."""
+    n = 300_007
+    g = torch.Generator(device=cuda).manual_seed(G)
+    idx = torch.randint(-2, G + G // 8 + 1, (n + offset,), generator=g, device=cuda,
+                        dtype=torch.int32)[offset:]
+    W = gm.part_plan(G, 3 if kind == "var" else 6)[0]
+    idx[:4] = torch.tensor([0, G - 1, min(W, G - 1), W - 1], dtype=torch.int32)
+    bases, terms = _b5_bases(kind, n + offset, cuda, G)
+    bases = [b[offset:] for b in bases]
+    before = gm.grid_moments_window.launches
+    got = gm.grid_moments_window(idx, bases, terms, G)
+    assert gm.grid_moments_window.launches == before + 1
+    assert gm.grid_moments_window.last_parts == gm.n_parts(G, len(terms))
+    _same_moments(got, gm.grid_moments_window_reference(idx, bases, terms, G))
+
+
+@pytest.mark.parametrize("kind", ["var", "corr"])
+@pytest.mark.parametrize("keys", ["single", "zipf"])
+@pytest.mark.parametrize("G", [10_609, 31_063])
+def test_window_kernel_on_skewed_keys(cuda, kind, keys, G):
+    """One key and a Zipf(1.1) draw: the lanes that share a bin are combined
+    before the atomics, in one window and over a cluster of windows."""
+    idx = _skewed(keys, 1_000_003, G, cuda, seed=4)
+    bases, terms = _b5_bases(kind, 1_000_003, cuda, 4)
+    got = gm.grid_moments_window(idx, bases, terms, G)
+    _same_moments(got, gm.grid_moments_window_reference(idx, bases, terms, G))
+
+
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.int64), (torch.int64, torch.float32),
+                                    (torch.float32, torch.float32)])
+@pytest.mark.parametrize("G", [10_609, 20_011])
+def test_window_kernel_widens_f32_and_int64_bases(cuda, dtypes, G):
+    """f32 and int64 bases are read as float64; NaN in each base drops the
+    row from every corr term."""
+    idx = torch.randint(0, G, (500_003,), device=cuda, dtype=torch.int32)
+    for kind in ("var", "corr"):
+        bases, terms = _b5_bases(kind, 500_003, cuda, 5, dtypes)
+        got = gm.grid_moments_window(idx, bases, terms, G)
+        _same_moments(got, gm.grid_moments_window_reference(idx, bases, terms, G))
+
+
+def test_window_kernel_takes_any_term_batch(cuda):
+    """A batch that is no compiled set (covar's terms, and var's with a
+    count that needs no base) reads the run-time tables, in one part and in
+    several."""
+    for G in (10_609, 40_009):
+        idx = torch.randint(-1, G, (400_009,), device=cuda, dtype=torch.int32)
+        bases, _ = _b5_bases("corr", 400_009, cuda, 6)
+        for terms in (agg.COVAR_TERMS, [(0, -1, -1, -1), (0, 0, -1, -1), (-1, -1, -1, -1)]):
+            got = gm.grid_moments_window(idx, bases, terms, G)
+            _same_moments(got, gm.grid_moments_window_reference(idx, bases, terms, G))
+
+
+def _b1_edges():
+    """(G, int columns, float columns) at the edges of B1's routes: G = 1
+    (sums in registers), 2, the narrowest and widest grids of the lane
+    route by its columns, and B1's last bin."""
+    return [(1, 0, 0), (1, 0, 1), (2, 0, 1), (103, 0, 1), (103, 1, 1), (128, 0, 1),
+            (128, 1, 1), (1, 2, 1), (103, 2, 1), (128, 0, 0)]
+
+
+@pytest.mark.parametrize("G,n_int,n_float", _b1_edges())
+@pytest.mark.parametrize("offset", [0, 1])
+def test_b1_routes_match_plain(cuda, G, n_int, n_float, offset):
+    """Both routes of B1 at their edges against the plain version: int64
+    sums wrap, f32 columns widen, NaN adds nothing, rows outside [0, G)
+    drop, columns may start at an odd row; floats bit-equal run to run."""
+    n = 500_003
+    g = torch.Generator(device=cuda).manual_seed(G + n_int)
+    idx = torch.randint(-2, G + 2, (n + 1,), generator=g, device=cuda,
+                        dtype=torch.int32)[offset:offset + n]
+    ints = [torch.randint(-(2 ** 63), 2 ** 63 - 1, (n + 1,), generator=g,
+                          device=cuda)[offset:offset + n] for _ in range(n_int)]
+    floats = []
+    for k in range(n_float):
+        f = torch.randn(n + 1, generator=g, device=cuda,
+                        dtype=(torch.float64, torch.float32)[(k + offset) % 2]) * 100
+        f[::11] = float("nan")
+        floats.append(f[offset:offset + n])
+    for route in (ga.LANE, ga.WARP):
+        if route == ga.LANE and ga.lane_warp_bytes(G, n_int, n_float, True) > ga.CLUSTER_SMEM:
+            continue
+        planned = ga.route
+        ga.route = lambda *a: route
+        try:
+            got = ga.grid_additive(idx, ints, floats, G, count=True)
+            again = ga.grid_additive(idx, ints, floats, G, count=True)
+        finally:
+            ga.route = planned
+        want = ga.grid_additive_reference(idx, ints, floats, G, count=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[0], again[0])
+        assert torch.equal(got[1], again[1])
+        npt.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(), rtol=1e-9, atol=1e-9)
+
+
+def test_b1_plan_names_its_route_on_the_card(cuda):
+    """The main path (count + f64 at G = 103) and the isin count (G = 1)
+    take the lane route; the trace names it."""
+    rng = np.random.default_rng(8)
+    keys = rng.integers(0, 100, 300_000)
+    x = rng.normal(0, 1, 300_000)
+    df = vaex_tpu_torch.from_arrays(k=keys, x=x).to_device(cuda)
+    df = df.categorize("k", labels=list(range(100)))
+    df.groupby("k", agg={"s": vaex_tpu_torch.agg.sum("x"), "c": "count"})
+    assert df.executor.trace_log[-1]["strategies"] == [{"additive": "b1"}]
+    assert ga.grid_additive.last_route == ga.LANE
+    assert df.count(selection=df.k.isin([3, 5, 7])) == int(np.isin(keys, [3, 5, 7]).sum())
+    assert ga.grid_additive.last_route == ga.LANE

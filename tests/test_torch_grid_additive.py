@@ -69,7 +69,7 @@ def _pallas_sums(idx, ints, floats, G):
     return count, total, np.asarray(float_sums)[0]
 
 
-@pytest.mark.parametrize("G", [1, 103, 512])
+@pytest.mark.parametrize("G", [1, 103, 128, 512])
 @pytest.mark.parametrize("n", [0, 1, 2 * BLOCK + 17, 20_000])
 def test_reference_matches_pallas_kernel(interpret_pallas, G, n):
     idx, ints, floats = _inputs(G * 7 + n, n, G)
@@ -152,3 +152,36 @@ def test_fits_bounds():
     assert not ga.fits(G_max + 1, 1, 1, True)
     assert not ga.fits(10, ga.MAX_COLS, 1, False)
     assert not ga.fits(10, 0, 0, False)
+
+
+@pytest.mark.parametrize("G", [1, 2, 103, 128])
+@pytest.mark.parametrize("n_int,n_float", [(0, 0), (0, 1), (1, 1), (2, 1)])
+def test_lane_plan_fits_its_shared_memory(G, n_int, n_float):
+    """The lane route's CTAs: as many warps as their lane grids (a 32-bit
+    count and an 8-byte word per column for each lane and bin) fit in
+    227 KiB, at most ``MAX_WARPS``; the route while a CTA keeps
+    ``LANE_MIN_WARPS`` warps; one CTA for a small call, the card's resident
+    CTAs for 4e8 rows."""
+    wb = ga.lane_warp_bytes(G, n_int, n_float, True)
+    assert wb == 32 * G * (4 + 8 * (n_int + n_float))
+    lane = ga.LANE_MIN_WARPS * wb <= ga.CLUSTER_SMEM
+    assert ga.route(G, n_int, n_float, True) == (ga.LANE if lane else ga.WARP)
+    n_ctas, warps = ga.lane_plan(4 * 10 ** 8, G, n_int, n_float, True, sm_count=132)
+    assert 1 <= warps <= ga.MAX_WARPS and warps * wb <= ga.CLUSTER_SMEM
+    assert warps == ga.MAX_WARPS or (warps + 1) * wb > ga.CLUSTER_SMEM
+    per_sm = min(ga.SM_THREADS // (warps * 32), ga.SM_SMEM // (warps * wb))
+    assert n_ctas == 132 * per_sm
+    assert ga.lane_plan(1, G, n_int, n_float, True, sm_count=132) == (1, warps)
+
+
+def test_main_path_and_isin_count_take_the_lane_route():
+    """count + f64 at G = 103 (the main path: five warps of 39.5 KB), the
+    count alone at G = 1 (the isin count) and count + int64 + f64 at G = 1
+    take the lane route; count + int64 + f64 at G = 103 leaves a CTA three
+    warps of lane grids and takes the warp route."""
+    assert ga.route(103, 0, 1, True) == ga.LANE
+    assert ga.lane_plan(10 ** 8, 103, 0, 1, True, sm_count=132) == (132, 5)
+    assert ga.route(1, 0, 0, True) == ga.LANE
+    assert ga.route(1, 1, 1, True) == ga.LANE
+    assert ga.route(103, 1, 1, True) == ga.WARP
+    assert ga.route(64, 2, 1, True) == ga.LANE  # four warps

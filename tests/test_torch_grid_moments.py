@@ -31,6 +31,7 @@ from jax.experimental import pallas as pl
 from vaex_tpu.ops import pallas_gridagg
 from vaex_tpu_torch import agg
 from vaex_tpu_torch.ops import grid_moments as gm
+from vaex_tpu_torch.ops import grid_additive as ga
 from vaex_tpu_torch.ops import grid_partition as gp
 from vaex_tpu_torch.ops import grid_plan, kernel_build
 from vaex_tpu_torch.ops import grid_window as gw
@@ -138,29 +139,83 @@ def test_reference_matches_numpy(plain, G):
 
 
 def test_window_reference_cuts_the_kernels_windows():
-    """B5's plain version adds window by window: at C = 6 a window holds
-    4096 bins, so G = 10 609 takes three, the last one narrower."""
-    assert gm.window_width(6) == 4096 and gm.n_windows(10_609, 6) == 3
-    idx, x, y = _inputs(5, 30_000, 10_609)
+    """B5's plain version adds window by window.  A part is one CTA's
+    227 KiB: a float term's plane of 29 056 bins fits, so G = 10 609 is one
+    window; corr's bins take 44 bytes (a 32-bit count and five doubles), so
+    its window is three groups of two terms, var's (20 bytes) one part; past
+    29 056 bins the grid takes two windows, the last one narrower."""
+    assert gm.window_width(6) == 29_056 and gm.window_width(1) == 58_112  # counts alone
+    assert gm.part_plan(10_609, 6) == (10_610, 1, [0, 2, 4, 6])  # q9
+    assert gm.part_plan(10_609, 3) == (10_610, 1, [0, 3])  # q6-sd: one walk
+    assert gm.part_plan(60_000, 6)[:2] == (20_000, 3)
+    idx, x, y = _inputs(5, 30_000, 60_000)
     bases = _bases("corr", x, y)
-    args = (torch.from_numpy(idx), bases, agg.CORR_TERMS, 10_609)
+    args = (torch.from_numpy(idx), bases, agg.CORR_TERMS, 60_000)
     for got, want in zip(gm.grid_moments_window_reference(*args),
                          gm.grid_moments_reference(*args)):
         npt.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=1e-9)
 
 
+# (kind, G, parts) where B5's parts change: a group of terms one bin past
+# what fits splits, one window one bin past a float plane of 227 KiB
+PART_EDGES = [("var", 11_622, 1), ("var", 11_623, 2), ("var", 29_056, 3), ("var", 29_057, 4),
+              ("corr", 5_282, 1), ("corr", 5_283, 2), ("corr", 8_302, 2), ("corr", 9_686, 3),
+              ("corr", 19_370, 5), ("corr", 19_371, 6), ("corr", 29_056, 6),
+              ("corr", 29_057, 10)]
+
+
+@pytest.mark.parametrize("kind,G,parts", PART_EDGES)
+def test_window_edges_match_pallas_kernel(interpret_pallas, kind, G, parts):
+    """The plain B5 against ``_agg2_kernel`` in interpret mode where its
+    parts change (one window or group exactly full, one bin past it), and
+    the part plan there: every group's planes fit 227 KiB, the windows are
+    the fewest of equal even width that hold a float plane."""
+    C = len(TERMS[kind])
+    W, n_win, bounds = gm.part_plan(G, C)
+    assert gm.n_parts(G, C) == parts == n_win * (len(bounds) - 1)
+    assert W % 2 == 0 and (n_win - 1) * W < G <= n_win * W
+    assert n_win == -(-G // gm.window_width(C))
+    assert bounds[0] == 0 and bounds[-1] == C and all(a < b for a, b in zip(bounds, bounds[1:]))
+    for lo, hi in zip(bounds, bounds[1:]):
+        assert W * gm.bin_bytes(hi - lo, int(lo == 0)) <= ga.CLUSTER_SMEM
+    n = 20_000
+    idx, x, y = _inputs(G % 1000 + len(kind), n, G)
+    idx[:4] = [0, G - 1, min(W, G - 1), W - 1]
+    valid, floats = _columns(kind, x, y)
+    cols = jnp.asarray(np.stack([*floats, valid.astype(np.float64)], axis=1))
+    want = np.asarray(pallas_gridagg.fused_additive_two_level(jnp.asarray(idx), cols, G))
+    counts, sums = gm.grid_moments_window_reference(torch.from_numpy(idx), _bases(kind, x, y),
+                                                    TERMS[kind], G)
+    npt.assert_array_equal(counts[0].numpy(), want[:, -1].astype(np.int64))
+    npt.assert_allclose(sums.numpy(), want[:, :-1].T, rtol=1e-6, atol=1e-9)
+
+
+def test_b5_orders_the_float_terms_by_base():
+    """B5 takes the float terms of two bases first, then those of one base,
+    base by base: corr's parts at G = 10 609 are [count, x*y], [x, x*x] and
+    [y, y*y], so a part of one int64 base loads no other column."""
+    order = gm.float_order(agg.CORR_TERMS)
+    floats = [t[:2] for t in agg.CORR_TERMS if t[0] >= 0]
+    assert [floats[k] for k in order] == [(0, 1), (0, -1), (0, 0), (1, -1), (1, 1)]
+    assert gm.part_plan(10_609, 6)[2] == [0, 2, 4, 6]
+    assert gm.float_order(agg.VAR_TERMS) == [0, 1]
+    assert gm.float_order(agg.COVAR_TERMS) == [0, 1, 2]
+
+
 @pytest.mark.parametrize("C", [3, 6])
 def test_moment_plan_boundaries(C):
     n = 10 ** 8
-    W = gm.window_width(C)
     g4 = grid_plan.b4_max_g(C)
-    assert g4 == {3: 213, 6: 42}[C]  # one warp's grid of 8 KiB
+    assert g4 == {3: 106, 6: 53}[C]  # G * C <= 320
     assert grid_plan.moment_strategy(n, 1, C) == "b4"  # df.std
     assert grid_plan.moment_strategy(n, g4, C) == "b4"
     assert grid_plan.moment_strategy(n, g4 + 1, C) == "b5"
     assert grid_plan.moment_strategy(n, 10_609, C) == "b5"  # q6-sd, q9
-    assert grid_plan.moment_strategy(n, grid_plan.B5_MAX_WINDOWS * W, C) == "b5"
-    assert grid_plan.moment_strategy(n, grid_plan.B5_MAX_WINDOWS * W + 1, C) == "b3"
+    last = max(G for G in range(g4 + 1, 400_000, 97) if gm.n_parts(G, C) <= grid_plan.B5_MAX_PARTS)
+    assert grid_plan.moment_strategy(n, last, C) == "b5"
+    past = next(G for G in range(last, 400_000) if gm.n_parts(G, C) > grid_plan.B5_MAX_PARTS)
+    assert grid_plan.moment_strategy(n, past, C) == ("b3-l2" if gp.resident_fits(past, C)
+                                                     else "b3")
     S = gp.shape(n, 10 ** 6, C).S
     assert grid_plan.moment_strategy(n, gp.P_MAX * S, C) == "b3"
     assert grid_plan.moment_strategy(n, gp.P_MAX * S + 1, C) is None  # A6

@@ -248,8 +248,12 @@ def test_window_plan_fits_its_kernel(C):
             rows_per_cta = gw.WARPS * ga.STAGE_ROWS * ga.MIN_STEPS_PER_WARP
             assert gw.plan(3 * n_win * rows_per_cta, G, C, count, max_clusters=16)[2] == 3
         assert not gw.fits(gw.MAX_CLUSTER * W + 1, C, count)
-    # B5 keeps its [C, W] 8-byte words within SMEM_BUDGET
-    assert C * gm.window_width(C) * 8 <= ga.SMEM_BUDGET < C * (gm.window_width(C) + 1) * 8
+    # B5's windows hold one term's plane (8 bytes a bin for a float term, 4
+    # for counts alone) within CLUSTER_SMEM; even, as B2's; a bin of all its
+    # terms takes a 32-bit word per count and 8 bytes per float term
+    W5, plane = gm.window_width(C), 8 if C > 1 else 4
+    assert gm.bin_bytes(C) == 4 + 8 * (C - 1)
+    assert W5 % 2 == 0 and W5 * plane <= ga.CLUSTER_SMEM < (W5 + 2) * plane
 
 
 @pytest.mark.parametrize("G,C,n_win,W", [
@@ -289,8 +293,11 @@ def _strategy(G, C, n=10 ** 8):
 @pytest.mark.parametrize("C", [1, 2, 3, 4])
 def test_plan_boundaries(C):
     W = gw.cluster_width(C, True)
-    assert _strategy(1, C) == "b1"  # df.sum
-    assert _strategy(grid_plan.B1_MAX_G, C) == "b1"
+    for G in (1, grid_plan.B1_MAX_G):  # df.sum; B1's last bin: its route by the columns
+        lane = ga.route(G, C - 1, 0, True) == ga.LANE
+        assert lane == (ga.LANE_MIN_WARPS * ga.lane_warp_bytes(G, C - 1, 0, True) <=
+                        ga.CLUSTER_SMEM)
+        assert _strategy(G, C) == ("b1" if lane else "b2")
     assert _strategy(grid_plan.B1_MAX_G + 1, C) == "b2"
     assert grid_plan.b2_max_windows(C) == (4 if C <= 2 else 2)
     assert _strategy(grid_plan.b2_max_windows(C) * W, C) == "b2"
@@ -307,6 +314,18 @@ def test_plan_boundaries(C):
     assert _strategy(gp.P_MAX * S + 1, C) is None  # past B3: the sort strategies (A6)
     assert _strategy(gp.P_MAX * S, C, n=2 ** 31) is None  # int32 offsets
     assert _strategy(in_l2, C, n=2 ** 31) == "b3-l2"  # one pass, no offsets
+
+
+@pytest.mark.parametrize("n_int", [4, 7, 11, 15, 30])
+def test_plan_gives_b2_the_grids_past_b1s_lane_route(n_int):
+    """Where B1's lane route stops fitting (count + n_int int64 + one f64),
+    the plan takes B2, not B1's warp route, up to ``B1_MAX_G`` and past it."""
+    first = next(G for G in range(1, grid_plan.B1_MAX_G + 1)
+                 if ga.route(G, n_int, 1, True) == ga.WARP)
+    assert ga.fits(first, n_int, 1, True)  # the wrapper's warp route would take it
+    assert grid_plan.strategy(10 ** 8, first - 1, n_int, 1, True) == "b1"
+    for G in (first, grid_plan.B1_MAX_G, grid_plan.B1_MAX_G + 1):
+        assert grid_plan.strategy(10 ** 8, G, n_int, 1, True) == "b2"
 
 
 def test_plan_keeps_b1_for_many_columns_only_where_it_fits():

@@ -1,9 +1,11 @@
 // Pieces shared by the grid kernels (grid_additive.cu, grid_window.cu,
-// grid_partition.cu): the column table, the ordered warp-group update of a
-// warp-private grid in shared memory, the fold of a CTA's warp grids into a
-// partial, and the fold of the partials.  Each kernel library includes this
-// header and is built on its own (vaex_tpu_torch/ops/kernel_build.py hashes
-// the header with each source).
+// grid_partition.cu, and through moments_common.cuh grid_moments.cu and
+// grid_moments_window.cu): the column table, the ordered warp-group update
+// of a warp-private grid in shared memory, the combine of the lanes that
+// share a bin before an atomic (struct Combine), the fold of a CTA's warp
+// grids into a partial, and the fold of the partials.  Each kernel library
+// includes this header and is built on its own
+// (vaex_tpu_torch/ops/kernel_build.py hashes the header with each source).
 //
 // The ordered scheme, used by every kernel (ported from B1):
 //   * every warp owns a private [C, W] grid of a bin window in shared
@@ -23,6 +25,10 @@
 #include <stdint.h>
 
 #define SMEM_BUDGET (192 * 1024)
+// the most dynamic shared memory a CTA may take on sm_90: the kernels that
+// keep one CTA per SM (B2's cluster, B1's lane-private grids, B5's windows)
+// take all of it, the others keep SMEM_BUDGET
+#define CLUSTER_SMEM (227 * 1024)
 #define MAX_COLS 32
 #define FULL_MASK 0xffffffffu
 
@@ -170,6 +176,98 @@ __device__ __forceinline__ void warp_add(const int (&b)[U], const long long (&r)
         __syncwarp();  // the next step's leaders may add to the same words
     }
 }
+
+// The lanes that start a run of equal keys among neighbouring lanes.
+__device__ __forceinline__ unsigned run_heads(int key, int lane) {
+    const int before = __shfl_up_sync(FULL_MASK, key, 1);
+    return __ballot_sync(FULL_MASK, lane == 0 || key != before);
+}
+
+// The first lane of the run that holds `lane`, and the lane past its end.
+__device__ __forceinline__ void run_bounds(unsigned heads, int lane, int& first, int& end) {
+    first = 31 - __clz(heads & (0xffffffffu >> (31 - lane)));
+    const unsigned later = lane == 31 ? 0u : heads & (0xffffffffu << (lane + 1));
+    end = later ? __ffs(later) - 1 : 32;
+}
+
+// How the lanes of a warp that hold the same bin become one atomic.  First
+// the runs of neighbouring lanes with one bin (sorted or clustered keys: a
+// ballot and, where a run is longer than one lane, a tree of shuffles).
+// Then, where the warp still has several runs, __match_any_sync over the
+// runs' first lanes finds the runs that share a bin (keys that pile on few
+// bins in any order); its cost grows with the distinct bins of the warp,
+// which is why the runs come first.  Every sum is taken in an order fixed
+// by the lanes.
+struct Combine {
+    unsigned heads;  // the lanes that start a run
+    unsigned group;  // the run starts that share this lane's bin (0: no second step)
+    int end;         // the lane past this lane's run
+    int steps;       // shuffles of the second step
+    int rows;        // on the leader: the rows it adds for
+    bool lead;       // this lane makes the atomics
+
+    __device__ __forceinline__ Combine() {}
+
+    __device__ __forceinline__ Combine(int bin, int lane) {
+        heads = run_heads(bin, lane);
+        int first;
+        run_bounds(heads, lane, first, end);
+        const bool head = bin >= 0 && lane == first;
+        rows = end - first;
+        lead = head;
+        group = 0u;
+        steps = 0;
+        if (heads & (heads - 1)) {  // more than one run: uniform across the warp
+            group = __match_any_sync(FULL_MASK, head ? bin : -1);
+            lead = head && lane == __ffs(group) - 1;
+            steps = __reduce_max_sync(FULL_MASK, head ? __popc(group) : 1) - 1;
+            rows = across_runs(rows, lane);
+        }
+    }
+
+    // Runs of neighbouring lanes only: where the runs leave two lanes with
+    // one bin, each adds (a sorted or single key costs one atomic a run,
+    // keys that repeat out of order one each).
+    __device__ __forceinline__ static Combine runs(int bin, int lane) {
+        Combine c;
+        c.heads = run_heads(bin, lane);
+        int first;
+        run_bounds(c.heads, lane, first, c.end);
+        c.lead = bin >= 0 && lane == first;
+        c.rows = c.end - first;
+        c.group = 0u;
+        c.steps = 0;
+        return c;
+    }
+
+    // The sum of v over the lanes that share this lane's bin, on the leader.
+    template <class T>
+    __device__ __forceinline__ T sum(T v, int lane) const {
+        if (heads != FULL_MASK) {  // the run [lane, end), a fixed tree of shuffles
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const T x = __shfl_down_sync(FULL_MASK, v, o);
+                if (lane + o < end) v += x;
+            }
+        }
+        return group ? across_runs(v, lane) : v;
+    }
+
+    // The sum of the run sums v over the runs of this lane's group, in lane
+    // order; `steps` is the size of the warp's largest group less one, so
+    // every lane makes the same shuffles.
+    template <class T>
+    __device__ __forceinline__ T across_runs(T v, int lane) const {
+        T s = v;
+        unsigned rest = group & (group - 1);  // the group without its leader
+        for (int i = 0; i < steps; ++i) {
+            const T x = __shfl_sync(FULL_MASK, v, rest ? __ffs(rest) - 1 : lane);
+            if (rest) s += x;
+            rest &= rest - 1;
+        }
+        return s;
+    }
+};
 
 // Fold the warps' [C, W] grids in warp order into bins [w0, w0 + Wc) of the
 // partial out [C, G]; rows [0, C_int) are integer words.  Call after

@@ -115,83 +115,6 @@ struct OutColumns {
     void* ptr[MAX_COLS];  // bucketed copies of the Columns, same types
 };
 
-// The lanes that start a run of equal keys among neighbouring lanes.
-__device__ __forceinline__ unsigned run_heads(int key, int lane) {
-    const int before = __shfl_up_sync(FULL_MASK, key, 1);
-    return __ballot_sync(FULL_MASK, lane == 0 || key != before);
-}
-
-// The first lane of the run that holds `lane`, and the lane past its end.
-__device__ __forceinline__ void run_bounds(unsigned heads, int lane, int& first, int& end) {
-    first = 31 - __clz(heads & (0xffffffffu >> (31 - lane)));
-    const unsigned later = lane == 31 ? 0u : heads & (0xffffffffu << (lane + 1));
-    end = later ? __ffs(later) - 1 : 32;
-}
-
-// How the lanes of a warp that hold the same bin become one atomic.  First
-// the runs of neighbouring lanes with one bin (sorted or clustered keys: a
-// ballot and, where a run is longer than one lane, a tree of shuffles).
-// Then, where the warp still has several runs, __match_any_sync over the
-// runs' first lanes finds the runs that share a bin (keys that pile on few
-// bins in any order); its cost grows with the distinct bins of the warp,
-// which is why the runs come first.  Every sum is taken in an order fixed
-// by the lanes.
-struct Combine {
-    unsigned heads;  // the lanes that start a run
-    unsigned group;  // the run starts that share this lane's bin (0: no second step)
-    int end;         // the lane past this lane's run
-    int steps;       // shuffles of the second step
-    int rows;        // on the leader: the rows it adds for
-    bool lead;       // this lane makes the atomics
-
-    __device__ __forceinline__ Combine() {}
-
-    __device__ __forceinline__ Combine(int bin, int lane) {
-        heads = run_heads(bin, lane);
-        int first;
-        run_bounds(heads, lane, first, end);
-        const bool head = bin >= 0 && lane == first;
-        rows = end - first;
-        lead = head;
-        group = 0u;
-        steps = 0;
-        if (heads & (heads - 1)) {  // more than one run: uniform across the warp
-            group = __match_any_sync(FULL_MASK, head ? bin : -1);
-            lead = head && lane == __ffs(group) - 1;
-            steps = __reduce_max_sync(FULL_MASK, head ? __popc(group) : 1) - 1;
-            rows = across_runs(rows, lane);
-        }
-    }
-
-    // The sum of v over the lanes that share this lane's bin, on the leader.
-    template <class T>
-    __device__ __forceinline__ T sum(T v, int lane) const {
-        if (heads != FULL_MASK) {  // the run [lane, end), a fixed tree of shuffles
-#pragma unroll
-            for (int o = 1; o < 32; o <<= 1) {
-                const T x = __shfl_down_sync(FULL_MASK, v, o);
-                if (lane + o < end) v += x;
-            }
-        }
-        return group ? across_runs(v, lane) : v;
-    }
-
-    // The sum of the run sums v over the runs of this lane's group, in lane
-    // order; `steps` is the size of the warp's largest group less one, so
-    // every lane makes the same shuffles.
-    template <class T>
-    __device__ __forceinline__ T across_runs(T v, int lane) const {
-        T s = v;
-        unsigned rest = group & (group - 1);  // the group without its leader
-        for (int i = 0; i < steps; ++i) {
-            const T x = __shfl_sync(FULL_MASK, v, rest ? __ffs(rest) - 1 : lane);
-            if (rest) s += x;
-            rest &= rest - 1;
-        }
-        return s;
-    }
-};
-
 // One warp step of U rows per lane: lane `lane` holds rows r[u] of the
 // columns with bins b[u] (b[u] < 0: the row adds nothing).  The lanes that
 // share a bin are combined, and one of them adds the sum to word b[u] of

@@ -59,9 +59,6 @@
 namespace cg = cooperative_groups;
 
 #define MAX_CLUSTER 8
-// the most dynamic shared memory a CTA may take on sm_90: a cluster keeps one
-// CTA per SM, so B2 takes all of it (the other grid kernels keep SMEM_BUDGET)
-#define CLUSTER_SMEM (227 * 1024)
 
 // v into the shared-memory word *p as two native 32-bit adds (see above).
 __device__ __forceinline__ void add_int(unsigned long long* p, unsigned long long v) {

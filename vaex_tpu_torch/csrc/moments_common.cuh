@@ -100,6 +100,63 @@ __device__ __forceinline__ double term_value(const Terms& t, int k,
     return pick<NB>(v, t.a[k]) * pick<NB>(v, t.b[k]);
 }
 
+// The term sets the passes make, compiled (B5): var(x) (agg.VAR_TERMS: a
+// count, then x and x*x) and corr(x, y) (agg.CORR_TERMS: a count, then, in
+// the order B5's wrapper gives the float terms, x*y, x, x*x, y and y*y),
+// every term valid where no base is NaN; SET_ANY reads the run-time tables
+// for any other batch.
+#define SET_ANY 0
+#define SET_VAR 1
+#define SET_CORR 2
+
+// Host side: the compiled set that the tables describe, or SET_ANY.
+static inline int term_set(int nb, const int* term_a, const int* term_b,
+                           const unsigned* term_need, int n_count, int n_float) {
+    static const int var_a[] = {0, 0}, var_b[] = {-1, 0};
+    static const int corr_a[] = {0, 0, 0, 1, 1}, corr_b[] = {1, -1, 0, -1, 1};
+    const int set = nb == 1 && n_count == 1 && n_float == 2   ? SET_VAR
+                    : nb == 2 && n_count == 1 && n_float == 5 ? SET_CORR
+                                                              : SET_ANY;
+    if (set == SET_ANY) return SET_ANY;
+    const int* a = set == SET_VAR ? var_a : corr_a;
+    const int* b = set == SET_VAR ? var_b : corr_b;
+    const unsigned all = (1u << nb) - 1u;
+    if (term_need[0] != all) return SET_ANY;
+    for (int k = 0; k < n_float; ++k)
+        if (term_a[1 + k] != a[k] || term_b[1 + k] != b[k] || term_need[1 + k] != all)
+            return SET_ANY;
+    return set;
+}
+
+// The float terms of a compiled set (after its one count).
+template <int SET>
+__host__ __device__ constexpr int set_floats() {
+    return SET == SET_VAR ? 2 : 5;
+}
+
+// Float term k of a row with bases v and NaN mask missing, 0 where the row
+// is not valid for it; for a compiled set k is a constant after unrolling.
+template <int NB, int SET>
+__device__ __forceinline__ double set_term(const Terms& t, int k,
+                                           const double (&v)[BASE_SLOTS(NB)],
+                                           unsigned missing) {
+    if constexpr (SET == SET_ANY) {
+        return term_value<NB>(t, k, v, missing);
+    } else {
+        if (missing) return 0.0;
+        const double x = v[0], y = v[NB > 1 ? 1 : 0];
+        if constexpr (SET == SET_VAR) return k == 1 ? x : x * x;
+        return k == 1 ? x * y : k == 2 ? x : k == 3 ? x * x : k == 4 ? y : y * y;
+    }
+}
+
+// The row's count term k: 1 where the row is valid for it.
+template <int SET>
+__device__ __forceinline__ unsigned set_count(const Terms& t, int k, unsigned missing) {
+    if constexpr (SET == SET_ANY) return (t.need[k] & missing) ? 0u : 1u;
+    return missing ? 0u : 1u;
+}
+
 // The instance of a kernel template for nb bases (nb checked by make_tables).
 #define FOR_NB(kernel, nb)                                                               \
     ((nb) == 0 ? kernel<0> : (nb) == 1 ? kernel<1> : (nb) == 2 ? kernel<2>               \

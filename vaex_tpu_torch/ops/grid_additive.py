@@ -29,9 +29,19 @@ from . import kernel_build
 # mirrors SMEM_BUDGET / MAX_COLS / STAGE_ROWS in csrc/grid_common.cuh
 # (the first two are checked at load)
 SMEM_BUDGET = 192 * 1024
+# the most dynamic shared memory a CTA may take on an H100 (227 KiB): the
+# kernels that keep one CTA per SM take all of it; mirrors CLUSTER_SMEM in
+# csrc/grid_common.cuh
+CLUSTER_SMEM = 227 * 1024
 MAX_COLS = 32
 STAGE_ROWS = 4 * 32  # UNROLL rows per lane of a warp step, at most
 MAX_WARPS = 8
+# the routes of B1 (csrc/grid_additive.cu): lane-private grids, or the
+# warp-private grids of the ordered scheme
+LANE, WARP = "lane", "warp"
+LANE_UNROLL = 32  # rows a lane takes per step of the lane route (checked at load)
+# the lane route while one CTA keeps this many warps of lane grids
+LANE_MIN_WARPS = 4
 # each warp should walk at least this many 32-row steps, so zeroing and
 # folding its private grid stays small against the rows it adds
 MIN_STEPS_PER_WARP = 32
@@ -78,16 +88,18 @@ def fits(G, n_int, n_float, count):
 
 
 def unroll(C):
-    """Rows per lane of B1's warp step (csrc/grid_common.cuh warp_add): one
-    for up to two channels, four from three on.  On an NVIDIA H100 80GB HBM3
-    (700 W) at G = 103 and 1e8 rows: 0.958 against 1.150 ms at C = 2, 1.331
-    against 1.064 ms at C = 3, 2.640 against 1.570 ms at C = 4."""
+    """Rows per lane of the warp route's step (csrc/grid_common.cuh
+    warp_add): one for up to two channels, four from three on.  On an NVIDIA
+    H100 80GB HBM3 (700 W) at G = 103 and 1e8 rows: 0.958 against 1.150 ms
+    at C = 2, 1.331 against 1.064 ms at C = 3, 2.640 against 1.570 ms at
+    C = 4."""
     return 1 if C <= 2 else 4
 
 
 def plan(n, G, C, sm_count):
-    """(n_ctas, warps) of one launch; fixed by its arguments, so the order of
-    every addition, and with it every float result, is reproducible."""
+    """(n_ctas, warps) of one launch of the warp route; fixed by its
+    arguments, so the order of every addition, and with it every float
+    result, is reproducible."""
     warps = min(MAX_WARPS, SMEM_BUDGET // warp_bytes(C, G))
     rows_per_cta = warps * 32 * MIN_STEPS_PER_WARP
     smem = warps * warp_bytes(C, G)
@@ -96,14 +108,42 @@ def plan(n, G, C, sm_count):
     return n_ctas, warps
 
 
+def lane_warp_bytes(G, n_int, n_float, count):
+    """Shared memory of one warp's lane grids on the lane route: per lane and
+    bin a 32-bit count (where ``count``) and an 8-byte word per column."""
+    return 32 * G * (4 * int(bool(count)) + 8 * (n_int + n_float))
+
+
+def route(G, n_int, n_float, count):
+    """``lane`` or ``warp``: the lane route while a CTA of 227 KiB holds
+    ``LANE_MIN_WARPS`` warps of its lane grids, else the warp route."""
+    if LANE_MIN_WARPS * lane_warp_bytes(G, n_int, n_float, count) <= CLUSTER_SMEM:
+        return LANE
+    return WARP
+
+
+def lane_plan(n, G, n_int, n_float, count, sm_count):
+    """(n_ctas, warps) of one launch of the lane route: as many warps a CTA
+    as its lane grids fit (at most ``MAX_WARPS``), the CTAs the card holds
+    at once, fewer where the rows would give a warp less than its share."""
+    wb = lane_warp_bytes(G, n_int, n_float, count)
+    warps = max(1, min(MAX_WARPS, CLUSTER_SMEM // wb))
+    ctas_per_sm = max(1, min(SM_THREADS // (warps * 32), SM_SMEM // (warps * wb)))
+    rows_per_cta = warps * 32 * LANE_UNROLL * MIN_STEPS_PER_WARP
+    n_ctas = max(1, min(sm_count * ctas_per_sm, -(-n // rows_per_cta)))
+    return n_ctas, warps
+
+
 def _library():
     lib = kernel_build.library("grid_additive", SMEM_BUDGET, MAX_COLS)
+    if lib.grid_additive_lane_unroll() != LANE_UNROLL:
+        raise RuntimeError("grid_additive_lane_unroll disagrees with its wrapper")
     lib.grid_additive_run.restype = ctypes.c_int
     lib.grid_additive_run.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     return lib
 
@@ -151,7 +191,16 @@ def grid_additive(idx, int_cols, float_cols, G, count):
     n = idx.shape[0]
     C = n_channels(len(int_cols), len(float_cols), count)
     sm_count = torch.cuda.get_device_properties(idx.device).multi_processor_count
-    n_ctas, warps = plan(n, G, C, sm_count)
+    how = route(G, len(int_cols), len(float_cols), count)
+    if how == LANE and n >= 2 ** 32:
+        raise ValueError(f"grid_additive: {n} rows in one call; the lane route's 32-bit "
+                         f"counts take fewer than 2^32")
+    if how == LANE:
+        n_ctas, warps = lane_plan(n, G, len(int_cols), len(float_cols), count, sm_count)
+        rows = 0
+    else:
+        n_ctas, warps = plan(n, G, C, sm_count)
+        rows = unroll(C)
     device = idx.device
     int_sums = torch.empty((int(bool(count)) + len(int_cols), G), dtype=torch.int64,
                            device=device)
@@ -165,11 +214,13 @@ def grid_additive(idx, int_cols, float_cols, G, count):
             idx.data_ptr(), n, G, int(bool(count)),
             ctypes.addressof(int_ptrs), len(int_cols),
             ctypes.addressof(float_ptrs), ctypes.addressof(float_f32), len(float_cols),
-            n_ctas, warps, unroll(C), scratch.data_ptr(),
+            n_ctas, warps, int(how == LANE), rows, scratch.data_ptr(),
             int_sums.data_ptr(), float_sums.data_ptr(), stream)
     kernel_build.raise_on_error(lib, "grid_additive", err)
     grid_additive.launches += 1
+    grid_additive.last_route = how
     return int_sums, float_sums
 
 
 grid_additive.launches = 0
+grid_additive.last_route = None

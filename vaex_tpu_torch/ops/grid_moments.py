@@ -27,10 +27,14 @@ are (vaex_tpu's ``where(notna(y), x, y*0)``).
 
 ``grid_moments`` (B4, ``csrc/grid_moments.cu``) keeps B1's ordered scheme:
 warp-private [C, G] grids, floats reproducible run to run, counts exact.
-``grid_moments_window`` (B5, ``csrc/grid_moments_window.cu``) keeps B2's
-bin windows with shared-memory atomics: counts exact, floats NOT
-reproducible run to run.  Which one a pass takes is
-:func:`.grid_plan.moment_strategy`'s choice.
+``grid_moments_window`` (B5, ``csrc/grid_moments_window.cu``) cuts the
+[C, G] grid of the terms into parts, each all 227 KiB of one CTA's shared
+memory, 4 bytes a bin per count term and 8 per float term: the fewest bin
+windows in which one term's plane fits, each cut into the fewest groups of
+terms that fit, of near-equal size (:func:`part_plan`); every part walks
+the rows and adds its terms for the rows of its window with shared-memory
+atomics: counts exact, floats NOT reproducible run to run.  Which kernel a
+pass takes is :func:`.grid_plan.moment_strategy`'s choice.
 """
 
 from __future__ import annotations
@@ -40,14 +44,14 @@ import ctypes
 import torch
 
 from . import kernel_build
-from .grid_additive import (MIN_STEPS_PER_WARP, SM_SMEM, SM_THREADS, SMEM_BUDGET, STAGE_ROWS,
-                            check_cuda, grid_additive_reference, plan, warp_bytes)
+from .grid_additive import (CLUSTER_SMEM, MIN_STEPS_PER_WARP, SM_SMEM, SM_THREADS, SMEM_BUDGET,
+                            STAGE_ROWS, check_cuda, grid_additive_reference, plan, warp_bytes)
 from .grid_window import grid_window_reference
 
 # mirror MAX_BASES / MAX_TERMS in csrc/moments_common.cuh (checked at load)
 MAX_BASES = 4
 MAX_TERMS = 16
-WINDOW_WARPS = 32  # warps per B5 CTA, all sharing its window
+WINDOW_WARPS = 32  # warps per B5 CTA, all sharing its part
 BASE_KINDS = {torch.float64: 0, torch.float32: 1, torch.int64: 2}
 
 
@@ -127,10 +131,11 @@ def grid_moments_reference(idx, bases, terms, G):
 
 def grid_moments_window_reference(idx, bases, terms, G):
     """The plain PyTorch version of B5: the term columns, then the kernel's
-    bin windows one after the other, each an ``index_add_``."""
+    bin windows (:func:`part_plan`) one after the other, each an
+    ``index_add_`` of every term."""
     count_cols, float_cols = form_terms(idx, bases, terms)
-    return grid_window_reference(idx, count_cols, float_cols, int(G), False,
-                                 window_width(len(terms)))
+    W, _, _ = part_plan(int(G), len(terms), len(count_cols))
+    return grid_window_reference(idx, count_cols, float_cols, int(G), False, W)
 
 
 def fits(G, C):
@@ -139,69 +144,171 @@ def fits(G, C):
 
 
 def _library(name):
-    lib = kernel_build.library(name, SMEM_BUDGET, MAX_TERMS)
+    lib = kernel_build.library(name, CLUSTER_SMEM if name == "grid_moments_window" else
+                               SMEM_BUDGET, MAX_TERMS)
     max_bases = getattr(lib, f"{name}_max_bases")
     max_bases.restype = ctypes.c_int
     if max_bases() != MAX_BASES:
         raise RuntimeError(f"{name}_max_bases disagrees with its wrapper")
     run = getattr(lib, f"{name}_run")
     run.restype = ctypes.c_int
-    run.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    if name == "grid_moments":
+        run.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        return lib, run
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    run.argtypes = [ptr, ctypes.c_longlong, i32, i32, i32,  # idx, n, G, W, n_win
+                    ptr, i32, ptr,  # group bounds, term rows
+                    ptr, ptr, i32,  # bases
+                    ptr, ptr, ptr, i32, i32,  # terms
+                    i32, i32,  # n_slices, threads
+                    ptr, ptr, ptr, ptr]
     return lib, run
 
 
-def window_width(C):
-    """The widest window of B5: its [C, W] 8-byte words fill ``SMEM_BUDGET``."""
-    return SMEM_BUDGET // (8 * C)
+def bin_bytes(C, n_count=1):
+    """Shared memory of one bin of all C terms in a B5 part: a 32-bit word
+    per count term, 8 bytes per float term."""
+    return 4 * n_count + 8 * (C - n_count)
 
 
-def n_windows(G, C):
-    """Windows of ``window_width(C)`` bins a grid of G bins takes in B5."""
-    return -(-G // window_width(C))
+def window_width(C, n_count=1):
+    """The widest bin window of B5: one term's plane of it (8 bytes a bin
+    for a float term, 4 where all terms are counts) fills ``CLUSTER_SMEM``;
+    even, so the float planes after 32-bit count planes stay 8-byte
+    aligned."""
+    return (CLUSTER_SMEM // (8 if C > n_count else 4)) & ~1
 
 
-def window_plan(n, G, C, sm_count):
-    """(W, n_win, n_slices) of one B5 launch: a CTA per window and row
-    slice, the CTAs of all windows together filling the card once."""
-    W = window_width(C)
-    n_win = n_windows(G, C)
-    smem = C * W * 8
+def term_groups(W, C, n_count=1):
+    """The fewest groups of consecutive terms (counts first) whose planes
+    of W bins fit ``CLUSTER_SMEM``, of near-equal size: their boundaries
+    [0, ..., C]."""
+    def fits(lo, hi):
+        return W * bin_bytes(hi - lo, max(0, min(hi, n_count) - lo)) <= CLUSTER_SMEM
+    bounds, lo = [0], 0  # greedy: the fewest groups
+    for k in range(1, C + 1):
+        if not fits(lo, k):
+            bounds.append(k - 1)
+            lo = k - 1
+    n_groups = len(bounds)
+    even = [round(g * C / n_groups) for g in range(n_groups + 1)]
+    if all(fits(lo, hi) for lo, hi in zip(even, even[1:])):
+        return even
+    return bounds + [C]
+
+
+def part_plan(G, C, n_count=1):
+    """(W, n_win, group bounds) of a B5 call: the fewest windows of equal
+    even width in which one term's plane fits, then the fewest term groups
+    that fit such a window (:func:`term_groups`)."""
+    n_win = -(-G // window_width(C, n_count))
+    W = -(-G // n_win)
+    W += W & 1
+    return W, n_win, term_groups(W, C, n_count)
+
+
+def n_parts(G, C, n_count=1):
+    """The CTAs of one row slice of B5: windows times term groups."""
+    _, n_win, bounds = part_plan(G, C, n_count)
+    return n_win * (len(bounds) - 1)
+
+
+def window_plan(n, G, C, sm_count, n_count=1):
+    """(W, n_win, group bounds, n_slices) of one B5 launch: a CTA per part
+    and row slice, the CTAs of all parts together filling the card once."""
+    W, n_win, bounds = part_plan(G, C, n_count)
+    parts = n_win * (len(bounds) - 1)
+    smem = max(W * bin_bytes(hi - lo, max(0, min(hi, n_count) - lo))
+               for lo, hi in zip(bounds, bounds[1:]))
     resident = sm_count * max(1, min(SM_THREADS // (WINDOW_WARPS * 32), SM_SMEM // smem))
     rows_per_cta = WINDOW_WARPS * STAGE_ROWS * MIN_STEPS_PER_WARP
-    n_slices = max(1, min(resident // n_win, -(-n // rows_per_cta), 65535))
-    return W, n_win, n_slices
+    n_slices = max(1, min(resident // parts, -(-n // rows_per_cta), 65535))
+    return W, n_win, bounds, n_slices
 
 
-def _launch(name, idx, bases, terms, G, W, n_parts, warps):
-    """One launch of ``csrc/<name>.cu``: W is the window width (G for B4),
-    n_parts the CTAs (B4) or row slices (B5) whose partials are folded."""
+def _tables(bases, terms):
+    """HOST arrays of the base pointers and kinds and of the term tables
+    (counts first), as both moment libraries take them."""
     count_terms, float_terms = split_terms(terms, len(bases))
     ordered = count_terms + float_terms  # the kernels' row order: counts first
-    C = len(ordered)
-    device = idx.device
-    counts = torch.empty((len(count_terms), G), dtype=torch.int64, device=device)
-    sums = torch.empty((len(float_terms), G), dtype=torch.float64, device=device)
-    scratch = torch.empty(n_parts * C * G, dtype=torch.int64, device=device)
     base_ptrs = (ctypes.c_void_p * MAX_BASES)(*[b.data_ptr() for b in bases])
     base_kinds = (ctypes.c_int * MAX_BASES)(*[BASE_KINDS[b.dtype] for b in bases])
     term_a = (ctypes.c_int * MAX_TERMS)(*[a for a, _, _ in ordered])
     term_b = (ctypes.c_int * MAX_TERMS)(*[b for _, b, _ in ordered])
     term_need = (ctypes.c_uint * MAX_TERMS)(*[need for _, _, need in ordered])
-    lib, run = _library(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = run(idx.data_ptr(), idx.shape[0], G, W,
+    return (len(count_terms), len(float_terms), base_ptrs, base_kinds, term_a, term_b,
+            term_need)
+
+
+def _outputs(idx, n_count, n_float, G, n_parts):
+    device = idx.device
+    counts = torch.empty((n_count, G), dtype=torch.int64, device=device)
+    sums = torch.empty((n_float, G), dtype=torch.float64, device=device)
+    scratch = torch.empty(n_parts * (n_count + n_float) * G, dtype=torch.int64, device=device)
+    return counts, sums, scratch
+
+
+def _launch_b4(idx, bases, terms, G, n_ctas, warps):
+    """One launch of ``csrc/grid_moments.cu``."""
+    n_count, n_float, *tables = _tables(bases, terms)
+    base_ptrs, base_kinds, term_a, term_b, term_need = tables
+    counts, sums, scratch = _outputs(idx, n_count, n_float, G, n_ctas)
+    lib, run = _library("grid_moments")
+    with torch.cuda.device(idx.device):
+        stream = torch.cuda.current_stream(idx.device).cuda_stream
+        err = run(idx.data_ptr(), idx.shape[0], G, G,
                   ctypes.addressof(base_ptrs), ctypes.addressof(base_kinds), len(bases),
                   ctypes.addressof(term_a), ctypes.addressof(term_b),
-                  ctypes.addressof(term_need), len(count_terms), len(float_terms),
-                  n_parts, warps, scratch.data_ptr(),
+                  ctypes.addressof(term_need), n_count, n_float,
+                  n_ctas, warps, scratch.data_ptr(),
                   counts.data_ptr(), sums.data_ptr(), stream)
-    kernel_build.raise_on_error(lib, name, err)
+    kernel_build.raise_on_error(lib, "grid_moments", err)
+    return counts, sums
+
+
+def float_order(terms):
+    """B5's order of the float terms (indices among them): the terms of two
+    bases first, then those of one base, base by base, so that a group of
+    consecutive terms keeps one base's terms together (corr: x*y, x, x*x, y,
+    y*y; a part of x and x*x then loads no y where y cannot be NaN)."""
+    floats = [(a, b) for a, b, *_ in terms if a >= 0]
+
+    def key(k):
+        a, b = floats[k]
+        bits = 1 << a | (1 << b if b >= 0 else 0)
+        return -bin(bits).count("1"), bits
+    return sorted(range(len(floats)), key=key)
+
+
+def _launch_b5(idx, bases, terms, G):
+    """One launch of ``csrc/grid_moments_window.cu``: the float terms go in
+    :func:`float_order`, and the kernel writes each to the caller's row."""
+    order = float_order(terms)
+    floats = [t for t in terms if t[0] >= 0]
+    ordered = [t for t in terms if t[0] < 0] + [floats[k] for k in order]
+    n_count, n_float, *tables = _tables(bases, ordered)
+    base_ptrs, base_kinds, term_a, term_b, term_need = tables
+    term_row = (ctypes.c_int * MAX_TERMS)(*range(n_count), *[n_count + k for k in order])
+    n, C = idx.shape[0], n_count + n_float
+    sm_count = torch.cuda.get_device_properties(idx.device).multi_processor_count
+    W, n_win, bounds, n_slices = window_plan(n, G, C, sm_count, n_count)
+    group_lo = (ctypes.c_int * (MAX_TERMS + 1))(*bounds)
+    counts, sums, scratch = _outputs(idx, n_count, n_float, G, n_slices)
+    lib, run = _library("grid_moments_window")
+    with torch.cuda.device(idx.device):
+        stream = torch.cuda.current_stream(idx.device).cuda_stream
+        err = run(idx.data_ptr(), n, G, W, n_win, ctypes.addressof(group_lo), len(bounds) - 1,
+                  ctypes.addressof(term_row),
+                  ctypes.addressof(base_ptrs), ctypes.addressof(base_kinds), len(bases),
+                  ctypes.addressof(term_a), ctypes.addressof(term_b),
+                  ctypes.addressof(term_need), n_count, n_float, n_slices, WINDOW_WARPS * 32,
+                  scratch.data_ptr(), counts.data_ptr(), sums.data_ptr(), stream)
+    kernel_build.raise_on_error(lib, "grid_moments_window", err)
     return counts, sums
 
 
@@ -220,7 +327,7 @@ def grid_moments(idx, bases, terms, G):
         raise ValueError(f"grid_moments: G={G} with {C} terms does not fit the kernel")
     sm_count = torch.cuda.get_device_properties(idx.device).multi_processor_count
     n_ctas, warps = plan(idx.shape[0], G, C, sm_count)
-    out = _launch("grid_moments", idx, bases, terms, G, G, n_ctas, warps)
+    out = _launch_b4(idx, bases, terms, G, n_ctas, warps)
     grid_moments.launches += 1
     return out
 
@@ -238,12 +345,15 @@ def grid_moments_window(idx, bases, terms, G):
     C = len(terms)
     if C * G >= 2 ** 31:
         raise ValueError(f"grid_moments_window: G={G} with {C} terms does not fit the kernel")
-    sm_count = torch.cuda.get_device_properties(idx.device).multi_processor_count
-    W, _, n_slices = window_plan(idx.shape[0], G, C, sm_count)
-    out = _launch("grid_moments_window", idx, bases, terms, G, W, n_slices, WINDOW_WARPS)
+    if idx.shape[0] >= 2 ** 31:
+        raise ValueError(f"grid_moments_window: {idx.shape[0]} rows in one call; its 32-bit "
+                         f"counts take fewer than 2^31")
+    counts, sums = _launch_b5(idx, bases, terms, G)
     grid_moments_window.launches += 1
-    return out
+    grid_moments_window.last_parts = n_parts(G, C, len(counts))
+    return counts, sums
 
 
 grid_moments.launches = 0
 grid_moments_window.launches = 0
+grid_moments_window.last_parts = None  # the parts of the last launch

@@ -1,8 +1,11 @@
 """Which grid kernel a pass takes.  Its additive aggregators take one by the
 grid size G and the channel count C (count + int columns + float columns):
 
-* ``b1`` (:mod:`.grid_additive`) while G <= ``B1_MAX_G`` and one warp's
-  [C, G] grid fits shared memory;
+* ``b1`` (:mod:`.grid_additive` on its lane route) while G <= ``B1_MAX_G``
+  and a CTA holds four warps of its lane grids
+  (:func:`.grid_additive.route`); B1's warp route, which the wrapper takes
+  where the lane grids do not fit, is slower than B2 at every such grid
+  measured, so the plan gives those grids to B2;
 * ``b2`` (:mod:`.grid_window`) while its thread-block cluster takes at
   most :func:`b2_max_windows` bin windows;
 * ``b3-l2`` (:func:`.grid_partition.grid_resident`, B3's resident route)
@@ -15,10 +18,18 @@ grid size G and the channel count C (count + int columns + float columns):
 * past those, None: the sort strategies are not ported yet (ROADMAP A6).
 
 The cut-offs were measured on an NVIDIA H100 80GB HBM3 at its 700 W limit,
-1e8 uniform keys, C = 2, 3 and 4 channels (``scripts/sweep_grid_kernels.py``;
-PERF.md, section 6): at G = 103 B1 beat B2 at every C (0.957 / 1.064 /
-1.568 against 1.157 / 1.539 / 1.906 ms), at G = 256 B2 beat B1 at C = 2
-and 4 (0.985 / 1.714 against 1.075 / 2.029 ms).  B2's cluster
+1e8 uniform keys (``scripts/sweep_grid_kernels.py``; PERF.md, section 6).
+B1 against B2 (``--b1``; count + f64, + int64 +
+f64, + two int64 + f64, + four int64 + f64): B1's lane route beat B2
+wherever it is taken with a column (0.553 against 0.862 ms at G = 103,
+C = 2; 0.648 against 0.825 at G = 128; 1.134 against 1.182 at G = 64,
+C = 4); its warp route lost to B2 at every grid where the lane route does
+not fit, from C = 3 at G = 103 (1.065 against 1.028) and C = 4 (1.558
+against 1.095) to the narrowest ones (C = 6 at G = 42: 2.427 against 1.452;
+C = 9 at G = 27: 5.127 against 1.899; C = 32 at G = 8: 71.42 against
+5.472).  The count alone takes the lane route to G = 128 although B2 beat
+it from G = 8 on (0.196 against 0.173 ms at G = 103; at G = 1 the lane
+route's register sums won, 0.155 against 0.194; ROADMAP R3).  B2's cluster
 (``--b2``: G = k windows of the widest window, count + int64 columns + one
 f64 from C = 3) beat both routes of B3 to 4 windows at C = 1 and 2 (C = 1:
 1.160 against 1.208 ms for ``b3-l2``; C = 2: 2.272 against 2.473) and lost
@@ -39,17 +50,19 @@ The CPU runs the plain version of the kernel the plan picks, so the plan
 and each kernel's bucket and window arithmetic run in the CPU tests too.
 
 A pass's moment terms (var, std, covar, corr) take
-:func:`moment_strategy`'s kernel: ``b4`` (B4, ordered), ``b5`` (B5, bin
-windows) or, over the formed term columns, ``b3-l2`` / ``b3``, with C the
-number of terms.  Its cut-offs were measured the same way on that card (1e8
-uniform keys; C = 3: var of an f64 column, C = 6: corr of two int64
-columns): B4 beat B5 to G = 128 at C = 3 (1.421 against 1.500 ms) and lost
-at 256 (1.661 against 1.405), beat it to G = 32 at C = 6 (3.127 against
-3.340) and lost at 64 (2.931 against 2.871); both crossings sit near one
-warp's grid of 8 KiB (:func:`b4_max_g`: G <= 213 at C = 3, 42 at C = 6).  B5
-beat B3 over formed terms at 8 windows (C = 3: 6.434 against 7.405 ms; C = 6:
-11.276 against 17.942) and lost at 13 (C = 3: 8.983 against 7.284) or tied
-at 16 (C = 6: 18.099 against 17.785): one cut-off of 12 windows serves both.
+:func:`moment_strategy`'s kernel: ``b4`` (B4, ordered), ``b5`` (B5, parts
+of 227 KiB) or, over the formed term columns, ``b3-l2`` / ``b3``, with C
+the number of terms.  Its cut-offs were measured the same way on that card
+(``--moments``; 1e8 uniform keys; C = 3: var of an f64 column, C = 6: corr
+of two int64 columns): B4 tied B5 at G = 103 at C = 3 (1.304 against 1.308
+ms) and lost at 128 (1.412 against 1.256), beat it at G = 32 at C = 6
+(3.103 against 3.190) and lost at 64 (2.906 against 2.707): B4 while G * C
+<= ``B4_MAX_GC`` (:func:`b4_max_g`: G <= 106 at C = 3, 53 at C = 6), and at
+G = 1 always.  B5's parts beat B3 over formed terms to 12 parts at C = 3
+(G = 100 003: 6.993 against 7.278 ms for ``b3-l2``) and lost at 21 (G =
+200 003: 12.221 against 7.256), beat it at 10 parts at C = 6 (G = 32 768:
+10.811 against 17.929) and lost at 18 (G = 65 536: 18.738 against 17.771):
+``B5_MAX_PARTS`` = 12.
 
 A pass's per-bin extremes (min, max, the two mins of ``first``) take
 :func:`extreme_strategy`'s route, always kernel B3x
@@ -90,12 +103,12 @@ B1_MAX_G = 128
 # to B2_FEW_CHANNELS channels, B2_MAX_WINDOWS[1] past them
 B2_FEW_CHANNELS = 2
 B2_MAX_WINDOWS = (4, 2)
-# B4 while one warp's ordered grid (grid_additive.warp_bytes) takes at most
-# this many bytes, i.e. while 3 or more CTAs of 8 warps fit an SM
-B4_MAX_WARP_BYTES = 8 << 10
-B5_MAX_WINDOWS = 12
+# B4 while G * C is at most this, B5's parts past it
+B4_MAX_GC = 320
+B5_MAX_PARTS = 12
 
-KERNELS = {B1: grid_additive.grid_additive, B2: grid_window.grid_window,
+KERNELS = {B1: grid_additive.grid_additive,
+           B2: grid_window.grid_window,
            B3_L2: grid_partition.grid_resident, B3: grid_partition.grid_partition}
 PLAIN = {B1: grid_additive.grid_additive_reference,
          B2: grid_window.grid_window_reference,
@@ -116,11 +129,13 @@ def _wide(n, G, C):
 
 
 def strategy(n, G, n_int, n_float, count):
-    """``b1``, ``b2``, ``b3-l2``, ``b3`` or None for an n-row call over G bins."""
+    """``b1``, ``b2``, ``b3-l2``, ``b3`` or None for an n-row call over G
+    bins."""
     C = n_channels(n_int, n_float, count)
     if C < 1 or G < 1:
         raise ValueError(f"nothing to add: G={G}, no columns and no count")
-    if G <= B1_MAX_G and grid_additive.fits(G, n_int, n_float, count):
+    if (G <= B1_MAX_G and grid_additive.fits(G, n_int, n_float, count)
+            and grid_additive.route(G, n_int, n_float, count) == grid_additive.LANE):
         return B1
     if grid_window.cluster_windows(G, C, count) <= b2_max_windows(C):
         return B2
@@ -149,24 +164,24 @@ def grid_sums(idx, int_cols, float_cols, G, count):
 
 
 def b4_max_g(C):
-    """The widest grid B4 takes at C terms: one warp's grid within
-    ``B4_MAX_WARP_BYTES``, and G = 1 always (B5's atomics would all hit one
-    word)."""
-    return max(1, B4_MAX_WARP_BYTES // (8 * C) - grid_additive.STAGE_ROWS)
+    """The widest grid B4 takes at C terms: G * C within ``B4_MAX_GC``, and
+    G = 1 always (B5's atomics would all hit one word)."""
+    return max(1, B4_MAX_GC // C)
 
 
-def moment_strategy(n, G, C):
+def moment_strategy(n, G, C, n_count=1):
     """``b4``, ``b5``, ``b3`` or None for an n-row call of C moment terms
     over G bins: B4 (:func:`.grid_moments.grid_moments`) up to
     :func:`b4_max_g`, B5
-    (:func:`.grid_moments.grid_moments_window`) up to ``B5_MAX_WINDOWS``
-    bin windows, then B3 over the formed term columns."""
+    (:func:`.grid_moments.grid_moments_window`) up to ``B5_MAX_PARTS``
+    parts (:func:`.grid_moments.part_plan`), then B3 over the formed term
+    columns."""
     if not 1 <= C <= grid_moments.MAX_TERMS or G < 1:
         raise ValueError(f"G={G} with {C} terms: the moment kernels take 1 to "
                          f"{grid_moments.MAX_TERMS} terms")
     if G <= b4_max_g(C) and grid_moments.fits(G, C):
         return B4
-    if grid_moments.n_windows(G, C) <= B5_MAX_WINDOWS:
+    if grid_moments.n_parts(G, C, n_count) <= B5_MAX_PARTS:
         return B5
     return _wide(n, G, C)
 
@@ -177,7 +192,8 @@ def moment_sums(idx, bases, terms, G):
     terms are formed as columns in torch and B3 adds them; past B3's limits
     this raises NotImplementedError."""
     G = int(G)
-    name = moment_strategy(idx.shape[0], G, len(terms))
+    n_count = sum(int(t[0]) < 0 for t in terms)
+    name = moment_strategy(idx.shape[0], G, len(terms), n_count)
     if name is None:
         raise _past_b3(idx.shape[0], G)
     if name in (B3, B3_L2):

@@ -29,13 +29,11 @@ import functools
 import torch
 
 from . import kernel_build
-from .grid_additive import (MAX_COLS, MIN_STEPS_PER_WARP, STAGE_ROWS, check_cuda, check_inputs,
-                            grid_additive_reference, n_channels)
+from .grid_additive import (CLUSTER_SMEM, MAX_COLS, MIN_STEPS_PER_WARP, STAGE_ROWS, check_cuda,
+                            check_inputs, grid_additive_reference, n_channels)
 
 WARPS = 32  # warps per CTA, all sharing its window
 MAX_CLUSTER = 8  # the portable cluster size; mirrors csrc/grid_window.cu (checked at load)
-# a cluster CTA's shared memory; mirrors CLUSTER_SMEM in csrc/grid_window.cu
-CLUSTER_SMEM = 227 * 1024
 
 
 def window_bytes(W, C, count):
