@@ -36,7 +36,10 @@ Run from the root of the repository on a machine with a CUDA card.  It
    exact, float sums to rtol 1e-9 and atol 1e-9; then B5 where its parts
    change (a term group or a window one bin past full) on columns starting
    at an odd row, and at G = 10 609 on f32 and int64 bases, on one key and
-   on a Zipf(1.1) draw, its parts asserted;
+   on a Zipf(1.1) draw, its parts asserted; then B4's lane route at G = 1
+   (also without an index), 103 and its last G for var and corr (both
+   compiled sets) on f64, f32 and int64 bases starting at an odd row, the
+   route asserted, floats bit-equal run to run;
 6. drives the main path through the public API: a device-resident table
    of N = 1e8 and 4e8 rows (int64 key with K = 100 categories, float64
    value, made on the card from seed 42), categorize, then
@@ -60,13 +63,14 @@ Run from the root of the repository on a machine with a CUDA card.  It
    df.std("v3") and df.std("v3", binby=["id4"]), each checked against
    plain torch (index_add_ of the formed moments, then the same formula;
    scatter_reduce for q7), with B4's and B5's launch counts, the
-   strategies and B5's parts asserted per query (q6-sd one part, q9
-   three);
+   strategies, B4's lane route and B5's parts asserted per query (q6-sd one
+   part, q9 three);
 9. times the main-path groupby, the five wide queries and the five
    statistics against plain PyTorch (5 repetitions, medians), and every
    kernel against its plain version and against its HBM floor at the copy
    bandwidth measured in the same run (B1 also on its warp route and at
-   the isin count's G = 1, B5 also at q6-sd's shape);
+   the isin count's G = 1, B4 also at df.std's G = 1, without an index as
+   df.std calls it, against torch.var_mean, B5 also at q6-sd's shape);
 10. holds both routes of B6 (probe: a static search tree, wholly in
     shared memory on b6, its top levels there and the rest in global memory
     on b6-wide) against its plain version (searchsorted, gather, compare):
@@ -95,33 +99,38 @@ Run from the root of the repository on a machine with a CUDA card.  It
     and, beside it, remembered), and B6 at the isin shapes (500 and 50 000
     ids: b6) and at the set grouper of k1e6 (b6-wide) against its plain
     version and torch.isin, on a tree built before the timing;
-13. holds B3x (grid_partition_extreme, the min/max mode of the partitioned
-    kernel) against its plain version (scatter_reduce_ with a drop bin) at G
-    in {1, 103, 10 609, 67 081, 1 000 003, 1 054 729} and N in {0, 1,
-    1_000_003, 1e8}: an int64 min, an f64 max with NaN, +-inf and -0.0, an
-    f32 min, an f64 min and an int64 max under a validity mask, alone and
-    with count + int64 + f64 sums riding the same partition, and again at
-    G = 1 000 003 on pre-sorted keys, on one key and on a Zipf(1.1) draw;
-    extremes exact by value, int sums exact, float sums to rtol 1e-9;
+13. holds B3x (the min/max mode of the partitioned kernel: its direct and
+    partition routes, grid_partition_extreme, and its resident route b3x-l2,
+    grid_resident_extreme) against its plain version (scatter_reduce_ with a
+    drop bin) at G in {1, 103, 10 609, 67 081, 1 000 003, 1 054 729} and N in
+    {0, 1, 1_000_003, 1e8}: an int64 min, an f64 max with NaN, +-inf and
+    -0.0, an f32 min, an f64 min and an int64 max under a validity mask, on
+    each route and with count + int64 + f64 sums riding the same partition,
+    and again at G = 1 000 003 on pre-sorted keys, on one key and on a
+    Zipf(1.1) draw; extremes exact by value, int sums exact, float sums to
+    rtol 1e-9;
 14. drives the binned-statistics path through the public API: beside the
     H2O-shaped columns (id4 and id6 categorized) x, y float64 normal, v
     float64 uniform in [0, 100) with 1% NaN and t int64, made on the card
     from seed 42, 1e8 rows: limits(["x", "y"], "minmax"), limits("x",
     "99.7%"), count(binby=[x, y], shape=256), mean(v, binby=[x, y],
-    shape=1024), max(v, binby=[x, y], shape=1024) (G = 1 054 729),
-    minmax(v, binby=x, shape=128), q7 on id6, groupby(id6, {sum v1, max v1,
-    min v2}) (sums and extremes from one scatter), first(v, t, binby=id4)
+    shape=1024), max(v, binby=[x, y], shape=1024) (G = 1 054 729, b3x-l2)
+    and shape=2000 (G = 4 012 009: 32 MB of keys, past L2: b3x), minmax(v,
+    binby=x, shape=128) (b3x-direct), q7 on id6, groupby(id6, {sum v1, max
+    v1, min v2}) (sums on b3-l2, extremes on b3x-l2), first(v, t, binby=id4)
     and first(v, t53, binby=id4) with int64 orders past 2^53 (compared as
     int64: the float64 answer differs), each checked against plain torch on
-    the same tensors, with the route each pass recorded and B3x's launch
-    count; and first on a small card frame where a cell's only order is
-    INT64_MAX;
-15. times those queries against plain PyTorch, and B3x at the shape of the
-    2-D max against its plain version and scatter_reduce_, and over the raw
-    rows (b3x-direct) at the shape of minmax by x.
+    the same tensors, with the route each pass recorded and each route of
+    B3x launched; and first on a small card frame where a cell's only order
+    is INT64_MAX;
+15. times those queries against plain PyTorch, and each route of B3x at its
+    query's shape against its plain version and scatter_reduce_: b3x-l2 at
+    the 2-D max of shape 1024 and at q7's, b3x at the 2-D max of shape 2000,
+    b3x-direct at minmax by x.
 
 It exits non-zero on any failure.  The line before the last is a JSON
-object with every kernel's launches, error, times, bound (the larger of the
+object with every kernel's (and each of B3x's routes') launches, error,
+times, bound (the larger of the
 bytes it must move over the card's published memory rate and its operations
 over the published peak) and, where one exists, the time of the PyTorch
 library call that computes the same function; the last line is
@@ -155,18 +164,18 @@ SET_KEYS = {"k100": 100, "k2000": 2000, "k1e6": H2O_K6}
 # NVIDIA's H100 SXM data sheet: HBM bytes/s; float32 operations/s outside the
 # tensor cores.  Integer adds and compares are counted at the float32 rate,
 # float64 operations at half of it.
-# beside the keys every kernel has: the index_add_ alone for B4 and B5, and
-# B5 at q6-sd's shape (var, one window); for B1 the isin count's shape
+# beside the keys every kernel has: the index_add_ alone for B4 and B5, B4
+# at df.std's shape (G = 1) and B5 at q6-sd's (var, one window); for B1 the
+# isin count's shape
 # (G = 1, count alone) and the main path's shape on the warp route; for
 # B6 torch.isin, its b6-wide route at the 1e6-key set grouper and b6 at the
 # 50 000 ids; for B3 its resident route at the same shape and the
-# partition's phases; for B3x the route over the raw rows at the shape of
-# minmax by x
+# partition's phases; for B3x's resident route q7's shape
 EXTRA_KEYS = ("library_add_ms", "isin_ms", "wide_launches", "wide_ms", "wide_plain_ms",
               "wide_library_ms", "wide_isin_ms", "wide_bound_ms", "wide_max_abs_err",
               "l2_launches", "l2_ms", "l2_plain_ms", "l2_max_abs_err", "count_ms",
-              "scatter_ms", "sums_ms", "direct_ms", "direct_plain_ms", "direct_library_ms",
-              "direct_bound_ms", "isin_wide_ms", "var_ms", "var_plain_ms", "var_bound_ms",
+              "scatter_ms", "sums_ms", "q7_ms", "q7_plain_ms", "q7_library_ms",
+              "q7_bound_ms", "isin_wide_ms", "var_ms", "var_plain_ms", "var_bound_ms",
               "var_library_ms", "var_max_abs_err", "g1_ms", "g1_plain_ms", "g1_bound_ms",
               "g1_library_ms", "g1_max_abs_err", "warp_ms")
 PEAK_BYTES = 3.35e12
@@ -448,7 +457,8 @@ def moment_kernels_vs_plain(plan, gm, agg):
         b5_limit = max(G for G in range(b4_limit + 1, 400_000, 97)
                        if gm.n_parts(G, C) <= plan.B5_MAX_PARTS)
         for G in (1, 103, b4_limit, b4_limit + 1, 10_609, b5_limit):
-            name = plan.moment_strategy(max(KERNEL_SIZES), G, C)
+            name = plan.moment_strategy(max(KERNEL_SIZES), G, C, 1,
+                                        gm.compiled(len(terms) // 3, terms))
             print(f"plan at G={G} ({label}, {C} terms): {name}", flush=True)
             check(name in (plan.B4, plan.B5), f"a moment kernel at G={G}")
             for n in KERNEL_SIZES:
@@ -470,6 +480,53 @@ def moment_kernels_vs_plain(plan, gm, agg):
                 print(f"{what} vs plain: counts exact, f64 max abs err {err!r}", flush=True)
                 del idx, x, y, bases
     worst[plan.B5] = max(worst[plan.B5], window_edges_vs_plain(gm, agg, gen))
+    worst[plan.B4] = max(worst[plan.B4], b4_routes_vs_plain(gm, agg, gen))
+    return worst
+
+
+def b4_routes_vs_plain(gm, agg, gen, n=1_000_003):
+    """B4's lane route at G = 1 (terms held in registers), 103 (three warps
+    of lane grids a CTA for var) and the last G where LANE_MIN_WARPS warps
+    fit, on f64, f32 and int64 bases with NaN among the floats, on columns
+    that start at an odd row; the route asserted and the floats bit-equal
+    run to run.  Returns the worst float error."""
+    worst = 0.0
+    for label, terms in (("var", agg.VAR_TERMS), ("corr", agg.CORR_TERMS)):
+        n_float = sum(a >= 0 for a, *_ in terms)
+        compiled = gm.compiled(len(terms) // 3, terms)
+        warps = gm.LANE_MIN_WARPS[compiled]
+        edge = gm.CLUSTER_SMEM // (warps * gm.lane_warp_bytes(1, 1, n_float))
+        for G in (1, 103, edge):
+            if not gm.route(G, 1, n_float, compiled) == gm.LANE:
+                continue
+            for dtype in (torch.float64, torch.float32, torch.int64):
+                idx = torch.randint(-2, G + G // 8 + 1, (n + 1,), generator=gen, device="cuda",
+                                    dtype=torch.int32)[1:]
+                bases = []
+                for j in range(len(terms) // 3):
+                    if dtype == torch.int64:
+                        b = torch.randint(-1000, 1000, (n + 1,), generator=gen, device="cuda")
+                    else:
+                        b = torch.randn(n + 1, generator=gen, device="cuda", dtype=dtype) * 100
+                        b[j::97 - 8 * j] = float("nan")
+                    bases.append(b[1:])
+                # at G = 1 also without an index (every row in bin 0), as
+                # a statistic without binby or selection calls it
+                for rows in (idx, None) if G == 1 else (idx,):
+                    got = gm.grid_moments(rows, bases, terms, G)
+                    check(gm.grid_moments.last_route == gm.LANE, f"B4's lane route at G={G}")
+                    again = gm.grid_moments(rows, bases, terms, G)
+                    want = gm.grid_moments_reference(rows, bases, terms, G)
+                    torch.cuda.synchronize()
+                    what = (f"b4 lane route {label} G={G} {dtype} bases at an odd row"
+                            f"{', no idx' if rows is None else ''}")
+                    check(torch.equal(got[0], want[0]), f"counts, {what}")
+                    check(torch.allclose(got[1], want[1], rtol=RTOL, atol=ATOL), f"sums, {what}")
+                    check(torch.equal(got[1], again[1]), f"floats bit-equal run to run, {what}")
+                    err = (got[1] - want[1]).abs().max().item()
+                    worst = max(worst, err)
+                    print(f"{what} N={n} vs plain: counts exact, floats bit-equal run to run, "
+                          f"f64 max abs err {err!r}", flush=True)
     return worst
 
 
@@ -840,6 +897,9 @@ def stats_path(vt, plan, df, cols):
         check(moments == [kernel], f"{name}: moment kernels {moments}, expected {kernel}")
         check(window.last_parts == parts, f"{name}: B5's parts {window.last_parts}, expected "
                                           f"{parts}")
+        if kernel == plan.B4:
+            route = plan.MOMENT_KERNELS[plan.B4].last_route
+            check(route == "lane", f"{name}: B4's route {route}, expected its lane route")
     torch.cuda.synchronize()
     launches = {name: kernel.launches for name, kernel in kernels.items()}
     for name, out in outs.items():
@@ -890,11 +950,14 @@ def stats_timings(df, cols, vt, plan, agg, gm, label):
         # q6-sd's shape: var of v3 over the same grid, one window
         "b5 var": (((cols["id4"] + 1) * (H2O_K + 3) + cols["id5"] + 1).to(torch.int32), G2,
                    [cols["v3"]], agg.VAR_TERMS, 12, "idx 4 + v3 8"),
+        # df.std's shape: var of v3 over one cell, no index (every row in bin 0)
+        "b4 g1": (None, 1, [cols["v3"]], agg.VAR_TERMS, 8, "v3 8"),
     }
     results = {}
     for label, (idx, G, bases, terms, bytes_per_row, bytes_note) in shapes.items():
         name = label.split()[0]
-        check(plan.moment_strategy(H2O_ROWS, G, len(terms)) == name, f"{name} at G={G}")
+        check(plan.moment_strategy(H2O_ROWS, G, len(terms), 1, gm.compiled(len(bases), terms))
+              == name, f"{name} at G={G}")
         args = (idx, bases, terms, G)
         kernel_ms = cuda_ms(lambda: plan.MOMENT_KERNELS[name](*args), 5)
         plain_ms = cuda_ms(lambda: plan.MOMENT_PLAIN[name](*args), 2)
@@ -915,20 +978,30 @@ def stats_timings(df, cols, vt, plan, agg, gm, label):
         bound_ms, bound_by = bound(
             H2O_ROWS * bytes_per_row + 8 * len(terms) * G,
             {"f64": 2 * H2O_ROWS * n_float, "int": H2O_ROWS * (len(terms) - n_float)})
-        library_ms, add_ms = library_moments_ms(idx, bases, terms, G, gm)
-        print(f"[{label}] {name}: bound {bound_ms!r} ms by {bound_by} at "
-              f"{PEAK_BYTES / 1e12} TB/s; formed terms + one index_add_ of the [N, "
-              f"{len(terms)}] float64 matrix (the library call) {library_ms!r} ms, the "
-              f"index_add_ alone {add_ms!r} ms", flush=True)
+        if G == 1:  # one call computes the same function over one cell
+            library_ms, add_ms = cuda_ms(lambda: torch.var_mean(bases[0]), 5), None
+            print(f"[{label}] {name} at G = 1: bound {bound_ms!r} ms by {bound_by}; "
+                  f"torch.var_mean (the library call) {library_ms!r} ms", flush=True)
+        else:
+            library_ms, add_ms = library_moments_ms(idx, bases, terms, G, gm)
+            print(f"[{label}] {name}: bound {bound_ms!r} ms by {bound_by} at "
+                  f"{PEAK_BYTES / 1e12} TB/s; formed terms + one index_add_ of the [N, "
+                  f"{len(terms)}] float64 matrix (the library call) {library_ms!r} ms, the "
+                  f"index_add_ alone {add_ms!r} ms", flush=True)
         results[label] = {"ms": kernel_ms, "plain_ms": plain_ms, "err": err,
                           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                           "library_add_ms": add_ms}
         del idx
-    # one entry of the kernels line for B5: q9's shape, q6-sd's beside it
+    # one entry of the kernels line for B5: q9's shape, q6-sd's beside it;
+    # for B4 std by id4's, df.std's beside it
     var = results.pop("b5 var")
     results[plan.B5].update(var_ms=var["ms"], var_plain_ms=var["plain_ms"],
                             var_bound_ms=var["bound_ms"], var_library_ms=var["library_ms"],
                             var_max_abs_err=var["err"])
+    g1 = results.pop("b4 g1")
+    results[plan.B4].update(g1_ms=g1["ms"], g1_plain_ms=g1["plain_ms"],
+                            g1_bound_ms=g1["bound_ms"], g1_library_ms=g1["library_ms"],
+                            g1_max_abs_err=g1["err"])
     return results
 
 
@@ -1319,10 +1392,11 @@ def sets_timings(df, cols, values, vt, probe, label):
 EXTREME_GS = (1, 103, 10_609, 67_081, 1_000_003, 1_054_729)
 BINBY_EXPECT = {  # what the last pass of each query must record
     "mean 2-D 1024": {"additive": "b3-l2"},
-    "max 2-D 1024": {"extremes": "b3x"},
+    "max 2-D 1024": {"extremes": "b3x-l2"},
+    "max 2-D 2000": {"extremes": "b3x"},  # 32 MB of keys: past the resident route
     "minmax by x 128": {"extremes": "b3x-direct"},
-    "q7": {"extremes": "b3x"},
-    "sum max min by id6": {"additive": "b3", "extremes": "b3x", "scatter": "shared"},
+    "q7": {"extremes": "b3x-l2"},
+    "sum max min by id6": {"additive": "b3-l2", "extremes": "b3x-l2"},
     "first by id4": {"first": "b3x-direct"},
     "first by id4 past 2^53": {"first": "b3x-direct"},
 }
@@ -1360,14 +1434,17 @@ def extreme_kernel_vs_plain(gp, ge):
                 idx = skewed_keys(kind, gen, n, G)
             want = ge.grid_extreme_batch(idx, cols, modes, valids, G)
             got, _, _ = gp.grid_partition_extreme(idx, cols, modes, valids, G)
+            resident = gp.grid_resident_extreme(idx, cols, modes, valids, G)
             both, int_sums, float_sums = gp.grid_partition_extreme(
                 idx, cols, modes, valids, G, [ints], [summed], True)
             want_i, want_f = gp.grid_partition_reference(idx, [ints], [summed], G, True)
             torch.cuda.synchronize()
             what = f"b3x G={G} N={n} {kind} keys"
-            for k, (a, b, w) in enumerate(zip(got, both, want)):
+            for k, (a, r, b, w) in enumerate(zip(got, resident, both, want)):
                 check(a.dtype == w.dtype and torch.equal(a, w),
                       f"{modes[k]} of {w.dtype} column {k} alone, {what}")
+                check(r.dtype == w.dtype and torch.equal(r, w),
+                      f"{modes[k]} of {w.dtype} column {k} on b3x-l2, {what}")
                 check(b.dtype == w.dtype and torch.equal(b, w),
                       f"{modes[k]} of {w.dtype} column {k} beside sums, {what}")
             check(torch.equal(int_sums, want_i), f"int sums beside extremes, {what}")
@@ -1376,9 +1453,9 @@ def extreme_kernel_vs_plain(gp, ge):
             err = (float_sums - want_f).abs().max().item() if n else 0.0
             worst = max(worst, err)
             route = "b3x-direct" if gp.extreme_direct_fits(G, len(cols)) else "b3x"
-            print(f"{what} vs plain: five extremes exact alone ({route}) and beside sums "
-                  f"(b3x), int sums exact, f64 sums max abs err {err!r}", flush=True)
-            del idx, want, got, both
+            print(f"{what} vs plain: five extremes exact alone ({route}), on b3x-l2 and "
+                  f"beside sums (b3x), int sums exact, f64 sums max abs err {err!r}", flush=True)
+            del idx, want, got, resident, both
     return worst
 
 
@@ -1410,6 +1487,7 @@ def binby_queries(vt):
         "count 2-D 256": lambda df: df.count(binby=["x", "y"], shape=256),
         "mean 2-D 1024": lambda df: df.mean("v", binby=["x", "y"], shape=1024),
         "max 2-D 1024": lambda df: df.max("v", binby=["x", "y"], shape=1024),
+        "max 2-D 2000": lambda df: df.max("v", binby=["x", "y"], shape=2000),
         "minmax by x 128": lambda df: df.minmax("v", binby="x", shape=128),
         "q7": lambda df: df.groupby("id6", agg={"max_v1": a.max("v1"), "min_v2": a.min("v2")}),
         "sum max min by id6": lambda df: df.groupby(
@@ -1493,6 +1571,7 @@ def binby_plain(cols):
         "count 2-D 256": lambda: torch.bincount(cells(256)[0], minlength=256 * 256),
         "mean 2-D 1024": lambda: mean(1024),
         "max 2-D 1024": lambda: max2d(1024),
+        "max 2-D 2000": lambda: max2d(2000),
         "minmax by x 128": lambda: minmax1d(128),
         "q7": lambda: (extreme(id6, cols["v1"], H2O_K6, "amax"),
                        extreme(id6, cols["v2"], H2O_K6, "amin")),
@@ -1523,7 +1602,8 @@ def binby_check(name, out, want):
     elif name == "mean 2-D 1024":
         check(torch.allclose(torch.as_tensor(out), want.cpu(), rtol=RTOL, atol=ATOL,
                              equal_nan=True), "2-D means")
-    elif name in ("max 2-D 1024", "minmax by x 128", "first by id4", "first by id4 past 2^53"):
+    elif name in ("max 2-D 1024", "max 2-D 2000", "minmax by x 128", "first by id4",
+                  "first by id4 past 2^53"):
         same(out, want, f"{name} exact")
     else:
         names = ["max_v1", "min_v2"] if name == "q7" else ["s", "hi", "lo"]
@@ -1532,32 +1612,48 @@ def binby_check(name, out, want):
         check(out.evaluate(names[0]).dtype.name == "int64", f"{name} keeps int64")
 
 
+def launch_counts(plan, gp):
+    """The launches of every grid kernel, B3x by route."""
+    counts = {name: kernel.launches
+              for name, kernel in {**plan.KERNELS, **plan.MOMENT_KERNELS}.items()}
+    direct = gp.grid_partition_extreme.direct_launches
+    counts.update({plan.B3X: gp.grid_partition_extreme.launches - direct,
+                   plan.B3X_DIRECT: direct, plan.B3X_L2: gp.grid_resident_extreme.launches})
+    return counts
+
+
+def zero_launches(plan, gp):
+    for kernel in (*plan.KERNELS.values(), *plan.MOMENT_KERNELS.values(),
+                   gp.grid_partition_extreme, gp.grid_resident_extreme):
+        kernel.launches = 0
+    gp.grid_partition_extreme.direct_launches = 0
+
+
 def binby_path(vt, plan, gp, cols):
     """Phase 14: the binned statistics once, checked; returns the table and
     the launches of each kernel during them."""
     df, cols = make_binby(vt, cols)
     plain = binby_plain(cols)
-    kernels = {**plan.KERNELS, **plan.MOMENT_KERNELS, plan.B3X: gp.grid_partition_extreme}
-    for kernel in kernels.values():
-        kernel.launches = 0
+    zero_launches(plan, gp)
     outs = {}
     for name, query in binby_queries(vt).items():
-        before = {route: kernel.launches for route, kernel in kernels.items()}
+        before = launch_counts(plan, gp)
         outs[name] = query(df)
         strategies = df.executor.trace_log[-1]["strategies"]
+        after = launch_counts(plan, gp)
         print(f"binby {name} N={H2O_ROWS}: pass strategies {strategies}, B3x launches "
-              f"{gp.grid_partition_extreme.launches - before[plan.B3X]}", flush=True)
+              f"{ {r: after[r] - before[r] for r in (plan.B3X_DIRECT, plan.B3X_L2, plan.B3X)} }",
+              flush=True)
         if name in BINBY_EXPECT:
             check(strategies == [BINBY_EXPECT[name]],
                   f"{name}: strategies {strategies}, expected {BINBY_EXPECT[name]}")
             # every route the pass names launched its kernel
             for route in BINBY_EXPECT[name].values():
-                route = plan.B3X if route == plan.B3X_DIRECT else route
-                check(route not in kernels or kernels[route].launches > before[route],
+                check(route not in after or after[route] > before[route],
                       f"{name}: launches of {route}")
     outs["first of an int64 max order"] = first_at_int64_max(vt)
     torch.cuda.synchronize()
-    launches = {name: kernel.launches for name, kernel in kernels.items()}
+    launches = launch_counts(plan, gp)
     for name, out in outs.items():
         if name == "first of an int64 max order":
             continue  # checked where it ran
@@ -1590,10 +1686,48 @@ def first_at_int64_max(vt):
     return out
 
 
-def binby_timings(df, cols, vt, gp, ge, label):
-    """Phase 15: query medians, and B3x at the shape of the 2-D max (G =
-    1 054 729, one f64 column with NaN) against its plain version and
-    scatter_reduce_ alone."""
+def extreme_timing(kernel, args, label, what, ge):
+    """One B3x route at one shape: its time against its plain version and
+    scatter_reduce_ alone (the library call; the NaN rows sent to a drop
+    bin), checked exactly, and its bound."""
+    idx, cols, modes, valids, G = args
+    kernel_ms = cuda_ms(lambda: kernel(*args), 5)
+    plain_ms = cuda_ms(lambda: ge.grid_extreme_batch(*args), 2)
+    got, want = kernel(*args), ge.grid_extreme_batch(*args)
+    for g, w in zip(got, want):
+        check(torch.equal(g, w), f"{what} at the query shape")
+    bins = ge.extreme_bins(idx, G)
+    dropped = [bins.masked_fill(torch.isnan(c), G) if c.is_floating_point() else bins
+               for c in cols]
+
+    def library():
+        outs = []
+        for c, m, b in zip(cols, modes, dropped):
+            out = torch.full((G + 1,), ge.identity(c.dtype, m), dtype=c.dtype, device="cuda")
+            outs.append(out.scatter_reduce_(0, b, c, ge.MODES[m], include_self=True)[:G])
+        return outs
+    library_ms = cuda_ms(library, 2)
+    for g, w in zip(library(), want):
+        check(torch.equal(g, w), f"{what} equals scatter_reduce_")
+    # in: idx 4 B and 8 B a column per row; out: the grids; a compare per
+    # row and column
+    n, E = idx.shape[0], len(cols)
+    bound_ms, bound_by = bound(n * (4 + 8 * E) + 8 * E * G, {"f64": n * E})
+    print(f"[{label}] {what} N={n} G={G} E={E}: kernel {kernel_ms!r} ms vs plain {plain_ms!r} "
+          f"ms, scatter_reduce_ alone (the library call) {library_ms!r} ms; bound "
+          f"{bound_ms!r} ms by {bound_by} at {PEAK_BYTES / 1e12} TB/s", flush=True)
+    err = max(float((g.double() - w.double()).masked_fill(g == w, 0.0).abs().max())
+              for g, w in zip(got, want))
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "err": err, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def binby_timings(df, cols, vt, gp, ge, plan, label):
+    """Phase 15: query medians, and each route of B3x at its query's shape
+    against its plain version and scatter_reduce_ alone: b3x-l2 at the 2-D
+    max (G = 1 054 729, one f64 column with NaN) and at q7's (two int64
+    columns over id6), b3x over a partition at the 2-D max of shape 2000 (G =
+    4 012 009) and b3x-direct at minmax by x."""
     from vaex_tpu_torch.ops.binners import BinnerScalar, fuse_bins
     from vaex_tpu_torch.ops.nullable import NA
     plain = binby_plain(cols)
@@ -1603,59 +1737,39 @@ def binby_timings(df, cols, vt, gp, ge, label):
         print(f"[{label}] binby {name} N={H2O_ROWS}: median {port_med!r} s (port) vs "
               f"{plain_med!r} s (plain torch), reps {REPS}; port s {port_s}; "
               f"plain s {plain_s}", flush=True)
-    binners = [BinnerScalar(c, *(float(m) for m in torch.aminmax(cols[c])), 1024)
-               for c in ("x", "y")]
-    prolog_ms = cuda_ms(lambda: fuse_bins(binners, [b.to_bins(NA(cols[b.expression]))
-                                                    for b in binners]), 3)
-    idx = fuse_bins(binners, [b.to_bins(NA(cols[b.expression])) for b in binners])
-    G = binners[0].shape * binners[1].shape
-    args = (idx, [cols["v"]], ["max"], [None], G)
-    kernel_ms = cuda_ms(lambda: gp.grid_partition_extreme(*args), 5)
-    plain_ms = cuda_ms(lambda: ge.grid_extreme_batch(*args), 2)
-    got = gp.grid_partition_extreme(*args)[0][0]
-    want = ge.grid_extreme_batch(*args)[0]
-    check(torch.equal(got, want), "b3x at the query shape")
-    # the library call alone: the bins as int64, the NaN rows sent to a drop bin
-    bins = ge.extreme_bins(idx, G).masked_fill(torch.isnan(cols["v"]), G)
-
-    def library():
-        out = torch.full((G + 1,), float("-inf"), dtype=torch.float64, device="cuda")
-        return out.scatter_reduce_(0, bins, cols["v"], "amax", include_self=True)
-    library_ms = cuda_ms(library, 2)
-    check(torch.equal(library()[:G], want), "b3x equals scatter_reduce_")
-    # in: idx 4 B and the column 8 B per row; out: the grid; a compare per row
-    bound_ms, bound_by = bound(H2O_ROWS * 12 + 8 * G, {"f64": H2O_ROWS})
-    copy_bw, _ = copy_bandwidth(cols["v"])
-    floor_ms = H2O_ROWS * 12 / copy_bw * 1e3
-    print(f"[{label}] b3x N={H2O_ROWS} G={G} (max of v over the 2-D grid): kernel {kernel_ms!r} "
-          f"ms vs plain {plain_ms!r} ms, scatter_reduce_ alone (the library call) "
-          f"{library_ms!r} ms; HBM floor at 12 B/row {floor_ms!r} ms at the copy bandwidth, "
-          f"kernel at {floor_ms / kernel_ms!r} of it; bound {bound_ms!r} ms by {bound_by} at "
-          f"{PEAK_BYTES / 1e12} TB/s; the two scalar binners and the fuse (eager torch) "
-          f"{prolog_ms!r} ms", flush=True)
+    results = {}
+    for shape, route, kernel in ((1024, plan.B3X_L2, gp.grid_resident_extreme),
+                                 (2000, plan.B3X, lambda *a: gp.grid_partition_extreme(*a)[0])):
+        binners = [BinnerScalar(c, *(float(m) for m in torch.aminmax(cols[c])), shape)
+                   for c in ("x", "y")]
+        idx = fuse_bins(binners, [b.to_bins(NA(cols[b.expression])) for b in binners])
+        G = binners[0].shape * binners[1].shape
+        check(plan.extreme_strategy(H2O_ROWS, G, 1) == route, f"{route} at G={G}")
+        if shape == 1024:
+            prolog_ms = cuda_ms(lambda: fuse_bins(binners, [b.to_bins(NA(cols[b.expression]))
+                                                            for b in binners]), 3)
+            print(f"[{label}] the two scalar binners and the fuse (eager torch) at shape 1024: "
+                  f"{prolog_ms!r} ms", flush=True)
+        results[route] = extreme_timing(kernel, (idx, [cols["v"]], ["max"], [None], G), label,
+                                        f"{route} (max of v over the 2-D grid of shape {shape})",
+                                        ge)
+        del idx
+    # b3x-l2 at q7's shape: max of v1 and min of v2 over id6's fused bins
+    G7 = H2O_K6 + 3
+    q7 = ((cols["id6"] + 1).to(torch.int32), [cols["v1"], cols["v2"]], ["max", "min"],
+          [None, None], G7)
+    check(plan.extreme_strategy(H2O_ROWS, G7, 2) == plan.B3X_L2, "q7's shape takes b3x-l2")
+    at_q7 = extreme_timing(gp.grid_resident_extreme, q7, label, "b3x-l2 (q7)", ge)
+    results[plan.B3X_L2].update({f"q7_{k}": at_q7[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                                 "library_ms")})
+    del q7
     # the route over the raw rows at the shape of minmax(v, binby=x, shape=128)
     axis = BinnerScalar("x", *(float(m) for m in torch.aminmax(cols["x"])), 128)
-    idx1, G1 = axis.to_bins(NA(cols["x"])), axis.shape
-    direct = (idx1, [cols["v"]], ["max"], [None], G1)
-    check(gp.extreme_direct_fits(G1, 1), "the 1-D grid takes the direct route")
-    direct_ms = cuda_ms(lambda: gp.grid_partition_extreme(*direct), 5)
-    direct_plain_ms = cuda_ms(lambda: ge.grid_extreme_batch(*direct), 1)
-    check(torch.equal(gp.grid_partition_extreme(*direct)[0][0], ge.grid_extreme_batch(*direct)[0]),
-          "b3x-direct at the query shape")
-    bins1 = ge.extreme_bins(idx1, G1).masked_fill(torch.isnan(cols["v"]), G1)
-
-    def library_direct():
-        out = torch.full((G1 + 1,), float("-inf"), dtype=torch.float64, device="cuda")
-        return out.scatter_reduce_(0, bins1, cols["v"], "amax", include_self=True)
-    direct_library_ms = cuda_ms(library_direct, 1)
-    direct_bound_ms, _ = bound(H2O_ROWS * 12 + 8 * G1, {"f64": H2O_ROWS})
-    print(f"[{label}] b3x-direct N={H2O_ROWS} G={G1} (max of v by x): kernel {direct_ms!r} ms "
-          f"vs plain {direct_plain_ms!r} ms, scatter_reduce_ alone {direct_library_ms!r} ms; "
-          f"bound {direct_bound_ms!r} ms by bytes", flush=True)
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "err": 0.0, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms, "direct_ms": direct_ms,
-            "direct_plain_ms": direct_plain_ms, "direct_library_ms": direct_library_ms,
-            "direct_bound_ms": direct_bound_ms}
+    direct = (axis.to_bins(NA(cols["x"])), [cols["v"]], ["max"], [None], axis.shape)
+    check(gp.extreme_direct_fits(axis.shape, 1), "the 1-D grid takes the direct route")
+    results[plan.B3X_DIRECT] = extreme_timing(lambda *a: gp.grid_partition_extreme(*a)[0],
+                                              direct, label, "b3x-direct (max of v by x)", ge)
+    return results
 
 
 def main():
@@ -1683,7 +1797,8 @@ def main():
     # B3x is the min/max mode of B3's source, b3-l2 its resident route
     sources = {plan.B1: "grid_additive", plan.B2: "grid_window", plan.B3: "grid_partition",
                plan.B4: "grid_moments", plan.B5: "grid_moments_window", "b6": "probe",
-               plan.B3X: "grid_partition", plan.B3_L2: "grid_partition"}
+               plan.B3X: "grid_partition", plan.B3X_L2: "grid_partition",
+               plan.B3X_DIRECT: "grid_partition", plan.B3_L2: "grid_partition"}
     for name, (path, seconds, log) in kernel_build.build(*dict.fromkeys(
             sources.values())).items():
         print(f"built {os.path.relpath(path, HERE)} in {seconds:.1f} s")
@@ -1702,9 +1817,8 @@ def main():
     extreme_kernel_vs_plain(gp, ge)
     print("min/max kernel vs plain passed", flush=True)
 
-    for kernel in (*plan.KERNELS.values(), *plan.MOMENT_KERNELS.values(), probe.probe,
-                   gp.grid_partition_extreme):
-        kernel.launches = 0
+    zero_launches(plan, gp)
+    probe.probe.launches = 0
     tables = {n: main_path(n, vt) for n in MAIN_SIZES}
     main_launches = {name: kernel.launches for name, kernel in plan.KERNELS.items()}
     check(main_launches[plan.B1] > 0, "grid_additive was not launched during the main path")
@@ -1733,11 +1847,12 @@ def main():
     del sets_df, sets_cols
 
     binby_df, binby_cols, binby_launches = binby_path(vt, plan, gp, h2o_cols)
-    check(binby_launches[plan.B3X] > 0,
-          "grid_partition_extreme was not launched during the binned-statistics path")
-    check(binby_launches[plan.B3] > 0 and binby_launches[plan.B3_L2] > 0,
-          "both routes of grid_partition were launched during the binned-statistics path")
-    extremes = binby_timings(binby_df, binby_cols, vt, gp, ge, label)
+    for route in (plan.B3X_DIRECT, plan.B3X_L2, plan.B3X):
+        check(binby_launches[route] > 0,
+              f"B3x's route {route} was not launched during the binned-statistics path")
+    check(binby_launches[plan.B3_L2] > 0,
+          "b3-l2 was not launched during the binned-statistics path")
+    extremes = binby_timings(binby_df, binby_cols, vt, gp, ge, plan, label)
     wide[plan.B3]["l2_launches"] = h2o_launches[plan.B3_L2]
 
     measured = {plan.B1: (main_launches[plan.B1], results[MAIN_SIZES[0]]),
@@ -1746,17 +1861,22 @@ def main():
                 plan.B4: (stats_launches[plan.B4], moments[plan.B4]),
                 plan.B5: (stats_launches[plan.B5], moments[plan.B5]),
                 "b6": (sets_launches["b6"], sets),
-                plan.B3X: (binby_launches[plan.B3X], extremes)}
+                **{route: (binby_launches[route], extremes[route])
+                   for route in (plan.B3X_L2, plan.B3X, plan.B3X_DIRECT)}}
     replaces = {plan.B1: "vaex_tpu/ops/pallas_gridagg.py:474",
                 plan.B2: "vaex_tpu/ops/pallas_gridagg.py:239",
                 plan.B3: "vaex_tpu/ops/pallas_partition.py:72",
                 plan.B4: "vaex_tpu/ops/pallas_gridagg.py:45",
                 plan.B5: "vaex_tpu/ops/pallas_gridagg.py:126",
                 "b6": "vaex_tpu/ops/pallas_probe.py:37",
-                plan.B3X: "vaex_tpu/ops/pallas_partition.py:287"}
+                **dict.fromkeys((plan.B3X_L2, plan.B3X, plan.B3X_DIRECT),
+                                "vaex_tpu/ops/pallas_partition.py:287")}
+    names = {plan.B3X_L2: "grid_resident_extreme (b3x-l2)",
+             plan.B3X: "grid_partition_extreme (b3x)",
+             plan.B3X_DIRECT: "grid_partition_extreme (b3x-direct)"}
     print(label)
     print(json.dumps({"kernels": [{
-        "name": "grid_partition_extreme" if name == plan.B3X else sources[name],
+        "name": names.get(name, sources[name]),
         "route": "cuda",
         "source": f"vaex_tpu_torch/csrc/{sources[name]}.cu",
         "replaces": replaces[name],

@@ -10,13 +10,14 @@ The first form builds the chip_smoke.py main-path table on the card (int64
 key with K = 100 categories, float64 value, seed 42) and profiles
 ``groupby("i1", agg={sum, count}, sort=True)``.  ``--h2o`` builds
 chip_smoke.py's H2O-groupby-shaped table (1e8 rows) and profiles its q2,
-2-D binby, q3 and q5 queries and the statistics q6-sd, q7 and q9.
+2-D binby, q3 and q5 queries and the statistics q6-sd, q7, q9, df.std and
+std by id4.
 ``--sets`` profiles chip_smoke.py's set-based queries on the same table
 without categorize (isin as a selection and a filter, groupby over raw keys
 through the dense and the set grouper, nunique, unique), each with its
 pre-passes.  ``--binby`` profiles chip_smoke.py's binned statistics over
 continuous axes on that table plus x, y, v and t (limits, 2-D count, mean
-and max, minmax by x, q7, sums and extremes by id6 from one scatter, first).
+and max, minmax by x, q7, sums and extremes by id6, first).
 Each query is warmed up, then run REPS times under
 torch.profiler, each call ended by ``torch.cuda.synchronize()``.
 
@@ -59,8 +60,8 @@ def busy_us(intervals):
 # kernel names of csrc/*.cu
 GRID_KERNELS = ("grid_partials", "lane_partials", "window_cluster", "partition_count",
                 "partition_scatter", "partition_sums", "resident_add", "fold_partials",
-                "moment_partials", "moment_window_walk", "probe_tree", "partition_extremes",
-                "fold_extremes")
+                "moment_partials", "moment_lanes", "moment_window_walk", "probe_tree",
+                "partition_extremes", "resident_extremes", "fold_extremes")
 
 
 def profile(label, query):
@@ -105,7 +106,8 @@ def h2o(vt):
     import chip_smoke
     df, _ = chip_smoke.make_h2o(vt)
     stats = chip_smoke.stats_queries(vt)
-    queries = {**chip_smoke.h2o_queries(vt), **{q: stats[q] for q in ("q6-sd", "q7", "q9")}}
+    queries = {**chip_smoke.h2o_queries(vt),
+               **{q: stats[q] for q in ("q6-sd", "q7", "q9", "df.std", "std by id4")}}
     for name, query in queries.items():
         profile(f"H2O {name} N={chip_smoke.H2O_ROWS}", lambda: query(df))
 

@@ -50,33 +50,41 @@ baseline at the shapes of the main path, the isin count, df.sum and
 chip_smoke.py's phase 3.
 
 ``--moments`` sweeps the moment kernels instead, the source of
-``moment_strategy``'s cut-offs: it prints the atomics of B4's and B5's SASS
-(and the baseline's), checks B4 and B5 against their plain versions at
-N = 1_000_003 (counts exact, floats to rtol 1e-9; it stops there on a
-mismatch), breaks B5 down at G = 10 609 and 3000 (the walk with a count,
-then the base loads and the terms added one at a time through the
-run-time tables, then var's and corr's terms through the tables beside
-their compiled sets) and, with ``--baseline``, times B5 against the
-baseline's at q6-sd's and q9's shapes in turns; then times B4 (where
-its grid fits), B5 (up to 64 parts) and the baseline's B5, both routes of
-B3 over the formed term columns and, at a few G, the plain version, for
-C = 3 (var of an f64 column: x, x*x, count) and C = 6 (corr of two int64
-columns, as H2O's q9: x*y, x, y, x*x, y*y, count), with a NaN in every
-97th f64 value; and B5 against the baseline at G = 10 609 on sorted keys,
-one key and a Zipf(1.1) draw.
+``moment_strategy``'s cut-offs and of B4's ``LANE_MIN_WARPS``: it prints the
+atomics of B4's and B5's SASS (and the baseline's), checks both routes of B4
+(bit-equal run to run) and B5 against their plain versions at N = 1_000_003
+(counts exact, floats to rtol 1e-9; it stops there on a mismatch), breaks
+B5 down at G = 10 609 and 3000 (the walk with a count, then the base loads
+and the terms added one at a time through the run-time tables, then var's
+and corr's terms through the tables beside their compiled sets) and, with
+``--baseline``, times B5 against the baseline's at q6-sd's and q9's shapes
+in turns; then times B4's lane and warp routes and the baseline's B4 in
+turns (where each takes the grid; also the lane route through the run-time
+tables, x and x*x swapped so that the compiled set does not apply; at G = 1
+also without an index, and ``torch.var_mean``),
+B5 (up to 64 parts) and the baseline's B5, both routes of B3 over the
+formed term columns and, at a few G, the plain version, for C = 3 (var of
+an f64 column: x, x*x, count) and C = 6 (corr of two int64 columns, as
+H2O's q9: x*y, x, y, x*x, y*y, count), with a NaN in every 97th f64 value;
+and B5 against the baseline at G = 10 609 on sorted keys, one key and a
+Zipf(1.1) draw.
 
 ``--extremes`` sweeps the min/max kernel B3x, the source of
-``extreme_strategy``'s routes: it checks B3x against its plain version
-(``scatter_reduce_`` with a drop bin) at N = 1_000_003 for int64, f64 (NaN,
-+-inf, -0.0), f32, a validity and sums riding along, by value; then times,
-for E = 1, 2 and 4 f64 columns (min, max alternating; a NaN in every 97th
-value) across G: B3x as the plan routes it, B3x forced through the
-partition where the direct route would fit, and ``scatter_reduce_`` per
-column; and, from G = 32 768 on, count + f64 sum through the plan's kernel
-and one max on B3x as two calls against one call that shares the scatter.
-Before that it times the partition route at four bucket widths for E = 1,
-2, 4 and 8 (the source of ``EXT_GRID_BYTES`` and ``B3X_BATCH``) and, at
-G = 1 000 003, on sorted, single-key and Zipf(1.1) keys.
+``extreme_strategy``'s routes: it checks its three routes against the plain
+version (``scatter_reduce_`` with a drop bin) at N = 1_000_003 for int64,
+f64 (NaN, +-inf, -0.0), f32, a validity and sums riding along, by value, on
+uniform, sorted, single-key and Zipf(1.1) keys; then times, for E = 1, 2
+and 4 f64 columns (min, max alternating; a NaN in every 97th value), in
+turns: the resident route ``b3x-l2`` against the partition ``b3x`` and the
+baseline's B3x across G up to the resident budget and past it (to 2^24
+cells, 128 MiB of keys a column); the direct
+route against ``b3x-l2`` where both take the grid; both on the 2-D max's and
+q7's G on uniform, sorted, single-key and Zipf keys; the partition's phases
+(count, offsets + scatter, phase 2, fill + fold) at E = 1, 2 and 4; count +
+f64 sum beside E = 1 and 2 extreme columns as one shared scatter against
+the plan's sums and ``b3x-l2`` apart; the partition at three bucket widths
+(the source of ``EXT_GRID_BYTES`` and ``B3X_BATCH``); and every G as the
+plan routes it against ``scatter_reduce_``.
 """
 
 import os
@@ -113,8 +121,21 @@ def columns(n, C, gen):
     return ints, floats
 
 
-MOMENT_GS = (1, 8, 16, 32, 64, 103, 128, 256, 512, 1024, 3968, 10609, 32768, 65536, 100003,
+MOMENT_GS = (1, 8, 16, 32, 41, 55, 64, 103, 128, 256, 512, 1024, 3968, 10609, 32768, 65536, 100003,
              200003, 1000003)
+
+
+def table_terms(terms):
+    """var's or corr's terms with x and x*x swapped, and the row of each of
+    the given float terms among them: the same work, which B4 then takes
+    through the run-time tables, not the compiled set."""
+    at = {tuple(t[:2]): k for k, t in enumerate(terms)}
+    i, j = at[(0, -1)], at[(0, 0)]
+    swapped = list(terms)
+    swapped[i], swapped[j] = terms[j], terms[i]
+    floats = [t for t in terms if t[0] >= 0]
+    given = [t for t in swapped if t[0] >= 0]
+    return swapped, [given.index(t) for t in floats]
 
 
 def moment_inputs(n, C, gen):
@@ -159,19 +180,31 @@ def sweep_moments(n, gen, old):
         if old is not None:
             print_sass(f"{name} baseline", old.kernel_build.build(name)[name][0], ("ATOM", "RED"))
     for C in (3, 6):
-        for G in (103, 3968, 10609, 11623, 29057, 100003):
+        for G in (1, 2, 41, 42, 103, 121, 122, 3968, 10609, 11623, 29057, 100003):
             idx = torch.randint(-1, G + G // 8 + 1, (1_000_003,), generator=gen, device="cuda",
                                 dtype=torch.int32)
             bases, terms = moment_inputs(1_000_003, C, gen)
-            want = gm.grid_moments_reference(idx, bases, terms, G)
-            for kern in ((gm.grid_moments,) if gm.fits(G, C) else ()) + (
-                    gm.grid_moments_window,):
-                got = kern(idx, bases, terms, G)
+            # (label, kernel, idx, terms, the float rows in the order of terms)
+            kerns = [(f"b4 {how}", b4_route(gm, how), idx, terms, None)
+                     for how in (gm.LANE, gm.WARP) if b4_takes(gm, how, G, C)]
+            if b4_takes(gm, gm.LANE, G, C):
+                kerns.append(("b4 lane tables", b4_route(gm, gm.LANE), idx,
+                              *table_terms(terms)))
+            if G > 1:
+                kerns.append(("b5", gm.grid_moments_window, idx, terms, None))
+            else:  # no index: every row in bin 0
+                kerns.append(("b4 no idx", gm.grid_moments, None, terms, None))
+            for label, kern, rows, order, floats in kerns:
+                want = gm.grid_moments_reference(rows, bases, terms, G)
+                got, again = kern(rows, bases, order, G), kern(rows, bases, order, G)
+                if floats is not None:
+                    got, again = (got[0], got[1][floats]), (again[0], again[1][floats])
                 torch.cuda.synchronize()
                 ok = torch.equal(got[0], want[0]) and torch.allclose(got[1], want[1],
                                                                      rtol=1e-9, atol=1e-9)
-                print(f"check C={C} G={G} {kern.__name__}: {'ok' if ok else 'MISMATCH'}",
-                      flush=True)
+                same = torch.equal(got[1], again[1])
+                print(f"check C={C} G={G} {label}: {'ok' if ok else 'MISMATCH'}"
+                      f"{', floats bit-equal run to run' if same else ''}", flush=True)
                 if not ok:
                     return 1
     x = torch.randn(n, generator=gen, device="cuda", dtype=torch.float64) * 100
@@ -205,9 +238,23 @@ def sweep_moments(n, gen, old):
         for G in MOMENT_GS:
             idx = torch.randint(0, G, (n,), generator=gen, device="cuda", dtype=torch.int32)
             row = {}
-            if gm.fits(G, C):
-                row["b4"] = cuda_ms(lambda: gm.grid_moments(idx, bases, terms, G))
-            if gm.n_parts(G, C) <= 64:
+            for turn in range(2):
+                for how in (gm.LANE, gm.WARP):
+                    if b4_takes(gm, how, G, C):
+                        row[f"b4 {how}.{turn}"] = cuda_ms(
+                            lambda: b4_route(gm, how)(idx, bases, terms, G))
+                if b4_takes(gm, gm.LANE, G, C):
+                    row[f"b4 lane tables.{turn}"] = cuda_ms(
+                        lambda: b4_route(gm, gm.LANE)(idx, bases, table_terms(terms)[0], G))
+                if G == 1:
+                    row[f"b4 no idx.{turn}"] = cuda_ms(
+                        lambda: gm.grid_moments(None, bases, terms, G))
+                if old is not None and gm.fits(G, C):
+                    row[f"b4 baseline.{turn}"] = cuda_ms(
+                        lambda: old.grid_moments.grid_moments(idx, bases, terms, G))
+            if G == 1 and bases[0].is_floating_point():
+                row["torch.var_mean"] = cuda_ms(lambda: torch.var_mean(bases[0]))
+            if G > 1 and gm.n_parts(G, C) <= 64:
                 row["b5"] = cuda_ms(lambda: gm.grid_moments_window(idx, bases, terms, G))
                 if old is not None and baseline_parts(old, G, C) <= 64:
                     row["b5 baseline"] = cuda_ms(
@@ -225,7 +272,9 @@ def sweep_moments(n, gen, old):
                 row["b3-l2"] = cuda_ms(b3_l2)
             if G in (1, 103, 10609, 1000003):
                 row["plain"] = cuda_ms(lambda: gm.grid_moments_reference(idx, bases, terms, G), 1)
-            print(f"moments C={C} G={G} N={n} parts={gm.n_parts(G, C)}: "
+            warps = gm.CLUSTER_SMEM // gm.lane_warp_bytes(G, 1, C - 1)  # before MAX_WARPS
+            print(f"moments C={C} G={G} N={n} parts={gm.n_parts(G, C)} lane warps {warps} "
+                  f"planned {grid_plan_moments(G, C)}: "
                   + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
             del idx
     # skewed keys at q9's G
@@ -242,6 +291,32 @@ def sweep_moments(n, gen, old):
                   + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
             del idx
     return 0
+
+
+def b4_route(gm, how):
+    """B4 with its route forced to ``how``."""
+    def run(idx, bases, terms, G):
+        planned, gm.route = gm.route, lambda *a: how
+        try:
+            return gm.grid_moments(idx, bases, terms, G)
+        finally:
+            gm.route = planned
+    return run
+
+
+def b4_takes(gm, how, G, C):
+    """True where B4's route ``how`` takes C terms (one count) over G bins."""
+    if how == gm.LANE:
+        return gm.lane_warp_bytes(G, 1, C - 1) <= gm.CLUSTER_SMEM
+    return gm.fits(G, C)
+
+
+def grid_plan_moments(G, C):
+    from vaex_tpu_torch.ops import grid_moments as gm
+    from vaex_tpu_torch.ops import grid_plan
+    compiled = 1 if C == 3 else 2  # moment_inputs: var's compiled set at C = 3, corr's at 6
+    name = grid_plan.moment_strategy(100_000_000, G, C, 1, compiled)
+    return f"{name} ({gm.route(G, 1, C - 1, compiled)})" if name == grid_plan.B4 else name
 
 
 def baseline_parts(old, G, C):
@@ -267,6 +342,50 @@ def same_by_value(got, want):
     return all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
 
 
+def forced_partition(gp):
+    """grid_partition_extreme with the direct route switched off."""
+    def run(*args):
+        planned, gp.extreme_direct_fits = gp.extreme_direct_fits, lambda G, E: False
+        try:
+            return gp.grid_partition_extreme(*args)[0]
+        finally:
+            gp.extreme_direct_fits = planned
+    return run
+
+
+def extreme_phases(gp, idx, cols, modes, G, label):
+    """ms of the partition route's count, offsets + scatter, phase 2 and fold
+    (the fold alone: the same launch over no rows)."""
+    lib = gp._library()
+    n, E = idx.shape[0], len(cols)
+    sh = gp.extreme_shape(n, G, E, 0, gp._sm_count(idx.device))
+    stream = torch.cuda.current_stream().cuda_stream
+    counts = torch.empty((sh.P, sh.n_seg), dtype=torch.int32, device="cuda")
+    count_ms = cuda_ms(lambda: lib.grid_partition_count(
+        idx.data_ptr(), n, G, sh.shift, sh.P, sh.seg_rows, sh.n_seg, gp.COUNT_THREADS,
+        counts.data_ptr(), stream), 5)
+    rows_ms = cuda_ms(lambda: gp._partition_rows(lib, idx, G, sh, cols, stream), 5)
+    lo, bucket_start, moved = gp._partition_rows(lib, idx, G, sh, cols, stream)
+    grids = [torch.empty(G, dtype=c.dtype, device="cuda") for c in cols]
+    keys = torch.full((E * G,), -1, dtype=torch.int64, device="cuda")
+    ctas = gp.extreme_ctas(n, E * min(sh.S, G) * 8, gp._sm_count(idx.device))
+
+    def phase2(rows):
+        keys.fill_(-1)
+        err = lib.grid_partition_extremes(
+            0, lo.data_ptr(), None, rows, bucket_start.data_ptr(), G, sh.shift, sh.P,
+            gp._pointers(moved), gp._pointers([None] * E), gp._pointers(grids),
+            gp._ints([gp.EXT_TYPES[c.dtype] for c in cols]),
+            gp._ints([m == "max" for m in modes]), E, ctas, gp.EXT_THREADS, keys.data_ptr(),
+            stream)
+        assert err == 0, err
+    phase2_ms = cuda_ms(lambda: phase2(n), 5)
+    fold_ms = cuda_ms(lambda: phase2(0), 5)
+    print(f"{label}: b3x partition E={E} G={G} N={n} S={sh.S} P={sh.P}: count {count_ms:.3f} "
+          f"ms, offsets + scatter {rows_ms - count_ms:.3f}, phase 2 {phase2_ms - fold_ms:.3f}, "
+          f"fill + fold {fold_ms:.3f}, in all {rows_ms + phase2_ms:.3f}", flush=True)
+
+
 def sweep_extremes(n, gen, old=None):
     from vaex_tpu_torch.ops import grid_extreme as ge
     from vaex_tpu_torch.ops import grid_partition as gp
@@ -285,9 +404,14 @@ def sweep_extremes(n, gen, old=None):
     summed = torch.randn(m, generator=gen, device="cuda", dtype=torch.float64)
     cols, modes = [ints, f64, f32, f64, ints], ["min", "max", "min", "min", "max"]
     valids = [None, None, None, valid, valid]
-    for G in (1, 103, 10609, 67081, 1000003):
-        idx = torch.randint(-2, G + G // 8 + 1, (m,), generator=gen, device="cuda",
-                            dtype=torch.int32)
+    checks = [(G, "uniform") for G in (1, 103, 10609, 67081, 1000003)]
+    checks += [(1000003, kind) for kind in SKEWS]
+    for G, kind in checks:
+        if kind == "uniform":
+            idx = torch.randint(-2, G + G // 8 + 1, (m,), generator=gen, device="cuda",
+                                dtype=torch.int32)
+        else:
+            idx = skewed_keys(kind, gen, m, G)
         want = ge.grid_extreme_batch(idx, cols, modes, valids, G)
         routes = {"planned": gp.extreme_direct_fits}
         if gp.extreme_direct_fits(G, len(cols)):
@@ -305,21 +429,116 @@ def sweep_extremes(n, gen, old=None):
                      "int sums": torch.equal(shared[1], sums[0]),
                      "float sums": torch.allclose(shared[2], sums[1], rtol=1e-9, atol=1e-9)}
             bad = [name for name, ok in parts.items() if not ok]
-            print(f"check G={G} b3x {route}: {'MISMATCH in ' + ', '.join(bad) if bad else 'ok'}",
-                  flush=True)
+            print(f"check G={G} {kind} keys b3x {route}: "
+                  f"{'MISMATCH in ' + ', '.join(bad) if bad else 'ok'}", flush=True)
             if bad:
                 return 1
+        ok = same_by_value(gp.grid_resident_extreme(idx, cols, modes, valids, G), want)
+        print(f"check G={G} {kind} keys b3x-l2: {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            return 1
     del ints, f64, f32, valid, summed, cols
+    # the resident route against the partition, in turns, across G (G =
+    # 24 577: past the direct route at E = 1) and E, up to the resident
+    # budget and past it
+    for E in (1, 2, 4):
+        cols, modes, valids = extreme_inputs(n, E, gen)
+        for G in (6145, 24577, 32768, 131072, 1000003, 1054729,
+                  gp.RESIDENT_BYTES // (8 * E), gp.RESIDENT_BYTES // (8 * E) + 1, 4012009,
+                  2 ** 23, 2 ** 24):
+            if gp.extreme_direct_fits(G, E):
+                continue
+            idx = torch.randint(0, G, (n,), generator=gen, device="cuda", dtype=torch.int32)
+            args = (idx, cols, modes, valids, G)
+            row = {}
+            for turn in range(2):
+                row[f"b3x-l2.{turn}"] = cuda_ms(lambda: gp.grid_resident_extreme(*args))
+                row[f"b3x.{turn}"] = cuda_ms(lambda: forced_partition(gp)(*args))
+                if old is not None:
+                    row[f"b3x baseline.{turn}"] = cuda_ms(
+                        lambda: old.grid_partition_extreme(*args))
+            if E == 1 and G in (131072, 1054729):
+                row["scatter_reduce_"] = cuda_ms(lambda: ge.grid_extreme_batch(*args), 1)
+            print(f"extremes resident E={E} G={G} N={n} ({E * G * 8 / 2 ** 20:.2f} MiB of keys, "
+                  f"planned {grid_plan.extreme_strategy(n, G, E)}): "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
+            del idx
+        del cols
+    # the direct route against the resident one where both take the grid
+    for E in (1, 2, 4):
+        cols, modes, valids = extreme_inputs(n, E, gen)
+        for G in (1024, 4096, 6144, 8192, 10609, 16384, 24576):
+            if not gp.extreme_direct_fits(G, E):
+                continue
+            idx = torch.randint(0, G, (n,), generator=gen, device="cuda", dtype=torch.int32)
+            args = (idx, cols, modes, valids, G)
+            row = {}
+            for turn in range(2):
+                row[f"b3x-direct.{turn}"] = cuda_ms(lambda: gp.grid_partition_extreme(*args))
+                row[f"b3x-l2.{turn}"] = cuda_ms(lambda: gp.grid_resident_extreme(*args))
+            print(f"extremes direct E={E} G={G} N={n} ({E * G * 8 / 1024:.1f} KiB of keys, "
+                  f"planned {grid_plan.extreme_strategy(n, G, E)}): "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
+            del idx
+        del cols
+    # keys that pile on few bins: the 2-D max's G and q7's
+    for E, G in ((1, 1054729), (2, 1000003)):
+        cols, modes, valids = extreme_inputs(n, E, gen)
+        for kind in ("uniform", *SKEWS):
+            idx = keys(kind, n, G, gen)
+            args = (idx, cols, modes, valids, G)
+            row = {}
+            for turn in range(2):
+                row[f"b3x-l2.{turn}"] = cuda_ms(lambda: gp.grid_resident_extreme(*args))
+            row["b3x"] = cuda_ms(lambda: forced_partition(gp)(*args))
+            if old is not None:
+                row["b3x baseline"] = cuda_ms(lambda: old.grid_partition_extreme(*args), 1)
+            print(f"extremes E={E} G={G} N={n} {kind} keys: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
+            del idx
+        del cols
+    # the partition route's phases at E = 1, 2 and 4: where its cost per
+    # column grows faster than the columns
+    for G in (1000003, 4012009):
+        idx = torch.randint(0, G, (n,), generator=gen, device="cuda", dtype=torch.int32)
+        for E in (1, 2, 4):
+            cols, modes, _ = extreme_inputs(n, E, gen)
+            extreme_phases(gp, idx, cols, modes, G, "phases")
+            del cols
+        del idx
+    # sums beside the extremes: one shared scatter against the sums on the
+    # plan's route and the extremes on the resident route apart
+    for G in (10609, 32768, 67081, 131072, 1000003):
+        idx = torch.randint(0, G, (n,), generator=gen, device="cuda", dtype=torch.int32)
+        for E in (1, 2):
+            cols, modes, valids = extreme_inputs(n, E, gen)
+            sums_name = grid_plan.strategy(n, G, 0, 1, True)
+            row = {}
+            for turn in range(2):
+                row[f"b3 + b3x shared.{turn}"] = cuda_ms(lambda: gp.grid_partition_extreme(
+                    idx, cols, modes, valids, G, [], cols[:1], True))
+
+                def apart():
+                    grid_plan.grid_sums(idx, [], cols[:1], G, True)
+                    gp.grid_resident_extreme(idx, cols, modes, valids, G)
+                row[f"{sums_name} + b3x-l2 apart.{turn}"] = cuda_ms(apart)
+                if old is not None:
+                    row[f"shared, baseline.{turn}"] = cuda_ms(lambda: old.grid_partition_extreme(
+                        idx, cols, modes, valids, G, [], cols[:1], True))
+            print(f"extremes E={E} beside count + f64 sum G={G} N={n}: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
+            del cols
+        del idx
     # the bucket width of a call without sums, and how many columns a call
     # should take: E columns in one call against E / 2 in each of two
     planned = gp.extreme_direct_fits, gp.EXT_GRID_BYTES
     gp.extreme_direct_fits = lambda G, E: False
-    for G in (67081, 1000003, 1054729):
+    for G in (1000003, 4012009):
         idx = torch.randint(0, G, (n,), generator=gen, device="cuda", dtype=torch.int32)
-        for E in (1, 2, 4, 8):
+        for E in (1, 2, 4):
             cols, modes, valids = extreme_inputs(n, E, gen)
             row = {}
-            for kib in (32, 64, 128, 192):
+            for kib in (32, 64, 128):
                 gp.EXT_GRID_BYTES = kib << 10
                 row[f"{kib}K S={gp.extreme_shape(n, G, E).S}"] = cuda_ms(
                     lambda: gp.grid_partition_extreme(idx, cols, modes, valids, G))
@@ -328,51 +547,20 @@ def sweep_extremes(n, gen, old=None):
             del cols
         del idx
     gp.extreme_direct_fits, gp.EXT_GRID_BYTES = planned
-    # keys that pile on few bins, at G = 1 000 003
-    for E in (1, 2):
-        cols, modes, valids = extreme_inputs(n, E, gen)
-        for kind in SKEWS:
-            idx = keys(kind, n, 1_000_003, gen)
-            args = (idx, cols, modes, valids, 1_000_003)
-            row = {"b3x": cuda_ms(lambda: gp.grid_partition_extreme(*args)),
-                   "b3 + b3x shared": cuda_ms(
-                       lambda: gp.grid_partition_extreme(*args, [], cols[:1], True))}
-            if old is not None:
-                row["b3x baseline"] = cuda_ms(lambda: old.grid_partition_extreme(*args), 1)
-            row["scatter_reduce_"] = cuda_ms(lambda: ge.grid_extreme_batch(*args), 1)
-            print(f"extremes E={E} G=1000003 N={n} {kind} keys: "
-                  + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
-            del idx
+    # every route as the plan takes it, across G
     for E in (1, 2, 4):
         cols, modes, valids = extreme_inputs(n, E, gen)
         for G in EXTREME_GS:
             idx = torch.randint(0, G, (n,), generator=gen, device="cuda", dtype=torch.int32)
-            row = {grid_plan.extreme_strategy(n, G, E): cuda_ms(
-                lambda: gp.grid_partition_extreme(idx, cols, modes, valids, G))}
-            if gp.extreme_direct_fits(G, E):
-                planned, gp.extreme_direct_fits = gp.extreme_direct_fits, lambda G, E: False
-                row["b3x forced"] = cuda_ms(
-                    lambda: gp.grid_partition_extreme(idx, cols, modes, valids, G))
-                gp.extreme_direct_fits = planned
+            name = grid_plan.extreme_strategy(n, G, E)
+            row = {name: cuda_ms(lambda: grid_plan.grid_extremes(idx, cols, modes, valids, G))}
             if G > 1:  # at G = 1 it is 1e8 atomics on one address: minutes
                 row["scatter_reduce_"] = cuda_ms(
                     lambda: ge.grid_extreme_batch(idx, cols, modes, valids, G), 1)
-            if E == 1 and G >= 32768:
-                def apart():
-                    grid_plan.grid_sums(idx, [], cols, G, True)
-                    gp.grid_partition_extreme(idx, cols, modes, valids, G)
-                row[f"{grid_plan.strategy(n, G, 0, 1, True)} + b3x apart"] = cuda_ms(apart)
-                row["b3 + b3x shared"] = cuda_ms(lambda: gp.grid_partition_extreme(
-                    idx, cols, modes, valids, G, [], cols, True))
-                if old is not None:
-                    row["shared, baseline"] = cuda_ms(lambda: old.grid_partition_extreme(
-                        idx, cols, modes, valids, G, [], cols, True))
-            if old is not None and not old.extreme_direct_fits(G, E):
-                row["b3x baseline"] = cuda_ms(
-                    lambda: old.grid_partition_extreme(idx, cols, modes, valids, G))
             print(f"extremes E={E} G={G} N={n}: "
                   + ", ".join(f"{k} {v:.3f} ms" for k, v in row.items()), flush=True)
             del idx
+        del cols
     return 0
 
 

@@ -170,9 +170,9 @@ CALLS = {
     "sum_int_axis": (lambda df, a: df.sum("iv", binby=["xi", "k"], limits=[[-50, 50], None],
                                           shape=25), True, None),
     "max_2d_wide": (lambda df, a: df.max("v", binby=["x", "y"], limits="minmax", shape=400),
-                    True, [{"extremes": "b3x"}]),
+                    True, [{"extremes": "b3x-l2"}]),
     "min_int_2d_wide": (lambda df, a: df.min("iv", binby=["x", "y"], limits=[[-3, 3], [-3, 3]],
-                                             shape=[300, 200]), True, [{"extremes": "b3x"}]),
+                                             shape=[300, 200]), True, [{"extremes": "b3x-l2"}]),
     "minmax_list_binby": (lambda df, a: df.minmax(["v", "w"], binby="x", shape=128), True,
                           [{"extremes": "b3x-direct"}]),
     "minmax_masked": (lambda df, a: df.minmax("vm", binby=["k", "y"], shape=16), True, None),
@@ -188,7 +188,7 @@ CALLS = {
                                                         shape=12), False, None),
     "first": (lambda df, a: df.first("v", "t", binby="k"), True, [{"first": "b3x-direct"}]),
     "first_int_2d": (lambda df, a: df.first("iv", "t", binby=["x", "y"], limits=[[-3, 3], [-3, 3]],
-                                            shape=200), True, [{"first": "b3x"}]),
+                                            shape=200), True, [{"first": "b3x-l2"}]),
     "first_no_binby": (lambda df, a: df.first("iv", "t"), True, None),
     "first_selection": (lambda df, a: df.first("v", "t", binby="k", selection="y > 0"), True,
                         None),
@@ -288,21 +288,25 @@ def test_groupby_category(frames, which, strategy):
 
 
 def test_groupby_wide_key_shares_one_scatter():
-    """id6 past B2's windows (K = 250 000): the sums ride b3 and the extremes
-    b3x from one partition, over several tiles; int64 kept."""
+    """id6 past B2's windows (K = 250 000), over several tiles, int64 kept:
+    beside sums on b3-l2 one extreme column rides b3 and b3x from one
+    partition; two take b3x-l2 apart from the sums."""
     K = 250_000
     arrays = binby_arrays(2, 60_000)
     arrays["id6"] = np.random.default_rng(2).integers(0, K, 60_000)
     ref, port = same_frames(arrays, "id6", labels=np.arange(K), tile_rows=25_000)
-    aggs = lambda pkg: {"s": pkg.agg.sum("iv"), "hi": pkg.agg.max("iv"),  # noqa: E731
-                        "lo": pkg.agg.min("v"), "n": "count"}
-    want = ref.groupby("id6", agg=aggs(vaex_tpu))
-    got = port.groupby("id6", agg=aggs(vaex_tpu_torch))
-    log = port.executor.trace_log[-1]
-    assert log["tiles"] == 3
-    assert log["strategies"] == [{"additive": "b3", "extremes": "b3x", "scatter": "shared"}]
-    assert got.evaluate("hi").dtype == np.int64
-    assert_same_frame(want, got)
+    for extra, strategy in (({}, {"additive": "b3", "extremes": "b3x", "scatter": "shared"}),
+                            ({"lo": ("min", "v")}, {"additive": "b3-l2", "extremes": "b3x-l2"})):
+        aggs = lambda pkg: {"s": pkg.agg.sum("iv"), "hi": pkg.agg.max("iv"),  # noqa: E731
+                            "n": "count", **{k: getattr(pkg.agg, f)(c)
+                                             for k, (f, c) in extra.items()}}
+        want = ref.groupby("id6", agg=aggs(vaex_tpu))
+        got = port.groupby("id6", agg=aggs(vaex_tpu_torch))
+        log = port.executor.trace_log[-1]
+        assert log["tiles"] == 3
+        assert log["strategies"] == [strategy]
+        assert got.evaluate("hi").dtype == np.int64
+        assert_same_frame(want, got)
 
 
 @pytest.mark.parametrize("grouper", ["dense", "set", "combined"])

@@ -290,10 +290,70 @@ def test_moment_kernel_matches_plain(cuda, name, G, kind, n):
 
 
 def test_b4_is_reproducible(cuda):
-    idx, bases, terms = _moment_inputs(1_000_000, 103, "corr", cuda, seed=1)
-    a = gm.grid_moments(idx, bases, terms, 103)
-    b = gm.grid_moments(idx, bases, terms, 103)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    """Bit-equal floats run to run on both routes of B4: var on the lane
+    route at G = 1 and 103, corr on the warp route at G = 103."""
+    for kind, G, route in (("var", 1, gm.LANE), ("var", 103, gm.LANE), ("corr", 103, gm.WARP)):
+        idx, bases, terms = _moment_inputs(1_000_000, G, kind, cuda, seed=1)
+        a = gm.grid_moments(idx, bases, terms, G)
+        assert gm.grid_moments.last_route == route
+        b = gm.grid_moments(idx, bases, terms, G)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _lane_edge(compiled_set, n_float):
+    """The widest grid on which B4 takes its lane route."""
+    warps = gm.LANE_MIN_WARPS[compiled_set]
+    return gm.CLUSTER_SMEM // (warps * gm.lane_warp_bytes(1, 1, n_float))
+
+
+@pytest.mark.parametrize("kind", ["var", "corr", "covar"])
+@pytest.mark.parametrize("at", ["g1", "g1 no idx", "103", "edge", "past"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.int64])
+def test_b4_lane_route_matches_plain(cuda, kind, at, dtype):
+    """B4's lane route at G = 1 (a compiled set's terms held in registers;
+    with and without an index), 103 and the last G it takes, and the warp
+    route one bin past it, for var's and corr's compiled sets and covar's
+    run-time tables, on f64, f32 and int64 bases starting at an odd row,
+    NaN among the floats: counts exact, floats to rtol 1e-9 and bit-equal
+    run to run."""
+    terms = {"var": agg.VAR_TERMS, "corr": agg.CORR_TERMS, "covar": agg.COVAR_TERMS}[kind]
+    n_bases = 1 if kind == "var" else 2
+    edge = _lane_edge(gm.compiled(n_bases, terms), sum(t[0] >= 0 for t in terms))
+    G = {"g1": 1, "g1 no idx": 1, "103": 103, "edge": edge, "past": edge + 1}[at]
+    n = 300_007
+    g = torch.Generator(device=cuda).manual_seed(G)
+    idx = torch.randint(-2, G + G // 8 + 1, (n + 1,), generator=g, device=cuda,
+                        dtype=torch.int32)[1:]
+    bases = []
+    for j in range(n_bases):
+        if dtype == torch.int64:
+            b = torch.randint(-1000, 1000, (n + 1,), generator=g, device=cuda)
+        else:
+            b = torch.randn(n + 1, generator=g, device=cuda, dtype=dtype) * 100
+            b[j::37 + j] = float("nan")
+        bases.append(b[1:])
+    if at == "g1 no idx":
+        idx = None
+    got = gm.grid_moments(idx, bases, terms, G)
+    assert gm.grid_moments.last_route == (gm.LANE if G <= edge else gm.WARP)
+    again = gm.grid_moments(idx, bases, terms, G)
+    want = gm.grid_moments_reference(idx, bases, terms, G)
+    torch.cuda.synchronize()
+    npt.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+    npt.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(), rtol=1e-9, atol=1e-9)
+    assert torch.equal(got[1], again[1])
+
+
+def test_std_without_binby_takes_b4s_lane_route(cuda):
+    rng = np.random.default_rng(9)
+    x = rng.normal(0, 1, 500_000)
+    x[::101] = np.nan
+    df = vaex_tpu_torch.from_arrays(x=x).to_device(cuda)
+    before = gm.grid_moments.launches
+    got = df.std("x")
+    assert gm.grid_moments.launches == before + 1 and gm.grid_moments.last_route == gm.LANE
+    assert df.executor.trace_log[-1]["strategies"] == [{"moments": "b4"}]
+    npt.assert_allclose(got, np.nanstd(x), rtol=1e-9)
 
 
 @pytest.mark.parametrize("G,route", [(200_003, "b3-l2"), (1_000_003, "b3")])
@@ -389,24 +449,75 @@ def _extreme_inputs(n, G, device, seed=0):
 @pytest.mark.parametrize("n", [0, 1, 300_007])
 def test_extreme_kernel_matches_plain(cuda, G, n):
     """B3x over the raw rows (five columns fit up to G = 4915) and over a
-    partition, alone and with sums riding the partition: exact by value."""
+    partition, alone and with sums riding the partition, and on its resident
+    route: exact by value."""
     idx, cols, modes, valids = _extreme_inputs(n, G, cuda, seed=G)
     assert gp.extreme_direct_fits(G, len(cols)) == (G <= 4_915)
-    before = gp.grid_partition_extreme.launches
+    before = gp.grid_partition_extreme.launches, gp.grid_resident_extreme.launches
     got, none_i, none_f = gp.grid_partition_extreme(idx, cols, modes, valids, G)
     summed = torch.randn(n, device=cuda, dtype=torch.float64)
     both, int_sums, float_sums = gp.grid_partition_extreme(idx, cols, modes, valids, G,
                                                            [cols[0]], [summed], True)
-    assert gp.grid_partition_extreme.launches == before + 2
+    resident = gp.grid_resident_extreme(idx, cols, modes, valids, G)
+    assert gp.grid_partition_extreme.launches == before[0] + 2
+    assert gp.grid_resident_extreme.launches == before[1] + 1
     assert none_i is None and none_f is None
     want = ge.grid_extreme_batch(idx, cols, modes, valids, G)
     want_i, want_f = gp.grid_partition_reference(idx, [cols[0]], [summed], G, True)
     torch.cuda.synchronize()
-    for a, b, w in zip(got, both, want):
-        assert a.dtype == b.dtype == w.dtype
-        assert torch.equal(a, w) and torch.equal(b, w)
+    for a, b, r, w in zip(got, both, resident, want):
+        assert a.dtype == b.dtype == r.dtype == w.dtype
+        assert torch.equal(a, w) and torch.equal(b, w) and torch.equal(r, w)
     assert torch.equal(int_sums, want_i)
     npt.assert_allclose(float_sums.cpu().numpy(), want_f.cpu().numpy(), rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("keys", ["uniform", "zipf", "sorted", "single"])
+@pytest.mark.parametrize("valid", [False, True])
+def test_resident_extreme_matches_plain(cuda, keys, valid):
+    """b3x-l2 on uniform, Zipf(1.1), sorted and one-key draws: int64, f64
+    and f32 columns, min and max, with and without a validity, NaN rows, -0.0
+    beside 0.0, empty cells holding the identity: exact by value and dtype."""
+    G, n = 200_003, 400_009
+    idx, cols, modes, valids = _extreme_inputs(n, G, cuda, seed=11)
+    if keys != "uniform":
+        idx = _skewed(keys, n, G, cuda, seed=12)
+    cols, modes = cols[:3] + cols[:3], modes[:3] + ["max", "min", "max"]
+    mask = valids[3] if valid else None
+    valids = [mask] * len(cols)
+    got = gp.grid_resident_extreme(idx, cols, modes, valids, G)
+    want = ge.grid_extreme_batch(idx, cols, modes, valids, G)
+    torch.cuda.synchronize()
+    for g, w, c, m in zip(got, want, cols, modes):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    empty = torch.bincount(idx[(idx >= 0) & (idx < G)].to(torch.int64), minlength=G) == 0
+    assert empty.any()  # the draws leave cells empty: each holds the identity
+    for g, c, m in zip(got, cols, modes):
+        assert (g[empty] == ge.identity(c.dtype, m)).all()
+    # both signs of zero in one cell: by value the min and max are 0
+    zeros = torch.tensor([0.0, -0.0, -0.0, 0.0], dtype=torch.float64, device=cuda)
+    at = torch.tensor([1, 1, 2, 2], dtype=torch.int32, device=cuda)
+    lo, hi = gp.grid_resident_extreme(at, [zeros, zeros], ["min", "max"], [None, None], 3)
+    assert lo.tolist()[1:] == [0.0, 0.0] and hi.tolist()[1:] == [0.0, 0.0]
+
+
+@pytest.mark.parametrize("E", [1, 2, 3, 8])
+def test_resident_extreme_at_the_budgets_edge(cuda, E):
+    """The widest grid of keys the plan keeps on b3x-l2 for E columns, and
+    one bin past it (the plan's partition), both exact; the cell's E keys lie
+    together (gp.resident_stride)."""
+    G = gp.RESIDENT_BYTES // (8 * gp.resident_stride(E))
+    assert grid_plan.extreme_strategy(10 ** 8, G, E) == "b3x-l2"
+    assert grid_plan.extreme_strategy(10 ** 8, G + 1, E) == "b3x"
+    n = 1_000_003
+    g = torch.Generator(device=cuda).manual_seed(E)
+    idx = torch.randint(-1, G + 2, (n,), generator=g, device=cuda, dtype=torch.int32)
+    cols = [torch.randn(n, generator=g, device=cuda, dtype=torch.float64) for _ in range(E)]
+    modes = ["min" if e % 2 else "max" for e in range(E)]
+    for width in (G, G + 1):
+        got = gp.grid_resident_extreme(idx, cols, modes, [None] * E, width)
+        want = ge.grid_extreme_batch(idx, cols, modes, [None] * E, width)
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
 
 
 def test_extreme_kernel_on_sorted_keys_and_one_hot_cell(cuda):
@@ -458,30 +569,46 @@ def test_binned_statistics_on_the_card(cuda):
     calls = {
         "limits": (lambda df: df.limits(["x", "y"], "minmax"), None),
         "count": (lambda df: df.count(binby=["x", "y"], shape=64), {"additive": "b2"}),
-        "max": (lambda df: df.max("v", binby=["x", "y"], shape=300), {"extremes": "b3x"}),
+        "max": (lambda df: df.max("v", binby=["x", "y"], shape=300), {"extremes": "b3x-l2"}),
+        "max past L2": (lambda df: df.max("v", binby=["x", "y"], shape=2000),
+                        {"extremes": "b3x"}),
         "minmax": (lambda df: df.minmax(["v", "iv"], binby="x", shape=128),
                    {"extremes": "b3x-direct"}),
         "first": (lambda df: df.first("iv", "t", binby="k"), {"first": "b3x-direct"}),
         "datetime": (lambda df: df.minmax("d", binby="k"), {"extremes": "b3x-direct"}),
     }
+    kernels = {"b3x": gp.grid_partition_extreme, "b3x-direct": gp.grid_partition_extreme,
+               "b3x-l2": gp.grid_resident_extreme}
     for name, (call, strategy) in calls.items():
-        before = gp.grid_partition_extreme.launches
+        before = {route: kernel.launches for route, kernel in kernels.items()}
         got, want = call(card), call(cpu)
         assert np.asarray(got).dtype == np.asarray(want).dtype, name
         npt.assert_array_equal(np.asarray(got), np.asarray(want), err_msg=name)
         if strategy is not None:
             assert card.executor.trace_log[-1]["strategies"] == [strategy], name
             assert card.executor.trace_log[-1]["device"].startswith("cuda")
-            if "extremes" in strategy or "first" in strategy:
-                assert gp.grid_partition_extreme.launches > before, name
-    aggs = {"s": a.sum("iv"), "hi": a.max("iv"), "lo": a.min("v"), "n": "count"}
+            route = strategy.get("extremes", strategy.get("first"))
+            if route is not None:
+                assert kernels[route].launches > before[route], name
+    # one extreme column beside sums on b3-l2 shares the sums' scatter: one
+    # call a tile computes both, B3's kernels running inside B3x's call
+    aggs = {"s": a.sum("iv"), "hi": a.max("iv"), "n": "count"}
     before = gp.grid_partition_extreme.launches, gp.grid_partition.launches
     got, want = card.groupby("id6", agg=aggs), cpu.groupby("id6", agg=aggs)
     assert card.executor.trace_log[-1]["strategies"] == [
         {"additive": "b3", "extremes": "b3x", "scatter": "shared"}]
-    # one call a tile computes both: B3's kernels run inside B3x's call
     assert gp.grid_partition_extreme.launches == before[0] + 3
     assert gp.grid_partition.launches == before[1] + 3
+    for name in ("s", "hi", "n"):
+        npt.assert_array_equal(got.evaluate(name), want.evaluate(name), err_msg=name)
+    # two take b3x-l2 apart from the sums on b3-l2
+    aggs["lo"] = a.min("v")
+    before = gp.grid_resident_extreme.launches, gp.grid_resident.launches
+    got, want = card.groupby("id6", agg=aggs), cpu.groupby("id6", agg=aggs)
+    assert card.executor.trace_log[-1]["strategies"] == [
+        {"additive": "b3-l2", "extremes": "b3x-l2"}]
+    assert gp.grid_resident_extreme.launches == before[0] + 3
+    assert gp.grid_resident.launches == before[1] + 3
     for name in ("s", "hi", "lo", "n"):
         npt.assert_array_equal(got.evaluate(name), want.evaluate(name), err_msg=name)
 

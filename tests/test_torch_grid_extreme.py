@@ -10,9 +10,13 @@ a pass's extremes.
   validity masks, empty cells, pre-sorted keys and the G % S tail: exact by
   value, in the column's dtype;
 * the sums that ride the same call against B3's plain version;
+* the resident route's wrapper (``grid_resident_extreme``, its plain version
+  on the CPU) against numpy on the same cases;
 * ``extreme_strategy`` / ``grid_extremes`` / ``grid_sums_and_extremes``: the
-  routes at their boundaries, the batching past ``MAX_EXT`` and the shared
-  scatter.
+  routes at their boundaries (the direct route's budget, the resident
+  route's, B3's limits), the batching past ``MAX_EXT`` and by the resident
+  budget, and the choice between a shared scatter and the resident route
+  apart from the sums.
 """
 
 import functools
@@ -165,6 +169,40 @@ def test_wrapper_matches_numpy(case, beside_sums):
     npt.assert_allclose(float_sums.numpy(), want_f.numpy(), rtol=1e-9, atol=1e-9)
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_resident_wrapper_matches_numpy(case):
+    """The resident route's wrapper on CPU tensors (its plain version): the
+    five columns of ``test_wrapper_matches_numpy``, exact by value and
+    dtype; no kernel launched."""
+    spec = CASES[case]
+    G, n = spec["G"], spec["n"]
+    rng = np.random.default_rng(len(case) + G + 1)
+    idx = _case_idx(rng, **spec)
+    ints, f64, f32 = _columns(rng, n)
+    valid = rng.random(n) < 0.8
+    cols = [ints, f64, f32, f64, ints]
+    modes = ["max", "min", "max", "max", "min"]
+    valids = [None, valid, None, None, valid]
+    before = gp.grid_resident_extreme.launches
+    grids = gp.grid_resident_extreme(torch.from_numpy(idx), [torch.from_numpy(c) for c in cols],
+                                     modes, [None if v is None else torch.from_numpy(v)
+                                             for v in valids], G)
+    assert gp.grid_resident_extreme.launches == before
+    for got, col, mode, v in zip(grids, cols, modes, valids):
+        assert got.dtype == torch.from_numpy(col).dtype and got.shape == (G,)
+        npt.assert_array_equal(got.numpy(), _numpy_extreme(idx, col, mode, v, G))
+
+
+def test_resident_stride_keeps_a_cells_keys_together():
+    """A cell's E keys lie together, E rounded up to even past one column, so
+    two keys are one 16-byte load; the budget counts the padding."""
+    assert [gp.resident_stride(E) for E in range(1, gp.MAX_EXT + 1)] == [1, 2, 4, 4, 6, 6, 8, 8]
+    for E in range(1, gp.MAX_EXT + 1):
+        G = gp.RESIDENT_BYTES // (8 * gp.resident_stride(E))
+        assert gp.extreme_resident_fits(G, E) and not gp.extreme_resident_fits(G + 1, E)
+    assert not gp.extreme_resident_fits(100, gp.MAX_EXT + 1)
+
+
 def test_zeros_of_both_signs_are_equal_by_value():
     """A cell that holds -0.0 and 0.0 returns a zero; which sign is the
     kernel's business (it keeps -0.0 as min, 0.0 as max) and equal by value."""
@@ -218,24 +256,35 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad, match):
 
 
 def test_extreme_strategy_boundaries():
-    """b3x-direct while E * G * 8 bytes fit one CTA's shared memory and
-    nothing additive rides along; b3x over a partition up to B3's limits."""
+    """b3x-direct while E * G * 8 bytes of keys fit one CTA's shared memory,
+    b3x-l2 while the grid of keys stays in L2 (both when nothing additive
+    rides along), b3x over a partition up to B3's limits."""
     n = 100_000_000
     direct_max = gp.SMEM_BUDGET // 8  # E = 1
     assert grid_plan.extreme_strategy(n, 1, 1) == "b3x-direct"
     assert grid_plan.extreme_strategy(n, direct_max, 1) == "b3x-direct"
-    assert grid_plan.extreme_strategy(n, direct_max + 1, 1) == "b3x"
+    assert grid_plan.extreme_strategy(n, direct_max + 1, 1) == "b3x-l2"
     assert grid_plan.extreme_strategy(n, direct_max // 4, 4) == "b3x-direct"
-    assert grid_plan.extreme_strategy(n, direct_max // 4 + 1, 4) == "b3x"
+    assert grid_plan.extreme_strategy(n, direct_max // 4 + 1, 4) == "b3x-l2"
+    # the resident route while [G, stride] keys take at most RESIDENT_BYTES
+    for E in (1, 2, 3, gp.MAX_EXT):
+        edge = gp.RESIDENT_BYTES // (8 * gp.resident_stride(E))
+        assert grid_plan.extreme_strategy(n, edge, E) == "b3x-l2"
+        assert grid_plan.extreme_strategy(n, edge + 1, E) == "b3x"
     # sums riding along always take the partition, whatever G
     assert grid_plan.extreme_strategy(n, 103, 2, 1, 1, True) == "b3x"
-    # 2-D shape 256 and 1024, q7's G
+    assert grid_plan.extreme_strategy(n, 1_000_003, 1, 0, 0, True) == "b3x"
+    # 2-D shape 256 and 1024, q7's G; the 2-D max of shape 2000 (32 MB of keys)
     for G in (259 ** 2, 1027 ** 2, 1_000_003):
-        for E in (1, 2, gp.MAX_EXT):
-            assert grid_plan.extreme_strategy(n, G, E) == "b3x"
-    # past B3's limits: too many buckets, too many rows
+        for E in (1, 2):
+            assert grid_plan.extreme_strategy(n, G, E) == "b3x-l2"
+    assert grid_plan.extreme_strategy(n, 1_000_003, 4) == "b3x"  # 32 MB
+    assert grid_plan.extreme_strategy(n, 2003 ** 2, 1) == "b3x"
+    # past B3's limits: too many buckets, too many rows (the resident route
+    # has no row limit)
     assert grid_plan.extreme_strategy(n, 2 ** 30, 1) is None
-    assert grid_plan.extreme_strategy(2 ** 31, 1_000_003, 1) is None
+    assert grid_plan.extreme_strategy(2 ** 31, 2003 ** 2, 1) is None
+    assert grid_plan.extreme_strategy(2 ** 31, 1_000_003, 1) == "b3x-l2"
     assert grid_plan.extreme_strategy(2 ** 31, 103, 1) == "b3x-direct"
     with pytest.raises(ValueError, match="a call takes 1 to"):
         grid_plan.extreme_strategy(n, 103, gp.MAX_EXT + 1)
@@ -267,13 +316,21 @@ def test_partition_shape_counts_the_extreme_columns():
 
 
 def _batched(monkeypatch):
+    """Records (extreme columns, additive channels) per call of the partition
+    and direct routes' wrapper, (extreme columns, "l2") per call of the
+    resident route's."""
     calls = []
-    real = gp.grid_partition_extreme
+    real, resident = gp.grid_partition_extreme, gp.grid_resident_extreme
 
     def counted(idx, cols, modes, valids, G, int_cols=(), float_cols=(), count=False):
         calls.append((len(cols), len(int_cols) + len(float_cols) + bool(count)))
         return real(idx, cols, modes, valids, G, int_cols, float_cols, count)
+
+    def counted_resident(idx, cols, modes, valids, G):
+        calls.append((len(cols), "l2"))
+        return resident(idx, cols, modes, valids, G)
     monkeypatch.setattr(grid_plan.grid_partition, "grid_partition_extreme", counted)
+    monkeypatch.setattr(grid_plan.grid_partition, "grid_resident_extreme", counted_resident)
     return calls
 
 
@@ -291,33 +348,63 @@ def test_grid_extremes_batches_past_max_ext(monkeypatch):
     assert name == "b3x-direct" and len(grids) == E
     for got, col, mode in zip(grids, cols, modes):
         npt.assert_array_equal(got.numpy(), _numpy_extreme(idx, col, mode, None, G))
-    # over a partition a call takes B3X_BATCH columns; a grid that fits the
-    # direct route only with fewer columns takes both routes
+    # a grid that the direct route takes only with fewer columns: the
+    # resident route takes MAX_EXT columns a call past the direct budget
     del calls[:]
     G = gp.SMEM_BUDGET // 8 // 2  # two columns fit one CTA, three do not
     idx = rng.integers(0, G, n).astype(np.int32)
     name, grids = grid_plan.grid_extremes(torch.from_numpy(idx),
-                                          [torch.from_numpy(c) for c in cols[:7]], modes[:7],
-                                          [None] * 7, G)
-    assert calls == [(grid_plan.B3X_BATCH, 0), (3, 0)] and name == "b3x"
+                                          [torch.from_numpy(c) for c in cols[:11]], modes[:11],
+                                          [None] * 11, G)
+    assert calls == [(gp.MAX_EXT, "l2"), (3, "l2")] and name == "b3x-l2"
     for got, col, mode in zip(grids, cols, modes):
         npt.assert_array_equal(got.numpy(), _numpy_extreme(idx, col, mode, None, G))
     del calls[:]
     name, grids = grid_plan.grid_extremes(torch.from_numpy(idx),
-                                          [torch.from_numpy(c) for c in cols[:6]], modes[:6],
-                                          [None] * 6, G)
-    assert calls == [(4, 0), (2, 0)] and name == "b3x+b3x-direct"
+                                          [torch.from_numpy(c) for c in cols[:10]], modes[:10],
+                                          [None] * 10, G)
+    assert calls == [(gp.MAX_EXT, "l2"), (2, 0)] and name == "b3x-l2+b3x-direct"
 
 
-@pytest.mark.parametrize("G,E,shared", [(1_000_003, 2, True), (1_000_003, 11, True),
-                                        (4_000_037, 1, True), (30_011, 1, True),
+def test_grid_extremes_batches_by_the_resident_budget(monkeypatch):
+    """On the resident route a call takes as many columns as keep the grid of
+    keys (their stride padded) within RESIDENT_BYTES; past the budget for
+    one column, the partition takes B3X_BATCH a call."""
+    calls = _batched(monkeypatch)
+    rng = np.random.default_rng(6)
+    n = 3000
+    for G, E, want in ((1_000_003, 5, [(2, "l2"), (2, "l2"), (1, "l2")]),
+                       (2_500_000, 3, [(1, "l2")] * 3),
+                       (4_000_037, 5, [(grid_plan.B3X_BATCH, 0), (1, 0)])):
+        del calls[:]
+        idx = rng.integers(-1, G + 1, n).astype(np.int32)
+        cols = [rng.normal(0, 1, n) for _ in range(E)]
+        modes = ["min" if e % 2 else "max" for e in range(E)]
+        name, grids = grid_plan.grid_extremes(torch.from_numpy(idx),
+                                              [torch.from_numpy(c) for c in cols], modes,
+                                              [None] * E, G)
+        assert calls == want
+        assert name == ("b3x-l2" if want[0][1] == "l2" else "b3x")
+        for got, col, mode in zip(grids, cols, modes):
+            npt.assert_array_equal(got.numpy(), _numpy_extreme(idx, col, mode, None, G))
+
+
+@pytest.mark.parametrize("G,E,shared", [(1_000_003, 1, True), (1_000_003, 2, False),
+                                        (1_000_003, 11, False), (4_000_037, 1, True),
+                                        (4_000_037, 11, True), (30_011, 1, True),
+                                        (32_768, 1, True), (67_081, 2, True),
+                                        (30_011, 2, True), (13_001, 2, False),
                                         (10_609, 2, False), (103, 1, False)])
 def test_sums_and_extremes_share_one_partition_on_b3(monkeypatch, G, E, shared):
-    """Where the extremes need a partition and the sums are past b1, the first
-    B3X_BATCH extreme columns and the sums share it and the sums are b3's,
-    whichever kernel they would take alone (b2 at G = 30 011, b3-l2 at
-    1 000 003, b3 at 4 000 037); where the extremes fit the direct route, each
-    takes its own call."""
+    """Where the extremes alone take b3x, or b3x-l2 beside sums whose own
+    call is dear, and the sums are past b1, the first B3X_BATCH extreme
+    columns and the sums share one partition and the sums are b3's,
+    whichever kernel they would take alone (b3 for count + int64 + f64 at
+    30 011, 32 768, 67 081 and 4 000 037, b3-l2 at 1 000 003 beside one
+    extreme column); beside sums on b2 in at most B3X_APART_B2_WINDOWS
+    windows (13 001) or on b3-l2 beside B3X_APART_MIN_COLS extreme columns
+    or more the extremes take b3x-l2 apart; where they take the direct route
+    (10 609, 103), each takes its own call."""
     calls = _batched(monkeypatch)
     rng = np.random.default_rng(G + E)
     n = 6000
@@ -330,13 +417,17 @@ def test_sums_and_extremes_share_one_partition_on_b3(monkeypatch, G, E, shared):
         grid_plan.grid_sums_and_extremes(idx, [ints], [floats], G, True, cols, modes, [None] * E))
     assert was_shared == shared
     assert add_name == ("b3" if shared else grid_plan.strategy(n, G, 1, 1, True))
+    assert sum(size for size, _ in calls) == E
     if shared:
-        batch = grid_plan.B3X_BATCH
-        rest = [(min(batch, E - k), 0) for k in range(batch, E, batch)]
-        assert calls == [(min(E, batch), 3)] + rest
-        assert ext_name == "b3x"
-    else:
+        # the first call shares the scatter, the rest as grid_extremes batches them
+        assert calls[0] == (min(E, grid_plan.B3X_BATCH), 3)
+        assert all(channels in (0, "l2") for _, channels in calls[1:])
+        assert ext_name.split("+")[0] == "b3x"
+    elif gp.extreme_direct_fits(G, E):
         assert calls == [(E, 0)] and ext_name == "b3x-direct"
+    else:
+        assert add_name in ("b2", "b3-l2")
+        assert all(route == "l2" for _, route in calls) and ext_name == "b3x-l2"
     want_i, want_f = grid_plan.PLAIN[add_name](idx, [ints], [floats], G, True)
     npt.assert_array_equal(int_sums.numpy(), want_i.numpy())
     npt.assert_allclose(float_sums.numpy(), want_f.numpy(), rtol=1e-9, atol=1e-9)

@@ -206,7 +206,7 @@ def test_b5_orders_the_float_terms_by_base():
 def test_moment_plan_boundaries(C):
     n = 10 ** 8
     g4 = grid_plan.b4_max_g(C)
-    assert g4 == {3: 106, 6: 53}[C]  # G * C <= 320
+    assert g4 == {3: 128, 6: 64}[C]  # the warp route while G * C <= 384
     assert grid_plan.moment_strategy(n, 1, C) == "b4"  # df.std
     assert grid_plan.moment_strategy(n, g4, C) == "b4"
     assert grid_plan.moment_strategy(n, g4 + 1, C) == "b5"
@@ -222,6 +222,42 @@ def test_moment_plan_boundaries(C):
     assert grid_plan.moment_strategy(2 ** 31, gp.P_MAX * S, C) is None
     assert gm.fits(g4, C)
     assert grid_plan.moment_strategy(n, 1, gm.MAX_TERMS) == "b4"  # never B5 at G = 1
+
+
+def test_b4_lane_route_boundaries():
+    """B4's lane route while a CTA of 227 KiB holds two warps of var's lane
+    grids (its compiled set: 20 bytes a bin and lane, so G <= 181), three of
+    corr's (44 bytes: G <= 55) or eight of any other batch's (corr's 44
+    bytes through the tables: G <= 20); the warp route past that.  The plan
+    takes B4 wherever its lane route does, on its warp route to b4_max_g,
+    then B5."""
+    assert gm.lane_warp_bytes(103, 1, 2) == 32 * 103 * 20
+    assert gm.compiled(1, agg.VAR_TERMS) == 1 and gm.compiled(2, agg.CORR_TERMS) == 2
+    assert not gm.compiled(2, agg.COVAR_TERMS)
+    assert not gm.compiled(1, [(0, -1, -1, -1), (-1, -1, 0, -1)])  # mean's terms
+    assert not gm.compiled(1, [(0, 0, -1, -1), (0, -1, -1, -1), (-1, -1, 0, -1)])  # x*x, x
+    assert not gm.compiled(1, [(0, -1, -1, -1), (0, 0, -1, -1), (-1, -1, -1, -1)])  # any row
+    assert gm.route(1, 1, 2) == gm.route(181, 1, 2) == gm.LANE
+    assert gm.route(182, 1, 2) == gm.WARP
+    assert gm.route(55, 1, 5, 2) == gm.LANE and gm.route(56, 1, 5, 2) == gm.WARP
+    assert gm.route(20, 1, 5, 0) == gm.LANE and gm.route(21, 1, 5, 0) == gm.WARP
+    assert gm.route(103, 1, 2, 0) == gm.WARP  # var's grid through the tables
+    n = 10 ** 8
+    assert grid_plan.moment_strategy(n, 181, 3, 1, 1) == "b4"  # var, compiled
+    assert grid_plan.moment_strategy(n, 182, 3, 1, 1) == "b5"
+    assert grid_plan.moment_strategy(n, 129, 3) == "b5"  # through the tables
+    assert grid_plan.moment_strategy(n, 64, 6) == "b4"  # covar-like batch: the warp route
+    assert grid_plan.moment_strategy(n, 55, 6, 1, 2) == "b4"  # corr, compiled: lane
+    assert gm.route(64, 1, 5, 2) == gm.WARP  # then B4's warp route to G * C = 384
+    assert grid_plan.moment_strategy(n, 64, 6, 1, 2) == "b4"
+    assert grid_plan.moment_strategy(n, 65, 6, 1, 2) == "b5"
+    for G, want_warps in ((1, gm.MAX_WARPS), (64, 5), (103, 3), (121, 3), (181, 2), (363, 1)):
+        n_ctas, warps = gm.lane_plan(10 ** 8, G, 1, 2, 1, 132)
+        assert warps == want_warps and 1 <= n_ctas <= 132 * 8
+        assert warps * gm.lane_warp_bytes(G, 1, 2) <= gm.CLUSTER_SMEM
+    # few rows: a warp still walks its share of steps, at least one CTA
+    assert gm.lane_plan(1000, 103, 1, 2, 1, 132)[0] == 1
+    assert [gm.lane_rows(nb) for nb in range(gm.MAX_BASES + 1)] == [32, 32, 16, 8, 8]
 
 
 def test_b4_fits_its_shared_memory():
@@ -276,6 +312,7 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors(name):
     dict(terms=[(1, -1, -1, -1)]),  # no base 1
     dict(terms=[(-1, 0, -1, -1)]),  # a count with a factor
     dict(G=0),
+    dict(idx=None),  # no index at G = 3
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(name, bad):
     args = dict(idx=torch.zeros(4, dtype=torch.int32), bases=[torch.zeros(4)],
@@ -283,6 +320,27 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(name, bad):
     args.update(bad)
     with pytest.raises((TypeError, ValueError)):
         grid_plan.MOMENT_KERNELS[name](**args)
+
+
+@pytest.mark.parametrize("kind", ["var", "corr"])
+def test_b4_without_an_index_puts_every_row_in_one_bin(kind):
+    """idx None at G = 1 (a statistic without binby or selection): every row
+    in bin 0, as an all-zero index gives; B5 and a call without a base refuse
+    it."""
+    idx, x, y = _inputs(11, 5000, 1)
+    bases = _bases(kind, x, y)
+    terms = agg.VAR_TERMS if kind == "var" else agg.CORR_TERMS
+    got = gm.grid_moments(None, bases, terms, 1)
+    want = gm.grid_moments_reference(torch.zeros(5000, dtype=torch.int32), bases, terms, 1)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    valid, cols = _columns(kind, x, y)
+    npt.assert_array_equal(got[0].numpy(), [[valid.sum()]])
+    npt.assert_allclose(got[1].numpy()[:, 0], [c.sum() for c in cols], rtol=1e-12)
+    assert grid_plan.moment_sums(None, bases, terms, 1)[0] == "b4"
+    with pytest.raises(TypeError, match="None"):
+        gm.grid_moments_window(None, bases, terms, 1)
+    with pytest.raises(TypeError, match="None"):
+        gm.grid_moments(None, [], [(-1, -1, -1, -1)], 1)
 
 
 @pytest.mark.parametrize("header", ["moments_common.cuh", "grid_common.cuh"])

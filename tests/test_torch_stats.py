@@ -138,14 +138,14 @@ def test_groupby_two_keys_q6_sd_and_q9():
 def test_groupby_wide_key_takes_b3_q7():
     """One key past B5's windows (K = 250 000): the moments ride B3 (its
     resident route: the grid stays in L2) over the formed term columns; H2O
-    q7's max/min keep int64 through the min/max kernel's partition."""
+    q7's max/min keep int64 through the min/max kernel's resident route."""
     K = 250_000
     ref, port = _frames(_h2o(7, n=100_000, k6=K), {"id6": K})
     aggs = lambda pkg: {"sd": pkg.agg.std("v3"), "r2": pkg.agg.corr("v1", "v2"),  # noqa: E731
                         "max_v1": pkg.agg.max("v1"), "min_v2": pkg.agg.min("v2")}
     want = ref.groupby("id6", agg=aggs(vaex_tpu))
     got = port.groupby("id6", agg=aggs(vaex_tpu_torch))
-    assert _strategies(port) == [{"moments": "b3-l2", "extremes": "b3x"}]
+    assert _strategies(port) == [{"moments": "b3-l2", "extremes": "b3x-l2"}]
     assert got.evaluate("max_v1").dtype == want.evaluate("max_v1").dtype == np.int64
     assert_same_frame(want, got)
 
@@ -290,3 +290,35 @@ def test_aggregator_names_match_vaex_tpu():
     named = lambda pkg: [pkg.agg.corr("v1", "v2"), pkg.agg.covar("v3", "v1")]  # noqa: E731
     assert_same_frame(ref.groupby("id4", agg=named(vaex_tpu)),
                       port.groupby("id4", agg=named(vaex_tpu_torch)))
+
+
+
+@pytest.mark.parametrize("how,indexed", [("alone", False), ("selection", True),
+                                         ("binby", True), ("beside a sum", True)])
+def test_statistic_without_binby_passes_b4_no_index(monkeypatch, how, indexed):
+    """A moment statistic without binby or selection hands B4 no index (every
+    row in bin 0), so no all-zero index is made or read; a selection, a
+    binby or an additive statistic in the same pass still gets one.  The
+    results match vaex_tpu's either way."""
+    from vaex_tpu_torch.ops import grid_plan
+    b4, seen = grid_plan.MOMENT_KERNELS["b4"], []
+
+    def spy(idx, bases, terms, G):
+        seen.append(idx is not None)
+        return b4(idx, bases, terms, G)
+    monkeypatch.setitem(grid_plan.MOMENT_KERNELS, "b4", spy)
+    ref, port = _frames(_h2o(23, n=20_000), {"id4": 100})
+    kw = {"selection": "v1 > 2"} if how == "selection" else {}
+    kw.update(binby=["id4"] if how == "binby" else [])
+    results = {}
+    for name, df in (("ref", ref), ("port", port)):
+        promises = [df.std("v3", delay=True, **kw)]
+        if how == "beside a sum":
+            promises.append(df.sum("v1", delay=True))
+        df.execute()
+        results[name] = [p.get() for p in promises]
+    for got, want in zip(results["port"], results["ref"]):
+        _close(got, want)
+    assert seen and all(s == indexed for s in seen)
+    if how == "beside a sum":  # one pass: the sum rides B4's pass
+        assert {"additive", "moments"} <= _strategies(port)[0].keys()

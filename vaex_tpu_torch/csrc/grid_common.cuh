@@ -240,6 +240,19 @@ struct Combine {
         return c;
     }
 
+    // The minimum of v over this lane's run [lane, end), on the run's first
+    // lane (for Combine::runs: the runs of neighbouring lanes only).
+    __device__ __forceinline__ unsigned long long run_min(unsigned long long v, int lane) const {
+        if (heads != FULL_MASK) {
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const unsigned long long x = __shfl_down_sync(FULL_MASK, v, o);
+                if (lane + o < end) v = min(v, x);
+            }
+        }
+        return v;
+    }
+
     // The sum of v over the lanes that share this lane's bin, on the leader.
     template <class T>
     __device__ __forceinline__ T sum(T v, int lane) const {

@@ -90,10 +90,22 @@
 // A grid that fits one CTA's shared memory (E * G * 8 bytes) needs no
 // partition: the same kernel reads idx itself, a CTA per chunk of the rows
 // with its own [E, G] partial, and fold_extremes takes the minimum over the
-// partials (grid_partition_extremes with direct == 1).  The TPU mode's f32-only
-// values in three bf16 pieces, its 0/1 validity channel, its finite
-// +-2^126 stand-in for the infinities and its S <= 8192 cap all came from
-// relocating rows with a matrix product and have no counterpart here.
+// partials (grid_partition_extremes with direct == 1).
+// A grid of keys that stays in L2 needs none either: the resident route
+// (resident_extremes, "b3x-l2", grid_partition_resident_extremes) reads idx,
+// the raw columns and their validity bytes once, with streaming loads, and
+// takes every row's keys into one grid in device memory with an L2 read of
+// the cell and a 64-bit atomicMin where the row's key is smaller, which
+// after a cell's first rows is rare (with about 100 uniform rows a cell,
+// H(100) = 5.2 updates).  A cell's E keys lie together (resident_stride),
+// so one 16-byte load reads two columns' keys.  What bounds it on an H100
+// is that read, one L2 request a row and pair of columns, not the 4 + 8
+// bytes a row and column it streams from HBM (PERF.md, section 6).
+// Every route forms the keys of a few rows of a column together
+// (column_keys), so their loads are in flight at once.  The TPU mode's
+// f32-only values in three bf16 pieces, its 0/1 validity channel, its
+// finite +-2^126 stand-in for the infinities and its S <= 8192 cap all came
+// from relocating rows with a matrix product and have no counterpart here.
 
 #include "grid_common.cuh"
 
@@ -434,22 +446,59 @@ struct ExtColumns {
     int is_max[MAX_EXT];
 };
 
-// The key of row r of column e; false for a row that must not reach a cell.
-__device__ __forceinline__ bool extreme_key(const ExtColumns& c, int e, long long r,
-                                            unsigned long long& key) {
-    if (c.valid[e] && !__ldg(c.valid[e] + r)) return false;
-    unsigned long long ord;
+// A load through the read-only path, or a streaming one that leaves L2 to a
+// resident grid.
+template <bool STREAM, class T>
+__device__ __forceinline__ T load(const T* p) {
+    if constexpr (STREAM) return __ldcs(p);
+    return __ldg(p);
+}
+
+// The keys of rows r[u] of column e, EMPTY_KEY for a row that must not
+// reach a cell (b[u] < 0, NaN, invalid; the all-ones key changes no cell):
+// the branch on the column's type is taken once for the U rows, so all
+// their loads are in flight together.
+template <int U, bool STREAM>
+__device__ __forceinline__ void column_keys(const ExtColumns& c, int e, const long long (&r)[U],
+                                            const int (&b)[U], long long n,
+                                            unsigned long long (&key)[U]) {
+    long long at[U];  // the loads are unconditional: a row past n reads row n - 1
+#pragma unroll
+    for (int u = 0; u < U; ++u) at[u] = min(r[u], n - 1);
+    bool drop[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) drop[u] = b[u] < 0;
     if (c.type[e] == 0) {
-        ord = (unsigned long long)__ldg((const long long*)c.ptr[e] + r) ^ SIGN_BIT;
+        const long long* col = (const long long*)c.ptr[e];
+#pragma unroll
+        for (int u = 0; u < U; ++u) key[u] = (unsigned long long)load<STREAM>(col + at[u]) ^ SIGN_BIT;
     } else {
-        const double v = c.type[e] == 2 ? (double)__ldg((const float*)c.ptr[e] + r)
-                                        : __ldg((const double*)c.ptr[e] + r);
-        if (v != v) return false;
-        const long long bits = __double_as_longlong(v);
-        ord = bits < 0 ? ~(unsigned long long)bits : (unsigned long long)bits | SIGN_BIT;
+        double v[U];
+        if (c.type[e] == 2) {
+            const float* col = (const float*)c.ptr[e];
+#pragma unroll
+            for (int u = 0; u < U; ++u) v[u] = (double)load<STREAM>(col + at[u]);
+        } else {
+            const double* col = (const double*)c.ptr[e];
+#pragma unroll
+            for (int u = 0; u < U; ++u) v[u] = load<STREAM>(col + at[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            drop[u] |= v[u] != v[u];
+            const long long bits = __double_as_longlong(v[u]);
+            key[u] = bits < 0 ? ~(unsigned long long)bits : (unsigned long long)bits | SIGN_BIT;
+        }
     }
-    key = c.is_max[e] ? ~ord : ord;
-    return true;
+    if (c.valid[e]) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) drop[u] |= !load<STREAM>(c.valid[e] + at[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+        if (c.is_max[e]) key[u] = ~key[u];
+        if (drop[u]) key[u] = EMPTY_KEY;
+    }
 }
 
 // The rows [begin, end) into the CTA's cells [n_ext, Wc]: bucketed rows (lo:
@@ -462,29 +511,26 @@ __device__ __forceinline__ void extreme_rows(const unsigned short* __restrict__ 
                                              unsigned long long* cells) {
     for (long long base = begin + threadIdx.x; base < end; base += (long long)UNROLL * blockDim.x) {
         int b[UNROLL];
+        long long r[UNROLL];
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
-            const long long r = base + (long long)u * blockDim.x;
+            r[u] = base + (long long)u * blockDim.x;
             b[u] = -1;
-            if (r < end) {
+            if (r[u] < end) {
                 if (!direct) {
-                    b[u] = (int)lo[r];
+                    b[u] = (int)lo[r[u]];
                 } else {
-                    const int t = __ldg(idx + r);
+                    const int t = __ldg(idx + r[u]);
                     if ((unsigned)t < (unsigned)G) b[u] = t;
                 }
             }
         }
         for (int e = 0; e < n_ext; ++e) {
             unsigned long long key[UNROLL];
-            bool reach[UNROLL];
-#pragma unroll
-            for (int u = 0; u < UNROLL; ++u)
-                reach[u] = b[u] >= 0 &&
-                           extreme_key(cols, e, base + (long long)u * blockDim.x, key[u]);
+            column_keys<UNROLL, false>(cols, e, r, b, end, key);  // rows past end read end - 1
 #pragma unroll
             for (int u = 0; u < UNROLL; ++u) {
-                if (!reach[u]) continue;
+                if (key[u] == EMPTY_KEY) continue;
                 unsigned long long* cell = cells + (size_t)e * Wc + b[u];
                 // cells only ever shrink, so a stale read can only cost a
                 // spare atomic, never lose a smaller key
@@ -541,15 +587,101 @@ __global__ void partition_extremes(const unsigned short* __restrict__ lo,
     }
 }
 
+// The keys of a cell on the resident route: the E keys of cell g lie
+// together at g * stride, stride = 1 for one column, else E rounded up to
+// even, so a row reads its cell's keys with 16-byte loads (one L2 request
+// for two columns, where a [E, G] grid would take one per column).
+__host__ __device__ __forceinline__ int resident_stride(int E) { return E == 1 ? 1 : (E + 1) & ~1; }
+
+// The resident route of the min/max mode ("b3x-l2") for NE columns: every
+// warp takes rows base + u * step + lane, as resident_add walks them, with
+// streaming loads, and takes each kept row's keys into the grid of keys in
+// device memory ([G, stride], resident_stride), which the caller filled with
+// EMPTY_KEY and which stays in L2.  The lanes of a run of neighbouring lanes
+// with one bin first take the run's minimum (a tree of shuffles, skipped
+// when no two neighbours share a bin), and the run's first lane reads the
+// cell's keys with L2 loads (__ldcg: L1 is not coherent across SMs) and
+// makes a 64-bit atomicMin only where its key is smaller; a stale read costs
+// a spare atomic, never a lost key, because a cell only ever shrinks.
+template <int NE>
+__global__ void __launch_bounds__(256)
+resident_extremes(const int* __restrict__ idx, long long n, int G, ExtColumns cols,
+                  unsigned long long* __restrict__ keys) {
+    constexpr int STRIDE = NE == 1 ? 1 : (NE + 1) & ~1;
+    const int lane = threadIdx.x & 31;
+    const long long step = (long long)gridDim.x * blockDim.x;
+    // the loop bound is the warp's, so its lanes stay together
+    for (long long base = (long long)blockIdx.x * blockDim.x + (threadIdx.x - lane); base < n;
+         base += UNROLL * step) {
+        int b[UNROLL];
+        long long r[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+            r[u] = base + u * step + lane;
+            const int t = __ldcs(idx + min(r[u], n - 1));
+            b[u] = r[u] < n && (unsigned)t < (unsigned)G ? t : -1;
+        }
+        unsigned long long key[NE][UNROLL];
+#pragma unroll
+        for (int e = 0; e < NE; ++e) column_keys<UNROLL, true>(cols, e, r, b, n, key[e]);
+        bool lead[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+            const Combine run = Combine::runs(b[u], lane);
+#pragma unroll
+            for (int e = 0; e < NE; ++e) key[e][u] = run.run_min(key[e][u], lane);
+            lead[u] = run.lead;
+        }
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+            if (!lead[u]) continue;
+            unsigned long long* cell = keys + (size_t)b[u] * STRIDE;
+            unsigned long long now[STRIDE];
+            if constexpr (STRIDE == 1) {
+                now[0] = __ldcg(cell);
+            } else {
+#pragma unroll
+                for (int p = 0; p < STRIDE / 2; ++p) {
+                    const ulonglong2 two = __ldcg(reinterpret_cast<const ulonglong2*>(cell) + p);
+                    now[2 * p] = two.x;
+                    now[2 * p + 1] = two.y;
+                }
+            }
+#pragma unroll
+            for (int e = 0; e < NE; ++e)
+                if (key[e][u] < now[e]) atomicMin(cell + e, key[e][u]);
+        }
+    }
+}
+
+// The instance for n_ext columns (1 .. MAX_EXT).
+static auto resident_kernel(int n_ext) {
+    switch (n_ext) {
+        case 1: return resident_extremes<1>;
+        case 2: return resident_extremes<2>;
+        case 3: return resident_extremes<3>;
+        case 4: return resident_extremes<4>;
+        case 5: return resident_extremes<5>;
+        case 6: return resident_extremes<6>;
+        case 7: return resident_extremes<7>;
+        default: return resident_extremes<8>;
+    }
+}
+static_assert(MAX_EXT == 8, "resident_kernel instantiates 1 .. 8 columns");
+
 // One thread per output cell: the min of the chunks' keys, back as a value.
+// The keys are [n_parts, n_ext, G], or with stride > 0 one grid [G, stride]
+// (the resident route's).
 __global__ void fold_extremes(const unsigned long long* __restrict__ scratch, int n_parts,
-                              int G, ExtColumns cols, int n_ext) {
+                              int stride, int G, ExtColumns cols, int n_ext) {
     const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (j >= (long long)n_ext * G) return;
     const int e = (int)(j / G);
     const int g = (int)(j - (long long)e * G);
     unsigned long long key = EMPTY_KEY;
-    for (int p = 0; p < n_parts; ++p) key = min(key, scratch[(size_t)p * n_ext * G + j]);
+    if (stride) key = scratch[(size_t)g * stride + e];
+    for (int p = 0; !stride && p < n_parts; ++p)
+        key = min(key, scratch[(size_t)p * n_ext * G + j]);
     const bool empty = key == EMPTY_KEY;
     const unsigned long long ord = cols.is_max[e] ? ~key : key;
     if (cols.type[e] == 0) {
@@ -722,7 +854,44 @@ int grid_partition_extremes(int direct, const unsigned short* lo, const int* idx
     if (e != cudaSuccess) return (int)e;
     const long long cells = (long long)n_ext * G;
     fold_extremes<<<(unsigned)((cells + 255) / 256), 256, 0, s>>>(scratch, direct ? n_ctas : 1,
-                                                                  G, c, n_ext);
+                                                                  0, G, c, n_ext);
+    return (int)cudaGetLastError();
+}
+
+int grid_partition_resident_stride(int n_ext) { return resident_stride(n_ext); }
+
+// The resident route of the min/max mode: one pass over idx [n] and the raw
+// columns into the [G, resident_stride(n_ext)] grid of keys, then its fold.
+//   cols / valid / outs / types / is_max: as in grid_partition_extremes
+//            (a validity with every column that has one);
+//   keys: device [G, resident_stride(n_ext)] 8-byte words, 16-byte aligned,
+//         filled with all-ones bits by the caller.
+int grid_partition_resident_extremes(const int* idx, long long n, int G,
+                                     const void* const* cols, const void* const* valid,
+                                     void* const* outs, const int* types, const int* is_max,
+                                     int n_ext, int n_ctas, int threads,
+                                     unsigned long long* keys, void* stream) {
+    if (G < 1 || n_ext < 1 || n_ext > MAX_EXT || n < 0 || n_ctas < 1 || threads < 32 ||
+        threads > 256 || threads % 32 || (long long)resident_stride(n_ext) * G > 0x7fffffffLL ||
+        (n > 0 && !idx))
+        return -1;
+    ExtColumns c;
+    for (int e = 0; e < n_ext; ++e) {
+        if (types[e] < 0 || types[e] > 2) return -1;
+        c.ptr[e] = cols[e];
+        c.valid[e] = (const unsigned char*)valid[e];
+        c.out[e] = outs[e];
+        c.type[e] = types[e];
+        c.is_max[e] = is_max[e] != 0;
+    }
+    if ((unsigned long long)keys % 16) return -1;
+    cudaStream_t s = (cudaStream_t)stream;
+    resident_kernel(n_ext)<<<n_ctas, threads, 0, s>>>(idx, n, G, c, keys);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const long long cells = (long long)n_ext * G;
+    fold_extremes<<<(unsigned)((cells + 255) / 256), 256, 0, s>>>(
+        keys, 1, resident_stride(n_ext), G, c, n_ext);
     return (int)cudaGetLastError();
 }
 

@@ -65,23 +65,6 @@ __device__ __forceinline__ double load_base(const void* p, int kind, long long r
 // bases take NB register pairs (at least one slot, so the array exists).
 #define BASE_SLOTS(NB) ((NB) > 0 ? (NB) : 1)
 
-// Row r's bases into v (every slot written, so v stays in registers);
-// returns the bitmask of the bases that are NaN on the row.
-template <int NB>
-__device__ __forceinline__ unsigned load_row(const Bases& bases, long long r,
-                                             double (&v)[BASE_SLOTS(NB)]) {
-    unsigned missing = 0u;
-#pragma unroll
-    for (int j = 0; j < BASE_SLOTS(NB); ++j) {
-        v[j] = 0.0;
-        if (j < NB) {
-            v[j] = load_base(bases.ptr[j], bases.kind[j], r);
-            if (v[j] != v[j]) missing |= 1u << j;
-        }
-    }
-    return missing;
-}
-
 // v[j] by compare and select (j < 0: the factor 1), so that a term's
 // run-time base index never makes the compiler move v to local memory.
 template <int NB>

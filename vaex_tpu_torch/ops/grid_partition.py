@@ -45,9 +45,15 @@ like any value column and a second phase 2 keeps one [E, S] grid of 64-bit
 order-preserving keys per CTA; additive columns may come along, and then
 sums and extremes pay one scatter (the TPU function's contract).  A grid
 whose E * G * 8 bytes fit one CTA's shared memory takes the same phase 2
-over the raw rows with no partition (:func:`extreme_direct_fits`).  The
-kernel orders -0.0 below 0.0, so a cell that holds both keeps -0.0 as min
-and 0.0 as max; by value that is what ``amin`` / ``amax`` keep.
+over the raw rows with no partition (:func:`extreme_direct_fits`;
+``grid_partition_extreme.direct_launches`` counts those launches).  A grid
+of keys that stays in L2 takes :func:`grid_resident_extreme` (``b3x-l2``,
+:func:`extreme_resident_fits`): one pass over the raw rows and their
+validities into one [G, stride] grid of keys in device memory, a cell's
+keys side by side (:func:`resident_stride`), a 64-bit ``atomicMin`` only
+where a row's key beats the cell's.  The kernels order -0.0 below 0.0, so a
+cell that holds both keeps -0.0 as min and 0.0 as max; by value that is what
+``amin`` / ``amax`` keep.
 
 Limits of the partition: N < 2^31 rows per call (int32 offsets; a pass hands
 it tiles of ``settings.TILE_ROWS``) and P <= ``P_MAX`` buckets (phase 1
@@ -259,6 +265,19 @@ def extreme_direct_fits(G, E):
     return E * G * 8 <= SMEM_BUDGET
 
 
+def resident_stride(E):
+    """The keys of a cell on the min/max mode's resident route
+    (resident_stride in grid_partition.cu, checked at load): E rounded up to
+    even past one column, so a row reads two keys with one 16-byte load."""
+    return 1 if E == 1 else (E + 1) & ~1
+
+
+def extreme_resident_fits(G, E):
+    """True when the [G, stride] grid of 8-byte keys stays in L2 under the
+    streaming rows: the range of the min/max mode's resident route."""
+    return 1 <= E <= MAX_EXT and resident_stride(E) * G * 8 <= RESIDENT_BYTES
+
+
 def extreme_ctas(n, smem, sm_count=SM_COUNT):
     """Phase-2 CTAs of the min/max mode, each with an equal chunk of the rows:
     enough to fill the card twice, but no fewer than 8 rows per thread on
@@ -274,6 +293,10 @@ def _library():
         fn.restype = ctypes.c_int
         if fn() != want:
             raise RuntimeError(f"grid_partition_{name} disagrees with its wrapper")
+    lib.grid_partition_resident_stride.restype = ctypes.c_int
+    if any(lib.grid_partition_resident_stride(E) != resident_stride(E)
+           for E in range(1, MAX_EXT + 1)):
+        raise RuntimeError("grid_partition_resident_stride disagrees with its wrapper")
     lib.grid_partition_resident.restype = ctypes.c_int
     lib.grid_partition_resident.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -296,6 +319,11 @@ def _library():
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.grid_partition_resident_extremes.restype = ctypes.c_int
+    lib.grid_partition_resident_extremes.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     lib.grid_partition_extremes.restype = ctypes.c_int
     lib.grid_partition_extremes.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
@@ -500,6 +528,7 @@ def grid_partition_extreme(idx, cols, modes, valids, G, int_cols=(), float_cols=
                 is_max, E, n_chunks, EXT_THREADS, scratch.data_ptr(), stream)
             kernel_build.raise_on_error(lib, "grid_partition", err)
             grid_partition_extreme.launches += 1
+            grid_partition_extreme.direct_launches += 1
             return grids, None, None
         C = n_channels(len(int_cols), len(float_cols), count)
         sh = extreme_shape(n, G, E, C, sm_count)
@@ -533,4 +562,47 @@ def grid_partition_extreme(idx, cols, modes, valids, G, int_cols=(), float_cols=
     return grids, int_sums, float_sums
 
 
-grid_partition_extreme.launches = 0
+grid_partition_extreme.launches = 0  # both routes
+grid_partition_extreme.direct_launches = 0  # b3x-direct alone
+
+
+def grid_resident_extreme(idx, cols, modes, valids, G):
+    """Per-bin min/max of ``cols`` by the resident route (``b3x-l2``): one
+    pass over the raw rows and their validities that takes every row's keys
+    into one [G, stride] grid of keys in device memory (a cell's keys side
+    by side, :func:`resident_stride`), for grids that stay in L2
+    (:func:`extreme_resident_fits`; wider ones work and are slow).  The
+    contract of :func:`grid_partition_extreme` without additive columns;
+    returns a [G] tensor per column.  CPU tensors take the plain version
+    (:func:`.grid_extreme.grid_extreme_batch`); CUDA tensors launch the
+    kernel, or raise when it cannot take them."""
+    G = int(G)
+    cols, modes, valids = list(cols), list(modes), list(valids)
+    check_extreme_inputs(idx, cols, modes, valids, G)
+    if idx.device.type == "cpu":
+        return grid_extreme_batch(idx, cols, modes, valids, G)
+    check_cuda("grid_resident_extreme", idx, cols, [v for v in valids if v is not None])
+    n, E, device = idx.shape[0], len(cols), idx.device
+    if E > MAX_EXT or resident_stride(E) * G >= 2 ** 31:
+        raise ValueError(f"grid_resident_extreme: G={G} with {E} extreme columns does not fit "
+                         f"the kernel")
+    per_sm = SM_THREADS // RESIDENT_THREADS
+    n_ctas = max(1, min(_sm_count(device) * per_sm, -(-n // (RESIDENT_THREADS * UNROLL))))
+    lib = _library()
+    grids = [torch.empty(G, dtype=c.dtype, device=device) for c in cols]
+    masks = [None if v is None else v.view(torch.uint8) for v in valids]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        # every cell starts as the empty key (all ones); torch's allocations
+        # are aligned past the 16 bytes the kernel's loads need
+        keys = torch.full((G * resident_stride(E),), -1, dtype=torch.int64, device=device)
+        err = lib.grid_partition_resident_extremes(
+            idx.data_ptr(), n, G, _pointers(cols), _pointers(masks), _pointers(grids),
+            _ints([EXT_TYPES[c.dtype] for c in cols]), _ints([m == "max" for m in modes]), E,
+            n_ctas, RESIDENT_THREADS, keys.data_ptr(), stream)
+    kernel_build.raise_on_error(lib, "grid_partition", err)
+    grid_resident_extreme.launches += 1
+    return grids
+
+
+grid_resident_extreme.launches = 0

@@ -50,41 +50,80 @@ The CPU runs the plain version of the kernel the plan picks, so the plan
 and each kernel's bucket and window arithmetic run in the CPU tests too.
 
 A pass's moment terms (var, std, covar, corr) take
-:func:`moment_strategy`'s kernel: ``b4`` (B4, ordered), ``b5`` (B5, parts
-of 227 KiB) or, over the formed term columns, ``b3-l2`` / ``b3``, with C
-the number of terms.  Its cut-offs were measured the same way on that card
-(``--moments``; 1e8 uniform keys; C = 3: var of an f64 column, C = 6: corr
-of two int64 columns): B4 tied B5 at G = 103 at C = 3 (1.304 against 1.308
-ms) and lost at 128 (1.412 against 1.256), beat it at G = 32 at C = 6
-(3.103 against 3.190) and lost at 64 (2.906 against 2.707): B4 while G * C
-<= ``B4_MAX_GC`` (:func:`b4_max_g`: G <= 106 at C = 3, 53 at C = 6), and at
-G = 1 always.  B5's parts beat B3 over formed terms to 12 parts at C = 3
-(G = 100 003: 6.993 against 7.278 ms for ``b3-l2``) and lost at 21 (G =
-200 003: 12.221 against 7.256), beat it at 10 parts at C = 6 (G = 32 768:
-10.811 against 17.929) and lost at 18 (G = 65 536: 18.738 against 17.771):
-``B5_MAX_PARTS`` = 12.
+:func:`moment_strategy`'s kernel: ``b4`` (B4: lane-private grids, or its
+ordered warp grids), ``b5`` (B5, parts of 227 KiB) or, over the formed term
+columns, ``b3-l2`` / ``b3``, with C the number of terms.  Its cut-offs were
+measured the same way on that card (``--moments``; 1e8 uniform keys; C = 3:
+var of an f64 column; C = 6: corr of two int64 columns; each through its
+compiled set and, x and x*x swapped, through the run-time tables; runs W6,
+W9 and W10 of PERF.md, section 6, PR 8's B4 and B5 timed in turns).  On
+var's compiled set B4's lane route beat its warp route and B5 while a CTA
+held two warps of lane grids (G = 103, three warps: 0.707 ms against 1.207
+and 1.320; G = 128, two: 1.037 against 1.260 and 1.266) and lost at one (G
+= 256: 2.108 against 1.394 and 1.171): ``grid_moments.LANE_MIN_WARPS[1]`` =
+2, so var takes B4 to G = 181.  On corr's it won at three warps (G = 55:
+2.210 against 2.754 and 2.810) and lost at two (G = 64: 3.156 against 2.777
+and 2.710): ``LANE_MIN_WARPS[2]`` = 3, G <= 55.  Through the run-time tables
+the lane route lost to the compiled sets at every G (var 2.002 against
+0.390 ms at G = 1, 4.999 against 0.707 at 103, 7.414 against 1.037 at 128;
+corr 1.536 against 0.877 at G = 1, 2.431 against 0.989 at 16; W9), beat the
+warp route at eight warps (corr at G = 16: 2.581 against 2.755) and lost at
+five (G = 32: 3.797 against 2.828; W10): ``LANE_MIN_WARPS[0]`` = 8.  B4's
+warp route beat B5 to G = 103 at C = 3 (1.207 against 1.318 ms), tied it at
+128 (1.257 against 1.266) and lost at 256 (1.392 against 1.170); at C = 6
+it beat it at G = 64 (2.377 against 2.723) and lost at 103 (3.030 against
+2.511): the warp route while G * C <= ``B4_MAX_GC`` (:func:`b4_max_g`: G <=
+128 at C = 3, 64 at C = 6), and at G = 1 always.  B5's parts beat B3 over formed terms to 12
+parts at C = 3 (G = 100 003: 6.993 against 7.278 ms for ``b3-l2``; PR 8)
+and lost at 21 (G = 200 003: 12.221 against 7.256), beat it at 10 parts at
+C = 6 (G = 32 768: 10.811 against 17.929) and lost at 18 (G = 65 536:
+18.738 against 17.771): ``B5_MAX_PARTS`` = 12.
 
 A pass's per-bin extremes (min, max, the two mins of ``first``) take
-:func:`extreme_strategy`'s route, always kernel B3x
-(:func:`.grid_partition.grid_partition_extreme`): ``b3x-direct`` while the
-[E, G] grid of keys fits one CTA's shared memory (no partition), ``b3x``
-over a partition past that, in calls of at most ``grid_partition.MAX_EXT``
-columns.  Where the extremes need a partition and the additive batch of the
-same task is past B1, the first call of extremes computes the sums from its
-partition too (:func:`grid_sums_and_extremes`; the additive strategy is then
-``b3``): one scatter serves both.  Measured on the same card and limit
-(``scripts/sweep_grid_kernels.py --extremes``; 1e8 uniform keys, f64 columns
-with NaN): the direct route beat the partition wherever it fits (E = 1: 0.602
-against 1.749 ms at G = 103, 1.323 against 1.805 at G = 24 576; E = 4: 4.184
-against 4.556 at G = 4096), and B3x beat ``scatter_reduce_`` per column at
-every G (E = 1: 64.18 ms at G = 103, 6.630 at 10 609, 6.939 at 1 000 003
-against 0.602, 0.764 and 2.056), so no range of G goes to it.  Over a
-partition the time per column rises with the columns of a call (G =
-1 000 003: 2.056 ms at E = 1, 3.678 at 2, 8.233 at 4, 19.979 at 8):
-``B3X_BATCH`` = 4.  Count + f64 sum and one max took 3.499 ms from one
-scatter at G = 1 000 003 against 4.475 as ``b3-l2`` and ``b3x`` apart, 3.244
-against 4.562 (``b3`` + ``b3x``) at 67 081 and 3.193 against 3.811 (``b2`` +
-``b3x``) at 32 768.
+:func:`extreme_strategy`'s route, always kernel B3x: ``b3x-direct``
+(:func:`.grid_partition.grid_partition_extreme` over the raw rows, one grid
+of keys a CTA) while the [E, G] keys fit one CTA's shared memory,
+``b3x-l2`` (:func:`.grid_partition.grid_resident_extreme`, one grid of keys
+that stays in L2) while the [G, stride] keys take at most
+``grid_partition.RESIDENT_BYTES``, ``b3x`` over a partition past that; in
+calls of ``grid_partition.MAX_EXT`` columns at most on the direct route, as
+many as keep the keys in L2 on the resident route and ``B3X_BATCH`` over a
+partition (:func:`_extreme_batch`).  Where the additive batch of the same
+task is past B1 and the extremes alone take ``b3x``, or ``b3x-l2`` where
+:func:`_apart` does not hold, the first call of extremes computes the sums
+from its partition too (:func:`grid_sums_and_extremes`; the additive
+strategy is then ``b3``): one scatter serves both.  Measured on the same
+card and limit (``scripts/sweep_grid_kernels.py --extremes``; 1e8 uniform
+keys, f64 columns with NaN; run W3 of PERF.md, section 6): ``b3x-l2`` beat
+the partition at every G past the direct route (E = 1: 1.184 against 1.796
+ms at G = 24 577, 1.145 against 2.037 at 1 054 729; E = 2: 1.306 against
+3.635 at 1 000 003; E = 4: 2.047 against 4.525 at 6145, 1.440 against
+5.049 at 131 072) up to its budget (28 MiB: E = 1 1.566 against 2.786 at G
+= 3 670 016) and past it, so no lower edge of G is needed past the direct
+route.  The upper edge is B3's resident budget, set by ``b3-l2``'s
+measurement above, not by B3x's: past it the plan keeps the partition for
+now, though ``b3x-l2`` beat it at every size measured
+(W8, E = 1: 1.705 against 2.820 ms at G = 4 012 009, 3.352 against 3.843 at
+2^23, 4.981 against 5.631 at 2^24, 128 MiB of keys; E = 4: 8.808 against
+28.151 at 2^24); ROADMAP R3 moves that edge next.  The
+direct route (W5, its keys taken a column at a time) beat ``b3x-l2``
+wherever it fits, or tied it (E = 1: 0.547 against 1.268 ms at G = 10 609,
+0.803 against 1.167 at 24 576; E = 2: 0.858 against 1.225 at 6144, 1.209
+against 1.208 at 8192, 1.241 against 1.361 at 10 609; E = 4: 2.053 against
+2.100 at 4096, 2.124 against 2.048 at 6144), so it keeps its whole range.
+B3x beat ``scatter_reduce_`` per column at every G (E = 1: 64.30 ms at G =
+103, 6.602 at 10 609, 6.935 at 1 054 729 against 0.507, 0.548 and 1.145;
+W3, W5), so no range of G goes to it.  Over a partition the
+time per column rises with the columns of a call (G = 1 000 003: 2.056 ms
+at E = 1, 3.678 at 2, 8.233 at 4, 19.979 at 8; PR 8): ``B3X_BATCH`` = 4.
+Count + f64 sum beside E extreme columns, one shared scatter against the
+sums on their own route and ``b3x-l2`` apart (W5): at 32 768 (sums on B2 in
+two windows) 3.140 against 3.079 ms (E = 1) and 4.054 against 3.018 (E =
+2); at 67 081 (B2, four windows) 3.200 against 4.513 and 4.102 against
+4.492; at 131 072 (``b3-l2``) 3.203 against 3.515 and 4.145 against 3.596;
+at 1 000 003 3.437 against 3.577 and 5.043 against 3.748: ``_apart``
+beside B2 in at most ``B3X_APART_B2_WINDOWS`` = 2 windows, or beside
+``b3-l2`` from ``B3X_APART_MIN_COLS`` = 2 extreme columns.
 """
 
 from __future__ import annotations
@@ -94,17 +133,23 @@ from .grid_additive import n_channels
 
 B1, B2, B3, B4, B5 = "b1", "b2", "b3", "b4", "b5"
 B3_L2 = "b3-l2"
-B3X, B3X_DIRECT = "b3x", "b3x-direct"
+B3X, B3X_DIRECT, B3X_L2 = "b3x", "b3x-direct", "b3x-l2"
 # extreme columns per call over a partition (the kernel takes MAX_EXT): the
 # sub-grid narrows as columns are added, and past four a second call is faster
 B3X_BATCH = 4
+# where the extremes take b3x-l2, they go apart from the sums when the sums
+# take b2 in at most B3X_APART_B2_WINDOWS windows, or b3-l2 beside at least
+# B3X_APART_MIN_COLS extreme columns; elsewhere both share b3's scatter
+B3X_APART_B2_WINDOWS = 2
+B3X_APART_MIN_COLS = 2
 B1_MAX_G = 128
 # B2's cluster size while it beat B3: at most B2_MAX_WINDOWS[0] windows up
 # to B2_FEW_CHANNELS channels, B2_MAX_WINDOWS[1] past them
 B2_FEW_CHANNELS = 2
 B2_MAX_WINDOWS = (4, 2)
-# B4 while G * C is at most this, B5's parts past it
-B4_MAX_GC = 320
+# B4 on its lane route wherever that takes the grid, on its warp route while
+# G * C is at most this; B5's parts past it
+B4_MAX_GC = 384
 B5_MAX_PARTS = 12
 
 KERNELS = {B1: grid_additive.grid_additive,
@@ -164,22 +209,25 @@ def grid_sums(idx, int_cols, float_cols, G, count):
 
 
 def b4_max_g(C):
-    """The widest grid B4 takes at C terms: G * C within ``B4_MAX_GC``, and
-    G = 1 always (B5's atomics would all hit one word)."""
+    """The widest grid B4's warp route takes at C terms: G * C within
+    ``B4_MAX_GC``, and G = 1 always (B5's atomics would all hit one word)."""
     return max(1, B4_MAX_GC // C)
 
 
-def moment_strategy(n, G, C, n_count=1):
+def moment_strategy(n, G, C, n_count=1, compiled=0):
     """``b4``, ``b5``, ``b3`` or None for an n-row call of C moment terms
-    over G bins: B4 (:func:`.grid_moments.grid_moments`) up to
-    :func:`b4_max_g`, B5
+    over G bins, ``compiled`` the batch's compiled term set, 0 for none
+    (:func:`.grid_moments.compiled`): B4 (:func:`.grid_moments.grid_moments`)
+    wherever its lane route takes the grid (:func:`.grid_moments.route`) and
+    on its warp route up to :func:`b4_max_g`, B5
     (:func:`.grid_moments.grid_moments_window`) up to ``B5_MAX_PARTS``
     parts (:func:`.grid_moments.part_plan`), then B3 over the formed term
     columns."""
     if not 1 <= C <= grid_moments.MAX_TERMS or G < 1:
         raise ValueError(f"G={G} with {C} terms: the moment kernels take 1 to "
                          f"{grid_moments.MAX_TERMS} terms")
-    if G <= b4_max_g(C) and grid_moments.fits(G, C):
+    if grid_moments.route(G, n_count, C - n_count, compiled) == grid_moments.LANE or (
+            G <= b4_max_g(C) and grid_moments.fits(G, C)):
         return B4
     if grid_moments.n_parts(G, C, n_count) <= B5_MAX_PARTS:
         return B5
@@ -190,12 +238,14 @@ def moment_sums(idx, bases, terms, G):
     """(strategy, counts, sums) of the moment terms (the contract of
     :mod:`.grid_moments`) through the kernel the plan picks.  On ``b3`` the
     terms are formed as columns in torch and B3 adds them; past B3's limits
-    this raises NotImplementedError."""
+    this raises NotImplementedError.  idx None: every row in bin 0, G = 1,
+    which B4 takes without an index."""
     G = int(G)
+    n = (idx if idx is not None else bases[0]).shape[0]
     n_count = sum(int(t[0]) < 0 for t in terms)
-    name = moment_strategy(idx.shape[0], G, len(terms), n_count)
+    name = moment_strategy(n, G, len(terms), n_count, grid_moments.compiled(len(bases), terms))
     if name is None:
-        raise _past_b3(idx.shape[0], G)
+        raise _past_b3(n, G)
     if name in (B3, B3_L2):
         grid_moments.check_inputs(idx, bases, terms, G)
         count_cols, float_cols = grid_moments.form_terms(idx, bases, terms)
@@ -204,59 +254,92 @@ def moment_sums(idx, bases, terms, G):
 
 
 def extreme_strategy(n, G, n_cols, n_int=0, n_float=0, count=False):
-    """``b3x-direct``, ``b3x`` or None for one n-row call of ``n_cols``
-    extreme columns (at most ``grid_partition.MAX_EXT``) over G bins that
-    also carries the given additive columns: B3x over the raw rows while the
-    keys of the grid fit one CTA's shared memory and nothing additive comes
-    along, B3x over a partition up to B3's limits."""
+    """``b3x-direct``, ``b3x-l2``, ``b3x`` or None for one n-row call of
+    ``n_cols`` extreme columns (at most ``grid_partition.MAX_EXT``) over G
+    bins that also carries the given additive columns: B3x over the raw rows
+    while the keys of the grid fit one CTA's shared memory, its resident
+    route while they stay in L2 (both when nothing additive comes along),
+    B3x over a partition up to B3's limits."""
     if not 1 <= n_cols <= grid_partition.MAX_EXT or G < 1:
         raise ValueError(f"G={G} with {n_cols} extreme columns: a call takes 1 to "
                          f"{grid_partition.MAX_EXT}")
     additive = n_channels(n_int, n_float, count) > 0
     if not additive and grid_partition.extreme_direct_fits(G, n_cols):
         return B3X_DIRECT
+    if not additive and grid_partition.extreme_resident_fits(G, n_cols):
+        return B3X_L2
     if grid_partition.extreme_call_fits(n, G, n_cols, n_int, n_float, count):
         return B3X
     return None
 
 
+def _extreme_batch(n, G, left):
+    """The columns of the next call of :func:`grid_extremes`, ``left`` still
+    to go: ``grid_partition.MAX_EXT`` at most on the direct route, as many as
+    keep the grid of keys in L2 on the resident route, ``B3X_BATCH`` over a
+    partition."""
+    size = min(left, grid_partition.MAX_EXT)
+    if extreme_strategy(n, G, size) == B3X_DIRECT:
+        return size
+    resident = size
+    while resident and not grid_partition.extreme_resident_fits(G, resident):
+        resident -= 1
+    if resident and extreme_strategy(n, G, resident) == B3X_L2:
+        return resident
+    return min(size, B3X_BATCH)
+
+
 def grid_extremes(idx, cols, modes, valids, G):
     """(strategy, grids): the per-bin extremes of any number of columns
-    through B3x: ``grid_partition.MAX_EXT`` columns a call while they take
-    the direct route, ``B3X_BATCH`` a call over a partition; raises
+    through B3x, in calls of :func:`_extreme_batch` columns; raises
     NotImplementedError past B3's limits."""
     G, n = int(G), idx.shape[0]
     names, grids = [], []
     k = 0
     while k < len(cols):
-        size = min(len(cols) - k, grid_partition.MAX_EXT)
-        if extreme_strategy(n, G, size) != B3X_DIRECT:
-            size = min(size, B3X_BATCH)
+        size = _extreme_batch(n, G, len(cols) - k)
         batch = slice(k, k + size)
         name = extreme_strategy(n, G, size)
         if name is None:
             raise _past_b3(n, G)
         names.append(name)
-        grids += grid_partition.grid_partition_extreme(idx, cols[batch], modes[batch],
-                                                       valids[batch], G)[0]
+        if name == B3X_L2:
+            grids += grid_partition.grid_resident_extreme(idx, cols[batch], modes[batch],
+                                                          valids[batch], G)
+        else:
+            grids += grid_partition.grid_partition_extreme(idx, cols[batch], modes[batch],
+                                                           valids[batch], G)[0]
         k += size
     return "+".join(dict.fromkeys(names)), grids
+
+
+def _apart(G, name, C, count, n_cols):
+    """True where extremes on ``b3x-l2`` beside sums on ``name`` (C channels)
+    take less apart than sharing one scatter: where the sums' own call is
+    cheap (B2 in few windows) or the extremes are several (beside
+    ``b3-l2``)."""
+    if name == B2:
+        return grid_window.cluster_windows(G, C, count) <= B3X_APART_B2_WINDOWS
+    return name == B3_L2 and n_cols >= B3X_APART_MIN_COLS
 
 
 def grid_sums_and_extremes(idx, int_cols, float_cols, G, count, cols, modes, valids):
     """(additive strategy, extreme strategy, shared, int_sums, float_sums,
     grids) of a task's additive batch and its extreme columns.  When the
-    extremes need a partition, the sums are past ``b1`` and one call takes
-    them with the first ``B3X_BATCH`` extreme columns, that call computes
-    both from one partition (``shared``; the additive strategy is then
-    ``b3``); the other extreme columns, and all of them otherwise, take
-    :func:`grid_extremes`."""
+    extremes alone take ``b3x`` (past L2), or ``b3x-l2`` where :func:`_apart`
+    does not hold, and the sums are past ``b1``, one call takes the sums with
+    the first ``B3X_BATCH`` extreme columns and computes both from one
+    partition (``shared``; the additive strategy is then ``b3``); the other
+    extreme columns, and all of them otherwise, take :func:`grid_extremes`."""
     G, n = int(G), idx.shape[0]
     name = strategy(n, G, len(int_cols), len(float_cols), count)
     if name is None:
         raise _past_b3(n, G)
     head = min(len(cols), B3X_BATCH)
-    shared = (name != B1 and head > 0 and extreme_strategy(n, G, head) == B3X
+    alone = extreme_strategy(n, G, _extreme_batch(n, G, len(cols))) if cols else None
+    C = n_channels(len(int_cols), len(float_cols), count)
+    shared = (name != B1 and (alone == B3X or alone == B3X_L2
+                              and not _apart(G, name, C, count, len(cols)))
               and extreme_strategy(n, G, head, len(int_cols), len(float_cols), count) == B3X)
     if not shared:
         _, int_sums, float_sums = grid_sums(idx, int_cols, float_cols, G, count)

@@ -98,7 +98,8 @@ class TaskAggregations(Task):
         for i, op in enumerate(self.subtasks):
             kinds.setdefault(op.kind, []).append(i)
         # without binners the extremes reduce the valid rows and need no index
-        idx = self._flat_indices(ctx) if self.binners or kinds.keys() - {"extreme"} else None
+        idx = (self._flat_indices(ctx, kinds.keys()) if self.binners or kinds.keys() - {"extreme"}
+               else None)
         # the extremes of a binned task ride the additive batch's call
         riders = kinds.get("extreme", []) if self.binners else []
         if "additive" in kinds or riders:
@@ -201,15 +202,20 @@ class TaskAggregations(Task):
             new_state[i] = op.apply_kernel(new_state[i], (counts[c], sums[f]))
         return name
 
-    def _flat_indices(self, ctx):
+    def _flat_indices(self, ctx, kinds):
+        """Each row's flat bin, -1 where the selection drops it; None without
+        binners or a selection where only moments need it (every row in bin
+        0: B4 reads no index)."""
         valid = ctx.selection_valid(self.selection)
         if self.binners:
             indices = [b.to_bins(ctx.expr(b.expression)) for b in self.binners]
             idx = fuse_bins(self.binners, indices)
             return idx if valid is None else idx.masked_fill(~valid, -1)
-        if valid is None:
+        if valid is not None:
+            return valid.to(torch.int32) - 1
+        if kinds - {"extreme", "moments"}:
             return torch.zeros(ctx.n_rows, dtype=torch.int32, device=ctx.device)
-        return valid.to(torch.int32) - 1
+        return None
 
     def finalize(self, state):
         shape = grid_shape(self.binners)
