@@ -27,13 +27,18 @@ Run from the root of the repository on a machine with a CUDA card.  It
    edges of its thread-block cluster, G = k * W and k * W + 1 for k = 1 ..
    8 windows of the widest window W, at C = 1 (count), 2 (+ int64), 3
    (+ f64 with NaN) and 4 (+ f32), N = 1_000_003 (past 8 windows the
-   wrapper must refuse);
+   wrapper must refuse); B2 and B3 add floats in no fixed order, so their
+   float sums are held to the error bound of float64 summation in any
+   order, per cell rtol 1e-9 * |want| + 1e-9 + n_cell * 2^-52 * S_cell
+   (S_cell the cell's sum of |value|, n_cell its rows: within_sum_bound);
 5. holds the moment kernels B4 (grid_moments) and B5 (grid_moments_window)
    against their plain versions, through the kernel the plan picks
    (printed), for the terms of var (an f64 column) and of corr (two f64
    columns), with NaN among both, at G in {1, 103, B4's limit at C = 6,
    that + 1, 10 609, B5's limit} and N in {0, 1, 1_000_003, 1e8}: counts
-   exact, float sums to rtol 1e-9 and atol 1e-9; then B5 where its parts
+   exact, B4's float sums to rtol 1e-9 and atol 1e-9, B5's (no fixed order)
+   to the bound of phase 4, which a cell whose x*y sum nearly cancels
+   also meets; then B5 where its parts
    change (a term group or a window one bin past full) on columns starting
    at an odd row, and at G = 10 609 on f32 and int64 bases, on one key and
    on a Zipf(1.1) draw, its parts asserted; then B4's lane route at G = 1
@@ -108,7 +113,7 @@ Run from the root of the repository on a machine with a CUDA card.  It
     each route and with count + int64 + f64 sums riding the same partition,
     and again at G = 1 000 003 on pre-sorted keys, on one key and on a
     Zipf(1.1) draw; extremes exact by value, int sums exact, float sums to
-    rtol 1e-9;
+    the bound of phase 4;
 14. drives the binned-statistics path through the public API: beside the
     H2O-shaped columns (id4 and id6 categorized) x, y float64 normal, v
     float64 uniform in [0, 100) with 1% NaN and t int64, made on the card
@@ -126,7 +131,20 @@ Run from the root of the repository on a machine with a CUDA card.  It
 15. times those queries against plain PyTorch, and each route of B3x at its
     query's shape against its plain version and scatter_reduce_: b3x-l2 at
     the 2-D max of shape 1024 and at q7's, b3x at the 2-D max of shape 2000,
-    b3x-direct at minmax by x.
+    b3x-direct at minmax by x;
+16. drives BASELINE config 2 through the public API: x, y float64 N(0, 1)
+    (every 97th x NaN), z float64 U[0, 100), i int64 in 0..999, 1e8 rows
+    made on the card from seed 42; the virtual columns r = sqrt(x**2 +
+    y**2), phi = arctan2(y, x), w = log1p(z) * exp(-r), zc = clip(z, 10,
+    90); the filter r < 2; select_circle("x", "y", 0.5, 0, 1); then as one
+    pass mean, std, min and max of [r, phi, w, zc], mean([r, w],
+    selection=[None, True]) and count(binby=phi, limits=[-pi, pi],
+    shape=64, selection=True), checked against the same expressions written
+    in torch (counts, min and max exact, means and stds within the bound of
+    phase 4), with B1's launches (three a tile, lane route), B4's (one a
+    tile, lane route) and the strategies asserted, and no other kernel
+    launched; then the group timed against plain torch (5 repetitions,
+    medians).
 
 It exits non-zero on any failure.  The line before the last is a JSON
 object with every kernel's (and each of B3x's routes') launches, error,
@@ -138,12 +156,14 @@ library call that computes the same function; the last line is
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -170,9 +190,10 @@ SET_KEYS = {"k100": 100, "k2000": 2000, "k1e6": H2O_K6}
 # (G = 1, count alone) and the main path's shape on the warp route; for
 # B6 torch.isin, its b6-wide route at the 1e6-key set grouper and b6 at the
 # 50 000 ids; for B3 its resident route at the same shape and the
-# partition's phases; for B3x's resident route q7's shape
+# partition's phases; for B3x's resident route q7's shape; for B1 and B4
+# their launches in the config 2 phase
 EXTRA_KEYS = ("library_add_ms", "isin_ms", "wide_launches", "wide_ms", "wide_plain_ms",
-              "wide_library_ms", "wide_isin_ms", "wide_bound_ms", "wide_max_abs_err",
+              "config2_launches", "wide_library_ms", "wide_isin_ms", "wide_bound_ms", "wide_max_abs_err",
               "l2_launches", "l2_ms", "l2_plain_ms", "l2_max_abs_err", "count_ms",
               "scatter_ms", "sums_ms", "q7_ms", "q7_plain_ms", "q7_library_ms",
               "q7_bound_ms", "isin_wide_ms", "var_ms", "var_plain_ms", "var_bound_ms",
@@ -185,6 +206,37 @@ PEAK_OPS = {"int": 67e12, "f64": 33.5e12}
 def check(ok, message):
     if not ok:
         raise RuntimeError(f"check failed: {message}")
+
+
+def within_sum_bound(got, want, abs_sums, counts):
+    """True when every cell of two float64 sums of the same terms, added in
+    orders neither side fixes (atomics, ``index_add_``), agrees within
+    ``RTOL * |want| + ATOL + n_cell * 2^-52 * S_cell``: ``S_cell`` is the
+    cell's sum of |term| and ``n_cell`` its row count.  Each side lies within
+    (n_cell - 1) * 2^-53 * S_cell of the exact sum whatever its order, so
+    the bound holds for any two correct sums, also in a cell whose terms
+    cancel to near 0, where a relative tolerance does not; one term more or
+    less exceeds it unless that term is below the rounding itself.  Equal
+    values (infinities) and NaN on both sides agree."""
+    bound = RTOL * want.abs() + ATOL + counts.to(torch.float64) * 2.0 ** -52 * abs_sums
+    agree = ((got - want).abs() <= bound) | (got == want) | (torch.isnan(got) & torch.isnan(want))
+    return bool(agree.all())
+
+
+def additive_floats_ok(plain, idx, float_cols, G, got_f, want_f, counts):
+    """B2 / B3 float sums against the plain version's, within the bound of
+    :func:`within_sum_bound` (|term| summed by the same plain version)."""
+    _, abs_sums = plain(idx, [], [c.abs() for c in float_cols], G, count=True)
+    return within_sum_bound(got_f, want_f, abs_sums, counts)
+
+
+def moment_sums_ok(plain, idx, bases, terms, G, got, want):
+    """B5's term sums against the plain version's, within the bound of
+    :func:`within_sum_bound`: a term's |value| is its product of |base|, so
+    the plain version over |bases| sums |term|; every float term of the
+    var and corr sets counts the rows of the first count term."""
+    _, abs_sums = plain(idx, [b.abs() for b in bases], terms, G)
+    return within_sum_bound(got[1], want[1], abs_sums, want[0][0])
 
 
 def card():
@@ -231,13 +283,19 @@ def random_inputs(gen, n, G, nan=False):
     return idx, ints, floats
 
 
-def same_sums(kernel, plain, idx, ints, floats, G, what):
-    """Kernel against plain on one input; returns the float max abs error."""
+def same_sums(kernel, plain, idx, ints, floats, G, what, unordered=False):
+    """Kernel against plain on one input; returns the float max abs error.
+    The float sums of a kernel that adds in no fixed order (``unordered``)
+    are held to :func:`within_sum_bound`, those of B1 to RTOL and ATOL."""
     got_i, got_f = kernel(idx, [ints], [floats], G, count=True)
     want_i, want_f = plain(idx, [ints], [floats], G, count=True)
     torch.cuda.synchronize()
     check(torch.equal(got_i, want_i), f"int64 sums and count, {what}")
-    check(torch.allclose(got_f, want_f, rtol=RTOL, atol=ATOL), f"f64 sums, {what}")
+    if unordered:
+        check(additive_floats_ok(plain, idx, [floats], G, got_f, want_f, want_i[0]),
+              f"f64 sums within the bound of unordered summation, {what}")
+    else:
+        check(torch.allclose(got_f, want_f, rtol=RTOL, atol=ATOL), f"f64 sums, {what}")
     return (got_f - want_f).abs().max().item() if idx.numel() else 0.0
 
 
@@ -340,7 +398,7 @@ def wide_kernels_vs_plain(plan, gw):
             inputs = random_inputs(gen, n, G, nan=True)
             for route in routes:
                 err = same_sums(plan.KERNELS[route], plan.PLAIN[route], *inputs, G,
-                                f"{route} G={G} N={n}")
+                                f"{route} G={G} N={n}", unordered=True)
                 worst[route] = max(worst[route], err)
                 print(f"{route} vs plain G={G} N={n}: ints exact, f64 max abs err {err!r}",
                       flush=True)
@@ -352,7 +410,7 @@ def wide_kernels_vs_plain(plan, gw):
         idx = skewed_keys(kind, gen, max(KERNEL_SIZES), G)
         for route in (plan.B3, plan.B3_L2):
             err = same_sums(plan.KERNELS[route], plan.PLAIN[route], idx, ints, floats, G,
-                            f"{route} {kind} keys G={G}")
+                            f"{route} {kind} keys G={G}", unordered=True)
             worst[route] = max(worst[route], err)
             print(f"{route} vs plain on {kind} keys G={G} N={idx.numel()}: ints exact, no "
                   f"other path, f64 max abs err {err!r}", flush=True)
@@ -391,7 +449,9 @@ def cluster_edges_vs_plain(gw, gen, n=1_000_003):
                 torch.cuda.synchronize()
                 what = f"b2 C={C} G={G} windows={gw.cluster_windows(G, C, True)}"
                 check(torch.equal(got_i, want_i), f"int64 sums and count, {what}")
-                check(torch.allclose(got_f, want_f, rtol=RTOL, atol=ATOL), f"floats, {what}")
+                check(additive_floats_ok(gw.grid_window_reference, idx, floats, G, got_f, want_f,
+                                         want_i[0]),
+                      f"floats within the bound of unordered summation, {what}")
                 err = (got_f - want_f).abs().max().item() if got_f.numel() else 0.0
                 worst = max(worst, err)
                 print(f"{what} N={n} vs plain: ints exact, float max abs err {err!r}",
@@ -439,7 +499,8 @@ def window_edges_vs_plain(gm, agg, gen, n=1_000_003):
                 f"{offset}, {n_win} windows of {W} bins x term groups {bounds}")
         check(gm.grid_moments_window.last_parts == n_win * (len(bounds) - 1), f"parts, {what}")
         check(torch.equal(got[0], want[0]), f"counts, {what}")
-        check(torch.allclose(got[1], want[1], rtol=RTOL, atol=ATOL), f"sums, {what}")
+        check(moment_sums_ok(gm.grid_moments_window_reference, idx, bases, terms, G, got, want),
+              f"sums within the bound of unordered summation, {what}")
         err = (got[1] - want[1]).abs().max().item()
         worst = max(worst, err)
         print(f"{what} N={n} vs plain: counts exact, f64 max abs err {err!r}", flush=True)
@@ -474,7 +535,13 @@ def moment_kernels_vs_plain(plan, gm, agg):
                 torch.cuda.synchronize()
                 what = f"{name} {label} G={G} N={n}"
                 check(torch.equal(got[0], want[0]), f"counts, {what}")
-                check(torch.allclose(got[1], want[1], rtol=RTOL, atol=ATOL), f"sums, {what}")
+                if name == plan.B5:
+                    check(moment_sums_ok(plan.MOMENT_PLAIN[name], idx, bases, terms, G, got,
+                                         want),
+                          f"sums within the bound of unordered summation, {what}")
+                else:
+                    check(torch.allclose(got[1], want[1], rtol=RTOL, atol=ATOL),
+                          f"sums, {what}")
                 err = (got[1] - want[1]).abs().max().item() if n else 0.0
                 worst[name] = max(worst[name], err)
                 print(f"{what} vs plain: counts exact, f64 max abs err {err!r}", flush=True)
@@ -964,7 +1031,11 @@ def stats_timings(df, cols, vt, plan, agg, gm, label):
         got = plan.MOMENT_KERNELS[name](*args)
         want = plan.MOMENT_PLAIN[name](*args)
         check(torch.equal(got[0], want[0]), f"{name} counts at the query shape")
-        check(torch.allclose(got[1], want[1], rtol=RTOL, atol=ATOL), f"{name} sums")
+        if name == plan.B5:
+            check(moment_sums_ok(plan.MOMENT_PLAIN[name], *args, got, want),
+                  f"{name} sums within the bound of unordered summation")
+        else:
+            check(torch.allclose(got[1], want[1], rtol=RTOL, atol=ATOL), f"{name} sums")
         err = (got[1] - want[1]).abs().max().item()
         floor_ms = H2O_ROWS * bytes_per_row / copy_bw * 1e3
         form = f", {gm.grid_moments_window.last_parts} parts" if name == plan.B5 else ""
@@ -1038,7 +1109,9 @@ def h2o_timings(df, cols, vt, plan, label):
         got = plan.KERNELS[name](*args, count=True)
         want = plan.PLAIN[name](*args, count=True)
         check(torch.equal(got[0], want[0]), f"{name} ints at the query shape")
-        check(torch.allclose(got[1], want[1], rtol=RTOL, atol=ATOL), f"{name} floats")
+        check(additive_floats_ok(plan.PLAIN[name], idx, [cols["v3"]], G, got[1], want[1],
+                                 want[0][0]),
+              f"{name} floats within the bound of unordered summation")
         err = (got[1] - want[1]).abs().max().item()
         floor_ms = H2O_ROWS * bytes_per_row / copy_bw * 1e3
         print(f"[{label}] {name} N={H2O_ROWS} G={G} (count + v1 + v3): kernel {kernel_ms!r} "
@@ -1448,8 +1521,9 @@ def extreme_kernel_vs_plain(gp, ge):
                 check(b.dtype == w.dtype and torch.equal(b, w),
                       f"{modes[k]} of {w.dtype} column {k} beside sums, {what}")
             check(torch.equal(int_sums, want_i), f"int sums beside extremes, {what}")
-            check(torch.allclose(float_sums, want_f, rtol=RTOL, atol=ATOL),
-                  f"f64 sums beside extremes, {what}")
+            check(additive_floats_ok(gp.grid_partition_reference, idx, [summed], G, float_sums,
+                                     want_f, want_i[0]),
+                  f"f64 sums beside extremes within the bound of unordered summation, {what}")
             err = (float_sums - want_f).abs().max().item() if n else 0.0
             worst = max(worst, err)
             route = "b3x-direct" if gp.extreme_direct_fits(G, len(cols)) else "b3x"
@@ -1586,7 +1660,6 @@ def binby_plain(cols):
 
 def binby_check(name, out, want):
     """One binned statistic against its plain torch answer."""
-    import numpy as np
     same = lambda got, w, what: check(  # noqa: E731
         torch.equal(torch.as_tensor(np.asarray(got)), w.cpu()), what)
     if name == "limits minmax":
@@ -1671,7 +1744,6 @@ def first_at_int64_max(vt):
     """``first`` on the card where a cell's only order is the int64 maximum
     (B3x's image of it is its empty-cell mark) and two orders past 2^53
     differ by 1: numpy's argmin-based answer."""
-    import numpy as np
     k = np.array([0, 0, 1, 1, 2, 3, 3], np.int64)
     o = np.array([2 ** 60 + 1, 2 ** 60, 5, 4, I64.max, I64.max, I64.max - 1], np.int64)
     v = np.array([1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0])
@@ -1772,6 +1844,164 @@ def binby_timings(df, cols, vt, gp, ge, plan, label):
     return results
 
 
+# BASELINE config 2: filtered multi-agg (mean / std / min / max) over float64
+# virtual-column expressions
+CONFIG2_ROWS = 100_000_000
+CONFIG2_VIRTUAL = (("r", "sqrt(x**2 + y**2)"), ("phi", "arctan2(y, x)"),
+                   ("w", "log1p(z) * exp(-r)"), ("zc", "clip(z, 10, 90)"))
+CONFIG2_NAMES = [name for name, _ in CONFIG2_VIRTUAL]
+CONFIG2_CIRCLE = ("x", "y", 0.5, 0, 1)  # x, y, centre, radius
+CONFIG2_BINS = 64
+
+
+def config2_columns(n, device, seed=SEED):
+    """x, y float64 N(0, 1) (every 97th x NaN), z float64 U[0, 100), i int64
+    in 0..999, made on ``device`` from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, generator=gen, device=device, dtype=torch.float64)
+    y = torch.randn(n, generator=gen, device=device, dtype=torch.float64)
+    x[::97] = float("nan")
+    z = torch.rand(n, generator=gen, device=device, dtype=torch.float64) * 100
+    i = torch.randint(0, 1000, (n,), generator=gen, device=device, dtype=torch.int64)
+    return {"x": x, "y": y, "z": z, "i": i}
+
+
+def config2_frame(vt, cols):
+    """The frame of config 2: the four virtual columns, the filter r < 2 and
+    the circle of CONFIG2_CIRCLE as the selection "default"."""
+    df = vt.from_dataset(vt.DatasetArrays(cols))
+    for name, expression in CONFIG2_VIRTUAL:
+        df[name] = expression
+    df = df.filter("r < 2")
+    df.select_circle(*CONFIG2_CIRCLE)
+    return df
+
+
+def config2_group(df):
+    """Config 2's query group through the public API, as one pass: mean,
+    std, min and max of each virtual column, the mean of r and w without
+    and with the selection, and the selection's count of phi in 64 bins
+    over [-pi, pi)."""
+    pending = {stat: getattr(df, stat)(CONFIG2_NAMES, delay=True)
+               for stat in ("mean", "std", "min", "max")}
+    pending["mean by selection"] = df.mean(["r", "w"], selection=[None, True], delay=True)
+    pending["count phi"] = df.count(binby="phi", limits=[-math.pi, math.pi],
+                                    shape=CONFIG2_BINS, selection=True, delay=True)
+    df.execute()
+    return {name: np.asarray(p.get()) for name, p in pending.items()}
+
+
+def config2_plain(cols):
+    """The same answers written directly in torch on the same tensors, the
+    rows the filter drops and NaN left out as vaex leaves them out; per
+    statistic also what the checks need: each mean's row count and sums of
+    |value| and |value|^2."""
+    x, y, z = cols["x"], cols["y"], cols["z"]
+    values = {"r": torch.sqrt(x ** 2 + y ** 2), "phi": torch.atan2(y, x)}
+    values["w"] = torch.log1p(z) * torch.exp(-values["r"])
+    values["zc"] = torch.clamp(z, 10, 90)
+    keep = values["r"] < 2
+    xc, yc, radius = CONFIG2_CIRCLE[2:]
+    circle = keep & (((x - xc) ** 2 + (y - yc) ** 2) <= radius ** 2)
+    out = {key: [] for key in ("mean", "std", "min", "max", "n", "abs1", "abs2")}
+    for name in CONFIG2_NAMES:
+        v = values[name][keep & ~torch.isnan(values[name])]
+        n = v.numel()
+        mean = v.sum() / n
+        var = torch.clamp((v * v).sum() / n - mean ** 2, min=0)
+        lo, hi = torch.aminmax(v)
+        for key, value in (("mean", mean), ("std", torch.sqrt(var)), ("min", lo), ("max", hi),
+                           ("n", n), ("abs1", v.abs().sum()), ("abs2", (v * v).sum())):
+            out[key].append(float(value))
+    sel = []
+    for name in ("r", "w"):
+        per = []
+        for rows in (keep, circle):
+            v = values[name][rows & ~torch.isnan(values[name])]
+            per.append((float(v.sum() / v.numel()), v.numel(), float(v.abs().sum())))
+        sel.append(per)
+    out["mean by selection"] = sel
+    phi = values["phi"][circle]
+    b = torch.floor((phi + math.pi) / (2 * math.pi) * CONFIG2_BINS).to(torch.int64)
+    inside = (phi >= -math.pi) & (phi < math.pi) & (b < CONFIG2_BINS)
+    out["count phi"] = torch.bincount(b[inside], minlength=CONFIG2_BINS).cpu().numpy()
+    return out
+
+
+def config2_check(got, want):
+    """Counts, min and max exact; each mean within the bound of float64
+    summation in any order (:func:`within_sum_bound`, over the mean: S / n
+    and n); each std within that bound carried through var = E[v^2] -
+    E[v]^2."""
+    f64 = torch.float64
+    for stat in ("min", "max"):
+        check(np.array_equal(got[stat], np.asarray(want[stat])), f"config 2 {stat}")
+    n = torch.tensor(want["n"], dtype=f64)
+    mean_want = torch.tensor(want["mean"], dtype=f64)
+    s1, s2 = torch.tensor(want["abs1"], dtype=f64), torch.tensor(want["abs2"], dtype=f64)
+    check(within_sum_bound(torch.as_tensor(got["mean"], dtype=f64), mean_want, s1 / n, n),
+          f"config 2 means {got['mean']} against {want['mean']}")
+    e1, e2 = 2.0 ** -52 * s1, 2.0 ** -52 * s2  # the bounds of E[v] and E[v^2]
+    std_got = torch.as_tensor(got["std"], dtype=f64)
+    std_want = torch.tensor(want["std"], dtype=f64)
+    dvar = e2 + 2 * mean_want.abs() * e1 + e1 ** 2
+    bound = RTOL * std_want + ATOL + dvar / (std_got + std_want)
+    check(bool(((std_got - std_want).abs() <= bound).all()),
+          f"config 2 stds {got['std']} against {want['std']}")
+    for e, per in enumerate(want["mean by selection"]):
+        for k, (mean, count, abs_sum) in enumerate(per):
+            check(within_sum_bound(torch.tensor([got["mean by selection"][e][k]], dtype=f64),
+                                   torch.tensor([mean], dtype=f64),
+                                   torch.tensor([abs_sum / count], dtype=f64),
+                                   torch.tensor([count])),
+                  f"config 2 mean of {['r', 'w'][e]} by selection {k}")
+    check(got["count phi"].dtype == np.int64
+          and np.array_equal(got["count phi"], want["count phi"]), "config 2 count of phi")
+
+
+def config2_path(vt, plan, ga, gm, gp, label):
+    """The config 2 phase: the group on the card, checked against plain
+    torch, with B1's and B4's launches and routes asserted, then timed
+    against plain torch.  Returns (launches per kernel, timings)."""
+    n = CONFIG2_ROWS
+    cols = config2_columns(n, "cuda")
+    df = config2_frame(vt, cols)
+    zero_launches(plan, gp)
+    torch.cuda.reset_peak_memory_stats()
+    got = config2_group(df)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: kernel.launches for name, kernel in plan.KERNELS.items()}
+    launches.update({name: kernel.launches for name, kernel in plan.MOMENT_KERNELS.items()})
+    launches[plan.B3X] = gp.grid_partition_extreme.launches
+    launches[plan.B3X_L2] = gp.grid_resident_extreme.launches
+    entry = df.executor.trace_log[-1]
+    tiles = entry["tiles"]
+    want_strategies = [{"additive": plan.B1, "moments": plan.B4, "extremes": "reduce"},
+                       {"additive": plan.B1}, {"additive": plan.B1}]
+    check(entry["strategies"] == want_strategies,
+          f"config 2 strategies {entry['strategies']} against {want_strategies}")
+    # one B1 call a tile for each of the three aggregation tasks (no
+    # selection, the selection, the selection binned by phi), one B4 call a
+    # tile for the four std (4 bases, 12 terms: one batch)
+    check(launches[plan.B1] == 3 * tiles, f"B1 launches in config 2: {launches[plan.B1]}")
+    check(launches[plan.B4] == tiles, f"B4 launches in config 2: {launches[plan.B4]}")
+    check(ga.grid_additive.last_route == ga.LANE, "B1's lane route in config 2")
+    check(gm.grid_moments.last_route == gm.LANE, "B4's lane route in config 2")
+    check(all(launches[k] == 0 for k in launches if k not in (plan.B1, plan.B4)),
+          f"config 2 launched no other kernel: {launches}")
+    want = config2_plain(cols)
+    config2_check(got, want)
+    print(f"config 2 N={n}: {tiles} tiles, strategies {entry['strategies']}, launches "
+          f"{launches}, peak device memory {peak / 2 ** 30!r} GiB; results match plain "
+          f"torch (counts, min, max exact; means and stds within the summation bound): "
+          f"{ {k: v.tolist() for k, v in got.items()} }", flush=True)
+    port_med, port_s = median_s(lambda: config2_group(df))
+    plain_med, plain_s = median_s(lambda: config2_plain(cols))
+    print(f"[{label}] config 2 group N={n}: median {port_med!r} s (port) vs {plain_med!r} s "
+          f"(plain torch), reps {REPS}; port s {port_s}; plain s {plain_s}", flush=True)
+    return launches, {"port_s": port_med, "plain_s": plain_med}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1854,6 +2084,11 @@ def main():
           "b3-l2 was not launched during the binned-statistics path")
     extremes = binby_timings(binby_df, binby_cols, vt, gp, ge, plan, label)
     wide[plan.B3]["l2_launches"] = h2o_launches[plan.B3_L2]
+    del binby_df, binby_cols, h2o_cols
+
+    config2_launches, _ = config2_path(vt, plan, ga, gm, gp, label)
+    results[MAIN_SIZES[0]]["config2_launches"] = config2_launches[plan.B1]
+    moments[plan.B4]["config2_launches"] = config2_launches[plan.B4]
 
     measured = {plan.B1: (main_launches[plan.B1], results[MAIN_SIZES[0]]),
                 plan.B2: (h2o_launches[plan.B2], wide[plan.B2]),

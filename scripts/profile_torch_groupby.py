@@ -5,6 +5,7 @@
     python3 scripts/profile_torch_groupby.py --h2o
     python3 scripts/profile_torch_groupby.py --sets
     python3 scripts/profile_torch_groupby.py --binby
+    python3 scripts/profile_torch_groupby.py --config2
 
 The first form builds the chip_smoke.py main-path table on the card (int64
 key with K = 100 categories, float64 value, seed 42) and profiles
@@ -17,7 +18,10 @@ without categorize (isin as a selection and a filter, groupby over raw keys
 through the dense and the set grouper, nunique, unique), each with its
 pre-passes.  ``--binby`` profiles chip_smoke.py's binned statistics over
 continuous axes on that table plus x, y, v and t (limits, 2-D count, mean
-and max, minmax by x, q7, sums and extremes by id6, first).
+and max, minmax by x, q7, sums and extremes by id6, first).  ``--config2``
+profiles chip_smoke.py's BASELINE config 2 group (filtered mean / std / min /
+max of four virtual columns, two means by selection, a count binned by phi;
+1e8 rows, one pass), and plain torch computing the same answers beside it.
 Each query is warmed up, then run REPS times under
 torch.profiler, each call ended by ``torch.cuda.synchronize()``.
 
@@ -133,6 +137,15 @@ def binby(vt):
         profile(f"binby {name} N={chip_smoke.H2O_ROWS}", lambda: query(df))
 
 
+def config2(vt):
+    import chip_smoke
+    cols = chip_smoke.config2_columns(chip_smoke.CONFIG2_ROWS, "cuda")
+    df = chip_smoke.config2_frame(vt, cols)
+    profile(f"config 2 group N={chip_smoke.CONFIG2_ROWS}", lambda: chip_smoke.config2_group(df))
+    profile(f"config 2 plain torch N={chip_smoke.CONFIG2_ROWS}",
+            lambda: chip_smoke.config2_plain(cols))
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_torch_groupby: no CUDA device", file=sys.stderr)
@@ -147,6 +160,9 @@ def main():
         return 0
     if sys.argv[1:] == ["--binby"]:
         binby(vt)
+        return 0
+    if sys.argv[1:] == ["--config2"]:
+        config2(vt)
         return 0
     for n in [int(float(a)) for a in sys.argv[1:]] or [100_000_000, 400_000_000]:
         main_path(n, vt)

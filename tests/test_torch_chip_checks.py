@@ -1,0 +1,107 @@
+"""The float checks of chip_smoke.py, on the CPU: the per-cell bound that
+holds a kernel whose float adds have no fixed order (B2, B3, B5) against
+its plain version (``index_add_``, no fixed order on a CUDA device either).
+
+A relative tolerance fails two correct sums of a cell whose terms nearly
+cancel (B5's corr at G = 58 071 over 1e8 rows failed it once in twelve
+runs): each order rounds differently, and the difference is large against
+the small result.  The bound ``RTOL * |want| + ATOL + n * 2^-52 * S`` (S the
+cell's sum of |term|, n its row count) holds for any two orders, and still
+refuses a sum that is off by one term.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from vaex_tpu_torch import agg
+from vaex_tpu_torch.ops import grid_moments as gm
+from vaex_tpu_torch.ops import grid_window as gw
+
+
+def _cancelling_cell(n=20_000, seed=11):
+    """Terms x*y of one cell whose exact sum is near 0: x, y ~ N(0, 1e3),
+    the last term set to minus the exact sum of the others."""
+    rng = np.random.default_rng(seed)
+    terms = rng.normal(0, 1e3, n) * rng.normal(0, 1e3, n)
+    terms[-1] = -math.fsum(terms[:-1])
+    return terms
+
+
+def _ordered_sum(terms):
+    """float64 sum in the order given, one add at a time."""
+    total = 0.0
+    for t in terms:
+        total += t
+    return total
+
+
+def test_bound_accepts_two_orders_that_allclose_refuses():
+    terms = _cancelling_cell()
+    rng = np.random.default_rng(12)
+    first = torch.tensor([_ordered_sum(terms)], dtype=torch.float64)
+    second = torch.tensor([_ordered_sum(terms[rng.permutation(len(terms))])],
+                          dtype=torch.float64)
+    abs_sum = torch.tensor([np.abs(terms).sum()], dtype=torch.float64)
+    count = torch.tensor([len(terms)])
+    # both are correct sums of the same terms in two orders, and differ
+    assert first.item() != second.item()
+    assert not torch.allclose(first, second, rtol=chip_smoke.RTOL, atol=chip_smoke.ATOL)
+    assert chip_smoke.within_sum_bound(first, second, abs_sum, count)
+    assert chip_smoke.within_sum_bound(second, first, abs_sum, count)
+
+
+def test_bound_refuses_a_sum_off_by_one_term():
+    terms = _cancelling_cell()
+    abs_sum = torch.tensor([np.abs(terms).sum()], dtype=torch.float64)
+    count = torch.tensor([len(terms)])
+    want = torch.tensor([_ordered_sum(terms)], dtype=torch.float64)
+    big = int(np.argmax(np.abs(terms[:-1])))
+    small = int(np.argmin(np.abs(terms[:-1]) + (np.abs(terms[:-1]) < 1) * 1e300))
+    for k in (big, small):  # the largest term, and the smallest one of at least 1
+        dropped = torch.tensor([_ordered_sum(np.delete(terms, k))], dtype=torch.float64)
+        assert not chip_smoke.within_sum_bound(dropped, want, abs_sum, count), k
+
+
+@pytest.mark.parametrize("cells", [1, 7])
+def test_bound_per_cell_with_nan_and_empty_cells(cells):
+    """Several cells checked at once: a NaN on both sides agrees, a NaN on
+    one side does not, an empty cell holds 0 on both."""
+    want = torch.zeros(2, cells + 1, dtype=torch.float64)
+    abs_sums = torch.zeros_like(want)
+    counts = torch.zeros(cells + 1, dtype=torch.int64)
+    want[0, 0] = float("nan")
+    got = want.clone()
+    assert chip_smoke.within_sum_bound(got, want, abs_sums, counts)
+    got[1, -1] = float("nan")
+    assert not chip_smoke.within_sum_bound(got, want, abs_sums, counts)
+
+
+def test_the_chip_checks_run_the_plain_versions_over_abs_terms():
+    """``additive_floats_ok`` and ``moment_sums_ok`` take S from the plain
+    version over |values|: on the CPU the plain version against itself, on
+    reversed rows (another order), passes, and one row's value more fails."""
+    gen = torch.Generator().manual_seed(5)
+    n, G = 50_000, 7
+    idx = torch.randint(-1, G + 1, (n,), generator=gen, dtype=torch.int32)
+    x = torch.randn(n, generator=gen, dtype=torch.float64) * 1e3
+    y = torch.randn(n, generator=gen, dtype=torch.float64) * 1e3
+    x[::97] = float("nan")
+    want_i, want_f = gw.grid_window_reference(idx, [], [x], G, True)
+    got_i, got_f = gw.grid_window_reference(idx.flip(0), [], [x.flip(0)], G, True)
+    assert torch.equal(got_i, want_i)
+    assert chip_smoke.additive_floats_ok(gw.grid_window_reference, idx, [x], G, got_f, want_f,
+                                         want_i[0])
+    off = got_f.clone()
+    off[0, 3] += 1.0
+    assert not chip_smoke.additive_floats_ok(gw.grid_window_reference, idx, [x], G, off, want_f,
+                                             want_i[0])
+    plain = gm.grid_moments_window_reference
+    want = plain(idx, [x, y], agg.CORR_TERMS, G)
+    got = plain(idx.flip(0), [x.flip(0), y.flip(0)], agg.CORR_TERMS, G)
+    assert chip_smoke.moment_sums_ok(plain, idx, [x, y], agg.CORR_TERMS, G, got, want)
+    got[1][0, 2] += 1.0
+    assert not chip_smoke.moment_sums_ok(plain, idx, [x, y], agg.CORR_TERMS, G, got, want)

@@ -997,3 +997,28 @@ def test_b1_plan_names_its_route_on_the_card(cuda):
     assert ga.grid_additive.last_route == ga.LANE
     assert df.count(selection=df.k.isin([3, 5, 7])) == int(np.isin(keys, [3, 5, 7]).sum())
     assert ga.grid_additive.last_route == ga.LANE
+
+
+def test_config2_group_on_the_card(cuda):
+    """BASELINE config 2's query group of chip_smoke.py (filtered mean / std
+    / min / max of four virtual columns, two means by selection, a count
+    binned by phi) at 1e6 rows on the card: against plain torch on the same
+    tensors (counts, min and max exact, means and stds within the bound of
+    unordered summation) and against the port on the CPU; B1 launched three
+    times a tile on its lane route, B4 once a tile on its lane route."""
+    import chip_smoke
+    cols = chip_smoke.config2_columns(1_000_000, cuda)
+    on_card = chip_smoke.config2_frame(vaex_tpu_torch, cols)
+    on_cpu = chip_smoke.config2_frame(vaex_tpu_torch, {k: v.cpu() for k, v in cols.items()})
+    b1, b4 = ga.grid_additive.launches, gm.grid_moments.launches
+    got = chip_smoke.config2_group(on_card)
+    tiles = on_card.executor.trace_log[-1]["tiles"]
+    assert ga.grid_additive.launches - b1 == 3 * tiles
+    assert gm.grid_moments.launches - b4 == tiles
+    assert ga.grid_additive.last_route == ga.LANE and gm.grid_moments.last_route == gm.LANE
+    chip_smoke.config2_check(got, chip_smoke.config2_plain(cols))
+    want = chip_smoke.config2_group(on_cpu)
+    for name in ("min", "max", "count phi"):
+        npt.assert_array_equal(got[name], want[name], err_msg=name)
+    for name in ("mean", "std", "mean by selection"):
+        npt.assert_allclose(got[name], want[name], rtol=1e-9, atol=1e-12, err_msg=name)

@@ -35,6 +35,7 @@ import torch
 
 from .datatype import NAT, DataType
 from .delayed import delayed
+from .expression import Expression
 from .ops.grid_extreme import identity
 from .utils import find_valid_name
 
@@ -286,23 +287,39 @@ class OpFirst(AggOperation):
         return state[0].reshape(shape)
 
 
-def selection_expression(selection):
-    """A ``selection=`` argument as a boolean expression string, or None.
-    Only ad-hoc expressions are ported: the rows they mark False drop from
-    the aggregation, as the rows a filter drops do."""
+def selection_expression(selection, df):
+    """A ``selection=`` argument as a boolean expression string, or None:
+    None or False is none, True the selection "default" of ``df``, the name
+    of one of its selections that selection's expression, a
+    :class:`~vaex_tpu_torch.selections.Selection` its expression, anything
+    else an expression (vaex_tpu/dataframe.py:543-557).  The rows it marks
+    False drop from the aggregation, as the rows a filter drops do."""
+    from .selections import Selection
     if selection is None or selection is False:
         return None
-    if selection is True or isinstance(selection, (list, tuple)):
-        raise NotImplementedError(
-            f"named selections (selection=True, select()) and lists of selections are {PENDING}")
-    return str(selection)
+    if isinstance(selection, (list, tuple)):
+        raise TypeError("a list of selections is taken by the DataFrame's statistics "
+                        "(df.count(..., selection=[...])), not by one aggregator")
+    if selection is True:
+        if "default" not in df.selections:
+            raise ValueError("selection=True but no selection is active")
+        selection = "default"
+    if isinstance(selection, Selection):
+        return selection.to_expression(df)
+    name = str(selection)
+    if name in df.selections:
+        return df.selections[name].to_expression(df)
+    return name
 
 
 class AggregatorDescriptor:
     def __init__(self, name, expression=None, selection=None, edges=False):
         self.name = name
         self.expression = str(expression) if expression is not None else None
-        self.selection = selection_expression(selection)
+        # kept as given (None, True, a name, a Selection or an expression)
+        # and resolved against the frame in add_tasks
+        self.selection = (selection.expression if isinstance(selection, Expression)
+                          else selection or None)
         self.edges = edges
 
     @property
@@ -337,7 +354,8 @@ class AggregatorDescriptorBasic(AggregatorDescriptor):
 
     def add_tasks(self, df, binners):
         op = self.op_class(self.expressions, dtype_in=self._input_dtype(df))
-        return [df.executor.schedule_aggregation(df, binners, op, self.selection)]
+        return [df.executor.schedule_aggregation(df, binners, op,
+                                                 selection_expression(self.selection, df))]
 
     def logical_dtype(self, df):
         dtype = self._input_dtype(df)
@@ -362,7 +380,8 @@ class AggregatorDescriptorFirst(AggregatorDescriptorBasic):
         order_float = DataType(df.data_type(self.order_expression)).numpy.kind == "f"
         op = OpFirst([self.expression, self.order_expression], dtype_in=self._input_dtype(df),
                      order_float=order_float)
-        return [df.executor.schedule_aggregation(df, binners, op, self.selection)]
+        return [df.executor.schedule_aggregation(df, binners, op,
+                                                 selection_expression(self.selection, df))]
 
 
 class AggregatorDescriptorMean(AggregatorDescriptor):
@@ -407,7 +426,8 @@ class AggregatorDescriptorVar(AggregatorDescriptor):
         self.ddof = ddof
 
     def add_tasks(self, df, binners):
-        moments = _moments(df, binners, [self.expression], VAR_TERMS, self.selection)
+        moments = _moments(df, binners, [self.expression], VAR_TERMS,
+                           selection_expression(self.selection, df))
         std, ddof = self.std, self.ddof
 
         @delayed
@@ -438,7 +458,7 @@ class AggregatorDescriptorCovar(AggregatorDescriptor):
 
     def add_tasks(self, df, binners):
         moments = _moments(df, binners, [self.expression, self.y], COVAR_TERMS,
-                           self.selection)
+                           selection_expression(self.selection, df))
         ddof = self.ddof
 
         @delayed
@@ -461,7 +481,7 @@ class AggregatorDescriptorCorr(AggregatorDescriptorCovar):
 
     def add_tasks(self, df, binners):
         moments = _moments(df, binners, [self.expression, self.y], CORR_TERMS,
-                           self.selection)
+                           selection_expression(self.selection, df))
 
         @delayed
         def finish(r):

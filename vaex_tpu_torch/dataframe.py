@@ -13,56 +13,83 @@ same for one statistic.  The set API (``isin``, ``unique``, ``nunique``,
 ``value_counts``, ``map``) and the groupers of uncategorized keys build
 :class:`~vaex_tpu_torch.ops.setops.SortedSet` variables (``_set``), which
 expressions name and passes probe on their device.
+
+Virtual columns (``add_virtual_column``, ``df[name] = expression``) are
+expressions under a name, evaluated in the pass that reads them
+(:class:`~vaex_tpu_torch.scopes.DeviceScope`); ``rename``, ``drop`` and
+``add_column`` follow ``vaex_tpu/dataframe.py:142-282``.  Named selections
+(``select``, ``select_box`` ... ``select_lasso``, undo and redo per name,
+:mod:`~vaex_tpu_torch.selections`) each lower to one boolean expression,
+which a statistic's ``selection=`` (``True`` for ``"default"``, a name, an
+expression, or a list of them) resolves to.  The filter stays the port's
+own boolean expression; it is not a selection named ``__filter__`` as in
+``vaex_tpu``.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, List
 
 import numpy as np
 import torch
 
 from . import agg as agg_module
-from . import array_types, settings
+from . import array_types, expresso, settings
+from . import selections as selections_module
+from .column import ColumnVirtualConstant
 from .dataset import Dataset, DatasetArrays
 from .datatype import DataType, dtype_of, has_torch_dtype
 from .delayed import delayed
 from .execution import ExecutorLocal, TileContext, _tile, pass_inputs
-from .expression import Expression
+from .expression import Expression, _set_of
 from .ops.binners import BinnerOrdinal, BinnerScalar
 from .scopes import DeviceScope
 from .tasks import TaskSetCreate
-from .utils import fingerprint, valid_expression_name
+from .utils import find_valid_name, fingerprint, valid_expression_name
 
 FILTERED_PENDING = "of a filtered DataFrame is not ported yet (ROADMAP queue A9)"
 
 
 class DataFrame:
     def __init__(self, dataset: Dataset, executor=None):
+        # a name that is not an identifier cannot appear in an expression: it
+        # is renamed on entry, "xi % 5" to "xi___5" (vaex_tpu/dataframe.py:50-59)
+        renaming = {}
         for name in dataset:
             if not valid_expression_name(name):
-                raise NotImplementedError(
-                    f"column name {name!r} is not an identifier; renaming columns is "
-                    f"not ported yet (ROADMAP queue A9)")
+                renaming[name] = find_valid_name(name, used=set(dataset) | set(renaming.values()))
+        if renaming:
+            dataset = dataset.renamed(renaming)
         self.dataset = dataset
         self.executor = executor or ExecutorLocal()
         self.column_names: List[str] = list(dataset)
+        self.virtual_columns: Dict[str, str] = {}  # name -> expression
+        self.selections: Dict[str, selections_module.Selection] = {}
+        self.selection_histories: Dict[str, list] = {}
+        self.selection_history_indices: Dict[str, int] = {}
         self._categories: Dict[str, dict] = {}
         self._tile_rows = None  # rows per tile of a pass (None: settings.TILE_ROWS)
         self.variables: Dict[str, object] = {}  # sets and arrays that expressions name
         self._filter = None  # the boolean expression of a filtered frame
         self._filtered_length = None
+        self._dtypes = {}  # (expression, virtual columns) -> (dataset, DataType)
 
     def copy(self, column_names=None):
         df = DataFrame.__new__(DataFrame)
         df.dataset = self.dataset
         df.executor = self.executor
         df.column_names = list(column_names if column_names is not None else self.column_names)
+        df.virtual_columns = dict(self.virtual_columns)
+        df.selections = dict(self.selections)
+        df.selection_histories = {k: list(v) for k, v in self.selection_histories.items()}
+        df.selection_history_indices = dict(self.selection_history_indices)
         df._categories = dict(self._categories)
         df._tile_rows = self._tile_rows
         df.variables = dict(self.variables)
         df._filter = self._filter
         df._filtered_length = self._filtered_length
+        df._dtypes = dict(self._dtypes)
         return df
 
     # ----------------------------------------------------------- variables
@@ -81,8 +108,9 @@ class DataFrame:
 
     def fingerprint(self):
         """Content hash of what a pass over this frame reads: the dataset
-        (sampled), the filter and the variables."""
-        return fingerprint("dataframe", self.dataset.fingerprint(), self._filter, self.variables)
+        (sampled), the filter, the virtual columns and the variables."""
+        return fingerprint("dataframe", self.dataset.fingerprint(), self._filter,
+                           self.virtual_columns, self.variables)
 
     # -------------------------------------------------------------- filters
     @property
@@ -109,21 +137,125 @@ class DataFrame:
         return df
 
     # ------------------------------------------------------------- columns
-    def get_column_names(self, hidden=False):
-        return [n for n in self.column_names if hidden or not n.startswith("__")]
+    def get_column_names(self, virtual=True, hidden=False, regex=None):
+        """The column names in order; hidden ones (``__`` first) only with
+        ``hidden``, virtual ones unless ``virtual`` is off, and only those
+        ``regex`` matches when one is given."""
+        names = [n for n in self.column_names if hidden or not n.startswith("__")]
+        if not virtual:
+            names = [n for n in names if n not in self.virtual_columns]
+        if regex:
+            names = [n for n in names if re.match(regex, n)]
+        return names
+
+    def column_count(self, hidden=False):
+        return len(self.get_column_names(hidden=hidden))
 
     def __contains__(self, name):
         return name in self.get_column_names(hidden=True)
 
+    def _is_physical(self, name):
+        return name in self.dataset and name not in self.virtual_columns
+
+    def add_column(self, name, data):
+        """Add an array (a numpy array, a masked array or a tensor of the
+        frame's length) or a scalar (a :class:`ColumnVirtualConstant`) as
+        a column; one of the same name is replaced."""
+        if np.isscalar(data):
+            data = ColumnVirtualConstant(data, self.dataset.row_count)
+        if len(data) != self.dataset.row_count:
+            raise ValueError(f"array of length {len(data)} does not match the frame's length "
+                             f"{self.dataset.row_count}")
+        new = DatasetArrays({name: data})
+        if name in self.dataset:
+            self.dataset = self.dataset.dropped(name).merged(new)
+        else:
+            self.dataset = self.dataset.merged(new) if len(self.dataset) else new
+        if name not in self.column_names:
+            self.column_names.append(name)
+        self._filtered_length = None
+
+    def add_virtual_column(self, name, expression):
+        """Name an expression (vaex_tpu/dataframe.py:229-258).  An expression
+        that names the column itself means its old value: ``x = x * 2`` of a
+        virtual x takes x's old definition, and of a physical x hides the
+        data as ``__x`` and refers to that."""
+        name = find_valid_name(name)
+        expression = str(expression)
+        refers_self = name in expresso.collect_names(expression)
+        if refers_self and name in self.virtual_columns:
+            expression = expresso.substitute(expression, {name: f"({self.virtual_columns[name]})"})
+        elif refers_self and name in self.dataset:
+            hidden = find_valid_name(f"__{name}", used=self.column_names)
+            self.dataset = self.dataset.renamed({name: hidden})
+            self.column_names.append(hidden)
+            expression = expresso.translate(expression, lambda n: hidden if n == name else None)
+        self.virtual_columns[name] = expression
+        if name not in self.column_names:
+            self.column_names.append(name)
+        self._filtered_length = None
+        return name
+
+    def delete_virtual_column(self, name):
+        if name not in self.virtual_columns:
+            raise KeyError(f"{name!r} is not a virtual column")
+        del self.virtual_columns[name]
+        if name in self.column_names:
+            self.column_names.remove(name)
+        self._filtered_length = None
+
+    def rename(self, name, new_name):
+        """Rename a column, physical or virtual, and rewrite the virtual
+        columns that refer to it."""
+        if name in self.virtual_columns:
+            self.virtual_columns[new_name] = self.virtual_columns.pop(name)
+        else:
+            self.dataset = self.dataset.renamed({name: new_name})
+        self.column_names = [new_name if n == name else n for n in self.column_names]
+        self.virtual_columns = {
+            k: expresso.translate(v, lambda n: new_name if n == name else None)
+            for k, v in self.virtual_columns.items()}
+        return new_name
+
+    def drop(self, columns, inplace=False):
+        """A frame without the named columns; a physical one stays in the
+        dataset, so the virtual columns that read it still work."""
+        columns = [columns] if isinstance(columns, (str, Expression)) else columns
+        df = self if inplace else self.copy()
+        for name in map(str, columns):
+            df.virtual_columns.pop(name, None)
+            df.column_names = [n for n in df.column_names if n != name]
+        return df
+
+    def __setitem__(self, name, value):
+        if isinstance(value, Expression):
+            self.add_virtual_column(name, value.expression)
+        elif isinstance(value, (np.ndarray, torch.Tensor, list, tuple, ColumnVirtualConstant)):
+            self.add_column(name, np.asarray(value) if isinstance(value, (list, tuple))
+                            else value)
+        else:
+            self.add_virtual_column(name, str(value))
+
+    def __delitem__(self, name):
+        self.drop(str(name), inplace=True)
+
     def data_type(self, expression) -> DataType:
         """dtype of a column, or of an expression evaluated over one row."""
         expression = str(expression)
-        if expression in self.dataset:
+        if self._is_physical(expression):
             logical = self.dataset.logical.get(expression)
             return DataType(logical) if logical is not None else dtype_of(
                 self.dataset[expression])
-        rows = min(1, self.dataset.row_count)
-        return DataType(self._evaluate_rows(expression, 0, rows, filtered=False).dtype)
+        # remembered per expression and virtual columns while the dataset
+        # node stays: every descriptor of a statistic asks, and each asking
+        # evaluates the expression over a row
+        key = (expression, frozenset(self.virtual_columns.items()))
+        known = self._dtypes.get(key)
+        if known is None or known[0] is not self.dataset:
+            rows = min(1, self.dataset.row_count)
+            data, _ = self._evaluate_tile(expression, 0, rows, filtered=False)
+            known = self._dtypes[key] = (self.dataset, DataType(data.dtype))
+        return known[1]
 
     def __len__(self):
         """The number of rows; of a filtered frame the rows its filter keeps
@@ -162,6 +294,109 @@ class DataFrame:
             return Expression(self, name)
         raise AttributeError(name)
 
+    # ----------------------------------------------------------- selections
+    def select(self, expression, mode="replace", name="default"):
+        """Set the selection ``name`` to a boolean expression, combined with
+        the one it replaces by ``mode``: "replace", "and", "or", "xor" or
+        "subtract" (vaex_tpu/dataframe.py:442-451)."""
+        previous = self.selections.get(name)
+        selection = None
+        if expression is not None:
+            selection = selections_module.SelectionExpression(
+                str(expression), previous, mode if previous is not None else "replace")
+        self._set_selection(name, selection)
+
+    def select_nothing(self, name="default"):
+        self._set_selection(name, None)
+
+    def select_inverse(self, name="default"):
+        previous = self.selections.get(name)
+        if previous is not None:
+            self._set_selection(name, selections_module.SelectionInvert(previous))
+
+    def select_box(self, spaces, limits, mode="replace", name="default"):
+        """The rows where each expression of ``spaces`` lies in [lo, hi) of its
+        pair of ``limits``."""
+        parts = [f"(({space}) >= {lo}) & (({space}) < {hi})"
+                 for space, (lo, hi) in zip(spaces, limits)]
+        self.select(" & ".join(f"({p})" for p in parts), mode=mode, name=name)
+
+    def select_rectangle(self, x, y, limits, mode="replace", name="default"):
+        self.select_box([x, y], limits, mode=mode, name=name)
+
+    def select_circle(self, x, y, xc, yc, r, mode="replace", name="default", inclusive=True):
+        op = "<=" if inclusive else "<"
+        self.select(f"((({x}) - {xc})**2 + (({y}) - {yc})**2) {op} {r}**2", mode=mode,
+                    name=name)
+
+    def select_ellipse(self, x, y, xc, yc, width, height, angle=0, mode="replace",
+                       name="default", radians=False):
+        """The rows inside the ellipse of centre (xc, yc), axes ``width`` and
+        ``height``, turned by ``angle`` (degrees unless ``radians``)."""
+        if not radians:
+            angle = np.radians(angle)
+        xr, yr = width / 2.0, height / 2.0
+        ca, sa = np.cos(angle), np.sin(angle)
+        self.select(f"(((({x}) - {xc}) * {ca} + (({y}) - {yc}) * {sa})**2 / {xr}**2 + "
+                    f"((({x}) - {xc}) * {sa} - (({y}) - {yc}) * {ca})**2 / {yr}**2) <= 1",
+                    mode=mode, name=name)
+
+    def select_lasso(self, expression_x, expression_y, xsequence, ysequence, mode="replace",
+                     name="default"):
+        """The rows inside the polygon of vertices (xsequence, ysequence)
+        (``pnpoly``)."""
+        previous = self.selections.get(name)
+        self._set_selection(name, selections_module.SelectionLasso(
+            expression_x, expression_y, xsequence, ysequence, previous,
+            mode if previous is not None else "replace"))
+
+    def select_non_missing(self, drop_nan=True, drop_masked=True, column_names=None,
+                           mode="replace", name="default"):
+        """The rows where no column of ``column_names`` (default: all) is NaN
+        (``drop_nan``) or missing (``drop_masked``)."""
+        self._set_selection(name, selections_module.SelectionDropNa(
+            column_names, drop_nan=drop_nan, drop_masked=drop_masked))
+
+    def _set_selection(self, name, selection):
+        if selection is None:
+            self.selections.pop(name, None)
+        else:
+            self.selections[name] = selection
+        history = self.selection_histories.setdefault(name, [])
+        # a new selection after an undo drops the steps that were undone
+        del history[self.selection_history_indices.get(name, -1) + 1:]
+        history.append(selection)
+        self.selection_history_indices[name] = len(history) - 1
+
+    def _select_step(self, name, index):
+        self.selection_history_indices[name] = index
+        selection = self.selection_histories[name][index] if index >= 0 else None
+        if selection is None:
+            self.selections.pop(name, None)
+        else:
+            self.selections[name] = selection
+
+    def selection_undo(self, name="default"):
+        if self.selection_can_undo(name):
+            self._select_step(name, self.selection_history_indices[name] - 1)
+
+    def selection_redo(self, name="default"):
+        if self.selection_can_redo(name):
+            self._select_step(name, self.selection_history_indices.get(name, -1) + 1)
+
+    def selection_can_undo(self, name="default"):
+        return self.selection_history_indices.get(name, -1) > -1
+
+    def selection_can_redo(self, name="default"):
+        return (self.selection_history_indices.get(name, -1) + 1
+                < len(self.selection_histories.get(name, [])))
+
+    def has_selection(self, name="default"):
+        return name in self.selections
+
+    def get_selection(self, name="default"):
+        return self.selections.get(name)
+
     # ------------------------------------------------------------ categories
     def categorize(self, column, min_value=0, labels=None, inplace=False):
         """Mark an integer column as categorical with codes
@@ -176,6 +411,26 @@ class DataFrame:
         # list of 1e6 labels takes tens of ms to become one
         labels = np.asarray(labels)
         df._categories[column] = {"labels": labels, "N": len(labels), "min_value": min_value}
+        return df
+
+    def ordinal_encode(self, column, values=None, inplace=False, lazy=False):
+        """A virtual column ``<column>_ordinal`` of each value's ordinal among
+        the sorted distinct values (or ``values``), a category with those
+        values as labels (vaex_tpu/dataframe.py:571-592); NaN and missing
+        values fall outside the codes."""
+        df = self if inplace else self.copy()
+        column = str(column)
+        if values is None:
+            oset = df._set(column)
+            values = list(oset.key_array(masked=False)[:oset.n_keys])
+        else:
+            oset = _set_of(values)
+            values = list(values)
+        var = df.add_variable("ordinal_set", oset, unique=True)
+        name = column if lazy else f"{column}_ordinal"
+        df.add_virtual_column(name if name != column else f"__{column}_codes",
+                              f"_ordinal_values({column}, {var})")
+        df._categories[name] = {"labels": np.asarray(values), "N": len(values), "min_value": 0}
         return df
 
     def is_category(self, column):
@@ -195,20 +450,7 @@ class DataFrame:
     def _evaluate_rows(self, expression, i1, i2, filtered=True):
         """An expression over rows [i1, i2), eagerly, as a host array; of a
         filtered frame the rows the filter keeps, unless ``filtered`` is off."""
-        expression = str(expression)
-        expressions = [expression]
-        if filtered and self.filtered:
-            expressions.append(self._filter)
-        names, device, variables = pass_inputs(self, self.dataset, expressions)
-        tile = {n: _tile(self.dataset[n], i1, i2, device) for n in names}
-        ctx = TileContext(DeviceScope(tile, variables), i2 - i1, device)
-        value = ctx.expr(expression)
-        data, mask = value.data, value.mask
-        if data.dim() == 0:  # a constant expression
-            data = data.expand(i2 - i1)
-        if len(expressions) > 1:
-            keep = ctx.boolean(self._filter)
-            data, mask = data[keep], None if mask is None else mask[keep]
+        data, mask = self._evaluate_tile(expression, i1, i2, filtered)
         data = array_types.to_numpy(data)
         if mask is not None:
             mask = array_types.to_numpy(mask)
@@ -216,11 +458,30 @@ class DataFrame:
                 return np.ma.MaskedArray(data, mask)
         return data
 
+    def _evaluate_tile(self, expression, i1, i2, filtered=True):
+        """(data, mask or None): the tensors of an expression over rows [i1,
+        i2) on the pass device, without a copy to the host."""
+        expression = str(expression)
+        expressions = [expression]
+        if filtered and self.filtered:
+            expressions.append(self._filter)
+        names, device, variables = pass_inputs(self, self.dataset, expressions)
+        tile = {n: _tile(self.dataset[n], i1, i2, device) for n in names}
+        ctx = TileContext(DeviceScope(tile, variables, self.virtual_columns), i2 - i1, device)
+        value = ctx.expr(expression)
+        data, mask = value.data, value.mask
+        if data.dim() == 0:  # a constant expression
+            data = data.expand(i2 - i1)
+        if len(expressions) > 1:
+            keep = ctx.boolean(self._filter)
+            data, mask = data[keep], None if mask is None else mask[keep]
+        return data, mask
+
     def evaluate(self, expression):
         """Values of an expression as a host numpy (masked) array."""
         expression = str(expression)
-        logical = self.dataset.logical.get(expression)
-        if expression in self.dataset and not self.filtered:
+        logical = self.dataset.logical.get(expression) if self._is_physical(expression) else None
+        if self._is_physical(expression) and not self.filtered:
             values = array_types.to_numpy(self.dataset[expression][:])
         else:
             values = self._evaluate_rows(expression, 0, self.dataset.row_count)
@@ -260,24 +521,25 @@ class DataFrame:
 
     def _compute_agg(self, name, expression, binby=(), limits=None, shape=128,
                      selection=None, delay=False, edges=False, **agg_kwargs):
-        """One statistic of an expression, or of each of a list of them
-        (stacked on the first axis), over the grid of ``binby``
-        (vaex_tpu/dataframe.py:785-832)."""
+        """One statistic of an expression, or of each of a list of them,
+        over the grid of ``binby``, for one selection or each of a list of
+        them: a list of selections stacks on a leading axis, inside the axis
+        of a list of expressions (vaex_tpu/dataframe.py:785-832)."""
         binners = self._create_binners(binby, limits, shape)
-        if isinstance(selection, Expression):
-            selection = selection.expression
         multi = isinstance(expression, (list, tuple))
+        many = isinstance(selection, (list, tuple))
+        selections = list(selection) if many else [selection]
         promises, logical = [], []
         for expr in (expression if multi else [expression]):
-            if name == "count" and (expr is None or str(expr) == "*"):
-                desc = agg_module.count("*", selection=selection)
-            else:
-                desc = agg_module.aggregates[name](str(expr), selection=selection,
-                                                   **agg_kwargs)
-            [promise] = desc.add_tasks(self, binners)
-            promises.append(promise)
-            logical.append(desc.logical_dtype(self))
-        ndim = len(binners)
+            for sel in selections:
+                if name == "count" and (expr is None or str(expr) == "*"):
+                    desc = agg_module.count("*", selection=sel)
+                else:
+                    desc = agg_module.aggregates[name](str(expr), selection=sel, **agg_kwargs)
+                [promise] = desc.add_tasks(self, binners)
+                promises.append(promise)
+                logical.append(desc.logical_dtype(self))
+        ndim, k = len(binners), len(selections)
 
         @delayed
         def finish(*grids):
@@ -287,9 +549,9 @@ class DataFrame:
                 if ndim and not edges:
                     grid = agg_module.extract_central(grid, ndim)
                 out.append(grid if ndim else grid.reshape(())[()])
-            if multi:
-                return np.stack(out) if ndim else np.array(out)
-            return out[0]
+            if many and k > 1:
+                out = [np.stack(out[i:i + k]) for i in range(0, len(out), k)]
+            return np.stack(out) if multi else out[0]
         return self._delay(delay, finish(*promises))
 
     def _delay(self, delay, result):
@@ -348,8 +610,6 @@ class DataFrame:
         on the last axis (vaex_tpu/dataframe.py:895-921)."""
         multi = isinstance(expression, (list, tuple))
         binners = self._create_binners(binby, limits, shape)
-        if isinstance(selection, Expression):
-            selection = selection.expression
         promises, logical = [], []
         for e in (expression if multi else [expression]):
             for make in (agg_module.min, agg_module.max):
@@ -607,7 +867,8 @@ class DataFrame:
         missing value, unless dropped; with ``return_inverse`` also each
         row's index into them."""
         expression = str(expression)
-        df = self if selection is None else self.filter(agg_module.selection_expression(selection))
+        selection = agg_module.selection_expression(selection, self)
+        df = self if selection is None else self.filter(selection)
         oset = df._set(expression, limit=limit, limit_raise=limit_raise)
         keys = oset.key_array(masked=True)
         take = list(range(oset.n_keys))
@@ -645,11 +906,12 @@ class DataFrame:
         ``device`` too.  Torch raises when the device does not exist: there is no
         silent CPU run."""
         device = torch.device(device or settings.DEVICE)
-        names = column_names or self.get_column_names(hidden=True)
+        names = column_names or list(self.dataset)
         columns = {}
         for name in self.dataset:
             col = self.dataset[name]
-            if (name in names and not isinstance(col, np.ma.MaskedArray)
+            if (name in names and isinstance(col, (np.ndarray, torch.Tensor))
+                    and not isinstance(col, np.ma.MaskedArray)
                     and has_torch_dtype(dtype_of(col).numpy)):
                 col = array_types.to_tensor(col, device)
             columns[name] = col

@@ -2,8 +2,11 @@
 
 The counterpart of ``vaex_tpu/dataset.py`` for in-memory columns: numpy
 arrays, numpy masked arrays and torch tensors.  Slicing makes a new node of
-views; the decorator nodes of the reference (renamed, merged, take, concat,
-filtered, files) are not ported yet.
+views.  The decorator nodes ``renamed``, ``merged`` and ``dropped`` (what
+``DataFrame.rename``, ``add_column`` and a shadowed column need) share the
+columns of their parents and keep their ``device`` and ``logical`` dtypes;
+each has a fingerprint of its own.  The other nodes of the reference (take,
+concat, filtered, files) are not ported yet.
 """
 
 from __future__ import annotations
@@ -77,6 +80,15 @@ class Dataset(collections.abc.Mapping):
         self._ids[name] = fp
         return fp
 
+    def renamed(self, renaming) -> "Dataset":
+        return DatasetRenamed(self, renaming)
+
+    def merged(self, other) -> "Dataset":
+        return DatasetMerged(self, other)
+
+    def dropped(self, *names) -> "Dataset":
+        return DatasetDropped(self, names)
+
     def slice(self, start, end) -> "Dataset":
         if start == 0 and end == self.row_count:
             return self
@@ -104,3 +116,58 @@ class DatasetArrays(Dataset):
     def _compute_fingerprint(self) -> str:
         return fingerprint("dataset-arrays",
                            {name: self._column_fingerprint(name) for name in self._columns})
+
+
+class _Decorator(Dataset):
+    """A node over the columns of ``original``."""
+
+    def __init__(self, original, columns):
+        super().__init__()
+        self.original = original
+        self._columns = columns
+        self._row_count = original.row_count
+        self.device = original.device
+
+
+class DatasetRenamed(_Decorator):
+    def __init__(self, original, renaming):
+        self.renaming = dict(renaming)
+        super().__init__(original, {self.renaming.get(name, name): col
+                                    for name, col in original._columns.items()})
+        self.logical = {self.renaming.get(name, name): dt
+                        for name, dt in original.logical.items()}
+
+    def _compute_fingerprint(self):
+        return fingerprint("dataset-renamed", self.original.fingerprint(), self.renaming)
+
+
+class DatasetDropped(_Decorator):
+    def __init__(self, original, names):
+        self.names = tuple(names)
+        super().__init__(original, {name: col for name, col in original._columns.items()
+                                    if name not in self.names})
+        self.logical = {name: dt for name, dt in original.logical.items()
+                        if name not in self.names}
+
+    def _compute_fingerprint(self):
+        return fingerprint("dataset-dropped", self.original.fingerprint(), self.names)
+
+
+class DatasetMerged(Dataset):
+    """The columns of two datasets of one length side by side."""
+
+    def __init__(self, left, right):
+        super().__init__()
+        if left.row_count != right.row_count:
+            raise ValueError(f"row counts differ: {left.row_count} vs {right.row_count}")
+        overlap = set(left) & set(right)
+        if overlap:
+            raise NameError(f"duplicate columns: {sorted(overlap)}")
+        self.left, self.right = left, right
+        self._columns = {**left._columns, **right._columns}
+        self._row_count = left.row_count
+        self.logical = {**left.logical, **right.logical}
+        self.device = left.device if left.device is not None else right.device
+
+    def _compute_fingerprint(self):
+        return fingerprint("dataset-merged", self.left.fingerprint(), self.right.fingerprint())

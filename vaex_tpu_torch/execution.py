@@ -15,10 +15,13 @@ grid kernel runs.
 A filtered DataFrame's filter is evaluated once per tile into
 ``TileContext.row_valid`` (masked rows count as False); every task drops the
 rows it marks False.  The variables an expression names (sets, arrays) are
-resolved once per pass (:func:`.scopes.resolve_variables`).
+resolved once per pass (:func:`.scopes.resolve_variables`); a virtual
+column is read through its expression, so a pass loads only the physical
+columns under it and evaluates it once per tile however many expressions
+name it.
 
 Not ported yet (ROADMAP queue A): the whole-pass loop, the host stage for
-string expressions, named selections, the mesh, the result cache.
+string expressions, the mesh, the result cache.
 """
 
 from __future__ import annotations
@@ -127,7 +130,7 @@ class ExecutorLocal(Executor):
         for i1 in range(0, max(n_total, 1), T):
             i2 = min(i1 + T, n_total)
             tile = {name: _tile(dataset[name], i1, i2, device) for name in names}
-            ctx = TileContext(DeviceScope(tile, variables), i2 - i1, device)
+            ctx = TileContext(DeviceScope(tile, variables, df.virtual_columns), i2 - i1, device)
             if filter_expression is not None:
                 ctx.row_valid = ctx.boolean(filter_expression)
             states = [t.update(s, ctx) for t, s in zip(tasks, states)]
@@ -159,8 +162,8 @@ def pass_inputs(df, dataset, expressions):
     its columns, its device, and its variables resolved on that device."""
     names, used_variables = set(), set()
     for expr in expressions:
-        names |= column_names(expr, df.variables)
-        used_variables |= variable_names(expr, df.variables)
+        names |= column_names(expr, df.variables, df.virtual_columns)
+        used_variables |= variable_names(expr, df.variables, df.virtual_columns)
     missing = names - set(dataset)
     if missing:
         raise NameError(f"column(s) {sorted(missing)} do not exist")

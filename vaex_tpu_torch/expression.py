@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import expresso
 from .registry import install_all_on_expression
 
 
@@ -25,6 +26,7 @@ def _to_expression_string(value):
 _binary_ops = {
     "add": "+", "sub": "-", "mul": "*", "truediv": "/", "floordiv": "//",
     "mod": "%", "pow": "**", "and": "&", "or": "|", "xor": "^",
+    "lshift": "<<", "rshift": ">>",
 }
 _comparison_ops = {"lt": "<", "le": "<=", "gt": ">", "ge": ">=", "eq": "==", "ne": "!="}
 _unary_ops = {"neg": "-", "pos": "+", "invert": "~"}
@@ -80,6 +82,70 @@ class Expression(metaclass=Meta):
 
     def astype(self, dtype):
         return Expression(self.df, f"astype({self.expression}, {str(np.dtype(dtype))!r})")
+
+    # -- structure (vaex_tpu/expression.py:172-200) --------------------------
+    def expand(self, stop=()):
+        """The expression with every virtual column replaced by its own
+        expression, recursively, except the names in ``stop``."""
+        virtual = self.df.virtual_columns
+        expr, previous = self.expression, None
+        while previous != expr:
+            previous = expr
+            expr = expresso.substitute(expr, {
+                name: f"({virtual[name]})" for name in expresso.collect_names(expr)
+                if name in virtual and name not in stop})
+        return Expression(self.df, expr)
+
+    def variables(self):
+        """The physical columns and variables the expression reads."""
+        from .scopes import _leaves
+        columns, used = _leaves(self.expression, self.df.variables, self.df.virtual_columns)
+        return columns | used
+
+    def fingerprint(self):
+        from .utils import fingerprint
+        return fingerprint("expression", self.expression, self.df.fingerprint())
+
+    @property
+    def dtype(self):
+        return self.df.data_type(self.expression)
+
+    # -- statistics (vaex_tpu/expression.py:233-255) -------------------------
+    def count(self, **kwargs):
+        return self.df.count(self.expression, **kwargs)
+
+    def sum(self, **kwargs):
+        return self.df.sum(self.expression, **kwargs)
+
+    def mean(self, **kwargs):
+        return self.df.mean(self.expression, **kwargs)
+
+    def std(self, **kwargs):
+        return self.df.std(self.expression, **kwargs)
+
+    def var(self, **kwargs):
+        return self.df.var(self.expression, **kwargs)
+
+    def min(self, **kwargs):
+        return self.df.min(self.expression, **kwargs)
+
+    def max(self, **kwargs):
+        return self.df.max(self.expression, **kwargs)
+
+    def minmax(self, **kwargs):
+        return self.df.minmax(self.expression, **kwargs)
+
+    # -- convenience (vaex_tpu/expression.py:332-360): ``abs``, ``clip``,
+    # ``fillna``, ``fillmissing``, ``isna`` ... are the registry's methods
+    # (``df.x.clip(1, 2)`` is ``clip(x, 1, 2)``); ``where`` takes the
+    # condition first, so the class defines it
+    def where(self, condition, other):
+        """This expression where ``condition`` holds, else ``other``."""
+        return Expression(self.df, f"where({_to_expression_string(condition)}, "
+                                   f"{self.expression}, {_to_expression_string(other)})")
+
+    def __abs__(self):
+        return self.abs()
 
     def evaluate(self):
         """The values as a host numpy (masked) array."""

@@ -251,15 +251,18 @@ class BinnerTime:
 
 def _frame_key(df):
     """What, beside the dataset node itself, decides the rows a pass over
-    ``df`` sees."""
-    return (df._filter, fingerprint(df.variables) if df.variables else None)
+    ``df`` sees and the values its names stand for: the filter, the
+    variables and the virtual columns (a key redefined by ``df[k] = ...``
+    names other values under the same name)."""
+    return (df._filter, fingerprint(df.variables) if df.variables else None,
+            fingerprint(df.virtual_columns) if df.virtual_columns else None)
 
 
 def _sampled_range_too_wide(df, name):
     """True when about 4000 rows of an unfiltered frame's column already
     span more than DENSE_RANGE_MAX: the whole column then does too, and the
     key needs no pre-pass to be sent to the set grouper."""
-    if df.filtered or name not in df.dataset:
+    if df.filtered or not df._is_physical(name):
         return False
     col = df.dataset[name]
     if isinstance(col, np.ma.MaskedArray) or len(col) == 0:

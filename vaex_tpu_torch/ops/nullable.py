@@ -110,8 +110,10 @@ def _install_operators():
         "truediv": _truediv, "floordiv": operator.floordiv,
         "mod": operator.mod, "pow": operator.pow,
         "and": operator.and_, "or": operator.or_, "xor": operator.xor,
+        "lshift": operator.lshift, "rshift": operator.rshift,
         "lt": operator.lt, "le": operator.le, "gt": operator.gt,
         "ge": operator.ge, "eq": operator.eq, "ne": operator.ne,
+        "matmul": operator.matmul,
     }
     for name, op in ops.items():
         setattr(NA, f"__{name}__", _binop(op))

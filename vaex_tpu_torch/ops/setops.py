@@ -14,7 +14,7 @@ walks a search tree built once per set: wholly in shared memory while it
 fits (``b6``), its top levels there and the rest in global memory past that
 (``b6-wide``).
 
-String, arrow and dictionary keys wait for the host scope (ROADMAP queue A3)
+String, arrow and dictionary keys wait for the host scope (ROADMAP queue A9)
 and raise; ``SortedIndex`` waits for ``join.py`` (queue A8).
 """
 
@@ -30,7 +30,7 @@ from . import probe as probe_module
 from .nullable import NA
 
 STRINGS_PENDING = ("sets of string keys are not ported yet: they wait for the host scope "
-                   "(ROADMAP queue A3)")
+                   "(ROADMAP queue A9)")
 
 
 class RowLimitException(Exception):
@@ -372,5 +372,5 @@ def choices_tensor(values, device):
     values = np.asarray(values)
     if values.dtype.kind in "OUS":
         raise NotImplementedError("mapping to string values is not ported yet: it waits for "
-                                  "the host scope (ROADMAP queue A3)")
+                                  "the host scope (ROADMAP queue A9)")
     return torch.as_tensor(values, dtype=torch_dtype(values.dtype)).to(device)

@@ -3,7 +3,9 @@
 Every name callable inside an expression string lives in
 ``expression_namespace``: functions of :class:`vaex_tpu_torch.ops.nullable.NA`
 values, evaluated eagerly on a tile's tensors.  ``register_function`` also
-installs the function as a method on :class:`vaex_tpu_torch.expression.Expression`.
+installs the function as a method on :class:`vaex_tpu_torch.expression.Expression`
+(``df.x.sqrt()`` is ``sqrt(x)``), except where the class defines a method of
+that name itself (``clip``, ``where``, ``fillna`` ...).
 The host namespace of ``vaex_tpu`` (string and datetime functions) is not
 ported yet.
 """
@@ -38,10 +40,14 @@ def _try_install(name):
     Expression = getattr(_expr_mod, "Expression", None)
     if Expression is None:  # expression.py installs the pending ones itself
         return
+    own = Expression.__dict__.get(name)
+    if own is not None and not getattr(own, "registered", False):
+        return
 
     def method(self, *args, **kwargs):
         return self._call_function(name, *args, **kwargs)
     method.__name__ = name
+    method.registered = True
     setattr(Expression, name, method)
 
 

@@ -1,13 +1,15 @@
 """Expression evaluation over one tile.
 
 :class:`DeviceScope` is the Mapping ``eval`` uses as locals: names resolve
-to :class:`~vaex_tpu_torch.ops.nullable.NA` tiles of physical columns or to
-the pass's variables (a :class:`~vaex_tpu_torch.ops.setops.DeviceSetHandle`
-for a set, a tensor for an array), and functions come from the registry.
-Torch runs eagerly, so ``eval`` runs once per tile, on whichever device the
-tile's tensors live.  :func:`column_names` finds the physical columns an
-expression reads.  Virtual columns and the host scope of ``vaex_tpu``
-(strings, datetimes) are not ported yet.
+to :class:`~vaex_tpu_torch.ops.nullable.NA` tiles of physical columns, to
+virtual columns (evaluated from their expression the first time the tile
+reads them, then kept) or to the pass's variables (a
+:class:`~vaex_tpu_torch.ops.setops.DeviceSetHandle` for a set, a tensor for
+an array), and functions come from the registry.  Torch runs eagerly, so
+``eval`` runs once per tile, on whichever device the tile's tensors live.
+:func:`column_names` finds the physical columns an expression reads,
+through its virtual columns.  The host scope of ``vaex_tpu`` (strings,
+datetimes) is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,16 +27,38 @@ def _names(expression):
     return {node.id for node in ast.walk(tree) if isinstance(node, ast.Name)}
 
 
-def column_names(expression, variables=()):
-    """The names an expression reads that are neither registered functions
-    nor among ``variables``."""
-    return {name for name in _names(expression)
-            if not has_function(name) and name not in variables}
+def _leaves(expression, variables, virtual):
+    """(physical column names, variable names) an expression reads, through
+    the expressions of the virtual columns it names (vaex_tpu/scopes.py:
+    168-190).  A virtual column shadows a physical one of its name; each is
+    expanded once, so a chain of them costs its length, not more."""
+    columns, used, seen = set(), set(), set()
+    pending = [str(expression)]
+    while pending:
+        for name in _names(pending.pop()):
+            if name in seen:
+                continue
+            seen.add(name)
+            if name in virtual:
+                pending.append(virtual[name])
+            elif name in variables:
+                used.add(name)
+            elif not has_function(name):
+                columns.add(name)
+    return columns, used
 
 
-def variable_names(expression, variables):
-    """The names of ``variables`` an expression reads."""
-    return {name for name in _names(expression) if name in variables}
+def column_names(expression, variables=(), virtual=None):
+    """The physical columns an expression reads: the names, through the
+    ``virtual`` columns (name -> expression), that are neither registered
+    functions nor among ``variables``."""
+    return _leaves(expression, variables, virtual or {})[0]
+
+
+def variable_names(expression, variables, virtual=None):
+    """The names of ``variables`` an expression reads, through the
+    ``virtual`` columns."""
+    return _leaves(expression, variables, virtual or {})[1]
 
 
 def resolve_variables(variables, names, device):
@@ -54,10 +78,13 @@ def resolve_variables(variables, names, device):
 
 class DeviceScope:
     """Mapping used as eval() locals for one tile (``tile``: name -> NA;
-    ``variables``: name -> resolved variable)."""
+    ``variables``: name -> resolved variable; ``virtual``: name ->
+    expression of a virtual column, which shadows a tile column of its
+    name)."""
 
-    def __init__(self, tile, variables=None):
-        self.values = dict(tile)
+    def __init__(self, tile, variables=None, virtual=None):
+        self.virtual = virtual or {}
+        self.values = {name: v for name, v in tile.items() if name not in self.virtual}
         self.variables = variables or {}
 
     def evaluate(self, expression) -> NA:
@@ -74,6 +101,9 @@ class DeviceScope:
     def __getitem__(self, name):
         if name in self.values:
             return self.values[name]
+        if name in self.virtual:
+            value = self.values[name] = self.evaluate(self.virtual[name])
+            return value
         if name in self.variables:
             return self.variables[name]
         raise KeyError(f"column {name!r} is not in this pass")
@@ -88,4 +118,4 @@ class DeviceScope:
         return self.values.keys()
 
     def __contains__(self, name):
-        return name in self.values or name in self.variables
+        return name in self.values or name in self.virtual or name in self.variables
