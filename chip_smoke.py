@@ -94,7 +94,9 @@ Run from the root of the repository on a machine with a CUDA card.  It
     ids drawn from seed 42, the same count with 50 000 ids (b6 on 4-byte
     keys), groupby over the raw id4 (dense
     grouper, B1) and
-    the raw id6 (dense grouper, B3), groupby over k = id4 * 1_000_003 and
+    the raw id6 (dense grouper, B3), the GroupBy (built first, then its
+    agg: with agg= such a wide int key takes the one-sort plan) over
+    k = id4 * 1_000_003 and
     k = (id6 % 2000) * 1_000_003 (set grouper: set build, then the ordinals
     through B6 at M = 100 and 2000, then B1 and B2) and k = id6 * 1_000_003
     (M = 1e6: b6-wide, then B3), df.id6.nunique() and df.id4.unique(),
@@ -144,7 +146,19 @@ Run from the root of the repository on a machine with a CUDA card.  It
     phase 4), with B1's launches (three a tile, lane route), B4's (one a
     tile, lane route) and the strategies asserted, and no other kernel
     launched; then the group timed against plain torch (5 repetitions,
-    medians).
+    medians);
+17. drives BASELINE config 3, the H2O groupby suite: the table of
+    benchmarks/fixtures.py:28-40 at 1e8 rows made on the card from seed 42
+    (id1, id2, id4, id5 int64 in 1..100, id3 and id6 in 1..1e6, v1 in 1..5,
+    v2 in 1..15, v3 float64 in [0, 100)), raw and uncategorized, then q1-q10
+    as benchmarks/groupbyh2o.py:25-45 writes them, each checked against
+    plain torch (bincount / index_add_ over the dense cells, two stable
+    sorts for q6's median and q8's top two, torch.unique over the stacked
+    keys for q10; keys, ints, counts, min / max, top-k and medians exact,
+    sums and means within the bound of phase 4, sd and r2 within it carried
+    through their formulas), q10 on the one-sort route in its unpacked mode,
+    with B1, B2, b3-l2, B5 and b3x-l2 launched; then each question timed
+    against plain torch (5 repetitions, medians).
 
 It exits non-zero on any failure.  The line before the last is a JSON
 object with every kernel's (and each of B3x's routes') launches, error,
@@ -191,7 +205,8 @@ SET_KEYS = {"k100": 100, "k2000": 2000, "k1e6": H2O_K6}
 # B6 torch.isin, its b6-wide route at the 1e6-key set grouper and b6 at the
 # 50 000 ids; for B3 its resident route at the same shape and the
 # partition's phases; for B3x's resident route q7's shape; for B1 and B4
-# their launches in the config 2 phase
+# their launches in the config 2 phase; every kernel's launches in the
+# config 3 phase ("config3_launches")
 EXTRA_KEYS = ("library_add_ms", "isin_ms", "wide_launches", "wide_ms", "wide_plain_ms",
               "config2_launches", "wide_library_ms", "wide_isin_ms", "wide_bound_ms", "wide_max_abs_err",
               "l2_launches", "l2_ms", "l2_plain_ms", "l2_max_abs_err", "count_ms",
@@ -1274,12 +1289,22 @@ def sets_queries(vt, values):
         "isin groupby": lambda df: df[df.id6.isin(values["isin"])].groupby("id4", agg=agg),
         "raw id4": lambda df: df.groupby("id4", agg=agg),
         "raw id6": lambda df: df.groupby("id6", agg=agg),
-        "set k100": lambda df: df.groupby("k100", agg={"v1": "sum"}),
-        "set k2000": lambda df: df.groupby("k2000", agg={"v1": "sum"}),
-        "set k1e6": lambda df: df.groupby("k1e6", agg={"v1": "sum"}),
+        # the GroupBy built first, then its agg: groupby(k, agg=...) over such
+        # a wide int key takes the one-sort plan, which builds no set
+        "set k100": lambda df: df.groupby("k100").agg({"v1": "sum"}),
+        "set k2000": lambda df: df.groupby("k2000").agg({"v1": "sum"}),
+        "set k1e6": lambda df: df.groupby("k1e6").agg({"v1": "sum"}),
         "nunique id6": lambda df: df.id6.nunique(),
         "unique id4": lambda df: df.id4.unique(),
     }
+
+
+def sort_forms():
+    """groupby(k, agg=...) over each set grouper's key: the one-sort plan,
+    the twin of sets_queries' "set k" (the GroupBy built first)."""
+    def form(key):
+        return lambda df: df.groupby(key, agg={"v1": "sum"})
+    return {key: form(key) for key in SET_KEYS}
 
 
 # what each query's last pass must record: the probe route, and the kernel
@@ -1396,13 +1421,30 @@ def sets_timings(df, cols, values, vt, probe, label):
             df.dataset.remembered.clear()
             return query(df)
         return run
-    for name, query in sets_queries(vt, values).items():
+    queries = sets_queries(vt, values)
+    medians = {}
+    for name, query in queries.items():
         plain_med, plain_s = median_s(plain[name])
         port_med, port_s = median_s(fresh(query))
         again_med, _ = median_s(lambda: query(df))
+        medians[name] = port_med
         print(f"[{label}] sets {name} N={H2O_ROWS}: median {port_med!r} s (port; {again_med!r} "
               f"s with the dense pre-pass remembered) vs {plain_med!r} s (plain torch), reps "
               f"{REPS}; port s {port_s}; plain s {plain_s}", flush=True)
+    for key, query in sort_forms().items():
+        got = query(df)
+        entry = df.executor.trace_log[-1]
+        check(entry.get("groupby") == "one-sort", f"groupby({key}, agg=...): {entry}")
+        want = queries[f"set {key}"](df)
+        for column in (key, "v1"):
+            check(torch.equal(torch.as_tensor(got.evaluate(column)),
+                              torch.as_tensor(want.evaluate(column))),
+                  f"groupby({key}, agg=...) {column} equals the set path's")
+        sort_med, sort_s = median_s(fresh(query))
+        print(f"[{label}] sets one-sort {key} N={H2O_ROWS}: median {sort_med!r} s "
+              f"(groupby({key}, agg=...), the one-sort plan) vs {medians[f'set {key}']!r} s "
+              f"(groupby({key}).agg(...), the set path), reps {REPS}; one-sort s {sort_s}",
+              flush=True)
     copy_bw, _ = copy_bandwidth(cols["v3"])
     x = cols["id6"]
 
@@ -2002,6 +2044,287 @@ def config2_path(vt, plan, ga, gm, gp, label):
     return launches, {"port_s": port_med, "plain_s": plain_med}
 
 
+# BASELINE config 3: the H2O groupby suite, its ten questions on the raw
+# (uncategorized) table
+CONFIG3_ROWS = 100_000_000
+CONFIG3_K = 100
+CONFIG3_KEYS = ("id1", "id2", "id3", "id4", "id5", "id6")
+# the kernels the phase must launch: B1 (q1, q4), B2 (q2, q9's count grid),
+# b3-l2 (q3, q5), B5 (q6's sd, q9's corr), b3x-l2 (q7)
+CONFIG3_KERNELS = ("b1", "b2", "b3-l2", "b5", "b3x-l2")
+
+
+def config3_span(key, n):
+    """The values of a key are 1 .. span."""
+    return max(n // CONFIG3_K, 1) if key in ("id3", "id6") else CONFIG3_K
+
+
+def config3_columns(n, device, seed=SEED):
+    """The H2O groupby table as benchmarks/fixtures.py:28-40 draws it: id1,
+    id2, id4, id5 int64 in 1..100, id3 and id6 in 1..n/100, v1 in 1..5, v2 in
+    1..15, v3 float64 in [0, 100); made on ``device`` from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def ints(high):
+        return torch.randint(1, high + 1, (n,), generator=gen, device=device, dtype=torch.int64)
+    cols = {key: ints(config3_span(key, n)) for key in CONFIG3_KEYS}
+    cols["v1"], cols["v2"] = ints(5), ints(15)
+    cols["v3"] = torch.rand(n, generator=gen, device=device, dtype=torch.float64) * 100
+    return cols
+
+
+def config3_questions(vt):
+    """q1-q10 exactly as benchmarks/groupbyh2o.py:25-45 writes them."""
+    a = vt.agg
+    return {
+        "q1": lambda df: df.groupby(["id1"], agg={"v1": "sum"}),
+        "q2": lambda df: df.groupby(["id1", "id2"], agg={"v1": "sum"}),
+        "q3": lambda df: df.groupby(["id3"], agg={"v1": "sum", "v3": a.mean("v3")}),
+        "q4": lambda df: df.groupby(["id4"], agg={"v1": a.mean("v1"), "v2": a.mean("v2"),
+                                                  "v3": a.mean("v3")}),
+        "q5": lambda df: df.groupby(["id6"], agg={"v1": "sum", "v2": "sum", "v3": "sum"}),
+        "q6": lambda df: df.groupby(["id4", "id5"],
+                                    agg={"median_v3": a.median_approx("v3"),
+                                         "sd_v3": a.std("v3", ddof=1)}),
+        "q7": lambda df: df.groupby(["id3"], agg={"max_v1": a.max("v1"),
+                                                  "min_v2": a.min("v2")}),
+        "q8": lambda df: df.groupby(["id6"],
+                                    agg={"largest1_v3": a.nth_largest("v3", 0),
+                                         "largest2_v3": a.nth_largest("v3", 1)}),
+        "q9": lambda df: df.groupby(["id2", "id4"], agg={"r2": a.corr("v1", "v2")}),
+        "q10": lambda df: df.groupby(["id1", "id2", "id3", "id4", "id5", "id6"],
+                                     agg={"v3": "sum", "v1": "count"}),
+    }
+
+
+def _config3_cells(cols, keys, n):
+    """(each row's cell, the observed cells, their row counts, the key
+    columns of the observed cells) for dense keys in 1 .. span."""
+    spans = [config3_span(key, n) for key in keys]
+    cell = None
+    for key, span in zip(keys, spans):
+        cell = cols[key] - 1 if cell is None else cell * span + (cols[key] - 1)
+    counts = torch.bincount(cell, minlength=math.prod(spans))
+    observed = torch.nonzero(counts).squeeze(1)
+    values, rem = {}, observed
+    for key, span in zip(keys[::-1], spans[::-1]):
+        values[key] = rem % span + 1
+        rem = rem // span
+    return cell, observed, counts[observed], {key: values[key] for key in keys}
+
+
+def _per_cell(cell, observed, v):
+    size = int(observed[-1]) + 1 if observed.numel() else 0
+    return torch.zeros(size, dtype=v.dtype, device=v.device).index_add_(0, cell, v)[observed]
+
+
+def _sorted_in_cells(cell, v, descending=False):
+    """The values sorted by (cell, value): two stable sorts."""
+    order = torch.argsort(v, descending=descending, stable=True)
+    order = order[torch.argsort(cell[order], stable=True)]
+    return v[order]
+
+
+def config3_plain(cols, n):
+    """Each question answered in plain torch on the same tensors: bincount
+    and index_add_ over the dense cells, two stable sorts for the median
+    and the top two, torch.unique over the stacked keys for q10.  Returns
+    per question {column: (kind, want, extra)}: kind "exact", "sum"
+    (extra: the cell's row count and sum of |term|), "mean" (the same),
+    "std" (count, sum of v, sum of v^2) or "corr" (count and the five sums
+    of |term|)."""
+    f64 = torch.float64
+    v1, v2, v3 = cols["v1"], cols["v2"], cols["v3"]
+
+    def keyed(keys):
+        cell, observed, counts, values = _config3_cells(cols, keys, n)
+        return cell, observed, counts, {k: ("exact", v, None) for k, v in values.items()}
+
+    def q_sums(keys, names):
+        cell, observed, counts, out = keyed(keys)
+        for name in names:
+            v = cols[name]
+            s = _per_cell(cell, observed, v)
+            out[name] = ("exact", s, None) if not v.is_floating_point() else (
+                "sum", s, (counts, s))  # every v3 >= 0: its sum of |v3| is its sum
+        return out
+
+    def q_means(keys, names, out=None):
+        cell, observed, counts, keys_out = keyed(keys)
+        out = keys_out if out is None else out
+        for name in names:
+            s = _per_cell(cell, observed, cols[name].to(f64))
+            out[name] = ("mean", s / counts, (counts, s))
+        return out
+
+    def q3():
+        out = q_sums(["id3"], ["v1"])
+        return q_means(["id3"], ["v3"], out)
+
+    def q6():
+        cell, observed, counts, out = keyed(["id4", "id5"])
+        sv = _sorted_in_cells(cell, v3)
+        starts = (torch.cumsum(counts, 0) - counts)
+        c = counts.to(f64)
+        p = 0.5 * (c - 1)
+        lo, hi = torch.floor(p), torch.ceil(p)
+        a, b = sv[starts + lo.to(torch.int64)], sv[starts + hi.to(torch.int64)]
+        out["median_v3"] = ("exact", torch.where(a == b, a, a + (p - lo) * (b - a)), None)
+        s1, s2 = _per_cell(cell, observed, v3), _per_cell(cell, observed, v3 * v3)
+        mean = s1 / c
+        var = torch.clamp(s2 / c - mean ** 2, min=0.0) * c / (c - 1)
+        sd = torch.where(c > 1, torch.sqrt(var), torch.nan)
+        out["sd_v3"] = ("std", sd, (c, s1, s2, 1))
+        return out
+
+    def q7():
+        cell, observed, counts, out = keyed(["id3"])
+        size = int(observed[-1]) + 1
+        for name, v, mode, fill in (("max_v1", v1, "amax", -(2 ** 63)),
+                                    ("min_v2", v2, "amin", 2 ** 63 - 1)):
+            grid = torch.full((size,), fill, dtype=torch.int64, device=v.device)
+            out[name] = ("exact", grid.scatter_reduce_(0, cell, v, mode)[observed], None)
+        return out
+
+    def q8():
+        cell, observed, counts, out = keyed(["id6"])
+        sv = _sorted_in_cells(cell, v3, descending=True)
+        starts = torch.cumsum(counts, 0) - counts
+        out["largest1_v3"] = ("exact", sv[starts], None)
+        second = sv[torch.clamp(starts + 1, max=sv.numel() - 1)]
+        out["largest2_v3"] = ("exact", torch.where(counts > 1, second, torch.nan), None)
+        return out
+
+    def q9():
+        cell, observed, counts, out = keyed(["id2", "id4"])
+        x, y = v1.to(f64), v2.to(f64)
+        sums = [_per_cell(cell, observed, t) for t in (x * y, x, y, x * x, y * y)]
+        c = counts.to(f64)
+        exy, ex, ey, exx, eyy = (s / c for s in sums)
+        r = (exy - ex * ey) / torch.sqrt((exx - ex ** 2) * (eyy - ey ** 2))
+        out["r2"] = ("corr", torch.where(torch.isfinite(r), r, torch.nan), (c, *sums))
+        return out
+
+    def q10():
+        keys = torch.stack([cols[k] for k in CONFIG3_KEYS], dim=1)
+        unique, inverse = torch.unique(keys, dim=0, return_inverse=True)
+        counts = torch.bincount(inverse)
+        out = {k: ("exact", unique[:, i], None) for i, k in enumerate(CONFIG3_KEYS)}
+        s = torch.zeros(unique.shape[0], dtype=f64, device=v3.device).index_add_(0, inverse, v3)
+        out["v3"] = ("sum", s, (counts, s))
+        out["v1"] = ("exact", counts, None)
+        return out
+
+    return {
+        "q1": lambda: q_sums(["id1"], ["v1"]),
+        "q2": lambda: q_sums(["id1", "id2"], ["v1"]),
+        "q3": q3,
+        "q4": lambda: q_means(["id4"], ["v1", "v2", "v3"]),
+        "q5": lambda: q_sums(["id6"], ["v1", "v2", "v3"]),
+        "q6": q6, "q7": q7, "q8": q8, "q9": q9, "q10": q10,
+    }
+
+
+def _column(df, name, device):
+    col = df.dataset[name]
+    return col.to(device) if isinstance(col, torch.Tensor) else torch.as_tensor(
+        np.asarray(col), device=device)
+
+
+def config3_check(question, out, want, device):
+    """One question's frame against its plain answer: keys, ints, counts,
+    min / max, top-k values and medians exact; sums and means within
+    :func:`within_sum_bound`; sd and r2 within that bound carried through
+    their formulas from the bound of each mean they are made of."""
+    f64 = torch.float64
+    check(out.get_column_names() == list(want), f"{question} columns {out.get_column_names()} "
+                                                f"against {list(want)}")
+    eps = 2.0 ** -52
+    for name, (kind, value, extra) in want.items():
+        got = _column(out, name, device)
+        check(got.shape == value.shape, f"{question} {name}: shape {tuple(got.shape)} against "
+                                        f"{tuple(value.shape)}")
+        what = f"{question} {name} ({kind})"
+        if kind == "exact":
+            same = (got == value) | (got.is_floating_point() & torch.isnan(got)
+                                     & torch.isnan(value))
+            check(bool(same.all()), what)
+        elif kind == "sum":
+            counts, abs_sums = extra
+            check(within_sum_bound(got.to(f64), value, abs_sums, counts), what)
+        elif kind == "mean":
+            counts, abs_sums = extra
+            check(within_sum_bound(got.to(f64), value, abs_sums / counts, counts), what)
+        elif kind == "std":
+            c, s1, s2, ddof = extra
+            e1, e2 = eps * s1, eps * s2  # the bounds of E[v] and E[v^2] (v >= 0)
+            dvar = (e2 + 2 * (s1 / c) * e1 + e1 ** 2) * c / (c - ddof)
+            bound = RTOL * value + ATOL + dvar / (got + value)
+            same = ((got - value).abs() <= bound) | (torch.isnan(got) & torch.isnan(value))
+            check(bool(same.all()), what)
+        else:  # corr = cov / sqrt(vx vy) from the five means, first order
+            c, *abs_sums = extra
+            exy, ex, ey, exx, eyy = (s / c for s in abs_sums)  # every term >= 0
+            e = [eps * s for s in abs_sums]
+            vx, vy = exx - ex ** 2, eyy - ey ** 2
+            dc = e[0] + ey * e[1] + ex * e[2]
+            dvx, dvy = e[3] + 2 * ex * e[1], e[4] + 2 * ey * e[2]
+            bound = (RTOL * value.abs() + ATOL + dc / torch.sqrt(vx * vy)
+                     + value.abs() / 2 * (dvx / vx + dvy / vy))
+            same = ((got - value).abs() <= bound) | (torch.isnan(got) & torch.isnan(value))
+            check(bool(same.all()), what)
+
+
+def config3_drive(vt, df, n, device):
+    """Each question once through the public API, checked against plain
+    torch; q10 on the one-sort route, unpacked where the keys' span product
+    passes 2^62 (at 1e8 rows: 1e20).  Returns each question's route (the
+    last pass's strategies, or the one-sort pass's record)."""
+    cols = {name: df.dataset[name] for name in df.dataset}
+    outs, routes = {}, {}
+    for q, query in config3_questions(vt).items():
+        outs[q] = query(df)
+        entry = df.executor.trace_log[-1]
+        routes[q] = ({k: entry[k] for k in ("groupby", "mode", "words", "groups")}
+                     if "groupby" in entry else entry["strategies"])
+        print(f"config 3 {q} N={n}: {routes[q]}", flush=True)
+    unpacked = math.prod(config3_span(key, n) for key in CONFIG3_KEYS) >= 2 ** 62
+    check(routes["q10"].get("groupby") == "one-sort"
+          and routes["q10"]["mode"] == ("unpacked" if unpacked else "packed"),
+          f"q10 took the one-sort route ({'unpacked' if unpacked else 'packed'}): "
+          f"{routes['q10']}")
+    plain = config3_plain(cols, n)
+    for q, out in outs.items():
+        config3_check(q, out, plain[q](), device)
+        print(f"config 3 {q}: {len(out)} groups, checked against plain torch", flush=True)
+    return routes
+
+
+def config3_path(vt, plan, gp, probe, label, n=CONFIG3_ROWS):
+    """The config 3 phase on the card: the ten questions driven once with
+    every kernel count set to 0 (:func:`config3_drive`), the hand-written
+    kernels of their classic passes asserted launched, then each question
+    timed against plain torch.  Returns (launches per kernel during the
+    drive, B6's too, per question (port s, plain s))."""
+    df = vt.from_dataset(vt.DatasetArrays(config3_columns(n, "cuda")))
+    zero_launches(plan, gp)
+    probe.probe.launches = 0
+    config3_drive(vt, df, n, "cuda")
+    launches = {**launch_counts(plan, gp), "b6": probe.probe.launches}
+    print(f"launches during config 3: {launches}", flush=True)
+    for name in CONFIG3_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched during config 3: {launches}")
+    plain = config3_plain({name: df.dataset[name] for name in df.dataset}, n)
+    times = {}
+    for q, query in config3_questions(vt).items():
+        port_med, port_s = median_s(lambda: query(df))
+        plain_med, plain_s = median_s(plain[q])
+        times[q] = (port_med, plain_med)
+        print(f"[{label}] config 3 {q} N={n}: median {port_med!r} s (port) vs {plain_med!r} s "
+              f"(plain torch), reps {REPS}; port s {port_s}; plain s {plain_s}", flush=True)
+    return launches, times
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2090,6 +2413,11 @@ def main():
     results[MAIN_SIZES[0]]["config2_launches"] = config2_launches[plan.B1]
     moments[plan.B4]["config2_launches"] = config2_launches[plan.B4]
 
+    config3_launches, config3_times = config3_path(vt, plan, gp, probe, label)
+    torch.cuda.empty_cache()  # the config 3 table is gone with its frame
+    print(f"[{label}] config 3 medians (port s, plain torch s): {json.dumps(config3_times)}",
+          flush=True)
+
     measured = {plan.B1: (main_launches[plan.B1], results[MAIN_SIZES[0]]),
                 plan.B2: (h2o_launches[plan.B2], wide[plan.B2]),
                 plan.B3: (h2o_launches[plan.B3], wide[plan.B3]),
@@ -2122,6 +2450,7 @@ def main():
         "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"],
         "library_ms": m["library_ms"],
+        "config3_launches": config3_launches[name],
         **{key: value for key, value in m.items() if key in EXTRA_KEYS},
     } for name, (launches, m) in measured.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,6 +6,7 @@
     python3 scripts/profile_torch_groupby.py --sets
     python3 scripts/profile_torch_groupby.py --binby
     python3 scripts/profile_torch_groupby.py --config2
+    python3 scripts/profile_torch_groupby.py --config3
 
 The first form builds the chip_smoke.py main-path table on the card (int64
 key with K = 100 categories, float64 value, seed 42) and profiles
@@ -16,12 +17,16 @@ std by id4.
 ``--sets`` profiles chip_smoke.py's set-based queries on the same table
 without categorize (isin as a selection and a filter, groupby over raw keys
 through the dense and the set grouper, nunique, unique), each with its
-pre-passes.  ``--binby`` profiles chip_smoke.py's binned statistics over
+pre-passes, and ``groupby(k, agg=...)`` over the set grouper's keys (the
+one-sort plan).  ``--binby`` profiles chip_smoke.py's binned statistics over
 continuous axes on that table plus x, y, v and t (limits, 2-D count, mean
 and max, minmax by x, q7, sums and extremes by id6, first).  ``--config2``
 profiles chip_smoke.py's BASELINE config 2 group (filtered mean / std / min /
 max of four virtual columns, two means by selection, a count binned by phi;
 1e8 rows, one pass), and plain torch computing the same answers beside it.
+``--config3`` profiles chip_smoke.py's BASELINE config 3, the ten H2O
+questions on the raw table of 1e8 rows (the dense pre-pass remembered after
+the warm-up), each beside its plain torch answer.
 Each query is warmed up, then run REPS times under
 torch.profiler, each call ended by ``torch.cuda.synchronize()``.
 
@@ -126,6 +131,8 @@ def sets(vt):
         return query(df)
     for name, query in chip_smoke.sets_queries(vt, values).items():
         profile(f"sets {name} N={chip_smoke.H2O_ROWS}", lambda: fresh(query))
+    for key, query in chip_smoke.sort_forms().items():
+        profile(f"sets one-sort {key} N={chip_smoke.H2O_ROWS}", lambda: fresh(query))
 
 
 def binby(vt):
@@ -146,6 +153,17 @@ def config2(vt):
             lambda: chip_smoke.config2_plain(cols))
 
 
+def config3(vt):
+    import chip_smoke
+    n = chip_smoke.CONFIG3_ROWS
+    cols = chip_smoke.config3_columns(n, "cuda")
+    df = vt.from_dataset(vt.DatasetArrays(cols))
+    plain = chip_smoke.config3_plain(cols, n)
+    for name, query in chip_smoke.config3_questions(vt).items():
+        profile(f"config 3 {name} N={n}", lambda: query(df))
+        profile(f"config 3 {name} plain torch N={n}", plain[name])
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_torch_groupby: no CUDA device", file=sys.stderr)
@@ -163,6 +181,9 @@ def main():
         return 0
     if sys.argv[1:] == ["--config2"]:
         config2(vt)
+        return 0
+    if sys.argv[1:] == ["--config3"]:
+        config3(vt)
         return 0
     for n in [int(float(a)) for a in sys.argv[1:]] or [100_000_000, 400_000_000]:
         main_path(n, vt)

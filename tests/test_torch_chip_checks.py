@@ -105,3 +105,45 @@ def test_the_chip_checks_run_the_plain_versions_over_abs_terms():
     assert chip_smoke.moment_sums_ok(plain, idx, [x, y], agg.CORR_TERMS, G, got, want)
     got[1][0, 2] += 1.0
     assert not chip_smoke.moment_sums_ok(plain, idx, [x, y], agg.CORR_TERMS, G, got, want)
+
+
+@pytest.mark.parametrize("n", [3_000, 20_000])
+def test_the_config3_phase_on_the_cpu(n):
+    """Phase 17 of chip_smoke.py (BASELINE config 3) at a small size on the
+    CPU: the ten H2O questions through the port's plain versions, each held
+    to its plain torch answer; q10 on the one-sort route (packed at this
+    size: the keys' span product is far below 2^62)."""
+    import vaex_tpu_torch
+    cols = chip_smoke.config3_columns(n, "cpu")
+    df = vaex_tpu_torch.from_dataset(vaex_tpu_torch.DatasetArrays(cols))
+    df = df.to_device("cpu")
+    routes = chip_smoke.config3_drive(vaex_tpu_torch, df, n, "cpu")
+    assert routes["q10"]["groupby"] == "one-sort" and routes["q10"]["mode"] == "packed"
+    assert routes["q6"][0]["percentile_exact"] == "sort" and routes["q8"][0]["topk"] == "sort"
+
+
+@pytest.mark.parametrize("question,column,how", [
+    ("q1", "v1", "one more"), ("q5", "v3", "one more"), ("q3", "v3", "one more"),
+    ("q6", "median_v3", "next value"), ("q6", "sd_v3", "relative"), ("q9", "r2", "relative"),
+    ("q8", "largest2_v3", "next value"), ("q10", "id6", "one more")])
+def test_the_config3_checks_refuse_a_wrong_answer(question, column, how):
+    """Each check of phase 17 refuses an answer that is off: by one term in
+    a sum or a key, by the next value in a median or a top-k, by 1e-6 of a
+    sd or an r2."""
+    import vaex_tpu_torch
+    n = 20_000
+    cols = chip_smoke.config3_columns(n, "cpu")
+    df = vaex_tpu_torch.from_dataset(vaex_tpu_torch.DatasetArrays(cols)).to_device("cpu")
+    out = chip_smoke.config3_questions(vaex_tpu_torch)[question](df)
+    want = chip_smoke.config3_plain(cols, n)[question]()
+    chip_smoke.config3_check(question, out, want, "cpu")
+    values = out.dataset[column].clone()
+    if how == "one more":
+        values[0] += 1 if not values.is_floating_point() else cols["v3"][0]
+    elif how == "next value":
+        values[0] = torch.nextafter(values[0], torch.tensor(torch.inf, dtype=values.dtype))
+    else:
+        values[0] *= 1 + 1e-6
+    out.dataset = vaex_tpu_torch.DatasetArrays({**dict(out.dataset.items()), column: values})
+    with pytest.raises(RuntimeError, match=f"{question} {column}"):
+        chip_smoke.config3_check(question, out, want, "cpu")

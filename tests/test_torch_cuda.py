@@ -1022,3 +1022,63 @@ def test_config2_group_on_the_card(cuda):
         npt.assert_array_equal(got[name], want[name], err_msg=name)
     for name in ("mean", "std", "mean by selection"):
         npt.assert_allclose(got[name], want[name], rtol=1e-9, atol=1e-12, err_msg=name)
+
+
+def _h2o_like(seed, n):
+    rng = np.random.default_rng(seed)
+    v = rng.uniform(0, 100, n)
+    v[::31] = np.nan
+    return {"a": rng.integers(1, 41, n), "b": rng.integers(0, 30_000, n),
+            "w": rng.integers(0, 500, n) * 1_000_003, "v": v, "i": rng.integers(-50, 50, n)}
+
+
+def _same_frames(got, want):
+    assert got.get_column_names() == want.get_column_names()
+    for name in want.get_column_names():
+        g, w = np.asarray(got.evaluate(name)), np.asarray(want.evaluate(name))
+        if w.dtype.kind == "f":
+            npt.assert_allclose(g, w, rtol=1e-9, atol=1e-9, err_msg=name)
+        else:
+            npt.assert_array_equal(g, w, err_msg=name)
+
+
+@pytest.mark.parametrize("keys", [["w"], ["a", "b"], ["a", "b", "w", "i", "a2", "b2"]])
+def test_one_sort_groupby_on_the_card(cuda, keys):
+    """The one-sort plan on CUDA tensors (packed: one wide key, two keys
+    past 1e6 combinations; unpacked: six keys past 2^62) against the same
+    query on the CPU."""
+    arrays = _h2o_like(5, 200_000)
+    arrays["a2"] = arrays["a"] * 7_919_999
+    arrays["b2"] = arrays["b"] * 7_919_999
+    aggs = {"n": "count", "s": agg.sum("v"), "si": agg.sum("i"), "m": agg.mean("v"),
+            "hi": agg.max("v"), "sd": agg.std("v", ddof=1), "med": agg.median("v")}
+    on_card = vaex_tpu_torch.from_arrays(**arrays).to_device(cuda)
+    on_cpu = vaex_tpu_torch.from_arrays(**arrays).to_device("cpu")
+    got, want = on_card.groupby(keys, agg=aggs), on_cpu.groupby(keys, agg=aggs)
+    record = on_card.executor.trace_log[-1]
+    assert record["groupby"] == "one-sort" and record["device"].startswith("cuda")
+    assert record["mode"] == ("unpacked" if len(keys) == 6 else "packed")
+    _same_frames(got, want)
+
+
+def test_percentiles_and_top_k_on_the_card(cuda):
+    """The exact and the approximate median, a percentile and the top-k per
+    group on CUDA tensors against the CPU; the approximate median's count
+    grid runs a hand-written kernel of the additive plan."""
+    arrays = _h2o_like(6, 300_000)
+    aggs = {"med": agg.median("v"), "p90": agg.percentile_approx("v", 90),
+            "approx": agg.median_approx("v", exact=False),
+            "top": agg.nth_largest("v", 1), "low": agg.min_n("i", 3),
+            "sel": agg.nth_smallest("v", 0, selection="i > 0")}
+    on_card = vaex_tpu_torch.from_arrays(**arrays).to_device(cuda)
+    on_cpu = vaex_tpu_torch.from_arrays(**arrays).to_device("cpu")
+    on_card._tile_rows = on_cpu._tile_rows = 100_000  # three tiles
+    launches = {name: k.launches for name, k in grid_plan.KERNELS.items()}
+    got = on_card.groupby("a", agg=aggs, sort=True)
+    want = on_cpu.groupby("a", agg=aggs, sort=True)
+    strategies = {k: v for task in on_card.executor.trace_log[-1]["strategies"]
+                  for k, v in task.items()}  # the task of no selection, and that of i > 0
+    name = strategies["percentile"]
+    assert grid_plan.KERNELS[name].launches - launches[name] >= 3  # one call a tile
+    assert strategies["percentile_exact"] == strategies["topk"] == "sort"
+    _same_frames(got, want)

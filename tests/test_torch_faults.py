@@ -1,0 +1,140 @@
+"""The port's faults C6-C8 (found against the reference), each held to
+vaex_tpu or numpy on the same seeded arrays:
+
+* C6: temporal arithmetic in an expression carries numpy's datetime64 /
+  timedelta64 dtype (units aligned, NaT in gives NaT out), in ``data_type``,
+  ``evaluate``, ``min`` and ``max``; a datetime64 variable is its count in
+  its own unit; an operation the port does not carry raises, never a number;
+* C7: ``x.astype('float32')`` inside an expression string;
+* C8: a min or max without binby over an expression that is not one value
+  per row raises, as ``sum`` and the reference do.
+"""
+
+import numpy as np
+import numpy.testing as npt
+import pytest
+
+import vaex_tpu_torch
+from torch_port_helpers import binby_arrays, same_frames
+from vaex_tpu_torch import settings
+
+# the cases of ROADMAP queue C6: d datetime64[ns] with NaT, td timedelta64[s]
+TEMPORAL = ["d + td", "d - d", "td * 2", "td + td", "-td", "abs(td)", "td // 2", "td / 2",
+            "d - td", "2 * td"]
+
+
+@pytest.fixture(scope="module")
+def temporal_frames():
+    return same_frames(binby_arrays(5, 4000))
+
+
+def _same_values(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.dtype == want.dtype
+    npt.assert_array_equal(got.view(np.int64), want.view(np.int64))
+
+
+@pytest.mark.parametrize("expression", TEMPORAL)
+def test_temporal_arithmetic_carries_numpys_dtype(temporal_frames, expression):
+    ref, port = temporal_frames
+    want_dtype = ref.data_type(expression)
+    assert want_dtype.numpy.kind in "Mm"
+    assert port.data_type(expression).numpy == want_dtype.numpy
+    _same_values(port.evaluate(expression), ref.evaluate(expression))
+    for stat in ("min", "max"):
+        got, want = getattr(port, stat)(expression), getattr(ref, stat)(expression)
+        assert np.asarray(got).dtype == np.asarray(want).dtype
+        assert got == want, stat
+
+
+# numpy's own answers where the reference takes no part: negative values,
+# division by zero, float factors and the quotients of two timedeltas
+NUMPY_CASES = ["td * 2.5", "td / 2.5", "td // -3", "td / 0", "td // td", "td % td", "td / td",
+               "td > 0", "d == d", "d != d", "d < d + td", "1 + td", "td - 7", "+td"]
+
+
+@pytest.mark.parametrize("expression", NUMPY_CASES)
+def test_temporal_values_match_numpy(expression):
+    arrays = binby_arrays(6, 500)
+    td = arrays["td"].copy()
+    td[::7] = np.timedelta64("NaT")
+    td[::11] = np.timedelta64(0, "s")
+    arrays["td"] = td
+    port = vaex_tpu_torch.from_arrays(d=arrays["d"], td=td).to_device("cpu")
+    with np.errstate(all="ignore"):
+        want = eval(expression, {}, {"d": arrays["d"], "td": td})
+    got = port.evaluate(expression)
+    assert got.dtype == want.dtype
+    if want.dtype.kind == "f":
+        npt.assert_array_equal(got, want)
+    else:
+        npt.assert_array_equal(np.asarray(got).view(np.int64) if want.dtype.kind in "Mm"
+                               else got, want.view(np.int64) if want.dtype.kind in "Mm"
+                               else want)
+
+
+def test_a_datetime_variable_is_its_count_in_its_unit(temporal_frames):
+    ref, port = (df.copy() for df in temporal_frames)
+    t0 = np.datetime64("2021-01-01")
+    for df in (ref, port):
+        df.add_variable("t0", t0)
+    assert int(port.count(selection="d > t0")) == int(ref.count(selection="d > t0"))
+    assert port.data_type("d - t0").numpy == ref.data_type("d - t0").numpy
+    assert port.min("d - t0") == ref.min("d - t0")
+    assert port.max("td + (d - t0)") == ref.max("td + (d - t0)")
+
+
+@pytest.mark.parametrize("expression,error", [
+    ("td % 7", TypeError),            # numpy has no such loop
+    ("d + d", TypeError),
+    ("-d", TypeError),
+    ("sqrt(td)", NotImplementedError),  # not carried: ROADMAP A9
+    ("td ** 2", NotImplementedError),
+    ("round(td)", NotImplementedError),
+    ("where(td > 0, td, 0)", NotImplementedError),
+    ("astype(td, 'timedelta64[ms]')", NotImplementedError),
+])
+def test_an_uncarried_temporal_operation_raises(temporal_frames, expression, error):
+    _, port = temporal_frames
+    with pytest.raises(error):
+        port.evaluate(expression)
+
+
+def test_where_and_astype_keep_a_temporal_dtype(temporal_frames):
+    """``where`` against the reference; ``astype`` to a temporal dtype
+    against numpy (the reference's device half refuses it)."""
+    ref, port = temporal_frames
+    _same_values(port.evaluate("where(td > 0, td, -td)"), ref.evaluate("where(td > 0, td, -td)"))
+    d, td, xi = (ref.evaluate(name) for name in ("d", "td", "xi"))
+    for expression, want in (("astype(td, 'timedelta64[s]')", td),
+                             ("astype(xi, 'timedelta64[s]')", xi.astype("m8[s]")),
+                             ("astype(d, 'int64')", d.astype(np.int64))):
+        _same_values(port.evaluate(expression), want)
+
+
+@pytest.mark.parametrize("staged", [True, False])
+def test_astype_method_in_an_expression_string(monkeypatch, staged):
+    arrays = binby_arrays(7, 3000)
+    ref, port = same_frames(arrays)
+    if not staged:  # a host frame: its passes run on settings.DEVICE
+        monkeypatch.setattr(settings, "DEVICE", "cpu")
+        port = vaex_tpu_torch.from_arrays(**arrays)
+    for expression in ("x.astype('float32')", "iv.astype('float64')", "xi.astype('int8') * 2"):
+        want = ref.evaluate(expression)
+        got = port.evaluate(expression)
+        assert got.dtype == np.asarray(want).dtype
+        npt.assert_array_equal(got, want)
+        assert port.data_type(expression).numpy == ref.data_type(expression).numpy
+    method = port.sum("x.astype('float32')")
+    assert method == port.sum("astype(x, 'float32')") == port.x.astype("float32").sum()
+    assert method == ref.sum("x.astype('float32')")
+
+
+@pytest.mark.parametrize("stat", ["min", "max", "sum"])
+def test_a_statistic_of_an_expression_of_another_length_raises(stat):
+    ref, port = same_frames(binby_arrays(8, 3000))
+    expression = "searchsorted([-1, 0, 1], x)"  # three values, not one per row
+    with pytest.raises(ValueError):
+        getattr(ref, stat)(expression)
+    with pytest.raises(ValueError, match="does not match"):
+        getattr(port, stat)(expression)

@@ -173,11 +173,13 @@ def test_rows_outside_a_grouper_set_drop():
 
 def test_groupby_a_wide_set_goes_past_the_kernel(frames, monkeypatch):
     """A set past the shared-memory kernel's range takes the kernel's second,
-    two-level form (on the CPU, as every probe, its plain version)."""
+    two-level form (on the CPU, as every probe, its plain version).  The
+    GroupBy is built without ``agg=``: with it, this wide int key would take
+    the one-sort plan, which builds no set."""
     from vaex_tpu_torch.ops import probe
     monkeypatch.setattr(probe, "MAX_KEYS", 20)
     ref, port = frames
-    got = port.groupby("w", agg={"c": "count"}, sort=True)  # 50 keys > 20
+    got = port.groupby("w", sort=True).agg({"c": "count"})  # 50 keys > 20
     assert _last(port)["probe"] == "b6-wide"
     assert_same_frame(ref.groupby("w", agg={"c": "count"}, sort=True), got)
     npt.assert_array_equal(got["c"].tolist(),
@@ -186,12 +188,13 @@ def test_groupby_a_wide_set_goes_past_the_kernel(frames, monkeypatch):
 
 def test_a_wide_raw_key_skips_the_dense_pre_pass(frames):
     """A sample of the column already spans more than the dense grouper
-    takes, so the key goes to its set build without a min + max pass."""
+    takes, so the key goes to its set build without a min + max pass (the
+    classic path: a GroupBy built without ``agg=``)."""
     _, port = frames
     port = port.copy()
     port.executor = type(port.executor)()
     port.dataset.remembered.clear()
-    port.groupby("w", agg="count")
+    port.groupby("w").agg("count")
     assert [entry["tasks"] for entry in port.executor.trace_log] == [
         ["set-create"], ["aggregations"]]
 

@@ -315,7 +315,7 @@ def test_filtered_frame_refuses_what_is_not_ported(categorized):
     ref, port = categorized
     pf = port[port.k > 5]
     for run in (lambda: pf.sort("k"), lambda: pf.take([0, 1]), lambda: pf[2:5]):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A9"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue A6"):
             run()
     ref, port = ref.copy(), port.copy()
     for df in (ref, port):

@@ -1,11 +1,13 @@
 """Aggregator descriptors: ``vaex_tpu_torch.agg.count/sum/mean/var/std/
-covar/corr/min/max/first``.
+covar/corr/min/max/first``, the percentiles (``percentile_approx``,
+``median_approx``, ``median``) and the top-k (``max_n``, ``min_n``,
+``nth_largest``, ``nth_smallest``).
 
 A descriptor is a small declarative object; ``add_tasks`` binds it to a
 DataFrame and a binner stack by registering an :class:`AggOperation` on the
 pass's shared :class:`~vaex_tpu_torch.tasks.TaskAggregations`.  An
-operation is one of three kinds, each batched per tile with the others of
-its kind:
+operation is one of six kinds; the first three are batched per tile with
+the others of their kind:
 
 * ``additive`` (:class:`OpCount`, :class:`OpSum`): one column, or the
   implicit count, for the grid kernels B1-B3 (:mod:`.ops.grid_plan`);
@@ -14,7 +16,12 @@ its kind:
 * ``extreme`` (:class:`OpMin`, :class:`OpMax`): one column, with a validity,
   for the min/max kernel B3x (:func:`.ops.grid_plan.grid_extremes`);
 * ``first`` (:class:`OpFirst`): a value column and an order column; the
-  pass takes two per-bin mins through the same kernel.
+  pass takes two per-bin mins through the same kernel;
+* ``percentile`` (:class:`OpPercentile`): a count grid of [cell, value bin]
+  through the additive plan;
+* ``own`` (:class:`OpTopK`, :class:`OpPercentileExact`): each folds a tile
+  itself with torch sorts and gathers (XLA sorts in the reference, no
+  Pallas kernel).
 
 A descriptor's ``selection=`` (a boolean expression) sends its operation to
 the aggregation task of that selection, whose bin indices drop the rows the
@@ -22,7 +29,8 @@ selection marks False: the kernels need no validity column for it.
 
 Dtype contract (vaex_tpu/agg.py): count -> int64; sum upcasts int/bool ->
 int64 and float -> float64; mean, var, std, covar and corr are float64
-finishers; min, max and first keep the input dtype.  ``datetime64`` and
+finishers; min, max, first and the top-k keep the input dtype;
+percentiles are float64.  ``datetime64`` and
 ``timedelta64`` columns travel as int64 and their min, max and first are
 viewed back (:func:`view_logical`); NaT never wins.  Sums of uint columns
 need uint64 arithmetic torch barely has, and raise.
@@ -36,6 +44,7 @@ import torch
 from .datatype import NAT, DataType
 from .delayed import delayed
 from .expression import Expression
+from .ops.binners import grid_size
 from .ops.grid_extreme import identity
 from .utils import find_valid_name
 
@@ -72,7 +81,8 @@ class AggOperation:
         self.expressions = [str(e) for e in expressions if e is not None]
         self.dtype_in = dtype_in
 
-    def initial_state(self, G, device):
+    def initial_state(self, G, device, rows):
+        """The state of ``G`` cells; ``rows`` is the pass's row count."""
         raise NotImplementedError
 
     def kernel_input(self, ctx):
@@ -90,7 +100,7 @@ class AggOperation:
 class OpCount(AggOperation):
     name = "count"
 
-    def initial_state(self, G, device):
+    def initial_state(self, G, device, rows):
         return torch.zeros(G, dtype=torch.int64, device=device)
 
     def kernel_input(self, ctx):
@@ -110,7 +120,7 @@ class OpCount(AggOperation):
 class OpSum(AggOperation):
     name = "sum"
 
-    def initial_state(self, G, device):
+    def initial_state(self, G, device, rows):
         dt = DataType(self.dtype_in).upcast()
         if dt.is_unsigned:
             if DataType(self.dtype_in).numpy.itemsize == 8:
@@ -151,7 +161,7 @@ class OpMoments(AggOperation):
         self.terms = [tuple(t) for t in terms]
         self.n_count = len([t for t in self.terms if t[0] < 0])
 
-    def initial_state(self, G, device):
+    def initial_state(self, G, device, rows):
         return (torch.zeros((self.n_count, G), dtype=torch.int64, device=device),
                 torch.zeros((len(self.terms) - self.n_count, G), dtype=torch.float64,
                             device=device))
@@ -184,7 +194,7 @@ class OpExtreme(AggOperation):
             raise NotImplementedError(f"{self.mode} of a {dt.name} column is {PENDING}")
         return dt.torch
 
-    def initial_state(self, G, device):
+    def initial_state(self, G, device, rows):
         dtype = self._state_dtype()
         if dtype == torch.bool:
             return torch.full((G,), self.mode == "min", dtype=dtype, device=device)
@@ -253,7 +263,7 @@ class OpFirst(AggOperation):
         super().__init__(expressions, dtype_in)
         self.order_dtype = torch.float64 if order_float else torch.int64
 
-    def initial_state(self, G, device):
+    def initial_state(self, G, device, rows):
         dt = DataType(self.dtype_in)
         dtype = torch.int64 if dt.is_temporal else dt.torch
         return (torch.zeros(G, dtype=dtype, device=device),
@@ -285,6 +295,204 @@ class OpFirst(AggOperation):
 
     def get_result(self, state, shape):
         return state[0].reshape(shape)
+
+
+def interp_order_stats(sval, starts, nv, pct):
+    """The ``pct`` percentile of each segment of a column sorted within its
+    segments (vaex_tpu/ops/gridagg.py:454-471): ``starts`` [M] each
+    segment's first row, ``nv`` [M] float64 its count of valid values (its
+    NaN sort past them), interpolated linearly between the two bracketing
+    order statistics as numpy and pandas do; equal brackets give the value
+    itself (an all-inf segment stays inf), an empty segment NaN."""
+    if not sval.numel():
+        return torch.full_like(nv, torch.nan)
+    p = torch.minimum(torch.clamp(pct / 100.0 * (nv - 1), min=0.0),
+                      torch.clamp(nv - 1, min=0.0))
+    lo = torch.floor(p)
+    last = sval.shape[0] - 1
+    v_lo = sval[torch.clamp(starts + lo.to(torch.int64), 0, last)]
+    v_hi = sval[torch.clamp(starts + torch.ceil(p).to(torch.int64), 0, last)]
+    value = torch.where(v_lo == v_hi, v_lo, v_lo + (p - lo) * (v_hi - v_lo))
+    return torch.where(nv > 0, value, torch.nan)
+
+
+def sort_pairs(cells, values, descending=False):
+    """(cells, values) sorted by (cell, value): a stable sort by value, then
+    a stable sort by cell (values ascending, or descending)."""
+    values, order = torch.sort(values, descending=descending, stable=True)
+    cells, order = torch.sort(cells[order], stable=True)
+    return cells, values[order]
+
+
+def _segments(sorted_cells, G):
+    """(first row, row count) of each cell 0 .. G-1 in ascending cells."""
+    bins = torch.arange(G, dtype=sorted_cells.dtype, device=sorted_cells.device)
+    starts = torch.searchsorted(sorted_cells, bins, side="left")
+    return starts, torch.searchsorted(sorted_cells, bins, side="right") - starts
+
+
+def _counted(x, idx, G, dtype_in):
+    """The rows of a tile that count toward a cell: in [0, G), their value
+    neither missing nor NaN (nor NaT in a datetime or timedelta)."""
+    valid = (idx >= 0) & (idx < G)
+    if x.mask is not None:
+        valid &= ~x.mask
+    if x.data.is_floating_point():
+        valid &= ~torch.isnan(x.data)
+    if DataType(dtype_in).is_temporal:
+        valid &= x.data != NAT
+    return valid
+
+
+class OpTopK(AggOperation):
+    """Per cell the k largest (or smallest) values in descending (ascending)
+    order (vaex_tpu/agg.py:629-716): per tile one (cell, value) sort puts
+    each cell's best values at its segment's start, and the [G, k] state
+    merges with a tile's by a row-wise sort of both.  A slot no value fills
+    holds the identity: NaN for a float column once finished, the int
+    type's min (max) for an int column, as the reference leaves it."""
+
+    name = "topk"
+    kind = "own"  # folds each tile itself (``update``)
+
+    def __init__(self, expressions, k, largest=True, dtype_in=None):
+        super().__init__(expressions, dtype_in)
+        self.k = int(k)
+        self.largest = largest
+
+    def _dtype(self):
+        return torch.int64 if DataType(self.dtype_in).is_temporal else DataType(self.dtype_in).torch
+
+    def _fill(self):
+        return identity(self._dtype(), "max" if self.largest else "min")
+
+    def initial_state(self, G, device, rows):
+        return torch.full((G, self.k), self._fill(), dtype=self._dtype(), device=device)
+
+    def update(self, state, idx, G, ctx):
+        x = ctx.expr(self.expressions[0])
+        valid = _counted(x, idx, G, self.dtype_in)
+        cells, values = idx[valid], x.data[valid]
+        if not values.numel():
+            return state
+        cells, values = sort_pairs(cells, values, descending=self.largest)
+        starts, counts = _segments(cells, G)
+        slots = torch.arange(self.k, device=state.device)
+        best = values.to(state.dtype)[(starts[:, None] + slots).clamp(max=values.numel() - 1)]
+        tile = torch.where(slots < counts[:, None], best, self._fill())
+        both = torch.cat([state, tile], dim=1).sort(dim=1, descending=self.largest).values
+        return both[:, :self.k]
+
+    def get_result(self, state, shape):
+        grid = state
+        if grid.is_floating_point():
+            grid = torch.where(grid == self._fill(), torch.nan, grid)
+        return grid.reshape(tuple(shape) + (self.k,))
+
+
+def _percentages(percentage):
+    return [float(p) for p in (percentage if isinstance(percentage, (list, tuple))
+                               else [percentage])]
+
+
+class OpPercentile(AggOperation):
+    """Per cell approximate percentiles from a [G, B] count grid over
+    [vmin, vmax] (vaex_tpu/agg.py:727-803): each tile counts its valid rows
+    at the flat index ``cell * B + bin`` through the additive plan (B1, B2,
+    B3), and the finish places each bracketing order statistic inside its
+    bin by its rank there, then interpolates between the two as numpy does.
+    An empty cell gives NaN."""
+
+    name = "percentile"
+    kind = "percentile"
+
+    def __init__(self, expressions, percentages, vmin, vmax, bins, dtype_in=None):
+        super().__init__(expressions, dtype_in)
+        self.percentages = _percentages(percentages)
+        self.vmin, self.vmax, self.bins = float(vmin), float(vmax), int(bins)
+
+    def initial_state(self, G, device, rows):
+        return torch.zeros(G * self.bins, dtype=torch.int64, device=device)
+
+    def count_index(self, ctx, idx, G):
+        """Each row's flat index into the [G, B] count grid, -1 where it does
+        not count."""
+        x = ctx.expr(self.expressions[0])
+        valid = _counted(x, idx, G, self.dtype_in)
+        v = x.data.to(torch.float64)
+        width = (self.vmax - self.vmin) or 1.0
+        b = ((torch.where(valid, v, self.vmin) - self.vmin) / width * self.bins)
+        b = b.to(torch.int64).clamp(0, self.bins - 1)
+        flat = idx.to(torch.int64) * self.bins + b
+        return torch.where(valid, flat, -1).to(torch.int32)
+
+    def get_result(self, state, shape):
+        counts = state.reshape(-1, self.bins).to(torch.float64)
+        cum = torch.cumsum(counts, dim=1)
+        n = cum[:, -1]
+        w = ((self.vmax - self.vmin) or 1.0) / self.bins
+        rows = torch.arange(counts.shape[0], device=counts.device)
+
+        def value_at_rank(r):
+            k = torch.clamp((cum <= r[:, None]).sum(dim=1), 0, self.bins - 1)
+            before = torch.where(k > 0, cum[rows, torch.clamp(k - 1, min=0)], 0.0)
+            inbin = counts[rows, k]
+            frac = torch.where(inbin > 0, (r - before + 0.5) / inbin, 0.5)
+            return self.vmin + (k + torch.clamp(frac, 0.0, 1.0)) * w
+
+        outs = []
+        for pct in self.percentages:
+            p = torch.minimum(torch.clamp(pct / 100.0 * (n - 1), min=0.0),
+                              torch.clamp(n - 1, min=0.0))
+            lo = torch.floor(p)
+            v_lo = value_at_rank(lo)
+            value = v_lo + (p - lo) * (value_at_rank(torch.ceil(p)) - v_lo)
+            outs.append(torch.where(n > 0, value, torch.nan))
+        return _stack_percentiles(outs, shape)
+
+
+def _stack_percentiles(outs, shape):
+    if len(outs) == 1:
+        return outs[0].reshape(shape)
+    return torch.stack(outs, dim=1).reshape(tuple(shape) + (len(outs),))
+
+
+class OpPercentileExact(AggOperation):
+    """Exact per-cell percentiles (vaex_tpu/agg.py:805-891): every tile
+    writes its (cell, value) pairs into a buffer of the pass's rows, and
+    the finish sorts them once by (cell, value) and interpolates between
+    the two bracketing order statistics of each cell (numpy and pandas).
+    Rows that do not count keep the buffer's fill, the cell G and +inf,
+    which sorts past every real cell.  The state is (values [rows] float64,
+    cells [rows] int32, [rows written])."""
+
+    name = "percentile_exact"
+    kind = "own"
+
+    def __init__(self, expressions, percentages, dtype_in=None):
+        super().__init__(expressions, dtype_in)
+        self.percentages = _percentages(percentages)
+
+    def initial_state(self, G, device, rows):
+        self.G = int(G)
+        return (torch.full((rows,), torch.inf, dtype=torch.float64, device=device),
+                torch.full((rows,), self.G, dtype=torch.int32, device=device), [0])
+
+    def update(self, state, idx, G, ctx):
+        values, cells, written = state
+        x = ctx.expr(self.expressions[0])
+        valid = _counted(x, idx, G, self.dtype_in)
+        start, n = written[0], idx.shape[0]
+        values[start:start + n] = torch.where(valid, x.data.to(torch.float64), torch.inf)
+        cells[start:start + n] = torch.where(valid, idx, G)
+        return values, cells, [start + n]
+
+    def get_result(self, state, shape):
+        cells, values = sort_pairs(state[1], state[0])
+        starts, n = _segments(cells, self.G)
+        outs = [interp_order_stats(values, starts, n.to(torch.float64), pct)
+                for pct in self.percentages]
+        return _stack_percentiles(outs, shape)
 
 
 def selection_expression(selection, df):
@@ -382,6 +590,98 @@ class AggregatorDescriptorFirst(AggregatorDescriptorBasic):
                      order_float=order_float)
         return [df.executor.schedule_aggregation(df, binners, op,
                                                  selection_expression(self.selection, df))]
+
+
+class AggregatorDescriptorPercentile(AggregatorDescriptor):
+    """Per-cell percentile or median (vaex_tpu/agg.py:1198-1268): exact (one
+    sort of the collected pairs, :class:`OpPercentileExact`) while the frame
+    has at most ``EXACT_MAX_ROWS`` rows of a numeric expression, else from a
+    binned count grid over the expression's [min, max]
+    (:class:`OpPercentile`, ``percentile_shape`` bins, halved while the
+    [G, B] grid is past 2^26 cells).  ``exact=True`` (or
+    ``percentile_shape=None``) forces the sort and raises where it cannot
+    run; ``exact=False`` forces the count grid.  The count grid needs the
+    limits: :meth:`prepare` queues their minmax pass so that several
+    descriptors share one."""
+
+    # the collected pairs of one op: 2^27 rows are 1.5 GiB
+    EXACT_MAX_ROWS = 1 << 27
+    # the most cells of the approximate [G, B] count grid
+    APPROX_MAX_CELLS = 1 << 26
+
+    def __init__(self, expression, percentage=50.0, percentile_shape=1024, selection=None,
+                 edges=False, exact=None):
+        super().__init__("percentile", expression, selection, edges)
+        self.percentage = percentage
+        self.exact = exact if exact is not None else (True if percentile_shape is None else None)
+        self.percentile_shape = int(percentile_shape or 1024)
+        self._limits = None
+
+    def _exact_possible(self, df):
+        return (self._input_dtype(df).numpy.kind in "biufmM"
+                and df.dataset_for_execution().row_count <= self.EXACT_MAX_ROWS)
+
+    def prepare(self, df, binners):
+        """Queue the limits pass of the count grid, where one is needed."""
+        if self.exact is not False and self._exact_possible(df):
+            return
+        if self._limits is None:
+            self._limits = df.minmax(self.expression, delay=True)
+
+    def add_tasks(self, df, binners):
+        exact_ok = self.exact is not False and self._exact_possible(df)
+        if self.exact is True and not exact_ok:
+            raise ValueError(f"an exact percentile takes a numeric expression over at most "
+                             f"{self.EXACT_MAX_ROWS} rows; use exact=False")
+        selection = selection_expression(self.selection, df)
+        if exact_ok:
+            op = OpPercentileExact([self.expression], self.percentage,
+                                   dtype_in=self._input_dtype(df))
+            return [df.executor.schedule_aggregation(df, binners, op, selection)]
+        if self._limits is not None and self._limits.done:
+            vmin, vmax = (float(v) for v in self._limits.get())
+        else:
+            vmin, vmax = (float(v) for v in df.minmax(self.expression))
+        G = grid_size(binners)
+        bins = self.percentile_shape
+        while G * bins > self.APPROX_MAX_CELLS and bins > 64:
+            bins //= 2
+        op = OpPercentile([self.expression], self.percentage, vmin, vmax, bins,
+                          dtype_in=self._input_dtype(df))
+        return [df.executor.schedule_aggregation(df, binners, op, selection)]
+
+
+class AggregatorDescriptorTopK(AggregatorDescriptor):
+    """The k largest or smallest values per cell as a [..., k] grid, or the
+    ``nth`` of them (vaex_tpu/agg.py:1271-1297)."""
+
+    def __init__(self, expression, k, largest=True, nth=None, selection=None, edges=False):
+        super().__init__("max_n" if largest else "min_n", expression, selection, edges)
+        self.k = int(k)
+        self.largest = largest
+        self.nth_index = nth
+
+    def pretty_name(self, name=None):
+        suffix = self.name if self.nth_index is None else f"{self.name}_{self.nth_index}"
+        return find_valid_name(f"{name or self.expression}_{suffix}")
+
+    def add_tasks(self, df, binners):
+        op = OpTopK([self.expression], self.k, largest=self.largest,
+                    dtype_in=self._input_dtype(df))
+        task = df.executor.schedule_aggregation(df, binners, op,
+                                                selection_expression(self.selection, df))
+        if self.nth_index is None:
+            return [task]
+        i = self.nth_index
+
+        @delayed
+        def pick(grid):
+            return grid[..., i]
+        return [pick(task)]
+
+    def logical_dtype(self, df):
+        dtype = self._input_dtype(df)
+        return dtype.numpy if dtype.is_temporal else None
 
 
 class AggregatorDescriptorMean(AggregatorDescriptor):
@@ -537,6 +837,46 @@ def covar(x, y, selection=None, edges=False, ddof=0):
 
 def corr(x, y, selection=None, edges=False):
     return AggregatorDescriptorCorr(x, y, selection=selection, edges=edges)
+
+
+def percentile_approx(expression, percentage=50.0, percentile_shape=1024, selection=None,
+                      edges=False, exact=None):
+    return AggregatorDescriptorPercentile(expression, percentage, percentile_shape,
+                                          selection=selection, edges=edges, exact=exact)
+
+
+def median_approx(expression, percentile_shape=1024, selection=None, edges=False, exact=None):
+    """Per-cell median: exact where the pass can sort its pairs, else from
+    the count grid (see :class:`AggregatorDescriptorPercentile`)."""
+    desc = AggregatorDescriptorPercentile(expression, 50.0, percentile_shape,
+                                          selection=selection, edges=edges, exact=exact)
+    desc.name = "median"
+    return desc
+
+
+median = median_approx
+
+
+def max_n(expression, k, selection=None, edges=False):
+    """The k largest values per cell as a [..., k] grid (H2O q8)."""
+    return AggregatorDescriptorTopK(expression, k, largest=True, selection=selection,
+                                    edges=edges)
+
+
+def min_n(expression, k, selection=None, edges=False):
+    return AggregatorDescriptorTopK(expression, k, largest=False, selection=selection,
+                                    edges=edges)
+
+
+def nth_largest(expression, n, selection=None, edges=False):
+    """The (n + 1)-th largest value per cell (n counts from 0)."""
+    return AggregatorDescriptorTopK(expression, n + 1, largest=True, nth=n,
+                                    selection=selection, edges=edges)
+
+
+def nth_smallest(expression, n, selection=None, edges=False):
+    return AggregatorDescriptorTopK(expression, n + 1, largest=False, nth=n,
+                                    selection=selection, edges=edges)
 
 
 aggregates = {"count": count, "sum": sum, "mean": mean, "min": min, "max": max,

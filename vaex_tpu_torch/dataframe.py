@@ -43,12 +43,13 @@ from .datatype import DataType, dtype_of, has_torch_dtype
 from .delayed import delayed
 from .execution import ExecutorLocal, TileContext, _tile, pass_inputs
 from .expression import Expression, _set_of
+from .ops.nullable import NA
 from .ops.binners import BinnerOrdinal, BinnerScalar
 from .scopes import DeviceScope
 from .tasks import TaskSetCreate
 from .utils import find_valid_name, fingerprint, valid_expression_name
 
-FILTERED_PENDING = "of a filtered DataFrame is not ported yet (ROADMAP queue A9)"
+FILTERED_PENDING = "of a filtered DataFrame is not ported yet (ROADMAP queue A6)"
 
 
 class DataFrame:
@@ -253,8 +254,9 @@ class DataFrame:
         known = self._dtypes.get(key)
         if known is None or known[0] is not self.dataset:
             rows = min(1, self.dataset.row_count)
-            data, _ = self._evaluate_tile(expression, 0, rows, filtered=False)
-            known = self._dtypes[key] = (self.dataset, DataType(data.dtype))
+            value = self._evaluate_tile(expression, 0, rows, filtered=False)
+            known = self._dtypes[key] = (self.dataset,
+                                         DataType(value.logical or value.data.dtype))
         return known[1]
 
     def __len__(self):
@@ -450,8 +452,10 @@ class DataFrame:
     def _evaluate_rows(self, expression, i1, i2, filtered=True):
         """An expression over rows [i1, i2), eagerly, as a host array; of a
         filtered frame the rows the filter keeps, unless ``filtered`` is off."""
-        data, mask = self._evaluate_tile(expression, i1, i2, filtered)
-        data = array_types.to_numpy(data)
+        value = self._evaluate_tile(expression, i1, i2, filtered)
+        data, mask = array_types.to_numpy(value.data), value.mask
+        if value.logical is not None:  # a datetime or timedelta from its int64 count
+            data = data.view(value.logical)
         if mask is not None:
             mask = array_types.to_numpy(mask)
             if mask.any():
@@ -459,14 +463,14 @@ class DataFrame:
         return data
 
     def _evaluate_tile(self, expression, i1, i2, filtered=True):
-        """(data, mask or None): the tensors of an expression over rows [i1,
-        i2) on the pass device, without a copy to the host."""
+        """An expression over rows [i1, i2) as an NA on the pass device,
+        without a copy to the host."""
         expression = str(expression)
         expressions = [expression]
         if filtered and self.filtered:
             expressions.append(self._filter)
         names, device, variables = pass_inputs(self, self.dataset, expressions)
-        tile = {n: _tile(self.dataset[n], i1, i2, device) for n in names}
+        tile = {n: _tile(self.dataset, n, i1, i2, device) for n in names}
         ctx = TileContext(DeviceScope(tile, variables, self.virtual_columns), i2 - i1, device)
         value = ctx.expr(expression)
         data, mask = value.data, value.mask
@@ -475,18 +479,17 @@ class DataFrame:
         if len(expressions) > 1:
             keep = ctx.boolean(self._filter)
             data, mask = data[keep], None if mask is None else mask[keep]
-        return data, mask
+        return NA(data, mask, value.logical)
 
     def evaluate(self, expression):
         """Values of an expression as a host numpy (masked) array."""
         expression = str(expression)
-        logical = self.dataset.logical.get(expression) if self._is_physical(expression) else None
         if self._is_physical(expression) and not self.filtered:
             values = array_types.to_numpy(self.dataset[expression][:])
-        else:
-            values = self._evaluate_rows(expression, 0, self.dataset.row_count)
-        # a datetime or timedelta column comes back from its int64 form
-        return values.view(logical) if logical is not None and values.dtype.kind == "i" else values
+            logical = self.dataset.logical.get(expression)
+            # a datetime or timedelta column comes back from its int64 form
+            return values.view(logical) if values.dtype.kind == "i" and logical else values
+        return self._evaluate_rows(expression, 0, self.dataset.row_count)
 
     # ---------------------------------------------------------- aggregation
     def execute(self):
@@ -832,8 +835,16 @@ class DataFrame:
         range (dense), any other numeric key (a set of its values), or, with
         ``assume_sparse`` (True, or "auto" past 1e6 combinations), several keys
         fused into one set of the observed combinations.  ``row_limit`` raises
-        RowLimitException when a key's set grows past it."""
+        RowLimitException when a key's set grows past it.  With ``agg`` the
+        one-sort plan (:mod:`.fused_groupby`) runs raw integer keys whose
+        set the classic path would build, in one sort."""
         from .groupby import GroupBy
+        if agg is not None:
+            from .fused_groupby import try_fused_sort_groupby
+            result = try_fused_sort_groupby(self, by, agg, ascending=ascending,
+                                            row_limit=row_limit)
+            if result is not None:
+                return result
         gb = GroupBy(self, by=by, sort=sort, ascending=ascending, combine=assume_sparse,
                      row_limit=row_limit)
         if agg is None:

@@ -125,11 +125,11 @@ class ExecutorLocal(Executor):
         names, device, variables = pass_inputs(df, dataset, expressions)
         n_total = dataset.row_count
         T = df._tile_rows or settings.TILE_ROWS
-        states = [t.initial_state(device) for t in tasks]
+        states = [t.initial_state(device, n_total) for t in tasks]
         n_tiles = 0
         for i1 in range(0, max(n_total, 1), T):
             i2 = min(i1 + T, n_total)
-            tile = {name: _tile(dataset[name], i1, i2, device) for name in names}
+            tile = {name: _tile(dataset, name, i1, i2, device) for name in names}
             ctx = TileContext(DeviceScope(tile, variables, df.virtual_columns), i2 - i1, device)
             if filter_expression is not None:
                 ctx.row_valid = ctx.boolean(filter_expression)
@@ -186,11 +186,13 @@ def _pass_device(dataset, names):
     return dataset.device or torch.device(settings.DEVICE)
 
 
-def _tile(col, i1, i2, device) -> NA:
-    """Rows [i1, i2) of a column as an NA on ``device``."""
-    part = col[i1:i2]
+def _tile(dataset, name, i1, i2, device) -> NA:
+    """Rows [i1, i2) of a column as an NA on ``device``; a datetime or
+    timedelta column as its int64 count with its dtype."""
+    part = dataset[name][i1:i2]
+    logical = dataset.logical.get(name)
     if isinstance(part, torch.Tensor):
-        return NA(part.to(device))
+        return NA(part.to(device), None, logical)
     data, mask = array_types.data_and_mask(part)
     return NA(array_types.to_tensor(data, device),
-              None if mask is None else torch.as_tensor(np.asarray(mask)).to(device))
+              None if mask is None else torch.as_tensor(np.asarray(mask)).to(device), logical)

@@ -32,7 +32,7 @@ import torch
 
 from .datatype import _TORCH_TO_NUMPY, torch_dtype
 from .ops import setops
-from .ops.nullable import NA, as_operand, lift
+from .ops.nullable import NA, TEMPORAL_PENDING, as_operand, lift, refuse_temporal
 from .registry import register_function
 
 
@@ -61,6 +61,9 @@ def _notna(x):
 
 
 def _where(cond, a, b):
+    logical = {v.logical for v in (a, b) if isinstance(v, NA)} - {None}
+    if logical and (len(logical) > 1 or not all(isinstance(v, NA) for v in (a, b))):
+        refuse_temporal("where", a, b)
     datas = []
     mask = None
     for v in (cond, a, b):
@@ -70,7 +73,7 @@ def _where(cond, a, b):
                 mask = v.mask if mask is None else mask | v.mask
         else:
             datas.append(as_operand(v))
-    return NA(torch.where(*datas), mask)
+    return NA(torch.where(*datas), mask, logical.pop() if logical else None)
 
 
 def _float_to_int(data, target):
@@ -89,7 +92,17 @@ def _float_to_int(data, target):
 
 
 def _astype(x, dtype):
+    """numpy's ``astype``: a datetime or timedelta as an int or float is its
+    epoch count; an int column becomes a temporal dtype by its count; a
+    temporal value keeps only its own dtype."""
     x = _na(x)
+    if np.dtype(dtype).kind in "Mm":
+        if x.logical == np.dtype(dtype):
+            return x
+        if x.logical is not None or x.data.is_floating_point():
+            raise NotImplementedError(f"astype of a {x.logical or x.dtype} value to {dtype} "
+                                      f"is {TEMPORAL_PENDING}")
+        return NA(x.data.to(torch.int64), x.mask, dtype)
     target = torch_dtype(dtype)
     if x.data.is_floating_point() and not target.is_floating_point and target != torch.bool:
         return NA(_float_to_int(x.data, target), x.mask)
@@ -97,8 +110,7 @@ def _astype(x, dtype):
 
 
 def _abs(x):
-    x = _na(x)
-    return NA(torch.abs(x.data), x.mask)
+    return abs(_na(x))
 
 
 register_function(name="ismissing", device=_ismissing)(None)
@@ -174,6 +186,7 @@ def _device(args):
 def _operands(args, dtype):
     """``args`` as NA values of ``dtype`` on one device (a Python number as
     a 0-dim tensor there)."""
+    refuse_temporal("this function", *args)
     device = _device(args)
     out = []
     for a in args:
@@ -258,6 +271,7 @@ def _round(x, decimals=0):
     """numpy's round: half to even; an int column as it is, or rounded to a
     power of ten for negative ``decimals``; a bool column as float64."""
     x = _na(x)
+    refuse_temporal("round", x)
     data = x.data
     if data.dtype == torch.bool:
         data = data.to(torch.float64)
@@ -334,6 +348,7 @@ def _fillmissing(x, value):
     x = _na(x)
     if x.mask is None:
         return x
+    refuse_temporal("fillmissing", x)
     fill = torch.as_tensor(np.asarray(value)).to(device=x.data.device, dtype=x.dtype)
     return NA(torch.where(x.mask, fill, x.data))
 

@@ -24,7 +24,9 @@ One aggregation pass fills the grids and ``_assemble`` builds the result
 frame.  :class:`BinBy` (``df.binby``) keeps the grid instead: category axes
 and continuous ones binned over limits, returned as an N-d array with
 coordinates.  :class:`BinnerTime` groups a datetime key by calendar periods.
-String keys are not ported yet (ROADMAP queue A6).
+``df.groupby(by, agg=...)`` first tries the one-sort plan of
+:mod:`.fused_groupby` for raw integer keys.  String keys are not ported
+yet (ROADMAP queue A9).
 """
 
 from __future__ import annotations
@@ -138,8 +140,10 @@ class GrouperCombined:
         self.df = df
         self.groupers = groupers
         if np.prod([max(g.N, 1) for g in groupers], dtype=np.float64) >= 2 ** 62:
-            raise ValueError("groupby key cardinality product overflows int64; use fewer or "
-                             "lower-cardinality keys")
+            raise ValueError("groupby key cardinality product overflows int64: "
+                             "df.groupby(by, agg=...) runs such integer keys through the "
+                             "one-sort path (fused_groupby); a groupby without agg= over them "
+                             "is not ported yet (ROADMAP queue A8)")
         multipliers = [1] * len(groupers)
         for i in range(len(groupers) - 2, -1, -1):
             multipliers[i] = multipliers[i + 1] * max(groupers[i + 1].N, 1)
@@ -347,6 +351,45 @@ def _should_combine(groupers, combine):
     return product > COMBINE_MIN_PRODUCT
 
 
+def parse_actions(df, by_names, actions):
+    """(output name, descriptor) pairs of a groupby's ``agg``, named as
+    vaex_tpu names them."""
+    out = []
+    if isinstance(actions, collections.abc.Mapping):
+        items = list(actions.items())
+    elif isinstance(actions, (list, tuple)):
+        items = [(None, a) for a in actions]
+    else:
+        items = [(None, actions)]
+    for name, spec in items:
+        multiple = isinstance(spec, (list, tuple))
+        for s in (spec if multiple else [spec]):
+            if isinstance(s, str) and s == "count":
+                out.append((name or "count", agg_module.count("*")))
+                continue
+            if isinstance(s, str):
+                if s not in agg_module.aggregates:
+                    raise NotImplementedError(
+                        f"aggregator {s!r} is {agg_module.PENDING}")
+                s = agg_module.aggregates[s]
+            if isinstance(s, AggregatorDescriptor):
+                if name is None or multiple:
+                    out.append((s.pretty_name(name if multiple else None), s))
+                else:
+                    out.append((name, s))
+            elif callable(s):
+                columns = ([name] if name is not None else
+                           [c for c in df.get_column_names()
+                            if c not in by_names and not c.startswith("__")])
+                for column in columns:
+                    desc = s(column)
+                    out.append((desc.pretty_name() if (multiple or name is None)
+                                else name, desc))
+            else:
+                raise NotImplementedError(f"aggregator {s!r} is {agg_module.PENDING}")
+    return out
+
+
 class GroupBy:
     """df.groupby over one or more keys."""
 
@@ -385,41 +428,7 @@ class GroupBy:
         self.binners = tuple(g.binner for g in self.by)
 
     def _parse_actions(self, actions):
-        """(output name, descriptor) pairs, named as vaex_tpu names them."""
-        out = []
-        if isinstance(actions, collections.abc.Mapping):
-            items = list(actions.items())
-        elif isinstance(actions, (list, tuple)):
-            items = [(None, a) for a in actions]
-        else:
-            items = [(None, actions)]
-        for name, spec in items:
-            multiple = isinstance(spec, (list, tuple))
-            for s in (spec if multiple else [spec]):
-                if isinstance(s, str) and s == "count":
-                    out.append((name or "count", agg_module.count("*")))
-                    continue
-                if isinstance(s, str):
-                    if s not in agg_module.aggregates:
-                        raise NotImplementedError(
-                            f"aggregator {s!r} is {agg_module.PENDING}")
-                    s = agg_module.aggregates[s]
-                if isinstance(s, AggregatorDescriptor):
-                    if name is None or multiple:
-                        out.append((s.pretty_name(name if multiple else None), s))
-                    else:
-                        out.append((name, s))
-                elif callable(s):
-                    columns = ([name] if name is not None else
-                               [c for c in self.df.get_column_names()
-                                if c not in self.by_names and not c.startswith("__")])
-                    for column in columns:
-                        desc = s(column)
-                        out.append((desc.pretty_name() if (multiple or name is None)
-                                    else name, desc))
-                else:
-                    raise NotImplementedError(f"aggregator {s!r} is {agg_module.PENDING}")
-        return out
+        return parse_actions(self.df, self.by_names, actions)
 
     def agg(self, actions):
         try:
@@ -431,6 +440,7 @@ class GroupBy:
 
     def _agg(self, actions):
         parsed = self._parse_actions(actions)
+        _prepare(self.df, self.binners, parsed)
         ndim = len(self.binners)
         promises = []
         for name, desc in parsed:
@@ -524,6 +534,16 @@ class GroupBy:
         return df.sort(self.by_names, ascending=self.ascending) if self.sort else df
 
 
+def _prepare(df, binners, parsed):
+    """Run the pre-passes the descriptors ask for (a count grid's limits) as
+    one pass before their aggregations are scheduled."""
+    for _, desc in parsed:
+        if hasattr(desc, "prepare"):
+            desc.prepare(df, binners)
+    if df.executor.tasks:
+        df.execute()
+
+
 def _is_count_star(desc):
     return desc.name == "count" and desc.expression in (None, "*") and desc.selection is None
 
@@ -554,6 +574,7 @@ class BinBy(GroupBy):
 
     def agg(self, actions):
         parsed = self._parse_actions(actions)
+        _prepare(self.df, self.binners, parsed)
         promises = [(name, desc, desc.add_tasks(self.df, self.binners)[0])
                     for name, desc in parsed]
         self.df.execute()

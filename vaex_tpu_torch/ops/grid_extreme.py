@@ -64,13 +64,18 @@ def grid_extreme(bins, col, G, mode, valid=None):
     return out[:G]
 
 
-def extreme_of_rows(col, mode, valid=None):
+def extreme_of_rows(col, mode, valid=None, n_rows=None):
     """``mode`` of ``col`` [N] over the rows where ``valid`` holds (every row
     when it is None), NaN rows left out, as a [1] tensor: the one-cell grid
     of a statistic without binby.  A reduction, where :func:`grid_extreme`
-    would run N atomics on one address."""
+    would run N atomics on one address.  ``col`` and ``valid`` must hold
+    one value per row: ``n_rows`` of them when it is given."""
     if mode not in MODES:
         raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
+    n = col.shape[0] if n_rows is None and col.dim() == 1 else n_rows
+    for t, what in ((col, "column"), (valid, "validity")):
+        if t is not None and t.shape != (n,):
+            raise ValueError(f"{what} shape {tuple(t.shape)} does not match the rows ({n},)")
     drop = torch.isnan(col) if col.is_floating_point() else None
     if valid is not None:
         drop = ~valid if drop is None else drop | ~valid

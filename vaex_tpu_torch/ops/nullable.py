@@ -12,6 +12,15 @@ meets, and both are mapped to numpy's result here:
   passed as a 0-dim float64 tensor, which gives float64 as in numpy;
 * true division of two integer tensors gives float32 in torch; the left
   operand is widened to float64 first.
+
+A ``datetime64`` or ``timedelta64`` value is its int64 epoch count (NaT is
+the int64 minimum) with the numpy dtype in ``logical``.  The operators
+carry that dtype as numpy does (:func:`temporal_binop`): numpy's result
+dtype, the units aligned to the finer one, NaT in gives NaT out (False in a
+comparison, True in ``!=``, NaN in a float quotient, 0 in an int one), and
+an operation numpy refuses raises ``TypeError``.  Any other operation on a
+temporal value raises ``NotImplementedError`` (:func:`refuse_temporal`):
+none returns a plain number where numpy's dtype is temporal.
 """
 
 from __future__ import annotations
@@ -21,16 +30,22 @@ import operator
 import numpy as np
 import torch
 
+# NaT in the int64 view of a datetime or timedelta
+NAT = np.iinfo(np.int64).min
+TEMPORAL_PENDING = "not ported yet (ROADMAP queue A9: datetimes)"
+
 
 class NA:
-    """data + optional validity. Immutable."""
+    """data + optional validity (+ the numpy temporal dtype an int64 ``data``
+    stands for). Immutable."""
 
-    __slots__ = ("data", "mask")
+    __slots__ = ("data", "mask", "logical")
     __array_priority__ = 100  # beat numpy operator dispatch
 
-    def __init__(self, data, mask=None):
+    def __init__(self, data, mask=None, logical=None):
         self.data = data
         self.mask = mask
+        self.logical = None if logical is None else np.dtype(logical)
 
     @property
     def dtype(self):
@@ -45,6 +60,11 @@ class NA:
 
     def __repr__(self):
         return f"NA({self.data!r}, mask={self.mask!r})"
+
+    def astype(self, dtype):
+        """``x.astype('float32')`` inside an expression string."""
+        from ..functions import _astype
+        return _astype(self, dtype)
 
     def maskarray(self):
         """Always-materialized mask (False where no mask)."""
@@ -71,8 +91,16 @@ def as_operand(x):
     return x
 
 
+def refuse_temporal(what, *args):
+    """Raise for an operation the port does not carry for a temporal value."""
+    for a in args:
+        if isinstance(a, NA) and a.logical is not None:
+            raise NotImplementedError(f"{what} of a {a.logical} value is {TEMPORAL_PENDING}")
+
+
 def lift(op, *args):
     """Apply op to the .data of NA/plain args, OR-combining masks."""
+    refuse_temporal(getattr(op, "__name__", "this function"), *args)
     datas = []
     mask = None
     for a in args:
@@ -96,11 +124,133 @@ def _truediv(a, b):
     return operator.truediv(a, b)
 
 
-def _binop(op, reflected=False):
+def _is_temporal(x):
+    return isinstance(x, NA) and x.logical is not None
+
+
+def _binop(name, op, reflected=False):
     def method(self, other):
-        if reflected:
-            return lift(lambda a, b: op(b, a), self, other)
-        return lift(op, self, other)
+        left, right = (other, self) if reflected else (self, other)
+        if _is_temporal(left) or _is_temporal(right):
+            return temporal_binop(name, left, right)
+        return lift(op, left, right)
+    return method
+
+
+_NUMPY_OPS = {
+    "add": operator.add, "sub": operator.sub, "mul": operator.mul,
+    "truediv": operator.truediv, "floordiv": operator.floordiv, "mod": operator.mod,
+    "lt": operator.lt, "le": operator.le, "gt": operator.gt, "ge": operator.ge,
+    "eq": operator.eq, "ne": operator.ne,
+}
+_COMPARISONS = {"lt", "le", "gt", "ge", "eq", "ne"}
+
+
+def _numpy_stand_in(x):
+    """What numpy's dtype rules see of an operand: one element of its dtype,
+    a Python number as it is (weak)."""
+    if isinstance(x, NA):
+        if x.logical is not None:
+            return np.zeros(1, x.logical)
+        x = x.data
+    if isinstance(x, torch.Tensor):
+        from ..datatype import _TORCH_TO_NUMPY
+        return np.ones(1, _TORCH_TO_NUMPY[x.dtype])
+    return x
+
+
+def _unit_scale(logical, unit):
+    """The int64 factor from ``logical``'s unit to ``unit``; raises for the
+    calendar units (months, years), which no factor converts."""
+    own, count = np.datetime_data(logical)
+    if (own, count) == (unit, 1):
+        return 1
+    if own in ("Y", "M", "generic") or unit in ("Y", "M", "generic"):
+        raise NotImplementedError(f"converting {logical} to the unit {unit!r} is "
+                                  f"{TEMPORAL_PENDING}")
+    return int(np.timedelta64(count, own).astype(f"m8[{unit}]").astype(np.int64))
+
+
+def _data(x):
+    if isinstance(x, NA):
+        return x.data
+    return as_operand(x)
+
+
+def temporal_binop(name, left, right):
+    """``left <name> right`` where one side is a datetime64 or timedelta64 NA,
+    with numpy's result dtype and values (see the module docstring): int
+    division of a timedelta by a number truncates toward zero and gives NaT
+    for 0, a float factor or divisor is applied in float64 and truncated,
+    a timedelta over a timedelta floors (``//``, 0 for 0) or is float64
+    (``/``), ``%`` follows the divisor's sign (NaT for 0)."""
+    if name not in _NUMPY_OPS:
+        refuse_temporal(name, left, right)
+    with np.errstate(all="ignore"):
+        try:
+            out = _NUMPY_OPS[name](_numpy_stand_in(left), _numpy_stand_in(right)).dtype
+        except TypeError as e:  # numpy has no such loop
+            raise TypeError(f"{name} of {_describe(left)} and {_describe(right)}: {e}") from None
+    mask = _mask_or(*(x.mask if isinstance(x, NA) else None for x in (left, right)))
+    a, b = _data(left), _data(right)
+    nat = None
+    for x in (left, right):
+        if _is_temporal(x):
+            hit = x.data == NAT
+            nat = hit if nat is None else nat | hit
+    if _is_temporal(left) and _is_temporal(right):
+        # both sides in the finer unit (numpy's common metadata)
+        unit = np.datetime_data(np.result_type(
+            *(np.dtype(f"m8[{np.datetime_data(x.logical)[0]}]") for x in (left, right))))[0]
+        a = a * _unit_scale(left.logical, unit)
+        b = b * _unit_scale(right.logical, unit)
+    float_operand = any(isinstance(v, float) or (isinstance(v, torch.Tensor)
+                                                   and v.is_floating_point()) for v in (a, b))
+    if name in _COMPARISONS:
+        value = _NUMPY_OPS[name](a, b)
+        return NA(value if nat is None else torch.where(nat, name == "ne", value), mask)
+    if name in ("add", "sub"):
+        value = _NUMPY_OPS[name](a, b)
+    elif name == "mul" or (name in ("truediv", "floordiv") and out.kind in "Mm"):
+        if float_operand:  # numpy multiplies or divides in float64, then truncates
+            f = (a.to(torch.float64) * b if name == "mul" else a.to(torch.float64) / b)
+            finite = torch.isfinite(f)
+            value = torch.where(finite, torch.where(finite, f, 0).trunc().to(torch.int64), NAT)
+        elif name == "mul":
+            value = a * b
+        else:  # an int divisor: C division, NaT for 0
+            b = torch.as_tensor(b, device=a.device)
+            zero = b == 0
+            value = torch.where(zero, NAT, torch.div(a, torch.where(zero, 1, b),
+                                                     rounding_mode="trunc"))
+    elif name == "truediv":  # a timedelta over a timedelta
+        value = a.to(torch.float64) / b.to(torch.float64)
+        return NA(torch.where(nat, torch.nan, value), mask)
+    else:  # floordiv or mod of two timedeltas
+        zero = b == 0
+        safe = torch.where(zero, 1, b)
+        if name == "floordiv":
+            value = torch.where(zero | nat, 0, torch.div(a, safe, rounding_mode="floor"))
+            return NA(value, mask)
+        value = torch.where(zero, NAT, torch.remainder(a, safe))
+    if nat is not None:
+        value = torch.where(nat, NAT, value)
+    return NA(value, mask, out)
+
+
+def _describe(x):
+    if isinstance(x, NA):
+        return str(x.logical or _numpy_stand_in(x).dtype)
+    return type(x).__name__
+
+
+def _unary(name, op):
+    def method(self):
+        if self.logical is None:
+            return NA(op(self.data), self.mask)
+        if self.logical.kind == "M" or name == "invert":
+            raise TypeError(f"{name} of a {self.logical} value: numpy has no such loop")
+        return NA(torch.where(self.data == NAT, NAT, op(self.data)), self.mask, self.logical)
     return method
 
 
@@ -116,13 +266,13 @@ def _install_operators():
         "matmul": operator.matmul,
     }
     for name, op in ops.items():
-        setattr(NA, f"__{name}__", _binop(op))
+        setattr(NA, f"__{name}__", _binop(name, op))
         if name not in ("lt", "le", "gt", "ge", "eq", "ne"):
-            setattr(NA, f"__r{name}__", _binop(op, reflected=True))
-    NA.__neg__ = lambda self: NA(-self.data, self.mask)
-    NA.__pos__ = lambda self: NA(+self.data, self.mask)
-    NA.__abs__ = lambda self: NA(torch.abs(self.data), self.mask)
-    NA.__invert__ = lambda self: NA(~self.data, self.mask)
+            setattr(NA, f"__r{name}__", _binop(name, op, reflected=True))
+    NA.__neg__ = _unary("neg", operator.neg)
+    NA.__pos__ = _unary("pos", operator.pos)
+    NA.__abs__ = _unary("abs", torch.abs)
+    NA.__invert__ = _unary("invert", operator.invert)
 
 
 _install_operators()

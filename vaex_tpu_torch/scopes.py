@@ -5,7 +5,8 @@ to :class:`~vaex_tpu_torch.ops.nullable.NA` tiles of physical columns, to
 virtual columns (evaluated from their expression the first time the tile
 reads them, then kept) or to the pass's variables (a
 :class:`~vaex_tpu_torch.ops.setops.DeviceSetHandle` for a set, a tensor for
-an array), and functions come from the registry.  Torch runs eagerly, so
+an array; a datetime or timedelta scalar as an NA of its int64 count with
+its dtype), and functions come from the registry.  Torch runs eagerly, so
 ``eval`` runs once per tile, on whichever device the tile's tensors live.
 :func:`column_names` finds the physical columns an expression reads,
 through its virtual columns.  The host scope of ``vaex_tpu`` (strings,
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import ast
 
+import numpy as np
 import torch
 
 from .ops.nullable import NA
@@ -71,6 +73,10 @@ def resolve_variables(variables, names, device):
         value = variables[name]
         if isinstance(value, setops.SortedSet):
             out[name] = setops.DeviceSetHandle.of(value, device)
+        elif np.asarray(value).dtype.kind in "Mm":
+            # a datetime or timedelta: its int64 count in its own unit
+            value = np.asarray(value)
+            out[name] = NA(torch.as_tensor(value.view(np.int64)).to(device), None, value.dtype)
         else:
             out[name] = setops.choices_tensor(value, device)
     return out

@@ -1,8 +1,9 @@
 """Tasks: units of work executed in one pass over the data.
 
-A task has an ``initial_state``, an ``update`` that folds one tile into
-the state, and a ``finalize`` that fulfills its promise.  Torch runs
-eagerly, so ``update`` is a plain Python function called once per tile.
+A task has an ``initial_state`` (given the pass's device and row count),
+an ``update`` that folds one tile into the state, and a ``finalize`` that
+fulfills its promise.  Torch runs eagerly, so ``update`` is a plain Python
+function called once per tile.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from .delayed import Promise
 from .ops.binners import fuse_bins, grid_shape, grid_size
 from .ops.grid_extreme import extreme_of_rows
 from .ops.grid_moments import MAX_BASES, MAX_TERMS
-from .ops.grid_plan import grid_extremes, grid_sums_and_extremes, moment_sums
+from .ops.grid_plan import grid_extremes, grid_sums, grid_sums_and_extremes, moment_sums
 from .ops.setops import RowLimitException, SortedSet
 
 
@@ -25,7 +26,7 @@ class Task(Promise):
         self.expressions = [str(e) for e in expressions]
         self.name = name
 
-    def initial_state(self, device):
+    def initial_state(self, device, rows):
         raise NotImplementedError
 
     def update(self, state, ctx):
@@ -53,11 +54,14 @@ class TaskAggregations(Task):
     the additive batch where the extremes need one (``"scatter": "shared"``).
     A ``first`` is two per-bin mins through the same route, of the order
     values and then of the row numbers among the rows that hold the winning
-    order.  Without binners the grid is one cell and an extreme is a plain
-    reduction over the rows (``"reduce"``).  ``strategy`` maps each kind of
-    the last tile to its kernel, e.g. ``{"additive": "b1", "moments": "b5",
-    "extremes": "b3x-direct"}``; the executor writes it into the pass's
-    ``trace_log`` entry.
+    order.  An approximate percentile counts its [cell, value bin] grid
+    through the additive plan (``"percentile"``: the kernel); a top-k and
+    an exact percentile fold each tile themselves (``"topk"``,
+    ``"percentile_exact"``: ``"sort"``).  Without binners the grid is one
+    cell and an extreme is a plain reduction over the rows (``"reduce"``).
+    ``strategy`` maps each kind of the last tile to its kernel, e.g.
+    ``{"additive": "b1", "moments": "b5", "extremes": "b3x-direct"}``; the
+    executor writes it into the pass's ``trace_log`` entry.
     """
 
     def __init__(self, df, binners, selection=None):
@@ -86,9 +90,9 @@ class TaskAggregations(Task):
                 sub.reject(exception)
         return self
 
-    def initial_state(self, device):
+    def initial_state(self, device, rows):
         G = grid_size(self.binners)
-        return [op.initial_state(G, device) for op in self.subtasks]
+        return [op.initial_state(G, device, rows) for op in self.subtasks]
 
     def update(self, state, ctx):
         G = grid_size(self.binners)
@@ -115,12 +119,24 @@ class TaskAggregations(Task):
                 values, valid = op.extreme_input(ctx)
                 if rows is not None:
                     valid = rows if valid is None else valid & rows
-                grid = extreme_of_rows(values, op.mode, valid)
+                grid = extreme_of_rows(values, op.mode, valid, ctx.n_rows)
                 new_state[i] = op.apply_kernel(new_state[i], grid)
             self.strategy["extremes"] = "reduce"
         if "first" in kinds:
             names = [self._update_first(i, new_state, idx, G, ctx) for i in kinds["first"]]
             self.strategy["first"] = "+".join(dict.fromkeys(names))
+        if "percentile" in kinds:
+            names = []
+            for i in kinds["percentile"]:
+                op = self.subtasks[i]
+                name, (counts,), _ = grid_sums(op.count_index(ctx, idx, G), [], [],
+                                               G * op.bins, True)
+                new_state[i] = new_state[i] + counts
+                names.append(name)
+            self.strategy["percentile"] = "+".join(dict.fromkeys(names))
+        for i in kinds.get("own", []):
+            new_state[i] = self.subtasks[i].update(new_state[i], idx, G, ctx)
+            self.strategy[self.subtasks[i].name] = "sort"
         return new_state
 
     def _update_additive(self, members, riders, new_state, idx, G, ctx):
@@ -243,7 +259,7 @@ class TaskSetCreate(Task):
         dtype = df.data_type(expression)
         self.temporal = dtype.numpy if dtype.is_temporal else None
 
-    def initial_state(self, device):
+    def initial_state(self, device, rows):
         return {"keys": None, "counts": None, "nan": 0, "null": 0}
 
     def update(self, state, ctx):
