@@ -158,7 +158,25 @@ Run from the root of the repository on a machine with a CUDA card.  It
     sums and means within the bound of phase 4, sd and r2 within it carried
     through their formulas), q10 on the one-sort route in its unpacked mode,
     with B1, B2, b3-l2, B5 and b3x-l2 launched; then each question timed
-    against plain torch (5 repetitions, medians).
+    against plain torch (5 repetitions, medians);
+18. drives BASELINE config 4, a join with isin and value_counts, with the
+    shapes of benchmarks/join_isin.py:28-37 made on the card from seed 42:
+    first the join's edges at 1e6 x 1e5 rows against a plain torch join
+    (sort, searchsorted left and right, repeat_interleave), exactly: every
+    third dim key missing and every seventh doubled, int keys with masked
+    left keys and float keys with NaN on both sides, how = left, inner and
+    right with allow_duplication, each probing on b6-wide; then a fact table
+    of 1e9 rows (key int64 uniform in [0, 1e7), x float64 U[0, 1)) and a dim
+    table of 1e7 (key = arange, label int64 in [0, 100)): J1
+    fact.join(dim, on="key") (its lookup an int32 CUDA tensor equal to plain
+    torch's, B6 launched on b6-wide, under 20 ms of device-to-host copies),
+    J2 joined.sum("label"), J3 joined.groupby("label", {sum x, count}), J4
+    fact.count(selection=fact.key.isin(ids)) for 1000 and 10 ids, J5
+    joined["label"].value_counts(), each checked against plain torch
+    (counts, int sums, labels and value counts exact, x sums within the
+    bound of phase 4), with B1 launched; then each timed against plain torch
+    (a warm-up, then 5 repetitions, medians), and B6 alone at the join's
+    shape against its plain version and the library calls.
 
 It exits non-zero on any failure.  The line before the last is a JSON
 object with every kernel's (and each of B3x's routes') launches, error,
@@ -206,14 +224,18 @@ SET_KEYS = {"k100": 100, "k2000": 2000, "k1e6": H2O_K6}
 # 50 000 ids; for B3 its resident route at the same shape and the
 # partition's phases; for B3x's resident route q7's shape; for B1 and B4
 # their launches in the config 2 phase; every kernel's launches in the
-# config 3 phase ("config3_launches")
+# config 3 and config 4 phases ("config3_launches", "config4_launches"); for
+# B6 its time at config 4's join (the 1e9 fact keys among the 1e7 dim keys),
+# J1's launches and the ms of J1's copies to the host
 EXTRA_KEYS = ("library_add_ms", "isin_ms", "wide_launches", "wide_ms", "wide_plain_ms",
               "config2_launches", "wide_library_ms", "wide_isin_ms", "wide_bound_ms", "wide_max_abs_err",
               "l2_launches", "l2_ms", "l2_plain_ms", "l2_max_abs_err", "count_ms",
               "scatter_ms", "sums_ms", "q7_ms", "q7_plain_ms", "q7_library_ms",
               "q7_bound_ms", "isin_wide_ms", "var_ms", "var_plain_ms", "var_bound_ms",
               "var_library_ms", "var_max_abs_err", "g1_ms", "g1_plain_ms", "g1_bound_ms",
-              "g1_library_ms", "g1_max_abs_err", "warp_ms")
+              "g1_library_ms", "g1_max_abs_err", "warp_ms", "join_ms", "join_plain_ms",
+              "join_library_ms", "join_bound_ms", "join_max_abs_err", "join_route",
+              "j1_launches", "j1_dtoh_ms")
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"int": 67e12, "f64": 33.5e12}
 
@@ -1627,7 +1649,8 @@ def binby_plain(cols):
     def axis(c, bins):
         """(bin, inside) of a continuous axis over its own min and max."""
         lo, hi = limits(c)
-        b = torch.floor((c - lo) / (hi - lo) * bins).to(torch.int64)
+        # the binner's product with (1 / span) * bins, as XLA folds the reference's
+        b = torch.floor((c - lo) * (1.0 / (hi - lo) * bins)).to(torch.int64)
         return b, (c >= lo) & (c < hi) & (b < bins)
 
     def cells(bins):
@@ -2325,6 +2348,343 @@ def config3_path(vt, plan, gp, probe, label, n=CONFIG3_ROWS):
     return launches, times
 
 
+# BASELINE config 4 (BASELINE.json configs[3]): a join of a fact table of
+# 1e9 rows against a dim table of 1e7, then isin and value_counts, with the
+# shapes of benchmarks/join_isin.py:28-37
+CONFIG4_FACT = 1_000_000_000
+CONFIG4_DIM = 10_000_000
+CONFIG4_LABELS = 100
+CONFIG4_ISIN = (1000, 10)
+CONFIG4_EDGE = (1_000_000, 100_000)  # the edge check's fact and dim rows
+CHUNK = 1 << 26  # rows per chunk of the plain versions at config 4's size
+
+
+def config4_tables(n_fact, n_dim, device, seed=SEED):
+    """fact: key int64 uniform in [0, n_dim), x float64 U[0, 1); dim: key =
+    arange(n_dim), label int64 uniform in [0, 100); the isin ids: 1000
+    distinct dim keys and their first 10; made on ``device`` from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    fact = {"key": torch.randint(0, n_dim, (n_fact,), generator=gen, device=device,
+                                 dtype=torch.int64),
+            "x": torch.rand(n_fact, generator=gen, device=device, dtype=torch.float64)}
+    dim = {"key": torch.arange(n_dim, device=device, dtype=torch.int64),
+           "label": torch.randint(0, CONFIG4_LABELS, (n_dim,), generator=gen, device=device,
+                                  dtype=torch.int64)}
+    ids = torch.randperm(n_dim, generator=gen, device=device)[:max(CONFIG4_ISIN)].cpu().numpy()
+    return fact, dim, {n: ids[:n] for n in CONFIG4_ISIN}
+
+
+def config4_queries(vt, ids):
+    """J2-J5 on the joined frame, J4 on the fact frame (J1 is the join)."""
+    return {
+        "J2 sum(label)": lambda fact, joined: joined.sum("label"),
+        "J3 groupby(label)": lambda fact, joined: joined.groupby(
+            "label", agg={"x": "sum", "n": "count"}),
+        **{f"J4 isin {n}": (lambda v: lambda fact, joined: fact.count(
+            selection=fact.key.isin(v)))(ids[n]) for n in CONFIG4_ISIN},
+        "J5 value_counts(label)": lambda fact, joined: joined["label"].value_counts(),
+    }
+
+
+def plain_lookup(fact_key, dim_key):
+    """J1 in plain torch: the dim keys sorted, each chunk of fact keys through
+    searchsorted, a gather and a compare; the first dim row of each fact
+    row, -1 where none."""
+    sorted_keys, order = torch.sort(dim_key, stable=True)
+    order = order.to(torch.int32)
+    out = torch.empty(fact_key.shape[0], dtype=torch.int32, device=fact_key.device)
+    last = sorted_keys.numel() - 1
+    for i in range(0, fact_key.shape[0], CHUNK):
+        x = fact_key[i:i + CHUNK]
+        idx = torch.searchsorted(sorted_keys, x).clamp_(max=last)
+        out[i:i + CHUNK] = torch.where(sorted_keys[idx] == x, order[idx], -1)
+    return out
+
+
+def config4_plain(fact, dim, lookup, ids):
+    """J2-J5 in plain torch over the plain lookup, chunk by chunk: a gather
+    of label, then a sum, index_add_ and bincount, torch.isin, torch.unique
+    with counts.  Returns per query a function of no arguments."""
+    label, x = dim["label"], fact["x"]
+
+    def labels(i):
+        look = lookup[i:i + CHUNK]
+        keep = look >= 0
+        return label.index_select(0, look.clamp(min=0)), keep
+
+    def j2():
+        total = torch.zeros((), dtype=torch.int64, device=label.device)
+        for i in range(0, lookup.shape[0], CHUNK):
+            lab, keep = labels(i)
+            total += torch.where(keep, lab, 0).sum()
+        return int(total)
+
+    def j3():
+        sums = torch.zeros(CONFIG4_LABELS, dtype=torch.float64, device=label.device)
+        counts = torch.zeros(CONFIG4_LABELS, dtype=torch.int64, device=label.device)
+        for i in range(0, lookup.shape[0], CHUNK):
+            lab, keep = labels(i)
+            lab, xs = lab[keep], x[i:i + CHUNK][keep]
+            sums.index_add_(0, lab, xs)
+            counts += torch.bincount(lab, minlength=CONFIG4_LABELS)
+        groups = torch.nonzero(counts).squeeze(1)
+        return groups, sums[groups], counts[groups]
+
+    def j4(v):
+        values = torch.as_tensor(v, device=label.device)
+        total = torch.zeros((), dtype=torch.int64, device=label.device)
+        for i in range(0, lookup.shape[0], CHUNK):
+            total += torch.isin(fact["key"][i:i + CHUNK], values).sum()
+        return int(total)
+
+    def j5():
+        keys, counts = [], []
+        for i in range(0, lookup.shape[0], CHUNK):
+            lab, keep = labels(i)
+            k, c = torch.unique(lab[keep], return_counts=True)
+            keys.append(k)
+            counts.append(c)
+        keys, inverse = torch.unique(torch.cat(keys), return_inverse=True)
+        return keys, torch.zeros_like(keys).index_add_(0, inverse, torch.cat(counts))
+    return {"J2 sum(label)": j2, "J3 groupby(label)": j3,
+            **{f"J4 isin {n}": (lambda v: lambda: j4(v))(ids[n]) for n in CONFIG4_ISIN},
+            "J5 value_counts(label)": j5}
+
+
+def config4_check(name, got, want):
+    """Counts, int sums, labels and value counts exact; the x sums of J3
+    within the bound of phase 4 (x >= 0: each cell's sum of |x| is its
+    sum)."""
+    if name.startswith(("J2", "J4")):
+        check(int(got) == want, f"config 4 {name}: {got} != {want}")
+    elif name.startswith("J3"):
+        groups, sums, counts = want
+        dev = sums.device
+        order = torch.as_tensor(np.argsort(got.evaluate("label"), kind="stable"), device=dev)
+        check(torch.equal(torch.as_tensor(got.evaluate("label"), device=dev)[order], groups)
+              and torch.equal(torch.as_tensor(got.evaluate("n"), device=dev)[order], counts),
+              f"config 4 {name}: labels and counts")
+        got_sums = torch.as_tensor(got.evaluate("x"), device=dev)[order]
+        check(within_sum_bound(got_sums, sums, sums, counts), f"config 4 {name}: x sums")
+    else:
+        keys, counts = want
+        check(dict(zip(got.index.tolist(), got.tolist()))
+              == dict(zip(keys.tolist(), counts.tolist())), f"config 4 {name}")
+
+
+def no_copy_to_host(fn):
+    """Runs fn() under torch.profiler and returns (its result, the ms of
+    device-to-host copies it made): 4 bytes a row of a lookup crossing to the
+    host would take tens of ms at config 4's size."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(device, "torch.profiler saw no device activity during the join")
+    dtoh = sum(e.time_range.end - e.time_range.start for e in device if "DtoH" in e.name)
+    return out, dtoh / 1e3
+
+
+def plain_join(lk, lmask, rk, rmask):
+    """A left join in plain torch, independent of the port's index: the
+    valid right rows sorted stably, searchsorted left and right, the first
+    match, then the further matches through repeat_interleave.  Returns
+    (left row, right row or -1) of every joined row in the port's order."""
+    rvalid = ~rmask if rmask is not None else torch.ones_like(rk, dtype=torch.bool)
+    if rk.is_floating_point():
+        rvalid &= ~torch.isnan(rk)
+    rrows = torch.nonzero(rvalid).squeeze(1)
+    sorted_keys, order = torch.sort(rk[rrows], stable=True)
+    srows = rrows[order]
+    lo = torch.searchsorted(sorted_keys, lk, side="left")
+    hi = torch.searchsorted(sorted_keys, lk, side="right")
+    cnt = hi - lo
+    if lmask is not None:
+        cnt[lmask] = 0
+    if lk.is_floating_point():
+        cnt[torch.isnan(lk)] = 0
+    n = lk.shape[0]
+    first = torch.where(cnt > 0, srows[lo.clamp(max=max(srows.numel() - 1, 0))], -1)
+    extra = (cnt - 1).clamp(min=0)
+    total = int(extra.sum())
+    left_extra = torch.repeat_interleave(torch.arange(n, device=lk.device), extra)
+    within = (torch.arange(total, device=lk.device)
+              - torch.repeat_interleave(torch.cumsum(extra, 0) - extra, extra))
+    right_extra = srows[torch.repeat_interleave(lo + 1, extra) + within]
+    return (torch.cat([torch.arange(n, device=lk.device), left_extra]),
+            torch.cat([first, right_extra]))
+
+
+def config4_edges(vt, device, n=CONFIG4_EDGE[0], m=CONFIG4_EDGE[1]):
+    """The join's edges on ``device`` against :func:`plain_join`, exactly:
+    every third dim key missing and every seventh doubled; int keys with
+    masked left keys, then float keys with NaN on both sides; how = left,
+    inner and right, with allow_duplication.  Returns the probe routes."""
+    from vaex_tpu_torch.column import ColumnMasked
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    base = torch.arange(m * 3 // 2, device=dev)
+    base = base[base % 3 != 0][:m]
+    rk = torch.cat([base, base[base % 7 == 1]])
+    rk = rk[torch.randperm(rk.numel(), generator=gen, device=dev)]
+    lk = torch.randint(-5, int(base[-1]) + 5, (n,), generator=gen, device=dev)
+    lmask = torch.rand(n, generator=gen, device=dev) < 0.05
+    routes = set()
+    for kind in ("int", "float"):
+        if kind == "int":
+            lkey, rkey, rmask = ColumnMasked(lk, lmask), rk, None
+            lplain, lm = lk, lmask
+        else:
+            lplain, rkey = lk.to(torch.float64) / 2, rk.to(torch.float64) / 2
+            lplain[::61] = float("nan")
+            rkey[::50] = float("nan")
+            lkey, lm, rmask = lplain, None, None
+        left = vt.from_dataset(vt.DatasetArrays({"key": lkey, "i": torch.arange(n, device=dev)}))
+        right = vt.from_dataset(vt.DatasetArrays({"key": rkey,
+                                                  "r": torch.arange(rk.numel(), device=dev)}))
+        for how in ("left", "inner", "right"):
+            joined = left.join(right, on="key", how=how, allow_duplication=True)
+            routes.add(joined.executor.trace_log[-1]["probe"])
+            if how == "right":
+                rows, other = plain_join(rkey, rmask, lplain, lm)
+                names = ("r", "i")
+            else:
+                rows, other = plain_join(lplain, lm, rkey, rmask)
+                names = ("i", "r")
+                if how == "inner":
+                    keep = other >= 0
+                    rows, other = rows[keep], other[keep]
+            got_rows, got_other = (joined.evaluate(name) for name in names)
+            check(len(joined) == rows.numel()
+                  and np.array_equal(np.ma.getdata(got_rows), rows.cpu().numpy())
+                  and np.array_equal(np.ma.getmaskarray(got_other), (other < 0).cpu().numpy())
+                  and np.array_equal(np.ma.getdata(got_other)[other.cpu().numpy() >= 0],
+                                     other[other >= 0].cpu().numpy()),
+                  f"the {how} join of {kind} keys at {n} x {rk.numel()} rows equals plain torch's")
+            print(f"config 4 edges: {how} join of {kind} keys, {len(joined)} rows, equal to plain "
+                  f"torch's; probe {routes}", flush=True)
+    return routes
+
+
+def config4_drive(vt, fact, dim, ids, device):
+    """J1-J5 once through the public API on ``device``, each checked against
+    plain torch.  Returns (the joined frame, the plain lookup, J1's probe
+    route, the ms of J1's device-to-host copies (on the card), B6's launches
+    during J1: 0 on the CPU, where its wrapper takes its plain version)."""
+    from vaex_tpu_torch.column import ColumnIndexed
+    from vaex_tpu_torch.ops import probe
+    probe.probe.launches = 0
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        joined, dtoh_ms = no_copy_to_host(lambda: fact.join(dim, on="key"))
+    else:
+        joined, dtoh_ms = fact.join(dim, on="key"), None
+    j1_launches = probe.probe.launches
+    route = joined.executor.trace_log[-1]["probe"]
+    lookup = joined.dataset["label"]
+    plain = plain_lookup(fact.dataset["key"], dim.dataset["key"])
+    check(isinstance(lookup, ColumnIndexed) and lookup.mask is None
+          and lookup.index.device.type == torch.device(device).type
+          and lookup.index.dtype == torch.int32 and lookup.source is dim.dataset["label"],
+          f"J1's lookup is an int32 tensor on {device}")
+    check(torch.equal(lookup.index, plain), "J1's lookup equals plain torch's")
+    check(joined.dataset["x"] is fact.dataset["x"], "J1 leaves the fact columns as they are")
+    if on_card:
+        check(j1_launches > 0, f"B6 launched during J1: {j1_launches}")
+        check(dtoh_ms < 20, f"J1's lookup stays on the card: {dtoh_ms!r} ms of copies to the "
+                            f"host")
+    print(f"config 4 J1 join N={fact.dataset.row_count} M={dim.dataset.row_count}: probe "
+          f"{route}, B6 launches {j1_launches}, lookup {tuple(lookup.index.shape)} "
+          f"{lookup.index.dtype} on {lookup.index.device}, device-to-host copies "
+          f"{dtoh_ms!r} ms; equal to plain torch's", flush=True)
+    want = config4_plain(fact.dataset, dim.dataset, plain, ids)
+    for name, query in config4_queries(vt, ids).items():
+        got = query(fact, joined)
+        config4_check(name, got, want[name]())
+        print(f"config 4 {name}: checked against plain torch; probe "
+              f"{fact.executor.trace_log[-1]['probe'] if name.startswith('J4') else None}",
+              flush=True)
+    return joined, plain, route, dtoh_ms, j1_launches
+
+
+def config4_path(vt, plan, gp, probe, label, n_fact=CONFIG4_FACT, n_dim=CONFIG4_DIM):
+    """The config 4 phase on the card: the edges at 1e6 x 1e5, then J1-J5
+    driven once with every kernel count set to 0, B6 asserted launched in
+    J1 and on b6-wide, then each query timed against plain torch (a warm-up,
+    then the median of 5), and B6 alone at the join's shape.  Returns
+    (launches per kernel during the drive, per query (port s, plain s), B6's
+    entry at the join's shape)."""
+    edge_routes = config4_edges(vt, "cuda")
+    check(edge_routes == {probe.B6_WIDE}, f"the edges' joins probe on b6-wide: {edge_routes}")
+    fact_cols, dim_cols, ids = config4_tables(n_fact, n_dim, "cuda")
+    fact = vt.from_dataset(vt.DatasetArrays(fact_cols))
+    dim = vt.from_dataset(vt.DatasetArrays(dim_cols))
+    zero_launches(plan, gp)
+    probe.probe.launches = probe.probe.wide_launches = 0
+    joined, plain, route, dtoh_ms, j1_launches = config4_drive(vt, fact, dim, ids, "cuda")
+    launches = {**launch_counts(plan, gp), "b6": probe.probe.launches,
+                "b6-wide": probe.probe.wide_launches}
+    print(f"launches during config 4: {launches}", flush=True)
+    check(route == probe.B6_WIDE, f"J1 probes 1e7 keys on b6-wide: {route}")
+    check(launches["b1"] > 0, f"B1 was not launched during config 4: {launches}")
+    times = {}
+    port = {"J1 join": lambda: fact.join(dim, on="key"),
+            **{name: (lambda q: lambda: q(fact, joined))(query)
+               for name, query in config4_queries(vt, ids).items()}}
+    want = config4_plain(fact.dataset, dim.dataset, plain, ids)
+    want["J1 join"] = lambda: plain_lookup(fact.dataset["key"], dim.dataset["key"])
+    for name, run in port.items():
+        run()
+        port_med, port_s = median_s(run)
+        want[name]()
+        plain_med, plain_s = median_s(want[name])
+        times[name] = (port_med, plain_med)
+        print(f"[{label}] config 4 {name} N={n_fact} M={n_dim}: median {port_med!r} s (port) vs "
+              f"{plain_med!r} s (plain torch), reps {REPS}; port s {port_s}; plain s {plain_s}",
+              flush=True)
+    del joined, plain
+    b6 = config4_probe_timing(probe, fact_cols["key"], dim_cols["key"], label)
+    return launches, times, {**b6, "j1_launches": j1_launches, "j1_dtoh_ms": dtoh_ms}
+
+
+def config4_probe_timing(probe, fact_key, dim_key, label):
+    """B6 alone at the join's shape (the fact keys among the 1e7 dim keys,
+    the tree built before the timing) against its plain version, chunk by
+    chunk, and the library calls (searchsorted, gather, compare)."""
+    keys = torch.unique(dim_key)
+    tree = probe.build_tree(keys)
+    n, M = fact_key.numel(), keys.numel()
+
+    def plain():
+        for i in range(0, n, CHUNK):
+            probe.probe_reference(keys, fact_key[i:i + CHUNK])
+
+    def library():
+        for i in range(0, n, CHUNK):
+            x = fact_key[i:i + CHUNK]
+            idx = torch.searchsorted(keys, x).clamp_(max=M - 1)
+            torch.where(keys[idx] == x, idx, -1).to(torch.int32)
+    kernel_ms = cuda_ms(lambda: probe.probe(keys, fact_key, tree), 3)
+    plain_ms = cuda_ms(plain, 1)
+    library_ms = cuda_ms(library, 1)
+    err = 0
+    for i in range(0, n, CHUNK):
+        x = fact_key[i:i + CHUNK]
+        got, want = probe.probe(keys, x, tree), probe.probe_reference(keys, x)
+        check(torch.equal(got, want), "b6 at the join's shape equals its plain version")
+        err = max(err, int((got - want).abs().max()))
+    # in: the rows and the keys; out: an int32 per row; a compare per level
+    # of a binary search and one for equality
+    bound_ms, bound_by = bound(n * 12 + 8 * M, {"int": n * (M.bit_length() + 1)})
+    print(f"[{label}] {tree.route} N={n} M={M} (config 4's join; {tree.key_bytes}-byte keys, "
+          f"levels {tree.counts}): kernel {kernel_ms!r} ms vs plain {plain_ms!r} ms, library "
+          f"calls (searchsorted + gather + compare) {library_ms!r} ms; bound {bound_ms!r} ms by "
+          f"{bound_by}; max abs err {err}", flush=True)
+    return {"join_ms": kernel_ms, "join_plain_ms": plain_ms, "join_library_ms": library_ms,
+            "join_bound_ms": bound_ms, "join_max_abs_err": err, "join_route": tree.route}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2418,6 +2778,12 @@ def main():
     print(f"[{label}] config 3 medians (port s, plain torch s): {json.dumps(config3_times)}",
           flush=True)
 
+    config4_launches, config4_times, config4_b6 = config4_path(vt, plan, gp, probe, label)
+    torch.cuda.empty_cache()
+    print(f"[{label}] config 4 medians (port s, plain torch s): {json.dumps(config4_times)}",
+          flush=True)
+    sets.update(config4_b6)
+
     measured = {plan.B1: (main_launches[plan.B1], results[MAIN_SIZES[0]]),
                 plan.B2: (h2o_launches[plan.B2], wide[plan.B2]),
                 plan.B3: (h2o_launches[plan.B3], wide[plan.B3]),
@@ -2451,6 +2817,7 @@ def main():
         "bound_by": m["bound_by"],
         "library_ms": m["library_ms"],
         "config3_launches": config3_launches[name],
+        "config4_launches": config4_launches[name],
         **{key: value for key, value in m.items() if key in EXTRA_KEYS},
     } for name, (launches, m) in measured.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

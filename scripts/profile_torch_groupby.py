@@ -7,6 +7,7 @@
     python3 scripts/profile_torch_groupby.py --binby
     python3 scripts/profile_torch_groupby.py --config2
     python3 scripts/profile_torch_groupby.py --config3
+    python3 scripts/profile_torch_groupby.py --config4
 
 The first form builds the chip_smoke.py main-path table on the card (int64
 key with K = 100 categories, float64 value, seed 42) and profiles
@@ -26,7 +27,12 @@ max of four virtual columns, two means by selection, a count binned by phi;
 1e8 rows, one pass), and plain torch computing the same answers beside it.
 ``--config3`` profiles chip_smoke.py's BASELINE config 3, the ten H2O
 questions on the raw table of 1e8 rows (the dense pre-pass remembered after
-the warm-up), each beside its plain torch answer.
+the warm-up), each beside its plain torch answer.  ``--config4`` profiles
+chip_smoke.py's BASELINE config 4: the join of a fact table of 1e9 rows
+against a dim table of 1e7 (J1: the index build and the probe), then on the
+joined frame sum(label), groupby(label) with a sum and a count,
+value_counts(label) and on the fact frame the isin counts of 1000 and 10 ids,
+each beside its plain torch answer.
 Each query is warmed up, then run REPS times under
 torch.profiler, each call ended by ``torch.cuda.synchronize()``.
 
@@ -164,6 +170,24 @@ def config3(vt):
         profile(f"config 3 {name} plain torch N={n}", plain[name])
 
 
+def config4(vt):
+    import chip_smoke
+    fact_cols, dim_cols, ids = chip_smoke.config4_tables(chip_smoke.CONFIG4_FACT,
+                                                         chip_smoke.CONFIG4_DIM, "cuda")
+    fact = vt.from_dataset(vt.DatasetArrays(fact_cols))
+    dim = vt.from_dataset(vt.DatasetArrays(dim_cols))
+    size = f"N={chip_smoke.CONFIG4_FACT} M={chip_smoke.CONFIG4_DIM}"
+    profile(f"config 4 J1 join {size}", lambda: fact.join(dim, on="key"))
+    profile(f"config 4 J1 join plain torch {size}",
+            lambda: chip_smoke.plain_lookup(fact_cols["key"], dim_cols["key"]))
+    joined = fact.join(dim, on="key")
+    lookup = chip_smoke.plain_lookup(fact_cols["key"], dim_cols["key"])
+    plain = chip_smoke.config4_plain(fact_cols, dim_cols, lookup, ids)
+    for name, query in chip_smoke.config4_queries(vt, ids).items():
+        profile(f"config 4 {name} {size}", lambda: query(fact, joined))
+        profile(f"config 4 {name} plain torch {size}", plain[name])
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_torch_groupby: no CUDA device", file=sys.stderr)
@@ -184,6 +208,9 @@ def main():
         return 0
     if sys.argv[1:] == ["--config3"]:
         config3(vt)
+        return 0
+    if sys.argv[1:] == ["--config4"]:
+        config4(vt)
         return 0
     for n in [int(float(a)) for a in sys.argv[1:]] or [100_000_000, 400_000_000]:
         main_path(n, vt)

@@ -147,3 +147,49 @@ def test_the_config3_checks_refuse_a_wrong_answer(question, column, how):
     out.dataset = vaex_tpu_torch.DatasetArrays({**dict(out.dataset.items()), column: values})
     with pytest.raises(RuntimeError, match=f"{question} {column}"):
         chip_smoke.config3_check(question, out, want, "cpu")
+
+
+def _config4_frames(n_fact, n_dim):
+    import vaex_tpu_torch
+    fact_cols, dim_cols, ids = chip_smoke.config4_tables(n_fact, n_dim, "cpu")
+    return (vaex_tpu_torch.from_dataset(vaex_tpu_torch.DatasetArrays(fact_cols)),
+            vaex_tpu_torch.from_dataset(vaex_tpu_torch.DatasetArrays(dim_cols)), ids)
+
+
+def test_the_config4_phase_on_the_cpu():
+    """Phase 18 of chip_smoke.py (BASELINE config 4) at a small size on the
+    CPU: the edges of the join against its plain torch join (every how,
+    gapped and doubled keys, masked and NaN keys), then J1-J5 through the
+    port's plain versions, each held to its plain torch answer."""
+    import vaex_tpu_torch
+    routes = chip_smoke.config4_edges(vaex_tpu_torch, "cpu", n=20_000, m=3_000)
+    assert routes <= {"b6", "b6-wide"}
+    fact, dim, ids = _config4_frames(50_000, 5_000)
+    fact._tile_rows = 7_000  # several tiles a pass
+    joined, plain, route, dtoh_ms, launches = chip_smoke.config4_drive(
+        vaex_tpu_torch, fact, dim, ids, "cpu")
+    assert route == "b6" and dtoh_ms is None and launches == 0
+    assert len(joined) == 50_000 and int((plain < 0).sum()) == 0
+
+
+@pytest.mark.parametrize("query", ["J2 sum(label)", "J3 groupby(label)", "J4 isin 10",
+                                   "J5 value_counts(label)"])
+def test_the_config4_checks_refuse_a_wrong_answer(query):
+    """Each check of phase 18 refuses an answer off by one row or one term."""
+    import vaex_tpu_torch
+    fact, dim, ids = _config4_frames(20_000, 2_000)
+    joined = fact.join(dim, on="key")
+    plain = chip_smoke.plain_lookup(fact.dataset["key"], dim.dataset["key"])
+    want = chip_smoke.config4_plain(fact.dataset, dim.dataset, plain, ids)[query]()
+    got = chip_smoke.config4_queries(vaex_tpu_torch, ids)[query](fact, joined)
+    chip_smoke.config4_check(query, got, want)
+    if query.startswith(("J2", "J4")):
+        got = got + 1
+    elif query.startswith("J3"):
+        x = got.dataset["x"].clone()
+        x[0] += 0.5
+        got.dataset = vaex_tpu_torch.DatasetArrays({**dict(got.dataset.items()), "x": x})
+    else:
+        got.iloc[0] += 1
+    with pytest.raises(RuntimeError, match=f"config 4 {query.split()[0]}"):
+        chip_smoke.config4_check(query, got, want)

@@ -1082,3 +1082,75 @@ def test_percentiles_and_top_k_on_the_card(cuda):
     assert grid_plan.KERNELS[name].launches - launches[name] >= 3  # one call a tile
     assert strategies["percentile_exact"] == strategies["topk"] == "sort"
     _same_frames(got, want)
+
+
+def _index_keys(kind, M, g):
+    """Right keys of a join index: "dense" arange(M) shuffled, "gapped" every
+    third value of a range missing, "duplicated" M keys over M / 4 values,
+    "float" distinct float64 halves with NaN and -0.0."""
+    if kind == "dense":
+        return torch.randperm(M, generator=g)
+    if kind == "gapped":
+        keys = torch.arange(M * 3 // 2)
+        return keys[keys % 3 != 0][torch.randperm(M, generator=g)]
+    if kind == "duplicated":
+        return torch.randint(0, max(M // 4, 1), (M,), generator=g)
+    keys = (torch.randperm(2 * M, generator=g)[:M] - M).to(torch.float64) / 2
+    keys[::97] = float("nan")
+    keys[keys == 0] = -0.0
+    return keys
+
+
+@pytest.mark.parametrize("kind", ["dense", "gapped", "duplicated", "float"])
+@pytest.mark.parametrize("M", [100_000, 10_000_000])
+def test_sorted_index_on_the_card_matches_its_plain_version(cuda, M, kind):
+    """``SortedIndex.map_index`` (B6 on the card) and ``map_index_duplicates``
+    on CUDA against the same index on the CPU (``searchsorted``)."""
+    from vaex_tpu_torch.ops.nullable import NA
+    from vaex_tpu_torch.ops.setops import SortedIndex
+    g = torch.Generator().manual_seed(M + len(kind))
+    keys = _index_keys(kind, M, g)
+    mask = torch.rand(M, generator=g) < 0.01
+    x = torch.randint(-10, int(M * 1.6) + 10, (1_000_003,), generator=g)
+    x = x.to(torch.float64) / 2 if kind == "float" else x
+    if kind == "float":
+        x[::101] = float("nan")
+    x_mask = torch.rand(x.shape[0], generator=g) < 0.02
+    host = SortedIndex(keys, mask)
+    card = SortedIndex(keys.to(cuda), mask.to(cuda))
+    assert card.has_duplicates == host.has_duplicates == (kind == "duplicated")
+    before = probe.probe.launches
+    got = card.map_index(NA(x.to(cuda), x_mask.to(cuda)))
+    assert probe.probe.launches == before + 1
+    assert card.route(got.device) in (probe.B6, probe.B6_WIDE)
+    want = host.map_index(NA(x, x_mask))
+    npt.assert_array_equal(got.cpu().numpy(), want.numpy())
+    if kind == "duplicated":
+        for a, b in zip(card.map_index_duplicates(NA(x.to(cuda), x_mask.to(cuda)), 7),
+                        host.map_index_duplicates(NA(x, x_mask), 7)):
+            npt.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+def test_join_on_the_card_matches_the_cpu(cuda):
+    """A left join with duplicates and an inner join on the card give the
+    rows of the same joins on the CPU; the lookup stays a CUDA tensor."""
+    rng = np.random.default_rng(5)
+    left = {"key": rng.integers(0, 5000, 300_000), "x": rng.random(300_000)}
+    keys = np.concatenate([np.arange(0, 4000, 2), np.arange(0, 4000, 10)])
+    right = {"key": keys, "label": rng.integers(0, 100, len(keys))}
+    out = {}
+    for device in ("cpu", cuda):
+        lf = vaex_tpu_torch.from_arrays(**left).to_device(device)
+        rf = vaex_tpu_torch.from_arrays(**right).to_device(device)
+        out[str(device)] = []
+        for how in ("left", "inner"):
+            joined = lf.join(rf, on="key", how=how, allow_duplication=True)
+            out[str(device)].append((joined, joined.executor.trace_log[-1]["probe"]))
+    for (on_cpu, _), (on_card, route) in zip(out["cpu"], out[str(cuda)]):
+        assert on_card.dataset["label"].index.is_cuda
+        assert route in (probe.B6, probe.B6_WIDE)
+        for name in ("key", "x", "label"):
+            a, b = on_cpu.evaluate(name), on_card.evaluate(name)
+            npt.assert_array_equal(np.ma.getmaskarray(a), np.ma.getmaskarray(b))
+            npt.assert_array_equal(np.ma.getdata(a), np.ma.getdata(b))
+        assert on_card.sum("label") == on_cpu.sum("label")

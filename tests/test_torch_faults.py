@@ -7,7 +7,9 @@ vaex_tpu or numpy on the same seeded arrays:
   its own unit; an operation the port does not carry raises, never a number;
 * C7: ``x.astype('float32')`` inside an expression string;
 * C8: a min or max without binby over an expression that is not one value
-  per row raises, as ``sum`` and the reference do.
+  per row raises, as ``sum`` and the reference do;
+* C9: a continuous axis bins each value where vaex_tpu's jitted pass does,
+  also at the bin edges: 29 of limits [0, 50] at 50 bins lands in bin 29.
 """
 
 import numpy as np
@@ -15,7 +17,7 @@ import numpy.testing as npt
 import pytest
 
 import vaex_tpu_torch
-from torch_port_helpers import binby_arrays, same_frames
+from torch_port_helpers import ATOL, RTOL, binby_arrays, same_frames
 from vaex_tpu_torch import settings
 
 # the cases of ROADMAP queue C6: d datetime64[ns] with NaT, td timedelta64[s]
@@ -138,3 +140,33 @@ def test_a_statistic_of_an_expression_of_another_length_raises(stat):
         getattr(ref, stat)(expression)
     with pytest.raises(ValueError, match="does not match"):
         getattr(port, stat)(expression)
+
+
+@pytest.fixture(scope="module")
+def edge_frames():
+    """An int64 key in 0..49 (every value an edge of [0, 50] at 50 and 100
+    bins), its float32 copy, an int32 and a float32 value (seed 3)."""
+    rng = np.random.default_rng(3)
+    k = rng.integers(0, 50, 5000).astype(np.int64)
+    return same_frames({"k": k, "kf": k.astype(np.float32),
+                        "i": rng.integers(-1000, 1000, 5000).astype(np.int32),
+                        "y": rng.normal(0, 1, 5000).astype(np.float32)})
+
+
+@pytest.mark.parametrize("shape", [50, 100])
+@pytest.mark.parametrize("axis", ["k", "kf"])
+@pytest.mark.parametrize("stat,column", [("count", None), ("sum", "i"), ("sum", "y"),
+                                         ("min", "y"), ("max", "y"), ("min", "i"),
+                                         ("max", "i")])
+def test_bins_at_the_edges_match_vaex_tpu(edge_frames, shape, axis, stat, column):
+    ref, port = edge_frames
+    got = getattr(port, stat)(column, binby=axis, limits=[0, 50], shape=shape)
+    want = np.asarray(getattr(ref, stat)(column, binby=axis, limits=[0, 50], shape=shape))
+    assert got.dtype == want.dtype
+    if stat == "sum" and column == "y":
+        npt.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    else:
+        npt.assert_array_equal(got, want)
+    if stat == "count":  # every row of key 29 in the bin that holds 29
+        k = ref.evaluate("k")
+        assert got[29 * shape // 50] == (k == 29).sum()

@@ -17,6 +17,7 @@ import torch
 import vaex_tpu
 import vaex_tpu_torch
 from vaex_tpu_torch import settings
+from vaex_tpu_torch.column import ColumnMasked
 from torch_port_helpers import assert_same_frame, same_frames, seeded_arrays
 
 K = 100
@@ -124,7 +125,11 @@ def test_to_device_cpu_stages_tensors():
         col = df.dataset[name]
         assert isinstance(col, torch.Tensor) and col.device.type == "cpu"
         npt.assert_array_equal(col.numpy(), arrays[name])
-    assert isinstance(df.dataset["m"], np.ma.MaskedArray)  # masked stays host-side
+    # a masked column as its data and its mask, two tensors on the device
+    m = df.dataset["m"]
+    assert isinstance(m, ColumnMasked) and m.device.type == "cpu"
+    npt.assert_array_equal(m.data.numpy(), arrays["m"].data)
+    npt.assert_array_equal(m.mask.numpy(), np.ma.getmaskarray(arrays["m"]))
     assert len(df[10:25]) == 15
     npt.assert_array_equal(df[10:25]["iv"].tolist(), arrays["iv"][10:25])
     assert df.dataset.fingerprint() == vaex_tpu_torch.from_arrays(
@@ -158,7 +163,7 @@ def test_staged_and_derived_frames_keep_their_device(monkeypatch):
     arrays = seeded_arrays(10, 600, k=K)
     m = np.ma.MaskedArray(np.arange(600.0), np.arange(600) % 4 == 0)
     df = vaex_tpu_torch.from_arrays(m=m).to_device("cpu")
-    assert isinstance(df.dataset["m"], np.ma.MaskedArray)
+    assert isinstance(df.dataset["m"], ColumnMasked)
     assert df.sum("m") == m.sum() and df.executor.trace_log[-1]["device"] == "cpu"
     port = vaex_tpu_torch.from_arrays(**arrays).to_device("cpu").categorize(
         "k", labels=list(range(K)))

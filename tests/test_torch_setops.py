@@ -308,15 +308,18 @@ def test_filter_modes_len_and_evaluate(categorized, mode):
 
 
 def test_filtered_frame_refuses_what_is_not_ported(categorized):
-    """A filtered frame's sort, take and slice still raise naming their
-    ROADMAP item.  Named selections and lists of selections, ported since,
-    give vaex_tpu's results beside a filter, and selection=True without a
-    selection raises as in vaex_tpu."""
+    """A filtered frame's sort, take and slice, ported since, give vaex_tpu's
+    rows (among the rows the filter keeps), masked values included.  Named
+    selections and lists of selections give vaex_tpu's results beside a
+    filter, and selection=True without a selection raises as in vaex_tpu."""
     ref, port = categorized
-    pf = port[port.k > 5]
-    for run in (lambda: pf.sort("k"), lambda: pf.take([0, 1]), lambda: pf[2:5]):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A6"):
-            run()
+    rf, pf = ref[ref.k > 5], port[port.k > 5]
+    for run in (lambda df: df.sort("k"), lambda df: df.take([0, 1, -1, 7]),
+                lambda df: df[2:5], lambda df: df.sort(["b", "iv"], ascending=[False, True])):
+        got, want = run(pf), run(rf)
+        assert not got.filtered and len(got) == len(want)
+        for name in ("k", "iv", "m", "fm", "x"):
+            npt.assert_equal(got[name].tolist(), want[name].tolist(), err_msg=name)
     ref, port = ref.copy(), port.copy()
     for df in (ref, port):
         with pytest.raises(ValueError, match="no selection is active"):

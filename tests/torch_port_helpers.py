@@ -132,3 +132,30 @@ def assert_same_frame(ref, port):
             npt.assert_allclose(got, want, rtol=RTOL, atol=ATOL, err_msg=name)
         else:
             npt.assert_array_equal(got, want, err_msg=name)
+
+
+def same_frame_pair(left, right, tile_rows=None):
+    """Two dicts of arrays as the same pair of frames in both packages:
+    ((vaex_tpu left, vaex_tpu right), (port left, port right)), the port's
+    on the CPU device."""
+    (ref_left, port_left), (ref_right, port_right) = (
+        same_frames(arrays, tile_rows=tile_rows) for arrays in (left, right))
+    return (ref_left, ref_right), (port_left, port_right)
+
+
+def assert_same_rows(ref, port, names=None):
+    """Column names and, for each column, the rows in order exactly: the
+    same dtype, the same missing rows, the same values elsewhere (NaN equal
+    to NaN, -0.0 to -0.0)."""
+    names = names or ref.get_column_names()
+    assert port.get_column_names() == ref.get_column_names()
+    assert len(port) == len(ref)
+    for name in names:
+        want, got = ref.evaluate(name), port.evaluate(name)
+        want_mask, got_mask = np.ma.getmaskarray(want), np.ma.getmaskarray(got)
+        npt.assert_array_equal(got_mask, want_mask, err_msg=f"{name}: missing rows")
+        want, got = np.ma.getdata(want)[~want_mask], np.ma.getdata(got)[~got_mask]
+        assert got.dtype == want.dtype, (name, got.dtype, want.dtype)
+        npt.assert_array_equal(got, want, err_msg=name)
+        if want.dtype.kind == "f":
+            npt.assert_array_equal(np.signbit(got), np.signbit(want), err_msg=name)

@@ -45,3 +45,12 @@ def from_arrays(**arrays) -> DataFrame:
 
 def from_dict(data) -> DataFrame:
     return from_arrays(**data)
+
+
+def concat(dfs) -> DataFrame:
+    """The rows of the frames one after another, over the columns all of
+    them have (vaex_tpu/__init__.py:200)."""
+    dfs = list(dfs)
+    if len(dfs) == 1:
+        return dfs[0]
+    return dfs[0].concat(*dfs[1:])

@@ -1,11 +1,25 @@
 """Columns.
 
-A column is anything sliceable with ``__len__``, ``__getitem__`` (slice ->
-array) and a ``dtype``: numpy arrays, numpy masked arrays and torch tensors
-(on the CPU or a CUDA device) qualify, and :class:`ColumnVirtualConstant`,
-the scalar column of ``DataFrame.add_column``.  The other lazy column types
-of ``vaex_tpu/column.py`` (virtual ranges, takes, concatenations) are not
-ported yet.
+A column is anything sliceable with ``__len__``, ``__getitem__`` and a
+``dtype``: numpy arrays, numpy masked arrays and torch tensors (on the CPU
+or a CUDA device) qualify, and the column types below.
+
+* :class:`ColumnVirtualConstant`: the scalar column of
+  ``DataFrame.add_column``, a host array of one value per slice.
+* :class:`ColumnMasked`: data and a bool mask (True = missing), two tensors
+  on one device: what ``DataFrame.to_device`` makes of a masked array.
+* :class:`ColumnIndexed`: the rows of a source column at an index tensor on
+  the source's device, with an optional mask of rows that hold no value (a
+  take, a filter, the right side of a join); a take of a take is one hop
+  (vaex_tpu/column.py:102-168).
+* :class:`ColumnConcatenated`: columns one after another
+  (vaex_tpu/column.py:171-198).
+
+A slice of one of the last three is an :class:`~.ops.nullable.NA` of
+tensors on the column's device: data and mask, read with one gather for an
+indexed column.  :func:`tile_of` gives rows of any column as an NA on a
+device, which is how a pass reads them.  ``vrange`` (``ColumnVirtualRange``)
+is not ported yet (ROADMAP queue A6).
 """
 
 from __future__ import annotations
@@ -13,10 +27,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import array_types
+from .datatype import DataType, dtype_of, has_torch_dtype
+from .ops.nullable import NA
+from .utils import fingerprint, hash_array_data
 
-def column_device(col):
-    """The device a column's rows live on (host arrays: the CPU)."""
-    return col.device if isinstance(col, torch.Tensor) else torch.device("cpu")
+CPU = torch.device("cpu")
 
 
 class ColumnVirtualConstant:
@@ -41,3 +57,310 @@ class ColumnVirtualConstant:
 
     def fingerprint(self):
         return f"vconstant-{self.value!r}-{self.length}-{self.dtype}"
+
+
+def _or(a, b):
+    """The union of two masks, either of which may be None."""
+    if a is None:
+        return b
+    return a if b is None else a | b
+
+
+def _sampled(t):
+    """A content hash of a tensor from its head, a strided sample and its
+    tail: a few small copies, never the whole tensor."""
+    n = t.shape[0]
+    parts = [t[:1000]]
+    if n > 2000:
+        parts += [t[::max(1, n // 2048)], t[n - 1000:]]
+    return fingerprint("sampled", [p.detach().cpu().numpy() for p in parts], str(t.dtype), n)
+
+
+class ColumnMasked:
+    """Data and a bool mask (True = missing), two tensors on one device."""
+
+    def __init__(self, data, mask):
+        if data.shape != mask.shape or data.device != mask.device:
+            raise ValueError("data and mask must have one shape and one device")
+        self.data = data
+        self.mask = mask
+
+    def __len__(self):
+        return self.data.shape[0]
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def device(self):
+        return self.data.device
+
+    def __getitem__(self, item):
+        return NA(self.data[item], self.mask[item])
+
+    def take(self, index):
+        return NA(self.data.index_select(0, index), self.mask.index_select(0, index))
+
+    def trim(self, i1, i2):
+        return ColumnMasked(self.data[i1:i2], self.mask[i1:i2])
+
+    def to(self, device):
+        return ColumnMasked(self.data.to(device), self.mask.to(device))
+
+    def fingerprint(self):
+        return fingerprint("column-masked", _sampled(self.data), _sampled(self.mask))
+
+
+class ColumnIndexed:
+    """Row ``index[i]`` of ``source`` as row i, missing where ``mask`` is
+    True (there ``index`` holds 0).  ``index`` lies on the source's device
+    (the CPU for a host array).  Build one with :meth:`index_of`, which
+    collapses a take of a take into one hop."""
+
+    def __init__(self, source, index, mask=None):
+        self.source = source
+        self.index = index
+        self.mask = mask
+
+    @staticmethod
+    def index_of(source, index, mask=None) -> "ColumnIndexed":
+        """``source`` at ``index``, one hop deep: of an indexed column the
+        composed index (and the union of both masks)."""
+        if isinstance(source, ColumnIndexed):
+            index = index.to(source.index.device)
+            mask = None if mask is None else mask.to(index.device)
+            inner_mask = None if source.mask is None else source.mask.index_select(0, index)
+            return ColumnIndexed(source.source, source.index.index_select(0, index),
+                                 _or(mask, inner_mask))
+        device = column_device(source)
+        return ColumnIndexed(source, index.to(device),
+                             None if mask is None else mask.to(device))
+
+    def __len__(self):
+        return self.index.shape[0]
+
+    @property
+    def dtype(self):
+        return DataType(self.source.dtype).numpy
+
+    @property
+    def device(self):
+        return placed_device(self.source)
+
+    def __getitem__(self, item):
+        if not isinstance(item, slice):
+            raise TypeError("an indexed column takes slices")
+        return self._gather(self.index[item], None if self.mask is None else self.mask[item])
+
+    def _gather(self, index, mask):
+        value = gather(self.source, index)
+        return NA(value.data, _or(value.mask, mask))
+
+    def take(self, index):
+        index = index.to(self.index.device)
+        return self._gather(self.index.index_select(0, index),
+                            None if self.mask is None else self.mask.index_select(0, index))
+
+    def trim(self, i1, i2):
+        return ColumnIndexed(self.source, self.index[i1:i2],
+                             None if self.mask is None else self.mask[i1:i2])
+
+    def to(self, device):
+        source = column_to(self.source, device)
+        device = column_device(source)
+        return ColumnIndexed(source, self.index.to(device),
+                             None if self.mask is None else self.mask.to(device))
+
+    def fingerprint(self):
+        return fingerprint("column-indexed", column_fingerprint(self.source),
+                           _sampled(self.index), None if self.mask is None else _sampled(self.mask))
+
+
+class ColumnConcatenated:
+    """The rows of ``columns`` one after another; a slice that spans two
+    parts reads both and joins them on the device of the first part that
+    lies on one (vaex_tpu/column.py:171-198)."""
+
+    def __init__(self, columns):
+        self.columns = list(columns)
+        self.offsets = np.cumsum([0] + [len(c) for c in self.columns]).tolist()
+        self._dtype = np.result_type(*(DataType(c.dtype).numpy for c in self.columns))
+
+    def __len__(self):
+        return self.offsets[-1]
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    @property
+    def device(self):
+        return next((d for d in map(placed_device, self.columns) if d is not None), None)
+
+    def _parts(self, i1, i2):
+        """(part, start, stop) of each part that rows [i1, i2) reach."""
+        for col, c0, c1 in zip(self.columns, self.offsets, self.offsets[1:]):
+            lo, hi = max(i1, c0), min(i2, c1)
+            if lo < hi:
+                yield col, lo - c0, hi - c0
+
+    def _joined(self, pieces):
+        device = self.device or CPU
+        dtype = DataType(self._dtype).torch
+        data = torch.cat([p.data.to(device, dtype) for p in pieces]) if pieces else (
+            torch.empty(0, dtype=dtype, device=device))
+        if all(p.mask is None for p in pieces):
+            return NA(data)
+        return NA(data, torch.cat([
+            p.mask.to(device) if p.mask is not None
+            else torch.zeros(p.data.shape[0], dtype=torch.bool, device=device) for p in pieces]))
+
+    def __getitem__(self, item):
+        if not isinstance(item, slice):
+            raise TypeError("a concatenated column takes slices")
+        start, stop, step = item.indices(len(self))
+        if step != 1:
+            raise ValueError("a concatenated column takes slices without a step")
+        return self._joined([tile_of(col, lo, hi) for col, lo, hi in self._parts(start, stop)])
+
+    def take(self, index):
+        """The rows at ``index``: each part gathers the rows that fall in it."""
+        device = self.device or CPU
+        index = index.to(device)
+        data = torch.empty(index.shape[0], dtype=DataType(self._dtype).torch, device=device)
+        mask = None
+        for col, c0, c1 in zip(self.columns, self.offsets, self.offsets[1:]):
+            at = torch.nonzero((index >= c0) & (index < c1)).squeeze(1)
+            part = gather(col, index.index_select(0, at) - c0)
+            data[at] = part.data.to(device, data.dtype)
+            if part.mask is not None:
+                if mask is None:
+                    mask = torch.zeros(index.shape[0], dtype=torch.bool, device=device)
+                mask[at] = part.mask.to(device)
+        return NA(data, mask)
+
+    def trim(self, i1, i2):
+        parts = [slice_column(col, lo, hi) for col, lo, hi in self._parts(i1, i2)]
+        return ColumnConcatenated(parts or [slice_column(self.columns[0], 0, 0)])
+
+    def to(self, device):
+        return ColumnConcatenated([column_to(c, device) for c in self.columns])
+
+    def fingerprint(self):
+        return fingerprint("column-concat", [column_fingerprint(c) for c in self.columns])
+
+
+LAZY = (ColumnMasked, ColumnIndexed, ColumnConcatenated)
+
+
+def _host_only(col):
+    """True for a host array of values no tensor holds (strings, objects):
+    the host scope's columns (ROADMAP queue A9)."""
+    return isinstance(col, np.ndarray) and col.dtype.kind in "OSUV"
+
+
+def take_column(col, index, mask=None):
+    """``col`` at ``index`` (missing where ``mask``): a lazy
+    :class:`ColumnIndexed`, or for a host array no tensor holds the rows
+    copied on the host, a masked array where ``mask`` has a row."""
+    if not _host_only(col):
+        return ColumnIndexed.index_of(col, index, mask)
+    out = col[index.cpu().numpy()]
+    if mask is None:
+        return out
+    mask = mask.cpu().numpy()
+    return np.ma.MaskedArray(out, np.ma.getmaskarray(out) | mask) if mask.any() else out
+
+
+def concat_columns(columns):
+    """The rows of ``columns`` one after another: a lazy
+    :class:`ColumnConcatenated`, or for host arrays no tensor holds one
+    array joined on the host."""
+    if all(_host_only(c) for c in columns):
+        return np.ma.concatenate(columns) if any(
+            isinstance(c, np.ma.MaskedArray) for c in columns) else np.concatenate(columns)
+    return ColumnConcatenated(columns)
+
+
+def placed_device(col):
+    """The device of a column held in tensors; None for host arrays."""
+    if isinstance(col, torch.Tensor):
+        return col.device
+    if isinstance(col, LAZY):
+        return col.device
+    return None
+
+
+def column_device(col):
+    """The device a column's rows live on (host arrays: the CPU)."""
+    return placed_device(col) or CPU
+
+
+def slice_column(col, i1, i2):
+    """Rows [i1, i2) of a column as a column of the same kind (views)."""
+    return col.trim(i1, i2) if isinstance(col, LAZY) else col[i1:i2]
+
+
+def tile_of(col, i1, i2, device=None) -> NA:
+    """Rows [i1, i2) of any column as an NA of tensors on ``device`` (the
+    column's own device when None): a tensor's rows are a view, a host
+    array's are copied (a datetime or timedelta as its int64 count)."""
+    if isinstance(col, torch.Tensor):
+        part = NA(col[i1:i2])
+    elif isinstance(col, LAZY):
+        part = col[i1:i2]
+    else:
+        data, mask = array_types.data_and_mask(col[i1:i2])
+        part = NA(array_types.to_tensor(data, CPU),
+                  None if mask is None else torch.as_tensor(np.asarray(mask)))
+    if device is None:
+        return part
+    return NA(part.data.to(device), None if part.mask is None else part.mask.to(device))
+
+
+def gather(col, index) -> NA:
+    """The rows of a column at an int tensor ``index`` (no negative
+    entries) as an NA on the column's device (the CPU for a host array)."""
+    if isinstance(col, torch.Tensor):
+        return NA(col.index_select(0, index.to(col.device)))
+    if isinstance(col, LAZY):
+        return col.take(index)
+    data, mask = array_types.data_and_mask(col[index.cpu().numpy()])
+    return NA(array_types.to_tensor(data, CPU),
+              None if mask is None else torch.as_tensor(np.asarray(mask)))
+
+
+def column_to(col, device):
+    """A column staged on ``device`` where torch can hold its values: a
+    tensor moves, an array of a torch dtype becomes a tensor and a masked
+    one a :class:`ColumnMasked`; the lazy columns move their tensors; any
+    other column (uint16, uint32, a constant) stays on the host."""
+    if isinstance(col, torch.Tensor):
+        return col.to(device)
+    if isinstance(col, LAZY):
+        return col.to(device)
+    if not isinstance(col, np.ndarray) or not has_torch_dtype(dtype_of(col).numpy):
+        return col
+    data, mask = array_types.data_and_mask(col)
+    data = array_types.to_tensor(data, device)
+    if mask is None:
+        return data
+    return ColumnMasked(data, torch.as_tensor(np.asarray(mask)).to(device))
+
+
+def column_fingerprint(col):
+    """A content hash of a column: its own for the lazy types, else a hash of
+    its head, a strided sample and its tail, so that a device column costs a
+    few small copies, not a full read."""
+    if isinstance(col, LAZY + (ColumnVirtualConstant,)):
+        return col.fingerprint()
+    n = len(col)
+    if n == 0:
+        return hash_array_data(np.empty(0)) + "-n0"
+    parts = [hash_array_data(array_types.to_numpy(col[:min(1000, n)]))]
+    if n > 2000:
+        step = max(1, n // 2048)
+        parts.append(hash_array_data(array_types.to_numpy(col[::step])))
+        parts.append(hash_array_data(array_types.to_numpy(col[n - 1000:n])))
+    return fingerprint("col-sampled", parts) + f"-n{n}"

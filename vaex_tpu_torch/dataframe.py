@@ -24,6 +24,12 @@ which a statistic's ``selection=`` (``True`` for ``"default"``, a name, an
 expression, or a list of them) resolves to.  The filter stays the port's
 own boolean expression; it is not a selection named ``__filter__`` as in
 ``vaex_tpu``.
+
+The row operations (``take``, slices, ``head``, ``tail``, ``sort``,
+``extract``, ``concat``; of a filtered frame the rows its filter keeps) make
+lazy dataset nodes whose columns a pass reads tile by tile on their device
+(:mod:`.dataset`, :mod:`.column`), and ``join`` probes its left key on the
+pass device (:mod:`.join`).
 """
 
 from __future__ import annotations
@@ -37,20 +43,17 @@ import torch
 from . import agg as agg_module
 from . import array_types, expresso, settings
 from . import selections as selections_module
-from .column import ColumnVirtualConstant
+from .column import ColumnVirtualConstant, column_to
 from .dataset import Dataset, DatasetArrays
-from .datatype import DataType, dtype_of, has_torch_dtype
+from .datatype import DataType, dtype_of
 from .delayed import delayed
 from .execution import ExecutorLocal, TileContext, _tile, pass_inputs
 from .expression import Expression, _set_of
 from .ops.nullable import NA
 from .ops.binners import BinnerOrdinal, BinnerScalar
 from .scopes import DeviceScope
-from .tasks import TaskSetCreate
+from .tasks import TaskFilterMask, TaskMapIndex, TaskSetCreate
 from .utils import find_valid_name, fingerprint, valid_expression_name
-
-FILTERED_PENDING = "of a filtered DataFrame is not ported yet (ROADMAP queue A6)"
-
 
 class DataFrame:
     def __init__(self, dataset: Dataset, executor=None):
@@ -271,6 +274,40 @@ class DataFrame:
     def dataset_for_execution(self):
         return self.dataset
 
+    # ------------------------------------------------------------ row nodes
+    def _rebind_dataset(self, dataset, keep_filter=True):
+        """A copy over another dataset; without ``keep_filter`` also
+        without the filter (vaex_tpu/dataframe.py:176-185)."""
+        df = self.copy()
+        df.dataset = dataset
+        df._filtered_length = None
+        if not keep_filter:
+            df._filter = None
+        return df
+
+    def _filter_mask(self):
+        """The rows the filter keeps, as a bool tensor on the pass device:
+        one pass."""
+        task = self.executor.schedule(TaskFilterMask(self))
+        self.execute()
+        return task.get()
+
+    def extract(self):
+        """A frame of the rows the filter keeps, without the filter: a
+        ``filtered`` node whose row indices come from ``torch.nonzero`` of
+        the filter's mask on the pass device, so the columns are read through
+        them and not copied (vaex_tpu/dataframe.py:402-413)."""
+        if not self.filtered:
+            return self.trim()
+        dataset = self.dataset.filtered(self._filter_mask(), origin=(
+            self._filter, self.virtual_columns, self.variables))
+        return self._rebind_dataset(dataset, keep_filter=False)
+
+    def trim(self, inplace=False):
+        """The frame over its own rows only: a slice is a node of its own
+        rows already, so this is a copy (vaex_tpu/dataframe.py:415-424)."""
+        return self if inplace else self.copy()
+
     def __getitem__(self, item):
         if isinstance(item, str):
             return Expression(self, item)
@@ -279,14 +316,11 @@ class DataFrame:
         if isinstance(item, (list, tuple)):
             return self.copy(column_names=[str(c) for c in item])
         if isinstance(item, slice):
-            if self.filtered:
-                raise NotImplementedError(f"a slice {FILTERED_PENDING}")
             start, stop, step = item.indices(len(self))
             if step != 1:
                 raise ValueError("slices with a step are not supported")
-            df = self.copy()
-            df.dataset = self.dataset.slice(start, max(start, stop))
-            return df
+            df = self.extract()  # of a filtered frame: the rows it keeps
+            return df._rebind_dataset(df.dataset.slice(start, max(start, stop)))
         raise TypeError(f"cannot index with {item!r}")
 
     def __getattr__(self, name):
@@ -484,7 +518,8 @@ class DataFrame:
     def evaluate(self, expression):
         """Values of an expression as a host numpy (masked) array."""
         expression = str(expression)
-        if self._is_physical(expression) and not self.filtered:
+        if (self._is_physical(expression) and not self.filtered
+                and isinstance(self.dataset[expression], (np.ndarray, torch.Tensor))):
             values = array_types.to_numpy(self.dataset[expression][:])
             logical = self.dataset.logical.get(expression)
             # a datetime or timedelta column comes back from its int64 form
@@ -790,26 +825,69 @@ class DataFrame:
 
     # ---------------------------------------------------------------- order
     def take(self, indices):
-        """The rows at ``indices`` (host ints): numpy columns are indexed on
-        the host, tensor columns on their device."""
-        if self.filtered:
-            raise NotImplementedError(f"take {FILTERED_PENDING}")
-        indices = np.asarray(indices, dtype=np.int64)
-        columns = {}
-        for name in self.dataset:
-            col = self.dataset[name]
-            if isinstance(col, torch.Tensor):
-                columns[name] = col[torch.as_tensor(indices, device=col.device)]
-            else:
-                columns[name] = col[indices]
-        df = self.copy()
-        df.dataset = DatasetArrays(columns, self.dataset.logical, self.dataset.device)
-        return df
+        """The rows at ``indices`` (of a filtered frame: among the rows it
+        keeps) as a lazy ``take`` node: host ints (a negative one counts from
+        the end) or an int tensor of entries in [0, len), which stays on its
+        device; each column is read through it, tile by tile, on its own
+        device (vaex_tpu/dataframe.py:1510-1514)."""
+        df = self.extract()
+        if isinstance(indices, torch.Tensor):
+            if indices.dtype not in (torch.int32, torch.int64):
+                raise TypeError(f"take needs int32 or int64 indices, got {indices.dtype}")
+            n = df.dataset.row_count
+            if indices.numel() and not 0 <= int(indices.min()) <= int(indices.max()) < n:
+                raise IndexError(f"row indices out of range for {n} rows")
+        return df._rebind_dataset(df.dataset.take(indices))
+
+    def head(self, n=10):
+        return self[:min(n, len(self))]
+
+    def tail(self, n=10):
+        length = len(self)
+        return self[max(0, length - n):length]
+
+    def concat(self, *others):
+        """This frame's rows, then each other's (each of a filtered frame the
+        rows it keeps), over the columns all of them have; the virtual
+        columns and variables are this frame's (vaex_tpu/dataframe.py:1594-1602)."""
+        dfs = [df.extract() for df in (self,) + others]
+        dataset = dfs[0].dataset.concat(*(df.dataset for df in dfs[1:]))
+        out = dfs[0]._rebind_dataset(dataset)
+        out.column_names = [n for n in out.column_names
+                            if n in dataset or n in out.virtual_columns]
+        return out
+
+    def _index(self, expression):
+        """The join index of an expression over the frame's rows, built on
+        the pass device (vaex_tpu/dataframe.py:1463-1469)."""
+        from .ops.setops import SortedIndex
+        value = self._evaluate_tile(expression, 0, self.dataset.row_count)
+        return SortedIndex(value.data, value.mask)
+
+    def _map_index(self, expression, index, duplicates=False):
+        """One pass probing ``expression`` against a join ``index``:
+        (lookup, extra left rows, extra right rows), all on the pass device
+        (:class:`~vaex_tpu_torch.tasks.TaskMapIndex`)."""
+        task = self.executor.schedule(TaskMapIndex(self, str(expression), index, duplicates))
+        self.execute()
+        return task.get()
+
+    def join(self, other, on=None, left_on=None, right_on=None, lprefix="", rprefix="",
+             lsuffix="", rsuffix="", how="left", allow_duplication=False, inplace=False,
+             mesh=None):
+        """The rows of this frame beside the matching rows of ``other``
+        (:func:`vaex_tpu_torch.join.join`)."""
+        from .join import join
+        return join(self, other, on=on, left_on=left_on, right_on=right_on, lprefix=lprefix,
+                    rprefix=rprefix, lsuffix=lsuffix, rsuffix=rsuffix, how=how,
+                    allow_duplication=allow_duplication, inplace=inplace, mesh=mesh)
 
     def sort(self, by, ascending=True):
-        """The rows ordered by the key column(s): a stable lexicographic
-        argsort of the keys on the host, then a take
-        (vaex_tpu/dataframe.py:1523-1553)."""
+        """The rows ordered by the key column(s) (of a filtered frame the
+        rows it keeps): a stable lexicographic argsort of the keys on the
+        host, then a take (vaex_tpu/dataframe.py:1523-1553)."""
+        if self.filtered:
+            return self.extract().sort(by, ascending)
         by = [str(b) for b in (by if isinstance(by, (list, tuple)) else [by])]
         ascending = (list(ascending) if isinstance(ascending, (list, tuple))
                      else [ascending] * len(by))
@@ -912,20 +990,16 @@ class DataFrame:
         """Stage columns as tensors on ``device`` (default ``settings.DEVICE``).
 
         Columns whose dtype has a torch tensor type move (a datetime64 or
-        timedelta64 column as int64; the dataset remembers its dtype);
-        masked columns and the rest stay host-side, and the passes over them run on
-        ``device`` too.  Torch raises when the device does not exist: there is no
-        silent CPU run."""
+        timedelta64 column as int64; the dataset remembers its dtype); a
+        masked one as its data and its mask, two tensors
+        (:class:`~vaex_tpu_torch.column.ColumnMasked`); taken, filtered and
+        concatenated columns move their tensors.  The rest stays host-side,
+        and the passes over it run on ``device`` too.  Torch raises when the
+        device does not exist: there is no silent CPU run."""
         device = torch.device(device or settings.DEVICE)
         names = column_names or list(self.dataset)
-        columns = {}
-        for name in self.dataset:
-            col = self.dataset[name]
-            if (name in names and isinstance(col, (np.ndarray, torch.Tensor))
-                    and not isinstance(col, np.ma.MaskedArray)
-                    and has_torch_dtype(dtype_of(col).numpy)):
-                col = array_types.to_tensor(col, device)
-            columns[name] = col
+        columns = {name: column_to(col, device) if name in names else col
+                   for name, col in self.dataset.items()}
         df = self.copy()
         df.dataset = DatasetArrays(columns, self.dataset.logical, device)
         return df

@@ -1,12 +1,17 @@
 """Columnar storage: an immutable Mapping name -> column with a row count.
 
 The counterpart of ``vaex_tpu/dataset.py`` for in-memory columns: numpy
-arrays, numpy masked arrays and torch tensors.  Slicing makes a new node of
-views.  The decorator nodes ``renamed``, ``merged`` and ``dropped`` (what
-``DataFrame.rename``, ``add_column`` and a shadowed column need) share the
-columns of their parents and keep their ``device`` and ``logical`` dtypes;
-each has a fingerprint of its own.  The other nodes of the reference (take,
-concat, filtered, files) are not ported yet.
+arrays, numpy masked arrays, torch tensors and the lazy columns of
+:mod:`.column`.  Slicing makes a new node of views.  The decorator nodes
+``renamed``, ``merged``, ``dropped`` and ``project`` (what
+``DataFrame.rename``, ``add_column``, a shadowed column and a join need)
+share the columns of their parents and keep their ``device`` and
+``logical`` dtypes.  The row nodes ``take`` (rows at an index tensor, some
+masked), ``filtered`` (the rows of a bool mask) and ``concat`` (datasets one
+after another, their common columns) read their parents' columns through
+:class:`~.column.ColumnIndexed` and :class:`~.column.ColumnConcatenated`;
+they copy nothing (vaex_tpu/dataset.py:151-175, 342-442).  Each node has a
+fingerprint and a ``remembered`` of its own.  File nodes are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +22,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from . import array_types
+from .column import (column_device, column_fingerprint, concat_columns, slice_column,
+                     take_column)
 from .datatype import dtype_of
 from .utils import fingerprint, hash_array_data
 
@@ -61,24 +67,12 @@ class Dataset(collections.abc.Mapping):
         raise NotImplementedError
 
     def _column_fingerprint(self, name) -> str:
-        """Sampled content hash: head + strided middle + tail + length, so
-        that a device column costs a few small copies, not a full read."""
-        if name in self._ids:
-            return self._ids[name]
-        col = self._columns[name]
-        n = len(col)
-        if n == 0:
-            fp = hash_array_data(np.empty(0)) + "-n0"
-        else:
-            parts = [hash_array_data(array_types.to_numpy(col[:min(1000, n)]))]
-            if n > 2000:
-                step = max(1, n // 2048)
-                parts.append(hash_array_data(array_types.to_numpy(col[::step])))
-                parts.append(hash_array_data(array_types.to_numpy(col[n - 1000:n])))
-            fp = fingerprint("col-sampled", parts, str(dtype_of(col)),
-                             str(self.logical.get(name))) + f"-n{n}"
-        self._ids[name] = fp
-        return fp
+        """Sampled content hash (:func:`.column.column_fingerprint`)."""
+        if name not in self._ids:
+            self._ids[name] = fingerprint("column", column_fingerprint(self._columns[name]),
+                                          str(dtype_of(self._columns[name])),
+                                          str(self.logical.get(name)))
+        return self._ids[name]
 
     def renamed(self, renaming) -> "Dataset":
         return DatasetRenamed(self, renaming)
@@ -89,11 +83,44 @@ class Dataset(collections.abc.Mapping):
     def dropped(self, *names) -> "Dataset":
         return DatasetDropped(self, names)
 
+    def project(self, *names) -> "Dataset":
+        """Only the columns ``names``."""
+        drop = [n for n in self if n not in names]
+        return self.dropped(*drop) if drop else self
+
     def slice(self, start, end) -> "Dataset":
         if start == 0 and end == self.row_count:
             return self
-        return DatasetArrays({name: col[start:end]
+        return DatasetArrays({name: slice_column(col, start, end)
                               for name, col in self._columns.items()}, self.logical, self.device)
+
+    def take(self, indices, mask=None, origin=None) -> "Dataset":
+        """The rows at ``indices`` (host ints or an int tensor), missing where
+        ``mask`` is True; ``origin`` names what made the indices (see
+        :class:`DatasetTake`)."""
+        return DatasetTake(self, indices, mask, origin)
+
+    def filtered(self, mask, origin=None) -> "Dataset":
+        """The rows where the bool ``mask`` (a tensor or an array) is True."""
+        return DatasetFiltered(self, mask, origin)
+
+    def concat(self, *others) -> "Dataset":
+        datasets = []
+        for ds in (self,) + others:
+            datasets.extend(ds.datasets if isinstance(ds, DatasetConcatenated) else [ds])
+        return DatasetConcatenated(datasets)
+
+
+def index_tensor(indices, n):
+    """Row indices as an int tensor: a tensor as it is; host ints (a
+    negative one counts from the end, as numpy's) as int64 on the CPU,
+    checked against the ``n`` rows."""
+    if isinstance(indices, torch.Tensor):
+        return indices
+    indices = np.asarray(indices, dtype=np.int64).reshape(-1)
+    if len(indices) and (indices.min() < -n or indices.max() >= n):
+        raise IndexError(f"row indices out of range for {n} rows")
+    return torch.from_numpy(np.where(indices < 0, indices + n, indices))
 
 
 class DatasetArrays(Dataset):
@@ -171,3 +198,70 @@ class DatasetMerged(Dataset):
 
     def _compute_fingerprint(self):
         return fingerprint("dataset-merged", self.left.fingerprint(), self.right.fingerprint())
+
+
+def _content(t):
+    """A hash of a host tensor's values, of a sample of a device tensor's."""
+    return hash_array_data(t.numpy()) if t.device.type == "cpu" else column_fingerprint(t)
+
+
+class DatasetTake(_Decorator):
+    """The rows of ``original`` at ``indices``, missing where ``mask`` is
+    True, each column a :class:`~.column.ColumnIndexed` whose index lies on
+    the column's device (a take of a take is one hop).  The fingerprint never
+    reads a device index: it hashes ``origin``, what made the indices (the
+    parents of a join and its arguments, a frame's filter), or else the host
+    indices a caller gave, or a sample of a tensor's."""
+
+    def __init__(self, original, indices, mask=None, origin=None):
+        indices = index_tensor(indices, original.row_count)
+        mask = None if mask is None else torch.as_tensor(mask)
+        super().__init__(original, {})
+        self.masked = mask is not None
+        self.origin = origin if origin is not None else (
+            _content(indices), None if mask is None else _content(mask))
+        on = {}  # the index (and mask) moved once per device
+        for name, col in original._columns.items():
+            device = column_device(col)
+            if device not in on:
+                on[device] = (indices.to(device), None if mask is None else mask.to(device))
+            self._columns[name] = take_column(col, *on[device])
+        self._row_count = indices.shape[0]
+        self.logical = dict(original.logical)
+
+    def _compute_fingerprint(self):
+        return fingerprint("dataset-take", self.original.fingerprint(), self.origin,
+                           self.masked)
+
+
+class DatasetFiltered(DatasetTake):
+    """The rows of ``original`` where the bool ``mask`` is True: a take of
+    the mask's ``torch.nonzero``, on the mask's device."""
+
+    def __init__(self, original, mask, origin=None):
+        mask = torch.as_tensor(mask)
+        if mask.shape != (original.row_count,):
+            raise ValueError(f"a filter of {tuple(mask.shape)} rows over {original.row_count}")
+        indices = torch.nonzero(mask).squeeze(1)
+        if original.row_count < 2 ** 31:
+            indices = indices.to(torch.int32)
+        super().__init__(original, indices, origin=("filtered", origin if origin is not None
+                                                    else _content(mask)))
+
+
+class DatasetConcatenated(Dataset):
+    """The rows of ``datasets`` one after another, over the columns that
+    all of them have, in the first one's order (vaex_tpu/dataset.py:384-442)."""
+
+    def __init__(self, datasets):
+        super().__init__()
+        self.datasets = list(datasets)
+        names = [n for n in self.datasets[0] if all(n in ds for ds in self.datasets[1:])]
+        self._columns = {name: concat_columns([ds._columns[name] for ds in self.datasets])
+                         for name in names}
+        self._row_count = sum(ds.row_count for ds in self.datasets)
+        self.logical = {n: dt for n, dt in self.datasets[0].logical.items() if n in self._columns}
+        self.device = self.datasets[0].device
+
+    def _compute_fingerprint(self):
+        return fingerprint("dataset-concat", [ds.fingerprint() for ds in self.datasets])

@@ -1,12 +1,15 @@
 """The pass executor: an eager tile loop over the columns a pass needs.
 
 One pass collects the queued tasks of a DataFrame, picks the pass device
-(the device of its tensor columns; when every column is a host array, the
-device the frame was staged to or, for a frame no one staged,
+(the device of its columns held in tensors; when every column is a host
+array, the device the frame was staged to or, for a frame no one staged,
 ``settings.DEVICE``), walks the rows in tiles of ``TILE_ROWS``, and calls
 every task's ``update`` once per tile.  A tile of a tensor column is a view,
-so a device-resident table is read in place; a tile of a host array is
-copied to the pass device.  So a host frame's query runs on the card unless
+so a device-resident table is read in place; a tile of a masked, indexed or
+concatenated column (:mod:`.column`) is read on its device, its data and
+mask as two tensors (an indexed column with one gather, a concatenated one
+across the parts the tile spans); a tile of a host array is copied to the
+pass device.  So a host frame's query runs on the card unless
 the caller stages it elsewhere (``to_device("cpu")``) or sets
 ``settings.DEVICE``; without a card torch raises.  Torch runs eagerly: each
 tile's expression evaluation and binning are separate kernels, then the
@@ -28,10 +31,10 @@ from __future__ import annotations
 
 import time
 
-import numpy as np
 import torch
 
-from . import array_types, settings
+from . import settings
+from .column import placed_device, tile_of
 from .ops.nullable import NA
 from .scopes import DeviceScope, column_names, resolve_variables, variable_names
 from .tasks import TaskAggregations
@@ -41,9 +44,10 @@ from .utils import trace
 class TileContext:
     """Everything a task's ``update`` can ask for about one tile."""
 
-    def __init__(self, scope: DeviceScope, n_rows, device, row_valid=None):
+    def __init__(self, scope: DeviceScope, n_rows, device, row_valid=None, i1=0):
         self.scope = scope
         self.n_rows = n_rows
+        self.i1 = i1  # the tile's first row in the pass
         self.device = device
         # bool [n_rows], False for the rows the frame's filter drops; None
         # when every row counts
@@ -130,7 +134,8 @@ class ExecutorLocal(Executor):
         for i1 in range(0, max(n_total, 1), T):
             i2 = min(i1 + T, n_total)
             tile = {name: _tile(dataset, name, i1, i2, device) for name in names}
-            ctx = TileContext(DeviceScope(tile, variables, df.virtual_columns), i2 - i1, device)
+            ctx = TileContext(DeviceScope(tile, variables, df.virtual_columns), i2 - i1, device,
+                              i1=i1)
             if filter_expression is not None:
                 ctx.row_valid = ctx.boolean(filter_expression)
             states = [t.update(s, ctx) for t, s in zip(tasks, states)]
@@ -150,7 +155,7 @@ class ExecutorLocal(Executor):
             "strategies": [t.strategy for t in tasks if isinstance(t, TaskAggregations)],
             # the route the pass's set probes took ("b6", "b6-wide"), None
             # when it probed no set
-            "probe": "+".join(sorted({v.route for v in variables.values()
+            "probe": "+".join(sorted({v.route for v in [*variables.values(), *tasks]
                                       if getattr(v, "route", None)})) or None,
         })
         if len(self.trace_log) > 1000:
@@ -173,12 +178,12 @@ def pass_inputs(df, dataset, expressions):
 
 
 def _pass_device(dataset, names):
-    """The device of the pass's tensor columns (the dataset's, when the pass
-    reads none); when all its columns are host arrays, the device the
-    dataset was placed on, else ``settings.DEVICE``."""
-    devices = {dataset[n].device for n in names if isinstance(dataset[n], torch.Tensor)}
+    """The device of the pass's columns held in tensors (the dataset's, when
+    the pass reads none); when all its columns are host arrays, the device
+    the dataset was placed on, else ``settings.DEVICE``."""
+    devices = {placed_device(dataset[n]) for n in names} - {None}
     if not devices:
-        devices = {c.device for c in dataset.values() if isinstance(c, torch.Tensor)}
+        devices = {placed_device(c) for c in dataset.values()} - {None}
     if len(devices) > 1:
         raise ValueError(f"a pass reads columns on several devices: {sorted(map(str, devices))}")
     if devices:
@@ -189,10 +194,5 @@ def _pass_device(dataset, names):
 def _tile(dataset, name, i1, i2, device) -> NA:
     """Rows [i1, i2) of a column as an NA on ``device``; a datetime or
     timedelta column as its int64 count with its dtype."""
-    part = dataset[name][i1:i2]
-    logical = dataset.logical.get(name)
-    if isinstance(part, torch.Tensor):
-        return NA(part.to(device), None, logical)
-    data, mask = array_types.data_and_mask(part)
-    return NA(array_types.to_tensor(data, device),
-              None if mask is None else torch.as_tensor(np.asarray(mask)).to(device), logical)
+    part = tile_of(dataset[name], i1, i2, device)
+    return NA(part.data, part.mask, dataset.logical.get(name))

@@ -49,8 +49,8 @@ import time
 import numpy as np
 import torch
 
-from . import array_types
 from .agg import interp_order_stats
+from .column import tile_of
 from .datatype import DataType
 from .execution import _pass_device
 from .expression import Expression
@@ -171,11 +171,8 @@ def _unpack(word, spans, first, last):
 def _column(dataset, name, device):
     """A physical column as a tensor on ``device``, None where it has
     missing values."""
-    col = dataset[name]
-    if isinstance(col, torch.Tensor):
-        return col.to(device)
-    data, mask = array_types.data_and_mask(col[:])
-    return None if mask is not None else array_types.to_tensor(data, device)
+    col = tile_of(dataset[name], 0, dataset.row_count, device)
+    return None if col.mask is not None and bool(col.mask.any()) else col.data
 
 
 def _run(df, key_names, plan, ascending, remembered):

@@ -40,6 +40,7 @@ from . import agg as agg_module
 from .agg import AggregatorDescriptor
 from .expression import Expression
 from . import array_types
+from .column import placed_device
 from .dataset import DatasetArrays
 from .ops.binners import BinnerOrdinal, BinnerScalar
 from .ops.setops import RowLimitException  # noqa: F401  (vaex_tpu exports it here too)
@@ -229,7 +230,7 @@ class BinnerTime:
         device of its tensor columns."""
         if self.column in df.dataset:
             return
-        device = next((c.device for c in df.dataset.values() if isinstance(c, torch.Tensor)),
+        device = next((d for d in map(placed_device, df.dataset.values()) if d is not None),
                       None)
         codes = self.codes if device is None else torch.as_tensor(self.codes).to(device)
         df.dataset = DatasetArrays({**dict(df.dataset.items()), self.column: codes},
@@ -269,7 +270,8 @@ def _sampled_range_too_wide(df, name):
     if df.filtered or not df._is_physical(name):
         return False
     col = df.dataset[name]
-    if isinstance(col, np.ma.MaskedArray) or len(col) == 0:
+    if (not isinstance(col, (np.ndarray, torch.Tensor)) or isinstance(col, np.ma.MaskedArray)
+            or len(col) == 0):
         return False
     sample = col[::max(1, len(col) // 4096)]
     return int(sample.max()) - int(sample.min()) + 1 > DENSE_RANGE_MAX

@@ -14,8 +14,9 @@ walks a search tree built once per set: wholly in shared memory while it
 fits (``b6``), its top levels there and the rest in global memory past that
 (``b6-wide``).
 
-String, arrow and dictionary keys wait for the host scope (ROADMAP queue A9)
-and raise; ``SortedIndex`` waits for ``join.py`` (queue A8).
+:class:`SortedIndex` is the join's index of a right key, on the key's
+device; its probe is B6 too.  String, arrow and dictionary keys wait for the
+host scope (ROADMAP queue A9) and raise.
 """
 
 from __future__ import annotations
@@ -374,3 +375,110 @@ def choices_tensor(values, device):
         raise NotImplementedError("mapping to string values is not ported yet: it waits for "
                                   "the host scope (ROADMAP queue A9)")
     return torch.as_tensor(values, dtype=torch_dtype(values.dtype)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# the join index
+
+
+class SortedIndex:
+    """The join index of a right key column, on the key's device
+    (vaex_tpu/ops/setops.py:690-798): the rows that hold a key (neither
+    masked nor NaN) sorted stably by it, then the unique runs: each key,
+    its first row and its range ``[starts, ends)`` among the sorted rows.
+
+    :meth:`map_index` probes the unique keys with B6
+    (:func:`device_probe`, on a tree built once per index and device) and
+    gathers each match's first row; :meth:`map_index_duplicates` gives the
+    further rows of a key that has several, vectorised, in the reference's
+    order: left rows ascending and, within one, the right rows in
+    stable-sort order.  The reference's lookup table for dense integer keys
+    is a host shortcut and is not ported (ROADMAP, redesign queue)."""
+
+    def __init__(self, keys, mask=None):
+        if keys.dtype == torch.bool or keys.is_complex():
+            raise TypeError(f"a join key takes int and float values, got {keys.dtype}")
+        n = keys.shape[0]
+        valid = None if mask is None else ~mask
+        if keys.is_floating_point():
+            valid = ~torch.isnan(keys) if valid is None else valid & ~torch.isnan(keys)
+        row_dtype = torch.int32 if n < 2 ** 31 else torch.int64
+        if valid is None:
+            sorted_keys, rows = torch.sort(keys, stable=True)
+        else:
+            rows = torch.nonzero(valid).squeeze(1)
+            sorted_keys, order = torch.sort(keys.index_select(0, rows), stable=True)
+            rows = rows.index_select(0, order)
+        self.sorted_rows = rows.to(row_dtype)
+        first = torch.ones(sorted_keys.shape, dtype=torch.bool, device=keys.device)
+        first[1:] = sorted_keys[1:] != sorted_keys[:-1]
+        self.starts = torch.nonzero(first).squeeze(1)
+        self.ends = torch.cat([self.starts[1:], self.starts.new_tensor([sorted_keys.shape[0]])])
+        self.keys = sorted_keys.index_select(0, self.starts)
+        self.first_rows = self.sorted_rows.index_select(0, self.starts)
+        self.n_keys = int(self.keys.shape[0])
+        self.has_duplicates = self.n_keys < sorted_keys.shape[0]
+        self.row_dtype = row_dtype
+        self._handles = {}  # device -> (DeviceSetHandle, the index's tensors there)
+
+    def _on(self, device):
+        """The unique keys' handle (its B6 trees) and the row tensors on
+        ``device``, moved there once."""
+        if device not in self._handles:
+            keys = self.keys.to(device)
+            self._handles[device] = (
+                DeviceSetHandle(keys, self.n_keys, False, False),
+                *(t.to(device) for t in (self.first_rows, self.starts, self.ends,
+                                         self.sorted_rows)))
+        return self._handles[device]
+
+    def route(self, device):
+        """The B6 route the last probe on ``device`` took."""
+        return self._on(device)[0].route
+
+    def ordinals(self, x: NA):
+        """int32 ordinals of ``x``'s values among the unique keys, -1 for a
+        value that is no key, NaN or masked."""
+        data = x.data
+        if not self.n_keys:
+            return torch.full(data.shape, -1, dtype=torch.int32, device=data.device)
+        out = device_probe(self._on(data.device)[0], data)
+        return out if x.mask is None else out.masked_fill(x.mask, -1)
+
+    def rows_of(self, ordinals):
+        """The first right row of each ordinal, -1 where it is -1."""
+        first_rows = self._on(ordinals.device)[1]
+        if not self.n_keys:
+            return torch.full(ordinals.shape, -1, dtype=self.row_dtype, device=ordinals.device)
+        rows = first_rows.index_select(0, ordinals.clamp(min=0))
+        return rows.masked_fill_(ordinals < 0, -1)
+
+    def duplicates_of(self, ordinals, left_offset=0):
+        """(left rows, right rows) of the matches past each row's first:
+        a row whose key has k right rows gives k - 1 pairs."""
+        _, _, starts, ends, sorted_rows = self._on(ordinals.device)
+        device = ordinals.device
+        hit = ordinals >= 0
+        at = ordinals.clamp(min=0).to(torch.int64)
+        extra = torch.where(hit, (ends - starts).index_select(0, at) - 1, 0)
+        total = int(extra.sum())
+        if total == 0:
+            empty = torch.empty(0, dtype=torch.int64, device=device)
+            return empty, empty.to(self.row_dtype)
+        rows = torch.nonzero(extra).squeeze(1)
+        extra = extra.index_select(0, rows)
+        left = torch.repeat_interleave(rows + left_offset, extra)
+        # each pair's place among its row's pairs: 0 .. k - 2
+        before = torch.cumsum(extra, 0) - extra
+        within = torch.arange(total, device=device) - torch.repeat_interleave(before, extra)
+        first = torch.repeat_interleave(starts.index_select(0, at.index_select(0, rows)) + 1,
+                                        extra)
+        return left, sorted_rows.index_select(0, first + within)
+
+    def map_index(self, x: NA):
+        """The first right row of each value, -1 where it has none."""
+        return self.rows_of(self.ordinals(x))
+
+    def map_index_duplicates(self, x: NA, left_offset=0):
+        """(left rows + ``left_offset``, right rows) past each first match."""
+        return self.duplicates_of(self.ordinals(x), left_offset)

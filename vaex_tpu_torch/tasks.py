@@ -362,3 +362,61 @@ def _moment_batches(subtasks, members):
             batches.append(_MomentBatch())
             batches[-1].add(i, subtasks[i])
     return batches
+
+
+class TaskFilterMask(Task):
+    """The rows the frame's filter keeps, as one bool tensor on the pass
+    device (written tile by tile)."""
+
+    def __init__(self, df):
+        super().__init__(df, [], name="filter-mask")
+
+    def initial_state(self, device, rows):
+        return torch.ones(rows, dtype=torch.bool, device=device)
+
+    def update(self, state, ctx):
+        if ctx.row_valid is not None:
+            state[ctx.i1:ctx.i1 + ctx.n_rows] = ctx.row_valid
+        return state
+
+    def finalize(self, state):
+        self.fulfill(state)
+        return state
+
+
+class TaskMapIndex(Task):
+    """The join's probe of a left key against a right
+    :class:`~.ops.setops.SortedIndex`, tile by tile on the pass device: per
+    row the first right row (-1 where none), written into one lookup tensor,
+    and with ``duplicates`` the (left row, right row) pairs past each first
+    match.  ``route`` is the B6 route of the last tile."""
+
+    def __init__(self, df, expression, index, duplicates=False):
+        super().__init__(df, [expression], name="map-index")
+        self.index = index
+        self.duplicates = duplicates
+        self.route = None
+
+    def initial_state(self, device, rows):
+        return {"lookup": torch.empty(rows, dtype=self.index.row_dtype, device=device),
+                "left": [], "right": []}
+
+    def update(self, state, ctx):
+        if ctx.row_valid is not None:
+            raise ValueError("a join probes the rows of an extracted frame, not a filtered one")
+        ordinals = self.index.ordinals(ctx.expr(self.expressions[0]))
+        self.route = self.index.route(ordinals.device)
+        state["lookup"][ctx.i1:ctx.i1 + ctx.n_rows] = self.index.rows_of(ordinals)
+        if self.duplicates:
+            left, right = self.index.duplicates_of(ordinals, ctx.i1)
+            state["left"].append(left)
+            state["right"].append(right)
+        return state
+
+    def finalize(self, state):
+        lookup = state["lookup"]
+        empty = lookup.new_empty(0, dtype=torch.int64)
+        out = (lookup, torch.cat(state["left"]) if state["left"] else empty,
+               torch.cat(state["right"]) if state["right"] else empty.to(lookup.dtype))
+        self.fulfill(out)
+        return out
