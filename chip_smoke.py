@@ -176,7 +176,29 @@ Run from the root of the repository on a machine with a CUDA card.  It
     (counts, int sums, labels and value counts exact, x sums within the
     bound of phase 4), with B1 launched; then each timed against plain torch
     (a warm-up, then 5 repetitions, medians), and B6 alone at the join's
-    shape against its plain version and the library calls.
+    shape against its plain version and the library calls;
+19. drives the grids past B3's limits and the rest of the frame's row
+    operations on a table of 1e8 rows made on the card from seed 42 (x, y,
+    z uniform in [0, 1), v normal; u normal with 2% NaN, 0.5% +inf, 0.5%
+    -inf and 10% of its rows masked): (a) count, mean and std of v over
+    [x, y] at shape 12 000 (144.1M cells with the edges), max of v at 8192
+    (67.2M), count over [x, y, z] at 512 (136.6M), each on the route
+    "sort", and the std of x, y, z, v at 4096 (16.8M cells, twelve terms) on
+    "b3×2", B3's partition in two calls, launched; each grid checked against
+    a second computation that shares no code with the route (torch.bincount
+    with f64 weights for counts and sums, a sort by value then by cell for
+    the max): counts and maxima exact, empty max cells -inf, means and stds
+    within the bound of phase 4 carried through their formulas; each query
+    timed (median of 3, host clock) beside the second computation and its
+    grid's copy to the host (the route alone against its bound and against
+    a sort of the bins: scripts/sweep_grid_sort.py); (b) on the same frame
+    dropna / dropnan / dropinf counts, fillna(0) then dropinf's sum of u,
+    materialize of r = sqrt(x**2 + y**2) (its sum unchanged, the column a
+    CUDA tensor), sample(n=1e6, random_state=42) and
+    shuffle(random_state=42) against plain torch over numpy's draw,
+    split_random([0.8, 0.2], random_state=1)'s lengths, evaluate("v", 0,
+    1e6, selection="x > 0.5"), to_arrays of 1e5 rows, and vrange(0, 1e9)'s
+    sum and count (exact); it prints its own JSON line of routes and times.
 
 It exits non-zero on any failure.  The line before the last is a JSON
 object with every kernel's (and each of B3x's routes') launches, error,
@@ -187,6 +209,7 @@ library call that computes the same function; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import gc
 import json
 import math
 import os
@@ -295,10 +318,11 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def median_s(fn):
-    """Median host-clock seconds of fn() ended by a synchronize, REPS runs."""
+def median_s(fn, reps=REPS):
+    """Median host-clock seconds of fn() ended by a synchronize, ``reps``
+    runs."""
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -2685,6 +2709,290 @@ def config4_probe_timing(probe, fact_key, dim_key, label):
             "join_bound_ms": bound_ms, "join_max_abs_err": err, "join_route": tree.route}
 
 
+PHASE19_ROWS = 100_000_000
+# name: (statistic, expression, axes, shape, the route the plan must take,
+# the kind of aggregator it is recorded under in trace_log)
+PHASE19_GRIDS = {
+    "count 12000^2": ("count", None, ("x", "y"), 12_000, "sort", "additive"),
+    "mean 12000^2": ("mean", "v", ("x", "y"), 12_000, "sort", "additive"),
+    "std 12000^2": ("std", "v", ("x", "y"), 12_000, "sort", "moments"),
+    "max 8192^2": ("max", "v", ("x", "y"), 8192, "sort", "extremes"),
+    "count 512^3": ("count", None, ("x", "y", "z"), 512, "sort", "additive"),
+    "std of four 4096^2": ("std", ["x", "y", "z", "v"], ("x", "y"), 4096, "b3×2", "moments"),
+}
+
+
+def phase19_columns(n, device, seed=SEED):
+    """x, y, z uniform in [0, 1), v normal, and u normal with 2% NaN, 0.5%
+    +inf, 0.5% -inf, as float64 tensors on ``device``, and u's mask (10% of
+    the rows missing)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cols = {c: torch.rand(n, generator=gen, device=device, dtype=torch.float64)
+            for c in "xyz"}
+    cols["v"] = torch.randn(n, generator=gen, device=device, dtype=torch.float64)
+    u = torch.randn(n, generator=gen, device=device, dtype=torch.float64)
+    draw = torch.rand(n, generator=gen, device=device)
+    u[draw < 0.02] = float("nan")
+    u[(draw >= 0.02) & (draw < 0.025)] = float("inf")
+    u[(draw >= 0.025) & (draw < 0.03)] = float("-inf")
+    cols["u"] = u
+    cols["u_mask"] = torch.rand(n, generator=gen, device=device) < 0.1
+    return cols
+
+
+def phase19_frame(vt, cols):
+    from vaex_tpu_torch.column import ColumnMasked
+    data = {c: cols[c] for c in "xyzv"}
+    data["u"] = ColumnMasked(cols["u"], cols["u_mask"])
+    return vt.from_dataset(vt.DatasetArrays(data))
+
+
+def phase19_query(df, name, shape=None):
+    stat, expr, axes, default, _, _ = PHASE19_GRIDS[name]
+    kw = dict(binby=list(axes), shape=shape or default)
+    return getattr(df, stat)(**kw) if expr is None else getattr(df, stat)(expr, **kw)
+
+
+def phase19_cells(cols, axes, bins):
+    """(cell, keep): each row's flat cell among bins^d over each axis's own
+    min and max, by the binner's formula (floor((c - lo) * ((1 / span) *
+    bins)), C9), and whether it lands inside (the edges are stripped)."""
+    cell, keep = None, None
+    for a in axes:
+        c = cols[a]
+        lo, hi = (float(t) for t in torch.aminmax(c))
+        b = torch.floor((c - lo) * (1.0 / (hi - lo) * bins)).to(torch.int64)
+        inside = (c >= lo) & (c < hi) & (b < bins)
+        cell = b if cell is None else cell * bins + b
+        keep = inside if keep is None else keep & inside
+    return torch.where(keep, cell, 0), keep
+
+
+def phase19_plain(cols, name, shape=None):
+    """The second computation of one grid, sharing no code with the route:
+    torch.bincount (with f64 weights for sums) for counts, sums and the
+    sums of |value| the bound needs; for the max a sort by value, then a
+    stable sort by cell, and the last row of each cell's run."""
+    stat, expr, axes, default, _, _ = PHASE19_GRIDS[name]
+    bins = shape or default
+    size = bins ** len(axes)
+    cell, keep = phase19_cells(cols, axes, bins)
+    out_shape = (bins,) * len(axes)
+
+    def sums(values):
+        ok = keep & ~torch.isnan(values)
+        w = torch.where(ok, values, 0.0)
+        return [torch.bincount(cell, weights=x, minlength=size).reshape(out_shape)
+                for x in (ok.to(torch.float64), w, w.abs(), w * w)]
+    if stat == "count":
+        return torch.bincount(cell[keep], minlength=size).reshape(out_shape)
+    if stat == "max":
+        v = cols[expr]
+        ok = keep & ~torch.isnan(v)
+        by_value = torch.argsort(torch.where(ok, v, float("-inf")))
+        cells = torch.where(ok, cell, size)[by_value]
+        sorted_cells, by_cell = torch.sort(cells, stable=True)
+        last = torch.ones_like(sorted_cells, dtype=torch.bool)
+        last[:-1] = sorted_cells[:-1] != sorted_cells[1:]
+        last &= sorted_cells < size
+        out = torch.full((size,), float("-inf"), dtype=torch.float64, device=v.device)
+        out[sorted_cells[last]] = v[by_value][by_cell][last]
+        return out.reshape(out_shape)
+    if stat == "mean":
+        return sums(cols[expr])
+    return [sums(cols[e]) for e in ([expr] if isinstance(expr, str) else expr)]
+
+
+def _bound(total, abs_total, n):
+    return RTOL * total.abs() + ATOL + n * 2.0 ** -52 * abs_total
+
+
+def _mean_ok(got, n, s, a):
+    """A mean against the plain count and sums: NaN where a cell is empty,
+    elsewhere within the bound of its sum over its count."""
+    empty = n == 0
+    got = torch.as_tensor(np.asarray(got), device=n.device)
+    if not bool(torch.isnan(got[empty]).all()):
+        return False
+    full = ~empty
+    return bool(((got[full] * n[full] - s[full]).abs() <= _bound(s, a, n)[full]).all())
+
+
+def _std_ok(got, n, s, a, s2):
+    """A std (ddof 0) against the plain count and sums: NaN where a cell is
+    empty; elsewhere its square within the variance's bound, carried from
+    the sums' (within_sum_bound's) through var = s2 / n - (s / n)^2."""
+    got = torch.as_tensor(np.asarray(got), device=n.device)
+    empty = n == 0
+    if not bool(torch.isnan(got[empty]).all()):
+        return False
+    full = ~empty
+    n, s, a, s2, got = n[full], s[full], a[full], s2[full], got[full]
+    b1, b2 = _bound(s, a, n), _bound(s2, s2, n)
+    var = torch.clamp(s2 / n - (s / n) ** 2, min=0)
+    bound = b2 / n + (2 * s.abs() * b1 + b1 * b1) / (n * n) + 8 * 2.0 ** -52 * (
+        s2 / n + (s / n) ** 2) + ATOL
+    return bool(((got * got - var).abs() <= bound).all())
+
+
+def phase19_check(name, got, want):
+    """One grid of phase 19 against its second computation (raises)."""
+    stat = PHASE19_GRIDS[name][0]
+    if stat in ("count", "max"):
+        got = torch.as_tensor(np.asarray(got))
+        check(torch.equal(got, want.cpu()), f"phase 19 {name}: exact")
+        if stat == "max":
+            check(bool((got[(want == float("-inf")).cpu()] == float("-inf")).all()),
+                  f"phase 19 {name}: empty cells hold -inf")
+    elif stat == "mean":
+        n, s, a, _ = want
+        check(_mean_ok(got, n, s, a), f"phase 19 {name}: within the bound of phase 4")
+    else:
+        for k, (g, (n, s, a, s2)) in enumerate(zip(got if len(want) > 1 else [got], want)):
+            check(_std_ok(g, n, s, a, s2), f"phase 19 {name} ({k}): within the bound")
+
+
+def phase19_grids(vt, df, cols, shapes=None):
+    """(a) once: each grid through the public API, its route asserted from
+    trace_log and the grid checked against its second computation.  Returns
+    {name: route}."""
+    routes = {}
+    for name, (_, _, _, _, route, kind) in PHASE19_GRIDS.items():
+        shape = (shapes or {}).get(name)
+        got = phase19_query(df, name, shape)
+        strategies = df.executor.trace_log[-1]["strategies"]
+        routes[name] = strategies[0].get(kind)
+        check(routes[name] == route, f"phase 19 {name}: the route {routes[name]!r}, "
+                                     f"not {route!r} ({strategies})")
+        phase19_check(name, got, phase19_plain(cols, name, shape))
+        print(f"phase 19 {name}: route {routes[name]}, checked against its second "
+              f"computation", flush=True)
+    return routes
+
+
+def phase19_rows(vt, df, cols, n_sample=10 ** 6, n_eval=10 ** 6, n_arrays=10 ** 5,
+                 n_range=10 ** 9):
+    """(b) once: the rest of the frame's row operations on the table,
+    each checked against plain torch.  Returns {check: seconds}."""
+    x, y, v, u, mask = cols["x"], cols["y"], cols["v"], cols["u"], cols["u_mask"]
+    N = x.shape[0]
+    nan = torch.isnan(u)
+    times = {}
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t0
+        return out
+
+    def same_sum(got, want_values, what):
+        n = torch.tensor(float(want_values.numel()), dtype=torch.float64)
+        ok = within_sum_bound(torch.tensor([float(got)], dtype=torch.float64),
+                              want_values.sum().cpu().reshape(1), want_values.abs().sum().cpu()
+                              .reshape(1), n.reshape(1))
+        check(ok, f"phase 19 {what}: {got!r} against plain torch's {float(want_values.sum())!r}")
+    check(timed("dropna count", lambda: int(df.dropna().count()))
+          == int(((~mask) & ~nan).sum()), "phase 19 dropna().count()")
+    check(timed("dropnan count", lambda: int(df.dropnan().count()))
+          == int((~(nan & ~mask)).sum()), "phase 19 dropnan().count()")
+    check(timed("dropinf count", lambda: int(df.dropinf().count()))
+          == int((~torch.isinf(u) & ~mask).sum()), "phase 19 dropinf().count()")
+    filled = torch.where(mask | nan, 0.0, u)
+    got = timed("fillna sum", lambda: df.fillna(0).dropinf().sum("u"))
+    same_sum(got, filled[~torch.isinf(filled)], "fillna(0).dropinf().sum('u')")
+    check(int(df.fillna(0).count("u")) == N, "phase 19 fillna(0) leaves no missing u")
+    df = df.copy()
+    df["r"] = "sqrt(x**2 + y**2)"
+    before = df.sum("r")
+    mat = timed("materialize", lambda: df.materialize("r"))
+    col = mat.dataset["r"]
+    check(isinstance(col, torch.Tensor) and col.device == x.device and "r" not in
+          mat.virtual_columns, f"phase 19 materialize leaves a tensor on {x.device}")
+    after = mat.sum("r")
+    check(float(after) == float(before), f"phase 19 sum(r) unchanged: {after!r}, {before!r}")
+    same_sum(after, torch.sqrt(x ** 2 + y ** 2), "sum(r)")
+    del mat, col
+    rows = torch.from_numpy(np.random.default_rng(42).choice(N, n_sample, replace=False))
+    got = timed("sample sum", lambda: df.sample(n=n_sample, random_state=42).sum("v"))
+    same_sum(got, v[rows.to(v.device)], "sample(n, random_state=42).sum('v')")
+    got = timed("shuffle sum", lambda: df.shuffle(random_state=42).sum("v"))
+    same_sum(got, v, "shuffle(random_state=42).sum('v')")
+    parts = timed("split_random", lambda: df.split_random([0.8, 0.2], random_state=1))
+    check([len(p) for p in parts] == [round(0.8 * N), N - round(0.8 * N)],
+          f"phase 19 split_random lengths {[len(p) for p in parts]}")
+    del parts
+    got = timed("evaluate selection", lambda: df.evaluate("v", 0, n_eval, selection="x > 0.5"))
+    want = v[:n_eval][x[:n_eval] > 0.5].cpu().numpy()
+    check(np.array_equal(got, want), "phase 19 evaluate(v, 0, n, selection='x > 0.5')")
+    arrays = timed("to_arrays", lambda: df[:n_arrays].to_arrays(["x", "y", "z", "v", "u"]))
+    for a, name in zip(arrays, "xyzv"):
+        check(np.array_equal(a, cols[name][:n_arrays].cpu().numpy()), f"to_arrays {name}")
+    m = mask[:n_arrays].cpu().numpy()
+    check(np.array_equal(np.ma.getmaskarray(arrays[4]), m) and np.array_equal(
+        np.ma.getdata(arrays[4])[~m], u[:n_arrays].cpu().numpy()[~m], equal_nan=True),
+        "to_arrays u")
+    big = vt.vrange(0, n_range).to_device(x.device)
+    total, count = timed("vrange sum count", lambda: (big.sum("x"), big.count("x")))
+    check(int(total) == n_range * (n_range - 1) // 2 and int(count) == n_range,
+          f"phase 19 vrange(0, {n_range}): sum {total!r}, count {count!r}")
+    print(f"phase 19 row operations checked against plain torch: {sorted(times)}", flush=True)
+    return times
+
+
+def median_ms(fn):
+    """Median host-clock ms of fn() over 3 runs, after a warm-up."""
+    fn()
+    return median_s(fn, 3)[0] * 1e3
+
+
+def phase19_path(vt, plan, gp, probe, label, n=PHASE19_ROWS):
+    """Phase 19 on the card: (a) and (b) once with every kernel count set
+    to 0 (B3's partition asserted launched by the split), then each grid
+    query timed (a warm-up, then the median of 3) beside its second
+    computation and its grid's copy to the host.  Returns (launches, the
+    phase's JSON record)."""
+    cols = phase19_columns(n, "cuda")
+    df = phase19_frame(vt, cols)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(plan, gp)
+    probe.probe.launches = probe.probe.wide_launches = 0
+    routes = phase19_grids(vt, df, cols)
+    row_times = phase19_rows(vt, df, cols)
+    launches = {**launch_counts(plan, gp), "b6": probe.probe.launches,
+                "b6-wide": probe.probe.wide_launches}
+    print(f"launches during phase 19: {launches}", flush=True)
+    check(launches[plan.B3] > 0, f"B3's partition was not launched by the split: {launches}")
+    record = {"card": label, "rows": n, "grids": {}, "row_operations_s": row_times,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    for name, (stat, expr, axes, shape, _, _) in PHASE19_GRIDS.items():
+        gc.collect()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        port_ms = median_ms(lambda: phase19_query(df, name))
+        port_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        plain_ms = median_ms(lambda: phase19_plain(cols, name))
+        # the finished grids' copy to the host, which a query returns
+        grids = torch.empty((len(expr) if isinstance(expr, list) else 1,
+                             (shape + 3) ** len(axes)),
+                            dtype=torch.int64 if stat == "count" else torch.float64,
+                            device="cuda")
+        copy_ms = median_ms(lambda: grids.cpu())
+        del grids
+        entry = {"route": routes[name], "ms": port_ms, "plain_ms": plain_ms,
+                 "host_copy_ms": copy_ms, "port_peak_gb": port_gb}
+        record["grids"][name] = entry
+        print(f"[{label}] phase 19 {name} N={n}: route {routes[name]}, median {port_ms!r} ms "
+              f"(port; {port_gb!r} GB above the table at its peak; the grid's copy to the "
+              f"host alone {copy_ms!r} ms) vs {plain_ms!r} ms (second computation, on the "
+              f"card), reps 3", flush=True)
+        torch.cuda.empty_cache()
+    del df, cols
+    torch.cuda.empty_cache()
+    return launches, record
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2784,6 +3092,9 @@ def main():
           flush=True)
     sets.update(config4_b6)
 
+    phase19_launches, phase19 = phase19_path(vt, plan, gp, probe, label)
+    print(json.dumps({"phase19": phase19}), flush=True)
+
     measured = {plan.B1: (main_launches[plan.B1], results[MAIN_SIZES[0]]),
                 plan.B2: (h2o_launches[plan.B2], wide[plan.B2]),
                 plan.B3: (h2o_launches[plan.B3], wide[plan.B3]),
@@ -2818,6 +3129,7 @@ def main():
         "library_ms": m["library_ms"],
         "config3_launches": config3_launches[name],
         "config4_launches": config4_launches[name],
+        "phase19_launches": phase19_launches[name],
         **{key: value for key, value in m.items() if key in EXTRA_KEYS},
     } for name, (launches, m) in measured.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,6 +11,7 @@ refuses a sum that is off by one term.
 """
 
 import math
+import re
 
 import numpy as np
 import pytest
@@ -193,3 +194,63 @@ def test_the_config4_checks_refuse_a_wrong_answer(query):
         got.iloc[0] += 1
     with pytest.raises(RuntimeError, match=f"config 4 {query.split()[0]}"):
         chip_smoke.config4_check(query, got, want)
+
+
+# phase 19 at a small size: B3's partition cut to 64 buckets and the
+# resident budget to 64 KiB, so that each grid takes the route it takes at
+# full size on the card ("sort", and "b3×2" for the four std's)
+PHASE19_SHAPES = {"count 12000^2": 1100, "mean 12000^2": 1100, "std 12000^2": 1100,
+                  "max 8192^2": 800, "count 512^3": 100, "std of four 4096^2": 400}
+
+
+@pytest.fixture
+def phase19(monkeypatch):
+    import vaex_tpu_torch
+    from vaex_tpu_torch.ops import grid_partition as gp
+    monkeypatch.setattr(gp, "P_MAX", 64)
+    monkeypatch.setattr(gp, "RESIDENT_BYTES", 1 << 16)
+    cols = chip_smoke.phase19_columns(20_000, "cpu")
+    df = chip_smoke.phase19_frame(vaex_tpu_torch, cols)
+    df._tile_rows = 7_000  # several tiles a pass, each scattered into one grid
+    return vaex_tpu_torch, df, cols
+
+
+def test_the_phase19_grids_on_the_cpu(phase19):
+    """Phase 19 (a) of chip_smoke.py on the CPU: every grid on the route it
+    takes at full size, held to its second computation."""
+    vt, df, cols = phase19
+    routes = chip_smoke.phase19_grids(vt, df, cols, PHASE19_SHAPES)
+    assert routes == {name: grid[4] for name, grid in chip_smoke.PHASE19_GRIDS.items()}
+    assert set(routes.values()) == {"sort", "b3×2"}
+
+
+def test_the_phase19_row_operations_on_the_cpu(phase19):
+    """Phase 19 (b) on the CPU: drops, fill, materialize, sample, shuffle,
+    split_random, evaluate with a selection, to_arrays, vrange."""
+    vt, df, cols = phase19
+    times = chip_smoke.phase19_rows(vt, df, cols, n_sample=2_000, n_eval=5_000,
+                                    n_arrays=3_000, n_range=10 ** 6)
+    assert {"dropna count", "materialize", "sample sum", "vrange sum count"} <= set(times)
+
+
+@pytest.mark.parametrize("name", list(PHASE19_SHAPES))
+def test_the_phase19_checks_refuse_a_wrong_grid(phase19, name):
+    """Each grid check of phase 19 refuses a grid one count, one value or
+    one empty cell off."""
+    vt, df, cols = phase19
+    shape = PHASE19_SHAPES[name]
+    want = chip_smoke.phase19_plain(cols, name, shape)
+    got = np.array(chip_smoke.phase19_query(df, name, shape))
+    chip_smoke.phase19_check(name, got, want)
+    flat = got.reshape(-1)
+    stat = chip_smoke.PHASE19_GRIDS[name][0]
+    if stat == "count":
+        flat[int(np.argmax(flat))] += 1
+    elif stat == "max":
+        empty = np.flatnonzero(flat == -np.inf)
+        flat[empty[0]] = 0.0
+    else:
+        full = np.flatnonzero(~np.isnan(flat) & (flat > 0))
+        flat[full[len(full) // 2]] *= 1 + 1e-6
+    with pytest.raises(RuntimeError, match=re.escape(f"phase 19 {name}")):
+        chip_smoke.phase19_check(name, got, want)

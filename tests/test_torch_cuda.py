@@ -371,11 +371,20 @@ def test_moments_past_the_windows_take_b3(cuda, G, route):
     npt.assert_allclose(sums.cpu().numpy(), want[1].cpu().numpy(), rtol=1e-9, atol=1e-9)
 
 
-def test_moments_past_b3_raise_naming_a6(cuda):
-    idx = torch.zeros(10, dtype=torch.int32, device=cuda)
-    x = torch.zeros(10, dtype=torch.float64, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A6"):
-        grid_plan.moment_sums(idx, [x], agg.VAR_TERMS, 10 ** 9)
+@pytest.mark.parametrize("P_MAX,route", [(8, "b3×3"), (4, "sort")])
+def test_moments_past_b3_raise_naming_a6(cuda, monkeypatch, P_MAX, route):
+    """Named for the raise this replaced (ROADMAP A4): var's terms past B3's
+    partition (cut to P_MAX buckets) on the card, split into calls of one
+    term or through "sort", against the plain moment version."""
+    monkeypatch.setattr(gp, "P_MAX", P_MAX)
+    G = 120_000
+    idx, bases, terms = _moment_inputs(300_007, G, "var", cuda, seed=4)
+    name, counts, sums = grid_plan.moment_sums(idx, bases, terms, G)
+    assert name == route
+    want = gm.grid_moments_reference(idx, bases, terms, G)
+    torch.cuda.synchronize()
+    npt.assert_array_equal(counts.cpu().numpy(), want[0].cpu().numpy())
+    npt.assert_allclose(sums.cpu().numpy(), want[1].cpu().numpy(), rtol=1e-9, atol=1e-9)
 
 
 def test_moment_wrappers_raise_where_their_kernel_does_not_fit(cuda):
@@ -531,7 +540,7 @@ def test_extreme_kernel_on_sorted_keys_and_one_hot_cell(cuda):
         assert all(torch.equal(a, w) for a, w in zip(got, want))
 
 
-def test_extreme_wrapper_raises_where_its_kernel_does_not_fit(cuda):
+def test_extreme_wrapper_raises_where_its_kernel_does_not_fit(cuda, monkeypatch):
     idx = torch.zeros(10, dtype=torch.int32, device=cuda)
     x = torch.zeros(10, dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError, match="does not fit"):
@@ -541,8 +550,13 @@ def test_extreme_wrapper_raises_where_its_kernel_does_not_fit(cuda):
                                   [None] * (gp.MAX_EXT + 1), 100)
     with pytest.raises(ValueError, match="contiguous"):
         gp.grid_partition_extreme(idx[::2], [x[::2]], ["min"], [None], 100)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A6"):
-        grid_plan.grid_extremes(idx, [x], ["min"], [None], 10 ** 9)
+    # past B3x's partition (cut to 2 buckets) the plan takes "sort", not a raise
+    monkeypatch.setattr(gp, "P_MAX", 2)
+    monkeypatch.setattr(gp, "RESIDENT_BYTES", 1 << 16)
+    keys = torch.arange(10, dtype=torch.int32, device=cuda) * 3001
+    name, (grid,) = grid_plan.grid_extremes(keys, [x + 1], ["min"], [None], 30_011)
+    assert name == "sort"
+    assert torch.equal(grid, ge.grid_extreme_batch(keys, [x + 1], ["min"], [None], 30_011)[0])
 
 
 def test_binned_statistics_on_the_card(cuda):
@@ -1154,3 +1168,54 @@ def test_join_on_the_card_matches_the_cpu(cuda):
             npt.assert_array_equal(np.ma.getmaskarray(a), np.ma.getmaskarray(b))
             npt.assert_array_equal(np.ma.getdata(a), np.ma.getdata(b))
         assert on_card.sum("label") == on_cpu.sum("label")
+
+
+@pytest.mark.parametrize("P_MAX", [2, 64])
+def test_grids_past_b3_on_the_card_match_the_cpu(cuda, monkeypatch, P_MAX):
+    """With B3's partition cut to P_MAX buckets and the resident budget to
+    64 KiB, a 403 x 403 grid over 1e6 rows takes "sort" (P_MAX 2) or the
+    split of the four std's twelve terms (P_MAX 64) on the card: count, mean,
+    std of four columns, max and first equal the same frame's on the CPU
+    (ints exact, floats to rtol 1e-9 and atol 1e-9)."""
+    from vaex_tpu_torch.ops import grid_sort
+    monkeypatch.setattr(gp, "P_MAX", P_MAX)
+    monkeypatch.setattr(gp, "RESIDENT_BYTES", 1 << 16)
+    rng = np.random.default_rng(P_MAX)
+    n = 1_000_000
+    arrays = {c: rng.normal(0, 1, n) for c in "xyvw"}
+    arrays["v"][::37] = np.nan
+    arrays["t"] = rng.permutation(n)
+    kw = dict(binby=["x", "y"], limits=[[-3, 3], [-3, 3]], shape=400)
+    out = {}
+    for device in ("cpu", cuda):
+        df = vaex_tpu_torch.from_arrays(**arrays).to_device(device)
+        out[str(device)] = (df.count(**kw), df.mean("v", **kw),
+                            df.std(["v", "x", "y", "w"], **kw), df.max("w", **kw),
+                            df.first("v", "t", **kw))
+        if device is cuda:
+            assert df.executor.trace_log[-1]["strategies"][0]["first"] == (
+                grid_sort.SORT if P_MAX == 2 else "b3x")
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        npt.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-9, atol=1e-9)
+
+
+def test_materialize_and_sample_on_the_card(cuda):
+    """materialize leaves a CUDA tensor (with its mask), sample picks the
+    rows numpy's draw picks, vrange sums on the card."""
+    from vaex_tpu_torch.column import ColumnMasked
+    rng = np.random.default_rng(8)
+    n = 1_000_000
+    x = rng.normal(0, 1, n)
+    m = np.ma.MaskedArray(rng.normal(0, 1, n), rng.random(n) < 0.1)
+    df = vaex_tpu_torch.from_arrays(x=x, m=m).to_device(cuda)
+    df["r"] = "sqrt(x**2 + m**2)"
+    got = df.materialize("r")
+    col = got.dataset["r"]
+    assert isinstance(col, ColumnMasked) and col.data.is_cuda and col.mask.is_cuda
+    assert got.sum("r") == pytest.approx(df.sum("r"), rel=1e-12)
+    picked = df.sample(n=10_000, random_state=42)
+    rows = np.random.default_rng(42).choice(n, 10_000, replace=False)
+    assert picked.sum("x") == pytest.approx(x[rows].sum(), rel=1e-12)
+    assert picked.dataset["x"].index.is_cuda
+    big = vaex_tpu_torch.vrange(0, 10 ** 8).to_device(cuda)
+    assert big.sum("x") == 10 ** 8 * (10 ** 8 - 1) // 2 and big.count("x") == 10 ** 8

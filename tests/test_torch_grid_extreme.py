@@ -280,10 +280,10 @@ def test_extreme_strategy_boundaries():
             assert grid_plan.extreme_strategy(n, G, E) == "b3x-l2"
     assert grid_plan.extreme_strategy(n, 1_000_003, 4) == "b3x"  # 32 MB
     assert grid_plan.extreme_strategy(n, 2003 ** 2, 1) == "b3x"
-    # past B3's limits: too many buckets, too many rows (the resident route
-    # has no row limit)
-    assert grid_plan.extreme_strategy(n, 2 ** 30, 1) is None
-    assert grid_plan.extreme_strategy(2 ** 31, 2003 ** 2, 1) is None
+    # past B3's limits, "sort": too many buckets, too many rows (the resident
+    # route has no row limit)
+    assert grid_plan.extreme_strategy(n, 2 ** 30, 1) == "sort"
+    assert grid_plan.extreme_strategy(2 ** 31, 2003 ** 2, 1) == "sort"
     assert grid_plan.extreme_strategy(2 ** 31, 1_000_003, 1) == "b3x-l2"
     assert grid_plan.extreme_strategy(2 ** 31, 103, 1) == "b3x-direct"
     with pytest.raises(ValueError, match="a call takes 1 to"):
@@ -436,7 +436,32 @@ def test_sums_and_extremes_share_one_partition_on_b3(monkeypatch, G, E, shared):
                                _numpy_extreme(idx.numpy(), col.numpy(), mode, None, G))
 
 
-def test_extremes_past_b3_raise_naming_a6():
-    idx = torch.zeros(10, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A6"):
-        grid_plan.grid_extremes(idx, [torch.zeros(10)], ["min"], [None], 10 ** 9)
+@pytest.mark.parametrize("P_MAX,route", [(8, "b3x"), (2, "sort")])
+def test_extremes_past_b3_raise_naming_a6(monkeypatch, P_MAX, route):
+    """Named for the raise this replaced (ROADMAP A4): past the direct route
+    and the resident budget (lowered to 64 KiB), with B3's partition cut to
+    P_MAX buckets, four columns that do not fit one call over the partition
+    go in calls of fewer (S = 4096 bins at one column, 2048 at two) or, where
+    not one column fits, all through "sort"; every grid equal to numpy's, a
+    given ``out`` grid taking the tile's extremes in place."""
+    monkeypatch.setattr(gp, "P_MAX", P_MAX)
+    monkeypatch.setattr(gp, "RESIDENT_BYTES", 1 << 16)
+    rng = np.random.default_rng(P_MAX)
+    n, G = 20_000, 30_011
+    idx = torch.from_numpy(_case_idx(rng, G, n))
+    ints, f64, f32 = _columns(rng, n)
+    cols = [torch.from_numpy(c) for c in (f64, ints, f32, f64)]
+    valids = [None, torch.from_numpy(rng.random(n) < 0.8), None,
+              torch.from_numpy(rng.random(n) < 0.5)]
+    modes = ["min", "max", "max", "min"]
+    assert grid_plan.extreme_strategy(n, G, 4) == "sort"
+    assert grid_plan.extreme_strategy(n, G, 1) == route
+    name, grids = grid_plan.grid_extremes(idx, cols, modes, valids, G)
+    assert name == route
+    for got, col, mode, valid in zip(grids, cols, modes, valids):
+        npt.assert_array_equal(got.numpy(), _numpy_extreme(
+            idx.numpy(), col.numpy(), mode, None if valid is None else valid.numpy(), G))
+    given = [torch.full((G,), 7, dtype=cols[0].dtype), None, None, None]
+    _, again = grid_plan.grid_extremes(idx, cols, modes, valids, G, out=given)
+    assert again[0] is given[0]
+    npt.assert_array_equal(again[0].numpy(), np.minimum(grids[0].numpy(), 7))

@@ -218,8 +218,11 @@ def test_moment_plan_boundaries(C):
                                                      else "b3")
     S = gp.shape(n, 10 ** 6, C).S
     assert grid_plan.moment_strategy(n, gp.P_MAX * S, C) == "b3"
-    assert grid_plan.moment_strategy(n, gp.P_MAX * S + 1, C) is None  # A6
-    assert grid_plan.moment_strategy(2 ** 31, gp.P_MAX * S, C) is None
+    # past B3 in one call: calls of fewer terms where they fit, else sort
+    width = max([c for c in range(1, C) if gp.shape(n, gp.P_MAX * S + 1, c)] or [0])
+    assert grid_plan.moment_strategy(n, gp.P_MAX * S + 1, C) == (
+        f"b3×{-(-C // width)}" if width else "sort")
+    assert grid_plan.moment_strategy(2 ** 31, gp.P_MAX * S, C) == "sort"
     assert gm.fits(g4, C)
     assert grid_plan.moment_strategy(n, 1, gm.MAX_TERMS) == "b4"  # never B5 at G = 1
 
@@ -283,10 +286,22 @@ def test_moment_sums_through_the_plan(G):
         assert name == "b3-l2"
 
 
-def test_moment_sums_raise_past_b3_naming_a6():
-    idx = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A6"):
-        grid_plan.moment_sums(idx, [torch.zeros(4)], agg.VAR_TERMS, 10 ** 9)
+@pytest.mark.parametrize("P_MAX,route", [(8, "b3×3"), (4, "sort")])
+def test_moment_sums_raise_past_b3_naming_a6(monkeypatch, P_MAX, route):
+    """Named for the raise this replaced (ROADMAP A4): var's three terms at
+    G = 120 000 (past B5's parts, below ``b3-l2``) with B3's partition cut to
+    P_MAX buckets: in three calls of one term where one fits (16 384 bins a
+    bucket), through "sort" where none does; equal to the plain moment
+    version, counts exact."""
+    monkeypatch.setattr(gp, "P_MAX", P_MAX)
+    G = 120_000
+    idx, x, y = _inputs(7, 20_000, G)
+    bases = _bases("var", x, y)
+    name, counts, sums = grid_plan.moment_sums(torch.from_numpy(idx), bases, agg.VAR_TERMS, G)
+    assert name == route == grid_plan.moment_strategy(20_000, G, 3)
+    want = gm.grid_moments_reference(torch.from_numpy(idx), bases, agg.VAR_TERMS, G)
+    npt.assert_array_equal(counts.numpy(), want[0].numpy())
+    npt.assert_allclose(sums.numpy(), want[1].numpy(), rtol=1e-12, atol=1e-9)
 
 
 @pytest.mark.parametrize("name", ["b4", "b5"])

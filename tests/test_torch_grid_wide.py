@@ -286,6 +286,21 @@ def test_window_reference_cuts_the_clusters_windows():
         assert gw.cluster_windows(G, C, True) == -(-G // W)
 
 
+def _numpy_channel_sums(idx, ints, floats, G):
+    """The count, the int64 sums (mod 2^64) and the NaN-skipping f64 sums
+    per bin in numpy, as [C, G] arrays; rows outside [0, G) drop."""
+    keep = (idx >= 0) & (idx < G)
+    b = idx[keep]
+    int_sums = [np.bincount(b, minlength=G).astype(np.int64)]
+    for c in ints:
+        out = np.zeros(G, dtype=np.int64)
+        np.add.at(out, b, c[keep])
+        int_sums.append(out)
+    float_sums = [np.bincount(b, weights=np.nan_to_num(c[keep], nan=0.0), minlength=G)
+                  for c in floats]
+    return np.stack(int_sums), np.stack(float_sums)
+
+
 def _strategy(G, C, n=10 ** 8):
     return grid_plan.strategy(n, G, C - 1, 0, True)
 
@@ -311,8 +326,10 @@ def test_plan_boundaries(C):
     S = gp.shape(10 ** 8, 10 ** 7, C).S  # as wide as the sub-grids get
     assert C * S * 8 <= ga.SMEM_BUDGET
     assert _strategy(gp.P_MAX * S, C) == "b3"
-    assert _strategy(gp.P_MAX * S + 1, C) is None  # past B3: the sort strategies (A6)
-    assert _strategy(gp.P_MAX * S, C, n=2 ** 31) is None  # int32 offsets
+    # past B3 in one call: calls of fewer channels where they fit, else sort
+    width = max([c for c in range(1, C) if gp.shape(10 ** 8, gp.P_MAX * S + 1, c)] or [0])
+    assert _strategy(gp.P_MAX * S + 1, C) == (f"b3×{-(-C // width)}" if width else "sort")
+    assert _strategy(gp.P_MAX * S, C, n=2 ** 31) == "sort"  # int32 offsets
     assert _strategy(in_l2, C, n=2 ** 31) == "b3-l2"  # one pass, no offsets
 
 
@@ -333,10 +350,37 @@ def test_plan_keeps_b1_for_many_columns_only_where_it_fits():
     assert grid_plan.strategy(10, grid_plan.B1_MAX_G, ga.MAX_COLS + 1, 0, True) == "b2"
 
 
-def test_grid_sums_raises_past_b3_naming_a6():
-    idx = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A6"):
-        grid_plan.grid_sums(idx, [], [], 10 ** 9, True)
+@pytest.mark.parametrize("G,route", [(20_000, "b3×2"), (40_000, "b3×4"), (70_000, "sort")])
+def test_grid_sums_raises_past_b3_naming_a6(monkeypatch, G, route):
+    """Named for the raise this replaced (ROADMAP A4): with B3's partition cut
+    to 4 buckets, count + two int64 + one f64 (four channels) past it in one
+    call split into calls of as many channels as fit (S = 8192 bins at three
+    channels, 16 384 at one), or take the route "sort" where not one channel
+    fits; ints exact, floats to 1e-9 against the plain resident version and
+    numpy; with ``out`` the sums land in the given rows."""
+    monkeypatch.setattr(gp, "P_MAX", 4)
+    rng = np.random.default_rng(G)
+    n = 20_000
+    idx = torch.from_numpy(rng.integers(-3, G + 5, n).astype(np.int32))
+    ints = [torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, n)) for _ in range(2)]
+    f = rng.normal(0, 100, n)
+    f[::11] = np.nan
+    floats = [torch.from_numpy(f)]
+    assert grid_plan.strategy(n, G, 2, 1, True) == route
+    name, int_sums, float_sums = grid_plan.grid_sums(idx, ints, floats, G, True)
+    want_i, want_f = gp.grid_resident_reference(idx, ints, floats, G, True)
+    assert name == route
+    npt.assert_array_equal(int_sums.numpy(), want_i.numpy())
+    npt.assert_allclose(float_sums.numpy(), want_f.numpy(), rtol=1e-9, atol=1e-9)
+    np_i, np_f = _numpy_channel_sums(idx.numpy(), [c.numpy() for c in ints], [f], G)
+    npt.assert_array_equal(int_sums.numpy(), np_i)
+    npt.assert_allclose(float_sums.numpy(), np_f, rtol=1e-9, atol=1e-9)
+    rows = ([torch.ones(G, dtype=torch.int64) for _ in range(3)],
+            [torch.full((G,), 0.5, dtype=torch.float64)])
+    _, got_i, got_f = grid_plan.grid_sums(idx, ints, floats, G, True, out=rows)
+    assert all(a is b for a, b in zip(got_i + got_f, rows[0] + rows[1]))
+    npt.assert_array_equal(torch.stack(got_i).numpy(), want_i.numpy() + 1)
+    npt.assert_allclose(torch.stack(got_f).numpy(), want_f.numpy() + 0.5, rtol=1e-9, atol=1e-9)
 
 
 @pytest.mark.parametrize("name", ["b1", "b2", "b3", "b3-l2"])

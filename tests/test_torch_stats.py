@@ -223,9 +223,9 @@ def test_moment_ops_past_max_bases_split_into_calls(monkeypatch):
     calls = []
     moment_sums = vaex_tpu_torch.tasks.moment_sums
 
-    def counted(idx, bases, terms, G):
+    def counted(idx, bases, terms, G, **kwargs):
         calls.append((len(bases), len(terms)))
-        return moment_sums(idx, bases, terms, G)
+        return moment_sums(idx, bases, terms, G, **kwargs)
     monkeypatch.setattr(vaex_tpu_torch.tasks, "moment_sums", counted)
     aggs = lambda pkg: {"a": pkg.agg.std("a"), "va": pkg.agg.var("a", ddof=1),  # noqa: E731
                         **{c: pkg.agg.std(c) for c in "bcde"}}

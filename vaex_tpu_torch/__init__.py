@@ -18,6 +18,7 @@ import numpy as _np
 from . import agg  # noqa: F401
 from . import functions as _functions  # noqa: F401  (populates the namespace)
 from . import settings  # noqa: F401
+from .column import ColumnVirtualConstant, ColumnVirtualRange
 from .dataframe import DataFrame
 from .dataset import Dataset, DatasetArrays  # noqa: F401
 from .delayed import delayed  # noqa: F401
@@ -45,6 +46,40 @@ def from_arrays(**arrays) -> DataFrame:
 
 def from_dict(data) -> DataFrame:
     return from_arrays(**data)
+
+
+def from_items(*items) -> DataFrame:
+    return from_arrays(**dict(items))
+
+
+def from_pandas(df, name="pandas", copy_index=False, index_name="index") -> DataFrame:
+    """A DataFrame over the columns of a pandas DataFrame (and its index
+    with ``copy_index``); an object column with missing values becomes a
+    masked array (vaex_tpu/__init__.py:107-121)."""
+    columns = {}
+    for key in df.columns:
+        series = df[key]
+        values = series.to_numpy()
+        if values.dtype == object and series.isna().any():
+            values = _np.ma.MaskedArray(values, series.isna().to_numpy())
+        columns[str(key)] = values
+    if copy_index:
+        columns[index_name] = df.index.to_numpy()
+    return from_arrays(**columns)
+
+
+def vrange(start, stop=None, step=1, dtype="i8") -> DataFrame:
+    """A frame of one column ``x``: ``start, start + step, ...`` below
+    ``stop``, which holds no memory (a tile is an ``arange`` made on the
+    pass device): ``vrange(0, 10**9)`` costs nothing until a pass reads it."""
+    if stop is None:
+        start, stop = 0, start
+    return from_dataset(DatasetArrays({"x": ColumnVirtualRange(start, stop, step, dtype)}))
+
+
+def vconstant(value, length, dtype=None) -> ColumnVirtualConstant:
+    """A column of ``length`` rows of ``value``, for ``add_column``."""
+    return ColumnVirtualConstant(value, int(length), dtype)
 
 
 def concat(dfs) -> DataFrame:

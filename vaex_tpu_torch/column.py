@@ -5,7 +5,10 @@ A column is anything sliceable with ``__len__``, ``__getitem__`` and a
 or a CUDA device) qualify, and the column types below.
 
 * :class:`ColumnVirtualConstant`: the scalar column of
-  ``DataFrame.add_column``, a host array of one value per slice.
+  ``DataFrame.add_column`` and ``vconstant``, a host array of one value per
+  slice.
+* :class:`ColumnVirtualRange`: ``vrange``'s column, which holds no memory: a
+  pass's tile of it is an ``arange`` made on the pass device.
 * :class:`ColumnMasked`: data and a bool mask (True = missing), two tensors
   on one device: what ``DataFrame.to_device`` makes of a masked array.
 * :class:`ColumnIndexed`: the rows of a source column at an index tensor on
@@ -18,8 +21,7 @@ or a CUDA device) qualify, and the column types below.
 A slice of one of the last three is an :class:`~.ops.nullable.NA` of
 tensors on the column's device: data and mask, read with one gather for an
 indexed column.  :func:`tile_of` gives rows of any column as an NA on a
-device, which is how a pass reads them.  ``vrange`` (``ColumnVirtualRange``)
-is not ported yet (ROADMAP queue A6).
+device, which is how a pass reads them.
 """
 
 from __future__ import annotations
@@ -57,6 +59,45 @@ class ColumnVirtualConstant:
 
     def fingerprint(self):
         return f"vconstant-{self.value!r}-{self.length}-{self.dtype}"
+
+
+class ColumnVirtualRange:
+    """The values ``start, start + step, ...`` below ``stop``, in ``dtype``
+    (vaex_tpu/column.py:38-70), held as those three numbers: a pass's tile is
+    an ``arange`` made on the pass device (:func:`tile_of`), a host slice or
+    take a numpy array."""
+
+    def __init__(self, start, stop, step=1, dtype=None):
+        if step == 0:
+            raise ValueError("a range's step must not be 0")
+        self.start, self.stop, self.step = int(start), int(stop), int(step)
+        self.dtype = np.dtype(dtype or np.int64)
+
+    def __len__(self):
+        return len(range(self.start, self.stop, self.step))
+
+    def __getitem__(self, item):
+        if isinstance(item, slice):
+            start, stop, step = item.indices(len(self))
+            rows = np.arange(start, stop, step, dtype=np.int64)
+        else:
+            rows = np.asarray(item, dtype=np.int64)
+        return (self.start + rows * self.step).astype(self.dtype)
+
+    def values_at(self, rows):
+        """The values at the int tensor ``rows``, on its device."""
+        return (rows.to(torch.int64) * self.step + self.start).to(DataType(self.dtype).torch)
+
+    def tile(self, i1, i2, device):
+        """Rows [i1, i2) as a tensor made on ``device``."""
+        return self.values_at(torch.arange(i1, i2, dtype=torch.int64, device=device))
+
+    def trim(self, i1, i2):
+        return ColumnVirtualRange(self.start + i1 * self.step, self.start + i2 * self.step,
+                                  self.step, self.dtype)
+
+    def fingerprint(self):
+        return f"vrange-{self.start}-{self.stop}-{self.step}-{self.dtype}"
 
 
 def _or(a, b):
@@ -299,7 +340,7 @@ def column_device(col):
 
 def slice_column(col, i1, i2):
     """Rows [i1, i2) of a column as a column of the same kind (views)."""
-    return col.trim(i1, i2) if isinstance(col, LAZY) else col[i1:i2]
+    return col.trim(i1, i2) if isinstance(col, LAZY + (ColumnVirtualRange,)) else col[i1:i2]
 
 
 def tile_of(col, i1, i2, device=None) -> NA:
@@ -310,6 +351,8 @@ def tile_of(col, i1, i2, device=None) -> NA:
         part = NA(col[i1:i2])
     elif isinstance(col, LAZY):
         part = col[i1:i2]
+    elif isinstance(col, ColumnVirtualRange):
+        return NA(col.tile(i1, i2, device or CPU))
     else:
         data, mask = array_types.data_and_mask(col[i1:i2])
         part = NA(array_types.to_tensor(data, CPU),
@@ -326,6 +369,8 @@ def gather(col, index) -> NA:
         return NA(col.index_select(0, index.to(col.device)))
     if isinstance(col, LAZY):
         return col.take(index)
+    if isinstance(col, ColumnVirtualRange):
+        return NA(col.values_at(index))
     data, mask = array_types.data_and_mask(col[index.cpu().numpy()])
     return NA(array_types.to_tensor(data, CPU),
               None if mask is None else torch.as_tensor(np.asarray(mask)))
@@ -353,7 +398,7 @@ def column_fingerprint(col):
     """A content hash of a column: its own for the lazy types, else a hash of
     its head, a strided sample and its tail, so that a device column costs a
     few small copies, not a full read."""
-    if isinstance(col, LAZY + (ColumnVirtualConstant,)):
+    if isinstance(col, LAZY + (ColumnVirtualConstant, ColumnVirtualRange)):
         return col.fingerprint()
     n = len(col)
     if n == 0:
@@ -364,3 +409,16 @@ def column_fingerprint(col):
         parts.append(hash_array_data(array_types.to_numpy(col[::step])))
         parts.append(hash_array_data(array_types.to_numpy(col[n - 1000:n])))
     return fingerprint("col-sampled", parts) + f"-n{n}"
+
+
+def is_masked(col):
+    """True for a column that holds a mask of missing rows: a masked array,
+    a :class:`ColumnMasked`, an indexed column with a mask or over a masked
+    source, a concatenation with a masked part."""
+    if isinstance(col, (np.ma.MaskedArray, ColumnMasked)):
+        return True
+    if isinstance(col, ColumnIndexed):
+        return col.mask is not None or is_masked(col.source)
+    if isinstance(col, ColumnConcatenated):
+        return any(is_masked(c) for c in col.columns)
+    return False

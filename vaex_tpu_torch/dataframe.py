@@ -29,7 +29,12 @@ The row operations (``take``, slices, ``head``, ``tail``, ``sort``,
 ``extract``, ``concat``; of a filtered frame the rows its filter keeps) make
 lazy dataset nodes whose columns a pass reads tile by tile on their device
 (:mod:`.dataset`, :mod:`.column`), and ``join`` probes its left key on the
-pass device (:mod:`.join`).
+pass device (:mod:`.join`).  ``evaluate`` reads rows [i1, i2) of the rows
+the filter keeps and of those the rows a selection keeps; ``dropna`` and
+its kin are filters, ``fillna`` virtual columns, ``sample`` / ``shuffle`` /
+``split_random`` lazy takes of numpy's draw, and ``materialize`` leaves a
+frame staged on a device a tensor there (vaex_tpu/dataframe.py:117-141,
+658-739, 1555-1720, 1776-1826).
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ import torch
 from . import agg as agg_module
 from . import array_types, expresso, settings
 from . import selections as selections_module
-from .column import ColumnVirtualConstant, column_to
+from .column import ColumnMasked, ColumnVirtualConstant, column_to, placed_device
+from .column import is_masked as column_is_masked
 from .dataset import Dataset, DatasetArrays
 from .datatype import DataType, dtype_of
 from .delayed import delayed
@@ -167,10 +173,15 @@ class DataFrame:
         a column; one of the same name is replaced."""
         if np.isscalar(data):
             data = ColumnVirtualConstant(data, self.dataset.row_count)
+        self._put_column(name, data)
+
+    def _put_column(self, name, data, logical=None):
+        """Put a column into the dataset under ``name`` (``logical``: the
+        numpy datetime / timedelta dtype an int64 tensor stands for)."""
         if len(data) != self.dataset.row_count:
             raise ValueError(f"array of length {len(data)} does not match the frame's length "
                              f"{self.dataset.row_count}")
-        new = DatasetArrays({name: data})
+        new = DatasetArrays({name: data}, None if logical is None else {name: logical})
         if name in self.dataset:
             self.dataset = self.dataset.dropped(name).merged(new)
         else:
@@ -515,16 +526,62 @@ class DataFrame:
             data, mask = data[keep], None if mask is None else mask[keep]
         return NA(data, mask, value.logical)
 
-    def evaluate(self, expression):
-        """Values of an expression as a host numpy (masked) array."""
+    def evaluate(self, expression, i1=None, i2=None, out=None, selection=None, filtered=True,
+                 array_type=None, parallel=True, chunk_size=None, progress=None):
+        """Values of an expression as a host numpy (masked) array
+        (vaex_tpu/dataframe.py:658-727): of rows [i1, i2), counted among the
+        rows the filter keeps unless ``filtered`` is off; of those only the
+        rows ``selection`` keeps (an expression, True, a name; a list gives a
+        list of arrays, one per selection).  ``array_type`` converts them
+        ("numpy", "list" / "python", "arrow"); ``out`` takes them in place.
+        ``parallel``, ``chunk_size`` and ``progress`` are the reference's
+        and change nothing here."""
         expression = str(expression)
-        if (self._is_physical(expression) and not self.filtered
-                and isinstance(self.dataset[expression], (np.ndarray, torch.Tensor))):
-            values = array_types.to_numpy(self.dataset[expression][:])
-            logical = self.dataset.logical.get(expression)
+        if isinstance(selection, (list, tuple)):
+            return [self.evaluate(expression, i1, i2, None, s, filtered, array_type)
+                    for s in selection]
+        df = self._rows_of(i1, i2, selection, filtered)
+        if (df._is_physical(expression) and not df.filtered
+                and isinstance(df.dataset[expression], (np.ndarray, torch.Tensor))):
+            values = array_types.to_numpy(df.dataset[expression][:])
+            logical = df.dataset.logical.get(expression)
             # a datetime or timedelta column comes back from its int64 form
-            return values.view(logical) if values.dtype.kind == "i" and logical else values
-        return self._evaluate_rows(expression, 0, self.dataset.row_count)
+            if values.dtype.kind == "i" and logical:
+                values = values.view(logical)
+        else:
+            values = df._evaluate_rows(expression, 0, df.dataset.row_count)
+        if out is not None:
+            out[...] = values
+            return out
+        return _converted(values, array_type)
+
+    def _rows_of(self, i1, i2, selection, filtered=True):
+        """The frame whose rows :meth:`evaluate` reads: rows [i1, i2) of the
+        rows the filter keeps (of all rows without ``filtered``, the filter
+        dropped), filtered by ``selection`` on top."""
+        df = self if filtered else self._rebind_dataset(self.dataset, keep_filter=False)
+        if i1 is not None or i2 is not None:
+            df = df.extract()
+            i1, i2 = i1 or 0, df.dataset.row_count if i2 is None else i2
+            df = df._rebind_dataset(df.dataset.slice(i1, max(i1, i2)))
+        selection = agg_module.selection_expression(selection, self)
+        return df if selection is None else df.filter(selection)
+
+    def evaluate_iterator(self, expression, s1=None, s2=None, chunk_size=None, parallel=True,
+                          array_type=None, prefetch=True, progress=None):
+        """Yield ``(i1, i2, values)`` over rows [s1, s2) in chunks of
+        ``chunk_size`` rows (a tile by default), counted among the rows the
+        filter keeps, which are found once (vaex_tpu/dataframe.py:729-739,
+        whose loop ignores ``s1`` and ``s2``); an empty frame yields one
+        empty chunk."""
+        df = self.extract()
+        chunk_size = chunk_size or self._tile_rows or settings.TILE_ROWS
+        n = len(df)
+        s1 = s1 or 0
+        s2 = n if s2 is None else min(s2, n)
+        for i1 in range(s1, max(s2, s1 + 1), chunk_size):
+            i2 = min(i1 + chunk_size, s2)
+            yield i1, i2, df.evaluate(expression, i1, max(i1, i2), array_type=array_type)
 
     # ---------------------------------------------------------- aggregation
     def execute(self):
@@ -985,6 +1042,218 @@ class DataFrame:
             expr = expr | e
         return expr
 
+    # ------------------------------------------------- dropping and filling
+    def dropna(self, column_names=None, how="any"):
+        """The rows where no column (of ``column_names``) is NaN or missing
+        (vaex_tpu/dataframe.py:1604-1634): a filter.  The reference takes
+        ``how`` and ignores it; only "any" is what it does."""
+        if how != "any":
+            raise NotImplementedError(f"dropna(how={how!r}): only how='any' is defined")
+        return self._drop_x(column_names, lambda name: f"notna({name})")
+
+    def dropmissing(self, column_names=None):
+        """The rows where no column is missing (a masked value)."""
+        return self._drop_x(column_names, lambda name: f"~ismissing({name})")
+
+    def dropnan(self, column_names=None):
+        """The rows where no float column is NaN."""
+        return self._drop_x(column_names, lambda name: f"~isnan({name})", floats_only=True)
+
+    def dropinf(self, column_names=None):
+        """The rows where no float column is +-inf."""
+        return self._drop_x(column_names, lambda name: f"~isinf({name})", floats_only=True)
+
+    def _drop_x(self, column_names, keep, floats_only=False):
+        """A filter of the rows where ``keep(name)`` holds for every column
+        (only the float ones with ``floats_only``); a copy when none is left."""
+        names = [str(n) for n in (column_names or self.get_column_names())]
+        if floats_only:
+            names = [n for n in names if self.data_type(n).numpy.kind == "f"]
+        if not names:
+            return self.copy()
+        return self.filter(" & ".join(f"({keep(name)})" for name in names))
+
+    def fillna(self, value, column_names=None, prefix="__original_", inplace=False):
+        """Each column (of ``column_names``) with its NaN and missing values
+        replaced by ``value``: a virtual column ``fillna(name, value)`` over
+        the old one (vaex_tpu/dataframe.py:1636-1646; ``prefix`` is the
+        reference's and unused there too)."""
+        df = self if inplace else self.copy()
+        for name in map(str, column_names or df.get_column_names()):
+            if df.data_type(name).numpy.kind in "OSU":
+                continue
+            df.add_virtual_column(name, f"fillna({name}, {value!r})")
+        return df
+
+    # ----------------------------------------------------------- exporters
+    def to_arrays(self, column_names=None, selection=None, strings=True, virtual=True,
+                  parallel=True, chunk_size=None, array_type=None):
+        """The values of each column (of ``column_names``) as :meth:`evaluate`
+        gives them."""
+        return [self.evaluate(name, selection=selection, array_type=array_type)
+                for name in self._export_names(column_names, strings, virtual)]
+
+    def _export_names(self, column_names, strings=True, virtual=True):
+        names = [str(n) for n in (column_names or self.get_column_names(virtual=virtual))]
+        if not strings:
+            names = [n for n in names if self.data_type(n).numpy.kind not in "OSU"]
+        return names
+
+    def to_dict(self, column_names=None, selection=None, strings=True, virtual=True,
+                parallel=True, chunk_size=None, array_type=None):
+        names = self._export_names(column_names, strings, virtual)
+        return dict(zip(names, self.to_arrays(names, selection, array_type=array_type)))
+
+    def to_items(self, column_names=None, selection=None, strings=True, virtual=True,
+                 parallel=True, chunk_size=None, array_type=None):
+        return list(self.to_dict(column_names, selection, strings, virtual,
+                                 array_type=array_type).items())
+
+    def to_records(self, index=None, selection=None):
+        """One dict per row (or the one at ``index``) of python values."""
+        names = self.get_column_names()
+        rows = [dict(zip(names, row)) for row in
+                zip(*self.to_arrays(names, selection=selection, array_type="python"))]
+        return rows if index is None else rows[index]
+
+    def to_pandas_df(self, column_names=None, selection=None, strings=True, virtual=True,
+                     index_name=None, parallel=True, chunk_size=None, array_type=None):
+        """A pandas DataFrame of the columns; a missing value is NaN (an int
+        column with one turns float64) or None in an object column."""
+        import pandas as pd
+        data = {}
+        for name, values in self.to_items(column_names, selection, strings, virtual):
+            if isinstance(values, np.ma.MaskedArray):
+                if values.dtype.kind in "iu":
+                    values = values.astype(np.float64).filled(np.nan)
+                elif values.dtype.kind == "O":
+                    values = np.asarray([None if m else v for v, m in
+                                         zip(values.data, np.ma.getmaskarray(values))],
+                                        dtype=object)
+                else:
+                    values = values.filled(np.nan)
+            data[name] = values
+        return pd.DataFrame(data)
+
+    def to_arrow_table(self, column_names=None, selection=None, strings=True, virtual=True,
+                       parallel=True, chunk_size=None, reduce_large=False):
+        """A pyarrow Table of the columns; a missing value is null."""
+        import pyarrow as pa
+        return pa.table({name: _converted(values, "arrow") for name, values in
+                         self.to_items(column_names, selection, strings, virtual)})
+
+    def to_copy(self, column_names=None, selection=None, strings=True, virtual=True,
+                selections=True):
+        """A copy of the frame: with ``selection`` a frame of host arrays of
+        the rows it keeps, else one over the same columns, without its
+        virtual columns unless ``virtual``, without its selections unless
+        ``selections`` (vaex_tpu/dataframe.py:117-141)."""
+        if selection is not None:
+            from . import from_dict
+            return from_dict(self.to_dict(column_names, selection, strings, virtual))
+        names = column_names
+        if names is None and (not strings or not virtual):
+            names = self._export_names(None, strings, virtual)
+        df = self.copy(column_names=names)
+        if not virtual:
+            df.virtual_columns = {}
+            df.column_names = [n for n in df.column_names if n not in self.virtual_columns]
+        if not selections:
+            df.selections, df.selection_histories, df.selection_history_indices = {}, {}, {}
+        return df
+
+    def materialize(self, column=None, inplace=False):
+        """Virtual columns (``column``, or all) evaluated over every row into
+        real columns (vaex_tpu/dataframe.py:1710-1720), so that a pass reads
+        them instead of evaluating them again.  On a frame whose columns lie
+        on a device the values stay there as a tensor (with a mask tensor
+        where some are missing), as ``to_device`` would leave them; a frame of
+        host arrays gets host arrays."""
+        df = self if inplace else self.copy()
+        names = [str(column)] if column is not None else list(df.virtual_columns)
+        staged = df.dataset.device is not None or any(
+            placed_device(c) is not None for c in df.dataset.values())
+        for name in names:
+            if name not in df.virtual_columns:
+                raise KeyError(f"{name!r} is not a virtual column")
+            if staged:
+                value = df._evaluate_tile(name, 0, df.dataset.row_count, filtered=False)
+                data = value.data.contiguous()
+                values = data if value.mask is None else ColumnMasked(data, value.mask)
+                logical = value.logical
+            else:
+                values, logical = df.evaluate(name, filtered=False), None
+            del df.virtual_columns[name]
+            df._put_column(name, values, logical)
+        return df
+
+    # ----------------------------------------------------- random rows, splits
+    def shuffle(self, random_state=None):
+        """The rows in a random order, drawn as vaex_tpu draws it
+        (``np.random.default_rng(random_state).permutation``), then a lazy take."""
+        return self.take(np.random.default_rng(random_state).permutation(len(self)))
+
+    def sample(self, n=None, frac=None, replace=False, weights=None, random_state=None):
+        """``n`` rows (or ``frac`` of them; all by default) drawn on the host
+        as vaex_tpu draws them (``rng.choice``, ``weights`` an expression of
+        the rows' weights), so the same ``random_state`` picks the same rows
+        in both packages; then a lazy take (vaex_tpu/dataframe.py:1560-1573)."""
+        N = len(self)
+        if n is None:
+            n = int(round((frac if frac is not None else 1.0) * N))
+        p = None
+        if weights is not None:
+            w = np.asarray(self.evaluate(str(weights)), np.float64)
+            p = w / w.sum()
+        rng = np.random.default_rng(random_state)
+        return self.take(rng.choice(N, n, replace=replace, p=p))
+
+    def split(self, into=None):
+        """Consecutive frames: ``into`` of them of (nearly) equal length, or
+        one per fraction of a list, the last taking the rest."""
+        N = len(self)
+        if isinstance(into, (int, np.integer)):
+            sizes = [N // into + (1 if i < N % into else 0) for i in range(into)]
+        else:
+            sizes = [int(round(f * N)) for f in into]
+            sizes[-1] = N - sum(sizes[:-1])
+        starts = np.cumsum([0] + sizes).tolist()
+        return [self[a:b] for a, b in zip(starts, starts[1:])]
+
+    def split_random(self, into=None, random_state=None):
+        return self.shuffle(random_state=random_state).split(into)
+
+    # ---------------------------------------------------------- accessors
+    @property
+    def shape(self):
+        return (len(self), len(self.get_column_names()))
+
+    @property
+    def dtypes(self):
+        """Each column's dtype name, as a dict (vaex_tpu gives a pandas
+        Series of the same pairs)."""
+        return {name: self.data_type(name).name for name in self.get_column_names()}
+
+    def is_masked(self, column):
+        """True when the column holds a mask of missing values (a type
+        check, not a scan); for a virtual column, when its expression's
+        values over the first row carry one."""
+        column = str(column)
+        if self._is_physical(column):
+            return column_is_masked(self.dataset[column])
+        if not self.dataset.row_count:
+            return False
+        return self._evaluate_tile(column, 0, 1, filtered=False).mask is not None
+
+    def length_original(self):
+        return self.dataset.row_count
+
+    def length_unfiltered(self):
+        return self.dataset.row_count
+
+    def count_rows(self):
+        return len(self)
+
     # -------------------------------------------------------------- devices
     def to_device(self, device=None, column_names=None):
         """Stage columns as tensors on ``device`` (default ``settings.DEVICE``).
@@ -1038,3 +1307,20 @@ def _descending(data):
     if data.dtype.kind == "b":
         return ~data
     return -data.astype(np.float64)
+
+
+def _converted(values, array_type):
+    """A host (masked) array as ``array_type`` asks: as it is (None,
+    "numpy"), a list of python values ("list", "python"; None where missing)
+    or a pyarrow array ("arrow"; null where missing)."""
+    if array_type in (None, "numpy"):
+        return values
+    if array_type in ("list", "python"):
+        return values.tolist(None) if isinstance(values, np.ma.MaskedArray) else values.tolist()
+    if array_type == "arrow":
+        import pyarrow as pa
+        if isinstance(values, np.ma.MaskedArray):
+            return pa.array(values.data, mask=np.ma.getmaskarray(values))
+        return pa.array(values)
+    raise ValueError(f"array_type must be None, 'numpy', 'list', 'python' or 'arrow', "
+                     f"got {array_type!r}")

@@ -117,10 +117,11 @@ def index_tensor(indices, n):
     checked against the ``n`` rows."""
     if isinstance(indices, torch.Tensor):
         return indices
-    indices = np.asarray(indices, dtype=np.int64).reshape(-1)
-    if len(indices) and (indices.min() < -n or indices.max() >= n):
+    indices = np.array(indices, dtype=np.int64).reshape(-1)  # a copy the caller cannot change
+    low = indices.min() if len(indices) else 0
+    if len(indices) and (low < -n or indices.max() >= n):
         raise IndexError(f"row indices out of range for {n} rows")
-    return torch.from_numpy(np.where(indices < 0, indices + n, indices))
+    return torch.from_numpy(np.where(indices < 0, indices + n, indices) if low < 0 else indices)
 
 
 class DatasetArrays(Dataset):

@@ -19,14 +19,19 @@ class Promise:
     def fulfill(self, value):
         self.result = value
         self.done = True
-        for cb in self._callbacks:
+        # a settled promise drops its callbacks: they close over the promises
+        # they wait on, and the cycle would keep a pass's grids (GBs on a
+        # card) alive until Python's cycle collector ran
+        callbacks, self._callbacks, self._error_callbacks = self._callbacks, [], []
+        for cb in callbacks:
             cb(value)
         return self
 
     def reject(self, exception):
         self.exception = exception
         self.done = True
-        for cb in self._error_callbacks:
+        callbacks, self._callbacks, self._error_callbacks = self._error_callbacks, [], []
+        for cb in callbacks:
             cb(exception)
         return self
 

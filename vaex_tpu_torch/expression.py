@@ -147,15 +147,21 @@ class Expression(metaclass=Meta):
     def __abs__(self):
         return self.abs()
 
-    def evaluate(self):
-        """The values as a host numpy (masked) array."""
-        return self.df.evaluate(self.expression)
+    def evaluate(self, i1=None, i2=None, out=None, selection=None, filtered=True,
+                 array_type=None, parallel=True):
+        """The values as a host numpy (masked) array
+        (:meth:`~vaex_tpu_torch.dataframe.DataFrame.evaluate`)."""
+        return self.df.evaluate(self.expression, i1, i2, out, selection, filtered, array_type)
 
-    def tolist(self):
-        values = self.evaluate()
-        if isinstance(values, np.ma.MaskedArray):
-            return values.tolist(None)
-        return values.tolist()
+    @property
+    def values(self):
+        return self.evaluate()
+
+    def to_numpy(self):
+        return self.evaluate(array_type="numpy")
+
+    def tolist(self, i1=None, i2=None):
+        return self.evaluate(i1, i2, array_type="list")
 
     def __len__(self):
         return len(self.df)

@@ -14,8 +14,12 @@ grid size G and the channel count C (count + int columns + float columns):
   <= 28 MiB);
 * ``b3`` (:func:`.grid_partition.grid_partition`, B3's partition route) up
   to its limits (N < 2^31 rows per call, at most ``grid_partition.P_MAX``
-  buckets);
-* past those, None: the sort strategies are not ported yet (ROADMAP A6).
+  buckets of a sub-grid that narrows as the channels grow);
+* ``b3×k`` past them where calls of fewer channels fit: the batch split into
+  k calls of B3's partition, each of as many channels as fit, the count with
+  the first (:func:`_split_width`);
+* ``sort`` past that (:mod:`.grid_sort`: a scatter of every row straight into
+  the grid, any G, any N).  So the plan names a route for every (N, G, C).
 
 The cut-offs were measured on an NVIDIA H100 80GB HBM3 at its 700 W limit,
 1e8 uniform keys (``scripts/sweep_grid_kernels.py``; PERF.md, section 6).
@@ -52,7 +56,7 @@ and each kernel's bucket and window arithmetic run in the CPU tests too.
 A pass's moment terms (var, std, covar, corr) take
 :func:`moment_strategy`'s kernel: ``b4`` (B4: lane-private grids, or its
 ordered warp grids), ``b5`` (B5, parts of 227 KiB) or, over the formed term
-columns, ``b3-l2`` / ``b3``, with C the number of terms.  Its cut-offs were
+columns, ``b3-l2`` / ``b3`` / ``b3×k`` / ``sort``, with C the number of terms.  Its cut-offs were
 measured the same way on that card (``--moments``; 1e8 uniform keys; C = 3:
 var of an f64 column; C = 6: corr of two int64 columns; each through its
 compiled set and, x and x*x swapped, through the run-time tables; runs W6,
@@ -80,15 +84,17 @@ C = 6 (G = 32 768: 10.811 against 17.929) and lost at 18 (G = 65 536:
 18.738 against 17.771): ``B5_MAX_PARTS`` = 12.
 
 A pass's per-bin extremes (min, max, the two mins of ``first``) take
-:func:`extreme_strategy`'s route, always kernel B3x: ``b3x-direct``
+:func:`extreme_strategy`'s route, kernel B3x or past it ``sort``: ``b3x-direct``
 (:func:`.grid_partition.grid_partition_extreme` over the raw rows, one grid
 of keys a CTA) while the [E, G] keys fit one CTA's shared memory,
 ``b3x-l2`` (:func:`.grid_partition.grid_resident_extreme`, one grid of keys
 that stays in L2) while the [G, stride] keys take at most
-``grid_partition.RESIDENT_BYTES``, ``b3x`` over a partition past that; in
-calls of ``grid_partition.MAX_EXT`` columns at most on the direct route, as
-many as keep the keys in L2 on the resident route and ``B3X_BATCH`` over a
-partition (:func:`_extreme_batch`).  Where the additive batch of the same
+``grid_partition.RESIDENT_BYTES``, ``b3x`` over a partition past that,
+``sort`` (:func:`.grid_sort.grid_sort_extreme`) where not even one column
+fits the partition; in calls of ``grid_partition.MAX_EXT`` columns at most
+on the direct route, as many as keep the keys in L2 on the resident route
+and at most ``B3X_BATCH`` over a partition, fewer where the partition takes
+fewer (:func:`_extreme_batch`).  Where the additive batch of the same
 task is past B1 and the extremes alone take ``b3x``, or ``b3x-l2`` where
 :func:`_apart` does not hold, the first call of extremes computes the sums
 from its partition too (:func:`grid_sums_and_extremes`; the additive
@@ -124,16 +130,26 @@ two windows) 3.140 against 3.079 ms (E = 1) and 4.054 against 3.018 (E =
 at 1 000 003 3.437 against 3.577 and 5.043 against 3.748: ``_apart``
 beside B2 in at most ``B3X_APART_B2_WINDOWS`` = 2 windows, or beside
 ``b3-l2`` from ``B3X_APART_MIN_COLS`` = 2 extreme columns.
+
+Every function that adds a tile takes ``out``: the rows (grids) of the
+pass's running state, which every route leaves holding their old value plus
+the tile's (the min / max of both for the extremes), in place; ``sort``
+scatters straight into them (:mod:`.grid_sort`), the kernels' tile grids
+are added into them.
 """
 
 from __future__ import annotations
 
-from . import grid_additive, grid_moments, grid_partition, grid_window
+import torch
+
+from . import grid_additive, grid_moments, grid_partition, grid_sort, grid_window
 from .grid_additive import n_channels
 
 B1, B2, B3, B4, B5 = "b1", "b2", "b3", "b4", "b5"
 B3_L2 = "b3-l2"
 B3X, B3X_DIRECT, B3X_L2 = "b3x", "b3x-direct", "b3x-l2"
+SORT = grid_sort.SORT
+SPLIT = "×"  # "b3×2": B3's partition in two calls
 # extreme columns per call over a partition (the kernel takes MAX_EXT): the
 # sub-grid narrows as columns are added, and past four a second call is faster
 B3X_BATCH = 4
@@ -164,18 +180,28 @@ MOMENT_PLAIN = {B4: grid_moments.grid_moments_reference,
                 B5: grid_moments.grid_moments_window_reference}
 
 
+def _split_width(n, G, C):
+    """The most channels one call of B3's partition takes at G over n rows,
+    at most C; 0 where not even one does."""
+    while C and grid_partition.shape(n, G, C) is None:
+        C -= 1
+    return C
+
+
 def _wide(n, G, C):
-    """``b3-l2``, ``b3`` or None for a grid past the windowed kernels."""
+    """``b3-l2``, ``b3``, ``b3×k`` or ``sort`` for a grid past the windowed
+    kernels."""
     if grid_partition.resident_fits(G, C):
         return B3_L2
-    if grid_partition.shape(n, G, C) is not None:
+    width = _split_width(n, G, C)
+    if width == C:
         return B3
-    return None
+    return f"{B3}{SPLIT}{-(-C // width)}" if width else SORT
 
 
 def strategy(n, G, n_int, n_float, count):
-    """``b1``, ``b2``, ``b3-l2``, ``b3`` or None for an n-row call over G
-    bins."""
+    """``b1``, ``b2``, ``b3-l2``, ``b3``, ``b3×k`` or ``sort`` for an n-row
+    call over G bins."""
     C = n_channels(n_int, n_float, count)
     if C < 1 or G < 1:
         raise ValueError(f"nothing to add: G={G}, no columns and no count")
@@ -192,20 +218,63 @@ def b2_max_windows(C):
     return B2_MAX_WINDOWS[C > B2_FEW_CHANNELS]
 
 
-def _past_b3(n, G):
-    return NotImplementedError(
-        f"a grid of G={G} bins over {n} rows is past the partitioned kernel's limits "
-        f"(at most {grid_partition.P_MAX} buckets, fewer than 2^31 rows per call); the "
-        f"sort strategies are not ported yet (ROADMAP queue A6)")
+def _added(out, sums):
+    """Each row of ``out`` (None: none given) plus the tile's row of
+    ``sums`` in place; the tile's own row where no row is given."""
+    if out is None:
+        return sums
+    return [s if row is None else row.add_(s) for row, s in zip(out, sums)]
 
 
-def grid_sums(idx, int_cols, float_cols, G, count):
-    """(strategy, int_sums, float_sums) through the kernel the plan picks;
-    raises NotImplementedError past B3's limits."""
-    name = strategy(idx.shape[0], int(G), len(int_cols), len(float_cols), count)
-    if name is None:
-        raise _past_b3(idx.shape[0], G)
-    return (name, *KERNELS[name](idx, int_cols, float_cols, G, count))
+def _split_sums(idx, int_cols, float_cols, G, count):
+    """B3's partition in calls of :func:`_split_width` channels, the count
+    with the first: (int rows, float rows)."""
+    n = idx.shape[0]
+    channels = ([("count", None)] if count else []) + [("int", c) for c in int_cols] + [
+        ("float", c) for c in float_cols]
+    width = _split_width(n, G, len(channels))
+    int_rows, float_rows = [], []
+    for k in range(0, len(channels), width):
+        part = channels[k:k + width]
+        i, f = grid_partition.grid_partition(
+            idx, [c for kind, c in part if kind == "int"],
+            [c for kind, c in part if kind == "float"], G, part[0][0] == "count")
+        int_rows += list(i)
+        float_rows += list(f)
+    return int_rows, float_rows
+
+
+def _wide_sums(name, idx, int_cols, float_cols, G, count, out):
+    """(int_sums, float_sums) of a call on the wide route ``name``."""
+    if name == SORT:
+        return grid_sort.grid_sort(idx, int_cols, float_cols, G, count, out)
+    if SPLIT in name:
+        int_sums, float_sums = _split_sums(idx, int_cols, float_cols, G, count)
+        if out is None:  # one tensor each, as every other route returns
+            return (torch.stack(int_sums) if int_sums else _empty(idx, G, torch.int64),
+                    torch.stack(float_sums) if float_sums else _empty(idx, G, torch.float64))
+    else:
+        int_sums, float_sums = KERNELS[name](idx, int_cols, float_cols, G, count)
+    return (_added(None if out is None else out[0], int_sums),
+            _added(None if out is None else out[1], float_sums))
+
+
+def _empty(idx, G, dtype):
+    return torch.zeros((0, G), dtype=dtype, device=idx.device)
+
+
+def grid_sums(idx, int_cols, float_cols, G, count, out=None):
+    """(strategy, int_sums, float_sums) through the route the plan picks;
+    ``out`` (int rows, float rows: per channel, the count first, a [G] int64
+    or float64 tensor or None) takes the tile's sums in place, and then the
+    sums come back as lists of those rows (the tile's own where None)."""
+    G = int(G)
+    name = strategy(idx.shape[0], G, len(int_cols), len(float_cols), count)
+    if name in (B1, B2):
+        int_sums, float_sums = KERNELS[name](idx, int_cols, float_cols, G, count)
+        return (name, _added(None if out is None else out[0], int_sums),
+                _added(None if out is None else out[1], float_sums))
+    return (name, *_wide_sums(name, idx, int_cols, float_cols, G, count, out))
 
 
 def b4_max_g(C):
@@ -215,14 +284,14 @@ def b4_max_g(C):
 
 
 def moment_strategy(n, G, C, n_count=1, compiled=0):
-    """``b4``, ``b5``, ``b3`` or None for an n-row call of C moment terms
-    over G bins, ``compiled`` the batch's compiled term set, 0 for none
-    (:func:`.grid_moments.compiled`): B4 (:func:`.grid_moments.grid_moments`)
-    wherever its lane route takes the grid (:func:`.grid_moments.route`) and
-    on its warp route up to :func:`b4_max_g`, B5
-    (:func:`.grid_moments.grid_moments_window`) up to ``B5_MAX_PARTS``
-    parts (:func:`.grid_moments.part_plan`), then B3 over the formed term
-    columns."""
+    """``b4``, ``b5``, ``b3-l2``, ``b3``, ``b3×k`` or ``sort`` for an n-row
+    call of C moment terms over G bins, ``compiled`` the batch's compiled
+    term set, 0 for none (:func:`.grid_moments.compiled`): B4
+    (:func:`.grid_moments.grid_moments`) wherever its lane route takes the
+    grid (:func:`.grid_moments.route`) and on its warp route up to
+    :func:`b4_max_g`, B5 (:func:`.grid_moments.grid_moments_window`) up to
+    ``B5_MAX_PARTS`` parts (:func:`.grid_moments.part_plan`), then the wide
+    routes over the formed term columns (:func:`_wide`)."""
     if not 1 <= C <= grid_moments.MAX_TERMS or G < 1:
         raise ValueError(f"G={G} with {C} terms: the moment kernels take 1 to "
                          f"{grid_moments.MAX_TERMS} terms")
@@ -234,32 +303,37 @@ def moment_strategy(n, G, C, n_count=1, compiled=0):
     return _wide(n, G, C)
 
 
-def moment_sums(idx, bases, terms, G):
+def moment_sums(idx, bases, terms, G, out=None):
     """(strategy, counts, sums) of the moment terms (the contract of
-    :mod:`.grid_moments`) through the kernel the plan picks.  On ``b3`` the
-    terms are formed as columns in torch and B3 adds them; past B3's limits
-    this raises NotImplementedError.  idx None: every row in bin 0, G = 1,
-    which B4 takes without an index."""
+    :mod:`.grid_moments`) through the route the plan picks.  On the wide
+    routes the terms are formed as columns in torch and B3 (or ``sort``)
+    adds them.  ``out`` holds per term a [G] row (int64 for a count term,
+    float64 else) or None, taken in place as in :func:`grid_sums`.  idx
+    None: every row in bin 0, G = 1, which B4 takes without an index."""
     G = int(G)
     n = (idx if idx is not None else bases[0]).shape[0]
     n_count = sum(int(t[0]) < 0 for t in terms)
     name = moment_strategy(n, G, len(terms), n_count, grid_moments.compiled(len(bases), terms))
-    if name is None:
-        raise _past_b3(n, G)
-    if name in (B3, B3_L2):
-        grid_moments.check_inputs(idx, bases, terms, G)
-        count_cols, float_cols = grid_moments.form_terms(idx, bases, terms)
-        return (name, *KERNELS[name](idx, count_cols, float_cols, G, False))
-    return (name, *MOMENT_KERNELS[name](idx, bases, terms, G))
+    rows = None if out is None else (  # the kernels' count rows, then their float rows
+        [row for row, t in zip(out, terms) if int(t[0]) < 0],
+        [row for row, t in zip(out, terms) if int(t[0]) >= 0])
+    if name in (B4, B5):
+        counts, sums = MOMENT_KERNELS[name](idx, bases, terms, G)
+        if out is None:
+            return name, counts, sums
+        return name, _added(rows[0], counts), _added(rows[1], sums)
+    grid_moments.check_inputs(idx, bases, terms, G)
+    count_cols, float_cols = grid_moments.form_terms(idx, bases, terms)
+    return (name, *_wide_sums(name, idx, count_cols, float_cols, G, False, rows))
 
 
 def extreme_strategy(n, G, n_cols, n_int=0, n_float=0, count=False):
-    """``b3x-direct``, ``b3x-l2``, ``b3x`` or None for one n-row call of
+    """``b3x-direct``, ``b3x-l2``, ``b3x`` or ``sort`` for one n-row call of
     ``n_cols`` extreme columns (at most ``grid_partition.MAX_EXT``) over G
     bins that also carries the given additive columns: B3x over the raw rows
     while the keys of the grid fit one CTA's shared memory, its resident
     route while they stay in L2 (both when nothing additive comes along),
-    B3x over a partition up to B3's limits."""
+    B3x over a partition up to B3's limits, :mod:`.grid_sort` past them."""
     if not 1 <= n_cols <= grid_partition.MAX_EXT or G < 1:
         raise ValueError(f"G={G} with {n_cols} extreme columns: a call takes 1 to "
                          f"{grid_partition.MAX_EXT}")
@@ -270,14 +344,15 @@ def extreme_strategy(n, G, n_cols, n_int=0, n_float=0, count=False):
         return B3X_L2
     if grid_partition.extreme_call_fits(n, G, n_cols, n_int, n_float, count):
         return B3X
-    return None
+    return SORT
 
 
 def _extreme_batch(n, G, left):
     """The columns of the next call of :func:`grid_extremes`, ``left`` still
     to go: ``grid_partition.MAX_EXT`` at most on the direct route, as many as
     keep the grid of keys in L2 on the resident route, ``B3X_BATCH`` over a
-    partition."""
+    partition, or fewer where the partition takes fewer (one where it takes
+    none: that call goes to ``sort``)."""
     size = min(left, grid_partition.MAX_EXT)
     if extreme_strategy(n, G, size) == B3X_DIRECT:
         return size
@@ -286,29 +361,45 @@ def _extreme_batch(n, G, left):
         resident -= 1
     if resident and extreme_strategy(n, G, resident) == B3X_L2:
         return resident
-    return min(size, B3X_BATCH)
+    size = min(size, B3X_BATCH)
+    while size > 1 and extreme_strategy(n, G, size) == SORT:
+        size -= 1
+    return size
 
 
-def grid_extremes(idx, cols, modes, valids, G):
+def _taken(out, grids, modes):
+    """Each grid of ``out`` (None: none given) with the tile's grid taken
+    into it in place by its mode; the tile's own grid where none is given."""
+    if out is None:
+        return grids
+    return [g if row is None else (torch.minimum if mode == "min" else torch.maximum)(
+        row, g, out=row) for row, g, mode in zip(out, grids, modes)]
+
+
+def grid_extremes(idx, cols, modes, valids, G, out=None):
     """(strategy, grids): the per-bin extremes of any number of columns
-    through B3x, in calls of :func:`_extreme_batch` columns; raises
-    NotImplementedError past B3's limits."""
+    through B3x, in calls of :func:`_extreme_batch` columns, or all of them
+    through ``sort`` where not one column fits B3x's partition.  ``out``
+    holds per column a [G] grid of its dtype (or None) that takes the tile's
+    extremes in place."""
     G, n = int(G), idx.shape[0]
+    outs = [None] * len(cols) if out is None else list(out)
+    if extreme_strategy(n, G, 1) == SORT:
+        return SORT, grid_sort.grid_sort_extreme(idx, cols, modes, valids, G, outs)
     names, grids = [], []
     k = 0
     while k < len(cols):
         size = _extreme_batch(n, G, len(cols) - k)
         batch = slice(k, k + size)
         name = extreme_strategy(n, G, size)
-        if name is None:
-            raise _past_b3(n, G)
         names.append(name)
         if name == B3X_L2:
-            grids += grid_partition.grid_resident_extreme(idx, cols[batch], modes[batch],
-                                                          valids[batch], G)
+            tile = grid_partition.grid_resident_extreme(idx, cols[batch], modes[batch],
+                                                        valids[batch], G)
         else:
-            grids += grid_partition.grid_partition_extreme(idx, cols[batch], modes[batch],
-                                                           valids[batch], G)[0]
+            tile = grid_partition.grid_partition_extreme(idx, cols[batch], modes[batch],
+                                                         valids[batch], G)[0]
+        grids += _taken(outs[batch], tile, modes[batch])
         k += size
     return "+".join(dict.fromkeys(names)), grids
 
@@ -323,33 +414,40 @@ def _apart(G, name, C, count, n_cols):
     return name == B3_L2 and n_cols >= B3X_APART_MIN_COLS
 
 
-def grid_sums_and_extremes(idx, int_cols, float_cols, G, count, cols, modes, valids):
+def grid_sums_and_extremes(idx, int_cols, float_cols, G, count, cols, modes, valids,
+                           out=None, ext_out=None):
     """(additive strategy, extreme strategy, shared, int_sums, float_sums,
     grids) of a task's additive batch and its extreme columns.  When the
     extremes alone take ``b3x`` (past L2), or ``b3x-l2`` where :func:`_apart`
-    does not hold, and the sums are past ``b1``, one call takes the sums with
-    the first ``B3X_BATCH`` extreme columns and computes both from one
-    partition (``shared``; the additive strategy is then ``b3``); the other
-    extreme columns, and all of them otherwise, take :func:`grid_extremes`."""
+    does not hold, the sums are past ``b1`` and one call of B3x's partition
+    takes the sums with the first ``B3X_BATCH`` extreme columns, that call
+    computes both from one partition (``shared``; the additive strategy is
+    then ``b3``); the other extreme columns, and all of them otherwise, take
+    :func:`grid_extremes`, and the sums :func:`grid_sums`.  ``out`` and
+    ``ext_out`` are those functions' ``out``."""
     G, n = int(G), idx.shape[0]
     name = strategy(n, G, len(int_cols), len(float_cols), count)
-    if name is None:
-        raise _past_b3(n, G)
     head = min(len(cols), B3X_BATCH)
     alone = extreme_strategy(n, G, _extreme_batch(n, G, len(cols))) if cols else None
     C = n_channels(len(int_cols), len(float_cols), count)
-    shared = (name != B1 and (alone == B3X or alone == B3X_L2
-                              and not _apart(G, name, C, count, len(cols)))
+    shared = (name in (B2, B3_L2, B3) and (alone == B3X or alone == B3X_L2
+                                           and not _apart(G, name, C, count, len(cols)))
               and extreme_strategy(n, G, head, len(int_cols), len(float_cols), count) == B3X)
+    ext_out = [None] * len(cols) if ext_out is None else list(ext_out)
     if not shared:
-        _, int_sums, float_sums = grid_sums(idx, int_cols, float_cols, G, count)
-        ext_name, grids = grid_extremes(idx, cols, modes, valids, G) if cols else (None, [])
+        _, int_sums, float_sums = grid_sums(idx, int_cols, float_cols, G, count, out)
+        ext_name, grids = (grid_extremes(idx, cols, modes, valids, G, ext_out) if cols
+                           else (None, []))
         return name, ext_name, False, int_sums, float_sums, grids
     grids, int_sums, float_sums = grid_partition.grid_partition_extreme(
         idx, cols[:head], modes[:head], valids[:head], G, int_cols, float_cols, count)
+    grids = _taken(ext_out[:head], grids, modes[:head])
+    if out is not None:
+        int_sums, float_sums = _added(out[0], int_sums), _added(out[1], float_sums)
     name, ext_name = B3, B3X
     if len(cols) > head:
-        rest_name, rest = grid_extremes(idx, cols[head:], modes[head:], valids[head:], G)
+        rest_name, rest = grid_extremes(idx, cols[head:], modes[head:], valids[head:], G,
+                                        ext_out[head:])
         grids += rest
         ext_name = "+".join(dict.fromkeys([B3X, *rest_name.split("+")]))
     return name, ext_name, True, int_sums, float_sums, grids

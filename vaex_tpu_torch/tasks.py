@@ -46,12 +46,15 @@ class TaskAggregations(Task):
     ``subtasks`` holds the AggOperations the descriptors of
     :mod:`vaex_tpu_torch.agg` registered.  Per tile, each kind rides its own
     batch: the additive ops one call of the grid kernel that
-    :mod:`.ops.grid_plan` picks for the grid size (B1, B2 or B3), the moment
-    ops as few calls of the moment kernel it picks (B4, B5, or B3 over
-    formed terms) as ``MAX_BASES`` / ``MAX_TERMS`` allow, all the extremes
-    one batch of the min/max kernel B3x
-    (:func:`.ops.grid_plan.grid_extremes`), which shares the partition of
-    the additive batch where the extremes need one (``"scatter": "shared"``).
+    :mod:`.ops.grid_plan` picks for the grid size (B1, B2 or B3; past B3's
+    limits B3 in several calls of fewer channels, ``"b3×k"``, or the route
+    ``"sort"``, :mod:`.ops.grid_sort`), the moment ops as few calls of the
+    moment kernel it picks (B4, B5, or those wide routes over formed terms)
+    as ``MAX_BASES`` / ``MAX_TERMS`` allow, all the extremes one batch of the
+    min/max kernel B3x or ``"sort"`` (:func:`.ops.grid_plan.grid_extremes`),
+    which shares the partition of the additive batch where the extremes need
+    one (``"scatter": "shared"``).  Each call adds the tile into the ops'
+    running states in place, so a pass holds one grid per state.
     A ``first`` is two per-bin mins through the same route, of the order
     values and then of the row numbers among the rows that hold the winning
     order.  An approximate percentile counts its [cell, value bin] grid
@@ -129,9 +132,8 @@ class TaskAggregations(Task):
             names = []
             for i in kinds["percentile"]:
                 op = self.subtasks[i]
-                name, (counts,), _ = grid_sums(op.count_index(ctx, idx, G), [], [],
-                                               G * op.bins, True)
-                new_state[i] = new_state[i] + counts
+                name, _, _ = grid_sums(op.count_index(ctx, idx, G), [], [], G * op.bins, True,
+                                       out=([new_state[i]], []))
                 names.append(name)
             self.strategy["percentile"] = "+".join(dict.fromkeys(names))
         for i in kinds.get("own", []):
@@ -141,46 +143,64 @@ class TaskAggregations(Task):
 
     def _update_additive(self, members, riders, new_state, idx, G, ctx):
         """One tile's additive batch (``members``) and its binned extremes
-        (``riders``): one call each, or one for both."""
-        int_cols, float_cols, slots = [], [], []
-        count = False
+        (``riders``): one call each, or one for both.  Each channel's first
+        member hands its state to the call, which adds the tile into it in
+        place (``grid_plan``'s ``out``); a later count member copies the
+        first's, and a state the call cannot take (a narrower extreme) takes
+        the tile's grid through ``apply_kernel``."""
+        def target(i, dtype):
+            s = new_state[i]
+            return s if s.dtype == dtype and s.shape == (G,) else None
+        int_cols, float_cols, slots, int_out, float_out = [], [], [], [], []
+        count_owner = None
         for i in members:
             kind, col = self.subtasks[i].kernel_input(ctx)
             if kind == "count":
-                count = True
+                count_owner = i if count_owner is None else count_owner
                 slots.append(("count", 0))
             elif kind == "int":
                 slots.append(("int", len(int_cols)))
                 int_cols.append(col)
+                int_out.append(target(i, torch.int64))
             else:
                 slots.append(("float", len(float_cols)))
                 float_cols.append(col)
+                float_out.append(target(i, torch.float64))
+        count = count_owner is not None
+        out = ([target(count_owner, torch.int64)] if count else []) + int_out, float_out
         cols, valids = [], []
         for i in riders:
             values, valid = self.subtasks[i].extreme_input(ctx)
             cols.append(values)
             valids.append(valid)
         modes = [self.subtasks[i].mode for i in riders]
+        ext_out = [target(i, col.dtype) if new_state[i].dtype != torch.bool else None
+                   for i, col in zip(riders, cols)]
         if members:
             name, ext_name, shared, int_sums, float_sums, grids = grid_sums_and_extremes(
-                idx, int_cols, float_cols, G, count, cols, modes, valids)
+                idx, int_cols, float_cols, G, count, cols, modes, valids, out, ext_out)
             self.strategy["additive"] = name
             if shared:
                 self.strategy["scatter"] = "shared"
         else:
-            ext_name, grids = grid_extremes(idx, cols, modes, valids, G)
+            ext_name, grids = grid_extremes(idx, cols, modes, valids, G, ext_out)
         if riders:
             self.strategy["extremes"] = ext_name
+        targets = out[0] + out[1]
         for i, (kind, k) in zip(members, slots):
             if kind == "count":
-                sums = int_sums[0]
+                row, sums = 0, int_sums[0]
             elif kind == "int":
-                sums = int_sums[int(count) + k]
+                row, sums = int(count) + k, int_sums[int(count) + k]
             else:
-                sums = float_sums[k]
-            new_state[i] = self.subtasks[i].apply_kernel(new_state[i], sums)
-        for i, grid in zip(riders, grids):
-            new_state[i] = self.subtasks[i].apply_kernel(new_state[i], grid)
+                row, sums = len(out[0]) + k, float_sums[k]
+            if targets[row] is None:
+                new_state[i] = self.subtasks[i].apply_kernel(new_state[i], sums)
+            elif targets[row] is not new_state[i]:  # a later count member
+                new_state[i].copy_(targets[row])
+        for i, grid, given in zip(riders, grids, ext_out):
+            if given is None:
+                new_state[i] = self.subtasks[i].apply_kernel(new_state[i], grid)
 
     def _update_first(self, i, new_state, idx, G, ctx):
         """One tile of a ``first``: per bin the smallest order value, then the
@@ -204,18 +224,26 @@ class TaskAggregations(Task):
         return name
 
     def _update_moments(self, batch, new_state, idx, G, ctx):
+        """One kernel call of a moment batch: each batch term's first member
+        hands the call its state's row of that term to add the tile into in
+        place; the other members holding the term copy that row."""
         bases = [moment_base(ctx.expr(e)) for e in batch.bases]
-        name, counts, sums = moment_sums(idx, bases, batch.terms, G)
-        # each term's row among the kernel's count rows or float rows
-        rows, n_count, n_float = [], 0, 0
-        for a, *_ in batch.terms:
-            rows.append(n_count if a < 0 else n_float)
-            n_count, n_float = n_count + (a < 0), n_float + (a >= 0)
+        out, copies = [None] * len(batch.terms), []
         for i, slots in batch.members:
-            op = self.subtasks[i]
-            c = [rows[k] for k in slots if batch.terms[k][0] < 0]
-            f = [rows[k] for k in slots if batch.terms[k][0] >= 0]
-            new_state[i] = op.apply_kernel(new_state[i], (counts[c], sums[f]))
+            counts, sums = new_state[i]
+            n_count = n_float = 0
+            for k in slots:
+                if batch.terms[k][0] < 0:
+                    row, n_count = counts[n_count], n_count + 1
+                else:
+                    row, n_float = sums[n_float], n_float + 1
+                if out[k] is None:
+                    out[k] = row
+                else:
+                    copies.append((row, k))
+        name, _, _ = moment_sums(idx, bases, batch.terms, G, out=out)
+        for row, k in copies:
+            row.copy_(out[k])
         return name
 
     def _flat_indices(self, ctx, kinds):
