@@ -198,7 +198,26 @@ Run from the root of the repository on a machine with a CUDA card.  It
     shuffle(random_state=42) against plain torch over numpy's draw,
     split_random([0.8, 0.2], random_state=1)'s lengths, evaluate("v", 0,
     1e6, selection="x > 0.5"), to_arrays of 1e5 rows, and vrange(0, 1e9)'s
-    sum and count (exact); it prints its own JSON line of routes and times.
+    sum and count (exact); it prints its own JSON line of routes and times;
+20. drives the frame's remaining statistics, the window operations and a
+    uint64 column on a table of 1e8 rows made on the card from seed 42 (phase
+    7's H2O columns, x and y N(0, 1), u the bits of v1 with the top bit set
+    on half the rows, a uint64 column, and source_id uniform in [0, 12 *
+    4^12 * 2^35)): nunique of id5 and of id6 per id4 (a groupby's agg=: the
+    presence grid on B2, the sorted pairs) and of id6 binned by id4 over
+    60 bins (the presence grid on b3), cov of v1, v2, v3 (alone and by id4),
+    mode of v3 by id4, mutual_information(x, y) at 256^2, describe() of
+    every column, healpix_count at level 8 (b3-l2), shift / diff / rolling
+    sums and a rolling max of v3, sum / minmax / max by id4 / groupby /
+    isin of u, and stat.mean(v3) / stat.std(v3) by id4 in one pass; each
+    checked against plain torch on the same tensors (counts, nunique, mode
+    centres, healpix counts and uint64 results exact, the rest within the
+    bound of phase 4 carried through its formula), each route and B6's
+    probe asserted from trace_log, B2, b3, b3-l2, B4 and B6 asserted
+    launched, shift / rolling / diff asserted to leave their views over CUDA
+    tensors; then each query timed against plain torch (5 repetitions,
+    medians) with its peak memory above the table; it prints its own JSON
+    line.
 
 It exits non-zero on any failure.  The line before the last is a JSON
 object with every kernel's (and each of B3x's routes') launches, error,
@@ -2993,6 +3012,402 @@ def phase19_path(vt, plan, gp, probe, label, n=PHASE19_ROWS):
     return launches, record
 
 
+
+PHASE20_ROWS = 100_000_000
+PHASE20_K6 = 1_000_000  # id6 in 1..1e6
+# Gaia's source_id: a nested healpix index at level 12 times 2^35
+SOURCE_ID_SPAN = 12 * 4 ** 12 * 2 ** 35
+HEALPIX_LEVEL = 8
+TOP_BIT = -(1 << 63)  # the top bit of an int64
+U_ISIN = [1 | (1 << 63), 3, 5 | (1 << 63), 9]  # uint64 values; 9 is in no row
+# per query the kinds and routes the last pass must record on the card
+PHASE20_EXPECT = {
+    "nunique id5 by id4": {"presence": "b2"},
+    "nunique id6 by id4": {"nunique": "sort"},
+    "nunique id6 binby id4": {"presence": "b3"},
+    "mode": {"additive": "b2"},
+    "mutual information": {"additive": "b2"},
+    "healpix": {"additive": "b3-l2"},
+    "shift sum": {"additive": "b1"},
+    "diff sum": {"additive": "b1"},
+    "rolling sum": {"additive": "b1"},
+    "rolling max": {"extremes": "reduce"},
+    "u sum": {"additive": "b1"},
+    "u minmax": {"extremes": "reduce"},
+    "u max by id4": {"extremes": "b3x-direct"},
+}
+# per query the probe route of its last pass (id6's set of 1e6 keys is past
+# the tree that fits shared memory)
+PHASE20_PROBES = {"u groupby count": "b6", "u isin": "b6", "nunique id5 by id4": "b6",
+                  "nunique id6 by id4": "b6-wide", "nunique id6 binby id4": "b6-wide"}
+
+
+def phase20_columns(n, device, seed=SEED, k6=PHASE20_K6):
+    """Phase 7's H2O columns made again at ``n`` rows from ``seed`` (id4,
+    id5 in 1..100, id6 in 1..k6, v1, v2 in 1..5, v3 in [0, 100)), x and y
+    N(0, 1), u the int64 bits of a uint64 column (v1 with the top bit set
+    on half the rows) and source_id int64 uniform in [0, 12 * 4^12 *
+    2^35), as tensors on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def ints(low, high):
+        return torch.randint(low, high + 1, (n,), generator=gen, device=device,
+                             dtype=torch.int64)
+    cols = {"id4": ints(1, H2O_K), "id5": ints(1, H2O_K), "id6": ints(1, k6),
+            "v1": ints(1, 5), "v2": ints(1, 5),
+            "v3": torch.rand(n, generator=gen, device=device, dtype=torch.float64) * 100,
+            "x": torch.randn(n, generator=gen, device=device, dtype=torch.float64),
+            "y": torch.randn(n, generator=gen, device=device, dtype=torch.float64)}
+    top = torch.rand(n, generator=gen, device=device) < 0.5
+    cols["u"] = torch.where(top, cols["v1"] | TOP_BIT, cols["v1"])
+    cols["source_id"] = torch.randint(0, SOURCE_ID_SPAN, (n,), generator=gen, device=device,
+                                      dtype=torch.int64)
+    return cols
+
+
+def phase20_frame(vt, cols):
+    """The columns as a frame; u is a uint64 column (``dataset.logical``)."""
+    return vt.from_dataset(vt.DatasetArrays(dict(cols), logical={"u": np.dtype("uint64")}))
+
+
+def phase20_queries(vt):
+    by_id4 = {"binby": "id4", "limits": [0.5, 100.5], "shape": 100}
+    ratio = vt.stat.mean("v3") / vt.stat.std("v3")
+    return {
+        "nunique id5 by id4": lambda df: df.groupby("id4", agg={"id5": "nunique"}, sort=True),
+        "nunique id6 by id4": lambda df: df.groupby("id4", agg={"id6": "nunique"}, sort=True),
+        "nunique id6 binby id4": lambda df: df.nunique("id6", binby="id4", limits=[0.5, 60.5],
+                                                        shape=60),
+        "cov": lambda df: df.cov(["v1", "v2", "v3"]),
+        "cov by id4": lambda df: df.cov(["v1", "v2", "v3"], **by_id4),
+        "mode": lambda df: df.mode("v3", mode_shape=64, **by_id4),
+        "mutual information": lambda df: df.mutual_information("x", "y", mi_shape=256),
+        "describe": lambda df: df.describe(),
+        "healpix": lambda df: df.healpix_count(healpix_expression="source_id/34359738368",
+                                               healpix_level=HEALPIX_LEVEL),
+        "shift sum": lambda df: df.shift(1, "v3").sum("v3"),
+        "diff sum": lambda df: df.diff(1, "v3").sum("v3"),
+        "rolling sum": lambda df: df.rolling(5, column="v3").sum().sum("v3"),
+        "rolling max": lambda df: df.rolling(5, column="v3").max().max("v3"),
+        "u sum": lambda df: df.sum("u"),
+        "u minmax": lambda df: df.minmax("u"),
+        "u max by id4": lambda df: df.max("u", **by_id4),
+        "u groupby count": lambda df: df.groupby("u", agg="count", sort=True),
+        "u isin": lambda df: df.u.isin(U_ISIN).sum(),
+        "stat mean/std by id4": lambda df: ratio.calculate(df, **by_id4),
+    }
+
+
+def phase20_answer(name, out):
+    """A query's output as host arrays and numbers: a groupby frame as
+    {"keys", "values"}, describe's frame as {row: [per column]}."""
+    if name.startswith("nunique id") and "by id4" in name and "binby" not in name:
+        value = name.split()[1]
+        return {"keys": np.asarray(out.evaluate("id4")), "values": np.asarray(out.evaluate(value))}
+    if name == "u groupby count":
+        return {"keys": np.asarray(out.evaluate("u")), "values": np.asarray(out.evaluate("count"))}
+    if name == "describe":
+        return {"columns": list(out.columns),
+                **{row: list(out.loc[row]) for row in ("count", "NA", "mean", "std", "min", "max")}}
+    return np.asarray(out) if isinstance(out, np.ndarray) or np.ndim(out) else out
+
+
+def _sums(cell, size, values):
+    """Per cell: rows, sum, sum of |value| and sum of squares (float64);
+    of one cell plain sums (``bincount`` would add every row at one
+    address)."""
+    w = values.to(torch.float64)
+    terms = (torch.ones_like(w), w, w.abs(), w * w)
+    if size == 1:
+        return [t.sum().reshape(1) for t in terms]
+    return [torch.bincount(cell, weights=t, minlength=size) for t in terms]
+
+
+def _unsigned(bits):
+    """int64 bits as the Python int of their uint64."""
+    return int(bits) % 2 ** 64
+
+
+def phase20_plain(cols, name, k6=PHASE20_K6):
+    """One query's answer computed in plain torch on the same tensors,
+    sharing no code with the port: bincount, unique, scatter_reduce, sums
+    of shifted slices."""
+    c = cols
+    n = c["v3"].shape[0]
+    id4 = c["id4"] - 1
+    if name == "nunique id5 by id4":
+        present = torch.bincount(id4 * H2O_K + c["id5"] - 1, minlength=H2O_K ** 2) > 0
+        return present.reshape(H2O_K, H2O_K).sum(1)
+    if name == "nunique id6 by id4":
+        pairs = torch.unique(id4 * k6 + c["id6"] - 1)
+        return torch.bincount(pairs // k6, minlength=H2O_K)
+    if name == "nunique id6 binby id4":
+        keep = c["id4"] <= 60
+        pairs = torch.unique((id4 * k6 + c["id6"] - 1)[keep])
+        return torch.bincount(pairs // k6, minlength=60)
+    if name in ("cov", "cov by id4"):
+        cell = id4 if name == "cov by id4" else torch.zeros_like(id4)
+        size = H2O_K if name == "cov by id4" else 1
+        names = ["v1", "v2", "v3"]
+        means = [_sums(cell, size, c[e]) for e in names]
+        cross = {(i, j): _sums(cell, size, c[names[i]] * c[names[j]])
+                 for i in range(3) for j in range(i, 3)}
+        return means, cross
+    if name in ("mode", "mutual information"):
+        axes = [("v3", 64)] if name == "mode" else [("x", 256), ("y", 256)]
+        cell = id4 if name == "mode" else torch.zeros_like(id4)
+        keep = torch.ones_like(c["v3"], dtype=torch.bool)
+        limits = []
+        for e, bins in axes:
+            lo, hi = (float(t) for t in torch.aminmax(c[e]))
+            b = torch.floor((c[e] - lo) * (1.0 / (hi - lo) * bins)).to(torch.int64)
+            keep &= (c[e] >= lo) & (c[e] < hi) & (b < bins)
+            cell = cell * bins + torch.where(keep, b, 0)
+            limits.append((lo, hi))
+        size = (H2O_K * 64) if name == "mode" else 256 * 256
+        counts = torch.bincount(cell[keep], minlength=size).cpu().numpy()
+        if name == "mode":
+            lo, hi = limits[0]
+            centers = np.linspace(lo, hi, 65)[:-1] + (hi - lo) / 64 / 2
+            return centers[np.argmax(counts.reshape(H2O_K, 64), axis=-1)]
+        pxy = counts.reshape(256, 256) / counts.sum()
+        px, py = pxy.sum(axis=1, keepdims=True), pxy.sum(axis=0, keepdims=True)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            return float(np.nansum(pxy * np.log(pxy / (px * py))))
+    if name == "describe":
+        out = {}
+        for e, t in c.items():
+            if e == "u":
+                image = t ^ TOP_BIT
+                lo, hi = (_unsigned(v ^ TOP_BIT) for v in torch.aminmax(image))
+                total = _unsigned(t.sum())
+                w = torch.where(t < 0, t.to(torch.float64) + 2.0 ** 64, t.to(torch.float64))
+            else:
+                lo, hi = (v.item() for v in torch.aminmax(t))
+                total = t.sum().item()
+                w = t.to(torch.float64)
+            out[e] = {"count": n, "total": total, "abs": float(w.abs().sum()),
+                      "sum": float(w.sum()), "squares": float((w * w).sum()), "min": lo,
+                      "max": hi}
+        return out
+    if name == "healpix":
+        pixel = (c["source_id"].to(torch.float64) / 2.0 ** 35).to(torch.int64)
+        pixel = pixel // 4 ** (12 - HEALPIX_LEVEL)
+        return torch.bincount(pixel, minlength=12 * 4 ** HEALPIX_LEVEL)
+    v3 = c["v3"]
+    if name == "shift sum":
+        return v3[:-1]
+    if name == "diff sum":
+        return v3[1:] - v3[:-1]
+    if name in ("rolling sum", "rolling max"):
+        if name == "rolling max":
+            return v3.max().item()  # every row lies in a full window of 5
+        pad = torch.cat([torch.zeros(4, dtype=v3.dtype, device=v3.device), v3])
+        return pad[0:n] + pad[1:n + 1] + pad[2:n + 2] + pad[3:n + 3] + pad[4:n + 4]
+    u = c["u"]
+    if name == "u sum":
+        return _unsigned(u.sum())
+    if name == "u minmax":
+        return [_unsigned(v ^ TOP_BIT) for v in torch.aminmax(u ^ TOP_BIT)]
+    if name == "u max by id4":
+        image = torch.full((H2O_K,), TOP_BIT, dtype=torch.int64, device=u.device)
+        image.scatter_reduce_(0, id4, u ^ TOP_BIT, "amax")
+        return [_unsigned(v) for v in (image ^ TOP_BIT).tolist()]
+    if name == "u groupby count":
+        image, counts = torch.unique(u ^ TOP_BIT, return_counts=True)
+        return [_unsigned(v) for v in (image ^ TOP_BIT).tolist()], counts
+    if name == "u isin":
+        wanted = torch.tensor([v - 2 ** 64 if v >= 2 ** 63 else v for v in U_ISIN],
+                              dtype=torch.int64, device=u.device)
+        return int(torch.isin(u, wanted).sum())
+    if name == "stat mean/std by id4":
+        return _sums(id4, H2O_K, v3)
+    raise KeyError(name)
+
+
+def _close(got, want, bound):
+    return bool(np.all(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+                       <= np.asarray(bound, np.float64)))
+
+
+def _mean_error(n, s, a):
+    """The bound of a mean's error: its sum's (within_sum_bound) over n."""
+    return (RTOL * abs(s) + ATOL + n * 2.0 ** -52 * a) / n
+
+
+def _std_error(n, s, a, s2):
+    """The bound of a std's error where the std is d: d^2's, from the
+    sums' through var = s2 / n - (s / n)^2, over 2 d."""
+    b1, b2 = RTOL * abs(s) + ATOL + n * 2.0 ** -52 * a, RTOL * s2 + ATOL + n * 2.0 ** -52 * s2
+    var = max(s2 / n - (s / n) ** 2, 0.0)
+    var_bound = (b2 / n + (2 * abs(s) * b1 + b1 * b1) / (n * n)
+                 + 8 * 2.0 ** -52 * (s2 / n + (s / n) ** 2) + ATOL)
+    return var, var_bound
+
+
+def phase20_check(name, got, want):
+    """One query's answer (:func:`phase20_answer`) against its plain
+    computation; raises where they disagree.  Counts, int sums, uint64 sums
+    / min / max, nunique, mode centres and healpix counts exact; cov,
+    mutual information, describe's mean / std, the stat ratio and the
+    rolling / shifted sums within the bound of phase 4."""
+    host = lambda t: t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)  # noqa: E731
+    what = f"phase 20 {name}"
+    if name in ("nunique id5 by id4", "nunique id6 by id4"):
+        check(np.array_equal(got["keys"], np.arange(1, H2O_K + 1)), f"{what}: keys")
+        check(np.array_equal(got["values"], host(want)), f"{what}: exact")
+    elif name in ("nunique id6 binby id4", "healpix"):
+        check(np.array_equal(got, host(want)), f"{what}: exact")
+    elif name in ("cov", "cov by id4"):
+        means, cross = want
+        m = [(host(n_), host(s), host(a)) for n_, s, a, _ in means]
+        errors = [_mean_error(n_, s, a) for n_, s, a in m]
+        got = got.reshape(-1, 3, 3)
+        for (i, j), (n_, s, a, _) in cross.items():
+            n_, s, a = host(n_), host(s), host(a)
+            mi, mj = m[i][1] / m[i][0], m[j][1] / m[j][0]
+            mij = s / n_
+            want_ij = mij - mi * mj
+            bound = (_mean_error(n_, s, a) + np.abs(mi) * errors[j] + np.abs(mj) * errors[i]
+                     + errors[i] * errors[j] + 4 * 2.0 ** -52 * (np.abs(mij) + np.abs(mi * mj)))
+            check(_close(got[:, i, j], want_ij, bound) and _close(got[:, j, i], want_ij, bound),
+                  f"{what} [{i}, {j}]: within the bound of phase 4")
+    elif name == "mode":
+        check(np.array_equal(got, want), f"{what}: the centres, exact")
+    elif name == "mutual information":
+        check(abs(got - want) <= 1e-12 * abs(want), f"{what}: {got!r} against {want!r}")
+    elif name == "describe":
+        check(got["columns"] == list(want), f"{what}: columns {got['columns']}")
+        for k, e in enumerate(got["columns"]):
+            w = want[e]
+            n_ = w["count"]
+            check(got["count"][k] == n_ and got["NA"][k] == 0, f"{what} {e}: counts")
+            kind = type(w["min"])
+            check(kind(got["min"][k]) == w["min"] and kind(got["max"][k]) == w["max"],
+                  f"{what} {e}: min {got['min'][k]!r}, max {got['max'][k]!r}")
+            if isinstance(w["total"], int):  # an int sum is exact (mod 2^64): its float / n
+                mean = float(w["total"]) / n_
+                ok = abs(got["mean"][k] - mean) <= 2.0 ** -50 * abs(mean)
+            else:
+                ok = abs(got["mean"][k] - w["sum"] / n_) <= _mean_error(n_, w["sum"], w["abs"])
+            check(ok, f"{what} {e}: mean {got['mean'][k]!r}")
+            var, var_bound = _std_error(n_, w["sum"], w["abs"], w["squares"])
+            check(abs(got["std"][k] ** 2 - var) <= var_bound, f"{what} {e}: std within the bound")
+    elif name in ("shift sum", "diff sum", "rolling sum"):
+        n_ = float(want.numel())
+        total, abs_total = float(want.sum()), float(want.abs().sum())
+        check(abs(float(got) - total) <= RTOL * abs(total) + ATOL + n_ * 2.0 ** -52 * abs_total,
+              f"{what}: {got!r} against {total!r}")
+    elif name == "rolling max":
+        check(float(got) == want, f"{what}: {got!r} against {want!r}")
+    elif name in ("u sum", "u isin"):
+        check(int(got) == want, f"{what}: {got!r} against {want!r}")
+    elif name in ("u minmax", "u max by id4"):
+        check([int(v) for v in np.asarray(got).ravel()] == list(want), f"{what}: exact")
+    elif name == "u groupby count":
+        keys, counts = want
+        check([int(v) for v in got["keys"]] == keys, f"{what}: keys")
+        check(np.array_equal(got["values"], host(counts)), f"{what}: counts")
+    elif name == "stat mean/std by id4":
+        n_, s, a, s2 = (host(t) for t in want)
+        for g, ni, si, ai, s2i in zip(np.asarray(got), n_, s, a, s2):
+            mean, mean_error = si / ni, _mean_error(ni, si, ai)
+            var, var_bound = _std_error(ni, si, ai, s2i)
+            std = math.sqrt(var)
+            std_error = var_bound / std
+            bound = (mean_error / (std - std_error) + abs(mean) * std_error
+                     / (std * (std - std_error)) + 4 * 2.0 ** -52 * abs(mean / std))
+            check(abs(g - mean / std) <= bound, f"{what}: {g!r} against {mean / std!r}")
+    else:
+        raise KeyError(name)
+
+
+def phase20_drive(vt, df, cols, k6=PHASE20_K6, expect_routes=True):
+    """Each query of phase 20 once through the public API, checked against
+    its plain computation; on the card each route named in PHASE20_EXPECT
+    (and B6's probe where a set is probed) asserted from trace_log.
+    Returns {query: (strategies of the last pass, its probe route, passes)}."""
+    routes = {}
+    for name, query in phase20_queries(vt).items():
+        passes = df.executor.passes
+        out = query(df)
+        log = df.executor.trace_log[-1]
+        routes[name] = (log["strategies"], log["probe"], df.executor.passes - passes)
+        phase20_check(name, phase20_answer(name, out), phase20_plain(cols, name, k6))
+        if expect_routes:
+            strategies = log["strategies"][0] if log["strategies"] else {}
+            for kind, route in PHASE20_EXPECT.get(name, {}).items():
+                check(strategies.get(kind) == route,
+                      f"phase 20 {name}: {kind} took {strategies.get(kind)!r}, not {route!r}")
+            if name in PHASE20_PROBES:
+                check(log["probe"] == PHASE20_PROBES[name],
+                      f"phase 20 {name}: probe {log['probe']!r}, not {PHASE20_PROBES[name]!r}")
+        if name.startswith("stat"):
+            check(routes[name][2] == 1 and {"additive", "moments"} <= set(log["strategies"][0]),
+                  f"phase 20 {name}: one pass of sums and moments, {routes[name]}")
+        print(f"phase 20 {name}: {routes[name][2]} passes, strategies {log['strategies']}, "
+              f"probe {log['probe']}; checked against plain torch", flush=True)
+    return routes
+
+
+def phase20_on_the_card(df):
+    """shift and rolling leave their views over CUDA tensors: no column of
+    theirs crosses to the host."""
+    from vaex_tpu_torch.shift import ColumnShifted
+    shifted = df.shift(1, "v3").dataset["v3"]
+    check(isinstance(shifted, ColumnShifted) and shifted.device.type == "cuda"
+          and shifted.source.is_cuda, "phase 20: a shifted column is a view over a CUDA tensor")
+    rolled = df.rolling(5, column="v3").sum()
+    for k in range(5):
+        col = rolled.dataset[f"__v3_shift_{k}"]
+        source = col.source if isinstance(col, ColumnShifted) else col
+        check(isinstance(source, torch.Tensor) and source.is_cuda,
+              f"phase 20: rolling's column {k} lies on the card")
+    diffed = df.diff(1, "v3")
+    check(diffed.dataset["__v3_original"] is df.dataset["v3"],
+          "phase 20: diff keeps its source as it is (no copy)")
+
+
+def phase20_path(vt, plan, gp, probe, label, n=PHASE20_ROWS):
+    """Phase 20 on the card: every query once with the kernel counts set to
+    0 (B2, b3, b3-l2, B4 and B6 asserted launched), the views' device
+    asserted, then each query timed (5 repetitions, medians) beside its
+    plain computation, with its peak memory above the table.  Returns
+    (launches, the phase's JSON record)."""
+    cols = phase20_columns(n, "cuda")
+    df = phase20_frame(vt, cols)
+    torch.cuda.synchronize()
+    zero_launches(plan, gp)
+    probe.probe.launches = probe.probe.wide_launches = 0
+    routes = phase20_drive(vt, df, cols)
+    launches = {**launch_counts(plan, gp), "b6": probe.probe.launches,
+                "b6-wide": probe.probe.wide_launches}
+    print(f"launches during phase 20: {launches}", flush=True)
+    for name in (plan.B2, plan.B3, plan.B3_L2, plan.B4, "b6"):
+        check(launches[name] > 0, f"{name} was not launched during phase 20: {launches}")
+    phase20_on_the_card(df)
+    record = {"card": label, "rows": n, "queries": {}}
+    for name, query in phase20_queries(vt).items():
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        query(df)
+        torch.cuda.synchronize()
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        port_s, _ = median_s(lambda: query(df))
+        plain_s, _ = median_s(lambda: phase20_plain(cols, name))
+        strategies, probe_route, passes = routes[name]
+        record["queries"][name] = {"ms": port_s * 1e3, "plain_ms": plain_s * 1e3,
+                                   "strategies": strategies, "probe": probe_route,
+                                   "passes": passes, "peak_gb": peak_gb}
+        print(f"[{label}] phase 20 {name} N={n}: median {port_s * 1e3!r} ms (port, {passes} "
+              f"passes, {strategies}, probe {probe_route}; {peak_gb!r} GB above the table at "
+              f"its peak) vs {plain_s * 1e3!r} ms (plain torch), reps {REPS}", flush=True)
+    del df, cols
+    torch.cuda.empty_cache()
+    return launches, record
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3095,6 +3510,9 @@ def main():
     phase19_launches, phase19 = phase19_path(vt, plan, gp, probe, label)
     print(json.dumps({"phase19": phase19}), flush=True)
 
+    phase20_launches, phase20 = phase20_path(vt, plan, gp, probe, label)
+    print(json.dumps({"phase20": phase20}), flush=True)
+
     measured = {plan.B1: (main_launches[plan.B1], results[MAIN_SIZES[0]]),
                 plan.B2: (h2o_launches[plan.B2], wide[plan.B2]),
                 plan.B3: (h2o_launches[plan.B3], wide[plan.B3]),
@@ -3130,6 +3548,7 @@ def main():
         "config3_launches": config3_launches[name],
         "config4_launches": config4_launches[name],
         "phase19_launches": phase19_launches[name],
+        "phase20_launches": phase20_launches[name],
         **{key: value for key, value in m.items() if key in EXTRA_KEYS},
     } for name, (launches, m) in measured.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -254,3 +254,76 @@ def test_the_phase19_checks_refuse_a_wrong_grid(phase19, name):
         flat[full[len(full) // 2]] *= 1 + 1e-6
     with pytest.raises(RuntimeError, match=re.escape(f"phase 19 {name}")):
         chip_smoke.phase19_check(name, got, want)
+
+
+# phase 20 at a small size: id6 in 1..2000, and the presence cap lowered so
+# that nunique of id6 per id4 (206 000 cells) takes the sorted pairs, as at
+# full size, while id6 binned by id4 (126 000) stays on the presence grid
+PHASE20_N, PHASE20_K6 = 20_000, 2_000
+
+
+@pytest.fixture
+def phase20(monkeypatch):
+    import vaex_tpu_torch
+    monkeypatch.setattr(agg, "NUNIQUE_PRESENCE_MAX", 150_000)
+    cols = chip_smoke.phase20_columns(PHASE20_N, "cpu", k6=PHASE20_K6)
+    df = chip_smoke.phase20_frame(vaex_tpu_torch, cols).to_device("cpu")
+    df._tile_rows = 7_000  # several tiles a pass: the sorted pairs merge
+    return vaex_tpu_torch, df, cols
+
+
+def test_the_phase20_queries_on_the_cpu(phase20):
+    """Phase 20 of chip_smoke.py on the CPU: every query held to its plain
+    computation; the kinds of aggregation each pass recorded are the ones it
+    records on the card (the routes differ at this size)."""
+    vt, df, cols = phase20
+    routes = chip_smoke.phase20_drive(vt, df, cols, k6=PHASE20_K6, expect_routes=False)
+    assert set(routes) == set(chip_smoke.phase20_queries(vt))
+    for name, expect in chip_smoke.PHASE20_EXPECT.items():
+        strategies, _, _ = routes[name]
+        assert set(expect) <= set(strategies[0]), (name, strategies)
+    for name in chip_smoke.PHASE20_PROBES:
+        assert routes[name][1] == "b6", name
+    assert routes["stat mean/std by id4"][2] == 1
+
+
+def _perturbed(name, answer):
+    """The answer with one value off: a count by one, a float by a part in
+    1e6 (a lone float also by 1e-3), a mode centre by a bin, describe's mean
+    of v3."""
+    if isinstance(answer, dict) and "keys" in answer:
+        values = answer["values"].copy()
+        values[3] += 1
+        return {**answer, "values": values}
+    if isinstance(answer, dict):
+        k = answer["columns"].index("v3")
+        mean = list(answer["mean"])
+        mean[k] *= 1 + 1e-6
+        return {**answer, "mean": mean}
+    if np.ndim(answer) == 0:  # a float also by 1e-3: a diff's sum cancels to near 0
+        if isinstance(answer, (int, np.integer)):
+            return answer + 1
+        return answer * (1 + 1e-6) + 1e-3
+    flat = np.array(answer).reshape(-1)
+    if flat.dtype.kind == "f":
+        at = int(np.flatnonzero(flat != 0)[0])
+        flat[at] = flat[at] + (flat[1] - flat[0] if name == "mode" else flat[at] * 1e-6)
+    else:
+        flat[1] += 1
+    return flat.reshape(np.shape(answer))
+
+
+@pytest.mark.parametrize("name", [
+    "nunique id5 by id4", "nunique id6 by id4", "nunique id6 binby id4", "cov", "cov by id4",
+    "mode", "mutual information", "describe", "healpix", "shift sum", "diff sum",
+    "rolling sum", "rolling max", "u sum", "u minmax", "u max by id4", "u groupby count",
+    "u isin", "stat mean/std by id4"])
+def test_the_phase20_checks_refuse_a_wrong_answer(phase20, name):
+    """Each check of phase 20 takes the port's answer and refuses it one
+    count, one bin or a part in 1e6 off."""
+    vt, df, cols = phase20
+    answer = chip_smoke.phase20_answer(name, chip_smoke.phase20_queries(vt)[name](df))
+    want = chip_smoke.phase20_plain(cols, name, PHASE20_K6)
+    chip_smoke.phase20_check(name, answer, want)
+    with pytest.raises(RuntimeError, match=re.escape(f"phase 20 {name}")):
+        chip_smoke.phase20_check(name, _perturbed(name, answer), want)

@@ -1219,3 +1219,138 @@ def test_materialize_and_sample_on_the_card(cuda):
     assert picked.dataset["x"].index.is_cuda
     big = vaex_tpu_torch.vrange(0, 10 ** 8).to_device(cuda)
     assert big.sum("x") == 10 ** 8 * (10 ** 8 - 1) // 2 and big.count("x") == 10 ** 8
+
+
+def _two_devices(arrays, cuda):
+    return {str(d): vaex_tpu_torch.from_arrays(**arrays).to_device(d) for d in ("cpu", cuda)}
+
+
+@pytest.mark.parametrize("G_cells,route", [(40, grid_plan.B2), (4000, grid_plan.B3)])
+def test_nunique_presence_route_on_the_card(cuda, G_cells, route):
+    """The presence grid of nunique per cell runs the additive kernel the
+    plan names for its [G * n_values] cells (B2 or B3, by size) and gives
+    the CPU's counts; the sorted pairs too, past a lowered cap."""
+    rng = np.random.default_rng(G_cells)
+    n = 1_000_000
+    arrays = {"k": rng.integers(0, G_cells, n), "v": rng.integers(0, 1000, n).astype(float)}
+    arrays["v"][::13] = np.nan
+    kw = dict(binby="k", limits=[-0.5, G_cells - 0.5], shape=G_cells)
+    frames = _two_devices(arrays, cuda)
+    out = {}
+    for device, df in frames.items():
+        kernel = grid_plan.KERNELS[route]
+        before = kernel.launches
+        out[device] = df.nunique("v", dropnan=True, **kw)
+        log = df.executor.trace_log[-1]
+        n_values = df._set("v").count
+        assert log["strategies"][0]["presence"] == grid_plan.strategy(
+            n, (G_cells + 3) * n_values, 0, 0, True) == route
+        if device != "cpu":
+            assert kernel.launches > before and log["probe"] == probe.B6
+    npt.assert_array_equal(out[str(cuda)], out["cpu"])
+    gb = {d: df.groupby("k", agg={"v": vaex_tpu_torch.agg.nunique("v")}, sort=True)
+          for d, df in frames.items()}
+    npt.assert_array_equal(gb[str(cuda)].evaluate("v"), gb["cpu"].evaluate("v"))
+
+
+def test_nunique_sorted_route_on_the_card(cuda, monkeypatch):
+    monkeypatch.setattr(agg, "NUNIQUE_PRESENCE_MAX", 1000)
+    rng = np.random.default_rng(3)
+    n = 2_000_000
+    arrays = {"k": rng.integers(0, 50, n), "w": rng.integers(0, 300_000, n)}
+    out = {}
+    for device, df in _two_devices(arrays, cuda).items():
+        df._tile_rows = 1 << 19
+        out[device] = df.groupby("k", agg={"w": "nunique"}, sort=True).evaluate("w")
+        assert df.executor.trace_log[-1]["strategies"][0]["nunique"] == "sort"
+    npt.assert_array_equal(out[str(cuda)], out["cpu"])
+
+
+def test_uint64_through_b3x_and_b6_on_the_card(cuda):
+    """uint64 min / max by a key (B3x over the order images), sum, isin and
+    a groupby over the uint64 key (B6 over the images of its set) on the
+    card equal the CPU's, values past 2^63 included."""
+    rng = np.random.default_rng(11)
+    n = 1_000_000
+    low = rng.integers(0, 7, n).astype(np.uint64)
+    u = np.where(rng.random(n) < 0.5, low | np.uint64(1 << 63), low)
+    u[::101] = np.uint64(2 ** 64 - 1)
+    arrays = {"k": rng.integers(0, 200, n), "u": u, "x": rng.random(n)}
+    kw = dict(binby="k", limits=[-0.5, 199.5], shape=200)
+    out = {}
+    for device, df in _two_devices(arrays, cuda).items():
+        before = (gp.grid_partition_extreme.launches, probe.probe.launches)
+        out[device] = (df.min("u", **kw), df.max("u", **kw), df.sum("u"), df.minmax("u"),
+                       df.u.isin([3, 2 ** 63 + 5, 2 ** 64 - 1]).sum(),
+                       df.groupby("u", agg={"n": "count", "x": "sum"}, sort=True))
+        if device != "cpu":
+            assert gp.grid_partition_extreme.launches > before[0]
+            assert probe.probe.launches > before[1]
+    cpu, card = out["cpu"], out[str(cuda)]
+    for got, want in zip(card[:5], cpu[:5]):
+        assert np.asarray(got).dtype == np.asarray(want).dtype
+        npt.assert_array_equal(np.asarray(got), np.asarray(want))
+    for name in ("u", "n"):
+        npt.assert_array_equal(card[5].evaluate(name), cpu[5].evaluate(name))
+    npt.assert_allclose(card[5].evaluate("x"), cpu[5].evaluate("x"), rtol=1e-9)
+    assert int(card[1].max()) == 2 ** 64 - 1
+
+
+def test_shift_and_rolling_stay_on_the_card(cuda):
+    """shift, diff and rolling on a CUDA frame leave their columns as views
+    over CUDA tensors, and their statistics equal the CPU's."""
+    from vaex_tpu_torch.shift import ColumnShifted
+    rng = np.random.default_rng(12)
+    n = 1_000_003
+    arrays = {"x": rng.normal(0, 1, n), "m": np.ma.MaskedArray(rng.normal(0, 1, n),
+                                                               rng.random(n) < 0.1)}
+    frames = _two_devices(arrays, cuda)
+    card = frames[str(cuda)]
+    card._tile_rows = frames["cpu"]._tile_rows = 1 << 18
+    shifted = card.shift(3, ["x", "m"])
+    for name in ("x", "m"):
+        col = shifted.dataset[name]
+        assert isinstance(col, ColumnShifted) and col.device.type == "cuda"
+    rolled = card.rolling(4, column="m", edge="left").mean()
+    for k in range(4):
+        col = rolled.dataset[f"__m_shift_{k}"]
+        assert (col.device if isinstance(col, ColumnShifted) else col.data.device).type == "cuda"
+    assert card.diff(2, "x").dataset["__x_original"] is card.dataset["x"]
+    stats = {}
+    for device, df in frames.items():
+        stats[device] = [df.shift(3, ["x", "m"]).sum("m"), df.diff(-2, "x").sum("x"),
+                         df.rolling(4, column="m", edge="left").mean().mean("m"),
+                         df.rolling(5, column="x", fill_value=0).max().max("x"),
+                         df.shift(7, "x", fill_value=1.5, trim=True).count("x")]
+    npt.assert_allclose(stats[str(cuda)], stats["cpu"], rtol=1e-9)
+
+
+def test_finishers_on_the_card(cuda):
+    """cov, mode, mutual_information, describe, healpix_count and a stat
+    ratio on the card equal the CPU's (counts and centres exact, floats to
+    rtol 1e-9)."""
+    rng = np.random.default_rng(13)
+    n = 1_000_000
+    arrays = {"k": rng.integers(0, 50, n), "x": rng.normal(0, 1, n),
+              "y": rng.normal(0, 1, n), "v": rng.integers(0, 5, n),
+              "source_id": rng.integers(0, 12 * 4 ** 12 * 2 ** 35, n)}
+    out = {}
+    for device, df in _two_devices(arrays, cuda).items():
+        ratio = vaex_tpu_torch.stat.mean("x") / vaex_tpu_torch.stat.std("x")
+        out[device] = (df.cov(["x", "y", "v"], binby="k", limits=[-0.5, 49.5], shape=50),
+                       df.mode("x", binby="k", limits=[-0.5, 49.5], shape=50, mode_shape=32),
+                       df.mutual_information("x", "y", mi_shape=64),
+                       df.healpix_count(healpix_level=5),
+                       ratio.calculate(df, binby="k", limits=[-0.5, 49.5], shape=50),
+                       df.describe())
+    cpu, card = out["cpu"], out[str(cuda)]
+    npt.assert_allclose(card[0], cpu[0], rtol=1e-9, atol=1e-12)
+    npt.assert_array_equal(card[1], cpu[1])
+    npt.assert_allclose(card[2], cpu[2], rtol=1e-12)
+    npt.assert_array_equal(card[3], cpu[3])
+    npt.assert_allclose(card[4], cpu[4], rtol=1e-9)
+    for name in arrays:
+        for row in ("count", "NA", "min", "max"):
+            assert card[5][name][row] == cpu[5][name][row]
+        for row in ("mean", "std"):
+            assert card[5][name][row] == pytest.approx(cpu[5][name][row], rel=1e-9)

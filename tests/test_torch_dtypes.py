@@ -192,11 +192,13 @@ def test_groupby_over_an_unsigned_key(key):
 
 
 def test_uint64_columns_still_raise_by_name():
-    port = vaex_tpu_torch.from_arrays(u8=np.arange(5, dtype=np.uint64)).to_device("cpu")
-    with pytest.raises((TypeError, NotImplementedError), match="ROADMAP queue A5"):
-        port.sum("u8")
-    with pytest.raises((TypeError, NotImplementedError), match="ROADMAP queue A5"):
-        port.max("u8")
+    """uint64 columns are ported: their sum (mod 2^64) and max, values past
+    2^63 included, equal vaex_tpu's, in uint64."""
+    u8 = np.array([0, 1, 2 ** 63 + 5, 2 ** 64 - 1, 4], dtype=np.uint64)
+    ref, port = same_frames({"u8": u8})
+    for stat in ("sum", "max"):
+        want, got = getattr(ref, stat)("u8"), getattr(port, stat)("u8")
+        assert np.asarray(got).dtype == np.uint64 and int(got) == int(want)
 
 
 def test_categorize_without_labels_takes_one_pass_and_copies_no_column(monkeypatch):

@@ -179,9 +179,9 @@ def test_staged_and_derived_frames_keep_their_device(monkeypatch):
 def test_outside_the_slice_raises_not_implemented(query):
     """What is still outside the port raises naming its ROADMAP item; what
     has been ported since (a raw key, a raw key beside a category, a
-    selection, first, the sum of a uint32 column) gives vaex_tpu's result,
-    and min of a bool column numpy's (vaex_tpu raises on the identity of a
-    bool).  The sum of a uint64 column still raises."""
+    selection, first, the sum of a uint32 column and of a uint64 one) gives
+    vaex_tpu's result, and min of a bool column numpy's (vaex_tpu raises on
+    the identity of a bool)."""
     arrays = seeded_arrays(9, 100, k=K)
     arrays["u"] = np.arange(100, dtype=np.uint32)
     arrays["u8"] = np.arange(100, dtype=np.uint64)
@@ -193,12 +193,14 @@ def test_outside_the_slice_raises_not_implemented(query):
         "selection": lambda df: df.sum("x", selection="x > 0"),
         "first": lambda df: df.groupby("k", agg={"x": "first"}),
     }
-    pending = {
-        "uint_sum": lambda: port.groupby("k", agg={"s": vaex_tpu_torch.agg.sum("u8")}),
-    }
+    pending = {}
     if query == "uint_sum":
         assert_same_frame(ref.groupby("k", agg={"s": vaex_tpu.agg.sum("u")}),
                           port.groupby("k", agg={"s": vaex_tpu_torch.agg.sum("u")}))
+        want = ref.groupby("k", agg={"s": vaex_tpu.agg.sum("u8")})
+        got = port.groupby("k", agg={"s": vaex_tpu_torch.agg.sum("u8")})
+        assert_same_frame(want, got)
+        assert got.evaluate("s").dtype == np.uint64
     if query == "min":  # of a bool column
         out = port.groupby("k", agg={"b": "min"})
         want = [bool(arrays["b"][arrays["k"] == g].min()) if (arrays["k"] == g).any() else True
@@ -211,7 +213,7 @@ def test_outside_the_slice_raises_not_implemented(query):
                             rtol=1e-6, atol=1e-7)
     elif query in ported:
         assert_same_frame(ported[query](ref), ported[query](port))
-    else:
+    elif query in pending:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pending[query]()
 

@@ -100,12 +100,22 @@ def test_probe_widens_mixed_dtypes():
     assert got.tolist() == [1, 0, 1]
 
 
-def test_probe_refuses_what_the_kernel_does_not_take():
+def test_probe_refuses_what_the_kernel_does_not_take(interpret_pallas):
+    """A 2-d row tensor raises; uint64 keys and rows (values past 2^63
+    included) give the Pallas kernel's ordinals, and uint64 on one side only
+    raises."""
     keys = torch.arange(4)
     with pytest.raises(ValueError, match="1-d"):
         probe_module.probe(keys, torch.zeros(2, 2))
     if probe_module.UINT64 is not None:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A5"):
+        ukeys = np.array([3, 2 ** 62, 2 ** 63, 2 ** 63 + 9, 2 ** 64 - 1], dtype=np.uint64)
+        x = np.array([2 ** 63 + 9, 3, 4, 2 ** 64 - 1, 2 ** 63, 0, 2 ** 62], dtype=np.uint64)
+        want = np.asarray(pallas_probe.probe_ordinals(jnp.asarray(ukeys), jnp.asarray(x)))
+        as_t = lambda a: torch.from_numpy(a.view(np.int64)).view(probe_module.UINT64)  # noqa: E731
+        got = probe_module.probe(as_t(ukeys), as_t(x))
+        npt.assert_array_equal(got.numpy(), want)
+        npt.assert_array_equal(want, _numpy_ordinals(ukeys, x))
+        with pytest.raises(TypeError, match="uint64 on both sides"):
             probe_module.probe(keys, torch.zeros(3, dtype=probe_module.UINT64))
 
 

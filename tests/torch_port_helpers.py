@@ -159,3 +159,23 @@ def assert_same_rows(ref, port, names=None):
         npt.assert_array_equal(got, want, err_msg=name)
         if want.dtype.kind == "f":
             npt.assert_array_equal(np.signbit(got), np.signbit(want), err_msg=name)
+
+
+def with_uint64(arrays, seed, name="u"):
+    """``arrays`` and a uint64 column ``name``: small values, values past
+    2^63 and the largest uint64, each row's top bit set at random."""
+    rng = np.random.default_rng(seed)
+    n = len(next(iter(arrays.values())))
+    low = rng.integers(0, 7, n).astype(np.uint64)
+    top = rng.random(n) < 0.5
+    values = np.where(top, low | np.uint64(1 << 63), low)
+    values[::11] = np.uint64(2 ** 64 - 1)
+    return {**arrays, name: values}
+
+
+def with_source_id(arrays, seed):
+    """``arrays`` and a Gaia-like ``source_id``: int64 uniform in [0,
+    12 * 4^12 * 2^35), a nested healpix index at level 12 times 2^35."""
+    rng = np.random.default_rng(seed)
+    n = len(next(iter(arrays.values())))
+    return {**arrays, "source_id": rng.integers(0, 12 * 4 ** 12 * 2 ** 35, n).astype(np.int64)}

@@ -9,6 +9,8 @@ This package imports neither JAX nor ``vaex_tpu``; the API mirrors
     df = vaex_tpu_torch.from_arrays(k=keys, x=values).to_device("cuda")
     df = df.categorize("k", labels=range(100))
     df.groupby("k", agg={"s": vaex_tpu_torch.agg.sum("x"), "c": "count"}, sort=True)
+    df.nunique("x", binby="k"); df.cov(["x", "y"]); df.rolling(5, column="x").sum()
+    (vaex_tpu_torch.stat.mean("x") / vaex_tpu_torch.stat.std("x")).calculate(df, binby="k")
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as _np
 from . import agg  # noqa: F401
 from . import functions as _functions  # noqa: F401  (populates the namespace)
 from . import settings  # noqa: F401
+from . import stat  # noqa: F401
 from .column import ColumnVirtualConstant, ColumnVirtualRange
 from .dataframe import DataFrame
 from .dataset import Dataset, DatasetArrays  # noqa: F401

@@ -32,25 +32,33 @@ int64 and float -> float64; mean, var, std, covar and corr are float64
 finishers; min, max, first and the top-k keep the input dtype;
 percentiles are float64.  ``datetime64`` and
 ``timedelta64`` columns travel as int64 and their min, max and first are
-viewed back (:func:`view_logical`); NaT never wins.  Sums of uint columns
-need uint64 arithmetic torch barely has, and raise.
+viewed back (:func:`view_logical`); NaT never wins.  Unsigned columns
+travel as int64 too: their sums add the bits mod 2^64, which is the uint64
+sum; the min / max of a uint64 column compare its order image
+(``bits ^ (1 << 63)``, :func:`~.datatype.order_image`) and its mean divides
+the unsigned float of the sum.  The nunique ops (:class:`OpNUniquePresence`,
+:class:`OpNUniqueSorted`) count distinct set ordinals per cell.
 """
 
 from __future__ import annotations
 
+import builtins
+import functools
+
 import numpy as np
 import torch
 
-from .datatype import NAT, DataType
+from .datatype import NAT, UINT64, DataType, order_image
 from .delayed import delayed
 from .expression import Expression
 from .ops.binners import grid_size
 from .ops.grid_extreme import identity
+from .ops.nullable import unsigned_float
 from .utils import find_valid_name
 
-PENDING = "not ported yet (ROADMAP queue A5)"
-
-
+# vaex_tpu/agg.py:891: a presence grid of more (cell, value) pairs than this
+# switches nunique to the sorted pairs
+NUNIQUE_PRESENCE_MAX = 1 << 26
 
 
 def extract_central(grid, ndim):
@@ -123,10 +131,8 @@ class OpSum(AggOperation):
     def initial_state(self, G, device, rows):
         dt = DataType(self.dtype_in).upcast()
         if dt.is_unsigned:
-            if DataType(self.dtype_in).numpy.itemsize == 8:
-                raise NotImplementedError(f"sum of a {self.dtype_in} column is {PENDING}")
-            # narrower unsigned values are summed as int64: the same bits as
-            # the uint64 sum (view_logical)
+            # unsigned values (uint64: their bits) are summed as int64 mod
+            # 2^64: the same bits as the uint64 sum (view_logical)
             return torch.zeros(G, dtype=torch.int64, device=device)
         return torch.zeros(G, dtype=dt.torch, device=device)
 
@@ -143,6 +149,28 @@ class OpSum(AggOperation):
         if x.mask is not None:
             d = d.masked_fill(x.mask, 0)
         return (kind, d)
+
+
+class OpSumMoment(OpSum):
+    """Per-bin float64 sum of ``x ** moment`` over the rows whose x is
+    neither missing nor NaN (vaex_tpu/agg.py:308-338), through the additive
+    plan as one float column."""
+
+    def __init__(self, expressions, moment, dtype_in=None):
+        super().__init__(expressions, dtype_in)
+        self.moment = moment
+        self.name = f"summoment{moment}"
+
+    def initial_state(self, G, device, rows):
+        return torch.zeros(G, dtype=torch.float64, device=device)
+
+    def kernel_input(self, ctx):
+        x = ctx.expr(self.expressions[0])
+        v = unsigned_float(x.data) if x.logical == UINT64 else x.data.to(torch.float64)
+        valid = ~torch.isnan(v)
+        if x.mask is not None:
+            valid &= ~x.mask
+        return ("float", torch.where(valid, v ** self.moment, 0.0))
 
 
 class OpMoments(AggOperation):
@@ -191,8 +219,13 @@ class OpExtreme(AggOperation):
         if dt.is_temporal:
             return torch.int64
         if dt.numpy.kind not in "biuf":
-            raise NotImplementedError(f"{self.mode} of a {dt.name} column is {PENDING}")
+            raise NotImplementedError(f"{self.mode} of a {dt.name} column is not ported yet "
+                                      f"(ROADMAP queue A9: strings)")
         return dt.torch
+
+    @property
+    def _unsigned64(self):
+        return self.dtype_in is not None and DataType(self.dtype_in).numpy == UINT64
 
     def initial_state(self, G, device, rows):
         dtype = self._state_dtype()
@@ -204,6 +237,10 @@ class OpExtreme(AggOperation):
         """(values, valid or None) of one tile, as the min/max kernel takes
         them."""
         return _extreme_input(ctx.expr(self.expressions[0]), self.dtype_in)
+
+    def get_result(self, state, shape):
+        # a uint64 state holds order images: back to the bits
+        return (order_image(state) if self._unsigned64 else state).reshape(shape)
 
     def apply_kernel(self, state, grid):
         if state.dtype == torch.bool:
@@ -230,6 +267,8 @@ def _extreme_input(x, dtype_in):
     else:  # ints and bools widen to int64
         data = data.to(torch.int64)
     data = data.contiguous()
+    if dtype_in is not None and DataType(dtype_in).numpy == UINT64:
+        data = order_image(data)  # the kernel compares int64s
     if dtype_in is not None and DataType(dtype_in).is_temporal:
         not_nat = data != NAT
         valid = not_nat if valid is None else valid & not_nat
@@ -285,7 +324,11 @@ class OpFirst(AggOperation):
         if DataType(self.dtype_in).is_temporal:
             ok = x.data != NAT
             valid = ok if valid is None else valid & ok
-        return x.data, order.data.to(self.order_dtype).contiguous(), valid
+        order_data = order.data
+        if order.logical == UINT64:  # the order of uint64 values is their image's
+            order_data = (unsigned_float(order_data) if self.order_dtype == torch.float64
+                          else order_image(order_data))
+        return x.data, order_data.to(self.order_dtype).contiguous(), valid
 
     def apply_first(self, state, tile_values, tile_order, found):
         values, orders, seen = state
@@ -331,6 +374,11 @@ def _segments(sorted_cells, G):
     return starts, torch.searchsorted(sorted_cells, bins, side="right") - starts
 
 
+def _as_float(x):
+    """An NA's values as float64 (a uint64 one's unsigned values)."""
+    return unsigned_float(x.data) if x.logical == UINT64 else x.data.to(torch.float64)
+
+
 def _counted(x, idx, G, dtype_in):
     """The rows of a tile that count toward a cell: in [0, G), their value
     neither missing nor NaN (nor NaT in a datetime or timedelta)."""
@@ -373,6 +421,8 @@ class OpTopK(AggOperation):
         x = ctx.expr(self.expressions[0])
         valid = _counted(x, idx, G, self.dtype_in)
         cells, values = idx[valid], x.data[valid]
+        if x.logical == UINT64:  # uint64 values order as their images
+            values = order_image(values)
         if not values.numel():
             return state
         cells, values = sort_pairs(cells, values, descending=self.largest)
@@ -387,6 +437,8 @@ class OpTopK(AggOperation):
         grid = state
         if grid.is_floating_point():
             grid = torch.where(grid == self._fill(), torch.nan, grid)
+        if DataType(self.dtype_in).numpy == UINT64:
+            grid = order_image(grid)
         return grid.reshape(tuple(shape) + (self.k,))
 
 
@@ -419,7 +471,7 @@ class OpPercentile(AggOperation):
         not count."""
         x = ctx.expr(self.expressions[0])
         valid = _counted(x, idx, G, self.dtype_in)
-        v = x.data.to(torch.float64)
+        v = _as_float(x)
         width = (self.vmax - self.vmin) or 1.0
         b = ((torch.where(valid, v, self.vmin) - self.vmin) / width * self.bins)
         b = b.to(torch.int64).clamp(0, self.bins - 1)
@@ -483,7 +535,7 @@ class OpPercentileExact(AggOperation):
         x = ctx.expr(self.expressions[0])
         valid = _counted(x, idx, G, self.dtype_in)
         start, n = written[0], idx.shape[0]
-        values[start:start + n] = torch.where(valid, x.data.to(torch.float64), torch.inf)
+        values[start:start + n] = torch.where(valid, _as_float(x), torch.inf)
         cells[start:start + n] = torch.where(valid, idx, G)
         return values, cells, [start + n]
 
@@ -493,6 +545,78 @@ class OpPercentileExact(AggOperation):
         outs = [interp_order_stats(values, starts, n.to(torch.float64), pct)
                 for pct in self.percentages]
         return _stack_percentiles(outs, shape)
+
+
+class OpNUniquePresence(AggOperation):
+    """nunique per cell through a presence grid over (cell, value ordinal)
+    (vaex_tpu/agg.py:568-626): each tile counts its rows at the flat index
+    ``cell * n_values + ordinal`` into the op's own [G * n_values] count
+    grid through the additive plan (B1, B2 or B3 by the grid's size), and a
+    value is present in a cell where its count is above 0.  The ordinals
+    come from ``_ordinal_values`` (B6) against the set a pre-pass built; NaN
+    and missing values have ordinals of their own, which ``dropnan`` /
+    ``dropmissing`` subtract."""
+
+    name = "nunique"
+    kind = "presence"
+
+    def __init__(self, ordinal_expression, n_values, nan_ordinal=-1, null_ordinal=-1,
+                 dropnan=False, dropmissing=False):
+        super().__init__([ordinal_expression])
+        self.n_values = int(n_values)
+        self.bins = builtins.max(self.n_values, 1)  # count cells per grid cell
+        self.drop = [o for o, d in ((nan_ordinal, dropnan), (null_ordinal, dropmissing))
+                     if d and o >= 0]
+
+    def initial_state(self, G, device, rows):
+        return torch.zeros(G * self.bins, dtype=torch.int64, device=device)
+
+    def _pairs(self, ctx, idx, G):
+        """(valid, cell, ordinal) of one tile's rows."""
+        code = ctx.expr(self.expressions[0]).data.to(torch.int64)
+        valid = (idx >= 0) & (idx < G) & (code >= 0) & (code < self.n_values)
+        return valid, idx.to(torch.int64), code
+
+    def count_index(self, ctx, idx, G):
+        """Each row's flat index into the [G, n_values] grid, -1 where it
+        does not count (int32: the grid holds at most 2^26 cells)."""
+        valid, cell, code = self._pairs(ctx, idx, G)
+        return torch.where(valid, cell * self.bins + code, -1).to(torch.int32)
+
+    def get_result(self, state, shape):
+        present = state.reshape(-1, self.bins) > 0
+        counts = present.sum(dim=1, dtype=torch.int64)
+        for o in self.drop:
+            counts -= present[:, o].to(torch.int64)
+        return counts.reshape(shape)
+
+
+class OpNUniqueSorted(OpNUniquePresence):
+    """nunique per cell where the presence grid would pass
+    ``NUNIQUE_PRESENCE_MAX`` cells (vaex_tpu/agg.py:894-973): the distinct
+    (cell, ordinal) pairs as one sorted int64 tensor on the pass device;
+    each tile's pairs are sorted and deduplicated (``torch.unique``) and
+    merged into it by one more, so memory follows the distinct pairs.  The
+    finish counts the pairs per cell (``bincount``).  XLA sorts in the
+    reference, no Pallas kernel."""
+
+    kind = "own"
+
+    def initial_state(self, G, device, rows):
+        self.G = int(G)
+        return torch.empty(0, dtype=torch.int64, device=device)
+
+    def update(self, state, idx, G, ctx):
+        valid, cell, code = self._pairs(ctx, idx, G)
+        pairs = torch.unique(cell[valid] * self.bins + code[valid])
+        return torch.unique(torch.cat([state, pairs])) if state.numel() else pairs
+
+    def get_result(self, state, shape):
+        cells = torch.div(state, self.bins, rounding_mode="floor")
+        counts = torch.bincount(cells, minlength=self.G)
+        for o in self.drop:
+            counts -= torch.bincount(cells[state % self.bins == o], minlength=self.G)
+        return counts.reshape(shape)
 
 
 def selection_expression(selection, df):
@@ -568,7 +692,7 @@ class AggregatorDescriptorBasic(AggregatorDescriptor):
     def logical_dtype(self, df):
         dtype = self._input_dtype(df)
         if self.name in ("min", "max", "first"):
-            widened = dtype.is_unsigned and dtype.numpy.itemsize in (2, 4)
+            widened = dtype.is_unsigned and dtype.numpy.itemsize in (2, 4, 8)
             return dtype.numpy if dtype.is_temporal or widened else None
         if self.name == "sum" and dtype.is_unsigned:
             return np.dtype("uint64")
@@ -681,7 +805,7 @@ class AggregatorDescriptorTopK(AggregatorDescriptor):
 
     def logical_dtype(self, df):
         dtype = self._input_dtype(df)
-        return dtype.numpy if dtype.is_temporal else None
+        return dtype.numpy if dtype.is_temporal or dtype.numpy == UINT64 else None
 
 
 class AggregatorDescriptorMean(AggregatorDescriptor):
@@ -696,10 +820,14 @@ class AggregatorDescriptorMean(AggregatorDescriptor):
         [count_task] = AggregatorDescriptorBasic("count", self.expression, OpCount,
                                                  self.selection).add_tasks(df, binners)
 
+        unsigned = self._input_dtype(df).is_unsigned
+
         @delayed
         def finish(s, c):
-            # torch divides int64 by int64 in float32: divide in float64
-            mean = s.to(torch.float64) / c.to(torch.float64)
+            # torch divides int64 by int64 in float32: divide in float64; an
+            # unsigned sum is the uint64 of its bits
+            total = unsigned_float(s) if unsigned else s.to(torch.float64)
+            mean = total / c.to(torch.float64)
             return torch.where(c > 0, mean, torch.nan)
         return [finish(sum_task, count_task)]
 
@@ -797,6 +925,44 @@ class AggregatorDescriptorCorr(AggregatorDescriptorCovar):
         return [finish(moments)]
 
 
+class AggregatorDescriptorNUnique(AggregatorDescriptor):
+    """The number of distinct values per cell (vaex_tpu/agg.py:1403-1436):
+    a set-build pass (:meth:`prepare`, which several descriptors share
+    with the frame's other pre-passes), then the presence grid while
+    G * n_values <= ``NUNIQUE_PRESENCE_MAX`` (:class:`OpNUniquePresence`),
+    else the sorted pairs (:class:`OpNUniqueSorted`).  The set holds the
+    values of the rows the frame's filter keeps; ``selection`` drops rows
+    from the count, as the reference's does."""
+
+    def __init__(self, expression, dropna=False, dropnan=False, dropmissing=False,
+                 selection=None, edges=False):
+        super().__init__("nunique", expression, selection, edges)
+        self.dropnan = dropnan or dropna
+        self.dropmissing = dropmissing or dropna
+        self._set = None
+
+    def prepare(self, df, binners):
+        """Queue the set-build pass over ``df``."""
+        if self._set is None or self._set[0] is not df:
+            self._set = (df, df._set(self.expression, delay=True))
+
+    def add_tasks(self, df, binners):
+        self.prepare(df, binners)
+        task = self._set[1]
+        self._set = None  # a later use builds the set of its own frame
+        if not task.done:
+            df.execute()
+        oset = task.get()
+        var = df.add_variable("set_nunique", oset, unique=True)
+        ordinal = f"_ordinal_values({self.expression}, {var})"
+        op_class = (OpNUniquePresence if grid_size(binners) * oset.count <= NUNIQUE_PRESENCE_MAX
+                    else OpNUniqueSorted)
+        op = op_class(ordinal, oset.count, oset.nan_ordinal, oset.null_ordinal,
+                      self.dropnan, self.dropmissing)
+        return [df.executor.schedule_aggregation(df, binners, op,
+                                                 selection_expression(self.selection, df))]
+
+
 def count(expression="*", selection=None, edges=False):
     return AggregatorDescriptorBasic("count", expression, OpCount, selection, edges)
 
@@ -879,5 +1045,24 @@ def nth_smallest(expression, n, selection=None, edges=False):
                                     selection=selection, edges=edges)
 
 
+def nunique(expression, dropna=False, dropnan=False, dropmissing=False, selection=None,
+            edges=False):
+    """The number of distinct values per cell; NaN and a missing value count
+    as one each unless dropped."""
+    return AggregatorDescriptorNUnique(expression, dropna, dropnan, dropmissing, selection,
+                                       edges)
+
+
+def _sum_moment(expression, moment, selection=None, edges=False):
+    return AggregatorDescriptorBasic(f"summoment{moment}", expression,
+                                     functools.partial(OpSumMoment, moment=moment), selection,
+                                     edges)
+
+
+# vaex_tpu/agg.py:1442-1448: every name of the reference's registry
 aggregates = {"count": count, "sum": sum, "mean": mean, "min": min, "max": max,
-              "first": first, "std": std, "var": var, "corr": corr, "covar": covar}
+              "first": first, "std": std, "var": var, "nunique": nunique,
+              "_sum_moment": _sum_moment, "median": median_approx,
+              "median_approx": median_approx, "percentile_approx": percentile_approx,
+              "corr": corr, "covar": covar, "max_n": max_n, "min_n": min_n,
+              "nth_largest": nth_largest, "nth_smallest": nth_smallest}

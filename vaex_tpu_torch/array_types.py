@@ -23,17 +23,17 @@ def to_numpy(x):
 
 
 def to_tensor(x, device) -> torch.Tensor:
-    """A numpy array (or tensor) as a tensor on ``device``; a datetime64 or
-    timedelta64 array as its int64 view, a uint16 or uint32 array widened to
-    int32 or int64; raises for dtypes torch has no tensor type for."""
+    """A numpy array (or tensor) as a tensor on ``device``; a datetime64,
+    timedelta64 or uint64 array as its int64 view, a uint16 or uint32 array
+    widened to int64; raises for dtypes torch has no tensor type for."""
     if isinstance(x, torch.Tensor):
         return x.to(device)
     x = np.asarray(x)
-    if x.dtype.kind in "Mm":
+    if x.dtype.kind in "Mm" or x.dtype == np.uint64:
         x = x.view(np.int64)
     dtype = torch_dtype(x.dtype)
     if x.dtype.kind == "u" and x.dtype.itemsize > 1:
-        x = x.astype(np.int32 if dtype == torch.int32 else np.int64)
+        x = x.astype(np.int64)
     return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype).to(device)
 
 

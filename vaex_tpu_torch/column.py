@@ -17,8 +17,10 @@ or a CUDA device) qualify, and the column types below.
   (vaex_tpu/column.py:102-168).
 * :class:`ColumnConcatenated`: columns one after another
   (vaex_tpu/column.py:171-198).
+* :class:`LazyColumn`: the base of the lazy columns of other modules
+  (:class:`~.shift.ColumnShifted`).
 
-A slice of one of the last three is an :class:`~.ops.nullable.NA` of
+A slice of one of the lazy ones is an :class:`~.ops.nullable.NA` of
 tensors on the column's device: data and mask, read with one gather for an
 indexed column.  :func:`tile_of` gives rows of any column as an NA on a
 device, which is how a pass reads them.
@@ -292,7 +294,14 @@ class ColumnConcatenated:
         return fingerprint("column-concat", [column_fingerprint(c) for c in self.columns])
 
 
-LAZY = (ColumnMasked, ColumnIndexed, ColumnConcatenated)
+class LazyColumn:
+    """The base of a lazy column defined outside this module (the shifted
+    view of :mod:`.shift`): like the three above, a slice of it is an NA on
+    its device, and it has ``take``, ``trim``, ``to``, ``device``,
+    ``is_masked`` and ``fingerprint``."""
+
+
+LAZY = (ColumnMasked, ColumnIndexed, ColumnConcatenated, LazyColumn)
 
 
 def _host_only(col):
@@ -421,4 +430,6 @@ def is_masked(col):
         return col.mask is not None or is_masked(col.source)
     if isinstance(col, ColumnConcatenated):
         return any(is_masked(c) for c in col.columns)
+    if isinstance(col, LazyColumn):
+        return col.is_masked
     return False

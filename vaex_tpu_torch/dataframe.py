@@ -51,7 +51,7 @@ from . import selections as selections_module
 from .column import ColumnMasked, ColumnVirtualConstant, column_to, placed_device
 from .column import is_masked as column_is_masked
 from .dataset import Dataset, DatasetArrays
-from .datatype import DataType, dtype_of
+from .datatype import DataType, dtype_of, host_values
 from .delayed import delayed
 from .execution import ExecutorLocal, TileContext, _tile, pass_inputs
 from .expression import Expression, _set_of
@@ -147,16 +147,34 @@ class DataFrame:
         return df
 
     # ------------------------------------------------------------- columns
-    def get_column_names(self, virtual=True, hidden=False, regex=None):
+    def get_column_names(self, virtual=True, strings=True, hidden=False, regex=None):
         """The column names in order; hidden ones (``__`` first) only with
-        ``hidden``, virtual ones unless ``virtual`` is off, and only those
-        ``regex`` matches when one is given."""
+        ``hidden``, virtual ones unless ``virtual`` is off, string ones
+        unless ``strings`` is off, and only those ``regex`` matches when one
+        is given."""
         names = [n for n in self.column_names if hidden or not n.startswith("__")]
         if not virtual:
             names = [n for n in names if n not in self.virtual_columns]
+        if not strings:
+            names = [n for n in names if self.data_type(n).numpy.kind not in "OSU"]
         if regex:
             names = [n for n in names if re.match(regex, n)]
         return names
+
+    def get_names(self, hidden=False):
+        return self.get_column_names(hidden=hidden)
+
+    def evaluate_variable(self, name):
+        """The value kept under a variable's name (a set, an array)."""
+        return self.variables[name]
+
+    def byte_size(self, selection=False, virtual=False):
+        """The bytes the columns' values take at their dtype's item size over
+        the frame's rows, string columns left out (vaex_tpu/dataframe.py:
+        1943-1950)."""
+        return sum(self.data_type(name).numpy.itemsize * len(self)
+                   for name in self.get_column_names(virtual=virtual)
+                   if self.data_type(name).numpy.kind not in "OSU")
 
     def column_count(self, hidden=False):
         return len(self.get_column_names(hidden=hidden))
@@ -499,8 +517,10 @@ class DataFrame:
         filtered frame the rows the filter keeps, unless ``filtered`` is off."""
         value = self._evaluate_tile(expression, i1, i2, filtered)
         data, mask = array_types.to_numpy(value.data), value.mask
-        if value.logical is not None:  # a datetime or timedelta from its int64 count
-            data = data.view(value.logical)
+        logical = value.logical or (self.dataset.logical.get(expression)
+                                    if self._is_physical(expression) else None)
+        # a datetime, timedelta or unsigned value from its int64 tensor
+        data = host_values(data, logical)
         if mask is not None:
             mask = array_types.to_numpy(mask)
             if mask.any():
@@ -519,8 +539,6 @@ class DataFrame:
         ctx = TileContext(DeviceScope(tile, variables, self.virtual_columns), i2 - i1, device)
         value = ctx.expr(expression)
         data, mask = value.data, value.mask
-        if data.dim() == 0:  # a constant expression
-            data = data.expand(i2 - i1)
         if len(expressions) > 1:
             keep = ctx.boolean(self._filter)
             data, mask = data[keep], None if mask is None else mask[keep]
@@ -544,10 +562,8 @@ class DataFrame:
         if (df._is_physical(expression) and not df.filtered
                 and isinstance(df.dataset[expression], (np.ndarray, torch.Tensor))):
             values = array_types.to_numpy(df.dataset[expression][:])
-            logical = df.dataset.logical.get(expression)
-            # a datetime or timedelta column comes back from its int64 form
-            if values.dtype.kind == "i" and logical:
-                values = values.view(logical)
+            # a datetime, timedelta or unsigned column comes back from its int64 form
+            values = host_values(values, df.dataset.logical.get(expression))
         else:
             values = df._evaluate_rows(expression, 0, df.dataset.row_count)
         if out is not None:
@@ -698,6 +714,17 @@ class DataFrame:
         return self._compute_agg(
             "first", expression, binby, limits, shape, selection, delay, edges,
             order_expression=None if order_expression is None else str(order_expression))
+
+    def nunique(self, expression, dropna=False, dropnan=False, dropmissing=False, binby=(),
+                limits=None, shape=128, selection=None, delay=False, edges=False,
+                progress=None):
+        """The number of distinct values, per cell of ``binby``; NaN and a
+        missing value count as one each unless dropped
+        (vaex_tpu/dataframe.py:875-893): a set-build pass, then a presence
+        grid counted by the additive kernels, or sorted (cell, value) pairs
+        past ``agg.NUNIQUE_PRESENCE_MAX`` cells (:mod:`.agg`)."""
+        return self._compute_agg("nunique", expression, binby, limits, shape, selection, delay,
+                                 edges, dropna=dropna, dropnan=dropnan, dropmissing=dropmissing)
 
     def minmax(self, expression, binby=(), limits=None, shape=128, selection=None,
                delay=False):
@@ -880,6 +907,171 @@ class DataFrame:
                 return np.asarray(c) / (np.asarray(sx) * np.asarray(sy))
         return self._delay(delay, finish(cov, std_x, std_y))
 
+    def cov(self, x, y=None, binby=(), limits=None, shape=128, selection=None, delay=False,
+            progress=None):
+        """The covariance matrix ``[..., n, n]`` of the expressions ``x`` (or
+        of the pair x, y), per cell of ``binby``: each entry E[x_i x_j] -
+        E[x_i] E[x_j], every mean over the rows where its own expression is
+        valid, as the reference takes them (vaex_tpu/dataframe.py:1060-1081).
+        The n means and the n (n + 1) / 2 means of the products are one pass
+        of sums and counts, the additive kernels (B1 / B2 / B3 by the grid's
+        size); the covar moment ops would hold a pair to the rows where both
+        are valid, which is another answer where values are missing."""
+        if y is None:
+            exprs = [str(e) for e in (x if isinstance(x, (list, tuple)) else [x])]
+        else:
+            exprs = [str(x), str(y)]
+        n = len(exprs)
+        binby = _ensure_list(binby)
+        limits = self._axis_limits(binby, limits)  # once for every mean
+        means = [self.mean(e, binby, limits, shape, selection, delay=True) for e in exprs]
+        cross = {(i, j): self.mean(f"({exprs[i]}) * ({exprs[j]})", binby, limits, shape,
+                                   selection, delay=True)
+                 for i in range(n) for j in range(i, n)}
+        keys = list(cross)
+
+        @delayed
+        def finish(*grids):
+            mvals = [np.asarray(m) for m in grids[:n]]
+            C = np.zeros(np.shape(mvals[0]) + (n, n))
+            for (i, j), g in zip(keys, grids[n:]):
+                C[..., i, j] = C[..., j, i] = np.asarray(g) - mvals[i] * mvals[j]
+            return C
+        return self._delay(delay, finish(*means, *(cross[k] for k in keys)))
+
+    def mode(self, expression, binby=(), limits=None, shape=256, mode_shape=64,
+             mode_limits=None, progressbar=False, selection=None):
+        """The most frequent value: the centre of the fullest of
+        ``mode_shape`` bins over ``mode_limits`` (the expression's minmax by
+        default), per cell of ``binby`` (vaex_tpu/dataframe.py:1101-1118):
+        the limits pass, then one count grid."""
+        expression = str(expression)
+        lim = self.limits(expression, mode_limits, selection=selection)
+        centers = (np.linspace(lim[0], lim[1], mode_shape + 1)[:-1]
+                   + (lim[1] - lim[0]) / mode_shape / 2)
+        binby = _ensure_list(binby)
+        counts = self.count(binby=binby + [expression],
+                            limits=(self.limits(binby, limits) if binby else []) + [lim],
+                            shape=[shape] * len(binby) + [mode_shape], selection=selection)
+        return centers[np.argmax(np.asarray(counts), axis=-1)]
+
+    def mutual_information(self, x, y=None, dimension=2, mi_limits=None, mi_shape=256,
+                           binby=(), limits=None, shape=128, sort=False, selection=None,
+                           delay=False):
+        """The mutual information of x and y from their 2-D count grid of
+        ``mi_shape`` bins a side over ``mi_limits`` (vaex_tpu/dataframe.py:
+        1191-1222); of each of a list of pairs (ordered by it, descending,
+        with ``sort``, then also the pairs), or the matrix of a list of
+        expressions."""
+        if y is None:
+            if not isinstance(x, (list, tuple)):
+                raise ValueError("provide y or a list of pairs")
+            if all(isinstance(e, (list, tuple)) for e in x):
+                pairs = [(str(a), str(b)) for a, b in x]
+                out = np.array([self.mutual_information(a, b, mi_limits=mi_limits,
+                                                        mi_shape=mi_shape, selection=selection)
+                                for a, b in pairs])
+                if sort:
+                    order = np.argsort(out)[::-1]
+                    return out[order], [pairs[i] for i in order]
+                return out
+            exprs = [str(e) for e in x]
+            return np.array([[self.mutual_information(a, b, mi_limits=mi_limits,
+                                                      mi_shape=mi_shape, selection=selection)
+                              for b in exprs] for a in exprs])
+        x, y = str(x), str(y)
+        lim = self.limits([x, y], mi_limits, selection=selection)
+        counts = np.asarray(self.count(binby=[x, y], limits=lim, shape=mi_shape,
+                                       selection=selection))
+        pxy = counts / counts.sum()
+        px = pxy.sum(axis=1, keepdims=True)
+        py = pxy.sum(axis=0, keepdims=True)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            terms = pxy * np.log(pxy / (px * py))
+        return float(np.nansum(terms))
+
+    def healpix_count(self, expression=None, healpix_expression="source_id/34359738368",
+                      healpix_max_level=12, healpix_level=8, binby=None, limits=None,
+                      shape=128, **kwargs):
+        """Counts per healpix pixel at ``healpix_level`` from a nested index
+        at ``healpix_max_level`` (Gaia's ``source_id / 2^35``): a count
+        binned over the 12 * 4^level pixels (vaex_tpu/dataframe.py:1083-1099).
+        A pixel is the index's integer part floor-divided by
+        4^(max_level - level), which bins exactly into [p - 0.5, p + 0.5).
+        The reference bins ``index / 4^(max_level - level) + epsilon`` into
+        those bins, which moves every index whose fraction is past one half
+        into the next pixel (ROADMAP, known problems of the reference)."""
+        nmax = 12 * 4 ** healpix_level
+        scaling = 4 ** (healpix_max_level - healpix_level)
+        expr = f"(astype({healpix_expression}, 'int64') // {scaling})"
+        return self.count(expression, binby=[expr] + list(binby or []),
+                          limits=[[-0.5, nmax - 0.5]] + list(limits or []),
+                          shape=[nmax] + list(shape if isinstance(shape, (list, tuple)) else []),
+                          **kwargs)
+
+    def describe(self, strings=True, virtual=True, selection=None):
+        """A pandas frame of each column's data type, count, missing count
+        (NA), mean, std, min and max, the statistics of all columns in one
+        pass; a datetime column has min and max but no mean or std, a
+        non-numeric one only its counts (vaex_tpu/dataframe.py:1158-1189)."""
+        import pandas as pd
+        names = self.get_column_names(strings=strings, virtual=virtual)
+        rows = {"data_type": [], "count": [], "NA": [], "mean": [], "std": [], "min": [],
+                "max": []}
+        types = {name: self.data_type(name) for name in names}
+        numeric = [n for n in names if types[n].numpy.kind in "iuf" or types[n].numpy.kind == "M"]
+        moments = [n for n in numeric if types[n].numpy.kind != "M"]
+        N = len(self)
+        counts = {n: self.count(n, selection=selection, delay=True) for n in names}
+        means = {n: self.mean(n, selection=selection, delay=True) for n in moments}
+        stds = {n: self.std(n, selection=selection, delay=True) for n in moments}
+        minmaxes = {n: self.minmax(n, selection=selection, delay=True) for n in numeric}
+        self.execute()
+        for name in names:
+            count = int(np.asarray(counts[name].get()))
+            rows["data_type"].append(types[name].name)
+            rows["count"].append(count)
+            rows["NA"].append(N - count)
+            mm = np.asarray(minmaxes[name].get()) if name in minmaxes else ("--", "--")
+            rows["min"].append(mm[0])
+            rows["max"].append(mm[1])
+            rows["mean"].append(float(np.asarray(means[name].get())) if name in means else "--")
+            rows["std"].append(float(np.asarray(stds[name].get())) if name in stds else "--")
+        return pd.DataFrame(rows, index=names).T
+
+    def propagate_uncertainties(self, columns, depending_variables=None, cov_matrix="auto",
+                                covariance_format="{}_{}_covariance",
+                                uncertainty_format="{}_uncertainty"):
+        """First-order error propagation (vaex_tpu/dataframe.py:1120-1152):
+        for each column a virtual ``<column>_uncertainty`` = sqrt(sum of
+        (d column / d v)^2 * v_uncertainty^2) over the variables v it depends
+        on whose uncertainty column exists; the derivatives are symbolic
+        (:func:`.expresso.derivative`)."""
+        from .scopes import classify_leaves
+        columns = [c if isinstance(c, Expression) else self[str(c)] for c in columns]
+        if depending_variables is None:
+            deps = set()
+            for col in columns:
+                deps |= classify_leaves(self, col.expand().expression)[1]
+            depending_variables = sorted(deps)
+        depending_variables = [str(v) for v in depending_variables]
+        for col in columns:
+            expr = col.expand().expression
+            terms = []
+            for var in depending_variables:
+                try:
+                    d = expresso.derivative(expr, var)
+                except ValueError:
+                    continue
+                sigma = uncertainty_format.format(var)
+                if d.strip() == "0" or sigma not in self:
+                    continue
+                terms.append(f"(({d}))**2 * ({sigma})**2")
+            if terms:
+                self.add_virtual_column(uncertainty_format.format(str(col)),
+                                        "sqrt(" + " + ".join(terms) + ")")
+        return self
+
     # ---------------------------------------------------------------- order
     def take(self, indices):
         """The rows at ``indices`` (of a filtered frame: among the rows it
@@ -997,12 +1189,15 @@ class DataFrame:
         return bb.agg(agg)
 
     # ------------------------------------------------------------- set API
-    def _set(self, expression, keep_counts=False, limit=None, limit_raise=True):
+    def _set(self, expression, keep_counts=False, limit=None, limit_raise=True, delay=False):
         """The SortedSet of an expression's values over the rows the filter
-        keeps, built by one pass on the pass device."""
+        keeps, built by one pass on the pass device (with ``delay`` the
+        queued task, whose promise gives it)."""
         task = TaskSetCreate(self, str(expression), keep_counts=keep_counts,
                              limit=limit if limit_raise else None)
         self.executor.schedule(task)
+        if delay:
+            return task
         self.execute()
         return task.get()
 
@@ -1186,6 +1381,29 @@ class DataFrame:
             del df.virtual_columns[name]
             df._put_column(name, values, logical)
         return df
+
+    # ------------------------------------------------------- shift, rolling
+    def shift(self, periods, column=None, fill_value=None, trim=False, inplace=False):
+        """The columns (``column``, or all) shifted by ``periods`` rows as
+        lazy views on their device (:func:`.shift.shift`)."""
+        from .shift import shift
+        return shift(self, periods, column=column, fill_value=fill_value, trim=trim,
+                     inplace=inplace)
+
+    def diff(self, periods=1, column=None, fill_value=None, trim=False, inplace=False,
+             reverse=False):
+        """Each column minus itself shifted by ``periods`` (:func:`.shift.diff`)."""
+        from .shift import diff
+        return diff(self, periods=periods, column=column, fill_value=fill_value, trim=trim,
+                    inplace=inplace, reverse=reverse)
+
+    def rolling(self, window, trim=False, column=None, fill_value=None, edge="right"):
+        """Window reductions (``.sum()``, ``.mean()``, ``.min()``, ``.max()``)
+        over shifted views (:class:`.shift.Rolling`)."""
+        from .shift import Rolling
+        columns = [column] if isinstance(column, str) else column
+        return Rolling(self, window, trim=trim, fill_value=fill_value, edge=edge,
+                       columns=columns)
 
     # ----------------------------------------------------- random rows, splits
     def shuffle(self, random_state=None):

@@ -24,7 +24,7 @@ import torch
 
 from .column import (column_device, column_fingerprint, concat_columns, slice_column,
                      take_column)
-from .datatype import dtype_of
+from .datatype import dtype_of, needs_logical
 from .utils import fingerprint, hash_array_data
 
 
@@ -34,8 +34,9 @@ class Dataset(collections.abc.Mapping):
         self._row_count = 0
         self._ids = {}
         self._fingerprint = None
-        # the numpy datetime64 / timedelta64 dtype of the columns that hold
-        # one, whether as a numpy array or as an int64 tensor
+        # the numpy dtype of the columns held as int64 tensors of another
+        # meaning (datetime64, timedelta64, uint16, uint32, uint64), whether
+        # as a numpy array or as the tensor
         self.logical = {}
         # facts derived from the columns' content (a key's range, a filter's
         # row count), kept for the life of the node by whoever derives them
@@ -134,7 +135,7 @@ class DatasetArrays(Dataset):
         self.logical = {name: np.dtype(dt) for name, dt in (logical or {}).items()
                         if name in self._columns}
         for name, col in self._columns.items():
-            if isinstance(col, np.ndarray) and col.dtype.kind in "Mm":
+            if isinstance(col, np.ndarray) and needs_logical(col.dtype):
                 self.logical[name] = col.dtype
         lengths = {name: len(col) for name, col in self._columns.items()}
         if len(set(lengths.values())) > 1:

@@ -4,10 +4,13 @@ The counterpart of ``vaex_tpu/datatype.py`` for the numeric slice of the
 port; arrow types are not ported yet.  A ``datetime64`` or ``timedelta64``
 column is an int64 tensor on a device (its epoch count; NaT is the int64
 minimum) and keeps its numpy dtype as the logical one.  A ``uint16`` or
-``uint32`` column stays a numpy array and is widened when a tile of it is
-loaded (to int32 and int64, which hold every value); results come back in
-the column's dtype (:func:`vaex_tpu_torch.agg.view_logical`).  ``uint64``
-has no signed type that holds it and raises.  ``upcast`` follows the dtype
+``uint32`` column is an int64 tensor of its values, which int64 holds
+exactly; a ``uint64`` column an int64 tensor of the same bits.  Each keeps
+its dtype as the logical one (``Dataset.logical``), and results come back
+in it (:func:`vaex_tpu_torch.agg.view_logical`).  Where the order of uint64
+values matters (min / max, sets and their probes) they travel as the
+order-preserving image ``bits ^ (1 << 63)`` (:func:`order_image`), and
+their float value is :func:`.ops.nullable.unsigned_float`.  ``upcast`` follows the dtype
 contract of the aggregators: int/bool -> int64, uint -> uint64,
 float -> float64.
 """
@@ -29,9 +32,48 @@ _TORCH_TO_NUMPY = {
     torch.float64: np.dtype("float64"),
 }
 _NUMPY_TO_TORCH = {v: k for k, v in _TORCH_TO_NUMPY.items()}
-# unsigned columns as the signed tensor type a tile of them is widened to
-_WIDENED = {np.dtype("uint16"): torch.int32, np.dtype("uint32"): torch.int64}
+# unsigned columns as the signed tensor type that holds them: their values
+# (uint16, uint32) or their bits (uint64)
+_WIDENED = {np.dtype("uint16"): torch.int64, np.dtype("uint32"): torch.int64,
+            np.dtype("uint64"): torch.int64}
 NAT = np.iinfo(np.int64).min  # NaT in the int64 view of a datetime or timedelta
+UINT64 = np.dtype("uint64")
+# the top bit of an int64: x ^ TOP maps uint64 bits to int64s of the same order
+TOP = -(1 << 63)
+
+
+def needs_logical(dtype) -> bool:
+    """True for a dtype whose column is held as an int64 tensor of another
+    meaning: datetime64, timedelta64, uint16, uint32, uint64."""
+    dtype = np.dtype(dtype)
+    return dtype.kind in "Mm" or dtype in _WIDENED
+
+
+def rides_logical(dtype) -> bool:
+    """True for the logical dtypes an NA carries through a pass (temporal
+    and uint64: their int64 data is not their value); a uint16 or uint32
+    tile is its values and carries none."""
+    return dtype is not None and (np.dtype(dtype).kind in "Mm" or np.dtype(dtype) == UINT64)
+
+
+def order_image(t):
+    """uint64 bits (an int64 tensor, or torch's uint64) as int64s of the
+    same order: ``bits ^ (1 << 63)``; its own inverse."""
+    if t.dtype != torch.int64:
+        t = t.view(torch.int64)
+    return t ^ TOP
+
+
+def host_values(values, logical):
+    """A host array of a column's int64 tensor as its logical dtype: a
+    temporal or uint64 column's bits viewed, a uint16 / uint32 column's
+    values narrowed; any other array as it is."""
+    if logical is None or values.dtype != np.int64:
+        return values
+    logical = np.dtype(logical)
+    if logical.itemsize == 8:
+        return values.view(logical)
+    return values.astype(logical)
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -45,18 +87,15 @@ def torch_dtype(dtype) -> torch.dtype:
         return torch.int64
     if npdt in _WIDENED:
         return _WIDENED[npdt]
-    if npdt == np.dtype("uint64"):
-        raise TypeError("uint64 columns are not ported yet (ROADMAP queue A5): no signed "
-                        "tensor type holds their values")
     if npdt not in _NUMPY_TO_TORCH:
         raise TypeError(f"no torch dtype for {npdt}")
     return _NUMPY_TO_TORCH[npdt]
 
 
 def has_torch_dtype(dtype) -> bool:
-    """True for a column that moves to a device as it is (a ``uint16`` or
-    ``uint32`` column stays on the host and is widened tile by tile)."""
-    return np.dtype(dtype) in _NUMPY_TO_TORCH or np.dtype(dtype).kind in "Mm"
+    """True for a column that moves to a device: a dtype torch has, or one
+    held as an int64 tensor (:func:`needs_logical`)."""
+    return np.dtype(dtype) in _NUMPY_TO_TORCH or needs_logical(dtype)
 
 
 class DataType:

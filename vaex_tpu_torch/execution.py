@@ -35,6 +35,7 @@ import torch
 
 from . import settings
 from .column import placed_device, tile_of
+from .datatype import rides_logical
 from .ops.nullable import NA
 from .scopes import DeviceScope, column_names, resolve_variables, variable_names
 from .tasks import TaskAggregations
@@ -54,7 +55,14 @@ class TileContext:
         self.row_valid = row_valid
 
     def expr(self, expression) -> NA:
-        return self.scope.evaluate(str(expression))
+        """The expression over the tile's rows; a constant one broadcast to
+        them."""
+        value = self.scope.evaluate(str(expression))
+        if value.data.dim() == 0:
+            value = NA(value.data.to(self.device).expand(self.n_rows),
+                       None if value.mask is None else value.mask.to(self.device).expand(
+                           self.n_rows), value.logical)
+        return value
 
     def boolean(self, expression):
         """A boolean expression as a bool tensor, False where it is missing."""
@@ -192,7 +200,8 @@ def _pass_device(dataset, names):
 
 
 def _tile(dataset, name, i1, i2, device) -> NA:
-    """Rows [i1, i2) of a column as an NA on ``device``; a datetime or
-    timedelta column as its int64 count with its dtype."""
+    """Rows [i1, i2) of a column as an NA on ``device``; a datetime,
+    timedelta or uint64 column as its int64 tensor with its dtype."""
     part = tile_of(dataset[name], i1, i2, device)
-    return NA(part.data, part.mask, dataset.logical.get(name))
+    logical = dataset.logical.get(name)
+    return NA(part.data, part.mask, logical if rides_logical(logical) else None)

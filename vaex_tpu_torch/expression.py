@@ -110,6 +110,14 @@ class Expression(metaclass=Meta):
     def dtype(self):
         return self.df.data_type(self.expression)
 
+    def data_type(self):
+        return self.df.data_type(self.expression)
+
+    def derivative(self, var, simplify=True):
+        """The symbolic derivative by ``var`` (:func:`.expresso.derivative`)."""
+        var = var.expression if isinstance(var, Expression) else str(var)
+        return Expression(self.df, expresso.derivative(self.expression, var, simplify=simplify))
+
     # -- statistics (vaex_tpu/expression.py:233-255) -------------------------
     def count(self, **kwargs):
         return self.df.count(self.expression, **kwargs)
@@ -206,7 +214,12 @@ class Expression(metaclass=Meta):
 
     def isin(self, values):
         """True where the value is one of ``values``: rewrites to
-        ``isin_set(expression, <set variable>)``."""
+        ``isin_set(expression, <set variable>)``.  Against a uint64
+        expression, integer values make a uint64 set (a negative one matches
+        nothing): numpy would make a list of Python ints past 2^63 beside
+        small ones float64, where neighbours past 2^53 merge."""
+        if self.df.data_type(self.expression).numpy == np.uint64:
+            values = _as_unsigned(values)
         var = self.df.add_variable("isin_set", _set_of(values), unique=True)
         return Expression(self.df, f"isin_set({self.expression}, {var})")
 
@@ -223,6 +236,20 @@ class Expression(metaclass=Meta):
         choices_var = self.df.add_variable("map_choices", choices, unique=True)
         return Expression(
             self.df, f"_choose(_ordinal_values({self.expression}, {set_var}), {choices_var})")
+
+
+def _as_unsigned(values):
+    """Integer values as a uint64 array, without those no uint64 holds;
+    anything else as it is."""
+    if isinstance(values, np.ndarray) and values.dtype.kind != "O":
+        if values.dtype.kind not in "iu":
+            return values
+        return values[values >= 0].astype(np.uint64) if values.dtype.kind == "i" else (
+            values.astype(np.uint64))
+    values = list(values)
+    if not all(isinstance(v, (int, np.integer)) and not isinstance(v, bool) for v in values):
+        return np.asarray(values)
+    return np.array([int(v) for v in values if 0 <= int(v) < 2 ** 64], dtype=np.uint64)
 
 
 def _set_of(values):

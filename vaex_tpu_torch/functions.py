@@ -32,7 +32,8 @@ import torch
 
 from .datatype import _TORCH_TO_NUMPY, torch_dtype
 from .ops import setops
-from .ops.nullable import NA, TEMPORAL_PENDING, as_operand, lift, refuse_temporal
+from .ops.nullable import (NA, TEMPORAL_PENDING, UINT64, UNSIGNED_PENDING, as_operand, lift,
+                           refuse_temporal, unsigned_float)
 from .registry import register_function
 
 
@@ -91,11 +92,29 @@ def _float_to_int(data, target):
     return torch.where(low, info.min, out)
 
 
+def _astype_unsigned(x, dtype):
+    """astype from or to uint64: to float the unsigned value, to int64 or
+    from an int the same bits (numpy wraps alike), to uint64 itself."""
+    if x.logical == UINT64:
+        if dtype == UINT64:
+            return x
+        if dtype.kind == "f":
+            return NA(unsigned_float(x.data).to(torch_dtype(dtype)), x.mask)
+        if dtype == np.int64:
+            return NA(x.data, x.mask)
+    elif not x.data.is_floating_point() and x.logical is None:
+        return NA(x.data.to(torch.int64), x.mask, UINT64)
+    raise NotImplementedError(f"astype of a {x.logical or x.dtype} value to {dtype} is "
+                              f"{UNSIGNED_PENDING}")
+
+
 def _astype(x, dtype):
     """numpy's ``astype``: a datetime or timedelta as an int or float is its
     epoch count; an int column becomes a temporal dtype by its count; a
     temporal value keeps only its own dtype."""
     x = _na(x)
+    if x.logical == UINT64 or np.dtype(dtype) == UINT64:
+        return _astype_unsigned(x, np.dtype(dtype))
     if np.dtype(dtype).kind in "Mm":
         if x.logical == np.dtype(dtype):
             return x

@@ -371,8 +371,7 @@ def parse_actions(df, by_names, actions):
                 continue
             if isinstance(s, str):
                 if s not in agg_module.aggregates:
-                    raise NotImplementedError(
-                        f"aggregator {s!r} is {agg_module.PENDING}")
+                    raise KeyError(f"{s!r} is not an aggregator (vaex_tpu_torch.agg.aggregates)")
                 s = agg_module.aggregates[s]
             if isinstance(s, AggregatorDescriptor):
                 if name is None or multiple:
@@ -388,7 +387,7 @@ def parse_actions(df, by_names, actions):
                     out.append((desc.pretty_name() if (multiple or name is None)
                                 else name, desc))
             else:
-                raise NotImplementedError(f"aggregator {s!r} is {agg_module.PENDING}")
+                raise TypeError(f"{s!r} is neither an aggregator nor its name")
     return out
 
 
@@ -431,6 +430,39 @@ class GroupBy:
 
     def _parse_actions(self, actions):
         return parse_actions(self.df, self.by_names, actions)
+
+    def __iter__(self):
+        """(key, the frame of its rows) per group, through filters
+        (vaex_tpu/groupby.py:986-1018)."""
+        for key in self._group_keys():
+            yield key, self.get_group(key)
+
+    def _group_keys(self):
+        if len(self.groupers) == 1:
+            values = self.groupers[0].bin_values
+            return [values[i] for i in range(len(values))]
+        return list(zip(*[g.bin_values for g in self.groupers]))
+
+    @property
+    def groups(self):
+        for key, _ in self:
+            yield key
+
+    def get_group(self, key):
+        """The rows of one group (a tuple of keys for several groupers), as
+        a filter of the frame: a missing key matches the missing rows, a
+        NaN key the NaN rows."""
+        conditions = []
+        for g, k in zip(self.groupers, key if isinstance(key, tuple) else (key,)):
+            if isinstance(k, np.generic):
+                k = k.item()
+            if k is None or k is np.ma.masked:
+                conditions.append(f"ismissing({g.expression})")
+            elif isinstance(k, float) and np.isnan(k):
+                conditions.append(f"isnan({g.expression})")
+            else:
+                conditions.append(f"({g.expression} == {k!r})")
+        return self.df.filter(" & ".join(conditions))
 
     def agg(self, actions):
         try:

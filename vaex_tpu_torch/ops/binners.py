@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..utils import fingerprint
-from .nullable import NA
+from .nullable import NA, UINT64, unsigned_float
 
 
 class BinnerScalar:
@@ -34,6 +34,8 @@ class BinnerScalar:
 
     def to_bins(self, x: NA):
         data = x.data
+        if x.logical == UINT64:  # uint64 bits: their float value
+            data = unsigned_float(data)
         fdata = data if data.dtype == torch.float32 else data.to(torch.float64)
         # the limits and their span in the binning dtype, on the host
         scalar = np.float32 if fdata.dtype == torch.float32 else np.float64
@@ -104,6 +106,8 @@ class BinnerOrdinal:
             idx = (rel.clamp(-1, self.count) + 2).nan_to_num(0).to(torch.int32)
         else:
             rel = data.to(torch.int64)
+            if x.logical == UINT64:  # values past 2^63 overflow
+                rel = torch.where(rel < 0, self.count + self.min_value, rel)
             if self.min_value:
                 rel = rel - self.min_value
             # [1, count + 2]: underflow -> 1, data -> rel + 2, overflow -> count + 2;

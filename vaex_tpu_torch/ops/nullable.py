@@ -21,6 +21,12 @@ comparison, True in ``!=``, NaN in a float quotient, 0 in an int one), and
 an operation numpy refuses raises ``TypeError``.  Any other operation on a
 temporal value raises ``NotImplementedError`` (:func:`refuse_temporal`):
 none returns a plain number where numpy's dtype is temporal.
+
+A ``uint64`` value is its int64 bits with ``logical`` uint64.  Its
+comparisons (with uint64 values, non-negative Python ints and floats), its
+``+``, ``-`` and ``*`` (mod 2^64, with uint64 values and Python ints) and
+its ``/`` (float64) follow numpy (:func:`unsigned_binop`); any other
+operation on it raises ``NotImplementedError`` naming ROADMAP queue A14.
 """
 
 from __future__ import annotations
@@ -30,9 +36,12 @@ import operator
 import numpy as np
 import torch
 
+from ..datatype import _TORCH_TO_NUMPY, TOP, UINT64
+
 # NaT in the int64 view of a datetime or timedelta
 NAT = np.iinfo(np.int64).min
 TEMPORAL_PENDING = "not ported yet (ROADMAP queue A9: datetimes)"
+UNSIGNED_PENDING = "not ported yet (ROADMAP queue A14: uint64 inside expressions)"
 
 
 class NA:
@@ -92,10 +101,12 @@ def as_operand(x):
 
 
 def refuse_temporal(what, *args):
-    """Raise for an operation the port does not carry for a temporal value."""
+    """Raise for an operation the port does not carry for a temporal or a
+    uint64 value."""
     for a in args:
         if isinstance(a, NA) and a.logical is not None:
-            raise NotImplementedError(f"{what} of a {a.logical} value is {TEMPORAL_PENDING}")
+            pending = UNSIGNED_PENDING if a.logical == UINT64 else TEMPORAL_PENDING
+            raise NotImplementedError(f"{what} of a {a.logical} value is {pending}")
 
 
 def lift(op, *args):
@@ -125,12 +136,18 @@ def _truediv(a, b):
 
 
 def _is_temporal(x):
-    return isinstance(x, NA) and x.logical is not None
+    return isinstance(x, NA) and x.logical is not None and x.logical.kind in "Mm"
+
+
+def _is_unsigned(x):
+    return isinstance(x, NA) and x.logical == UINT64
 
 
 def _binop(name, op, reflected=False):
     def method(self, other):
         left, right = (other, self) if reflected else (self, other)
+        if _is_unsigned(left) or _is_unsigned(right):
+            return unsigned_binop(name, left, right)
         if _is_temporal(left) or _is_temporal(right):
             return temporal_binop(name, left, right)
         return lift(op, left, right)
@@ -154,7 +171,6 @@ def _numpy_stand_in(x):
             return np.zeros(1, x.logical)
         x = x.data
     if isinstance(x, torch.Tensor):
-        from ..datatype import _TORCH_TO_NUMPY
         return np.ones(1, _TORCH_TO_NUMPY[x.dtype])
     return x
 
@@ -238,6 +254,57 @@ def temporal_binop(name, left, right):
     return NA(value, mask, out)
 
 
+def _unsigned_side(x, name, other):
+    """One operand of a uint64 operation: ("u", int64 bits) for a uint64 NA
+    or a Python int in [0, 2^64), ("f", float64 value) for a float; raises
+    for anything numpy would not keep in uint64."""
+    if _is_unsigned(x):
+        return "u", x.data
+    if isinstance(x, bool) or not isinstance(x, (int, float, np.integer, np.floating)):
+        raise NotImplementedError(f"{name} of a uint64 value and {_describe(x)} is "
+                                  f"{UNSIGNED_PENDING}")
+    if isinstance(x, (float, np.floating)):
+        return "f", float(x)
+    x = int(x)
+    if not 0 <= x < 2 ** 64:
+        raise NotImplementedError(f"{name} of a uint64 value and {x} is {UNSIGNED_PENDING}")
+    return "u", x - 2 ** 64 if x >= 2 ** 63 else x
+
+
+def unsigned_binop(name, left, right):
+    """``left <name> right`` where one side is a uint64 NA, as numpy gives
+    it: comparisons on the order image (or in float64 against a float),
+    ``+ - *`` on the bits mod 2^64 as uint64, ``/`` in float64."""
+    mask = _mask_or(*(x.mask if isinstance(x, NA) else None for x in (left, right)))
+    (ka, a), (kb, b) = (_unsigned_side(x, name, right if x is left else left)
+                        for x in (left, right))
+    floats = "f" in (ka, kb)
+    if name in _COMPARISONS:
+        if floats:
+            a, b = (unsigned_float(v) if k == "u" and isinstance(v, torch.Tensor)
+                    else float(v) + (2.0 ** 64 if k == "u" and v < 0 else 0.0)
+                    for k, v in ((ka, a), (kb, b)))
+        else:
+            a, b = (v ^ TOP for v in (a, b))
+        return NA(_NUMPY_OPS[name](a, b), mask)
+    if name == "truediv" or floats:
+        if name not in ("add", "sub", "mul", "truediv"):
+            raise NotImplementedError(f"{name} of a uint64 value is {UNSIGNED_PENDING}")
+        a, b = (unsigned_float(v) if isinstance(v, torch.Tensor) and k == "u"
+                else float(v) + (2.0 ** 64 if k == "u" and v < 0 else 0.0)
+                for k, v in ((ka, a), (kb, b)))
+        return NA(_NUMPY_OPS[name](a, b), mask)
+    if name not in ("add", "sub", "mul"):
+        raise NotImplementedError(f"{name} of a uint64 value is {UNSIGNED_PENDING}")
+    return NA(_NUMPY_OPS[name](a, b), mask, UINT64)
+
+
+def unsigned_float(t):
+    """The float64 value of the uint64 bits in an int64 tensor."""
+    f = t.to(torch.float64)
+    return torch.where(t < 0, f + 2.0 ** 64, f)
+
+
 def _describe(x):
     if isinstance(x, NA):
         return str(x.logical or _numpy_stand_in(x).dtype)
@@ -248,6 +315,8 @@ def _unary(name, op):
     def method(self):
         if self.logical is None:
             return NA(op(self.data), self.mask)
+        if self.logical == UINT64:  # numpy keeps uint64: -x and ~x wrap, abs is x
+            return self if name in ("pos", "abs") else NA(op(self.data), self.mask, UINT64)
         if self.logical.kind == "M" or name == "invert":
             raise TypeError(f"{name} of a {self.logical} value: numpy has no such loop")
         return NA(torch.where(self.data == NAT, NAT, op(self.data)), self.mask, self.logical)

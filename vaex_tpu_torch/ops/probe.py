@@ -26,7 +26,8 @@ serves CPU tensors only.
 
 Integer rows against integer keys compare in int64, everything else in
 float64 (an int64 beyond 2^53 against a float key rounds, as in numpy).
-uint64 has no signed 64-bit image with the same order, and raises.
+torch's uint64 keys and rows compare as their order image
+``bits ^ (1 << 63)`` in int64 (:func:`as_compared`), both sides or neither.
 """
 
 from __future__ import annotations
@@ -107,21 +108,27 @@ def narrow_pays(M):
 
 def compare_dtype(keys, x):
     """The dtype both sides widen to: int64 when both are integral (bool
-    included), else float64."""
-    for t in (keys, x):
-        if t.dtype == UINT64:
-            raise NotImplementedError(
-                "a set probe of uint64 values is not ported yet (ROADMAP queue A5): their "
-                "order differs from int64's")
+    included; uint64 on both sides as its order image), else float64."""
+    if (keys.dtype == UINT64) != (x.dtype == UINT64):
+        raise TypeError(f"a probe of uint64 values takes uint64 on both sides, got "
+                        f"{keys.dtype} keys and {x.dtype} rows")
     if keys.is_floating_point() or x.is_floating_point():
         return torch.float64
     return torch.int64
 
 
+def as_compared(t, dtype):
+    """``t`` in the compare dtype: torch's uint64 as its order image (the
+    keys stay sorted, ``bits ^ (1 << 63)``), anything else widened."""
+    if t.dtype == UINT64:
+        return t.view(torch.int64) ^ -(1 << 63)
+    return t.to(dtype)
+
+
 def probe_reference(keys, x):
     """The plain PyTorch version: ``searchsorted``, gather, compare."""
     dtype = compare_dtype(keys, x)
-    keys, x = keys.to(dtype), x.to(dtype)
+    keys, x = as_compared(keys, dtype), as_compared(x, dtype)
     M = keys.shape[0]
     if M == 0:
         return torch.full(x.shape, -1, dtype=torch.int32, device=x.device)
@@ -214,7 +221,7 @@ def build_tree(keys, dtype=None, narrow=None):
     or never (False)."""
     if dtype is None:
         dtype = torch.float64 if keys.is_floating_point() else torch.int64
-    keys = keys.to(dtype).contiguous()
+    keys = as_compared(keys, dtype).contiguous()
     M = keys.shape[0]
     if M < 1:
         raise ValueError("a search tree needs at least one key")
@@ -350,7 +357,7 @@ def probe(keys, x, tree=None):
     # 4-byte rows of the keys' kind widen in the kernel's load, the rest here
     narrow = torch.float32 if dtype == torch.float64 else torch.int32
     if x.dtype != narrow:
-        x = x.to(dtype)
+        x = as_compared(x, dtype)
     x = x.contiguous()
     out = torch.empty(n, dtype=torch.int32, device=x.device)
     sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count

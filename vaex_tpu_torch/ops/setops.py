@@ -17,6 +17,11 @@ fits (``b6``), its top levels there and the rest in global memory past that
 :class:`SortedIndex` is the join's index of a right key, on the key's
 device; its probe is B6 too.  String, arrow and dictionary keys wait for the
 host scope (ROADMAP queue A9) and raise.
+
+A set of uint64 keys holds them on the device as their order image
+``bits ^ (1 << 63)`` (int64, sorted), and on the host as uint64; a probe
+maps its rows into that image (:func:`_probe_domain`), so B6 compares
+int64s on both sides.
 """
 
 from __future__ import annotations
@@ -25,10 +30,10 @@ import numpy as np
 import torch
 
 from .. import array_types
-from ..datatype import NAT, torch_dtype
+from ..datatype import NAT, UINT64, order_image, torch_dtype
 from ..utils import fingerprint
 from . import probe as probe_module
-from .nullable import NA
+from .nullable import NA, UNSIGNED_PENDING, unsigned_float
 
 STRINGS_PENDING = ("sets of string keys are not ported yet: they wait for the host scope "
                    "(ROADMAP queue A9)")
@@ -146,9 +151,12 @@ class SortedSet:
     def keys(self):
         """The keys as a host array (copied from the device on first read)."""
         if self._keys is None:
-            keys = array_types.to_numpy(self._device_keys)
-            # a datetime or timedelta set holds its epoch counts on the device
-            self._keys = (keys.view(self.dtype) if self.is_temporal
+            keys = self._device_keys
+            if self.is_unsigned64:  # the order image back to the bits
+                keys = order_image(keys)
+            keys = array_types.to_numpy(keys)
+            # a datetime, timedelta or uint64 set holds int64s on the device
+            self._keys = (keys.view(self.dtype) if self.is_temporal or self.is_unsigned64
                           else keys.astype(self.dtype, copy=False))
         return self._keys
 
@@ -162,8 +170,11 @@ class SortedSet:
         """The keys as a tensor on ``device``, moved there once."""
         device = torch.device(device)
         if self._device_keys is None or self._device_keys.device != device:
-            source = self._device_keys if self._device_keys is not None else self.keys
-            self._device_keys = array_types.to_tensor(source, device)
+            if self._device_keys is not None:
+                self._device_keys = self._device_keys.to(device)
+            else:
+                keys = array_types.to_tensor(self.keys, device)
+                self._device_keys = order_image(keys) if self.is_unsigned64 else keys
         return self._device_keys
 
     @property
@@ -179,6 +190,11 @@ class SortedSet:
     def is_temporal(self):
         """datetime64 or timedelta64 keys: NaT rows are the missing value."""
         return self.dtype.kind in "Mm"
+
+    @property
+    def is_unsigned64(self):
+        """uint64 keys: on the device as their order image."""
+        return self.dtype == UINT64
 
     @property
     def has_nan(self):
@@ -280,12 +296,14 @@ class DeviceSetHandle:
     shares the set's, so every tile of a pass and every later pass reuse one
     build."""
 
-    def __init__(self, keys, n_keys, has_nan, has_null, temporal=False, trees=None):
+    def __init__(self, keys, n_keys, has_nan, has_null, temporal=False, trees=None,
+                 unsigned=False):
         self.keys = keys
         self.n_keys = n_keys
         self.has_nan = has_nan
         self.has_null = has_null
         self.temporal = temporal  # rows that hold NaT are missing
+        self.unsigned = unsigned  # uint64 keys, held as their order image
         self.route = None
         self.trees = {} if trees is None else trees
 
@@ -293,7 +311,7 @@ class DeviceSetHandle:
     def of(cls, oset, device):
         keys = oset.device_keys(device)
         return cls(keys, oset.n_keys, oset.has_nan, oset.has_null, oset.is_temporal,
-                   oset.trees.setdefault(keys.device, {}))
+                   oset.trees.setdefault(keys.device, {}), oset.is_unsigned64)
 
     def tree(self, dtype):
         """The search layout of the keys compared in ``dtype``."""
@@ -329,6 +347,35 @@ def device_probe(handle, data):
     return probe_module.probe(handle.keys, data)
 
 
+def _probe_domain(handle, x):
+    """(rows as the keys are held, rows that can match no key or None): a
+    uint64 set compares order images, so uint64 rows map to theirs and a
+    signed int row to its value's, a negative one matching nothing; uint64
+    rows against a signed set match where their value fits int64 (against
+    a float set by their float value)."""
+    data, unsigned = x.data, x.logical == UINT64
+    if handle.unsigned:
+        if data.is_floating_point():
+            raise NotImplementedError(f"a probe of float values in a uint64 set is "
+                                      f"{UNSIGNED_PENDING}")
+        data = data.to(torch.int64)
+        return order_image(data), None if unsigned else data < 0
+    if not unsigned:
+        return data, None
+    if handle.keys.is_floating_point():
+        return unsigned_float(data), None
+    return data, data < 0
+
+
+def _probe(handle, x):
+    """int32 ordinals of ``x``'s values among the keys, -1 where none."""
+    data, never = _probe_domain(handle, x)
+    if not handle.n_keys:
+        return torch.full(data.shape, -1, dtype=torch.int32, device=data.device)
+    codes = device_probe(handle, data)
+    return codes if never is None else codes.masked_fill(never, -1)
+
+
 def _missing(handle, x):
     """The rows of ``x`` that hold the missing value: masked rows and, for a
     datetime or timedelta set, NaT rows; None when there can be none."""
@@ -342,10 +389,7 @@ def device_map_ordinal(handle: DeviceSetHandle, x: NA):
     """NA values -> int32 ordinals: NaN rows take ``nan_ordinal``, masked
     rows ``null_ordinal``, the rest the probe's ordinal or -1."""
     data = x.data
-    if handle.n_keys:
-        codes = device_probe(handle, data)
-    else:
-        codes = torch.full(data.shape, -1, dtype=torch.int32, device=data.device)
+    codes = _probe(handle, x)
     if data.is_floating_point() and handle.has_nan:
         codes = torch.where(torch.isnan(data), handle.nan_ordinal, codes)
     missing = _missing(handle, x)
@@ -356,10 +400,7 @@ def device_map_ordinal(handle: DeviceSetHandle, x: NA):
 
 def device_isin(handle: DeviceSetHandle, x: NA):
     data = x.data
-    if handle.n_keys:
-        out = device_probe(handle, data) >= 0
-    else:
-        out = torch.zeros(data.shape, dtype=torch.bool, device=data.device)
+    out = _probe(handle, x) >= 0
     if data.is_floating_point() and handle.has_nan:
         out = out | torch.isnan(data)
     missing = _missing(handle, x)

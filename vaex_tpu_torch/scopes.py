@@ -50,6 +50,33 @@ def _leaves(expression, variables, virtual):
     return columns, used
 
 
+def classify_leaves(df, expression):
+    """(function names, physical column names, variable names) an
+    expression reads, through the frame's virtual columns
+    (vaex_tpu/scopes.py:167-198); an unknown name counts as a column, so
+    that evaluating it raises a good error."""
+    funcs, columns, variables, seen = set(), set(), set(), set()
+    pending = [str(expression)]
+    while pending:
+        expr = pending.pop()
+        if expr in seen:
+            continue
+        seen.add(expr)
+        for node in ast.walk(ast.parse(expr, mode="eval")):
+            if isinstance(node, ast.Call) and isinstance(node.func, ast.Name):
+                funcs.add(node.func.id)
+        for name in _names(expr) - funcs:
+            if name in df.virtual_columns:
+                pending.append(df.virtual_columns[name])
+            elif name in df.variables:
+                variables.add(name)
+            elif has_function(name) and name not in df.get_column_names(hidden=True):
+                funcs.add(name)
+            else:
+                columns.add(name)
+    return {f for f in funcs if has_function(f)}, columns, variables
+
+
 def column_names(expression, variables=(), virtual=None):
     """The physical columns an expression reads: the names, through the
     ``virtual`` columns (name -> expression), that are neither registered

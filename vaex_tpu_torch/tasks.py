@@ -10,11 +10,12 @@ from __future__ import annotations
 
 import torch
 
-from .datatype import NAT, DataType
+from .datatype import NAT, UINT64, DataType, order_image
 from .delayed import Promise
 from .ops.binners import fuse_bins, grid_shape, grid_size
 from .ops.grid_extreme import extreme_of_rows
 from .ops.grid_moments import MAX_BASES, MAX_TERMS
+from .ops.nullable import unsigned_float
 from .ops.grid_plan import grid_extremes, grid_sums, grid_sums_and_extremes, moment_sums
 from .ops.setops import RowLimitException, SortedSet
 
@@ -58,9 +59,11 @@ class TaskAggregations(Task):
     A ``first`` is two per-bin mins through the same route, of the order
     values and then of the row numbers among the rows that hold the winning
     order.  An approximate percentile counts its [cell, value bin] grid
-    through the additive plan (``"percentile"``: the kernel); a top-k and
-    an exact percentile fold each tile themselves (``"topk"``,
-    ``"percentile_exact"``: ``"sort"``).  Without binners the grid is one
+    through the additive plan (``"percentile"``: the kernel), and so does a
+    nunique's presence grid of [cell, value ordinal] (``"presence"``); a
+    top-k, an exact percentile and a nunique of sorted pairs fold each tile
+    themselves (``"topk"``, ``"percentile_exact"``, ``"nunique"``:
+    ``"sort"``).  Without binners the grid is one
     cell and an extreme is a plain reduction over the rows (``"reduce"``).
     ``strategy`` maps each kind of the last tile to its kernel, e.g.
     ``{"additive": "b1", "moments": "b5", "extremes": "b3x-direct"}``; the
@@ -128,14 +131,15 @@ class TaskAggregations(Task):
         if "first" in kinds:
             names = [self._update_first(i, new_state, idx, G, ctx) for i in kinds["first"]]
             self.strategy["first"] = "+".join(dict.fromkeys(names))
-        if "percentile" in kinds:
+        for kind in ("percentile", "presence"):
             names = []
-            for i in kinds["percentile"]:
+            for i in kinds.get(kind, []):
                 op = self.subtasks[i]
                 name, _, _ = grid_sums(op.count_index(ctx, idx, G), [], [], G * op.bins, True,
                                        out=([new_state[i]], []))
                 names.append(name)
-            self.strategy["percentile"] = "+".join(dict.fromkeys(names))
+            if names:
+                self.strategy[kind] = "+".join(dict.fromkeys(names))
         for i in kinds.get("own", []):
             new_state[i] = self.subtasks[i].update(new_state[i], idx, G, ctx)
             self.strategy[self.subtasks[i].name] = "sort"
@@ -286,6 +290,8 @@ class TaskSetCreate(Task):
         self.limit = limit
         dtype = df.data_type(expression)
         self.temporal = dtype.numpy if dtype.is_temporal else None
+        # uint64 keys are kept as their order image, so that they sort as numbers
+        self.unsigned = dtype.numpy == UINT64
 
     def initial_state(self, device, rows):
         return {"keys": None, "counts": None, "nan": 0, "null": 0}
@@ -309,6 +315,8 @@ class TaskSetCreate(Task):
                 keep = ~nan if keep is None else keep & ~nan
         if keep is not None:
             data = data[keep]
+        if self.unsigned:
+            data = order_image(data)
         if self.keep_counts:
             keys, counts = torch.unique(data, sorted=True, return_counts=True)
             if state["keys"] is not None:
@@ -329,7 +337,7 @@ class TaskSetCreate(Task):
         return state
 
     def finalize(self, state):
-        dtype = self.temporal or DataType(state["keys"].dtype).numpy
+        dtype = self.temporal or (UINT64 if self.unsigned else DataType(state["keys"].dtype).numpy)
         oset = SortedSet.from_device(dtype, state["keys"],
                                      state["counts"], state["nan"], state["null"], self.limit)
         self.fulfill(oset)
@@ -340,7 +348,9 @@ def moment_base(x):
     """A base column of the moment kernels from one tile's NA: int64,
     float32 or float64, with NaN in the masked rows (as float64)."""
     d = x.data
-    if d.is_floating_point():
+    if x.logical == UINT64:  # uint64 bits: their float value
+        d = unsigned_float(d)
+    elif d.is_floating_point():
         if d.dtype not in (torch.float32, torch.float64):
             d = d.to(torch.float64)
     else:
