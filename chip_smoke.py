@@ -218,6 +218,21 @@ Run from the root of the repository on a machine with a CUDA card.  It
     tensors; then each query timed against plain torch (5 repetitions,
     medians) with its peak memory above the table; it prints its own JSON
     line.
+21. drives the host scope: (a) BASELINE config 3 on H2O's own string keys
+    (benchmarks/fixtures.py:28-40 at 1e8 rows drawn on the host from seed
+    42, id1 / id2 "id%03d" of 1..100 and id3 "id%010d" of 1..1e6 as plain
+    arrow strings), staged by to_device (timed as the ingest), then q1,
+    q2, q3 and q10, each checked against plain torch over the drawn codes
+    (config 3's checks, the result's labels translated to the codes), B1,
+    B2 and B3 asserted launched from their counters and the routes from
+    trace_log, q10's string keys asserted dictionary columns on the card;
+    (b) benchmarks/strings.py's seven cases at 1e8 rows on the staged frame
+    and groupby_str_sum / isin_str_500 on the unstaged one at 1e7 rows,
+    each against plain torch over the codes with the per-label result
+    computed in Python; (c) four datetime queries at 1e7 rows through the
+    host stage against plain torch over the int64 nanoseconds; then each
+    query timed beside its plain version (5 repetitions, medians), q1-q3
+    beside phase 17's int keys; it prints its own JSON line.
 
 It exits non-zero on any failure.  The line before the last is a JSON
 object with every kernel's (and each of B3x's routes') launches, error,
@@ -269,7 +284,7 @@ SET_KEYS = {"k100": 100, "k2000": 2000, "k1e6": H2O_K6}
 # config 3 and config 4 phases ("config3_launches", "config4_launches"); for
 # B6 its time at config 4's join (the 1e9 fact keys among the 1e7 dim keys),
 # J1's launches and the ms of J1's copies to the host
-EXTRA_KEYS = ("library_add_ms", "isin_ms", "wide_launches", "wide_ms", "wide_plain_ms",
+EXTRA_KEYS = ("phase21_l2_launches", "library_add_ms", "isin_ms", "wide_launches", "wide_ms", "wide_plain_ms",
               "config2_launches", "wide_library_ms", "wide_isin_ms", "wide_bound_ms", "wide_max_abs_err",
               "l2_launches", "l2_ms", "l2_plain_ms", "l2_max_abs_err", "count_ms",
               "scatter_ms", "sums_ms", "q7_ms", "q7_plain_ms", "q7_library_ms",
@@ -3408,6 +3423,397 @@ def phase20_path(vt, plan, gp, probe, label, n=PHASE20_ROWS):
     torch.cuda.empty_cache()
     return launches, record
 
+# phase 21: the host scope.  BASELINE config 3 on H2O's own string keys
+# (benchmarks/fixtures.py:28-40 with H2O's formats), benchmarks/strings.py's
+# cases (:53-61) and datetimes through the host stage
+PHASE21_ROWS = 100_000_000
+# the unstaged string path and the datetimes: each query hashes every string
+# (or converts every datetime) on the host, so they run at 1e7 rows
+PHASE21_HOST_ROWS = 10_000_000
+PHASE21_K = 100
+PHASE21_QUESTIONS = ("q1", "q2", "q3", "q10")
+# the route each question's pass takes, and the kernel that must launch in it
+PHASE21_ROUTES = {"q1": ("b1", ("b1",)), "q2": ("b2", ("b2",)), "q3": ("b3", ("b3", "b3-l2"))}
+
+
+def phase21_strings(codes, labels):
+    """Plain strings made from drawn codes and their labels without a Python
+    loop over the rows: a dictionary array decoded."""
+    import pyarrow as pa
+    return pa.DictionaryArray.from_arrays(pa.array(codes.astype(np.int32)),
+                                          pa.array(labels)).dictionary_decode()
+
+
+def phase21_columns(n, seed=SEED):
+    """H2O's groupby table (benchmarks/fixtures.py:28-40) drawn on the host
+    from ``seed`` with H2O's key formats: id1, id2 "id%03d" of 1..100, id3
+    "id%010d" of 1..n/100 (plain string columns), id4, id5 int64 in 1..100,
+    id6 in 1..n/100, v1 in 1..5, v2 in 1..15, v3 U[0, 100).  Returns (the
+    frame's host columns, the drawn codes of the string keys, their
+    labels)."""
+    rng = np.random.default_rng(seed)
+    k3 = config3_span("id3", n)
+    labels = {"id1": [f"id{i:03d}" for i in range(1, PHASE21_K + 1)],
+              "id3": [f"id{i:010d}" for i in range(1, k3 + 1)]}
+    labels["id2"] = labels["id1"]
+    codes = {"id1": rng.integers(0, PHASE21_K, n), "id2": rng.integers(0, PHASE21_K, n),
+             "id3": rng.integers(0, k3, n)}
+    host = {key: phase21_strings(codes[key], labels[key]) for key in ("id1", "id2", "id3")}
+    for key, high in (("id4", PHASE21_K), ("id5", PHASE21_K), ("id6", k3), ("v1", 5),
+                      ("v2", 15)):
+        host[key] = rng.integers(1, high + 1, n).astype(np.int64)
+    host["v3"] = rng.random(n) * 100
+    return host, codes, labels
+
+
+def phase21_plain_columns(host, codes, device):
+    """The plain side's columns on ``device``: each string key as its drawn
+    code + 1 (phase 17's int keys), the rest as they are."""
+    cols = {key: torch.as_tensor(codes[key] + 1, device=device) if key in codes
+            else torch.as_tensor(host[key], device=device) for key in host}
+    return cols
+
+
+def phase21_label_codes(col, labels, device):
+    """A dictionary column's rows as the drawn code of their label (-1 for a
+    label not among ``labels``): each label looked up once on the host, then
+    gathered by code on ``device``."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    table = pc.index_in(col.labels, value_set=pa.array(labels)).fill_null(-1)
+    table = torch.as_tensor(np.asarray(table).astype(np.int64), device=device)
+    return table.index_select(0, col.codes.to(device=device, dtype=torch.int64))
+
+
+def phase21_as_ints(vt, out, labels, device):
+    """A result over string keys as phase 17's over int keys: each string key
+    column (asserted a dictionary column whose codes lie on ``device``) as
+    its drawn code + 1, the rows in ascending order of the keys, as the
+    plain answers hold them."""
+    from vaex_tpu_torch.column import ColumnDictionary
+    cols = {}
+    for name in out.get_column_names():
+        col = out.dataset[name]
+        if name in labels:
+            check(isinstance(col, ColumnDictionary) and col.codes.device.type
+                  == torch.device(device).type,
+                  f"phase 21: key {name} comes back as a dictionary column on {device}")
+            cols[name] = phase21_label_codes(col, labels[name], device) + 1
+        else:
+            cols[name] = _column(out, name, device)
+    keys = torch.stack([cols[k] for k in CONFIG3_KEYS if k in cols], dim=1)
+    _, inverse = torch.unique(keys, dim=0, return_inverse=True)
+    order = torch.empty_like(inverse)
+    order[inverse] = torch.arange(inverse.numel(), device=inverse.device)
+    return vt.from_dict({name: value[order] for name, value in cols.items()})
+
+
+def phase21_h2o(vt, df, plain_cols, labels, n, device, plan=None, expect_routes=True):
+    """q1, q2, q3 and q10 on string keys, each once through the public API
+    and checked against plain torch over the codes; with ``expect_routes``
+    (the full size) the route of q1-q3 from trace_log and, given ``plan``,
+    the launch of its kernel during it; q10 asserted on the one-sort route.
+    Returns each question's route."""
+    questions = config3_questions(vt)
+    plain = config3_plain(plain_cols, n)
+    routes = {}
+    for q in PHASE21_QUESTIONS:
+        before = {name: k.launches for name, k in plan.KERNELS.items()} if plan else None
+        out = questions[q](df)
+        entry = df.executor.trace_log[-1]
+        routes[q] = ({k: entry[k] for k in ("groupby", "mode", "words", "groups")}
+                     if "groupby" in entry else entry["strategies"])
+        if q in PHASE21_ROUTES and expect_routes:
+            route, kernels = PHASE21_ROUTES[q]
+            got = entry["strategies"][0].get("additive", "")
+            check(got.startswith(route), f"phase 21 {q}: additive route {got!r}, not {route}")
+            if plan:
+                launched = [name for name in kernels
+                            if plan.KERNELS[name].launches > before[name]]
+                check(launched, f"phase 21 {q}: {kernels} not launched")
+        elif q not in PHASE21_ROUTES:
+            check(routes[q].get("groupby") == "one-sort", f"phase 21 {q}: {routes[q]}")
+        config3_check(f"phase 21 {q}", phase21_as_ints(vt, out, labels, device), plain[q](),
+                      device)
+        print(f"phase 21 {q} N={n}: {len(out)} groups, route {routes[q]}; checked against "
+              f"plain torch over the codes", flush=True)
+    return routes
+
+
+def phase21_strings_columns(n, k=PHASE21_K, seed=SEED):
+    """benchmarks/strings.py's frame: s the labels "id%07d" of k codes drawn
+    from ``seed``, x U[0, 1); returns (host columns, codes, labels)."""
+    rng = np.random.default_rng(seed)
+    labels = [f"id{i:07d}" for i in range(k)]
+    codes = rng.integers(0, k, n)
+    return {"s": phase21_strings(codes, labels), "x": rng.random(n)}, codes, labels
+
+
+def phase21_isin_values(labels):
+    """The isin labels of benchmarks/strings.py: every second one, at most 500."""
+    return labels[0::2][:500]
+
+
+def phase21_string_queries(labels):
+    """benchmarks/strings.py:53-61's cases."""
+    values = phase21_isin_values(labels)
+    return {
+        "groupby_str_sum": lambda df: df.groupby("s", agg={"x": "sum"}),
+        "value_counts_str": lambda df: df["s"].value_counts(),
+        "unique_str": lambda df: df.unique("s"),
+        "isin_str_500": lambda df: df[df["s"].isin(values)].count("*"),
+        "str_upper": lambda df: df["s"].str.upper().evaluate(),
+        "str_contains": lambda df: df["s"].str.contains("3", regex=False).evaluate(),
+        "str_len_sum": lambda df: df["s"].str.len().sum(),
+    }
+
+
+def phase21_string_plain(codes, x, labels, name):
+    """A case answered over the codes (a tensor) in plain torch, a per-label
+    result computed in Python over the labels and gathered by code."""
+    k = len(labels)
+    device = codes.device
+    if name == "groupby_str_sum":
+        counts = torch.bincount(codes, minlength=k)
+        sums = torch.zeros(k, dtype=torch.float64, device=device).index_add_(0, codes, x)
+        return counts, sums
+    if name in ("value_counts_str", "unique_str"):
+        return torch.bincount(codes, minlength=k)
+    if name == "isin_str_500":
+        member = torch.zeros(k, dtype=torch.bool, device=device)
+        member[0::2] = True
+        return int(member[codes].sum())
+    if name == "str_upper":
+        import pyarrow as pa
+        return pa.DictionaryArray.from_arrays(pa.array(codes.cpu().numpy().astype(np.int32)),
+                                              pa.array([v.upper() for v in labels]))
+    if name == "str_contains":
+        table = torch.tensor(["3" in v for v in labels], device=device)
+        return table[codes]
+    table = torch.tensor([len(v) for v in labels], device=device)  # str_len_sum
+    return int(table[codes].sum())
+
+
+def phase21_string_check(name, got, want, codes, labels, device):
+    """A case's answer against its plain one: counts, labels and ints
+    exact, float sums within :func:`within_sum_bound`."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    what = f"phase 21 {name}"
+    if name == "groupby_str_sum":
+        counts, sums = want
+        at = phase21_label_codes(got.dataset["s"], labels, device)
+        check(bool((at >= 0).all()) and at.numel() == int((counts > 0).sum()), f"{what} keys")
+        x = _column(got, "x", device).to(torch.float64)
+        want_x = sums.index_select(0, at)
+        check(within_sum_bound(x, want_x, want_x.abs(), counts.index_select(0, at)), what)
+    elif name == "value_counts_str":
+        at = np.asarray(pc.index_in(pa.array(list(got.index)), value_set=pa.array(labels))
+                        .fill_null(-1))
+        check(bool((at >= 0).all()), f"{what} labels")
+        check(np.array_equal(got.to_numpy(), want.cpu().numpy()[at])
+              and len(at) == int((want > 0).sum()), what)
+    elif name == "unique_str":
+        present = [labels[i] for i in torch.nonzero(want).squeeze(1).tolist()]
+        check(sorted(got) == sorted(present) and len(got) == len(present), what)
+    elif name in ("isin_str_500", "str_len_sum"):
+        check(int(got) == want, f"{what}: {got} against {want}")
+    elif name == "str_upper":
+        check(len(got) == len(want), f"{what} length")
+        if hasattr(got, "dictionary"):
+            got = got.dictionary.take(got.indices)
+        same = pc.equal(got, want.dictionary.take(want.indices))
+        check(pc.all(same).as_py() and got.null_count == 0, what)
+    else:  # str_contains
+        got = np.asarray(got)
+        check(got.dtype == np.bool_ and np.array_equal(got, want.cpu().numpy()), what)
+
+
+def phase21_string_cases(vt, df, codes, x, labels, device, names=None, plan=None):
+    """The cases (``names``, or all) once through the public API on ``df``,
+    each checked against plain torch over the codes; returns each case's
+    last pass's host-stage expressions."""
+    stages = {}
+    for name, query in phase21_string_queries(labels).items():
+        if names is not None and name not in names:
+            continue
+        passes = df.executor.passes
+        got = query(df)
+        # an evaluate of a host-stage expression reads the host and runs no pass
+        stages[name] = (df.executor.trace_log[-1]["host_stage"]
+                        if df.executor.passes > passes else "evaluated on the host")
+        phase21_string_check(name, got, phase21_string_plain(codes, x, labels, name), codes,
+                             labels, device)
+        print(f"phase 21 {name} N={len(codes)}: host stage {stages[name]}; checked against "
+              f"plain torch over the codes", flush=True)
+    return stages
+
+
+def phase21_datetimes(n, seed=SEED):
+    """t datetime64[ns] uniform over 2021 with 1% NaT, v3 U[0, 100)."""
+    rng = np.random.default_rng(seed)
+    year = np.int64(365 * 24 * 3600) * 10 ** 9
+    t = (np.datetime64("2021-01-01", "ns") + rng.integers(0, year, n).astype("m8[ns]"))
+    t[rng.random(n) < 0.01] = np.datetime64("NaT")
+    return {"t": t, "v3": rng.random(n) * 100}
+
+
+def phase21_datetime_queries(vt):
+    return {
+        "groupby_hour_mean": lambda df: df.groupby(df.t.dt.hour, agg={"v3": "mean"}),
+        "year_value_counts": lambda df: df.t.dt.year.value_counts(),
+        "days_since_min_sum": lambda df: (df.t - df.t.min()).td.days.sum(),
+        "min_astype_day": lambda df: df.min("astype(t, 'datetime64[D]')"),
+    }
+
+
+def phase21_datetime_plain(t, v3, name):
+    """A datetime query in plain torch over the int64 nanoseconds (NaT the
+    int64 minimum)."""
+    nat = t == np.iinfo(np.int64).min
+    ok = ~nat
+    if name == "groupby_hour_mean":
+        hour = torch.div(t, 3600 * 10 ** 9, rounding_mode="floor") % 24
+        hour = hour.masked_fill(nat, 24)  # the NaN hour, last
+        counts = torch.bincount(hour, minlength=25)
+        sums = torch.zeros(25, dtype=torch.float64, device=t.device).index_add_(0, hour, v3)
+        return counts, sums
+    if name == "year_value_counts":
+        return int(ok.sum()), int(nat.sum())
+    if name == "days_since_min_sum":
+        tmin = t[ok].min()
+        return int(torch.div(t[ok] - tmin, 86400 * 10 ** 9, rounding_mode="floor").sum())
+    day = torch.div(t[ok], 86400 * 10 ** 9, rounding_mode="floor").min()  # min_astype_day
+    return np.datetime64(int(day), "D")
+
+
+def phase21_datetime_check(name, got, want):
+    what = f"phase 21 {name}"
+    if name == "groupby_hour_mean":
+        counts, sums = want
+        hours = np.asarray(got.evaluate(got.get_column_names()[0]))
+        check(np.array_equal(hours[:24], np.arange(24)) and np.isnan(hours[24]), f"{what} keys")
+        mean = torch.as_tensor(np.asarray(got.evaluate("v3")), dtype=torch.float64)
+        want_mean = (sums / counts).cpu()
+        check(within_sum_bound(mean, want_mean, want_mean, counts.cpu()), what)
+    elif name == "year_value_counts":
+        valid, nat = want
+        index = list(got.index)
+        check(index[0] == 2021 and np.isnan(index[1]) and list(got.to_numpy()) == [valid, nat],
+              f"{what}: {got.to_dict()}")
+    else:
+        check(got == want, f"{what}: {got!r} against {want!r}")
+
+
+def phase21_datetime_cases(vt, df, t, v3):
+    stages = {}
+    for name, query in phase21_datetime_queries(vt).items():
+        got = query(df)
+        stages[name] = df.executor.trace_log[-1].get("host_stage")
+        check(stages[name], f"phase 21 {name}: no host stage in its last pass")
+        phase21_datetime_check(name, got, phase21_datetime_plain(t, v3, name))
+        print(f"phase 21 {name} N={len(t)}: host stage {stages[name]}; checked against plain "
+              f"torch", flush=True)
+    return stages
+
+
+def phase21_time(record, name, query, plain, df, rows):
+    """One query's median (host clock to a synchronize, 5 repetitions)
+    beside its plain version's, with its host-stage time per tile and its
+    peak memory above the table."""
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    query(df)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    log = df.executor.trace_log[-1] if df.executor.trace_log else {}
+    port_s, _ = median_s(lambda: query(df))
+    plain_s, _ = median_s(plain)
+    host_ms = log.get("host_s", 0.0) * 1e3 / max(log.get("tiles", 1), 1)
+    record[name] = {"rows": rows, "ms": port_s * 1e3, "plain_ms": plain_s * 1e3,
+                    "host_stage_ms_per_tile": host_ms, "peak_gb": peak_gb}
+    print(f"phase 21 {name} N={rows}: median {port_s * 1e3!r} ms (port; host stage "
+          f"{host_ms!r} ms a tile, {peak_gb!r} GB above the table at its peak) vs "
+          f"{plain_s * 1e3!r} ms (plain torch), reps {REPS}", flush=True)
+
+
+def phase21_path(vt, plan, gp, probe, label, config3_times, n=PHASE21_ROWS,
+                 n_host=PHASE21_HOST_ROWS):
+    """Phase 21 on the card: (a) H2O q1-q3 and q10 on string keys at ``n``
+    rows, (b) benchmarks/strings.py's cases on the staged frame at ``n``
+    rows and two of them on the unstaged frame at ``n_host``, (c) the
+    datetime queries at ``n_host``; each driven once with the kernel counts
+    set to 0 and checked, B1, B2 and B3 asserted launched, then each timed
+    beside its plain version.  Returns (launches, the phase's JSON record)."""
+    record = {"card": label, "rows": n, "host_rows": n_host, "queries": {}}
+    host, codes, labels = phase21_columns(n)
+    frame = vt.from_arrays(**host)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    df = frame.to_device("cuda")
+    torch.cuda.synchronize()
+    record["ingest_s"] = time.perf_counter() - t0
+    print(f"[{label}] phase 21 ingest (to_device, three string columns dictionary-encoded) "
+          f"N={n}: {record['ingest_s']!r} s", flush=True)
+    plain_cols = phase21_plain_columns(host, codes, "cuda")
+    del frame
+    zero_launches(plan, gp)
+    probe.probe.launches = probe.probe.wide_launches = 0
+    routes = phase21_h2o(vt, df, plain_cols, labels, n, "cuda", plan)
+    s_host, s_codes, s_labels = phase21_strings_columns(n)
+    s_df = vt.from_arrays(**s_host).to_device("cuda")
+    s_codes_t = torch.as_tensor(s_codes, device="cuda")
+    s_x = torch.as_tensor(s_host["x"], device="cuda")
+    stages = phase21_string_cases(vt, s_df, s_codes_t, s_x, s_labels, "cuda")
+    h_host, h_codes, h_labels = phase21_strings_columns(n_host)
+    h_df = vt.from_arrays(**h_host)  # unstaged: the set grouper and the host stage
+    h_codes_t = torch.as_tensor(h_codes, device="cuda")
+    h_x = torch.as_tensor(h_host["x"], device="cuda")
+    host_names = ("groupby_str_sum", "isin_str_500")
+    stages.update({f"{k} (unstaged)": v for k, v in phase21_string_cases(
+        vt, h_df, h_codes_t, h_x, h_labels, "cuda", host_names).items()})
+    d_host = phase21_datetimes(n_host)
+    d_df = vt.from_arrays(**d_host).to_device("cuda")
+    d_t = torch.as_tensor(d_host["t"].view(np.int64), device="cuda")
+    d_v3 = torch.as_tensor(d_host["v3"], device="cuda")
+    stages.update(phase21_datetime_cases(vt, d_df, d_t, d_v3))
+    launches = {**launch_counts(plan, gp), "b6": probe.probe.launches,
+                "b6-wide": probe.probe.wide_launches}
+    print(f"launches during phase 21: {launches}", flush=True)
+    for name in (plan.B1, plan.B2):
+        check(launches[name] > 0, f"{name} was not launched during phase 21: {launches}")
+    check(launches[plan.B3] + launches[plan.B3_L2] > 0,
+          f"B3 was not launched during phase 21: {launches}")
+    record["routes"], record["host_stage"] = routes, stages
+    questions = config3_questions(vt)
+    plain = config3_plain(plain_cols, n)
+    for q in PHASE21_QUESTIONS:
+        phase21_time(record["queries"], q, questions[q], plain[q], df, n)
+        if q in config3_times:
+            record["queries"][q]["phase17_int_keys_ms"] = config3_times[q][0] * 1e3
+            record["queries"][q]["ratio_to_int_keys"] = (
+                record["queries"][q]["ms"] / (config3_times[q][0] * 1e3))
+    del df, plain_cols
+    for name, query in phase21_string_queries(s_labels).items():
+        phase21_time(record["queries"], name, query,
+                     lambda name=name: phase21_string_plain(s_codes_t, s_x, s_labels, name),
+                     s_df, n)
+    for name in host_names:
+        phase21_time(record["queries"], f"{name} (unstaged)",
+                     phase21_string_queries(h_labels)[name],
+                     lambda name=name: phase21_string_plain(h_codes_t, h_x, h_labels, name),
+                     h_df, n_host)
+    for name, query in phase21_datetime_queries(vt).items():
+        phase21_time(record["queries"], name, query,
+                     lambda name=name: phase21_datetime_plain(d_t, d_v3, name), d_df, n_host)
+    del s_df, h_df, d_df
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, record
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3513,6 +3919,10 @@ def main():
     phase20_launches, phase20 = phase20_path(vt, plan, gp, probe, label)
     print(json.dumps({"phase20": phase20}), flush=True)
 
+    phase21_launches, phase21 = phase21_path(vt, plan, gp, probe, label, config3_times)
+    print(json.dumps({"phase21": phase21}), flush=True)
+    wide[plan.B3]["phase21_l2_launches"] = phase21_launches[plan.B3_L2]
+
     measured = {plan.B1: (main_launches[plan.B1], results[MAIN_SIZES[0]]),
                 plan.B2: (h2o_launches[plan.B2], wide[plan.B2]),
                 plan.B3: (h2o_launches[plan.B3], wide[plan.B3]),
@@ -3549,6 +3959,7 @@ def main():
         "config4_launches": config4_launches[name],
         "phase19_launches": phase19_launches[name],
         "phase20_launches": phase20_launches[name],
+        "phase21_launches": phase21_launches[name],
         **{key: value for key, value in m.items() if key in EXTRA_KEYS},
     } for name, (launches, m) in measured.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import chip_smoke
+import vaex_tpu_torch
 from vaex_tpu_torch import agg
 from vaex_tpu_torch.ops import grid_moments as gm
 from vaex_tpu_torch.ops import grid_window as gw
@@ -327,3 +328,135 @@ def test_the_phase20_checks_refuse_a_wrong_answer(phase20, name):
     chip_smoke.phase20_check(name, answer, want)
     with pytest.raises(RuntimeError, match=re.escape(f"phase 20 {name}")):
         chip_smoke.phase20_check(name, _perturbed(name, answer), want)
+
+
+# phase 21 at a small size: H2O's string keys, benchmarks/strings.py's
+# cases, the unstaged frame and the datetimes, on the CPU
+PHASE21_N = 20_000
+
+
+@pytest.fixture(scope="module")
+def phase21():
+    from vaex_tpu_torch import settings
+    previous, settings.DEVICE = settings.DEVICE, "cpu"  # the unstaged frames' passes
+    host, codes, labels = chip_smoke.phase21_columns(PHASE21_N)
+    df = vaex_tpu_torch.from_arrays(**host).to_device("cpu")
+    plain = chip_smoke.phase21_plain_columns(host, codes, "cpu")
+    strings = chip_smoke.phase21_strings_columns(PHASE21_N)
+    yield df, plain, labels, strings
+    settings.DEVICE = previous
+
+
+def test_the_phase21_h2o_questions_on_the_cpu(phase21):
+    df, plain, labels, _ = phase21
+    routes = chip_smoke.phase21_h2o(vaex_tpu_torch, df, plain, labels, PHASE21_N, "cpu",
+                                    expect_routes=False)
+    assert routes["q10"]["groupby"] == "one-sort"
+    assert routes["q1"][0]["additive"] == "b1"
+
+
+@pytest.mark.parametrize("staged", [True, False])
+def test_the_phase21_string_cases_on_the_cpu(phase21, staged, monkeypatch):
+    from vaex_tpu_torch import settings
+    monkeypatch.setattr(settings, "DEVICE", "cpu")
+    host, codes, labels = phase21[3]
+    df = vaex_tpu_torch.from_arrays(**host)
+    df = df.to_device("cpu") if staged else df
+    stages = chip_smoke.phase21_string_cases(vaex_tpu_torch, df, torch.as_tensor(codes),
+                                             torch.as_tensor(host["x"]), labels, "cpu")
+    assert stages["str_len_sum"] == ["str_len(s)"]
+    assert bool(stages["groupby_str_sum"]) is not staged  # the set grouper's host stage
+
+
+def test_the_phase21_datetimes_on_the_cpu(monkeypatch):
+    from vaex_tpu_torch import settings
+    monkeypatch.setattr(settings, "DEVICE", "cpu")
+    d = chip_smoke.phase21_datetimes(PHASE21_N)
+    df = vaex_tpu_torch.from_arrays(**d).to_device("cpu")
+    stages = chip_smoke.phase21_datetime_cases(vaex_tpu_torch, df,
+                                               torch.as_tensor(d["t"].view(np.int64)),
+                                               torch.as_tensor(d["v3"]))
+    assert all(stages.values())
+
+
+def _label_swapped(col):
+    """A dictionary column with its first two labels swapped."""
+    import pyarrow as pa
+    from vaex_tpu_torch.column import ColumnDictionary
+    labels = col.labels.to_pylist()
+    labels[0], labels[1] = labels[1], labels[0]
+    return ColumnDictionary(col.codes, pa.array(labels, type=col.labels.type))
+
+
+@pytest.mark.parametrize("question", ["q1", "q2", "q3", "q10"])
+@pytest.mark.parametrize("how", ["swap a label", "count off by one"])
+def test_the_phase21_h2o_checks_refuse_a_wrong_answer(phase21, question, how):
+    df, plain, labels, _ = phase21
+    out = chip_smoke.config3_questions(vaex_tpu_torch)[question](df)
+    columns = {name: out.dataset[name] for name in out.get_column_names()}
+    if how == "swap a label":
+        columns["id1" if "id1" in columns else "id3"] = _label_swapped(
+            columns["id1" if "id1" in columns else "id3"])
+    else:
+        name = "v1"
+        columns[name] = columns[name].clone()
+        columns[name][0] += 1
+    wrong = vaex_tpu_torch.from_dict(columns)
+    with pytest.raises(RuntimeError, match="check failed"):
+        chip_smoke.config3_check(question, chip_smoke.phase21_as_ints(
+            vaex_tpu_torch, wrong, labels, "cpu"), chip_smoke.config3_plain(
+            plain, PHASE21_N)[question](), "cpu")
+
+
+@pytest.mark.parametrize("name", ["groupby_str_sum", "value_counts_str", "unique_str",
+                                  "isin_str_500", "str_upper", "str_contains", "str_len_sum"])
+def test_the_phase21_string_checks_refuse_a_wrong_answer(phase21, name):
+    import pyarrow as pa
+    host, codes, labels = phase21[3]
+    df = vaex_tpu_torch.from_arrays(**host).to_device("cpu")
+    got = chip_smoke.phase21_string_queries(labels)[name](df)
+    if name == "groupby_str_sum":
+        got = vaex_tpu_torch.from_dict({"s": _label_swapped(got.dataset["s"]),
+                                        "x": got.dataset["x"]})
+    elif name == "value_counts_str":
+        got = got.copy()
+        got.iloc[0] += 1
+    elif name == "unique_str":
+        got = got[1:]
+    elif name in ("isin_str_500", "str_len_sum"):
+        got = int(got) + 1
+    elif name == "str_upper":  # a wrong upper-cased label
+        labels_up = got.dictionary.to_pylist()
+        labels_up[0] = labels_up[0].lower()
+        got = pa.DictionaryArray.from_arrays(got.indices, pa.array(labels_up))
+    else:
+        got = np.asarray(got).copy()
+        got[0] = not got[0]
+    plain = chip_smoke.phase21_string_plain(torch.as_tensor(codes), torch.as_tensor(host["x"]),
+                                            labels, name)
+    with pytest.raises(RuntimeError, match="check failed"):
+        chip_smoke.phase21_string_check(name, got, plain, torch.as_tensor(codes), labels, "cpu")
+
+
+@pytest.mark.parametrize("name", ["groupby_hour_mean", "year_value_counts",
+                                  "days_since_min_sum", "min_astype_day"])
+def test_the_phase21_datetime_checks_refuse_a_wrong_answer(name, monkeypatch):
+    from vaex_tpu_torch import settings
+    monkeypatch.setattr(settings, "DEVICE", "cpu")
+    d = chip_smoke.phase21_datetimes(2000)
+    df = vaex_tpu_torch.from_arrays(**d).to_device("cpu")
+    got = chip_smoke.phase21_datetime_queries(vaex_tpu_torch)[name](df)
+    if name == "groupby_hour_mean":
+        got = vaex_tpu_torch.from_dict({got.get_column_names()[0]: got.dataset[
+            got.get_column_names()[0]], "v3": got.dataset["v3"] * 1.001})
+    elif name == "year_value_counts":
+        got = got.copy()
+        got.iloc[0] -= 1
+    elif name == "days_since_min_sum":
+        got = got + 1
+    else:
+        got = got + np.timedelta64(1, "D")
+    want = chip_smoke.phase21_datetime_plain(torch.as_tensor(d["t"].view(np.int64)),
+                                             torch.as_tensor(d["v3"]), name)
+    with pytest.raises(RuntimeError, match="check failed"):
+        chip_smoke.phase21_datetime_check(name, got, want)

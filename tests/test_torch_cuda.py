@@ -1354,3 +1354,35 @@ def test_finishers_on_the_card(cuda):
             assert card[5][name][row] == cpu[5][name][row]
         for row in ("mean", "std"):
             assert card[5][name][row] == pytest.approx(cpu[5][name][row], rel=1e-9)
+
+
+def _string_arrays(seed=5, n=300_000, k=1500):
+    rng = np.random.default_rng(seed)
+    labels = np.asarray([f"id{i:05d}" for i in range(k)] + ["", "é"], dtype=object)
+    s = labels[rng.integers(0, len(labels), n)].astype(object)
+    s[::97] = None
+    return {"s": s, "g": rng.integers(0, 7, n).astype(np.int64), "x": rng.normal(size=n)}
+
+
+@pytest.mark.parametrize("staged", [True, False])
+def test_string_groupby_and_isin_on_the_card(cuda, staged, monkeypatch):
+    """A string key's groupby and isin on the card (staged: the codes on the
+    card, B2 over 1503 codes; unstaged: the set grouper and the host stage,
+    the pass on the card) against the same frame on the CPU."""
+    from vaex_tpu_torch import settings
+    arrays = _string_arrays()
+    values = ["id00003", "é", "", "none"]
+    out = {}
+    for device in ("cpu", str(cuda)):
+        monkeypatch.setattr(settings, "DEVICE", device)
+        df = vaex_tpu_torch.from_arrays(**arrays)
+        df = df.to_device(device) if staged else df
+        gb = df.groupby(["s"], agg={"x": "sum", "c": "count"}, sort=True)
+        two = df.groupby(["s", "g"], agg={"c": "count"}, sort=True)
+        assert df.executor.trace_log[-1]["device"].startswith(device)
+        out[device] = (gb.s.tolist(), gb.x.tolist(), gb.c.tolist(), two.s.tolist(),
+                       two.c.tolist(), int(df.count(selection=df.s.isin(values))),
+                       dict(df.s.value_counts()))
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert card[0] == cpu[0] and card[2] == cpu[2] and card[3:] == cpu[3:]
+    npt.assert_allclose(card[1], cpu[1], rtol=1e-9, atol=1e-9)

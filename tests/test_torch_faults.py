@@ -90,16 +90,27 @@ def test_a_datetime_variable_is_its_count_in_its_unit(temporal_frames):
     ("td % 7", TypeError),            # numpy has no such loop
     ("d + d", TypeError),
     ("-d", TypeError),
-    ("sqrt(td)", NotImplementedError),  # not carried: ROADMAP A9
-    ("td ** 2", NotImplementedError),
-    ("round(td)", NotImplementedError),
-    ("where(td > 0, td, 0)", NotImplementedError),
-    ("astype(td, 'timedelta64[ms]')", NotImplementedError),
+    ("sqrt(td)", TypeError),  # the host stage: numpy refuses, as in vaex_tpu
+    ("td ** 2", TypeError),
+    ("round(td)", TypeError),
+    ("where(td > 0, td, 0)", None),  # the host stage answers, as vaex_tpu does
+    ("astype(td, 'timedelta64[ms]')", None),
 ])
 def test_an_uncarried_temporal_operation_raises(temporal_frames, expression, error):
-    _, port = temporal_frames
-    with pytest.raises(error):
-        port.evaluate(expression)
+    """What the device stage does not carry for a temporal value runs in the
+    host stage with numpy (ROADMAP A9): where numpy refuses it raises
+    TypeError as vaex_tpu does, else its values and dtype are vaex_tpu's."""
+    ref, port = temporal_frames
+    if error is not None:
+        if expression not in ("td % 7", "d + d", "-d"):  # vaex_tpu gives KeyError for those
+            with pytest.raises(error):
+                ref.evaluate(expression)
+        with pytest.raises(error):
+            port.evaluate(expression)
+        return
+    _same_values(port.evaluate(expression), ref.evaluate(expression))
+    assert port.data_type(expression).numpy == ref.data_type(expression).numpy
+    assert port.min(expression) == ref.min(expression)
 
 
 def test_where_and_astype_keep_a_temporal_dtype(temporal_frames):
@@ -170,3 +181,19 @@ def test_bins_at_the_edges_match_vaex_tpu(edge_frames, shape, axis, stat, column
     if stat == "count":  # every row of key 29 in the bin that holds 29
         k = ref.evaluate("k")
         assert got[29 * shape // 50] == (k == 29).sum()
+
+
+def test_a_datetime_scalar_in_an_expression_is_a_variable(temporal_frames):
+    """C11: ``df.d - df.d.min()`` wrote the datetime64 scalar into the
+    expression as its integer count (``d - 1577...``), so the port computed
+    a datetime minus nanoseconds, a datetime64, where vaex_tpu (which names
+    the scalar as a variable) gives the timedelta64 from the earliest value."""
+    ref, port = (df.copy() for df in temporal_frames)
+    for name in ("d", "td"):
+        want_expr = getattr(ref, name) - getattr(ref, name).min()
+        got_expr = getattr(port, name) - getattr(port, name).min()
+        _same_values(got_expr.evaluate(), want_expr.evaluate())
+        assert got_expr.dtype.numpy == want_expr.dtype.numpy
+    got = (port.d - port.d.min()).td.days.sum()
+    want = (ref.d - ref.d.min()).td.days.sum()
+    assert got == want

@@ -77,14 +77,17 @@ def test_join_suffix(pair):
 
 
 def test_join_string_key_waits_for_the_host_scope():
+    """A join on a string key, which waited for the host scope (ROADMAP A9),
+    now gives vaex_tpu's rows, staged or not."""
     left = {"k": np.asarray(["a", "b", "c"], dtype=object), "x": np.arange(3.0)}
     right = {"k": np.asarray(["b", "c", "d"], dtype=object), "y": np.arange(3.0) * 10}
     ref = vaex_tpu.from_arrays(**left).join(vaex_tpu.from_arrays(**right), on="k")
     assert ref["y"].tolist() == [None, 0.0, 10.0]
     port_left = vaex_tpu_torch.from_arrays(**left).to_device("cpu")
     port_right = vaex_tpu_torch.from_arrays(**right).to_device("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A9"):
-        port_left.join(port_right, on="k")
+    port = port_left.join(port_right, on="k")
+    assert port["y"].tolist() == ref["y"].tolist()
+    assert port["k"].tolist() == ref["k"].tolist()
 
 
 def test_join_virtual_columns_carried(pair):

@@ -168,14 +168,26 @@ def test_map(frames):
                         float(ref.sum(ref.k.map({0: 1.5, 2: 2.5}))), rtol=RTOL, atol=ATOL)
 
 
-def test_string_keys_raise_naming_their_roadmap_item(frames):
-    _, port = frames
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A9"):
-        port.k.isin(["a", "b"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A9"):
-        SortedSet("string")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A9"):
-        port.k.map({1: "one"}).tolist()
+def test_string_keys_raise_naming_their_roadmap_item():
+    """String sets, string isin and a map to strings, which waited for
+    ROADMAP A9, now agree with vaex_tpu: a SortedSet of strings built from
+    the same chunks, an isin of string values, a map of numbers to strings
+    (held to Python's dict lookup: vaex_tpu's map cannot make strings)."""
+    from vaex_tpu.ops.setops import SortedSet as RefSet
+    values = np.asarray(["b", "a", "é", "", "a", "zz"], dtype=object)
+    ref, port = RefSet("string", keep_counts=True), SortedSet("string", keep_counts=True)
+    for chunk in (values[:3], values[3:]):
+        ref.update(chunk)
+        port.update(chunk)
+    same_set(ref, port)
+    npt.assert_array_equal(port.map_ordinal(values), ref.map_ordinal(values))
+    arrays = {"s": values[np.random.default_rng(3).integers(0, 6, 500)], "k": np.arange(500) % 4}
+    ref_df = vaex_tpu.from_arrays(**arrays)
+    port_df = vaex_tpu_torch.from_arrays(**arrays).to_device("cpu")
+    assert int(port_df.count(selection=port_df.s.isin(["a", "é"]))) == int(
+        ref_df.count(selection=ref_df.s.isin(["a", "é"])))
+    mapped = port_df.k.map({1: "one", 2: "two"}).tolist()
+    assert mapped == [{1: "one", 2: "two"}.get(k) for k in arrays["k"].tolist()]
 
 
 def test_sorted_set_on_the_host():

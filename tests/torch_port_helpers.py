@@ -179,3 +179,68 @@ def with_source_id(arrays, seed):
     rng = np.random.default_rng(seed)
     n = len(next(iter(arrays.values())))
     return {**arrays, "source_id": rng.integers(0, 12 * 4 ** 12 * 2 ** 35, n).astype(np.int64)}
+
+
+# strings: a few labels with empty, non-ASCII, padded and digit strings
+STRING_LABELS = ["", "a", "ab", "Ab c", "é", "éclair", "日本語", "x3y", "  pad ", "ABC",
+                 "a.b", "123", "b", "Title Case", "ba", "aaa"]
+STRING_FORMS = ("plain", "dictionary", "staged")
+
+
+def string_arrays(seed, n, k=len(STRING_LABELS), null_every=9):
+    """``s`` and ``t`` object arrays of ``k`` labels of STRING_LABELS (a
+    None every ``null_every`` rows of ``s``), ``x`` float64, ``iv`` int64
+    and ``g`` an int64 key in 0..4."""
+    rng = np.random.default_rng(seed)
+    labels = np.asarray(STRING_LABELS[:k], dtype=object)
+    s = labels[rng.integers(0, k, n)].astype(object)
+    if null_every:
+        s[::null_every] = None
+    return {"s": s, "t": labels[rng.integers(0, k, n)].astype(object),
+            "x": rng.normal(0, 10, n), "iv": rng.integers(-100, 100, n).astype(np.int64),
+            "g": rng.integers(0, 5, n).astype(np.int64)}
+
+
+def string_frames(arrays, form):
+    """The same frame in both packages with its string columns as plain
+    strings ("plain": arrow strings in the port, object arrays in
+    vaex_tpu), arrow dictionary arrays ("dictionary"), or staged
+    ("staged": vaex_tpu's ``to_device()``, the port's ``to_device("cpu")``,
+    which dictionary-encode them).  A port frame that is not staged runs its
+    passes on ``settings.DEVICE``: the caller sets it to "cpu"."""
+    import pyarrow as pa
+    if form == "dictionary":
+        arrays = {name: pa.array(a, type=pa.string()).dictionary_encode()
+                  if a.dtype == object else a for name, a in arrays.items()}
+    ref = vaex_tpu.from_arrays(**arrays)
+    port = vaex_tpu_torch.from_arrays(**arrays)
+    if form == "staged":
+        ref, port = ref.to_device(), port.to_device("cpu")
+    return ref, port
+
+
+def host_list(values):
+    """Host values (an arrow array, plain or dictionary, a numpy or masked
+    array, a list) as a list of Python values, None where missing."""
+    if hasattr(values, "to_pylist"):
+        if hasattr(values, "dictionary_decode"):
+            values = values.dictionary_decode()
+        return values.to_pylist()
+    if isinstance(values, np.ma.MaskedArray):
+        return [None if m else v for v, m in zip(values.data.tolist(),
+                                                  np.ma.getmaskarray(values).tolist())]
+    return list(np.asarray(values).tolist()) if not isinstance(values, list) else values
+
+
+def assert_same_list(got, want, rtol=0.0):
+    """Two lists of Python values: equal, None where missing, NaN equal to
+    NaN, floats within ``rtol`` relative."""
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if isinstance(w, float) and isinstance(g, (int, float)) and g is not None:
+            if np.isnan(w):
+                assert np.isnan(g), i
+            else:
+                assert abs(g - w) <= rtol * abs(w), (i, g, w)
+        else:
+            assert g == w, (i, g, w)

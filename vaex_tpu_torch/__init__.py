@@ -71,6 +71,19 @@ def from_pandas(df, name="pandas", copy_index=False, index_name="index") -> Data
     return from_arrays(**columns)
 
 
+def from_arrow_table(table) -> DataFrame:
+    """A DataFrame over the columns of a pyarrow Table: strings stay arrow
+    (a host string column), other columns become numpy arrays, masked where
+    null (vaex_tpu/__init__.py:98)."""
+    from . import array_types
+    columns = {}
+    for name, column in zip(table.column_names, table.columns):
+        column = column.combine_chunks() if hasattr(column, "combine_chunks") else column
+        columns[str(name)] = column if array_types.is_string_array(column) else (
+            array_types.to_numpy(column))
+    return from_arrays(**columns)
+
+
 def vrange(start, stop=None, step=1, dtype="i8") -> DataFrame:
     """A frame of one column ``x``: ``start, start + step, ...`` below
     ``stop``, which holds no memory (a tile is an ``arange`` made on the

@@ -219,8 +219,8 @@ class OpExtreme(AggOperation):
         if dt.is_temporal:
             return torch.int64
         if dt.numpy.kind not in "biuf":
-            raise NotImplementedError(f"{self.mode} of a {dt.name} column is not ported yet "
-                                      f"(ROADMAP queue A9: strings)")
+            raise TypeError(f"{self.mode} of a {dt.name} column: strings are counted, not "
+                            f"ordered")
         return dt.torch
 
     @property
@@ -644,6 +644,16 @@ def selection_expression(selection, df):
     return name
 
 
+def _not_strings(df, expression, name):
+    """The DataType of ``expression``; raises TypeError for strings where the
+    aggregator ``name`` is not a count."""
+    dtype = DataType(df.data_type(expression))
+    if dtype.is_text and name not in ("count", "nunique"):
+        raise TypeError(f"{name} of strings ({expression!r}): strings are counted, "
+                        f"not ordered or added")
+    return dtype
+
+
 class AggregatorDescriptor:
     def __init__(self, name, expression=None, selection=None, edges=False):
         self.name = name
@@ -669,9 +679,12 @@ class AggregatorDescriptor:
         raise NotImplementedError
 
     def _input_dtype(self, df):
+        """The input's DataType; strings are counted (``count``,
+        ``nunique``) and nothing else: vaex_tpu gives a dictionary code
+        for their min or max, which the port does not copy."""
         if self.expression is None or self.expression == "*":
             return DataType(np.dtype("int64"))
-        return DataType(df.data_type(self.expression))
+        return _not_strings(df, self.expression, self.name)
 
     def logical_dtype(self, df):
         """The ``datetime64`` / ``timedelta64`` dtype the result's int64
@@ -854,6 +867,8 @@ class AggregatorDescriptorVar(AggregatorDescriptor):
         self.ddof = ddof
 
     def add_tasks(self, df, binners):
+        for e in self.expressions:
+            _not_strings(df, e, self.name)
         moments = _moments(df, binners, [self.expression], VAR_TERMS,
                            selection_expression(self.selection, df))
         std, ddof = self.std, self.ddof
@@ -885,6 +900,8 @@ class AggregatorDescriptorCovar(AggregatorDescriptor):
         return find_valid_name(name or f"{self.expression}_{self.y}_{self.name}")
 
     def add_tasks(self, df, binners):
+        for e in (self.expression, self.y):
+            _not_strings(df, e, self.name)
         moments = _moments(df, binners, [self.expression, self.y], COVAR_TERMS,
                            selection_expression(self.selection, df))
         ddof = self.ddof

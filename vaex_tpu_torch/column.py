@@ -19,6 +19,13 @@ or a CUDA device) qualify, and the column types below.
   (vaex_tpu/column.py:171-198).
 * :class:`LazyColumn`: the base of the lazy columns of other modules
   (:class:`~.shift.ColumnShifted`).
+* :class:`ColumnString`: strings on the host, an arrow array (plain or
+  dictionary-encoded, nulls included); a pass reads it in its host stage.
+* :class:`ColumnDictionary`: strings staged on a device, int32 dictionary
+  codes in a tensor there and the labels on the host (vaex_tpu/column.py:
+  201-240); what ``to_device`` makes of a string column, and what a
+  groupby's string keys come back as.  A tile is a
+  :class:`~.ops.nullable.DictNA`.
 
 A slice of one of the lazy ones is an :class:`~.ops.nullable.NA` of
 tensors on the column's device: data and mask, read with one gather for an
@@ -33,7 +40,7 @@ import torch
 
 from . import array_types
 from .datatype import DataType, dtype_of, has_torch_dtype
-from .ops.nullable import NA
+from .ops.nullable import NA, DictNA
 from .utils import fingerprint, hash_array_data
 
 CPU = torch.device("cpu")
@@ -304,32 +311,204 @@ class LazyColumn:
 LAZY = (ColumnMasked, ColumnIndexed, ColumnConcatenated, LazyColumn)
 
 
-def _host_only(col):
-    """True for a host array of values no tensor holds (strings, objects):
-    the host scope's columns (ROADMAP queue A9)."""
-    return isinstance(col, np.ndarray) and col.dtype.kind in "OSUV"
+class ColumnString:
+    """Strings on the host: an arrow string, large string or
+    dictionary-of-strings array, nulls included (a numpy array of str or of
+    str and None objects, a masked one, is converted once).  A slice is an
+    arrow array; a take copies the rows on the host; ``to(device)``
+    dictionary-encodes the column once (:class:`ColumnDictionary`).  Its
+    fingerprint hashes every buffer of the column, once."""
+
+    def __init__(self, array):
+        self.array = array_types.string_arrow(array)
+        self._fingerprint = None
+
+    def __len__(self):
+        return len(self.array)
+
+    @property
+    def type(self):
+        return self.array.type
+
+    dtype = type
+
+    @property
+    def null_count(self):
+        return self.array.null_count
+
+    def __getitem__(self, item):
+        if isinstance(item, slice):
+            start, stop, step = item.indices(len(self))
+            if step == 1:
+                return self.array.slice(start, max(stop - start, 0))
+            item = np.arange(start, stop, step)
+        return self.array.take(np.asarray(item))
+
+    def take(self, index, mask=None):
+        """The rows at an int tensor, null where ``mask`` is True."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+        out = self.array.take(index.cpu().numpy())
+        if mask is not None:
+            mask = mask.cpu().numpy()
+            if mask.any():
+                out = pc.if_else(pa.array(mask), pa.nulls(len(out), out.type), out)
+        return ColumnString(out)
+
+    def trim(self, i1, i2):
+        return ColumnString(self.array.slice(i1, i2 - i1))
+
+    def to(self, device):
+        return ColumnDictionary.encode(self.array, device)
+
+    def fingerprint(self):
+        if self._fingerprint is None:
+            self._fingerprint = _arrow_fingerprint(self.array)
+        return self._fingerprint
+
+
+def _arrow_fingerprint(array):
+    """A hash of every buffer of an arrow array, its offset and length."""
+    import hashlib
+    h = hashlib.blake2b(digest_size=16)
+    h.update(f"{array.type}-{array.offset}-{len(array)}".encode())
+    for buf in array.buffers():
+        h.update(b"|" if buf is None else memoryview(buf))
+    if hasattr(array, "dictionary"):
+        h.update(_arrow_fingerprint(array.dictionary).encode())
+    return h.hexdigest()
+
+
+class ColumnDictionary:
+    """Strings as int32 ``codes`` (a tensor on a device) into ``labels`` (an
+    arrow string array on the host): a code equal to ``len(labels)``, or of
+    a null label, is a null row.  A tile on the pass device is a
+    :class:`~.ops.nullable.DictNA`; a host slice a
+    ``pyarrow.DictionaryArray``, read from ``host_codes`` (the codes the
+    host encoded, or a copy made at the first host read).  Takes and
+    slices keep the codes on their device (the counterpart of
+    ``ColumnDeviceDictionary``, vaex_tpu/column.py:201-240)."""
+
+    def __init__(self, codes, labels, host_codes=None, has_null=None):
+        self.codes = codes
+        self.labels = labels
+        self._host_codes = host_codes
+        self._has_null = has_null  # None: not known yet
+
+    @classmethod
+    def encode(cls, array, device):
+        """Dictionary-encode strings (any arrow string array) once: the
+        labels in the order of first appearance, null rows the code
+        ``len(labels)``."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+        array = array_types.string_arrow(array)
+        if pa.types.is_dictionary(array.type):
+            if array.dictionary.null_count or len(pc.unique(array.dictionary)) != len(
+                    array.dictionary):
+                array = array.dictionary_decode()
+        if not pa.types.is_dictionary(array.type):
+            array = pc.dictionary_encode(array)
+        labels = array.dictionary
+        indices = array.indices
+        if indices.null_count:
+            indices = indices.fill_null(len(labels))
+        host = np.asarray(indices).astype(np.int32, copy=False)
+        return cls(array_types.host_tensor(host).to(device), labels, host,
+                   has_null=array.null_count > 0)
+
+    def __len__(self):
+        return self.codes.shape[0]
+
+    @property
+    def type(self):
+        import pyarrow as pa
+        return pa.dictionary(pa.int32(), self.labels.type)
+
+    dtype = type
+
+    @property
+    def device(self):
+        return self.codes.device
+
+    @property
+    def host_codes(self):
+        if self._host_codes is None:
+            self._host_codes = self.codes.cpu().numpy().astype(np.int32, copy=False)
+        return self._host_codes
+
+    @property
+    def has_null(self):
+        """True where a row may be null: a null label, or a code past the
+        labels (one scan of the codes, the first time)."""
+        if self._has_null is None:
+            self._has_null = bool(self.labels.null_count) or bool(
+                (self.codes == len(self.labels)).any())
+        return self._has_null
+
+    def _null_rows(self, codes):
+        """The null rows among ``codes`` (a tensor), None where none can be."""
+        if not self.has_null:
+            return None
+        null = codes == len(self.labels)
+        if self.labels.null_count:
+            table = torch.as_tensor(np.append(np.asarray(self.labels.is_null()), True))
+            null = null | table.to(codes.device).index_select(0, codes)
+        return null
+
+    def tile(self, i1, i2, device=None):
+        codes = self.codes[i1:i2]
+        if device is not None:
+            codes = codes.to(device)
+        return DictNA(codes, self._null_rows(codes), self.labels)
+
+    def __getitem__(self, item):
+        """Rows as a host ``pyarrow.DictionaryArray`` (null rows null)."""
+        import pyarrow as pa
+        codes = self.host_codes[item]
+        null = codes == len(self.labels)
+        indices = pa.array(np.where(null, 0, codes), mask=null if null.any() else None,
+                           type=pa.int32())
+        return pa.DictionaryArray.from_arrays(indices, self.labels)
+
+    def take(self, index, mask=None):
+        codes = self.codes.index_select(0, index.to(self.codes.device))
+        if mask is not None:
+            codes = codes.masked_fill(mask.to(codes.device), len(self.labels))
+        return ColumnDictionary(codes, self.labels)
+
+    def trim(self, i1, i2):
+        return ColumnDictionary(self.codes[i1:i2], self.labels,
+                                None if self._host_codes is None else self._host_codes[i1:i2])
+
+    def to(self, device):
+        return ColumnDictionary(self.codes.to(device), self.labels, self._host_codes,
+                                self._has_null)
+
+    def fingerprint(self):
+        return fingerprint("column-dictionary", _sampled(self.codes),
+                           _arrow_fingerprint(self.labels))
+
+
+STRINGS = (ColumnString, ColumnDictionary)
 
 
 def take_column(col, index, mask=None):
     """``col`` at ``index`` (missing where ``mask``): a lazy
-    :class:`ColumnIndexed`, or for a host array no tensor holds the rows
-    copied on the host, a masked array where ``mask`` has a row."""
-    if not _host_only(col):
-        return ColumnIndexed.index_of(col, index, mask)
-    out = col[index.cpu().numpy()]
-    if mask is None:
-        return out
-    mask = mask.cpu().numpy()
-    return np.ma.MaskedArray(out, np.ma.getmaskarray(out) | mask) if mask.any() else out
+    :class:`ColumnIndexed`, or for strings a column of the same kind: the
+    codes taken on their device, a host column's rows on the host."""
+    if isinstance(col, STRINGS):
+        return col.take(index, mask)
+    return ColumnIndexed.index_of(col, index, mask)
 
 
 def concat_columns(columns):
     """The rows of ``columns`` one after another: a lazy
-    :class:`ColumnConcatenated`, or for host arrays no tensor holds one
-    array joined on the host."""
-    if all(_host_only(c) for c in columns):
-        return np.ma.concatenate(columns) if any(
-            isinstance(c, np.ma.MaskedArray) for c in columns) else np.concatenate(columns)
+    :class:`ColumnConcatenated`, or of strings one host column joined on the
+    host."""
+    if any(isinstance(c, STRINGS) for c in columns):
+        return ColumnString(array_types.concat(
+            [c[:] if isinstance(c, STRINGS) else c for c in columns]))
     return ColumnConcatenated(columns)
 
 
@@ -337,7 +516,7 @@ def placed_device(col):
     """The device of a column held in tensors; None for host arrays."""
     if isinstance(col, torch.Tensor):
         return col.device
-    if isinstance(col, LAZY):
+    if isinstance(col, LAZY + (ColumnDictionary,)):
         return col.device
     return None
 
@@ -349,7 +528,8 @@ def column_device(col):
 
 def slice_column(col, i1, i2):
     """Rows [i1, i2) of a column as a column of the same kind (views)."""
-    return col.trim(i1, i2) if isinstance(col, LAZY + (ColumnVirtualRange,)) else col[i1:i2]
+    return col.trim(i1, i2) if isinstance(col, LAZY + STRINGS + (ColumnVirtualRange,)) else (
+        col[i1:i2])
 
 
 def tile_of(col, i1, i2, device=None) -> NA:
@@ -358,6 +538,10 @@ def tile_of(col, i1, i2, device=None) -> NA:
     array's are copied (a datetime or timedelta as its int64 count)."""
     if isinstance(col, torch.Tensor):
         part = NA(col[i1:i2])
+    elif isinstance(col, ColumnDictionary):
+        return col.tile(i1, i2, device)
+    elif isinstance(col, ColumnString):
+        raise TypeError("a column of strings on the host is read in the host stage of a pass")
     elif isinstance(col, LAZY):
         part = col[i1:i2]
     elif isinstance(col, ColumnVirtualRange):
@@ -378,6 +562,9 @@ def gather(col, index) -> NA:
         return NA(col.index_select(0, index.to(col.device)))
     if isinstance(col, LAZY):
         return col.take(index)
+    if isinstance(col, ColumnDictionary):
+        taken = col.take(index)
+        return taken.tile(0, len(taken))
     if isinstance(col, ColumnVirtualRange):
         return NA(col.values_at(index))
     data, mask = array_types.data_and_mask(col[index.cpu().numpy()])
@@ -392,7 +579,7 @@ def column_to(col, device):
     other column (uint16, uint32, a constant) stays on the host."""
     if isinstance(col, torch.Tensor):
         return col.to(device)
-    if isinstance(col, LAZY):
+    if isinstance(col, LAZY + STRINGS):
         return col.to(device)
     if not isinstance(col, np.ndarray) or not has_torch_dtype(dtype_of(col).numpy):
         return col
@@ -407,7 +594,7 @@ def column_fingerprint(col):
     """A content hash of a column: its own for the lazy types, else a hash of
     its head, a strided sample and its tail, so that a device column costs a
     few small copies, not a full read."""
-    if isinstance(col, LAZY + (ColumnVirtualConstant, ColumnVirtualRange)):
+    if isinstance(col, LAZY + STRINGS + (ColumnVirtualConstant, ColumnVirtualRange)):
         return col.fingerprint()
     n = len(col)
     if n == 0:
@@ -432,4 +619,8 @@ def is_masked(col):
         return any(is_masked(c) for c in col.columns)
     if isinstance(col, LazyColumn):
         return col.is_masked
+    if isinstance(col, ColumnString):
+        return col.null_count > 0
+    if isinstance(col, ColumnDictionary):
+        return col.has_null
     return False

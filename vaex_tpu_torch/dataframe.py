@@ -48,16 +48,17 @@ import torch
 from . import agg as agg_module
 from . import array_types, expresso, settings
 from . import selections as selections_module
-from .column import ColumnMasked, ColumnVirtualConstant, column_to, placed_device
+from .column import (STRINGS, ColumnDictionary, ColumnMasked, ColumnString,
+                     ColumnVirtualConstant, column_to, placed_device)
 from .column import is_masked as column_is_masked
 from .dataset import Dataset, DatasetArrays
 from .datatype import DataType, dtype_of, host_values
 from .delayed import delayed
-from .execution import ExecutorLocal, TileContext, _tile, pass_inputs
+from .execution import ExecutorLocal, pass_inputs
 from .expression import Expression, _set_of
-from .ops.nullable import NA
+from .ops.nullable import NA, DictNA
 from .ops.binners import BinnerOrdinal, BinnerScalar
-from .scopes import DeviceScope
+from .scopes import HostScope, classify_leaves, expression_is_device, host_chunk
 from .tasks import TaskFilterMask, TaskMapIndex, TaskSetCreate
 from .utils import find_valid_name, fingerprint, valid_expression_name
 
@@ -156,7 +157,7 @@ class DataFrame:
         if not virtual:
             names = [n for n in names if n not in self.virtual_columns]
         if not strings:
-            names = [n for n in names if self.data_type(n).numpy.kind not in "OSU"]
+            names = [n for n in names if not self.data_type(n).is_text]
         if regex:
             names = [n for n in names if re.match(regex, n)]
         return names
@@ -174,7 +175,7 @@ class DataFrame:
         1943-1950)."""
         return sum(self.data_type(name).numpy.itemsize * len(self)
                    for name in self.get_column_names(virtual=virtual)
-                   if self.data_type(name).numpy.kind not in "OSU")
+                   if not self.data_type(name).is_text)
 
     def column_count(self, hidden=False):
         return len(self.get_column_names(hidden=hidden))
@@ -273,7 +274,9 @@ class DataFrame:
         self.drop(str(name), inplace=True)
 
     def data_type(self, expression) -> DataType:
-        """dtype of a column, or of an expression evaluated over one row."""
+        """dtype of a column, or of an expression evaluated over one row;
+        strings have their arrow type (a dictionary type where they are
+        codes)."""
         expression = str(expression)
         if self._is_physical(expression):
             logical = self.dataset.logical.get(expression)
@@ -286,9 +289,13 @@ class DataFrame:
         known = self._dtypes.get(key)
         if known is None or known[0] is not self.dataset:
             rows = min(1, self.dataset.row_count)
-            value = self._evaluate_tile(expression, 0, rows, filtered=False)
-            known = self._dtypes[key] = (self.dataset,
-                                         DataType(value.logical or value.data.dtype))
+            if expression_is_device(self, expression):
+                value = self._evaluate_tile(expression, 0, rows, filtered=False)
+                dtype = (_dictionary_type(value.labels) if isinstance(value, DictNA)
+                         else value.logical or value.data.dtype)
+            else:
+                dtype = _host_dtype(self._evaluate_host(expression, 0, rows))
+            known = self._dtypes[key] = (self.dataset, DataType(dtype))
         return known[1]
 
     def __len__(self):
@@ -465,9 +472,27 @@ class DataFrame:
     # ------------------------------------------------------------ categories
     def categorize(self, column, min_value=0, labels=None, inplace=False):
         """Mark an integer column as categorical with codes
-        ``min_value .. min_value + len(labels) - 1``."""
+        ``min_value .. min_value + len(labels) - 1``; a string column takes
+        the codes of its values among ``labels`` (its sorted distinct
+        values by default; a value that is no label is missing)."""
         df = self if inplace else self.copy()
         column = str(column)
+        if self.data_type(column).is_text:
+            labels = list(labels) if labels is not None else self.unique(column, dropmissing=True)
+            oset = _set_of(labels)
+            # each set key's place among the labels
+            places = np.zeros(oset.count, np.int64)
+            places[np.asarray(oset.map_ordinal(labels), np.int64)] = np.arange(len(labels))
+            set_var = df.add_variable("category_set", oset, unique=True)
+            places_var = df.add_variable("category_places", places, unique=True)
+            codes = df.add_virtual_column(
+                f"__{column}_codes", f"_choose(_ordinal_values({column}, {set_var}), "
+                                     f"{places_var})")
+            import pyarrow as pa
+            df._categories[column] = {"labels": _labels_array(labels), "N": len(labels),
+                                      "min_value": 0, "codes_column": codes,
+                                      "arrow": pa.array(labels, type=pa.string())}
+            return df
         if labels is None:
             vmax = self.max(column)  # one pass on the frame's device
             labels = np.arange(int(min_value), int(vmax) + 1)
@@ -495,27 +520,72 @@ class DataFrame:
         name = column if lazy else f"{column}_ordinal"
         df.add_virtual_column(name if name != column else f"__{column}_codes",
                               f"_ordinal_values({column}, {var})")
-        df._categories[name] = {"labels": np.asarray(values), "N": len(values), "min_value": 0}
+        df._categories[name] = {"labels": _labels_array(values), "N": len(values),
+                                "min_value": 0}
+        if oset.is_string:
+            import pyarrow as pa
+            df._categories[name]["arrow"] = pa.array(values, type=pa.string())
         return df
 
     def is_category(self, column):
-        return str(column) in self._categories
+        """True for a categorized column, or a string column held as a
+        dictionary (staged, or given as a dictionary array)."""
+        return self._category_meta(column) is not None
+
+    def _category_meta(self, column):
+        """The category metadata, derived once from the labels of a string
+        column held as a dictionary (vaex_tpu/dataframe.py:605-640): its
+        dictionary's labels in code order, and a None label for the null
+        rows, which take the code after the last label."""
+        column = str(column)
+        meta = self._categories.get(column)
+        derived = meta is not None and "column" in meta
+        if meta is not None and not derived or not self._is_physical(column):
+            return meta
+        col = self.dataset[column]
+        if derived and meta["column"] is col:
+            return meta
+        if isinstance(col, ColumnDictionary):
+            labels, has_null = col.labels, col.has_null
+        elif isinstance(col, ColumnString) and self.data_type(column).is_encoded:
+            labels, has_null = col.array.dictionary, col.null_count > 0
+        else:
+            return None
+        if labels.null_count:
+            return None  # a null label: the set grouper names it once
+        # remembered with the column it was read from, for as long as the
+        # frame holds that column
+        meta = dict(_string_category(labels, has_null, f"_codes({column})"), column=col)
+        self._categories[column] = meta
+        return meta
 
     def category_labels(self, column, aslist=True):
-        labels = self._categories[str(column)]["labels"]
+        labels = self._category_meta(column)["labels"]
         return labels.tolist() if aslist else labels
 
     def category_count(self, column):
-        return self._categories[str(column)]["N"]
+        return self._category_meta(column)["N"]
 
     def category_offset(self, column):
-        return self._categories[str(column)]["min_value"]
+        return self._category_meta(column)["min_value"]
 
     # ------------------------------------------------------------ evaluation
     def _evaluate_rows(self, expression, i1, i2, filtered=True):
         """An expression over rows [i1, i2), eagerly, as a host array; of a
-        filtered frame the rows the filter keeps, unless ``filtered`` is off."""
+        filtered frame the rows the filter keeps, unless ``filtered`` is off.
+        Strings come back as an arrow array (a dictionary array where the
+        pass held them as codes)."""
+        if not expression_is_device(self, expression):
+            value = self._evaluate_host(expression, i1, i2)
+            if filtered and self.filtered:
+                keep = self._evaluate_tile(self._filter, i1, i2, filtered=False)
+                keep = array_types.to_numpy(keep.data.to(torch.bool) if keep.mask is None
+                                            else keep.data.to(torch.bool) & ~keep.mask)
+                value = value.filter(keep) if array_types.is_arrow(value) else value[keep]
+            return value
         value = self._evaluate_tile(expression, i1, i2, filtered)
+        if isinstance(value, DictNA):
+            return _decode(value)
         data, mask = array_types.to_numpy(value.data), value.mask
         logical = value.logical or (self.dataset.logical.get(expression)
                                     if self._is_physical(expression) else None)
@@ -527,22 +597,36 @@ class DataFrame:
                 return np.ma.MaskedArray(data, mask)
         return data
 
+    def _evaluate_host(self, expression, i1, i2):
+        """An expression of the host stage over rows [i1, i2) of the
+        dataset, on the host: an arrow array of strings, else a numpy
+        (masked) array."""
+        _, columns, _ = classify_leaves(self, expression)
+        missing = set(columns) - set(self.dataset)
+        if missing:
+            raise NameError(f"column(s) {sorted(missing)} do not exist")
+        scope = HostScope({name: host_chunk(self.dataset, name, i1, i2) for name in columns},
+                          self.variables, self.virtual_columns, i2 - i1)
+        value = scope.evaluate_raw(str(expression))
+        return value if array_types.is_arrow(value) else array_types.to_numpy(value)
+
     def _evaluate_tile(self, expression, i1, i2, filtered=True):
-        """An expression over rows [i1, i2) as an NA on the pass device,
-        without a copy to the host."""
+        """An expression over rows [i1, i2) as an NA on the pass device
+        (a DictNA for strings), without a copy to the host."""
         expression = str(expression)
         expressions = [expression]
         if filtered and self.filtered:
             expressions.append(self._filter)
-        names, device, variables = pass_inputs(self, self.dataset, expressions)
-        tile = {n: _tile(self.dataset, n, i1, i2, device) for n in names}
-        ctx = TileContext(DeviceScope(tile, variables, self.virtual_columns), i2 - i1, device)
+        inputs = pass_inputs(self, self.dataset, expressions)
+        ctx = inputs.context(self, self.dataset, i1, i2)
         value = ctx.expr(expression)
-        data, mask = value.data, value.mask
         if len(expressions) > 1:
             keep = ctx.boolean(self._filter)
-            data, mask = data[keep], None if mask is None else mask[keep]
-        return NA(data, mask, value.logical)
+            mask = None if value.mask is None else value.mask[keep]
+            if isinstance(value, DictNA):
+                return DictNA(value.data[keep], mask, value.labels)
+            return NA(value.data[keep], mask, value.logical)
+        return value
 
     def evaluate(self, expression, i1=None, i2=None, out=None, selection=None, filtered=True,
                  array_type=None, parallel=True, chunk_size=None, progress=None):
@@ -560,6 +644,9 @@ class DataFrame:
                     for s in selection]
         df = self._rows_of(i1, i2, selection, filtered)
         if (df._is_physical(expression) and not df.filtered
+                and isinstance(df.dataset[expression], STRINGS)):
+            values = df.dataset[expression][:]
+        elif (df._is_physical(expression) and not df.filtered
                 and isinstance(df.dataset[expression], (np.ndarray, torch.Tensor))):
             values = array_types.to_numpy(df.dataset[expression][:])
             # a datetime, timedelta or unsigned column comes back from its int64 form
@@ -616,8 +703,9 @@ class DataFrame:
         limits = self._axis_limits(binby, limits)
         binners = []
         for expr, (vmin, vmax), bins in zip(binby, limits, shapes):
-            if self.is_category(expr):
-                binners.append(BinnerOrdinal(expr, self.category_offset(expr),
+            if self.is_category(expr):  # a string category bins on its codes
+                binners.append(BinnerOrdinal(self._category_meta(expr).get("codes_column", expr),
+                                             self.category_offset(expr),
                                              self.category_count(expr)))
             else:
                 binners.append(BinnerScalar(expr, vmin, vmax, bins))
@@ -946,6 +1034,7 @@ class DataFrame:
         default), per cell of ``binby`` (vaex_tpu/dataframe.py:1101-1118):
         the limits pass, then one count grid."""
         expression = str(expression)
+        agg_module._not_strings(self, expression, "mode")
         lim = self.limits(expression, mode_limits, selection=selection)
         centers = (np.linspace(lim[0], lim[1], mode_shape + 1)[:-1]
                    + (lim[1] - lim[0]) / mode_shape / 2)
@@ -1134,7 +1223,8 @@ class DataFrame:
     def sort(self, by, ascending=True):
         """The rows ordered by the key column(s) (of a filtered frame the
         rows it keeps): a stable lexicographic argsort of the keys on the
-        host, then a take (vaex_tpu/dataframe.py:1523-1553)."""
+        host, then a take (vaex_tpu/dataframe.py:1523-1553).  A string key
+        sorts by its rank, descending too among several keys."""
         if self.filtered:
             return self.extract().sort(by, ascending)
         by = [str(b) for b in (by if isinstance(by, (list, tuple)) else [by])]
@@ -1142,14 +1232,14 @@ class DataFrame:
                      else [ascending] * len(by))
         keys = []
         for name, asc in zip(by, ascending):
-            data = np.ma.getdata(self.evaluate(name))
-            if not asc:
-                if data.dtype.kind in "OUS":
-                    if len(by) > 1:
-                        raise NotImplementedError(
-                            "a descending string key among several sort keys is not ported "
-                            "yet (ROADMAP queue A9)")
+            values = self.evaluate(name)
+            if array_types.is_arrow(values):  # strings by their rank, a null as ""
+                data = _string_ranks(values)
+                if not asc and len(by) == 1:  # the reference's order for ties: reversed
                     return self.take(np.argsort(data, kind="stable")[::-1])
+            else:
+                data = np.ma.getdata(values)
+            if not asc:
                 data = _descending(data)
             keys.append(data)
         if len(keys) == 1:
@@ -1275,7 +1365,7 @@ class DataFrame:
         reference's and unused there too)."""
         df = self if inplace else self.copy()
         for name in map(str, column_names or df.get_column_names()):
-            if df.data_type(name).numpy.kind in "OSU":
+            if df.data_type(name).is_text:
                 continue
             df.add_virtual_column(name, f"fillna({name}, {value!r})")
         return df
@@ -1291,7 +1381,7 @@ class DataFrame:
     def _export_names(self, column_names, strings=True, virtual=True):
         names = [str(n) for n in (column_names or self.get_column_names(virtual=virtual))]
         if not strings:
-            names = [n for n in names if self.data_type(n).numpy.kind not in "OSU"]
+            names = [n for n in names if not self.data_type(n).is_text]
         return names
 
     def to_dict(self, column_names=None, selection=None, strings=True, virtual=True,
@@ -1480,7 +1570,11 @@ class DataFrame:
         timedelta64 column as int64; the dataset remembers its dtype); a
         masked one as its data and its mask, two tensors
         (:class:`~vaex_tpu_torch.column.ColumnMasked`); taken, filtered and
-        concatenated columns move their tensors.  The rest stays host-side,
+        concatenated columns move their tensors.  A string column is
+        dictionary-encoded once (vaex_tpu/dataframe.py:1650-1700): its int32
+        codes go to ``device`` (:class:`~.column.ColumnDictionary`, and a
+        hidden ``__<name>_codes`` tensor the category bins on), its labels
+        stay on the host; it becomes a category.  The rest stays host-side,
         and the passes over it run on ``device`` too.  Torch raises when the
         device does not exist: there is no silent CPU run."""
         device = torch.device(device or settings.DEVICE)
@@ -1488,6 +1582,14 @@ class DataFrame:
         columns = {name: column_to(col, device) if name in names else col
                    for name, col in self.dataset.items()}
         df = self.copy()
+        for name, col in list(columns.items()):
+            if isinstance(col, ColumnDictionary) and not isinstance(self.dataset[name],
+                                                                    ColumnDictionary):
+                codes = f"__{name}_codes"
+                columns[codes] = col.codes
+                df._categories[name] = _string_category(col.labels, col.has_null, codes)
+                if codes not in df.column_names:
+                    df.column_names.append(codes)
         df.dataset = DatasetArrays(columns, self.dataset.logical, device)
         return df
 
@@ -1516,6 +1618,16 @@ def _resolved(value):
     return give()
 
 
+def _string_ranks(values):
+    """The dense rank of each string among the distinct ones (code-point
+    order), a null ranked as "" (vaex_tpu/dataframe.py:1534-1535)."""
+    import pyarrow.compute as pc
+    values = array_types.string_arrow(values)
+    if hasattr(values, "dictionary"):
+        values = values.dictionary_decode()
+    return np.asarray(pc.rank(values.fill_null(""), tiebreaker="dense")).astype(np.int64)
+
+
 def _descending(data):
     """A key whose ascending order is the descending order of ``data``."""
     if data.dtype.kind == "i":
@@ -1525,6 +1637,52 @@ def _descending(data):
     if data.dtype.kind == "b":
         return ~data
     return -data.astype(np.float64)
+
+
+def _string_category(labels, has_null, codes_column):
+    """The category metadata of strings held as codes into ``labels`` (an
+    arrow array; the null rows the code after the last): the labels also as
+    arrow (``"arrow"``), the null label last, so that a groupby reads them
+    without a pass over Python strings."""
+    import pyarrow as pa
+    arrow = labels.cast(pa.string())
+    if has_null:
+        arrow = pa.concat_arrays([arrow, pa.nulls(1, pa.string())])
+    return {"labels": _labels_array(arrow.to_pylist()), "N": len(arrow), "min_value": 0,
+            "codes_column": codes_column, "arrow": arrow}
+
+
+def _labels_array(labels):
+    """Category labels as an array: an object array for strings."""
+    if any(isinstance(v, str) for v in labels):
+        out = np.empty(len(labels), dtype=object)
+        out[:] = list(labels)
+        return out
+    return np.asarray(labels)
+
+
+def _dictionary_type(labels):
+    import pyarrow as pa
+    return pa.dictionary(pa.int32(), labels.type)
+
+
+def _host_dtype(value):
+    """The DataType of a host-stage result: arrow's type for strings and
+    other arrow values, numpy's dtype else."""
+    if array_types.is_arrow(value) and (array_types.is_string_array(value) or (
+            value.type.num_fields if hasattr(value.type, "num_fields") else 0)):
+        return value.type
+    return array_types.to_numpy(value).dtype if array_types.is_arrow(value) else value.dtype
+
+
+def _decode(value):
+    """A DictNA as a host ``pyarrow.DictionaryArray`` (its codes copied)."""
+    import pyarrow as pa
+    codes = array_types.to_numpy(value.data).astype(np.int32, copy=False)
+    mask = None if value.mask is None else array_types.to_numpy(value.mask)
+    indices = pa.array(np.where(mask, 0, codes) if mask is not None else codes,
+                       mask=mask if mask is not None and mask.any() else None, type=pa.int32())
+    return pa.DictionaryArray.from_arrays(indices, value.labels)
 
 
 def _converted(values, array_type):

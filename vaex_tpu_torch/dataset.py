@@ -22,8 +22,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .column import (column_device, column_fingerprint, concat_columns, slice_column,
-                     take_column)
+from . import array_types
+from .column import (STRINGS, ColumnString, column_device, column_fingerprint, concat_columns,
+                     slice_column, take_column)
 from .datatype import dtype_of, needs_logical
 from .utils import fingerprint, hash_array_data
 
@@ -130,7 +131,10 @@ class DatasetArrays(Dataset):
 
     def __init__(self, columns: Dict[str, object], logical=None, device=None):
         super().__init__()
-        self._columns = dict(columns)
+        # strings (arrow arrays, numpy arrays of str) are host string columns
+        self._columns = {name: ColumnString(col) if not isinstance(col, STRINGS) and (
+            array_types.is_arrow(col) or array_types.is_string_array(col)) else col
+            for name, col in columns.items()}
         self.device = None if device is None else torch.device(device)
         self.logical = {name: np.dtype(dt) for name, dt in (logical or {}).items()
                         if name in self._columns}

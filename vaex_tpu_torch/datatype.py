@@ -1,7 +1,11 @@
 """DataType: one logical type for numpy arrays and torch tensors.
 
-The counterpart of ``vaex_tpu/datatype.py`` for the numeric slice of the
-port; arrow types are not ported yet.  A ``datetime64`` or ``timedelta64``
+The counterpart of ``vaex_tpu/datatype.py`` (its lines 55-75, 125-160 for
+arrow): a DataType wraps a numpy dtype or a pyarrow type.  A string column
+is an arrow string, large string or dictionary-of-strings type
+(``is_string``, ``is_encoded``, ``is_arrow``); its numpy dtype is object and
+torch has no tensor of it (:func:`has_torch_dtype` answers False).  pyarrow
+is imported where an arrow type is met, never at import.  A ``datetime64`` or ``timedelta64``
 column is an int64 tensor on a device (its epoch count; NaT is the int64
 minimum) and keeps its numpy dtype as the logical one.  A ``uint16`` or
 ``uint32`` column is an int64 tensor of its values, which int64 holds
@@ -94,8 +98,25 @@ def torch_dtype(dtype) -> torch.dtype:
 
 def has_torch_dtype(dtype) -> bool:
     """True for a column that moves to a device: a dtype torch has, or one
-    held as an int64 tensor (:func:`needs_logical`)."""
-    return np.dtype(dtype) in _NUMPY_TO_TORCH or needs_logical(dtype)
+    held as an int64 tensor (:func:`needs_logical`); False for strings and
+    any other arrow or object type."""
+    if isinstance(dtype, DataType):
+        if dtype.is_arrow:
+            return False
+        dtype = dtype.internal
+    if _is_arrow_type(dtype):
+        return False
+    dtype = np.dtype(dtype)
+    return dtype in _NUMPY_TO_TORCH or needs_logical(dtype)
+
+
+def _is_arrow_type(t):
+    return type(t).__module__.startswith("pyarrow")
+
+
+def _arrow_is_string(t):
+    import pyarrow as pa
+    return pa.types.is_string(t) or pa.types.is_large_string(t)
 
 
 class DataType:
@@ -104,29 +125,62 @@ class DataType:
             internal = internal.internal
         if isinstance(internal, torch.dtype):
             internal = _TORCH_TO_NUMPY[internal]
-        self.internal = np.dtype(internal)
+        self.internal = internal if _is_arrow_type(internal) else np.dtype(internal)
+
+    # -- arrow (vaex_tpu/datatype.py:55-75) ----------------------------------
+    @property
+    def is_arrow(self):
+        return _is_arrow_type(self.internal)
+
+    @property
+    def is_string(self):
+        """An arrow string or large string type, or numpy's str / bytes; a
+        dictionary of strings is ``is_encoded`` instead, as in vaex_tpu."""
+        if self.is_arrow:
+            return _arrow_is_string(self.internal)
+        return self.internal.kind in "US" or self.internal.kind == "T"
+
+    @property
+    def is_encoded(self):
+        """An arrow dictionary type."""
+        import pyarrow as pa
+        return self.is_arrow and pa.types.is_dictionary(self.internal)
+
+    @property
+    def is_text(self):
+        """Values that are strings: ``is_string`` or a dictionary of them."""
+        if self.is_encoded:
+            return _arrow_is_string(self.internal.value_type)
+        return self.is_string
 
     @property
     def numpy(self) -> np.dtype:
+        """The numpy dtype; object for strings and any other arrow type
+        numpy has none of."""
+        if self.is_arrow:
+            try:
+                return np.dtype(self.internal.to_pandas_dtype())
+            except (NotImplementedError, TypeError):
+                return np.dtype(object)
         return self.internal
 
     @property
     def torch(self) -> torch.dtype:
-        return torch_dtype(self.internal)
+        return torch_dtype(self.numpy)
 
     @property
     def is_temporal(self):
         """datetime64 or timedelta64: int64 on a device."""
-        return self.internal.kind in "Mm"
+        return not self.is_arrow and self.internal.kind in "Mm"
 
     @property
     def is_unsigned(self):
-        return self.internal.kind == "u"
+        return self.numpy.kind == "u"
 
     def upcast(self) -> "DataType":
         """Sum-accumulator dtype: ints/bool -> int64, uints -> uint64,
         floats -> float64 (reference vaex_tpu/datatype.py upcast)."""
-        kind = self.internal.kind
+        kind = self.numpy.kind
         if kind in "ib":
             return DataType(np.dtype("int64"))
         if kind == "u":
@@ -137,15 +191,18 @@ class DataType:
 
     @property
     def name(self):
-        return self.internal.name
+        return str(self.internal) if self.is_arrow else self.internal.name
 
     def __eq__(self, other):
         if other is None:
             return False
         try:
-            return self.internal == DataType(other).internal
+            other = DataType(other)
         except TypeError:
+            return self.name == other
+        if self.is_arrow != other.is_arrow:
             return False
+        return self.internal == other.internal
 
     def __hash__(self):
         return hash(self.name)
@@ -155,7 +212,10 @@ class DataType:
 
 
 def dtype_of(array) -> DataType:
-    """DataType of a numpy array, masked array or torch tensor."""
+    """DataType of a numpy array, masked array, torch tensor, arrow array
+    or column."""
     if isinstance(array, torch.Tensor):
         return DataType(array.dtype)
+    if _is_arrow_type(getattr(array, "type", None)):
+        return DataType(array.type)
     return DataType(array.dtype if hasattr(array, "dtype") else np.asarray(array).dtype)

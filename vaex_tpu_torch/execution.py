@@ -23,8 +23,19 @@ column is read through its expression, so a pass loads only the physical
 columns under it and evaluates it once per tile however many expressions
 name it.
 
-Not ported yet (ROADMAP queue A): the whole-pass loop, the host stage for
-string expressions, the mesh, the result cache.
+The host stage (vaex_tpu/execution.py:200-248, 502-545, 590-612): the
+expressions of a pass that :func:`.scopes.expression_is_device` sends to
+the host (string functions, strings that are not staged as codes, the
+temporal operations numpy computes) are evaluated per tile on the host,
+over host arrays of the columns they read, and copied to the pass device as
+tile inputs (:func:`.scopes.ship`; strings as dictionary codes).  A host
+filter becomes ``row_valid`` like any other.  The pass device stays the
+device of the tensor columns: a staged string column's codes never leave
+it.  ``trace_log`` records each pass's host-stage expressions and the host
+time they took.
+
+Not ported yet (ROADMAP queue A): the whole-pass loop, the mesh, the
+result cache.
 """
 
 from __future__ import annotations
@@ -36,8 +47,9 @@ import torch
 from . import settings
 from .column import placed_device, tile_of
 from .datatype import rides_logical
-from .ops.nullable import NA
-from .scopes import DeviceScope, column_names, resolve_variables, variable_names
+from .ops.nullable import NA, DictNA
+from .scopes import (DeviceScope, HostScope, column_names, expression_is_device, host_chunk,
+                     resolve_variables, ship, variable_names)
 from .tasks import TaskAggregations
 from .utils import trace
 
@@ -134,16 +146,15 @@ class ExecutorLocal(Executor):
         expressions = [expr for task in tasks for expr in task.expressions]
         if filter_expression is not None:
             expressions.append(filter_expression)
-        names, device, variables = pass_inputs(df, dataset, expressions)
+        inputs = pass_inputs(df, dataset, expressions)
+        device = inputs.device
         n_total = dataset.row_count
         T = df._tile_rows or settings.TILE_ROWS
         states = [t.initial_state(device, n_total) for t in tasks]
         n_tiles = 0
         for i1 in range(0, max(n_total, 1), T):
             i2 = min(i1 + T, n_total)
-            tile = {name: _tile(dataset, name, i1, i2, device) for name in names}
-            ctx = TileContext(DeviceScope(tile, variables, df.virtual_columns), i2 - i1, device,
-                              i1=i1)
+            ctx = inputs.context(df, dataset, i1, i2)
             if filter_expression is not None:
                 ctx.row_valid = ctx.boolean(filter_expression)
             states = [t.update(s, ctx) for t, s in zip(tasks, states)]
@@ -163,26 +174,63 @@ class ExecutorLocal(Executor):
             "strategies": [t.strategy for t in tasks if isinstance(t, TaskAggregations)],
             # the route the pass's set probes took ("b6", "b6-wide"), None
             # when it probed no set
-            "probe": "+".join(sorted({v.route for v in [*variables.values(), *tasks]
+            "probe": "+".join(sorted({v.route for v in [*inputs.variables.values(), *tasks]
                                       if getattr(v, "route", None)})) or None,
+            # the expressions of the host stage, and its host time over all tiles
+            "host_stage": inputs.host_expressions,
+            "host_s": inputs.host_s,
         })
         if len(self.trace_log) > 1000:
             del self.trace_log[:500]
 
 
-def pass_inputs(df, dataset, expressions):
-    """What a pass of ``df`` over ``expressions`` reads: the sorted names of
-    its columns, its device, and its variables resolved on that device."""
-    names, used_variables = set(), set()
-    for expr in expressions:
-        names |= column_names(expr, df.variables, df.virtual_columns)
-        used_variables |= variable_names(expr, df.variables, df.virtual_columns)
-    missing = names - set(dataset)
+class PassInputs:
+    """What a pass reads: the sorted names of the columns its device stage
+    loads, the expressions of its host stage and the columns they read, its
+    device and its variables resolved there."""
+
+    def __init__(self, names, host_expressions, host_names, device, variables):
+        self.names = names
+        self.host_expressions = host_expressions
+        self.host_names = host_names
+        self.device = device
+        self.variables = variables
+        self.host_s = 0.0  # host time of the host stage, all tiles
+
+    def context(self, df, dataset, i1, i2) -> TileContext:
+        """Rows [i1, i2): the device columns' tiles on the pass device and
+        the host stage's results copied there."""
+        tile = {name: _tile(dataset, name, i1, i2, self.device) for name in self.names}
+        scope = DeviceScope(tile, self.variables, df.virtual_columns)
+        if self.host_expressions:
+            t0 = time.perf_counter()
+            host = HostScope({name: host_chunk(dataset, name, i1, i2) for name in self.host_names},
+                             df.variables, df.virtual_columns, i2 - i1)
+            for expression in self.host_expressions:
+                scope.values[expression] = ship(host.evaluate_raw(expression), self.device,
+                                                i2 - i1)
+            self.host_s += time.perf_counter() - t0
+        return TileContext(scope, i2 - i1, self.device, i1=i1)
+
+
+def pass_inputs(df, dataset, expressions) -> PassInputs:
+    """What a pass of ``df`` over ``expressions`` reads
+    (:class:`PassInputs`); each expression is in one stage."""
+    names, used_variables, host_names, host_expressions = set(), set(), set(), []
+    for expr in dict.fromkeys(map(str, expressions)):
+        leaves = column_names(expr, df.variables, df.virtual_columns)
+        if expression_is_device(df, expr):
+            names |= leaves
+            used_variables |= variable_names(expr, df.variables, df.virtual_columns)
+        else:
+            host_expressions.append(expr)
+            host_names |= leaves
+    missing = (names | host_names) - set(dataset)
     if missing:
         raise NameError(f"column(s) {sorted(missing)} do not exist")
-    names = sorted(names)
-    device = _pass_device(dataset, names)
-    return names, device, resolve_variables(df.variables, sorted(used_variables), device)
+    device = _pass_device(dataset, sorted(names | host_names))
+    return PassInputs(sorted(names), host_expressions, sorted(host_names), device,
+                      resolve_variables(df.variables, sorted(used_variables), device))
 
 
 def _pass_device(dataset, names):
@@ -203,5 +251,7 @@ def _tile(dataset, name, i1, i2, device) -> NA:
     """Rows [i1, i2) of a column as an NA on ``device``; a datetime,
     timedelta or uint64 column as its int64 tensor with its dtype."""
     part = tile_of(dataset[name], i1, i2, device)
+    if isinstance(part, DictNA):
+        return part
     logical = dataset.logical.get(name)
     return NA(part.data, part.mask, logical if rides_logical(logical) else None)

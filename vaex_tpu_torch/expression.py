@@ -13,11 +13,14 @@ from . import expresso
 from .registry import install_all_on_expression
 
 
-def _to_expression_string(value):
+def _to_expression_string(value, df=None):
     if isinstance(value, Expression):
         return f"({value.expression})"
     if isinstance(value, (str, bool, int, float)) or value is None:
         return repr(value)
+    if isinstance(value, np.generic) and value.dtype.kind in "Mm" and df is not None:
+        # a datetime or timedelta: a variable (vaex_tpu/expression.py:27-30)
+        return df.add_variable("literal", value, unique=True)
     if isinstance(value, np.generic):
         return repr(value.item())
     raise TypeError(f"cannot use {type(value).__name__} in an expression yet")
@@ -37,13 +40,13 @@ class Meta(type):
         for opname, symbol in {**_binary_ops, **_comparison_ops}.items():
             def closure(symbol=symbol):
                 def operator_fn(self, other):
-                    rhs = _to_expression_string(other)
+                    rhs = _to_expression_string(other, self.df)
                     return Expression(self.df, f"({self.expression} {symbol} {rhs})")
                 return operator_fn
 
             def rclosure(symbol=symbol):
                 def operator_fn(self, other):
-                    lhs = _to_expression_string(other)
+                    lhs = _to_expression_string(other, self.df)
                     return Expression(self.df, f"({lhs} {symbol} {self.expression})")
                 return operator_fn
             attrs[f"__{opname}__"] = closure()
@@ -56,6 +59,33 @@ class Meta(type):
                 return operator_fn
             attrs[f"__{opname}__"] = uclosure()
         return type.__new__(mcs, name, bases, attrs)
+
+
+class StringOperations:
+    """``expr.str``: the ``str_*`` functions as methods (vaex_tpu/expression.py:74-98)."""
+
+    def __init__(self, expression):
+        self.expression = expression
+
+
+class StringOperationsPandas(StringOperations):
+    """``expr.str_pandas``: the same functions."""
+
+
+class DateTime(StringOperations):
+    """``expr.dt``: the ``dt_*`` functions (properties and methods)."""
+
+
+class TimeDelta(StringOperations):
+    """``expr.td``: the ``td_*`` functions."""
+
+
+_scope_accessors = {"str": StringOperations, "str_pandas": StringOperationsPandas,
+                    "dt": DateTime, "td": TimeDelta}
+
+
+def scope_accessor(scope):
+    return _scope_accessors[scope]
 
 
 class Expression(metaclass=Meta):
@@ -74,13 +104,32 @@ class Expression(metaclass=Meta):
     def __hash__(self):
         return hash((id(self.df), self.expression))
 
+    # -- accessors (vaex_tpu/expression.py:143-160) ---------------------------
+    @property
+    def str(self):
+        return StringOperations(self)
+
+    @property
+    def str_pandas(self):
+        return StringOperationsPandas(self)
+
+    @property
+    def dt(self):
+        return DateTime(self)
+
+    @property
+    def td(self):
+        return TimeDelta(self)
+
     def _call_function(self, name, *args, **kwargs):
         parts = [self.expression]
-        parts += [_to_expression_string(a) for a in args]
-        parts += [f"{k}={_to_expression_string(v)}" for k, v in kwargs.items()]
+        parts += [_to_expression_string(a, self.df) for a in args]
+        parts += [f"{k}={_to_expression_string(v, self.df)}" for k, v in kwargs.items()]
         return Expression(self.df, f"{name}({', '.join(parts)})")
 
     def astype(self, dtype):
+        if dtype in (str, "str", "string"):
+            return Expression(self.df, f"astype({self.expression}, 'str')")
         return Expression(self.df, f"astype({self.expression}, {str(np.dtype(dtype))!r})")
 
     # -- structure (vaex_tpu/expression.py:172-200) --------------------------
@@ -149,8 +198,9 @@ class Expression(metaclass=Meta):
     # condition first, so the class defines it
     def where(self, condition, other):
         """This expression where ``condition`` holds, else ``other``."""
-        return Expression(self.df, f"where({_to_expression_string(condition)}, "
-                                   f"{self.expression}, {_to_expression_string(other)})")
+        return Expression(self.df, f"where({_to_expression_string(condition, self.df)}, "
+                                   f"{self.expression}, "
+                                   f"{_to_expression_string(other, self.df)})")
 
     def __abs__(self):
         return self.abs()
@@ -224,13 +274,14 @@ class Expression(metaclass=Meta):
         return Expression(self.df, f"isin_set({self.expression}, {var})")
 
     def map(self, mapper):
-        """Each value through the dict ``mapper`` (numeric keys and values);
-        a value that is not a key gives a missing value."""
-        keys = np.asarray(list(mapper.keys()))
-        values = np.asarray(list(mapper.values()))
+        """Each value through the dict ``mapper`` (numbers or strings, keys
+        and values); a value that is not a key gives a missing value."""
+        keys = _host_values(list(mapper.keys()))
+        values = _host_values(list(mapper.values()))
         oset = _set_of(keys)
         # the choices in ordinal order of the keys
-        choices = np.zeros(oset.count, dtype=values.dtype)
+        choices = np.zeros(oset.count, dtype=values.dtype) if values.dtype != object else (
+            np.full(oset.count, "", dtype=object))
         choices[np.asarray(oset.map_ordinal(keys), np.int64)] = values
         set_var = self.df.add_variable("map_set", oset, unique=True)
         choices_var = self.df.add_variable("map_choices", choices, unique=True)
@@ -252,11 +303,23 @@ def _as_unsigned(values):
     return np.array([int(v) for v in values if 0 <= int(v) < 2 ** 64], dtype=np.uint64)
 
 
+def _host_values(values):
+    """A list of values as a numpy array; of strings an object array."""
+    from .array_types import is_string_array
+    if isinstance(values, np.ndarray) and values.dtype != object:
+        return values.astype(object) if values.dtype.kind in "UST" else values
+    out = np.empty(len(values), dtype=object)
+    out[:] = list(values)
+    return out if is_string_array(out) else np.asarray(list(values))
+
+
 def _set_of(values):
-    """The SortedSet of a host list or array of numeric values."""
+    """The SortedSet of a host list or array of numbers or strings."""
+    from .array_types import is_arrow, is_string_array
     from .ops.setops import SortedSet
-    values = values if isinstance(values, np.ndarray) else np.asarray(values)
-    oset = SortedSet("string" if values.dtype.kind in "OUS" else values.dtype)
+    if not is_arrow(values):
+        values = _host_values(values)
+    oset = SortedSet("string" if is_string_array(values) else values.dtype)
     oset.update(values)
     return oset
 

@@ -30,11 +30,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import array_types
 from .datatype import _TORCH_TO_NUMPY, torch_dtype
 from .ops import setops
-from .ops.nullable import (NA, TEMPORAL_PENDING, UINT64, UNSIGNED_PENDING, as_operand, lift,
+from .ops.nullable import (NA, UINT64, UNSIGNED_PENDING, DictNA, HostStage, as_operand, lift,
                            refuse_temporal, unsigned_float)
-from .registry import register_function
+from .registry import expression_namespace, expression_namespace_host, register_function
 
 
 def _na(x):
@@ -119,8 +120,8 @@ def _astype(x, dtype):
         if x.logical == np.dtype(dtype):
             return x
         if x.logical is not None or x.data.is_floating_point():
-            raise NotImplementedError(f"astype of a {x.logical or x.dtype} value to {dtype} "
-                                      f"is {TEMPORAL_PENDING}")
+            raise HostStage(f"astype of a {x.logical or x.dtype} value to {dtype} runs in "
+                            f"the host stage")
         return NA(x.data.to(torch.int64), x.mask, dtype)
     target = torch_dtype(dtype)
     if x.data.is_floating_point() and not target.is_floating_point and target != torch.bool:
@@ -153,8 +154,13 @@ def _isin_set(x, oset):
 
 def _choose(codes, choices):
     """``choices[codes]``; codes outside the table, and masked codes, give a
-    missing value."""
+    missing value; string choices (an arrow array) make strings, the codes
+    their dictionary codes."""
     codes = _na(codes)
+    if array_types.is_arrow(choices):
+        oob = (codes.data < 0) | (codes.data >= len(choices))
+        mask = oob if codes.mask is None else codes.mask | oob
+        return DictNA(codes.data.masked_fill(mask, 0).to(torch.int32), mask, choices)
     table = choices.data if isinstance(choices, NA) else torch.as_tensor(as_operand(choices))
     table = table.to(codes.data.device)
     oob = (codes.data < 0) | (codes.data >= table.shape[0])
@@ -412,3 +418,360 @@ register_function(name="fillmissing", device=_fillmissing)(None)
 register_function(name="fillnan", device=_fillnan)(None)
 register_function(name="fillna", device=_fillna)(None)
 register_function(name="pnpoly", device=_pnpoly)(None)
+
+
+# ---------------------------------------------------------------------------
+# strings on the device: the functions that take a DictNA (dictionary codes)
+# as it is; every other device function refuses one, so that an expression
+# that applies it to strings runs in the host stage
+
+_STRINGS_ON_DEVICE = {"ismissing", "isna", "notna", "isnan", "_ordinal_values", "isin_set",
+                      "_codes"}
+
+
+def _codes(x):
+    """The dictionary codes of strings, a null row the code after the last
+    label: what a string category bins on."""
+    if not isinstance(x, DictNA):
+        raise TypeError("_codes takes strings")
+    return NA(x.data if x.mask is None else x.data.masked_fill(x.mask, len(x.labels)))
+
+
+def _host_codes(x):
+    import pyarrow as pa
+    a = array_types.string_arrow(x)
+    if not pa.types.is_dictionary(a.type):
+        raise TypeError("_codes takes a dictionary array")
+    return np.asarray(a.indices.fill_null(len(a.dictionary))).astype(np.int32)
+
+
+register_function(name="_codes", device=_codes, host=_host_codes, on_expression=False)(None)
+
+
+def _refusing_strings(name, impl):
+    def guarded(*args, **kwargs):
+        for a in (*args, *kwargs.values()):
+            if isinstance(a, DictNA):
+                raise HostStage(f"{name} of strings runs in the host stage")
+        return impl(*args, **kwargs)
+    guarded.__name__ = name
+    return guarded
+
+
+for _name in list(expression_namespace):
+    if _name not in _STRINGS_ON_DEVICE:
+        expression_namespace[_name] = _refusing_strings(_name, expression_namespace[_name])
+
+
+# ---------------------------------------------------------------------------
+# the host half: numpy / pyarrow / pandas over host arrays (a numpy array,
+# a masked one, an arrow array), for the host stage of a pass
+# (vaex_tpu/functions.py:40-320, 326-618)
+
+
+def _host_split(x):
+    """A host array as (data ndarray, mask ndarray or None)."""
+    return array_types.data_and_mask(x)
+
+
+def _host_rejoin(data, mask):
+    if mask is None or not np.any(mask):
+        return data
+    return np.ma.MaskedArray(data, mask)
+
+
+def _host_elementwise(op):
+    """``op`` of the data of its array arguments, their masks OR-ed."""
+    def impl(*args, **kwargs):
+        datas, mask = [], None
+        for a in args:
+            if isinstance(a, np.ndarray) or array_types.is_arrow(a):
+                d, m = _host_split(a)
+                datas.append(d)
+                if m is not None:
+                    mask = m if mask is None else mask | m
+            else:
+                datas.append(a)
+        return _host_rejoin(op(*datas, **kwargs), mask)
+    return impl
+
+
+for _name in [*_FLOAT_UNARY, *_FLOAT_BINARY, *_SAME_UNARY, *_SAME_BINARY, "abs"]:
+    expression_namespace_host[_name] = _host_elementwise(getattr(np, _name))
+expression_namespace_host["round"] = _host_elementwise(
+    lambda d, decimals=0: np.round(d, decimals))
+expression_namespace_host["clip"] = _host_elementwise(
+    lambda d, a_min=None, a_max=None: np.clip(d, a_min, a_max))
+expression_namespace_host["searchsorted"] = _host_elementwise(
+    lambda d, values, side="left": np.searchsorted(np.asarray(values), d, side=side))
+expression_namespace_host["digitize"] = _host_elementwise(
+    lambda d, bins, right=False: np.digitize(d, np.asarray(bins), right=right))
+
+
+def _host_missing(x):
+    d, m = _host_split(x)
+    missing = np.zeros(len(d), bool) if m is None else m.copy()
+    if d.dtype.kind in "Mm":
+        missing |= np.isnat(d)
+    return missing
+
+
+def _host_isnan(x):
+    d, m = _host_split(x)
+    out = np.isnan(d) if d.dtype.kind == "f" else np.zeros(len(d), bool)
+    return out if m is None else out & ~m
+
+
+def _host_fillmissing(x, value):
+    d, m = _host_split(x)
+    if m is None:
+        return d
+    d = d.copy()
+    d[m] = value
+    return d
+
+
+def _host_fillnan(x, value):
+    d, m = _host_split(x)
+    if d.dtype.kind != "f":
+        return _host_rejoin(d, m)
+    return _host_rejoin(np.where(np.isnan(d), value, d), m)
+
+
+def _host_where(cond, a, b):
+    return _host_elementwise(np.where)(cond, a, b)
+
+
+def _host_astype(x, dtype):
+    d, m = _host_split(x)
+    if np.dtype(dtype).kind in "OUS" or str(dtype) in ("str", "string"):
+        return _host_rejoin(np.asarray([str(v) for v in d], dtype=object), m)
+    return _host_rejoin(d.astype(np.dtype(dtype)), m)
+
+
+def _host_choose(codes, choices):
+    d, m = _host_split(codes)
+    table = np.asarray(choices)
+    oob = (d < 0) | (d >= len(table))
+    out = table[np.clip(d, 0, max(len(table) - 1, 0))]
+    return _host_rejoin(out, oob if m is None else m | oob)
+
+
+def _host_pnpoly(x, y, xs, ys):
+    return _pnpoly(NA(torch.as_tensor(_host_fillmissing(x, 0))),
+                   NA(torch.as_tensor(_host_fillmissing(y, 0))), xs, ys).data.numpy() & ~(
+        _host_missing(x) | _host_missing(y))
+
+
+expression_namespace_host.update({
+    "ismissing": _host_missing,
+    "isnan": _host_isnan,
+    "isna": lambda x: _host_missing(x) | _host_isnan(x),
+    "notna": lambda x: ~(_host_missing(x) | _host_isnan(x)),
+    "fillmissing": _host_fillmissing,
+    "fillnan": _host_fillnan,
+    "fillna": lambda x, value: _host_fillnan(_host_fillmissing(x, value), value),
+    "where": _host_where,
+    "astype": _host_astype,
+    "_ordinal_values": lambda x, oset: setops.host_map_ordinal(oset, x),
+    "isin_set": lambda x, oset: setops.host_isin(oset, x),
+    "_choose": _host_choose,
+    "pnpoly": _host_pnpoly,
+})
+
+
+# dt_* / td_*: calendar functions through pandas (vaex_tpu/functions.py:326-373)
+
+
+def _via_pandas(attr, is_method=False):
+    """A pandas ``.dt`` attribute or method; where it gives objects (a
+    name, a date, a formatted string) a NaT row is missing (vaex_tpu's
+    host raises on them), a number keeps pandas' NaN."""
+    def impl(x, *args, **kwargs):
+        import pandas as pd
+        d, m = _host_split(x)
+        value = getattr(pd.Series(d).dt, attr)
+        if is_method:
+            value = value(*args, **kwargs)
+        out = np.asarray(value.to_numpy())
+        if out.dtype == object and d.dtype.kind in "Mm":
+            nat = np.isnat(d) if m is None else np.isnat(d) | m
+            out = np.where(nat, None, out)
+            m = nat
+        return _host_rejoin(out, m)
+    return impl
+
+
+def _weekofyear(x):
+    import pandas as pd
+    d, m = _host_split(x)
+    return _host_rejoin(pd.Series(d).dt.isocalendar().week.to_numpy().astype(np.int64), m)
+
+
+for _p in ["year", "month", "day", "hour", "minute", "second", "microsecond", "nanosecond",
+           "dayofweek", "dayofyear", "daysinmonth", "quarter", "is_leap_year", "date"]:
+    register_function(scope="dt", name=_p, as_property=True, host=_via_pandas(_p))(None)
+register_function(scope="dt", name="weekofyear", as_property=True, host=_weekofyear)(None)
+for _m in ["strftime", "floor", "day_name", "month_name"]:
+    register_function(scope="dt", name=_m, host=_via_pandas(_m, is_method=True))(None)
+for _p in ["days", "seconds", "microseconds", "nanoseconds"]:
+    register_function(scope="td", name=_p, as_property=True, host=_via_pandas(_p))(None)
+register_function(scope="td", name="total_seconds",
+                  host=_via_pandas("total_seconds", is_method=True))(None)
+
+
+# str_*: string functions through pyarrow.compute (vaex_tpu/functions.py:375-558)
+
+
+def _to_pa(x):
+    import pyarrow as pa
+    a = array_types.to_arrow(x)
+    return a.combine_chunks() if isinstance(a, pa.ChunkedArray) else a
+
+
+def _dict_aware(fn):
+    """A per-value arrow kernel that runs once per label of a dictionary
+    array and is gathered by its indices: a string result stays a
+    dictionary array over the same indices, any other is taken."""
+    def impl(x, *args, **kwargs):
+        import pyarrow as pa
+        a = _to_pa(x)
+        if pa.types.is_dictionary(a.type):
+            values = fn(a.dictionary, *args, **kwargs)
+            if pa.types.is_string(values.type) or pa.types.is_large_string(values.type):
+                return pa.DictionaryArray.from_arrays(a.indices, values)
+            return values.take(a.indices)
+        return fn(a, *args, **kwargs)
+    return impl
+
+
+def _decoded(x):
+    import pyarrow as pa
+    a = _to_pa(x)
+    return a.dictionary_decode() if pa.types.is_dictionary(a.type) else a
+
+
+def _pc(name, **fixed):
+    def kernel(a, *args, **kwargs):
+        import pyarrow.compute as pc
+        return getattr(pc, name)(a, *args, **fixed, **kwargs)
+    return kernel
+
+
+_STR_SIMPLE = {
+    "capitalize": "utf8_capitalize", "lower": "utf8_lower", "upper": "utf8_upper",
+    "title": "utf8_title", "swapcase": "utf8_swapcase", "isalnum": "utf8_is_alnum",
+    "isalpha": "utf8_is_alpha", "isdigit": "utf8_is_digit", "isspace": "utf8_is_space",
+    "islower": "utf8_is_lower", "isupper": "utf8_is_upper", "istitle": "utf8_is_title",
+    "len": "utf8_length", "byte_length": "binary_length", "reverse": "utf8_reverse",
+    "trim_whitespace": "utf8_trim_whitespace", "isnumeric": "utf8_is_numeric",
+    "len_unicode": "utf8_length",
+}
+for _name, _pc_name in _STR_SIMPLE.items():
+    register_function(scope="str", name=_name, host=_dict_aware(_pc(_pc_name)))(None)
+
+
+def _trim(side):
+    def kernel(a, to_strip=None):
+        import pyarrow.compute as pc
+        if to_strip is None:
+            return getattr(pc, f"utf8_{side}_whitespace")(a)
+        return getattr(pc, f"utf8_{side}")(a, characters=to_strip)
+    return _dict_aware(kernel)
+
+
+def _contains(a, pattern, regex=True):
+    import pyarrow.compute as pc
+    return (pc.match_substring_regex if regex else pc.match_substring)(a, pattern)
+
+
+def _match(a, pattern):
+    import pyarrow.compute as pc
+    if "%" in str(pattern):
+        return pc.match_like(a, pattern)
+    return pc.match_substring_regex(a, "^(" + str(pattern) + ")$")
+
+
+def _count(a, pattern, regex=True):
+    import pyarrow.compute as pc
+    return (pc.count_substring_regex if regex else pc.count_substring)(a, pattern)
+
+
+def _replace(a, pattern, repl, n=-1, regex=False):
+    import pyarrow.compute as pc
+    kwargs = {} if n == -1 else {"max_replacements": n}
+    return (pc.replace_substring_regex if regex else pc.replace_substring)(
+        a, pattern, repl, **kwargs)
+
+
+def _slice(a, start=0, stop=None):
+    import pyarrow.compute as pc
+    return pc.utf8_slice_codeunits(a, start=start, stop=stop if stop is not None else 2 ** 31 - 1)
+
+
+def _pad(a, width, side="left", fillchar=" "):
+    import pyarrow.compute as pc
+    fn = {"left": pc.utf8_lpad, "right": pc.utf8_rpad}.get(side, pc.utf8_center)
+    return fn(a, width=width, padding=fillchar)
+
+
+def _split(a, pattern=" ", max_splits=None, regex=False):
+    import pyarrow.compute as pc
+    kwargs = {} if max_splits is None else {"max_splits": max_splits}
+    return (pc.split_pattern_regex if regex else pc.split_pattern)(a, pattern, **kwargs)
+
+
+def _equals(x, y):
+    import pyarrow.compute as pc
+    return pc.equal(_decoded(x), y if isinstance(y, str) else _decoded(y))
+
+
+def _cat(x, other):
+    import pyarrow.compute as pc
+    return pc.binary_join_element_wise(
+        _decoded(x), other if isinstance(other, str) else _decoded(other), "")
+
+
+def _join(x, separator=" "):
+    import pyarrow.compute as pc
+    return pc.binary_join(_to_pa(x), separator)
+
+
+for _name, _impl in {
+    "strip": _trim("trim"), "lstrip": _trim("ltrim"), "rstrip": _trim("rtrim"),
+    "contains": _dict_aware(_contains),
+    "startswith": _dict_aware(lambda a, pat: _pc("starts_with")(a, pattern=pat)),
+    "endswith": _dict_aware(lambda a, pat: _pc("ends_with")(a, pattern=pat)),
+    "match": _dict_aware(_match),
+    "equals": _equals,
+    "count": _dict_aware(_count),
+    "find": _dict_aware(_pc("find_substring")),
+    "replace": _dict_aware(_replace),
+    "slice": _dict_aware(_slice),
+    "pad": _dict_aware(_pad),
+    "ljust": _dict_aware(lambda a, width, fillchar=" ": _pad(a, width, "right", fillchar)),
+    "rjust": _dict_aware(lambda a, width, fillchar=" ": _pad(a, width, "left", fillchar)),
+    "zfill": _dict_aware(lambda a, width: _pad(a, width, "left", "0")),
+    "repeat": _dict_aware(_pc("binary_repeat")),
+    "cat": _cat,
+    "split": _dict_aware(_split),
+    "join": _join,
+    "index_of": _dict_aware(_pc("find_substring")),
+    "extract_regex": _dict_aware(_pc("extract_regex")),
+    "count_substring": _dict_aware(_pc("count_substring")),
+}.items():
+    register_function(scope="str", name=_name, host=_impl)(None)
+
+
+def _to_string(x):
+    d, m = _host_split(x)
+    return _host_rejoin(np.asarray([str(v) for v in d], dtype=object), m)
+
+
+def _format(x, fmt):
+    d, m = _host_split(x)
+    return _host_rejoin(np.asarray([fmt.format(v) for v in d], dtype=object), m)
+
+
+register_function(name="to_string", host=_to_string)(None)
+register_function(name="format", host=_format)(None)

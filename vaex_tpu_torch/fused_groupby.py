@@ -10,7 +10,9 @@ aggregation is a reduction over the segments.  Only observed keys and
 combinations appear, as the classic path drops its empty cells.
 
 The plan engages (:func:`try_fused_sort_groupby`) for physical integer
-keys that are not categories and hold no missing value, on an unfiltered
+keys that are not categories and hold no missing value, and for string
+keys staged as dictionary codes (their codes tensor is the key; the result
+holds a :class:`~.column.ColumnDictionary` over them), on an unfiltered
 frame of at most ``DENSE_RANK_MAX_ROWS`` rows with no ``row_limit``, for
 count, sum, mean, min, max, std, var and one median or percentile
 expression without a selection, and only where the classic path would build
@@ -50,7 +52,7 @@ import numpy as np
 import torch
 
 from .agg import interp_order_stats
-from .column import tile_of
+from .column import ColumnDictionary, tile_of
 from .datatype import DataType
 from .execution import _pass_device
 from .expression import Expression
@@ -98,10 +100,16 @@ def try_fused_sort_groupby(df, by, actions, ascending=True, row_limit=None):
     from .groupby import COMBINE_MIN_PRODUCT, DENSE_RANGE_MAX, _dense_candidates, parse_actions
     if row_limit is not None or df.filtered:
         return None
-    key_names = []
+    key_names, labels = [], {}
     for b in by if isinstance(by, (list, tuple)) else [by]:
         name = b.expression if isinstance(b, Expression) else b
-        if not isinstance(name, str) or not df._is_physical(name) or df.is_category(name):
+        if not isinstance(name, str) or not df._is_physical(name):
+            return None
+        codes = _staged_codes(df, name)
+        if codes is not None:  # a staged string key: its codes
+            labels[codes] = (name, df.dataset[name].labels)
+            name = codes
+        elif df.is_category(name):
             return None
         dtype = df.data_type(name).numpy
         if dtype.kind not in "iu" or dtype == np.uint64:
@@ -132,7 +140,27 @@ def try_fused_sort_groupby(df, by, actions, ascending=True, row_limit=None):
         if len(spans) > 1 and np.prod(spans, dtype=np.float64) <= COMBINE_MIN_PRODUCT:
             return None
     with trace("one-sort groupby"):
-        return _run(df, key_names, plan, ascending[0], info)
+        result = _run(df, key_names, plan, ascending[0], info)
+    if result is None or not labels:
+        return result
+    # the codes of each string key back under its name, as its labels' codes
+    columns = {labels[n][0] if n in labels else n: (
+        ColumnDictionary(result.dataset[n].to(torch.int32), labels[n][1]) if n in labels
+        else result.dataset[n]) for n in result.get_column_names(hidden=True)}
+    from . import from_dict
+    out = from_dict(columns)
+    out.dataset.device = result.dataset.device
+    return out
+
+
+def _staged_codes(df, name):
+    """The codes tensor of a string column staged as a dictionary, or None."""
+    meta = df._categories.get(name)
+    codes = meta.get("codes_column") if meta else None
+    if codes is None or not isinstance(df.dataset[name], ColumnDictionary) or (
+            codes not in df.dataset):
+        return None
+    return codes
 
 
 def _words(spans):

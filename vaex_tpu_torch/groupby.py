@@ -25,8 +25,15 @@ frame.  :class:`BinBy` (``df.binby``) keeps the grid instead: category axes
 and continuous ones binned over limits, returned as an N-d array with
 coordinates.  :class:`BinnerTime` groups a datetime key by calendar periods.
 ``df.groupby(by, agg=...)`` first tries the one-sort plan of
-:mod:`.fused_groupby` for raw integer keys.  String keys are not ported
-yet (ROADMAP queue A9).
+:mod:`.fused_groupby` for raw integer keys and staged string keys.
+
+A string key staged by ``to_device`` (or given as a dictionary array) is a
+category: it bins on its dictionary codes, the null rows the last code
+(vaex_tpu/groupby.py:95-135), and ``sort`` orders its labels with the null
+label last.  Any other string key takes the set grouper: a set of strings,
+then the ordinals of the host stage.  The string keys of a result are a
+:class:`~.column.ColumnDictionary` (codes on the pass device, the labels on
+the host), decoded only when read (vaex_tpu/groupby.py:180-230).
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ from . import agg as agg_module
 from .agg import AggregatorDescriptor
 from .expression import Expression
 from . import array_types
-from .column import placed_device
+from .column import ColumnDictionary, placed_device
 from .dataset import DatasetArrays
 from .ops.binners import BinnerOrdinal, BinnerScalar
 from .ops.setops import RowLimitException  # noqa: F401  (vaex_tpu exports it here too)
@@ -62,7 +69,8 @@ def _descending(grouper):
 
 
 class GrouperCategory:
-    """Zero-pass grouper using category metadata."""
+    """Zero-pass grouper using category metadata; a string category bins on
+    its codes (the meta's ``codes_column``)."""
 
     dense = False
 
@@ -73,12 +81,18 @@ class GrouperCategory:
         self.min_value = df.category_offset(self.expression)
         self.bin_values = df.category_labels(self.expression, aslist=False)
         self.bin_values_raw = self.bin_values  # in code order, as the grid
-        self.ordinal_expression = (f"(astype({self.expression}, 'int64') - {self.min_value})"
-                                   if self.min_value else f"astype({self.expression}, 'int64')")
-        self.binner = BinnerOrdinal(self.expression, self.min_value, self.N)
+        meta = df._categories[self.expression]
+        binby = meta.get("codes_column", self.expression)
+        self.binby_expression = binby
+        # the labels of strings as an arrow array, the null label last
+        self.arrow_labels = meta.get("arrow")
+        self.ordinal_expression = (f"(astype({binby}, 'int64') - {self.min_value})"
+                                   if self.min_value else f"astype({binby}, 'int64')")
+        self.binner = BinnerOrdinal(binby, self.min_value, self.N)
         self.sort_indices = None
         if sort:
-            order = np.argsort(self.bin_values, kind="stable")
+            order = (_label_order(self.arrow_labels) if self.arrow_labels is not None
+                     else np.argsort(self.bin_values, kind="stable"))
             if not ascending:
                 order = order[::-1]
             if not np.array_equal(order, np.arange(self.N)):
@@ -99,6 +113,7 @@ class Grouper:
         self.bin_values = self.set.key_array(masked=True)
         self.bin_values_raw = self.bin_values
         self.N = self.set.count
+        self.arrow_labels = _set_labels(self.set) if self.set.is_string else None
         var = df.add_variable("grouper_set", self.set, unique=True)
         self.ordinal_expression = f"_ordinal_values({self.expression}, {var})"
         self.binner = BinnerOrdinal(self.ordinal_expression, 0, self.N)
@@ -182,11 +197,33 @@ class GrouperCombined:
             values = g.bin_values_raw
             if g.dense:
                 out.append(ordinals + g.lo)
+            elif getattr(g, "arrow_labels", None) is not None:
+                out.append(ColumnDictionary(ordinals.to(torch.int32), g.arrow_labels))
             elif isinstance(values, np.ma.MaskedArray) or values.dtype.kind not in "biuf":
                 out.append(values[ordinals.cpu().numpy()])
             else:
                 out.append(torch.as_tensor(values).to(ordinals.device)[ordinals])
         return out
+
+
+def _set_labels(oset):
+    """A set of strings' keys as arrow labels, the null slot a null label."""
+    import pyarrow as pa
+    return pa.array(oset.keys.tolist() + [None] * oset.has_null, type=pa.string())
+
+
+def _label_order(labels):
+    """The stable ascending order of arrow string labels, the null one last."""
+    import pyarrow.compute as pc
+    return np.asarray(pc.array_sort_indices(labels, null_placement="at_end")).astype(np.int64)
+
+
+def _key_column(g, codes):
+    """A grouper's bin values at ``codes`` (a tensor): a
+    :class:`ColumnDictionary` over string labels, a host gather else."""
+    if getattr(g, "arrow_labels", None) is not None:
+        return ColumnDictionary(codes.to(torch.int32), g.arrow_labels)
+    return g.bin_values_raw[codes.cpu().numpy()]
 
 
 class BinnerTime:
@@ -521,6 +558,9 @@ class GroupBy:
             keys = order + g.lo
         elif g.sort_indices is not None:
             order = torch.as_tensor(np.ascontiguousarray(g.sort_indices))
+        if getattr(g, "arrow_labels", None) is not None:
+            device = next(iter(grids.values())).device if grids else torch.device("cpu")
+            keys = _key_column(g, (order if order is not None else torch.arange(g.N)).to(device))
         columns = {self.by_names[0]: keys}
         for name, grid in grids.items():
             columns[name] = grid if order is None else grid[order.to(grid.device)]
@@ -534,7 +574,7 @@ class GroupBy:
         direction."""
         keep = torch.nonzero(counts.reshape(-1) > 0).squeeze(1)
         cells = np.unravel_index(keep.cpu().numpy(), tuple(counts.shape))
-        columns = {name: g.bin_values_raw[codes]
+        columns = {name: _key_column(g, torch.as_tensor(codes).to(keep.device))
                    for name, g, codes in zip(self.by_names, self.groupers, cells)}
         for name, grid in grids.items():
             columns[name] = grid.reshape(-1)[keep.to(grid.device)]

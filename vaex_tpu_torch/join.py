@@ -15,8 +15,11 @@ The counterpart of ``vaex_tpu/join.py:27-131``, with its plan:
 Left row order is kept; ``how`` is "left", "inner" or "right" (the swapped
 left).  A name both frames have is renamed only with a prefix or suffix,
 and the shared key collapses to the left column.  The right frame's
-virtual columns and variables come along.  String keys wait for the host
-scope (ROADMAP queue A9) and ``mesh=`` for multi-device execution (A12).
+virtual columns and variables come along.  A string key joins through the
+set of the right key's strings: both keys become their ordinals in it
+(``_ordinal_values``, strings probed once per label), the index holds the
+right ordinals and the probe the left ones; a null key matches nothing.
+``mesh=`` waits for multi-device execution (ROADMAP queue A12).
 """
 
 from __future__ import annotations
@@ -41,20 +44,23 @@ def join(left, right, on=None, left_on=None, right_on=None, lprefix="", rprefix=
     right_on = str(right_on or on)
     if left_on == "None" or right_on == "None":
         raise ValueError("specify on= or left_on=/right_on=")
-    for df, key in ((left, left_on), (right, right_on)):
-        if df.data_type(key).numpy.kind in "OUS":
-            raise NotImplementedError("a join on string keys is not ported yet: it waits for "
-                                      "the host scope (ROADMAP queue A9)")
+    strings = [df.data_type(key).is_text for df, key in ((left, left_on), (right, right_on))]
+    if strings[0] != strings[1]:
+        raise TypeError(f"a join of a key of strings and one of numbers ({left_on!r}, "
+                        f"{right_on!r})")
 
     left = left.extract()
     right = right.extract()
     args = (left_on, right_on, how, allow_duplication)
 
-    index = right._index(right_on)
+    if strings[0]:
+        index, left_key = _string_index(left, left_on, right, right_on)
+    else:
+        index, left_key = right._index(right_on), left_on
     if index.has_duplicates and not allow_duplication:
         raise ValueError("joining with duplicate keys on the right requires "
                          "allow_duplication=True")
-    lookup, extra_left, extra_right = left._map_index(left_on, index, index.has_duplicates)
+    lookup, extra_left, extra_right = left._map_index(left_key, index, index.has_duplicates)
     if extra_left.shape[0]:
         left_ds = left.dataset.concat(left.dataset.take(
             extra_left, origin=("join-extra", left.dataset, right.dataset, args)))
@@ -74,9 +80,12 @@ def join(left, right, on=None, left_on=None, right_on=None, lprefix="", rprefix=
         lookup = lookup.masked_fill(unmatched, 0)
         mask = unmatched
 
+    # a staged string column's codes tensor: its taken column holds the codes
+    codes = {meta["codes_column"] for meta in right._categories.values()
+             if meta.get("codes_column") in right.dataset}
     # only clashing names are renamed (vaex_tpu/join.py:87-101)
     left_names = left.get_column_names(hidden=True)
-    right_names = right.get_column_names(hidden=True)
+    right_names = [n for n in right.get_column_names(hidden=True) if n not in codes]
     renaming = {}
     for name in right_names:
         if name not in left_names or (name == right_on and name == left_on):
@@ -109,3 +118,16 @@ def join(left, right, on=None, left_on=None, right_on=None, lprefix="", rprefix=
     for k, v in right.variables.items():
         result.variables.setdefault(k, v)
     return result
+
+
+def _string_index(left, left_on, right, right_on):
+    """(the index of the right key's ordinals in the set of its strings,
+    the left key's ordinal expression): the right rows without a string
+    (null) hold no key."""
+    from .ops.setops import SortedIndex
+    oset = right._set(right_on)
+    right_key = f"_ordinal_values({right_on}, {right.add_variable('join_set', oset, unique=True)})"
+    left_key = f"_ordinal_values({left_on}, {left.add_variable('join_set', oset, unique=True)})"
+    ordinals = right._evaluate_tile(right_key, 0, right.dataset.row_count)
+    data = ordinals.data.to(torch.int64)
+    return SortedIndex(data, data >= oset.n_keys), left_key

@@ -19,8 +19,15 @@ carry that dtype as numpy does (:func:`temporal_binop`): numpy's result
 dtype, the units aligned to the finer one, NaT in gives NaT out (False in a
 comparison, True in ``!=``, NaN in a float quotient, 0 in an int one), and
 an operation numpy refuses raises ``TypeError``.  Any other operation on a
-temporal value raises ``NotImplementedError`` (:func:`refuse_temporal`):
-none returns a plain number where numpy's dtype is temporal.
+temporal value raises :class:`HostStage` (:func:`refuse_temporal`): the
+pass's classifier (:func:`vaex_tpu_torch.scopes.expression_is_device`)
+tries an expression on an empty tile and sends one that raises it to the
+host stage, where numpy computes it, as in vaex_tpu.
+
+Strings on a device are :class:`DictNA`: int32 dictionary codes with the
+labels (an arrow string array) on the host.  A comparison with a string is
+computed once per label and gathered by code on the device; any other
+operation raises :class:`HostStage`.
 
 A ``uint64`` value is its int64 bits with ``logical`` uint64.  Its
 comparisons (with uint64 values, non-negative Python ints and floats), its
@@ -40,7 +47,6 @@ from ..datatype import _TORCH_TO_NUMPY, TOP, UINT64
 
 # NaT in the int64 view of a datetime or timedelta
 NAT = np.iinfo(np.int64).min
-TEMPORAL_PENDING = "not ported yet (ROADMAP queue A9: datetimes)"
 UNSIGNED_PENDING = "not ported yet (ROADMAP queue A14: uint64 inside expressions)"
 
 
@@ -100,17 +106,27 @@ def as_operand(x):
     return x
 
 
+class HostStage(NotImplementedError):
+    """An operation the device stage does not carry for its operands (a
+    temporal value, strings): an expression that meets one runs in the
+    host stage."""
+
+
 def refuse_temporal(what, *args):
-    """Raise for an operation the port does not carry for a temporal or a
-    uint64 value."""
+    """Raise for an operation the device stage does not carry for a
+    temporal value or strings (:class:`HostStage`) or a uint64 value."""
     for a in args:
+        if isinstance(a, DictNA):
+            raise HostStage(f"{what} of strings runs in the host stage")
         if isinstance(a, NA) and a.logical is not None:
-            pending = UNSIGNED_PENDING if a.logical == UINT64 else TEMPORAL_PENDING
-            raise NotImplementedError(f"{what} of a {a.logical} value is {pending}")
+            if a.logical == UINT64:
+                raise NotImplementedError(f"{what} of a {a.logical} value is {UNSIGNED_PENDING}")
+            raise HostStage(f"{what} of a {a.logical} value runs in the host stage")
 
 
 def lift(op, *args):
-    """Apply op to the .data of NA/plain args, OR-combining masks."""
+    """Apply op to the .data of NA/plain args, OR-combining masks (a
+    temporal value or strings raise :class:`HostStage`)."""
     refuse_temporal(getattr(op, "__name__", "this function"), *args)
     datas = []
     mask = None
@@ -182,8 +198,7 @@ def _unit_scale(logical, unit):
     if (own, count) == (unit, 1):
         return 1
     if own in ("Y", "M", "generic") or unit in ("Y", "M", "generic"):
-        raise NotImplementedError(f"converting {logical} to the unit {unit!r} is "
-                                  f"{TEMPORAL_PENDING}")
+        raise HostStage(f"converting {logical} to the unit {unit!r} runs in the host stage")
     return int(np.timedelta64(count, own).astype(f"m8[{unit}]").astype(np.int64))
 
 
@@ -345,3 +360,74 @@ def _install_operators():
 
 
 _install_operators()
+
+
+# ---------------------------------------------------------------------------
+# strings on a device
+
+_ARROW_COMPARE = {"eq": "equal", "ne": "not_equal", "lt": "less", "le": "less_equal",
+                  "gt": "greater", "ge": "greater_equal"}
+_REFLECTED = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le", "eq": "eq", "ne": "ne"}
+
+
+class DictNA(NA):
+    """Strings on a device: ``data`` holds int32 codes into ``labels`` (an
+    arrow string array on the host), ``mask`` the null rows.  A code may
+    lie past the labels where the row is masked."""
+
+    __slots__ = ("labels",)
+
+    def __init__(self, data, mask, labels):
+        super().__init__(data, mask)
+        self.labels = labels
+
+    def __repr__(self):
+        return f"DictNA({self.data!r}, mask={self.mask!r}, labels={len(self.labels)})"
+
+    def gather(self, values, null=None):
+        """Per-label ``values`` (a host array of one value per label) at each
+        row's code, on the device; rows masked, and rows whose label is
+        ``null`` (a host bool array), are missing."""
+        values = np.asarray(values)
+        pad = np.zeros(1, values.dtype)  # masked rows may hold the code len(labels)
+        table = torch.as_tensor(np.concatenate([values, pad])).to(self.data.device)
+        codes = self.data if self.data.dtype in (torch.int32, torch.int64) else (
+            self.data.to(torch.int32))
+        out = table.index_select(0, codes)
+        mask = self.mask
+        if null is not None and null.any():
+            hit = torch.as_tensor(np.concatenate([null, [False]])).to(self.data.device)
+            hit = hit.index_select(0, codes)
+            mask = hit if mask is None else mask | hit
+        return NA(out, mask)
+
+def _dict_binop(name):
+    def method(self, other, reflected=False):
+        if name in _ARROW_COMPARE and isinstance(other, (str, type(None))):
+            if other is None:  # numpy's answer for None: no row equals it
+                return self.gather(np.full(len(self.labels), name == "ne"))
+            import pyarrow.compute as pc
+            op = _REFLECTED[name] if reflected else name
+            result = getattr(pc, _ARROW_COMPARE[op])(self.labels, other)
+            null = np.asarray(result.is_null()) if result.null_count else None
+            return self.gather(np.asarray(result.fill_null(False)), null)
+        raise HostStage(f"{name} of strings and {_describe(other)} runs in the host stage")
+    return method
+
+
+def _install_dict_operators():
+    for name in ("add", "sub", "mul", "truediv", "floordiv", "mod", "pow", "and", "or",
+                 "xor", "lshift", "rshift", "lt", "le", "gt", "ge", "eq", "ne", "matmul"):
+        impl = _dict_binop(name)
+        setattr(DictNA, f"__{name}__", impl)
+        if name not in _ARROW_COMPARE:
+            setattr(DictNA, f"__r{name}__",
+                    lambda self, other, impl=impl: impl(self, other, reflected=True))
+
+    def unary(self):
+        raise HostStage("an arithmetic operator of strings runs in the host stage")
+    for name in ("neg", "pos", "abs", "invert"):
+        setattr(DictNA, f"__{name}__", unary)
+
+
+_install_dict_operators()

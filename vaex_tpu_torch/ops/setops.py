@@ -14,9 +14,20 @@ walks a search tree built once per set: wholly in shared memory while it
 fits (``b6``), its top levels there and the rest in global memory past that
 (``b6-wide``).
 
+A set of strings (``SortedSet("string")``) keeps its keys on the host, an
+object array in sorted order (code points, as arrow and pandas sort).  It is
+built from arrow arrays through arrow's hash kernels, a dictionary array's
+labels once per dictionary (vaex_tpu/ops/setops.py:122-205, 497-575), and
+from the per-tile label counts of a pass (:meth:`SortedSet.update_counts`).
+A pass probes strings as dictionary codes (:class:`.nullable.DictNA`): each
+label is looked up once on the host (:meth:`SortedSet.label_ordinals`) and
+the answer gathered by code on the device; the host stage probes arrow
+arrays with ``pyarrow.compute.index_in``.  The caches of both are keyed by
+the labels array itself, held in the cache, never by a buffer address.
+
 :class:`SortedIndex` is the join's index of a right key, on the key's
-device; its probe is B6 too.  String, arrow and dictionary keys wait for the
-host scope (ROADMAP queue A9) and raise.
+device; its probe is B6 too.  A string key joins through the ordinals of
+the right key's string set (:func:`vaex_tpu_torch.join.join`).
 
 A set of uint64 keys holds them on the device as their order image
 ``bits ^ (1 << 63)`` (int64, sorted), and on the host as uint64; a probe
@@ -33,10 +44,10 @@ from .. import array_types
 from ..datatype import NAT, UINT64, order_image, torch_dtype
 from ..utils import fingerprint
 from . import probe as probe_module
-from .nullable import NA, UNSIGNED_PENDING, unsigned_float
+from .nullable import NA, UNSIGNED_PENDING, DictNA, HostStage, unsigned_float
 
-STRINGS_PENDING = ("sets of string keys are not ported yet: they wait for the host scope "
-                   "(ROADMAP queue A9)")
+# the most labels arrays whose ordinals a string set keeps
+LABEL_CACHE_MAX = 16
 
 
 class RowLimitException(Exception):
@@ -82,9 +93,10 @@ class SortedSet:
     the number of rows of each."""
 
     def __init__(self, dtype, keep_counts=False, limit=None):
-        if dtype == "string" or np.dtype(dtype).kind in "OUS":
-            raise NotImplementedError(STRINGS_PENDING)
-        self.dtype = np.dtype(dtype)
+        self.is_string = isinstance(dtype, str) and dtype == "string" or (
+            np.dtype(dtype).kind in "OUST")
+        self.dtype = np.dtype(object) if self.is_string else np.dtype(dtype)
+        self._labels = {}  # id(labels) -> (labels, their ordinals): pinned by the reference
         self.keep_counts = keep_counts
         self.limit = limit
         self.nan_count = 0
@@ -119,13 +131,14 @@ class SortedSet:
         self._keys, self._counts, self._n_keys = keys, counts, len(keys)
         self._device_keys = self._device_counts = self._fingerprint = None
         self.trees = {}
+        self._labels = {}
         self._check_limit()
 
     def update(self, values):
         """Merge one chunk of host values into the set."""
+        if self.is_string:
+            return self._update_strings(values)
         data, mask = array_types.data_and_mask(values)
-        if data.dtype.kind in "OUS":
-            raise NotImplementedError(STRINGS_PENDING)
         if mask is not None:
             self.null_count += int(mask.sum())
             data = data[~mask]
@@ -140,6 +153,65 @@ class SortedSet:
         data = data.astype(self.dtype, copy=False)
         uniq, cnt = _sorted_unique(data, self.keep_counts)
         self._set_host(*_merge(self.keys, self.counts, uniq, cnt))
+
+    def _update_strings(self, values):
+        """Merge strings (an arrow array, plain or dictionary, or a numpy
+        one) through arrow's hash kernels: only the distinct values become
+        Python strings."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+        arrow = array_types.string_arrow(values)
+        if pa.types.is_dictionary(arrow.type):
+            counts = np.bincount(np.asarray(arrow.indices.drop_null()),
+                                 minlength=len(arrow.dictionary))
+            return self.update_counts(arrow.dictionary, counts, arrow.null_count)
+        self.null_count += arrow.null_count
+        arrow = arrow.drop_null()
+        if self.keep_counts:
+            vc = pc.value_counts(arrow)
+            uniq = _objects(vc.field("values"))
+            cnt = np.asarray(vc.field("counts")).astype(np.int64)
+        else:
+            uniq, cnt = _objects(pc.unique(arrow)), None
+        self._merge_strings(uniq, cnt)
+
+    def update_counts(self, labels, counts, null_count=0):
+        """Merge the labels (an arrow string array, repeats and nulls
+        allowed) that have a count above 0, and the rows counted null."""
+        counts = np.asarray(counts, np.int64)[:len(labels)]
+        present = counts > 0
+        values = _objects(labels)
+        null = np.asarray(labels.is_null()) if labels.null_count else None
+        if null is not None:
+            null_count += int(counts[null].sum())
+            present &= ~null
+        self.null_count += int(null_count)
+        self._merge_strings(values[present], counts[present] if self.keep_counts else None)
+
+    def _merge_strings(self, values, counts):
+        """Merge strings (repeats allowed) and their counts, or None."""
+        if counts is None:
+            uniq, cnt = np.unique(values), None
+        else:
+            uniq, inverse = np.unique(values, return_inverse=True)
+            cnt = np.zeros(len(uniq), np.int64)
+            np.add.at(cnt, inverse.reshape(-1), counts)
+        self._set_host(*_merge(self.keys, self.counts, uniq, cnt))
+
+    def label_ordinals(self, labels):
+        """The ordinal of each of ``labels`` (an arrow string array) in the
+        set, -1 for one that is not in it, the null ordinal (or -1) for a
+        null label; computed once per labels array, which the cache holds."""
+        hit = self._labels.get(id(labels))
+        if hit is not None and hit[0] is labels:
+            return hit[1]
+        ords = _string_index_in(labels, self.keys).astype(np.int32)
+        if labels.null_count:
+            ords[np.asarray(labels.is_null())] = self.null_ordinal
+        if len(self._labels) >= LABEL_CACHE_MAX:
+            self._labels.clear()
+        self._labels[id(labels)] = (labels, ords)
+        return ords
 
     def merge(self, other: "SortedSet"):
         self.nan_count += other.nan_count
@@ -167,7 +239,10 @@ class SortedSet:
         return self._counts
 
     def device_keys(self, device):
-        """The keys as a tensor on ``device``, moved there once."""
+        """The keys as a tensor on ``device``, moved there once; a string set
+        keeps its keys on the host."""
+        if self.is_string:
+            raise TypeError("a set of strings keeps its keys on the host")
         device = torch.device(device)
         if self._device_keys is None or self._device_keys.device != device:
             if self._device_keys is not None:
@@ -219,7 +294,16 @@ class SortedSet:
 
     def key_array(self, masked=True):
         """All keys in ordinal order, NaN and null slots included; a masked
-        array when there is a null slot (and ``masked``)."""
+        array when there is a null slot (and ``masked``); of strings an
+        object array whose null slot holds None."""
+        if self.is_string:
+            out = np.empty(self.count, dtype=object)
+            out[:self.n_keys] = self.keys
+            if self.has_null and masked:
+                mask = np.zeros(self.count, bool)
+                mask[self.null_ordinal] = True
+                return np.ma.MaskedArray(out, mask)
+            return out
         out = np.zeros(self.count, self.dtype)
         out[:self.n_keys] = self.keys
         if self.has_nan:
@@ -244,8 +328,9 @@ class SortedSet:
                     int(wide.view(torch.int64).sum()), self.nan_count, self.null_count,
                     self.dtype)
             else:
-                self._fingerprint = fingerprint("sorted-set", self._keys, self.nan_count,
-                                                self.null_count)
+                self._fingerprint = fingerprint(
+                    "sorted-set", tuple(self._keys) if self.is_string else self._keys,
+                    self.nan_count, self.null_count)
         return self._fingerprint
 
     # -- host probes --------------------------------------------------------
@@ -255,8 +340,27 @@ class SortedSet:
         idx = np.clip(np.searchsorted(self.keys, data), 0, self.n_keys - 1)
         return np.where(self.keys[idx] == data, idx, -1).astype(np.int64)
 
+    def _string_probe(self, values):
+        """(ordinals, null rows or None) of strings on the host: a dictionary
+        array's labels once, then a gather by its indices."""
+        import pyarrow as pa
+        arrow = array_types.string_arrow(values)
+        if pa.types.is_dictionary(arrow.type):
+            ords = self.label_ordinals(arrow.dictionary)
+            codes = ords[np.asarray(arrow.indices.fill_null(0))] if len(ords) else np.full(
+                len(arrow), -1, np.int32)
+        else:
+            codes = _string_index_in(arrow, self.keys)
+        null = np.asarray(arrow.is_null()) if arrow.null_count else None
+        return codes, null
+
     def map_ordinal(self, values):
         """values -> ordinal codes on the host; unknown keys get -1."""
+        if self.is_string:
+            codes, null = self._string_probe(values)
+            if null is not None:
+                codes = np.where(null, self.null_ordinal, codes)
+            return _shrink_codes(codes, self.count)
         data, mask = array_types.data_and_mask(values)
         codes = self._host_ordinals(data)
         if _is_float(data.dtype):
@@ -266,6 +370,10 @@ class SortedSet:
         return _shrink_codes(codes, self.count)
 
     def isin(self, values):
+        if self.is_string:
+            codes, null = self._string_probe(values)
+            out = codes >= 0
+            return out if null is None else np.where(null, self.has_null, out)
         data, mask = array_types.data_and_mask(values)
         out = self._host_ordinals(data) >= 0
         if _is_float(data.dtype) and self.has_nan:
@@ -273,6 +381,37 @@ class SortedSet:
         if mask is not None:
             out = np.where(mask, self.has_null, out)
         return out
+
+
+def _objects(arrow):
+    """An arrow string array as an object array of str (None where null)."""
+    out = np.empty(len(arrow), dtype=object)
+    out[:] = arrow.to_pylist()
+    return out
+
+
+def _string_index_in(data, keys):
+    """The position of each string of ``data`` (arrow or numpy) among the
+    sorted ``keys`` (an object array of str), -1 where absent: arrow's hash
+    kernel (vaex_tpu/ops/setops.py:497-545)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    arrow = array_types.string_arrow(data)
+    if len(arrow) == 0 or len(keys) == 0:
+        return np.full(len(arrow), -1, np.int64)
+    value_set = pa.array(list(keys), type=arrow.type if not pa.types.is_dictionary(
+        arrow.type) else arrow.type.value_type)
+    return np.asarray(pc.index_in(arrow, value_set=value_set).fill_null(-1)).astype(np.int64)
+
+
+def host_map_ordinal(oset, values):
+    """The host stage's ``_ordinal_values``."""
+    return oset.map_ordinal(values)
+
+
+def host_isin(oset, values):
+    """The host stage's ``isin_set``."""
+    return oset.isin(values)
 
 
 def _shrink_codes(codes, count):
@@ -306,9 +445,14 @@ class DeviceSetHandle:
         self.unsigned = unsigned  # uint64 keys, held as their order image
         self.route = None
         self.trees = {} if trees is None else trees
+        self.host_set = None  # the SortedSet of a string set
 
     @classmethod
     def of(cls, oset, device):
+        if oset.is_string:  # probed through labels on the host
+            handle = cls(None, oset.n_keys, False, oset.has_null)
+            handle.host_set = oset
+            return handle
         keys = oset.device_keys(device)
         return cls(keys, oset.n_keys, oset.has_nan, oset.has_null, oset.is_temporal,
                    oset.trees.setdefault(keys.device, {}), oset.is_unsigned64)
@@ -385,9 +529,32 @@ def _missing(handle, x):
     return nat if x.mask is None else nat | x.mask
 
 
+def _strings(handle, x):
+    """True where strings meet a string set; raises where only one side
+    holds strings (the host stage compares them as numpy would)."""
+    strings = isinstance(x, DictNA)
+    if strings != (handle.host_set is not None):
+        raise HostStage("a probe of strings in a set of numbers, or of numbers in a set of "
+                        "strings, runs in the host stage")
+    return strings
+
+
+def _label_probe(handle, x):
+    """int32 ordinals of a DictNA's rows: each label looked up once on the
+    host, gathered by code on the device; a null row takes the null
+    ordinal."""
+    codes = x.gather(handle.host_set.label_ordinals(x.labels))
+    out = codes.data
+    if codes.mask is not None:
+        out = out.masked_fill(codes.mask, handle.null_ordinal)
+    return out.to(torch.int32)
+
+
 def device_map_ordinal(handle: DeviceSetHandle, x: NA):
     """NA values -> int32 ordinals: NaN rows take ``nan_ordinal``, masked
     rows ``null_ordinal``, the rest the probe's ordinal or -1."""
+    if _strings(handle, x):
+        return _label_probe(handle, x)
     data = x.data
     codes = _probe(handle, x)
     if data.is_floating_point() and handle.has_nan:
@@ -399,6 +566,10 @@ def device_map_ordinal(handle: DeviceSetHandle, x: NA):
 
 
 def device_isin(handle: DeviceSetHandle, x: NA):
+    if _strings(handle, x):
+        ords = _label_probe(handle, x)
+        return (ords >= 0) & (ords != handle.null_ordinal) | (
+            (ords == handle.null_ordinal) & handle.has_null)
     data = x.data
     out = _probe(handle, x) >= 0
     if data.is_floating_point() and handle.has_nan:
@@ -410,11 +581,13 @@ def device_isin(handle: DeviceSetHandle, x: NA):
 
 
 def choices_tensor(values, device):
-    """An array variable (``map``'s choices) as a tensor on ``device``."""
+    """An array variable (``map``'s choices) as a tensor on ``device``; an
+    array of strings as an arrow array, the labels of ``_choose``'s
+    dictionary codes."""
+    if array_types.is_arrow(values) or array_types.is_string_array(np.asarray(values)):
+        return array_types.string_arrow(np.asarray(values) if not array_types.is_arrow(values)
+                                        else values)
     values = np.asarray(values)
-    if values.dtype.kind in "OUS":
-        raise NotImplementedError("mapping to string values is not ported yet: it waits for "
-                                  "the host scope (ROADMAP queue A9)")
     return torch.as_tensor(values, dtype=torch_dtype(values.dtype)).to(device)
 
 

@@ -15,7 +15,7 @@ from .delayed import Promise
 from .ops.binners import fuse_bins, grid_shape, grid_size
 from .ops.grid_extreme import extreme_of_rows
 from .ops.grid_moments import MAX_BASES, MAX_TERMS
-from .ops.nullable import unsigned_float
+from .ops.nullable import DictNA, unsigned_float
 from .ops.grid_plan import grid_extremes, grid_sums, grid_sums_and_extremes, moment_sums
 from .ops.setops import RowLimitException, SortedSet
 
@@ -282,22 +282,57 @@ class TaskSetCreate(Task):
     timedelta expression count as missing (the keys keep its dtype).
     ``limit`` is checked as the set grows.
     Fulfilled with a :class:`~vaex_tpu_torch.ops.setops.SortedSet` whose keys
-    stay on the pass device."""
+    stay on the pass device.
+
+    Strings (vaex_tpu/tasks.py:596-650) come as dictionary codes
+    (:class:`~.ops.nullable.DictNA`): the rows of each code are counted on
+    the pass device through the grid plan (B1 / B2 / B3 over the codes),
+    across the tiles that share one labels array (a staged column's), and
+    the labels that have rows go into a set of strings on the host."""
 
     def __init__(self, df, expression, keep_counts=False, limit=None):
         super().__init__(df, [expression], name="set-create")
         self.keep_counts = keep_counts
         self.limit = limit
         dtype = df.data_type(expression)
+        self.strings = dtype.is_text
         self.temporal = dtype.numpy if dtype.is_temporal else None
         # uint64 keys are kept as their order image, so that they sort as numbers
         self.unsigned = dtype.numpy == UINT64
 
     def initial_state(self, device, rows):
+        if self.strings:
+            return {"set": SortedSet("string", self.keep_counts, self.limit), "labels": None,
+                    "counts": None, "null": 0}
         return {"keys": None, "counts": None, "nan": 0, "null": 0}
+
+    def _update_strings(self, state, x, keep):
+        """Count the rows of each code of one tile into the running counts of
+        its labels (flushed into the set when the labels change)."""
+        if not isinstance(x, DictNA):
+            raise TypeError(f"a set of strings over {x!r}")
+        drop = None if keep is None else ~keep
+        if x.mask is not None:
+            null = x.mask if keep is None else x.mask & keep
+            state["null"] += int(null.sum())
+            drop = x.mask if drop is None else drop | x.mask
+        if state["labels"] is not x.labels:
+            _flush_strings(state)
+            state["labels"] = x.labels
+        idx = x.data.to(torch.int32)
+        if drop is not None:
+            idx = idx.masked_fill(drop, -1)
+        out = None if state["counts"] is None else ([state["counts"]], [])
+        _, ints, _ = grid_sums(idx.contiguous(), [], [], len(x.labels) + 1, True, out=out)
+        state["counts"] = ints[0]
+        if self.limit is not None:
+            _flush_strings(state)
+        return state
 
     def update(self, state, ctx):
         x = ctx.expr(self.expressions[0])
+        if self.strings:
+            return self._update_strings(state, x, ctx.row_valid)
         data, keep = x.data, ctx.row_valid
         missing = x.mask
         if self.temporal is not None:
@@ -337,11 +372,27 @@ class TaskSetCreate(Task):
         return state
 
     def finalize(self, state):
+        if self.strings:
+            _flush_strings(state)
+            self.fulfill(state["set"])
+            return state["set"]
         dtype = self.temporal or (UINT64 if self.unsigned else DataType(state["keys"].dtype).numpy)
         oset = SortedSet.from_device(dtype, state["keys"],
                                      state["counts"], state["nan"], state["null"], self.limit)
         self.fulfill(oset)
         return oset
+
+
+def _flush_strings(state):
+    """The counted labels, and the null rows, into the set of strings."""
+    if state["counts"] is not None:
+        state["set"].update_counts(state["labels"], state["counts"].cpu().numpy(), state["null"])
+        state["null"] = 0
+    elif state["null"]:
+        state["set"].null_count += state["null"]
+        state["null"] = 0
+        state["set"]._check_limit()
+    state["labels"] = state["counts"] = None
 
 
 def moment_base(x):
