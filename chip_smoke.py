@@ -233,6 +233,33 @@ Run from the root of the repository on a machine with a CUDA card.  It
     host stage against plain torch over the int64 nanoseconds; then each
     query timed beside its plain version (5 repetitions, medians), q1-q3
     beside phase 17's int keys; it prints its own JSON line.
+22. drives the executor's tail and uint64 inside expressions: (1) config
+    2's frame (phase 16, 1e8 rows) with i categorized, through state_write
+    and state_load onto a fresh frame over the same tensors, its statistics
+    equal to the original's bit for bit (B1, B4 launched); (2) the 1e6-key
+    set grouper (phase 11) and q10 (phase 17) twice under cache.memory():
+    the second run's set build or sort does not run, both runs agree and
+    are right, and under cache.off() both do the work; cache.clear() frees
+    the device LRU's bytes on the card; (3) config 1's groupby at 2^24-row
+    tiles with a progress callback (fractions rising to 1.0) and one that
+    cancels after two tiles (UserAbort, B1 launched twice), then right
+    again; (4) at 1e7 rows (cut from 1e8: every row crosses to the host and
+    back) a Python UDF column grouped (sum and std against plain torch),
+    the same bits with multiprocessing=True, map_reduce of each tile's sum
+    and count; (5) at 1e7 rows a staged frame with a virtual column, a
+    filter and a category through pickle, back on the card with the same
+    groupby; (6) phase 20's uint64 column at 1e8 rows: u // 3, u % 7 as a
+    key, u & 0xFFFF, u >> 60, u + k, sqrt(u), each against numpy over the
+    values copied to the host; B1, B4, B3 and B6 asserted launched; then
+    each query timed with the cache off beside its plain version, and the
+    cache's hits beside its misses; it prints its own JSON line.  Phases
+    6-21 run with the result cache off: they check and time the passes
+    themselves.
+
+    python3 chip_smoke.py --profile 20 21 22
+
+profiles the queries of those phases instead (scripts/profile_torch_groupby.py's
+``profile``: the device's busy and idle share, the device time by kernel).
 
 It exits non-zero on any failure.  The line before the last is a JSON
 object with every kernel's (and each of B3x's routes') launches, error,
@@ -692,10 +719,10 @@ def b4_routes_vs_plain(gm, agg, gen, n=1_000_003):
     return worst
 
 
-def make_table(n, vt):
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    i1 = torch.randint(0, K, (n,), generator=gen, device="cuda", dtype=torch.int64)
-    x = torch.rand(n, generator=gen, device="cuda", dtype=torch.float64)
+def make_table(n, vt, device="cuda"):
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    i1 = torch.randint(0, K, (n,), generator=gen, device=device, dtype=torch.int64)
+    x = torch.rand(n, generator=gen, device=device, dtype=torch.float64)
     df = vt.from_dataset(vt.DatasetArrays({"i1": i1, "x": x}))
     return df.categorize("i1", labels=range(K)), i1, x
 
@@ -3814,6 +3841,578 @@ def phase21_path(vt, plan, gp, probe, label, config3_times, n=PHASE21_ROWS,
     return launches, record
 
 
+# phase 22: the executor's tail (ROADMAP A10) and uint64 inside expressions
+# (A14): a state written and loaded onto config 2's frame, the result cache
+# on the 1e6-key set grouper and q10's one sort, progress and cancelling,
+# Python UDFs, pickling, and phase 20's uint64 column in expressions
+PHASE22_ROWS = 100_000_000
+# the UDF and pickling rows: cut from 1e8, since every row crosses to the
+# host and back (a UDF runs in the host stage, a pickle holds host arrays)
+PHASE22_HOST_ROWS = 10_000_000
+PHASE22_TILE_ROWS = 1 << 24  # the progress table's tiles: 6 at 1e8 rows
+PHASE22_CANCEL_AFTER = 2  # tiles before the callback cancels
+PHASE22_UDF_K = 100
+PHASE22_A14 = ("u // 3 sum", "u % 7 groupby", "u & 0xFFFF sum", "u >> 60 sum", "u + k sum",
+               "sqrt(u) mean")
+
+
+def phase22_udf(x, k):
+    """Phase 22's Python UDF: numpy, module-level, so that the processes of
+    ``multiprocessing=True`` unpickle it."""
+    return np.sqrt(np.abs(x)) * 2.0 + k
+
+
+def phase22_udf_torch(x, k):
+    """The same function in torch, on the card."""
+    return torch.sqrt(torch.abs(x)) * 2.0 + k
+
+
+def phase22_tile_sum(x):
+    """map_reduce's map: one tile's (sum, count) of x."""
+    return float(np.sum(x)), len(x)
+
+
+def phase22_add(a, b):
+    return a[0] + b[0], a[1] + b[1]
+
+
+def phase22_state_stats(df):
+    """Config 2's group (phase 16) and the selection's count by the
+    categorized key i."""
+    out = config2_group(df)
+    out["count i"] = np.asarray(df.count(binby="i", selection=True))
+    return out
+
+
+def phase22_state(vt, df, cols, path):
+    """Config 2's frame, with i categorized, written to ``path``
+    (``state_write``) and loaded onto a fresh frame over the same tensors
+    (``state_load``): (the original's statistics, the fresh frame's)."""
+    want = phase22_state_stats(df)
+    df.state_write(path)
+    fresh = vt.from_dataset(vt.DatasetArrays(dict(cols)))
+    fresh.state_load(path)
+    return phase22_state_stats(fresh), want
+
+
+def phase22_state_check(got, want):
+    """Every statistic of the loaded frame bit for bit the original's: the
+    same kernels over the same rows in the same order."""
+    for name, value in want.items():
+        check(np.asarray(got[name]).tobytes() == np.asarray(value).tobytes(),
+              f"phase 22 state {name}: {np.asarray(got[name]).tolist()} against "
+              f"{np.asarray(value).tolist()}")
+
+
+def phase22_twice(df, query, kind, cache_on=True):
+    """``query`` twice, under ``cache.memory()`` (or ``cache.off()``):
+    (both results, how many passes of each run did ``kind``: "set-create"
+    a set build, "one-sort" the one sort)."""
+    from vaex_tpu_torch import cache
+    results, builds = [], []
+    with (cache.memory() if cache_on else cache.off()):
+        for _ in range(2):
+            p0 = df.executor.passes
+            results.append(query(df))
+            added = df.executor.passes - p0
+            log = df.executor.trace_log[-added:] if added else []
+            builds.append(sum(1 for e in log
+                              if kind in e.get("tasks", ()) or e.get("groupby") == kind))
+    return results, builds
+
+
+def phase22_same_frames(a, b):
+    """Two result frames alike bit for bit: names, and each column's bytes."""
+    names = a.get_column_names()
+    return names == b.get_column_names() and all(
+        np.asarray(a.evaluate(n)).tobytes() == np.asarray(b.evaluate(n)).tobytes()
+        for n in names)
+
+
+def phase22_cache_check(name, results, builds, want_builds, plain_check):
+    """The cache served the second run (its build did not run) or, off, did
+    not; both runs agree bit for bit and each passes its plain check."""
+    check(builds == want_builds, f"phase 22 cache {name}: builds {builds} against {want_builds}")
+    check(phase22_same_frames(*results), f"phase 22 cache {name}: the two runs differ")
+    for out in results:
+        plain_check(out)
+
+
+def phase22_progress(vt, df, cancel_after=PHASE22_CANCEL_AFTER, b1=None):
+    """Config 1's groupby (phase 6) with a progress callback, then with one
+    that returns False after ``cancel_after`` tiles, then once more: a dict
+    of the fractions seen, the first result, the cancelled run's exception
+    and callback calls, B1's launches in it (``b1``: the kernel, or None
+    off the card), the tiles of a pass, and the next result."""
+    from vaex_tpu_torch.execution import UserAbort
+    seen, calls = [], []
+    signal = df.executor.signal_progress
+    cb = signal.connect(lambda p: seen.append(p) or True)
+    try:
+        first = run_query(df, vt)
+    finally:
+        signal.disconnect(cb)
+    tiles = df.executor.trace_log[-1]["tiles"]
+    before = None if b1 is None else b1.launches
+    cb = signal.connect(lambda p: calls.append(p) or len(calls) < cancel_after)
+    aborted = None
+    try:
+        run_query(df, vt)
+    except UserAbort as e:
+        aborted = e
+    finally:
+        signal.disconnect(cb)
+    launched = None if b1 is None else b1.launches - before
+    return {"fractions": seen, "first": first, "aborted": aborted, "calls": len(calls),
+            "launched": launched, "tiles": tiles, "after": run_query(df, vt)}
+
+
+def phase22_progress_check(got, plain_ok, cancel_after=PHASE22_CANCEL_AFTER):
+    """Fractions strictly increasing, one a tile, ending at 1.0; the
+    cancelled pass rejected with UserAbort after ``cancel_after`` tiles (B1
+    launched once a tile that ran, where counted); both results right."""
+    f = got["fractions"]
+    check(len(f) == got["tiles"] and f[-1] == 1.0 and all(a < b for a, b in zip(f, f[1:])),
+          f"phase 22 progress fractions {f}")
+    check(type(got["aborted"]).__name__ == "UserAbort" and got["calls"] == cancel_after
+          and cancel_after < got["tiles"],
+          f"phase 22 cancelled pass: {got['aborted']!r} after {got['calls']} tiles")
+    check(got["launched"] is None or got["launched"] == got["calls"],
+          f"phase 22 cancelled pass launched B1 {got['launched']} times in {got['calls']} tiles")
+    plain_ok(got["first"])
+    plain_ok(got["after"])
+
+
+def phase22_udf_columns(n, device, seed=SEED):
+    """x float64 N(0, 1), k int64 in 0..99, on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {"x": torch.randn(n, generator=gen, device=device, dtype=torch.float64),
+            "k": torch.randint(0, PHASE22_UDF_K, (n,), generator=gen, device=device,
+                               dtype=torch.int64)}
+
+
+def phase22_udf_frame(vt, cols, multiprocessing=False):
+    df = vt.from_dataset(vt.DatasetArrays(dict(cols)))
+    df["y"] = df.apply(phase22_udf, ["x", "k"], multiprocessing=multiprocessing)
+    return df
+
+
+def phase22_udf_query(df):
+    return df.groupby("k", agg={"y": ["sum", "std"]}, sort=True)
+
+
+def phase22_udf_answer(out):
+    return {name: np.asarray(out.evaluate(name)) for name in ("k", "y_sum", "y_std")}
+
+
+def phase22_udf_plain(cols):
+    """The UDF in torch on the same tensors, per k: keys, counts, sums and
+    sums of |y| and y^2."""
+    x, k = cols["x"], cols["k"]
+    y = phase22_udf_torch(x, k)
+    f64 = torch.float64
+
+    def per_k(v):
+        return torch.zeros(PHASE22_UDF_K, dtype=f64, device=k.device).index_add_(0, k, v)
+    counts = torch.bincount(k, minlength=PHASE22_UDF_K)
+    keep = counts > 0
+    return {"k": torch.arange(PHASE22_UDF_K)[keep.cpu()].numpy(), "n": counts[keep].cpu(),
+            "sum": per_k(y)[keep].cpu(), "abs1": per_k(y.abs())[keep].cpu(),
+            "abs2": per_k(y * y)[keep].cpu()}
+
+
+def phase22_udf_check(got, want):
+    """Keys exact; sums within :func:`within_sum_bound`; stds within that
+    bound carried through var = E[y^2] - E[y]^2, as config 2's."""
+    f64 = torch.float64
+    check(np.array_equal(got["k"], want["k"]), f"phase 22 udf keys {got['k'].tolist()}")
+    n, s1, s2 = want["n"], want["abs1"], want["abs2"]
+    check(within_sum_bound(torch.as_tensor(got["y_sum"], dtype=f64), want["sum"], s1, n),
+          "phase 22 udf sums")
+    nf = n.to(f64)
+    mean = want["sum"] / nf
+    std_want = torch.sqrt(torch.clamp(s2 / nf - mean ** 2, min=0))
+    std_got = torch.as_tensor(got["y_std"], dtype=f64)
+    e1, e2 = 2.0 ** -52 * s1, 2.0 ** -52 * s2
+    bound = RTOL * std_want + ATOL + (e2 + 2 * mean.abs() * e1 + e1 ** 2) / (std_got + std_want)
+    check(bool(((std_got - std_want).abs() <= bound).all()), "phase 22 udf stds")
+
+
+def phase22_map_reduce_check(got, x):
+    n = x.numel()
+    check(got[1] == n and within_sum_bound(
+        torch.tensor([got[0]], dtype=torch.float64), x.sum().cpu().reshape(1),
+        x.abs().sum().cpu().reshape(1), torch.tensor([n])),
+        f"phase 22 map_reduce {got} against {float(x.sum())}, {n}")
+
+
+def phase22_pickle_frame(vt, cols, device):
+    df = vt.from_dataset(vt.DatasetArrays(dict(cols))).to_device(device)
+    df["z"] = df.x * 2 + df.k
+    return df.filter("x > -1").categorize("k", labels=range(PHASE22_UDF_K))
+
+
+def phase22_pickle_query(df):
+    return df.groupby("k", agg={"z": "sum", "c": "count"}, sort=True)
+
+
+def phase22_pickle(df):
+    """The frame through ``pickle``: (its bytes, the frame back)."""
+    import pickle
+    blob = pickle.dumps(df)
+    return len(blob), pickle.loads(blob)
+
+
+def phase22_pickle_check(back, df, device):
+    check(all(back.dataset[n].device.type == torch.device(device).type for n in ("x", "k"))
+          and back.filter_expression == df.filter_expression and back.is_category("k"),
+          "phase 22 pickle: the columns staged again, the filter and the category kept")
+    check(phase22_same_frames(phase22_pickle_query(back), phase22_pickle_query(df)),
+          "phase 22 pickle: the groupby of the frame back equals the original's")
+
+
+def phase22_a14_frame(vt, cols):
+    df = phase20_frame(vt, cols)
+    df["k"] = "id4 - 50"  # a signed key
+    df["m7"] = "u % 7"
+    return df
+
+
+def phase22_a14_queries():
+    return {"u // 3 sum": lambda df: df.sum("u // 3"),
+            "u % 7 groupby": lambda df: df.groupby("m7", agg="count", sort=True),
+            "u & 0xFFFF sum": lambda df: df.sum("u & 0xFFFF"),
+            "u >> 60 sum": lambda df: df.sum("u >> 60"),
+            "u + k sum": lambda df: df.sum("u + k"),
+            "sqrt(u) mean": lambda df: df.mean("sqrt(u)")}
+
+
+def phase22_a14_answer(name, out):
+    if name == "u % 7 groupby":
+        return {"keys": np.asarray(out.evaluate("m7")), "counts": np.asarray(out.evaluate("count"))}
+    return np.asarray(out)
+
+
+def phase22_a14_plain(host, name):
+    """numpy over the values copied to the host: (the answer, for a float
+    its row count and sum of |term|)."""
+    u, k = host["u"], host["id4"] - 50
+    with np.errstate(all="ignore"):
+        if name == "u % 7 groupby":
+            keys, counts = np.unique(u % np.uint64(7), return_counts=True)
+            return {"keys": keys, "counts": counts}
+        if name == "u + k sum":
+            v = u + k
+            return v.sum(), len(v), np.abs(v).sum()
+        if name == "sqrt(u) mean":
+            v = np.sqrt(u)
+            return v.mean(), len(v), v.sum() / len(v)
+        v = {"u // 3 sum": u // np.uint64(3), "u & 0xFFFF sum": u & np.uint64(0xFFFF),
+             "u >> 60 sum": u >> np.uint64(60)}[name]
+        return v.sum(dtype=np.uint64)
+
+
+def phase22_a14_check(name, got, want):
+    """uint64 results exact, in uint64; float ones within the summation
+    bound (a mean's over its row count)."""
+    if name == "u % 7 groupby":
+        check(got["keys"].dtype == np.uint64 and np.array_equal(got["keys"], want["keys"])
+              and np.array_equal(got["counts"], want["counts"]), f"phase 22 {name}")
+    elif isinstance(want, tuple):
+        value, n, abs_sum = want
+        check(within_sum_bound(torch.tensor([float(got)], dtype=torch.float64),
+                               torch.tensor([float(value)], dtype=torch.float64),
+                               torch.tensor([abs_sum], dtype=torch.float64),
+                               torch.tensor([n])), f"phase 22 {name}: {got!r} against {value!r}")
+    else:
+        check(got.dtype == np.uint64 and got == want, f"phase 22 {name}: {got!r} against {want!r}")
+
+
+PHASE22_HOST_QUERIES = ("udf groupby", "udf groupby (processes)", "map_reduce",
+                        "pickle dumps + loads")
+
+
+def phase22_queries(vt, t):
+    """name -> (query, its plain version or None) over the tables ``t`` of
+    phase 22: config 2's group on the loaded frame's twin (``df2``), config
+    1's groupby at 2^24-row tiles (``df1``), the UDF groupby without and with
+    processes and map_reduce (``dfu``, ``dfm``), the pickle round trip
+    (``dfp``), the uint64 expressions (``dfa``)."""
+    colsu = t["colsu"]
+    queries = {
+        "state config 2 group": (lambda: phase22_state_stats(t["df2"]), None),
+        "progress groupby": (lambda: run_query(t["df1"], vt),
+                             lambda: plain_query(t["i1"], t["x1"])),
+        "udf groupby": (lambda: phase22_udf_query(t["dfu"]), lambda: phase22_udf_plain(colsu)),
+        "udf groupby (processes)": (lambda: phase22_udf_query(t["dfm"]), None),
+        "map_reduce": (lambda: t["dfu"].map_reduce(phase22_tile_sum, phase22_add, ["x"]),
+                       lambda: (colsu["x"].sum().item(), colsu["x"].numel())),
+        "pickle dumps + loads": (lambda: phase22_pickle(t["dfp"]), None)}
+    for name, query in phase22_a14_queries().items():
+        queries[name] = (lambda query=query: query(t["dfa"]), None)
+    return queries
+
+
+def phase22_time(record, name, query, plain, rows):
+    """A query's median (host clock to a synchronize, 5 repetitions, the
+    cache off) beside its plain version's, with its peak memory above what
+    was allocated before it."""
+    from vaex_tpu_torch import cache
+    with cache.off():
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        query()
+        torch.cuda.synchronize()
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        port_s, _ = median_s(query)
+        plain_s = median_s(plain)[0] if plain is not None else None
+    record[name] = {"rows": rows, "ms": port_s * 1e3,
+                    "plain_ms": None if plain_s is None else plain_s * 1e3, "peak_gb": peak_gb}
+    print(f"phase 22 {name} N={rows}: median {port_s * 1e3!r} ms (port, {peak_gb!r} GB above "
+          f"the table at its peak) vs "
+          f"{'none' if plain_s is None else repr(plain_s * 1e3) + ' ms'} (plain torch), "
+          f"reps {REPS}", flush=True)
+
+
+def phase22_path(vt, plan, gp, probe, label, n=PHASE22_ROWS, n_host=PHASE22_HOST_ROWS):
+    """Phase 22 on the card, each item driven once with the kernel counts
+    set to 0 and checked (B1, B4, B3 and B6 asserted launched), then timed
+    with the cache off beside its plain version: (1) config 2's frame
+    through state_write / state_load, (2) the 1e6-key set grouper and q10's
+    one sort served from the cache, (3) progress and cancelling, (4) a
+    Python UDF, with and without processes, and map_reduce, (5) pickling,
+    (6) uint64 expressions.  Returns (launches, the phase's JSON record)."""
+    import tempfile
+    from vaex_tpu_torch import cache
+    from vaex_tpu_torch import multiprocessing as port_mp
+    from vaex_tpu_torch.ops import grid_additive as ga
+    record = {"card": label, "rows": n, "host_rows": n_host, "queries": {}}
+    zero_launches(plan, gp)
+    probe.probe.launches = probe.probe.wide_launches = 0
+    cache.clear()
+
+    # (1) state
+    cols2 = config2_columns(n, "cuda")
+    df2 = config2_frame(vt, cols2).categorize("i", labels=range(1000))
+    with tempfile.TemporaryDirectory() as tmp:
+        got, want = phase22_state(vt, df2, cols2, os.path.join(tmp, "state.json"))
+        record["state_bytes"] = os.path.getsize(os.path.join(tmp, "state.json"))
+    phase22_state_check(got, want)
+    config2_check(got, config2_plain(cols2))
+    state_launches = launch_counts(plan, gp)
+    check(state_launches[plan.B1] > 0 and state_launches[plan.B4] > 0,
+          f"phase 22 state: B1 and B4 launched {state_launches}")
+    print(f"phase 22 state N={n}: the loaded frame's statistics equal the original's bit for "
+          f"bit and plain torch's; launches so far {state_launches}", flush=True)
+
+    # (2) the cache: the 1e6-key set grouper (phase 11) and q10 (phase 17)
+    h2o_df, h2o_cols = make_h2o(vt)
+    sets_df, sets_cols, values = make_sets_table(vt, h2o_cols)
+    del h2o_df
+    set_query = sets_queries(vt, values)["set k1e6"]
+    set_plain = sets_plain(sets_cols, values)["set k1e6"]
+
+    def set_check(out):
+        sets_check("set k1e6", out, set_plain())
+    for on, want_builds in ((False, [1, 1]), (True, [1, 0])):
+        results, builds = phase22_twice(sets_df, set_query, "set-create", cache_on=on)
+        phase22_cache_check(f"set k1e6 ({'memory' if on else 'off'})", results, builds,
+                            want_builds, set_check)
+        del results
+    check(probe.probe.wide_launches > 0, "phase 22: B6's b6-wide route launched")
+    cols3 = config3_columns(CONFIG3_ROWS, "cuda")
+    df3 = vt.from_dataset(vt.DatasetArrays(cols3))
+    q10 = config3_questions(vt)["q10"]
+    q10_plain = config3_plain(cols3, CONFIG3_ROWS)["q10"]
+
+    def q10_check(out):
+        config3_check("q10", out, q10_plain(), "cuda")
+    for on, want_builds in ((False, [1, 1]), (True, [1, 0])):
+        results, builds = phase22_twice(df3, q10, "one-sort", cache_on=on)
+        phase22_cache_check(f"q10 ({'memory' if on else 'off'})", results, builds,
+                            want_builds, q10_check)
+        del results
+    gc.collect()
+    torch.cuda.synchronize()
+    held, before = cache.device_backend.nbytes, torch.cuda.memory_allocated()
+    freed = cache.clear()
+    after = torch.cuda.memory_allocated()
+    check(freed == held > 0 and before - after >= freed,
+          f"phase 22 cache.clear(): {freed} bytes held, {before - after} freed on the card")
+    record["cache"] = {"device_lru_bytes": held, "freed_bytes": before - after}
+    for name, df_, query in (("set k1e6", sets_df, set_query), ("q10", df3, q10)):
+        with cache.memory():
+            query(df_)  # the miss, stored
+            hit_s, _ = median_s(lambda: query(df_))
+        with cache.off():
+            miss_s, _ = median_s(lambda: query(df_))
+        cache.clear()
+        record["cache"][name] = {"hit_ms": hit_s * 1e3, "miss_ms": miss_s * 1e3}
+        print(f"[{label}] phase 22 cache {name}: hit {hit_s * 1e3!r} ms, miss (cache off) "
+              f"{miss_s * 1e3!r} ms, reps {REPS}", flush=True)
+    del sets_df, sets_cols, df3, cols3, h2o_cols
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (3) progress and cancelling on config 1's table
+    df1, i1, x1 = make_table(n, vt)
+    df1._tile_rows = PHASE22_TILE_ROWS
+    want_c, want_s = plain_query(i1, x1)
+
+    def main_check(out):
+        check(torch.equal(torch.as_tensor(out["c"].tolist()), want_c.cpu())
+              and torch.allclose(torch.as_tensor(out["s"].tolist(), dtype=torch.float64),
+                                 want_s.cpu(), rtol=RTOL, atol=ATOL),
+              "phase 22 progress: the groupby equals plain torch")
+    progress = phase22_progress(vt, df1, b1=ga.grid_additive)
+    phase22_progress_check(progress, main_check)
+    record["progress"] = {"fractions": progress["fractions"], "tiles": progress["tiles"],
+                          "cancelled_after": progress["calls"], "b1_launches": progress["launched"]}
+    print(f"phase 22 progress N={n}: fractions {progress['fractions']}, cancelled after "
+          f"{progress['calls']} tiles with B1 launched {progress['launched']} times; the next "
+          f"groupby is right", flush=True)
+    del progress
+
+    # (4) UDFs at n_host rows
+    colsu = phase22_udf_columns(n_host, "cuda")
+    dfu = phase22_udf_frame(vt, colsu)
+    dfm = phase22_udf_frame(vt, colsu, multiprocessing=True)
+    want = phase22_udf_plain(colsu)
+    got = phase22_udf_answer(phase22_udf_query(dfu))
+    log = dfu.executor.trace_log[-1]
+    phase22_udf_check(got, want)
+    got_mp = phase22_udf_answer(phase22_udf_query(dfm))
+    check(all(got_mp[k].tobytes() == got[k].tobytes() for k in got),
+          "phase 22 udf: multiprocessing=True gives the same bits")
+    check(port_mp._pool._ctx.get_start_method() != "fork",
+          "phase 22 udf: the pool forks no process that started CUDA")
+    mr = dfu.map_reduce(phase22_tile_sum, phase22_add, ["x"])
+    phase22_map_reduce_check(mr, colsu["x"])
+    record["udf_host_stage_ms_per_tile"] = log["host_s"] * 1e3 / log["tiles"]
+    print(f"phase 22 udf N={n_host}: groupby of a UDF column right (sums and stds within "
+          f"the bound), the same bits with processes, map_reduce right; host stage "
+          f"{record['udf_host_stage_ms_per_tile']!r} ms a tile", flush=True)
+
+    # (5) pickling at n_host rows
+    dfp = phase22_pickle_frame(vt, colsu, "cuda")
+    record["pickle_bytes"], back = phase22_pickle(dfp)
+    phase22_pickle_check(back, dfp, "cuda")
+    print(f"phase 22 pickle N={n_host}: {record['pickle_bytes']} bytes; the frame back on "
+          f"the card, its groupby equal bit for bit", flush=True)
+    del back
+
+    # (6) uint64 inside expressions on phase 20's u
+    cols20 = phase20_columns(n, "cuda")
+    dfa = phase22_a14_frame(vt, cols20)
+    host = {"u": cols20["u"].cpu().numpy().view(np.uint64), "id4": cols20["id4"].cpu().numpy()}
+    for name, query in phase22_a14_queries().items():
+        phase22_a14_check(name, phase22_a14_answer(name, query(dfa)), phase22_a14_plain(host, name))
+    print(f"phase 22 uint64 expressions N={n}: {list(phase22_a14_queries())} equal numpy's",
+          flush=True)
+
+    launches = {**launch_counts(plan, gp), "b6": probe.probe.launches,
+                "b6-wide": probe.probe.wide_launches}
+    print(f"launches during phase 22: {launches}", flush=True)
+    for name in (plan.B1, plan.B4, "b6"):
+        check(launches[name] > 0, f"{name} was not launched during phase 22: {launches}")
+    check(launches[plan.B3] + launches[plan.B3_L2] > 0,
+          f"B3 was not launched during phase 22: {launches}")
+    tables = {"df2": df2, "df1": df1, "i1": i1, "x1": x1, "colsu": colsu, "dfu": dfu,
+              "dfm": dfm, "dfp": dfp, "dfa": dfa}
+    for name, (query, plain) in phase22_queries(vt, tables).items():
+        phase22_time(record["queries"], name, query, plain,
+                     n_host if name in PHASE22_HOST_QUERIES else n)
+    port_mp.close_pool()
+    del df2, cols2, df1, i1, x1, dfu, dfm, colsu, dfp, dfa, cols20, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, record
+
+
+def profile_phases(vt, phases, label):
+    """The device busy and idle share of each query of phases 20-22
+    (``python3 chip_smoke.py --profile 20 21 22``): the phase's tables made
+    as the phase makes them, each query through scripts/profile_torch_groupby.py's
+    ``profile`` (two warm-ups, then 5 runs under torch.profiler, each ended by
+    a synchronize), the result cache off but for phase 22's two hits."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    from profile_torch_groupby import profile as profile_on_the_card
+    from vaex_tpu_torch import cache
+
+    def profile(name, query):
+        try:
+            profile_on_the_card(name, query)
+        except RuntimeError as e:  # a query of the host alone: the card idles
+            if "no device activity" not in str(e):
+                raise
+            print(f"{name}: no device activity (the query runs on the host), idle share 1.0",
+                  flush=True)
+    print(f"profiling phases {phases} on {label}", flush=True)
+    if 20 in phases:
+        cols = phase20_columns(PHASE20_ROWS, "cuda")
+        df = phase20_frame(vt, cols)
+        with cache.off():
+            for name, query in phase20_queries(vt).items():
+                profile(f"phase 20 {name} N={PHASE20_ROWS}", lambda: query(df))
+        del df, cols
+    if 21 in phases:
+        host, _, _ = phase21_columns(PHASE21_ROWS)
+        df = vt.from_arrays(**host).to_device("cuda")
+        s_host, _, s_labels = phase21_strings_columns(PHASE21_ROWS)
+        s_df = vt.from_arrays(**s_host).to_device("cuda")
+        h_host, _, h_labels = phase21_strings_columns(PHASE21_HOST_ROWS)
+        h_df = vt.from_arrays(**h_host)
+        d_df = vt.from_arrays(**phase21_datetimes(PHASE21_HOST_ROWS)).to_device("cuda")
+        questions = config3_questions(vt)
+        with cache.off():
+            for q in PHASE21_QUESTIONS:
+                profile(f"phase 21 {q} N={PHASE21_ROWS}", lambda: questions[q](df))
+            for name, query in phase21_string_queries(s_labels).items():
+                profile(f"phase 21 {name} N={PHASE21_ROWS}", lambda: query(s_df))
+            for name in ("groupby_str_sum", "isin_str_500"):
+                query = phase21_string_queries(h_labels)[name]
+                profile(f"phase 21 {name} (unstaged) N={PHASE21_HOST_ROWS}", lambda: query(h_df))
+            for name, query in phase21_datetime_queries(vt).items():
+                profile(f"phase 21 {name} N={PHASE21_HOST_ROWS}", lambda: query(d_df))
+        del df, s_df, h_df, d_df
+    if 22 in phases:
+        n, n_host = PHASE22_ROWS, PHASE22_HOST_ROWS
+        h2o_df, h2o_cols = make_h2o(vt)
+        del h2o_df
+        sets_df, _, values = make_sets_table(vt, h2o_cols)
+        set_query = sets_queries(vt, values)["set k1e6"]
+        with cache.memory():
+            profile(f"phase 22 cache hit set k1e6 N={n}", lambda: set_query(sets_df))
+        cache.clear()
+        del sets_df, h2o_cols
+        df3 = vt.from_dataset(vt.DatasetArrays(config3_columns(CONFIG3_ROWS, "cuda")))
+        q10 = config3_questions(vt)["q10"]
+        with cache.memory():
+            profile(f"phase 22 cache hit q10 N={CONFIG3_ROWS}", lambda: q10(df3))
+        cache.clear()
+        del df3
+        gc.collect()
+        torch.cuda.empty_cache()
+        df1, i1, x1 = make_table(n, vt)
+        df1._tile_rows = PHASE22_TILE_ROWS
+        colsu = phase22_udf_columns(n_host, "cuda")
+        tables = {"df2": config2_frame(vt, config2_columns(n, "cuda")).categorize(
+                      "i", labels=range(1000)),
+                  "df1": df1, "i1": i1, "x1": x1, "colsu": colsu,
+                  "dfu": phase22_udf_frame(vt, colsu),
+                  "dfm": phase22_udf_frame(vt, colsu, multiprocessing=True),
+                  "dfp": phase22_pickle_frame(vt, colsu, "cuda"),
+                  "dfa": phase22_a14_frame(vt, phase20_columns(n, "cuda"))}
+        with cache.off():
+            for name, (query, _) in phase22_queries(vt, tables).items():
+                rows = n_host if name in PHASE22_HOST_QUERIES else n
+                profile(f"phase 22 {name} N={rows}", query)
+        from vaex_tpu_torch import multiprocessing as port_mp
+        port_mp.close_pool()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3834,6 +4433,11 @@ def main():
 
     label = card()
     print(label)
+    if sys.argv[1:2] == ["--profile"]:
+        kernel_build.build("grid_additive", "grid_window", "grid_partition", "grid_moments",
+                           "grid_moments_window", "probe")
+        profile_phases(vt, [int(a) for a in sys.argv[2:]] or [20, 21, 22], label)
+        return 0
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     # B3x is the min/max mode of B3's source, b3-l2 its resident route
@@ -3859,6 +4463,10 @@ def main():
     extreme_kernel_vs_plain(gp, ge)
     print("min/max kernel vs plain passed", flush=True)
 
+    # phases 6-21 check and time the passes themselves: the result cache is off
+    # there (phase 22 drives it)
+    cache_off = vt.cache.off()
+    cache_off.__enter__()
     zero_launches(plan, gp)
     probe.probe.launches = 0
     tables = {n: main_path(n, vt) for n in MAIN_SIZES}
@@ -3922,6 +4530,10 @@ def main():
     phase21_launches, phase21 = phase21_path(vt, plan, gp, probe, label, config3_times)
     print(json.dumps({"phase21": phase21}), flush=True)
     wide[plan.B3]["phase21_l2_launches"] = phase21_launches[plan.B3_L2]
+    cache_off.__exit__(None, None, None)
+
+    phase22_launches, phase22 = phase22_path(vt, plan, gp, probe, label)
+    print(json.dumps({"phase22": phase22}), flush=True)
 
     measured = {plan.B1: (main_launches[plan.B1], results[MAIN_SIZES[0]]),
                 plan.B2: (h2o_launches[plan.B2], wide[plan.B2]),
@@ -3960,6 +4572,7 @@ def main():
         "phase19_launches": phase19_launches[name],
         "phase20_launches": phase20_launches[name],
         "phase21_launches": phase21_launches[name],
+        "phase22_launches": phase22_launches[name],
         **{key: value for key, value in m.items() if key in EXTRA_KEYS},
     } for name, (launches, m) in measured.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -460,3 +460,181 @@ def test_the_phase21_datetime_checks_refuse_a_wrong_answer(name, monkeypatch):
                                              torch.as_tensor(d["v3"]), name)
     with pytest.raises(RuntimeError, match="check failed"):
         chip_smoke.phase21_datetime_check(name, got, want)
+
+
+# phase 22 at a small size on the CPU: the state, the cache, progress and
+# cancelling, UDFs, pickling and uint64 expressions
+PHASE22_N = 20_000
+
+
+def test_the_phase22_state_on_the_cpu(tmp_path):
+    cols = chip_smoke.config2_columns(PHASE22_N, "cpu")
+    df = chip_smoke.config2_frame(vaex_tpu_torch, cols).categorize("i", labels=range(1000))
+    got, want = chip_smoke.phase22_state(vaex_tpu_torch, df, cols, str(tmp_path / "s.json"))
+    chip_smoke.phase22_state_check(got, want)
+    chip_smoke.config2_check(got, chip_smoke.config2_plain(cols))
+
+
+def test_the_phase22_state_check_refuses_a_state_that_lost_its_filter(tmp_path):
+    import json
+    cols = chip_smoke.config2_columns(PHASE22_N, "cpu")
+    df = chip_smoke.config2_frame(vaex_tpu_torch, cols).categorize("i", labels=range(1000))
+    state = df.state_get()
+    del state["selections"]["__filter__"]
+    path = tmp_path / "lost.json"
+    path.write_text(json.dumps(state))
+    fresh = vaex_tpu_torch.from_dataset(vaex_tpu_torch.DatasetArrays(dict(cols)))
+    fresh.state_load(str(path))
+    with pytest.raises(RuntimeError, match="phase 22 state"):
+        chip_smoke.phase22_state_check(chip_smoke.phase22_state_stats(fresh),
+                                       chip_smoke.phase22_state_stats(df))
+
+
+def _wide_key_frame(seed=0, n=PHASE22_N):
+    rng = np.random.default_rng(seed)
+    cols = {"k": torch.as_tensor(rng.integers(0, 3000, n) * chip_smoke.WIDE_FACTOR),
+            "v1": torch.as_tensor(rng.integers(1, 6, n))}
+    return vaex_tpu_torch.from_dataset(vaex_tpu_torch.DatasetArrays(cols)), cols
+
+
+def _set_plain_check(cols):
+    keys, inverse = np.unique(cols["k"].numpy(), return_inverse=True)
+    sums = np.bincount(inverse, weights=cols["v1"].numpy()).astype(np.int64)
+
+    def plain_check(out):
+        chip_smoke.check(np.array_equal(out.evaluate("k"), keys)
+                         and np.array_equal(out.evaluate("v1"), sums), "set grouper sums")
+    return plain_check
+
+
+def _set_query(df):
+    return df.groupby("k").agg({"v1": "sum"})
+
+
+@pytest.mark.parametrize("on,builds", [(False, [1, 1]), (True, [1, 0])])
+def test_the_phase22_cache_on_the_cpu(on, builds):
+    from vaex_tpu_torch import cache
+    cache.clear()
+    df, cols = _wide_key_frame()
+    results, got = chip_smoke.phase22_twice(df, _set_query, "set-create", cache_on=on)
+    chip_smoke.phase22_cache_check("set", results, got, builds, _set_plain_check(cols))
+    n = 30_000
+    cols3 = chip_smoke.config3_columns(n, "cpu")
+    df3 = vaex_tpu_torch.from_dataset(vaex_tpu_torch.DatasetArrays(cols3))
+    q10 = chip_smoke.config3_questions(vaex_tpu_torch)["q10"]
+    want = chip_smoke.config3_plain(cols3, n)["q10"]()
+    results, got = chip_smoke.phase22_twice(df3, q10, "one-sort", cache_on=on)
+    chip_smoke.phase22_cache_check("q10", results, got, builds, lambda out: (
+        chip_smoke.config3_check("q10", out, want, "cpu")))
+    cache.clear()
+
+
+def test_the_phase22_cache_check_refuses_a_hit_across_two_tables(monkeypatch):
+    """A cache whose key aliased two tables (as a sampled fingerprint does)
+    serves the first table's groupby to the second, which differs in one
+    row: the check holds each run to its own table's plain answer."""
+    from vaex_tpu_torch import cache
+    cache.clear()
+    first, _ = _wide_key_frame()
+    second, cols = _wide_key_frame()
+    cols["k"][4321] = 7 * chip_smoke.WIDE_FACTOR + 1  # a key no other row has
+    monkeypatch.setattr(cache, "key", lambda *parts, content=True: cache.Key("aliased"))
+    with cache.memory():
+        _set_query(first)
+    results, builds = chip_smoke.phase22_twice(second, _set_query, "set-create")
+    with pytest.raises(RuntimeError, match="check failed"):
+        chip_smoke.phase22_cache_check("set", results, builds, builds, _set_plain_check(cols))
+    cache.clear()
+
+
+def _progress(cancel_after=chip_smoke.PHASE22_CANCEL_AFTER):
+    df, i1, x = chip_smoke.make_table(PHASE22_N, vaex_tpu_torch, "cpu")
+    df._tile_rows = 3_000
+    want_c, want_s = chip_smoke.plain_query(i1, x)
+
+    def plain_ok(out):
+        chip_smoke.check(torch.equal(torch.as_tensor(out["c"].tolist()), want_c)
+                         and torch.allclose(torch.as_tensor(out["s"].tolist(),
+                                                            dtype=torch.float64), want_s),
+                         "progress groupby")
+    return chip_smoke.phase22_progress(vaex_tpu_torch, df, cancel_after), plain_ok
+
+
+def test_the_phase22_progress_on_the_cpu():
+    got, plain_ok = _progress()
+    assert got["tiles"] == 7 and got["fractions"][-1] == 1.0
+    chip_smoke.phase22_progress_check(got, plain_ok)
+
+
+def test_the_phase22_progress_check_refuses_a_cancelled_pass_counted_as_done():
+    got, plain_ok = _progress()
+    with pytest.raises(RuntimeError, match="phase 22 cancelled pass"):
+        chip_smoke.phase22_progress_check({**got, "aborted": None}, plain_ok)
+    with pytest.raises(RuntimeError, match="phase 22 progress fractions"):
+        chip_smoke.phase22_progress_check({**got, "fractions": got["fractions"][:-1]}, plain_ok)
+
+
+def test_the_phase22_udf_on_the_cpu(monkeypatch):
+    from vaex_tpu_torch import multiprocessing as port_mp
+    from vaex_tpu_torch import settings
+    monkeypatch.setattr(settings, "NUM_PROCESSES", 2)
+    cols = chip_smoke.phase22_udf_columns(PHASE22_N, "cpu")
+    dfu = chip_smoke.phase22_udf_frame(vaex_tpu_torch, cols)
+    got = chip_smoke.phase22_udf_answer(chip_smoke.phase22_udf_query(dfu))
+    chip_smoke.phase22_udf_check(got, chip_smoke.phase22_udf_plain(cols))
+    try:
+        dfm = chip_smoke.phase22_udf_frame(vaex_tpu_torch, cols, multiprocessing=True)
+        got_mp = chip_smoke.phase22_udf_answer(chip_smoke.phase22_udf_query(dfm))
+        assert port_mp._pool._ctx.get_start_method() == "forkserver"
+    finally:
+        port_mp.close_pool()
+    assert all(got_mp[k].tobytes() == got[k].tobytes() for k in got)
+    dfu._tile_rows = 6_000
+    chip_smoke.phase22_map_reduce_check(
+        dfu.map_reduce(chip_smoke.phase22_tile_sum, chip_smoke.phase22_add, ["x"]), cols["x"])
+
+
+def test_the_phase22_udf_check_refuses_a_result_off_by_one_row():
+    cols = chip_smoke.phase22_udf_columns(PHASE22_N, "cpu")
+    got = chip_smoke.phase22_udf_answer(chip_smoke.phase22_udf_query(
+        chip_smoke.phase22_udf_frame(vaex_tpu_torch, cols)))
+    shifted = {"x": torch.roll(cols["x"], 1), "k": cols["k"]}
+    with pytest.raises(RuntimeError, match="phase 22 udf"):
+        chip_smoke.phase22_udf_check(got, chip_smoke.phase22_udf_plain(shifted))
+    with pytest.raises(RuntimeError, match="phase 22 map_reduce"):
+        chip_smoke.phase22_map_reduce_check((float(cols["x"].sum()), PHASE22_N - 1), cols["x"])
+
+
+def test_the_phase22_pickle_on_the_cpu():
+    cols = chip_smoke.phase22_udf_columns(PHASE22_N, "cpu")
+    df = chip_smoke.phase22_pickle_frame(vaex_tpu_torch, cols, "cpu")
+    size, back = chip_smoke.phase22_pickle(df)
+    assert size > PHASE22_N * 16
+    chip_smoke.phase22_pickle_check(back, df, "cpu")
+    lost = back.filter("x < 5", mode="replace")
+    with pytest.raises(RuntimeError, match="phase 22 pickle"):
+        chip_smoke.phase22_pickle_check(lost, df, "cpu")
+
+
+@pytest.fixture(scope="module")
+def phase22_uint64():
+    cols = chip_smoke.phase20_columns(PHASE22_N, "cpu", k6=2000)
+    df = chip_smoke.phase22_a14_frame(vaex_tpu_torch, cols)
+    host = {"u": cols["u"].numpy().view(np.uint64), "id4": cols["id4"].numpy()}
+    return df, host
+
+
+@pytest.mark.parametrize("name", chip_smoke.PHASE22_A14)
+def test_the_phase22_uint64_expressions_on_the_cpu(phase22_uint64, name):
+    df, host = phase22_uint64
+    got = chip_smoke.phase22_a14_answer(name, chip_smoke.phase22_a14_queries()[name](df))
+    want = chip_smoke.phase22_a14_plain(host, name)
+    chip_smoke.phase22_a14_check(name, got, want)
+    if isinstance(got, dict):
+        wrong = {**got, "counts": got["counts"] + np.eye(len(got["counts"]), dtype=np.int64)[1]}
+    elif got.dtype.kind == "f":
+        wrong = got * (1 + 1e-6)
+    else:
+        wrong = got + np.uint64(1)
+    with pytest.raises(RuntimeError, match=re.escape(f"phase 22 {name}")):
+        chip_smoke.phase22_a14_check(name, wrong, want)

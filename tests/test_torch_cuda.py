@@ -1386,3 +1386,91 @@ def test_string_groupby_and_isin_on_the_card(cuda, staged, monkeypatch):
     cpu, card = out["cpu"], out[str(cuda)]
     assert card[0] == cpu[0] and card[2] == cpu[2] and card[3:] == cpu[3:]
     npt.assert_allclose(card[1], cpu[1], rtol=1e-9, atol=1e-9)
+
+
+# ------------------------------------------ the executor's tail on the card
+
+
+def _udf_scaled(x, k):
+    return x * 0.5 + k
+
+
+def test_a_cache_hit_on_the_card(cuda):
+    """The set grouper of 1e5 keys twice: the second set build is served
+    from the device LRU; clearing it returns the card's memory."""
+    from vaex_tpu_torch import cache
+    cache.clear()
+    g = torch.Generator(device=cuda).manual_seed(3)
+    k = torch.randint(0, 10 ** 12, (2_000_000,), generator=g, device=cuda) % 100_003 * 1_000_003
+    df = vaex_tpu_torch.from_arrays(k=k, x=torch.ones(k.shape[0], dtype=torch.float64,
+                                                      device=cuda)).to_device(cuda)
+    with cache.memory():
+        first = df.groupby("k").agg("count")
+        tasks = [e["tasks"] for e in df.executor.trace_log[-2:]]
+        assert tasks[0] == ["set-create"]
+        n = len(df.executor.trace_log)
+        second = df.groupby("k").agg("count")
+        assert [e["tasks"] for e in df.executor.trace_log[n:]] == [["aggregations"]]
+        assert second["count"].tolist() == first["count"].tolist()
+    del first, second
+    held = cache.device_backend.nbytes
+    before = torch.cuda.memory_allocated()
+    assert held > 0 and cache.clear() == held
+    assert torch.cuda.memory_allocated() <= before - held // 2
+
+
+def test_a_pickled_cuda_frame(cuda, monkeypatch):
+    import pickle
+    from vaex_tpu_torch import settings
+    monkeypatch.setattr(settings, "DEVICE", str(cuda))
+    rng = np.random.default_rng(5)
+    df = vaex_tpu_torch.from_arrays(k=rng.integers(0, 50, 100_000),
+                                    x=rng.normal(size=100_000)).to_device(cuda)
+    df["y"] = df.x * 2
+    df = df.filter("x > -1").categorize("k", labels=list(range(50)))
+    back = pickle.loads(pickle.dumps(df))
+    assert back.dataset["x"].device.type == "cuda"
+    want = df.groupby("k", agg={"s": agg.sum("y"), "c": "count"})
+    got = back.groupby("k", agg={"s": agg.sum("y"), "c": "count"})
+    assert got["c"].tolist() == want["c"].tolist() and got["s"].tolist() == want["s"].tolist()
+
+
+def test_a_udf_pass_on_the_card(cuda, monkeypatch):
+    """A UDF's host stage, its result copied to the card, grouped there;
+    with multiprocessing after CUDA started the pool is a forkserver's."""
+    from vaex_tpu_torch import multiprocessing as port_mp
+    from vaex_tpu_torch import settings
+    monkeypatch.setattr(settings, "NUM_PROCESSES", 2)
+    rng = np.random.default_rng(6)
+    arrays = {"k": rng.integers(0, 20, 200_000), "x": rng.normal(size=200_000)}
+    out = []
+    try:
+        for device, mp in (("cpu", False), (str(cuda), False), (str(cuda), True)):
+            df = vaex_tpu_torch.from_arrays(**arrays).to_device(device)
+            df["u"] = df.apply(_udf_scaled, ["x", "k"], multiprocessing=mp)
+            gb = df.groupby("k", agg={"s": agg.sum("u"), "sd": agg.std("u")}, sort=True)
+            assert df.executor.trace_log[-1]["device"].startswith(device)
+            assert df.executor.trace_log[-1]["host_stage"] == ["u"]
+            out.append((gb["s"].values, gb["sd"].values))
+        assert port_mp._pool._ctx.get_start_method() == "forkserver"
+    finally:
+        port_mp.close_pool()
+    npt.assert_allclose(out[1][0], out[0][0], rtol=1e-9)
+    npt.assert_array_equal(out[2][0], out[1][0])
+    npt.assert_array_equal(out[2][1], out[1][1])
+
+
+@pytest.mark.parametrize("expression", ["u // 3", "u % 7", "u & 65535", "u >> 60", "u + k",
+                                        "sqrt(u)", "u ** 3", "u // w", "maximum(u, w)"])
+def test_uint64_expressions_on_the_card(cuda, expression):
+    rng = np.random.default_rng(7)
+    arrays = {"u": rng.integers(0, 2 ** 64, 100_000, dtype=np.uint64),
+              "w": rng.integers(1, 2 ** 64, 100_000, dtype=np.uint64),
+              "k": rng.integers(-5, 5, 100_000)}
+    got = vaex_tpu_torch.from_arrays(**arrays).to_device(cuda).evaluate(expression)
+    want = vaex_tpu_torch.from_arrays(**arrays).to_device("cpu").evaluate(expression)
+    assert got.dtype == want.dtype
+    if got.dtype.kind == "f":  # the card's float64 sqrt may differ by an ulp
+        npt.assert_allclose(got, want, rtol=1e-15)
+    else:
+        npt.assert_array_equal(got, want)

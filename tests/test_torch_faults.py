@@ -9,15 +9,26 @@ vaex_tpu or numpy on the same seeded arrays:
 * C8: a min or max without binby over an expression that is not one value
   per row raises, as ``sum`` and the reference do;
 * C9: a continuous axis bins each value where vaex_tpu's jitted pass does,
-  also at the bin edges: 29 of limits [0, 50] at 50 bins lands in bin 29.
+  also at the bin edges: 29 of limits [0, 50] at 50 bins lands in bin 29;
+* C12: a shifted or materialized string column keeps its labels, in each
+  of the three string forms (held to vaex_tpu);
+* C13: NaT rows take no part in sums, means, moments and ``first``'s
+  order, and sums and means keep numpy's temporal dtype (held to numpy:
+  vaex_tpu raises on the sums and counts NaT as 0 in ``std``);
+* C14: ``concat`` merges the labels of staged string columns, and keeps a
+  category only where every frame has it alike (held to the concatenation
+  of the plain forms; vaex_tpu loses rows there).
 """
+
+import collections
 
 import numpy as np
 import numpy.testing as npt
 import pytest
 
 import vaex_tpu_torch
-from torch_port_helpers import ATOL, RTOL, binby_arrays, same_frames
+from torch_port_helpers import (ATOL, RTOL, STRING_FORMS, binby_arrays, host_list, same_frames,
+                                string_arrays, string_frames)
 from vaex_tpu_torch import settings
 
 # the cases of ROADMAP queue C6: d datetime64[ns] with NaT, td timedelta64[s]
@@ -197,3 +208,131 @@ def test_a_datetime_scalar_in_an_expression_is_a_variable(temporal_frames):
     got = (port.d - port.d.min()).td.days.sum()
     want = (ref.d - ref.d.min()).td.days.sum()
     assert got == want
+
+
+# --------------------------------------------------------------------- C12
+
+
+@pytest.fixture
+def host_device(monkeypatch):
+    monkeypatch.setattr(settings, "DEVICE", "cpu")
+
+
+@pytest.mark.parametrize("form", STRING_FORMS)
+@pytest.mark.parametrize("periods", [2, -3])
+@pytest.mark.parametrize("fill_value", [None, "q", "a"])
+def test_a_shifted_string_column_keeps_its_labels(host_device, form, periods, fill_value):
+    ref, port = string_frames(string_arrays(7, 30), form)
+    want = host_list(ref.shift(periods, "s", fill_value=fill_value).evaluate("s"))
+    shifted = port.shift(periods, "s", fill_value=fill_value)
+    assert host_list(shifted.evaluate("s")) == want
+    counts = shifted.groupby("s", agg="count").to_pandas_df()
+    got = {k if isinstance(k, str) else None: c for k, c in zip(counts["s"], counts["count"])
+           if c}
+    assert got == dict(collections.Counter(want))
+
+
+@pytest.mark.parametrize("form", STRING_FORMS)
+def test_a_materialized_string_column_keeps_its_labels(host_device, form):
+    ref, port = string_frames(string_arrays(7, 30), form)
+    for df in (ref, port):
+        df["U"] = df.t.str.upper()
+    want = host_list(ref.materialize("U").evaluate("U"))
+    done = port.materialize("U")
+    assert "U" not in done.virtual_columns
+    assert host_list(done.evaluate("U")) == want
+    assert host_list(done[done.x > 0].evaluate("U")) == [
+        u for u, x in zip(want, string_arrays(7, 30)["x"]) if x > 0]
+
+
+# --------------------------------------------------------------------- C13
+
+
+def _td_frame():
+    td = np.array([10, 20, -5, "NaT", 7], "m8[s]")
+    return vaex_tpu_torch.from_arrays(td=td, k=np.array([0, 1, 0, 0, 1])).to_device("cpu"), td
+
+
+def test_temporal_sums_and_means_leave_nat_out():
+    port, td = _td_frame()
+    valid = td[~np.isnat(td)]
+    assert port.sum("td") == valid.sum() and port.sum("td").dtype == td.dtype
+    assert port.mean("td") == valid.mean() and port.mean("td").dtype == td.dtype
+    npt.assert_allclose(port.std("td"), np.std(valid.astype(np.float64)), rtol=RTOL)
+    npt.assert_allclose(port.var("td"), np.var(valid.astype(np.float64)), rtol=RTOL)
+    assert port.count("td") == 5  # count(expr) counts NaT, as the reference does
+    npt.assert_array_equal(port.sum("td", binby="k", limits=[0, 2], shape=2),
+                           np.array([5, 27], "m8[s]"))
+    with pytest.raises(TypeError, match="datetime"):
+        vaex_tpu_torch.from_arrays(d=np.array(["2021-01-01"], "M8[ns]")).to_device(
+            "cpu").sum("d")
+
+
+def test_binned_and_grouped_temporal_moments_leave_nat_out(temporal_frames):
+    arrays = binby_arrays(5, 4000)
+    _, port = temporal_frames
+    d, k = arrays["d"], arrays["k"]
+    ok = ~np.isnat(d)
+    ns = d.view(np.int64)
+    npt.assert_allclose(port.std("d"), np.std(ns[ok].astype(np.float64)), rtol=RTOL)
+    out = port.groupby("k", agg={"d": "mean"}, sort=True)
+    got = out.evaluate("d")
+    assert got.dtype == d.dtype
+    want = [ns[ok & (k == g)].astype(np.float64).mean() for g in out.evaluate("k")]
+    npt.assert_allclose(got.view(np.int64).astype(np.float64), want, rtol=RTOL)
+    npt.assert_allclose(port.mean("d").view(np.int64), ns[ok].astype(np.float64).mean(),
+                        rtol=RTOL)
+
+
+def test_first_skips_a_nat_order(temporal_frames):
+    arrays = binby_arrays(5, 4000)
+    _, port = temporal_frames
+    d, v = arrays["d"], arrays["v"]
+    ok = ~np.isnat(d) & ~np.isnan(v)
+    want = v[ok][np.argmin(d.view(np.int64)[ok])]
+    assert port.first("v", order_expression="d") == want
+
+
+# --------------------------------------------------------------------- C14
+
+
+def _counts(df, key="s"):
+    out = df.groupby(key, agg="count").to_pandas_df()
+    return {None if k is None or k != k else k: int(c)
+            for k, c in zip(out[key].tolist(), out["count"]) if c}
+
+
+@pytest.mark.parametrize("forms", [("staged", "staged"), ("staged", "plain"),
+                                   ("plain", "staged"), ("dictionary", "staged")])
+def test_concat_merges_string_categories(host_device, forms):
+    a, b = string_arrays(21, 1500, k=6), string_arrays(22, 1200, k=16)
+    want = dict(collections.Counter(list(a["s"]) + list(b["s"])))
+    left, right = (string_frames(arrays, form)[1] for arrays, form in zip((a, b), forms))
+    both = left.concat(right)
+    assert _counts(both) == want
+    assert host_list(both.evaluate("s")) == list(a["s"]) + list(b["s"])
+    assert both.count(selection=both.s == "ab") == want["ab"]
+
+
+def test_concat_of_int_categories_that_grow(host_device):
+    k1, k2 = np.array([0, 1, 2, 2, 1]), np.array([3, 4, 0, 4])
+    left = vaex_tpu_torch.from_arrays(k=k1).categorize("k", labels=list("abc"))
+    right = vaex_tpu_torch.from_arrays(k=k2).categorize("k", labels=list("abcde"))
+    plain = vaex_tpu_torch.from_arrays(k=np.concatenate([k1, k2]))
+    want = {"abcde"[k]: c for k, c in _counts(plain, "k").items()}
+    assert _counts(left.concat(right), "k") == want
+    # labels that do not agree: the key is read from its values
+    other = vaex_tpu_torch.from_arrays(k=k2).categorize("k", labels=list("edcba"))
+    assert not left.concat(other).is_category("k")
+    assert _counts(left.concat(other), "k") == _counts(plain, "k")
+
+
+def test_vaex_tpu_loses_rows_of_categories_that_grow():
+    """Known problem of the reference (ROADMAP): the first frame's labels
+    a-c bin the second frame's codes, so its d / e rows vanish."""
+    import vaex_tpu
+    k1, k2 = np.array([0, 1, 2, 2, 1]), np.array([3, 4, 0, 4])
+    left = vaex_tpu.from_arrays(k=k1).categorize("k", labels=list("abc"))
+    right = vaex_tpu.from_arrays(k=k2).categorize("k", labels=list("abcde"))
+    out = left.concat(right).groupby("k", agg="count")
+    assert int(np.sum(out["count"].values)) == 6 < len(k1) + len(k2)

@@ -307,3 +307,51 @@ def test_count_binned_by_a_string_category(frames):
     if key == "s_ordinal":  # the null rows fall outside the ordinals' labels
         want = host_list(group_ref.groupby("s", agg={"c": "count"}, sort=True).evaluate("c"))[:-1]
     assert sorted(counts.tolist()) == sorted(want)
+
+
+# ------------------------------------- faults of the reference, pinned (ROADMAP)
+
+
+def test_fillna_skips_strings_in_every_form():
+    """vaex_tpu's ``fillna`` skips a plain string column but fills a
+    dictionary or staged one (vaex_tpu/dataframe.py:1641-1643); the port
+    skips a string column in every form, as vaex_tpu's plain form does."""
+    arrays = string_arrays(5, 60)
+    want = list(arrays["s"])
+    for form in STRING_FORMS:
+        ref, port = string_frames(arrays, form)
+        assert host_list(port.fillna("zz").evaluate("s")) == want
+        filled = host_list(ref.fillna("zz").evaluate("s"))
+        assert (filled == want) == (form == "plain")
+
+
+@pytest.mark.parametrize("rows", ["slice", "sample", "concat"])
+def test_groupby_over_rows_of_a_dictionary_frame(rows):
+    """vaex_tpu raises ``KeyError`` for a groupby over a slice, a sample or a
+    concat of a frame of dictionary arrays; the port is held to Python."""
+    import collections
+    arrays = string_arrays(5, 60)
+    ref, port = string_frames(arrays, "dictionary")
+    take = {"slice": lambda d: d[5:40], "sample": lambda d: d.sample(n=30, random_state=3),
+            "concat": lambda d: d.concat(d)}[rows]
+    values = host_list(take(port).evaluate("s"))
+    out = take(port).groupby("s", agg="count")
+    got = {k: c for k, c in zip(host_list(out["s"].values), out["count"].tolist()) if c}
+    assert got == dict(collections.Counter(values))
+    with pytest.raises(KeyError):
+        take(ref).groupby("s", agg="count")
+
+
+@pytest.mark.parametrize("form", STRING_FORMS)
+@pytest.mark.parametrize("expression", ["t < 'b'", "t >= 'b'", "s == t"])
+def test_string_order_comparisons_and_two_columns(form, expression):
+    """vaex_tpu raises ``TypeError`` for the order comparisons of strings and
+    for ``s == t``; the port is held to Python."""
+    arrays = string_arrays(5, 60)
+    ref, port = string_frames(arrays, form)
+    s, t = list(arrays["s"]), list(arrays["t"])
+    want = {"t < 'b'": sum(v < "b" for v in t), "t >= 'b'": sum(v >= "b" for v in t),
+            "s == t": sum(a is not None and a == b for a, b in zip(s, t))}[expression]
+    assert port.count(selection=expression) == want
+    with pytest.raises(TypeError):
+        ref.count(selection=expression)

@@ -220,12 +220,103 @@ def test_uint64_expressions(expression):
         npt.assert_array_equal(got, np.asarray(want))
 
 
+def _numpy(expression, arrays):
+    """An expression over the host arrays, numpy's way."""
+    def fillmissing(v, fill):
+        return np.ma.filled(v, fill) if np.ma.isMaskedArray(v) else v
+    names = {"sqrt": np.sqrt, "maximum": np.maximum, "minimum": np.minimum, "where": np.where,
+             "clip": np.clip, "fillmissing": fillmissing, "log": np.log, "fmod": np.fmod,
+             "power": np.power, "sign": np.sign}
+    with np.errstate(all="ignore"):
+        return np.asarray(eval(expression, names, dict(arrays)))
+
+
+def _same_values(got, want):
+    assert got.dtype == want.dtype
+    if want.dtype.kind == "f":
+        npt.assert_allclose(got, want, rtol=1e-15)
+    else:
+        npt.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("expression", ["u // 2", "u % 3", "u ** 2", "u & 1", "sqrt(u)",
                                         "u + x", "u + k", "u > -1"])
 def test_uint64_expressions_outside_the_port_raise_by_name(expression):
+    """Once refused by name (ROADMAP A14), now numpy's values and dtypes, and
+    vaex_tpu's, but for ``u > -1``, where vaex_tpu is wrong (ROADMAP, known
+    problems of the reference)."""
+    ref, port = _frames()
+    want = _numpy(expression, _arrays())
+    got = port.evaluate(expression)
+    _same_values(got, want)
+    if expression != "u > -1":
+        _same_values(got, np.asarray(ref.evaluate(expression)))
+
+
+# uint64 inside expressions (ROADMAP A14): each held to numpy, and to vaex_tpu
+# where it answers (every case here)
+A14 = ["u // w", "u % w", "w // 7", "u | w", "u ^ w", "u & w", "u >> 60", "u << 3",
+       "u >> w", "3 - u", "7 // u", "u ** 3", "u * x", "u - k", "k * u", "u // 2.5",
+       "u % 2.5", "u > k", "k >= u", "u == k", "u < 2.5", "fillmissing(um, 0)",
+       "maximum(u, w)", "minimum(u, 3)", "clip(u, 3, 2 ** 63)", "where(u > 3, u, 0)",
+       "where(u > 3, u, k)", "log(u)", "fmod(u, 7)", "sign(u)", "power(u, 2)"]
+
+
+@pytest.mark.parametrize("expression", A14)
+def test_uint64_inside_expressions(expression):
+    ref, port = _frames()
+    arrays = _arrays()
+    got = port.evaluate(expression)
+    _same_values(np.asarray(got), _numpy(expression, arrays))
+
+
+@pytest.mark.parametrize("expression", ["u // 3", "u % 7", "u & 65535", "u >> 60", "u + k",
+                                        "sqrt(u)"])
+def test_uint64_expressions_in_statistics(expression):
+    """A sum, a mean, a groupby key and a set of a uint64 expression."""
+    ref, port = _frames()
+    values = _numpy(expression, _arrays())
+    got, want = port.sum(expression), values.sum()
+    if values.dtype.kind == "f":
+        npt.assert_allclose(got, want, rtol=RTOL)
+        npt.assert_allclose(port.mean(expression), values.mean(), rtol=RTOL)
+    else:
+        assert got == want and np.asarray(got).dtype == want.dtype
+        npt.assert_array_equal(port.unique(expression, array_type="numpy"), np.unique(values))
+        port2 = port.copy()
+        port2["key"] = expression
+        out = port2.groupby("key", agg="count", sort=True)
+        keys, counts = np.unique(values, return_counts=True)
+        npt.assert_array_equal(out["key"].values, keys)
+        npt.assert_array_equal(out["count"].values, counts)
+
+
+def test_float_rows_in_a_uint64_set():
+    """numpy compares float rows with uint64 values in float64."""
+    f = np.array([7.0, 2.0 ** 64, 0.5, 2.0 ** 63, np.nan, 3.0])
+    values = [7, 2 ** 64 - 1, 2 ** 63, 4]
+    port = vaex_tpu_torch.from_arrays(f=f).to_device("cpu")
+    want = np.isin(f, np.array(values, dtype=np.uint64))
+    npt.assert_array_equal(port.f.isin(values).values, want)
+    assert port.count(selection=port.f.isin(values)) == want.sum()
+
+
+def test_astype_to_and_from_uint64():
     _, port = _frames()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A14"):
-        port.evaluate(expression)
+    arrays = _arrays()
+    _same_values(port.evaluate("astype(u, 'int32')"), arrays["u"].astype(np.int32))
+    _same_values(port.evaluate("astype(u, 'bool')"), arrays["u"].astype(bool))
+    x = np.abs(arrays["x"]) * 1e18
+    port2 = vaex_tpu_torch.from_arrays(x=x).to_device("cpu")
+    _same_values(port2.evaluate("astype(x, 'uint64')"), x.astype(np.uint64))
+
+
+def test_a_uint64_map():
+    _, port = _frames()
+    u = _arrays()["u"]
+    mapping = {int(v): i for i, v in enumerate(np.unique(u))}
+    got = port.u.map(mapping).values
+    npt.assert_array_equal(got, [mapping[int(v)] for v in u])
 
 
 def test_binby_a_uint64_axis_and_first():
@@ -257,3 +348,15 @@ def test_top_k_and_percentiles_of_uint64_values():
         npt.assert_array_equal(top[g], values[::-1][:2])
         npt.assert_array_equal(low[g], values[:2])
         npt.assert_allclose(med[g], np.median(values.astype(np.float64)), rtol=1e-12)
+
+
+def test_a_descending_sort_of_uint64_values():
+    """vaex_tpu's ``_negate_for_sort`` casts uint64 to int64 before it
+    negates (vaex_tpu/dataframe.py:2028-2033; ROADMAP, known problems of the
+    reference), so its descending sort starts at 2^63; the port is held to
+    numpy."""
+    arrays = with_uint64(_arrays(), 3)
+    ref, port = same_frames(arrays)
+    want = np.sort(arrays["u"])[::-1]
+    npt.assert_array_equal(port.sort("u", ascending=False).evaluate("u"), want)
+    assert ref.sort("u", ascending=False).evaluate("u")[0] == np.uint64(2 ** 63)

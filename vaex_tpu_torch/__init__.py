@@ -11,6 +11,8 @@ This package imports neither JAX nor ``vaex_tpu``; the API mirrors
     df.groupby("k", agg={"s": vaex_tpu_torch.agg.sum("x"), "c": "count"}, sort=True)
     df.nunique("x", binby="k"); df.cov(["x", "y"]); df.rolling(5, column="x").sum()
     (vaex_tpu_torch.stat.mean("x") / vaex_tpu_torch.stat.std("x")).calculate(df, binby="k")
+    df["y"] = df.apply(f, ["x", "k"]); df.state_write("state.json"); pickle.dumps(df)
+    with vaex_tpu_torch.cache.off(): df.sum("x", progress=True)
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import numpy as _np
 
 from . import agg  # noqa: F401
+from . import cache  # noqa: F401
 from . import functions as _functions  # noqa: F401  (populates the namespace)
 from . import settings  # noqa: F401
 from . import stat  # noqa: F401

@@ -73,7 +73,11 @@ def view_logical(grid, dtype):
     identities of an empty min / max cell into the unsigned ones, and an
     int64 sum into the uint64 sum mod 2^64); any other grid as it is."""
     if dtype is not None and DataType(dtype).is_temporal:
-        return np.asarray(grid).view(DataType(dtype).numpy)
+        grid = np.asarray(grid)
+        if grid.dtype.kind == "f":  # a mean: truncated as numpy's, NaN (empty) to NaT
+            empty = np.isnan(grid)
+            grid = np.where(empty, NAT, np.trunc(np.where(empty, 0, grid))).astype(np.int64)
+        return grid.view(DataType(dtype).numpy)
     if dtype is not None and DataType(dtype).is_unsigned:
         return np.asarray(grid).astype(DataType(dtype).numpy)
     return grid
@@ -106,7 +110,12 @@ class AggOperation:
 
 
 class OpCount(AggOperation):
+    """The rows whose value is neither missing nor NaN; a NaT counts, as
+    vaex_tpu counts it (vaex_tpu/agg.py:108-113), but not in ``skip_nat``'s
+    count, a mean's."""
+
     name = "count"
+    skip_nat = False
 
     def initial_state(self, G, device, rows):
         return torch.zeros(G, dtype=torch.int64, device=device)
@@ -120,6 +129,8 @@ class OpCount(AggOperation):
             valid = ~torch.isnan(x.data)
         if x.mask is not None:
             valid = ~x.mask if valid is None else valid & ~x.mask
+        if self.skip_nat and _is_temporal(x):
+            valid = _not_nat(x, valid)
         if valid is None:  # every row of a bin counts
             return ("count", None)
         return ("int", valid.to(torch.int64))
@@ -146,9 +157,39 @@ class OpSum(AggOperation):
         else:
             kind = "int"
             d = d.to(torch.int64)
+        if _is_temporal(x):  # NaT rows add nothing
+            d = d.masked_fill(~_not_nat(x, None), 0)
         if x.mask is not None:
             d = d.masked_fill(x.mask, 0)
         return (kind, d)
+
+
+class OpCountValid(OpCount):
+    """A mean's count: NaT rows do not count."""
+
+    skip_nat = True
+
+
+class OpSumFloat(OpSum):
+    """A float64 sum of a temporal column's counts, NaT left out: a mean's
+    sum, which an int64 sum of nanosecond timestamps would overflow."""
+
+    def initial_state(self, G, device, rows):
+        return torch.zeros(G, dtype=torch.float64, device=device)
+
+    def kernel_input(self, ctx):
+        kind, d = super().kernel_input(ctx)
+        return ("float", d.to(torch.float64))
+
+
+def _is_temporal(x):
+    return x.logical is not None and np.dtype(x.logical).kind in "mM"
+
+
+def _not_nat(x, valid):
+    """``valid`` (or every row) without the NaT rows of a temporal tile."""
+    ok = x.data != NAT
+    return ok if valid is None else valid & ok
 
 
 class OpSumMoment(OpSum):
@@ -322,8 +363,9 @@ class OpFirst(AggOperation):
                 ok = ~torch.isnan(na.data)
                 valid = ok if valid is None else valid & ok
         if DataType(self.dtype_in).is_temporal:
-            ok = x.data != NAT
-            valid = ok if valid is None else valid & ok
+            valid = _not_nat(x, valid)
+        if _is_temporal(order):  # a NaT order takes no part
+            valid = _not_nat(order, valid)
         order_data = order.data
         if order.logical == UINT64:  # the order of uint64 values is their image's
             order_data = (unsigned_float(order_data) if self.order_dtype == torch.float64
@@ -709,6 +751,10 @@ class AggregatorDescriptorBasic(AggregatorDescriptor):
             return dtype.numpy if dtype.is_temporal or widened else None
         if self.name == "sum" and dtype.is_unsigned:
             return np.dtype("uint64")
+        if self.name == "sum" and dtype.is_temporal:  # numpy's: a timedelta64 sum
+            if dtype.numpy.kind == "M":
+                raise TypeError(f"sum of a {dtype.name} column: numpy adds no datetimes")
+            return dtype.numpy
         return None
 
 
@@ -822,15 +868,25 @@ class AggregatorDescriptorTopK(AggregatorDescriptor):
 
 
 class AggregatorDescriptorMean(AggregatorDescriptor):
-    """mean = sum / count; empty cells are NaN."""
+    """mean = sum / count; empty cells are NaN.  The mean of a datetime64 or
+    timedelta64 column leaves its NaT rows out and is of its dtype, the
+    float mean of its counts truncated as numpy's (an empty cell NaT);
+    with ``as_float`` it stays that float."""
 
-    def __init__(self, expression, selection=None, edges=False):
+    def __init__(self, expression, selection=None, edges=False, as_float=False):
         super().__init__("mean", expression, selection, edges)
+        self.as_float = as_float
+
+    def logical_dtype(self, df):
+        dtype = self._input_dtype(df)
+        return dtype.numpy if dtype.is_temporal and not self.as_float else None
 
     def add_tasks(self, df, binners):
-        [sum_task] = AggregatorDescriptorBasic("sum", self.expression, OpSum,
+        temporal = self._input_dtype(df).is_temporal
+        [sum_task] = AggregatorDescriptorBasic("sum", self.expression,
+                                               OpSumFloat if temporal else OpSum,
                                                self.selection).add_tasks(df, binners)
-        [count_task] = AggregatorDescriptorBasic("count", self.expression, OpCount,
+        [count_task] = AggregatorDescriptorBasic("count", self.expression, OpCountValid,
                                                  self.selection).add_tasks(df, binners)
 
         unsigned = self._input_dtype(df).is_unsigned
@@ -988,8 +1044,8 @@ def sum(expression, selection=None, edges=False):  # noqa: A001
     return AggregatorDescriptorBasic("sum", expression, OpSum, selection, edges)
 
 
-def mean(expression, selection=None, edges=False):
-    return AggregatorDescriptorMean(expression, selection, edges)
+def mean(expression, selection=None, edges=False, as_float=False):
+    return AggregatorDescriptorMean(expression, selection, edges, as_float)
 
 
 def min(expression, selection=None, edges=False):  # noqa: A001

@@ -41,7 +41,7 @@ import torch
 from . import array_types
 from .datatype import DataType, dtype_of, has_torch_dtype
 from .ops.nullable import NA, DictNA
-from .utils import fingerprint, hash_array_data
+from .utils import fingerprint, hash_array_data, identity, tensor_key
 
 CPU = torch.device("cpu")
 
@@ -504,12 +504,37 @@ def take_column(col, index, mask=None):
 
 def concat_columns(columns):
     """The rows of ``columns`` one after another: a lazy
-    :class:`ColumnConcatenated`, or of strings one host column joined on the
-    host."""
+    :class:`ColumnConcatenated`; of strings staged on one device a
+    :class:`ColumnDictionary` over one sorted dictionary of all their labels
+    (:func:`merged_dictionary`), of other strings one host column joined on
+    the host."""
+    if all(isinstance(c, ColumnDictionary) for c in columns) and len(
+            {c.device for c in columns}) == 1:
+        return merged_dictionary(columns)
     if any(isinstance(c, STRINGS) for c in columns):
         return ColumnString(array_types.concat(
             [c[:] if isinstance(c, STRINGS) else c for c in columns]))
     return ColumnConcatenated(columns)
+
+
+def merged_dictionary(columns):
+    """Staged string columns one after another over one sorted dictionary of
+    their labels: each column's codes re-coded on its device through a
+    small table of its labels' places in the merged ones (its null code to
+    the merged null code), gathered by code; nothing goes to the host but
+    the labels."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    labels = pa.concat_arrays([c.labels.cast(pa.string()) for c in columns])
+    merged = pc.array_sort_indices(pc.unique(labels.drop_null()))
+    merged = pc.take(pc.unique(labels.drop_null()), merged)
+    parts = []
+    for c in columns:
+        places = np.asarray(pc.index_in(c.labels.cast(pa.string()), value_set=merged)
+                            .fill_null(len(merged)), np.int32)
+        table = torch.from_numpy(np.append(places, np.int32(len(merged)))).to(c.device)
+        parts.append(table.index_select(0, c.codes.to(torch.int64)))
+    return ColumnDictionary(torch.cat(parts), merged)
 
 
 def placed_device(col):
@@ -605,6 +630,37 @@ def column_fingerprint(col):
         parts.append(hash_array_data(array_types.to_numpy(col[::step])))
         parts.append(hash_array_data(array_types.to_numpy(col[n - 1000:n])))
     return fingerprint("col-sampled", parts) + f"-n{n}"
+
+
+def column_key(col):
+    """(an exact key of a column's values, whether it is a content key):
+    a tensor by its identity and version (:func:`.utils.tensor_key`: no
+    content key), a host array by a hash of all its bytes, an arrow array
+    by all its buffers, a lazy column by its parts.  Unlike
+    :func:`column_fingerprint` it never samples."""
+    if isinstance(col, torch.Tensor):
+        return tensor_key(col), False
+    if isinstance(col, (np.ndarray, np.ma.MaskedArray)):
+        return ("array", hash_array_data(col)), True
+    if isinstance(col, ColumnString):
+        return ("strings", col.fingerprint()), True
+    if isinstance(col, (ColumnVirtualConstant, ColumnVirtualRange)):
+        return col.fingerprint(), True
+    fixed = ()  # what besides its parts decides the values
+    if isinstance(col, ColumnDictionary):
+        parts, fixed = [col.codes], _arrow_fingerprint(col.labels)
+    elif isinstance(col, ColumnMasked):
+        parts = [col.data, col.mask]
+    elif isinstance(col, ColumnIndexed):
+        parts = [col.source, col.index, col.mask]
+    elif isinstance(col, ColumnConcatenated):
+        parts = col.columns
+    elif isinstance(col, LazyColumn) and hasattr(col, "key_parts"):
+        parts, fixed = col.key_parts()
+    else:  # an object no content hash covers: its identity
+        return ("object", identity(col)), False
+    keys = [(None, True) if p is None else column_key(p) for p in parts]
+    return (type(col).__name__, fixed, [k for k, _ in keys]), all(c for _, c in keys)
 
 
 def is_masked(col):

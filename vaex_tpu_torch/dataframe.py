@@ -49,7 +49,7 @@ from . import agg as agg_module
 from . import array_types, expresso, settings
 from . import selections as selections_module
 from .column import (STRINGS, ColumnDictionary, ColumnMasked, ColumnString,
-                     ColumnVirtualConstant, column_to, placed_device)
+                     ColumnVirtualConstant, column_to, placed_device, tile_of)
 from .column import is_masked as column_is_masked
 from .dataset import Dataset, DatasetArrays
 from .datatype import DataType, dtype_of, host_values
@@ -59,7 +59,7 @@ from .expression import Expression, _set_of
 from .ops.nullable import NA, DictNA
 from .ops.binners import BinnerOrdinal, BinnerScalar
 from .scopes import HostScope, classify_leaves, expression_is_device, host_chunk
-from .tasks import TaskFilterMask, TaskMapIndex, TaskSetCreate
+from .tasks import TaskFilterMask, TaskMapIndex, TaskMapReduce, TaskSetCreate
 from .utils import find_valid_name, fingerprint, valid_expression_name
 
 class DataFrame:
@@ -85,6 +85,11 @@ class DataFrame:
         self._filter = None  # the boolean expression of a filtered frame
         self._filtered_length = None
         self._dtypes = {}  # (expression, virtual columns) -> (dataset, DataType)
+        self.functions = {}  # name -> the Python function of a UDF (add_function)
+        self._function_impls = {}  # name -> its host implementation over host arrays
+        self.units = {}
+        # (start, stop, the whole dataset) while an active range is set
+        self._active_range = None
 
     def copy(self, column_names=None):
         df = DataFrame.__new__(DataFrame)
@@ -101,6 +106,10 @@ class DataFrame:
         df._filter = self._filter
         df._filtered_length = self._filtered_length
         df._dtypes = dict(self._dtypes)
+        df.functions = dict(self.functions)
+        df._function_impls = dict(self._function_impls)
+        df.units = dict(self.units)
+        df._active_range = self._active_range
         return df
 
     # ----------------------------------------------------------- variables
@@ -122,6 +131,39 @@ class DataFrame:
         (sampled), the filter, the virtual columns and the variables."""
         return fingerprint("dataframe", self.dataset.fingerprint(), self._filter,
                            self.virtual_columns, self.variables)
+
+    def _cache_key(self, expressions):
+        """(an exact key of what a pass over ``expressions`` reads, whether it
+        is a content key): the columns they and the filter read
+        (:meth:`.dataset.Dataset.cache_key`), the filter, the virtual
+        columns, the variables and the functions they name.  A tensor counts
+        by its identity and version, a set or a function by its identity
+        (:func:`.utils.identity`): what the key names can change only as
+        the key does."""
+        from .column import _arrow_fingerprint
+        from .utils import identity, tensor_key
+        columns, variables, functions = set(), set(), set()
+        for expression in [*expressions, *([self._filter] if self._filter else [])]:
+            f, c, v = classify_leaves(self, expression)
+            functions |= f
+            columns |= c
+            variables |= v
+        dataset_key, content = self.dataset.cache_key(columns & set(self.dataset))
+        values = {}
+        for name in sorted(variables):
+            value = self.variables[name]
+            if isinstance(value, torch.Tensor):
+                values[name], content = tensor_key(value), False
+            elif isinstance(value, (np.ndarray, str, int, float, np.generic)) or value is None:
+                values[name] = fingerprint(value)
+            elif array_types.is_arrow(value):  # immutable: all its buffers
+                values[name] = _arrow_fingerprint(value)
+            else:  # a set, built once and not changed after
+                values[name], content = identity(value), False
+        udfs = {name: identity(self.functions[name]) for name in sorted(functions)
+                if name in self.functions}
+        return (dataset_key, self._filter, sorted(self.virtual_columns.items()), values,
+                udfs), content and not udfs
 
     # -------------------------------------------------------------- filters
     @property
@@ -317,6 +359,7 @@ class DataFrame:
         df = self.copy()
         df.dataset = dataset
         df._filtered_length = None
+        df._active_range = None
         if not keep_filter:
             df._filter = None
         return df
@@ -606,7 +649,7 @@ class DataFrame:
         if missing:
             raise NameError(f"column(s) {sorted(missing)} do not exist")
         scope = HostScope({name: host_chunk(self.dataset, name, i1, i2) for name in columns},
-                          self.variables, self.virtual_columns, i2 - i1)
+                          self.variables, self.virtual_columns, i2 - i1, self._function_impls)
         value = scope.evaluate_raw(str(expression))
         return value if array_types.is_arrow(value) else array_types.to_numpy(value)
 
@@ -719,7 +762,7 @@ class DataFrame:
         return self.limits(binby, limits)
 
     def _compute_agg(self, name, expression, binby=(), limits=None, shape=128,
-                     selection=None, delay=False, edges=False, **agg_kwargs):
+                     selection=None, delay=False, edges=False, progress=None, **agg_kwargs):
         """One statistic of an expression, or of each of a list of them,
         over the grid of ``binby``, for one selection or each of a list of
         them: a list of selections stacks on a leading axis, inside the axis
@@ -751,56 +794,67 @@ class DataFrame:
             if many and k > 1:
                 out = [np.stack(out[i:i + k]) for i in range(0, len(out), k)]
             return np.stack(out) if multi else out[0]
-        return self._delay(delay, finish(*promises))
+        return self._delay(delay, finish(*promises), progress)
 
-    def _delay(self, delay, result):
+    def _delay(self, delay, result, progress=None):
+        """The result, after the passes it needs (with ``progress``, a
+        callable, True or "simple", told of each tile: :mod:`.progress`);
+        with ``delay`` the promise."""
         if delay:
             return result
         if not result.done:  # a result that needed no pass flushes nothing
-            self.execute()
+            from .progress import scoped_progress
+            with scoped_progress(self.executor, progress):
+                self.execute()
         return result.get()
 
+    async def execute_async(self):
+        """Run the queued passes (vaex_tpu/dataframe.py:745): they run
+        eagerly, so this awaits nothing."""
+        self.execute()
+
     def count(self, expression=None, binby=(), limits=None, shape=128, selection=None,
-              delay=False, edges=False):
+              delay=False, edges=False, progress=None):
         return self._compute_agg("count", expression, binby, limits, shape, selection, delay,
-                                 edges)
+                                 edges, progress=progress)
 
     def sum(self, expression, binby=(), limits=None, shape=128, selection=None, delay=False,
-            edges=False):
+            edges=False, progress=None):
         return self._compute_agg("sum", expression, binby, limits, shape, selection, delay,
-                                 edges)
+                                 edges, progress=progress)
 
     def mean(self, expression, binby=(), limits=None, shape=128, selection=None, delay=False,
-             edges=False):
+             edges=False, progress=None):
         return self._compute_agg("mean", expression, binby, limits, shape, selection, delay,
-                                 edges)
+                                 edges, progress=progress)
 
     def min(self, expression, binby=(), limits=None, shape=128, selection=None, delay=False,
-            edges=False):
+            edges=False, progress=None):
         return self._compute_agg("min", expression, binby, limits, shape, selection, delay,
-                                 edges)
+                                 edges, progress=progress)
 
     def max(self, expression, binby=(), limits=None, shape=128, selection=None, delay=False,
-            edges=False):
+            edges=False, progress=None):
         return self._compute_agg("max", expression, binby, limits, shape, selection, delay,
-                                 edges)
+                                 edges, progress=progress)
 
     def var(self, expression, binby=(), limits=None, shape=128, selection=None, delay=False,
-            edges=False, ddof=0):
+            edges=False, ddof=0, progress=None):
         return self._compute_agg("var", expression, binby, limits, shape, selection, delay,
-                                 edges, ddof=ddof)
+                                 edges, ddof=ddof, progress=progress)
 
     def std(self, expression, binby=(), limits=None, shape=128, selection=None, delay=False,
-            edges=False, ddof=0):
+            edges=False, ddof=0, progress=None):
         return self._compute_agg("std", expression, binby, limits, shape, selection, delay,
-                                 edges, ddof=ddof)
+                                 edges, ddof=ddof, progress=progress)
 
     def first(self, expression, order_expression=None, binby=(), limits=None, shape=128,
-              selection=None, delay=False, edges=False):
+              selection=None, delay=False, edges=False, progress=None):
         """Per cell the value at the smallest ``order_expression`` (the
         expression itself when none is given); ties go to the earliest row."""
         return self._compute_agg(
             "first", expression, binby, limits, shape, selection, delay, edges,
+            progress=progress,
             order_expression=None if order_expression is None else str(order_expression))
 
     def nunique(self, expression, dropna=False, dropnan=False, dropmissing=False, binby=(),
@@ -812,7 +866,8 @@ class DataFrame:
         grid counted by the additive kernels, or sorted (cell, value) pairs
         past ``agg.NUNIQUE_PRESENCE_MAX`` cells (:mod:`.agg`)."""
         return self._compute_agg("nunique", expression, binby, limits, shape, selection, delay,
-                                 edges, dropna=dropna, dropnan=dropnan, dropmissing=dropmissing)
+                                 edges, progress=progress, dropna=dropna, dropnan=dropnan,
+                                 dropmissing=dropmissing)
 
     def minmax(self, expression, binby=(), limits=None, shape=128, selection=None,
                delay=False):
@@ -1112,7 +1167,8 @@ class DataFrame:
         moments = [n for n in numeric if types[n].numpy.kind != "M"]
         N = len(self)
         counts = {n: self.count(n, selection=selection, delay=True) for n in names}
-        means = {n: self.mean(n, selection=selection, delay=True) for n in moments}
+        means = {n: self._compute_agg("mean", n, selection=selection, delay=True,
+                                      as_float=True) for n in moments}
         stds = {n: self.std(n, selection=selection, delay=True) for n in moments}
         minmaxes = {n: self.minmax(n, selection=selection, delay=True) for n in numeric}
         self.execute()
@@ -1193,6 +1249,7 @@ class DataFrame:
         out = dfs[0]._rebind_dataset(dataset)
         out.column_names = [n for n in out.column_names
                             if n in dataset or n in out.virtual_columns]
+        out._categories = _concat_categories(dfs, dataset)
         return out
 
     def _index(self, expression):
@@ -1464,8 +1521,13 @@ class DataFrame:
             if staged:
                 value = df._evaluate_tile(name, 0, df.dataset.row_count, filtered=False)
                 data = value.data.contiguous()
-                values = data if value.mask is None else ColumnMasked(data, value.mask)
-                logical = value.logical
+                if isinstance(value, DictNA):  # strings: the codes over their labels
+                    if value.mask is not None:
+                        data = data.masked_fill(value.mask, len(value.labels))
+                    values, logical = ColumnDictionary(data.to(torch.int32), value.labels), None
+                else:
+                    values = data if value.mask is None else ColumnMasked(data, value.mask)
+                    logical = value.logical
             else:
                 values, logical = df.evaluate(name, filtered=False), None
             del df.virtual_columns[name]
@@ -1554,7 +1616,7 @@ class DataFrame:
         return self._evaluate_tile(column, 0, 1, filtered=False).mask is not None
 
     def length_original(self):
-        return self.dataset.row_count
+        return (self._active_range[2] if self._active_range else self.dataset).row_count
 
     def length_unfiltered(self):
         return self.dataset.row_count
@@ -1593,9 +1655,195 @@ class DataFrame:
         df.dataset = DatasetArrays(columns, self.dataset.logical, device)
         return df
 
+    # ---------------------------------------------------------- the API tail
+    def set_active_range(self, i1, i2):
+        """Work on rows [i1, i2) of the whole dataset only, in place
+        (vaex_tpu/dataframe.py:425-433): every pass, ``len`` and ``evaluate``
+        see those rows; ``length_original`` counts all."""
+        full = self._active_range[2] if self._active_range else self.dataset
+        self.dataset = full.slice(i1, i2)
+        self._active_range = (int(i1), int(i2), full)
+        self._filtered_length = None
+
+    def set_active_fraction(self, fraction):
+        self.set_active_range(0, int(fraction * self.length_original()))
+
+    def _active_bounds(self):
+        """[start, stop) of the active range in the whole dataset."""
+        if self._active_range:
+            return self._active_range[:2]
+        return 0, self.dataset.row_count
+
+    @property
+    def columns(self):
+        """The dataset: a mapping of the physical columns."""
+        return self.dataset
+
+    @property
+    def col(self):
+        """``df.col.x`` is ``df["x"]``."""
+        return _Columns(self)
+
+    def unit(self, expression):
+        return self.units.get(str(expression))
+
+    def __iter__(self):
+        return iter(self.get_column_names())
+
+    def close(self):
+        self.dataset.close()
+
     def __repr__(self):
-        return (f"<vaex_tpu_torch.DataFrame rows={len(self)} "
-                f"columns={self.get_column_names()}>")
+        from .formatting import format_dataframe
+        return format_dataframe(self)
+
+    def _repr_html_(self):
+        return "<pre>" + self.__repr__() + "</pre>"
+
+    # ----------------------------------------------------- state, pickling
+    def state_get(self, skip=None):
+        """The frame's state (:mod:`.encoding`), vaex_tpu's format."""
+        from .encoding import state_get
+        return state_get(self)
+
+    def state_set(self, state, use_active_range=False, keep_columns=None, set_filter=True,
+                  trusted=True, warn=True):
+        from .encoding import state_set
+        return state_set(self, state, set_filter=set_filter, trusted=trusted)
+
+    def state_write(self, file, fs_options=None, fs=None):
+        import json
+        with open(file, "w") as f:
+            json.dump(self.state_get(), f)
+
+    def state_load(self, file, use_active_range=False, keep_columns=None, set_filter=True,
+                   trusted=True, fs_options=None, fs=None):
+        import json
+        with open(file) as f:
+            return self.state_set(json.load(f), set_filter=set_filter, trusted=trusted)
+
+    def __reduce__(self):
+        """A pickle of the columns as host arrays and the state; the frame
+        comes back staged to the kind of device it was staged to (a "cuda"
+        frame to ``settings.DEVICE``), or unstaged (vaex_tpu/dataframe.py:
+        1922-1932).  A staged string column's codes come back with it."""
+        full = self._active_range[2] if self._active_range else self.dataset
+        codes = {m.get("codes_column") for m in self._categories.values()}
+        columns = {name: _host_column(full, name) for name in full
+                   if not (name in codes and isinstance(full[name], torch.Tensor))}
+        device = None if full.device is None else full.device.type
+        return _unpickle, (columns, dict(full.logical), device, self.state_get())
+
+    # ------------------------------------------------------------- UDFs
+    def add_function(self, name, f, vectorize=True, unique=False, multiprocessing=False):
+        """Name a Python function in this frame's expressions
+        (vaex_tpu/dataframe.py:304-327): it runs on the host over host
+        arrays, so an expression that calls it is evaluated in the host
+        stage of a pass and its result copied to the pass device; with
+        ``vectorize`` it takes whole arrays, else one row at a time; with
+        ``multiprocessing`` the rows are split over a pool of processes
+        (:func:`.multiprocessing.apply_parallel`).  Returns the name."""
+        from .utils import identity
+        if unique:
+            name = f"__fn_{name}_{identity(f)}"
+        name = find_valid_name(name)
+        self.functions[name] = f
+
+        def host_impl(*args, _f=f, _vectorize=vectorize, _mp=multiprocessing):
+            datas = [a if np.isscalar(a) else array_types.to_numpy(a) for a in args]
+            if _mp:
+                from .multiprocessing import apply_parallel
+                return apply_parallel(_f, datas, vectorize=_vectorize)
+            if _vectorize:
+                return np.asarray(_f(*datas))
+            return np.asarray([_f(*row) for row in zip(*datas)])
+        self._function_impls[name] = host_impl
+        self._dtypes = {}
+        return name
+
+    def apply(self, f, arguments=None, vectorize=True, multiprocessing=False):
+        """An expression of ``f`` over ``arguments`` (expressions), a
+        Python function on the host (:meth:`add_function`;
+        vaex_tpu/dataframe.py:1153-1158)."""
+        arguments = [str(a) for a in (arguments or [])]
+        name = self.add_function(getattr(f, "__name__", "lambda"), f, vectorize=vectorize,
+                                 unique=True, multiprocessing=multiprocessing)
+        return Expression(self, f"{name}({', '.join(arguments)})")
+
+    def map_reduce(self, map_fn, reduce_fn, expressions, delay=False, name="map reduce",
+                   info=False, to_numpy=True, ignore_filter=False, pre_filter=False,
+                   selection=None, progress=None):
+        """``reduce_fn`` over ``map_fn`` of each tile's values of
+        ``expressions`` as host arrays (with ``info`` ``map_fn(i1, i2,
+        *values)``; with ``pre_filter`` only the rows the filter keeps):
+        one pass (vaex_tpu/dataframe.py:1455-1461)."""
+        task = TaskMapReduce(self, [str(e) for e in expressions], map_fn, reduce_fn, name=name,
+                             pre_filter=pre_filter and self.filtered, info=info)
+        self.executor.schedule(task)
+        return self._delay(delay, task, progress)
+
+
+def _concat_categories(dfs, dataset):
+    """The categories of a concatenation of ``dfs`` over ``dataset``: a
+    string column staged in every frame keeps one category over the merged
+    dictionary of its labels, its codes column the merged codes; another
+    category stays where every frame has it alike (integer labels may
+    grow: one frame's labels the start of the next's, at one ``min_value``),
+    and is dropped otherwise, so that the key is read from its values."""
+    out = {}
+    for name, meta in dfs[0]._categories.items():
+        if "column" in meta:  # derived from a dictionary column: derived again
+            continue
+        metas = [df._categories.get(name) for df in dfs]
+        codes = meta.get("codes_column")
+        if any(m is None for m in metas):
+            continue
+        if codes is not None and isinstance(dataset.get(name), ColumnDictionary) and all(
+                m.get("codes_column") == codes and df._is_physical(codes)
+                for df, m in zip(dfs, metas)):
+            col = dataset[name]
+            dataset._columns[codes] = col.codes
+            out[name] = _string_category(col.labels, col.has_null, codes)
+            continue
+        if any(m.get("codes_column") != codes or m["min_value"] != meta["min_value"]
+               for m in metas):
+            continue
+        longest = max(metas, key=lambda m: m["N"])
+        labels = list(longest["labels"])
+        if all(list(m["labels"]) == labels[:m["N"]] for m in metas):
+            out[name] = dict(longest)
+    return out
+
+
+class _Columns:
+    def __init__(self, df):
+        self._df = df
+
+    def __getattr__(self, name):
+        return self._df[name]
+
+
+def _host_column(dataset, name):
+    """A column as host values for a pickle: a tensor or a lazy column as a
+    numpy (masked) array of its logical dtype, staged strings as an arrow
+    dictionary array, host arrays as they are."""
+    col = dataset[name]
+    if isinstance(col, (np.ndarray, ColumnString, ColumnVirtualConstant)):
+        return col.array if isinstance(col, ColumnString) else col
+    if isinstance(col, ColumnDictionary):
+        return col[:]
+    part = tile_of(col, 0, dataset.row_count)
+    data = host_values(array_types.to_numpy(part.data), dataset.logical.get(name))
+    return data if part.mask is None else np.ma.MaskedArray(data, array_types.to_numpy(part.mask))
+
+
+def _unpickle(columns, logical, device, state):
+    """The frame ``DataFrame.__reduce__`` pickled: staged again to a device
+    of its kind ("cuda": ``settings.DEVICE``), then its state."""
+    df = DataFrame(DatasetArrays(columns, logical))
+    if device is not None:
+        df = df.to_device(settings.DEVICE if device == "cuda" else device)
+    return df.state_set(state)
 
 
 def _ensure_list(x):

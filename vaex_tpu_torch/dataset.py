@@ -23,9 +23,9 @@ import numpy as np
 import torch
 
 from . import array_types
-from .column import (STRINGS, ColumnString, column_device, column_fingerprint, concat_columns,
-                     slice_column, take_column)
-from .datatype import dtype_of, needs_logical
+from .column import (STRINGS, ColumnString, column_device, column_fingerprint, column_key,
+                     concat_columns, slice_column, take_column)
+from .datatype import DataType, dtype_of, needs_logical
 from .utils import fingerprint, hash_array_data
 
 
@@ -75,6 +75,29 @@ class Dataset(collections.abc.Mapping):
                                           str(dtype_of(self._columns[name])),
                                           str(self.logical.get(name)))
         return self._ids[name]
+
+    def cache_key(self, names=None):
+        """(an exact key of the columns ``names`` (all by default), whether
+        it is a content key): :func:`.column.column_key` of each, its
+        logical dtype and the row count."""
+        keys = {name: column_key(self._columns[name])
+                for name in sorted(self if names is None else names)}
+        return (("dataset", self.row_count, {n: k for n, (k, _) in keys.items()},
+                 {n: str(self.logical.get(n)) for n in keys}),
+                all(content for _, content in keys.values()))
+
+    def close(self):
+        """Nothing to release: the columns are in memory (vaex_tpu/dataset.py:178)."""
+
+    def shallow_copy(self):
+        """The node itself: nodes are immutable (vaex_tpu/dataset.py:175)."""
+        return self
+
+    def dtypes(self):
+        """Each column's DataType (vaex_tpu/dataset.py:62), a logical one
+        where an int64 tensor stands for another dtype."""
+        return {name: DataType(self.logical[name]) if name in self.logical else dtype_of(col)
+                for name, col in self._columns.items()}
 
     def renamed(self, renaming) -> "Dataset":
         return DatasetRenamed(self, renaming)

@@ -34,8 +34,17 @@ device of the tensor columns: a staged string column's codes never leave
 it.  ``trace_log`` records each pass's host-stage expressions and the host
 time they took.
 
-Not ported yet (ROADMAP queue A): the whole-pass loop, the mesh, the
-result cache.
+Before it reads a row, a pass looks its cacheable tasks up in the result
+cache (:mod:`.cache`, vaex_tpu/execution.py:184-195) by the task's
+fingerprint and the frame's exact key, and stores what it computes; a pass
+whose tasks the cache served all reads nothing and counts no pass.  After
+each tile it emits ``signal_progress`` with the fraction of the rows done;
+a callback that returns ``False`` cancels the pass: ``signal_cancel``
+fires, its tasks reject with :class:`UserAbort`, and the executor takes
+the next queued pass.  ``signal_begin`` and ``signal_end`` frame a pass
+(vaex_tpu/execution.py:48-130).
+
+Not ported yet (ROADMAP queue A): the whole-pass loop, the mesh.
 """
 
 from __future__ import annotations
@@ -44,14 +53,18 @@ import time
 
 import torch
 
-from . import settings
+from . import cache, settings
 from .column import placed_device, tile_of
 from .datatype import rides_logical
 from .ops.nullable import NA, DictNA
 from .scopes import (DeviceScope, HostScope, column_names, expression_is_device, host_chunk,
                      resolve_variables, ship, variable_names)
 from .tasks import TaskAggregations
-from .utils import trace
+from .utils import Signal, trace
+
+
+class UserAbort(Exception):
+    """A progress callback cancelled the pass."""
 
 
 class TileContext:
@@ -98,6 +111,10 @@ class Executor:
         self.tasks = []
         self.passes = 0
         self.trace_log = []
+        self.signal_begin = Signal("begin")
+        self.signal_progress = Signal("progress")
+        self.signal_end = Signal("end")
+        self.signal_cancel = Signal("cancel")
 
     def schedule(self, task):
         self.tasks.append(task)
@@ -139,8 +156,13 @@ class ExecutorLocal(Executor):
                 raise
 
     def _execute_pass(self, df, tasks):
-        self.passes += 1
         t_start = time.perf_counter()
+        self.signal_begin.emit()
+        tasks = _from_cache(df, tasks)
+        if not tasks:
+            self.signal_end.emit()
+            return
+        self.passes += 1
         dataset = df.dataset_for_execution()
         filter_expression = df.filter_expression
         expressions = [expr for task in tasks for expr in task.expressions]
@@ -159,8 +181,16 @@ class ExecutorLocal(Executor):
                 ctx.row_valid = ctx.boolean(filter_expression)
             states = [t.update(s, ctx) for t, s in zip(tasks, states)]
             n_tiles += 1
+            progress = i2 / n_total if n_total else 1.0
+            if any(r is False for r in self.signal_progress.emit(progress)):
+                self.signal_cancel.emit()
+                for task in tasks:
+                    task.reject(UserAbort("user aborted"))
+                return
         for task, state in zip(tasks, states):
             task.finalize(state)
+            if getattr(task, "_cache_key", None) is not None:
+                cache.store(task._cache_key, task.result)
         self.trace_log.append({
             "pass": self.passes,
             "wall_s": time.perf_counter() - t_start,  # host enqueue time
@@ -182,6 +212,27 @@ class ExecutorLocal(Executor):
         })
         if len(self.trace_log) > 1000:
             del self.trace_log[:500]
+        self.signal_end.emit()
+
+
+def _from_cache(df, tasks):
+    """The tasks the result cache cannot serve; it fulfills the others.
+    Each cacheable task that misses keeps its key for the store."""
+    cacheable = [t for t in tasks if t.cacheable]
+    if not cacheable or not cache.is_on():
+        return tasks
+    frame, content = df._cache_key([e for t in cacheable for e in t.expressions])
+    remaining = []
+    for task in tasks:
+        if task.cacheable:
+            key = cache.key(task.fingerprint(), frame, content=content)
+            hit = cache.lookup(key)
+            if hit is not None:
+                task.fulfill(hit)
+                continue
+            task._cache_key = key
+        remaining.append(task)
+    return remaining
 
 
 class PassInputs:
@@ -205,7 +256,7 @@ class PassInputs:
         if self.host_expressions:
             t0 = time.perf_counter()
             host = HostScope({name: host_chunk(dataset, name, i1, i2) for name in self.host_names},
-                             df.variables, df.virtual_columns, i2 - i1)
+                             df.variables, df.virtual_columns, i2 - i1, df._function_impls)
             for expression in self.host_expressions:
                 scope.values[expression] = ship(host.evaluate_raw(expression), self.device,
                                                 i2 - i1)

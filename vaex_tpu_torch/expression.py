@@ -99,7 +99,14 @@ class Expression(metaclass=Meta):
         return self.expression
 
     def __repr__(self):
-        return f"Expression({self.expression!r})"
+        """Its first values, its length and dtype (vaex_tpu/expression.py:120-125)."""
+        from .formatting import format_expression_preview
+        return format_expression_preview(self)
+
+    @property
+    def ast(self):
+        """The expression's Python syntax tree (vaex_tpu/expression.py:114)."""
+        return expresso.parse_expression(self.expression)
 
     def __hash__(self):
         return hash((id(self.df), self.expression))
@@ -211,6 +218,27 @@ class Expression(metaclass=Meta):
         (:meth:`~vaex_tpu_torch.dataframe.DataFrame.evaluate`)."""
         return self.df.evaluate(self.expression, i1, i2, out, selection, filtered, array_type)
 
+    def nop(self):
+        """Evaluate and drop the values (vaex_tpu/expression.py:257)."""
+        self.evaluate()
+
+    def jit(self, verbose=False):
+        """The expression itself: vaex_tpu's jit_numba / jit_jax are the
+        identity (vaex_tpu/expression.py:366-373), and a pass evaluates it
+        on the card as it is."""
+        return Expression(self.df, self.expression)
+
+    jit_numba = jit
+    jit_jax = jit
+
+    def apply(self, f, vectorize=False, multiprocessing=False):
+        """``f`` of this expression, a Python function on the host
+        (:meth:`~vaex_tpu_torch.dataframe.DataFrame.add_function`;
+        vaex_tpu/expression.py:375-380): row by row unless ``vectorize``."""
+        name = self.df.add_function(getattr(f, "__name__", "lambda"), f, vectorize=vectorize,
+                                    unique=True, multiprocessing=multiprocessing)
+        return Expression(self.df, f"{name}({self.expression})")
+
     @property
     def values(self):
         return self.evaluate()
@@ -276,8 +304,16 @@ class Expression(metaclass=Meta):
     def map(self, mapper):
         """Each value through the dict ``mapper`` (numbers or strings, keys
         and values); a value that is not a key gives a missing value."""
-        keys = _host_values(list(mapper.keys()))
-        values = _host_values(list(mapper.values()))
+        items = list(mapper.items())
+        if self.df.data_type(self.expression).numpy == np.uint64 and all(
+                isinstance(k, (int, np.integer)) and not isinstance(k, bool) for k, _ in items):
+            # ints as uint64 keys (numpy would make those past 2^63 beside small
+            # ones float64); a key no uint64 holds matches no row
+            items = [(k, v) for k, v in items if 0 <= int(k) < 2 ** 64]
+            keys = np.array([int(k) for k, _ in items], dtype=np.uint64)
+        else:
+            keys = _host_values([k for k, _ in items])
+        values = _host_values([v for _, v in items])
         oset = _set_of(keys)
         # the choices in ordinal order of the keys
         choices = np.zeros(oset.count, dtype=values.dtype) if values.dtype != object else (

@@ -31,10 +31,10 @@ import numpy as np
 import torch
 
 from . import array_types
-from .datatype import _TORCH_TO_NUMPY, torch_dtype
+from .datatype import _TORCH_TO_NUMPY, TOP, torch_dtype
 from .ops import setops
-from .ops.nullable import (NA, UINT64, UNSIGNED_PENDING, DictNA, HostStage, as_operand, lift,
-                           refuse_temporal, unsigned_float)
+from .ops.nullable import (NA, UINT64, DictNA, HostStage, as_operand, lift, refuse_temporal,
+                           unsigned_divmod, unsigned_float, unsigned_pow)
 from .registry import expression_namespace, expression_namespace_host, register_function
 
 
@@ -63,6 +63,11 @@ def _notna(x):
 
 
 def _where(cond, a, b):
+    if _has_unsigned((a, b)):  # numpy's dtype of the pair: uint64 bits or float64
+        cond = _na(cond)
+        dtype, (a, b) = _unsigned_operands((a, b))
+        mask = _mask_or_all([cond, a, b])
+        return NA(torch.where(cond.data.to(torch.bool), a.data, b.data), mask, dtype)
     logical = {v.logical for v in (a, b) if isinstance(v, NA)} - {None}
     if logical and (len(logical) > 1 or not all(isinstance(v, NA) for v in (a, b))):
         refuse_temporal("where", a, b)
@@ -94,19 +99,29 @@ def _float_to_int(data, target):
 
 
 def _astype_unsigned(x, dtype):
-    """astype from or to uint64: to float the unsigned value, to int64 or
-    from an int the same bits (numpy wraps alike), to uint64 itself."""
+    """astype from or to uint64, as numpy casts: to a float the unsigned
+    value, to a signed int or bool the low bits (numpy wraps alike), from an
+    int the same bits, from a float its value's bits (NaN and what lies
+    outside [0, 2^64) as 0), to uint64 itself."""
     if x.logical == UINT64:
         if dtype == UINT64:
             return x
         if dtype.kind == "f":
             return NA(unsigned_float(x.data).to(torch_dtype(dtype)), x.mask)
-        if dtype == np.int64:
-            return NA(x.data, x.mask)
-    elif not x.data.is_floating_point() and x.logical is None:
+        if dtype.kind in "ib":
+            return NA(x.data != 0 if dtype.kind == "b" else x.data.to(torch_dtype(dtype)),
+                      x.mask)
+    elif x.logical is None and x.data.is_floating_point():
+        f = x.data.to(torch.float64)
+        ok = (f >= 0) & (f < 2.0 ** 64)
+        f = torch.where(ok, f, 0.0)
+        high = f >= 2.0 ** 63
+        bits = torch.where(high, (f - 2.0 ** 64).trunc(), f.trunc()).to(torch.int64)
+        return NA(bits, x.mask, UINT64)
+    elif x.logical is None:
         return NA(x.data.to(torch.int64), x.mask, UINT64)
-    raise NotImplementedError(f"astype of a {x.logical or x.dtype} value to {dtype} is "
-                              f"{UNSIGNED_PENDING}")
+    raise TypeError(f"astype of a {x.logical or x.dtype} value to {dtype}: the port keeps "
+                    f"no narrower unsigned type in an expression")
 
 
 def _astype(x, dtype):
@@ -179,8 +194,10 @@ register_function(name="_choose", device=_choose)(None)
 
 def _numpy_type(a):
     """What ``numpy.result_type`` takes for an argument: the numpy dtype of
-    a tensor, a Python number as it is (weak)."""
+    a tensor (uint64 for a uint64 value), a Python number as it is (weak)."""
     if isinstance(a, NA):
+        if a.logical == UINT64:
+            return UINT64
         a = a.data
     if isinstance(a, torch.Tensor):
         return _TORCH_TO_NUMPY[a.dtype]
@@ -211,11 +228,15 @@ def _device(args):
 def _operands(args, dtype):
     """``args`` as NA values of ``dtype`` on one device (a Python number as
     a 0-dim tensor there)."""
-    refuse_temporal("this function", *args)
+    refuse_temporal("this function", *(a for a in args
+                                        if not (isinstance(a, NA) and a.logical == UINT64)))
     device = _device(args)
     out = []
     for a in args:
-        if isinstance(a, NA):
+        if isinstance(a, NA) and a.logical == UINT64:  # its unsigned value
+            data = unsigned_float(a.data) if dtype.is_floating_point else a.data
+            out.append(NA(data.to(dtype), a.mask))
+        elif isinstance(a, NA):
             out.append(NA(a.data.to(dtype), a.mask))
         elif isinstance(a, torch.Tensor):
             out.append(NA(a.to(device=device, dtype=dtype)))
@@ -224,12 +245,64 @@ def _operands(args, dtype):
     return out
 
 
-def _elementwise(op, inexact=False):
+def _elementwise(op, inexact=False, unsigned=None):
     """A registered function: ``op`` of the tensors of its arguments, cast to
-    their numpy result dtype (a float one with ``inexact``), masks OR-ed."""
+    their numpy result dtype (a float one with ``inexact``), masks OR-ed;
+    where that dtype is uint64, ``unsigned`` of their bits."""
     def impl(*args):
+        if _has_unsigned(args) and not inexact:
+            dtype, operands = _unsigned_operands(args)
+            if dtype == UINT64:
+                value = unsigned(*(a.data for a in operands))
+                return NA(value, _mask_or_all(operands),
+                          UINT64 if value.dtype == torch.int64 else None)
+            return lift(op, *operands)
         return lift(op, *_operands(args, _result_dtype(args, inexact)))
     return impl
+
+
+def _has_unsigned(args):
+    return any(isinstance(a, NA) and a.logical == UINT64 for a in args)
+
+
+def _mask_or_all(values):
+    mask = None
+    for v in values:
+        if isinstance(v, NA) and v.mask is not None:
+            mask = v.mask if mask is None else mask | v.mask
+    return mask
+
+
+def _unsigned_operands(args):
+    """(numpy's result dtype, the arguments as NA values of it) where one is
+    a uint64 value: uint64 (their bits: a bool's 0 or 1, a Python int's
+    two's complement) or a float (a uint64's unsigned value)."""
+    dtype = np.result_type(*[_numpy_type(a) for a in args])
+    device = _device(args)
+    out = []
+    for a in args:
+        unsigned = isinstance(a, NA) and a.logical == UINT64
+        if isinstance(a, NA):
+            data, mask = a.data, a.mask
+        else:
+            value = np.asarray(a)
+            if dtype == UINT64 and value.dtype.kind in "iu":
+                value = value.astype(np.uint64).view(np.int64)
+            data, mask = torch.as_tensor(value, device=device), None
+        if dtype == UINT64:
+            data = data.to(torch.int64)
+        else:
+            data = (unsigned_float(data) if unsigned else data).to(torch_dtype(dtype))
+        out.append(NA(data, mask))
+    return (UINT64 if dtype == UINT64 else None), out
+
+
+def _umax(a, b):
+    return torch.where((a ^ TOP) >= (b ^ TOP), a, b)
+
+
+def _umin(a, b):
+    return torch.where((a ^ TOP) <= (b ^ TOP), a, b)
 
 
 def _cbrt(x):
@@ -281,21 +354,26 @@ _FLOAT_UNARY = {
 }
 _FLOAT_BINARY = {"arctan2": torch.atan2, "hypot": torch.hypot, "copysign": torch.copysign,
                  "logaddexp": torch.logaddexp}
-# computed in the arguments' result dtype
-_SAME_UNARY = {"sign": _sign, "isfinite": torch.isfinite, "isinf": torch.isinf}
-_SAME_BINARY = {"maximum": torch.maximum, "minimum": torch.minimum, "power": _power,
-                "fmod": _fmod}
+# computed in the arguments' result dtype; where that is uint64, on the
+# bits by the second function
+_SAME_UNARY = {"sign": (_sign, lambda a: (a != 0).to(torch.int64)),
+               "isfinite": (torch.isfinite, lambda a: torch.ones_like(a, dtype=torch.bool)),
+               "isinf": (torch.isinf, lambda a: torch.zeros_like(a, dtype=torch.bool))}
+_SAME_BINARY = {"maximum": (torch.maximum, _umax), "minimum": (torch.minimum, _umin),
+                "power": (_power, unsigned_pow), "fmod": (_fmod, lambda a, b: unsigned_divmod(a, b)[1])}
 
 for _name, _op in {**_FLOAT_UNARY, **_FLOAT_BINARY}.items():
     register_function(name=_name, device=_elementwise(_op, inexact=True))(None)
-for _name, _op in {**_SAME_UNARY, **_SAME_BINARY}.items():
-    register_function(name=_name, device=_elementwise(_op))(None)
+for _name, (_op, _unsigned) in {**_SAME_UNARY, **_SAME_BINARY}.items():
+    register_function(name=_name, device=_elementwise(_op, unsigned=_unsigned))(None)
 
 
 def _round(x, decimals=0):
     """numpy's round: half to even; an int column as it is, or rounded to a
     power of ten for negative ``decimals``; a bool column as float64."""
     x = _na(x)
+    if x.logical == UINT64 and decimals >= 0:  # numpy keeps an int as it is
+        return x
     refuse_temporal("round", x)
     data = x.data
     if data.dtype == torch.bool:
@@ -310,6 +388,16 @@ def _round(x, decimals=0):
 
 def _clip(x, a_min=None, a_max=None):
     bounds = [b for b in (a_min, a_max) if b is not None]
+    if _has_unsigned([x]):
+        dtype, (x, *limits) = _unsigned_operands([x] + bounds)
+        data = x.data
+        for bound, limit in zip([b for b in (a_min, a_max) if b is not None], limits):
+            if dtype == UINT64:
+                data = _umax(data, limit.data) if bound is a_min else _umin(data, limit.data)
+            else:
+                data = torch.maximum(data, limit.data) if bound is a_min else torch.minimum(
+                    data, limit.data)
+        return NA(data, x.mask, dtype)
     x = _operands([x], _result_dtype([x] + bounds))[0]
     return NA(torch.clamp(x.data, a_min, a_max), x.mask)
 
@@ -348,23 +436,45 @@ def _searchsorted(ar, values, side="left"):
     (the arguments are in the opposite order to numpy's, as
     vaex_tpu/functions.py:105-116 has them)."""
     ar = _na(ar)
-    dtype = _result_dtype([ar, values])
-    boundaries = _sorted_array(values, dtype, ar.data.device)
-    return NA(_search(boundaries, ar.data.to(dtype), side == "right"), ar.mask)
+    boundaries, q = _search_operands(ar, values)
+    return NA(_search(boundaries, q, side == "right"), ar.mask)
+
+
+def _search_operands(x, values):
+    """(the sorted ``values``, ``x``'s data), both in numpy's result dtype;
+    uint64 values as their order images, which sort as they do."""
+    if _has_unsigned([x]) or np.asarray(_host_values(values)).dtype == UINT64:
+        values = _host_values(values)
+        dtype, (x, v) = _unsigned_operands([x, NA(torch.as_tensor(
+            values.view(np.int64) if values.dtype == UINT64 else values), None,
+            UINT64 if values.dtype == UINT64 else None)])
+        v = v.data.to(x.data.device)
+        if dtype == UINT64:
+            return v ^ TOP, x.data ^ TOP
+        return v, x.data
+    dtype = _result_dtype([x, values])
+    return _sorted_array(values, dtype, x.data.device), x.data.to(dtype)
+
+
+def _host_values(values):
+    if isinstance(values, NA):
+        values = values.data
+    if isinstance(values, torch.Tensor):
+        values = values.cpu().numpy()
+    return np.asarray(values)
 
 
 def _digitize(x, bins, right=False):
     """numpy's digitize: the bin of each value among increasing or
     decreasing ``bins`` (checked on the host)."""
     x = _na(x)
-    dtype = _result_dtype([x, bins])
-    boundaries = _sorted_array(bins, dtype, x.data.device)
+    boundaries, q = _search_operands(x, bins)
     step = np.diff(_host_list(bins))
     if (step >= 0).all():
-        return NA(_search(boundaries, x.data.to(dtype), not right), x.mask)
+        return NA(_search(boundaries, q, not right), x.mask)
     if not (step <= 0).all():
         raise ValueError("bins must be monotonically increasing or decreasing")
-    flipped = _search(boundaries.flip(0), x.data.to(dtype), not right)
+    flipped = _search(boundaries.flip(0), q, not right)
     return NA(boundaries.numel() - flipped, x.mask)
 
 
@@ -373,6 +483,10 @@ def _fillmissing(x, value):
     x = _na(x)
     if x.mask is None:
         return x
+    if x.logical == UINT64:  # the value cast to uint64, as numpy's
+        bits = np.asarray(value).astype(np.uint64).view(np.int64)
+        fill = torch.as_tensor(bits).to(x.data.device)
+        return NA(torch.where(x.mask, fill, x.data), None, UINT64)
     refuse_temporal("fillmissing", x)
     fill = torch.as_tensor(np.asarray(value)).to(device=x.data.device, dtype=x.dtype)
     return NA(torch.where(x.mask, fill, x.data))

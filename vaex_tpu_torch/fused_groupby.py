@@ -41,7 +41,12 @@ kernels.  The result is sorted by the keys (reversed for a descending
 single key).  The pass records ``{"groupby": "one-sort", "mode": ...}`` in
 ``trace_log``.
 
-Not ported: the mesh half (ROADMAP A12), the result cache (A10).
+The result's columns are kept in the result cache (:mod:`.cache`, the
+byte-bounded LRU of results that hold tensors) under the frame's exact key
+and the plan, as vaex_tpu/fused_groupby.py:175-198 keeps them: the same
+query over the same tensors, unwritten, sorts nothing again.
+
+Not ported: the mesh half (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ import time
 import numpy as np
 import torch
 
+from . import cache
 from .agg import interp_order_stats
 from .column import ColumnDictionary, tile_of
 from .datatype import DataType
@@ -139,9 +145,22 @@ def try_fused_sort_groupby(df, by, actions, ascending=True, row_limit=None):
             return None
         if len(spans) > 1 and np.prod(spans, dtype=np.float64) <= COMBINE_MIN_PRODUCT:
             return None
-    with trace("one-sort groupby"):
-        result = _run(df, key_names, plan, ascending[0], info)
-    if result is None or not labels:
+    names = sorted(set(key_names) | {p[0] for _, kind, p in plan if p is not None})
+    frame, content = df._cache_key(names)
+    cache_key = cache.key("one-sort groupby", frame, key_names, ascending[0], plan,
+                          content=content)
+    columns = cache.lookup(cache_key)
+    if columns is not None:  # the result columns, on the device the sort ran on
+        from . import from_dict
+        result = from_dict(dict(columns))
+        result.dataset.device = next(iter(columns.values())).device
+    else:
+        with trace("one-sort groupby"):
+            result = _run(df, key_names, plan, ascending[0], info)
+        if result is None:
+            return None
+        cache.store(cache_key, {n: result.dataset[n] for n in result.get_column_names(hidden=True)})
+    if not labels:
         return result
     # the codes of each string key back under its name, as its labels' codes
     columns = {labels[n][0] if n in labels else n: (

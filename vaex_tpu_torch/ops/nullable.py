@@ -30,10 +30,13 @@ computed once per label and gathered by code on the device; any other
 operation raises :class:`HostStage`.
 
 A ``uint64`` value is its int64 bits with ``logical`` uint64.  Its
-comparisons (with uint64 values, non-negative Python ints and floats), its
-``+``, ``-`` and ``*`` (mod 2^64, with uint64 values and Python ints) and
-its ``/`` (float64) follow numpy (:func:`unsigned_binop`); any other
-operation on it raises ``NotImplementedError`` naming ROADMAP queue A14.
+operators follow numpy's values and promotion (:func:`unsigned_binop`):
+with uint64 values and non-negative Python ints the arithmetic wraps mod
+2^64, ``//`` and ``%`` are unsigned, the bitwise operators and shifts work
+on the bits; with a signed int or float column the arithmetic is float64;
+comparisons are exact.  The functions of :mod:`..functions` take it as
+numpy does (float64 for ``sqrt``, uint64 for ``maximum`` or
+``fillmissing``).
 """
 
 from __future__ import annotations
@@ -47,7 +50,6 @@ from ..datatype import _TORCH_TO_NUMPY, TOP, UINT64
 
 # NaT in the int64 view of a datetime or timedelta
 NAT = np.iinfo(np.int64).min
-UNSIGNED_PENDING = "not ported yet (ROADMAP queue A14: uint64 inside expressions)"
 
 
 class NA:
@@ -114,13 +116,14 @@ class HostStage(NotImplementedError):
 
 def refuse_temporal(what, *args):
     """Raise for an operation the device stage does not carry for a
-    temporal value or strings (:class:`HostStage`) or a uint64 value."""
+    temporal value or strings (:class:`HostStage`), or that takes no uint64
+    value (the functions that do handle it before)."""
     for a in args:
         if isinstance(a, DictNA):
             raise HostStage(f"{what} of strings runs in the host stage")
         if isinstance(a, NA) and a.logical is not None:
             if a.logical == UINT64:
-                raise NotImplementedError(f"{what} of a {a.logical} value is {UNSIGNED_PENDING}")
+                raise TypeError(f"{what} of a uint64 value")
             raise HostStage(f"{what} of a {a.logical} value runs in the host stage")
 
 
@@ -269,49 +272,160 @@ def temporal_binop(name, left, right):
     return NA(value, mask, out)
 
 
-def _unsigned_side(x, name, other):
-    """One operand of a uint64 operation: ("u", int64 bits) for a uint64 NA
-    or a Python int in [0, 2^64), ("f", float64 value) for a float; raises
-    for anything numpy would not keep in uint64."""
+def _unsigned_side(x, name):
+    """One operand of an operation with a uint64 value, as numpy's rules see
+    it: ("u", int64 bits) for a uint64 NA, a bool, or a Python int in [0,
+    2^64); ("neg", int) for a negative Python int; ("i", int64 tensor) for a
+    signed int or bool column; ("f", float64 tensor or float) for a float."""
     if _is_unsigned(x):
         return "u", x.data
-    if isinstance(x, bool) or not isinstance(x, (int, float, np.integer, np.floating)):
-        raise NotImplementedError(f"{name} of a uint64 value and {_describe(x)} is "
-                                  f"{UNSIGNED_PENDING}")
+    if isinstance(x, DictNA):
+        raise HostStage(f"{name} of strings and a uint64 value runs in the host stage")
+    if isinstance(x, NA):
+        if x.logical is not None:
+            raise TypeError(f"{name} of a uint64 value and {_describe(x)}: numpy has no such "
+                            f"loop")
+        if x.data.is_floating_point():
+            return "f", x.data.to(torch.float64)
+        return "i", x.data.to(torch.int64)
     if isinstance(x, (float, np.floating)):
         return "f", float(x)
-    x = int(x)
-    if not 0 <= x < 2 ** 64:
-        raise NotImplementedError(f"{name} of a uint64 value and {x} is {UNSIGNED_PENDING}")
-    return "u", x - 2 ** 64 if x >= 2 ** 63 else x
+    if isinstance(x, (bool, int, np.integer)):
+        x = int(x)
+        if x < 0:
+            return "neg", x
+        if x >= 2 ** 64:
+            raise OverflowError(f"Python integer {x} out of bounds for uint64")
+        return "u", x - 2 ** 64 if x >= 2 ** 63 else x
+    raise TypeError(f"{name} of a uint64 value and {_describe(x)}")
+
+
+def _ufloat(kind, v):
+    """An operand's float64 value (a uint64's from its bits)."""
+    if kind == "u":
+        return unsigned_float(v) if isinstance(v, torch.Tensor) else float(v % 2 ** 64)
+    return v.to(torch.float64) if isinstance(v, torch.Tensor) else float(v)
+
+
+def _uge(a, b):
+    """a >= b as uint64 bits (the order images compare as int64)."""
+    return (a ^ TOP) >= (b ^ TOP)
+
+
+_LOW63 = (1 << 63) - 1
+
+
+def unsigned_divmod(a, b):
+    """numpy's floor quotient and remainder of uint64 bits (0 and 0 where
+    ``b`` is 0).  Below 2^63 a divisor divides ``a >> 1`` (a non-negative
+    int64) and one correction step follows; from 2^63 up the quotient is 0
+    or 1."""
+    a, b = torch.broadcast_tensors(a, b)
+    zero = b == 0
+    b = torch.where(zero, 1, b)
+    big = b < 0
+    small = torch.where(big, 1, b)
+    q = torch.div((a >> 1) & _LOW63, small, rounding_mode="floor") << 1
+    r = a - q * small
+    fix = _uge(r, small)
+    q, r = q + fix.to(torch.int64), r - torch.where(fix, small, 0)
+    q_big = _uge(a, b).to(torch.int64)
+    q, r = torch.where(big, q_big, q), torch.where(big, a - q_big * b, r)
+    return torch.where(zero, 0, q), torch.where(zero, 0, r)
+
+
+def unsigned_pow(a, e):
+    """``a ** e`` of uint64 bits mod 2^64, by squaring."""
+    if isinstance(e, int):
+        bits = [(e >> i) & 1 for i in range(e.bit_length())]
+        out, base = torch.ones_like(a), a
+        for bit in bits:
+            if bit:
+                out = out * base
+            base = base * base
+        return out
+    a, e = torch.broadcast_tensors(a, e)
+    out, base = torch.ones_like(a), a
+    for _ in range(64):
+        out = torch.where((e & 1) != 0, out * base, out)
+        base = base * base
+        e = (e >> 1) & _LOW63
+    return out
+
+
+def _ushift(name, a, s):
+    """A shift of uint64 bits by a uint64 amount: numpy gives 0 past 63."""
+    if isinstance(s, int):
+        if s >= 64:
+            return torch.zeros_like(a)
+        return a << s if name == "lshift" else (a >> s) & ((1 << (64 - s)) - 1 if s else -1)
+    a, s = torch.broadcast_tensors(a, s)
+    past = (s < 0) | (s >= 64)
+    s = torch.where(past, 0, s)
+    if name == "lshift":
+        out = a << s
+    else:  # a logical shift: the arithmetic one, then the sign's copies cleared
+        out = (a >> s) & torch.where(s == 0, -1, (torch.ones_like(s) << (64 - s)) - 1)
+    return torch.where(past, 0, out)
+
+
+_UNSIGNED_BITS = {"and": operator.and_, "or": operator.or_, "xor": operator.xor}
 
 
 def unsigned_binop(name, left, right):
     """``left <name> right`` where one side is a uint64 NA, as numpy gives
-    it: comparisons on the order image (or in float64 against a float),
-    ``+ - *`` on the bits mod 2^64 as uint64, ``/`` in float64."""
+    it: with uint64 values, bools and non-negative Python ints ``+ - * **``
+    wrap mod 2^64, ``// %`` are unsigned (0 for a 0 divisor), the bitwise
+    operators and shifts work on the bits (a shift past 63 gives 0), all
+    uint64, ``/`` float64; with a signed int or float column or a float the
+    arithmetic is float64 and the bitwise operators raise; comparisons are
+    exact against signed ints (a negative one is below every uint64) and in
+    float64 against floats; arithmetic with a negative Python int raises
+    ``OverflowError``, as numpy's."""
     mask = _mask_or(*(x.mask if isinstance(x, NA) else None for x in (left, right)))
-    (ka, a), (kb, b) = (_unsigned_side(x, name, right if x is left else left)
-                        for x in (left, right))
-    floats = "f" in (ka, kb)
+    (ka, a), (kb, b) = (_unsigned_side(x, name) for x in (left, right))
+    kinds = {ka, kb}
     if name in _COMPARISONS:
-        if floats:
-            a, b = (unsigned_float(v) if k == "u" and isinstance(v, torch.Tensor)
-                    else float(v) + (2.0 ** 64 if k == "u" and v < 0 else 0.0)
-                    for k, v in ((ka, a), (kb, b)))
-        else:
-            a, b = (v ^ TOP for v in (a, b))
-        return NA(_NUMPY_OPS[name](a, b), mask)
-    if name == "truediv" or floats:
-        if name not in ("add", "sub", "mul", "truediv"):
-            raise NotImplementedError(f"{name} of a uint64 value is {UNSIGNED_PENDING}")
-        a, b = (unsigned_float(v) if isinstance(v, torch.Tensor) and k == "u"
-                else float(v) + (2.0 ** 64 if k == "u" and v < 0 else 0.0)
-                for k, v in ((ka, a), (kb, b)))
-        return NA(_NUMPY_OPS[name](a, b), mask)
-    if name not in ("add", "sub", "mul"):
-        raise NotImplementedError(f"{name} of a uint64 value is {UNSIGNED_PENDING}")
-    return NA(_NUMPY_OPS[name](a, b), mask, UINT64)
+        if "f" in kinds:
+            return NA(_NUMPY_OPS[name](_ufloat(ka, a), _ufloat(kb, b)), mask)
+        # a negative int is below every uint64 (a Python one, or a column's row)
+        above = (name in ("gt", "ge", "ne")) if ka == "u" else (name in ("lt", "le", "ne"))
+        if "neg" in kinds:
+            u = a if ka == "u" else b
+            return NA(torch.full(u.shape, above, dtype=torch.bool, device=u.device), mask)
+        value = _NUMPY_OPS[name](a ^ TOP, b ^ TOP)
+        if "i" in kinds:
+            value = torch.where((a if ka == "i" else b) < 0, above, value)
+        return NA(value, mask)
+    if "neg" in kinds:
+        raise OverflowError(f"Python integer {a if ka == 'neg' else b} out of bounds for uint64")
+    if kinds != {"u"} or name == "truediv":
+        if name in _UNSIGNED_BITS or name in ("lshift", "rshift"):
+            raise TypeError(f"{name} of a uint64 value and {_describe(left if ka != 'u' else right)}"
+                            f": numpy has no such loop")
+        a, b = _ufloat(ka, a), _ufloat(kb, b)
+        if name == "floordiv":
+            return NA(torch.div(torch.as_tensor(a), b, rounding_mode="floor"), mask)
+        if name == "mod":
+            return NA(torch.remainder(torch.as_tensor(a), b), mask)
+        return NA(_NUMPY_OPS.get(name, operator.pow)(a, b), mask)
+    device = (a if isinstance(a, torch.Tensor) else b).device
+    if not isinstance(a, torch.Tensor):
+        a = torch.tensor(a, dtype=torch.int64, device=device)
+    if name in ("add", "sub", "mul"):
+        value = _NUMPY_OPS[name](a, b)
+    elif name in ("floordiv", "mod"):
+        q, r = unsigned_divmod(a, b if isinstance(b, torch.Tensor) else torch.tensor(b, device=device))
+        value = q if name == "floordiv" else r
+    elif name == "pow":
+        value = unsigned_pow(a, b)
+    elif name in _UNSIGNED_BITS:
+        value = _UNSIGNED_BITS[name](a, b)
+    elif name in ("lshift", "rshift"):
+        value = _ushift(name, a, b)
+    else:
+        raise TypeError(f"{name} of a uint64 value: numpy has no such loop")
+    return NA(value, mask, UINT64)
 
 
 def unsigned_float(t):

@@ -44,7 +44,7 @@ from .. import array_types
 from ..datatype import NAT, UINT64, order_image, torch_dtype
 from ..utils import fingerprint
 from . import probe as probe_module
-from .nullable import NA, UNSIGNED_PENDING, DictNA, HostStage, unsigned_float
+from .nullable import NA, DictNA, HostStage, unsigned_float
 
 # the most labels arrays whose ordinals a string set keeps
 LABEL_CACHE_MAX = 16
@@ -446,6 +446,7 @@ class DeviceSetHandle:
         self.route = None
         self.trees = {} if trees is None else trees
         self.host_set = None  # the SortedSet of a string set
+        self._floats = None  # a uint64 set's keys as floats (_float_view)
 
     @classmethod
     def of(cls, oset, device):
@@ -499,9 +500,6 @@ def _probe_domain(handle, x):
     a float set by their float value)."""
     data, unsigned = x.data, x.logical == UINT64
     if handle.unsigned:
-        if data.is_floating_point():
-            raise NotImplementedError(f"a probe of float values in a uint64 set is "
-                                      f"{UNSIGNED_PENDING}")
         data = data.to(torch.int64)
         return order_image(data), None if unsigned else data < 0
     if not unsigned:
@@ -511,8 +509,24 @@ def _probe_domain(handle, x):
     return data, data < 0
 
 
+def _float_view(handle):
+    """A uint64 set's keys as float64 values (ascending, ties where two keys
+    round alike), probed as a float set: numpy compares float rows with
+    uint64 values in float64."""
+    if handle._floats is None:
+        handle._floats = DeviceSetHandle(unsigned_float(order_image(handle.keys)),
+                                         handle.n_keys, False, False)
+    return handle._floats
+
+
 def _probe(handle, x):
-    """int32 ordinals of ``x``'s values among the keys, -1 where none."""
+    """int32 ordinals of ``x``'s values among the keys, -1 where none (float
+    rows against a uint64 set: the first key equal in float64)."""
+    if handle.unsigned and x.data.is_floating_point() and handle.n_keys:
+        floats = _float_view(handle)
+        codes = device_probe(floats, x.data.to(torch.float64))
+        handle.route = floats.route
+        return codes
     data, never = _probe_domain(handle, x)
     if not handle.n_keys:
         return torch.full(data.shape, -1, dtype=torch.int32, device=data.device)

@@ -51,10 +51,6 @@ def _parsed(expression):
                       if isinstance(node, ast.Call) and isinstance(node.func, ast.Name)))
 
 
-def _names(expression):
-    return _parsed(str(expression))[0]
-
-
 def _leaves(expression, variables, virtual):
     """(physical column names, variable names) an expression reads, through
     the expressions of the virtual columns it names (vaex_tpu/scopes.py:
@@ -63,7 +59,8 @@ def _leaves(expression, variables, virtual):
     columns, used, seen = set(), set(), set()
     pending = [str(expression)]
     while pending:
-        for name in _names(pending.pop()):
+        names, calls = _parsed(pending.pop())
+        for name in names - calls:  # a called name is a function: a frame's UDF among them
             if name in seen:
                 continue
             seen.add(name)
@@ -99,7 +96,7 @@ def classify_leaves(df, expression):
                 funcs.add(name)
             else:
                 columns.add(name)
-    return {f for f in funcs if has_function(f)}, columns, variables
+    return {f for f in funcs if has_function(f) or f in df.functions}, columns, variables
 
 
 def column_names(expression, variables=(), virtual=None):
@@ -287,13 +284,15 @@ class HostScope:
     """Mapping used as eval() locals for one tile on the host: ``chunks``
     maps the physical columns to host arrays (arrow for strings), virtual
     columns are evaluated the first time they are read, variables are the
-    frame's own (a SortedSet, an array, a datetime)."""
+    frame's own (a SortedSet, an array, a datetime), and ``functions`` the
+    host implementations of the frame's UDFs (vaex_tpu/scopes.py:123)."""
 
-    def __init__(self, chunks, variables=None, virtual=None, n_rows=0):
+    def __init__(self, chunks, variables=None, virtual=None, n_rows=0, functions=None):
         self.values = {name: _host_wrap(value) for name, value in chunks.items()}
         self.variables = variables or {}
         self.virtual = virtual or {}
         self.n_rows = n_rows
+        self.functions = {name: _unwrapping(f) for name, f in (functions or {}).items()}
 
     def evaluate(self, expression):
         if expression in self.values:
@@ -319,6 +318,8 @@ class HostScope:
             return value
         if name in self.variables:
             return self.variables[name]
+        if name in self.functions:
+            return self.functions[name]
         raise KeyError(f"column {name!r} is not in this pass")
 
     def __iter__(self):
@@ -331,7 +332,8 @@ class HostScope:
         return self.values.keys()
 
     def __contains__(self, name):
-        return name in self.values or name in self.virtual or name in self.variables
+        return (name in self.values or name in self.virtual or name in self.variables
+                or name in self.functions)
 
 
 def host_chunk(dataset, name, i1, i2):

@@ -1,10 +1,19 @@
 """Runtime configuration for vaex_tpu_torch.
 
-Env var (optional):
+Env vars (optional):
   VAEX_TPU_TORCH_DEVICE     device that ``DataFrame.to_device()`` stages to
                             when none is given, and that a pass over a frame
                             of host arrays no one staged runs on (default
                             'cuda': without a card such a pass raises)
+  VAEX_TPU_TORCH_CACHE      the result cache's backend (:mod:`.cache`):
+                            'memory' (default), 'memory_lru', 'disk',
+                            'memory,disk', 'redis' or 'disabled'
+  VAEX_TPU_TORCH_CACHE_DISK_PATH, VAEX_TPU_TORCH_CACHE_DISK_SIZE_LIMIT,
+  VAEX_TPU_TORCH_CACHE_MEMORY_SIZE_LIMIT, VAEX_TPU_TORCH_CACHE_DEVICE_SIZE_LIMIT
+                            the disk level's directory and bytes, the LRU's
+                            bytes, the bytes of results that hold tensors
+  VAEX_TPU_TORCH_NUM_PROCESSES  the processes of ``multiprocessing=True``
+                            (default: the CPU count, at most 16)
 
 A pass runs eagerly, tile by tile; every tile costs a few kernel launches
 and one fold of the kernel's per-CTA partials, so tiles are large.  On an
@@ -19,3 +28,18 @@ import os
 
 TILE_ROWS = 1 << 26  # rows per tile of a pass
 DEVICE = os.environ.get("VAEX_TPU_TORCH_DEVICE", "cuda")
+
+
+def _int_env(name, default):
+    value = os.environ.get(name)
+    return int(value) if value else default
+
+
+CACHE = os.environ.get("VAEX_TPU_TORCH_CACHE", "memory")
+CACHE_DISK_PATH = os.environ.get("VAEX_TPU_TORCH_CACHE_DISK_PATH",
+                                 os.path.join(os.path.expanduser("~"), ".vaex_tpu_torch", "cache"))
+CACHE_DISK_SIZE_LIMIT = _int_env("VAEX_TPU_TORCH_CACHE_DISK_SIZE_LIMIT", 10 << 30)
+CACHE_MEMORY_SIZE_LIMIT = _int_env("VAEX_TPU_TORCH_CACHE_MEMORY_SIZE_LIMIT", 1 << 30)
+# a one-sort groupby of 1e8 groups holds about 6.4 GB of result columns
+CACHE_DEVICE_SIZE_LIMIT = _int_env("VAEX_TPU_TORCH_CACHE_DEVICE_SIZE_LIMIT", 8 << 30)
+NUM_PROCESSES = _int_env("VAEX_TPU_TORCH_NUM_PROCESSES", 0)

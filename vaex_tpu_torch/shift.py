@@ -22,7 +22,8 @@ from __future__ import annotations
 
 import torch
 
-from .column import LazyColumn, column_fingerprint, column_to, gather, placed_device, tile_of
+from .column import (ColumnDictionary, ColumnString, LazyColumn, column_fingerprint, column_to,
+                     gather, placed_device, tile_of)
 from .column import is_masked as column_is_masked
 from .dataset import DatasetArrays
 from .datatype import DataType
@@ -115,6 +116,10 @@ class ColumnShifted(LazyColumn):
         return ColumnShifted(column_to(self.source, device), self.periods, self.fill_value,
                              self.start, self.length)
 
+    def key_parts(self):
+        """(the columns, the rest) of an exact key (:func:`.column.column_key`)."""
+        return [self.source], (self.periods, repr(self.fill_value), self.start, self.length)
+
     def fingerprint(self):
         return fingerprint("column-shifted", column_fingerprint(self.source), self.periods,
                            repr(self.fill_value), self.start, self.length)
@@ -141,11 +146,23 @@ def shift(df, periods, column=None, fill_value=None, trim=False, inplace=False):
     the shift emptied (vaex_tpu/shift.py:58-83).  A filtered frame shifts the
     rows its filter keeps."""
     df = df.extract() if df.filtered else df.trim(inplace=inplace)
+    from .dataframe import _string_category
     names = _names(df, column)
     out = _physical(df.copy(), names)
     columns = dict(out.dataset.items())
     for name in names:
-        columns[name] = ColumnShifted(columns[name], periods, fill_value)
+        col = columns[name]
+        if isinstance(col, ColumnDictionary):
+            columns[name] = _shifted_codes(col, periods, fill_value)
+            codes = out._categories.get(name, {}).get("codes_column")
+            if codes in columns:  # a staged string key bins on the shifted codes
+                columns[codes] = columns[name].codes
+                out._categories[name] = _string_category(
+                    columns[name].labels, columns[name].has_null, codes)
+        elif isinstance(col, ColumnString):
+            columns[name] = _shifted_strings(col, periods, fill_value)
+        else:
+            columns[name] = ColumnShifted(col, periods, fill_value)
     out = out._rebind_dataset(DatasetArrays(columns, out.dataset.logical, out.dataset.device))
     out.column_names = list(df.column_names)
     if trim:
@@ -155,6 +172,46 @@ def shift(df, periods, column=None, fill_value=None, trim=False, inplace=False):
         elif periods < 0:
             out = out[0:n + periods]
     return out
+
+
+def _shifted_codes(col, periods, fill_value):
+    """A staged string column shifted: its codes moved on their device, the
+    rows past either end the code of ``fill_value`` (added as a label where
+    it is none yet) or the null code."""
+    import pyarrow as pa
+    labels, codes = col.labels, col.codes
+    null = len(labels)
+    if fill_value is not None:
+        found = labels.index(fill_value).as_py()
+        if found < 0:
+            labels = pa.concat_arrays([labels, pa.array([fill_value], labels.type)])
+            codes = codes.masked_fill(codes == null, len(labels))  # the null code moves up
+            found = null
+        fill = found
+    else:
+        fill = len(labels)
+    n, p = codes.shape[0], max(-codes.shape[0], min(int(periods), codes.shape[0]))
+    out = torch.full_like(codes, fill)
+    if p >= 0:
+        out[p:] = codes[:n - p]
+    else:
+        out[:n + p] = codes[-p:]
+    return ColumnDictionary(out, labels)
+
+
+def _shifted_strings(col, periods, fill_value):
+    """A host string column shifted on the host: the rows past either end
+    ``fill_value`` or null; a dictionary column stays one."""
+    import pyarrow as pa
+    array = col.array
+    encoded = pa.types.is_dictionary(array.type)
+    if encoded:
+        array = array.dictionary_decode()
+    n, p = len(array), max(-len(array), min(int(periods), len(array)))
+    pad = pa.array([fill_value] * abs(p), pa.string()).cast(array.type)
+    parts = [pad, array.slice(0, n - p)] if p >= 0 else [array.slice(-p), pad]
+    out = pa.concat_arrays(parts)
+    return ColumnString(out.dictionary_encode() if encoded else out)
 
 
 def diff(df, periods=1, column=None, fill_value=None, trim=False, inplace=False,

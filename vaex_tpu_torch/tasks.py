@@ -8,24 +8,39 @@ function called once per tile.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
-from .datatype import NAT, UINT64, DataType, order_image
+from .datatype import NAT, UINT64, DataType, host_values, order_image
 from .delayed import Promise
 from .ops.binners import fuse_bins, grid_shape, grid_size
 from .ops.grid_extreme import extreme_of_rows
 from .ops.grid_moments import MAX_BASES, MAX_TERMS
-from .ops.nullable import DictNA, unsigned_float
+from .ops.nullable import NA, DictNA, unsigned_float
 from .ops.grid_plan import grid_extremes, grid_sums, grid_sums_and_extremes, moment_sums
 from .ops.setops import RowLimitException, SortedSet
+from .utils import fingerprint, identity
 
 
 class Task(Promise):
+    # served from the result cache (:mod:`.cache`) by its fingerprint and
+    # the frame's key; an aggregation and a map-reduce never are
+    cacheable = False
+
     def __init__(self, df, expressions, name="task"):
         super().__init__()
         self.df = df
         self.expressions = [str(e) for e in expressions]
         self.name = name
+
+    def fingerprint(self):
+        """What, beside the frame's key, decides the task's result."""
+        return fingerprint(type(self).__name__, self.expressions, self._fingerprint_extra())
+
+    def _fingerprint_extra(self):
+        return None
 
     def initial_state(self, device, rows):
         raise NotImplementedError
@@ -290,6 +305,8 @@ class TaskSetCreate(Task):
     across the tiles that share one labels array (a staged column's), and
     the labels that have rows go into a set of strings on the host."""
 
+    cacheable = True
+
     def __init__(self, df, expression, keep_counts=False, limit=None):
         super().__init__(df, [expression], name="set-create")
         self.keep_counts = keep_counts
@@ -299,6 +316,9 @@ class TaskSetCreate(Task):
         self.temporal = dtype.numpy if dtype.is_temporal else None
         # uint64 keys are kept as their order image, so that they sort as numbers
         self.unsigned = dtype.numpy == UINT64
+
+    def _fingerprint_extra(self):
+        return self.keep_counts, self.limit
 
     def initial_state(self, device, rows):
         if self.strings:
@@ -397,8 +417,12 @@ def _flush_strings(state):
 
 def moment_base(x):
     """A base column of the moment kernels from one tile's NA: int64,
-    float32 or float64, with NaN in the masked rows (as float64)."""
+    float32 or float64, with NaN in the masked rows and the NaT rows of a
+    datetime or timedelta (as float64)."""
     d = x.data
+    if x.logical is not None and x.logical.kind in "mM":
+        nat = d == NAT
+        x = NA(d, nat if x.mask is None else x.mask | nat)
     if x.logical == UINT64:  # uint64 bits: their float value
         d = unsigned_float(d)
     elif d.is_floating_point():
@@ -457,6 +481,8 @@ class TaskFilterMask(Task):
     """The rows the frame's filter keeps, as one bool tensor on the pass
     device (written tile by tile)."""
 
+    cacheable = True
+
     def __init__(self, df):
         super().__init__(df, [], name="filter-mask")
 
@@ -480,11 +506,16 @@ class TaskMapIndex(Task):
     and with ``duplicates`` the (left row, right row) pairs past each first
     match.  ``route`` is the B6 route of the last tile."""
 
+    cacheable = True
+
     def __init__(self, df, expression, index, duplicates=False):
         super().__init__(df, [expression], name="map-index")
         self.index = index
         self.duplicates = duplicates
         self.route = None
+
+    def _fingerprint_extra(self):
+        return identity(self.index), self.duplicates
 
     def initial_state(self, device, rows):
         return {"lookup": torch.empty(rows, dtype=self.index.row_dtype, device=device),
@@ -509,3 +540,49 @@ class TaskMapIndex(Task):
                torch.cat(state["right"]) if state["right"] else empty.to(lookup.dtype))
         self.fulfill(out)
         return out
+
+
+class TaskMapReduce(Task):
+    """``map_fn`` of each tile's values of the expressions as host arrays
+    (with ``info``, ``map_fn(i1, i2, *values)``; with ``pre_filter``, only
+    the rows the filter keeps), folded by ``reduce_fn`` at the end, or the
+    list of the parts without one (vaex_tpu/tasks.py:748-779).  Its functions
+    are named by ``id`` in the reference's fingerprint, which a collected
+    function's successor may reuse: it is never cached."""
+
+    def __init__(self, df, expressions, map_fn, reduce_fn=None, name="map-reduce",
+                 pre_filter=False, info=False):
+        super().__init__(df, expressions, name=name)
+        self.map_fn = map_fn
+        self.reduce_fn = reduce_fn
+        self.pre_filter = pre_filter
+        self.info = info
+
+    def initial_state(self, device, rows):
+        return []
+
+    def update(self, state, ctx):
+        values = [_host_values(ctx.expr(e)) for e in self.expressions]
+        if self.pre_filter and ctx.row_valid is not None:
+            keep = ctx.row_valid.cpu().numpy()
+            values = [v.filter(keep) if hasattr(v, "filter") else v[keep] for v in values]
+        i2 = ctx.i1 + ctx.n_rows
+        state.append(self.map_fn(ctx.i1, i2, *values) if self.info else self.map_fn(*values))
+        return state
+
+    def finalize(self, state):
+        result = state
+        if self.reduce_fn is not None:
+            result = functools.reduce(self.reduce_fn, state) if state else None
+        self.fulfill(result)
+        return result
+
+
+def _host_values(x):
+    """One tile's NA as host values: numpy (masked where missing) in its
+    logical dtype, strings as an arrow dictionary array."""
+    if isinstance(x, DictNA):
+        from .dataframe import _decode
+        return _decode(x)
+    data = host_values(x.data.cpu().numpy(), x.logical)
+    return data if x.mask is None else np.ma.MaskedArray(data, x.mask.cpu().numpy())

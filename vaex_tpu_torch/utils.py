@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import itertools
 import keyword
 import os
 import re
@@ -73,6 +74,57 @@ def hash_array_data(ar) -> str:
         ar = ar.data
     _tokenize_into(h, ar)
     return h.hexdigest()
+
+
+_tokens = itertools.count(1)
+_pinned = {}  # id -> (object, token) of the objects that take no attribute
+
+
+def identity(obj) -> int:
+    """A number that names ``obj`` while it lives and no other object ever
+    (an ``id`` is reused once its object dies): kept on the object where it
+    takes an attribute (tensors, functions, sets), else beside the object,
+    which stays alive with it."""
+    attrs = getattr(obj, "__dict__", None)
+    if isinstance(attrs, dict):
+        if "_vaex_identity" not in attrs:
+            try:
+                obj._vaex_identity = next(_tokens)
+            except (AttributeError, TypeError):
+                attrs = None
+        if attrs is not None:
+            return obj._vaex_identity
+    pinned = _pinned.get(id(obj))
+    if pinned is None or pinned[0] is not obj:
+        pinned = _pinned[id(obj)] = (obj, next(_tokens))
+    return pinned[1]
+
+
+def tensor_key(t):
+    """A tensor by its identity and version counter (which every in-place
+    write to it or to a view of its storage bumps), its place and layout:
+    exact, and it reads no element."""
+    return ("tensor", identity(t), t._version, str(t.device), str(t.dtype), tuple(t.shape),
+            t.stride(), t.storage_offset())
+
+
+class Signal:
+    """A list of callbacks that ``emit`` calls in order, returning their
+    results (vaex_tpu/utils.py:107)."""
+
+    def __init__(self, name=""):
+        self.name = name
+        self.callbacks = []
+
+    def connect(self, f):
+        self.callbacks.append(f)
+        return f
+
+    def disconnect(self, f):
+        self.callbacks.remove(f)
+
+    def emit(self, *args, **kwargs):
+        return [cb(*args, **kwargs) for cb in self.callbacks]
 
 
 _identifier_re = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
