@@ -255,8 +255,35 @@ Run from the root of the repository on a machine with a CUDA card.  It
     cache's hits beside its misses; it prints its own JSON line.  Phases
     6-21 run with the result cache off: they check and time the passes
     themselves.
+23. drives files and the streamed pass: (1) a 256 MiB host-to-card copy
+    from page-locked and from pageable memory (median of 5); (2) BASELINE
+    config 1 at 4e8 rows (bench.py's N; i1 int64 in 0..99, x float64, made
+    on the card from seed 42) exported by the port to HDF5 (to Arrow IPC
+    where h5py is not installed: the JSON line says so), opened, i1
+    categorized; groupby(i1, {sum x, count}) ships i1 wide and builds its
+    proof, then the groupby, std(x), count(binby=[i1, x], shape=[100,
+    1000]) and the count of i1.isin(50 values) streamed, i1 asserted int32
+    on the wire and x float64, each equal to the staged frame's answer
+    (counts exact, sums and std within rtol 1e-9); (3) the groupby at 2^20-
+    row tiles (382 through a ring of 3), then cancelled after 5 tiles
+    (UserAbort, no stream thread left), then right; (4) a cached unique of
+    i1 over the file hashes no byte, and a 1e6-row file rewritten with one
+    key changed gives the new answer; (5) parquet and Arrow IPC at 1e8 rows
+    (groupby and std streamed), CSV and JSON at 1e6, FITS and VOTable at
+    1e5, each checked; every streamed query of (2), (3) and (5) counted
+    alone, its own kernel (B1, B4, B2, B6) asserted launched on its tiles,
+    the staged answers and the exports made before the counts are set to
+    0; a pass over 30 float64 host columns at 2^25 rows, the ring
+    clamped to STREAM_RING_BYTES and at twice that, each checked and its
+    slots' bytes and peak resident set recorded, then timed; then (6) each
+    query timed streamed, with the synchronous copy and staged (5 runs for
+    the groupby, 3 for the others and for the groupby at 2^20-row tiles,
+    medians), the wire's GB/s as a share of
+    the page-locked link, and one cold groupby after the file's pages were
+    dropped; it prints its own JSON line.  Its files go to the temporary
+    directory and are removed.
 
-    python3 chip_smoke.py --profile 20 21 22
+    python3 chip_smoke.py --profile 20 21 22 23
 
 profiles the queries of those phases instead (scripts/profile_torch_groupby.py's
 ``profile``: the device's busy and idle share, the device time by kernel).
@@ -4331,9 +4358,549 @@ def phase22_path(vt, plan, gp, probe, label, n=PHASE22_ROWS, n_host=PHASE22_HOST
     return launches, record
 
 
+# phase 23: files and the streamed pass (ROADMAP A11): BASELINE config 1 from
+# its file through the stream of page-locked slots and a copy stream, the
+# formats' round trips, and the file's cache key
+PHASE23_ROWS = 400_000_000  # bench.py's N: 6.4 GB on disk
+# parquet and Arrow IPC: cut from 4e8 so that the phase keeps to its time
+PHASE23_FORMAT_ROWS = 100_000_000
+PHASE23_TEXT_ROWS = 1_000_000  # CSV and JSON, text: cut
+PHASE23_SMALL_ROWS = 100_000  # FITS and VOTable: cut
+PHASE23_KEY_ROWS = 1_000_000  # the file rewritten under the cache
+PHASE23_RING_TILE = 1 << 20  # 382 tiles of 4e8 rows through a ring of 3
+PHASE23_CANCEL_AFTER = 5
+PHASE23_ISIN = 50
+PHASE23_LINK_BYTES = 256 << 20
+# the wide pass: 30 float64 host columns (a describe() of a 30-column table)
+# at 2^25 rows, whose ring STREAM_RING_BYTES clamps to 2^22-row tiles
+PHASE23_WIDE_COLUMNS = 30
+PHASE23_WIDE_ROWS = 1 << 25
+PHASE23_STREAM_THREADS = ("vaex-tpu-torch-stream", "vaex-tpu-torch-io")
+
+
+def phase23_values():
+    """The isin count's 50 values of i1, drawn from seed 42."""
+    return np.random.default_rng(SEED).choice(K, PHASE23_ISIN, replace=False).astype(np.int64)
+
+
+def phase23_queries(vt, values):
+    """Config 1's groupby, std of x, the 2-D count over (i1, x) and the
+    isin count: B1, B4, B2 and B6 on the card."""
+    return {
+        "groupby": lambda df: run_query(df, vt),
+        "std": lambda df: df.std("x"),
+        "count2d": lambda df: df.count(binby=["i1", "x"], limits=[[0, K], [0, 1]],
+                                       shape=[K, 1000]),
+        "isin": lambda df: df.count(selection=df.i1.isin(values)),
+    }
+
+
+def phase23_answer(name, out):
+    """A query's answer as CPU tensors."""
+    if name == "groupby":
+        return (torch.as_tensor(out["i1"].tolist()), torch.as_tensor(out["c"].tolist()),
+                torch.as_tensor(out["s"].tolist(), dtype=torch.float64))
+    if name == "std":
+        return torch.as_tensor(float(out), dtype=torch.float64)
+    return torch.as_tensor(np.asarray(out))
+
+
+def phase23_check(name, got, want):
+    """Keys, counts and int answers exact; B1's sums and B4's std within
+    rtol 1e-9 (both add in a fixed order, PERF.md section 2)."""
+    if name == "groupby":
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"phase 23 {name}: keys and counts exact")
+        check(torch.allclose(got[2], want[2], rtol=RTOL, atol=ATOL),
+              f"phase 23 {name}: sums within rtol {RTOL}")
+    elif name == "std":
+        check(abs(float(got) - float(want)) <= RTOL * abs(float(want)) + ATOL,
+              f"phase 23 std: {float(got)!r} vs {float(want)!r}")
+    else:
+        check(torch.equal(got, want), f"phase 23 {name}: exact")
+
+
+def phase23_wants(vt, staged, values):
+    """Every query's answer on the staged frame."""
+    return {name: phase23_answer(name, query(staged))
+            for name, query in phase23_queries(vt, values).items()}
+
+
+def phase23_stream(df):
+    """The last pass's stream record (trace_log), checked present."""
+    log = df.executor.trace_log[-1]
+    check(log.get("stream") is not None, f"phase 23: the last pass did not stream: {log}")
+    return log["stream"]
+
+
+class phase23_counted:
+    """The kernel launches of streamed passes alone: ``run(name, query,
+    df)`` reads the counts just before and just after ``query(df)``, adds
+    the difference to ``launches`` and fails unless the query's own kernel
+    (B1 for a groupby, B4 for std, B2 for the 2-D count, B6 for the isin
+    count) was launched in it.  Staged passes run outside it count nothing."""
+
+    def __init__(self, plan, gp, probe):
+        self.plan, self.gp, self.probe = plan, gp, probe
+        self.own = {"groupby": plan.B1, "std": plan.B4, "count2d": plan.B2, "isin": "b6"}
+        zero_launches(plan, gp)
+        probe.probe.launches = probe.probe.wide_launches = 0
+        self.launches = dict.fromkeys(self.counts(), 0)
+
+    def counts(self):
+        return {**launch_counts(self.plan, self.gp), "b6": self.probe.probe.launches,
+                "b6-wide": self.probe.probe.wide_launches}
+
+    def __call__(self, name, query, df):
+        before = self.counts()
+        out = query(df)
+        after = self.counts()
+        for kernel in after:
+            self.launches[kernel] += after[kernel] - before[kernel]
+        check(after[self.own[name]] > before[self.own[name]],
+              f"phase 23 {name}: {self.own[name]} was not launched on the streamed tiles "
+              f"({ {k: after[k] - before[k] for k in after} })")
+        return out
+
+
+def phase23_plain_run(name, query, df):
+    return query(df)
+
+
+def phase23_drive(vt, fdf, wants, values, narrowed=True, run=phase23_plain_run):
+    """The queries streamed from the file's frame ``fdf``, each through
+    ``run`` (a :class:`phase23_counted` on the card): first config 1's
+    groupby, which ships i1 wide and builds its proof, then every query,
+    each checked against the staged frame's answer, i1 asserted on the wire
+    as int32 after the first pass (``narrowed``) and x as float64.  Returns
+    each query's stream record."""
+    queries = phase23_queries(vt, values)
+    phase23_check("groupby", phase23_answer("groupby", run("groupby", queries["groupby"], fdf)),
+                  wants["groupby"])
+    first = phase23_stream(fdf)
+    check(first["wire"] == {"i1": "int64", "x": "float64"},
+          f"phase 23 first pass ships i1 and x wide: {first['wire']}")
+    records = {"first": first}
+    for name, query in queries.items():
+        phase23_check(name, phase23_answer(name, run(name, query, fdf)), wants[name])
+        records[name] = phase23_stream(fdf)
+        wire = records[name]["wire"]
+        if "i1" in wire and narrowed:
+            check(wire["i1"] == "int32", f"phase 23 {name}: i1 on the wire as int32: {wire}")
+        if "x" in wire:
+            check(wire["x"] == "float64", f"phase 23 {name}: x on the wire as float64: {wire}")
+    return records
+
+
+def phase23_threads():
+    """The stream's threads that are alive."""
+    import threading
+    return [t.name for t in threading.enumerate() if t.name.startswith(PHASE23_STREAM_THREADS)]
+
+
+def phase23_ring(vt, fdf, want, tile_rows=PHASE23_RING_TILE, cancel_after=PHASE23_CANCEL_AFTER,
+                 run=phase23_plain_run):
+    """Config 1's groupby at ``tile_rows``-row tiles, the ring wrapping
+    again and again (through ``run``): checked; then cancelled after
+    ``cancel_after`` tiles (UserAbort, no stream thread left), and right
+    again.  Returns (tiles, ring slots)."""
+    from vaex_tpu_torch.execution import UserAbort
+    df = fdf.copy()
+    df._tile_rows = tile_rows
+    groupby = phase23_queries(vt, None)["groupby"]
+    phase23_check("groupby", phase23_answer("groupby", run("groupby", groupby, df)), want)
+    log = df.executor.trace_log[-1]
+    stream = phase23_stream(df)
+    check(log["tiles"] == -(-len(df) // tile_rows) and log["tiles"] > 3 * stream["ring"],
+          f"phase 23 ring: {log['tiles']} tiles through {stream['ring']} slots")
+    calls = []
+    signal = df.executor.signal_progress
+    cb = signal.connect(lambda p: calls.append(p) or len(calls) < cancel_after)
+    aborted = None
+    try:
+        run_query(df, vt)
+    except UserAbort as e:
+        aborted = e
+    finally:
+        signal.disconnect(cb)
+    check(aborted is not None and len(calls) == cancel_after,
+          f"phase 23 cancel: {aborted!r} after {len(calls)} tiles")
+    phase23_no_threads()
+    phase23_check("groupby", phase23_answer("groupby", run("groupby", groupby, df)), want)
+    phase23_no_threads()
+    return log["tiles"], stream["ring"]
+
+
+def phase23_no_threads():
+    left = phase23_threads()
+    check(not left, f"phase 23: stream threads outlive the pass: {left}")
+
+
+def phase23_export(df, path):
+    """``df`` written to ``path`` (its extension names the format): seconds."""
+    t0 = time.perf_counter()
+    df.export(path)
+    return time.perf_counter() - t0
+
+
+def phase23_key_reads(vt, path):
+    """A cached unique of i1 over the file at ``path``, twice, with
+    hash_array_data counted: (the two answers, the calls, the second run's
+    passes)."""
+    from vaex_tpu_torch import cache, column, dataset, utils
+    real, calls = utils.hash_array_data, []
+
+    def counting(ar):
+        calls.append(len(ar))
+        return real(ar)
+    modules = (utils, column, dataset)
+    for m in modules:
+        m.hash_array_data = counting
+    try:
+        df = vt.open(path)
+        with cache.memory(clear_on_exit=True):
+            first = sorted(np.asarray(df.unique("i1")).tolist())
+            passes = df.executor.passes
+            second = sorted(np.asarray(df.unique("i1")).tolist())
+            passes = df.executor.passes - passes
+    finally:
+        for m in modules:
+            m.hash_array_data = real
+    return first, second, len(calls), passes
+
+
+def phase23_key_check(first, second, calls, passes):
+    check(calls == 0, f"phase 23 key: the file's column was hashed {calls} times")
+    check(first == second == list(range(K)) and passes == 0,
+          f"phase 23 key: the second unique a cache hit ({passes} passes) and right")
+
+
+def phase23_rewrite(vt, i1, x, path):
+    """The cached unique of i1 over a file, then the file rewritten under its
+    name with one key changed (the same size), opened again: (the answer
+    before, the answer after, the sizes)."""
+    from vaex_tpu_torch import cache
+    i1 = np.array(i1)
+    with cache.memory(clear_on_exit=True):
+        vt.from_arrays(i1=i1, x=x).export(path)
+        size = os.path.getsize(path)
+        before = sorted(np.asarray(vt.open(path).unique("i1")).tolist())
+        i1[0] = K  # a key no row had
+        vt.from_arrays(i1=i1, x=x).export(path)
+        after = sorted(np.asarray(vt.open(path).unique("i1")).tolist())
+    return before, after, (size, os.path.getsize(path))
+
+
+def phase23_rewrite_check(before, after, sizes):
+    check(sizes[0] == sizes[1], f"phase 23 rewrite: the same size {sizes}")
+    check(K not in before and K in after,
+          f"phase 23 rewrite: the rewritten file's unique {after[-3:]} (before {before[-3:]})")
+
+
+def phase23_formats(vt, tmp, device, n_text=PHASE23_TEXT_ROWS, n_small=PHASE23_SMALL_ROWS):
+    """CSV and JSON at ``n_text`` rows, FITS and VOTable at ``n_small``: each
+    exported from a staged frame, opened, categorized and grouped, checked
+    against the staged frame's groupby.  Returns {format: seconds of the
+    round trip}."""
+    out = {}
+    for exts, n in ((("csv", "json"), n_text), (("fits", "vot"), n_small)):
+        staged, _, _ = make_table(n, vt, device)
+        want = phase23_answer("groupby", run_query(staged, vt))
+        for ext in exts:
+            path = os.path.join(tmp, f"phase23.{ext}")
+            t0 = time.perf_counter()
+            staged.export(path)
+            df = vt.open(path).categorize("i1", labels=range(K))
+            phase23_check("groupby", phase23_answer("groupby", run_query(df, vt)), want)
+            out[ext] = time.perf_counter() - t0
+            os.remove(path)
+    return out
+
+
+def rss_gb():
+    """The process's resident set (/proc/self/status VmRSS), GB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+class peak_rss:
+    """The resident set before a block and its peak within it, sampled
+    every 2 ms on a thread of its own (GB): page-locked slots are resident."""
+
+    def __enter__(self):
+        import threading
+        self.before = self.peak = rss_gb()
+        self.stop = threading.Event()
+
+        def sample():
+            while not self.stop.wait(0.002):
+                self.peak = max(self.peak, rss_gb())
+        self.thread = threading.Thread(target=sample, name="phase23-rss", daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self.peak = max(self.peak, rss_gb())
+
+
+def phase23_wide_frame(vt, n=PHASE23_WIDE_ROWS, c=PHASE23_WIDE_COLUMNS):
+    """A frame of ``c`` float64 host columns of ``n`` rows (one uniform array
+    from seed 42 under every name: the stream copies each name), the names
+    and each column's numpy sum."""
+    a = np.random.default_rng(SEED).random(n)
+    names = [f"c{i}" for i in range(c)]
+    return vt.from_arrays(**dict.fromkeys(names, a)), names, a
+
+
+def phase23_wide_pass(df, names, a, budget):
+    """``df.sum(names)`` streamed with the ring's budget
+    ``STREAM_RING_BYTES = budget``, under :class:`peak_rss`: every sum
+    within the float64 summation bound of numpy's, the slots' bytes within
+    the budget.  Returns the pass's record."""
+    from vaex_tpu_torch import settings
+    saved, settings.STREAM_RING_BYTES = settings.STREAM_RING_BYTES, budget
+    try:
+        with peak_rss() as rss:
+            got = torch.as_tensor(np.asarray(df.sum(names), dtype=np.float64))
+    finally:
+        settings.STREAM_RING_BYTES = saved
+    log = df.executor.trace_log[-1]
+    stream = phase23_stream(df)
+    want = torch.full_like(got, float(np.sum(a)))
+    check(within_sum_bound(got, want, want.abs(), torch.full_like(got, len(a))),
+          f"phase 23 wide pass: sums {got[:3].tolist()} vs numpy's {float(want[0])!r}")
+    check(0 < stream["ring_bytes"] <= budget,
+          f"phase 23 wide pass: the ring's {stream['ring_bytes']} B past its budget {budget}")
+    return {"budget_bytes": budget, "tile_rows": log["tile_rows"], "tiles": log["tiles"],
+            "ring_bytes": stream["ring_bytes"], "pinned": stream["pinned"],
+            "rss_before_gb": rss.before, "rss_peak_gb": rss.peak}
+
+
+def phase23_wide(vt, label):
+    """The wide pass at the ring's budget and at twice it: each checked once
+    under peak_rss (the first pass of a budget allocates its slots; later
+    ones reuse the host allocator's cached blocks), then timed, median of 3."""
+    from vaex_tpu_torch import settings
+    df, names, a = phase23_wide_frame(vt)
+    out = {}
+    for name, budget in (("budget", settings.STREAM_RING_BYTES),
+                         ("twice the budget", 2 * settings.STREAM_RING_BYTES)):
+        rec = out[name] = phase23_wide_pass(df, names, a, budget)
+        saved, settings.STREAM_RING_BYTES = settings.STREAM_RING_BYTES, budget
+        try:
+            s, _ = median_s(lambda: df.sum(names), 3)
+        finally:
+            settings.STREAM_RING_BYTES = saved
+        stream = phase23_stream(df)
+        rows = len(a)
+        rec.update({"rows": rows, "columns": len(names), "ms": s * 1e3,
+                    "rows_per_s": rows / s,
+                    "host_copy_gb_per_s": rows * len(names) * 8 / stream["host_copy_s"] / 1e9,
+                    "host_copy_ms": stream["host_copy_s"] * 1e3, "wait_ms": stream["wait_s"] * 1e3})
+        print(f"[{label}] phase 23 wide pass ({len(names)} float64 columns, N={rows}) at "
+              f"{name} ({budget} B): {rec['tile_rows']}-row tiles, the ring {rec['ring_bytes']} B, "
+              f"resident set {rec['rss_before_gb']!r} -> peak {rec['rss_peak_gb']!r} GB; "
+              f"{s * 1e3!r} ms, host copy {rec['host_copy_ms']!r} ms", flush=True)
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is not None:
+        out["host_allocator"] = {k: v for k, v in stats().items() if isinstance(k, str)
+                                 and "bytes" in k and k.endswith((".current", ".peak"))}
+    del df, a
+    gc.collect()
+    return out
+
+
+class phase23_synchronous:
+    """PREFETCH = TRANSFER_AHEAD = 0 for a block: the synchronous copy."""
+
+    def __enter__(self):
+        from vaex_tpu_torch import settings
+        self.saved = settings.PREFETCH, settings.TRANSFER_AHEAD
+        settings.PREFETCH = settings.TRANSFER_AHEAD = 0
+
+    def __exit__(self, *exc):
+        from vaex_tpu_torch import settings
+        settings.PREFETCH, settings.TRANSFER_AHEAD = self.saved
+
+
+def phase23_link():
+    """GB/s of a 256 MiB host-to-card copy from page-locked and from pageable
+    memory, each the median of 5 (bench.py:122-151 for the reference)."""
+    n = PHASE23_LINK_BYTES
+    dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+    out = {}
+    for kind, host in (("pinned", torch.ones(n, dtype=torch.uint8, pin_memory=True)),
+                       ("pageable", torch.ones(n, dtype=torch.uint8))):
+        dev.copy_(host)
+        s, _ = median_s(lambda: dev.copy_(host, non_blocking=True))
+        out[kind] = n / s / 1e9
+    return out
+
+
+def phase23_time(record, name, query, fdf, staged, reps):
+    """One query's median (host clock to a synchronize) streamed, with the
+    synchronous copy and on the staged frame, and the stream's record."""
+    stream_s, _ = median_s(lambda: query(fdf), reps)
+    stream = fdf.executor.trace_log[-1]["stream"]
+    with phase23_synchronous():
+        sync_s, _ = median_s(lambda: query(fdf), reps)
+    staged_s, _ = median_s(lambda: query(staged), reps)
+    rows = len(fdf)
+    record[name] = {"rows": rows, "streamed_ms": stream_s * 1e3, "sync_ms": sync_s * 1e3,
+                    "staged_ms": staged_s * 1e3, "reps": reps,
+                    "streamed_rows_per_s": rows / stream_s,
+                    "wire_gb_per_s": stream["wire_bytes"] / stream_s / 1e9,
+                    "wire": stream["wire"], "tiles": fdf.executor.trace_log[-1]["tiles"],
+                    "host_copy_ms": stream["host_copy_s"] * 1e3,
+                    "wait_ms": stream["wait_s"] * 1e3}
+    print(f"phase 23 {name} N={rows}: streamed {stream_s * 1e3!r} ms (wire {stream['wire']}, "
+          f"host copy {stream['host_copy_s'] * 1e3!r} ms, the pass waited "
+          f"{stream['wait_s'] * 1e3!r} ms), synchronous {sync_s * 1e3!r} ms, staged "
+          f"{staged_s * 1e3!r} ms, reps {reps}", flush=True)
+
+
+def page_cache_gb():
+    """The page cache's size (/proc/meminfo's Cached), GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("Cached:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def phase23_cold(vt, path, query):
+    """One pass over the file after its pages were dropped from the page
+    cache (its frames closed first: a page a mapping holds stays): (seconds,
+    GB the page cache shrank by when they were dropped)."""
+    gc.collect()
+    before = page_cache_gb()
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+    dropped = before - page_cache_gb()
+    df = vt.open(path).categorize("i1", labels=range(K))
+    s, _ = median_s(lambda: query(df), 1)
+    return s, dropped
+
+
+def phase23_path(vt, plan, gp, probe, label, n=PHASE23_ROWS, n_format=PHASE23_FORMAT_ROWS):
+    """Phase 23 on the card (see the module's docstring): the link; the
+    staged frames' answers and the files; config 1 from its file (HDF5, or
+    Arrow IPC where h5py is not installed), the ring, parquet and Arrow IPC,
+    each streamed query checked and counted by a :class:`phase23_counted`
+    (the counts set to 0 just before the first and read just after the
+    last, each query's own kernel asserted launched); the key, the text and
+    small formats, the wide pass; then the timings.  Returns (the launches
+    on streamed tiles, the phase's JSON record)."""
+    import importlib.util
+    import shutil
+    import tempfile
+    from vaex_tpu_torch import settings
+    tmp = tempfile.mkdtemp(prefix="phase23-", dir=tempfile.gettempdir())
+    record = {"card": label, "rows": n, "format_rows": n_format,
+              "free_disk_gb": shutil.disk_usage(tmp).free / 1e9,
+              "hdf5": "h5py" if importlib.util.find_spec("h5py") else "h5py absent",
+              "tile_rows": settings.TILE_ROWS, "transfer_ahead": settings.TRANSFER_AHEAD,
+              "prefetch": settings.PREFETCH, "io_threads": settings.NUM_THREADS_IO,
+              "queries": {}, "formats": {}}
+    t_phase = time.perf_counter()
+    try:
+        record["link_gb_per_s"] = phase23_link()
+        print(f"[{label}] phase 23 link (256 MiB host to card, median of 5): "
+              f"{record['link_gb_per_s']} GB/s", flush=True)
+        # the staged frames' answers and the files first: only streamed
+        # passes run between the counts set to 0 and their reading
+        values = phase23_values()
+        staged, i1, x = make_table(n, vt)
+        wants = phase23_wants(vt, staged, values)
+        fstaged, _, _ = make_table(n_format, vt)
+        fwants = {k: phase23_answer(k, phase23_queries(vt, values)[k](fstaged))
+                  for k in ("groupby", "std")}
+        ext = "hdf5" if record["hdf5"] == "h5py" else "arrow"
+        path = os.path.join(tmp, f"config1.{ext}")
+        record["export_s"] = phase23_export(staged, path)
+        record["file_gb"] = os.path.getsize(path) / 1e9
+        fpaths = {fmt: os.path.join(tmp, f"format.{fmt}") for fmt in ("parquet", "arrow")}
+        for fmt, fpath in fpaths.items():
+            record["formats"][fmt] = {"export_s": phase23_export(fstaged, fpath)}
+
+        counted = phase23_counted(plan, gp, probe)
+        fdf = vt.open(path).categorize("i1", labels=range(K))
+        records = phase23_drive(vt, fdf, wants, values, run=counted)
+        record["wire"] = {k: v["wire"] for k, v in records.items()}
+        print(f"phase 23 config 1 from {ext} N={n}: {record['file_gb']!r} GB written in "
+              f"{record['export_s']!r} s; groupby, std, 2-D count and isin streamed equal the "
+              f"staged frame's, each launching its kernel; wire {record['wire']}", flush=True)
+        record["ring_tiles"], record["ring_slots"] = phase23_ring(vt, fdf, wants["groupby"],
+                                                                  run=counted)
+        print(f"phase 23 ring: {record['ring_tiles']} tiles through {record['ring_slots']} "
+              f"slots right; cancelled after {PHASE23_CANCEL_AFTER} tiles with no thread left",
+              flush=True)
+        format_frames = {}
+        for fmt, fpath in fpaths.items():
+            fdf_f = vt.open(fpath).categorize("i1", labels=range(K))
+            for q in ("groupby", "std"):
+                phase23_check(q, phase23_answer(q, counted(q, phase23_queries(vt, values)[q],
+                                                           fdf_f)), fwants[q])
+                phase23_stream(fdf_f)
+            format_frames[fmt] = fdf_f
+        launches = counted.launches
+        print(f"launches on streamed tiles during phase 23: {launches}", flush=True)
+        for name in (plan.B1, plan.B2, plan.B4, "b6"):
+            check(launches[name] > 0, f"{name} was not launched during phase 23: {launches}")
+
+        phase23_key_check(*phase23_key_reads(vt, path))
+        small, si1, sx = make_table(PHASE23_KEY_ROWS, vt)
+        phase23_rewrite_check(*phase23_rewrite(vt, si1.cpu().numpy(), sx.cpu().numpy(),
+                                               os.path.join(tmp, f"key.{ext}")))
+        del small, si1, sx
+        print(f"phase 23 key: a cached unique over the {n}-row file hashed no byte; a rewrite "
+              f"of a {PHASE23_KEY_ROWS}-row file gave the new answer", flush=True)
+        record["formats"].update({k: {"round_trip_s": v} for k, v in
+                                  phase23_formats(vt, tmp, "cuda").items()})
+        record["wide"] = phase23_wide(vt, label)
+
+        for name, query in phase23_queries(vt, values).items():
+            phase23_time(record["queries"], name, query, fdf, staged, 5 if name == "groupby" else 3)
+        ring = fdf.copy()
+        ring._tile_rows = PHASE23_RING_TILE
+        phase23_time(record["queries"], "groupby at 2^20-row tiles",
+                     phase23_queries(vt, values)["groupby"], ring, staged, 3)
+        del ring
+        for fmt, frame in format_frames.items():
+            for q in ("groupby", "std"):
+                phase23_time(record["formats"][fmt], q, phase23_queries(vt, values)[q], frame,
+                             fstaged, 3)
+        g = record["queries"]["groupby"]
+        g["link_share"] = g["wire_gb_per_s"] / record["link_gb_per_s"]["pinned"]
+        del fdf, format_frames
+        record["cold_groupby_s"], record["cold_dropped_gb"] = phase23_cold(
+            vt, path, lambda df: run_query(df, vt))
+        print(f"[{label}] phase 23 config 1 groupby N={n}: streamed {g['streamed_rows_per_s']!r} "
+              f"rows/s, wire {g['wire_gb_per_s']!r} GB/s = {g['link_share']!r} of the pinned "
+              f"link; cold {record['cold_groupby_s']!r} s after dropping the file's pages (the "
+              f"page cache shrank {record['cold_dropped_gb']!r} GB of the file's "
+              f"{record['file_gb']!r}), not a check", flush=True)
+        del staged, i1, x, fstaged
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    record["phase_s"] = time.perf_counter() - t_phase
+    return launches, record
+
+
 def profile_phases(vt, phases, label):
-    """The device busy and idle share of each query of phases 20-22
-    (``python3 chip_smoke.py --profile 20 21 22``): the phase's tables made
+    """The device busy and idle share of each query of phases 20-23
+    (``python3 chip_smoke.py --profile 20 21 22 23``): the phase's tables made
     as the phase makes them, each query through scripts/profile_torch_groupby.py's
     ``profile`` (two warm-ups, then 5 runs under torch.profiler, each ended by
     a synchronize), the result cache off but for phase 22's two hits."""
@@ -4411,6 +4978,28 @@ def profile_phases(vt, phases, label):
                 profile(f"phase 22 {name} N={rows}", query)
         from vaex_tpu_torch import multiprocessing as port_mp
         port_mp.close_pool()
+    if 23 in phases:
+        import importlib.util
+        import shutil
+        import tempfile
+        tmp = tempfile.mkdtemp(prefix="phase23-", dir=tempfile.gettempdir())
+        try:
+            staged, _, _ = make_table(PHASE23_ROWS, vt)
+            ext = "hdf5" if importlib.util.find_spec("h5py") else "arrow"
+            path = os.path.join(tmp, f"config1.{ext}")
+            staged.export(path)
+            fdf = vt.open(path).categorize("i1", labels=range(K))
+            run_query(fdf, vt)  # the first pass builds i1's proof
+            profile(f"phase 23 config 1 groupby streamed from {ext} N={PHASE23_ROWS}",
+                    lambda: run_query(fdf, vt))
+            with phase23_synchronous():
+                profile(f"phase 23 config 1 groupby synchronous from {ext} N={PHASE23_ROWS}",
+                        lambda: run_query(fdf, vt))
+            profile(f"phase 23 config 1 groupby staged N={PHASE23_ROWS}",
+                    lambda: run_query(staged, vt))
+            del fdf, staged
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main():
@@ -4436,7 +5025,7 @@ def main():
     if sys.argv[1:2] == ["--profile"]:
         kernel_build.build("grid_additive", "grid_window", "grid_partition", "grid_moments",
                            "grid_moments_window", "probe")
-        profile_phases(vt, [int(a) for a in sys.argv[2:]] or [20, 21, 22], label)
+        profile_phases(vt, [int(a) for a in sys.argv[2:]] or [20, 21, 22, 23], label)
         return 0
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
@@ -4535,6 +5124,9 @@ def main():
     phase22_launches, phase22 = phase22_path(vt, plan, gp, probe, label)
     print(json.dumps({"phase22": phase22}), flush=True)
 
+    phase23_launches, phase23 = phase23_path(vt, plan, gp, probe, label)
+    print(json.dumps({"phase23": phase23}), flush=True)
+
     measured = {plan.B1: (main_launches[plan.B1], results[MAIN_SIZES[0]]),
                 plan.B2: (h2o_launches[plan.B2], wide[plan.B2]),
                 plan.B3: (h2o_launches[plan.B3], wide[plan.B3]),
@@ -4573,6 +5165,7 @@ def main():
         "phase20_launches": phase20_launches[name],
         "phase21_launches": phase21_launches[name],
         "phase22_launches": phase22_launches[name],
+        "phase23_launches": phase23_launches[name],
         **{key: value for key, value in m.items() if key in EXTRA_KEYS},
     } for name, (launches, m) in measured.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -638,3 +638,198 @@ def test_the_phase22_uint64_expressions_on_the_cpu(phase22_uint64, name):
         wrong = got + np.uint64(1)
     with pytest.raises(RuntimeError, match=re.escape(f"phase 22 {name}")):
         chip_smoke.phase22_a14_check(name, wrong, want)
+
+
+# phase 23: files and the streamed pass, at a small size on the CPU
+
+PHASE23_N = 60_001
+PHASE23_TILE = 4096
+
+
+@pytest.fixture
+def phase23(tmp_path, monkeypatch):
+    """Config 1's table on the CPU (staged), its answers, and its file
+    (HDF5) opened and categorized, at 4096-row tiles."""
+    from vaex_tpu_torch import settings, stream
+    monkeypatch.setattr(settings, "DEVICE", "cpu")
+    stream.clear_proofs()
+    vt = vaex_tpu_torch
+    staged, i1, x = chip_smoke.make_table(PHASE23_N, vt, "cpu")
+    values = chip_smoke.phase23_values()
+    wants = chip_smoke.phase23_wants(vt, staged, values)
+    path = str(tmp_path / "config1.hdf5")
+    chip_smoke.phase23_export(staged, path)
+    fdf = vt.open(path).categorize("i1", labels=range(chip_smoke.K))
+    fdf._tile_rows = PHASE23_TILE
+    return {"vt": vt, "staged": staged, "i1": i1, "x": x, "values": values, "wants": wants,
+            "path": path, "fdf": fdf, "tmp": tmp_path}
+
+
+@pytest.mark.parametrize("ext", ["hdf5", "arrow", "parquet"])
+def test_the_phase23_queries_stream_from_each_file_on_the_cpu(phase23, ext):
+    p = phase23
+    path = str(p["tmp"] / f"config1.{ext}")
+    chip_smoke.phase23_export(p["staged"], path)
+    fdf = p["vt"].open(path).categorize("i1", labels=range(chip_smoke.K))
+    fdf._tile_rows = PHASE23_TILE
+    records = chip_smoke.phase23_drive(p["vt"], fdf, p["wants"], p["values"])
+    assert records["groupby"]["wire"] == {"i1": "int32", "x": "float64"}
+    assert records["groupby"]["ring"] == 3 and not records["groupby"]["pinned"]
+
+
+def test_the_phase23_ring_key_and_formats_on_the_cpu(phase23):
+    p = phase23
+    vt = p["vt"]
+    tiles, ring = chip_smoke.phase23_ring(vt, p["fdf"], p["wants"]["groupby"], tile_rows=257)
+    assert tiles == -(-PHASE23_N // 257) and ring == 3
+    chip_smoke.phase23_key_check(*chip_smoke.phase23_key_reads(vt, p["path"]))
+    chip_smoke.phase23_rewrite_check(*chip_smoke.phase23_rewrite(
+        vt, p["i1"].numpy()[:5000], p["x"].numpy()[:5000], str(p["tmp"] / "key.hdf5")))
+    assert set(chip_smoke.phase23_formats(vt, str(p["tmp"]), "cpu", n_text=3000,
+                                          n_small=2000)) == {"csv", "json", "fits", "vot"}
+
+
+def test_the_phase23_checks_refuse_a_slot_read_before_its_copy(phase23, monkeypatch):
+    """A tile whose slot was read before its copy landed carries the rows of
+    the tile before it: the counts move."""
+    from vaex_tpu_torch import stream
+    real = stream.TileStream._transfer_ahead
+
+    def stale(self):
+        previous = None
+        for i1, i2, columns, event in real(self):
+            if previous is not None and i1 > 0 and len(previous[0]) == len(columns):
+                columns = previous[1]
+            previous = (columns, {k: tuple(None if t is None else t.clone() for t in v)
+                                  for k, v in columns.items()})
+            yield i1, i2, columns, event
+    monkeypatch.setattr(stream.TileStream, "_transfer_ahead", stale)
+    with pytest.raises(RuntimeError, match="check failed"):
+        chip_smoke.phase23_drive(phase23["vt"], phase23["fdf"], phase23["wants"],
+                                 phase23["values"])
+
+
+def test_the_phase23_checks_refuse_a_key_narrowed_past_its_proof(phase23):
+    """A proof that leaves out a raw value past 2^31 narrows it on the wire,
+    where it wraps into a valid bin."""
+    from vaex_tpu_torch import column, stream
+    p = phase23
+    vt = p["vt"]
+    i1 = p["i1"].numpy().copy()
+    i1[11] = 2 ** 32 + 7  # wraps to 7 as an int32
+    x = p["x"].numpy()
+    path = str(p["tmp"] / "wide.hdf5")
+    vt.from_arrays(i1=i1, x=x).export(path)
+    staged = vt.from_arrays(i1=i1, x=x).to_device("cpu").categorize(
+        "i1", labels=range(chip_smoke.K))
+    want = chip_smoke.phase23_answer("groupby", chip_smoke.run_query(staged, vt))
+    fdf = vt.open(path).categorize("i1", labels=range(chip_smoke.K))
+    fdf._tile_rows = PHASE23_TILE
+    for _ in range(2):  # the true proof keeps i1 wide
+        chip_smoke.phase23_check("groupby", chip_smoke.phase23_answer(
+            "groupby", chip_smoke.run_query(fdf, vt)), want)
+    assert chip_smoke.phase23_stream(fdf)["wire"]["i1"] == "int64"
+    key = column.registered_key(fdf.dataset["i1"])[0]
+    stream._proofs[key] = {"min": 0, "max": chip_smoke.K - 1}  # a proof of too little
+    got = chip_smoke.phase23_answer("groupby", chip_smoke.run_query(fdf, vt))
+    assert chip_smoke.phase23_stream(fdf)["wire"]["i1"] == "int32"
+    with pytest.raises(RuntimeError, match="check failed"):
+        chip_smoke.phase23_check("groupby", got, want)
+
+
+def test_the_phase23_checks_refuse_a_cached_answer_after_the_file_changed(phase23,
+                                                                           monkeypatch):
+    """A key that names the file by its path alone serves the old file's
+    answer for the rewritten one."""
+    from vaex_tpu_torch import dataset
+    from vaex_tpu_torch.io import arrow, hdf5
+    for m in (dataset, hdf5, arrow):
+        monkeypatch.setattr(m, "file_identity", lambda path, fd=None: ("file", str(path)))
+    p = phase23
+    with pytest.raises(RuntimeError, match="check failed"):
+        chip_smoke.phase23_rewrite_check(*chip_smoke.phase23_rewrite(
+            p["vt"], p["i1"].numpy()[:5000], p["x"].numpy()[:5000], str(p["tmp"] / "k.hdf5")))
+
+
+def test_the_phase23_checks_refuse_a_cancelled_stream_that_leaves_its_thread(phase23,
+                                                                             monkeypatch):
+    from vaex_tpu_torch import stream
+    left = []
+    real = stream.TileStream.close
+    monkeypatch.setattr(stream.TileStream, "close", lambda self: left.append(self))
+    try:
+        with pytest.raises(RuntimeError, match="check failed"):
+            chip_smoke.phase23_ring(phase23["vt"], phase23["fdf"], phase23["wants"]["groupby"],
+                                    tile_rows=257)
+    finally:
+        for s in left:
+            real(s)
+    assert not chip_smoke.phase23_threads()
+
+
+def test_the_phase23_checks_refuse_a_file_key_that_reads_the_column(phase23, monkeypatch):
+    """A column keyed by its bytes (no file key) is hashed by the cache."""
+    from vaex_tpu_torch import column
+    monkeypatch.setattr(column, "registered_key", lambda col: None)
+    with pytest.raises(RuntimeError, match="check failed"):
+        chip_smoke.phase23_key_check(*chip_smoke.phase23_key_reads(phase23["vt"],
+                                                                   phase23["path"]))
+
+
+def test_phase23_counts_only_the_launches_inside_a_streamed_query():
+    """Launches outside a counted query (a staged pass) are not read; a
+    streamed query whose own kernel was not launched on its tiles (a pass
+    that fell to plain torch) is refused."""
+    from vaex_tpu_torch.ops import grid_partition as gp
+    from vaex_tpu_torch.ops import grid_plan as plan
+    from vaex_tpu_torch.ops import probe
+    counted = chip_smoke.phase23_counted(plan, gp, probe)
+    b1 = plan.KERNELS[plan.B1]
+
+    def streamed(df):
+        b1.launches += 2
+        return df
+    b1.launches += 5  # a staged pass between two streamed ones
+    assert counted("groupby", streamed, "out") == "out"
+    assert counted.launches[plan.B1] == 2 and counted.launches[plan.B4] == 0
+    with pytest.raises(RuntimeError, match="was not launched on the streamed tiles"):
+        counted("std", streamed, "out")
+    chip_smoke.zero_launches(plan, gp)
+
+
+def test_the_phase23_checks_refuse_a_streamed_pass_on_the_plain_versions(phase23):
+    """On the CPU every wrapper takes its plain version: no kernel counts a
+    launch, so the counted drive fails at its first query."""
+    from vaex_tpu_torch.ops import grid_partition as gp
+    from vaex_tpu_torch.ops import grid_plan as plan
+    from vaex_tpu_torch.ops import probe
+    p = phase23
+    with pytest.raises(RuntimeError, match="b1 was not launched on the streamed tiles"):
+        chip_smoke.phase23_drive(p["vt"], p["fdf"], p["wants"], p["values"],
+                                 run=chip_smoke.phase23_counted(plan, gp, probe))
+
+
+@pytest.fixture
+def wide_frame(monkeypatch):
+    from vaex_tpu_torch import settings, stream
+    monkeypatch.setattr(settings, "DEVICE", "cpu")
+    monkeypatch.setattr(stream, "RING_TILE_ROWS_MIN", 1)
+    return chip_smoke.phase23_wide_frame(vaex_tpu_torch, n=20_001, c=30)
+
+
+def test_the_phase23_wide_pass_keeps_its_ring_within_the_budget_on_the_cpu(wide_frame):
+    df, names, a = wide_frame
+    budget = 3 * 30 * 9 * 3000  # 3 slots of 30 columns (8 B and a mask byte) x 3000 rows
+    rec = chip_smoke.phase23_wide_pass(df, names, a, budget)
+    assert rec["tile_rows"] == 2048 and rec["tiles"] == -(-len(a) // 2048)
+    assert 0 < rec["ring_bytes"] <= budget and not rec["pinned"]
+    assert rec["rss_peak_gb"] >= rec["rss_before_gb"] > 0
+
+
+def test_the_phase23_checks_refuse_a_ring_past_its_budget(wide_frame, monkeypatch):
+    from vaex_tpu_torch import execution
+    monkeypatch.setattr(execution, "ring_tile_rows", lambda dataset, names, rows: rows)
+    df, names, a = wide_frame
+    df._tile_rows = 8192
+    with pytest.raises(RuntimeError, match="past its budget"):
+        chip_smoke.phase23_wide_pass(df, names, a, 3 * 30 * 9 * 3000)

@@ -1474,3 +1474,102 @@ def test_uint64_expressions_on_the_card(cuda, expression):
         npt.assert_allclose(got, want, rtol=1e-15)
     else:
         npt.assert_array_equal(got, want)
+
+
+# the streamed pass over a file (vaex_tpu_torch.stream): page-locked slots,
+# a copy stream, events
+
+def _file_frame(tmp_path, n, ext, seed=3):
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 50, n).astype(np.int64)
+    x = rng.normal(0, 1, n)
+    path = str(tmp_path / f"t.{ext}")
+    vaex_tpu_torch.from_arrays(k=k, x=x).export(path)
+    staged = vaex_tpu_torch.from_arrays(k=k, x=x).to_device("cuda")
+    return vaex_tpu_torch.open(path), staged
+
+
+def _groupby(df):
+    return df.groupby("k", agg={"s": agg.sum("x"), "c": "count"}, sort=True)
+
+
+@pytest.mark.parametrize("ext", ["arrow", "parquet"])
+@pytest.mark.parametrize("tile_rows", [7, 1000, 65_536])
+def test_pinned_streaming_at_tiny_tiles_equals_the_staged_answer(cuda, tmp_path, ext,
+                                                                 tile_rows):
+    from vaex_tpu_torch import stream
+    stream.clear_proofs()
+    n = 200_003 if tile_rows > 7 else 20_003
+    df, staged = _file_frame(tmp_path, n, ext)
+    df._tile_rows = tile_rows
+    want = _groupby(staged)
+    for wire in ("int64", "int32"):  # the first pass proves k, the second narrows it
+        got = _groupby(df)
+        s = df.executor.trace_log[-1]["stream"]
+        assert s["pinned"] and s["ring"] == 3 and s["mode"] == "transfer-ahead"
+        assert df.executor.trace_log[-1]["device"].startswith("cuda")
+        assert got["c"].tolist() == want["c"].tolist()
+        npt.assert_allclose(got["s"].tolist(), want["s"].tolist(), rtol=1e-9, atol=1e-9)
+    assert s["wire"]["k"] == "int32"
+
+
+def test_the_copy_stream_under_a_busy_compute_stream(cuda, tmp_path, monkeypatch):
+    """Every tile's kernels queue behind a long sleep on the compute stream,
+    so the producer runs ahead of them: a tile read before its copy, or a
+    device buffer handed out again before the compute stream read it
+    (record_stream), moves the counts."""
+    from vaex_tpu_torch import stream, tasks
+    stream.clear_proofs()
+    df, staged = _file_frame(tmp_path, 300_007, "arrow", seed=5)
+    df._tile_rows = 4096
+    want = _groupby(staged)
+    real = tasks.TaskAggregations.update
+
+    def busy(self, state, ctx):
+        torch.cuda._sleep(200_000)
+        return real(self, state, ctx)
+    monkeypatch.setattr(tasks.TaskAggregations, "update", busy)
+    for _ in range(2):
+        got = _groupby(df)
+        assert got["c"].tolist() == want["c"].tolist()
+        npt.assert_allclose(got["s"].tolist(), want["s"].tolist(), rtol=1e-9, atol=1e-9)
+    assert df.executor.trace_log[-1]["stream"]["wire"]["k"] == "int32"
+
+
+def test_a_cancelled_stream_on_the_card_leaves_no_thread(cuda, tmp_path):
+    import threading
+    from vaex_tpu_torch.execution import UserAbort
+    df, staged = _file_frame(tmp_path, 100_003, "arrow")
+    df._tile_rows = 1000
+    calls = []
+    cb = df.executor.signal_progress.connect(lambda p: calls.append(p) or len(calls) < 4)
+    with pytest.raises(UserAbort):
+        _groupby(df)
+    df.executor.signal_progress.disconnect(cb)
+    assert not [t for t in threading.enumerate() if t.name.startswith("vaex-tpu-torch-")]
+    assert _groupby(df)["c"].tolist() == _groupby(staged)["c"].tolist()
+
+
+def test_prefetch_and_a_ring_bounded_by_bytes_on_the_card(cuda, tmp_path, monkeypatch):
+    """PREFETCH alone copies each tile in the pass (pageable); a small
+    STREAM_RING_BYTES clamps the tile so that the page-locked slots stay
+    within it; both give the staged answer."""
+    from vaex_tpu_torch import settings, stream
+    stream.clear_proofs()
+    df, staged = _file_frame(tmp_path, 200_003, "arrow")
+    want = _groupby(staged)
+    monkeypatch.setattr(stream, "RING_TILE_ROWS_MIN", 1)
+    budget = 3 * 18 * 5000  # 3 slots of k and x (8 B and a mask byte each), 5000 rows
+    monkeypatch.setattr(settings, "STREAM_RING_BYTES", budget)
+    got = _groupby(df)
+    log = df.executor.trace_log[-1]
+    assert log["tile_rows"] == 4096 and log["stream"]["pinned"]
+    assert 0 < log["stream"]["ring_bytes"] <= budget
+    assert got["c"].tolist() == want["c"].tolist()
+    npt.assert_allclose(got["s"].tolist(), want["s"].tolist(), rtol=1e-9, atol=1e-9)
+    monkeypatch.setattr(settings, "TRANSFER_AHEAD", 0)
+    df._tile_rows = 4096
+    got = _groupby(df)
+    assert df.executor.trace_log[-1]["stream"]["mode"] == "prefetch"
+    assert got["c"].tolist() == want["c"].tolist()
+    npt.assert_allclose(got["s"].tolist(), want["s"].tolist(), rtol=1e-9, atol=1e-9)

@@ -26,6 +26,15 @@ or a CUDA device) qualify, and the column types below.
   201-240); what ``to_device`` makes of a string column, and what a
   groupby's string keys come back as.  A tile is a
   :class:`~.ops.nullable.DictNA`.
+* :class:`ColumnHost`: the base of a column read from a file a slice at a
+  time (a parquet file's row groups, a FITS record array, an arrow chunked
+  array, a remote object's block cache): a slice is a host numpy (masked)
+  array.
+
+A column read from a file carries an exact key of its own (:func:`keyed`):
+the file's path, device, inode, size and modification time and the
+column's place in it, so that the result cache keys it without reading a
+byte (:func:`column_key`); a slice of it keeps a key derived from it.
 
 A slice of one of the lazy ones is an :class:`~.ops.nullable.NA` of
 tensors on the column's device: data and mask, read with one gather for an
@@ -34,6 +43,9 @@ device, which is how a pass reads them.
 """
 
 from __future__ import annotations
+
+import os
+import weakref
 
 import numpy as np
 import torch
@@ -44,6 +56,91 @@ from .ops.nullable import NA, DictNA
 from .utils import fingerprint, hash_array_data, identity, tensor_key
 
 CPU = torch.device("cpu")
+
+# id(column) -> (a weak reference to it, its exact key, whether that is a
+# content key): the keys of columns read from files (:func:`keyed`)
+_KEYED = {}
+
+
+def keyed(col, key, content=False):
+    """``col`` with the exact key ``key`` of its values, which
+    :func:`column_key` gives instead of hashing them: a file's identity and
+    the column's place in it (no content key: it holds on this machine), or
+    the content hashes of :meth:`.dataset.DatasetFile.hashed`.  The entry
+    goes with the column object."""
+    ident = id(col)
+    _KEYED[ident] = (weakref.ref(col, lambda _, ident=ident: _KEYED.pop(ident, None)),
+                     key, content)
+    return col
+
+
+def registered_key(col):
+    """(the key :func:`keyed` gave ``col``, whether it is a content key), or
+    None."""
+    entry = _KEYED.get(id(col))
+    if entry is None or entry[0]() is not col:
+        return None
+    return entry[1], entry[2]
+
+
+def file_identity(path, fd=None):
+    """What names a file's bytes on this machine while no one writes into
+    it: its absolute path, device, inode, size and modification time, of the
+    open file ``fd`` where given (the one a mapping reads).  A rewrite
+    through a new file and ``os.replace`` is a new inode; an edit in place
+    within one tick of the clock is not seen (as vaex_tpu/dataset.py:457)."""
+    st = os.fstat(fd) if fd is not None else os.stat(path)
+    return ("file", os.path.abspath(str(path)), st.st_dev, st.st_ino, st.st_size,
+            st.st_mtime_ns)
+
+
+class ColumnHost:
+    """The base of a column read from a file a slice at a time: ``dtype`` a
+    numpy dtype, ``_read(i1, i2)`` rows [i1, i2) as a host numpy (masked)
+    array.  A slice reads its rows (all rows where it has a step), a
+    ``trim`` is a view of rows that reads nothing, a take reads the span of
+    its rows.  ``masked`` says whether a slice can
+    hold a mask."""
+
+    dtype = np.dtype("float64")
+    masked = False
+
+    def __len__(self):
+        raise NotImplementedError
+
+    def _read(self, i1, i2):
+        raise NotImplementedError
+
+    def __getitem__(self, item):
+        if isinstance(item, slice):
+            start, stop, step = item.indices(len(self))
+            if step != 1:
+                return self._read(0, len(self))[item]
+            return self._read(start, max(start, stop))
+        index = np.asarray(item, dtype=np.int64)
+        if index.size == 0:
+            return self._read(0, 0)
+        lo = int(index.min())
+        return self._read(lo, int(index.max()) + 1)[index - lo]
+
+    def trim(self, i1, i2):
+        return ColumnHostRows(self, i1, i2)
+
+
+class ColumnHostRows(ColumnHost):
+    """Rows [i1, i2) of a :class:`ColumnHost`."""
+
+    def __init__(self, source, i1, i2):
+        if isinstance(source, ColumnHostRows):
+            source, i1, i2 = source.source, source.i1 + i1, source.i1 + i2
+        self.source, self.i1, self.i2 = source, i1, i2
+        self.dtype, self.masked = source.dtype, source.masked
+
+    def __len__(self):
+        return self.i2 - self.i1
+
+    def _read(self, i1, i2):
+        return self.source._read(self.i1 + i1, self.i1 + i2)
 
 
 class ColumnVirtualConstant:
@@ -552,9 +649,14 @@ def column_device(col):
 
 
 def slice_column(col, i1, i2):
-    """Rows [i1, i2) of a column as a column of the same kind (views)."""
-    return col.trim(i1, i2) if isinstance(col, LAZY + STRINGS + (ColumnVirtualRange,)) else (
-        col[i1:i2])
+    """Rows [i1, i2) of a column as a column of the same kind (views); of a
+    keyed column one keyed by its key and the rows."""
+    out = col.trim(i1, i2) if isinstance(col, LAZY + STRINGS + (ColumnVirtualRange, ColumnHost)) \
+        else col[i1:i2]
+    known = registered_key(col)
+    if known is not None and out is not col:
+        keyed(out, ("rows", known[0], i1, i2), known[1])
+    return out
 
 
 def tile_of(col, i1, i2, device=None) -> NA:
@@ -606,6 +708,8 @@ def column_to(col, device):
         return col.to(device)
     if isinstance(col, LAZY + STRINGS):
         return col.to(device)
+    if isinstance(col, ColumnHost) and has_torch_dtype(col.dtype):
+        col = col[:]  # read whole, as to_device reads a host array whole
     if not isinstance(col, np.ndarray) or not has_torch_dtype(dtype_of(col).numpy):
         return col
     data, mask = array_types.data_and_mask(col)
@@ -618,7 +722,11 @@ def column_to(col, device):
 def column_fingerprint(col):
     """A content hash of a column: its own for the lazy types, else a hash of
     its head, a strided sample and its tail, so that a device column costs a
-    few small copies, not a full read."""
+    few small copies, not a full read; a keyed column (:func:`keyed`) a
+    hash of its key."""
+    known = registered_key(col)
+    if known is not None:
+        return fingerprint("keyed", known[0])
     if isinstance(col, LAZY + STRINGS + (ColumnVirtualConstant, ColumnVirtualRange)):
         return col.fingerprint()
     n = len(col)
@@ -637,7 +745,11 @@ def column_key(col):
     a tensor by its identity and version (:func:`.utils.tensor_key`: no
     content key), a host array by a hash of all its bytes, an arrow array
     by all its buffers, a lazy column by its parts.  Unlike
-    :func:`column_fingerprint` it never samples."""
+    :func:`column_fingerprint` it never samples.  A column read from a file
+    gives the key :func:`keyed` gave it, and reads nothing."""
+    known = registered_key(col)
+    if known is not None:
+        return known
     if isinstance(col, torch.Tensor):
         return tensor_key(col), False
     if isinstance(col, (np.ndarray, np.ma.MaskedArray)):
@@ -679,4 +791,6 @@ def is_masked(col):
         return col.null_count > 0
     if isinstance(col, ColumnDictionary):
         return col.has_null
+    if isinstance(col, ColumnHost):
+        return col.masked
     return False

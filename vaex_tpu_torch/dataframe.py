@@ -49,7 +49,7 @@ from . import agg as agg_module
 from . import array_types, expresso, settings
 from . import selections as selections_module
 from .column import (STRINGS, ColumnDictionary, ColumnMasked, ColumnString,
-                     ColumnVirtualConstant, column_to, placed_device, tile_of)
+                     ColumnHost, ColumnVirtualConstant, column_to, placed_device, tile_of)
 from .column import is_masked as column_is_masked
 from .dataset import Dataset, DatasetArrays
 from .datatype import DataType, dtype_of, host_values
@@ -690,7 +690,7 @@ class DataFrame:
                 and isinstance(df.dataset[expression], STRINGS)):
             values = df.dataset[expression][:]
         elif (df._is_physical(expression) and not df.filtered
-                and isinstance(df.dataset[expression], (np.ndarray, torch.Tensor))):
+                and isinstance(df.dataset[expression], (np.ndarray, torch.Tensor, ColumnHost))):
             values = array_types.to_numpy(df.dataset[expression][:])
             # a datetime, timedelta or unsigned column comes back from its int64 form
             values = host_values(values, df.dataset.logical.get(expression))
@@ -1533,6 +1533,84 @@ class DataFrame:
             del df.virtual_columns[name]
             df._put_column(name, values, logical)
         return df
+
+    # -------------------------------------------------------------- export
+    def export(self, path, progress=None, chunk_size=None, parallel=True, fs_options=None,
+               fs=None):
+        """Write the frame to ``path`` in the format its extension names
+        (:mod:`.io.export`): the rows the filter keeps, virtual columns as
+        their values, a chunk (a tile by default) at a time, into a
+        temporary file renamed onto ``path`` at the end."""
+        from .io.export import export
+        export(self, path, progress=progress, chunk_size=chunk_size)
+
+    def export_hdf5(self, path, progress=None, chunk_size=None, parallel=True, mode="w"):
+        from .io.hdf5 import export_hdf5
+        export_hdf5(self, path, progress=progress, chunk_size=chunk_size)
+
+    def export_parquet(self, path, progress=None, chunk_size=None, parallel=True,
+                       fs_options=None, fs=None, **kwargs):
+        from .io.arrow import export_parquet
+        export_parquet(self, path, chunk_size=chunk_size, **kwargs)
+
+    def export_arrow(self, path, progress=None, chunk_size=None, parallel=True,
+                     reduce_large=False, fs_options=None, fs=None):
+        from .io.arrow import export_arrow
+        export_arrow(self, path, chunk_size=chunk_size)
+
+    def export_feather(self, path, parallel=True, reduce_large=False, compression="lz4",
+                       chunk_size=None):
+        from .io.arrow import export_feather
+        export_feather(self, path, compression=compression, chunk_size=chunk_size)
+
+    def export_csv(self, path, progress=None, chunk_size=None, parallel=True, **kwargs):
+        from .io.export import export_csv
+        export_csv(self, path, chunk_size=chunk_size, **kwargs)
+
+    def export_votable(self, path, progress=None, chunk_size=None):
+        from .io.votable import export_votable
+        export_votable(self, path, chunk_size=chunk_size)
+
+    def export_fits(self, path, progress=None, chunk_size=None):
+        from .io.fits import export_fits
+        export_fits(self, path, chunk_size=chunk_size)
+
+    def export_many(self, path, chunk_size=None, max_rows_per_file=None, progress=None):
+        """The rows split over several files, ``path`` holding a ``{i}``
+        slot (``{i:03d}``...) for the file's number, ``max_rows_per_file``
+        (else ``chunk_size``, else an eighth of the rows) a file
+        (vaex_tpu/dataframe.py:1856-1870).  Returns the paths."""
+        df = self.extract()
+        n = len(df)
+        per_file = int(max_rows_per_file or chunk_size or max(1, -(-n // 8)))
+        paths = []
+        for i, offset in enumerate(range(0, max(n, 1), per_file)):
+            out = path.format(i=i)
+            df[offset:min(offset + per_file, n)].export(out)
+            paths.append(out)
+        return paths
+
+    def export_partitioned(self, path, by, directory_format="{key}={value}", progress=None):
+        """One file per value of the column ``by`` (a hive layout:
+        ``<dir of path>/<by>=<value>/<name of path>``), missing values left
+        out (vaex_tpu/dataframe.py:1872-1890).  Returns the paths."""
+        import os
+        by = [str(b) for b in (by if isinstance(by, (list, tuple)) else [by])]
+        if len(by) != 1:
+            raise ValueError("export_partitioned takes one column to partition by")
+        key = by[0]
+        paths = []
+        for value in self.unique(key, array_type="list"):
+            if value is None or value != value:
+                continue
+            part = self.filter(f"({key} == {value!r})")
+            directory = os.path.join(os.path.dirname(path) or ".",
+                                     directory_format.format(key=key, value=value))
+            os.makedirs(directory, exist_ok=True)
+            out = os.path.join(directory, os.path.basename(path))
+            part.export(out)
+            paths.append(out)
+        return paths
 
     # ------------------------------------------------------- shift, rolling
     def shift(self, periods, column=None, fill_value=None, trim=False, inplace=False):

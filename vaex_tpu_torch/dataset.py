@@ -11,20 +11,31 @@ masked), ``filtered`` (the rows of a bool mask) and ``concat`` (datasets one
 after another, their common columns) read their parents' columns through
 :class:`~.column.ColumnIndexed` and :class:`~.column.ColumnConcatenated`;
 they copy nothing (vaex_tpu/dataset.py:151-175, 342-442).  Each node has a
-fingerprint and a ``remembered`` of its own.  File nodes are not ported yet.
+fingerprint and a ``remembered`` of its own.
+
+``chunk_iterator`` yields a node's rows a chunk at a time, each column's
+chunk as the column holds it (a host array's rows for a host column, a
+tensor view for a tensor column): what a streamed pass reads
+(:mod:`.stream`).  :class:`DatasetFile` is the base of the nodes over a
+file (:mod:`.io`): each column is keyed by the file (:func:`.column.keyed`),
+and :meth:`DatasetFile.hashed` keys them by their content instead, through
+a sidecar ``<path>.d/hashes.yaml`` (vaex_tpu/dataset.py:103-120, 445-521).
 """
 
 from __future__ import annotations
 
 import collections.abc
+import copy
+import os
 from typing import Dict
 
 import numpy as np
 import torch
 
 from . import array_types
-from .column import (STRINGS, ColumnString, column_device, column_fingerprint, column_key,
-                     concat_columns, slice_column, take_column)
+from .column import (STRINGS, ColumnHost, ColumnString, column_device, column_fingerprint,
+                     column_key, concat_columns, file_identity, keyed, slice_column,
+                     take_column)
 from .datatype import DataType, dtype_of, needs_logical
 from .utils import fingerprint, hash_array_data
 
@@ -135,6 +146,19 @@ class Dataset(collections.abc.Mapping):
             datasets.extend(ds.datasets if isinstance(ds, DatasetConcatenated) else [ds])
         return DatasetConcatenated(datasets)
 
+    def chunk_iterator(self, columns, chunk_size=None, reverse=False):
+        """Yield ``(i1, i2, {name: rows [i1, i2) of the column})`` over the
+        rows in chunks of ``chunk_size`` (1 << 20 by default), last first
+        with ``reverse``; each chunk as :func:`.column.slice_column` gives it
+        (a host array's rows, a tensor view, a lazy column's trim).  An
+        empty node yields one empty chunk (vaex_tpu/dataset.py:103-120)."""
+        chunk_size = chunk_size or 1 << 20
+        n = self.row_count
+        starts = range(0, max(n, 1), chunk_size)
+        for i1 in (reversed(starts) if reverse else starts):
+            i2 = min(i1 + chunk_size, n)
+            yield i1, i2, {name: slice_column(self._columns[name], i1, i2) for name in columns}
+
 
 def index_tensor(indices, n):
     """Row indices as an int tensor: a tensor as it is; host ints (a
@@ -162,7 +186,7 @@ class DatasetArrays(Dataset):
         self.logical = {name: np.dtype(dt) for name, dt in (logical or {}).items()
                         if name in self._columns}
         for name, col in self._columns.items():
-            if isinstance(col, np.ndarray) and needs_logical(col.dtype):
+            if isinstance(col, (np.ndarray, ColumnHost)) and needs_logical(col.dtype):
                 self.logical[name] = col.dtype
         lengths = {name: len(col) for name, col in self._columns.items()}
         if len(set(lengths.values())) > 1:
@@ -196,6 +220,12 @@ class DatasetRenamed(_Decorator):
     def _compute_fingerprint(self):
         return fingerprint("dataset-renamed", self.original.fingerprint(), self.renaming)
 
+    def chunk_iterator(self, columns, chunk_size=None, reverse=False):
+        back = {new: old for old, new in self.renaming.items()}
+        for i1, i2, chunks in self.original.chunk_iterator([back.get(n, n) for n in columns],
+                                                           chunk_size, reverse):
+            yield i1, i2, {name: chunks[back.get(name, name)] for name in columns}
+
 
 class DatasetDropped(_Decorator):
     def __init__(self, original, names):
@@ -207,6 +237,12 @@ class DatasetDropped(_Decorator):
 
     def _compute_fingerprint(self):
         return fingerprint("dataset-dropped", self.original.fingerprint(), self.names)
+
+    def chunk_iterator(self, columns, chunk_size=None, reverse=False):
+        missing = [n for n in columns if n not in self._columns]
+        if missing:
+            raise KeyError(f"column(s) {missing} are not in the dataset")
+        return self.original.chunk_iterator(columns, chunk_size, reverse)
 
 
 class DatasetMerged(Dataset):
@@ -227,6 +263,18 @@ class DatasetMerged(Dataset):
 
     def _compute_fingerprint(self):
         return fingerprint("dataset-merged", self.left.fingerprint(), self.right.fingerprint())
+
+    def chunk_iterator(self, columns, chunk_size=None, reverse=False):
+        """The chunks of both sides, side by side: each side chunks its rows
+        alike."""
+        left = [n for n in columns if n in self.left]
+        right = [n for n in columns if n not in self.left]
+        sides = zip(self.left.chunk_iterator(left, chunk_size, reverse),
+                    self.right.chunk_iterator(right, chunk_size, reverse))
+        for (i1, i2, a), (j1, j2, b) in sides:
+            if (i1, i2) != (j1, j2):
+                raise ValueError(f"the sides of a merge chunk apart: {(i1, i2)} vs {(j1, j2)}")
+            yield i1, i2, {**a, **b}
 
 
 def _content(t):
@@ -294,3 +342,145 @@ class DatasetConcatenated(Dataset):
 
     def _compute_fingerprint(self):
         return fingerprint("dataset-concat", [ds.fingerprint() for ds in self.datasets])
+
+    def chunk_iterator(self, columns, chunk_size=None, reverse=False):
+        """The parts' chunks one after another, joined across a part's end
+        so that every chunk but the last has ``chunk_size`` rows: each part
+        streams its own way (a parquet file by its row groups)."""
+        chunk_size = chunk_size or 1 << 20
+        if reverse or self.row_count == 0 or not columns:
+            yield from Dataset.chunk_iterator(self, columns, chunk_size, reverse)
+            return
+        pending, held, offset = [], 0, 0
+        for ds in self.datasets:
+            for _, _, chunks in ds.chunk_iterator(columns, chunk_size):
+                pending.append(chunks)
+                held += _rows(chunks, columns)
+                while held >= chunk_size:
+                    chunks, pending, held = _split(pending, columns, chunk_size, held)
+                    yield offset, offset + chunk_size, chunks
+                    offset += chunk_size
+        if held:
+            chunks, _, _ = _split(pending, columns, held, held)
+            yield offset, offset + held, chunks
+
+
+def _rows(chunks, columns):
+    return len(chunks[columns[0]])
+
+
+def _split(pending, columns, n, held):
+    """(the first ``n`` rows of the pending chunks as one chunk, the chunks
+    of the rest, their rows)."""
+    first, rest, taken = [], [], 0
+    for chunks in pending:
+        size = _rows(chunks, columns)
+        if taken >= n:
+            rest.append(chunks)
+        elif taken + size <= n:
+            first.append(chunks)
+        else:
+            cut = n - taken
+            first.append({c: slice_column(v, 0, cut) for c, v in chunks.items()})
+            rest.append({c: slice_column(v, cut, size) for c, v in chunks.items()})
+        taken += size
+    joined = first[0] if len(first) == 1 else {
+        c: concat_columns([ch[c] for ch in first]) for c in columns}
+    return joined, rest, held - n
+
+
+def _alias(col):
+    """A new column object over the same values (so that it can carry a key
+    of its own): a view of an array, a new wrapper of the rest."""
+    if isinstance(col, np.ndarray):
+        return col.view()
+    if isinstance(col, ColumnString):
+        return ColumnString(col.array)
+    if isinstance(col, ColumnHost):
+        return col.trim(0, len(col))
+    raise TypeError(f"cannot alias a column of {type(col).__name__}")
+
+
+class DatasetFile(DatasetArrays):
+    """The columns of one file (vaex_tpu/dataset.py:445-521): host arrays
+    (a memory map of the file where the format allows), arrow strings, or
+    :class:`~.column.ColumnHost` columns that read the file a slice at a
+    time.  ``identity`` (:func:`.column.file_identity`, taken from the file
+    the columns were read or mapped from) keys every column
+    (:func:`.column.keyed`): the result cache never hashes a file's bytes,
+    and a file replaced under its name (a new inode, a new size or time) is
+    a new key."""
+
+    def __init__(self, path, identity=None):
+        super().__init__({})
+        self.path = str(path)
+        self.identity = identity if identity is not None else file_identity(path)
+
+    def add_column(self, name, column):
+        """Add ``column`` under ``name``, keyed by the file and the name."""
+        column = DatasetArrays({name: column})._columns[name]
+        if len(self._columns) and len(column) != self._row_count:
+            raise ValueError(f"column {name!r} has {len(column)} rows, not {self._row_count}")
+        keyed(column, self.identity + (name, str(dtype_of(column).internal), len(column)))
+        self._columns[name] = column
+        self._row_count = len(column)
+        if isinstance(column, (np.ndarray, ColumnHost)) and needs_logical(column.dtype):
+            self.logical[name] = np.dtype(column.dtype)
+
+    def _compute_fingerprint(self):
+        return fingerprint("dataset-file", self.identity, sorted(self._columns))
+
+    # the content hashes and their sidecar (vaex_tpu/dataset.py:467-521)
+    def _sidecar(self):
+        return os.path.join(f"{self.path}.d", "hashes.yaml")
+
+    def _stamp(self):
+        """What the sidecar must match: the file's size, modification time
+        and inode as this node opened it."""
+        return {"size": self.identity[4], "mtime_ns": self.identity[5], "inode": self.identity[3]}
+
+    def _read_hashes(self):
+        import yaml
+        try:
+            with open(self._sidecar()) as f:
+                data = yaml.safe_load(f) or {}
+        except FileNotFoundError:
+            return {}
+        if any(data.get(k) != v for k, v in self._stamp().items()):
+            return {}  # another file under the name: every hash is stale
+        return dict(data.get("columns") or {})
+
+    def _write_hashes(self, hashes):
+        import yaml
+        os.makedirs(f"{self.path}.d", exist_ok=True)
+        tmp = f"{self._sidecar()}.tmp{os.getpid()}"
+        with open(tmp, "w") as f:
+            yaml.safe_dump({**self._stamp(), "columns": dict(hashes)}, f)
+        os.replace(tmp, self._sidecar())
+
+    def hashed(self):
+        """A copy whose columns are keyed by a hash of all their values, a
+        content key, which the disk level of the result cache keeps and
+        which survives a reopen: each hash is computed once per file and
+        kept in ``<path>.d/hashes.yaml`` (written only where the directory
+        can be; the hashes serve this process all the same)."""
+        hashes = self._read_hashes()
+        missing = [name for name in self._columns if name not in hashes]
+        for name in missing:
+            col = self._columns[name]
+            if isinstance(col, ColumnString):
+                hashes[name] = col.fingerprint()
+            else:
+                hashes[name] = hash_array_data(col[:] if isinstance(col, ColumnHost) else col)
+        if missing:
+            try:
+                self._write_hashes(hashes)
+            except OSError:
+                pass
+        ds = copy.copy(self)
+        ds._columns = {name: keyed(_alias(col), ("hash", hashes[name]), True)
+                       for name, col in self._columns.items()}
+        ds.logical = dict(self.logical)
+        ds.remembered, ds._ids = {}, {}
+        ds._fingerprint = fingerprint("dataset-file-hashed", sorted(hashes.items()))
+        return ds

@@ -44,6 +44,16 @@ fires, its tasks reject with :class:`UserAbort`, and the executor takes
 the next queued pass.  ``signal_begin`` and ``signal_end`` frame a pass
 (vaex_tpu/execution.py:48-130).
 
+A pass whose device stage reads host columns (arrays, memory maps of a
+file, arrow and parquet columns) over more than one tile reads them through
+:class:`.stream.TileStream`: a producer thread copies each tile into
+page-locked slots and on to the device on a copy stream of its own, ahead of
+the compute, narrowing the columns a proof allows; the pass's tile is
+clamped so that the slots hold at most ``settings.STREAM_RING_BYTES``.
+``PREFETCH = TRANSFER_AHEAD = 0`` selects the synchronous copy of each tile.
+``trace_log`` records the stream (its mode, the dtype of each column on the
+wire, the slots' bytes, its host copy time and the pass's waits for it).
+
 Not ported yet (ROADMAP queue A): the whole-pass loop, the mesh.
 """
 
@@ -55,6 +65,7 @@ import torch
 
 from . import cache, settings
 from .column import placed_device, tile_of
+from .stream import TileStream, is_host_column, ring_tile_rows, stream_mode
 from .datatype import rides_logical
 from .ops.nullable import NA, DictNA
 from .scopes import (DeviceScope, HostScope, column_names, expression_is_device, host_chunk,
@@ -174,19 +185,36 @@ class ExecutorLocal(Executor):
         T = df._tile_rows or settings.TILE_ROWS
         states = [t.initial_state(device, n_total) for t in tasks]
         n_tiles = 0
-        for i1 in range(0, max(n_total, 1), T):
-            i2 = min(i1 + T, n_total)
-            ctx = inputs.context(df, dataset, i1, i2)
-            if filter_expression is not None:
-                ctx.row_valid = ctx.boolean(filter_expression)
-            states = [t.update(s, ctx) for t, s in zip(tasks, states)]
-            n_tiles += 1
-            progress = i2 / n_total if n_total else 1.0
-            if any(r is False for r in self.signal_progress.emit(progress)):
-                self.signal_cancel.emit()
-                for task in tasks:
-                    task.reject(UserAbort("user aborted"))
-                return
+        host = [name for name in inputs.names if is_host_column(dataset[name])]
+        if host and settings.TRANSFER_AHEAD > 0:  # the ring of page-locked slots fits its bytes
+            T = ring_tile_rows(dataset, host, T)
+        mode = stream_mode(n_total, T, host)
+        stream = TileStream(dataset, host, T, device, mode) if mode else None
+        tiles = iter(stream) if stream else None
+        try:
+            for i1 in range(0, max(n_total, 1), T):
+                i2 = min(i1 + T, n_total)
+                streamed = None
+                if tiles is not None:
+                    j1, j2, streamed = next(tiles)
+                    if (j1, j2) != (i1, i2):
+                        raise RuntimeError(f"the stream gave rows {(j1, j2)} for {(i1, i2)}")
+                ctx = inputs.context(df, dataset, i1, i2, streamed)
+                if filter_expression is not None:
+                    ctx.row_valid = ctx.boolean(filter_expression)
+                states = [t.update(s, ctx) for t, s in zip(tasks, states)]
+                n_tiles += 1
+                progress = i2 / n_total if n_total else 1.0
+                if any(r is False for r in self.signal_progress.emit(progress)):
+                    self.signal_cancel.emit()
+                    for task in tasks:
+                        task.reject(UserAbort("user aborted"))
+                    return
+        finally:
+            if stream is not None:
+                stream.close()
+        if stream is not None:
+            stream.commit()
         for task, state in zip(tasks, states):
             task.finalize(state)
             if getattr(task, "_cache_key", None) is not None:
@@ -209,6 +237,9 @@ class ExecutorLocal(Executor):
             # the expressions of the host stage, and its host time over all tiles
             "host_stage": inputs.host_expressions,
             "host_s": inputs.host_s,
+            # the streamed host columns (:mod:`.stream`), None for a pass
+            # that copied its tiles synchronously or read none
+            "stream": None if stream is None else stream.trace(),
         })
         if len(self.trace_log) > 1000:
             del self.trace_log[:500]
@@ -248,10 +279,13 @@ class PassInputs:
         self.variables = variables
         self.host_s = 0.0  # host time of the host stage, all tiles
 
-    def context(self, df, dataset, i1, i2) -> TileContext:
-        """Rows [i1, i2): the device columns' tiles on the pass device and
-        the host stage's results copied there."""
-        tile = {name: _tile(dataset, name, i1, i2, self.device) for name in self.names}
+    def context(self, df, dataset, i1, i2, streamed=None) -> TileContext:
+        """Rows [i1, i2): the device columns' tiles on the pass device (those
+        in ``streamed`` as a :class:`.stream.TileStream` gave them) and the
+        host stage's results copied there."""
+        streamed = streamed or {}
+        tile = {name: streamed[name] if name in streamed else
+                _tile(dataset, name, i1, i2, self.device) for name in self.names}
         scope = DeviceScope(tile, self.variables, df.virtual_columns)
         if self.host_expressions:
             t0 = time.perf_counter()

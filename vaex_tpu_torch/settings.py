@@ -14,6 +14,17 @@ Env vars (optional):
                             bytes, the bytes of results that hold tensors
   VAEX_TPU_TORCH_NUM_PROCESSES  the processes of ``multiprocessing=True``
                             (default: the CPU count, at most 16)
+  VAEX_TPU_TORCH_PREFETCH   chunks a thread reads ahead of a pass over host
+                            columns when TRANSFER_AHEAD is 0 (default 2)
+  VAEX_TPU_TORCH_TRANSFER_AHEAD  tiles of host columns copied to the pass
+                            device ahead of its compute, through page-locked
+                            slots and a copy stream (default 2; 0 and
+                            PREFETCH 0: the synchronous copy, :mod:`.stream`)
+  VAEX_TPU_TORCH_NUM_THREADS_IO  threads of a streamed tile's host copy
+                            (default 8)
+  VAEX_TPU_TORCH_STREAM_RING_BYTES  the most bytes of host memory the
+                            page-locked slots of one streamed pass hold: its
+                            tile is clamped to fit (default 4 GiB)
 
 A pass runs eagerly, tile by tile; every tile costs a few kernel launches
 and one fold of the kernel's per-CTA partials, so tiles are large.  On an
@@ -43,3 +54,10 @@ CACHE_MEMORY_SIZE_LIMIT = _int_env("VAEX_TPU_TORCH_CACHE_MEMORY_SIZE_LIMIT", 1 <
 # a one-sort groupby of 1e8 groups holds about 6.4 GB of result columns
 CACHE_DEVICE_SIZE_LIMIT = _int_env("VAEX_TPU_TORCH_CACHE_DEVICE_SIZE_LIMIT", 8 << 30)
 NUM_PROCESSES = _int_env("VAEX_TPU_TORCH_NUM_PROCESSES", 0)
+# the streamed pass over host columns (vaex_tpu/settings.py:45-48)
+PREFETCH = _int_env("VAEX_TPU_TORCH_PREFETCH", 2)
+TRANSFER_AHEAD = _int_env("VAEX_TPU_TORCH_TRANSFER_AHEAD", 2)
+NUM_THREADS_IO = _int_env("VAEX_TPU_TORCH_NUM_THREADS_IO", 8)
+# config 1's two columns keep TILE_ROWS' tiles (3 slots of 2^26 rows at 18 B
+# a row: 3.6 GB); a 30-column float64 pass streams 2^22-row tiles
+STREAM_RING_BYTES = _int_env("VAEX_TPU_TORCH_STREAM_RING_BYTES", 4 << 30)
