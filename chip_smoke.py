@@ -307,6 +307,37 @@ Run from the root of the repository on a machine with a CUDA card.  It
     (medians of 3, on the one card: no scaling); it prints its own JSON
     line.
 
+25. serves a table on the card and answers requests through the port's
+    server and accessors: 1e8 rows made on the card from seed 42 (key int64
+    of 100 categories, categorized; x N(0, 1); ra, dec uniform on the
+    sphere in degrees; parallax float64; g_mag float32), served by a
+    Service with a token; through the ASGI app in this process GET /dataset
+    and /dataset/sky, the 64-bin histogram of x alone and with the
+    percent-encoded filter g_mag%20%3C%2015, the 128 x 128 heatmap of ra,
+    dec, POST /heatmap with the token, a 401 without it and a 400 for a
+    filter that leaves the expression language (no pass run); over its
+    /websocket std(parallax) and groupby_agg(key, {s: sum x, n: count})
+    with their msg_id echoed; a Client over DummyTransport with a virtual
+    column r = sqrt(x**2 + parallax**2) and the selection g_mag < 15 sent
+    as state: count(binby=r, shape=1000, selection=True), mean, minmax,
+    correlation(x, parallax), a progress callback (fractions never
+    decreasing, ending at 1.0), a cancelled call answered with an error
+    reply and the call after it answered; GraphQL's where / count / mean /
+    groupby; a GridModel histogram of x and a heatmap of ra, dec on one
+    dispatcher, whose brush select("x > 1") regrids both in exactly one
+    pass; eq2gal (l and b within 1e-12 rad of plain torch's formula, the
+    count binned by l, b at 256 exact against a bincount of the port's own
+    l and b) and an inside_polygon count; df.viz's grid; each checked
+    against plain torch (names, schemas, counts, grids, limits and extremes
+    exact, means, stds and sums within the bound of phase 4, the
+    correlation within 1e-9), the served frame asserted still on the card,
+    B1, B2 and B4 asserted launched; then each request timed served,
+    called directly on the frame and in plain torch (medians of 3); the
+    CLI's meta, stat and convert run at once as subprocesses on a 1e6-row
+    Arrow IPC file; the tornado server and the drawings where tornado,
+    websockets and matplotlib are installed (a missing one printed by
+    name); it prints its own JSON line and the whole script's time.
+
     python3 chip_smoke.py --profile 20 21 22 23
 
 profiles the queries of those phases instead (scripts/profile_torch_groupby.py's
@@ -334,6 +365,7 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 K = 100
 SEED = 42
 MAIN_SIZES = (100_000_000, 400_000_000)
@@ -5405,6 +5437,681 @@ def phase24_path(vt, plan, gp, probe, label):
     return launches, record
 
 
+# phase 25: serving and the frame's accessors (ROADMAP A13, first half): a
+# table served on the card answering REST, websocket, client, GraphQL and
+# linked-view requests, with astro and geo columns over it, and the CLI
+PHASE25_ROWS = 100_000_000
+PHASE25_K = 100  # key's categories
+PHASE25_CLI_ROWS = 1_000_000
+PHASE25_TOKEN = "phase-25-token"
+PHASE25_REPS = 3
+PHASE25_COLUMNS = {"key": "int64", "x": "float64", "ra": "float64", "dec": "float64",
+                   "parallax": "float64", "g_mag": "float32"}
+# a pentagon in (ra, dec) degrees, for inside_polygon
+PHASE25_POLYGON = ([30.0, 120.0, 150.0, 80.0, 20.0], [-20.0, -35.0, 10.0, 50.0, 25.0])
+PHASE25_GRAPHQL = ("{ df(where: {g_mag: {_lt: 15}}) { count mean { x } "
+                   "groupby { key { count mean { x } } } } }")
+# the kernels the phase must launch: the 64-bin histogram and the groupby
+# (B1), the 128 x 128 heatmap (B2), the std (B4)
+PHASE25_KERNELS = ("b1", "b2", "b4")
+
+
+def phase25_columns(n, device, seed=SEED):
+    """The served table, made on ``device`` from ``seed``: key int64 of
+    PHASE25_K categories, x N(0, 1), ra and dec uniform on the sphere in
+    degrees, parallax in [0.05, 5) mas (float64), g_mag N(17, 2) (float32)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    f64 = dict(generator=gen, device=device, dtype=torch.float64)
+    key = torch.randint(0, PHASE25_K, (n,), generator=gen, device=device, dtype=torch.int64)
+    x = torch.randn(n, **f64)
+    ra = torch.rand(n, **f64) * 360.0
+    dec = torch.rad2deg(torch.asin(torch.rand(n, **f64) * 2.0 - 1.0))
+    parallax = torch.rand(n, **f64) * 4.95 + 0.05
+    g_mag = torch.randn(n, generator=gen, device=device, dtype=torch.float32) * 2.0 + 17.0
+    return {"key": key, "x": x, "ra": ra, "dec": dec, "parallax": parallax, "g_mag": g_mag}
+
+
+def phase25_frame(vt, cols):
+    return vt.from_dataset(vt.DatasetArrays(cols)).categorize("key", labels=range(PHASE25_K))
+
+
+def phase25_http(app, method, path, query="", body=None, token=PHASE25_TOKEN):
+    """(status, JSON body) of one request to the ASGI app, driven in this
+    process; the token goes as the x-token header."""
+    import asyncio
+    headers = [] if token is None else [(b"x-token", token.encode())]
+    scope = {"type": "http", "method": method, "path": path, "query_string": query.encode(),
+             "headers": headers}
+    incoming = [{"type": "http.request", "body": json.dumps(body).encode() if body else b"",
+                 "more_body": False}]
+    sent = []
+
+    async def receive():
+        return incoming.pop(0)
+
+    async def send(event):
+        sent.append(event)
+    asyncio.run(app(scope, receive, send))
+    return sent[0]["status"], json.loads(b"".join(e.get("body", b"") for e in sent[1:]))
+
+
+def phase25_ws(app, messages):
+    """The app's replies to ``messages`` over one /websocket connection."""
+    import asyncio
+    incoming = ([{"type": "websocket.connect"}]
+                + [{"type": "websocket.receive", "text": json.dumps(m)} for m in messages]
+                + [{"type": "websocket.disconnect"}])
+    sent = []
+
+    async def receive():
+        return incoming.pop(0)
+
+    async def send(event):
+        sent.append(event)
+    asyncio.run(app({"type": "websocket", "path": "/websocket", "headers": []}, receive, send))
+    check(sent[0]["type"] == "websocket.accept", f"phase 25 websocket: {sent[0]}")
+    return [json.loads(e["text"]) for e in sent[1:]]
+
+
+def phase25_call(method, args=(), kwargs=None, msg_id=None):
+    from vaex_tpu_torch.server.service import encode_result
+    return {"msg_id": msg_id, "command": "call", "df": "sky", "method": method,
+            "args": encode_result(list(args)), "kwargs": encode_result(dict(kwargs or {})),
+            "auth": {"token": PHASE25_TOKEN}}
+
+
+def phase25_reply(reply):
+    from vaex_tpu_torch.server.service import decode_result
+    check("error" not in reply, f"phase 25 websocket reply: {reply.get('error')}")
+    return decode_result(reply["result"])
+
+
+def phase25_bins(c, lo, hi, bins):
+    """(bin, inside) of each value over [lo, hi) by the binner's formula
+    (floor((c - lo) * ((1 / span) * bins))); the value at hi overflows."""
+    b = torch.floor((c - lo) * (1.0 / (hi - lo) * bins)).to(torch.int64)
+    return b, (c >= lo) & (c < hi) & (b < bins)
+
+
+def phase25_grid(axes, bins, keep=None):
+    """The count grid of ``axes`` (tensors) at ``bins`` a side over each
+    one's own min and max, rows where ``keep``: (grid as int64 numpy, the
+    limits)."""
+    cell, inside, limits = None, keep, []
+    for c in axes:
+        lo, hi = (float(t) for t in torch.aminmax(c))
+        limits.append([lo, hi])
+        b, ok = phase25_bins(c, lo, hi, bins)
+        cell = b if cell is None else cell * bins + b
+        inside = ok if inside is None else inside & ok
+    grid = torch.bincount(cell[inside], minlength=bins ** len(axes))
+    return grid.reshape((bins,) * len(axes)).cpu().numpy(), limits
+
+
+def phase25_moments(v, keep=None):
+    """(n, sum, sum of |v|, sum of v^2) of v where ``keep``, the terms of
+    the bounds of a mean and a std."""
+    if keep is not None:
+        v = v[keep]
+    return (int(v.numel()), float(v.sum()), float(v.abs().sum()), float((v * v).sum()))
+
+
+def phase25_pnpoly(x, y, xs, ys):
+    """The crossing rule in plain torch: True where (x, y) lies inside the
+    polygon of vertices (xs, ys)."""
+    inside = torch.zeros_like(x, dtype=torch.bool)
+    j = len(xs) - 1
+    for i in range(len(xs)):
+        x0, y0, x1, y1 = xs[j], ys[j], xs[i], ys[i]
+        inside ^= ((y1 > y) != (y0 > y)) & (x < (x0 - x1) * (y - y1) / ((y0 - y1) or 1e-300) + x1)
+        j = i
+    return inside
+
+
+def phase25_eq2gal(ra, dec):
+    """(l, b) in degrees in plain torch, the rotation of df.astro.eq2gal
+    written out: the unit vector, the J2000 matrix, the angles back."""
+    from vaex_tpu_torch.astro import FRAME_MATRICES
+    a, d = torch.deg2rad(ra), torch.deg2rad(dec)
+    xyz = (torch.cos(a) * torch.cos(d), torch.sin(a) * torch.cos(d), torch.sin(d))
+    xo, yo, zo = ((row[0]) * xyz[0] + (row[1]) * xyz[1] + (row[2]) * xyz[2]
+                  for row in FRAME_MATRICES["eq2gal"])
+    l_ = torch.atan2(yo, xo) * 180.0 / math.pi
+    b_ = (math.pi / 2 - torch.arccos(zo / torch.sqrt(xo ** 2 + yo ** 2 + zo ** 2))) * 180.0 / math.pi
+    return l_, b_
+
+
+def phase25_check(name, got, want):
+    """One request's answer against its plain torch computation; raises
+    where they disagree.  Names, schemas, counts, grids, limits and extremes
+    exact; means, stds, sums and correlations within the bound of phase 4
+    carried through their formulas (``want`` holds the moments)."""
+    if name in ("dataset", "401", "400"):
+        check(got == want, f"phase 25 {name}: {got} != {want}")
+        return
+    if name.startswith(("histogram", "heatmap")):
+        grid, limits = want
+        limits = limits[0] if len(limits) == 1 else limits  # a histogram's one pair
+        check(np.array_equal(np.asarray(got["values"]), grid) and got["limits"] == limits,
+              f"phase 25 {name}: grid or limits differ from plain torch "
+              f"({np.asarray(got['values']).sum()} vs {grid.sum()}, {got['limits']} vs {limits})")
+        return
+    if name in ("count r", "astro count l b", "_what_grid"):
+        check(np.array_equal(np.asarray(got), want[0]),
+              f"phase 25 {name}: the grid differs from plain torch "
+              f"({np.asarray(got).sum()} vs {want[0].sum()})")
+        return
+    if name in ("minmax r", "geo inside_polygon", "cancel then count"):
+        check(np.array_equal(np.asarray(got), np.asarray(want)),
+              f"phase 25 {name}: {got} != {want}")
+        return
+    if name in ("std parallax",):
+        n, s, a, s2 = want
+        var, var_bound = _std_error(n, s, a, s2)
+        check(abs(float(got) ** 2 - var) <= var_bound, f"phase 25 {name}: {got!r} vs var {var!r}")
+        return
+    if name in ("mean r", "mean x"):
+        n, s, a, _ = want
+        check(_close(got, s / n, _mean_error(n, s, a)), f"phase 25 {name}: {got!r} vs {s / n!r}")
+        return
+    if name == "correlation":
+        check(abs(float(got) - want) <= 1e-9, f"phase 25 {name}: {got!r} vs {want!r}")
+        return
+    if name == "groupby":
+        counts, sums, abs_sums = want
+        check(np.array_equal(np.asarray(got["key"]), np.arange(PHASE25_K))
+              and np.array_equal(np.asarray(got["n"]), counts.cpu().numpy()),
+              f"phase 25 {name}: keys or counts differ from plain torch")
+        check(within_sum_bound(torch.as_tensor(np.asarray(got["s"]), dtype=torch.float64),
+                               sums.cpu(), abs_sums.cpu(), counts.cpu()),
+              f"phase 25 {name}: the sums are not within the bound")
+        return
+    if name == "graphql":
+        counts, sums, abs_sums = want["groups"]
+        data = got["df"]
+        n, s, a, _ = want["all"]
+        check(data["count"] == n and _close(data["mean"]["x"], s / n, _mean_error(n, s, a)),
+              f"phase 25 graphql: count {data['count']} / {n}, mean {data['mean']['x']!r}")
+        g = data["groupby"]["key"]
+        c = counts.cpu().numpy()
+        means, bounds = (sums / counts).cpu().numpy(), [
+            _mean_error(int(ci), float(si), float(ai)) for ci, si, ai in zip(c, sums, abs_sums)]
+        check(g["count"] == c.tolist() and _close(g["mean"]["x"], means, bounds),
+              "phase 25 graphql: the groupby's counts or means differ from plain torch")
+        return
+    if name == "progress":
+        check(bool(got) and got[-1] == 1.0 and all(a <= b for a, b in zip(got, got[1:])),
+              f"phase 25 progress fractions {got}")
+        return
+    if name == "astro l b":
+        check(all(float((g - w).abs().max()) * math.pi / 180 <= 1e-12 for g, w in zip(got, want)),
+              "phase 25 astro: l or b differs from plain torch by more than 1e-12 rad")
+        return
+    if name == "linked views":
+        check(got["passes"] == 1, f"phase 25 linked views: the brush took {got['passes']} passes")
+        for view in ("hist", "heat"):
+            check(np.array_equal(got[view], want[view]),
+                  f"phase 25 linked views: the {view} grids differ from plain torch")
+        return
+    raise KeyError(name)
+
+
+def phase25_plain(cols, name, extra=None):
+    """The plain torch answer of one request (``extra``: the port's own
+    materialized columns where the request bins one)."""
+    x, g_mag, parallax, key = cols["x"], cols["g_mag"], cols["parallax"], cols["key"]
+    bright = g_mag < 15
+    if name == "dataset":
+        return {"names": ["sky"], "rows": int(x.numel()), "schema": PHASE25_COLUMNS}
+    if name == "401":
+        return 401
+    if name == "400":
+        return [400, 0]
+    if name == "histogram x":
+        return phase25_grid([x], 64)
+    if name == "histogram x filtered":
+        return phase25_grid([x], 64, keep=bright)
+    if name == "heatmap ra dec":
+        return phase25_grid([cols["ra"], cols["dec"]], 128)
+    if name == "heatmap POST":
+        return phase25_grid([cols["ra"], cols["dec"]], 128, keep=cols["dec"] > 0)
+    if name == "std parallax":
+        return phase25_moments(parallax)
+    if name in ("groupby", "graphql groups"):
+        keep = bright if name == "graphql groups" else torch.ones_like(bright)
+        k, v = key[keep], x[keep]
+        counts = torch.bincount(k, minlength=PHASE25_K)
+        zeros = torch.zeros(PHASE25_K, dtype=torch.float64, device=x.device)
+        return counts, zeros.index_add(0, k, v), zeros.index_add(0, k, v.abs())
+    if name == "graphql":
+        return {"all": phase25_moments(x, bright), "groups": phase25_plain(cols, "graphql groups")}
+    r = extra
+    if name == "count r":
+        return phase25_grid([r], 1000, keep=bright)
+    if name == "mean r":
+        return phase25_moments(r, bright)
+    if name == "minmax r":
+        lo, hi = torch.aminmax(r)
+        return [float(lo), float(hi)]
+    if name == "correlation":
+        return float(torch.corrcoef(torch.stack([x, parallax]))[0, 1])
+    if name == "cancel then count":
+        return int(x.numel())
+    if name == "astro count l b":
+        return phase25_grid(list(extra), 256)
+    if name == "geo inside_polygon":
+        return int(phase25_pnpoly(cols["ra"], cols["dec"], *PHASE25_POLYGON).sum())
+    if name == "_what_grid":
+        return phase25_grid([x], 64, keep=bright)
+    raise KeyError(name)
+
+
+def phase25_linked_views(vt, df, cols):
+    """A GridModel histogram of x (64 bins) and a heatmap of ra, dec (128 x
+    128) on one dispatcher, both with selections [None, True]; then the
+    brush select("x > 1"): its passes, the grids after it, and the frame
+    of the views (whose next select brushes again)."""
+    from vaex_tpu_torch import jupyter
+    dfv = df.copy()
+    hist = jupyter.GridModel(dfv, [jupyter.Axis(dfv, "x", shape=64)], selection=[None, True])
+    heat = jupyter.GridModel(dfv, [jupyter.Axis(dfv, "ra", shape=128),
+                                   jupyter.Axis(dfv, "dec", shape=128)], selection=[None, True])
+    check(jupyter.get_dispatcher(dfv).models == [hist, heat], "phase 25: one dispatcher")
+    hist.compute()
+    heat.compute()
+    before = dfv.executor.passes
+    dfv.select("x > 1")
+    return {"passes": dfv.executor.passes - before, "hist": np.asarray(hist.grid),
+            "heat": np.asarray(heat.grid), "frame": dfv,
+            "limits": [[a.min, a.max] for a in hist.axes + heat.axes]}
+
+
+def phase25_brush_direct(df, limits):
+    """The linked views' four grids called directly on the frame: two
+    statistics, one pass each."""
+    sel = [None, "x > 1"]
+    return (df.count(binby=["x"], limits=limits[:1], shape=64, selection=sel),
+            df.count(binby=["ra", "dec"], limits=limits[1:], shape=128, selection=sel))
+
+
+def phase25_linked_plain(cols):
+    x, ra, dec = cols["x"], cols["ra"], cols["dec"]
+    brush = x > 1
+    return {"hist": np.stack([phase25_grid([x], 64)[0], phase25_grid([x], 64, brush)[0]]),
+            "heat": np.stack([phase25_grid([ra, dec], 128)[0],
+                              phase25_grid([ra, dec], 128, brush)[0]])}
+
+
+def phase25_requests(vt, df, cols, device):
+    """{name: (served, direct)}: each request through the server (the ASGI
+    app in this process, its /websocket, a Client over DummyTransport) or
+    the accessor, and the same statistic called directly on the frame.  A
+    served answer comes back as the wire's JSON or numpy."""
+    from vaex_tpu_torch.server import asgi
+    from vaex_tpu_torch.server.client import Client
+    from vaex_tpu_torch.server.service import DummyTransport, Service
+    svc = Service({"sky": df}, token=PHASE25_TOKEN)
+    app = asgi.create_app(svc)
+    dfr = Client(DummyTransport(svc), token=PHASE25_TOKEN)["sky"]
+    dfr["r"] = "sqrt(x**2 + parallax**2)"
+    dfr.select("g_mag < 15")
+    local = df.copy()
+    local["r"] = "sqrt(x**2 + parallax**2)"
+    local.select("g_mag < 15")
+
+    def dataset():
+        _, names = phase25_http(app, "GET", "/dataset")
+        _, meta = phase25_http(app, "GET", "/dataset/sky")
+        return {"names": names, "rows": meta["row_count"], "schema": meta["schema"]}
+
+    def direct_dataset():
+        return {"names": list(svc.dataframes), "rows": df.length_original(),
+                "schema": {c: df.data_type(c).name for c in df.get_column_names()}}
+
+    def served_get(path, query=""):
+        def run():
+            status, body = phase25_http(app, "GET", path, query)
+            check(status == 200, f"phase 25 GET {path}?{query}: {status} {body}")
+            return body
+        return run
+
+    def direct_grid(axes, shape, selection=False):
+        def run():
+            limits = df.limits(axes, None)  # a pair for each axis
+            values = df.count(binby=axes, limits=limits, shape=shape, selection=selection)
+            return {"values": values, "limits": [list(map(float, l)) for l in limits]}
+        return run
+
+    def heatmap_post():
+        status, body = phase25_http(app, "POST", "/heatmap", body={
+            "dataset_id": "sky", "expression_x": "ra", "expression_y": "dec", "shape_x": 128,
+            "shape_y": 128, "filter": "dec > 0"})
+        check(status == 200, f"phase 25 POST /heatmap: {status} {body}")
+        return body
+
+    def refused():
+        """A filter that leaves the expression language: refused with 400
+        before any pass (the number of passes it ran beside the status)."""
+        passes = df.executor.passes
+        status, _ = phase25_http(app, "POST", "/histogram", body={
+            "dataset_id": "sky", "expression": "x", "filter": "x.__class__.__name__ == 'NA'"})
+        return [status, df.executor.passes - passes]
+
+    def ws(method, args, kwargs=None):
+        def run():
+            [reply] = phase25_ws(app, [phase25_call(method, args, kwargs, msg_id=f"m-{method}")])
+            check(reply["msg_id"] == f"m-{method}", f"phase 25 websocket msg_id {reply['msg_id']}")
+            return phase25_reply(reply)
+        return run
+
+    def groupby_direct():
+        out = df.groupby("key", agg={"s": vt.agg.sum("x"), "n": "count"}, sort=True)
+        return {name: out.evaluate(name) for name in ("key", "s", "n")}
+
+    def progress():
+        fractions = []
+        dfr.client.on_progress = fractions.append
+        try:
+            dfr.sum("x")
+        finally:
+            dfr.client.on_progress = None
+        return fractions
+
+    def cancel_then_count():
+        dfr.client.on_progress = lambda f: False
+        try:
+            dfr.sum("parallax")
+            cancelled = False
+        except RuntimeError as e:
+            cancelled = "abort" in str(e).lower() or "cancel" in str(e).lower()
+        finally:
+            dfr.client.on_progress = None
+        check(cancelled, "phase 25: the cancelled call did not answer with an error reply")
+        return dfr.count()
+
+    def graphql_direct():
+        dff = df.filter("g_mag < 15")
+        return (dff.count(), dff.mean("x"),
+                dff.groupby("key", agg={"n": "count", "m": vt.agg.mean("x")}, sort=True))
+
+    def astro():
+        dfa = df.astro.eq2gal()
+        return dfa.count(binby=["l", "b"], shape=256)
+
+    def inside():
+        return int(df.count(selection=df.geo.inside_polygon("ra", "dec", *PHASE25_POLYGON)))
+
+    def inside_direct():
+        xs, ys = (repr(list(v)) for v in PHASE25_POLYGON)
+        return int(df.count(selection=f"pnpoly(ra, dec, {xs}, {ys})"))
+
+    return {
+        "dataset": (dataset, direct_dataset),
+        "histogram x": (served_get("/histogram/sky/x", "shape=64"), direct_grid(["x"], 64)),
+        "histogram x filtered": (served_get("/histogram/sky/x", "shape=64&filter=g_mag%20%3C%2015"),
+                                 direct_grid(["x"], 64, "g_mag < 15")),
+        "heatmap ra dec": (served_get("/heatmap/sky/ra/dec"), direct_grid(["ra", "dec"], 128)),
+        "heatmap POST": (heatmap_post, direct_grid(["ra", "dec"], 128, "dec > 0")),
+        "401": (lambda: phase25_http(app, "GET", "/histogram/sky/x", token=None)[0],
+                lambda: 401),
+        "400": (refused, lambda: [400, 0]),
+        "std parallax": (ws("std", ("parallax",)), lambda: df.std("parallax")),
+        "groupby": (ws("groupby_agg", ("key", {"s": ["sum", "x"], "n": "count"})),
+                    groupby_direct),
+        "count r": (lambda: dfr.count(binby=["r"], shape=1000, selection=True),
+                    lambda: local.count(binby=["r"], shape=1000, selection=True)),
+        "mean r": (lambda: dfr.mean("r", selection=True), lambda: local.mean("r", selection=True)),
+        "minmax r": (lambda: dfr.minmax("r"), lambda: local.minmax("r")),
+        "correlation": (lambda: dfr.correlation("x", "parallax"),
+                        lambda: df.correlation("x", "parallax")),
+        "progress": (progress, None),
+        "cancel then count": (cancel_then_count, lambda: df.count()),
+        "graphql": (lambda: df.graphql.execute(PHASE25_GRAPHQL).data, graphql_direct),
+        "linked views": (lambda: phase25_linked_views(vt, df, cols), None),
+        "astro count l b": (astro, astro),
+        "geo inside_polygon": (inside, inside_direct),
+        "_what_grid": (lambda: df.viz._what_grid("count(*)", ["x"], [df.limits("x", None)], 64,
+                                                 "g_mag < 15"), None),
+    }
+
+
+def phase25_materialized(df, names):
+    """The port's own values of virtual columns, materialized on the
+    frame's device: {name: tensor}."""
+    out = {}
+    for name in names:
+        col = df.materialize(name).dataset[name]
+        check(isinstance(col, torch.Tensor), f"phase 25 materialize {name}: {type(col)}")
+        out[name] = col
+    return out
+
+
+def phase25_drive(vt, df, cols, device):
+    """Every request once, each checked against plain torch; returns
+    {name: the served answer} and the port's r, l and b."""
+    reqs = phase25_requests(vt, df, cols, device)
+    local = df.copy()
+    local["r"] = "sqrt(x**2 + parallax**2)"
+    r = phase25_materialized(local, ["r"])["r"]
+    plain_r = torch.sqrt(cols["x"] ** 2 + cols["parallax"] ** 2)
+    check(bool(((r - plain_r).abs() <= 4 * 2.0 ** -52 * plain_r).all()),
+          "phase 25: the port's r differs from plain torch's by more than 4 ulp")
+    lb = phase25_materialized(df.astro.eq2gal(), ["l", "b"])
+    phase25_check("astro l b", (lb["l"], lb["b"]), phase25_eq2gal(cols["ra"], cols["dec"]))
+    extra = {"count r": r, "mean r": r, "minmax r": r, "astro count l b": (lb["l"], lb["b"])}
+    answers = {}
+    for name, (served, _) in reqs.items():
+        got = served()
+        want = (phase25_linked_plain(cols) if name == "linked views"
+                else None if name == "progress" else phase25_plain(cols, name, extra.get(name)))
+        phase25_check(name, got, want)
+        answers[name] = got
+    check(all(isinstance(t, torch.Tensor) and t.device.type == torch.device(device).type
+              for t in (df.dataset[c] for c in PHASE25_COLUMNS)),
+          "phase 25: a request moved the served frame off its device")
+    return answers, reqs, extra
+
+
+def phase25_cli(vt, cols, n=PHASE25_CLI_ROWS, device="cuda", timeout=300):
+    """``python -m vaex_tpu_torch meta | stat | convert`` on an Arrow IPC file
+    of the table's first n rows, the three run at once as subprocesses in
+    a temporary directory; each must exit 0 and print what the file holds.
+    Returns {command: seconds}."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "sky.arrow")
+        vt.from_dataset(vt.DatasetArrays({k: v[:n] for k, v in cols.items()})).export(src)
+        env = {**os.environ, "PYTHONPATH": HERE + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               "VAEX_TPU_TORCH_DEVICE": device}
+        commands = {"meta": ["meta", src], "stat": ["stat", src],
+                    "convert": ["convert", src, os.path.join(tmp, "sky.parquet")]}
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen([sys.executable, "-m", "vaex_tpu_torch", *args], cwd=tmp,
+                                        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True) for name, args in commands.items()}
+        outs, seconds = {}, {}
+        try:
+            for name, proc in procs.items():
+                out, err = proc.communicate(timeout=timeout)
+                seconds[name] = time.perf_counter() - t0
+                check(proc.returncode == 0, f"phase 25 CLI {name} exited {proc.returncode}: {err}")
+                outs[name] = out
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        meta = json.loads(outs["meta"])
+        check(meta == {"rows": n, "columns": PHASE25_COLUMNS}, f"phase 25 CLI meta: {meta}")
+        lines = outs["stat"].splitlines()
+        check(lines[0].split() == list(PHASE25_COLUMNS)
+              and lines[2].split() == ["count"] + [str(n)] * len(PHASE25_COLUMNS),
+              f"phase 25 CLI stat: {outs['stat']}")
+        check(outs["convert"].strip().startswith("wrote "), f"phase 25 CLI convert: {outs}")
+        back = vt.open(os.path.join(tmp, "sky.parquet")).to_device(cols["x"].device)
+        for name, col in cols.items():
+            check(torch.equal(back.dataset[name], col[:n]),
+                  f"phase 25 CLI convert: column {name} differs after the round trip")
+    return seconds
+
+
+def phase25_optional(vt, df, cols, label):
+    """The parts that need an optional library: the tornado server (tornado
+    and websockets) and the drawings (matplotlib); each missing library is
+    printed by name.  Returns {part: what ran}."""
+    out = {}
+    try:
+        import tornado  # noqa: F401
+        import websockets  # noqa: F401
+    except ImportError as e:
+        out["tornado"] = f"not installed: {e.name}"
+    else:
+        out["tornado"] = phase25_tornado(df, cols)
+    try:
+        import matplotlib
+    except ImportError as e:
+        out["matplotlib"] = f"not installed: {e.name}"
+    else:
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        grid = df.viz.histogram("x", shape=64)
+        phase25_check("histogram x", {"values": grid, "limits": list(df.limits("x", None))},
+                      phase25_plain(cols, "histogram x"))
+        df.viz.heatmap("ra", "dec", shape=128)
+        plt.close("all")
+        out["matplotlib"] = "histogram and heatmap drawn"
+    for part, what in out.items():
+        print(f"[{label}] phase 25 {part}: {what}", flush=True)
+    return out
+
+
+def phase25_tornado(df, cols):
+    """The tornado flavor on a free localhost port: a std over the
+    websocket with streamed progress, and the REST histogram; requests run
+    on its one worker thread, where the kernels launch."""
+    import asyncio
+    import socket
+    import threading
+    import urllib.request
+    import tornado.ioloop
+    from vaex_tpu_torch.server import client
+    from vaex_tpu_torch.server.service import Service
+    from vaex_tpu_torch.server.tornado_server import make_app
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    started, holder = threading.Event(), {}
+
+    def run():
+        asyncio.set_event_loop(asyncio.new_event_loop())
+        make_app(Service({"sky": df}, token=PHASE25_TOKEN)).listen(port, address="localhost")
+        holder["loop"] = tornado.ioloop.IOLoop.current()
+        started.set()
+        holder["loop"].start()
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    check(started.wait(30), "phase 25 tornado: the server did not start")
+    fractions = []
+    try:
+        remote = client.connect(f"ws://localhost:{port}", token=PHASE25_TOKEN,
+                                on_progress=fractions.append)
+        try:
+            got = remote["sky"].std("parallax")
+        finally:
+            remote.close()
+        phase25_check("std parallax", got, phase25_plain(cols, "std parallax"))
+        phase25_check("progress", fractions, None)
+        url = f"http://localhost:{port}/histogram/sky?expression=x&shape=64&token={PHASE25_TOKEN}"
+        with urllib.request.urlopen(url, timeout=120) as r:
+            body = json.loads(r.read())
+        grid, [limits] = phase25_plain(cols, "histogram x")
+        check(np.array_equal(np.asarray(body["counts"]), grid) and body["limits"] == limits,
+              "phase 25 tornado: the REST histogram differs from plain torch")
+    finally:
+        holder["loop"].add_callback(holder["loop"].stop)
+        thread.join(30)
+    return f"websocket std with {len(fractions)} progress frames and the REST histogram right"
+
+
+def phase25_time(reqs, cols, extra, reps=PHASE25_REPS):
+    """{name: {"served_ms", "direct_ms", "plain_ms"}}: medians of ``reps``
+    runs (host clock, each ended by a synchronize of the card) of each
+    request served, called directly on the frame, and in plain torch, each
+    warmed by the drive's run; the linked views' is the brush alone, on
+    views built once, against the same four grids as two direct calls."""
+    times = {}
+    for name, (served, direct) in reqs.items():
+        if name in ("401", "400", "progress", "cancel then count"):
+            continue
+        if name == "linked views":  # the brush alone, on views built once
+            views = served()
+            entry = {"served_ms": _median_ms(lambda: views["frame"].select("x > 1"), reps),
+                     "direct_ms": _median_ms(lambda: phase25_brush_direct(
+                         views["frame"], views["limits"]), reps),
+                     "plain_ms": _median_ms(lambda: phase25_linked_plain(cols), reps)}
+            times[name] = entry
+            continue
+        entry = {"served_ms": _median_ms(served, reps)}
+        if direct is not None:
+            entry["direct_ms"] = _median_ms(direct, reps)
+        if name == "astro count l b":
+            entry["plain_ms"] = _median_ms(lambda: phase25_grid(
+                list(phase25_eq2gal(cols["ra"], cols["dec"])), 256), reps)
+        elif name in ("count r", "mean r", "minmax r"):
+            entry["plain_ms"] = _median_ms(lambda: phase25_plain(cols, name, torch.sqrt(
+                cols["x"] ** 2 + cols["parallax"] ** 2)), reps)
+        else:
+            entry["plain_ms"] = _median_ms(lambda: phase25_plain(cols, name, extra.get(name)),
+                                           reps)
+        times[name] = entry
+    return times
+
+
+def phase25_path(vt, plan, gp, probe, label, n=PHASE25_ROWS):
+    """Phase 25 on the card: the table made on cuda:0, every request driven
+    once with the kernel counts set to 0 and checked, B1, B2 and B4 asserted
+    launched; then each request timed served, direct and in plain torch;
+    the CLI as subprocesses; the tornado server and the drawings where
+    their libraries are installed.  Returns (launches, the phase's JSON
+    record)."""
+    from vaex_tpu_torch import cache
+    t_phase = time.perf_counter()
+    cols = phase25_columns(n, "cuda")
+    df = phase25_frame(vt, cols)
+    torch.cuda.synchronize()
+    with cache.off():  # every request runs its passes: none is served from the cache
+        zero_launches(plan, gp)
+        probe.probe.launches = probe.probe.wide_launches = 0
+        answers, reqs, extra = phase25_drive(vt, df, cols, "cuda")
+        torch.cuda.synchronize()
+        launches = {**launch_counts(plan, gp), "b6": probe.probe.launches,
+                    "b6-wide": probe.probe.wide_launches}
+        print(f"launches during phase 25: {launches}", flush=True)
+        for name in PHASE25_KERNELS:
+            check(launches[name] > 0, f"{name} was not launched during phase 25: {launches}")
+        print(f"[{label}] phase 25 N={n}: {len(answers)} requests equal plain torch; the brush "
+              f"regridded both linked views in {answers['linked views']['passes']} pass; "
+              f"progress {answers['progress']}", flush=True)
+        times = phase25_time(reqs, cols, extra)
+    for name, t in times.items():
+        print(f"[{label}] phase 25 {name}: served {t['served_ms']!r} ms, direct "
+              f"{t.get('direct_ms')!r} ms, plain torch {t['plain_ms']!r} ms", flush=True)
+    cli = phase25_cli(vt, cols)
+    print(f"[{label}] phase 25 CLI meta / stat / convert of {PHASE25_CLI_ROWS} rows, at once: "
+          f"{cli} s", flush=True)
+    optional = phase25_optional(vt, df, cols, label)
+    record = {"card": label, "rows": n, "bytes": sum(c.element_size() * c.numel()
+                                                     for c in cols.values()),
+              "requests": times, "progress": answers["progress"],
+              "brush_passes": answers["linked views"]["passes"], "cli_s": cli,
+              "optional": optional, "launches": launches,
+              "phase_s": time.perf_counter() - t_phase}
+    del df, cols, reqs, extra, answers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, record
+
+
 def profile_phases(vt, phases, label):
     """The device busy and idle share of each query of phases 20-23
     (``python3 chip_smoke.py --profile 20 21 22 23``): the phase's tables made
@@ -5637,6 +6344,10 @@ def main():
     phase24_launches, phase24 = phase24_path(vt, plan, gp, probe, label)
     print(json.dumps({"phase24": phase24}), flush=True)
 
+    phase25_launches, phase25 = phase25_path(vt, plan, gp, probe, label)
+    print(json.dumps({"phase25": phase25}), flush=True)
+    print(f"[{label}] chip_smoke.py took {time.perf_counter() - T_START:.1f} s", flush=True)
+
     measured = {plan.B1: (main_launches[plan.B1], results[MAIN_SIZES[0]]),
                 plan.B2: (h2o_launches[plan.B2], wide[plan.B2]),
                 plan.B3: (h2o_launches[plan.B3], wide[plan.B3]),
@@ -5677,6 +6388,7 @@ def main():
         "phase22_launches": phase22_launches[name],
         "phase23_launches": phase23_launches[name],
         "phase24_launches": phase24_launches[name],
+        "phase25_launches": phase25_launches[name],
         **{key: value for key, value in m.items() if key in EXTRA_KEYS},
     } for name, (launches, m) in measured.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,8 +10,10 @@ cell's sum of |term|, n its row count) holds for any two orders, and still
 refuses a sum that is off by one term.
 """
 
+import json
 import math
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -1020,3 +1022,126 @@ def test_compare_smoke_logs_reads_every_time_and_flags_a_move(tmp_path):
     row, = mod.compare(sets[0::2], sets[1::2], 0.05)
     assert row["name"] == "pass/staged std/median_ms"
     assert row["change_wins"] == 2 and row["pairs"] == 4 and row["parent_iqr"] > 0
+
+
+# ------------------------------------------------------------------ phase 25
+@pytest.fixture(scope="module")
+def phase25():
+    from vaex_tpu_torch import cache
+    cols = chip_smoke.phase25_columns(20_000, "cpu")
+    df = chip_smoke.phase25_frame(vaex_tpu_torch, cols)
+    with cache.off():
+        answers, reqs, extra = chip_smoke.phase25_drive(vaex_tpu_torch, df, cols, "cpu")
+    return cols, df, answers, reqs, extra
+
+
+def test_phase25_drive_on_the_cpu(phase25):
+    """Every request of phase 25 through the server and the accessors on
+    the CPU equals plain torch (phase25_drive raises where one does not)."""
+    cols, df, answers, reqs, _ = phase25
+    assert set(answers) == set(reqs) == set(PHASE25_REQUESTS)
+    assert answers["linked views"]["passes"] == 1
+    assert answers["progress"][-1] == 1.0
+    assert answers["401"] == 401 and answers["dataset"]["rows"] == 20_000
+    assert answers["400"] == [400, 0]
+    assert sum(map(sum, answers["heatmap ra dec"]["values"])) >= 20_000 - 2
+    from vaex_tpu_torch.ops import grid_partition, grid_plan
+    assert set(chip_smoke.PHASE25_KERNELS) <= set(chip_smoke.launch_counts(grid_plan,
+                                                                          grid_partition))
+
+
+def _wrong(name, got):
+    """``got`` with one thing wrong in it, the way a fault would show."""
+    got = json.loads(json.dumps(got, default=lambda a: a.tolist())) if name in (
+        "dataset", "histogram x", "histogram x filtered", "heatmap ra dec", "heatmap POST",
+        "graphql") else got
+    if name == "dataset":
+        got["rows"] += 1
+    elif name == "401":
+        got = 200
+    elif name == "400":
+        got = [200, 1]
+    elif name.startswith("histogram"):
+        got["values"][int(np.argmax(got["values"]))] += 1
+    elif name.startswith("heatmap"):
+        got["values"][3][4] += 1
+    elif name in ("count r", "astro count l b", "_what_grid"):
+        got = np.array(got)
+        got.flat[int(np.argmax(got))] -= 1
+    elif name == "minmax r":
+        got = np.array(got) * (1 + 2.0 ** -50)
+    elif name in ("geo inside_polygon", "cancel then count"):
+        got = got + 1
+    elif name in ("std parallax", "mean r"):
+        got = got * (1 + 1e-7)
+    elif name == "correlation":
+        got = got + 1e-8
+    elif name == "groupby":
+        got = dict(got, n=np.array(got["n"]) + np.eye(len(got["n"]), dtype=np.int64)[5])
+    elif name == "graphql":
+        got["df"]["groupby"]["key"]["mean"]["x"][7] *= 1 + 1e-7
+    elif name == "progress":
+        got = [0.5, 0.25, 1.0]
+    elif name == "linked views":
+        got = dict(got, passes=2)
+    return got
+
+
+PHASE25_REQUESTS = ["dataset", "401", "400", "histogram x", "histogram x filtered", "heatmap ra dec",
+                    "heatmap POST", "std parallax", "groupby", "count r", "mean r", "minmax r",
+                    "correlation", "progress", "cancel then count", "graphql", "linked views",
+                    "astro count l b", "geo inside_polygon", "_what_grid"]
+
+
+@pytest.mark.parametrize("name", PHASE25_REQUESTS)
+def test_the_phase25_checks_refuse_a_wrong_answer(phase25, name):
+    cols, _, answers, _, extra = phase25
+    want = (chip_smoke.phase25_linked_plain(cols) if name == "linked views" else None
+            if name == "progress" else chip_smoke.phase25_plain(cols, name, extra.get(name)))
+    chip_smoke.phase25_check(name, answers[name], want)
+    with pytest.raises(RuntimeError, match="phase 25"):
+        chip_smoke.phase25_check(name, _wrong(name, answers[name]), want)
+
+
+def test_the_phase25_checks_refuse_more(phase25):
+    cols, _, answers, _, extra = phase25
+    groupby = answers["groupby"]
+    want = chip_smoke.phase25_plain(cols, "groupby")
+    off = np.array(groupby["s"], dtype=np.float64)
+    off[3] += 1e-6 * abs(off[3]) + 1e-9
+    with pytest.raises(RuntimeError, match="sums"):
+        chip_smoke.phase25_check("groupby", dict(groupby, s=off), want)
+    with pytest.raises(RuntimeError, match="progress"):
+        chip_smoke.phase25_check("progress", [0.5], None)
+    l_, b_ = extra["astro count l b"]
+    want = chip_smoke.phase25_eq2gal(cols["ra"], cols["dec"])
+    chip_smoke.phase25_check("astro l b", (l_, b_), want)
+    with pytest.raises(RuntimeError, match="1e-12 rad"):
+        chip_smoke.phase25_check("astro l b", (l_, b_ + 1e-9), want)
+    views = answers["linked views"]
+    hist = views["hist"].copy()
+    hist[1, 10] += 1
+    with pytest.raises(RuntimeError, match="hist"):
+        chip_smoke.phase25_check("linked views", dict(views, hist=hist),
+                                 chip_smoke.phase25_linked_plain(cols))
+
+
+def test_phase25_times_cli_and_optional_parts_on_the_cpu(phase25, monkeypatch, capsys):
+    cols, df, _, reqs, extra = phase25
+    from vaex_tpu_torch import cache
+    with cache.off():
+        times = chip_smoke.phase25_time(reqs, cols, extra, reps=1)
+    assert set(times) == set(reqs) - {"401", "400", "progress", "cancel then count"}
+    assert all(t["served_ms"] > 0 and t["plain_ms"] > 0 for t in times.values())
+    assert "direct_ms" in times["linked views"] and "direct_ms" not in times["_what_grid"]
+    seconds = chip_smoke.phase25_cli(vaex_tpu_torch, cols, n=2_000, device="cpu")
+    assert set(seconds) == {"meta", "stat", "convert"}
+    monkeypatch.setattr(chip_smoke, "PHASE25_COLUMNS", {**chip_smoke.PHASE25_COLUMNS, "z": "f8"})
+    with pytest.raises(RuntimeError, match="CLI meta"):
+        chip_smoke.phase25_cli(vaex_tpu_torch, cols, n=2_000, device="cpu")
+    monkeypatch.undo()
+    monkeypatch.setitem(sys.modules, "tornado", None)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    out = chip_smoke.phase25_optional(vaex_tpu_torch, df, cols, "cpu")
+    assert out == {"tornado": "not installed: tornado", "matplotlib": "not installed: matplotlib"}
+    assert "phase 25 tornado: not installed: tornado" in capsys.readouterr().out

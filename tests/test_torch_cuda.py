@@ -1662,3 +1662,63 @@ def test_the_fused_mesh_groupby_on_four_shards_of_the_card(cuda):
         got = sharded.groupby("big", agg=agg, sort=True)
     assert sharded.executor.trace_log[-1]["fused_mesh_groupby"] is True
     _same_frames(got, want, float_rtol=0)
+
+
+def _sky(device, n=1_000_003, seed=25):
+    """The same table on ``device`` whatever it is: drawn on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    cols = {"key": torch.randint(0, 100, (n,), generator=g),
+            "x": torch.randn(n, generator=g, dtype=torch.float64),
+            "ra": torch.rand(n, generator=g, dtype=torch.float64) * 360,
+            "dec": torch.rand(n, generator=g, dtype=torch.float64) * 180 - 90}
+    cols = {name: c.to(device) for name, c in cols.items()}
+    return vaex_tpu_torch.from_dataset(vaex_tpu_torch.DatasetArrays(cols)).categorize(
+        "key", labels=range(100))
+
+
+def test_a_service_over_a_frame_on_the_card(cuda):
+    """The same wire messages to a service over a cuda frame and over the
+    same frame on the CPU: the same answers, the served frame still on the
+    card, its kernels launched."""
+    from vaex_tpu_torch.server.client import Client
+    from vaex_tpu_torch.server.service import DummyTransport, Service
+    frames = {"cuda": _sky(cuda), "cpu": _sky(torch.device("cpu"))}
+    remote = {k: Client(DummyTransport(Service({"sky": df})))["sky"] for k, df in frames.items()}
+    for dfr in remote.values():
+        dfr["r"] = "sqrt(x**2 + 1)"
+        dfr.select("dec > 0")
+    before = ga.grid_additive.launches
+    with vaex_tpu_torch.cache.off():
+        got = {k: (dfr.count(binby=["x"], limits=[-3, 3], shape=64, selection=True),
+                   dfr.mean("r", selection=True),
+                   dfr.groupby("key", agg={"s": ("sum", "x"), "n": "count"}))
+               for k, dfr in remote.items()}
+    assert ga.grid_additive.launches > before
+    npt.assert_array_equal(got["cuda"][0], got["cpu"][0])
+    npt.assert_allclose(got["cuda"][1], got["cpu"][1], rtol=1e-12)
+    npt.assert_array_equal(got["cuda"][2]["n"], got["cpu"][2]["n"])
+    npt.assert_allclose(got["cuda"][2]["s"], got["cpu"][2]["s"], rtol=1e-9, atol=1e-9)
+    assert all(t.is_cuda for t in frames["cuda"].dataset.values() if isinstance(t, torch.Tensor))
+
+
+def test_linked_views_on_the_card(cuda):
+    """One brush regrids a histogram and a heatmap of a cuda frame in one
+    pass, B1 and B2 launched, the grids equal the CPU frame's."""
+    from vaex_tpu_torch import jupyter
+    grids = {}
+    for name, device in (("cuda", cuda), ("cpu", torch.device("cpu"))):
+        df = _sky(device)
+        hist = jupyter.GridModel(df, [jupyter.Axis(df, "x", shape=64)], selection=[None, True])
+        heat = jupyter.GridModel(df, [jupyter.Axis(df, "ra", shape=128),
+                                      jupyter.Axis(df, "dec", shape=128)], selection=[None, True])
+        hist.compute()
+        heat.compute()
+        before = (df.executor.passes, ga.grid_additive.launches, gw.grid_window.launches)
+        with vaex_tpu_torch.cache.off():
+            df.select("x > 1")
+        assert df.executor.passes == before[0] + 1
+        if name == "cuda":
+            assert ga.grid_additive.launches > before[1] and gw.grid_window.launches > before[2]
+        grids[name] = (hist.grid, heat.grid)
+    for a, b in zip(grids["cuda"], grids["cpu"]):
+        npt.assert_array_equal(a, b)

@@ -14,6 +14,8 @@ This package imports neither JAX nor ``vaex_tpu``; the API mirrors
     (vaex_tpu_torch.stat.mean("x") / vaex_tpu_torch.stat.std("x")).calculate(df, binby="k")
     df["y"] = df.apply(f, ["x", "k"]); df.state_write("state.json"); pickle.dumps(df)
     with vaex_tpu_torch.cache.off(): df.sum("x", progress=True)
+    df.astro.eq2gal(); df.graphql.execute("{ df { count } }")
+    vaex_tpu_torch.server.asgi.create_app(Service({"sky": df}))  # python -m vaex_tpu_torch webserver
 """
 
 from __future__ import annotations
@@ -30,13 +32,15 @@ from . import functions as _functions  # noqa: F401  (populates the namespace)
 from . import settings  # noqa: F401
 from . import stat  # noqa: F401
 from .column import ColumnVirtualConstant, ColumnVirtualRange
-from .dataframe import DataFrame
+from .dataframe import DataFrame, register_dataframe_accessor  # noqa: F401
 from .dataset import Dataset, DatasetArrays  # noqa: F401
 from .delayed import delayed  # noqa: F401
 from .expression import Expression  # noqa: F401
 from .groupby import BinnerTime  # noqa: F401
 from .ops.setops import RowLimitException  # noqa: F401
 from .registry import register_function  # noqa: F401
+# the accessors df.geo, df.astro, df.viz, df.graphql, df.widget and expr.struct
+from . import astro, geo, graphql, jupyter, struct, viz  # noqa: F401
 
 __version__ = "0.1.0"
 

@@ -60,7 +60,7 @@ from .ops.nullable import NA, DictNA
 from .ops.binners import BinnerOrdinal, BinnerScalar
 from .scopes import HostScope, classify_leaves, expression_is_device, host_chunk
 from .tasks import TaskFilterMask, TaskMapIndex, TaskMapReduce, TaskSetCreate
-from .utils import find_valid_name, fingerprint, valid_expression_name
+from .utils import Signal, find_valid_name, fingerprint, valid_expression_name
 
 class DataFrame:
     def __init__(self, dataset: Dataset, executor=None):
@@ -90,6 +90,8 @@ class DataFrame:
         self.units = {}
         # (start, stop, the whole dataset) while an active range is set
         self._active_range = None
+        # emitted with (df, name) whenever a selection changes
+        self.signal_selection_changed = Signal("selection-changed")
 
     def copy(self, column_names=None):
         df = DataFrame.__new__(DataFrame)
@@ -110,6 +112,7 @@ class DataFrame:
         df._function_impls = dict(self._function_impls)
         df.units = dict(self.units)
         df._active_range = self._active_range
+        df.signal_selection_changed = Signal("selection-changed")
         return df
 
     # ----------------------------------------------------------- variables
@@ -407,6 +410,11 @@ class DataFrame:
             raise AttributeError(name)
         if name in object.__getattribute__(self, "column_names"):
             return Expression(self, name)
+        if name in _df_accessors:
+            # built once per frame (vaex_tpu/dataframe.py:1986-1989)
+            accessor = _df_accessors[name](self)
+            object.__setattr__(self, name, accessor)
+            return accessor
         raise AttributeError(name)
 
     # ----------------------------------------------------------- selections
@@ -482,6 +490,7 @@ class DataFrame:
         del history[self.selection_history_indices.get(name, -1) + 1:]
         history.append(selection)
         self.selection_history_indices[name] = len(history) - 1
+        self.signal_selection_changed.emit(self, name)
 
     def _select_step(self, name, index):
         self.selection_history_indices[name] = index
@@ -494,10 +503,12 @@ class DataFrame:
     def selection_undo(self, name="default"):
         if self.selection_can_undo(name):
             self._select_step(name, self.selection_history_indices[name] - 1)
+        self.signal_selection_changed.emit(self, name)
 
     def selection_redo(self, name="default"):
         if self.selection_can_redo(name):
             self._select_step(name, self.selection_history_indices.get(name, -1) + 1)
+        self.signal_selection_changed.emit(self, name)
 
     def selection_can_undo(self, name="default"):
         return self.selection_history_indices.get(name, -1) > -1
@@ -1862,6 +1873,17 @@ class DataFrame:
                              pre_filter=pre_filter and self.filtered, info=info)
         self.executor.schedule(task)
         return self._delay(delay, task, progress)
+
+
+_df_accessors = {}  # name -> the class of ``df.<name>``
+
+
+def register_dataframe_accessor(name, cls=None):
+    """Make ``cls(df)`` reachable as ``df.<name>`` (vaex_tpu/dataframe.py:2003)"""
+    def wrapper(cls):
+        _df_accessors[name] = cls
+        return cls
+    return wrapper(cls) if cls is not None else wrapper
 
 
 def _concat_categories(dfs, dataset):

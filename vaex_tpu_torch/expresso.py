@@ -3,7 +3,9 @@
 Re-design of the reference's ``vaex/expresso.py`` (636 LoC): expressions are
 strings in a whitelisted Python subset, parsed with the stdlib ``ast`` module.
 In this engine the expression is ``eval``'d once per tile over torch tensors
-(see :mod:`vaex_tpu_torch.scopes`).  Copied unchanged from ``vaex_tpu``.
+(see :mod:`vaex_tpu_torch.scopes`).  Copied from ``vaex_tpu``; the
+server holds a request's expressions to :func:`validate_expression` with
+``attributes``.
 """
 
 from __future__ import annotations
@@ -27,16 +29,28 @@ _valid_nodes = (
 ) + valid_binary_operators + valid_compare_operators + valid_unary_operators + valid_bool_operators
 
 
-def validate_expression(expr: str, variable_set, function_set=(), names=None):
-    """Raise on syntax errors, unknown nodes or unknown names.
+def refuse_nodes(tree, expr, attributes=None):
+    """Raise ValueError on a node of ``tree`` (parsed from ``expr``) outside
+    the language, or, where ``attributes`` is given, on an attribute whose
+    name is not in it."""
+    for node in ast.walk(tree):
+        if not isinstance(node, _valid_nodes):
+            raise ValueError(f"invalid node {type(node).__name__!r} in expression {expr!r}")
+        if attributes is not None and isinstance(node, ast.Attribute) \
+                and node.attr not in attributes:
+            raise ValueError(f"attribute {node.attr!r} is not allowed in expression {expr!r}")
+
+
+def validate_expression(expr: str, variable_set, function_set=(), names=None, attributes=None):
+    """Raise on syntax errors, unknown nodes or unknown names, and, where
+    ``attributes`` is given, on an attribute not among them.
 
     Reference: expresso.py:33-149.
     """
     names = names if names is not None else []
     tree = ast.parse(expr, mode="eval")
+    refuse_nodes(tree, expr, attributes)
     for node in ast.walk(tree):
-        if not isinstance(node, _valid_nodes):
-            raise ValueError(f"invalid node {type(node).__name__!r} in expression {expr!r}")
         if isinstance(node, ast.Call):
             func = node.func
             fname = None

@@ -51,6 +51,20 @@ def _parsed(expression):
                       if isinstance(node, ast.Call) and isinstance(node.func, ast.Name)))
 
 
+@functools.lru_cache(maxsize=4096)
+def compiled(expression):
+    """The code ``eval`` runs for an expression string.  An attribute whose
+    name starts with ``_`` is refused: through one
+    (``x.__init__.__globals__``) an expression would reach Python's
+    builtins, which the scopes' empty ``__builtins__`` does not shut out."""
+    tree = ast.parse(expression, mode="eval")
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and node.attr.startswith("_"):
+            raise ValueError(f"attribute {node.attr!r} is not allowed in expression "
+                             f"{expression!r}")
+    return compile(tree, "<expr>", "eval")
+
+
 def _leaves(expression, variables, virtual):
     """(physical column names, variable names) an expression reads, through
     the expressions of the virtual columns it names (vaex_tpu/scopes.py:
@@ -122,6 +136,11 @@ def resolve_variables(variables, names, device):
         value = variables[name]
         if isinstance(value, setops.SortedSet):
             out[name] = setops.DeviceSetHandle.of(value, device)
+        elif np.ndim(value) == 0 and np.asarray(value).dtype.kind in "bif":
+            # a number stays a Python scalar: a 0-d tensor on the left of an
+            # operator would take the NA on its right as its operand (a
+            # uint64 keeps its tensor of bits)
+            out[name] = np.asarray(value).item()
         elif np.asarray(value).dtype.kind in "Mm":
             # a datetime or timedelta: its int64 count in its own unit
             value = np.asarray(value)
@@ -147,7 +166,7 @@ class DeviceScope:
             return self.values[expression]
         namespace = dict(expression_namespace)
         namespace["__builtins__"] = {}
-        result = eval(compile(expression, "<expr>", "eval"), namespace, self)
+        result = eval(compiled(expression), namespace, self)
         if not isinstance(result, NA):
             result = NA(torch.as_tensor(result))
         self.values[expression] = result
@@ -298,7 +317,7 @@ class HostScope:
         if expression in self.values:
             return self.values[expression]
         with np.errstate(all="ignore"):
-            result = eval(compile(expression, "<expr>", "eval"), host_eval_namespace(), self)
+            result = eval(compiled(expression), host_eval_namespace(), self)
         self.values[expression] = result
         return result
 
