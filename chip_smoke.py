@@ -336,7 +336,35 @@ Run from the root of the repository on a machine with a CUDA card.  It
     CLI's meta, stat and convert run at once as subprocesses on a 1e6-row
     Arrow IPC file; the tornado server and the drawings where tornado,
     websockets and matplotlib are installed (a missing one printed by
-    name); it prints its own JSON line and the whole script's time.
+    name); it prints its own JSON line.
+
+26. fits a machine-learning pipeline on the card (vaex_tpu_torch.ml): 1e8
+    rows made on the card from seed 42 (x0..x7 float64 around 16 centres
+    uniform in [-10, 10]^8, sd 1; key int64 of 100 categories,
+    categorized; cat a string column of 8 labels held as int32 codes on the
+    card; y = x0 + noise > 0; t linear in x0..x7 plus noise): a
+    StandardScaler of the eight features (one pass), a PCA of the scaled
+    columns (3 components), KMeans(16 clusters, n_init 3, max_iter 20, tol
+    1e-4, random_state 42) and its predict over every row, MinMax, MaxAbs
+    and Robust scalers and uniform and quantile KBinsDiscretizers of x0, x1,
+    LabelEncoder of cat and key, OneHotEncoder and FrequencyEncoder of cat
+    (each transformed column summed in one pass), BayesianTargetEncoder and
+    WeightOfEvidenceEncoder of key by y, GroupByTransformer(key, mean x0)
+    through its join, the metrics with the expression PCA_0 > 0 as the
+    prediction and a linear expression against t, and the pipeline's state
+    put on a second frame; each step against plain torch on the same
+    tensors (counts, codes, labels, min / max exact; means, stds, cov,
+    eigenvalues, inertia, encodings and metrics rtol 1e-9 and atol 1e-9;
+    percentiles within one bin of the 16 384-cell grid against a sort;
+    centroids within the sums' bound over the count against Lloyd's
+    algorithm in plain torch from the same init rows; predict equal to the
+    plain assignment but for rows whose two distances tie within 1e-12),
+    B1, B2, B4 and B6 asserted launched; then each step timed against plain
+    torch (medians of 3), KMeans's fits asserted bit-equal; the host-stage
+    legs at 1e7 rows (KMeans's transform column counted by a groupby,
+    RiverModel(OnlineSGDRegressor)'s predict) and sklearn's Predictor at
+    1e6 where sklearn is installed (its absence printed by name); it
+    prints its own JSON line, the phase's time and the whole script's time.
 
     python3 chip_smoke.py --profile 20 21 22 23
 
@@ -6112,12 +6140,583 @@ def phase25_path(vt, plan, gp, probe, label, n=PHASE25_ROWS):
     return launches, record
 
 
+# phase 26: a fitted machine-learning pipeline on the card (ROADMAP A13b): a
+# scaler, a PCA, KMeans, the other scalers and discretizers, the encoders,
+# the metrics and a state round trip, each step against plain torch
+PHASE26_ROWS = 100_000_000
+PHASE26_FEATURES = [f"x{d}" for d in range(8)]
+PHASE26_CENTRES = 16
+PHASE26_K = 100  # key's categories
+PHASE26_LABELS = [f"cat{i}" for i in range(8)]  # cat's labels
+# t = sum of PHASE26_WEIGHTS[d] * x_d + PHASE26_INTERCEPT + noise
+PHASE26_WEIGHTS = [0.25 * (d + 1) * (-1) ** d for d in range(8)]
+PHASE26_INTERCEPT = 0.5
+PHASE26_KMEANS = {"n_clusters": 16, "n_init": 3, "max_iter": 20, "tol": 1e-4,
+                  "random_state": 42}
+# the legs on the host by nature (a function of the host stage, river's and
+# sklearn's models on host arrays): cut from 1e8
+PHASE26_HOST_ROWS = 10_000_000
+PHASE26_SKLEARN_ROWS = 1_000_000
+PHASE26_BATCH = 1_000_000
+PHASE26_REPS = 3
+PHASE26_PERCENTILE_SHAPE = 1024 * 16  # percentile_approx's count grid
+# the kernels the phase must launch: the sums, means and counts (B1), the
+# percentiles' count grid (B2), the scaler's stds (B4), the encoders' and
+# the join's set probes (B6)
+PHASE26_KERNELS = ("b1", "b2", "b4", "b6")
+
+
+def phase26_columns(n, device, seed=SEED):
+    """The table, made on ``device`` from ``seed``: x0..x7 float64 drawn
+    around PHASE26_CENTRES centres uniform in [-10, 10]^8 (sd 1), key int64
+    of PHASE26_K categories, cat the int32 codes of PHASE26_LABELS, y float64
+    in {0, 1} (x0 + noise > 0), t float64 linear in x0..x7 plus noise."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    f64 = dict(generator=gen, device=device, dtype=torch.float64)
+    centres = torch.rand((PHASE26_CENTRES, len(PHASE26_FEATURES)), **f64) * 20.0 - 10.0
+    which = torch.randint(0, PHASE26_CENTRES, (n,), generator=gen, device=device)
+    cols = {f: centres[:, d].index_select(0, which) + torch.randn(n, **f64)
+            for d, f in enumerate(PHASE26_FEATURES)}
+    del which
+    cols["key"] = torch.randint(0, PHASE26_K, (n,), generator=gen, device=device)
+    cols["cat"] = torch.randint(0, len(PHASE26_LABELS), (n,), generator=gen, device=device,
+                                dtype=torch.int32)
+    cols["y"] = (cols["x0"] + torch.randn(n, **f64) > 0).to(torch.float64)
+    t = torch.full((n,), PHASE26_INTERCEPT, device=device, dtype=torch.float64)
+    for w, f in zip(PHASE26_WEIGHTS, PHASE26_FEATURES):
+        t += w * cols[f]
+    cols["t"] = t + 0.1 * torch.randn(n, **f64)
+    return cols
+
+
+def phase26_frame(vt, cols):
+    """The frame over the tensors: cat a string column held as its int32
+    codes on the card (no string is made per row), key categorized."""
+    import pyarrow as pa
+    from vaex_tpu_torch.column import ColumnDictionary
+    columns = dict(cols)
+    columns["cat"] = ColumnDictionary(cols["cat"], pa.array(PHASE26_LABELS), has_null=False)
+    return vt.from_dataset(vt.DatasetArrays(columns)).categorize("key",
+                                                                labels=range(PHASE26_K))
+
+
+def _host(t):
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _linear(names, weights, intercept):
+    """The expression sum w * name + intercept, and its plain torch
+    evaluation over ``values`` (a dict of tensors) in the same order."""
+    expr = " + ".join(f"({w!r}) * {f}" for w, f in zip(weights, names)) + f" + {intercept!r}"
+
+    def plain(values):
+        acc = weights[0] * values[names[0]]
+        for w, f in zip(weights[1:], names[1:]):
+            acc = acc + w * values[f]
+        return acc + intercept
+    return expr, plain
+
+
+def phase26_scaled(cols, mean, std):
+    """The standard-scaled features [D, N] as the port's expressions compute
+    them: (x - mean) / std with the fitted floats."""
+    return torch.stack([(cols[f] - m) / s for f, m, s in zip(PHASE26_FEATURES, mean, std)])
+
+
+def phase26_pca_column(S, means, vectors, i):
+    """PCA_i in plain torch, in the order of the port's expression."""
+    acc = None
+    for j in range(S.shape[0]):
+        term = float(vectors[j][i]) * (S[j] - float(means[j]))
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def phase26_init(S, kmeans):
+    """KMeans's init rows, drawn as KMeans draws them: per run n_clusters of
+    the first chunk_size rows by np.random.default_rng(random_state).choice."""
+    rng = np.random.default_rng(kmeans["random_state"])
+    rows = min(kmeans.get("chunk_size", 4_000_000), S.shape[1])
+    picks = [rng.choice(rows, size=kmeans["n_clusters"], replace=False)
+             for _ in range(kmeans["n_init"])]
+    index = torch.as_tensor(np.concatenate(picks), device=S.device)
+    return S.index_select(1, index).T.reshape(kmeans["n_init"], kmeans["n_clusters"], -1)
+
+
+def phase26_lloyd(S, init, iterations, rows=1 << 21):
+    """Lloyd's algorithm in plain torch from ``init`` [R, K, D] for
+    ``iterations`` steps over S [D, N]: the scores ||c||^2 - 2 c.x by the
+    port's formula and product (addmm), the first least, counts and sums by
+    index_add_, an empty cluster keeping its centroid.  Returns (centroids,
+    per iteration the inertia of each run, the last iteration's counts,
+    sums and sums of |x|)."""
+    C = init.clone()
+    R, K, D = C.shape
+    inertias = []
+    for _ in range(iterations):
+        flat = C.reshape(R * K, D)
+        counts = torch.zeros((R, K), dtype=torch.int64, device=S.device)
+        sums = torch.zeros((R, K, D), dtype=torch.float64, device=S.device)
+        abs_sums = torch.zeros((R, K, D), dtype=torch.float64, device=S.device)
+        inertia = torch.zeros(R, dtype=torch.float64, device=S.device)
+        for a in range(0, S.shape[1], rows):
+            X = S[:, a:a + rows]
+            scores = torch.addmm((flat * flat).sum(1)[:, None], flat, X, alpha=-2.0)
+            least, best = scores.view(R, K, -1).min(1)
+            inertia += (least + (X * X).sum(0)).sum(1)
+            for r in range(R):
+                counts[r].index_add_(0, best[r], torch.ones_like(best[r]))
+                sums[r].index_add_(0, best[r], X.T)
+                abs_sums[r].index_add_(0, best[r], X.T.abs())
+        C = torch.where(counts[:, :, None] > 0, sums / counts.clamp(min=1)[:, :, None], C)
+        inertias.append(inertia)
+    return C, inertias, counts, sums, abs_sums
+
+
+def phase26_assign(C, S, rows=1 << 22):
+    """The nearest of the centroids C [K, D] to each row of S [D, N] by
+    -2 c.x + ||c||^2, the first on a tie."""
+    c2 = (C * C).sum(1)[:, None]
+    return torch.cat([torch.addmm(c2, C, S[:, a:a + rows], alpha=-2.0).argmin(0)
+                      for a in range(0, S.shape[1], rows)])
+
+
+def phase26_quantiles(x, percentages):
+    """numpy's linear percentiles of x in plain torch: one sort."""
+    xs = torch.sort(x).values
+    out = []
+    for p in percentages:
+        pos = p / 100.0 * (xs.shape[0] - 1)
+        lo = int(math.floor(pos))
+        hi = min(lo + 1, xs.shape[0] - 1)
+        out.append(float(xs[lo] + (xs[hi] - xs[lo]) * (pos - lo)))
+    return out
+
+
+# how phase26_check holds each value: "exact", "close" (RTOL and ATOL),
+# ("bins", width) for a percentile against the count grid's bin width,
+# ("centroids", bound) for a centroid against the plain one within its
+# sums' bound (within_sum_bound's) over its count
+def phase26_check(name, got, want):
+    """Each value of one step against its plain torch answer, by the rule
+    ``want`` gives it ({key: (value, rule)}); raises naming the step and
+    the key where one disagrees."""
+    for key, (value, rule) in want.items():
+        check(key in got, f"phase 26 {name}: no {key}")
+        g = got[key]
+        if rule == "exact":
+            ok = np.array_equal(np.asarray(g), np.asarray(value))
+        elif rule == "close":
+            ok = np.allclose(np.asarray(g, np.float64), np.asarray(value, np.float64),
+                             rtol=RTOL, atol=ATOL)
+        elif rule[0] == "bins":
+            ok = _close(g, value, rule[1])
+        elif rule[0] == "centroids":
+            ok = _close(g, value, rule[1])
+        else:
+            raise KeyError(rule)
+        check(ok, f"phase 26 {name}: {key} differs from plain torch: {g!r} vs {value!r}")
+
+
+def _scaled_names():
+    return [f"standard_scaled_{f}" for f in PHASE26_FEATURES]
+
+
+def phase26_steps(vt, st):
+    """The pipeline's steps in order: {name: (port, plain)}, each a
+    function of the state ``st`` (the frame so far, the tensors, the fitted
+    transformers), ``port`` returning (what it fitted, {key: value}),
+    ``plain`` returning {key: (value, rule)} in plain torch."""
+    cols, n = st["cols"], st["n"]
+    F = PHASE26_FEATURES
+
+    def scaler():
+        t = vt.ml.StandardScaler(features=F).fit(st["df"])
+        return t, {"mean": t.mean_, "std": t.std_}
+
+    def scaler_plain():
+        return {"mean": ([float(cols[f].mean()) for f in F], "close"),
+                "std": ([float(cols[f].std(correction=0)) for f in F], "close")}
+
+    def pca():
+        t = vt.ml.PCA(features=_scaled_names(), n_components=3).fit(st["df"])
+        V, lam = np.asarray(t.eigen_vectors_), np.asarray(t.eigen_values_)
+        # the fit's covariance matrix, back from its eigenvectors and values
+        return t, {"cov": (V * lam) @ V.T, "eigen_values": lam}
+
+    def pca_plain():
+        cov = torch.cov(st["S"], correction=0)
+        lam = torch.linalg.eigvalsh(cov).flip(0)
+        return {"cov": (_host(cov), "close"), "eigen_values": (_host(lam), "close")}
+
+    def kmeans():
+        km = vt.ml.KMeans(features=_scaled_names(), **PHASE26_KMEANS).fit(st["df"])
+        return km, {"iterations": len(km.inertias_), "inertias": km.inertias_,
+                    "inertia": km.inertia_, "centroids": np.asarray(km.cluster_centers_)}
+
+    def kmeans_plain():
+        km = st["kmeans"]
+        iterations = len(km.inertias_)
+        C, inertias, counts, sums, abs_sums = phase26_lloyd(
+            st["S"], phase26_init(st["S"], PHASE26_KMEANS), iterations)
+        best = int(torch.argmin(inertias[-1]))
+        c = counts[best].to(torch.float64)[:, None].clamp(min=1)
+        bound = (RTOL * sums[best].abs() + ATOL + c * 2.0 ** -52 * abs_sums[best]) / c
+        st["plain_centroids"] = C[best]
+        return {"iterations": (iterations, "exact"),
+                "inertias": ([float(i.min()) for i in inertias], "close"),
+                "inertia": (float(inertias[-1][best]), "close"),
+                "centroids": (_host(C[best]), ("centroids", _host(bound)))}
+
+    def predict():
+        km = st["kmeans"]
+        pred = torch.as_tensor(km.predict(st["df"]), device=st["S"].device)
+        C = st["plain_centroids"]
+        want = phase26_assign(C, st["S"])
+        differ = torch.nonzero(pred != want).squeeze(1)
+        ties = 0
+        if differ.numel():
+            X = st["S"][:, differ].T
+            d_got = ((X - C[pred[differ]]) ** 2).sum(1)
+            d_want = ((X - C[want[differ]]) ** 2).sum(1)
+            tie = (d_got - d_want).abs() <= 1e-12 * d_want
+            print(f"phase 26 predict: {differ.numel()} rows differ from the plain assignment; "
+                  f"distances {list(zip(_host(d_got)[:5], _host(d_want)[:5]))}", flush=True)
+            ties = int(tie.sum())
+            pred[differ[tie]] = want[differ[tie]]
+        st["assignment"] = want
+        return pred, {"rows differing without a tie": int((pred != want).sum()),
+                      "counts": _host(torch.bincount(pred, minlength=16)),
+                      "ties": ties}
+
+    def predict_plain():
+        return {"rows differing without a tie": (0, "exact"),
+                "counts": (_host(torch.bincount(st["assignment"], minlength=16)), "exact")}
+
+    def scalers():
+        df, x2 = st["df"], ["x0", "x1"]
+        ts = [vt.ml.MinMaxScaler(features=x2), vt.ml.MaxAbsScaler(features=x2),
+              vt.ml.RobustScaler(features=x2),
+              vt.ml.KBinsDiscretizer(features=x2, n_bins=5, prefix="binned_uniform_"),
+              vt.ml.KBinsDiscretizer(features=x2, n_bins=5, strategy="quantile",
+                                     prefix="binned_quantile_")]
+        for t in ts:
+            t.fit(df)
+        mm, ma, rb, ku, kq = ts
+        return ts, {"min": mm.fmin_, "max": mm.fmax_, "absmax": ma.absmax_,
+                    "center": rb.center_, "scale": rb.scale_,
+                    "uniform": [ku.bin_edges_[f] for f in x2],
+                    "quantile": [kq.bin_edges_[f] for f in x2]}
+
+    def scalers_plain():
+        x2 = ["x0", "x1"]
+        lo, hi = zip(*[(float(cols[f].min()), float(cols[f].max())) for f in x2])
+        width = np.asarray([(h - l) / PHASE26_PERCENTILE_SHAPE for l, h in zip(lo, hi)])
+        q = [phase26_quantiles(cols[f], [25.0, 50.0, 75.0]) for f in x2]
+        qs = [phase26_quantiles(cols[f], list(np.linspace(0, 100, 6))) for f in x2]
+        return {"min": (list(lo), "exact"), "max": (list(hi), "exact"),
+                "absmax": ([max(abs(l), abs(h)) for l, h in zip(lo, hi)], "exact"),
+                "center": ([v[1] for v in q], ("bins", width)),
+                "scale": ([v[2] - v[0] for v in q], ("bins", 2 * width)),
+                "uniform": ([np.linspace(l, h, 6).tolist() for l, h in zip(lo, hi)], "exact"),
+                "quantile": (qs, ("bins", width[:, None]))}
+
+    def encoders():
+        df = st["df"]
+        le = vt.ml.LabelEncoder(features=["cat", "key"]).fit(df)
+        oh = vt.ml.OneHotEncoder(features=["cat"]).fit(df)
+        fe = vt.ml.FrequencyEncoder(features=["cat"]).fit(df)
+        out = fe.transform(oh.transform(le.transform(df)))
+        names = (["label_encoded_cat", "label_encoded_key"]
+                 + [f"cat_{label}" for label in oh.uniques_["cat"]] + ["frequency_encoded_cat"])
+        sums = out.sum(names)
+        return (le, oh, fe), {
+            "labels cat": le.labels_["cat"], "labels key": le.labels_["key"],
+            "code sums": [int(s) for s in sums[:2]], "one-hot sums": [int(s) for s in sums[2:-1]],
+            "frequencies": [fe.mappings_["cat"][label] for label in PHASE26_LABELS],
+            "frequency sum": float(sums[-1])}
+
+    def encoders_plain():
+        labels = sorted(PHASE26_LABELS)
+        ranks = torch.as_tensor(np.searchsorted(labels, PHASE26_LABELS), device=cols["cat"].device)
+        keys = torch.arange(PHASE26_K, device=cols["key"].device)
+        counts = torch.bincount(cols["cat"].long(), minlength=len(PHASE26_LABELS))
+        freq = counts.to(torch.float64) / n
+        by_label = {label: int(c) for label, c in zip(PHASE26_LABELS, _host(counts))}
+        return {"labels cat": (labels, "exact"), "labels key": (list(range(PHASE26_K)), "exact"),
+                "code sums": ([int(ranks[cols["cat"].long()].sum()),
+                               int(torch.searchsorted(keys, cols["key"]).sum())], "exact"),
+                "one-hot sums": ([by_label[label] for label in labels], "exact"),
+                "frequencies": ([c / n for c in _host(counts).tolist()], "exact"),
+                "frequency sum": (float(freq[cols["cat"].long()].sum()), "close")}
+
+    def targets():
+        df = st["df"]
+        bte = vt.ml.BayesianTargetEncoder(features=["key"], target="y").fit(df)
+        woe = vt.ml.WeightOfEvidenceEncoder(features=["key"], target="y").fit(df)
+        gbt = vt.ml.GroupByTransformer(by="key", agg={"x0_mean": vt.agg.mean("x0")}).fit(df)
+        out = woe.transform(bte.transform(df))
+        joined = gbt.transform(out)
+        sums = out.sum(["mean_encoded_key", "woe_encoded_key"])
+        return (bte, woe, gbt), {
+            "global mean": bte.global_mean_,
+            "bayesian": [bte.mappings_["key"][k] for k in range(PHASE26_K)],
+            "woe": [woe.mappings_["key"][k] for k in range(PHASE26_K)],
+            "group means": gbt.df_group["x0_mean"].tolist(),
+            "encoded sums": [float(s) for s in sums],
+            "joined sum": float(joined.sum("x0_mean"))}
+
+    def targets_plain():
+        key, y, x0 = cols["key"], cols["y"], cols["x0"]
+        count = torch.bincount(key, minlength=PHASE26_K).to(torch.float64)
+        pos = torch.zeros(PHASE26_K, dtype=torch.float64, device=key.device).index_add_(0, key, y)
+        xs = torch.zeros(PHASE26_K, dtype=torch.float64, device=key.device).index_add_(0, key, x0)
+        g = float(y.mean())
+        blended = (count * (pos / count) + 100 * g) / (count + 100)
+        neg = count - pos
+        woe = torch.log((pos / pos.sum().clamp(min=1)).clamp(min=1e-9)
+                        / (neg / neg.sum().clamp(min=1)).clamp(min=1e-9))
+        means = xs / count
+        return {"global mean": (g, "close"), "bayesian": (_host(blended), "close"),
+                "woe": (_host(woe), "close"), "group means": (_host(means), "close"),
+                "encoded sums": ([float(blended[key].sum()), float(woe[key].sum())], "close"),
+                "joined sum": (float(means[key].sum()), "close")}
+
+    expr, linear_plain = _linear(F, PHASE26_WEIGHTS, PHASE26_INTERCEPT)
+
+    def metrics():
+        m = st["df"].ml.metrics
+        yp = "PCA_0 > 0"
+        return None, {
+            "accuracy": m.accuracy_score("y", yp),
+            "confusion": m.confusion_matrix("y", yp),
+            "binary": list(m.precision_recall_fscore("y", yp)),
+            "macro": list(m.precision_recall_fscore("y", yp, average="macro")),
+            "mcc": m.matthews_correlation_coefficient("y", yp),
+            "mae": m.mean_absolute_error("t", expr), "mse": m.mean_squared_error("t", expr),
+            "r2": m.r2_score("t", expr)}
+
+    def metrics_plain():
+        y = cols["y"] > 0.5
+        p = st["pca0"] > 0
+        C = torch.stack([torch.stack([(~y & ~p).sum(), (~y & p).sum()]),
+                         torch.stack([(y & ~p).sum(), (y & p).sum()])]).to(torch.float64)
+        tp, fp, fn = C[1, 1], C[0, 1], C[1, 0]
+        pr, rc = tp / (tp + fp), tp / (tp + fn)
+        precision, recall = torch.diag(C) / C.sum(0), torch.diag(C) / C.sum(1)
+        f1 = 2 * precision * recall / (precision + recall)
+        t_sum, p_sum, total = C.sum(1), C.sum(0), C.sum()
+        mcc = ((torch.trace(C) * total - t_sum @ p_sum)
+               / torch.sqrt((total * total - t_sum @ t_sum) * (total * total - p_sum @ p_sum)))
+        resid = cols["t"] - linear_plain(cols)
+        ss_tot = ((cols["t"] - cols["t"].mean()) ** 2).sum()
+        return {"accuracy": (float((y == p).to(torch.float64).mean()), "close"),
+                "confusion": (_host(C).astype(np.int64), "exact"),
+                "binary": ([float(pr), float(rc), float(2 * pr * rc / (pr + rc))], "close"),
+                "macro": ([float(precision.mean()), float(recall.mean()), float(f1.mean())],
+                          "close"),
+                "mcc": (float(mcc), "close"), "mae": (float(resid.abs().mean()), "close"),
+                "mse": (float((resid ** 2).mean()), "close"),
+                "r2": (float(1 - (resid ** 2).sum() / ss_tot), "close")}
+
+    return {"standard_scaler": (scaler, scaler_plain), "pca": (pca, pca_plain),
+            "kmeans": (kmeans, kmeans_plain), "predict": (predict, predict_plain),
+            "scalers": (scalers, scalers_plain), "encoders": (encoders, encoders_plain),
+            "target encoders": (targets, targets_plain), "metrics": (metrics, metrics_plain)}
+
+
+def _transformed(df, cols):
+    """The columns a pipeline added to a frame over ``cols``."""
+    return [c for c in df.get_column_names() if c not in cols and not c.startswith("__")]
+
+
+def phase26_drive(vt, df, cols, n):
+    """Every step once, in order, each checked against plain torch; then the
+    state round trip.  Returns (the state, {step: (port, plain)}, {step:
+    the port's answer})."""
+    st = {"df": df, "cols": cols, "n": n}
+    steps = phase26_steps(vt, st)
+    answers = {}
+    for name, (port, plain) in steps.items():
+        fitted, got = port()
+        if name == "standard_scaler":
+            st["S"] = phase26_scaled(cols, fitted.mean_, fitted.std_)
+            st["scaler"] = fitted
+        elif name == "pca":
+            st["pca"] = fitted
+            st["pca0"] = phase26_pca_column(st["S"], fitted.means_, fitted.eigen_vectors_, 0)
+        elif name == "kmeans":
+            st["kmeans"] = fitted
+        want = plain()
+        phase26_check(name, got, want)
+        answers[name] = got
+        if name in ("standard_scaler", "pca"):
+            st["df"] = fitted.transform(st["df"])
+        elif name in ("scalers", "encoders"):
+            for t in fitted:
+                st["df"] = t.transform(st["df"])
+        elif name == "target encoders":
+            for t in fitted[:2]:
+                st["df"] = t.transform(st["df"])
+    names = _transformed(st["df"], cols)
+    got = phase26_state(vt, st["df"], cols, names)
+    phase26_check("state", got, {"sums": (list(_host(st["df"].sum(names))), "close")})
+    answers["state"] = {"columns": len(names)}
+    check(all(isinstance(t, torch.Tensor) and t.device.type == torch.device(
+        cols["x0"].device).type for t in (df.dataset[f] for f in PHASE26_FEATURES)),
+          "phase 26: a step moved the frame off its device")
+    return st, steps, answers
+
+
+def phase26_state(vt, df, cols, names):
+    """The pipeline's frame state (every transformed column but KMeans's and
+    the join's) put on a second frame over the same tensors: its columns'
+    sums in one pass."""
+    fresh = phase26_frame(vt, cols)
+    fresh.state_set(df.state_get())
+    return {"sums": list(_host(fresh.sum(names)))}
+
+
+def phase26_host_legs(vt, st, n_host=PHASE26_HOST_ROWS, n_sklearn=PHASE26_SKLEARN_ROWS,
+                      batch=PHASE26_BATCH):
+    """The legs that run on the host by nature, cut to ``n_host`` rows: the
+    KMeans transform column (a function of the host stage) counted by a
+    groupby against predict's counts; RiverModel(OnlineSGDRegressor) in
+    batches of ``batch`` rows, its predict against the same weights in
+    plain torch; sklearn's LinearRegression through Predictor on
+    ``n_sklearn`` rows, where sklearn is installed.  Returns ({leg: (port,
+    plain)}, what is missing)."""
+    import importlib.util
+    df, S, km = st["df"], st["S"], st["kmeans"]
+    small = df[:n_host]
+    names = _scaled_names()
+    legs, missing = {}, []
+
+    def kmeans_column():
+        out = km.transform(small).groupby("prediction_kmeans", agg={"n": "count"}, sort=True)
+        counts = np.zeros(PHASE26_KMEANS["n_clusters"], np.int64)
+        counts[np.asarray(out["prediction_kmeans"].tolist())] = out["n"].tolist()
+        return {"counts": counts}
+
+    def kmeans_plain():
+        C = torch.as_tensor(np.asarray(km.cluster_centers_), device=S.device)
+        return {"counts": (_host(torch.bincount(phase26_assign(C, S[:, :n_host]),
+                                                minlength=PHASE26_KMEANS["n_clusters"])),
+                           "exact")}
+    legs["kmeans transform"] = (kmeans_column, kmeans_plain)
+
+    river = vt.ml.RiverModel(model=vt.ml.OnlineSGDRegressor(), features=names, target="t",
+                             batch_size=batch)
+    river.fit(small)
+
+    def river_port():
+        return {"predict": river.predict(small)}
+
+    def river_plain():
+        w = torch.as_tensor(river.model.weights, device=S.device)
+        return {"predict": (_host(S[:, :n_host].T @ w + river.model.intercept), "close")}
+    legs["river predict"] = (river_port, river_plain)
+
+    if importlib.util.find_spec("sklearn") is None:
+        missing.append("sklearn")
+    else:
+        from sklearn.linear_model import LinearRegression
+        part = df[:n_sklearn]
+        predictor = vt.ml.Predictor(model=LinearRegression(), features=names, target="t")
+        predictor.fit(part)
+
+        def sklearn_port():
+            return {"predict": np.asarray(predictor.transform(part).evaluate("prediction"))}
+
+        def sklearn_plain():
+            coef = torch.as_tensor(predictor.model.coef_, device=S.device)
+            return {"predict": (_host(S[:, :n_sklearn].T @ coef + predictor.model.intercept_),
+                                "close")}
+        legs["sklearn predict"] = (sklearn_port, sklearn_plain)
+    for name, (port, plain) in legs.items():
+        phase26_check(name, port(), plain())
+    return legs, missing
+
+
+def phase26_time(steps, reps=PHASE26_REPS):
+    """{step: {"port_ms", "plain_ms"}}: medians of ``reps`` runs (host clock,
+    each ended by a synchronize of the card) of each step's port and plain
+    torch functions."""
+    return {name: {"port_ms": _median_ms(lambda: port(), reps),
+                   "plain_ms": _median_ms(lambda: plain(), reps)}
+            for name, (port, plain) in steps.items()}
+
+
+def phase26_path(vt, plan, gp, probe, label, n=PHASE26_ROWS):
+    """Phase 26 on the card: the table made on cuda:0, the pipeline driven
+    once with the kernel counts set to 0 and each step checked, B1, B2, B4
+    and B6 asserted launched; then each step timed against plain torch,
+    KMeans's fit asserted to give the same bits each time, and the host
+    legs at PHASE26_HOST_ROWS.  Returns (launches, the phase's JSON
+    record)."""
+    from vaex_tpu_torch import cache
+    t_phase = time.perf_counter()
+    cols = phase26_columns(n, "cuda")
+    df = phase26_frame(vt, cols)
+    torch.cuda.synchronize()
+    with cache.off():  # every step runs its passes
+        zero_launches(plan, gp)
+        probe.probe.launches = probe.probe.wide_launches = 0
+        st, steps, answers = phase26_drive(vt, df, cols, n)
+        torch.cuda.synchronize()
+        launches = {**launch_counts(plan, gp), "b6": probe.probe.launches,
+                    "b6-wide": probe.probe.wide_launches}
+        print(f"launches during phase 26: {launches}", flush=True)
+        for name in PHASE26_KERNELS:
+            check(launches[name] > 0, f"{name} was not launched during phase 26: {launches}")
+        km = answers["kmeans"]
+        print(f"[{label}] phase 26 N={n}: {len(answers)} steps equal plain torch; KMeans "
+              f"{km['iterations']} iterations, inertia {km['inertia']!r}; "
+              f"{answers['predict']['ties']} predicted rows on a tie; "
+              f"{answers['state']['columns']} columns through the state", flush=True)
+        centres = []
+        steps["kmeans"] = (lambda: centres.append(vt.ml.KMeans(
+            features=_scaled_names(), **PHASE26_KMEANS).fit(st["df"]).cluster_centers_),
+            steps["kmeans"][1])
+        times = phase26_time({k: v for k, v in steps.items() if k != "predict"})
+        check(all(c == km["centroids"].tolist() for c in centres),
+              "phase 26: KMeans's fits gave different centroids")
+        times["kmeans"]["iterations"] = km["iterations"]
+        times["kmeans"]["port_ms_per_iteration"] = times["kmeans"]["port_ms"] / km["iterations"]
+        times["kmeans"]["plain_ms_per_iteration"] = times["kmeans"]["plain_ms"] / km["iterations"]
+        times["predict"] = {"port_ms": _median_ms(lambda: st["kmeans"].predict(st["df"]),
+                                                  PHASE26_REPS),
+                            "plain_ms": _median_ms(lambda: phase26_assign(
+                                st["plain_centroids"], st["S"]).cpu(), PHASE26_REPS)}
+        legs, missing = phase26_host_legs(vt, st)
+        times.update({f"{name} (N={PHASE26_HOST_ROWS if name != 'sklearn predict' else PHASE26_SKLEARN_ROWS})": t
+                      for name, t in phase26_time(legs).items()})
+    for name in missing:
+        print(f"[{label}] phase 26 {name}: not installed: {name}", flush=True)
+    for name, t in times.items():
+        print(f"[{label}] phase 26 {name}: port {t['port_ms']!r} ms, plain torch "
+              f"{t['plain_ms']!r} ms", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[{label}] phase 26 took {phase_s:.1f} s", flush=True)
+    record = {"card": label, "rows": n, "host_rows": PHASE26_HOST_ROWS,
+              "sklearn_rows": PHASE26_SKLEARN_ROWS,
+              "bytes": sum(c.element_size() * c.numel() for c in cols.values()),
+              "steps": times, "kmeans_iterations": km["iterations"],
+              "predict_ties": answers["predict"]["ties"], "missing": missing,
+              "launches": launches, "phase_s": phase_s}
+    del df, cols, st, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, record
+
+
 def profile_phases(vt, phases, label):
-    """The device busy and idle share of each query of phases 20-23
-    (``python3 chip_smoke.py --profile 20 21 22 23``): the phase's tables made
-    as the phase makes them, each query through scripts/profile_torch_groupby.py's
-    ``profile`` (two warm-ups, then 5 runs under torch.profiler, each ended by
-    a synchronize), the result cache off but for phase 22's two hits."""
+    """The device busy and idle share of each query of phases 20-23 and of
+    each step of phase 26 (``python3 chip_smoke.py --profile 20 21 22 23
+    26``): the phase's tables made as the phase makes them, each query
+    through scripts/profile_torch_groupby.py's ``profile`` (two warm-ups,
+    then 5 runs under torch.profiler, each ended by a synchronize), the
+    result cache off but for phase 22's two hits."""
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     from profile_torch_groupby import profile as profile_on_the_card
     from vaex_tpu_torch import cache
@@ -6192,6 +6791,21 @@ def profile_phases(vt, phases, label):
                 profile(f"phase 22 {name} N={rows}", query)
         from vaex_tpu_torch import multiprocessing as port_mp
         port_mp.close_pool()
+    if 26 in phases:
+        cols = phase26_columns(PHASE26_ROWS, "cuda")
+        df = phase26_frame(vt, cols)
+        with cache.off():
+            st, steps, _ = phase26_drive(vt, df, cols, PHASE26_ROWS)
+            for name, (port, _) in steps.items():
+                if name != "predict":
+                    profile(f"phase 26 {name} N={PHASE26_ROWS}", port)
+            profile(f"phase 26 predict N={PHASE26_ROWS}", lambda: st["kmeans"].predict(st["df"]))
+            legs, _ = phase26_host_legs(vt, st)
+            for name, (port, _) in legs.items():
+                profile(f"phase 26 {name} N={PHASE26_HOST_ROWS}", port)
+        del df, cols, st, steps, legs
+        gc.collect()
+        torch.cuda.empty_cache()
     if 23 in phases:
         import importlib.util
         import shutil
@@ -6346,6 +6960,9 @@ def main():
 
     phase25_launches, phase25 = phase25_path(vt, plan, gp, probe, label)
     print(json.dumps({"phase25": phase25}), flush=True)
+
+    phase26_launches, phase26 = phase26_path(vt, plan, gp, probe, label)
+    print(json.dumps({"phase26": phase26}), flush=True)
     print(f"[{label}] chip_smoke.py took {time.perf_counter() - T_START:.1f} s", flush=True)
 
     measured = {plan.B1: (main_launches[plan.B1], results[MAIN_SIZES[0]]),
@@ -6389,6 +7006,7 @@ def main():
         "phase23_launches": phase23_launches[name],
         "phase24_launches": phase24_launches[name],
         "phase25_launches": phase25_launches[name],
+        "phase26_launches": phase26_launches[name],
         **{key: value for key, value in m.items() if key in EXTRA_KEYS},
     } for name, (launches, m) in measured.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

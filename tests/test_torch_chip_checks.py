@@ -1145,3 +1145,105 @@ def test_phase25_times_cli_and_optional_parts_on_the_cpu(phase25, monkeypatch, c
     out = chip_smoke.phase25_optional(vaex_tpu_torch, df, cols, "cpu")
     assert out == {"tornado": "not installed: tornado", "matplotlib": "not installed: matplotlib"}
     assert "phase 25 tornado: not installed: tornado" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------------ phase 26
+@pytest.fixture(scope="module")
+def phase26():
+    from vaex_tpu_torch import cache
+    n = 20_000
+    cols = chip_smoke.phase26_columns(n, "cpu")
+    df = chip_smoke.phase26_frame(vaex_tpu_torch, cols)
+    with cache.off():
+        st, steps, answers = chip_smoke.phase26_drive(vaex_tpu_torch, df, cols, n)
+    return st, steps, answers
+
+
+PHASE26_STEPS = ["standard_scaler", "pca", "kmeans", "predict", "scalers", "encoders",
+                 "target encoders", "metrics"]
+
+
+def test_phase26_drive_on_the_cpu(phase26):
+    """Every step of phase 26 on the CPU equals plain torch (phase26_drive
+    raises where one does not); the pipeline's columns went through the
+    state."""
+    st, steps, answers = phase26
+    assert list(steps) == PHASE26_STEPS and set(answers) == set(PHASE26_STEPS) | {"state"}
+    assert 1 < answers["kmeans"]["iterations"] <= chip_smoke.PHASE26_KMEANS["max_iter"]
+    assert answers["predict"]["rows differing without a tie"] == 0
+    assert answers["predict"]["counts"].sum() == st["n"]
+    assert answers["encoders"]["labels key"] == list(range(chip_smoke.PHASE26_K))
+    assert answers["state"]["columns"] == 34
+    assert all(isinstance(t, torch.Tensor) for t in st["cols"].values())
+
+
+def _wrong26(value):
+    """``value`` with its first number (or string) off by more than any rule
+    of phase26_check allows."""
+    if isinstance(value, str):
+        return value + "x"
+    if isinstance(value, (int, np.integer)):
+        return value + 1
+    if isinstance(value, (float, np.floating)):
+        return value + 1e-3 * (1 + abs(value))
+    if isinstance(value, dict):
+        raise TypeError(value)
+    out = np.array(value, dtype=object if isinstance(value, list) and isinstance(
+        np.ravel(np.asarray(value, dtype=object))[0], str) else None)
+    flat = out.reshape(-1)
+    flat[0] = _wrong26(flat[0].item() if hasattr(flat[0], "item") else flat[0])
+    return out
+
+
+@pytest.mark.parametrize("name", PHASE26_STEPS)
+def test_the_phase26_checks_refuse_a_wrong_answer(phase26, name):
+    _, steps, answers = phase26
+    want = steps[name][1]()
+    chip_smoke.phase26_check(name, answers[name], want)
+    for key in want:
+        wrong = dict(answers[name], **{key: _wrong26(answers[name][key])})
+        with pytest.raises(RuntimeError, match=f"phase 26 {name}: {key}"):
+            chip_smoke.phase26_check(name, wrong, want)
+    with pytest.raises(RuntimeError, match="no "):
+        chip_smoke.phase26_check(name, {}, want)
+
+
+def test_the_phase26_state_check_refuses_a_wrong_sum(phase26):
+    st, _, _ = phase26
+    names = [c for c in st["df"].get_column_names()
+             if c not in st["cols"] and not c.startswith("__")]
+    got = chip_smoke.phase26_state(vaex_tpu_torch, st["df"], st["cols"], names)
+    want = {"sums": (got["sums"], "close")}
+    chip_smoke.phase26_check("state", got, want)
+    with pytest.raises(RuntimeError, match="phase 26 state: sums"):
+        chip_smoke.phase26_check("state", {"sums": _wrong26(got["sums"])}, want)
+
+
+def test_phase26_host_legs_and_times_on_the_cpu(phase26, monkeypatch):
+    from vaex_tpu_torch import settings
+    monkeypatch.setattr(settings, "DEVICE", "cpu")  # where KMeans's transform assigns
+    st, steps, _ = phase26
+    legs, missing = chip_smoke.phase26_host_legs(vaex_tpu_torch, st, n_host=5_000,
+                                                 n_sklearn=3_000, batch=1_000)
+    assert list(legs) == ["kmeans transform", "river predict", "sklearn predict"]
+    assert missing == []
+    times = chip_smoke.phase26_time({**legs, "standard_scaler": steps["standard_scaler"]},
+                                    reps=1)
+    assert all(t["port_ms"] > 0 and t["plain_ms"] > 0 for t in times.values())
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+    legs, missing = chip_smoke.phase26_host_legs(vaex_tpu_torch, st, n_host=5_000,
+                                                 n_sklearn=3_000, batch=1_000)
+    assert missing == ["sklearn"] and "sklearn predict" not in legs
+
+
+def test_phase26_lloyd_refuses_centroids_off_by_one_row(phase26):
+    """The centroid bound (the plain sums' bound over the count) refuses a
+    centroid that moved by one row's share."""
+    st, steps, answers = phase26
+    want = steps["kmeans"][1]()
+    got = dict(answers["kmeans"])
+    centroids = np.array(got["centroids"])
+    counts = answers["predict"]["counts"]
+    centroids[0] += np.abs(centroids[0]).max() / max(int(counts.max()), 1)
+    with pytest.raises(RuntimeError, match="centroids"):
+        chip_smoke.phase26_check("kmeans", dict(got, centroids=centroids), want)

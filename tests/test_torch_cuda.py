@@ -1722,3 +1722,51 @@ def test_linked_views_on_the_card(cuda):
         grids[name] = (hist.grid, heat.grid)
     for a, b in zip(grids["cuda"], grids["cpu"]):
         npt.assert_array_equal(a, b)
+
+
+def _blobs(device, n=200_000, seed=0):
+    """Eight float64 features around 16 centres, a float key, made from
+    ``seed`` on ``device``."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    centres = torch.rand((16, 8), generator=g, dtype=torch.float64) * 20 - 10
+    which = torch.randint(0, 16, (n,), generator=g)
+    cols = {f"x{d}": (centres[which, d] + torch.randn(n, generator=g, dtype=torch.float64))
+            .to(device) for d in range(8)}
+    return vaex_tpu_torch.from_dataset(vaex_tpu_torch.DatasetArrays(cols))
+
+
+def test_kmeans_fit_on_the_card(cuda):
+    """KMeans on a cuda frame: each run's counts and sums through B1 (its
+    launches counted), the centroids and inertia those of the same fit on
+    the CPU (the plain version), the same bits when fitted twice."""
+    features = [f"x{d}" for d in range(8)]
+    kw = dict(features=features, n_clusters=16, n_init=3, max_iter=10, random_state=42,
+              chunk_size=70_000)
+    fits = {}
+    for name, device in (("cuda", cuda), ("cpu", torch.device("cpu"))):
+        df = _blobs(device)
+        before = ga.grid_additive.launches
+        fits[name] = vaex_tpu_torch.ml.KMeans(**kw).fit(df)
+        if name == "cuda":
+            # a launch per run and tile (three tiles of one sub-tile each) an iteration
+            assert ga.grid_additive.launches - before == 3 * 3 * len(fits[name].inertias_)
+            again = vaex_tpu_torch.ml.KMeans(**kw).fit(df)
+            assert again.cluster_centers_ == fits[name].cluster_centers_
+            pred = fits[name].predict(df)
+    assert len(fits["cuda"].inertias_) == len(fits["cpu"].inertias_)
+    npt.assert_allclose(fits["cuda"].cluster_centers_, fits["cpu"].cluster_centers_,
+                        rtol=1e-9, atol=1e-12)
+    npt.assert_allclose(fits["cuda"].inertia_, fits["cpu"].inertia_, rtol=1e-9)
+    npt.assert_array_equal(pred, fits["cpu"].predict(_blobs(torch.device("cpu"))))
+
+
+def test_standard_scaler_fit_launches_b4(cuda):
+    df = _blobs(cuda, n=100_000)
+    before = (ga.grid_additive.launches, gm.grid_moments.launches)
+    with vaex_tpu_torch.cache.off():
+        t = vaex_tpu_torch.ml.StandardScaler(features=["x0", "x1", "x2"]).fit(df)
+    assert gm.grid_moments.launches > before[1] and ga.grid_additive.launches > before[0]
+    for f, m, s in zip(t.features, t.mean_, t.std_):
+        x = df.dataset[f]
+        npt.assert_allclose(m, float(x.mean()), rtol=1e-9)
+        npt.assert_allclose(s, float(x.std(correction=0)), rtol=1e-9)

@@ -347,7 +347,10 @@ def test_plan_gives_b2_the_grids_past_b1s_lane_route(n_int):
 
 def test_plan_keeps_b1_for_many_columns_only_where_it_fits():
     assert not ga.fits(grid_plan.B1_MAX_G, ga.MAX_COLS + 1, 0, True)
-    assert grid_plan.strategy(10, grid_plan.B1_MAX_G, ga.MAX_COLS + 1, 0, True) == "b2"
+    # no kernel takes more than MAX_COLS columns a call (B2's wrapper refused
+    # the "b2" this plan gave before): the count and 32 columns on B2, whose
+    # lane grids B1 cannot hold, the 33rd column alone on B1's lane route
+    assert grid_plan.strategy(10, grid_plan.B1_MAX_G, ga.MAX_COLS + 1, 0, True) == "b2+b1"
 
 
 @pytest.mark.parametrize("G,route", [(20_000, "b3×2"), (40_000, "b3×4"), (70_000, "sort")])

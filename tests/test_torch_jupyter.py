@@ -279,6 +279,5 @@ def test_accessor_registry():
             df.no_such_accessor
     finally:
         del vaex_tpu_torch.dataframe._df_accessors["probe_accessor"]
-    for name in ("geo", "astro", "viz", "graphql", "widget"):
+    for name in ("geo", "astro", "viz", "graphql", "widget", "ml"):
         assert name in vaex_tpu_torch.dataframe._df_accessors
-    assert "ml" not in vaex_tpu_torch.dataframe._df_accessors

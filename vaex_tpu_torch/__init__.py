@@ -15,6 +15,7 @@ This package imports neither JAX nor ``vaex_tpu``; the API mirrors
     df["y"] = df.apply(f, ["x", "k"]); df.state_write("state.json"); pickle.dumps(df)
     with vaex_tpu_torch.cache.off(): df.sum("x", progress=True)
     df.astro.eq2gal(); df.graphql.execute("{ df { count } }")
+    vaex_tpu_torch.ml.KMeans(features=["x", "y"], n_clusters=16).fit(df); df.ml.metrics
     vaex_tpu_torch.server.asgi.create_app(Service({"sky": df}))  # python -m vaex_tpu_torch webserver
 """
 
@@ -41,6 +42,7 @@ from .ops.setops import RowLimitException  # noqa: F401
 from .registry import register_function  # noqa: F401
 # the accessors df.geo, df.astro, df.viz, df.graphql, df.widget and expr.struct
 from . import astro, geo, graphql, jupyter, struct, viz  # noqa: F401
+from . import ml  # noqa: F401  (df.ml: the transformers, KMeans, the metrics)
 
 __version__ = "0.1.0"
 

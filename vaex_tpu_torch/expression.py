@@ -301,9 +301,17 @@ class Expression(metaclass=Meta):
         var = self.df.add_variable("isin_set", _set_of(values), unique=True)
         return Expression(self.df, f"isin_set({self.expression}, {var})")
 
-    def map(self, mapper):
+    def map(self, mapper, nan_value=None, missing_value=None, default_value=None,
+            allow_missing=False, axis=None):
         """Each value through the dict ``mapper`` (numbers or strings, keys
-        and values); a value that is not a key gives a missing value."""
+        and values), as one ``_choose(_ordinal_values(...))`` on the pass
+        device (vaex_tpu/expression.py:311).  A value that is not a key gives
+        ``default_value``, as ``dict.get`` does (vaex_tpu's ``map`` gives a
+        missing value there: ROADMAP, known problems), and a missing value
+        without one; NaN that is not a key gives ``nan_value`` where given,
+        a missing value gives ``missing_value`` where given, else it stays
+        missing.  ``allow_missing`` and ``axis`` are the reference's and
+        change nothing: a value that is not a key never raises."""
         items = list(mapper.items())
         if self.df.data_type(self.expression).numpy == np.uint64 and all(
                 isinstance(k, (int, np.integer)) and not isinstance(k, bool) for k, _ in items):
@@ -313,16 +321,38 @@ class Expression(metaclass=Meta):
             keys = np.array([int(k) for k, _ in items], dtype=np.uint64)
         else:
             keys = _host_values([k for k, _ in items])
-        values = _host_values([v for _, v in items])
+        extras = [v for v in (default_value, nan_value, missing_value) if v is not None]
+        values = _host_values([v for _, v in items] + extras)[:len(items)]
         oset = _set_of(keys)
-        # the choices in ordinal order of the keys
-        choices = np.zeros(oset.count, dtype=values.dtype) if values.dtype != object else (
-            np.full(oset.count, "", dtype=object))
-        choices[np.asarray(oset.map_ordinal(keys), np.int64)] = values
+        ordinals = np.asarray(oset.map_ordinal(keys), np.int64) if items else None
+        # a NaN slot for nan_value; a null slot for missing_value, or where a
+        # default would otherwise take the missing rows (their ordinal is -1
+        # without one): with no missing_value its choice lies past the table,
+        # which gives a missing value
+        if nan_value is not None and not oset.has_nan:
+            oset.nan_count = 1
+        if (missing_value is not None or default_value is not None) and not oset.has_null:
+            oset.null_count = 1
+        # the choices in ordinal order of the keys, after the default's own
+        # slot 0 where a default is given (the ordinals then shift by one)
+        shift = int(default_value is not None)
+        size = oset.count + shift - int(oset.has_null and missing_value is None)
+        choices = np.zeros(size, dtype=values.dtype) if values.dtype != object else (
+            np.full(size, "", dtype=object))
+        if shift:
+            choices[0] = default_value
+        if nan_value is not None:
+            choices[oset.nan_ordinal + shift] = nan_value
+        if missing_value is not None:
+            choices[oset.null_ordinal + shift] = missing_value
+        if items:  # the mapper's own NaN key before nan_value
+            choices[ordinals + shift] = values
         set_var = self.df.add_variable("map_set", oset, unique=True)
         choices_var = self.df.add_variable("map_choices", choices, unique=True)
-        return Expression(
-            self.df, f"_choose(_ordinal_values({self.expression}, {set_var}), {choices_var})")
+        codes = f"_ordinal_values({self.expression}, {set_var})"
+        if shift:
+            codes = f"({codes} + 1)"
+        return Expression(self.df, f"_choose({codes}, {choices_var})")
 
 
 def _as_unsigned(values):

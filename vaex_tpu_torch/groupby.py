@@ -657,7 +657,11 @@ class GroupBy:
         return columns
 
     def _sorted(self, df):
-        return df.sort(self.by_names, ascending=self.ascending) if self.sort else df
+        """The result sorted by its key columns, read by position: the frame
+        renames a key that is not a name (an expression) on entry."""
+        if not self.sort:
+            return df
+        return df.sort(list(df.dataset)[:len(self.by_names)], ascending=self.ascending)
 
 
 def _shuffle_plan(df, parsed):

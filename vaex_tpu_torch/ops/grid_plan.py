@@ -21,6 +21,12 @@ grid size G and the channel count C (count + int columns + float columns):
 * ``sort`` past that (:mod:`.grid_sort`: a scatter of every row straight into
   the grid, any G, any N).  So the plan names a route for every (N, G, C).
 
+Every kernel takes at most ``MAX_COLS`` (32) columns a call: a batch of more
+(a PCA's covariance over eight features is 52 means, each a sum and a
+count) goes as calls of at most ``MAX_COLS`` columns, the count with the
+first, each through the plan, its strategy their routes joined by "+"
+(``"b1+b1+b1+b1"``).
+
 The cut-offs were measured on an NVIDIA H100 80GB HBM3 at its 700 W limit,
 1e8 uniform keys (``scripts/sweep_grid_kernels.py``; PERF.md, section 6).
 B1 against B2 (``--b1``; count + f64, + int64 +
@@ -143,7 +149,7 @@ from __future__ import annotations
 import torch
 
 from . import grid_additive, grid_moments, grid_partition, grid_sort, grid_window
-from .grid_additive import n_channels
+from .grid_additive import MAX_COLS, n_channels
 
 B1, B2, B3, B4, B5 = "b1", "b2", "b3", "b4", "b5"
 B3_L2 = "b3-l2"
@@ -199,9 +205,25 @@ def _wide(n, G, C):
     return f"{B3}{SPLIT}{-(-C // width)}" if width else SORT
 
 
+def _column_parts(n_int, n_float, count):
+    """A batch of more than ``MAX_COLS`` columns (every kernel's limit) as
+    calls of at most ``MAX_COLS`` columns, ints first, the count with the
+    first call: [((int from, to), (float from, to), count)]."""
+    parts = []
+    for k in range(0, n_int + n_float, MAX_COLS):
+        end = min(k + MAX_COLS, n_int + n_float)
+        parts.append(((min(k, n_int), min(end, n_int)),
+                      (max(k - n_int, 0), max(end - n_int, 0)), bool(count) and k == 0))
+    return parts
+
+
 def strategy(n, G, n_int, n_float, count):
     """``b1``, ``b2``, ``b3-l2``, ``b3``, ``b3×k`` or ``sort`` for an n-row
-    call over G bins."""
+    call over G bins; past ``MAX_COLS`` columns the routes of its calls of
+    at most ``MAX_COLS`` columns, joined by "+" (:func:`_column_parts`)."""
+    if n_int + n_float > MAX_COLS:
+        return "+".join(strategy(n, G, i1 - i0, f1 - f0, c)
+                        for (i0, i1), (f0, f1), c in _column_parts(n_int, n_float, count))
     C = n_channels(n_int, n_float, count)
     if C < 1 or G < 1:
         raise ValueError(f"nothing to add: G={G}, no columns and no count")
@@ -263,6 +285,24 @@ def _empty(idx, G, dtype):
     return torch.zeros((0, G), dtype=dtype, device=idx.device)
 
 
+def _column_sums(idx, int_cols, float_cols, G, count, out):
+    """(int sums, float sums) of a batch past ``MAX_COLS`` columns, a call
+    through the plan for each of :func:`_column_parts`."""
+    int_rows, float_rows = [], []
+    first = int(bool(count))  # the count's row, before the int columns'
+    for (i0, i1), (f0, f1), c in _column_parts(len(int_cols), len(float_cols), count):
+        rows = None if out is None else (
+            (list(out[0][:first]) if c else []) + list(out[0][first + i0:first + i1]),
+            list(out[1][f0:f1]))
+        _, ints, floats = grid_sums(idx, int_cols[i0:i1], float_cols[f0:f1], G, c, rows)
+        int_rows += list(ints)
+        float_rows += list(floats)
+    if out is not None:
+        return int_rows, float_rows
+    return (torch.stack(int_rows) if int_rows else _empty(idx, G, torch.int64),
+            torch.stack(float_rows) if float_rows else _empty(idx, G, torch.float64))
+
+
 def grid_sums(idx, int_cols, float_cols, G, count, out=None):
     """(strategy, int_sums, float_sums) through the route the plan picks;
     ``out`` (int rows, float rows: per channel, the count first, a [G] int64
@@ -270,6 +310,8 @@ def grid_sums(idx, int_cols, float_cols, G, count, out=None):
     sums come back as lists of those rows (the tile's own where None)."""
     G = int(G)
     name = strategy(idx.shape[0], G, len(int_cols), len(float_cols), count)
+    if len(int_cols) + len(float_cols) > MAX_COLS:
+        return (name, *_column_sums(idx, int_cols, float_cols, G, count, out))
     if name in (B1, B2):
         int_sums, float_sums = KERNELS[name](idx, int_cols, float_cols, G, count)
         return (name, _added(None if out is None else out[0], int_sums),
