@@ -44,7 +44,11 @@ Run from the root of the repository on a machine with a CUDA card.  It
    on a Zipf(1.1) draw, its parts asserted; then B4's lane route at G = 1
    (also without an index), 103 and its last G for var and corr (both
    compiled sets) on f64, f32 and int64 bases starting at an odd row, the
-   route asserted, floats bit-equal run to run;
+   route asserted, floats bit-equal run to run; then shifted moments: B4 at
+   G = 1 (no index) and 103 and B5 at 10 609, var and corr, with a shift
+   per base in device memory against the plain versions with the same
+   shift, on f64 and f32 bases at offsets 1e6 and 1e8 and int64 bases near
+   2^62 and across a span past 2^63;
 6. drives the main path through the public API: a device-resident table
    of N = 1e8 and 4e8 rows (int64 key with K = 100 categories, float64
    value, made on the card from seed 42), categorize, then
@@ -237,10 +241,12 @@ Run from the root of the repository on a machine with a CUDA card.  It
     2's frame (phase 16, 1e8 rows) with i categorized, through state_write
     and state_load onto a fresh frame over the same tensors, its statistics
     equal to the original's bit for bit (B1, B4 launched); (2) the 1e6-key
-    set grouper (phase 11) and q10 (phase 17) twice under cache.memory():
-    the second run's set build or sort does not run, both runs agree and
-    are right, and under cache.off() both do the work; cache.clear() frees
-    the device LRU's bytes on the card; (3) config 1's groupby at 2^24-row
+    set grouper (phase 11) and q10 (phase 17) twice under cache.memory()
+    and under cache.off(): a card tensor has no exact key, so both runs
+    build or sort, agree and are right, then a unique over the 1e6-key
+    column's first 1e7 rows as a host array, whose set the second run
+    takes from the device LRU; cache.clear() frees the LRU's bytes on the
+    card; (3) config 1's groupby at 2^24-row
     tiles with a progress callback (fractions rising to 1.0) and one that
     cancels after two tiles (UserAbort, B1 launched twice), then right
     again; (4) at 1e7 rows (cut from 1e8: every row crosses to the host and
@@ -365,6 +371,17 @@ Run from the root of the repository on a machine with a CUDA card.  It
     RiverModel(OnlineSGDRegressor)'s predict) and sklearn's Predictor at
     1e6 where sklearn is installed (its absence printed by name); it
     prints its own JSON line, the phase's time and the whole script's time.
+27. repairs of silent wrong answers at 1e8 rows made on the card: config
+    1's key written through ``.data`` (no version bump) and its unique
+    again under cache.memory(), right; the mean of x62 = 2^62 + [0, 8)
+    (int64) on the frame, binned and per group; the std of x62 and of y =
+    N(0, 1) + 1e8 on the frame and binned at G = 103 (B4), corr(y, z) per
+    group of a key of 10 607 values (B5), cov([y, z]), each against plain
+    torch over the centred data (means 1e-12, the rest 1e-6 relative), B4
+    and B5 asserted launched; then in one call B4 (var, G = 103) and B5
+    (corr, G = 10 609) shifted beside unshifted, and df.std(y), config 2's
+    group and H2O q4 beside the old channels (no shift, an int mean's sum
+    as int64), in turns; it prints its own JSON line.
 
     python3 chip_smoke.py --profile 20 21 22 23
 
@@ -462,13 +479,20 @@ def additive_floats_ok(plain, idx, float_cols, G, got_f, want_f, counts):
     return within_sum_bound(got_f, want_f, abs_sums, counts)
 
 
-def moment_sums_ok(plain, idx, bases, terms, G, got, want):
+def moment_sums_ok(plain, idx, bases, terms, G, got, want, shift=None):
     """B5's term sums against the plain version's, within the bound of
-    :func:`within_sum_bound`: a term's |value| is its product of |base|, so
-    the plain version over |bases| sums |term|; every float term of the
-    var and corr sets counts the rows of the first count term."""
-    _, abs_sums = plain(idx, [b.abs() for b in bases], terms, G)
+    :func:`within_sum_bound`: a term's |value| is its product of |base -
+    shift|, so the plain version over those sums |term|; every float term of
+    the var and corr sets counts the rows of the first count term."""
+    from vaex_tpu_torch.ops.grid_moments import shift_values, shifted
+    centred = [shifted(b, s).abs() for b, s in zip(bases, shift_values(bases, shift))]
+    _, abs_sums = plain(idx, centred, terms, G)
     return within_sum_bound(got[1], want[1], abs_sums, want[0][0])
+
+
+def first_valid(bases):
+    """Each base's first finite value, as a pass's moment shift takes it."""
+    return [b[torch.isfinite(b.to(torch.float64)).to(torch.uint8).argmax()] for b in bases]
 
 
 def card():
@@ -781,6 +805,72 @@ def moment_kernels_vs_plain(plan, gm, agg):
                 del idx, x, y, bases
     worst[plan.B5] = max(worst[plan.B5], window_edges_vs_plain(gm, agg, gen))
     worst[plan.B4] = max(worst[plan.B4], b4_routes_vs_plain(gm, agg, gen))
+    for name, err in shifted_moments_vs_plain(plan, gm, agg, gen).items():
+        worst[name] = max(worst[name], err)
+    return worst
+
+
+# shifted moments (phase 5): (base dtype, offset); an int64 offset "span"
+# puts half the values near -2^62 and half near 2^62, a span past 2^63
+SHIFT_CASES = ((torch.float64, 1e6), (torch.float64, 1e8), (torch.float32, 1e6),
+               (torch.float32, 1e8), (torch.int64, 2 ** 62), (torch.int64, "span"))
+
+
+def shifted_bases(nb, dtype, offset, n, gen):
+    """(nb bases of ``dtype`` near ``offset``, NaN in every 97th row of a
+    float one, and the shift of each: the offset, 2^62 for "span")."""
+    bases, shift = [], []
+    for j in range(nb):
+        if dtype == torch.int64:
+            b = torch.randint(-1000, 1000, (n,), generator=gen, device="cuda")
+            if offset == "span":
+                sign = torch.randint(0, 2, (n,), generator=gen, device="cuda") * 2 - 1
+                b = b + sign * 2 ** 62
+            else:
+                b = b + offset
+            shift.append(2 ** 62)
+        else:
+            b = (torch.randn(n, generator=gen, device="cuda", dtype=torch.float64) * (j + 1)
+                 + offset).to(dtype)
+            b[j::97] = float("nan")
+            shift.append(offset)
+        bases.append(b)
+    return bases, shift
+
+
+def shifted_moments_vs_plain(plan, gm, agg, gen, n=1_000_003):
+    """Phase 5, shifted moments: B4 at G = 1 without an index and at 103,
+    B5 at G = 10 609, var and corr, with a shift per base (in device
+    memory) against their plain versions with the same shift, on f64 and
+    f32 bases at offsets 1e6 and 1e8 and int64 bases near 2^62 and across
+    a span past 2^63; counts exact, B4's floats to RTOL, B5's within the
+    bound of unordered summation over |base - shift|.  Returns the worst
+    float error per kernel."""
+    worst = {plan.B4: 0.0, plan.B5: 0.0}
+    idx = {G: torch.randint(-1, G + 2, (n,), generator=gen, device="cuda", dtype=torch.int32)
+           for G in (103, 10_609)}
+    for label, terms in (("var", agg.VAR_TERMS), ("corr", agg.CORR_TERMS)):
+        nb = len(terms) // 3
+        for dtype, offset in SHIFT_CASES:
+            bases, shift = shifted_bases(nb, dtype, offset, n, gen)
+            for name, G in ((plan.B4, 1), (plan.B4, 103), (plan.B5, 10_609)):
+                rows = idx.get(G)
+                got = plan.MOMENT_KERNELS[name](rows, bases, terms, G, shift)
+                want = plan.MOMENT_PLAIN[name](rows, bases, terms, G, shift)
+                torch.cuda.synchronize()
+                what = f"shifted {name} {label} G={G} {dtype} at {offset}"
+                check(torch.equal(got[0], want[0]), f"counts, {what}")
+                if name == plan.B5:
+                    check(moment_sums_ok(plan.MOMENT_PLAIN[name], rows, bases, terms, G, got,
+                                         want, shift),
+                          f"sums within the bound of unordered summation, {what}")
+                else:
+                    check(torch.allclose(got[1], want[1], rtol=RTOL, atol=ATOL), f"sums, {what}")
+                err = (got[1] - want[1]).abs().max().item()
+                worst[name] = max(worst[name], err)
+                print(f"{what} N={n} vs plain: counts exact, f64 max abs err {err!r}",
+                      flush=True)
+            del bases
     return worst
 
 
@@ -1232,7 +1322,8 @@ def library_moments_ms(idx, bases, terms, G, gm):
 
 def stats_timings(df, cols, vt, plan, agg, gm, label):
     """Phase 9 for the statistics: query medians and B4/B5 kernel times at
-    the shapes of std by id4 (G = 103, v3) and q9 (G = 10 609, v1 and v2)."""
+    the shapes of std by id4 (G = 103, v3) and q9 (G = 10 609, v1 and v2),
+    each base shifted by its first valid value as a pass shifts it."""
     plain = stats_plain(cols)
     for name, query in stats_queries(vt).items():
         plain_med, plain_s = median_s(plain[name])
@@ -1258,14 +1349,14 @@ def stats_timings(df, cols, vt, plan, agg, gm, label):
         name = label.split()[0]
         check(plan.moment_strategy(H2O_ROWS, G, len(terms), 1, gm.compiled(len(bases), terms))
               == name, f"{name} at G={G}")
-        args = (idx, bases, terms, G)
+        args = (idx, bases, terms, G, first_valid(bases))
         kernel_ms = cuda_ms(lambda: plan.MOMENT_KERNELS[name](*args), 5)
         plain_ms = cuda_ms(lambda: plan.MOMENT_PLAIN[name](*args), 2)
         got = plan.MOMENT_KERNELS[name](*args)
         want = plan.MOMENT_PLAIN[name](*args)
         check(torch.equal(got[0], want[0]), f"{name} counts at the query shape")
         if name == plan.B5:
-            check(moment_sums_ok(plan.MOMENT_PLAIN[name], *args, got, want),
+            check(moment_sums_ok(plan.MOMENT_PLAIN[name], *args[:4], got, want, args[4]),
                   f"{name} sums within the bound of unordered summation")
         else:
             check(torch.allclose(got[1], want[1], rtol=RTOL, atol=ATOL), f"{name} sums")
@@ -3333,13 +3424,11 @@ def phase20_plain(cols, name, k6=PHASE20_K6):
             if e == "u":
                 image = t ^ TOP_BIT
                 lo, hi = (_unsigned(v ^ TOP_BIT) for v in torch.aminmax(image))
-                total = _unsigned(t.sum())
                 w = torch.where(t < 0, t.to(torch.float64) + 2.0 ** 64, t.to(torch.float64))
             else:
                 lo, hi = (v.item() for v in torch.aminmax(t))
-                total = t.sum().item()
                 w = t.to(torch.float64)
-            out[e] = {"count": n, "total": total, "abs": float(w.abs().sum()),
+            out[e] = {"count": n, "abs": float(w.abs().sum()),
                       "sum": float(w.sum()), "squares": float((w * w).sum()), "min": lo,
                       "max": hi}
         return out
@@ -3438,11 +3527,8 @@ def phase20_check(name, got, want):
             kind = type(w["min"])
             check(kind(got["min"][k]) == w["min"] and kind(got["max"][k]) == w["max"],
                   f"{what} {e}: min {got['min'][k]!r}, max {got['max'][k]!r}")
-            if isinstance(w["total"], int):  # an int sum is exact (mod 2^64): its float / n
-                mean = float(w["total"]) / n_
-                ok = abs(got["mean"][k] - mean) <= 2.0 ** -50 * abs(mean)
-            else:
-                ok = abs(got["mean"][k] - w["sum"] / n_) <= _mean_error(n_, w["sum"], w["abs"])
+            # every mean adds in float64, an int one too (its int64 sum would wrap)
+            ok = abs(got["mean"][k] - w["sum"] / n_) <= _mean_error(n_, w["sum"], w["abs"])
             check(ok, f"{what} {e}: mean {got['mean'][k]!r}")
             var, var_bound = _std_error(n_, w["sum"], w["abs"], w["squares"])
             check(abs(got["std"][k] ** 2 - var) <= var_bound, f"{what} {e}: std within the bound")
@@ -4327,7 +4413,9 @@ def phase22_path(vt, plan, gp, probe, label, n=PHASE22_ROWS, n_host=PHASE22_HOST
 
     def set_check(out):
         sets_check("set k1e6", out, set_plain())
-    for on, want_builds in ((False, [1, 1]), (True, [1, 0])):
+    # a card tensor has no exact key (cache.py): the cache keeps nothing of
+    # these frames, on or off, and each run builds again
+    for on, want_builds in ((False, [1, 1]), (True, [1, 1])):
         results, builds = phase22_twice(sets_df, set_query, "set-create", cache_on=on)
         phase22_cache_check(f"set k1e6 ({'memory' if on else 'off'})", results, builds,
                             want_builds, set_check)
@@ -4340,11 +4428,19 @@ def phase22_path(vt, plan, gp, probe, label, n=PHASE22_ROWS, n_host=PHASE22_HOST
 
     def q10_check(out):
         config3_check("q10", out, q10_plain(), "cuda")
-    for on, want_builds in ((False, [1, 1]), (True, [1, 0])):
+    for on, want_builds in ((False, [1, 1]), (True, [1, 1])):
         results, builds = phase22_twice(df3, q10, "one-sort", cache_on=on)
         phase22_cache_check(f"q10 ({'memory' if on else 'off'})", results, builds,
                             want_builds, q10_check)
         del results
+    # a frame of host arrays is keyed by their bytes: its set, kept on the
+    # card, serves the second run from the device LRU
+    host_keys = sets_cols["k1e6"][:PHASE22_HOST_ROWS].cpu().numpy()
+    host_df = vt.from_arrays(k=host_keys)
+    results, builds = phase22_twice(host_df, lambda df: df.unique("k"), "set-create")
+    check(builds == [1, 0] and results[0] == results[1] == sorted(np.unique(host_keys).tolist()),
+          f"phase 22 cache of a host frame: builds {builds}")
+    del results
     gc.collect()
     torch.cuda.synchronize()
     held, before = cache.device_backend.nbytes, torch.cuda.memory_allocated()
@@ -4360,9 +4456,10 @@ def phase22_path(vt, plan, gp, probe, label, n=PHASE22_ROWS, n_host=PHASE22_HOST
         with cache.off():
             miss_s, _ = median_s(lambda: query(df_))
         cache.clear()
-        record["cache"][name] = {"hit_ms": hit_s * 1e3, "miss_ms": miss_s * 1e3}
-        print(f"[{label}] phase 22 cache {name}: hit {hit_s * 1e3!r} ms, miss (cache off) "
-              f"{miss_s * 1e3!r} ms, reps {REPS}", flush=True)
+        record["cache"][name] = {"repeat_ms": hit_s * 1e3, "miss_ms": miss_s * 1e3}
+        print(f"[{label}] phase 22 cache {name}: repeated with the cache on {hit_s * 1e3!r} ms "
+              f"(no exact key: its pass), cache off {miss_s * 1e3!r} ms, reps {REPS}",
+              flush=True)
     del sets_df, sets_cols, df3, cols3, h2o_cols
     gc.collect()
     torch.cuda.empty_cache()
@@ -6830,6 +6927,230 @@ def profile_phases(vt, phases, label):
             shutil.rmtree(tmp, ignore_errors=True)
 
 
+PHASE27_ROWS = 100_000_000
+PHASE27_G2 = 10_607  # a key whose groups put corr on B5 (G = 10 609 with the edges)
+PHASE27_RTOL = 1e-6  # the float contract, against plain torch over the centred data
+
+
+def phase27_columns(n, device, seed=SEED):
+    """Config 1's key i1 in [0, K) and value x, and at the same rows y =
+    N(0, 1) + 1e8, z = y / 2 + N(0, 1) + 1e6 (float64), x62 = 2^62 + [0, 8)
+    (int64), g a key in [0, 103) and g2 one in [0, PHASE27_G2)."""
+    gen = torch.Generator(device=device).manual_seed(seed + 27)
+    e = torch.randn(n, generator=gen, device=device, dtype=torch.float64)
+    return {"i1": torch.randint(0, K, (n,), generator=gen, device=device),
+            "x": torch.rand(n, generator=gen, device=device, dtype=torch.float64),
+            "y": e + 1e8,
+            "z": e / 2 + torch.randn(n, generator=gen, device=device, dtype=torch.float64)
+            + 1e6,
+            "x62": torch.randint(0, 8, (n,), generator=gen, device=device) + 2 ** 62,
+            "g": torch.randint(0, 103, (n,), generator=gen, device=device),
+            "g2": torch.randint(0, PHASE27_G2, (n,), generator=gen, device=device)}
+
+
+def phase27_frame(vt, cols):
+    return vt.from_dataset(vt.DatasetArrays(cols))
+
+
+def phase27_check(name, got, want, rtol=PHASE27_RTOL):
+    """``got`` equal to ``want`` (both float arrays, NaN alike) within
+    ``rtol`` relative, or exactly (rtol 0)."""
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    same = (got.shape == want.shape and bool(np.all((np.abs(got - want) <= rtol * np.abs(want))
+                                                    | (np.isnan(got) & np.isnan(want)))))
+    check(same, f"phase 27 {name}: {got.ravel()[:4]} against {want.ravel()[:4]}")
+
+
+def phase27_plain(cols):
+    """The answers of :func:`phase27_drive` in plain torch over the centred
+    data (y - 1e8, z - 1e6 and x62 - 2^62 are exact), sharing no code with
+    the port; per group of g2 NaN where a group has no row."""
+    cy, cz = cols["y"] - 1e8, cols["z"] - 1e6
+    c62 = (cols["x62"] - 2 ** 62).to(torch.float64)
+    n, g, g2 = cols["y"].shape[0], cols["g"], cols["g2"]
+
+    def sums(key, G, values):
+        return torch.zeros(G, dtype=torch.float64, device=key.device).index_add_(0, key, values)
+    cnt = torch.bincount(g, minlength=103).to(torch.float64)
+    mean_y = sums(g, 103, cy) / cnt
+    n2 = torch.bincount(g2, minlength=PHASE27_G2).to(torch.float64)
+    a, b = sums(g2, PHASE27_G2, cy) / n2, sums(g2, PHASE27_G2, cz) / n2
+    cov2 = sums(g2, PHASE27_G2, cy * cz) / n2 - a * b
+    var_a = sums(g2, PHASE27_G2, cy * cy) / n2 - a * a
+    var_b = sums(g2, PHASE27_G2, cz * cz) / n2 - b * b
+    return {
+        "unique": torch.unique(cols["i1"]).tolist(),
+        "mean x62": float(cols["x62"].to(torch.float64).sum()) / n,
+        "mean x62 by g": (sums(g, 103, cols["x62"].to(torch.float64)) / cnt).cpu().numpy(),
+        "std x62": float(c62.std(unbiased=False)),
+        "std y": float(cy.std(unbiased=False)),
+        "std y by g": torch.sqrt(sums(g, 103, cy * cy) / cnt - mean_y ** 2).cpu().numpy(),
+        "corr by g2": (cov2 / torch.sqrt(var_a * var_b)).cpu().numpy(),
+        "cov": torch.cov(torch.stack([cy, cz]), correction=0).cpu().numpy(),
+    }
+
+
+def phase27_drive(vt, df, cols, write=True):
+    """C17-C19 through the public API: the unique of i1 before and after a
+    write through ``.data`` (which bumps no version counter), the mean of
+    x62 (2^62 + [0, 8)) on the frame, binned by g and per group, its std
+    (exact: within 1e-6 of the centred data's), the std of y (1e8 away from
+    zero) on the frame and binned (B4), corr(y, z) per group of g2 (B5) and
+    cov([y, z]), each checked against plain torch over the centred data.
+    Returns the strategies the moments took."""
+    from vaex_tpu_torch import cache
+    with cache.memory():
+        before = df.unique("i1")
+        check(before == torch.unique(cols["i1"]).tolist(), "phase 27 unique before the write")
+        if write:
+            cols["i1"].data[5] = K + 7  # no version bump
+        got = df.unique("i1")
+    want = phase27_plain(cols)
+    check(got == want["unique"] and (K + 7 in got) == write,
+          f"phase 27 unique after a write through .data: {got[-3:]}")
+    limits = {"binby": "g", "limits": [-0.5, 102.5], "shape": 103}
+    phase27_check("mean x62", df.mean("x62"), want["mean x62"], 1e-12)
+    phase27_check("mean x62 by g", df.mean("x62", **limits), want["mean x62 by g"], 1e-12)
+    out = df.groupby("g", agg={"m": vt.agg.mean("x62")}, sort=True)
+    phase27_check("mean x62 per group", out["m"].values,
+                  want["mean x62 by g"][np.asarray(out["g"].values)], 1e-12)
+    phase27_check("std x62", df.std("x62"), want["std x62"])
+    phase27_check("std y", df.std("y"), want["std y"])
+    phase27_check("std y by g", df.std("y", **limits), want["std y by g"])
+    def last_strategies():  # of the last pass's aggregation tasks, merged
+        return {k: v for task in df.executor.trace_log[-1]["strategies"] for k, v in task.items()}
+    strategies = {"std by g": last_strategies()}
+    out = df.groupby("g2", agg={"r": vt.agg.corr("y", "z")}, sort=True)
+    strategies["corr by g2"] = last_strategies()
+    phase27_check("corr by g2", out["r"].values,
+                  want["corr by g2"][np.asarray(out["g2"].values)])
+    phase27_check("cov", df.cov(["y", "z"]), want["cov"])
+    return strategies
+
+
+class phase27_old_channels:
+    """The channels before shifted moments and float64 means, for timing
+    beside them: no shift (the kernels' null pointer) and an int mean's
+    sum as int64."""
+
+    def __enter__(self):
+        from vaex_tpu_torch import agg, tasks
+        self.saved = tasks.moment_shift, agg.OpSumFloat
+        tasks.moment_shift = lambda df, expression: None
+        agg.OpSumFloat = agg.OpSum
+        return self
+
+    def __exit__(self, *exc):
+        from vaex_tpu_torch import agg, tasks
+        tasks.moment_shift, agg.OpSumFloat = self.saved
+
+
+def phase27_turns(query):
+    """Median seconds of ``query`` with the new channels and with the old
+    ones (:class:`phase27_old_channels`), in turns new, old, old, new:
+    (new, old)."""
+    times = {"new": [], "old": []}
+    for which in ("new", "old", "old", "new"):
+        if which == "old":
+            with phase27_old_channels():
+                times[which] += median_s(query)[1]
+        else:
+            times[which] += median_s(query)[1]
+    return statistics.median(times["new"]), statistics.median(times["old"])
+
+
+def phase27_path(vt, plan, gp, probe, label, n=PHASE27_ROWS):
+    """Phase 27 on the card: :func:`phase27_drive` once at ``n`` rows with
+    the kernel counts set to 0 (B4 and B5 asserted launched, the std by g on
+    B4 and the corr by g2 on B5), then, in one call, B4 (var, G = 103) and
+    B5 (corr, G = 10 609) shifted beside unshifted, and ``df.std``, config
+    2's group and H2O q4 (its int means) beside the old channels, in turns;
+    the repeated unique of config 1's key with the cache on.  Returns
+    (launches, the phase's JSON record)."""
+    from vaex_tpu_torch import agg, cache
+    from vaex_tpu_torch.ops import grid_moments as gm
+    record = {"card": label, "rows": n}
+    cols = phase27_columns(n, "cuda")
+    df = phase27_frame(vt, cols)
+    zero_launches(plan, gp)
+    probe.probe.launches = probe.probe.wide_launches = 0
+    record["strategies"] = phase27_drive(vt, df, cols)
+    launches = {**launch_counts(plan, gp), "b6": probe.probe.launches,
+                "b6-wide": probe.probe.wide_launches}
+    check(launches[plan.B4] > 0 and launches[plan.B5] > 0,
+          f"phase 27: B4 and B5 launched {launches}")
+    check(record["strategies"]["std by g"].get("moments") == plan.B4
+          and record["strategies"]["corr by g2"].get("moments") == plan.B5,
+          f"phase 27 strategies {record['strategies']}")
+    print(f"phase 27 N={n}: unique after a .data write, int means, std / corr / cov far from "
+          f"zero equal plain torch over the centred data; launches {launches}", flush=True)
+
+    g = cols["g"].to(torch.int32)
+    g2 = (cols["g2"] + 1).to(torch.int32)
+    # each base's shift on the card, as a pass hands it over (first_valid)
+    kernels = {"b4 var G=103": (gm.grid_moments, g, [cols["y"]], agg.VAR_TERMS, 103),
+               "b5 corr G=10609": (gm.grid_moments_window, g2, [cols["y"], cols["z"]],
+                                   agg.CORR_TERMS, PHASE27_G2 + 2)}
+    record["kernels"] = {}
+    for name, (kernel, idx, bases, terms, G) in kernels.items():
+        shift = first_valid(bases)
+        shifted = unshifted = 0.0
+        for turn in range(4):  # shifted, unshifted, unshifted, shifted
+            if turn in (0, 3):
+                shifted += cuda_ms(lambda: kernel(idx, bases, terms, G, shift), 5) / 2
+            else:
+                unshifted += cuda_ms(lambda: kernel(idx, bases, terms, G), 5) / 2
+        record["kernels"][name] = {"shifted_ms": shifted, "unshifted_ms": unshifted}
+        print(f"[{label}] phase 27 {name} N={n}: shifted {shifted!r} ms, unshifted (null "
+              f"pointer) {unshifted!r} ms", flush=True)
+    del g, g2
+
+    with cache.off():
+        queries = {"df.std(y)": (df, lambda: df.std("y"))}
+        cols2 = config2_columns(n, "cuda")
+        df2 = config2_frame(vt, cols2)
+        queries["config 2 group"] = (df2, lambda: config2_group(df2))
+        cols3 = config3_columns(CONFIG3_ROWS, "cuda")
+        df3 = vt.from_dataset(vt.DatasetArrays(cols3))
+        q4 = config3_questions(vt)["q4"]
+        queries["H2O q4"] = (df3, lambda: q4(df3))
+        # q4's B1 call with v1 and v2 as int channels (the old int64 sums)
+        # beside int64-kind float channels (the new float64 sums), in turns
+        from vaex_tpu_torch.ops import grid_additive as ga
+        idx4 = cols3["id4"].to(torch.int32)
+        ints, three = [cols3["v1"], cols3["v2"]], [cols3["v1"], cols3["v2"], cols3["v3"]]
+        b1 = {"int channels": 0.0, "float channels": 0.0}
+        for turn in range(4):
+            if turn in (0, 3):
+                b1["float channels"] += cuda_ms(
+                    lambda: ga.grid_additive(idx4, [], three, 103, True), 5) / 2
+            else:
+                b1["int channels"] += cuda_ms(
+                    lambda: ga.grid_additive(idx4, ints, three[2:], 103, True), 5) / 2
+        record["kernels"]["b1 q4 channels"] = b1
+        print(f"[{label}] phase 27 B1 at q4's shape N={CONFIG3_ROWS}: v1, v2 as int64 "
+              f"channels {b1['int channels']!r} ms, as int64-kind float channels "
+              f"{b1['float channels']!r} ms", flush=True)
+        del idx4, ints, three
+        record["queries"] = {}
+        for name, (_, query) in queries.items():
+            new_s, old_s = phase27_turns(query)
+            record["queries"][name] = {"new_ms": new_s * 1e3, "old_ms": old_s * 1e3}
+            print(f"[{label}] phase 27 {name}: shifted moments / float64 means {new_s * 1e3!r} "
+                  f"ms, the old channels {old_s * 1e3!r} ms (medians of {REPS}, in turns)",
+                  flush=True)
+        del queries, df2, cols2, df3, cols3
+    with cache.memory():
+        repeat_s, _ = median_s(lambda: df.unique("i1"))
+    record["unique_repeat_ms"] = repeat_s * 1e3
+    print(f"[{label}] phase 27 unique(i1) N={n} repeated with the cache on (a card tensor: "
+          f"its pass each time): {repeat_s * 1e3!r} ms", flush=True)
+    del df, cols
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, record
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6963,6 +7284,9 @@ def main():
 
     phase26_launches, phase26 = phase26_path(vt, plan, gp, probe, label)
     print(json.dumps({"phase26": phase26}), flush=True)
+
+    phase27_launches, phase27 = phase27_path(vt, plan, gp, probe, label)
+    print(json.dumps({"phase27": phase27}), flush=True)
     print(f"[{label}] chip_smoke.py took {time.perf_counter() - T_START:.1f} s", flush=True)
 
     measured = {plan.B1: (main_launches[plan.B1], results[MAIN_SIZES[0]]),
@@ -7007,6 +7331,7 @@ def main():
         "phase24_launches": phase24_launches[name],
         "phase25_launches": phase25_launches[name],
         "phase26_launches": phase26_launches[name],
+        "phase27_launches": phase27_launches[name],
         **{key: value for key, value in m.items() if key in EXTRA_KEYS},
     } for name, (launches, m) in measured.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

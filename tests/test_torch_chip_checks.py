@@ -1247,3 +1247,38 @@ def test_phase26_lloyd_refuses_centroids_off_by_one_row(phase26):
     centroids[0] += np.abs(centroids[0]).max() / max(int(counts.max()), 1)
     with pytest.raises(RuntimeError, match="centroids"):
         chip_smoke.phase26_check("kmeans", dict(got, centroids=centroids), want)
+
+
+def test_the_phase27_drive_on_the_cpu():
+    """Phase 27 at a small size: a write through ``.data`` seen by the next
+    unique, int means, stds, corr and cov far from zero against plain
+    torch, the std by g on B4's plain version and the corr by g2 on B5's."""
+    cols = chip_smoke.phase27_columns(60_000, "cpu")
+    df = chip_smoke.phase27_frame(vaex_tpu_torch, cols)
+    strategies = chip_smoke.phase27_drive(vaex_tpu_torch, df, cols)
+    assert strategies["std by g"]["moments"] == "b4"
+    assert strategies["corr by g2"]["moments"] == "b5"
+    assert 100 + 7 in df.unique("i1")
+
+
+def test_the_phase27_checks_refuse_a_stale_unique(monkeypatch):
+    cols = chip_smoke.phase27_columns(5_000, "cpu")
+    df = chip_smoke.phase27_frame(vaex_tpu_torch, cols)
+    stale = torch.unique(cols["i1"]).tolist()
+    monkeypatch.setattr(type(df), "unique", lambda self, *args, **kwargs: list(stale))
+    with pytest.raises(RuntimeError, match="after a write through .data"):
+        chip_smoke.phase27_drive(vaex_tpu_torch, df, cols)
+    with pytest.raises(RuntimeError, match="phase 27 std"):
+        chip_smoke.phase27_check("std", [1.0], [1.0 + 2e-6])
+
+
+def test_the_phase27_old_channels_are_the_old_ones():
+    """The timing's old channels give the old answers: the wrapped int mean
+    and the raw-moment std far from zero."""
+    cols = chip_smoke.phase27_columns(5_000, "cpu")
+    df = chip_smoke.phase27_frame(vaex_tpu_torch, cols)
+    new_mean, new_std = float(df.mean("x62")), float(df.std("y"))
+    with chip_smoke.phase27_old_channels():
+        old_mean, old_std = float(df.mean("x62")), float(df.std("y"))
+    assert abs(old_mean - new_mean) > 1e18 and abs(old_std / new_std - 1) > 1e-3
+    assert float(df.mean("x62")) == new_mean

@@ -289,6 +289,90 @@ def test_moment_kernel_matches_plain(cuda, name, G, kind, n):
     npt.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(), rtol=1e-9, atol=1e-9)
 
 
+# shifted moments: (base dtype, offset); the int64 "span" puts half the
+# values near -2^62 and half near 2^62, a span past 2^63 (shift 2^62)
+SHIFTED = [(torch.float64, 1e6), (torch.float64, 1e8), (torch.float32, 1e6),
+           (torch.float32, 1e8), (torch.int64, 2 ** 62), (torch.int64, "span")]
+
+
+def _shifted_bases(nb, dtype, offset, n, g):
+    bases, shift = [], []
+    for j in range(nb):
+        if dtype == torch.int64:
+            b = torch.randint(-1000, 1000, (n,), generator=g, device="cuda")
+            if offset == "span":
+                b = b + (torch.randint(0, 2, (n,), generator=g, device="cuda") * 2 - 1) * 2 ** 62
+            else:
+                b = b + offset
+            shift.append(2 ** 62)
+        else:
+            b = (torch.randn(n, generator=g, device="cuda", dtype=torch.float64) * (j + 1)
+                 + offset).to(dtype)
+            b[j::97] = float("nan")
+            shift.append(offset)
+        bases.append(b)
+    return bases, shift
+
+
+@pytest.mark.parametrize("name,G", [("b4", 1), ("b4", 103), ("b5", 10_609)])
+@pytest.mark.parametrize("kind", ["var", "corr"])
+@pytest.mark.parametrize("case", range(len(SHIFTED)))
+def test_shifted_moment_kernel_matches_plain(cuda, name, G, kind, case):
+    """B4 and B5 with a shift per base (in device memory) against their
+    plain versions with the same shift: the kernel subtracts it in the
+    base's own type before the cast."""
+    kernel, plain = grid_plan.MOMENT_KERNELS[name], grid_plan.MOMENT_PLAIN[name]
+    dtype, offset = SHIFTED[case]
+    g = torch.Generator(device=cuda).manual_seed(case)
+    n = 300_007
+    idx = torch.randint(-1, G + 2, (n,), generator=g, device=cuda, dtype=torch.int32)
+    bases, shift = _shifted_bases(1 if kind == "var" else 2, dtype, offset, n, g)
+    terms = agg.VAR_TERMS if kind == "var" else agg.CORR_TERMS
+    before = kernel.launches
+    got = kernel(None if G == 1 else idx, bases, terms, G, shift)
+    assert kernel.launches == before + 1
+    want = plain(None if G == 1 else idx, bases, terms, G, shift)
+    torch.cuda.synchronize()
+    npt.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+    npt.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(), rtol=1e-9, atol=1e-9)
+
+
+def test_the_frame_on_the_card_repairs_the_silent_faults(cuda):
+    """The std of 2^62 and 2^62 + 7 is 3.5 and their mean numpy's; a unique
+    sees a write through ``.data`` to a card tensor (no exact key: no cache
+    hit)."""
+    x = (torch.tensor([0, 7], device=cuda).repeat(50_000) + 2 ** 62)
+    df = vaex_tpu_torch.from_dataset(vaex_tpu_torch.DatasetArrays({"x": x}))
+    assert float(df.std("x")) == 3.5
+    assert float(df.mean("x")) == float(np.mean(x.cpu().numpy()))
+    k = torch.arange(1000, device=cuda) % 7
+    df = vaex_tpu_torch.from_dataset(vaex_tpu_torch.DatasetArrays({"k": k}))
+    assert df.unique("k") == list(range(7))
+    k.data[3] = 100
+    assert df.unique("k") == [*range(7), 100]
+
+
+@pytest.mark.parametrize("route", ["b1", "b2", "b3", "b3-l2"])
+def test_an_int64_float_channel_matches_plain(cuda, route):
+    """An int64 column as a float channel (an int mean's sum in float64),
+    converted on load by B1, B2 and both routes of B3, beside an f64 and an
+    f32 column: the sums of ints below 2^53 are exact in any order."""
+    G = {"b1": 103, "b2": 10_609, "b3": 1_000_003, "b3-l2": 500_003}[route]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    n = 300_007
+    idx = torch.randint(-1, G + 2, (n,), generator=g, device=cuda, dtype=torch.int32)
+    ints = torch.randint(-10 ** 6, 10 ** 6, (n,), generator=g, device=cuda)
+    halves = (torch.randint(-8, 8, (n,), generator=g, device=cuda) / 2).to(torch.float64)
+    floats = [ints, halves, halves.to(torch.float32)]
+    kernel = {"b1": ga.grid_additive, "b2": gw.grid_window, "b3": gp.grid_partition,
+              "b3-l2": gp.grid_resident}[route]
+    got = kernel(idx, [], floats, G, True)
+    want = ga.grid_additive_reference(idx, [], floats, G, True)
+    torch.cuda.synchronize()
+    npt.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+    npt.assert_array_equal(got[1].cpu().numpy(), want[1].cpu().numpy())
+
+
 def test_b4_is_reproducible(cuda):
     """Bit-equal floats run to run on both routes of B4: var on the lane
     route at G = 1 and 103, corr on the warp route at G = 103."""
@@ -1396,22 +1480,27 @@ def _udf_scaled(x, k):
 
 
 def test_a_cache_hit_on_the_card(cuda):
-    """The set grouper of 1e5 keys twice: the second set build is served
-    from the device LRU; clearing it returns the card's memory."""
+    """The set grouper of 1e5 keys twice: over card tensors both runs build
+    the set (a card tensor has no exact key: a write through ``.data``
+    would not show in one); over the same keys as host arrays, whose
+    passes run on the card, the second set build is served from the
+    device LRU, and clearing it returns the card's memory."""
     from vaex_tpu_torch import cache
     cache.clear()
     g = torch.Generator(device=cuda).manual_seed(3)
     k = torch.randint(0, 10 ** 12, (2_000_000,), generator=g, device=cuda) % 100_003 * 1_000_003
-    df = vaex_tpu_torch.from_arrays(k=k, x=torch.ones(k.shape[0], dtype=torch.float64,
-                                                      device=cuda)).to_device(cuda)
+    x = torch.ones(k.shape[0], dtype=torch.float64, device=cuda)
+    card = vaex_tpu_torch.from_arrays(k=k, x=x).to_device(cuda)
+    host = vaex_tpu_torch.from_arrays(k=k.cpu().numpy(), x=x.cpu().numpy())
     with cache.memory():
-        first = df.groupby("k").agg("count")
-        tasks = [e["tasks"] for e in df.executor.trace_log[-2:]]
-        assert tasks[0] == ["set-create"]
-        n = len(df.executor.trace_log)
-        second = df.groupby("k").agg("count")
-        assert [e["tasks"] for e in df.executor.trace_log[n:]] == [["aggregations"]]
-        assert second["count"].tolist() == first["count"].tolist()
+        for df, hit in ((card, False), (host, True)):
+            first = df.groupby("k").agg("count")
+            tasks = [e["tasks"] for e in df.executor.trace_log[-2:]]
+            assert tasks[0] == ["set-create"]
+            n = len(df.executor.trace_log)
+            second = df.groupby("k").agg("count")
+            assert ([e["tasks"] for e in df.executor.trace_log[n:]] == [["aggregations"]]) == hit
+            assert second["count"].tolist() == first["count"].tolist()
     del first, second
     held = cache.device_backend.nbytes
     before = torch.cuda.memory_allocated()

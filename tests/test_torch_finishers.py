@@ -57,16 +57,28 @@ def test_cov(case):
     args, kwargs = COV_CASES[case]
     want, got = ref.cov(*args, **kwargs), port.cov(*args, **kwargs)
     assert got.shape == np.shape(want)
+    if case == "list":
+        # iv's variance (values near 2^40): numpy's, where vaex_tpu's raw
+        # means cancel to a negative variance (vaex_tpu/dataframe.py:1060-1081;
+        # ROADMAP, known problems of the reference)
+        var_iv = np.var(ref.evaluate("iv").astype(np.float64))
+        assert want[3, 3] < 0
+        _close(got[3, 3], var_iv)
+        want = np.array(want)
+        want[3, 3] = got[3, 3]
     _close(got, want)
 
 
 def test_cov_is_one_pass_of_the_additive_kernels():
+    """One pass; since shifted moments, of the moment kernels alone: the
+    var and covar ops of the three bases, no product column and no
+    additive channel."""
     _, port = _frames()
     passes = port.executor.passes
     port.cov(["y", "z", "v"], binby="k", limits=[-0.5, 19.5], shape=20)
     assert port.executor.passes == passes + 1
     [strategy] = port.executor.trace_log[-1]["strategies"]
-    assert set(strategy) == {"additive"}  # sums and counts only, no moments
+    assert set(strategy) == {"moments"}
 
 
 MODE_CASES = {
@@ -127,6 +139,12 @@ def test_describe(selection):
     want, got = ref.describe(selection=selection), port.describe(selection=selection)
     assert list(got.columns) == list(want.columns) == DESCRIBE_COLUMNS
     assert list(got.index) == list(want.index)
+    # the uint64 column's mean: numpy's, where vaex_tpu divides a wrapped
+    # int64 sum (vaex_tpu/agg.py:1077-1085; ROADMAP, known problems)
+    u = ref.evaluate("u", selection=selection)
+    assert abs(float(want["u"]["mean"]) - np.mean(u)) > 1e15
+    _close(got["u"]["mean"], np.mean(u))
+    want.loc["mean", "u"] = got["u"]["mean"]
     for name in DESCRIBE_COLUMNS:
         for row in ("data_type", "count", "NA", "min", "max"):
             assert got[name][row] == want[name][row], (name, row)

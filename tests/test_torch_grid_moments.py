@@ -36,7 +36,7 @@ from vaex_tpu_torch.ops import grid_partition as gp
 from vaex_tpu_torch.ops import grid_plan, kernel_build
 from vaex_tpu_torch.ops import grid_window as gw
 from vaex_tpu_torch.ops.nullable import NA
-from vaex_tpu_torch.tasks import moment_base
+from vaex_tpu_torch.tasks import moment_input
 
 
 @pytest.fixture
@@ -122,7 +122,7 @@ def test_reference_matches_numpy(plain, G):
     mask = rng.random(n) < 0.1
     d = np.ma.MaskedArray(rng.normal(5, 1, n), mask)
     bases = [torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c),
-             moment_base(NA(torch.from_numpy(d.data), torch.from_numpy(mask)))]
+             moment_input(NA(torch.from_numpy(d.data), torch.from_numpy(mask)))[0]]
     assert bases[3].dtype == torch.float64 and torch.isnan(bases[3][torch.from_numpy(mask)]).all()
     terms = [(0, -1, -1, -1), (0, 1, -1, -1), (-1, -1, 0, 1), (2, 2, 3, -1), (-1, -1, -1, -1),
              (3, -1, 2, 0), (1, 3, -1, -1), (-1, -1, 3, -1)]

@@ -13,6 +13,7 @@ KMeans's centroids and inertia rtol 1e-9.
 """
 
 import numpy as np
+import pandas as pd
 import numpy.testing as npt
 import pytest
 import torch
@@ -28,11 +29,15 @@ N = 600
 def ml_arrays(seed=3, n=N):
     """x, y float64; k an int64 key in 0..5; cat strings of four labels (one
     with a space); xm a masked float64 (10% masked); km a masked int64 key;
-    target 0 / 1 from x; w float64."""
+    target 0 / 1 from x; w float64; catn strings of three labels with nulls
+    (10%)."""
     rng = np.random.default_rng(seed)
     x = rng.normal(0, 3, n)
     cat = np.asarray(["a", "b", "c", "d e"], dtype=object)[rng.integers(0, 4, n)]
+    catn = np.asarray(["p", "q", "r"], dtype=object)[rng.integers(0, 3, n)]
+    catn[rng.random(n) < 0.1] = None
     return {
+        "catn": catn,
         "x": x,
         "y": x ** 2 + rng.normal(0, 1, n),
         "k": rng.integers(0, 6, n).astype(np.int64),
@@ -104,6 +109,7 @@ TRANSFORMERS = {
     "one_hot_encoder": ("OneHotEncoder", {"features": ["cat", "k"]}, ["uniques_"]),
     "one_hot_encoder_masked": ("OneHotEncoder", {"features": ["km"], "one": 1.0, "zero": -1.0},
                                ["uniques_"]),
+    "one_hot_encoder_string_null": ("OneHotEncoder", {"features": ["catn"]}, ["uniques_"]),
     "multi_hot_encoder": ("MultiHotEncoder", {"features": ["cat"]}, ["uniques_"]),
     "frequency_encoder": ("FrequencyEncoder", {"features": ["cat", "k", "km"]}, ["mappings_"]),
     "cycle_transformer": ("CycleTransformer", {"features": ["k"], "n": 6}, []),
@@ -151,14 +157,48 @@ def _same_state(t_ref, t_port, keys):
             _same_value(s_port[key], s_ref[key])
 
 
-def _same_columns(ref, port, out_ref, out_port, signs=None):
+# the cases held to pandas, not vaex_tpu: a masked number's missing row is
+# missing in every value column of vaex_tpu's OneHotEncoder (its ``where``
+# on a missing comparison; ROADMAP, known problems of the reference), zero
+# in pandas' get_dummies(dummy_na=True)
+PANDAS_CASES = {"one_hot_encoder_masked"}
+
+
+def _pandas_one_hot(series, feature, one, zero):
+    """Per column name the values of pandas' one-hot encoding of
+    ``series``: ``<feature>_<value>``, and ``<feature>_missing`` for the
+    missing rows."""
+    dummies = pd.get_dummies(series, dummy_na=True)
+    return {f"{feature}_{'missing' if pd.isna(v) else v}":
+            np.where(dummies[v].to_numpy(), one, zero).astype(np.float64) for v in dummies}
+
+
+def _want_columns(name, out_ref, new):
+    """The expected values of the columns ``new`` of case ``name``:
+    vaex_tpu's, or pandas' for the :data:`PANDAS_CASES`."""
+    if name not in PANDAS_CASES:
+        return {c: _column(out_ref, c) for c in new}
+    _, kwargs, _ = TRANSFORMERS[name]
+    [feature] = kwargs["features"]
+    km = ml_arrays()[feature]
+    series = pd.Series(km.data).astype("Int64").mask(np.ma.getmaskarray(km))
+    want = _pandas_one_hot(series, feature, kwargs["one"], kwargs["zero"])
+    for c in new:  # the reference's fault: missing in the value columns
+        if not c.endswith("_missing"):
+            assert np.isnan(_column(out_ref, c)[np.ma.getmaskarray(km)]).all(), c
+    return want
+
+
+def _same_columns(ref, port, out_ref, out_port, signs=None, name=None):
     """The columns a transform added: the same names and values (a PCA
-    column up to its eigenvector's sign)."""
+    column up to its eigenvector's sign), those of a case of
+    :data:`PANDAS_CASES` held to pandas."""
     new = [c for c in out_ref.get_column_names() if c not in ref.get_column_names()]
     assert new and [c for c in out_port.get_column_names()
                     if c not in port.get_column_names()] == new
+    wants = _want_columns(name, out_ref, new)
     for c in new:
-        got, want = _column(out_port, c), _column(out_ref, c)
+        got, want = _column(out_port, c), wants[c]
         if signs is not None and c.startswith("PCA_"):
             got = got * signs[int(c[4:])]
         npt.assert_allclose(got, want, rtol=RTOL, atol=ATOL, err_msg=c)
@@ -178,7 +218,7 @@ def test_transformed_columns_equal_vaex_tpu(frames, name):
     signs = None
     if "eigen_vectors_" in keys:
         _, signs = _aligned_vectors(t_port.eigen_vectors_, t_ref.eigen_vectors_)
-    _same_columns(ref, port, t_ref.transform(ref), t_port.transform(port), signs)
+    _same_columns(ref, port, t_ref.transform(ref), t_port.transform(port), signs, name)
 
 
 @pytest.mark.parametrize("name", list(TRANSFORMERS))
@@ -190,7 +230,7 @@ def test_state_fitted_in_vaex_tpu_transforms_a_port_frame(frames, name):
     cls, kwargs, _ = TRANSFORMERS[name]
     t_ref = getattr(vaex_tpu.ml, cls)(**kwargs).fit(ref)
     t_port = getattr(vaex_tpu_torch.ml, cls)().state_set(t_ref.state_get())
-    _same_columns(ref, port, t_ref.transform(ref), t_port.transform(port))
+    _same_columns(ref, port, t_ref.transform(ref), t_port.transform(port), name=name)
 
 
 @pytest.mark.parametrize("name", list(TRANSFORMERS))
@@ -825,10 +865,11 @@ def test_groupby_sorts_by_an_expression_key(on_cpu):
 
 def test_a_batch_past_32_columns_goes_in_calls_of_32(on_cpu, monkeypatch):
     """Every grid kernel takes at most 32 columns a call; a PCA of eight
-    features is one pass of 52 means (a sum and a count each), which the
+    features was one pass of 52 means (a sum and a count each), which the
     plan gave to B2 whole and B2 refused on the card.  Now the batch goes
     in calls of at most 32 columns, the count with the first, each through
-    the plan, with the sums of the batch in one call."""
+    the plan, with the sums of the batch in one call; the PCA's fit is one
+    pass of its eight means (B1) and its covariance's moments (B4)."""
     from vaex_tpu_torch.ops import grid_additive, grid_plan
     assert grid_plan.strategy(10 ** 6, 1, 52, 52, False) == "b1+b1+b1+b1"
     assert grid_plan.strategy(10 ** 6, 1, 0, 40, True) == "b1+b1"
@@ -857,4 +898,4 @@ def test_a_batch_past_32_columns_goes_in_calls_of_32(on_cpu, monkeypatch):
                                           for d in range(8)})
     vaex_tpu_torch.ml.PCA(features=[f"x{d}" for d in range(8)]).fit(frame)
     assert widths[-1][0] + widths[-1][1] <= 32
-    assert "b1+b1" in str(frame.executor.trace_log[-1]["strategies"])
+    assert frame.executor.trace_log[-1]["strategies"] == [{"additive": "b1", "moments": "b4"}]

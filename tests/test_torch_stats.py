@@ -91,7 +91,12 @@ def test_covar_and_correlation_match_vaex_tpu():
         _close(port.correlation(x, y), ref.correlation(x, y))
         _close(port.correlation(x, y, binby=["k"]), ref.correlation(x, y, binby=["k"]))
     _close(port.covar("x", "y", binby=["k"]), ref.covar("x", "y", binby=["k"]))
-    _close(port.correlation(["x", "y", "iv"]), ref.correlation(["x", "y", "iv"]))
+    got, want = port.correlation(["x", "y", "iv"]), ref.correlation(["x", "y", "iv"])
+    # iv with itself (values near 2^40): 1, where vaex_tpu's raw moments
+    # cancel (vaex_tpu/agg.py:1114; ROADMAP, known problems of the reference)
+    assert abs(want[2, 2] - 1) > 0.5
+    want[2, 2] = 1.0
+    _close(got, want)
 
 
 def _aggs(pkg, kind):
@@ -303,9 +308,9 @@ def test_statistic_without_binby_passes_b4_no_index(monkeypatch, how, indexed):
     from vaex_tpu_torch.ops import grid_plan
     b4, seen = grid_plan.MOMENT_KERNELS["b4"], []
 
-    def spy(idx, bases, terms, G):
+    def spy(idx, bases, terms, G, shift=None):
         seen.append(idx is not None)
-        return b4(idx, bases, terms, G)
+        return b4(idx, bases, terms, G, shift)
     monkeypatch.setitem(grid_plan.MOMENT_KERNELS, "b4", spy)
     ref, port = _frames(_h2o(23, n=20_000), {"id4": 100})
     kw = {"selection": "v1 > 2"} if how == "selection" else {}

@@ -4,9 +4,12 @@ frames.
 
 A uint64 column is an int64 tensor of the same bits with its dtype in
 ``dataset.logical``; its sum adds the bits mod 2^64, its min / max and its
-sets compare the order image ``bits ^ (1 << 63)``, its mean divides the
-unsigned float of the sum.  Values past 2^63 and the largest uint64 are in
-every frame.  Every result is exact, a mean to 1e-6 relative.
+sets compare the order image ``bits ^ (1 << 63)``, its mean adds the
+unsigned floats of the values in float64, as numpy's does.  Values past
+2^63 and the largest uint64 are in every frame.  Every result is exact, a
+mean to 1e-6 relative of numpy's: vaex_tpu divides the unsigned float of
+its wrapped int64 sum (vaex_tpu/agg.py:1077-1085; ROADMAP, known problems
+of the reference), which the tests pin where the sum wraps.
 """
 
 import functools
@@ -43,6 +46,13 @@ def _frames():
 
 
 COLUMNS = ["u", "w", "um", "u16", "u32"]
+WRAPS = {"u", "w", "um"}  # uint64 columns whose int64 sum wraps
+
+
+def _numpy_mean(values):
+    """numpy's mean of a (masked) unsigned column: float64 additions."""
+    values = np.ma.asarray(values)
+    return np.mean(values.compressed().astype(np.float64)) if values.size else np.nan
 
 
 @pytest.mark.parametrize("stat", ["sum", "min", "max", "count", "mean", "minmax"])
@@ -52,18 +62,21 @@ def test_statistic(column, stat):
     want, got = getattr(ref, stat)(column), getattr(port, stat)(column)
     assert np.asarray(got).dtype == np.asarray(want).dtype
     if stat == "mean":
-        npt.assert_allclose(got, want, rtol=RTOL)
+        mean = _numpy_mean(_arrays()[column])
+        npt.assert_allclose(got, mean, rtol=RTOL)
+        assert (abs(float(want) / mean - 1) > 1e-3) == (column in WRAPS)
     else:
         npt.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
 def test_sum_wraps_mod_2_64():
     """1 + (2^63 + 5) + (2^64 - 1) is 9223372036854775813 mod 2^64, and the
-    mean divides the unsigned sum."""
-    ref, port = same_frames({"u": np.array([1, 2 ** 63 + 5, 2 ** 64 - 1], dtype=np.uint64)})
+    mean adds the values in float64 (vaex_tpu divides the wrapped sum)."""
+    values = np.array([1, 2 ** 63 + 5, 2 ** 64 - 1], dtype=np.uint64)
+    ref, port = same_frames({"u": values})
     assert int(port.sum("u")) == int(ref.sum("u")) == 9223372036854775813
-    npt.assert_allclose(port.mean("u"), 9223372036854775813 / 3, rtol=1e-15)
-    npt.assert_allclose(port.mean("u"), ref.mean("u"), rtol=1e-15)
+    npt.assert_allclose(port.mean("u"), np.mean(values), rtol=1e-15)
+    npt.assert_allclose(ref.mean("u"), 9223372036854775813 / 3, rtol=1e-15)
 
 
 @pytest.mark.parametrize("stat", ["sum", "min", "max", "mean", "count"])
@@ -74,7 +87,8 @@ def test_binned_statistic(column, stat):
     want, got = getattr(ref, stat)(column, **kwargs), getattr(port, stat)(column, **kwargs)
     assert got.dtype == np.asarray(want).dtype
     if stat == "mean":
-        npt.assert_allclose(got, want, rtol=RTOL)
+        values, k = np.ma.asarray(_arrays()[column]), _arrays()["k"]
+        npt.assert_allclose(got, [_numpy_mean(values[k == b]) for b in range(12)], rtol=RTOL)
     else:
         npt.assert_array_equal(got, np.asarray(want))
 
@@ -107,7 +121,11 @@ def test_groupby_aggregates_of_uint64_values():
                 "me": pkg.agg.mean("w"), "nu": pkg.agg.nunique("u")}
     want = ref.groupby("k", agg=spec(vaex_tpu), sort=True)
     got = port.groupby("k", agg=spec(vaex_tpu_torch), sort=True)
-    assert_same_frame(want, got)
+    names = ["k", "s", "mx", "mn", "nu"]  # the mean of w: numpy's, per group
+    assert_same_frame(want[names], got[names])
+    w, k = _arrays()["w"], _arrays()["k"]
+    npt.assert_allclose(got["me"].values, [_numpy_mean(w[k == g]) for g in range(12)],
+                        rtol=RTOL)
     for name in ("s", "mx", "mn"):
         assert got.evaluate(name).dtype == np.uint64
 

@@ -28,6 +28,7 @@ import numpy as _np
 
 from . import agg  # noqa: F401
 from . import cache  # noqa: F401
+from . import progress  # noqa: F401
 from . import parallel  # noqa: F401  (vaex_tpu_torch.parallel.data_mesh, ...)
 from . import functions as _functions  # noqa: F401  (populates the namespace)
 from . import settings  # noqa: F401
@@ -37,7 +38,7 @@ from .dataframe import DataFrame, register_dataframe_accessor  # noqa: F401
 from .dataset import Dataset, DatasetArrays  # noqa: F401
 from .delayed import delayed  # noqa: F401
 from .expression import Expression  # noqa: F401
-from .groupby import BinnerTime  # noqa: F401
+from .groupby import BinnerTime, Grouper, GrouperCategory  # noqa: F401
 from .ops.setops import RowLimitException  # noqa: F401
 from .registry import register_function  # noqa: F401
 # the accessors df.geo, df.astro, df.viz, df.graphql, df.widget and expr.struct

@@ -35,8 +35,8 @@ percentiles are float64.  ``datetime64`` and
 viewed back (:func:`view_logical`); NaT never wins.  Unsigned columns
 travel as int64 too: their sums add the bits mod 2^64, which is the uint64
 sum; the min / max of a uint64 column compare its order image
-(``bits ^ (1 << 63)``, :func:`~.datatype.order_image`) and its mean divides
-the unsigned float of the sum.  The nunique ops (:class:`OpNUniquePresence`,
+(``bits ^ (1 << 63)``, :func:`~.datatype.order_image`) and its mean adds
+the unsigned floats of the values.  The nunique ops (:class:`OpNUniquePresence`,
 :class:`OpNUniqueSorted`) count distinct set ordinals per cell.
 """
 
@@ -187,15 +187,22 @@ class OpCountValid(OpCount):
 
 
 class OpSumFloat(OpSum):
-    """A float64 sum of a temporal column's counts, NaT left out: a mean's
-    sum, which an int64 sum of nanosecond timestamps would overflow."""
+    """A float64 sum: a mean's sum of an integer, unsigned, bool or temporal
+    column (NaT left out), added in float64 as numpy's mean adds, where an
+    int64 sum would wrap mod 2^64; uint64 bits enter as their unsigned
+    float."""
 
     def initial_state(self, G, device, rows):
         return torch.zeros(G, dtype=torch.float64, device=device)
 
     def kernel_input(self, ctx):
-        kind, d = super().kernel_input(ctx)
-        return ("float", d.to(torch.float64))
+        x = ctx.expr(self.expressions[0])
+        if x.logical == UINT64:
+            d = unsigned_float(x.data)
+            return ("float", d if x.mask is None else d.masked_fill(x.mask, 0.0))
+        # an int64 column goes to the kernel as it is: a float channel of
+        # int64 kind, converted on load (ops/grid_additive.py)
+        return ("float", super().kernel_input(ctx)[1])
 
 
 def _is_temporal(x):
@@ -241,9 +248,11 @@ class OpMoments(AggOperation):
     name = "moments"
     kind = "moments"
 
-    def __init__(self, expressions, terms):
+    def __init__(self, expressions, terms, shifts=None):
         super().__init__(expressions)
         self.terms = [tuple(t) for t in terms]
+        # per expression the 0-d shift its base is read less (None: none)
+        self.shifts = None if shifts is None else list(shifts)
         self.n_count = len([t for t in self.terms if t[0] < 0])
 
     def initial_state(self, G, device, rows):
@@ -923,7 +932,9 @@ class AggregatorDescriptorTopK(AggregatorDescriptor):
 
 
 class AggregatorDescriptorMean(AggregatorDescriptor):
-    """mean = sum / count; empty cells are NaN.  The mean of a datetime64 or
+    """mean = sum / count; empty cells are NaN.  The sum of any column that
+    is not a float one adds in float64 (:class:`OpSumFloat`), as numpy's
+    mean does: an int64 sum would wrap.  The mean of a datetime64 or
     timedelta64 column leaves its NaT rows out and is of its dtype, the
     float mean of its counts truncated as numpy's (an empty cell NaT);
     with ``as_float`` it stays that float."""
@@ -937,21 +948,17 @@ class AggregatorDescriptorMean(AggregatorDescriptor):
         return dtype.numpy if dtype.is_temporal and not self.as_float else None
 
     def add_tasks(self, df, binners):
-        temporal = self._input_dtype(df).is_temporal
-        [sum_task] = AggregatorDescriptorBasic("sum", self.expression,
-                                               OpSumFloat if temporal else OpSum,
+        op = OpSum if self._input_dtype(df).numpy.kind == "f" else OpSumFloat
+        [sum_task] = AggregatorDescriptorBasic("sum", self.expression, op,
                                                self.selection).add_tasks(df, binners)
         [count_task] = AggregatorDescriptorBasic("count", self.expression, OpCountValid,
                                                  self.selection).add_tasks(df, binners)
 
-        unsigned = self._input_dtype(df).is_unsigned
-
         @delayed
         def finish(s, c):
-            # torch divides int64 by int64 in float32: divide in float64; an
-            # unsigned sum is the uint64 of its bits
-            total = unsigned_float(s) if unsigned else s.to(torch.float64)
-            mean = total / c.to(torch.float64)
+            # a float64 sum over a float64 count (torch divides int64 by
+            # int64 in float32)
+            mean = s.to(torch.float64) / c.to(torch.float64)
             return torch.where(c > 0, mean, torch.nan)
         return [finish(sum_task, count_task)]
 
@@ -965,12 +972,18 @@ CORR_TERMS = COVAR_TERMS + [(0, 0, 1, -1), (1, 1, 0, -1)]
 
 
 def _moments(df, binners, expressions, terms, selection=None):
-    op = OpMoments(expressions, terms)
+    """The moment op of ``expressions``, each base shifted by its
+    :func:`.tasks.moment_shift`: the finishers below take shifted sums."""
+    from .tasks import moment_shift
+    op = OpMoments(expressions, terms, [moment_shift(df, e) for e in expressions])
     return df.executor.schedule_aggregation(df, binners, op, selection)
 
 
 class AggregatorDescriptorVar(AggregatorDescriptor):
-    """var/std via raw moments E[x^2] - E[x]^2 (vaex_tpu/agg.py:1089-1121)."""
+    """var/std from shifted moments: with u = x - a (a the base's shift), var
+    = (sum u^2 - (sum u)^2 / n) / n, which does not cancel where x is far
+    from zero, as E[x^2] - E[x]^2 of raw moments does (vaex_tpu/agg.py:1114,
+    a fault of the reference)."""
 
     def __init__(self, expression, std=False, ddof=0, selection=None, edges=False):
         super().__init__("std" if std else "var", expression, selection, edges)
@@ -987,20 +1000,31 @@ class AggregatorDescriptorVar(AggregatorDescriptor):
         @delayed
         def finish(r):
             (n,), (m1, m2) = r
-            n = n.to(torch.float64)
-            mean = m1 / n
-            # E[x^2] >= E[x]^2: clamp the rounding residue (NaN stays NaN)
-            var = m2 / n - mean ** 2
-            var = torch.maximum(var, torch.zeros_like(var))
+            var = variance(m2, m1, n.to(torch.float64))
             if ddof:
                 var = torch.where(n > ddof, var * n / (n - ddof), torch.nan)
             return torch.sqrt(var) if std else var
         return [finish(moments)]
 
 
+def central(mxy, mx, my, n):
+    """The central moment of shifted sums: (sum uv - sum u sum v / n) / n
+    for u = x - a, v = y - b; the same for any shifts a and b."""
+    return (mxy - mx * my / n) / n
+
+
+def variance(m2, m1, n):
+    """var from the shifted sums m1 = sum u, m2 = sum u^2 of n rows: (m2 -
+    m1^2 / n) / n, and 0 where that is within the rounding bound of the
+    sums (2 n eps m2; a constant cell, whose u need not be 0), so that a
+    constant operand has no variance; NaN stays NaN."""
+    s = m2 - m1 * m1 / n
+    return torch.where(s <= 2 * n * torch.finfo(torch.float64).eps * m2, 0.0, s) / n
+
+
 class AggregatorDescriptorCovar(AggregatorDescriptor):
-    """Per-cell covariance E[xy] - E[x]E[y] over the rows where both x and y
-    are valid (vaex_tpu/agg.py:1124-1164)."""
+    """Per-cell covariance over the rows where both x and y are valid
+    (vaex_tpu/agg.py:1124-1164), from shifted moments (:func:`central`)."""
 
     def __init__(self, x, y, selection=None, edges=False, ddof=0):
         super().__init__("covar", x, selection, edges)
@@ -1021,7 +1045,7 @@ class AggregatorDescriptorCovar(AggregatorDescriptor):
         def finish(r):
             (c,), (mxy, mx, my) = r
             c = c.to(torch.float64)
-            cov = mxy / c - (mx / c) * (my / c)
+            cov = central(mxy, mx, my, c)
             if ddof:
                 cov = cov * c / (c - ddof)
             return cov
@@ -1043,10 +1067,9 @@ class AggregatorDescriptorCorr(AggregatorDescriptorCovar):
         def finish(r):
             (c,), (mxy, mx, my, mxx, myy) = r
             c = c.to(torch.float64)
-            ex, ey = mx / c, my / c
-            cov = mxy / c - ex * ey
-            vx = mxx / c - ex ** 2
-            vy = myy / c - ey ** 2
+            cov = central(mxy, mx, my, c)
+            vx = variance(mxx, mx, c)
+            vy = variance(myy, my, c)
             r = cov / torch.sqrt(vx * vy)
             # a constant operand has no variance: NaN, not a 0-division's inf
             return torch.where(torch.isfinite(r), r, torch.nan)

@@ -7,12 +7,24 @@ build, a filter's mask and a join's probe are; the one-sort groupby keeps
 its result frames here too (:mod:`.fused_groupby`).
 
 The frame key is exact, never a sample (:meth:`.dataframe.DataFrame._cache_key`):
-a tensor column is named by its identity and its version counter
-(:func:`.column.column_key`), which sees an in-place write without reading
-a byte; a host array by a hash of all its bytes.  A key that names a
-tensor by its identity means nothing in another process, so it is no
-``content`` key (:class:`Key`), and the disk and redis levels never hold
-one.
+a host array and a CPU tensor are named by a hash of all their bytes
+(:func:`.column.column_key`, :func:`.utils.tensor_key`), a file's column by
+the file's identity.  A tensor's identity and version counter are no exact
+key: a write through ``.numpy()``, ``.data``, a numpy array that shares its
+memory or a DLPack peer (CuPy, JAX) changes its values and bumps no version.
+A card tensor has no exact key, and a frame that reads one is left out of
+the cache: its set builds, filter masks, join probes and one-sort results
+are computed again on every query.  Hashing its bytes on the card would
+cost one read of every column the query reads; leaving it out costs the
+whole pass, and nothing can serve a stale answer.  On an NVIDIA H100 80GB
+HBM3 at 700 W (``chip_smoke.py`` phase 22, under the old identity key) a
+hit served the H2O table's q10 at 1e8 rows in 0.342 ms against its pass's
+59.09 ms, and a 1e6-key set grouper in 8.611 ms against 32.19 ms; phase 27
+times a repeated ``unique`` over config 1's table at 1e8 rows, which now
+runs its pass.  A key that
+names an object by its identity (a set, a function) means nothing in
+another process, so it is no ``content`` key (:class:`Key`), and the disk
+and redis levels never hold one.
 
 Backends (vaex_tpu/cache.py:155-269): an unbounded dict (``"memory"``, the
 default, ``settings.CACHE``), a byte-bounded LRU (``"memory_lru"``), pickle

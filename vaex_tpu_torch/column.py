@@ -741,17 +741,18 @@ def column_fingerprint(col):
 
 
 def column_key(col):
-    """(an exact key of a column's values, whether it is a content key):
-    a tensor by its identity and version (:func:`.utils.tensor_key`: no
-    content key), a host array by a hash of all its bytes, an arrow array
-    by all its buffers, a lazy column by its parts.  Unlike
-    :func:`column_fingerprint` it never samples.  A column read from a file
-    gives the key :func:`keyed` gave it, and reads nothing."""
+    """(an exact key of a column's values, whether it is a content key), or
+    (None, False) where there is none: a CPU tensor or a host array by a
+    hash of all its bytes (:func:`.utils.tensor_key`), a card tensor none,
+    an arrow array by all its buffers, a lazy column by its parts (none
+    where a part has none).  Unlike :func:`column_fingerprint` it never
+    samples.  A column read from a file gives the key :func:`keyed` gave
+    it, and reads nothing."""
     known = registered_key(col)
     if known is not None:
         return known
     if isinstance(col, torch.Tensor):
-        return tensor_key(col), False
+        return tensor_key(col)
     if isinstance(col, (np.ndarray, np.ma.MaskedArray)):
         return ("array", hash_array_data(col)), True
     if isinstance(col, ColumnString):
@@ -771,7 +772,9 @@ def column_key(col):
         parts, fixed = col.key_parts()
     else:  # an object no content hash covers: its identity
         return ("object", identity(col)), False
-    keys = [(None, True) if p is None else column_key(p) for p in parts]
+    keys = [("none", True) if p is None else column_key(p) for p in parts]
+    if any(k is None for k, _ in keys):
+        return None, False
     return (type(col).__name__, fixed, [k for k, _ in keys]), all(c for _, c in keys)
 
 

@@ -187,8 +187,13 @@ lane_partials(const int* __restrict__ idx, long long n, int G, int count, Column
                 const long long* col = (const long long*)cols.ptr[k];
 #pragma unroll
                 for (int u = 0; u < U; ++u) v[u] = (unsigned long long)__ldg(col + r[u]);
-            } else if (cols.is_f32[k]) {
+            } else if (cols.fkind[k] == FLOAT_F32) {
                 const float* col = (const float*)cols.ptr[k];
+#pragma unroll
+                for (int u = 0; u < U; ++u)
+                    v[u] = __double_as_longlong((double)__ldg(col + r[u]));
+            } else if (cols.fkind[k] == FLOAT_I64) {
+                const long long* col = (const long long*)cols.ptr[k];
 #pragma unroll
                 for (int u = 0; u < U; ++u)
                     v[u] = __double_as_longlong((double)__ldg(col + r[u]));
@@ -258,13 +263,14 @@ int grid_additive_lane_unroll(void) { return LANE_UNROLL; }
 // Launches both kernels on `stream`; returns cudaGetLastError() (0 on
 // success), or -1 when the arguments do not fit the kernel.
 //   int_cols / float_cols: HOST arrays of device pointers;
-//   float_is_f32: HOST array, one flag per float column;
+//   float_kinds: HOST array, one kind per float column (FLOAT_F64, FLOAT_F32
+//     or FLOAT_I64: an int64 column summed as float64);
 //   scratch: device [n_ctas, C, G] 8-byte words, C = count + n_int + n_float.
 //   lane: the lane route (n < 2^32), else the warp route with `unroll` (1
 //     or UNROLL) rows per lane and warp step.
 int grid_additive_run(const int* idx, long long n, int G, int count,
                       const void* const* int_cols, int n_int,
-                      const void* const* float_cols, const int* float_is_f32, int n_float,
+                      const void* const* float_cols, const int* float_kinds, int n_float,
                       int n_ctas, int warps, int lane, int unroll,
                       unsigned long long* scratch, long long* out_int, double* out_float,
                       void* stream) {
@@ -272,7 +278,7 @@ int grid_additive_run(const int* idx, long long n, int G, int count,
     if (G < 1 || C < 1 || n_int + n_float > MAX_COLS || warps < 1 || warps > 32 ||
         n_ctas < 1 || n < 0 || (!lane && unroll != 1 && unroll != UNROLL))
         return -1;
-    const Columns cols = make_columns(int_cols, n_int, float_cols, float_is_f32, n_float);
+    const Columns cols = make_columns(int_cols, n_int, float_cols, float_kinds, n_float);
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t e;
     if (lane) {

@@ -32,23 +32,30 @@
 #define MAX_COLS 32
 #define FULL_MASK 0xffffffffu
 
+// The kinds of a float column (Columns::fkind, the wrappers' float_kinds):
+// each is summed in float64; an int64 one is converted on load (a mean's
+// sum, which an int64 sum would wrap)
+#define FLOAT_F64 0
+#define FLOAT_F32 1
+#define FLOAT_I64 2
+
 struct Columns {
     const void* ptr[MAX_COLS];  // n_int int64 columns, then n_float float columns
-    int is_f32[MAX_COLS];       // float columns only: 1 for float32, 0 for float64
+    int fkind[MAX_COLS];        // float columns only: FLOAT_F64, FLOAT_F32 or FLOAT_I64
 };
 
 // Host side: the column table from HOST arrays of device pointers.
 static inline Columns make_columns(const void* const* int_cols, int n_int,
-                                   const void* const* float_cols, const int* float_is_f32,
+                                   const void* const* float_cols, const int* float_kinds,
                                    int n_float) {
     Columns cols;
     for (int k = 0; k < n_int; ++k) {
         cols.ptr[k] = int_cols[k];
-        cols.is_f32[k] = 0;
+        cols.fkind[k] = 0;
     }
     for (int k = 0; k < n_float; ++k) {
         cols.ptr[n_int + k] = float_cols[k];
-        cols.is_f32[n_int + k] = float_is_f32[k];
+        cols.fkind[n_int + k] = float_kinds[k];
     }
     return cols;
 }
@@ -61,9 +68,18 @@ static inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
                                 (int)smem);
 }
 
-__device__ __forceinline__ double load_float(const void* col, int is_f32, long long r) {
-    double v = is_f32 ? (double)__ldg((const float*)col + r) : __ldg((const double*)col + r);
+__device__ __forceinline__ double load_float(const void* col, int kind, long long r) {
+    double v = kind == FLOAT_F32   ? (double)__ldg((const float*)col + r)
+               : kind == FLOAT_I64 ? (double)__ldg((const long long*)col + r)
+                                   : __ldg((const double*)col + r);
     return v != v ? 0.0 : v;  // NaN adds nothing
+}
+
+// The value of a float column's row staged as an 8-byte word.
+__device__ __forceinline__ double staged_float(const unsigned long long* w, int kind) {
+    return kind == FLOAT_F32   ? (double)*reinterpret_cast<const float*>(w)
+           : kind == FLOAT_I64 ? (double)*reinterpret_cast<const long long*>(w)
+                               : *reinterpret_cast<const double*>(w);
 }
 
 // Rows a warp takes per step and lane, at most: the loads of UNROLL rows
@@ -122,7 +138,7 @@ __device__ __forceinline__ void warp_add(const int (&b)[U], const long long (&r)
         }
         double* stage_f = reinterpret_cast<double*>(stage);
         for (int k = 0; k < n_float; ++k) {
-            stage_f[lane] = bin >= 0 ? load_float(cols.ptr[n_int + k], cols.is_f32[n_int + k], r[0])
+            stage_f[lane] = bin >= 0 ? load_float(cols.ptr[n_int + k], cols.fkind[n_int + k], r[0])
                                      : 0.0;
             __syncwarp();
             if (lead) {
@@ -136,7 +152,7 @@ __device__ __forceinline__ void warp_add(const int (&b)[U], const long long (&r)
     }
     const int n_cols = n_int + n_float;
     for (int k = 0; k < n_cols; ++k) {
-        const int bytes = (k >= n_int && cols.is_f32[k]) ? 4 : 8;
+        const int bytes = (k >= n_int && cols.fkind[k] == FLOAT_F32) ? 4 : 8;
 #pragma unroll
         for (int u = 0; u < U; ++u) {
             unsigned long long* slot = stage + (k * U + u) * 32 + lane;
@@ -162,12 +178,10 @@ __device__ __forceinline__ void warp_add(const int (&b)[U], const long long (&r)
             }
             for (int k = 0; k < n_float; ++k) {
                 const unsigned long long* row = stage + ((n_int + k) * U + u) * 32;
-                const bool f32 = cols.is_f32[n_int + k];
+                const int kind = cols.fkind[n_int + k];
                 double s = 0.0;
                 for (unsigned m = group; m; m &= m - 1) {
-                    const unsigned long long* w = row + __ffs(m) - 1;
-                    double v = f32 ? (double)*reinterpret_cast<const float*>(w)
-                                   : *reinterpret_cast<const double*>(w);
+                    const double v = staged_float(row + __ffs(m) - 1, kind);
                     s += v != v ? 0.0 : v;  // NaN adds nothing
                 }
                 grid_f[(size_t)k * W + b[u]] += s;

@@ -12,6 +12,11 @@
 // statistic reads: var(x) reads 8 bytes of x per row, where its three
 // formed columns would be 24 written and 24 read again.
 //
+// Every base is read less its shift (shifted moments, moments_common.cuh):
+// one word per base in device memory, read once by each thread, subtracted
+// in the base's own type before the cast to double, so var of values far
+// from zero keeps its digits.
+//
 // Two routes, which the wrapper picks by G and the terms
 // (ops/grid_moments.py:route).  Every addition of both happens in an order
 // fixed by the launch arguments and the card: float sums are reproducible
@@ -72,9 +77,10 @@ struct Rows {
 };
 
 // Issues the loads of rows hb + u * step, u < H, clamped to n - 1 (every
-// load is unconditional: a row past n adds nothing); the branch on a base's
-// kind is taken once for the H rows, and nothing here waits on a load.
-// Without IDX every row is in bin 0 and no idx is read.
+// load is unconditional: a row past n adds nothing), each base's raw value
+// (load_raw: shift_rows makes them values); the branch on a base's kind is
+// taken once for the H rows, and nothing here waits on a load.  Without
+// IDX every row is in bin 0 and no idx is read.
 template <int NB, int H, bool IDX = true>
 __device__ __forceinline__ void issue_rows(Rows<NB, H>& rows, const int* __restrict__ idx,
                                            const Bases& bases, long long n, long long hb,
@@ -97,11 +103,30 @@ __device__ __forceinline__ void issue_rows(Rows<NB, H>& rows, const int* __restr
         } else if (kind == BASE_I64) {
             const long long* p = (const long long*)bases.ptr[j];
 #pragma unroll
-            for (int u = 0; u < H; ++u) rows.v[u][j] = (double)__ldg(p + r[u]);
+            for (int u = 0; u < H; ++u) rows.v[u][j] = __longlong_as_double(__ldg(p + r[u]));
         } else {
             const double* p = (const double*)bases.ptr[j];
 #pragma unroll
             for (int u = 0; u < H; ++u) rows.v[u][j] = __ldg(p + r[u]);
+        }
+    }
+}
+
+// The raw values of issue_rows' H rows as values less each base's shift
+// word sh[j] (moments_common.cuh), once their loads are back; the branch on
+// a base's kind is taken once for the H rows.
+template <int NB, int H>
+__device__ __forceinline__ void shift_rows(Rows<NB, H>& rows, const Bases& bases,
+                                           const unsigned long long (&sh)[BASE_SLOTS(NB)]) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+        if (bases.kind[j] == BASE_I64) {
+#pragma unroll
+            for (int u = 0; u < H; ++u)
+                rows.v[u][j] = shifted_i64(__double_as_longlong(rows.v[u][j]), sh[j]);
+        } else {
+#pragma unroll
+            for (int u = 0; u < H; ++u) rows.v[u][j] = shifted_f(rows.v[u][j], sh[j]);
         }
     }
 }
@@ -132,6 +157,8 @@ __global__ void moment_partials(const int* __restrict__ idx, long long n, int G,
                     (size_t)warp * n_float * STAGE_ROWS;
 
     zero_smem(smem, (size_t)warps * ((size_t)C * G + (size_t)n_float * STAGE_ROWS));
+    unsigned long long sh[BASE_SLOTS(NB)];
+    load_shifts<NB>(bases, sh);
     __syncthreads();
 
     // a warp takes rows base + u * warp_step + lane, u < UNROLL
@@ -141,6 +168,7 @@ __global__ void moment_partials(const int* __restrict__ idx, long long n, int G,
         // every load of the UNROLL rows is issued before any is used
         Rows<NB, UNROLL> rows;
         issue_rows(rows, idx, bases, n, base + lane, warp_step);
+        shift_rows(rows, bases, sh);
         const auto& v = rows.v;
         int b[UNROLL];
         unsigned missing[UNROLL];
@@ -234,6 +262,8 @@ moment_lanes(const int* __restrict__ idx, long long n, int G, Bases bases, Terms
     const size_t plane = (size_t)G * 32;  // a term's lane grid
 
     zero_smem(smem, (size_t)warps * words);
+    unsigned long long sh[BASE_SLOTS(NB)];
+    load_shifts<NB>(bases, sh);
     __syncthreads();
 
     unsigned held_count = 0u;  // G1 and a compiled set: the lane's terms
@@ -241,8 +271,10 @@ moment_lanes(const int* __restrict__ idx, long long n, int G, Bases bases, Terms
 #pragma unroll
     for (int k = 0; k < NF; ++k) held[k] = 0.0;
 
-    // The rows [hb + u * step, u < H] of a half step into the lane's grid.
-    auto add = [&](const Rows<NB, H>& rows, long long hb, long long step) {
+    // The rows [hb + u * step, u < H] of a half step into the lane's grid
+    // (their loads issued a half step before).
+    auto add = [&](Rows<NB, H>& rows, long long hb, long long step) {
+        shift_rows(rows, bases, sh);
 #pragma unroll
         for (int u = 0; u < H; ++u) {
             const int b = rows.b[u];
@@ -356,6 +388,7 @@ int grid_moments_lane_rows(int nb) {
 //   idx: device [n] int32, or null on the lane route at G = 1: every row in
 //     bin 0;
 //   base_ptrs / base_kinds: HOST arrays, nb entries (BASE_F64/F32/I64);
+//   shift: DEVICE array of nb shift words (moments_common.cuh), or null;
 //   term_a / term_b / term_need: HOST arrays, n_count count terms, then
 //     n_float float terms;
 //   W: must equal G (the window kernel's argument, one window here);
@@ -366,7 +399,8 @@ int grid_moments_lane_rows(int nb) {
 //   scratch: device [n_ctas, C, G] 8-byte words, C = n_count + n_float;
 //   out_int [n_count, G] int64, out_float [n_float, G] float64.
 int grid_moments_run(const int* idx, long long n, int G, int W, const void* const* base_ptrs,
-                     const int* base_kinds, int nb, const int* term_a, const int* term_b,
+                     const int* base_kinds, int nb, const void* shift, const int* term_a,
+                     const int* term_b,
                      const unsigned* term_need, int n_count, int n_float, int n_ctas,
                      int warps, int lane, unsigned long long* scratch, long long* out_int,
                      double* out_float, void* stream) {
@@ -374,8 +408,8 @@ int grid_moments_run(const int* idx, long long n, int G, int W, const void* cons
     Terms terms;
     if (G < 1 || W != G || n < 0 || n_ctas < 1 || warps < 1 || warps > 32 ||
         (!idx && n > 0 && (G != 1 || !lane)) ||
-        !make_tables(base_ptrs, base_kinds, nb, term_a, term_b, term_need, n_count, n_float,
-                     &bases, &terms))
+        !make_tables(base_ptrs, base_kinds, nb, shift, term_a, term_b, term_need, n_count,
+                     n_float, &bases, &terms))
         return -1;
     const int C = n_count + n_float;
     size_t smem;

@@ -11,6 +11,8 @@
 // the term columns in registers from the base columns instead of reading
 // columns formed in device memory.
 //
+// Every base is read less its shift, as in B4 (moments_common.cuh).
+//
 // What bounds it on an H100: the shared-memory atomics, one per term and
 // row, and each part's walk over the rows.  A 32-bit add is native
 // (ATOMS.ADD); a double add is a compare-and-swap loop (ATOMS.CAST.SPIN.64),
@@ -120,6 +122,7 @@ template <int NB, int SET>
 __device__ __forceinline__ void walk_rows(const int* __restrict__ idx, long long lo, long long hi,
                                           long long first, long long step, int w0, int Wc,
                                           bool one_window, unsigned need, const Bases& bases,
+                                          const unsigned long long (&sh)[BASE_SLOTS(NB)],
                                           const Terms& terms, int n_count, int n_float, int t_lo,
                                           int t_hi, int W, unsigned* counts, double* sums) {
     const int lane = threadIdx.x & 31;
@@ -154,9 +157,17 @@ __device__ __forceinline__ void walk_rows(const int* __restrict__ idx, long long
             for (int j = 0; j < BASE_SLOTS(NB); ++j) {
                 v[u][j] = 0.0;
                 if (j < NB && (need >> j & 1u) && (one_window || key[u] >= 0))
-                    v[u][j] = load_base(bases.ptr[j], bases.kind[j],
-                                        min(base + u * step * 32 + lane, hi - 1));
+                    v[u][j] = load_raw(bases.ptr[j], bases.kind[j],
+                                       min(base + u * step * 32 + lane, hi - 1));
             }
+        }
+        // the raw values less their shifts, once every load is issued
+#pragma unroll
+        for (int u = 0; u < WALK_UNROLL; ++u) {
+#pragma unroll
+            for (int j = 0; j < NB; ++j)
+                if ((need >> j & 1u) && (one_window || key[u] >= 0))
+                    v[u][j] = shifted(v[u][j], bases.kind[j], sh[j]);
         }
 #pragma unroll
         for (int u = 0; u < WALK_UNROLL; ++u) {
@@ -221,11 +232,13 @@ moment_window_walk(const int* __restrict__ idx, long long n, int G, int W, int n
     const int w0 = win * W;
     const int Wc = min(W, G - w0);
     for (size_t j = threadIdx.x; j < part.words(W); j += blockDim.x) smem[j] = 0ull;
+    unsigned long long sh[BASE_SLOTS(NB)];
+    load_shifts<NB>(bases, sh);
     __syncthreads();
     const int warps = blockDim.x >> 5;
     walk_rows<NB, SET>(idx, 0, n, (long long)blockIdx.y * warps + (threadIdx.x >> 5),
                        (long long)gridDim.y * warps, w0, Wc, W >= G,
-                       part_bases(bases, terms, n_count, part.t_lo, part.t_hi), bases, terms,
+                       part_bases(bases, terms, n_count, part.t_lo, part.t_hi), bases, sh, terms,
                        n_count, n_float,
                        part.t_lo, part.t_hi, W, counts, sums);
     __syncthreads();
@@ -265,6 +278,7 @@ const char* grid_moments_window_error_string(int code) {
 //   term_row: HOST array, the output row of each term (a permutation of
 //     [0, C) that keeps the counts in [0, n_count));
 //   base_ptrs / base_kinds: HOST arrays, nb entries (BASE_F64/F32/I64);
+//   shift: DEVICE array of nb shift words (moments_common.cuh), or null;
 //   term_a / term_b / term_need: HOST arrays, n_count count terms, then
 //     n_float float terms;
 //   n_slices row slices of n_win * n_groups CTAs of `threads`;
@@ -272,7 +286,8 @@ const char* grid_moments_window_error_string(int code) {
 int grid_moments_window_run(const int* idx, long long n, int G, int W, int n_win,
                             const int* group_lo, int n_groups, const int* term_row,
                             const void* const* base_ptrs,
-                            const int* base_kinds, int nb, const int* term_a, const int* term_b,
+                            const int* base_kinds, int nb, const void* shift,
+                            const int* term_a, const int* term_b,
                             const unsigned* term_need, int n_count, int n_float, int n_slices,
                             int threads, unsigned long long* scratch, long long* out_int,
                             double* out_float, void* stream) {
@@ -282,8 +297,8 @@ int grid_moments_window_run(const int* idx, long long n, int G, int W, int n_win
     if (G < 1 || W < 2 || W % 2 || n_win < 1 || (long long)n_win * W < G || n_groups < 1 ||
         n_groups > MAX_TERMS || n < 0 || n >= (1LL << 31) || threads < 32 || threads > 1024 ||
         threads % 32 || n_slices < 1 || n_slices > 65535 ||
-        !make_tables(base_ptrs, base_kinds, nb, term_a, term_b, term_need, n_count, n_float,
-                     &bases, &terms) ||
+        !make_tables(base_ptrs, base_kinds, nb, shift, term_a, term_b, term_need, n_count,
+                     n_float, &bases, &terms) ||
         (long long)C * G > 0x7fffffffLL || (long long)n_win * n_groups > 0x7fffffffLL ||
         group_lo[0] != 0 || group_lo[n_groups] != C)
         return -1;

@@ -160,15 +160,18 @@ __device__ __forceinline__ void warp_atomic_add(const int (&b)[U], const long lo
     double* grid_f = reinterpret_cast<double*>(grid + (size_t)(count + n_int) * stride);
     for (int k = 0; k < n_float; ++k) {
         const void* col = cols.ptr[n_int + k];
-        const int f32 = cols.is_f32[n_int + k];
+        const int kind = cols.fkind[n_int + k];
         double v[U];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
             v[u] = 0.0;
             if (b[u] >= 0) {
-                if (f32)
+                if (kind == FLOAT_F32)
                     v[u] = (double)(STREAM ? __ldcs((const float*)col + r[u])
                                            : __ldg((const float*)col + r[u]));
+                else if (kind == FLOAT_I64)
+                    v[u] = (double)(STREAM ? __ldcs((const long long*)col + r[u])
+                                           : __ldg((const long long*)col + r[u]));
                 else
                     v[u] = STREAM ? __ldcs((const double*)col + r[u])
                                   : __ldg((const double*)col + r[u]);
@@ -351,7 +354,7 @@ partition_scatter(const int* __restrict__ idx, long long n, int G, int shift, in
         scatter_array(pos, t0, kept, dest, reinterpret_cast<unsigned short*>(stage), lo_out,
                       [&](long long r) { return (unsigned short)(__ldg(idx + r) & low_mask); });
         for (int k = 0; k < n_cols; ++k) {
-            if (cols.is_f32[k]) {
+            if (cols.fkind[k] == FLOAT_F32) {  // a 4-byte column
                 const float* col = (const float*)cols.ptr[k];
                 scatter_array(pos, t0, kept, dest, reinterpret_cast<float*>(stage),
                               (float*)out.ptr[k], [&](long long r) { return __ldg(col + r); });
@@ -709,17 +712,17 @@ int grid_partition_scatter_rows(void) { return SCATTER_ROWS; }
 
 // The resident route: out [C, G] 8-byte words, zeroed by the caller.  Returns
 // cudaGetLastError(), or -1 when the arguments do not fit.
-//   int_cols / float_cols / float_is_f32: HOST arrays as in grid_additive.
+//   int_cols / float_cols / float_kinds: HOST arrays as in grid_additive.
 int grid_partition_resident(const int* idx, long long n, int G, int count,
                             const void* const* int_cols, int n_int,
-                            const void* const* float_cols, const int* float_is_f32, int n_float,
+                            const void* const* float_cols, const int* float_kinds, int n_float,
                             int n_ctas, int threads, unsigned long long* out, void* stream) {
     const int C = count + n_int + n_float;
     if (G < 1 || C < 1 || n_int < 0 || n_float < 0 || n_int + n_float > MAX_COLS || n < 0 ||
         n_ctas < 1 || threads < 32 || threads > 1024 || threads % 32 ||
         (long long)C * G > 0x7fffffffLL)
         return -1;
-    const Columns cols = make_columns(int_cols, n_int, float_cols, float_is_f32, n_float);
+    const Columns cols = make_columns(int_cols, n_int, float_cols, float_kinds, n_float);
     resident_add<<<n_ctas, threads, 0, (cudaStream_t)stream>>>(idx, n, G, count, cols, n_int,
                                                                n_float, out);
     return (int)cudaGetLastError();
@@ -762,7 +765,7 @@ int grid_partition_scatter(const int* idx, long long n, int G, int shift, int P,
     OutColumns out;
     for (int k = 0; k < n_cols; ++k) {
         cols.ptr[k] = src[k];
-        cols.is_f32[k] = is_4byte[k];
+        cols.fkind[k] = is_4byte[k];
         out.ptr[k] = dst[k];
     }
     cudaError_t e = allow_smem(partition_scatter, smem);
@@ -774,13 +777,13 @@ int grid_partition_scatter(const int* idx, long long n, int G, int shift, int P,
 
 // Phase 2 of the sums, over bucketed columns of n rows at most.
 //   bucket_start: device [P + 1] int32;
-//   bucketed_int / bucketed_float / float_is_f32: HOST arrays as in
+//   bucketed_int / bucketed_float / float_kinds: HOST arrays as in
 //            grid_additive, of the bucketed copies;
 //   out: device [C, G] 8-byte words, C = count + n_int + n_float, zeroed by
 //        the caller.
 int grid_partition_sums(const unsigned short* lo, const int* bucket_start, long long n, int G,
                         int shift, int P, int count, const void* const* bucketed_int,
-                        int n_int, const void* const* bucketed_float, const int* float_is_f32,
+                        int n_int, const void* const* bucketed_float, const int* float_kinds,
                         int n_float, int n_ctas, int threads, unsigned long long* out,
                         void* stream) {
     const int C = count + n_int + n_float;
@@ -791,7 +794,7 @@ int grid_partition_sums(const unsigned short* lo, const int* bucket_start, long 
         threads > 1024 || threads % 32 || n_ctas < 1 || n < 0 || n > 0x7fffffffLL ||
         (long long)C * G > 0x7fffffffLL || smem > SMEM_BUDGET)
         return -1;
-    const Columns bucketed = make_columns(bucketed_int, n_int, bucketed_float, float_is_f32,
+    const Columns bucketed = make_columns(bucketed_int, n_int, bucketed_float, float_kinds,
                                           n_float);
     // whole warp steps per CTA, so that only a bucket's end cuts a step short
     const long long unit = (long long)threads * UNROLL;

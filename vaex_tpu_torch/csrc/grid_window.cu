@@ -152,11 +152,11 @@ window_cluster(const int* __restrict__ idx, long long n, int G, int W, int count
         }
         for (int k = 0; k < n_float; ++k) {
             const void* col = cols.ptr[n_int + k];
-            const int f32 = cols.is_f32[n_int + k];
+            const int kind = cols.fkind[n_int + k];
             double v[UNROLL];
 #pragma unroll
             for (int u = 0; u < UNROLL; ++u)
-                v[u] = owner[u] >= 0 ? load_float(col, f32, base + u * step) : 0.0;
+                v[u] = owner[u] >= 0 ? load_float(col, kind, base + u * step) : 0.0;
 #pragma unroll
             for (int u = 0; u < UNROLL; ++u) {
                 const double w = v[u];
@@ -275,11 +275,11 @@ int grid_window_clusters(int n_win, int smem, int warps, int* out) {
 // the arguments do not fit the kernel.
 //   n < 2^32: the counts are 32-bit words;
 //   int_cols / float_cols: HOST arrays of device pointers;
-//   float_is_f32: HOST array, one flag per float column;
+//   float_kinds: HOST array, one kind per float column (grid_common.cuh);
 //   scratch: device [n_clusters, C, G] 8-byte words, C = count + n_int + n_float.
 int grid_window_run(const int* idx, long long n, int G, int W, int n_win, int count,
                     const void* const* int_cols, int n_int,
-                    const void* const* float_cols, const int* float_is_f32, int n_float,
+                    const void* const* float_cols, const int* float_kinds, int n_float,
                     int n_clusters, int warps, unsigned long long* scratch,
                     long long* out_int, double* out_float, void* stream) {
     const int C = count + n_int + n_float;
@@ -289,7 +289,7 @@ int grid_window_run(const int* idx, long long n, int G, int W, int n_win, int co
         (long long)n_win * W < G || n_clusters < 1 || n < 0 || n >= (1LL << 32) ||
         (long long)C * G > 0x7fffffffLL || (long long)n_win * n_clusters > 0x7fffffffLL)
         return -1;
-    const Columns cols = make_columns(int_cols, n_int, float_cols, float_is_f32, n_float);
+    const Columns cols = make_columns(int_cols, n_int, float_cols, float_kinds, n_float);
     cudaStream_t s = (cudaStream_t)stream;
     const int threads = warps * 32;
     cudaError_t e = n_win == 1 ? launch<true>(n_win, n_clusters, threads, smem, s, idx, n, G, W,

@@ -1,8 +1,13 @@
 // Pieces shared by the moment kernels (grid_moments.cu, B4, and
 // grid_moments_window.cu, B5): the base and term tables and the term
 // evaluation.  The contract is in vaex_tpu_torch/ops/grid_moments.py:
-//   bases [N] (at most MAX_BASES), int64, float32 or float64, read as double;
-//     NaN marks a missing value;
+//   bases [N] (at most MAX_BASES), int64, float32 or float64, read as double
+//     less the base's shift (shifted moments: var(x) = var(x - a), and with a
+//     near the data the float64 sums do not cancel); NaN marks a missing
+//     value;
+//   shift: null, or a device array of one 8-byte word per base, an int64
+//     for an int64 base and the bits of a double for a float base, read once
+//     by every thread (load_shifts);
 //   terms (at most MAX_TERMS), count terms first, then float terms; a float
 //     term is base[a] * base[b] (base[a] when b < 0); a row adds to a term
 //     only where none of the bases in its `need` bitmask is NaN.
@@ -24,6 +29,7 @@
 struct Bases {
     const void* ptr[MAX_BASES];
     int kind[MAX_BASES];
+    const unsigned long long* shift;  // device, a word per base, or null: no shift
 };
 
 struct Terms {
@@ -34,11 +40,13 @@ struct Terms {
 
 // Host side: the tables from HOST arrays, as the wrappers pass them.
 static inline bool make_tables(const void* const* base_ptrs, const int* base_kinds, int nb,
-                               const int* term_a, const int* term_b, const unsigned* term_need,
-                               int n_count, int n_float, Bases* bases, Terms* terms) {
+                               const void* shift, const int* term_a, const int* term_b,
+                               const unsigned* term_need, int n_count, int n_float,
+                               Bases* bases, Terms* terms) {
     const int C = n_count + n_float;
     if (nb < 0 || nb > MAX_BASES || C < 1 || C > MAX_TERMS || n_count < 0 || n_float < 0)
         return false;
+    bases->shift = (const unsigned long long*)shift;
     for (int j = 0; j < MAX_BASES; ++j) {
         bases->ptr[j] = j < nb ? base_ptrs[j] : nullptr;
         bases->kind[j] = j < nb ? base_kinds[j] : BASE_F64;
@@ -55,15 +63,46 @@ static inline bool make_tables(const void* const* base_ptrs, const int* base_kin
     return true;
 }
 
-__device__ __forceinline__ double load_base(const void* p, int kind, long long r) {
-    if (kind == BASE_F32) return (double)__ldg((const float*)p + r);
-    if (kind == BASE_I64) return (double)__ldg((const long long*)p + r);
-    return __ldg((const double*)p + r);
-}
-
 // The kernels are instantiated for NB = 0 .. MAX_BASES bases, so a row's
 // bases take NB register pairs (at least one slot, so the array exists).
 #define BASE_SLOTS(NB) ((NB) > 0 ? (NB) : 1)
+
+// Every base's shift word, read once by a thread before its rows (0: none).
+template <int NB>
+__device__ __forceinline__ void load_shifts(const Bases& bases,
+                                            unsigned long long (&sh)[BASE_SLOTS(NB)]) {
+#pragma unroll
+    for (int j = 0; j < BASE_SLOTS(NB); ++j)
+        sh[j] = j < NB && bases.shift ? __ldg(bases.shift + j) : 0ull;
+}
+
+// v - s of an int64 base, subtracted in int64 before the cast: exact to one
+// rounding even where the span passes 2^63 (a cast first would round
+// 2^62 + 7 to 2^62 before the shift could help).
+__device__ __forceinline__ double shifted_i64(long long v, unsigned long long s) {
+    const unsigned long long u = (unsigned long long)v;
+    return v >= (long long)s ? (double)(u - s) : -(double)(s - u);
+}
+
+// v - s of a float base, in double.
+__device__ __forceinline__ double shifted_f(double v, unsigned long long s) {
+    return v - __longlong_as_double((long long)s);
+}
+
+// The raw base value of row r, loaded with no operation that waits on the
+// load (but an f32's widening), so that a thread's loads stay in flight
+// together: an int64's bits held as a double's; shifted() makes it a value.
+__device__ __forceinline__ double load_raw(const void* p, int kind, long long r) {
+    if (kind == BASE_F32) return (double)__ldg((const float*)p + r);
+    if (kind == BASE_I64) return __longlong_as_double(__ldg((const long long*)p + r));
+    return __ldg((const double*)p + r);
+}
+
+// A raw base value (load_raw) less its shift word s.
+__device__ __forceinline__ double shifted(double raw, int kind, unsigned long long s) {
+    if (kind == BASE_I64) return shifted_i64(__double_as_longlong(raw), s);
+    return shifted_f(raw, s);
+}
 
 // v[j] by compare and select (j < 0: the factor 1), so that a term's
 // run-time base index never makes the compiler move v to local memory.

@@ -137,10 +137,11 @@ class DataFrame:
 
     def _cache_key(self, expressions):
         """(an exact key of what a pass over ``expressions`` reads, whether it
-        is a content key): the columns they and the filter read
-        (:meth:`.dataset.Dataset.cache_key`), the filter, the virtual
-        columns, the variables and the functions they name.  A tensor counts
-        by its identity and version, a set or a function by its identity
+        is a content key), or (None, False) where there is none: the columns
+        they and the filter read (:meth:`.dataset.Dataset.cache_key`), the
+        filter, the virtual columns, the variables and the functions they
+        name.  A CPU tensor counts by all its bytes and a card tensor has no
+        key (:func:`.utils.tensor_key`), a set or a function by its identity
         (:func:`.utils.identity`): what the key names can change only as
         the key does."""
         from .column import _arrow_fingerprint
@@ -152,11 +153,16 @@ class DataFrame:
             columns |= c
             variables |= v
         dataset_key, content = self.dataset.cache_key(columns & set(self.dataset))
+        if dataset_key is None:
+            return None, False
         values = {}
         for name in sorted(variables):
             value = self.variables[name]
             if isinstance(value, torch.Tensor):
-                values[name], content = tensor_key(value), False
+                values[name], exact = tensor_key(value)
+                if values[name] is None:
+                    return None, False
+                content = content and exact
             elif isinstance(value, (np.ndarray, str, int, float, np.generic)) or value is None:
                 values[name] = fingerprint(value)
             elif array_types.is_arrow(value):  # immutable: all its buffers
@@ -1025,18 +1031,13 @@ class DataFrame:
 
     def covar(self, x, y, binby=(), limits=None, shape=128, selection=None, delay=False):
         """cov(x, y) = E[xy] - E[x]E[y], each mean over its own valid rows
-        (vaex_tpu/dataframe.py:1027-1038)."""
-        x, y = str(x), str(y)
+        (vaex_tpu/dataframe.py:1027-1038), from shifted moments
+        (:meth:`_cov_entries`)."""
         binby = _ensure_list(binby)
-        limits = self._axis_limits(binby, limits)  # once for the three means
-        mean_xy = self.mean(f"({x}) * ({y})", binby, limits, shape, selection, delay=True)
-        mean_x = self.mean(x, binby, limits, shape, selection, delay=True)
-        mean_y = self.mean(y, binby, limits, shape, selection, delay=True)
-
-        @delayed
-        def finish(mxy, mx, my):
-            return np.asarray(mxy) - np.asarray(mx) * np.asarray(my)
-        return self._delay(delay, finish(mean_xy, mean_x, mean_y))
+        limits = self._axis_limits(binby, limits)  # once for every mean
+        [entry] = self._cov_entries([str(x), str(y)], [(0, 1)], binby, limits, shape,
+                                    selection).values()
+        return self._delay(delay, entry)
 
     def correlation(self, x, y=None, binby=(), limits=None, shape=128, selection=None,
                     delay=False):
@@ -1066,11 +1067,10 @@ class DataFrame:
         """The covariance matrix ``[..., n, n]`` of the expressions ``x`` (or
         of the pair x, y), per cell of ``binby``: each entry E[x_i x_j] -
         E[x_i] E[x_j], every mean over the rows where its own expression is
-        valid, as the reference takes them (vaex_tpu/dataframe.py:1060-1081).
-        The n means and the n (n + 1) / 2 means of the products are one pass
-        of sums and counts, the additive kernels (B1 / B2 / B3 by the grid's
-        size); the covar moment ops would hold a pair to the rows where both
-        are valid, which is another answer where values are missing."""
+        valid, as the reference takes them (vaex_tpu/dataframe.py:1060-1081),
+        from shifted moments (:meth:`_cov_entries`): n var ops and n (n - 1)
+        / 2 covar ops, one pass of the moment kernels (B4 / B5 by the grid's
+        size) over the n base columns."""
         if y is None:
             exprs = [str(e) for e in (x if isinstance(x, (list, tuple)) else [x])]
         else:
@@ -1078,20 +1078,68 @@ class DataFrame:
         n = len(exprs)
         binby = _ensure_list(binby)
         limits = self._axis_limits(binby, limits)  # once for every mean
-        means = [self.mean(e, binby, limits, shape, selection, delay=True) for e in exprs]
-        cross = {(i, j): self.mean(f"({exprs[i]}) * ({exprs[j]})", binby, limits, shape,
-                                   selection, delay=True)
-                 for i in range(n) for j in range(i, n)}
-        keys = list(cross)
+        entries = self._cov_entries(exprs, [(i, j) for i in range(n) for j in range(i, n)],
+                                    binby, limits, shape, selection)
+        keys = list(entries)
 
         @delayed
         def finish(*grids):
-            mvals = [np.asarray(m) for m in grids[:n]]
-            C = np.zeros(np.shape(mvals[0]) + (n, n))
-            for (i, j), g in zip(keys, grids[n:]):
-                C[..., i, j] = C[..., j, i] = np.asarray(g) - mvals[i] * mvals[j]
+            C = np.zeros(np.shape(grids[0]) + (n, n))
+            for (i, j), g in zip(keys, grids):
+                C[..., i, j] = C[..., j, i] = g
             return C
-        return self._delay(delay, finish(*means, *(cross[k] for k in keys)))
+        return self._delay(delay, finish(*(entries[k] for k in keys)))
+
+    def _cov_entries(self, exprs, pairs, binby, limits, shape, selection):
+        """Per pair (i, j) of ``exprs`` a delayed entry E_ij[x_i x_j] -
+        E_i[x_i] E_j[x_j], each mean over the rows where its own expression
+        is valid (the product's: where both are), as vaex_tpu defines it,
+        from shifted moments (u_i = x_i - a_i, a_i the expression's
+        :func:`.tasks.moment_shift`): the pair's covar op gives the sums
+        over its rows of u_i u_j, u_i and u_j (P_i = E_ij[u_i]), each
+        expression's var op those over its own (M_i = E_i[u_i]), and the
+        entry is cov_ij(u) + P_i P_j - M_i M_j + a_j (P_i - M_i) + a_i (P_j -
+        M_j); on the diagonal the var.  Where no value is missing P = M, and
+        nothing cancels the digits of values far from zero.  The kernels
+        form the terms from the base columns (B4 / B5): no product column is
+        made."""
+        from .tasks import moment_shift
+        for e in exprs:
+            agg_module._not_strings(self, e, "cov")
+        binners = self._create_binners(binby, limits, shape)
+        sel = agg_module.selection_expression(selection, self)
+        ndim = len(binners)
+        own = [agg_module._moments(self, binners, [e], agg_module.VAR_TERMS, sel) for e in exprs]
+        shift = [moment_shift(self, e).item() for e in exprs]  # host reads of n scalars
+
+        def grids(rows):  # each term's row as float64 cells, the edges stripped
+            rows = [array_types.to_numpy(g).astype(np.float64) for g in rows]
+            return [agg_module.extract_central(g, ndim) if ndim else g.reshape(()) for g in rows]
+
+        @delayed
+        def diagonal(r):
+            (n,), (m1, m2) = (grids(part) for part in r)
+            return agg_module.variance(torch.from_numpy(m2), torch.from_numpy(m1),
+                                       torch.from_numpy(n)).numpy().reshape(np.shape(n))
+
+        @delayed
+        def entry(a_i, a_j, r, r_i, r_j):
+            (c,), (sxy, sx, sy) = grids(r[0]), grids(r[1])
+            (n_i,), (s_i, _) = grids(r_i[0]), grids(r_i[1])
+            (n_j,), (s_j, _) = grids(r_j[0]), grids(r_j[1])
+            with np.errstate(divide="ignore", invalid="ignore"):
+                p_i, p_j, m_i, m_j = sx / c, sy / c, s_i / n_i, s_j / n_j
+                return ((sxy - sx * sy / c) / c + p_i * p_j - m_i * m_j
+                        + a_j * (p_i - m_i) + a_i * (p_j - m_j))
+        entries = {}
+        for i, j in pairs:
+            if i == j:
+                entries[(i, j)] = diagonal(own[i])
+            else:
+                pair = agg_module._moments(self, binners, [exprs[i], exprs[j]],
+                                           agg_module.COVAR_TERMS, sel)
+                entries[(i, j)] = entry(float(shift[i]), float(shift[j]), pair, own[i], own[j])
+        return entries
 
     def mode(self, expression, binby=(), limits=None, shape=256, mode_shape=64,
              mode_limits=None, progressbar=False, selection=None):

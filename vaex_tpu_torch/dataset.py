@@ -90,9 +90,12 @@ class Dataset(collections.abc.Mapping):
     def cache_key(self, names=None):
         """(an exact key of the columns ``names`` (all by default), whether
         it is a content key): :func:`.column.column_key` of each, its
-        logical dtype and the row count."""
+        logical dtype and the row count; (None, False) where a column has
+        no exact key (a card tensor)."""
         keys = {name: column_key(self._columns[name])
                 for name in sorted(self if names is None else names)}
+        if any(k is None for k, _ in keys.values()):
+            return None, False
         return (("dataset", self.row_count, {n: k for n, (k, _) in keys.items()},
                  {n: str(self.logical.get(n)) for n in keys}),
                 all(content for _, content in keys.values()))

@@ -324,6 +324,8 @@ def _from_cache(df, tasks, mesh=None):
     if not cacheable or not cache.is_on():
         return tasks
     frame, content = df._cache_key([e for t in cacheable for e in t.expressions])
+    if frame is None:  # a card tensor: no exact key, nothing kept
+        return tasks
     remaining = []
     for task in tasks:
         if task.cacheable:
@@ -365,7 +367,11 @@ class PassInputs:
             home = placed_device(col)
             if home is None or home == device:
                 continue
-            key = (name, column_key(col)[0], str(device), r1, r2)
+            exact = column_key(col)[0]
+            if exact is None:  # no exact key (a card tensor): copied anew each pass
+                shard[name] = (column_to(slice_column(col, r1, r2), device), r1)
+                continue
+            key = (name, exact, str(device), r1, r2)
             if key not in kept:
                 kept[key] = column_to(slice_column(col, r1, r2), device)
             copies[key] = kept[key]

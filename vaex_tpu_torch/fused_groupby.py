@@ -35,7 +35,8 @@ percentile adds its value column as the least significant sort key, so each
 segment's values come out sorted and the order statistics are gathers.
 Float sums reduce per segment with ``index_add_`` (each segment's error
 bounded by its own terms, not by a running prefix), int sums with int64
-``index_add_`` (exact mod 2^64).  The sorts, gathers and reductions are
+``index_add_`` (exact mod 2^64), means in float64, a std or var in two
+passes a segment (its mean, then the squared deviations).  The sorts, gathers and reductions are
 torch calls: the reference's are XLA sorts and segment sums, not Pallas
 kernels.  The result is sorted by the keys (reversed for a descending
 single key).  The pass records ``{"groupby": "one-sort", "mode": ...}`` in
@@ -44,7 +45,8 @@ single key).  The pass records ``{"groupby": "one-sort", "mode": ...}`` in
 The result's columns are kept in the result cache (:mod:`.cache`, the
 byte-bounded LRU of results that hold tensors) under the frame's exact key
 and the plan, as vaex_tpu/fused_groupby.py:175-198 keeps them: the same
-query over the same tensors, unwritten, sorts nothing again.
+query over the same host arrays or CPU tensors, unwritten, sorts nothing
+again; a frame of card tensors has no exact key, and sorts each time.
 
 On a sharded executor (:mod:`.parallel`) the plan runs over the mesh
 (vaex_tpu/fused_groupby.py:453-693, :func:`_run_mesh`): each shard sorts
@@ -72,6 +74,7 @@ from .column import ColumnDictionary, tile_of
 from .datatype import DataType
 from .execution import _pass_device
 from .expression import Expression
+from .ops.grid_moments import shifted
 from .utils import trace
 
 # the most rows the one sort takes (vaex_tpu/tasks.py:146)
@@ -165,7 +168,7 @@ def try_fused_sort_groupby(df, by, actions, ascending=True, row_limit=None):
     frame, content = df._cache_key(names)
     parts = ("one-sort groupby", frame, key_names, ascending[0], plan)
     cache_key = cache.key(*parts, *(() if mesh is None else (mesh.key(),)), content=content)
-    columns = cache.lookup(cache_key)
+    columns = None if frame is None else cache.lookup(cache_key)
     if columns is not None:  # the result columns, on the device the sort ran on
         from . import from_dict
         result = from_dict(dict(columns))
@@ -175,7 +178,9 @@ def try_fused_sort_groupby(df, by, actions, ascending=True, row_limit=None):
             result = _run(df, key_names, plan, ascending[0], info, mesh)
         if result is None:
             return None
-        cache.store(cache_key, {n: result.dataset[n] for n in result.get_column_names(hidden=True)})
+        if frame is not None:  # a card tensor's frame has no exact key: nothing kept
+            cache.store(cache_key,
+                        {n: result.dataset[n] for n in result.get_column_names(hidden=True)})
     if not labels:
         return result
     # the codes of each string key back under its name, as its labels' codes
@@ -445,10 +450,21 @@ def _reduce(packed, columns, key_names, plan, spans, words, pct_name):
             out[name] = torch.full((G,), fill, dtype=values.dtype, device=device).scatter_reduce_(
                 0, seg, values[order], "amin" if kind == "min" else "amax")
         elif kind in ("std", "var"):
+            # two passes a segment over the rows less one shift (exact in
+            # int64 for int keys' values near 2^62): the segment's mean, then
+            # the squares of the deviations from it; nothing cancels
             c = valid_count(col).to(torch.float64)
-            x = clean.to(torch.float64)
-            mean = seg_sum(x, torch.float64) / c
-            var = torch.clamp(seg_sum(x * x, torch.float64) / c - mean ** 2, min=0.0)
+            ok = ~torch.isnan(col) if col.is_floating_point() else None
+            first = clean[0] if ok is None else clean[ok.to(torch.uint8).argmax()]
+            u = shifted(clean, first)
+            if ok is not None:  # a NaN row adds nothing
+                u = u.masked_fill(~ok, 0.0)
+            mean = seg_sum(u, torch.float64) / c
+            dev = u[order] - mean[seg]
+            if ok is not None:
+                dev = dev.masked_fill(~ok[order], 0.0)
+            var = torch.zeros(G, dtype=torch.float64, device=device).index_add_(
+                0, seg, dev * dev) / c
             ddof = payload[1]
             if ddof:
                 var = torch.where(c > ddof, var * c / (c - ddof), torch.nan)

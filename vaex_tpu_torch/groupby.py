@@ -697,12 +697,13 @@ class _Rows:
 def _shuffle_channels(df, plan, shards):
     """The exchange's channels over each shard's values and, per output,
     how its [G] result is made from the exchange's (``finish(out)``)."""
-    from .agg import OpCount, OpCountValid, OpMax, OpMin, OpSum, OpSumFloat, selection_expression
+    from .agg import (OpCount, OpCountValid, OpMax, OpMin, OpSum, OpSumFloat,
+                      selection_expression, variance)
     from .datatype import NAT
     from .ops.grid_extreme import identity
-    from .ops.nullable import unsigned_float
+    from .ops.grid_moments import shifted
     from .parallel.shuffle import NU_NAN, NU_NONE, NU_NULL
-    from .tasks import moment_base
+    from .tasks import moment_input, moment_shift
     ints, floats, exts, modes, bases, nus = [], [], [], [], [], []
     finishers = {}
 
@@ -763,14 +764,15 @@ def _shuffle_channels(df, plan, shards):
             grid = additive(op, sels)
             finishers[name] = lambda out, op=op, grid=grid: finished(op, grid(out))
         elif kind == "mean":
-            s = additive((OpSumFloat if dtype.is_temporal else OpSum)([desc.expression],
-                                                                     dtype_in=dtype), sels)
+            # any but a float column adds in float64 (agg.AggregatorDescriptorMean)
+            s = additive((OpSum if dtype.numpy.kind == "f" else OpSumFloat)(
+                [desc.expression], dtype_in=dtype), sels)
             c = additive(OpCountValid([desc.expression], dtype_in=dtype), sels)
 
-            def mean(out, s=s, c=c, unsigned=dtype.is_unsigned):
+            def mean(out, s=s, c=c):
                 total, n = s(out), c(out)
-                total = unsigned_float(total) if unsigned else total.to(torch.float64)
-                return torch.where(n > 0, total / n.to(torch.float64), torch.nan)
+                return torch.where(n > 0, total.to(torch.float64) / n.to(torch.float64),
+                                   torch.nan)
             finishers[name] = mean
         elif kind in ("min", "max"):
             op = (OpMin if kind == "min" else OpMax)([desc.expression], dtype_in=dtype)
@@ -787,17 +789,19 @@ def _shuffle_channels(df, plan, shards):
             modes.append(kind)
             finishers[name] = lambda out, op=op, i=i: finished(op, out["ext"][i])
         elif kind in ("std", "var"):
-            parts = []
+            # each shard's base less one shift, the same on every shard:
+            # the exchange carries u = x - a, and the sums of u merge
+            parts, shift = [], moment_shift(df, desc.expression)
             for rows, sel in zip(shards, sels):
-                base = moment_base(rows.expr(desc.expression)).to(torch.float64)
+                base, s = moment_input(rows.expr(desc.expression), shift)
+                base = shifted(base, s)
                 parts.append(base if sel is None else base.masked_fill(~sel, torch.nan))
             i = channel(bases, parts)
 
             def var(out, i=i, std=kind == "std", ddof=desc.ddof):
                 counts, (m1, m2) = out["moments"][i]
                 n = counts.to(torch.float64)
-                mean = m1 / n
-                v = torch.maximum(m2 / n - mean ** 2, torch.zeros_like(m2))
+                v = variance(m2, m1, n)
                 if ddof:
                     v = torch.where(n > ddof, v * n / (n - ddof), torch.nan)
                 return torch.sqrt(v) if std else v

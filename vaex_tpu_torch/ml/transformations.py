@@ -7,8 +7,9 @@ transformer fitted in either package transforms a frame of the other to
 the same values, and ``transform`` returns a shallow copy of the frame with
 added virtual columns, which the passes evaluate on the card like any other
 expression.  The fits' passes: StandardScaler one delayed pass of the means
-(B1) and standard deviations (B4); PCA one of ``cov`` and the means (B1),
-then ``eigh`` of the small matrix on the host; RobustScaler and the
+(B1) and standard deviations (B4); PCA one of ``cov`` (its shifted
+moments, B4) and the means (B1), then ``eigh`` of the small matrix on the
+host; RobustScaler and the
 quantile KBinsDiscretizer a count grid of 16 384 cells a feature (B2,
 ``percentile_approx``); the encoders a set build or a groupby, their
 transform ``_ordinal_values`` through the set probe (B6).
@@ -219,7 +220,11 @@ class LabelEncoder(Transformer):
 
 
 class OneHotEncoder(Transformer):
-    """One virtual 0/1 column per category (vaex_tpu/ml/transformations.py:200)."""
+    """One virtual 0/1 column per category (vaex_tpu/ml/transformations.py:200);
+    on a row whose feature is missing every value column holds ``zero`` and
+    the ``_missing`` column ``one``, as pandas' ``get_dummies(dummy_na=True)``
+    gives, where vaex_tpu gives a missing value for a masked number (ROADMAP,
+    known problems)."""
 
     snake_name = "one_hot_encoder"
 
@@ -248,7 +253,11 @@ class OneHotEncoder(Transformer):
                     safe = str(value).replace(" ", "_").replace("-", "_")
                     column_name = self.prefix + f + "_" + safe
                     literal = repr(value if not isinstance(value, np.generic) else value.item())
-                    expr = f"where(({f} == {literal}), {self.one!r}, {self.zero!r})"
+                    # a missing row is zero in every value column (pandas'
+                    # get_dummies(dummy_na=True)), not missing: its missing
+                    # comparison is False (a where keeps any operand's mask)
+                    expr = (f"where(fillmissing(({f} == {literal}), False), {self.one!r}, "
+                            f"{self.zero!r})")
                 df[column_name] = expr
         return df
 

@@ -8,7 +8,9 @@ per-bin sums:
 
 * ``int_sums`` [count + k, G] int64: row 0 is the count when ``count`` is
   set, then one row per int column; exact mod 2^64.
-* ``float_sums`` [m, G] float64: f32 columns are widened; NaN adds nothing.
+* ``float_sums`` [m, G] float64: f32 columns are widened and int64 ones
+  converted on load (a mean's sum in float64, where an int64 sum would
+  wrap); NaN adds nothing.
 
 Rows whose ``idx`` lies outside [0, G) add nothing.  The kernel source is
 ``vaex_tpu_torch/csrc/grid_additive.cu``; it is compiled with ``nvcc`` at
@@ -157,8 +159,8 @@ def check_inputs(idx, int_cols, float_cols, G, count):
         if col.dtype != torch.int64:
             raise TypeError(f"int columns must be int64, got {col.dtype}")
     for col in float_cols:
-        if col.dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"float columns must be float32 or float64, got {col.dtype}")
+        if col.dtype not in (torch.float32, torch.float64, torch.int64):
+            raise TypeError(f"float columns must be float32, float64 or int64, got {col.dtype}")
     for col in (*int_cols, *float_cols):
         if col.shape != (n,):
             raise ValueError(f"column shape {tuple(col.shape)} does not match idx ({n},)")

@@ -15,6 +15,13 @@ the base columns, each base read once per row.  The contract:
 * ``bases``: at most ``MAX_BASES`` columns [N], int64, float32 or float64,
   read as float64.  NaN marks a missing value: a masked column reaches the
   wrapper as a float64 copy with NaN in its masked rows.
+* ``shift`` (shifted moments): None, or per base None or a constant that the
+  kernel subtracts from every value before it forms a term, an int64 for an
+  int64 base (subtracted in int64, then cast: exact to one rounding where
+  the span passes 2^63) and a float64 for a float base (subtracted in
+  float64).  var(x) = var(x - a) for any a; with a near the data the float64
+  sums of x and x*x no longer cancel.  The shifts reach the kernels as one
+  8-byte word a base in device memory (:func:`shift_words`): no host read.
 * ``terms``: at most ``MAX_TERMS`` tuples ``(a, b, v0, v1)`` of base
   indices, -1 for none.  A float term (``a >= 0``) adds
   ``base[a] * base[b]`` (``base[a]`` when ``b = -1``) in float64; a count
@@ -98,10 +105,57 @@ def split_terms(terms, n_bases):
     return counts, floats
 
 
-def form_terms(idx, bases, terms):
+def shift_values(bases, shift):
+    """Per base its shift as a 0-d tensor on the base's device, int64 for an
+    int64 base and float64 for a float one, or None for no shift; ``shift``
+    is None or one entry a base (None, a number or a 0-d tensor)."""
+    if shift is None:
+        return [None] * len(bases)
+    shift = list(shift)
+    if len(shift) != len(bases):
+        raise ValueError(f"{len(shift)} shifts for {len(bases)} bases")
+    out = []
+    for base, s in zip(bases, shift):
+        dtype = torch.int64 if base.dtype == torch.int64 else torch.float64
+        out.append(None if s is None else
+                   torch.as_tensor(s, device=base.device).to(dtype).reshape(()))
+    return out
+
+
+def shifted(base, s):
+    """``base - s`` in float64 (s None: the base), as the kernels form it: an
+    int64 base subtracts in int64 first and rounds once, its magnitude taken
+    as two exact 32-bit halves; a float base subtracts in float64."""
+    if s is None:
+        return base.to(torch.float64)
+    if base.dtype != torch.int64:
+        return base.to(torch.float64) - torch.as_tensor(s, device=base.device).to(torch.float64)
+    s = torch.as_tensor(s, device=base.device).to(torch.int64)
+    below = base < s
+    mag = torch.where(below, s - base, base - s)  # the bits of the uint64 |base - s|
+    f = ((mag >> 32) & 0xFFFFFFFF).to(torch.float64) * 2.0 ** 32 + (mag & 0xFFFFFFFF).to(
+        torch.float64)
+    return torch.where(below, -f, f)
+
+
+def shift_words(bases, shift, device):
+    """The kernels' shift argument: an int64 tensor on ``device``, one 8-byte
+    word a base (an int64 shift, or a float64 shift's bits; 0 for none), or
+    None where no base has a shift."""
+    values = shift_values(bases, shift)
+    if all(s is None for s in values):
+        return None
+    words = [torch.zeros((), dtype=torch.int64, device=device) if s is None
+             else (s if s.dtype == torch.int64 else s.view(torch.int64)).to(device)
+             for s in values]
+    return words[0].reshape(1) if len(words) == 1 else torch.stack(words)  # one base: a view
+
+
+def form_terms(idx, bases, terms, shift=None):
     """The terms as columns, in plain PyTorch: (count columns [N] int64, 0 or
-    1; float columns [N] float64, 0.0 where the term's row is not valid)."""
-    vals = [b.to(torch.float64) for b in bases]
+    1; float columns [N] float64, 0.0 where the term's row is not valid),
+    each base less its shift (:func:`shifted`)."""
+    vals = [shifted(b, s) for b, s in zip(bases, shift_values(bases, shift))]
     nan = [torch.isnan(v) for v in vals]
     count_terms, float_terms = split_terms(terms, len(bases))
 
@@ -125,7 +179,7 @@ def form_terms(idx, bases, terms):
     return count_cols, float_cols
 
 
-def check_inputs(idx, bases, terms, G, bin0=False):
+def check_inputs(idx, bases, terms, G, bin0=False, shift=None):
     """The checks both moment kernels' wrappers make before they dispatch;
     ``bin0``: idx may be None at G = 1 (B4)."""
     if idx is None:
@@ -148,22 +202,25 @@ def check_inputs(idx, bases, terms, G, bin0=False):
     if G < 1:
         raise ValueError(f"nothing to add: G={G}")
     split_terms(terms, len(bases))
+    for s in shift_values(bases, shift):
+        if s is not None and s.device != rows.device:
+            raise ValueError(f"shift on {s.device}, idx on {rows.device}")
 
 
-def grid_moments_reference(idx, bases, terms, G):
+def grid_moments_reference(idx, bases, terms, G, shift=None):
     """The plain PyTorch version: the term columns, then ``index_add_``
     (idx None: every row in bin 0)."""
     if idx is None:
         idx = torch.zeros(bases[0].shape[0], dtype=torch.int32, device=bases[0].device)
-    count_cols, float_cols = form_terms(idx, bases, terms)
+    count_cols, float_cols = form_terms(idx, bases, terms, shift)
     return grid_additive_reference(idx, count_cols, float_cols, int(G), False)
 
 
-def grid_moments_window_reference(idx, bases, terms, G):
+def grid_moments_window_reference(idx, bases, terms, G, shift=None):
     """The plain PyTorch version of B5: the term columns, then the kernel's
     bin windows (:func:`part_plan`) one after the other, each an
     ``index_add_`` of every term."""
-    count_cols, float_cols = form_terms(idx, bases, terms)
+    count_cols, float_cols = form_terms(idx, bases, terms, shift)
     W, _, _ = part_plan(int(G), len(terms), len(count_cols))
     return grid_window_reference(idx, count_cols, float_cols, int(G), False, W)
 
@@ -238,7 +295,7 @@ def _library(name):
             raise RuntimeError("grid_moments_lane_rows disagrees with its wrapper")
         run.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
@@ -246,7 +303,7 @@ def _library(name):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     run.argtypes = [ptr, ctypes.c_longlong, i32, i32, i32,  # idx, n, G, W, n_win
                     ptr, i32, ptr,  # group bounds, term rows
-                    ptr, ptr, i32,  # bases
+                    ptr, ptr, i32, ptr,  # bases, shift words
                     ptr, ptr, ptr, i32, i32,  # terms
                     i32, i32,  # n_slices, threads
                     ptr, ptr, ptr, ptr]
@@ -335,7 +392,7 @@ def _outputs(device, n_count, n_float, G, n_parts):
     return counts, sums, scratch
 
 
-def _launch_b4(idx, bases, terms, G, n_ctas, warps, lane):
+def _launch_b4(idx, bases, terms, G, n_ctas, warps, lane, shift=None):
     """One launch of ``csrc/grid_moments.cu`` on its lane route (``lane``)
     or its warp route; idx None passes no index (G = 1).  The float terms go
     in :func:`float_order` and their sums come back in the caller's."""
@@ -346,12 +403,13 @@ def _launch_b4(idx, bases, terms, G, n_ctas, warps, lane):
     base_ptrs, base_kinds, term_a, term_b, term_need = tables
     rows = idx if idx is not None else bases[0]
     counts, sums, scratch = _outputs(rows.device, n_count, n_float, G, n_ctas)
+    words = shift_words(bases, shift, rows.device)
     lib, run = _library("grid_moments")
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         err = run(None if idx is None else idx.data_ptr(), rows.shape[0], G, G,
                   ctypes.addressof(base_ptrs), ctypes.addressof(base_kinds), len(bases),
-                  ctypes.addressof(term_a), ctypes.addressof(term_b),
+                  None if words is None else words.data_ptr(), ctypes.addressof(term_a), ctypes.addressof(term_b),
                   ctypes.addressof(term_need), n_count, n_float,
                   n_ctas, warps, int(lane), scratch.data_ptr(),
                   counts.data_ptr(), sums.data_ptr(), stream)
@@ -376,7 +434,7 @@ def float_order(terms):
     return sorted(range(len(floats)), key=key)
 
 
-def _launch_b5(idx, bases, terms, G):
+def _launch_b5(idx, bases, terms, G, shift=None):
     """One launch of ``csrc/grid_moments_window.cu``: the float terms go in
     :func:`float_order`, and the kernel writes each to the caller's row."""
     order = float_order(terms)
@@ -390,29 +448,30 @@ def _launch_b5(idx, bases, terms, G):
     W, n_win, bounds, n_slices = window_plan(n, G, C, sm_count, n_count)
     group_lo = (ctypes.c_int * (MAX_TERMS + 1))(*bounds)
     counts, sums, scratch = _outputs(idx.device, n_count, n_float, G, n_slices)
+    words = shift_words(bases, shift, idx.device)
     lib, run = _library("grid_moments_window")
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream(idx.device).cuda_stream
         err = run(idx.data_ptr(), n, G, W, n_win, ctypes.addressof(group_lo), len(bounds) - 1,
                   ctypes.addressof(term_row),
                   ctypes.addressof(base_ptrs), ctypes.addressof(base_kinds), len(bases),
-                  ctypes.addressof(term_a), ctypes.addressof(term_b),
+                  None if words is None else words.data_ptr(), ctypes.addressof(term_a), ctypes.addressof(term_b),
                   ctypes.addressof(term_need), n_count, n_float, n_slices, WINDOW_WARPS * 32,
                   scratch.data_ptr(), counts.data_ptr(), sums.data_ptr(), stream)
     kernel_build.raise_on_error(lib, "grid_moments_window", err)
     return counts, sums
 
 
-def grid_moments(idx, bases, terms, G):
+def grid_moments(idx, bases, terms, G, shift=None):
     """Per-bin term sums through B4; see the module docstring (idx None:
     every row in bin 0, G = 1).  CPU tensors take the plain version; CUDA
     tensors launch the kernel, or raise when it cannot take them."""
     G = int(G)
     bases, terms = list(bases), [tuple(t) for t in terms]
-    check_inputs(idx, bases, terms, G, bin0=True)
+    check_inputs(idx, bases, terms, G, bin0=True, shift=shift)
     rows = idx if idx is not None else bases[0]
     if rows.device.type == "cpu":
-        return grid_moments_reference(idx, bases, terms, G)
+        return grid_moments_reference(idx, bases, terms, G, shift)
     check_cuda("grid_moments", rows, bases, [])
     C, n = len(terms), rows.shape[0]
     if not fits(G, C):
@@ -427,21 +486,21 @@ def grid_moments(idx, bases, terms, G):
         n_ctas, warps = lane_plan(n, G, n_count, C - n_count, len(bases), sm_count)
     else:
         n_ctas, warps = plan(n, G, C, sm_count)
-    out = _launch_b4(idx, bases, terms, G, n_ctas, warps, how == LANE)
+    out = _launch_b4(idx, bases, terms, G, n_ctas, warps, how == LANE, shift)
     grid_moments.launches += 1
     grid_moments.last_route = how
     return out
 
 
-def grid_moments_window(idx, bases, terms, G):
+def grid_moments_window(idx, bases, terms, G, shift=None):
     """Per-bin term sums through B5; see the module docstring.  CPU tensors
     take the plain version; CUDA tensors launch the kernel, or raise when it
     cannot take them."""
     G = int(G)
     bases, terms = list(bases), [tuple(t) for t in terms]
-    check_inputs(idx, bases, terms, G)
+    check_inputs(idx, bases, terms, G, shift=shift)
     if idx.device.type == "cpu":
-        return grid_moments_window_reference(idx, bases, terms, G)
+        return grid_moments_window_reference(idx, bases, terms, G, shift)
     check_cuda("grid_moments_window", idx, bases, [])
     C = len(terms)
     if C * G >= 2 ** 31:
@@ -449,7 +508,7 @@ def grid_moments_window(idx, bases, terms, G):
     if idx.shape[0] >= 2 ** 31:
         raise ValueError(f"grid_moments_window: {idx.shape[0]} rows in one call; its 32-bit "
                          f"counts take fewer than 2^31")
-    counts, sums = _launch_b5(idx, bases, terms, G)
+    counts, sums = _launch_b5(idx, bases, terms, G, shift)
     grid_moments_window.launches += 1
     grid_moments_window.last_parts = n_parts(G, C, len(counts))
     return counts, sums

@@ -345,13 +345,14 @@ def moment_strategy(n, G, C, n_count=1, compiled=0):
     return _wide(n, G, C)
 
 
-def moment_sums(idx, bases, terms, G, out=None):
+def moment_sums(idx, bases, terms, G, out=None, shift=None):
     """(strategy, counts, sums) of the moment terms (the contract of
-    :mod:`.grid_moments`) through the route the plan picks.  On the wide
-    routes the terms are formed as columns in torch and B3 (or ``sort``)
-    adds them.  ``out`` holds per term a [G] row (int64 for a count term,
-    float64 else) or None, taken in place as in :func:`grid_sums`.  idx
-    None: every row in bin 0, G = 1, which B4 takes without an index."""
+    :mod:`.grid_moments`, each base less its ``shift``) through the route
+    the plan picks.  On the wide routes the terms are formed as columns in
+    torch, shifted as the kernels shift them, and B3 (or ``sort``) adds
+    them.  ``out`` holds per term a [G] row (int64 for a count term, float64
+    else) or None, taken in place as in :func:`grid_sums`.  idx None: every
+    row in bin 0, G = 1, which B4 takes without an index."""
     G = int(G)
     n = (idx if idx is not None else bases[0]).shape[0]
     n_count = sum(int(t[0]) < 0 for t in terms)
@@ -360,12 +361,12 @@ def moment_sums(idx, bases, terms, G, out=None):
         [row for row, t in zip(out, terms) if int(t[0]) < 0],
         [row for row, t in zip(out, terms) if int(t[0]) >= 0])
     if name in (B4, B5):
-        counts, sums = MOMENT_KERNELS[name](idx, bases, terms, G)
+        counts, sums = MOMENT_KERNELS[name](idx, bases, terms, G, shift)
         if out is None:
             return name, counts, sums
         return name, _added(rows[0], counts), _added(rows[1], sums)
-    grid_moments.check_inputs(idx, bases, terms, G)
-    count_cols, float_cols = grid_moments.form_terms(idx, bases, terms)
+    grid_moments.check_inputs(idx, bases, terms, G, shift=shift)
+    count_cols, float_cols = grid_moments.form_terms(idx, bases, terms, shift)
     return (name, *_wide_sums(name, idx, count_cols, float_cols, G, False, rows))
 
 

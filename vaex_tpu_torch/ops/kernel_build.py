@@ -19,6 +19,8 @@ import subprocess
 import tempfile
 import time
 
+import torch
+
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PACKAGE, "csrc")
 BUILD_DIR = os.path.join(_PACKAGE, "_build")
@@ -102,12 +104,17 @@ def raise_on_error(lib, name, code):
         raise RuntimeError(f"{name} launch failed: {message}")
 
 
+# the kinds of a float column (FLOAT_F64 / FLOAT_F32 / FLOAT_I64 in
+# csrc/grid_common.cuh): an int64 one is summed as float64
+FLOAT_KINDS = {torch.float64: 0, torch.float32: 1, torch.int64: 2}
+
+
 def column_args(int_cols, float_cols):
-    """HOST arrays of device pointers and float32 flags, as the kernels'
-    C interfaces take them."""
+    """HOST arrays of device pointers and float columns' kinds, as the
+    kernels' C interfaces take them."""
     int_ptrs = (ctypes.c_void_p * max(1, len(int_cols)))(*[c.data_ptr() for c in int_cols])
     float_ptrs = (ctypes.c_void_p * max(1, len(float_cols)))(
         *[c.data_ptr() for c in float_cols])
-    float_f32 = (ctypes.c_int * max(1, len(float_cols)))(
-        *[int(c.dtype.itemsize == 4) for c in float_cols])
-    return int_ptrs, float_ptrs, float_f32
+    float_kinds = (ctypes.c_int * max(1, len(float_cols)))(
+        *[FLOAT_KINDS[c.dtype] for c in float_cols])
+    return int_ptrs, float_ptrs, float_kinds

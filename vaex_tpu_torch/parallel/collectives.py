@@ -59,6 +59,17 @@ def extreme(values, op, mesh):
     return int(reduce(parts, op, mesh).cpu())
 
 
+def broadcast(t, mesh):
+    """Rank 0's tensor ``t`` on every process of the mesh, on
+    ``mesh.first`` (``t`` itself without a group)."""
+    if mesh.group is None:
+        return t
+    dist = _dist()
+    wire = t.to(mesh.first).clone()
+    dist.broadcast(wire, src=dist.get_global_rank(mesh.group, 0), group=mesh.group)
+    return wire
+
+
 def gather(parts, mesh):
     """Every shard's tensor (first dimensions may differ) on ``mesh.first``,
     in the global shard order."""

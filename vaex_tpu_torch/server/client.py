@@ -14,7 +14,7 @@ import json
 
 import numpy as np
 
-from .service import decode_result, encode_result
+from .service import DummyTransport, decode_result, encode_result  # noqa: F401  (re-exported)
 
 
 class WebsocketTransport:

@@ -26,6 +26,10 @@ Env vars (optional):
                             page-locked slots of one streamed pass hold: its
                             tile is clamped to fit (default 4 GiB)
 
+Dotted-key settings (``get`` / ``store``) are read at import from
+``~/.vaex_tpu_torch/main.yml`` where ``yaml`` imports; a missing or bad file
+leaves them empty and never breaks the import.
+
 A pass runs eagerly, tile by tile; every tile costs a few kernel launches
 and one fold of the kernel's per-CTA partials, so tiles are large.  On an
 NVIDIA H100 80GB HBM3 (power limit 700.00 W) a 1e8-row groupby(sum, count)
@@ -61,3 +65,41 @@ NUM_THREADS_IO = _int_env("VAEX_TPU_TORCH_NUM_THREADS_IO", 8)
 # config 1's two columns keep TILE_ROWS' tiles (3 slots of 2^26 rows at 18 B
 # a row: 3.6 GB); a 30-column float64 pass streams 2^22-row tiles
 STREAM_RING_BYTES = _int_env("VAEX_TPU_TORCH_STREAM_RING_BYTES", 4 << 30)
+
+_main = {}
+
+
+def _load_yaml():
+    """The dotted keys of ``~/.vaex_tpu_torch/main.yml`` (nested mappings
+    joined by dots) into the settings (vaex_tpu/settings.py:50-84)."""
+    path = os.path.join(os.path.expanduser("~"), ".vaex_tpu_torch", "main.yml")
+    if not os.path.exists(path):
+        return
+    try:
+        import yaml
+        with open(path) as f:
+            data = yaml.safe_load(f) or {}
+
+        def flatten(prefix, d):
+            for k, v in d.items():
+                key = f"{prefix}.{k}" if prefix else str(k)
+                if isinstance(v, dict):
+                    flatten(key, v)
+                else:
+                    _main[key] = v
+        flatten("", data)
+    except Exception:  # a bad file never breaks the import
+        pass
+
+
+_load_yaml()
+
+
+def get(key: str, default=None):
+    """The setting of a dotted key, or ``default``."""
+    return _main.get(key, default)
+
+
+def store(key: str, value):
+    """Set a dotted key for this process (the file is not written)."""
+    _main[key] = value

@@ -17,7 +17,7 @@ from .datatype import NAT, UINT64, DataType, host_values, order_image
 from .delayed import Promise
 from .ops.binners import fuse_bins, grid_shape, grid_size
 from .ops.grid_extreme import extreme_of_rows
-from .ops.grid_moments import MAX_BASES, MAX_TERMS
+from .ops.grid_moments import MAX_BASES, MAX_TERMS, shifted
 from .ops.nullable import NA, DictNA, unsigned_float
 from .ops.grid_plan import grid_extremes, grid_sums, grid_sums_and_extremes, moment_sums
 from .ops.setops import RowLimitException, SortedSet
@@ -251,7 +251,8 @@ class TaskAggregations(Task):
         """One kernel call of a moment batch: each batch term's first member
         hands the call its state's row of that term to add the tile into in
         place; the other members holding the term copy that row."""
-        bases = [moment_base(ctx.expr(e)) for e in batch.bases]
+        inputs = [moment_input(ctx.expr(e), s) for e, s in zip(batch.bases, batch.shifts)]
+        bases = [b for b, _ in inputs]
         out, copies = [None] * len(batch.terms), []
         for i, slots in batch.members:
             counts, sums = new_state[i]
@@ -265,7 +266,8 @@ class TaskAggregations(Task):
                     out[k] = row
                 else:
                     copies.append((row, k))
-        name, _, _ = moment_sums(idx, bases, batch.terms, G, out=out)
+        name, _, _ = moment_sums(idx, bases, batch.terms, G, out=out,
+                                 shift=[s for _, s in inputs])
         for row, k in copies:
             row.copy_(out[k])
         return name
@@ -457,14 +459,18 @@ def _flush_strings(state):
     state["labels"] = state["counts"] = None
 
 
-def moment_base(x):
-    """A base column of the moment kernels from one tile's NA: int64,
-    float32 or float64, with NaN in the masked rows and the NaT rows of a
-    datetime or timedelta (as float64)."""
-    d = x.data
+# the rows at the head of a frame that :func:`moment_shift` reads
+SHIFT_ROWS = 1024
+
+
+def _moment_data(x):
+    """(values, missing rows or None) of one tile's NA: int64 for integer,
+    bool and temporal values (NaT missing), the unsigned float of uint64
+    bits, float32 or float64 for floats."""
+    d, missing = x.data, x.mask
     if x.logical is not None and x.logical.kind in "mM":
         nat = d == NAT
-        x = NA(d, nat if x.mask is None else x.mask | nat)
+        missing = nat if missing is None else missing | nat
     if x.logical == UINT64:  # uint64 bits: their float value
         d = unsigned_float(d)
     elif d.is_floating_point():
@@ -472,9 +478,75 @@ def moment_base(x):
             d = d.to(torch.float64)
     else:
         d = d.to(torch.int64)
-    if x.mask is not None:
-        d = d.to(torch.float64).masked_fill(x.mask, torch.nan)
-    return d.contiguous()
+    return d, missing
+
+
+def moment_input(x, shift=None):
+    """(a base column of the moment kernels from one tile's NA, the shift
+    the kernel subtracts from it): int64, float32 or float64, with NaN in
+    the masked rows and the NaT rows of a datetime or timedelta (as
+    float64).  An int64 column that becomes float64 so (a masked int, a
+    datetime) is shifted here, in int64 before the cast, and hands the
+    kernel no shift.
+
+    Shifted moments: ``shift`` (:func:`moment_shift`) is one constant per
+    base and pass, the same on every tile and shard, so that the shifted
+    sums still merge by addition; var(x) = var(x - a) for any a.  It is a
+    guess near the data: a stale one (the column written in place since it
+    was read) or an unlucky one (an outlier in the first rows) costs
+    precision, never correctness."""
+    d, missing = _moment_data(x)
+    shift = None if shift is None else shift.to(d.device)
+    if missing is not None:
+        if d.dtype == torch.int64 and shift is not None:
+            d, shift = shifted(d, shift), None
+        d = d.to(torch.float64).masked_fill(missing, torch.nan)
+    return d.contiguous(), shift
+
+
+def _shift_key(df, expression):
+    """What a remembered shift of ``expression`` is kept under: the
+    expression, the virtual columns, and each column it reads by its
+    ``id`` (a tensor also by its version): a write that bumps the version
+    takes a new shift, one that does not keeps a stale one."""
+    from .scopes import classify_leaves
+    _, columns, _ = classify_leaves(df, expression)
+    cols = []
+    for name in sorted(c for c in columns if c in df.dataset):
+        col = df.dataset[name]  # held by the node that holds the memo: its id stays its own
+        cols.append((name, id(col), getattr(col, "_version", None)))
+    return ("moment shift", expression, frozenset(df.virtual_columns.items()), tuple(cols))
+
+
+def moment_shift(df, expression):
+    """The shift of ``expression``'s moment base (:func:`moment_input`): its
+    first valid value among the frame's first ``SHIFT_ROWS`` rows (filter
+    or not), 0 where none is valid, NaN or infinite; an int64 0-d tensor for
+    integer and temporal values (their counts), float64 else, on the
+    device the rows are read on, never read by the host.  Evaluated once and
+    remembered on the dataset node (:func:`_shift_key`); over a mesh of
+    several processes rank 0's shift, broadcast, so that every shard
+    shifts alike."""
+    mesh = getattr(df.executor, "sharded", None)
+    group = mesh is not None and mesh.group is not None
+    memo = df.dataset.remembered
+    key = _shift_key(df, expression)
+    if key in memo and not group:
+        return memo[key]
+    n = min(SHIFT_ROWS, df.dataset.row_count)
+    d, missing = _moment_data(df._evaluate_tile(expression, 0, n, filtered=False))
+    valid = torch.ones_like(d, dtype=torch.bool) if missing is None else ~missing
+    if d.is_floating_point():
+        d = d.to(torch.float64)
+        valid &= torch.isfinite(d)
+    zero = torch.zeros((), dtype=d.dtype, device=d.device)
+    shift = zero if n == 0 else torch.where(valid.any(), d[valid.to(torch.uint8).argmax()], zero)
+    if group:
+        from .parallel import collectives
+        shift = collectives.broadcast(shift, mesh)
+    else:
+        memo[key] = shift
+    return shift
 
 
 class _MomentBatch:
@@ -482,11 +554,13 @@ class _MomentBatch:
     both deduplicated, and per op the batch term of each of its terms."""
 
     def __init__(self):
-        self.bases, self.terms, self.keys, self.members = [], [], [], []
+        self.bases, self.shifts, self.terms, self.keys, self.members = [], [], [], [], []
 
     def add(self, i, op):
-        """Take op i if the batch stays within the kernels' limits."""
-        bases = self.bases + [e for e in dict.fromkeys(op.expressions) if e not in self.bases]
+        """Take op i if the batch stays within the kernels' limits; a base
+        keeps the shift of the first op that names it."""
+        new = [e for e in dict.fromkeys(op.expressions) if e not in self.bases]
+        bases = self.bases + new
         if len(bases) > MAX_BASES:
             return False
         where = [bases.index(e) for e in op.expressions]
@@ -503,6 +577,8 @@ class _MomentBatch:
             slots.append(keys.index(key))
         if len(terms) > MAX_TERMS:
             return False
+        shifts = dict(zip(op.expressions, op.shifts or [None] * len(op.expressions)))
+        self.shifts = self.shifts + [shifts[e] for e in new]
         self.bases, self.terms, self.keys = bases, terms, keys
         self.members.append((i, slots))
         return True

@@ -101,11 +101,16 @@ def identity(obj) -> int:
 
 
 def tensor_key(t):
-    """A tensor by its identity and version counter (which every in-place
-    write to it or to a view of its storage bumps), its place and layout:
-    exact, and it reads no element."""
-    return ("tensor", identity(t), t._version, str(t.device), str(t.dtype), tuple(t.shape),
-            t.stride(), t.storage_offset())
+    """(an exact key of a tensor's values, True), or (None, False) where it
+    has none.  A CPU tensor is keyed by a hash of all its bytes, as a host
+    array is: a write through ``.numpy()``, ``.data`` or an array that
+    shares its memory bumps no version counter, so its identity and version
+    are no exact key.  A card tensor has none (see :mod:`.cache`: its
+    results are not kept)."""
+    if t.device.type != "cpu":
+        return None, False
+    data = t.detach().contiguous().reshape(-1).view(torch.uint8).numpy()
+    return ("tensor", hash_array_data(data), str(t.dtype), tuple(t.shape)), True
 
 
 class Signal:
