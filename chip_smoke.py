@@ -308,8 +308,9 @@ Run from the root of the repository on a machine with a CUDA card.  It
     each query's own kernel and each of B1, B2, B3 (a route), B3x (a
     route), B4, B5 and B6 asserted launched on shard tiles; then config 1's
     groupby over a NCCL process group of one process, and two processes of
-    two shards each on the card over gloo with CUDA tensors (each
-    collective tried first); each query timed sharded and single-device
+    two shards each on the card over gloo with CUDA tensors (each of the
+    port's collectives tried first, a refusal failing the phase); each
+    query timed sharded and single-device
     (medians of 3, on the one card: no scaling); it prints its own JSON
     line.
 
@@ -382,6 +383,26 @@ Run from the root of the repository on a machine with a CUDA card.  It
     (corr, G = 10 609) shifted beside unshifted, and df.std(y), config 2's
     group and H2O q4 beside the old channels (no shift, an int mean's sum
     as int64), in turns; it prints its own JSON line.
+28. BASELINE config 5 across processes: two worker processes on the card,
+    joined over gloo (a file:// store; NCCL refuses two ranks on one GPU,
+    so the port's collectives send the CUDA tensors through page-locked
+    host memory), each driving two shards of cuda:0, a global mesh of four.
+    Each first runs every collective of the port on the card's tensors,
+    answers checked, then makes config 3's H2O table (1e8 rows) and config
+    4's fact (1e8, cut from 1e9 as in phase 24) and dim (1e7) tables whole
+    from seed 42 and answers q3, q7, q10, J1 (how="left" and "inner") and
+    J3 on one device (rank 0 also times them there and over phase 24's
+    four shards in one process), then keeps the rows whose row number
+    hashes (murmur3's finalizer) to its rank, frees the whole tables, and
+    answers the same over both processes: q3 and q7 through the all-to-all,
+    q10 through the fused exchange, J1 through the hash join whose
+    exchanges carry the label, J3 over the joined frame; each held to the
+    single device's (groupbys as in phase 24, both processes the whole
+    answer; each process's join rows equal to the whole-table join's at
+    its own rows, row for row), each route asserted in trace_log with
+    world 2 and no fall-back, B3 (a route) and B6 asserted launched in
+    both; then each query timed as the slower process's wall (medians of
+    3 after a warm-up); it prints its times and its own JSON line.
 
     python3 chip_smoke.py --profile 20 21 22 23
 
@@ -5209,17 +5230,17 @@ def phase24_scales(cols, name, n):
     return {}  # q10's and J3's sums are of terms >= 0: their own scale
 
 
-def phase24_check(name, got, want, scales):
+def phase24_check(name, got, want, scales, phase="phase 24"):
     """A sharded answer against the single-device pass's on the same tensors
     (raises): keys, counts, int sums, min / max, medians and join rows
     exactly; float sums within ``within_sum_bound``, means and stds within
-    that bound carried through their formulas."""
-    check(sorted(got) == sorted(want), f"phase 24 {name}: columns {sorted(got)} {sorted(want)}")
+    that bound carried through their formulas; ``phase`` names the failure."""
+    check(sorted(got) == sorted(want), f"{phase} {name}: columns {sorted(got)} {sorted(want)}")
     for column, w in want.items():
         g = got[column].to(w.device)  # a key column may come from the host on one side
         check(g.shape == w.shape and g.dtype == w.dtype,
-              f"phase 24 {name} {column}: {g.shape} {g.dtype} against {w.shape} {w.dtype}")
-        what = f"phase 24 {name} {column}: the sharded answer equals the single device's"
+              f"{phase} {name} {column}: {g.shape} {g.dtype} against {w.shape} {w.dtype}")
+        what = f"{phase} {name} {column}: the sharded answer equals the single device's"
         if not w.is_floating_point() or column in ("median_v3",):
             check(torch.equal(g, w), what)
             continue
@@ -5427,22 +5448,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 sys.path.insert(0, sys.argv[3])
+from chip_smoke import port_collectives
 rank, store, device = int(sys.argv[1]), sys.argv[2], sys.argv[5]
 dist.init_process_group("gloo", init_method="file://" + store, world_size=2, rank=rank)
-t = torch.arange(8, device=device, dtype=torch.int64) + rank
-tried = {}
-for name, call in [
-        ("all_reduce", lambda: dist.all_reduce(t.clone())),
-        ("all_gather", lambda: dist.all_gather([torch.empty_like(t) for _ in range(2)], t)),
-        ("all_to_all_single", lambda: dist.all_to_all_single(torch.empty_like(t), t)),
-        ("all_gather_object", lambda: dist.all_gather_object([None, None], rank))]:
-    try:
-        call()
-        if device == "cuda":
-            torch.cuda.synchronize()
-        tried[name] = "ok"
-    except Exception as e:
-        tried[name] = f"{type(e).__name__}: {str(e)[:160]}"
+tried = port_collectives(device)
 out = {"collectives": tried}
 if all(v == "ok" for v in tried.values()):
     import vaex_tpu_torch as vt
@@ -5474,9 +5483,9 @@ os._exit(0)
 
 def phase24_gloo(n=PHASE24_GLOO_ROWS, timeout=120, device="cuda"):
     """Two processes of two shards each on ``device``, their merges over
-    gloo: first each collective the port uses on that device's tensors;
-    where gloo takes them all, config 1's groupby over the four shards
-    against plain torch.  Returns each process's record with its exit code
+    gloo: first each collective of the port on that device's tensors
+    (:func:`port_collectives`); where they all answer, config 1's groupby
+    over the four shards against plain torch.  Returns each process's record with its exit code
     (``failed``: its output where it printed no result)."""
     import shutil
     import tempfile
@@ -5512,25 +5521,22 @@ def phase24_gloo(n=PHASE24_GLOO_ROWS, timeout=120, device="cuda"):
 
 
 def phase24_gloo_verdict(records):
-    """What the two gloo processes showed (raises otherwise): either a
-    collective refused the card's tensors, named in every record (the leg
-    is then left out), or each process exited 0 with a merge across the
-    two processes whose counts equal plain torch's and whose sums lie
-    within ``within_sum_bound``."""
+    """What the two gloo processes showed (raises otherwise): each process
+    exited 0, every collective took the device's tensors (a refusal, named,
+    fails the phase), and the merge across the two processes gave counts
+    equal to plain torch's and sums within ``within_sum_bound``."""
     check(len(records) == 2, f"phase 24 gloo: {len(records)} records of 2 processes")
     for r in records:
         check("failed" not in r and r.get("rc") == 0 and "collectives" in r,
               f"phase 24 gloo: a process failed: {r}")
     refused = [sorted(n for n, v in r["collectives"].items() if v != "ok") for r in records]
-    if any(refused):
-        check(refused[0] == refused[1], f"phase 24 gloo: the processes disagree: {records}")
-        return {"ran": False, "refused": refused[0]}
+    check(not any(refused), f"phase 24 gloo: a collective refused the tensors: {refused}")
     for r in records:
         check(r.get("merge_world") == 2,
               f"phase 24 gloo: the groupby's merge did not cross the processes: {r}")
         check(r.get("counts_exact") is True and r.get("sums_within_bound") is True,
               f"phase 24 gloo: the groupby across processes is wrong: {r}")
-    return {"ran": True, "refused": []}
+    return {"ran": True}
 
 
 def phase24_path(vt, plan, gp, probe, label):
@@ -7151,6 +7157,393 @@ def phase27_path(vt, plan, gp, probe, label, n=PHASE27_ROWS):
     return launches, record
 
 
+# phase 28: BASELINE config 5 across processes: two processes on one card,
+# each holding its hash-partitioned half of config 3's and config 4's tables
+# and driving two shards of it, the mesh of four spanning both over gloo
+PHASE28_SHARDS = 2  # a process; the global mesh has 4
+PHASE28_ROWS = 100_000_000  # config 3's H2O table in all: cut from config 5's 1e9
+PHASE28_FACT = 100_000_000  # config 4's fact table: cut from 1e9 (slack 4's buffers)
+PHASE28_DIM = 10_000_000
+PHASE28_REPS = 3
+PHASE28_TIMEOUT = 600  # seconds: the workers, and each collective's wait
+PHASE28_QUERIES = ("q3", "q7", "q10", "J1 left", "J1 inner", "J3")
+# the trace entry each query's exchange leaves, with world 2
+PHASE28_ROUTES = {"q3": "shuffle", "q7": "shuffle", "q10": "fused_mesh_groupby",
+                  "J1 left": "join", "J1 inner": "join", "J3": "mesh"}
+PHASE28_KERNELS = (("b3", "b3-l2"), ("b6", "b6-wide"))
+PHASE28_WORKER = r'''
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.phase28_worker(*sys.argv[2:])
+'''
+
+
+def phase28_own(n, rank, device):
+    """The rows a process keeps: those whose row number hashes (murmur3's
+    finalizer) to its rank, so that no key is co-located."""
+    from vaex_tpu_torch.parallel.join import _mix64
+    return (_mix64(torch.arange(n, device=device, dtype=torch.int64)) & 1) == rank
+
+
+def phase28_frames(vt, device, n, n_fact, n_dim):
+    """Config 3's H2O table (raw keys) and config 4's fact and dim tables,
+    whole, made on ``device`` from seed 42: their single-device frames and
+    the tensors."""
+    h2o = config3_columns(n, device)
+    fact, dim, _ = config4_tables(n_fact, n_dim, device)
+    return {"c3": vt.from_dataset(vt.DatasetArrays(dict(h2o))),
+            "fact": vt.from_dataset(vt.DatasetArrays(dict(fact))),
+            "dim": vt.from_dataset(vt.DatasetArrays(dict(dim))),
+            "cols": {**h2o, "fact_x": fact["x"], "fact_key": fact["key"], "label": dim["label"]}}
+
+
+def phase28_query(vt, name, frames):
+    """Query ``name`` over ``frames`` (c3, fact, dim; J3 reads "joined")."""
+    h2o = config3_questions(vt)
+    if name in ("q3", "q7", "q10"):
+        return h2o[name](frames["c3"])
+    if name == "J1 left":
+        return frames["fact"].join(frames["dim"], on="key")
+    if name == "J1 inner":
+        return frames["fact"].join(frames["dim"], on="key", how="inner")
+    return frames["joined"].groupby("label", agg={"x": "sum", "n": "count"})
+
+
+def phase28_joined(joined):
+    """A join's rows as tensors: the fact key and x, the label and its mask
+    (None: every row matched)."""
+    n = len(joined)
+    label = joined._evaluate_tile("label", 0, n)
+    return {"key": joined._evaluate_tile("key", 0, n).data,
+            "x": joined._evaluate_tile("x", 0, n).data, "label": label.data,
+            "mask": None if label.mask is None or not bool(label.mask.any()) else label.mask}
+
+
+def phase28_join_want(single, own):
+    """The single-device join of the whole tables cut to this process's left
+    rows: how="left" keeps them all, "inner" the matched ones."""
+    want = {k: None if v is None else v[own] for k, v in single.items()}
+    if want["mask"] is None or not bool(want["mask"].any()):
+        want["mask"] = None
+    return want
+
+
+def phase28_check_join(name, got, want):
+    """A join's rows against the single-device join's, row for row: the
+    fact key and x, the label and the mask of the unmatched rows exactly;
+    "inner" keeps the matched rows alone."""
+    if name == "J1 inner" and want["mask"] is not None:
+        keep = ~want["mask"]
+        want = {"key": want["key"][keep], "x": want["x"][keep], "label": want["label"][keep],
+                "mask": None}
+    check(got["key"].shape == want["key"].shape,
+          f"phase 28 {name}: {got['key'].shape[0]} rows against {want['key'].shape[0]}")
+    check((got["mask"] is None) == (want["mask"] is None)
+          and (got["mask"] is None or torch.equal(got["mask"], want["mask"])),
+          f"phase 28 {name}: the unmatched rows differ")
+    keep = slice(None) if want["mask"] is None else ~want["mask"]
+    for column in ("key", "x", "label"):
+        check(torch.equal(got[column][keep], want[column][keep]),
+              f"phase 28 {name} {column}: the rows differ from the single device's")
+
+
+def port_collectives(device):
+    """Each collective of the port (:mod:`vaex_tpu_torch.parallel.collectives`)
+    across the two processes of the default group on ``device``'s tensors,
+    two shards a process, its answer checked: {name: "ok" or what went
+    wrong}.  Under gloo a CUDA tensor crosses through host memory."""
+    from vaex_tpu_torch.parallel import collectives, data_mesh
+    mesh = data_mesh(devices=[device] * PHASE28_SHARDS)
+    r, d = mesh.rank, len(mesh.devices)
+    parts = [torch.arange(4, device=device, dtype=torch.int64) + r * d + i for i in range(d)]
+    want_sum = sum(torch.arange(4) + s for s in range(mesh.size))
+    cases = {
+        "reduce": lambda: torch.equal(collectives.reduce(parts, "sum", mesh).cpu(), want_sum),
+        "total": lambda: collectives.total([r * d + i for i in range(d)], mesh)
+        == sum(range(mesh.size)),
+        "extreme": lambda: collectives.extreme([r * d + i for i in range(d)], "max", mesh)
+        == mesh.size - 1,
+        "gather": lambda: [t.shape[0] for t in collectives.gather(
+            [torch.ones(r * d + i, device=device) for i in range(d)], mesh)]
+        == list(range(mesh.size)),
+        "objects": lambda: collectives.objects(r, mesh) == list(range(mesh.world)),
+        "broadcast": lambda: int(collectives.broadcast(
+            torch.tensor(r + 7, device=device), mesh)) == 7,
+        "all_to_all": lambda: all(torch.equal(
+            recv.cpu(), torch.arange(mesh.size) * 100 + r * d + j)
+            for j, recv in enumerate(collectives.all_to_all(
+                [torch.arange(mesh.size, device=device) + (r * d + i) * 100 for i in range(d)],
+                mesh))),
+    }
+    tried = {}
+    for name, call in cases.items():
+        try:
+            tried[name] = "ok" if call() else "a wrong answer"
+        except Exception as e:  # recorded: the verdict refuses the phase
+            tried[name] = f"{type(e).__name__}: {str(e)[:160]}"
+    return tried
+
+
+def _phase28_timed(fn, reps, across=False, warm=True):
+    """Median ms of ``reps`` runs after a warm-up (``warm``: one ran just
+    before); ``across``: each run the wall of the slower process (the
+    processes start it together)."""
+    import torch.distributed as dist
+    times = []
+    for rep in range(int(warm), reps + 1):
+        if across:
+            dist.barrier()
+        _sync()
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        dt = torch.tensor([(time.perf_counter() - t0) * 1e3], dtype=torch.float64)
+        if across:
+            dist.all_reduce(dt, op=dist.ReduceOp.MAX)
+        if rep:
+            times.append(float(dt))
+    return statistics.median(times)
+
+
+def phase28_worker(rank, store, n, n_fact, n_dim, device, reps):
+    """One process of phase 28: the whole tables and their single-device
+    answers (rank 0 also times them, and the four shards of phase 24 in one
+    process), then its own half over the mesh of both processes, each
+    query checked, its route and the launches read, then timed.  Prints
+    its record as ``RESULT {json}``."""
+    import datetime
+    import torch.distributed as dist
+    import vaex_tpu_torch as vt
+    from vaex_tpu_torch import cache
+    from vaex_tpu_torch.ops import grid_partition as gp
+    from vaex_tpu_torch.ops import grid_plan as plan
+    from vaex_tpu_torch.ops import probe
+    from vaex_tpu_torch.parallel import distributed_executor
+    from vaex_tpu_torch.parallel.mesh import Mesh
+    rank, n, n_fact, n_dim, reps = (int(v) for v in (rank, n, n_fact, n_dim, reps))
+    # gloo: NCCL refuses two ranks on one card
+    dist.init_process_group("gloo", init_method="file://" + store, world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=PHASE28_TIMEOUT))
+    record = {"rank": rank, "collectives": port_collectives(device), "queries": {}}
+    if any(v != "ok" for v in record["collectives"].values()):
+        print("RESULT " + json.dumps(record), flush=True)
+        dist.barrier()
+        dist.destroy_process_group()
+        os._exit(0)
+    t0 = time.perf_counter()
+
+    def progress(what):
+        print(f"rank {rank}: {what} at {time.perf_counter() - t0:.1f} s", flush=True)
+    with cache.off():
+        frames = phase28_frames(vt, device, n, n_fact, n_dim)
+        progress("tables made")
+        wants = {}
+        for name in PHASE28_QUERIES:
+            if name == "J1 inner":  # held to the left join's matched rows
+                continue
+            out = phase28_query(vt, name, frames)
+            if name == "J1 left":
+                frames["joined"] = out
+            wants[name] = phase28_joined(out) if name == "J1 left" else phase24_answer(out)
+        scales = {name: phase24_scales(frames["cols"], name, n) for name in ("q3", "q7", "q10")}
+        progress("single-device answers")
+        if rank == 0 and reps:
+            four = {k: phase24_sharded(frames[k], Mesh([device] * 4)) for k in ("c3", "fact")}
+            four["dim"] = frames["dim"]
+            four["joined"] = phase28_query(vt, "J1 left", four)
+            for name in PHASE28_QUERIES:
+                record["queries"][name] = {
+                    "single_ms": _phase28_timed(lambda: phase28_query(vt, name, frames), reps),
+                    "four_shards_ms": _phase28_timed(lambda: phase28_query(vt, name, four), reps)}
+            del four
+            progress("single device and four shards timed")
+        own_fact = phase28_own(n_fact, rank, device)
+        wants["J1 left"] = wants["J1 inner"] = phase28_join_want(wants["J1 left"], own_fact)
+        own = phase28_own(n, rank, device)
+        own_dim = phase28_own(n_dim, rank, device)
+        cols = frames["cols"]
+        halves = {"c3": {k: cols[k][own] for k in (*CONFIG3_KEYS, "v1", "v2", "v3")},
+                  "fact": {"key": cols["fact_key"][own_fact], "x": cols["fact_x"][own_fact]},
+                  "dim": {"key": frames["dim"].dataset["key"][own_dim],
+                          "label": cols["label"][own_dim]}}
+        del frames, cols, own, own_fact, own_dim
+        gc.collect()
+        _empty_cache()
+        mine = {}
+        for k, columns in halves.items():
+            mine[k] = vt.from_dataset(vt.DatasetArrays(columns))
+            mine[k].executor = distributed_executor(devices=[device] * PHASE28_SHARDS)
+        dist.barrier()
+        record["setup_s"] = time.perf_counter() - t0
+        progress("own rows staged")
+        zero_launches(plan, gp)
+        probe.probe.launches = probe.probe.wide_launches = 0
+        for name in PHASE28_QUERIES:
+            frame = mine["joined" if name == "J3" else ("fact" if name.startswith("J1") else "c3")]
+            log = frame.executor.trace_log
+            start = len(log)
+            out = phase28_query(vt, name, mine)
+            _sync()
+            if name == "J1 left":
+                mine["joined"] = out
+            record["queries"].setdefault(name, {}).update(
+                phase28_record(name, log[start:], out, wants[name], scales.get(name, {})))
+            progress(f"{name} over both processes, ok {record['queries'][name]['ok']}")
+        record["launches"] = {**launch_counts(plan, gp), "b6": probe.probe.launches,
+                              "b6-wide": probe.probe.wide_launches}
+        if reps:  # each query's checked run above was its warm-up
+            for name in PHASE28_QUERIES:
+                record["queries"][name]["world2_ms"] = _phase28_timed(
+                    lambda: phase28_query(vt, name, mine), reps, across=True, warm=False)
+                progress(f"{name} timed")
+    record["phase_s"] = time.perf_counter() - t0
+    print("RESULT " + json.dumps(record), flush=True)
+    # leave the group together, then end without the interpreter's teardown:
+    # gloo's threads torn down at exit can abort a process whose work is done
+    dist.barrier()
+    dist.destroy_process_group()
+    os._exit(0)
+
+
+def _empty_cache():
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def phase28_record(name, entries, out, want, scales):
+    """A world-2 query's check (``ok``, else the failure) and what its trace
+    says: the route's entries with their world, a fall-back to the classic
+    or the broadcast path, the exchange's bytes a shard and its slack."""
+    route = PHASE28_ROUTES[name]
+    taken = [e for e in entries if e.get(route)]
+    rec = {"route": route, "entries": len(taken),
+           "worlds": sorted({(e["mesh"] if route == "mesh" else e)["world"] for e in taken}),
+           "fallback": [e for e in entries
+                        if e.get("shuffle") in ("overflow", "replicated")
+                        or e.get("fused_mesh_groupby") == "classic"
+                        or e.get("join") in ("local", "broadcast")]}
+    exchange = [e for e in taken if "alltoall_bytes_per_device" in e]
+    if exchange:
+        rec.update({k: exchange[-1][k] for k in ("alltoall_bytes_per_device", "slack",
+                                                  "exchange_s", "gather_s")
+                    if k in exchange[-1]})
+    try:
+        if name.startswith("J1"):
+            phase28_check_join(name, phase28_joined(out), want)
+        else:
+            phase24_check(name, phase24_answer(out), want, scales, phase="phase 28")
+        rec["ok"] = True
+    except RuntimeError as e:
+        rec["ok"] = False
+        rec["error"] = str(e)[:300]
+    return rec
+
+
+def phase28_run(n=PHASE28_ROWS, n_fact=PHASE28_FACT, n_dim=PHASE28_DIM, device="cuda:0",
+                reps=PHASE28_REPS, timeout=PHASE28_TIMEOUT, env=None):
+    """Phase 28's two processes (gloo over a ``file://`` store, two shards of
+    ``device`` each); returns each one's record with its exit code
+    (``failed``: its output where it printed no result)."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="phase28-")
+    try:
+        script = os.path.join(tmp, "worker.py")
+        with open(script, "w") as f:
+            f.write(PHASE28_WORKER)
+        store = os.path.join(tmp, "store")
+        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(2)]
+        procs = []
+        for r, log in enumerate(logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, script, HERE, str(r), store, str(n), str(n_fact),
+                     str(n_dim), device, str(reps)], stdout=f, stderr=subprocess.STDOUT,
+                    text=True, env=dict(os.environ, **(env or {}))))
+        deadline = time.perf_counter() + timeout
+        try:
+            for p in procs:  # a worker past the deadline is killed: its log says how far
+                try:
+                    p.wait(timeout=max(deadline - time.perf_counter(), 1))
+                except subprocess.TimeoutExpired:
+                    pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs = []
+        for log in logs:
+            with open(log) as f:
+                outs.append(f.read())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    records = []
+    for p, out in zip(procs, outs):
+        if "RESULT " not in out or p.returncode != 0:
+            records.append({"failed": out[-3000:], "rc": p.returncode})
+        else:
+            records.append({**json.loads(out.split("RESULT ", 1)[1].splitlines()[0]),
+                            "rc": p.returncode, "progress": [
+                                line for line in out.splitlines() if line.startswith("rank ")]})
+    return records
+
+
+def phase28_verdict(records, kernels=True):
+    """What phase 28's processes showed (raises otherwise): both exited 0,
+    every collective took the device's tensors, every query's answer
+    equals the single device's, took its route with world 2 and fell back
+    nowhere; with ``kernels`` B3 (a route) and B6 were launched in each."""
+    check(len(records) == 2, f"phase 28: {len(records)} records of 2 processes")
+    for r in records:
+        check("failed" not in r and r.get("rc") == 0 and "collectives" in r,
+              f"phase 28: a process failed: {r}")
+        refused = {k: v for k, v in r["collectives"].items() if v != "ok"}
+        check(not refused, f"phase 28: a collective refused the tensors: {refused}")
+        check(sorted(r["queries"]) == sorted(PHASE28_QUERIES)
+              and all("ok" in q for q in r["queries"].values()),
+              f"phase 28: rank {r['rank']} ran {sorted(r['queries'])}")
+        for name, q in r["queries"].items():
+            check(q["ok"], f"phase 28 {name}: rank {r['rank']}: {q.get('error')}")
+            check(q["entries"] > 0 and q["worlds"] == [2] and not q["fallback"],
+                  f"phase 28 {name}: rank {r['rank']} did not take its route across the "
+                  f"processes: {q}")
+        if kernels:
+            for names in PHASE28_KERNELS:
+                check(any(r["launches"][k] > 0 for k in names),
+                      f"phase 28: rank {r['rank']} launched none of {names}: {r['launches']}")
+    return {"ok": True}
+
+
+def phase28_path(vt, plan, gp, probe, label):
+    """Phase 28 on the card (see the module's docstring).  Returns (the
+    launches of both processes' world-2 queries, the phase's record)."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    records = phase28_run()
+    phase28_verdict(records)
+    launches = {k: sum(r["launches"][k] for r in records) for k in records[0]["launches"]}
+    print(f"launches in both processes' world-2 queries during phase 28: {launches}", flush=True)
+    times = {name: {"world2_ms": records[0]["queries"][name]["world2_ms"],
+                    "four_shards_ms": records[0]["queries"][name]["four_shards_ms"],
+                    "single_ms": records[0]["queries"][name]["single_ms"]}
+             for name in PHASE28_QUERIES}
+    for name, t in times.items():
+        print(f"[{label}] phase 28 {name}: two processes x {PHASE28_SHARDS} shards "
+              f"{t['world2_ms']:.2f} ms; one process x 4 shards {t['four_shards_ms']:.3f} ms; "
+              f"one device {t['single_ms']:.3f} ms (medians of {PHASE28_REPS})", flush=True)
+    record = {"card": label, "processes": 2, "shards_per_process": PHASE28_SHARDS,
+              "rows": PHASE28_ROWS, "fact_rows": PHASE28_FACT, "dim_rows": PHASE28_DIM,
+              "reduced": "config 5's 1e9 rows to 1e8 (config 3's table and config 4's fact "
+                         "table, as phase 24); two processes on one card, not hosts",
+              "times": times, "launches": launches,
+              "ranks": [{k: v for k, v in r.items() if k != "launches"} for r in records],
+              "phase_s": time.perf_counter() - t_phase}
+    return launches, record
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7287,6 +7680,9 @@ def main():
 
     phase27_launches, phase27 = phase27_path(vt, plan, gp, probe, label)
     print(json.dumps({"phase27": phase27}), flush=True)
+
+    phase28_launches, phase28 = phase28_path(vt, plan, gp, probe, label)
+    print(json.dumps({"phase28": phase28}), flush=True)
     print(f"[{label}] chip_smoke.py took {time.perf_counter() - T_START:.1f} s", flush=True)
 
     measured = {plan.B1: (main_launches[plan.B1], results[MAIN_SIZES[0]]),
@@ -7332,6 +7728,7 @@ def main():
         "phase25_launches": phase25_launches[name],
         "phase26_launches": phase26_launches[name],
         "phase27_launches": phase27_launches[name],
+        "phase28_launches": phase28_launches[name],
         **{key: value for key, value in m.items() if key in EXTRA_KEYS},
     } for name, (launches, m) in measured.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

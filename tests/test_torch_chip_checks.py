@@ -935,12 +935,13 @@ def test_phase24_gloo_runs_two_processes_on_the_cpu():
     every collective takes them, the groupby merges across the processes
     and its answer passes the verdict."""
     records = chip_smoke.phase24_gloo(n=2000, timeout=120, device="cpu")
-    assert chip_smoke.phase24_gloo_verdict(records) == {"ran": True, "refused": []}
+    assert chip_smoke.phase24_gloo_verdict(records) == {"ran": True}
+    assert all(set(r["collectives"].values()) == {"ok"} for r in records)
     assert all(r["merge_world"] == 2 for r in records)
 
 
 _GLOO_OK = {"collectives": dict.fromkeys(
-    ("all_reduce", "all_gather", "all_to_all_single", "all_gather_object"), "ok"),
+    ("reduce", "total", "extreme", "gather", "objects", "broadcast", "all_to_all"), "ok"),
     "merge_world": 2, "counts_exact": True, "sums_within_bound": True, "rc": 0}
 
 
@@ -952,7 +953,7 @@ _GLOO_OK = {"collectives": dict.fromkeys(
     ({"rc": 1}, "a process failed"),
     ("failed", "a process failed"),
     ("missing", "records of 2"),
-    ("one refuses", "disagree"),
+    ("one refuses", "refused the tensors"),
 ])
 def test_the_phase24_gloo_verdict_refuses(bad, message):
     """A wrong count or sum, a merge that stayed in one process, a worker
@@ -963,7 +964,7 @@ def test_the_phase24_gloo_verdict_refuses(bad, message):
     elif bad == "missing":
         records = [_GLOO_OK]
     elif bad == "one refuses":
-        refused = dict(_GLOO_OK["collectives"], all_to_all_single="RuntimeError: no CUDA")
+        refused = dict(_GLOO_OK["collectives"], all_to_all="RuntimeError: no CUDA")
         records = [_GLOO_OK, {"collectives": refused, "rc": 0}]
     else:
         records = [_GLOO_OK, {**_GLOO_OK, **bad}]
@@ -972,13 +973,94 @@ def test_the_phase24_gloo_verdict_refuses(bad, message):
 
 
 def test_the_phase24_gloo_verdict_names_a_refused_collective():
-    """The leg left out: a collective that refused the card's tensors in
-    both processes, named in the verdict."""
-    refused = dict(_GLOO_OK["collectives"], all_to_all_single="RuntimeError: no CUDA")
+    """A collective that refused the card's tensors in both processes fails
+    the phase, named in the failure: the port's collectives carry a CUDA
+    tensor through host memory under gloo, so the leg is never left out."""
+    refused = dict(_GLOO_OK["collectives"], all_to_all="RuntimeError: no CUDA")
     records = [{"collectives": refused, "rc": 0}] * 2
-    assert chip_smoke.phase24_gloo_verdict(records) == {"ran": False,
-                                                        "refused": ["all_to_all_single"]}
+    with pytest.raises(RuntimeError, match="refused the tensors.*all_to_all"):
+        chip_smoke.phase24_gloo_verdict(records)
     assert chip_smoke.phase24_gloo_verdict([_GLOO_OK, _GLOO_OK])["ran"] is True
+
+
+# ------------------------------------------------------------------ phase 28
+@pytest.fixture(scope="module")
+def phase28():
+    """Phase 28's two processes on CPU tensors at a small size, the
+    all-to-all groupby reached at its 200 groups."""
+    return chip_smoke.phase28_run(n=20_000, n_fact=20_000, n_dim=2_000, device="cpu", reps=0,
+                                  timeout=240, env={"VAEX_TPU_TORCH_SHUFFLE_MIN_G": "10"})
+
+
+def test_phase28_runs_two_processes_on_the_cpu(phase28):
+    """Every query of phase 28 in both processes equals the single device's
+    over the whole tables and took its route with world 2; on the CPU no
+    kernel counts a launch, so the card's verdict refuses it."""
+    assert chip_smoke.phase28_verdict(phase28, kernels=False) == {"ok": True}
+    for r in phase28:
+        assert r["rc"] == 0 and set(r["collectives"].values()) == {"ok"}
+        assert {n: q["route"] for n, q in r["queries"].items()} == chip_smoke.PHASE28_ROUTES
+        assert all(q["worlds"] == [2] and q["ok"] for q in r["queries"].values())
+    with pytest.raises(RuntimeError, match="launched none of"):
+        chip_smoke.phase28_verdict(phase28)
+
+
+def _phase28_bad(phase28, bad):
+    import copy
+    records = copy.deepcopy(phase28)
+    r = records[1]
+    if bad == "refused":
+        r["collectives"]["all_to_all"] = "RuntimeError: no CUDA"
+    elif bad == "exit":
+        r["rc"] = 1
+    elif bad == "no result":
+        records[1] = {"failed": "Traceback ... RuntimeError", "rc": -6}
+    elif bad == "wrong row":
+        r["queries"]["J1 left"].update(ok=False, error="check failed: the rows differ")
+    elif bad == "world 1":
+        r["queries"]["q3"]["worlds"] = [1]
+    elif bad == "fallback":
+        r["queries"]["J1 inner"]["fallback"] = [{"join": "broadcast", "reason": "skew"}]
+    elif bad == "missing query":
+        del r["queries"]["q10"]
+    return records
+
+
+@pytest.mark.parametrize("bad, message", [
+    ("refused", "refused the tensors"), ("exit", "a process failed"),
+    ("no result", "a process failed"), ("wrong row", "J1 left"),
+    ("world 1", "did not take its route"), ("fallback", "did not take its route"),
+    ("missing query", "ran"),
+])
+def test_the_phase28_verdict_refuses(phase28, bad, message):
+    """A refused collective, a worker's non-zero exit or missing result, a
+    wrong row, a route that stayed in one process or fell back, a query not
+    run: each fails phase 28."""
+    with pytest.raises(RuntimeError, match=message):
+        chip_smoke.phase28_verdict(_phase28_bad(phase28, bad), kernels=False)
+
+
+@pytest.mark.parametrize("column", ["key", "x", "label", "mask"])
+def test_the_phase28_join_check_refuses_a_wrong_row(column):
+    """The join's rows against the single device's, row for row: one wrong
+    key, value or label, or one row matched where it was not, fails; the
+    inner join keeps the matched rows alone."""
+    rng = np.random.default_rng(3)
+    want = {"key": torch.as_tensor(rng.integers(0, 50, 40)), "x": torch.as_tensor(rng.random(40)),
+            "label": torch.as_tensor(rng.integers(0, 9, 40)),
+            "mask": torch.as_tensor(rng.random(40) < 0.2)}
+    got = {k: v.clone() for k, v in want.items()}
+    chip_smoke.phase28_check_join("J1 left", got, want)
+    keep = ~want["mask"]
+    chip_smoke.phase28_check_join("J1 inner", {"key": want["key"][keep], "x": want["x"][keep],
+                                               "label": want["label"][keep], "mask": None}, want)
+    row = int(torch.nonzero(keep)[0])
+    if column == "mask":
+        got["mask"][row] = True
+    else:
+        got[column][row] += 1
+    with pytest.raises(RuntimeError, match="check failed"):
+        chip_smoke.phase28_check_join("J1 left", got, want)
 
 
 def test_compare_smoke_logs_reads_every_time_and_flags_a_move(tmp_path):

@@ -319,23 +319,32 @@ def shard_walks(executor, df, dataset, inputs, mesh, tile_rows):
 def _from_cache(df, tasks, mesh=None):
     """The tasks the result cache cannot serve; it fulfills the others.
     Each cacheable task that misses keeps its key for the store; a sharded
-    pass's key holds its mesh."""
+    pass's key holds its mesh.  Over a mesh of several processes a task is
+    served only where every process holds it: a pass that one process runs
+    merges with every process."""
     cacheable = [t for t in tasks if t.cacheable]
     if not cacheable or not cache.is_on():
         return tasks
     frame, content = df._cache_key([e for t in cacheable for e in t.expressions])
     if frame is None:  # a card tensor: no exact key, nothing kept
         return tasks
+    keys, hits = {}, {}
+    for task in cacheable:
+        parts = (task.fingerprint(), frame) + (() if mesh is None else (mesh.key(),))
+        keys[task] = cache.key(*parts, content=content)
+        hits[task] = cache.lookup(keys[task])
+    if mesh is not None and mesh.group is not None:
+        from .parallel import collectives
+        held = torch.tensor([hits[t] is not None for t in cacheable])
+        held = collectives.reduce([held], "min", mesh).tolist()
+        hits = {t: hit if ok else None for (t, hit), ok in zip(hits.items(), held)}
     remaining = []
     for task in tasks:
         if task.cacheable:
-            parts = (task.fingerprint(), frame) + (() if mesh is None else (mesh.key(),))
-            key = cache.key(*parts, content=content)
-            hit = cache.lookup(key)
-            if hit is not None:
-                task.fulfill(hit)
+            if hits[task] is not None:
+                task.fulfill(hits[task])
                 continue
-            task._cache_key = key
+            task._cache_key = keys[task]
         remaining.append(task)
     return remaining
 

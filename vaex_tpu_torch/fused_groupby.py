@@ -58,7 +58,12 @@ out sorted.  No set is built.  A bucket past its capacity retries with
 twice the slack, and gives the query to the classic path after
 ``MESH_RETRIES`` doublings.  On a mesh a median or percentile always takes
 this plan, whatever the keys' spans: the classic path's exact percentile
-cannot merge row shards.
+cannot merge row shards.  Over a mesh of several processes every decision
+that leads to an exchange is taken over every process's rows (the row
+count, the keys' ranges, a missing value, a cached result), each process
+sends its own rows, and the owners' segments are gathered to every
+process; a string key's codes differ from process to process, so such a
+key takes the classic path there.
 """
 
 from __future__ import annotations
@@ -123,14 +128,15 @@ def try_fused_sort_groupby(df, by, actions, ascending=True, row_limit=None):
     if row_limit is not None or df.filtered:
         return None
     mesh = getattr(df.executor, "sharded", None)
-    if mesh is not None and mesh.world > 1:
-        return None  # the classic path's merges cross the processes
+    across = mesh is not None and mesh.world > 1
     key_names, labels = [], {}
     for b in by if isinstance(by, (list, tuple)) else [by]:
         name = b.expression if isinstance(b, Expression) else b
         if not isinstance(name, str) or not df._is_physical(name):
             return None
         codes = _staged_codes(df, name)
+        if codes is not None and across:
+            return None  # each process's codes index its own labels
         if codes is not None:  # a staged string key: its codes
             labels[codes] = (name, df.dataset[name].labels)
             name = codes
@@ -147,6 +153,9 @@ def try_fused_sort_groupby(df, by, actions, ascending=True, row_limit=None):
     if len(key_names) > 1 and not all(a is True for a in ascending):
         return None  # a descending key among several: classic path
     n = len(df)
+    if across:
+        from .parallel import collectives
+        n = collectives.total([n], mesh)
     if n == 0 or n > DENSE_RANK_MAX_ROWS:
         return None
     plan = _agg_plan(df, parse_actions(df, key_names, actions))
@@ -169,6 +178,8 @@ def try_fused_sort_groupby(df, by, actions, ascending=True, row_limit=None):
     parts = ("one-sort groupby", frame, key_names, ascending[0], plan)
     cache_key = cache.key(*parts, *(() if mesh is None else (mesh.key(),)), content=content)
     columns = None if frame is None else cache.lookup(cache_key)
+    if across and collectives.total([columns is None], mesh):
+        columns = None  # a process that must sort: every process sorts
     if columns is not None:  # the result columns, on the device the sort ran on
         from . import from_dict
         result = from_dict(dict(columns))
@@ -259,16 +270,25 @@ def _run(df, key_names, plan, ascending, remembered, mesh=None):
         device = _pass_device(dataset, names)
         shards = [{name: _column(dataset, name, device) for name in names}]
     else:
+        from .parallel import collectives
         device = mesh.first
         shards = _mesh_columns(df, names, mesh)
-    if any(c is None for shard in shards for c in shard.values()):
+    missing = any(c is None for shard in shards for c in shard.values())
+    if mesh is not None:  # a missing value in any process
+        missing = collectives.total([missing], mesh) > 0
+    if missing:
         return None
     keys = [[shard[name].to(torch.int64) for name in key_names] for shard in shards]
     # per shard one read of every key's (min, max); an empty shard bounds nothing
     bounds = [torch.stack([torch.stack(torch.aminmax(k)) for k in ks]).tolist()
               if ks[0].numel() else [(2 ** 63 - 1, -2 ** 63)] * len(ks) for ks in keys]
-    bounds = [(min(b[i][0] for b in bounds), max(b[i][1] for b in bounds))
-              for i in range(len(key_names))]
+    if mesh is None:
+        bounds = [(min(b[i][0] for b in bounds), max(b[i][1] for b in bounds))
+                  for i in range(len(key_names))]
+    else:  # over every shard of every process
+        bounds = [(collectives.extreme([b[i][0] for b in bounds], "min", mesh),
+                   collectives.extreme([b[i][1] for b in bounds], "max", mesh))
+                  for i in range(len(key_names))]
     if any(name in remembered and not remembered[name][0] <= lo <= hi <= remembered[name][1]
            for name, (lo, hi) in zip(key_names, bounds)):
         _forget(df)
@@ -364,7 +384,8 @@ def _run_mesh(mesh, packed, shards, key_names, plan, spans, words, pct_name, rec
         packings = [Packing(((w[0].to(torch.int64) - kmin) // width).clamp(0, S - 1), S, cap)
                     for w in packed]
         dropped = collectives.total([p.overflow for p in packings], mesh)
-        record.update({"fused_mesh_groupby": True, "devices": S, "exchanges": 1,
+        record.update({"fused_mesh_groupby": True, "devices": S, "world": mesh.world,
+                       "exchanges": 1,
                        "set_build_passes": 0, "slack": slack, "attempt": attempt,
                        "rows_per_device": n_local, "capacity_rows_per_device": S * cap,
                        "row_bytes": row_bytes, "alltoall_bytes_per_device": S * cap * row_bytes,
@@ -378,8 +399,10 @@ def _run_mesh(mesh, packed, shards, key_names, plan, spans, words, pct_name, rec
     channels = [([w[j] for w in packed], -1 if j == 0 else 0) for j in range(len(words))]
     channels += [([shard[n] for shard in shards], 0) for n in values]
     from .parallel.shuffle import exchange
+    t0 = time.perf_counter()  # host clock: the exchange's and the gather's walls
     received = exchange(mesh, packings, channels)
-    outs, G = [], 0
+    record["exchange_s"] = time.perf_counter() - t0
+    outs = []
     for d in range(len(mesh.devices)):
         real = torch.nonzero(received[0][d] >= 0).squeeze(1)
         mine = [r[d].index_select(0, real) for r in received]
@@ -388,11 +411,13 @@ def _run_mesh(mesh, packed, shards, key_names, plan, spans, words, pct_name, rec
             for name, key in zip(key_names[first:last],
                                  _unpack(mine[w].to(torch.int64), spans, first, last)):
                 columns.setdefault(name, key)
-        out, g, _ = _reduce(mine[:len(words)], columns, key_names, plan, spans, words, pct_name)
+        out, _, _ = _reduce(mine[:len(words)], columns, key_names, plan, spans, words, pct_name)
         outs.append(out)
-        G += g
-    parts = {name: collectives.gather([o[name] for o in outs], mesh) for name in outs[0]}
-    return {name: torch.cat(p) for name, p in parts.items()}, G, n_rows
+    t0 = time.perf_counter()
+    parts = {name: torch.cat(collectives.gather([o[name] for o in outs], mesh))
+             for name in outs[0]}
+    record["gather_s"] = time.perf_counter() - t0
+    return parts, next(iter(parts.values())).shape[0], n_rows
 
 
 def _reduce(packed, columns, key_names, plan, spans, words, pct_name):

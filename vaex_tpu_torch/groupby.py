@@ -315,11 +315,19 @@ def _sampled_range_too_wide(df, name):
     if df.filtered or not df._is_physical(name):
         return False
     col = df.dataset[name]
-    if (not isinstance(col, (np.ndarray, torch.Tensor)) or isinstance(col, np.ma.MaskedArray)
-            or len(col) == 0):
+    if not isinstance(col, (np.ndarray, torch.Tensor)) or isinstance(col, np.ma.MaskedArray):
         return False
-    sample = col[::max(1, len(col) // 4096)]
-    return int(sample.max()) - int(sample.min()) + 1 > DENSE_RANGE_MAX
+    wide = False
+    if len(col):
+        sample = col[::max(1, len(col) // 4096)]
+        wide = int(sample.max()) - int(sample.min()) + 1 > DENSE_RANGE_MAX
+    mesh = getattr(df.executor, "sharded", None)
+    if mesh is not None and mesh.group is not None:
+        # each process samples its own rows: one wide sample makes the
+        # union wide, and every process must skip the pre-pass alike
+        from .parallel import collectives
+        wide = collectives.total([wide], mesh) > 0
+    return wide
 
 
 def _dense_candidates(names, df, row_limit):
@@ -562,9 +570,11 @@ class GroupBy:
         None where the replicated grids run: no sharded executor, at most
         ``SHUFFLE_MIN_G`` groups, an aggregation the exchange does not
         carry, or a skew that the slack retries do not absorb
-        (vaex_tpu/groupby.py:733-778)."""
+        (vaex_tpu/groupby.py:733-778).  Over a mesh of several processes
+        each process sends its own rows, owners and capacity count every
+        process's, and every process ends with the whole result."""
         mesh = getattr(self.df.executor, "sharded", None)
-        if mesh is None or mesh.world > 1:
+        if mesh is None:
             return None
         if any(not hasattr(g, "ordinal_expression") for g in self.by):
             return None
@@ -888,7 +898,7 @@ def _run_shuffle_plan(df, ordinal_expression, plan, G, mesh, slack=4, max_retrie
             return {name: fin(out) for name, fin in finishers.items()}, out["count"]
         slack *= 2
     df.executor.trace_log.append({"shuffle": "replicated", "G": int(G), "dropped": dropped,
-                                  "slack": slack // 2})
+                                  "slack": slack // 2, "world": mesh.world})
     return None
 
 

@@ -27,6 +27,16 @@ right rows hold no duplicate key.  A string or masked key, a skew that slack
 16 does not absorb, and duplicate right keys with ``allow_duplication``
 take the path above; duplicate right keys without it raise, as there.
 ``trace_log`` records which.
+
+Over a mesh of several processes each process holds its own rows of both
+frames, and joins its left rows against the union, in rank order, of
+every process's right rows (:func:`_across_processes`).  The hash route's
+exchanges carry the right columns to the owners and the matched values
+back, so that the right columns become tensors in the left rows' order.
+Where one process alone would take the path above, every process gathers
+the whole right frame (``collectives.gather``, the strings' labels merged
+through ``collectives.objects``) and takes that path over it; ``trace_log``
+records ``{"join": "broadcast", "reason": ...}``.
 """
 
 from __future__ import annotations
@@ -59,7 +69,10 @@ def join(left, right, on=None, left_on=None, right_on=None, lprefix="", rprefix=
     args = (left_on, right_on, how, allow_duplication)
 
     lookup = None
-    if mesh is not None and mesh.size > 1 and not strings[0]:
+    if mesh is not None and mesh.size > 1 and mesh.world > 1:
+        right, lookup = _across_processes(left, right, left_on, right_on, mesh,
+                                          allow_duplication, strings[0])
+    elif mesh is not None and mesh.size > 1 and not strings[0]:
         lookup = _mesh_lookup(left, right, left_on, right_on, mesh, allow_duplication)
     if lookup is not None:
         extra_left = lookup.new_empty(0)
@@ -139,17 +152,14 @@ def _mesh_lookup(left, right, left_on, right_on, mesh, allow_duplication):
     the left executor records the route."""
     from .parallel.join import lookup_retried
     from .parallel.shuffle import shard_values
-    if mesh.world > 1:
-        raise NotImplementedError("a join over a mesh across processes: each process holds "
-                                  "only its own rows of the right frame (ROADMAP)")
     log = left.executor.trace_log
     lvals = [v[left_on] for v in shard_values(left, [left_on], mesh)]
     rvals = [v[right_on] for v in shard_values(right, [right_on], mesh)]
     if any(x.mask is not None and bool(x.mask.any()) for x in lvals + rvals):
         log.append({"join": "local", "reason": "masked key"})
         return None
-    lookup, overflow, dups = lookup_retried(mesh, [x.data for x in lvals],
-                                            [x.data for x in rvals], log)
+    lookup, overflow, dups, _ = lookup_retried(mesh, [x.data for x in lvals],
+                                               [x.data for x in rvals], log)
     if overflow:
         log.append({"join": "local", "reason": "skew"})
         return None
@@ -160,6 +170,79 @@ def _mesh_lookup(left, right, left_on, right_on, mesh, allow_duplication):
         log.append({"join": "local", "reason": "duplicate right keys"})
         return None
     return lookup.to(torch.int32) if right.dataset.row_count < 2 ** 31 else lookup
+
+
+def _across_processes(left, right, left_on, right_on, mesh, allow_duplication, string_key):
+    """(the right frame the join's tail takes rows of, the lookup into it)
+    over a mesh of several processes.  The hash route: a frame of the right
+    columns' values fetched for this process's left rows, in their order,
+    and the lookup of each matched row to itself (-1: none).  Else, with a
+    string or masked key in any process, a skew past slack 16 or duplicate
+    right keys under ``allow_duplication``: the whole right frame gathered
+    to every process and no lookup, so that the local path runs over it.
+    Duplicate right keys without ``allow_duplication`` raise."""
+    from .parallel import collectives
+    from .parallel.join import column_wire, lookup_retried
+    from .parallel.shuffle import shard_values
+    log = left.executor.trace_log
+    codes = {meta.get("codes_column") for meta in right._categories.values()} & set(right.dataset)
+    physical = [n for n in right.get_column_names(hidden=True)
+                if n not in codes and n not in right.virtual_columns]
+    rvals = shard_values(right, [right_on] + physical, mesh)
+    reason = "string key" if string_key else None
+    if reason is None:
+        lvals = [v[left_on] for v in shard_values(left, [left_on], mesh)]
+        keys = lvals + [v[right_on] for v in rvals]
+        if collectives.total([x.mask is not None and bool(x.mask.any()) for x in keys], mesh):
+            reason = "masked key"
+    if reason is None:
+        # the shared key collapses to the left column: its right values stay
+        shared = right_on == left_on and left_on in left.get_column_names(hidden=True)
+        names = [n for n in physical if not (shared and n == right_on)]
+        wires = [column_wire([v[n] for v in rvals], mesh) for n in names]
+        lookup, overflow, dups, values = lookup_retried(
+            mesh, [x.data for x in lvals], [v[right_on].data for v in rvals], log,
+            payload=[channel for channels, _ in wires for channel in channels])
+        if overflow:
+            reason = "skew"
+        elif dups and not allow_duplication:
+            raise ValueError("joining with duplicate keys on the right requires "
+                             "allow_duplication=True")
+        elif dups:
+            reason = "duplicate right keys"
+        else:
+            columns, at = {}, 0
+            for name, (channels, make) in zip(names, wires):
+                columns[name] = make(values[at:at + len(channels)])
+                at += len(channels)
+            rows = torch.arange(lookup.shape[0], device=lookup.device)
+            lookup = torch.where(lookup >= 0, rows, -1)
+            if lookup.shape[0] < 2 ** 31:
+                lookup = lookup.to(torch.int32)
+            return _right_frame(right, columns, rvals, mesh, codes), lookup
+    log.append({"join": "broadcast", "reason": reason, "world": mesh.world})
+    columns = {}
+    for name in physical:
+        channels, make = column_wire([v[name] for v in rvals], mesh)
+        columns[name] = make([torch.cat(collectives.gather(parts, mesh))
+                              for parts, _ in channels])
+    return _right_frame(right, columns, rvals, mesh, codes), None
+
+
+def _right_frame(right, columns, values, mesh, codes):
+    """``right`` over the tensors ``columns`` on ``mesh.first``: its virtual
+    columns and variables kept, a staged string's codes column and category
+    dropped (its codes index the merged labels now), a plain executor."""
+    from .dataset import DatasetArrays
+    from .execution import ExecutorLocal
+    logical = {n: values[0][n].logical for n in columns
+               if getattr(values[0][n], "logical", None) is not None}
+    out = right._rebind_dataset(DatasetArrays(columns, logical, mesh.first), keep_filter=False)
+    out.column_names = [n for n in right.column_names if n not in codes]
+    out._categories = {k: m for k, m in right._categories.items()
+                       if m.get("codes_column") not in codes}
+    out.executor = ExecutorLocal()
+    return out
 
 
 def _string_index(left, left_on, right, right_on):

@@ -8,9 +8,14 @@ mesh's first device, so that a sharded float result is the same bit for bit
 from run to run; the all-to-all is D x D slice copies.  Where the mesh
 has a process group (a world of one too) the collectives go on through
 ``torch.distributed`` (``all_reduce`` SUM / MIN / MAX, ``all_gather``,
-``all_to_all_single``, ``all_gather_object``): NCCL carries CUDA shards,
-gloo CPU ones.  A shard's place in the global order is ``rank *
-len(devices) + d``.
+``all_to_all_single``, ``all_gather_object``): NCCL carries CUDA shards
+between cards.  Two processes that share one card cannot both join NCCL
+(it refuses a second rank on one GPU) and take gloo, whose own support of
+CUDA tensors differs from collective to collective and from one torch to
+the next; so under a gloo group a CUDA tensor always crosses through
+page-locked host memory (:func:`_wire`), the host copy being gloo's
+transport.  A shard's place in the global order is ``rank * len(devices)
++ d``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,17 @@ def _dist():
     return dist
 
 
+def _wire(t, mesh):
+    """``t`` as the group's backend carries it: under gloo a CUDA tensor's
+    copy in page-locked host memory, else ``t`` itself (contiguous)."""
+    t = t.contiguous()
+    if t.device.type != "cuda" or _dist().get_backend(mesh.group) != "gloo":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
+
+
 def reduce(parts, op, mesh):
     """``op`` ("sum", "min", "max" or "or") over the shards' tensors of one
     shape, folded in shard order; one tensor on ``mesh.first``.  An int64
@@ -37,11 +53,11 @@ def reduce(parts, op, mesh):
     if mesh.group is None:
         return acc
     dist = _dist()
-    wire = acc.to(torch.uint8) if acc.dtype == torch.bool else acc.clone()
+    wire = _wire(acc.to(torch.uint8) if acc.dtype == torch.bool else acc.clone(), mesh)
     reduce_op = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
                  "max": dist.ReduceOp.MAX, "or": dist.ReduceOp.MAX}[op]
     dist.all_reduce(wire, op=reduce_op, group=mesh.group)
-    return wire.to(acc.dtype)
+    return wire.to(device=acc.device, dtype=acc.dtype)
 
 
 def total(values, mesh):
@@ -65,9 +81,9 @@ def broadcast(t, mesh):
     if mesh.group is None:
         return t
     dist = _dist()
-    wire = t.to(mesh.first).clone()
+    wire = _wire(t.to(mesh.first).clone(), mesh)
     dist.broadcast(wire, src=dist.get_global_rank(mesh.group, 0), group=mesh.group)
-    return wire
+    return wire.to(mesh.first)
 
 
 def gather(parts, mesh):
@@ -79,17 +95,18 @@ def gather(parts, mesh):
     dist = _dist()
     rows = [[None] * len(local) for _ in range(mesh.world)]
     for i, t in enumerate(local):
-        wire = (t.to(torch.uint8) if t.dtype == torch.bool else t).contiguous()
-        size = torch.tensor([wire.shape[0]], dtype=torch.int64, device=wire.device)
+        wire = t.to(torch.uint8) if t.dtype == torch.bool else t
+        size = _wire(torch.tensor([wire.shape[0]], dtype=torch.int64, device=wire.device), mesh)
         sizes = [torch.empty_like(size) for _ in range(mesh.world)]
         dist.all_gather(sizes, size, group=mesh.group)
         sizes = [int(s) for s in sizes]
         padded = wire.new_zeros((max(sizes),) + tuple(wire.shape[1:]))
         padded[:wire.shape[0]] = wire
+        padded = _wire(padded, mesh)
         bufs = [torch.empty_like(padded) for _ in range(mesh.world)]
         dist.all_gather(bufs, padded, group=mesh.group)
         for r in range(mesh.world):
-            rows[r][i] = bufs[r][:sizes[r]].to(t.dtype)
+            rows[r][i] = bufs[r][:sizes[r]].to(device=t.device, dtype=t.dtype)
     return [t for row in rows for t in row]
 
 
@@ -123,12 +140,12 @@ def all_to_all(sends, mesh):
     rest = tuple(sends[0].shape[1:])
     stacked = torch.stack([s.to(mesh.first) for s in sends])
     stacked = stacked.reshape((local, mesh.world, local) + rest).transpose(0, 1)
-    wire = stacked.contiguous()
-    boolean = wire.dtype == torch.bool
-    if boolean:
-        wire = wire.to(torch.uint8)
-    out = torch.empty_like(wire)
+    boolean = stacked.dtype == torch.bool
+    wire = _wire(stacked.to(torch.uint8) if boolean else stacked, mesh)
+    out = torch.empty(wire.shape, dtype=wire.dtype, device=wire.device,
+                      pin_memory=wire.is_pinned())
     _dist().all_to_all_single(out, wire, group=mesh.group)
+    out = out.to(mesh.first)
     if boolean:
         out = out.to(torch.bool)
     # out: [world (source rank), local src, local dst, cap, ...]

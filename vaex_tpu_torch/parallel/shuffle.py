@@ -14,9 +14,16 @@ Capacity: a bucket holds ``cap = max(64, slack * n_local // S)`` rows
 (``n_local`` the rows of a shard, ``S`` the shards); the rows past it are
 counted as dropped before anything is sent, and the caller retries with
 more slack.  Rows whose code lies outside ``[0, G)`` go to no one.
+
+Across processes (a mesh whose group has ``world > 1``) each process packs
+its own rows; a shard's place is its global index ``rank * len(devices) +
+d``, the capacity and the dropped rows count every process's rows, so that
+all retry alike, and every owner's grid is gathered to every process.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -109,7 +116,7 @@ def shuffle_grids(mesh, codes, G, slack=4, int_cols=(), float_cols=(), ext_cols=
     dropped = collectives.total([p.overflow for p in packings], mesh)
     row_bytes = (8 + 8 * (len(int_cols) + len(float_cols) + len(bases)) + 12 * len(nu_cols)
                  + sum(parts[0].element_size() for parts in ext_cols))
-    trace = {"shuffle": True, "G": int(G), "devices": S, "rows": n_rows,
+    trace = {"shuffle": True, "G": int(G), "devices": S, "world": mesh.world, "rows": n_rows,
              "rows_per_device": n_local, "slack": slack, "capacity": cap,
              "row_bytes": row_bytes, "alltoall_bytes_per_device": S * cap * row_bytes,
              "dropped": dropped}
@@ -122,7 +129,9 @@ def shuffle_grids(mesh, codes, G, slack=4, int_cols=(), float_cols=(), ext_cols=
     channels += [(c, float("nan")) for c in bases]
     for bits, aux in nu_cols:
         channels += [(bits, 0), (aux, NU_NONE)]
+    t0 = time.perf_counter()  # host clock: the exchange's and the gather's walls
     received = exchange(mesh, packings, channels)
+    trace["exchange_s"] = time.perf_counter() - t0
     k = 1 + len(int_cols) + len(float_cols)
     e = k + len(ext_cols)
     m = e + len(bases)
@@ -151,6 +160,8 @@ def shuffle_grids(mesh, codes, G, slack=4, int_cols=(), float_cols=(), ext_cols=
         per_shard.append(out)
     trace["strategies"] = strategies
 
+    t0 = time.perf_counter()
+
     def joined(pick):
         return torch.cat(collectives.gather([pick(o) for o in per_shard], mesh))[:G]
     result = {"count": joined(lambda o: o["count"]),
@@ -162,6 +173,7 @@ def shuffle_grids(mesh, codes, G, slack=4, int_cols=(), float_cols=(), ext_cols=
                                                         mesh), dim=1)[:, :G])
                           for i in range(len(bases))],
               "nu": [joined(lambda o, i=i: o["nu"][i]) for i in range(len(nu_cols))]}
+    trace["gather_s"] = time.perf_counter() - t0
     return result, 0, trace
 
 
