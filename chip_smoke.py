@@ -403,6 +403,21 @@ Run from the root of the repository on a machine with a CUDA card.  It
     world 2 and no fall-back, B3 (a route) and B6 asserted launched in
     both; then each query timed as the slower process's wall (medians of
     3 after a warm-up); it prints its times and its own JSON line.
+29. vaex_tpu's keyword arguments on BASELINE config 1 (1e8 rows made on
+    the card from seed 42: i1 int64 of 100 categories, categorized; x
+    float64 in [0, 1); y float32 = x + N(0, 0.1)): every call of ROADMAP
+    A16's table (array_type, progress, delay, copy, merge, square, shape,
+    percentage, filtered, dropfilter, kind, check, resolver, the
+    data_type arguments, use_hashmap, axis, ourself, expand_virtual; the
+    sort on a head of 1e6 rows, which the port argsorts on the host) once
+    with the arguments and once without, the two answers bit-equal, and
+    each held to plain torch on the same tensors (ints, extremes and
+    names exact, floats rtol 1e-9, the approximate percentiles within two
+    bins of their grid); the groupby with delay=True and two delayed
+    statistics answered by one df.execute() in one pass; B1, B2, B4 and B6
+    asserted launched; then every call timed with and without its
+    arguments in turns, the first of each turn alternating (medians of
+    5); it prints its own JSON line.
 
     python3 chip_smoke.py --profile 20 21 22 23
 
@@ -7544,6 +7559,317 @@ def phase28_path(vt, plan, gp, probe, label):
     return launches, record
 
 
+# phase 29: vaex_tpu's keyword arguments on BASELINE config 1, each call
+# beside the same call without them and beside plain torch
+PHASE29_ROWS = 100_000_000
+PHASE29_SORT_ROWS = 1_000_000  # the port's sort argsorts on the host: a head
+PHASE29_TAKE = [0, 1, 2, 3, 5, 8, 13, 21, 34, 55]
+PHASE29_KERNELS = ("b1", "b2", "b4", "b6")
+PHASE29_RTOL = 1e-9  # section 2's float contract against plain torch
+PHASE29_BINS = 1024 * 16  # percentile_approx's count grid
+
+
+def phase29_columns(n, device, seed=SEED):
+    """Config 1's key i1 in [0, K) and value x (float64 in [0, 1)), and a
+    float32 y = x + N(0, 0.1), all from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed + 29)
+    i1 = torch.randint(0, K, (n,), generator=gen, device=device, dtype=torch.int64)
+    x = torch.rand(n, generator=gen, device=device, dtype=torch.float64)
+    y = (x + 0.1 * torch.randn(n, generator=gen, device=device, dtype=torch.float64))
+    return {"i1": i1, "x": x, "y": y.to(torch.float32)}
+
+
+def phase29_frame(vt, cols):
+    df = vt.from_dataset(vt.DatasetArrays(cols))
+    return df.categorize("i1", labels=range(K))
+
+
+def phase29_value(out):
+    """A call's answer as plain values: a promise's value, a frame's columns,
+    a binned array's grid, a Series' items, a DataType's name."""
+    if hasattr(out, "get") and hasattr(out, "done"):
+        out = out.get()
+    if hasattr(out, "get_column_names"):
+        return {name: np.asarray(out[name].tolist()) for name in out.get_column_names()}
+    if hasattr(out, "dims"):
+        return np.asarray(out)
+    if hasattr(out, "to_dict") and hasattr(out, "index"):
+        return {"index": np.asarray(list(out.index)), "values": np.asarray(out.values)}
+    if hasattr(out, "is_float") and hasattr(out, "numpy"):
+        return out.name
+    if isinstance(out, (list, tuple)) and out and isinstance(out[0], (int, float)):
+        return np.asarray(out)
+    return out
+
+
+def phase29_same(a, b):
+    """True when two answers are the same bits: arrays of one dtype and
+    shape with the same bytes, dicts and lists item by item, else ==."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys()
+                and all(phase29_same(a[k], b[k]) for k in a))
+    if isinstance(a, (np.ndarray, np.generic)) or isinstance(b, (np.ndarray, np.generic)):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+    if isinstance(a, float) and isinstance(b, float):
+        return np.float64(a).tobytes() == np.float64(b).tobytes()
+    return a == b
+
+
+def phase29_close(got, want, rtol=PHASE29_RTOL, atol=0.0):
+    """``got`` within ``rtol`` relative (and ``atol``) of ``want``; ints and
+    anything not a number exactly."""
+    if isinstance(want, dict):
+        return got.keys() == want.keys() and all(phase29_close(got[k], want[k], rtol, atol)
+                                                 for k in want)
+    g, w = np.asarray(got), np.asarray(want)
+    if g.shape != w.shape:
+        return False
+    if w.dtype.kind != "f" and g.dtype.kind != "f":
+        return bool(np.array_equal(g, w))
+    g, w = g.astype(np.float64), w.astype(np.float64)
+    return bool(np.all((np.abs(g - w) <= rtol * np.abs(w) + atol) | (np.isnan(g) & np.isnan(w))))
+
+
+def phase29_check_same(name, got, without):
+    """A call with vaex_tpu's arguments gives the same bits as without them."""
+    check(phase29_same(got, without),
+          f"phase 29 {name}: with the arguments {str(got)[:120]}, without them "
+          f"{str(without)[:120]}")
+
+
+def phase29_check(name, got, want, rtol=PHASE29_RTOL, atol=0.0):
+    """A call's answer within ``rtol`` relative and ``atol`` of plain
+    torch's (exactly at 0, ints and names always)."""
+    check(phase29_close(got, want, rtol, atol),
+          f"phase 29 {name}: {str(got)[:120]} against plain torch {str(want)[:120]}")
+
+
+def phase29_plain(cols):
+    """The answers of :func:`phase29_calls` in plain torch on the same
+    tensors, sharing no code with the port."""
+    i1, x, y = cols["i1"], cols["x"], cols["y"]
+    n = x.shape[0]
+    counts = torch.bincount(i1, minlength=K)
+    sums = torch.zeros(K, dtype=torch.float64, device=x.device).index_add_(0, i1, x)
+    x64, y64 = x, y.to(torch.float64)
+    cov = float(((x64 - x64.mean()) * (y64 - y64.mean())).mean())
+    lo, hi = float(x.min()), float(x.max())
+    kept = x > 0.5
+    rows = torch.tensor(PHASE29_TAKE, device=x.device)
+    head = x[:PHASE29_SORT_ROWS]
+    return {
+        "count": n, "sum by i1": sums.cpu().numpy(), "mean by i1": (sums / counts).cpu().numpy(),
+        "std": float(x64.std(unbiased=False)), "minmax": np.array([lo, hi]), "covar": cov,
+        "correlation": cov / float(x64.std(unbiased=False) * y64.std(unbiased=False)),
+        "counts": counts.cpu().numpy(), "i1": np.arange(K),
+        "median": float(x.kthvalue((n + 1) // 2).values),
+        "take": x[rows][kept[rows]].cpu().numpy(),
+        "sort": torch.sort(head, stable=True).values.cpu().numpy(),
+        "isin": int(((i1 == 1) | (i1 == 2)).sum()),
+        "quantiles": np.array([float(x.kthvalue(max(1, int(n * q))).values)
+                               for q in (0.05, 0.95)]),
+        "span": hi - lo,
+    }
+
+
+def phase29_calls(vt):
+    """name -> (the call with vaex_tpu's arguments, the same call without
+    them), each taking the frame; the order of ROADMAP's table."""
+    limits = {"binby": "i1"}
+    sort_rows = PHASE29_SORT_ROWS
+    return {
+        "count array_type": (lambda df: df.count("x", array_type="numpy"),
+                             lambda df: df.count("x")),
+        "sum binby array_type": (lambda df: df.sum("x", array_type="numpy", **limits),
+                                 lambda df: df.sum("x", **limits)),
+        "mean binby progress": (lambda df: df.mean("x", progress=False, **limits),
+                                lambda df: df.mean("x", **limits)),
+        "std array_type": (lambda df: df.std("x", array_type="numpy"), lambda df: df.std("x")),
+        "minmax progress": (lambda df: df.minmax("x", progress=False), lambda df: df.minmax("x")),
+        "covar progress": (lambda df: df.covar("x", "y", progress=False),
+                           lambda df: df.covar("x", "y")),
+        "correlation progress": (lambda df: df.correlation("x", "y", progress=False),
+                                 lambda df: df.correlation("x", "y")),
+        "groupby copy progress": (
+            lambda df: df.groupby("i1", agg="count", copy=False, progress=False),
+            lambda df: df.groupby("i1", agg="count")),
+        "groupby agg delay": (lambda df: df.groupby("i1").agg("count", delay=True),
+                              lambda df: df.groupby("i1").agg("count")),
+        "binby delay progress": (lambda df: df.binby("i1", agg="count", delay=False,
+                                                     progress=None),
+                                 lambda df: df.binby("i1", agg="count")),
+        "binby agg merge": (lambda df: df.binby("i1").agg("count", merge=False),
+                            lambda df: df.binby("i1").agg("count")),
+        "limits square shape": (lambda df: df.limits("x", "minmax", square=False, shape=10),
+                                lambda df: df.limits("x", "minmax")),
+        "limits_percentage square delay": (
+            lambda df: df.limits_percentage("x", 90, square=False, delay=False),
+            lambda df: df.limits_percentage("x", 90)),
+        "median_approx percentage": (lambda df: df.median_approx("x", percentage=50),
+                                     lambda df: df.median_approx("x")),
+        "percentile_approx delay progress": (
+            lambda df: df.percentile_approx("x", 50, delay=False, progress=None),
+            lambda df: df.percentile_approx("x", 50)),
+        "unique delay axis progress": (
+            lambda df: df.unique("i1", delay=False, axis=None, progress=None),
+            lambda df: df.unique("i1")),
+        "take filtered dropfilter": (
+            lambda df: df[df.x > 0.5].take(PHASE29_TAKE, filtered=False, dropfilter=True),
+            lambda df: df[df.x > 0.5].take(PHASE29_TAKE, filtered=False)),
+        "sort kind": (lambda df: df[:sort_rows].sort("x", kind="quicksort"),
+                      lambda df: df[:sort_rows].sort("x")),
+        "drop check": (lambda df: df.drop("y", check=True).get_column_names(),
+                       lambda df: df.drop("y").get_column_names()),
+        "concat resolver": (lambda df: df.concat(df, resolver="flexible").sum("x"),
+                            lambda df: df.concat(df).sum("x")),
+        "data_type arguments": (
+            lambda df: df.data_type("x", array_type=None, internal=False, axis=0, expand=True),
+            lambda df: df.data_type("x")),
+        "isin use_hashmap": (lambda df: df[df.i1.isin([1, 2], use_hashmap=True)].count(),
+                             lambda df: df[df.i1.isin([1, 2])].count()),
+        "value_counts progress axis": (
+            lambda df: df.i1.value_counts(progress=False, axis=None),
+            lambda df: df.i1.value_counts()),
+        "variables ourself expand_virtual": (
+            lambda df: sorted(df["x + y"].variables(ourself=False, expand_virtual=True)),
+            lambda df: sorted(df["x + y"].variables())),
+    }
+
+
+# the part of an answer that plain torch has: a frame's column, a Series' counts
+PHASE29_PICK = {"groupby copy progress": lambda v: {"i1": v["i1"], "count": v["count"]},
+                "groupby agg delay": lambda v: {"i1": v["i1"], "count": v["count"]},
+                "take filtered dropfilter": lambda v: v["x"], "sort kind": lambda v: v["x"],
+                "value_counts progress axis": lambda v: v["values"]}
+
+
+def phase29_answers(plain):
+    """name -> (plain torch's answer, rtol, atol) of each call: ints,
+    extremes and the frame's metadata exact, floats within section 2's
+    contract, the approximate percentiles within two bins of their grid."""
+    grouped = {"i1": plain["i1"], "count": plain["counts"]}
+    bins = 2 * plain["span"] / PHASE29_BINS
+    return {
+        "count array_type": (plain["count"], 0, 0),
+        "sum binby array_type": (plain["sum by i1"], PHASE29_RTOL, 0),
+        "mean binby progress": (plain["mean by i1"], PHASE29_RTOL, 0),
+        "std array_type": (plain["std"], PHASE29_RTOL, 0),
+        "minmax progress": (plain["minmax"], 0, 0),
+        "covar progress": (plain["covar"], PHASE29_RTOL, 0),
+        "correlation progress": (plain["correlation"], PHASE29_RTOL, 0),
+        "groupby copy progress": (grouped, 0, 0),
+        "groupby agg delay": (grouped, 0, 0),
+        "binby delay progress": (plain["counts"], 0, 0),
+        "binby agg merge": (plain["counts"], 0, 0),
+        "limits square shape": (plain["minmax"], 0, 0),
+        "limits_percentage square delay": (plain["quantiles"], 0, 2 * plain["span"] / 1024),
+        "median_approx percentage": (plain["median"], 0, bins),
+        "percentile_approx delay progress": (plain["median"], 0, bins),
+        "unique delay axis progress": (plain["i1"], 0, 0),
+        "take filtered dropfilter": (plain["take"], 0, 0),
+        "sort kind": (plain["sort"], 0, 0),
+        "drop check": (["i1", "x"], 0, 0),
+        "concat resolver": (2 * float(plain["sum by i1"].sum()), PHASE29_RTOL, 0),
+        "data_type arguments": ("float64", 0, 0),
+        "isin use_hashmap": (plain["isin"], 0, 0),
+        "value_counts progress axis": (np.sort(plain["counts"])[::-1], 0, 0),
+        "variables ourself expand_virtual": (["x", "y"], 0, 0),
+    }
+
+
+def phase29_delayed(vt, df, cols, plain):
+    """config 1's groupby with delay=True and two delayed statistics, then
+    one ``df.execute()`` (one pass for both statistics), then ``.get()``."""
+    passes = len(df.executor.trace_log)
+    grouped = df.groupby("i1", agg={"s": vt.agg.sum("x"), "c": "count"}, sort=True,
+                         delay=True)
+    total = df.sum("x", delay=True)
+    spread = df.std("x", delay=True)
+    after_groupby = len(df.executor.trace_log)
+    df.execute()
+    check(len(df.executor.trace_log) == after_groupby + 1,
+          f"phase 29: the two delayed statistics took {len(df.executor.trace_log) - after_groupby}"
+          f" passes")
+    out = phase29_value(grouped)
+    want_s, want_c = plain["sum by i1"], plain["counts"]
+    check(phase29_close(out["c"], want_c, 0) and phase29_close(out["s"], want_s),
+          "phase 29 delayed groupby against bincount / index_add_")
+    check(phase29_close(total.get(), float(want_s.sum())) and phase29_close(spread.get(),
+                                                                            plain["std"]),
+          f"phase 29 delayed sum and std: {total.get()!r}, {spread.get()!r}")
+    return len(df.executor.trace_log) - passes
+
+
+def phase29_drive(vt, df, cols):
+    """Every call of :func:`phase29_calls` once with vaex_tpu's arguments
+    and once without, each checked (:func:`phase29_check`), then the
+    delayed groupby and statistics, with the result cache off; returns the
+    passes of the delayed part."""
+    from vaex_tpu_torch import cache
+    plain = phase29_plain(cols)
+    answers = phase29_answers(plain)
+    with cache.off():
+        for name, (with_arguments, without) in phase29_calls(vt).items():
+            got = phase29_value(with_arguments(df))
+            phase29_check_same(name, got, phase29_value(without(df)))
+            want, rtol, atol = answers[name]
+            phase29_check(name, PHASE29_PICK.get(name, lambda v: v)(got), want, rtol, atol)
+        return phase29_delayed(vt, df, cols, plain)
+
+
+def phase29_verdict(launches):
+    """Fail a phase in which B1, B2, B4 or B6 launched no time."""
+    missing = [name for name in PHASE29_KERNELS if not launches.get(name)]
+    check(not missing, f"phase 29: {missing} launched no time: {launches}")
+
+
+def phase29_turns(df, with_arguments, without, reps=REPS):
+    """Median seconds of each call with and without the arguments, taken in
+    turns ``reps`` times, the first of each turn alternating (with,
+    without; without, with; ...): (with, without)."""
+    times = {"with": [], "without": []}
+    calls = {"with": with_arguments, "without": without}
+    for turn in range(reps):
+        for which in (("with", "without") if turn % 2 == 0 else ("without", "with")):
+            times[which] += median_s(lambda: calls[which](df), 1)[1]
+    return statistics.median(times["with"]), statistics.median(times["without"])
+
+
+def phase29_path(vt, plan, gp, probe, label, n=PHASE29_ROWS):
+    """Phase 29 on the card: config 1 made on cuda:0, :func:`phase29_drive`
+    once with the kernel counts set to 0 (B1, B2, B4 and B6 asserted
+    launched), then every call timed with and without its arguments in
+    turns.  Returns (launches, the phase's JSON record)."""
+    from vaex_tpu_torch import cache
+    t_phase = time.perf_counter()
+    cols = phase29_columns(n, "cuda")
+    df = phase29_frame(vt, cols)
+    with cache.off():
+        zero_launches(plan, gp)
+        probe.probe.launches = probe.probe.wide_launches = 0
+        delayed_passes = phase29_drive(vt, df, cols)
+        launches = {**launch_counts(plan, gp), "b6": probe.probe.launches,
+                    "b6-wide": probe.probe.wide_launches}
+        print(f"phase 29 N={n}: {len(phase29_calls(vt))} calls with vaex_tpu's arguments "
+              f"equal to the calls without them and to plain torch; the delayed groupby and "
+              f"statistics in {delayed_passes} pass(es); launches {launches}", flush=True)
+        phase29_verdict(launches)
+        times = {}
+        for name, (with_arguments, without) in phase29_calls(vt).items():
+            with_s, without_s = phase29_turns(df, with_arguments, without)
+            times[name] = {"with_ms": with_s * 1e3, "without_ms": without_s * 1e3}
+            print(f"[{label}] phase 29 {name}: with the arguments {with_s * 1e3!r} ms, "
+                  f"without {without_s * 1e3!r} ms (medians of {REPS}, in turns)", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[{label}] phase 29 took {phase_s:.1f} s", flush=True)
+    del df, cols
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"card": label, "rows": n, "sort_rows": PHASE29_SORT_ROWS,
+                      "launches": launches, "times": times, "phase_s": phase_s}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7683,6 +8009,9 @@ def main():
 
     phase28_launches, phase28 = phase28_path(vt, plan, gp, probe, label)
     print(json.dumps({"phase28": phase28}), flush=True)
+
+    phase29_launches, phase29 = phase29_path(vt, plan, gp, probe, label)
+    print(json.dumps({"phase29": phase29}), flush=True)
     print(f"[{label}] chip_smoke.py took {time.perf_counter() - T_START:.1f} s", flush=True)
 
     measured = {plan.B1: (main_launches[plan.B1], results[MAIN_SIZES[0]]),
@@ -7729,6 +8058,7 @@ def main():
         "phase26_launches": phase26_launches[name],
         "phase27_launches": phase27_launches[name],
         "phase28_launches": phase28_launches[name],
+        "phase29_launches": phase29_launches[name],
         **{key: value for key, value in m.items() if key in EXTRA_KEYS},
     } for name, (launches, m) in measured.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1364,3 +1364,59 @@ def test_the_phase27_old_channels_are_the_old_ones():
         old_mean, old_std = float(df.mean("x62")), float(df.std("y"))
     assert abs(old_mean - new_mean) > 1e18 and abs(old_std / new_std - 1) > 1e-3
     assert float(df.mean("x62")) == new_mean
+
+
+def test_the_phase29_drive_on_the_cpu():
+    """Phase 29 at a small size: every call with vaex_tpu's keyword
+    arguments bit-equal to the call without them and equal to plain torch;
+    the delayed groupby, then the two delayed statistics in one pass."""
+    cols = chip_smoke.phase29_columns(20_000, "cpu")
+    df = chip_smoke.phase29_frame(vaex_tpu_torch, cols)
+    assert chip_smoke.phase29_drive(vaex_tpu_torch, df, cols) == 2  # the groupby's, the stats'
+
+
+@pytest.mark.parametrize("name", ["minmax progress", "groupby agg delay", "binby agg merge",
+                                  "unique delay axis progress"])
+def test_the_phase29_checks_refuse_a_call_unlike_its_no_argument_form(name, monkeypatch):
+    """A call whose answer with the arguments is not the no-argument call's
+    fails the phase, though each alone is right."""
+    cols = chip_smoke.phase29_columns(5_000, "cpu")
+    df = chip_smoke.phase29_frame(vaex_tpu_torch, cols)
+    calls = chip_smoke.phase29_calls(vaex_tpu_torch)
+    with_arguments, without = calls[name]
+
+    def nudged(frame):
+        out = chip_smoke.phase29_value(with_arguments(frame))
+        if isinstance(out, dict):
+            return {k: (v + 1 if v.dtype.kind in "iu" else v) for k, v in out.items()}
+        return np.nextafter(np.asarray(out, dtype=np.float64), np.inf) if np.asarray(
+            out).dtype.kind == "f" else np.asarray(out) + 1
+    monkeypatch.setattr(chip_smoke, "phase29_calls",
+                        lambda vt: {name: (nudged, without)})
+    with pytest.raises(RuntimeError, match=f"phase 29 {name}: with the arguments"):
+        chip_smoke.phase29_drive(vaex_tpu_torch, df, cols)
+    for got, alone in ((np.float64(1.0), np.float64(1.0 + 2 ** -52)),
+                       (np.array([0.0]), np.array([-0.0])), (np.int64(3), np.int32(3)),
+                       ({"c": np.arange(3)}, {"c": np.arange(1, 4)}), ("float64", "float32")):
+        with pytest.raises(RuntimeError, match="phase 29 x: with the arguments"):
+            chip_smoke.phase29_check_same("x", got, alone)
+    chip_smoke.phase29_check_same("x", {"c": np.arange(3)}, {"c": np.arange(3)})
+
+
+def test_the_phase29_checks_refuse_a_wrong_answer():
+    with pytest.raises(RuntimeError, match="phase 29 count"):
+        chip_smoke.phase29_check("count", 99, 100, 0, 0)
+    with pytest.raises(RuntimeError, match="phase 29 std"):
+        chip_smoke.phase29_check("std", 1.0 + 2e-9, 1.0)
+    chip_smoke.phase29_check("std", 1.0 + 5e-10, 1.0)
+
+
+@pytest.mark.parametrize("missing", [None, "b1", "b2", "b4", "b6", "all"])
+def test_the_phase29_verdict_refuses_a_phase_without_its_kernels(missing):
+    launches = {"b1": 3, "b2": 2, "b3": 0, "b4": 4, "b5": 0, "b6": 1, "b6-wide": 0}
+    if missing is None:
+        chip_smoke.phase29_verdict(launches)
+        return
+    launches = {k: 0 for k in launches} if missing == "all" else dict(launches, **{missing: 0})
+    with pytest.raises(RuntimeError, match="phase 29"):
+        chip_smoke.phase29_verdict(launches)

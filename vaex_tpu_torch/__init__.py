@@ -113,13 +113,14 @@ def vconstant(value, length, dtype=None) -> ColumnVirtualConstant:
     return ColumnVirtualConstant(value, int(length), dtype)
 
 
-def concat(dfs) -> DataFrame:
+def concat(dfs, resolver="flexible") -> DataFrame:
     """The rows of the frames one after another, over the columns all of
-    them have (vaex_tpu/__init__.py:200)."""
+    them have (vaex_tpu/__init__.py:200); ``resolver`` changes nothing, as in
+    vaex_tpu."""
     dfs = list(dfs)
     if len(dfs) == 1:
         return dfs[0]
-    return dfs[0].concat(*dfs[1:])
+    return dfs[0].concat(*dfs[1:], resolver=resolver)
 
 
 def from_arrow_dataset(ds) -> DataFrame:

@@ -54,7 +54,7 @@ from .expression import Expression
 from .ops.binners import grid_size
 from .ops.grid_extreme import identity
 from .ops.nullable import unsigned_float
-from .utils import find_valid_name
+from .utils import find_valid_name, fingerprint
 
 # vaex_tpu/agg.py:891: a presence grid of more (cell, value) pairs than this
 # switches nunique to the sorted pairs
@@ -773,12 +773,23 @@ class AggregatorDescriptor:
     def __repr__(self):
         return f"vaex_tpu_torch.agg.{self.name}({self.expression!r})"
 
-    def pretty_name(self, name=None):
+    def fingerprint(self):
+        return fingerprint("agg-desc", self.name, self.expression, str(self.selection))
+
+    def pretty_name(self, name=None, df=None):
         return find_valid_name(f"{name or self.expression}_{self.name}")
 
-    def add_tasks(self, df, binners):
-        """Schedule on the shared TaskAggregations; returns [promise]."""
+    def add_tasks(self, df, binners, progress=None):
+        """Schedule on the shared TaskAggregations; returns [promise].
+        ``progress`` changes nothing, as in vaex_tpu: a pass's progress is
+        the executor's."""
         raise NotImplementedError
+
+    def prepare(self, df, binners):
+        """Queue the pre-pass statistics the aggregation needs (a count
+        grid's limits) as delayed tasks, so that every descriptor's share
+        one pass before the aggregations are scheduled."""
+        return None
 
     def _input_dtype(self, df):
         """The input's DataType; strings are counted (``count``,
@@ -795,12 +806,13 @@ class AggregatorDescriptor:
 
 
 class AggregatorDescriptorBasic(AggregatorDescriptor):
-    def __init__(self, name, expression, op_class, selection=None, edges=False):
+    def __init__(self, name, expression, op_class, selection=None, edges=False, op_kwargs=None):
         super().__init__(name, expression, selection, edges)
         self.op_class = op_class
+        self.op_kwargs = op_kwargs or {}
 
-    def add_tasks(self, df, binners):
-        op = self.op_class(self.expressions, dtype_in=self._input_dtype(df))
+    def add_tasks(self, df, binners, progress=None):
+        op = self.op_class(self.expressions, dtype_in=self._input_dtype(df), **self.op_kwargs)
         return [df.executor.schedule_aggregation(df, binners, op,
                                                  selection_expression(self.selection, df))]
 
@@ -827,7 +839,7 @@ class AggregatorDescriptorFirst(AggregatorDescriptorBasic):
         self.order_expression = str(order_expression if order_expression is not None
                                     else expression)
 
-    def add_tasks(self, df, binners):
+    def add_tasks(self, df, binners, progress=None):
         order_float = DataType(df.data_type(self.order_expression)).numpy.kind == "f"
         op = OpFirst([self.expression, self.order_expression], dtype_in=self._input_dtype(df),
                      order_float=order_float)
@@ -875,7 +887,7 @@ class AggregatorDescriptorPercentile(AggregatorDescriptor):
         if self._limits is None:
             self._limits = df.minmax(self.expression, delay=True)
 
-    def add_tasks(self, df, binners):
+    def add_tasks(self, df, binners, progress=None):
         exact_ok = self.exact is not False and self._exact_possible(df)
         if self.exact is True and not exact_ok:
             raise ValueError(f"an exact percentile takes a numeric expression over at most "
@@ -908,11 +920,11 @@ class AggregatorDescriptorTopK(AggregatorDescriptor):
         self.largest = largest
         self.nth_index = nth
 
-    def pretty_name(self, name=None):
+    def pretty_name(self, name=None, df=None):
         suffix = self.name if self.nth_index is None else f"{self.name}_{self.nth_index}"
         return find_valid_name(f"{name or self.expression}_{suffix}")
 
-    def add_tasks(self, df, binners):
+    def add_tasks(self, df, binners, progress=None):
         op = OpTopK([self.expression], self.k, largest=self.largest,
                     dtype_in=self._input_dtype(df))
         task = df.executor.schedule_aggregation(df, binners, op,
@@ -947,7 +959,7 @@ class AggregatorDescriptorMean(AggregatorDescriptor):
         dtype = self._input_dtype(df)
         return dtype.numpy if dtype.is_temporal and not self.as_float else None
 
-    def add_tasks(self, df, binners):
+    def add_tasks(self, df, binners, progress=None):
         op = OpSum if self._input_dtype(df).numpy.kind == "f" else OpSumFloat
         [sum_task] = AggregatorDescriptorBasic("sum", self.expression, op,
                                                self.selection).add_tasks(df, binners)
@@ -990,7 +1002,7 @@ class AggregatorDescriptorVar(AggregatorDescriptor):
         self.std = std
         self.ddof = ddof
 
-    def add_tasks(self, df, binners):
+    def add_tasks(self, df, binners, progress=None):
         for e in self.expressions:
             _not_strings(df, e, self.name)
         moments = _moments(df, binners, [self.expression], VAR_TERMS,
@@ -1031,10 +1043,10 @@ class AggregatorDescriptorCovar(AggregatorDescriptor):
         self.y = str(y)
         self.ddof = ddof
 
-    def pretty_name(self, name=None):
+    def pretty_name(self, name=None, df=None):
         return find_valid_name(name or f"{self.expression}_{self.y}_{self.name}")
 
-    def add_tasks(self, df, binners):
+    def add_tasks(self, df, binners, progress=None):
         for e in (self.expression, self.y):
             _not_strings(df, e, self.name)
         moments = _moments(df, binners, [self.expression, self.y], COVAR_TERMS,
@@ -1059,7 +1071,7 @@ class AggregatorDescriptorCorr(AggregatorDescriptorCovar):
         super().__init__(x, y, selection, edges)
         self.name = "corr"
 
-    def add_tasks(self, df, binners):
+    def add_tasks(self, df, binners, progress=None):
         moments = _moments(df, binners, [self.expression, self.y], CORR_TERMS,
                            selection_expression(self.selection, df))
 
@@ -1097,7 +1109,7 @@ class AggregatorDescriptorNUnique(AggregatorDescriptor):
         if self._set is None or self._set[0] is not df:
             self._set = (df, df._set(self.expression, delay=True))
 
-    def add_tasks(self, df, binners):
+    def add_tasks(self, df, binners, progress=None):
         self.prepare(df, binners)
         task = self._set[1]
         self._set = None  # a later use builds the set of its own frame

@@ -16,6 +16,19 @@ import torch
 
 from .datatype import torch_dtype
 
+# the numpy kinds of string arrays (vaex_tpu/array_types.py:25)
+string_kinds = "US"
+
+
+def __getattr__(name):
+    """``supported_array_types``: the host and device array types a column
+    may be (vaex_tpu/array_types.py:23), arrow's among them, imported when
+    first asked for."""
+    if name == "supported_array_types":
+        import pyarrow as pa
+        return (np.ndarray, torch.Tensor, pa.Array, pa.ChunkedArray)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 def is_arrow(x) -> bool:
     return type(x).__module__.startswith("pyarrow") and hasattr(x, "type")
@@ -55,9 +68,10 @@ def string_arrow(x):
                     mask=mask if mask is not None and mask.any() else None)
 
 
-def to_numpy(x):
+def to_numpy(x, strict=False):
     """Host numpy view or copy of x (a masked array if it carries nulls);
-    an arrow string array as an object array of str, masked where null."""
+    an arrow string array as an object array of str, masked where null.
+    ``strict`` changes nothing, as in vaex_tpu."""
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     if isinstance(x, np.ndarray):  # includes np.ma.MaskedArray
@@ -141,3 +155,42 @@ def concat(arrays):
     if any(isinstance(a, np.ma.MaskedArray) for a in arrays):
         return np.ma.concatenate(arrays)
     return np.concatenate(arrays)
+
+
+def slice_array(x, i1, i2):
+    """Rows [i1, i2) of an arrow array, a numpy array or a tensor (a view
+    where the type has one)."""
+    if is_arrow(x):
+        return x.slice(i1, i2 - i1)
+    return x[i1:i2]
+
+
+def take(x, indices):
+    """The rows of an arrow array, a numpy array or a tensor at
+    ``indices`` (host ints, or an int tensor for a tensor)."""
+    if is_arrow(x):
+        import pyarrow as pa
+        return x.take(pa.array(to_numpy(indices)))
+    if isinstance(x, torch.Tensor):
+        return x.index_select(0, torch.as_tensor(indices, dtype=torch.int64, device=x.device))
+    return x[to_numpy(indices)]
+
+
+def length(x) -> int:
+    return len(x)
+
+
+def full(n, value, dtype):
+    """``n`` rows of ``value`` as a host array of ``dtype``."""
+    return np.full(n, value, dtype=dtype)
+
+
+def required_dtype_for_max(n: int, signed=True) -> np.dtype:
+    """The smallest integer dtype that holds values up to ``n``
+    (vaex_tpu/array_types.py:149-158)."""
+    kinds = ("int8", "int16", "int32", "int64") if signed else (
+        "uint8", "uint16", "uint32", "uint64")
+    for name in kinds:
+        if n <= np.iinfo(name).max:
+            return np.dtype(name)
+    raise ValueError(f"no integer dtype holds {n}")

@@ -323,9 +323,10 @@ def lookup(key):
     return value
 
 
-def store(key, value):
+def store(key, value, device=False):
     """Keep ``value`` under ``key``: in the device LRU where it holds
-    tensors, else in the backend."""
+    tensors, else in the backend, whatever ``device`` says (vaex_tpu's
+    caller names the level, vaex_tpu/cache.py:281-289)."""
     if not _enabled:
         return
     with _lock:

@@ -2,7 +2,8 @@
 
 A column is anything sliceable with ``__len__``, ``__getitem__`` and a
 ``dtype``: numpy arrays, numpy masked arrays and torch tensors (on the CPU
-or a CUDA device) qualify, and the column types below.
+or a CUDA device) qualify, and the column types below, each a
+:class:`Column` (vaex_tpu/column.py:23-35).
 
 * :class:`ColumnVirtualConstant`: the scalar column of
   ``DataFrame.add_column`` and ``vconstant``, a host array of one value per
@@ -51,7 +52,7 @@ import numpy as np
 import torch
 
 from . import array_types
-from .datatype import DataType, dtype_of, has_torch_dtype
+from .datatype import DataType, dtype_of, has_torch_dtype, host_values
 from .ops.nullable import NA, DictNA
 from .utils import fingerprint, hash_array_data, identity, tensor_key
 
@@ -94,7 +95,33 @@ def file_identity(path, fd=None):
             st.st_mtime_ns)
 
 
-class ColumnHost:
+class Column:
+    """The base of the column types: ``__len__``, ``__getitem__``,
+    ``dtype`` and :meth:`to_numpy`."""
+
+    def __len__(self):
+        raise NotImplementedError
+
+    def __getitem__(self, item):
+        raise NotImplementedError
+
+    @property
+    def dtype(self):
+        raise NotImplementedError
+
+    def to_numpy(self):
+        """Every row as a host numpy array, masked where missing (strings
+        as objects)."""
+        value = self[:]
+        if isinstance(value, NA):
+            data = host_values(value.data.cpu().numpy(), value.logical)
+            if value.mask is None:
+                return data
+            return np.ma.MaskedArray(data, value.mask.cpu().numpy())
+        return array_types.to_numpy(value)
+
+
+class ColumnHost(Column):
     """The base of a column read from a file a slice at a time: ``dtype`` a
     numpy dtype, ``_read(i1, i2)`` rows [i1, i2) as a host numpy (masked)
     array.  A slice reads its rows (all rows where it has a step), a
@@ -143,17 +170,24 @@ class ColumnHostRows(ColumnHost):
         return self.source._read(self.i1 + i1, self.i1 + i2)
 
 
-class ColumnVirtualConstant:
+class ColumnVirtualConstant(Column):
     """``length`` rows of one value (vaex_tpu/column.py:72-99): a slice is a
     host array of it, made when a tile needs it."""
 
     def __init__(self, value, length, dtype=None):
         self.value = value
         self.length = length
-        self.dtype = np.dtype(dtype) if dtype is not None else np.asarray(value).dtype
+        self._dtype = np.dtype(dtype) if dtype is not None else np.asarray(value).dtype
 
     def __len__(self):
         return self.length
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    def trim(self, i1, i2):
+        return ColumnVirtualConstant(self.value, i2 - i1, self._dtype)
 
     def __getitem__(self, item):
         if isinstance(item, slice):
@@ -167,7 +201,7 @@ class ColumnVirtualConstant:
         return f"vconstant-{self.value!r}-{self.length}-{self.dtype}"
 
 
-class ColumnVirtualRange:
+class ColumnVirtualRange(Column):
     """The values ``start, start + step, ...`` below ``stop``, in ``dtype``
     (vaex_tpu/column.py:38-70), held as those three numbers: a pass's tile is
     an ``arange`` made on the pass device (:func:`tile_of`), a host slice or
@@ -177,10 +211,14 @@ class ColumnVirtualRange:
         if step == 0:
             raise ValueError("a range's step must not be 0")
         self.start, self.stop, self.step = int(start), int(stop), int(step)
-        self.dtype = np.dtype(dtype or np.int64)
+        self._dtype = np.dtype(dtype or np.int64)
 
     def __len__(self):
         return len(range(self.start, self.stop, self.step))
+
+    @property
+    def dtype(self):
+        return self._dtype
 
     def __getitem__(self, item):
         if isinstance(item, slice):
@@ -223,7 +261,7 @@ def _sampled(t):
     return fingerprint("sampled", [p.detach().cpu().numpy() for p in parts], str(t.dtype), n)
 
 
-class ColumnMasked:
+class ColumnMasked(Column):
     """Data and a bool mask (True = missing), two tensors on one device."""
 
     def __init__(self, data, mask):
@@ -259,16 +297,42 @@ class ColumnMasked:
         return fingerprint("column-masked", _sampled(self.data), _sampled(self.mask))
 
 
-class ColumnIndexed:
+def _masked_indices(indices):
+    """vaex_tpu's masked index (a numpy masked array whose masked entries
+    are missing rows) as (an int64 index tensor, 0 where missing, and the
+    bool mask tensor)."""
+    data = np.ma.filled(np.ma.asarray(indices), 0).astype(np.int64, copy=False)
+    return torch.from_numpy(data), torch.from_numpy(np.ma.getmaskarray(indices).copy())
+
+
+class ColumnIndexed(Column):
     """Row ``index[i]`` of ``source`` as row i, missing where ``mask`` is
     True (there ``index`` holds 0).  ``index`` lies on the source's device
     (the CPU for a host array).  Build one with :meth:`index_of`, which
-    collapses a take of a take into one hop."""
+    collapses a take of a take into one hop.  With ``masked`` the indices
+    are vaex_tpu's form, a numpy masked array whose masked entries are
+    missing rows (vaex_tpu/column.py:102-137)."""
 
-    def __init__(self, source, index, mask=None):
+    def __init__(self, source, indices, mask=None, masked=False):
+        if masked:
+            indices, mask = _masked_indices(indices)
         self.source = source
-        self.index = index
+        self.index = indices
         self.mask = mask
+
+    @staticmethod
+    def index(source, indices, masked=False):
+        """vaex_tpu's spelling of :meth:`index_of` (vaex_tpu/column.py:
+        117-131): ``indices`` host ints, an int tensor or, with ``masked``,
+        a numpy masked array.  Called on the class: an instance's ``index``
+        is its index tensor."""
+        if masked:
+            indices, mask = _masked_indices(indices)
+        else:
+            mask = None
+            if not isinstance(indices, torch.Tensor):
+                indices = torch.from_numpy(np.asarray(indices, dtype=np.int64))
+        return ColumnIndexed.index_of(source, indices, mask)
 
     @staticmethod
     def index_of(source, index, mask=None) -> "ColumnIndexed":
@@ -324,7 +388,7 @@ class ColumnIndexed:
                            _sampled(self.index), None if self.mask is None else _sampled(self.mask))
 
 
-class ColumnConcatenated:
+class ColumnConcatenated(Column):
     """The rows of ``columns`` one after another; a slice that spans two
     parts reads both and joins them on the device of the first part that
     lies on one (vaex_tpu/column.py:171-198)."""
@@ -398,7 +462,7 @@ class ColumnConcatenated:
         return fingerprint("column-concat", [column_fingerprint(c) for c in self.columns])
 
 
-class LazyColumn:
+class LazyColumn(Column):
     """The base of a lazy column defined outside this module (the shifted
     view of :mod:`.shift`): like the three above, a slice of it is an NA on
     its device, and it has ``take``, ``trim``, ``to``, ``device``,
@@ -408,7 +472,7 @@ class LazyColumn:
 LAZY = (ColumnMasked, ColumnIndexed, ColumnConcatenated, LazyColumn)
 
 
-class ColumnString:
+class ColumnString(Column):
     """Strings on the host: an arrow string, large string or
     dictionary-of-strings array, nulls included (a numpy array of str or of
     str and None objects, a masked one, is converted once).  A slice is an
@@ -476,7 +540,7 @@ def _arrow_fingerprint(array):
     return h.hexdigest()
 
 
-class ColumnDictionary:
+class ColumnDictionary(Column):
     """Strings as int32 ``codes`` (a tensor on a device) into ``labels`` (an
     arrow string array on the host): a code equal to ``len(labels)``, or of
     a null label, is a null row.  A tile on the pass device is a
@@ -588,6 +652,8 @@ class ColumnDictionary:
 
 
 STRINGS = (ColumnString, ColumnDictionary)
+# vaex_tpu's name of a string column staged on a device
+ColumnDeviceDictionary = ColumnDictionary
 
 
 def take_column(col, index, mask=None):

@@ -39,6 +39,7 @@ frame staged on a device a tensor there (vaex_tpu/dataframe.py:117-141,
 
 from __future__ import annotations
 
+import logging
 import re
 from typing import Dict, List
 
@@ -48,7 +49,7 @@ import torch
 from . import agg as agg_module
 from . import array_types, expresso, settings
 from . import selections as selections_module
-from .column import (STRINGS, ColumnDictionary, ColumnMasked, ColumnString,
+from .column import (STRINGS, Column, ColumnDictionary, ColumnMasked, ColumnString,
                      ColumnHost, ColumnVirtualConstant, column_to, placed_device, tile_of)
 from .column import is_masked as column_is_masked
 from .dataset import Dataset, DatasetArrays
@@ -59,8 +60,31 @@ from .expression import Expression, _set_of
 from .ops.nullable import NA, DictNA
 from .ops.binners import BinnerOrdinal, BinnerScalar
 from .scopes import HostScope, classify_leaves, expression_is_device, host_chunk
+from .selections import FILTER_SELECTION_NAME  # noqa: F401  (vaex_tpu exports it here)
 from .tasks import TaskFilterMask, TaskMapIndex, TaskMapReduce, TaskSetCreate
 from .utils import Signal, find_valid_name, fingerprint, valid_expression_name
+
+logger = logging.getLogger("vaex_tpu_torch.dataframe")
+
+_main_executor = None
+
+
+def get_main_executor():
+    """One executor for the process, made at the first call
+    (vaex_tpu/dataframe.py:42-47); a frame made without an executor gets
+    one of its own."""
+    global _main_executor
+    if _main_executor is None:
+        _main_executor = ExecutorLocal()
+    return _main_executor
+
+
+def supported_array_like():
+    """The types ``df[name] = value`` adds as a column: host arrays, lists,
+    tensors, arrow arrays and columns (vaex_tpu/dataframe.py:2011-2018)."""
+    import pyarrow as pa
+    return (np.ndarray, torch.Tensor, list, tuple, pa.Array, pa.ChunkedArray, Column)
+
 
 class DataFrame:
     def __init__(self, dataset: Dataset, executor=None):
@@ -302,9 +326,10 @@ class DataFrame:
             for k, v in self.virtual_columns.items()}
         return new_name
 
-    def drop(self, columns, inplace=False):
+    def drop(self, columns, inplace=False, check=True):
         """A frame without the named columns; a physical one stays in the
-        dataset, so the virtual columns that read it still work."""
+        dataset, so the virtual columns that read it still work.  ``check``
+        changes nothing, as in vaex_tpu (vaex_tpu/dataframe.py:273)."""
         columns = [columns] if isinstance(columns, (str, Expression)) else columns
         df = self if inplace else self.copy()
         for name in map(str, columns):
@@ -315,7 +340,7 @@ class DataFrame:
     def __setitem__(self, name, value):
         if isinstance(value, Expression):
             self.add_virtual_column(name, value.expression)
-        elif isinstance(value, (np.ndarray, torch.Tensor, list, tuple, ColumnVirtualConstant)):
+        elif isinstance(value, supported_array_like()):
             self.add_column(name, np.asarray(value) if isinstance(value, (list, tuple))
                             else value)
         else:
@@ -324,10 +349,12 @@ class DataFrame:
     def __delitem__(self, name):
         self.drop(str(name), inplace=True)
 
-    def data_type(self, expression) -> DataType:
+    def data_type(self, expression, array_type=None, internal=False, axis=0,
+                  expand=True) -> DataType:
         """dtype of a column, or of an expression evaluated over one row;
         strings have their arrow type (a dictionary type where they are
-        codes)."""
+        codes).  The other arguments change nothing, as in vaex_tpu
+        (vaex_tpu/dataframe.py:332-344)."""
         expression = str(expression)
         if self._is_physical(expression):
             logical = self.dataset.logical.get(expression)
@@ -783,7 +810,9 @@ class DataFrame:
         """One statistic of an expression, or of each of a list of them,
         over the grid of ``binby``, for one selection or each of a list of
         them: a list of selections stacks on a leading axis, inside the axis
-        of a list of expressions (vaex_tpu/dataframe.py:785-832)."""
+        of a list of expressions (vaex_tpu/dataframe.py:785-832).  The
+        statistics take ``array_type`` and give numpy whatever it says, as
+        vaex_tpu's do."""
         binners = self._create_binners(binby, limits, shape)
         multi = isinstance(expression, (list, tuple))
         many = isinstance(selection, (list, tuple))
@@ -831,42 +860,42 @@ class DataFrame:
         self.execute()
 
     def count(self, expression=None, binby=(), limits=None, shape=128, selection=None,
-              delay=False, edges=False, progress=None):
+              delay=False, edges=False, progress=None, array_type=None):
         return self._compute_agg("count", expression, binby, limits, shape, selection, delay,
                                  edges, progress=progress)
 
-    def sum(self, expression, binby=(), limits=None, shape=128, selection=None, delay=False,
-            edges=False, progress=None):
+    def sum(self, expression, binby=(), limits=None, shape=128, selection=None,
+            delay=False, edges=False, progress=None, array_type=None):
         return self._compute_agg("sum", expression, binby, limits, shape, selection, delay,
                                  edges, progress=progress)
 
-    def mean(self, expression, binby=(), limits=None, shape=128, selection=None, delay=False,
-             edges=False, progress=None):
+    def mean(self, expression, binby=(), limits=None, shape=128, selection=None,
+             delay=False, edges=False, progress=None, array_type=None):
         return self._compute_agg("mean", expression, binby, limits, shape, selection, delay,
                                  edges, progress=progress)
 
-    def min(self, expression, binby=(), limits=None, shape=128, selection=None, delay=False,
-            edges=False, progress=None):
+    def min(self, expression, binby=(), limits=None, shape=128, selection=None,
+            delay=False, edges=False, progress=None, array_type=None):
         return self._compute_agg("min", expression, binby, limits, shape, selection, delay,
                                  edges, progress=progress)
 
-    def max(self, expression, binby=(), limits=None, shape=128, selection=None, delay=False,
-            edges=False, progress=None):
+    def max(self, expression, binby=(), limits=None, shape=128, selection=None,
+            delay=False, edges=False, progress=None, array_type=None):
         return self._compute_agg("max", expression, binby, limits, shape, selection, delay,
                                  edges, progress=progress)
 
     def var(self, expression, binby=(), limits=None, shape=128, selection=None, delay=False,
-            edges=False, ddof=0, progress=None):
+            edges=False, progress=None, array_type=None, ddof=0):
         return self._compute_agg("var", expression, binby, limits, shape, selection, delay,
                                  edges, ddof=ddof, progress=progress)
 
     def std(self, expression, binby=(), limits=None, shape=128, selection=None, delay=False,
-            edges=False, ddof=0, progress=None):
+            edges=False, progress=None, array_type=None, ddof=0):
         return self._compute_agg("std", expression, binby, limits, shape, selection, delay,
                                  edges, ddof=ddof, progress=progress)
 
     def first(self, expression, order_expression=None, binby=(), limits=None, shape=128,
-              selection=None, delay=False, edges=False, progress=None):
+              selection=None, delay=False, edges=False, progress=None, array_type=None):
         """Per cell the value at the smallest ``order_expression`` (the
         expression itself when none is given); ties go to the earliest row."""
         return self._compute_agg(
@@ -887,7 +916,7 @@ class DataFrame:
                                  dropmissing=dropmissing)
 
     def minmax(self, expression, binby=(), limits=None, shape=128, selection=None,
-               delay=False):
+               delay=False, progress=None):
         """[min, max] of an expression, or of each of a list of them, stacked
         on the last axis (vaex_tpu/dataframe.py:895-921)."""
         multi = isinstance(expression, (list, tuple))
@@ -912,14 +941,17 @@ class DataFrame:
                 else:
                     out.append(np.array([g.reshape(())[()] for g in pair]))
             return np.stack(out) if multi else out[0]
-        return self._delay(delay, finish(*promises))
+        return self._delay(delay, finish(*promises), progress)
 
-    def limits(self, expression, value=None, selection=None, delay=False):
+    def limits(self, expression, value=None, square=False, selection=None, delay=False,
+               shape=None, progress=None):
         """``[vmin, vmax]`` of an axis from a limits spec: None or "minmax"
         (one minmax pass; a category axis takes its code range), "<p>%" (the
         central p percent, :meth:`limits_percentage`) or an explicit pair.  A
         list of expressions takes one spec for all or one per axis, and its
-        minmax axes share one pass (vaex_tpu/dataframe.py:923-945)."""
+        minmax axes share one pass (vaex_tpu/dataframe.py:923-945).
+        ``square``, ``shape`` and ``progress`` change nothing, as in
+        vaex_tpu."""
         if isinstance(expression, (list, tuple)):
             exprs = [str(e) for e in expression]
             if value is None or isinstance(value, str) or _is_pair(value):
@@ -928,7 +960,8 @@ class DataFrame:
                 values = list(value)
             if len(values) != len(exprs):
                 raise ValueError(f"{len(values)} limits for {len(exprs)} expressions")
-            results = [self.limits(e, v, selection, delay=True) for e, v in zip(exprs, values)]
+            results = [self.limits(e, v, selection=selection, delay=True)
+                       for e, v in zip(exprs, values)]
 
             @delayed
             def gather(*pairs):
@@ -955,10 +988,18 @@ class DataFrame:
                              f"{value!r}")
         return self._delay(delay, _resolved([float(v) for v in value]))
 
-    def limits_percentage(self, expression, percentage=99.73, selection=None):
+    def limits_percentage(self, expression, percentage=99.73, square=False, selection=None,
+                          delay=False, progress=None):
         """The limits that hold the central ``percentage`` percent of the
         values: a 1024-bin count grid over [min, max], then interpolation on
-        the host (vaex_tpu/dataframe.py:947-966)."""
+        the host (vaex_tpu/dataframe.py:947-966).  ``square`` and
+        ``progress`` change nothing, as in vaex_tpu; with ``delay`` the
+        limits come in a fulfilled promise (vaex_tpu returns them as they
+        are: ROADMAP, known problems of the reference)."""
+        return self._delay(delay, _resolved(self._limits_percentage(expression, percentage,
+                                                                    selection)))
+
+    def _limits_percentage(self, expression, percentage, selection):
         vmin, vmax = self.minmax(expression, selection=selection)
         if vmin == vmax:
             return [vmin, vmax]
@@ -978,10 +1019,13 @@ class DataFrame:
 
     def percentile_approx(self, expression, percentage=50.0, binby=(), limits=None, shape=128,
                           percentile_shape=1024 * 16, percentile_limits="minmax",
-                          selection=None):
+                          selection=None, delay=False, progress=None):
         """Approximate percentiles from a count grid over the expression's
         range (per cell of ``binby``, with a trailing axis for it), cumulated
-        and interpolated on the host (vaex_tpu/dataframe.py:968-1018)."""
+        and interpolated on the host (vaex_tpu/dataframe.py:968-1018).
+        ``progress`` changes nothing, as in vaex_tpu; with ``delay`` the
+        values come in a fulfilled promise (vaex_tpu returns them as they
+        are: ROADMAP, known problems of the reference)."""
         multi = isinstance(expression, (list, tuple))
         many = isinstance(percentage, (list, tuple))
         percentages = list(percentage) if many else [percentage]
@@ -1021,15 +1065,20 @@ class DataFrame:
             values = [float(np.interp(p / 100.0 * cum0[-1], cum0, edges_x))
                       for p in percentages]
             out.append(values if many else values[0])
-        return out if multi else out[0]
+        return self._delay(delay, _resolved(out if multi else out[0]))
 
-    def median_approx(self, expression, binby=(), limits=None, shape=128,
-                      percentile_shape=1024 * 16, percentile_limits="minmax", selection=None):
+    def median_approx(self, expression, percentage=50, binby=(), limits=None, shape=128,
+                      percentile_shape=1024 * 16, percentile_limits="minmax", selection=None,
+                      delay=False):
+        """The approximate median: ``percentage`` changes nothing, as in
+        vaex_tpu (vaex_tpu/dataframe.py:1020-1024)."""
         return self.percentile_approx(expression, 50.0, binby=binby, limits=limits,
                                       shape=shape, percentile_shape=percentile_shape,
-                                      percentile_limits=percentile_limits, selection=selection)
+                                      percentile_limits=percentile_limits, selection=selection,
+                                      delay=delay)
 
-    def covar(self, x, y, binby=(), limits=None, shape=128, selection=None, delay=False):
+    def covar(self, x, y, binby=(), limits=None, shape=128, selection=None, delay=False,
+              progress=None):
         """cov(x, y) = E[xy] - E[x]E[y], each mean over its own valid rows
         (vaex_tpu/dataframe.py:1027-1038), from shifted moments
         (:meth:`_cov_entries`)."""
@@ -1037,18 +1086,19 @@ class DataFrame:
         limits = self._axis_limits(binby, limits)  # once for every mean
         [entry] = self._cov_entries([str(x), str(y)], [(0, 1)], binby, limits, shape,
                                     selection).values()
-        return self._delay(delay, entry)
+        return self._delay(delay, entry, progress)
 
     def correlation(self, x, y=None, binby=(), limits=None, shape=128, selection=None,
-                    delay=False):
+                    delay=False, progress=None):
         """Pearson correlation covar(x, y) / (std(x) std(y)), or the matrix
         of a list of expressions when y is None
         (vaex_tpu/dataframe.py:1040-1058)."""
         if y is None:
             if not isinstance(x, (list, tuple)):
                 raise ValueError("provide y or a list of expressions")
-            return np.array([[self.correlation(a, b, binby, limits, shape, selection)
-                              for b in x] for a in x])
+            return self._delay(delay, _resolved(np.array(
+                [[self.correlation(a, b, binby, limits, shape, selection, progress=progress)
+                  for b in x] for a in x])))
         x, y = str(x), str(y)
         binby = _ensure_list(binby)
         limits = self._axis_limits(binby, limits)  # once for all five passes' tasks
@@ -1060,7 +1110,7 @@ class DataFrame:
         def finish(c, sx, sy):
             with np.errstate(divide="ignore", invalid="ignore"):
                 return np.asarray(c) / (np.asarray(sx) * np.asarray(sy))
-        return self._delay(delay, finish(cov, std_x, std_y))
+        return self._delay(delay, finish(cov, std_x, std_y), progress)
 
     def cov(self, x, y=None, binby=(), limits=None, shape=128, selection=None, delay=False,
             progress=None):
@@ -1277,13 +1327,15 @@ class DataFrame:
         return self
 
     # ---------------------------------------------------------------- order
-    def take(self, indices):
+    def take(self, indices, filtered=True, dropfilter=True):
         """The rows at ``indices`` (of a filtered frame: among the rows it
-        keeps) as a lazy ``take`` node: host ints (a negative one counts from
+        keeps; with ``filtered=False`` among all its rows, and the filter
+        stays) as a lazy ``take`` node: host ints (a negative one counts from
         the end) or an int tensor of entries in [0, len), which stays on its
         device; each column is read through it, tile by tile, on its own
-        device (vaex_tpu/dataframe.py:1510-1514)."""
-        df = self.extract()
+        device (vaex_tpu/dataframe.py:1510-1514).  ``dropfilter`` changes
+        nothing, as in vaex_tpu."""
+        df = self.extract() if filtered else self.trim()
         if isinstance(indices, torch.Tensor):
             if indices.dtype not in (torch.int32, torch.int64):
                 raise TypeError(f"take needs int32 or int64 indices, got {indices.dtype}")
@@ -1299,10 +1351,11 @@ class DataFrame:
         length = len(self)
         return self[max(0, length - n):length]
 
-    def concat(self, *others):
+    def concat(self, *others, resolver="flexible"):
         """This frame's rows, then each other's (each of a filtered frame the
         rows it keeps), over the columns all of them have; the virtual
-        columns and variables are this frame's (vaex_tpu/dataframe.py:1594-1602)."""
+        columns and variables are this frame's (vaex_tpu/dataframe.py:1594-1602).
+        ``resolver`` changes nothing, as in vaex_tpu."""
         dfs = [df.extract() for df in (self,) + others]
         dataset = dfs[0].dataset.concat(*(df.dataset for df in dfs[1:]))
         out = dfs[0]._rebind_dataset(dataset)
@@ -1339,11 +1392,12 @@ class DataFrame:
                     rprefix=rprefix, lsuffix=lsuffix, rsuffix=rsuffix, how=how,
                     allow_duplication=allow_duplication, inplace=inplace, mesh=mesh)
 
-    def sort(self, by, ascending=True):
+    def sort(self, by, ascending=True, kind="quicksort"):
         """The rows ordered by the key column(s) (of a filtered frame the
         rows it keeps): a stable lexicographic argsort of the keys on the
         host, then a take (vaex_tpu/dataframe.py:1523-1553).  A string key
-        sorts by its rank, descending too among several keys."""
+        sorts by its rank, descending too among several keys.  ``kind``
+        changes nothing, as in vaex_tpu."""
         if self.filtered:
             return self.extract().sort(by, ascending)
         by = [str(b) for b in (by if isinstance(by, (list, tuple)) else [by])]
@@ -1366,36 +1420,41 @@ class DataFrame:
         return self.take(np.lexsort(keys[::-1]))
 
     def groupby(self, by=None, agg=None, sort=False, ascending=True, assume_sparse="auto",
-                row_limit=None):
+                row_limit=None, copy=True, progress=None, delay=False):
         """Group by one or more keys: categories, raw int keys of a narrow
         range (dense), any other numeric key (a set of its values), or, with
         ``assume_sparse`` (True, or "auto" past 1e6 combinations), several keys
         fused into one set of the observed combinations.  ``row_limit`` raises
         RowLimitException when a key's set grows past it.  With ``agg`` the
         one-sort plan (:mod:`.fused_groupby`) runs raw integer keys whose
-        set the classic path would build, in one sort."""
+        set the classic path would build, in one sort, and ``delay`` gives
+        the result in a fulfilled promise.  ``copy=False`` groups this frame,
+        not a copy; ``progress`` changes nothing, as in vaex_tpu
+        (vaex_tpu/dataframe.py:1739-1755)."""
         from .groupby import GroupBy
         if agg is not None:
             from .fused_groupby import try_fused_sort_groupby
-            result = try_fused_sort_groupby(self, by, agg, ascending=ascending,
-                                            row_limit=row_limit)
+            result = try_fused_sort_groupby(self, by, agg, sort=sort, ascending=ascending,
+                                            row_limit=row_limit, delay=delay)
             if result is not None:
                 return result
         gb = GroupBy(self, by=by, sort=sort, ascending=ascending, combine=assume_sparse,
-                     row_limit=row_limit)
+                     row_limit=row_limit, copy=copy)
         if agg is None:
             return gb
-        return gb.agg(agg)
+        return gb.agg(agg, delay=delay)
 
-    def binby(self, by=None, agg=None, limits=None, shape=128, sort=False):
+    def binby(self, by=None, agg=None, limits=None, shape=128, sort=False, delay=False,
+              progress=None):
         """Aggregations over the grid of ``by`` as an N-d array with the
         axes' bin centres or labels as coordinates
-        (:class:`~vaex_tpu_torch.groupby.BinBy`)."""
+        (:class:`~vaex_tpu_torch.groupby.BinBy`), with ``delay`` in a
+        fulfilled promise; ``progress`` changes nothing, as in vaex_tpu."""
         from .groupby import BinBy
         bb = BinBy(self, by=by, limits=limits, shape=shape, sort=sort)
         if agg is None:
             return bb
-        return bb.agg(agg)
+        return bb.agg(agg, delay=delay)
 
     # ------------------------------------------------------------- set API
     def _set(self, expression, keep_counts=False, limit=None, limit_raise=True, delay=False):
@@ -1411,11 +1470,14 @@ class DataFrame:
         return task.get()
 
     def unique(self, expression, return_inverse=False, dropna=False, dropnan=False,
-               dropmissing=False, selection=None, limit=None, limit_raise=True,
-               array_type="list"):
+               dropmissing=False, progress=None, selection=None, axis=None, delay=False,
+               limit=None, limit_raise=True, array_type="list"):
         """The distinct values in ascending order, then NaN, then None for a
         missing value, unless dropped; with ``return_inverse`` also each
-        row's index into them."""
+        row's index into them.  ``progress`` and ``axis`` change nothing, as
+        in vaex_tpu; with ``delay`` the values come in a fulfilled promise
+        (vaex_tpu returns them as they are: ROADMAP, known problems of the
+        reference)."""
         expression = str(expression)
         selection = agg_module.selection_expression(selection, self)
         df = self if selection is None else self.filter(selection)
@@ -1431,8 +1493,8 @@ class DataFrame:
             values = values.tolist(None) if isinstance(values, np.ma.MaskedArray) else (
                 values.tolist())
         if return_inverse:
-            return values, self.evaluate_ordinal(expression, oset)
-        return values
+            values = values, self.evaluate_ordinal(expression, oset)
+        return self._delay(delay, _resolved(values))
 
     def evaluate_ordinal(self, expression, oset):
         var = self.add_variable("set_inverse", oset, unique=True)

@@ -33,9 +33,9 @@ import numpy as np
 import torch
 
 from . import array_types
-from .column import (STRINGS, ColumnHost, ColumnString, column_device, column_fingerprint,
-                     column_key, concat_columns, file_identity, keyed, slice_column,
-                     take_column)
+from .column import (STRINGS, ColumnHost, ColumnString, _masked_indices, column_device,
+                     column_fingerprint, column_key, concat_columns, file_identity, keyed,
+                     slice_column, take_column)
 from .datatype import DataType, dtype_of, needs_logical
 from .utils import fingerprint, hash_array_data
 
@@ -130,14 +130,15 @@ class Dataset(collections.abc.Mapping):
     def slice(self, start, end) -> "Dataset":
         if start == 0 and end == self.row_count:
             return self
-        return DatasetArrays({name: slice_column(col, start, end)
-                              for name, col in self._columns.items()}, self.logical, self.device)
+        return DatasetSliced(self, start, end)
 
-    def take(self, indices, mask=None, origin=None) -> "Dataset":
+    def take(self, indices, mask=None, origin=None, masked=False) -> "Dataset":
         """The rows at ``indices`` (host ints or an int tensor), missing where
         ``mask`` is True; ``origin`` names what made the indices (see
-        :class:`DatasetTake`)."""
-        return DatasetTake(self, indices, mask, origin)
+        :class:`DatasetTake`).  With ``masked`` the indices are a numpy
+        masked array whose masked entries are missing rows, vaex_tpu's form
+        (vaex_tpu/dataset.py:160)."""
+        return DatasetTake(self, indices, mask, origin, masked)
 
     def filtered(self, mask, origin=None) -> "Dataset":
         """The rows where the bool ``mask`` (a tensor or an array) is True."""
@@ -199,6 +200,17 @@ class DatasetArrays(Dataset):
     def _compute_fingerprint(self) -> str:
         return fingerprint("dataset-arrays",
                            {name: self._column_fingerprint(name) for name in self._columns})
+
+
+class DatasetSliced(DatasetArrays):
+    """Rows [start, end) of ``original``: each column's slice, a view
+    where the column has one (vaex_tpu/dataset.py:280-316)."""
+
+    def __init__(self, original, start, end):
+        super().__init__({name: slice_column(col, start, end)
+                          for name, col in original._columns.items()},
+                         original.logical, original.device)
+        self.original, self.start, self.end = original, start, end
 
 
 class _Decorator(Dataset):
@@ -293,7 +305,9 @@ class DatasetTake(_Decorator):
     parents of a join and its arguments, a frame's filter), or else the host
     indices a caller gave, or a sample of a tensor's."""
 
-    def __init__(self, original, indices, mask=None, origin=None):
+    def __init__(self, original, indices, mask=None, origin=None, masked=False):
+        if masked:
+            indices, mask = _masked_indices(indices)
         indices = index_tensor(indices, original.row_count)
         mask = None if mask is None else torch.as_tensor(mask)
         super().__init__(original, {})

@@ -119,6 +119,11 @@ def _arrow_is_string(t):
     return pa.types.is_string(t) or pa.types.is_large_string(t)
 
 
+def _arrow_is_binary(t):
+    import pyarrow as pa
+    return pa.types.is_binary(t) or pa.types.is_large_binary(t)
+
+
 class DataType:
     def __init__(self, internal):
         if isinstance(internal, DataType):
@@ -133,11 +138,16 @@ class DataType:
         return _is_arrow_type(self.internal)
 
     @property
+    def is_numpy(self):
+        return isinstance(self.internal, np.dtype)
+
+    @property
     def is_string(self):
-        """An arrow string or large string type, or numpy's str / bytes; a
-        dictionary of strings is ``is_encoded`` instead, as in vaex_tpu."""
+        """An arrow string, large string, binary or large binary type, or
+        numpy's str / bytes; a dictionary of strings is ``is_encoded``
+        instead, as in vaex_tpu (vaex_tpu/datatype.py:58-66)."""
         if self.is_arrow:
-            return _arrow_is_string(self.internal)
+            return _arrow_is_string(self.internal) or _arrow_is_binary(self.internal)
         return self.internal.kind in "US" or self.internal.kind == "T"
 
     @property
@@ -151,7 +161,7 @@ class DataType:
         """Values that are strings: ``is_string`` or a dictionary of them."""
         if self.is_encoded:
             return _arrow_is_string(self.internal.value_type)
-        return self.is_string
+        return self.is_string and not (self.is_arrow and _arrow_is_binary(self.internal))
 
     @property
     def numpy(self) -> np.dtype:
@@ -173,9 +183,101 @@ class DataType:
         """datetime64 or timedelta64: int64 on a device."""
         return not self.is_arrow and self.internal.kind in "Mm"
 
+    # -- vaex_tpu's predicates (vaex_tpu/datatype.py:68-112) -----------------
+    @property
+    def is_primitive(self):
+        """A bool, int, uint or float type, numpy's or arrow's."""
+        if self.is_arrow:
+            import pyarrow as pa
+            t = self.internal
+            return (pa.types.is_boolean(t) or pa.types.is_integer(t)
+                    or pa.types.is_floating(t))
+        return self.internal.kind in "biuf"
+
+    @property
+    def is_datetime(self):
+        """numpy's datetime64, arrow's timestamp and date types."""
+        if self.is_arrow:
+            import pyarrow as pa
+            return pa.types.is_timestamp(self.internal) or pa.types.is_date(self.internal)
+        return self.internal.kind == "M"
+
+    @property
+    def is_timedelta(self):
+        """numpy's timedelta64, arrow's duration type."""
+        if self.is_arrow:
+            import pyarrow as pa
+            return pa.types.is_duration(self.internal)
+        return self.internal.kind == "m"
+
+    @property
+    def is_float(self):
+        return self._kind == "f"
+
+    @property
+    def is_integer(self):
+        return self._kind in "iu"
+
+    @property
+    def is_signed(self):
+        return self._kind == "i"
+
     @property
     def is_unsigned(self):
-        return self.numpy.kind == "u"
+        return self._kind == "u"
+
+    @property
+    def is_bool(self):
+        return self._kind == "b"
+
+    @property
+    def _kind(self):
+        """The numpy kind of the values: of a dictionary its values'; "O"
+        for a list, a struct or any other arrow type numpy has none of (where
+        vaex_tpu raises: ROADMAP, known problems of the reference)."""
+        if self.is_encoded:
+            return DataType(self.internal.value_type)._kind
+        return self.numpy.kind
+
+    @property
+    def is_list(self):
+        """An arrow list or large list type."""
+        if not self.is_arrow:
+            return False
+        import pyarrow as pa
+        return pa.types.is_list(self.internal) or pa.types.is_large_list(self.internal)
+
+    @property
+    def is_struct(self):
+        """An arrow struct type."""
+        if not self.is_arrow:
+            return False
+        import pyarrow as pa
+        return pa.types.is_struct(self.internal)
+
+    # -- vaex_tpu's conversions (vaex_tpu/datatype.py:114-160) ----------------
+    @property
+    def arrow(self):
+        """The arrow type: itself, or numpy's converted."""
+        if self.is_arrow:
+            return self.internal
+        import pyarrow as pa
+        return pa.from_numpy_dtype(self.internal)
+
+    @property
+    def device(self) -> np.dtype:
+        """The dtype of the column's tensor on a device as vaex_tpu names
+        it: int32 for strings and dictionaries (their codes), int64 for
+        datetimes and timedeltas, else the numpy dtype."""
+        if self.is_string or self.is_encoded:
+            return np.dtype("int32")
+        if self.is_datetime or self.is_timedelta:
+            return np.dtype("int64")
+        return self.numpy
+
+    @property
+    def index_type(self):
+        return self
 
     def upcast(self) -> "DataType":
         """Sum-accumulator dtype: ints/bool -> int64, uints -> uint64,

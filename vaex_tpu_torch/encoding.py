@@ -21,9 +21,7 @@ import numpy as np
 import torch
 
 from .ops.setops import SortedSet
-from .selections import Selection, SelectionExpression
-
-FILTER_SELECTION_NAME = "__filter__"
+from .selections import FILTER_SELECTION_NAME, Selection, SelectionExpression
 
 
 def _encode_array(ar):
@@ -116,8 +114,9 @@ def _decode_category(df, spec):
     return meta
 
 
-def state_get(df):
-    """The frame's state as a dict of JSON values and base64 strings."""
+def state_get(df, skip=None):
+    """The frame's state as a dict of JSON values and base64 strings;
+    ``skip`` changes nothing, as in vaex_tpu (vaex_tpu/encoding.py:88)."""
     pickler = _pickler()
     functions = {}
     for name, f in df.functions.items():

@@ -74,6 +74,7 @@ Not ported yet (ROADMAP queue A): the whole-pass loop.
 
 from __future__ import annotations
 
+import logging
 import time
 
 import torch
@@ -87,6 +88,8 @@ from .scopes import (DeviceScope, HostScope, column_names, expression_is_device,
                      resolve_variables, ship, variable_names)
 from .tasks import TaskAggregations
 from .utils import Signal, trace
+
+logger = logging.getLogger("vaex_tpu_torch.execution")
 
 
 class UserAbort(Exception):

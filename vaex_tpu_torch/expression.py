@@ -84,12 +84,13 @@ _scope_accessors = {"str": StringOperations, "str_pandas": StringOperationsPanda
                     "dt": DateTime, "td": TimeDelta}
 
 
-def scope_accessor(scope):
+def get_scope_accessor(scope):
     return _scope_accessors[scope]
 
 
 class Expression(metaclass=Meta):
-    def __init__(self, df, expression):
+    def __init__(self, df, expression, validate=True):
+        # ``validate`` changes nothing, as in vaex_tpu (vaex_tpu/expression.py:107)
         self.df = df
         if isinstance(expression, Expression):
             expression = expression.expression
@@ -152,8 +153,10 @@ class Expression(metaclass=Meta):
                 if name in virtual and name not in stop})
         return Expression(self.df, expr)
 
-    def variables(self):
-        """The physical columns and variables the expression reads."""
+    def variables(self, ourself=False, expand_virtual=True):
+        """The physical columns and variables the expression reads;
+        ``ourself`` and ``expand_virtual`` change nothing, as in vaex_tpu
+        (vaex_tpu/expression.py:191-195)."""
         from .scopes import _leaves
         columns, used = _leaves(self.expression, self.df.variables, self.df.virtual_columns)
         return columns | used
@@ -178,7 +181,7 @@ class Expression(metaclass=Meta):
     def count(self, **kwargs):
         return self.df.count(self.expression, **kwargs)
 
-    def sum(self, **kwargs):
+    def sum(self, axis=None, **kwargs):
         return self.df.sum(self.expression, **kwargs)
 
     def mean(self, **kwargs):
@@ -270,10 +273,12 @@ class Expression(metaclass=Meta):
             n -= 1
         return n
 
-    def value_counts(self, dropna=False, dropnan=False, dropmissing=False, ascending=False):
+    def value_counts(self, dropna=False, dropnan=False, dropmissing=False, ascending=False,
+                     progress=False, axis=None):
         """A pandas Series value -> number of rows, ordered by the count; a
         missing value is indexed as "missing" (as NaT in a datetime or
-        timedelta index)."""
+        timedelta index).  ``progress`` and ``axis`` change nothing, as in
+        vaex_tpu (vaex_tpu/expression.py:278-299)."""
         import pandas as pd
         oset = self.df._set(self.expression, keep_counts=True)
         keys, counts = list(oset.keys), list(oset.counts)
@@ -290,9 +295,10 @@ class Expression(metaclass=Meta):
         index = np.array(keys, oset.dtype)[order] if oset.is_temporal else [keys[i] for i in order]
         return pd.Series(counts[order], index=index)
 
-    def isin(self, values):
+    def isin(self, values, use_hashmap=True):
         """True where the value is one of ``values``: rewrites to
-        ``isin_set(expression, <set variable>)``.  Against a uint64
+        ``isin_set(expression, <set variable>)``, which the probe B6 serves
+        whatever ``use_hashmap`` says (vaex_tpu/expression.py:301).  Against a uint64
         expression, integer values make a uint64 set (a negative one matches
         nothing): numpy would make a list of Python ints past 2^63 beside
         small ones float64, where neighbours past 2^53 merge."""

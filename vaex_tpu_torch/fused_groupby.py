@@ -121,9 +121,18 @@ def _agg_plan(df, parsed):
     return plan
 
 
-def try_fused_sort_groupby(df, by, actions, ascending=True, row_limit=None):
-    """The result frame of the one-sort plan, or None where the query does
-    not qualify (vaex_tpu/fused_groupby.py:96-200)."""
+def try_fused_sort_groupby(df, by, actions, sort=False, ascending=True, row_limit=None,
+                           delay=False):
+    """The result frame of the one-sort plan (with ``delay`` in a fulfilled
+    promise), or None where the query does not qualify
+    (vaex_tpu/fused_groupby.py:96-200).  ``sort`` changes nothing: the
+    plan's groups come in key order."""
+    from .groupby import maybe_delay
+    result = _fused_sort_groupby(df, by, actions, ascending, row_limit)
+    return None if result is None else maybe_delay(result, delay)
+
+
+def _fused_sort_groupby(df, by, actions, ascending, row_limit):
     from .groupby import COMBINE_MIN_PRODUCT, DENSE_RANGE_MAX, _dense_candidates, parse_actions
     if row_limit is not None or df.filtered:
         return None

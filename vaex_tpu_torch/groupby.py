@@ -75,15 +75,24 @@ def _descending(grouper):
     grouper.bin_values = grouper.bin_values[::-1]
 
 
+def _expression_and_frame(expression, df):
+    """A grouper's key as a string and its frame: an Expression brings its
+    own frame where none is given (vaex_tpu/groupby.py:41-44)."""
+    if isinstance(expression, Expression):
+        return expression.expression, df if df is not None else expression.df
+    return str(expression), df
+
+
 class GrouperCategory:
     """Zero-pass grouper using category metadata; a string category bins on
-    its codes (the meta's ``codes_column``)."""
+    its codes (the meta's ``codes_column``).  ``row_limit`` changes
+    nothing, as in vaex_tpu (vaex_tpu/groupby.py:99)."""
 
     dense = False
 
-    def __init__(self, expression, df, sort=False, ascending=True):
+    def __init__(self, expression, df=None, sort=False, ascending=True, row_limit=None):
+        self.expression, df = _expression_and_frame(expression, df)
         self.df = df
-        self.expression = str(expression)
         self.N = df.category_count(self.expression)
         self.min_value = df.category_offset(self.expression)
         self.bin_values = df.category_labels(self.expression, aslist=False)
@@ -109,13 +118,15 @@ class GrouperCategory:
 
 class Grouper:
     """One key through the set of its values: a set-build pass, then the
-    ordinal of each row's value as the bin."""
+    ordinal of each row's value as the bin.  ``materialize_experimental``
+    changes nothing, as in vaex_tpu (vaex_tpu/groupby.py:39-48)."""
 
     dense = False
 
-    def __init__(self, expression, df, sort=False, ascending=True, row_limit=None):
+    def __init__(self, expression, df=None, sort=False, ascending=True, row_limit=None,
+                 materialize_experimental=False):
+        self.expression, df = _expression_and_frame(expression, df)
         self.df = df
-        self.expression = str(expression)
         self.set = df._set(self.expression, limit=row_limit)
         self.bin_values = self.set.key_array(masked=True)
         self.bin_values_raw = self.bin_values
@@ -155,11 +166,12 @@ class GrouperCombined:
     """Several groupers fused into one int64 key, ``sum(ordinal_i *
     multiplier_i)``, whose set holds exactly the observed combinations; the
     fused keys are split back into each grouper's bin values on the set's
-    device."""
+    device.  ``sort`` and ``ascending`` change nothing, as in vaex_tpu: the
+    combinations come in the order of the members' bins."""
 
     dense = False
 
-    def __init__(self, groupers, df, row_limit=None):
+    def __init__(self, groupers, df, sort=False, ascending=True, row_limit=None):
         self.df = df
         self.groupers = groupers
         if np.prod([max(g.N, 1) for g in groupers], dtype=np.float64) >= 2 ** 62:
@@ -444,11 +456,24 @@ def parse_actions(df, by_names, actions):
     return out
 
 
-class GroupBy:
-    """df.groupby over one or more keys."""
+def maybe_delay(result, delay):
+    """``result`` as it is, or with ``delay`` in a promise already fulfilled
+    with it: the passes ran eagerly (vaex_tpu/groupby.py:912-920)."""
+    if not delay:
+        return result
+    from .delayed import Promise
+    return Promise().fulfill(result)
 
-    def __init__(self, df, by, sort=False, ascending=True, combine="auto", row_limit=None):
-        self.df = df.copy()
+
+class GroupByBase:
+    """The groupers of one or more keys over a frame (a copy, or with
+    ``copy=False`` the frame itself) and the parsing of the aggregations
+    (vaex_tpu/groupby.py:359-392): what :class:`GroupBy` runs and
+    :class:`BinBy` shares."""
+
+    def __init__(self, df, by, sort=False, ascending=True, combine="auto", row_limit=None,
+                 copy=True):
+        self.df = df.copy() if copy else df
         self.sort = sort
         by = list(by) if isinstance(by, (list, tuple)) else [by]
         # a key is a name, an Expression or a BinnerTime made beforehand
@@ -481,8 +506,17 @@ class GroupBy:
             self.by = [self.combined]
         self.binners = tuple(g.binner for g in self.by)
 
+    @property
+    def groupby_expression(self):
+        """The expression of each key."""
+        return [g.expression for g in self.groupers]
+
     def _parse_actions(self, actions):
         return parse_actions(self.df, self.by_names, actions)
+
+
+class GroupBy(GroupByBase):
+    """df.groupby over one or more keys."""
 
     def __iter__(self):
         """(key, the frame of its rows) per group, through filters
@@ -517,13 +551,14 @@ class GroupBy:
                 conditions.append(f"({g.expression} == {k!r})")
         return self.df.filter(" & ".join(conditions))
 
-    def agg(self, actions):
+    def agg(self, actions, delay=False):
+        """The result frame, with ``delay`` in a fulfilled promise."""
         try:
-            return self._agg(actions)
+            return maybe_delay(self._agg(actions), delay)
         except StaleRange:
             _forget(self.df)
             self._plan()
-            return self._agg(actions)
+            return maybe_delay(self._agg(actions), delay)
 
     def _agg(self, actions):
         parsed = self._parse_actions(actions)
@@ -906,8 +941,7 @@ def _prepare(df, binners, parsed):
     """Run the pre-passes the descriptors ask for (a count grid's limits) as
     one pass before their aggregations are scheduled."""
     for _, desc in parsed:
-        if hasattr(desc, "prepare"):
-            desc.prepare(df, binners)
+        desc.prepare(df, binners)
     if df.executor.tasks:
         df.execute()
 
@@ -916,7 +950,7 @@ def _is_count_star(desc):
     return desc.name == "count" and desc.expression in (None, "*") and desc.selection is None
 
 
-class BinBy(GroupBy):
+class BinBy(GroupByBase):
     """``df.binby``: the aggregations over the whole grid of ``by``, empty
     cells included, as an N-d array (vaex_tpu/groupby.py:1021-1073).  A
     category axis has its labels as coordinates, a continuous one the centres
@@ -925,8 +959,8 @@ class BinBy(GroupBy):
     ``Dataset`` (several) when xarray is installed, else a
     :class:`BinnedArray` or a dict of them."""
 
-    def __init__(self, df, by, limits=None, shape=128, sort=False):
-        self.df = df.copy()
+    def __init__(self, df, by, limits=None, shape=128, sort=False, copy=True):
+        self.df = df.copy() if copy else df
         self.sort = sort
         by = list(by) if isinstance(by, (list, tuple)) else [by]
         self.by_names = [b.expression if isinstance(b, Expression) else str(b) for b in by]
@@ -940,7 +974,14 @@ class BinBy(GroupBy):
             else:
                 self.coords.append(np.asarray(self.df.category_labels(name, aslist=False)))
 
-    def agg(self, actions):
+    @property
+    def groupby_expression(self):
+        return self.by_names
+
+    def agg(self, actions, merge=False, delay=False):
+        """The grids; ``merge`` changes nothing, as in vaex_tpu, and with
+        ``delay`` they come in a fulfilled promise (vaex_tpu returns them as
+        they are: ROADMAP, known problems of the reference)."""
         parsed = self._parse_actions(actions)
         _prepare(self.df, self.binners, parsed)
         promises = [(name, desc, desc.add_tasks(self.df, self.binners)[0])
@@ -952,7 +993,7 @@ class BinBy(GroupBy):
             grid = agg_module.view_logical(array_types.to_numpy(p.get()),
                                            desc.logical_dtype(self.df))
             arrays[name] = agg_module.extract_central(grid, ndim)
-        return _to_xarray(arrays, self.by_names, self.coords)
+        return maybe_delay(_to_xarray(arrays, self.by_names, self.coords), delay)
 
 
 def _to_xarray(arrays, dims, coords):

@@ -69,10 +69,12 @@ class CachedFile:
     fetch the missing 1 MiB blocks with ranged reads; file-like, so that h5py
     parses it.  ``identity`` keys the columns read through it."""
 
-    def __init__(self, fs, path, size, mtime):
+    def __init__(self, fs, path, size, mtime=None, local_base=None):
         self.fs, self.path, self.size = fs, path, int(size)
         self.identity = ("remote", str(path), self.size, mtime)
-        base = _local_name(path, size, mtime)
+        # the mirror's files: ``local_base`` + ".blocks" / ".present", by
+        # default named after the object in the file cache
+        base = local_base if local_base is not None else _local_name(path, size, mtime)
         self.data_path, mask_path = f"{base}.blocks", f"{base}.present"
         n_blocks = max(-(-self.size // BLOCK), 1)
         if not (os.path.exists(self.data_path) and os.path.exists(mask_path)):

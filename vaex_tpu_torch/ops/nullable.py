@@ -72,6 +72,10 @@ class NA:
     def shape(self):
         return self.data.shape
 
+    @property
+    def ndim(self):
+        return self.data.ndim
+
     def __len__(self):
         return self.data.shape[0]
 
@@ -88,6 +92,16 @@ class NA:
         if self.mask is None:
             return torch.zeros(self.data.shape, dtype=torch.bool, device=self.data.device)
         return self.mask
+
+    def valid(self):
+        """True where the value is present."""
+        return ~self.maskarray()
+
+    def fill(self, value):
+        """The data with the missing entries replaced by ``value``."""
+        if self.mask is None:
+            return self.data
+        return self.data.masked_fill(self.mask, value)
 
 
 def _mask_or(a, b):
@@ -127,9 +141,32 @@ def refuse_temporal(what, *args):
             raise HostStage(f"{what} of a {a.logical} value runs in the host stage")
 
 
-def lift(op, *args):
+def wrap(x) -> NA:
+    """An NA of a tensor, a host array (a masked one's mask kept where it
+    masks something) or an NA."""
+    if isinstance(x, NA):
+        return x
+    if isinstance(x, np.ma.MaskedArray):
+        mask = np.ma.getmaskarray(x)
+        return NA(torch.as_tensor(np.ma.getdata(x)),
+                  torch.as_tensor(mask) if mask.any() else None)
+    return NA(torch.as_tensor(x) if not isinstance(x, torch.Tensor) else x)
+
+
+def unwrap(x):
+    """An NA as a host numpy array, masked where it holds missing values."""
+    if not isinstance(x, NA):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    data = x.data.cpu().numpy()
+    if x.mask is None or not bool(x.mask.any()):
+        return data
+    return np.ma.MaskedArray(data, x.mask.cpu().numpy())
+
+
+def lift(op, *args, bool_out=False):
     """Apply op to the .data of NA/plain args, OR-combining masks (a
-    temporal value or strings raise :class:`HostStage`)."""
+    temporal value or strings raise :class:`HostStage`); ``bool_out``
+    changes nothing, as in vaex_tpu."""
     refuse_temporal(getattr(op, "__name__", "this function"), *args)
     datas = []
     mask = None

@@ -134,8 +134,9 @@ class SortedSet:
         self._labels = {}
         self._check_limit()
 
-    def update(self, values):
-        """Merge one chunk of host values into the set."""
+    def update(self, values, return_inverse=False):
+        """Merge one chunk of host values into the set; ``return_inverse``
+        changes nothing, as in vaex_tpu."""
         if self.is_string:
             return self._update_strings(values)
         data, mask = array_types.data_and_mask(values)
@@ -436,7 +437,7 @@ class DeviceSetHandle:
     build."""
 
     def __init__(self, keys, n_keys, has_nan, has_null, temporal=False, trees=None,
-                 unsigned=False):
+                 unsigned=False, host_set=None):
         self.keys = keys
         self.n_keys = n_keys
         self.has_nan = has_nan
@@ -445,7 +446,7 @@ class DeviceSetHandle:
         self.unsigned = unsigned  # uint64 keys, held as their order image
         self.route = None
         self.trees = {} if trees is None else trees
-        self.host_set = None  # the SortedSet of a string set
+        self.host_set = host_set  # the SortedSet of a string set
         self._floats = None  # a uint64 set's keys as floats (_float_view)
 
     @classmethod
@@ -609,6 +610,13 @@ def choices_tensor(values, device):
 # the join index
 
 
+def _as_na(values, mask):
+    """An NA of ``values`` (an NA, a tensor or a host array) and ``mask``."""
+    if isinstance(values, NA):
+        return values
+    return NA(torch.as_tensor(values), None if mask is None else torch.as_tensor(mask))
+
+
 class SortedIndex:
     """The join index of a right key column, on the key's device
     (vaex_tpu/ops/setops.py:690-798): the rows that hold a key (neither
@@ -623,21 +631,21 @@ class SortedIndex:
     stable-sort order.  The reference's lookup table for dense integer keys
     is a host shortcut and is not ported (ROADMAP, redesign queue)."""
 
-    def __init__(self, keys, mask=None):
+    def __init__(self, keys, mask=None, offset=0):
         if keys.dtype == torch.bool or keys.is_complex():
             raise TypeError(f"a join key takes int and float values, got {keys.dtype}")
         n = keys.shape[0]
         valid = None if mask is None else ~mask
         if keys.is_floating_point():
             valid = ~torch.isnan(keys) if valid is None else valid & ~torch.isnan(keys)
-        row_dtype = torch.int32 if n < 2 ** 31 else torch.int64
+        row_dtype = torch.int32 if n + offset < 2 ** 31 else torch.int64
         if valid is None:
             sorted_keys, rows = torch.sort(keys, stable=True)
         else:
             rows = torch.nonzero(valid).squeeze(1)
             sorted_keys, order = torch.sort(keys.index_select(0, rows), stable=True)
             rows = rows.index_select(0, order)
-        self.sorted_rows = rows.to(row_dtype)
+        self.sorted_rows = (rows + offset if offset else rows).to(row_dtype)
         first = torch.ones(sorted_keys.shape, dtype=torch.bool, device=keys.device)
         first[1:] = sorted_keys[1:] != sorted_keys[:-1]
         self.starts = torch.nonzero(first).squeeze(1)
@@ -703,10 +711,11 @@ class SortedIndex:
                                         extra)
         return left, sorted_rows.index_select(0, first + within)
 
-    def map_index(self, x: NA):
-        """The first right row of each value, -1 where it has none."""
-        return self.rows_of(self.ordinals(x))
+    def map_index(self, values, mask=None):
+        """The first right row of each value (an NA, or a tensor and its
+        ``mask``), -1 where it has none."""
+        return self.rows_of(self.ordinals(_as_na(values, mask)))
 
-    def map_index_duplicates(self, x: NA, left_offset=0):
+    def map_index_duplicates(self, values, left_offset=0, mask=None):
         """(left rows + ``left_offset``, right rows) past each first match."""
-        return self.duplicates_of(self.ordinals(x), left_offset)
+        return self.duplicates_of(self.ordinals(_as_na(values, mask)), left_offset)

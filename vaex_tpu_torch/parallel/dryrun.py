@@ -22,7 +22,7 @@ def dryrun_multichip(n_devices, devices=None):
     from .mesh import data_mesh
     from .shuffle import shuffle_groupby
 
-    mesh = data_mesh(n_devices, devices)
+    mesh = data_mesh(n_devices, devices=devices)
     if mesh.size != n_devices:
         raise RuntimeError(f"need {n_devices} shards, have {mesh.size}")
     n = 64 * n_devices

@@ -190,19 +190,21 @@ def lookup_retried(mesh, left_keys, right_keys, log, slack=4, payload=()):
     return lookup, overflow, dups, values
 
 
-def shuffle_join(left_df, right_df, left_on, right_on, mesh, slack=4):
-    """(lookup, has duplicate right keys) over the mesh
-    (vaex_tpu/parallel/join.py:153-164): the keys of each shard and the
-    retry of the frame's mesh join (:func:`lookup_retried`); raises where
-    that still overflows."""
+def shuffle_join(left_df, right_df, left_on, right_on, mesh, slack=4, max_retries=3):
+    """(lookup, has duplicate right keys) over the mesh, each of up to
+    ``max_retries`` attempts at twice the slack of the one before
+    (vaex_tpu/parallel/join.py:153-164); each attempt's trace goes to the
+    left frame's ``trace_log``.  Raises where the last still overflows."""
     from .shuffle import shard_values
     lk = [v[str(left_on)].data for v in shard_values(left_df, [left_on], mesh)]
     rk = [v[str(right_on)].data for v in shard_values(right_df, [right_on], mesh)]
-    lookup, overflow, dups, _ = lookup_retried(mesh, lk, rk, left_df.executor.trace_log, slack)
-    if overflow:
-        raise RuntimeError(f"shuffle join overflow at slack {4 * slack}: {overflow} rows "
-                           f"(extreme key skew); use the single-device join")
-    return lookup, dups > 0
+    for attempt in range(max_retries):
+        lookup, overflow, dups, trace, _ = _shuffle_join(mesh, lk, rk, slack * 2 ** attempt)
+        left_df.executor.trace_log.append(trace)
+        if not overflow:
+            return lookup, dups > 0
+    raise RuntimeError(f"shuffle join overflow after {max_retries} attempts: {overflow} rows "
+                       f"(extreme key skew); use the single-device join")
 
 
 def unified_codes(parts, mesh):

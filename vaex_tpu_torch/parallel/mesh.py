@@ -57,11 +57,12 @@ class Mesh:
         return f"Mesh({[str(d) for d in self.devices]}{group})"
 
 
-def data_mesh(n_devices=None, devices=None, group=None) -> Mesh:
+def data_mesh(n_devices=None, axis_name="d", devices=None, group=None) -> Mesh:
     """A mesh over ``devices`` (every visible CUDA device when None: there
     must be one), the first ``n_devices`` of them.  ``group`` defaults to
     the default process group once :func:`initialize_multihost` ran, as
-    vaex_tpu's mesh spans ``jax.devices()`` of every process."""
+    vaex_tpu's mesh spans ``jax.devices()`` of every process.  The mesh has
+    one axis, whatever ``axis_name`` calls it."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("data_mesh() takes the visible CUDA devices and there is none; "
@@ -84,7 +85,7 @@ def distributed_executor(n_devices=None, devices=None, group=None):
     ``data_mesh(n_devices, devices, group)``; a mesh of one shard gives a
     plain one."""
     from ..execution import ExecutorLocal
-    mesh = data_mesh(n_devices, devices, group)
+    mesh = data_mesh(n_devices, devices=devices, group=group)
     if mesh.size == 1:
         return ExecutorLocal()
     return ExecutorLocal(mesh=mesh)

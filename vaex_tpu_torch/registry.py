@@ -32,9 +32,10 @@ _expression_methods = []  # installed once the Expression class exists
 
 
 def register_function(scope=None, as_property=False, name=None, on_expression=True,
-                      device=None, host=None):
+                      device=None, host=None, df_accessor=None):
     """Register ``device`` (or the decorated function) and / or ``host``
-    under ``name``, prefixed by its scope's prefix."""
+    under ``name``, prefixed by its scope's prefix.  ``df_accessor``
+    changes nothing, as in vaex_tpu (vaex_tpu/registry.py:37-38)."""
     prefix = scopes.get(scope, "") if scope else ""
 
     def wrapper(f=None):
@@ -63,6 +64,11 @@ def is_device_function(name: str) -> bool:
     return name in expression_namespace
 
 
+def function_names():
+    """Every registered name, device and host."""
+    return set(expression_namespace) | set(expression_namespace_host)
+
+
 def _try_install(scope, short_name, full_name, as_property):
     from . import expression as _expr_mod
     Expression = getattr(_expr_mod, "Expression", None)
@@ -74,7 +80,7 @@ def _try_install(scope, short_name, full_name, as_property):
     method.__name__ = short_name
     method.registered = True
     if scope:
-        accessor = _expr_mod.scope_accessor(scope)
+        accessor = _expr_mod.get_scope_accessor(scope)
         setattr(accessor, short_name,
                 property(lambda acc: method(acc.expression)) if as_property else
                 (lambda acc, *a, **kw: method(acc.expression, *a, **kw)))

@@ -13,6 +13,10 @@ from __future__ import annotations
 
 import numpy as np
 
+# the name under which a state file keeps a frame's filter, vaex_tpu's name
+# of its filter selection (vaex_tpu/selections.py:16)
+FILTER_SELECTION_NAME = "__filter__"
+
 _combine = {
     "and": lambda a, b: f"({a}) & ({b})",
     "or": lambda a, b: f"({a}) | ({b})",

@@ -155,6 +155,15 @@ def find_valid_name(name, used=()):
     return name
 
 
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def round_up(a: int, b: int) -> int:
+    """``a`` rounded up to a multiple of ``b``."""
+    return ceil_div(a, b) * b
+
+
 TRACE = os.environ.get("VAEX_TPU_TORCH_TRACE", "") not in ("", "0")
 
 
