@@ -418,6 +418,24 @@ Run from the root of the repository on a machine with a CUDA card.  It
     asserted launched; then every call timed with and without its
     arguments in turns, the first of each turn alternating (medians of
     5); it prints its own JSON line.
+30. special floats (ROADMAP C23, C24) on config 3's H2O table (1e8 rows
+    made on the card from seed 42): the largest finite value every 173rd
+    row, -0.0 every 41st, NaN every 31st, -inf every 89th and +inf every
+    97th written into v3 (float64) and into a float32 copy of it; sum,
+    mean, std, var, min, max and count of both through the one-sort plan
+    (q10's six keys, unpacked; the set grouper's key id6 * 1 000 003) on
+    one device and over phase 24's four shards of cuda:0 (the fused
+    exchange), and through B1 (id1 categorized), B2 and B5 ((id1, id2),
+    G = 1e4), B4 (by id1), b3-l2 and b3x-l2 (id3, G = 1e6) and b3x-direct
+    (by id1), each route asserted; every answer against plain torch
+    (index_add_ of where(isnan, 0, x) in float64, the non-NaN counts, a
+    two-pass variance with ddof 0, scatter_reduce_), NaN and infinities
+    exactly and with their sign, other floats within 1e-9 relative (a
+    float64 sum whose finite terms overflow beside an infinity depends on
+    the order of its adds: any non-finite value there); the seven kernels
+    asserted launched, then each against its plain version on the same
+    columns; then H2O's q10 timed on this table (median of 5) beside
+    PERF.md's P4; it prints its own JSON line.
 
     python3 chip_smoke.py --profile 20 21 22 23
 
@@ -2572,9 +2590,11 @@ def config3_plain(cols, n):
 
 
 def _column(df, name, device):
+    """A result column as a tensor on ``device``: a tensor column where it
+    lies, any other (a host array, a gather of rows) through its values."""
     col = df.dataset[name]
     return col.to(device) if isinstance(col, torch.Tensor) else torch.as_tensor(
-        np.asarray(col), device=device)
+        np.asarray(df[name].values), device=device)
 
 
 def config3_check(question, out, want, device):
@@ -7870,6 +7890,305 @@ def phase29_path(vt, plan, gp, probe, label, n=PHASE29_ROWS):
                       "launches": launches, "times": times, "phase_s": phase_s}
 
 
+# phase 30: special floats on the card (ROADMAP C23, C24): config 3's H2O
+# table with +-inf, NaN, -0.0 and the largest float written into v3 and into
+# a float32 copy of it, through the one-sort plan (one device and phase 24's
+# four shards) and through every kernel route, each answer held to plain
+# torch with NaN and infinities exact
+PHASE30_ROWS = 100_000_000
+PHASE30_STATS = ("sum", "mean", "std", "var", "min", "max", "count")
+PHASE30_COLUMNS = ("v3", "v3f")
+PHASE30_RTOL = 1e-9
+PHASE30_KERNELS = ("b1", "b2", "b3-l2", "b3x-l2", "b3x-direct", "b4", "b5")
+PHASE30_Q10_P4_MS = 57.21  # PERF.md section 5: q10's median on config 3 (P4)
+# name: (the frame, its keys, its statistics of v3 and v3f, the kernel one of
+# its passes must record, under which kind; None: the one-sort plan)
+PHASE30_QUERIES = {
+    "q10 keys": ("raw", CONFIG3_KEYS, PHASE30_STATS, None),
+    "k1e6": ("raw", ("k1e6",), PHASE30_STATS, None),
+    "sum by id1": ("categorized", ("id1",), ("sum",), ("additive", "b1")),
+    "mean count by id1": ("categorized", ("id1",), ("mean", "count"), None),
+    "std var v3 by id1": ("categorized", ("id1",), ("std-v3", "var-v3"), ("moments", "b4")),
+    "std var v3f by id1": ("categorized", ("id1",), ("std-v3f", "var-v3f"), ("moments", "b4")),
+    "min max by id1": ("categorized", ("id1",), ("min", "max"), ("extremes", "b3x-direct")),
+    "sum mean by id1 id2": ("raw", ("id1", "id2"), ("sum", "mean", "count"), None),
+    "std var by id1 id2": ("raw", ("id1", "id2"), ("std", "var"), ("moments", "b5")),
+    "min max by id1 id2": ("raw", ("id1", "id2"), ("min", "max"), None),
+    "sum by id3": ("raw", ("id3",), ("sum",), ("additive", "b3-l2")),
+    "min max by id3": ("raw", ("id3",), ("min", "max"), ("extremes", "b3x-l2")),
+    "moments by id3": ("raw", ("id3",), ("mean", "std", "var", "count"), None),
+}
+PHASE30_SORTED = ("q10 keys", "k1e6")  # the one-sort queries, also over the mesh
+
+
+def phase30_special(x):
+    """``x`` with the dtype's largest finite value every 173rd row, -0.0
+    every 41st, NaN every 31st, -inf every 89th and +inf every 97th (where
+    two strides meet, the one named later wins), in place."""
+    x[::41] = -0.0
+    x[::173] = torch.finfo(x.dtype).max
+    x[::31] = float("nan")
+    x[::89] = float("-inf")
+    x[::97] = float("inf")
+    return x
+
+
+def phase30_columns(n, device, seed=SEED):
+    """Config 3's table (:func:`config3_columns`) with the special floats
+    written into v3, a float32 copy of v3 (taken before) with its own
+    largest value, v3f, and the set grouper's wide key k1e6 = id6 *
+    WIDE_FACTOR."""
+    cols = config3_columns(n, device, seed)
+    cols["v3f"] = phase30_special(cols["v3"].to(torch.float32))
+    phase30_special(cols["v3"])
+    cols["k1e6"] = cols["id6"] * WIDE_FACTOR
+    return cols
+
+
+def phase30_frames(vt, cols):
+    df = vt.from_dataset(vt.DatasetArrays(dict(cols)))
+    return {"raw": df, "categorized": df.categorize("id1", min_value=1,
+                                                    labels=list(range(1, CONFIG3_K + 1)))}
+
+
+def phase30_aggregations(stats):
+    """[(output name, statistic, column)]: "std-v3" one column, "std" both."""
+    out = []
+    for stat in stats:
+        stat, _, only = stat.partition("-")
+        out += [(f"{stat}_{c}", stat, c) for c in PHASE30_COLUMNS if not only or c == only]
+    return out
+
+
+def phase30_query(vt, name):
+    _, keys, stats, _ = PHASE30_QUERIES[name]
+    aggs = {out: getattr(vt.agg, stat)(c) for out, stat, c in phase30_aggregations(stats)}
+    return lambda df: df.groupby(list(keys), agg=aggs, sort=True)
+
+
+def phase30_cells(cols, keys, n):
+    """(each row's cell, the observed cells in key order, the key columns of
+    the observed cells): dense cells over 1 .. span, q10's six keys by
+    torch.unique over the stacked keys, k1e6 by id6's cells."""
+    if keys == ("k1e6",):
+        cell, observed, _, values = _config3_cells(cols, ["id6"], n)
+        return cell, observed, {"k1e6": values["id6"] * WIDE_FACTOR}
+    if len(keys) > 2:
+        unique, cell = torch.unique(torch.stack([cols[k] for k in keys], dim=1), dim=0,
+                                    return_inverse=True)
+        observed = torch.arange(unique.shape[0], device=cell.device)
+        return cell, observed, {k: unique[:, i] for i, k in enumerate(keys)}
+    cell, observed, _, values = _config3_cells(cols, list(keys), n)
+    return cell, observed, values
+
+
+def phase30_plain(cell, observed, x, stat):
+    """One statistic of ``x`` per observed cell in plain torch: counts of the
+    non-NaN rows, ``index_add_`` of where(isnan, 0, x) in float64, the mean
+    as their quotient, a two-pass variance with ddof 0, min / max by
+    ``scatter_reduce_`` with NaN as the identity (+-inf, as an empty cell)."""
+    f64 = torch.float64
+    size = int(observed[-1]) + 1 if observed.numel() else 0
+    nan = torch.isnan(x)
+    count = torch.zeros(size, dtype=torch.int64, device=x.device).index_add_(
+        0, cell, (~nan).to(torch.int64))
+    if stat == "count":
+        return count[observed]
+    if stat in ("min", "max"):
+        fill = float("inf") if stat == "min" else float("-inf")
+        values = torch.where(nan, fill, x.to(f64))
+        grid = torch.full((size,), fill, dtype=f64, device=x.device)
+        return grid.scatter_reduce_(0, cell, values, "amin" if stat == "min" else "amax")[observed]
+    total = torch.zeros(size, dtype=f64, device=x.device).index_add_(
+        0, cell, torch.where(nan, 0.0, x.to(f64)))
+    if stat == "sum":
+        return total[observed]
+    c = count.to(f64)
+    mean = total / c
+    if stat == "mean":
+        return mean[observed]
+    dev = torch.where(nan, 0.0, x.to(f64) - mean[cell])
+    var = torch.zeros(size, dtype=f64, device=x.device).index_add_(0, cell, dev * dev) / c
+    return (var if stat == "var" else torch.sqrt(var))[observed]
+
+
+def phase30_ambiguous(cell, observed, x):
+    """The cells whose finite values alone overflow float64 and which hold an
+    infinity: there an IEEE sum depends on the order of its adds (max + max
+    + -inf is NaN, max + -inf + max is -inf), in the kernels' atomics and in
+    ``index_add_`` alike."""
+    f64 = torch.float64
+    size = int(observed[-1]) + 1 if observed.numel() else 0
+    finite = torch.isfinite(x)
+    magnitude = torch.zeros(size, dtype=f64, device=x.device).index_add_(
+        0, cell, torch.where(finite, x.to(f64).abs(), 0.0))
+    held = torch.zeros(size, dtype=torch.int64, device=x.device).index_add_(
+        0, cell, torch.isinf(x).to(torch.int64))
+    return (torch.isinf(magnitude) & (held > 0))[observed]
+
+
+def phase30_check(name, got, want, ambiguous=None, rtol=PHASE30_RTOL):
+    """``got`` against plain torch's ``want`` (raises): ints exactly; NaN
+    where ``want`` has NaN and the same infinity where it has one, other
+    floats within ``rtol`` relative; in an ``ambiguous`` cell (a sum whose
+    finite terms overflow beside an infinity) any non-finite value."""
+    got = got.to(want.device)
+    check(got.shape == want.shape, f"phase 30 {name}: shape {tuple(got.shape)} against "
+                                   f"{tuple(want.shape)}")
+    if not want.is_floating_point():
+        check(torch.equal(got.to(want.dtype), want), f"phase 30 {name}: ints differ")
+        return
+    g, w = got.to(torch.float64), want
+    special = ~torch.isfinite(w) | ~torch.isfinite(g)
+    same = (torch.isnan(g) & torch.isnan(w)) | (g == w)
+    ok = torch.where(special, same, (g - w).abs() <= rtol * w.abs())
+    if ambiguous is not None:
+        ok |= ambiguous & ~torch.isfinite(g) & ~torch.isfinite(w)
+    bad = torch.nonzero(~ok).squeeze(1)
+    check(bad.numel() == 0,
+          f"phase 30 {name}: {bad.numel()} of {w.numel()} cells differ, first "
+          f"{[(int(i), float(g[i]), float(w[i])) for i in bad[:3]]}")
+
+
+def phase30_answer(name, out, cols, n, device):
+    """Each output of one query against plain torch (raises)."""
+    _, keys, stats, _ = PHASE30_QUERIES[name]
+    cell, observed, key_values = phase30_cells(cols, keys, n)
+    for key, value in key_values.items():
+        phase30_check(f"{name} {key}", _column(out, key, device), value)
+    for output, stat, c in phase30_aggregations(stats):
+        x = cols[c]
+        ambiguous = phase30_ambiguous(cell, observed, x) if stat in ("sum", "mean") else None
+        phase30_check(f"{name} {output}", _column(out, output, device),
+                      phase30_plain(cell, observed, x, stat), ambiguous)
+
+
+def phase30_drive(vt, frames, cols, n, device, mesh=None, expect_routes=True):
+    """Every query once through the public API, each output held to plain
+    torch (:func:`phase30_answer`), the one-sort queries asserted on the
+    one-sort plan; with ``mesh`` the one-sort queries again over its
+    shards, on the fused exchange.  Returns each query's route (the
+    one-sort pass's mode, or every pass's strategies)."""
+    routes = {}
+    runs = [(name, frames[PHASE30_QUERIES[name][0]]) for name in PHASE30_QUERIES]
+    if mesh is not None:
+        sharded = phase24_sharded(frames["raw"], mesh)
+        runs += [(f"{name} on the mesh", sharded) for name in PHASE30_SORTED]
+    for label, df in runs:
+        name = label.replace(" on the mesh", "")
+        log = df.executor.trace_log
+        start = len(log)
+        out = phase30_query(vt, name)(df)
+        entries = log[start:]
+        expected = PHASE30_QUERIES[name][3]
+        if name in PHASE30_SORTED:
+            sorts = [e for e in entries if e.get("groupby") == "one-sort"]
+            check(sorts, f"phase 30 {label}: no pass on the one-sort plan: {entries}")
+            if df is not frames["raw"]:
+                check(sorts[-1].get("fused_mesh_groupby") is True,
+                      f"phase 30 {label}: not the fused exchange: {sorts[-1]}")
+            routes[label] = {k: sorts[-1].get(k) for k in ("mode", "words", "groups",
+                                                           "fused_mesh_groupby")}
+        else:
+            routes[label] = [e.get("strategies") for e in entries if "strategies" in e]
+            if expect_routes and expected is not None:
+                kind, kernel = expected
+                found = [s.get(kind) for batch in routes[label]
+                         for s in (batch if isinstance(batch, list) else [batch])]
+                check(kernel in found, f"phase 30 {label}: {kind} took {found}, not {kernel}")
+        phase30_answer(name, out, cols, n, device)
+        print(f"phase 30 {label} N={n}: {len(out)} groups against plain torch, NaN and "
+              f"infinities exact; route {routes[label]}", flush=True)
+    return routes
+
+
+def phase30_kernels_vs_plain(plan, gp, ge, gm, agg, cols):
+    """Each kernel of the phase against its plain version on the special
+    columns at its query's cells (B1 and B4 at id1's 100, B2 and B5 at
+    (id1, id2)'s 10 000, b3-l2 and b3x-l2 at id3's, b3x-direct at id1's):
+    counts and extremes exactly, sums as :func:`phase30_check` holds them."""
+    k, g3 = CONFIG3_K, config3_span("id3", cols["id3"].numel())
+    cells = {k: (cols["id1"] - 1).to(torch.int32),
+             k * k: ((cols["id1"] - 1) * k + cols["id2"] - 1).to(torch.int32),
+             g3: (cols["id3"] - 1).to(torch.int32)}
+    floats = [torch.where(torch.isnan(cols[c]), 0.0, cols[c].to(torch.float64))
+              for c in PHASE30_COLUMNS]
+    for route, G in ((plan.B1, k), (plan.B2, k * k), (plan.B3_L2, g3)):
+        idx = cells[G]
+        got_i, got_f = plan.KERNELS[route](idx, [], floats, G, count=True)
+        want_i, want_f = plan.PLAIN[route](idx, [], floats, G, count=True)
+        observed = torch.arange(G, device=idx.device)
+        phase30_check(f"{route} counts", got_i, want_i)
+        for j, c in enumerate(PHASE30_COLUMNS):
+            phase30_check(f"{route} sums of {c}", got_f[j], want_f[j],
+                          phase30_ambiguous(idx.to(torch.int64), observed, cols[c]))
+    for route, G in ((plan.B4, k), (plan.B5, k * k)):
+        for c in PHASE30_COLUMNS:
+            bases = [cols[c]]
+            shift = first_valid(bases)
+            got = plan.MOMENT_KERNELS[route](cells[G], bases, agg.VAR_TERMS, G, shift)
+            want = plan.MOMENT_PLAIN[route](cells[G], bases, agg.VAR_TERMS, G, shift)
+            phase30_check(f"{route} counts of {c}", got[0], want[0])
+            for j, term in enumerate(("u", "u^2")):
+                phase30_check(f"{route} sum of {term} of {c}", got[1][j], want[1][j])
+    columns = [cols["v3"], cols["v3f"], cols["v3"], cols["v3f"]]
+    modes = ["min", "min", "max", "max"]
+    for route, G in ((plan.B3X_DIRECT, k), (plan.B3X_L2, g3)):
+        if route == plan.B3X_DIRECT:
+            got, _, _ = gp.grid_partition_extreme(cells[G], columns, modes, [None] * 4, G)
+        else:
+            got = gp.grid_resident_extreme(cells[G], columns, modes, [None] * 4, G)
+        want = ge.grid_extreme_batch(cells[G], columns, modes, [None] * 4, G)
+        for k, (a, w) in enumerate(zip(got, want)):
+            check(a.dtype == w.dtype and torch.equal(a, w),
+                  f"phase 30 {route}: {modes[k]} of {w.dtype} against its plain version")
+    _sync()
+
+
+def phase30_verdict(launches):
+    """Fail a phase in which one of PHASE30_KERNELS launched no time."""
+    missing = [name for name in PHASE30_KERNELS if not launches.get(name)]
+    check(not missing, f"phase 30: {missing} launched no time: {launches}")
+
+
+def phase30_path(vt, plan, gp, probe, label, n=PHASE30_ROWS):
+    """Phase 30 on the card: the special columns made on cuda:0,
+    :func:`phase30_drive` once with the kernel counts set to 0 (one device,
+    then the one-sort queries over phase 24's four shards), every kernel of
+    PHASE30_KERNELS asserted launched, then each kernel against its plain
+    version on the same columns and H2O's q10 timed on this table beside
+    P4's median.  Returns (launches, the phase's JSON record)."""
+    from vaex_tpu_torch import agg, cache
+    from vaex_tpu_torch.ops import grid_extreme as ge
+    from vaex_tpu_torch.ops import grid_moments as gm
+    t_phase = time.perf_counter()
+    cols = phase30_columns(n, "cuda")
+    frames = phase30_frames(vt, cols)
+    with cache.off():
+        zero_launches(plan, gp)
+        probe.probe.launches = probe.probe.wide_launches = 0
+        routes = phase30_drive(vt, frames, cols, n, "cuda", mesh=phase24_mesh("cuda"))
+        launches = {**launch_counts(plan, gp), "b6": probe.probe.launches,
+                    "b6-wide": probe.probe.wide_launches}
+        print(f"phase 30 launches: {launches}", flush=True)
+        phase30_verdict(launches)
+        phase30_kernels_vs_plain(plan, gp, ge, gm, agg, cols)
+        print("phase 30: B1, B2, b3-l2, B4, B5, b3x-direct and b3x-l2 equal their plain "
+              "versions on the special columns", flush=True)
+        q10 = config3_questions(vt)["q10"]
+        q10_s, q10_all = median_s(lambda: q10(frames["raw"]))
+    phase_s = time.perf_counter() - t_phase
+    print(f"[{label}] phase 30 q10 on the special table: median {q10_s * 1e3!r} ms of {REPS} "
+          f"({[t * 1e3 for t in q10_all]}), beside P4's {PHASE30_Q10_P4_MS} ms", flush=True)
+    print(f"[{label}] phase 30 took {phase_s:.1f} s", flush=True)
+    del frames, cols
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"card": label, "rows": n, "routes": routes, "launches": launches,
+                      "q10_ms": q10_s * 1e3, "q10_p4_ms": PHASE30_Q10_P4_MS,
+                      "phase_s": phase_s}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8012,6 +8331,9 @@ def main():
 
     phase29_launches, phase29 = phase29_path(vt, plan, gp, probe, label)
     print(json.dumps({"phase29": phase29}), flush=True)
+
+    phase30_launches, phase30 = phase30_path(vt, plan, gp, probe, label)
+    print(json.dumps({"phase30": phase30}), flush=True)
     print(f"[{label}] chip_smoke.py took {time.perf_counter() - T_START:.1f} s", flush=True)
 
     measured = {plan.B1: (main_launches[plan.B1], results[MAIN_SIZES[0]]),
@@ -8059,6 +8381,7 @@ def main():
         "phase27_launches": phase27_launches[name],
         "phase28_launches": phase28_launches[name],
         "phase29_launches": phase29_launches[name],
+        "phase30_launches": phase30_launches[name],
         **{key: value for key, value in m.items() if key in EXTRA_KEYS},
     } for name, (launches, m) in measured.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1420,3 +1420,85 @@ def test_the_phase29_verdict_refuses_a_phase_without_its_kernels(missing):
     launches = {k: 0 for k in launches} if missing == "all" else dict(launches, **{missing: 0})
     with pytest.raises(RuntimeError, match="phase 29"):
         chip_smoke.phase29_verdict(launches)
+
+
+def test_the_phase30_drive_on_the_cpu():
+    """Phase 30 at a small size: every query on one device and the one-sort
+    ones over four CPU shards against plain torch, NaN and infinities
+    exact, then each kernel's plain version on the same columns."""
+    from vaex_tpu_torch import cache
+    from vaex_tpu_torch.ops import grid_extreme as ge
+    from vaex_tpu_torch.ops import grid_partition as gp
+    from vaex_tpu_torch.ops import grid_plan as plan
+    n = 20_000
+    cols = chip_smoke.phase30_columns(n, "cpu")
+    frames = chip_smoke.phase30_frames(vaex_tpu_torch, cols)
+    with cache.off():
+        routes = chip_smoke.phase30_drive(vaex_tpu_torch, frames, cols, n, "cpu",
+                                          mesh=chip_smoke.phase24_mesh("cpu"),
+                                          expect_routes=False)
+    assert routes["q10 keys"]["mode"] == "packed" and routes["k1e6"]["groups"] == n // 100
+    assert routes["k1e6 on the mesh"]["fused_mesh_groupby"] is True
+    assert set(routes) == set(chip_smoke.PHASE30_QUERIES) | {
+        f"{q} on the mesh" for q in chip_smoke.PHASE30_SORTED}
+    chip_smoke.phase30_kernels_vs_plain(plan, gp, ge, gm, agg, cols)
+
+
+def test_the_phase30_plain_answers_are_numpy_s():
+    """phase30_plain per group against numpy's nan-functions over the
+    special floats the tests use (the same strides as phase30_special)."""
+    from torch_port_helpers import assert_special, numpy_stat, special_floats
+    rng = np.random.default_rng(30)
+    n, G = 3000, 200
+    key = rng.integers(0, G, n)
+    for dtype in (np.float64, np.float32):
+        x = special_floats(n, dtype, seed=30)
+        t = torch.from_numpy(rng.normal(0, 10, n).astype(dtype))
+        assert np.array_equal(np.isnan(chip_smoke.phase30_special(t).numpy()), np.isnan(x))
+        cell, observed = torch.from_numpy(key), torch.arange(G)
+        for stat in chip_smoke.PHASE30_STATS:
+            got = chip_smoke.phase30_plain(cell, observed, torch.from_numpy(x), stat)
+            assert_special(got.numpy(), [numpy_stat(x[key == g], stat) for g in range(G)],
+                           f"{dtype.__name__} {stat}")
+
+
+def test_the_phase30_checks_refuse_a_wrong_special_value():
+    inf, nan = float("inf"), float("nan")
+    want = torch.tensor([nan, inf, -inf, 1.0, 0.0], dtype=torch.float64)
+    chip_smoke.phase30_check("x", want.clone(), want)
+    chip_smoke.phase30_check("x", want.clone().to(torch.float32), want)
+    chip_smoke.phase30_check("x", torch.tensor([nan, inf, -inf, 1.0 + 5e-10, -0.0]), want)
+    for wrong in ([1.0, inf, -inf, 1.0, 0.0], [nan, -inf, -inf, 1.0, 0.0],
+                  [nan, inf, -1.7976931348623157e308, 1.0, 0.0], [nan, inf, -inf, 1.0 + 2e-9, 0.0],
+                  [nan, inf, -inf, 1.0, 1e-300], [nan, nan, -inf, 1.0, 0.0]):
+        with pytest.raises(RuntimeError, match="phase 30 x"):
+            chip_smoke.phase30_check("x", torch.tensor(wrong, dtype=torch.float64), want)
+    with pytest.raises(RuntimeError, match="phase 30 n: ints"):
+        chip_smoke.phase30_check("n", torch.tensor([1, 2]), torch.tensor([1, 3]))
+    # a sum whose finite terms overflow beside -inf: NaN or -inf, never finite
+    ambiguous = torch.tensor([False, False, True, False, False])
+    chip_smoke.phase30_check("x", torch.tensor([nan, inf, nan, 1.0, 0.0]), want, ambiguous)
+    with pytest.raises(RuntimeError, match="phase 30 x"):
+        chip_smoke.phase30_check("x", torch.tensor([nan, inf, 5.0, 1.0, 0.0]), want, ambiguous)
+
+
+def test_the_phase30_ambiguous_cells():
+    """A cell of two largest floats and -inf is order-dependent; one largest
+    float and -inf, or two largest and no infinity, is not."""
+    big = float(np.finfo(np.float64).max)
+    x = torch.tensor([big, big, float("-inf"), big, float("-inf"), big, big, 1.0],
+                     dtype=torch.float64)
+    cell = torch.tensor([0, 0, 0, 1, 1, 2, 2, 2])
+    got = chip_smoke.phase30_ambiguous(cell, torch.arange(3), x)
+    assert got.tolist() == [True, False, False]
+    assert not chip_smoke.phase30_ambiguous(cell, torch.arange(3), x.to(torch.float32)).any()
+
+
+@pytest.mark.parametrize("missing", [None, *chip_smoke.PHASE30_KERNELS])
+def test_the_phase30_verdict_refuses_a_phase_without_its_kernels(missing):
+    launches = {name: 2 for name in chip_smoke.PHASE30_KERNELS}
+    if missing is None:
+        chip_smoke.phase30_verdict(launches)
+        return
+    with pytest.raises(RuntimeError, match=f"phase 30: \\['{missing}'\\]"):
+        chip_smoke.phase30_verdict(dict(launches, **{missing: 0}))

@@ -16,7 +16,7 @@ import numpy as np
 import numpy.testing as npt
 import pytest
 
-from torch_port_helpers import ATOL, RTOL
+from torch_port_helpers import ATOL, RTOL, assert_special, numpy_stat, special_floats
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -193,6 +193,12 @@ PLANS = textwrap.dedent("""
     run("fused", g, lambda df: df.groupby(["k1", "k3"], agg={{
         "s": a.sum("x"), "c": "count", "mx": a.max("v"), "sd": a.std("x")}}, sort=True))
     run("wide", g, lambda df: df.groupby("w", agg={{"c": "count", "s": a.sum("v")}}, sort=True))
+    special = {{s: getattr(a, s)("xi") for s in {stats!r}}}
+    run("infinities", g, lambda df: df.groupby("kw", agg=special, sort=True))
+    run("infinities classic", g, lambda df: df.groupby("k", agg=special, sort=True))
+    # the grid route's var: its rescue pass, scheduled in every process alike
+    out["infinities binned"] = {{s: [float(v) for v in getattr(g, s)(
+        "xi", binby="k2", limits=[0, 20], shape=20)] for s in ("std", "var")}}
 
     # a result one process holds in its cache and the other not: both run
     # the pass, whose merge needs them both
@@ -237,7 +243,9 @@ def _plan_inputs():
     w = rng.integers(0, 50, n).astype("i8")
     g = {"k": rng.integers(0, 300, n).astype("i8") * 3, "k2": rng.integers(0, 20, n).astype("i8"),
          "k1": rng.integers(0, 3000, n).astype("i8"), "k3": rng.integers(0, 3000, n).astype("i8"),
-         "x": x, "v": rng.integers(1, 6, n).astype("i8"), "w": w}
+         "x": x, "v": rng.integers(1, 6, n).astype("i8"), "w": w,
+         "kw": rng.integers(0, 400, n).astype("i8") * 1_000_003,
+         "xi": special_floats(n, np.float64, seed=23)}
     g_part = rng.integers(0, 2, n)
     # rank 0's rows of w span past DENSE_RANGE_MAX, rank 1's do not: both
     # must skip the dense pre-pass alike
@@ -271,7 +279,8 @@ def plans(tmp_path_factory):
     with open(tmp / "inputs.pkl", "wb") as f:
         pickle.dump(_plan_inputs(), f)
     script = tmp / "plans.py"
-    script.write_text(PLANS.format(repo=REPO, inputs=str(tmp / "inputs.pkl")))
+    script.write_text(PLANS.format(repo=REPO, inputs=str(tmp / "inputs.pkl"),
+                                stats=SPECIAL_STATS))
     env = dict(os.environ, PYTHONPATH=REPO)
     procs = [subprocess.Popen([sys.executable, str(script), str(i), str(tmp / "store"),
                                str(tmp / f"result{i}.pkl")],
@@ -357,6 +366,48 @@ def test_a_groupby_exchange_across_the_processes(plans, name):
             fused = _routes(entry[name], "fused_mesh_groupby")
             assert fused and all(e["fused_mesh_groupby"] is True and e["world"] == 2
                                  for e in fused)
+
+
+SPECIAL_STATS = ("sum", "mean", "std", "var", "min", "max", "count")
+
+
+def test_a_binned_variance_with_infinities_across_the_processes(plans):
+    """std and var of the special column binned by k2 over the global mesh:
+    a cell whose sum of squares is not finite takes the rescue pass in both
+    processes (C24), each cell equal to numpy's."""
+    table = _plan_inputs()["g"]
+    for entry in plans:
+        for stat in ("std", "var"):
+            want = [numpy_stat(table["xi"][table["k2"] == b], stat) for b in range(20)]
+            assert_special(entry["infinities binned"][stat], want, f"binned {stat}")
+
+
+@pytest.mark.parametrize("name", ["infinities", "infinities classic"])
+def test_infinities_across_the_processes(plans, name):
+    """A float64 column with +-inf, NaN, -0.0 and the largest float (C23,
+    C24) through the fused one-sort exchange (a wide key) and the classic
+    all-to-all (a narrow one) with world 2: each group's sum, mean, std,
+    var, min, max and count equal to one device's over the whole table and
+    to numpy's nan-functions, NaN and infinities exactly."""
+    import vaex_tpu_torch
+    from vaex_tpu_torch import cache
+    by = "kw" if name == "infinities" else "k"
+    table = _plan_inputs()["g"]
+    one = vaex_tpu_torch.from_arrays(**table).to_device("cpu")
+    with cache.off():
+        single = one.groupby(by, agg={s: getattr(vaex_tpu_torch.agg, s)("xi")
+                                      for s in SPECIAL_STATS}, sort=True)
+    keys = np.asarray(single[by].values)
+    for entry in plans:
+        got = entry[name]["columns"]
+        npt.assert_array_equal(np.asarray(got[by]), keys)
+        for stat in SPECIAL_STATS:
+            want = [numpy_stat(table["xi"][table[by] == key], stat) for key in keys]
+            assert_special(got[stat], want, f"{name} {stat}")
+            assert_special(got[stat], single[stat].values, f"{name} {stat} against one device")
+        route = "fused_mesh_groupby" if name == "infinities" else "shuffle"
+        passes = _routes(entry[name], route)
+        assert passes and all(e[route] is True and e["world"] == 2 for e in passes)
 
 
 JOINS = {

@@ -244,3 +244,42 @@ def assert_same_list(got, want, rtol=0.0):
                 assert abs(g - w) <= rtol * abs(w), (i, g, w)
         else:
             assert g == w, (i, g, w)
+
+
+def special_floats(n, dtype, seed=0):
+    """N(0, 10) in ``dtype`` with the dtype's largest finite value every
+    173rd row, -0.0 every 41st, NaN every 31st, -inf every 89th and +inf
+    every 97th (where two strides meet, the one named later wins)."""
+    x = np.random.default_rng(seed).normal(0, 10, n).astype(dtype)
+    i = np.arange(n)
+    x[i % 41 == 0] = -0.0
+    x[i % 173 == 0] = np.finfo(dtype).max
+    x[i % 31 == 0] = np.nan
+    x[i % 89 == 0] = -np.inf
+    x[i % 97 == 0] = np.inf
+    return x
+
+
+def numpy_stat(values, stat):
+    """numpy's nan-function of ``stat`` (sum, mean, std, var, min, max or
+    count; ddof 0) over one group's values cast to float64."""
+    v = np.asarray(values, dtype=np.float64)
+    with np.errstate(all="ignore"):
+        if stat == "count":
+            return float(np.sum(~np.isnan(v)))
+        if stat == "mean":
+            return np.nansum(v) / np.sum(~np.isnan(v))
+        return {"sum": np.nansum, "std": np.nanstd, "var": np.nanvar, "min": np.nanmin,
+                "max": np.nanmax}[stat](v)
+
+
+def assert_special(got, want, what, rtol=1e-9):
+    """NaN where ``want`` has NaN, the same infinity where it has one, other
+    floats within ``rtol`` relative."""
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    assert got.shape == want.shape, what
+    npt.assert_array_equal(np.isnan(got), np.isnan(want), err_msg=f"{what}: NaN")
+    npt.assert_array_equal(np.isposinf(got), np.isposinf(want), err_msg=f"{what}: +inf")
+    npt.assert_array_equal(np.isneginf(got), np.isneginf(want), err_msg=f"{what}: -inf")
+    finite = np.isfinite(want)
+    npt.assert_allclose(got[finite], want[finite], rtol=rtol, atol=0, err_msg=what)

@@ -991,11 +991,31 @@ def _moments(df, binners, expressions, terms, selection=None):
     return df.executor.schedule_aggregation(df, binners, op, selection)
 
 
+# the power of two a float64 base is scaled by where its sum of squares
+# overflowed: |u| <= 2^1025 scales to 2^485, whose squares sum over 2^50 rows
+# to below 2^1021
+RESCUE_SCALE = 2.0 ** -540
+
+
+def rescued_variance(var, m2, scaled, n):
+    """``var`` where the cell's sum of squares ``m2`` is finite, else the
+    variance of the ``scaled`` sums (s1, s2) of u * RESCUE_SCALE scaled
+    back: inf where the variance overflows, NaN where the cell holds an
+    infinity, as numpy's two passes give, not the NaN of inf - inf."""
+    s1, s2 = scaled
+    back = variance(s2, s1, n) / RESCUE_SCALE / RESCUE_SCALE
+    return torch.where(torch.isfinite(m2), var, back)
+
+
 class AggregatorDescriptorVar(AggregatorDescriptor):
     """var/std from shifted moments: with u = x - a (a the base's shift), var
     = (sum u^2 - (sum u)^2 / n) / n, which does not cancel where x is far
     from zero, as E[x^2] - E[x]^2 of raw moments does (vaex_tpu/agg.py:1114,
-    a fault of the reference)."""
+    a fault of the reference).  Where a float64 cell's sum of u^2 is not
+    finite (an infinity, or |u| past 1.3e154), a second pass takes the
+    moments of x * RESCUE_SCALE for :func:`rescued_variance`; a float32 or
+    int base's squares cannot overflow, so only an infinity makes them
+    infinite, and inf - inf is already the NaN numpy gives."""
 
     def __init__(self, expression, std=False, ddof=0, selection=None, edges=False):
         super().__init__("std" if std else "var", expression, selection, edges)
@@ -1003,20 +1023,34 @@ class AggregatorDescriptorVar(AggregatorDescriptor):
         self.ddof = ddof
 
     def add_tasks(self, df, binners, progress=None):
+        from .delayed import Promise
         for e in self.expressions:
             _not_strings(df, e, self.name)
-        moments = _moments(df, binners, [self.expression], VAR_TERMS,
-                           selection_expression(self.selection, df))
+        selection = selection_expression(self.selection, df)
+        moments = _moments(df, binners, [self.expression], VAR_TERMS, selection)
         std, ddof = self.std, self.ddof
+        wide = self._input_dtype(df).numpy == np.float64
+        scaled_expression = f"({self.expression}) * {RESCUE_SCALE!r}"
+        out = Promise()
 
-        @delayed
-        def finish(r):
-            (n,), (m1, m2) = r
-            var = variance(m2, m1, n.to(torch.float64))
+        def finish(var, n):
             if ddof:
                 var = torch.where(n > ddof, var * n / (n - ddof), torch.nan)
             return torch.sqrt(var) if std else var
-        return [finish(moments)]
+
+        def first(r):
+            (n,), (m1, m2) = r
+            n = n.to(torch.float64)
+            var = variance(m2, m1, n)
+            if not wide or bool(torch.isfinite(m2).all()):  # one host read
+                out.fulfill(finish(var, n))
+                return
+            # every process of a mesh reads the same merged m2: all schedule it
+            scaled = _moments(df, binners, [scaled_expression], VAR_TERMS, selection)
+            scaled.then(lambda r: out.fulfill(finish(rescued_variance(var, m2, r[1], n), n)),
+                        out.reject)
+        moments.then(first, out.reject)
+        return [out]
 
 
 def central(mxy, mx, my, n):

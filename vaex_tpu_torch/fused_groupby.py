@@ -36,7 +36,13 @@ segment's values come out sorted and the order statistics are gathers.
 Float sums reduce per segment with ``index_add_`` (each segment's error
 bounded by its own terms, not by a running prefix), int sums with int64
 ``index_add_`` (exact mod 2^64), means in float64, a std or var in two
-passes a segment (its mean, then the squared deviations).  The sorts, gathers and reductions are
+passes a segment (its mean, then the squared deviations).  A float column
+reduces as numpy's nan-functions do: a NaN row adds nothing and is not
+counted, an infinity stays one, so a segment's sum is inf, -inf or (both
+held) NaN and its mean that over the count; its std and var are NaN where
+it holds an infinity (inf - inf) and inf where its deviations' squares
+overflow.  The two passes subtract no shift from a float column (an int
+one's first row, exactly in int64).  The sorts, gathers and reductions are
 torch calls: the reference's are XLA sorts and segment sums, not Pallas
 kernels.  The result is sorted by the keys (reversed for a descending
 single key).  The pass records ``{"groupby": "one-sort", "mode": ...}`` in
@@ -466,7 +472,9 @@ def _reduce(packed, columns, key_names, plan, spans, words, pct_name):
             out[name] = counts
             continue
         col = columns[payload[0]]
-        clean = torch.nan_to_num(col, nan=0.0) if col.is_floating_point() else col
+        # a NaN row adds nothing; an infinity stays one (nan_to_num would
+        # make it the dtype's largest finite value)
+        clean = col.masked_fill(torch.isnan(col), 0) if col.is_floating_point() else col
         if kind == "count":
             out[name] = valid_count(col)
         elif kind == "sum":
@@ -487,10 +495,12 @@ def _reduce(packed, columns, key_names, plan, spans, words, pct_name):
             # two passes a segment over the rows less one shift (exact in
             # int64 for int keys' values near 2^62): the segment's mean, then
             # the squares of the deviations from it; nothing cancels
+            # an int column less its first row, exact in int64; a float
+            # column as it is: a shift of its own (an infinity, the largest
+            # float) would swallow the digits of every segment far from it
             c = valid_count(col).to(torch.float64)
             ok = ~torch.isnan(col) if col.is_floating_point() else None
-            first = clean[0] if ok is None else clean[ok.to(torch.uint8).argmax()]
-            u = shifted(clean, first)
+            u = shifted(clean, clean[0] if ok is None else None)
             if ok is not None:  # a NaN row adds nothing
                 u = u.masked_fill(~ok, 0.0)
             mean = seg_sum(u, torch.float64) / c

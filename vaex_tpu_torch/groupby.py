@@ -743,7 +743,7 @@ def _shuffle_channels(df, plan, shards):
     """The exchange's channels over each shard's values and, per output,
     how its [G] result is made from the exchange's (``finish(out)``)."""
     from .agg import (OpCount, OpCountValid, OpMax, OpMin, OpSum, OpSumFloat,
-                      selection_expression, variance)
+                      rescued_variance, selection_expression, variance)
     from .datatype import NAT
     from .ops.grid_extreme import identity
     from .ops.grid_moments import shifted
@@ -844,9 +844,9 @@ def _shuffle_channels(df, plan, shards):
             i = channel(bases, parts)
 
             def var(out, i=i, std=kind == "std", ddof=desc.ddof):
-                counts, (m1, m2) = out["moments"][i]
+                counts, (m1, m2), scaled = out["moments"][i]
                 n = counts.to(torch.float64)
-                v = variance(m2, m1, n)
+                v = rescued_variance(variance(m2, m1, n), m2, scaled, n)
                 if ddof:
                     v = torch.where(n > ddof, v * n / (n - ddof), torch.nan)
                 return torch.sqrt(v) if std else v

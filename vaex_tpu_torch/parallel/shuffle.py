@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from . import collectives
-from ..agg import VAR_TERMS
+from ..agg import RESCUE_SCALE, VAR_TERMS
 from ..ops.grid_plan import grid_extremes, grid_sums, moment_sums
 
 NU_VALUE, NU_NAN, NU_NULL, NU_NONE = 0, 1, 2, 3  # aux codes of a nunique channel
@@ -106,8 +106,9 @@ def shuffle_grids(mesh, codes, G, slack=4, int_cols=(), float_cols=(), ext_cols=
 
     Returns (None, dropped rows) when a bucket overflowed, else (a dict of
     [G] results on ``mesh.first``: "count", "int" [k, G], "float" [k, G],
-    "ext" list, "moments" list of (counts, sums), "nu" list; and 0), and the
-    trace of the exchange."""
+    "ext" list, "moments" list of (counts, sums, the sums of u * RESCUE_SCALE
+    where a cell's sum of u^2 is not finite, else the sums again), "nu" list;
+    and 0), and the trace of the exchange."""
     S = mesh.size
     n_rows = collectives.total([c.shape[0] for c in codes], mesh)
     n_local, cap = capacity(mesh, n_rows, slack)
@@ -154,7 +155,10 @@ def shuffle_grids(mesh, codes, G, slack=4, int_cols=(), float_cols=(), ext_cols=
         for r in received[e:m]:
             name, counts, sums = moment_sums(idx, [r[d]], VAR_TERMS, gper)
             strategies["moments"] = name
-            out["moments"].append((counts[0], sums))
+            scaled = sums  # the sums of u * RESCUE_SCALE where u^2 overflowed
+            if not bool(torch.isfinite(sums[1]).all()):
+                _, _, scaled = moment_sums(idx, [r[d] * RESCUE_SCALE], VAR_TERMS, gper)
+            out["moments"].append((counts[0], sums, scaled))
         out["nu"] = [_distinct(idx, received[j][d], received[j + 1][d], gper)
                      for j in range(m, len(received), 2)]
         per_shard.append(out)
@@ -169,8 +173,8 @@ def shuffle_grids(mesh, codes, G, slack=4, int_cols=(), float_cols=(), ext_cols=
               "float": [joined(lambda o, i=i: o["float"][i]) for i in range(len(float_cols))],
               "ext": [joined(lambda o, i=i: o["ext"][i]) for i in range(len(ext_cols))],
               "moments": [(joined(lambda o, i=i: o["moments"][i][0]),
-                           torch.cat(collectives.gather([o["moments"][i][1] for o in per_shard],
-                                                        mesh), dim=1)[:, :G])
+                           *(torch.cat(collectives.gather([o["moments"][i][j] for o in per_shard],
+                                                          mesh), dim=1)[:, :G] for j in (1, 2)))
                           for i in range(len(bases))],
               "nu": [joined(lambda o, i=i: o["nu"][i]) for i in range(len(nu_cols))]}
     trace["gather_s"] = time.perf_counter() - t0
