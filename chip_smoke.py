@@ -493,7 +493,8 @@ SET_KEYS = {"k100": 100, "k2000": 2000, "k1e6": H2O_K6}
 # config 3 and config 4 phases ("config3_launches", "config4_launches"); for
 # B6 its time at config 4's join (the 1e9 fact keys among the 1e7 dim keys),
 # J1's launches and the ms of J1's copies to the host
-EXTRA_KEYS = ("phase21_l2_launches", "library_add_ms", "isin_ms", "wide_launches", "wide_ms", "wide_plain_ms",
+EXTRA_KEYS = ("phase31_word_ms", "phase31_table_ms", "phase31_var_word_ms",
+              "phase31_var_table_ms", "phase21_l2_launches", "library_add_ms", "isin_ms", "wide_launches", "wide_ms", "wide_plain_ms",
               "config2_launches", "wide_library_ms", "wide_isin_ms", "wide_bound_ms", "wide_max_abs_err",
               "l2_launches", "l2_ms", "l2_plain_ms", "l2_max_abs_err", "count_ms",
               "scatter_ms", "sums_ms", "q7_ms", "q7_plain_ms", "q7_library_ms",
@@ -536,10 +537,13 @@ def additive_floats_ok(plain, idx, float_cols, G, got_f, want_f, counts):
 def moment_sums_ok(plain, idx, bases, terms, G, got, want, shift=None):
     """B5's term sums against the plain version's, within the bound of
     :func:`within_sum_bound`: a term's |value| is its product of |base -
-    shift|, so the plain version over those sums |term|; every float term of
+    shift| (a table's: at the row's bin), so the plain version over those
+    sums |term|; every float term of
     the var and corr sets counts the rows of the first count term."""
-    from vaex_tpu_torch.ops.grid_moments import shift_values, shifted
-    centred = [shifted(b, s).abs() for b, s in zip(bases, shift_values(bases, shift))]
+    from vaex_tpu_torch.ops.grid_moments import row_shift, shift_values, shifted
+    n = (idx if idx is not None else bases[0]).shape[0]
+    centred = [shifted(b, row_shift(s, idx, n)).abs()
+               for b, s in zip(bases, shift_values(bases, shift, G))]
     _, abs_sums = plain(idx, centred, terms, G)
     return within_sum_bound(got[1], want[1], abs_sums, want[0][0])
 
@@ -3178,8 +3182,13 @@ def phase19_grids(vt, df, cols, shapes=None):
     routes = {}
     for name, (_, _, _, _, route, kind) in PHASE19_GRIDS.items():
         shape = (shapes or {}).get(name)
+        start = len(df.executor.trace_log)
         got = phase19_query(df, name, shape)
-        strategies = df.executor.trace_log[-1]["strategies"]
+        # the query's last pass but a second pass less a shift a cell (a std
+        # of a binby axis: its cells' means lie far from the frame's shift)
+        strategies = [e["strategies"] for e in df.executor.trace_log[start:]
+                      if e.get("strategies") and kind in e["strategies"][0]
+                      and e["strategies"][0].get("moment_shift") != "cell"][-1]
         routes[name] = strategies[0].get(kind)
         check(routes[name] == route, f"phase 19 {name}: the route {routes[name]!r}, "
                                      f"not {route!r} ({strategies})")
@@ -7071,19 +7080,20 @@ def phase27_drive(vt, df, cols, write=True):
 
 class phase27_old_channels:
     """The channels before shifted moments and float64 means, for timing
-    beside them: no shift (the kernels' null pointer) and an int mean's
-    sum as int64."""
+    beside them: no shift (the kernels' null pointer), no second pass of a
+    cell far from it, and an int mean's sum as int64."""
 
     def __enter__(self):
         from vaex_tpu_torch import agg, tasks
-        self.saved = tasks.moment_shift, agg.OpSumFloat
+        self.saved = tasks.moment_shift, agg.OpSumFloat, agg.cancelled
         tasks.moment_shift = lambda df, expression: None
         agg.OpSumFloat = agg.OpSum
+        agg.cancelled = lambda m2, *_: torch.zeros_like(m2, dtype=torch.bool)  # no second pass
         return self
 
     def __exit__(self, *exc):
         from vaex_tpu_torch import agg, tasks
-        tasks.moment_shift, agg.OpSumFloat = self.saved
+        tasks.moment_shift, agg.OpSumFloat, agg.cancelled = self.saved
 
 
 def phase27_turns(query):
@@ -8189,6 +8199,308 @@ def phase30_path(vt, plan, gp, probe, label, n=PHASE30_ROWS):
                       "phase_s": phase_s}
 
 
+# Phase 31: a shift a cell for the classic moments (C25).  Config 3's table
+# with two columns at per-group offsets from 0 to 1e12 and an outlier of
+# 1e10 in row 0, the frame's shift: every group lies far from it, and its
+# statistics take a second pass less each cell's mean
+PHASE31_ROWS = 100_000_000
+PHASE31_RTOL = 1e-6  # against plain torch's two-pass answer, as the tests hold numpy's
+PHASE31_ATOL = 1e-7
+PHASE31_OUTLIER = 1e10
+PHASE31_COLUMNS = ("x64", "x32")  # offsets by id4; w64, w32 the same by id3
+# the kernels the phase must launch: B4, B5 and B3 on either route (the id3
+# queries: b3-l2 for one base's terms, the partition past 28 MiB of them)
+PHASE31_KERNELS = ("b4", "b5", ("b3", "b3-l2"))
+PHASE31_TURNS = ("word", "table", "table", "word", "word", "table")
+
+
+def phase31_columns(n, device, seed=SEED):
+    """Config 3's table (:func:`config3_columns`) with x64 = v3 + id4's
+    offset (0 for id4 = 1, else 10^(12 (id4 - 1) / 99): 1 to 1e12), row 0
+    PHASE31_OUTLIER, x32 the same in float32, and w64, w32 the same with
+    the offset of (id3 - 1) % 100 + 1 in id4's place."""
+    cols = config3_columns(n, device, seed)
+    for name, key in (("x", cols["id4"] - 1), ("w", (cols["id3"] - 1) % CONFIG3_K)):
+        k = key.to(torch.float64)
+        x = cols["v3"] + torch.where(k == 0, 0.0, 10.0 ** (12 * k / (CONFIG3_K - 1)))
+        x[0] = PHASE31_OUTLIER
+        cols[f"{name}64"], cols[f"{name}32"] = x, x.to(torch.float32)
+    return cols
+
+
+def phase31_frame(vt, cols):
+    return vt.from_dataset(vt.DatasetArrays(dict(cols)))
+
+
+def phase31_plain_cov(cell, observed, x, y):
+    """The covariance of x and y per observed cell in plain torch, the
+    corrected two-pass form: ``index_add_`` of each for the means, then of
+    dx = x - mean_x[cell], dy and dx dy, cov = (sum dx dy - sum dx sum dy /
+    n) / n.  The means' own rounding drops out: ``index_add_``'s atomics
+    over 1e6 values near 1e11 leave a mean off by about 3e-13 of it (0.05),
+    whose square sum dx dy / n alone would add (1.4e-6 of a var of 833)."""
+    f64 = torch.float64
+    size = int(observed[-1]) + 1
+    x, y = x.to(f64), y.to(f64)
+
+    def added(v):
+        return torch.zeros(size, dtype=f64, device=x.device).index_add_(0, cell, v)
+    count = added(torch.ones_like(x))
+    dx, dy = x - (added(x) / count)[cell], y - (added(y) / count)[cell]
+    return ((added(dx * dy) - added(dx) * added(dy) / count) / count)[observed]
+
+
+def phase31_plain(cell, observed, x, stat):
+    """std or var of x per observed cell in plain torch (no NaN in x), as
+    :func:`phase31_plain_cov` takes cov(x, x)."""
+    var = phase31_plain_cov(cell, observed, x, x)
+    return var if stat == "var" else torch.sqrt(var)
+
+
+def phase31_check(name, got, want):
+    """``got`` within PHASE31_RTOL relative and PHASE31_ATOL absolute of
+    plain torch's ``want``, NaN where it has NaN (an empty cell; raises)."""
+    g, w = torch.as_tensor(got).to(device=want.device, dtype=torch.float64), want
+    check(g.shape == w.shape, f"phase 31 {name}: shape {tuple(g.shape)} against "
+                              f"{tuple(w.shape)}")
+    ok = ((g - w).abs() <= PHASE31_RTOL * w.abs() + PHASE31_ATOL) | (torch.isnan(g)
+                                                                     & torch.isnan(w))
+    bad = torch.nonzero(~ok).squeeze(1)
+    check(bad.numel() == 0,
+          f"phase 31 {name}: {bad.numel()} of {w.numel()} cells differ, first "
+          f"{[(int(i), float(g[i]), float(w[i])) for i in bad[:3]]}")
+
+
+def phase31_drive(vt, df, cols, n, device, mesh=None, expect_routes=True):
+    """Every query once through the public API, each answer held to plain
+    torch's two-pass one (:func:`phase31_plain`, :func:`phase31_check`): std
+    and var of x64 and x32
+    binned by id4 (B4, G = 103: one statistic a pass, one base a call), per
+    group of (id4, id5) (B5, G = 10 609), binned by (id4, id5), ``df.cov``
+    by id4, and of w64 and w32 per group of id3 (a wide route) and with
+    ``mesh`` over its shards (the all-to-all).  Each query must take a
+    second pass; with ``expect_routes`` its kernel is asserted from
+    trace_log.  Returns {query: (moment routes, second passes)}."""
+    from vaex_tpu_torch import agg
+    from vaex_tpu_torch.parallel.shuffle import owner_variance
+    a = vt.agg
+    k, lim = CONFIG3_K, [0.5, CONFIG3_K + 0.5]
+
+    def second_passes():  # a pass's, or an all-to-all owner's second moment sums
+        return agg.cell_shifted.second_passes + owner_variance.retaken
+
+    def stats_of(columns):
+        return [(f"{s}_{c}", s, c) for s in ("std", "var") for c in columns]
+    stats = stats_of(PHASE31_COLUMNS)
+    routes = {}
+
+    def run(label, frame, query, want, kernel=None, shuffle=False):
+        log = frame.executor.trace_log
+        start, before = len(log), second_passes()
+        got = query(frame)
+        entries = log[start:]
+        found = {s.get("moments") for e in entries for s in (e.get("strategies") or [])
+                 if isinstance(s, dict) and s.get("moments")}
+        found |= {e["strategies"].get("moments") for e in entries
+                  if e.get("shuffle") is True and isinstance(e.get("strategies"), dict)}
+        routes[label] = (sorted(r for r in found if r), second_passes() - before)
+        check(routes[label][1] > 0, f"phase 31 {label}: no second pass")
+        if expect_routes and kernel is not None:
+            check(found & set(kernel), f"phase 31 {label}: the moments took {found}, not "
+                                       f"{kernel}")
+        if shuffle:
+            check(any(e.get("shuffle") is True for e in entries),
+                  f"phase 31 {label}: not the all-to-all: {entries}")
+        for name, value in got.items():
+            phase31_check(f"{label} {name}", value, want[name])
+        print(f"phase 31 {label} N={n}: against plain torch within {PHASE31_RTOL}; moments "
+              f"{routes[label][0]}, second passes {routes[label][1]}", flush=True)
+
+    def grouped(keys, columns):
+        cell, observed, _ = phase30_cells(cols, keys, n)
+        want = {name: phase31_plain(cell, observed, cols[c], s)
+                for name, s, c in stats_of(columns)}
+
+        def query(f):
+            out = f.groupby(list(keys), agg={name: getattr(a, s)(c)
+                                             for name, s, c in stats_of(columns)}, sort=True)
+            return {name: _column(out, name, device) for name, _, _ in stats_of(columns)}
+        return query, want
+
+    cell4 = cols["id4"] - 1
+    every4 = torch.arange(k, device=cell4.device)
+
+    def binned4(f):
+        return {name: torch.as_tensor(np.asarray(getattr(f, s)(c, binby="id4", limits=lim,
+                                                                shape=k)))
+                for name, s, c in stats}
+    run("std var by id4, binned", df, binned4,
+        {name: phase31_plain(cell4, every4, cols[c], s) for name, s, c in stats}, ("b4",))
+    run("std var by id4 id5", df, *grouped(("id4", "id5"), PHASE31_COLUMNS), ("b5",))
+    run("std var by id3", df, *grouped(("id3",), ("w64", "w32")), PHASE31_KERNELS[2])
+    cell45 = cell4 * k + cols["id5"] - 1
+    every45 = torch.arange(k * k, device=cell4.device)
+    run("std by id4 id5, binned 2-D", df,
+        lambda f: {"std_x64": torch.as_tensor(np.asarray(f.std(
+            "x64", binby=["id4", "id5"], limits=[lim, lim], shape=k))).reshape(-1)},
+        {"std_x64": phase31_plain(cell45, every45, cols["x64"], "std")}, ("b5",))
+
+    def cov(f):
+        c = torch.as_tensor(f.cov(["x64", "x32"], binby="id4", limits=lim, shape=k))
+        return {"var x64": c[:, 0, 0], "var x32": c[:, 1, 1], "cov": c[:, 0, 1]}
+    run("cov by id4", df, cov, {
+        "var x64": phase31_plain(cell4, every4, cols["x64"], "var"),
+        "var x32": phase31_plain(cell4, every4, cols["x32"], "var"),
+        "cov": phase31_plain_cov(cell4, every4, cols["x64"], cols["x32"])}, ("b4", "b5"))
+    if mesh is not None:
+        query, want = grouped(("id3",), ("w64", "w32"))
+        run("std var by id3 on the mesh", phase24_sharded(df, mesh), query, want, shuffle=True)
+    return routes
+
+
+def phase31_well_conditioned(vt, df, cols2):
+    """Statistics whose cells lie near the frame's shift: config 2's group
+    (its four std), ``df.std("v3")``, H2O's q6-sd and q9 on the phase's
+    table.  Each must take no second pass; returns {query: B4 / B5
+    launches}."""
+    from vaex_tpu_torch import agg
+    from vaex_tpu_torch.ops import grid_moments as gm
+    a = vt.agg
+    queries = {
+        "config 2 group": (config2_frame(vt, cols2), config2_group),
+        "df.std(v3)": (df, lambda f: f.std("v3")),
+        "q6-sd": (df, lambda f: f.groupby(["id4", "id5"], agg={"sd_v3": a.std("v3", ddof=1)})),
+        "q9": (df, config3_questions(vt)["q9"]),
+    }
+    out = {}
+    for name, (frame, query) in queries.items():
+        before = agg.cell_shifted.second_passes
+        b4, b5 = gm.grid_moments.launches, gm.grid_moments_window.launches
+        query(frame)
+        check(agg.cell_shifted.second_passes == before,
+              f"phase 31 {name}: a well-conditioned statistic took a second pass")
+        out[name] = {"b4": gm.grid_moments.launches - b4,
+                     "b5": gm.grid_moments_window.launches - b5}
+        print(f"phase 31 {name}: no second pass; launches {out[name]}", flush=True)
+    return out
+
+
+def _phase31_table(idx, G, base):
+    """A base's cell means as a pass's second pass takes them: a [G] table,
+    int64 (rounded) for an int64 base."""
+    f64 = torch.float64
+    cell = idx.to(torch.int64).clamp(0, G - 1)
+    count = torch.zeros(G, dtype=f64, device=idx.device).index_add_(
+        0, cell, torch.ones(idx.shape[0], dtype=f64, device=idx.device))
+    mean = torch.zeros(G, dtype=f64, device=idx.device).index_add_(
+        0, cell, base.to(f64)) / count.clamp(min=1)
+    return mean.round().to(torch.int64) if base.dtype == torch.int64 else mean
+
+
+def phase31_kernel_shapes(cols):
+    """name -> (the moment route, idx, G, bases, terms): PERF.md's rows of
+    B4 (var of v3 by id4, G = 103) and B5 (corr of v1, v2 and var of v3 by
+    (id4, id5), G = 10 609), and B4 / B5 over x64, x32."""
+    from vaex_tpu_torch import agg
+    g = CONFIG3_K + 3
+    idx4 = (cols["id4"] + 1).to(torch.int32)
+    idx45 = ((cols["id4"] + 1) * g + cols["id5"] + 1).to(torch.int32)
+    return {"b4 var G=103": ("b4", idx4, g, [cols["v3"]], agg.VAR_TERMS),
+            "b5 corr G=10609": ("b5", idx45, g * g, [cols["v1"], cols["v2"]], agg.CORR_TERMS),
+            "b5 var G=10609": ("b5", idx45, g * g, [cols["v3"]], agg.VAR_TERMS),
+            "b4 corr x64 x32": ("b4", idx4, g, [cols["x64"], cols["x32"]], agg.CORR_TERMS),
+            "b5 var x64": ("b5", idx45, g * g, [cols["x64"]], agg.VAR_TERMS)}
+
+
+def phase31_kernels_vs_plain(plan, cols):
+    """B4 and B5 with a per-cell shift table against their plain versions at
+    each of :func:`phase31_kernel_shapes`: counts exactly, sums within
+    :func:`within_sum_bound` of the plain version's (B4 adds in a fixed
+    order, B5 with atomics)."""
+    for name, (route, idx, G, bases, terms) in phase31_kernel_shapes(cols).items():
+        tables = [_phase31_table(idx, G, b) for b in bases]
+        got = plan.MOMENT_KERNELS[route](idx, bases, terms, G, tables)
+        want = plan.MOMENT_PLAIN[route](idx, bases, terms, G, tables)
+        check(torch.equal(got[0], want[0]), f"phase 31 {name}: counts against the plain version")
+        check(moment_sums_ok(plan.MOMENT_PLAIN[route], idx, bases, terms, G, got, want, tables),
+              f"phase 31 {name}: sums against the plain version")
+    _sync()
+
+
+def phase31_turns(plan, cols, reps=REPS):
+    """The three kernel rows of PERF.md (B4 var G = 103, B5 corr and var G =
+    10 609) with the frame's shift word (a first pass) and with a table a
+    cell (a second pass), in turns PHASE31_TURNS, each turn ``reps``
+    launches: {row: {"word_ms", "table_ms", "bound_ms", "bound_by"}}."""
+    out = {}
+    for name, (route, idx, G, bases, terms) in phase31_kernel_shapes(cols).items():
+        if "x64" in name:
+            continue
+        kernel = plan.MOMENT_KERNELS[route]
+        shifts = {"word": first_valid(bases), "table": [_phase31_table(idx, G, b) for b in bases]}
+        times = {which: [] for which in shifts}
+        for which in PHASE31_TURNS:
+            times[which].append(cuda_ms(lambda: kernel(idx, bases, terms, G, shifts[which]), reps))
+        n = idx.shape[0]
+        bound_ms, bound_by = bound(n * (4 + 8 * len(bases)) + 8 * len(terms) * G,
+                                   {"f64": n * len(terms)})
+        out[name] = {"word_ms": statistics.median(times["word"]),
+                     "table_ms": statistics.median(times["table"]),
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+    return out
+
+
+def phase31_verdict(launches):
+    """Fail a phase in which one of PHASE31_KERNELS (or of each tuple of
+    them) launched no time."""
+    missing = [name for name in PHASE31_KERNELS
+               if not any(launches.get(k) for k in (name if isinstance(name, tuple) else [name]))]
+    check(not missing, f"phase 31: {missing} launched no time: {launches}")
+
+
+def phase31_path(vt, plan, gp, probe, label, n=PHASE31_ROWS):
+    """Phase 31 on the card: the table made on cuda:0, :func:`phase31_drive`
+    once with the kernel counts set to 0 (one device, then the all-to-all
+    over phase 24's four shards), every kernel of PHASE31_KERNELS asserted
+    launched; then the well-conditioned statistics with no second pass, B4
+    and B5 with a table against their plain versions, and the three kernel
+    rows timed with a word and with a table in turns.  Returns (launches,
+    the phase's JSON record)."""
+    from vaex_tpu_torch import cache
+    t_phase = time.perf_counter()
+    cols = phase31_columns(n, "cuda")
+    df = phase31_frame(vt, cols)
+    with cache.off():
+        zero_launches(plan, gp)
+        probe.probe.launches = probe.probe.wide_launches = 0
+        routes = phase31_drive(vt, df, cols, n, "cuda", mesh=phase24_mesh("cuda"))
+        launches = {**launch_counts(plan, gp), "b6": probe.probe.launches,
+                    "b6-wide": probe.probe.wide_launches}
+        print(f"phase 31 launches: {launches}", flush=True)
+        phase31_verdict(launches)
+        cols2 = config2_columns(CONFIG2_ROWS, "cuda")
+        well = phase31_well_conditioned(vt, df, cols2)
+        del cols2
+        phase31_kernels_vs_plain(plan, cols)
+        print("phase 31: B4 and B5 with a shift table a cell equal their plain versions",
+              flush=True)
+        turns = phase31_turns(plan, cols)
+    for name, t in turns.items():
+        print(f"[{label}] phase 31 {name} N={n}: shift word {t['word_ms']!r} ms, table a cell "
+              f"{t['table_ms']!r} ms (medians of {len(PHASE31_TURNS) // 2} turns of {REPS} "
+              f"launches, in turns), bound {t['bound_ms']!r} ms ({t['bound_by']})", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[{label}] phase 31 took {phase_s:.1f} s", flush=True)
+    del df, cols
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"card": label, "rows": n,
+                      "routes": {q: {"moments": r, "second_passes": p}
+                                 for q, (r, p) in routes.items()},
+                      "launches": launches, "well_conditioned": well, "turns": turns,
+                      "phase_s": phase_s}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8334,6 +8646,14 @@ def main():
 
     phase30_launches, phase30 = phase30_path(vt, plan, gp, probe, label)
     print(json.dumps({"phase30": phase30}), flush=True)
+
+    phase31_launches, phase31 = phase31_path(vt, plan, gp, probe, label)
+    print(json.dumps({"phase31": phase31}), flush=True)
+    for row, key in (("b4 var G=103", plan.B4), ("b5 corr G=10609", plan.B5)):
+        moments[key]["phase31_word_ms"] = phase31["turns"][row]["word_ms"]
+        moments[key]["phase31_table_ms"] = phase31["turns"][row]["table_ms"]
+    moments[plan.B5]["phase31_var_word_ms"] = phase31["turns"]["b5 var G=10609"]["word_ms"]
+    moments[plan.B5]["phase31_var_table_ms"] = phase31["turns"]["b5 var G=10609"]["table_ms"]
     print(f"[{label}] chip_smoke.py took {time.perf_counter() - T_START:.1f} s", flush=True)
 
     measured = {plan.B1: (main_launches[plan.B1], results[MAIN_SIZES[0]]),
@@ -8382,6 +8702,7 @@ def main():
         "phase28_launches": phase28_launches[name],
         "phase29_launches": phase29_launches[name],
         "phase30_launches": phase30_launches[name],
+        "phase31_launches": phase31_launches[name],
         **{key: value for key, value in m.items() if key in EXTRA_KEYS},
     } for name, (launches, m) in measured.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,7 @@ current directory, on the card.
 
     cd <checkout> && python <repo>/scripts/run_smoke_phase.py 22 23 [24]
 
-Builds the kernels, then runs each phase named (19, 20, 22-30: the
+Builds the kernels, then runs each phase named (19, 20, 22-31: the
 phases whose ``phase<N>_path`` takes no other phase's results) through the
 checkout's own ``chip_smoke.py``, checks included, and prints its JSON line
 as the whole script does (``{"phase23": ...}``), so that
@@ -18,7 +18,7 @@ import os
 import sys
 import time
 
-PHASES = (19, 20, 22, 23, 24, 25, 26, 27, 28, 29, 30)
+PHASES = (19, 20, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31)
 
 
 def main(argv=None):

@@ -1,8 +1,10 @@
 """Time the moment kernels B4 and B5 with a shift per base (as a pass calls
-them since shifted moments), without one (the kernel's null pointer) and,
-with ``--baseline DIR``, the kernels of another checkout unpacked under
-DIR (e.g. ``git archive <commit> vaex_tpu_torch | tar -x -C DIR``), in
-turns, on the card, at the shapes of PERF.md's rows of B4 and B5:
+them since shifted moments), with a shift table a cell (as a statistic's
+second pass calls them: each cell's mean, 8 bytes a base and bin in shared
+memory), without one (the kernel's null pointer) and, with ``--baseline
+DIR``, the kernels of another checkout unpacked under DIR (e.g. ``git
+archive <commit> vaex_tpu_torch | tar -x -C DIR``) with a shift per base,
+in turns, on the card, at the shapes of PERF.md's rows of B4 and B5:
 
 * B4, var of an f64 column with NaN every 17th row, G = 103 and G = 1 (no
   index: df.std);
@@ -12,7 +14,7 @@ turns, on the card, at the shapes of PERF.md's rows of B4 and B5:
     python3 scripts/time_shifted_moments.py [--baseline DIR] [N]
 
 Every kernel is checked against its plain version first (counts exact,
-floats rtol 1e-9 and atol 1e-9).  Prints the card's name and power limit,
+floats within chip_smoke's ``within_sum_bound``).  Prints the card's name and power limit,
 then a line per shape with the median of each version's times.
 """
 
@@ -30,7 +32,7 @@ sys.path.insert(0, os.path.join(HERE, "scripts"))
 
 
 def main(argv):
-    from chip_smoke import card, cuda_ms, first_valid
+    from chip_smoke import _phase31_table, card, cuda_ms, first_valid, moment_sums_ok
     from vaex_tpu_torch import agg
     from vaex_tpu_torch.ops import grid_moments as gm
     old = None
@@ -54,18 +56,23 @@ def main(argv):
               "b5 var G=10609": ("grid_moments_window", idx2, [v3], agg.VAR_TERMS, 10_609)}
     for shape, (kernel, idx, bases, terms, G) in shapes.items():
         shift = first_valid(bases)
+        table = None if idx is None else [_phase31_table(idx, G, b) for b in bases]
         plain = (gm.grid_moments_reference if kernel == "grid_moments"
                  else gm.grid_moments_window_reference)
         versions = {"shifted": lambda: getattr(gm, kernel)(idx, bases, terms, G, shift),
                     "unshifted": lambda: getattr(gm, kernel)(idx, bases, terms, G)}
+        if table is not None:
+            versions["table"] = lambda: getattr(gm, kernel)(idx, bases, terms, G, table)
         if old is not None:
-            versions["baseline"] = lambda: getattr(old, kernel)(idx, bases, terms, G)
+            versions["baseline"] = lambda: getattr(old, kernel)(idx, bases, terms, G, shift)
+        given = {"shifted": shift, "table": table, "baseline": shift}
         for name, run in versions.items():
             got = run()
-            want = plain(idx, bases, terms, G, shift if name == "shifted" else None)
+            want = plain(idx, bases, terms, G, given.get(name))
             torch.cuda.synchronize()
             if not (torch.equal(got[0], want[0])
-                    and torch.allclose(got[1], want[1], rtol=1e-9, atol=1e-9)):
+                    and moment_sums_ok(plain, idx, bases, terms, G, got, want,
+                                       given.get(name))):
                 print(f"{shape} {name}: MISMATCH against the plain version", flush=True)
                 return 1
         times = {name: [] for name in versions}

@@ -1502,3 +1502,43 @@ def test_the_phase30_verdict_refuses_a_phase_without_its_kernels(missing):
         return
     with pytest.raises(RuntimeError, match=f"phase 30: \\['{missing}'\\]"):
         chip_smoke.phase30_verdict(dict(launches, **{missing: 0}))
+
+
+def test_the_phase31_drive_on_the_cpu(monkeypatch):
+    """Phase 31 at a small size: std, var and cov of the columns at per-group
+    offsets from 0 to 1e12 (an outlier of 1e10 in row 0) binned, per group
+    and over four CPU shards on the all-to-all, each taking a second pass
+    and held to plain torch's two-pass answer within 1e-6; config 2's group,
+    df.std, q6-sd and q9 take none; B4 and B5 with a table a cell against
+    their plain versions."""
+    from vaex_tpu_torch import cache, groupby
+    from vaex_tpu_torch.ops import grid_plan as plan
+    monkeypatch.setattr(groupby, "SHUFFLE_MIN_G", 1)  # the card's id3 passes it
+    n = 20_000
+    cols = chip_smoke.phase31_columns(n, "cpu")
+    df = chip_smoke.phase31_frame(vaex_tpu_torch, cols)
+    with cache.off():
+        routes = chip_smoke.phase31_drive(vaex_tpu_torch, df, cols, n, "cpu",
+                                          mesh=chip_smoke.phase24_mesh("cpu"),
+                                          expect_routes=False)
+        well = chip_smoke.phase31_well_conditioned(vaex_tpu_torch, df,
+                                                   chip_smoke.config2_columns(n, "cpu"))
+    assert len(routes) == 6 and all(passes > 0 for _, passes in routes.values())
+    assert set(well) == {"config 2 group", "df.std(v3)", "q6-sd", "q9"}
+    chip_smoke.phase31_kernels_vs_plain(plan, cols)
+
+
+def test_the_phase31_checks_refuse_a_wrong_answer():
+    """phase31_check refuses a cell one part in 1e5 off, and the plain
+    covariance is numpy's."""
+    rng = np.random.default_rng(31)
+    cell = torch.from_numpy(rng.integers(0, 5, 500))
+    x, y = (torch.from_numpy(rng.normal(1e6, 1, 500)) for _ in range(2))
+    want = chip_smoke.phase31_plain_cov(cell, torch.arange(5), x, y)
+    for g in range(5):
+        keep = (cell == g).numpy()
+        assert np.isclose(float(want[g]), np.cov(x.numpy()[keep], y.numpy()[keep], ddof=0)[0, 1],
+                          rtol=1e-9)
+    chip_smoke.phase31_check("same", want.clone(), want)
+    with pytest.raises(RuntimeError, match="phase 31"):
+        chip_smoke.phase31_check("off", want * (1 + 1e-5), want)

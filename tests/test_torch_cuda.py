@@ -1859,3 +1859,40 @@ def test_standard_scaler_fit_launches_b4(cuda):
         x = df.dataset[f]
         npt.assert_allclose(m, float(x.mean()), rtol=1e-9)
         npt.assert_allclose(s, float(x.std(correction=0)), rtol=1e-9)
+
+
+@pytest.mark.parametrize("kernel,G,kind", [
+    ("b4", 103, "var"), ("b4", 181, "var"), ("b4", 40, "corr"), ("b4", 64, "corr"),
+    ("b5", 10_609, "var"), ("b5", 10_609, "corr"), ("b5", 60_000, "var")])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.int64])
+def test_moment_kernels_take_a_shift_table(cuda, kernel, G, kind, dtype):
+    """B4 (its lane and warp routes) and B5 with a shift a cell: a [G] table
+    of each cell's offset, int64 for an int64 base, rows outside [0, G)
+    dropped, against the plain version; the values lie 1e12 apart by cell,
+    so the tables' sums are those of the cells' noise."""
+    n = 400_009
+    g = torch.Generator(device=cuda).manual_seed(G)
+    idx = torch.randint(-2, G + 3, (n,), generator=g, device=cuda, dtype=torch.int32)
+    offset = torch.linspace(-1e12, 1e12, G, device=cuda, dtype=torch.float64)
+    cell = idx.clamp(0, G - 1).to(torch.int64)
+    bases, tables = [], []
+    for _ in range(1 if kind == "var" else 2):
+        x = offset[cell] + torch.randn(n, generator=g, device=cuda, dtype=torch.float64) * 10
+        if dtype == torch.int64:
+            bases.append(x.round().to(torch.int64))
+            tables.append(offset.round().to(torch.int64))
+        else:
+            bases.append(x.to(dtype))
+            tables.append(offset.to(dtype).to(torch.float64))
+    terms = agg.VAR_TERMS if kind == "var" else agg.CORR_TERMS
+    fn = gm.grid_moments if kernel == "b4" else gm.grid_moments_window
+    plain = gm.grid_moments_reference if kernel == "b4" else gm.grid_moments_window_reference
+    before = fn.launches
+    got = fn(idx, bases, terms, G, tables)
+    assert fn.launches == before + 1
+    want = plain(idx, bases, terms, G, tables)
+    torch.cuda.synchronize()
+    npt.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+    npt.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(), rtol=1e-9, atol=1e-6)
+    if kernel == "b5":
+        assert gm.grid_moments_window.last_parts == gm.n_parts(G, len(terms), 1, len(bases))

@@ -236,6 +236,7 @@ def test_statistic_past_b3_matches_vaex_tpu(frames, monkeypatch, name):
     monkeypatch.setattr(gp, "P_MAX", p_max)
     monkeypatch.setattr(gp, "RESIDENT_BYTES", 1 << 16)
     want = call(ref, vaex_tpu.agg)
+    start = len(port.executor.trace_log)
     got = call(port, vaex_tpu_torch.agg)
     if isinstance(got, list):  # delayed calls share one pass
         port.execute()
@@ -249,7 +250,10 @@ def test_statistic_past_b3_matches_vaex_tpu(frames, monkeypatch, name):
             npt.assert_array_equal(g, w)
         else:
             npt.assert_allclose(g, w, rtol=RTOL, atol=ATOL)
-    recorded = port.executor.trace_log[-1]["strategies"][0]
+    # the call's last pass but a second pass less a shift a cell (a std of a
+    # binby axis: its cells' means lie far from the frame's shift)
+    recorded = [e["strategies"][0] for e in port.executor.trace_log[start:]
+                if e.get("strategies") and e["strategies"][0].get("moment_shift") != "cell"][-1]
     assert {k: recorded.get(k) for k in strategy} == strategy, recorded
 
 

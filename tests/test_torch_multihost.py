@@ -199,6 +199,11 @@ PLANS = textwrap.dedent("""
     # the grid route's var: its rescue pass, scheduled in every process alike
     out["infinities binned"] = {{s: [float(v) for v in getattr(g, s)(
         "xi", binby="k2", limits=[0, 20], shape=20)] for s in ("std", "var")}}
+    # groups far from the frame's shift (C25): per group on the all-to-all,
+    # where the last shard alone owns them, and binned on the grid route
+    run("cell shift", g, lambda df: df.groupby("k", agg={{"v": a.var("xo")}}, sort=True))
+    out["cell shift binned"] = [float(v) for v in g.var("xo", binby="k", limits=[-1.5, 898.5],
+                                                          shape=300)]
 
     # a result one process holds in its cache and the other not: both run
     # the pass, whose merge needs them both
@@ -268,6 +273,10 @@ def _plan_inputs():
              "b": rng.integers(0, 10, nr).astype("i8"), "kf": kf_right,
              "kd": rng.integers(0, 400, nr).astype("i8"), "s": s, "d": d,
              "u": rng.integers(0, 2 ** 63, nr).astype(np.uint64) + np.uint64(2 ** 63)}
+    # x less nothing, but 1e12 in the groups k >= 870: codes the last of the
+    # four shards owns (rank 1's), far from the frame's shift (rank 0's
+    # first valid x, of a group k < 870)
+    g["xo"] = x + np.where(g["k"] >= 870, 1e12, 0.0)
     return {"g": g, "g_part": g_part, "l": left, "l_part": rng.integers(0, 2, nl),
             "r": right, "r_part": rng.integers(0, 2, nr)}
 
@@ -408,6 +417,28 @@ def test_infinities_across_the_processes(plans, name):
         route = "fused_mesh_groupby" if name == "infinities" else "shuffle"
         passes = _routes(entry[name], route)
         assert passes and all(e[route] is True and e["world"] == 2 for e in passes)
+
+
+def test_a_far_group_keeps_its_variance_across_the_processes(plans):
+    """C25 over two processes: var of xo (x + 1e12 in the groups k >= 870)
+    per group through the all-to-all, where only the last shard's owner
+    (rank 1's) flags cells and takes them again less their means, and binned
+    by k on the grid route, where both processes decide the second pass over
+    one collective and subtract rank 0's table: each group numpy's two-pass
+    var within 1e-6 relative."""
+    table = _plan_inputs()["g"]
+    ks = np.unique(table["k"])
+    want = np.array([numpy_stat(table["xo"][table["k"] == key], "var") for key in ks])
+    assert (want[ks >= 870] < 1000).all()  # about 100: lost to the shift on PR 24's tree
+    binned = np.array([numpy_stat(table["xo"][table["k"] == 3 * b], "var") if (
+        table["k"] == 3 * b).any() else np.nan for b in range(300)])
+    for entry in plans:
+        got = entry["cell shift"]["columns"]
+        npt.assert_array_equal(np.asarray(got["k"]), ks)
+        npt.assert_allclose(np.asarray(got["v"], dtype=np.float64), want, rtol=1e-6)
+        shuffles = _routes(entry["cell shift"], "shuffle")
+        assert shuffles and all(e["shuffle"] is True and e["world"] == 2 for e in shuffles)
+        npt.assert_allclose(entry["cell shift binned"], binned, rtol=1e-6)
 
 
 JOINS = {

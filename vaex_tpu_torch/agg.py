@@ -251,7 +251,8 @@ class OpMoments(AggOperation):
     def __init__(self, expressions, terms, shifts=None):
         super().__init__(expressions)
         self.terms = [tuple(t) for t in terms]
-        # per expression the 0-d shift its base is read less (None: none)
+        # per expression the shift its base is read less: a 0-d tensor (a
+        # first pass), a [G] table a cell (a second pass) or None
         self.shifts = None if shifts is None else list(shifts)
         self.n_count = len([t for t in self.terms if t[0] < 0])
 
@@ -983,11 +984,11 @@ COVAR_TERMS = [(0, 1, -1, -1), (0, -1, 1, -1), (1, -1, 0, -1), (-1, -1, 0, 1)]
 CORR_TERMS = COVAR_TERMS + [(0, 0, 1, -1), (1, 1, 0, -1)]
 
 
-def _moments(df, binners, expressions, terms, selection=None):
-    """The moment op of ``expressions``, each base shifted by its
-    :func:`.tasks.moment_shift`: the finishers below take shifted sums."""
-    from .tasks import moment_shift
-    op = OpMoments(expressions, terms, [moment_shift(df, e) for e in expressions])
+def _moments(df, binners, expressions, terms, selection, shifts):
+    """The moment op of ``expressions``, each base less its shift (a
+    constant, or a [G] table: a shift a cell); the finishers below take
+    shifted sums."""
+    op = OpMoments(expressions, terms, shifts)
     return df.executor.schedule_aggregation(df, binners, op, selection)
 
 
@@ -996,61 +997,195 @@ def _moments(df, binners, expressions, terms, selection=None):
 # to below 2^1021
 RESCUE_SCALE = 2.0 ** -540
 
-
-def rescued_variance(var, m2, scaled, n):
-    """``var`` where the cell's sum of squares ``m2`` is finite, else the
-    variance of the ``scaled`` sums (s1, s2) of u * RESCUE_SCALE scaled
-    back: inf where the variance overflows, NaN where the cell holds an
-    infinity, as numpy's two passes give, not the NaN of inf - inf."""
-    s1, s2 = scaled
-    back = variance(s2, s1, n) / RESCUE_SCALE / RESCUE_SCALE
-    return torch.where(torch.isfinite(m2), var, back)
+# the bits of a cell's centred sum s = m2 - m1^2 / n that its shifted sums
+# must keep: a cell whose sums' rounding, about eps sqrt(n) m2, passes 2^-24 s
+# lost the rest to the shift (its mean lies far from it, against its spread;
+# at n = 2^24 rows this is m2 > 2^16 s, "more than 16 of float64's 53 bits
+# cancelled"; fewer rows round less and may lose more), and a second pass
+# takes it again less a shift of its own (:func:`cell_shifted`)
+CANCEL_BITS = 24
 
 
-class AggregatorDescriptorVar(AggregatorDescriptor):
-    """var/std from shifted moments: with u = x - a (a the base's shift), var
-    = (sum u^2 - (sum u)^2 / n) / n, which does not cancel where x is far
-    from zero, as E[x^2] - E[x]^2 of raw moments does (vaex_tpu/agg.py:1114,
-    a fault of the reference).  Where a float64 cell's sum of u^2 is not
-    finite (an infinity, or |u| past 1.3e154), a second pass takes the
-    moments of x * RESCUE_SCALE for :func:`rescued_variance`; a float32 or
-    int base's squares cannot overflow, so only an infinity makes them
-    infinite, and inf - inf is already the NaN numpy gives."""
+def cancelled(m2, m1, n, integer=False):
+    """The cells of more than one row whose shifted sums m1 = sum u, m2 =
+    sum u^2 lost more than they keep to the shift: eps sqrt(n) m2 2^24 >= s
+    (s = m2 - m1^2 / n; this holds wherever :func:`variance` zeroes s while
+    m2 > 0, for n < 2^46: the float sums cannot tell a constant cell away
+    from the shift from a lost one).  An int base's sums (``integer``) are
+    exact integers while m2 < 2^53 and n m2 < 2^62: there n s = n m2 - m1^2
+    is exact in int64, 0 for a constant cell alone, and the cell is flagged
+    only where the bound passes that exact s.  A NaN flags nothing; a cell of
+    one row has no variance to lose."""
+    noise = torch.finfo(torch.float64).eps * torch.sqrt(n) * m2 * 2.0 ** CANCEL_BITS
+    lost = (m2 > 0) & (noise >= m2 - m1 * m1 / n)
+    if integer:
+        exact = (m2 < 2.0 ** 53) & (n * m2 < 2.0 ** 62)
+        ni, m1i, m2i = (torch.where(exact, t, 0.0).to(torch.int64) for t in (n, m1, m2))
+        ns = ni * m2i - m1i * m1i
+        lost = torch.where(exact, (ns > 0) & (n * noise >= ns.to(m2.dtype)), lost)
+    return (n > 1) & lost
 
-    def __init__(self, expression, std=False, ddof=0, selection=None, edges=False):
-        super().__init__("std" if std else "var", expression, selection, edges)
-        self.std = std
-        self.ddof = ddof
 
-    def add_tasks(self, df, binners, progress=None):
-        from .delayed import Promise
-        for e in self.expressions:
-            _not_strings(df, e, self.name)
-        selection = selection_expression(self.selection, df)
-        moments = _moments(df, binners, [self.expression], VAR_TERMS, selection)
-        std, ddof = self.std, self.ddof
-        wide = self._input_dtype(df).numpy == np.float64
-        scaled_expression = f"({self.expression}) * {RESCUE_SCALE!r}"
-        out = Promise()
+def _base_rows(terms, j):
+    """(row of sum u_j, row of sum u_j^2) among the float rows of
+    ``terms``, or None where the terms lack base j's square (COVAR_TERMS)."""
+    floats = [tuple(t[:2]) for t in terms if t[0] >= 0]
+    if (j, -1) not in floats or (j, j) not in floats:
+        return None
+    return floats.index((j, -1)), floats.index((j, j))
 
-        def finish(var, n):
-            if ddof:
-                var = torch.where(n > ddof, var * n / (n - ddof), torch.nan)
-            return torch.sqrt(var) if std else var
 
-        def first(r):
-            (n,), (m1, m2) = r
+def cell_shift(a, m1, n, integer):
+    """A base's shift a cell for a second pass, flat [G]: each cell's mean
+    from the first pass's sums, a + m1 / n (a the first pass's shift, None:
+    0); for an int base m1 / n rounded and added in int64.  A float mean is
+    known to about eps sqrt(n) (|a| + |m1 / n|): where 0 lies that close to
+    it (a cell near 0 beside a shift far from it) the shift is 0, and so it
+    is where the mean is not finite (an empty cell, an infinity, or sums
+    past float64, where the frame's shift may be the fault)."""
+    mean = (m1 / n).reshape(-1)
+    if integer:
+        d = torch.where(torch.isfinite(mean), mean, 0.0).round().clamp(-2.0 ** 62, 2.0 ** 62)
+        d = d.to(torch.int64)
+        return d if a is None else a.to(d.device) + d
+    a = 0.0 if a is None else a.to(mean.device)
+    b = a + mean
+    fuzz = torch.finfo(torch.float64).eps * torch.sqrt(n.reshape(-1)) * (abs(a) + mean.abs())
+    return torch.where(torch.isfinite(b) & (b.abs() > fuzz), b, 0.0)
+
+
+def _mesh(df):
+    """The mesh of a pass across processes, or None."""
+    mesh = getattr(df.executor, "sharded", None)
+    return mesh if mesh is not None and mesh.group is not None else None
+
+
+def _any_cells(df, *flags):
+    """Per flag grid, True where any cell is flagged: one host read of them
+    all, and over a mesh of several processes one collective, so that every
+    process schedules the same passes."""
+    anys = torch.stack([f.any() for f in flags])
+    mesh = _mesh(df)
+    if mesh is not None:
+        from .parallel import collectives
+        anys = collectives.reduce([anys], "or", mesh)
+    return anys.tolist()
+
+
+def _picked(flag, a, b):
+    """``a`` where ``flag``, else ``b``, for a tensor or a tuple of them;
+    ``flag`` None: ``a`` where it is finite."""
+    if isinstance(a, tuple):
+        return tuple(_picked(flag, x, y) for x, y in zip(a, b))
+    return torch.where(torch.isfinite(a) if flag is None else flag, a, b)
+
+
+def cell_shifted(df, binners, specs, selection, finish):
+    """A promise of ``finish(results, shifts, scales)``, each cell from the
+    pass that kept its digits (C25: one shift a frame loses the variance of
+    every cell far from it).
+
+    ``specs``: the moment ops, (expressions, terms) each, every term valid
+    where all of the op's bases are (VAR_TERMS, COVAR_TERMS, CORR_TERMS).
+    ``finish`` takes per op its result ((counts,), sums), per expression the
+    shift its sums are less (a 0-d tensor, a [G] table or None) and its scale
+    (1.0, or RESCUE_SCALE), and gives a tensor of the cells' shape or a tuple
+    of them.
+
+    The first pass takes every op less one shift a base and frame
+    (:func:`.tasks.moment_shift`): the same launches and cost as before.  It
+    flags a cell where a base of an op that holds its square lost its
+    digits (:func:`cancelled`), and, where an op has a float64 base, where
+    one of its sums is not finite (u^2 past float64, or an infinity: C24).
+    The flags are read once (:func:`_any_cells`); where no cell is flagged,
+    that pass is the answer.  Else one second pass takes every op again, each
+    base less a shift a cell (:func:`cell_shift`: the cell's mean in the
+    first op that holds the base's square), and where a sum was not finite
+    also the ops over each float64 base times RESCUE_SCALE, less its table
+    scaled (exact: a power of two).  A flagged cell takes the second pass
+    where ``finish`` gives a finite answer there (a finisher gives NaN or an
+    infinity where a sum it reads is not finite), else the scaled ops';
+    every other cell keeps the first pass.  Over a mesh of processes rank
+    0's tables go to every process.  ``cell_shifted.second_passes`` counts
+    the statistics that took a second pass."""
+    from .delayed import Promise
+    from .tasks import moment_shift
+    exprs = list(dict.fromkeys(e for es, _ in specs for e in es))
+    dtypes = {e: _not_strings(df, e, "moments") for e in exprs}
+    wide = {e: dtypes[e].numpy == np.float64 for e in exprs}
+    # the bases whose values are integers (their moment data is int64)
+    integer = {e: not (dtypes[e].is_float or dtypes[e].numpy == UINT64) for e in exprs}
+    frame = {e: moment_shift(df, e) for e in exprs}
+    first = [_moments(df, binners, es, terms, selection, [frame[e] for e in es])
+             for es, terms in specs]
+    ones = {e: 1.0 for e in exprs}
+    out = Promise()
+
+    def second_pass(results):
+        answer = finish(results, frame, ones)
+        flag, over, table_of = None, None, {}
+        for (es, terms), ((n,), sums) in zip(specs, results):
             n = n.to(torch.float64)
-            var = variance(m2, m1, n)
-            if not wide or bool(torch.isfinite(m2).all()):  # one host read
-                out.fulfill(finish(var, n))
-                return
-            # every process of a mesh reads the same merged m2: all schedule it
-            scaled = _moments(df, binners, [scaled_expression], VAR_TERMS, selection)
-            scaled.then(lambda r: out.fulfill(finish(rescued_variance(var, m2, r[1], n), n)),
-                        out.reject)
-        moments.then(first, out.reject)
-        return [out]
+            for j, e in enumerate(es):
+                rows = _base_rows(terms, j)
+                if rows is not None:
+                    f = cancelled(sums[rows[1]], sums[rows[0]], n, integer[e])
+                    flag = f if flag is None else flag | f
+                    table_of.setdefault(e, (sums[rows[0]], n))
+            if any(wide[e] for e in es):
+                f = ~torch.isfinite(sums).all(0)
+                over = f if over is None else over | f
+        if over is not None:
+            flag = flag | over
+        anys = _any_cells(df, flag, *([] if over is None else [over]))
+        if not anys[0]:
+            out.fulfill(answer)
+            return
+        cell_shifted.second_passes += 1
+        tables, mesh = {}, _mesh(df)
+        for e in exprs:
+            tables[e] = cell_shift(frame[e], *table_of[e], integer[e])
+            if mesh is not None:
+                from .parallel import collectives
+                tables[e] = collectives.broadcast(tables[e], mesh)
+        again = [_moments(df, binners, es, terms, selection, [tables[e] for e in es])
+                 for es, terms in specs]
+        scaled = anys[-1] if over is not None else False
+        scale = {e: RESCUE_SCALE if wide[e] and scaled else 1.0 for e in exprs}
+        shift = {e: tables[e] * scale[e] if scale[e] != 1.0 else tables[e] for e in exprs}
+        name = {e: f"({e}) * {RESCUE_SCALE!r}" if scale[e] != 1.0 else e for e in exprs}
+        tiny = [_moments(df, binners, [name[e] for e in es], terms, selection,
+                         [shift[e] for e in es]) for es, terms in specs] if scaled else []
+
+        def merge(got):
+            results2, results3 = got[:len(specs)], got[len(specs):]
+            retaken = finish(results2, tables, ones)
+            if scaled:
+                retaken = _picked(None, retaken, finish(results3, shift, scale))
+            return _picked(flag, retaken, answer)
+        delayed(lambda *got: merge(got))(*again, *tiny).then(out.fulfill, out.reject)
+
+    def check(results):
+        try:
+            second_pass(results)
+        except Exception as e:  # noqa: BLE001 - the statistic's promise takes it
+            out.reject(e)
+    delayed(lambda *r: r)(*first).then(check, out.reject)
+    return out
+
+
+cell_shifted.second_passes = 0
+
+
+def variance(m2, m1, n):
+    """var from the shifted sums m1 = sum u, m2 = sum u^2 of n rows: (m2 -
+    m1^2 / n) / n, and 0 where that is within the rounding bound of the
+    sums (2 n eps m2; a constant cell, whose u need not be 0), so that a
+    constant operand has no variance; NaN stays NaN, and a sum of squares
+    past float64 gives inf or NaN, never 0."""
+    s = m2 - m1 * m1 / n
+    zero = (s <= 2 * n * torch.finfo(torch.float64).eps * m2) & torch.isfinite(m2)
+    return torch.where(zero, 0.0, s) / n
 
 
 def central(mxy, mx, my, n):
@@ -1059,18 +1194,47 @@ def central(mxy, mx, my, n):
     return (mxy - mx * my / n) / n
 
 
-def variance(m2, m1, n):
-    """var from the shifted sums m1 = sum u, m2 = sum u^2 of n rows: (m2 -
-    m1^2 / n) / n, and 0 where that is within the rounding bound of the
-    sums (2 n eps m2; a constant cell, whose u need not be 0), so that a
-    constant operand has no variance; NaN stays NaN."""
-    s = m2 - m1 * m1 / n
-    return torch.where(s <= 2 * n * torch.finfo(torch.float64).eps * m2, 0.0, s) / n
+class AggregatorDescriptorVar(AggregatorDescriptor):
+    """var/std from shifted moments: with u = x - a, var = (sum u^2 - (sum
+    u)^2 / n) / n, which does not cancel where a is near the cell's values,
+    as E[x^2] - E[x]^2 of raw moments does (vaex_tpu/agg.py:1114, a fault of
+    the reference).  :func:`cell_shifted` takes a cell far from the frame's
+    shift again less its own mean, and a float64 cell whose sum of u^2 is
+    not finite (an infinity, or |u| past 1.3e154) over x * RESCUE_SCALE,
+    its variance scaled back; a float32 or int base's squares cannot
+    overflow, so only an infinity makes them infinite, and inf - inf is
+    already the NaN numpy gives."""
+
+    def __init__(self, expression, std=False, ddof=0, selection=None, edges=False):
+        super().__init__("std" if std else "var", expression, selection, edges)
+        self.std = std
+        self.ddof = ddof
+
+    def add_tasks(self, df, binners, progress=None):
+        for e in self.expressions:
+            _not_strings(df, e, self.name)
+        std, ddof = self.std, self.ddof
+
+        def finish(results, shifts, scales):
+            [((n,), (m1, m2))] = results
+            n = n.to(torch.float64)
+            scale = next(iter(scales.values()))
+            var = variance(m2, m1, n) / scale / scale  # scale^2 underflows
+            if ddof:
+                var = torch.where(n > ddof, var * n / (n - ddof), torch.nan)
+            return torch.sqrt(var) if std else var
+        return [cell_shifted(df, binners, [([self.expression], VAR_TERMS)],
+                             selection_expression(self.selection, df), finish)]
 
 
 class AggregatorDescriptorCovar(AggregatorDescriptor):
     """Per-cell covariance over the rows where both x and y are valid
-    (vaex_tpu/agg.py:1124-1164), from shifted moments (:func:`central`)."""
+    (vaex_tpu/agg.py:1124-1164), from shifted moments (:func:`central`).
+    Its op holds corr's terms (CORR_TERMS: each base's square too, which
+    B4 and B5 have compiled), so that :func:`cell_shifted` can flag a cell
+    where either base lost its digits: the rounding of sum uv - sum u sum
+    v / n is within 2 eps sqrt(sum u^2 sum v^2), which stays within 2^17 eps
+    of the cell's sigma_x sigma_y where neither base is flagged."""
 
     def __init__(self, x, y, selection=None, edges=False, ddof=0):
         super().__init__("covar", x, selection, edges)
@@ -1083,19 +1247,17 @@ class AggregatorDescriptorCovar(AggregatorDescriptor):
     def add_tasks(self, df, binners, progress=None):
         for e in (self.expression, self.y):
             _not_strings(df, e, self.name)
-        moments = _moments(df, binners, [self.expression, self.y], COVAR_TERMS,
-                           selection_expression(self.selection, df))
-        ddof = self.ddof
+        x, y, ddof = self.expression, self.y, self.ddof
 
-        @delayed
-        def finish(r):
-            (c,), (mxy, mx, my) = r
+        def finish(results, shifts, scales):
+            [((c,), (mxy, mx, my, _, _))] = results
             c = c.to(torch.float64)
-            cov = central(mxy, mx, my, c)
+            cov = central(mxy, mx, my, c) / scales[x] / scales[y]
             if ddof:
                 cov = cov * c / (c - ddof)
             return cov
-        return [finish(moments)]
+        return [cell_shifted(df, binners, [([x, y], CORR_TERMS)],
+                             selection_expression(self.selection, df), finish)]
 
 
 class AggregatorDescriptorCorr(AggregatorDescriptorCovar):
@@ -1106,20 +1268,22 @@ class AggregatorDescriptorCorr(AggregatorDescriptorCovar):
         self.name = "corr"
 
     def add_tasks(self, df, binners, progress=None):
-        moments = _moments(df, binners, [self.expression, self.y], CORR_TERMS,
-                           selection_expression(self.selection, df))
+        for e in (self.expression, self.y):
+            _not_strings(df, e, self.name)
 
-        @delayed
-        def finish(r):
-            (c,), (mxy, mx, my, mxx, myy) = r
+        def finish(results, shifts, scales):
+            [((c,), (mxy, mx, my, mxx, myy))] = results
             c = c.to(torch.float64)
             cov = central(mxy, mx, my, c)
             vx = variance(mxx, mx, c)
             vy = variance(myy, my, c)
-            r = cov / torch.sqrt(vx * vy)
-            # a constant operand has no variance: NaN, not a 0-division's inf
-            return torch.where(torch.isfinite(r), r, torch.nan)
-        return [finish(moments)]
+            r = cov / torch.sqrt(vx) / torch.sqrt(vy)  # the scales cancel
+            # a constant operand has no variance: NaN, not a 0-division's
+            # inf; and NaN where a sum it reads is not finite
+            ok = torch.isfinite(r) & torch.isfinite(vx) & torch.isfinite(vy)
+            return torch.where(ok, r, torch.nan)
+        return [cell_shifted(df, binners, [([self.expression, self.y], CORR_TERMS)],
+                             selection_expression(self.selection, df), finish)]
 
 
 class AggregatorDescriptorNUnique(AggregatorDescriptor):

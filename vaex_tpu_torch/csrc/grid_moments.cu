@@ -15,7 +15,10 @@
 // Every base is read less its shift (shifted moments, moments_common.cuh):
 // one word per base in device memory, read once by each thread, subtracted
 // in the base's own type before the cast to double, so var of values far
-// from zero keeps its digits.
+// from zero keeps its digits.  With a shift a cell (TABLE: the second pass
+// of a statistic whose cells lie far from one shift) each CTA copies the
+// [nb][G] table into shared memory after its grids, 8 bytes a base and bin,
+// and a row subtracts its bin's word, read once its bin is back.
 //
 // Two routes, which the wrapper picks by G and the terms
 // (ops/grid_moments.py:route).  Every addition of both happens in an order
@@ -113,20 +116,26 @@ __device__ __forceinline__ void issue_rows(Rows<NB, H>& rows, const int* __restr
 }
 
 // The raw values of issue_rows' H rows as values less each base's shift
-// word sh[j] (moments_common.cuh), once their loads are back; the branch on
-// a base's kind is taken once for the H rows.
-template <int NB, int H>
+// (moments_common.cuh), once their loads are back: the word sh[j], or with
+// TABLE the word of the row's bin in the CTA's copy of the tables, tab
+// ([nb][G], load_table); the branch on a base's kind is taken once for the
+// H rows.
+template <int NB, int H, bool TABLE = false>
 __device__ __forceinline__ void shift_rows(Rows<NB, H>& rows, const Bases& bases,
-                                           const unsigned long long (&sh)[BASE_SLOTS(NB)]) {
+                                           const unsigned long long (&sh)[BASE_SLOTS(NB)],
+                                           const unsigned long long* tab = nullptr, int G = 1) {
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
         if (bases.kind[j] == BASE_I64) {
 #pragma unroll
             for (int u = 0; u < H; ++u)
-                rows.v[u][j] = shifted_i64(__double_as_longlong(rows.v[u][j]), sh[j]);
+                rows.v[u][j] = shifted_i64(__double_as_longlong(rows.v[u][j]),
+                                           TABLE ? table_word(tab, j, G, G, rows.b[u]) : sh[j]);
         } else {
 #pragma unroll
-            for (int u = 0; u < H; ++u) rows.v[u][j] = shifted_f(rows.v[u][j], sh[j]);
+            for (int u = 0; u < H; ++u)
+                rows.v[u][j] = shifted_f(rows.v[u][j],
+                                         TABLE ? table_word(tab, j, G, G, rows.b[u]) : sh[j]);
         }
     }
 }
@@ -141,7 +150,7 @@ __device__ __forceinline__ unsigned missing_bases(const double (&v)[BASE_SLOTS(N
     return missing;
 }
 
-template <int NB>
+template <int NB, bool TABLE>
 __global__ void moment_partials(const int* __restrict__ idx, long long n, int G, Bases bases,
                                 Terms terms, int n_count, int n_float,
                                 unsigned long long* __restrict__ scratch) {
@@ -156,9 +165,12 @@ __global__ void moment_partials(const int* __restrict__ idx, long long n, int G,
     double* stage = reinterpret_cast<double*>(smem + (size_t)warps * C * G) +
                     (size_t)warp * n_float * STAGE_ROWS;
 
-    zero_smem(smem, (size_t)warps * ((size_t)C * G + (size_t)n_float * STAGE_ROWS));
+    const size_t grid_words = (size_t)warps * ((size_t)C * G + (size_t)n_float * STAGE_ROWS);
+    unsigned long long* tab = smem + grid_words;  // TABLE: [NB][G] shift words
+    zero_smem(smem, grid_words);
     unsigned long long sh[BASE_SLOTS(NB)];
     load_shifts<NB>(bases, sh);
+    if constexpr (TABLE) load_table<NB>(bases, G, 0, G, G, tab);
     __syncthreads();
 
     // a warp takes rows base + u * warp_step + lane, u < UNROLL
@@ -168,7 +180,7 @@ __global__ void moment_partials(const int* __restrict__ idx, long long n, int G,
         // every load of the UNROLL rows is issued before any is used
         Rows<NB, UNROLL> rows;
         issue_rows(rows, idx, bases, n, base + lane, warp_step);
-        shift_rows(rows, bases, sh);
+        shift_rows<NB, UNROLL, TABLE>(rows, bases, sh, tab, G);
         const auto& v = rows.v;
         int b[UNROLL];
         unsigned missing[UNROLL];
@@ -243,8 +255,9 @@ __host__ __device__ __forceinline__ size_t lane_words(int G, int n_count, int n_
 // [C, G] partial written to scratch[blockIdx.x].  SET is a compiled term set
 // (SET_VAR, SET_CORR) or SET_ANY (the run-time tables); with G1 and a
 // compiled set a lane keeps its terms in registers for the whole call; IDX
-// false (G1 only): no idx, every row in bin 0.
-template <int NB, int SET, bool G1, bool IDX>
+// false (G1 only): no idx, every row in bin 0; TABLE (not G1): a shift a
+// cell, its [NB][G] words copied after the warps' grids.
+template <int NB, int SET, bool G1, bool IDX, bool TABLE>
 __global__ void __launch_bounds__(256)
 moment_lanes(const int* __restrict__ idx, long long n, int G, Bases bases, Terms terms,
              int n_count, int n_float, unsigned long long* __restrict__ scratch) {
@@ -261,9 +274,11 @@ moment_lanes(const int* __restrict__ idx, long long n, int G, Bases bases, Terms
     double* sums = reinterpret_cast<double*>(smem + (size_t)warp * words + count_words);
     const size_t plane = (size_t)G * 32;  // a term's lane grid
 
+    unsigned long long* tab = smem + (size_t)warps * words;  // TABLE: [NB][G] shift words
     zero_smem(smem, (size_t)warps * words);
     unsigned long long sh[BASE_SLOTS(NB)];
     load_shifts<NB>(bases, sh);
+    if constexpr (TABLE) load_table<NB>(bases, G, 0, G, G, tab);
     __syncthreads();
 
     unsigned held_count = 0u;  // G1 and a compiled set: the lane's terms
@@ -274,7 +289,7 @@ moment_lanes(const int* __restrict__ idx, long long n, int G, Bases bases, Terms
     // The rows [hb + u * step, u < H] of a half step into the lane's grid
     // (their loads issued a half step before).
     auto add = [&](Rows<NB, H>& rows, long long hb, long long step) {
-        shift_rows(rows, bases, sh);
+        shift_rows<NB, H, TABLE>(rows, bases, sh, tab, G);
 #pragma unroll
         for (int u = 0; u < H; ++u) {
             const int b = rows.b[u];
@@ -363,15 +378,25 @@ moment_lanes(const int* __restrict__ idx, long long n, int G, Bases bases, Terms
 
 // The lane route's instance for nb bases and a compiled set (var, corr) or
 // the run-time tables.
-template <bool G1, bool IDX>
+template <bool G1, bool IDX, bool TABLE = false>
 static auto lane_kernel(int nb, int set) {
-    if (set == SET_VAR) return moment_lanes<1, SET_VAR, G1, IDX>;
-    if (set == SET_CORR) return moment_lanes<2, SET_CORR, G1, IDX>;
-    return nb == 0   ? moment_lanes<0, SET_ANY, G1, IDX>
-           : nb == 1 ? moment_lanes<1, SET_ANY, G1, IDX>
-           : nb == 2 ? moment_lanes<2, SET_ANY, G1, IDX>
-           : nb == 3 ? moment_lanes<3, SET_ANY, G1, IDX>
-                     : moment_lanes<4, SET_ANY, G1, IDX>;
+    if (set == SET_VAR) return moment_lanes<1, SET_VAR, G1, IDX, TABLE>;
+    if (set == SET_CORR) return moment_lanes<2, SET_CORR, G1, IDX, TABLE>;
+    return nb == 0   ? moment_lanes<0, SET_ANY, G1, IDX, TABLE>
+           : nb == 1 ? moment_lanes<1, SET_ANY, G1, IDX, TABLE>
+           : nb == 2 ? moment_lanes<2, SET_ANY, G1, IDX, TABLE>
+           : nb == 3 ? moment_lanes<3, SET_ANY, G1, IDX, TABLE>
+                     : moment_lanes<4, SET_ANY, G1, IDX, TABLE>;
+}
+
+// The warp route's instance for nb bases, with or without a shift table.
+template <bool TABLE>
+static auto partials_kernel(int nb) {
+    return nb == 0   ? moment_partials<0, TABLE>
+           : nb == 1 ? moment_partials<1, TABLE>
+           : nb == 2 ? moment_partials<2, TABLE>
+           : nb == 3 ? moment_partials<3, TABLE>
+                     : moment_partials<4, TABLE>;
 }
 
 extern "C" {
@@ -389,6 +414,9 @@ int grid_moments_lane_rows(int nb) {
 //     bin 0;
 //   base_ptrs / base_kinds: HOST arrays, nb entries (BASE_F64/F32/I64);
 //   shift: DEVICE array of nb shift words (moments_common.cuh), or null;
+//     per_cell: [nb][G] words instead, a shift a cell (G > 1; the table
+//     takes 8 * nb * G bytes of shared memory beside the grids: within
+//     CLUSTER_SMEM on both routes);
 //   term_a / term_b / term_need: HOST arrays, n_count count terms, then
 //     n_float float terms;
 //   W: must equal G (the window kernel's argument, one window here);
@@ -399,33 +427,36 @@ int grid_moments_lane_rows(int nb) {
 //   scratch: device [n_ctas, C, G] 8-byte words, C = n_count + n_float;
 //   out_int [n_count, G] int64, out_float [n_float, G] float64.
 int grid_moments_run(const int* idx, long long n, int G, int W, const void* const* base_ptrs,
-                     const int* base_kinds, int nb, const void* shift, const int* term_a,
-                     const int* term_b,
+                     const int* base_kinds, int nb, const void* shift, int per_cell,
+                     const int* term_a, const int* term_b,
                      const unsigned* term_need, int n_count, int n_float, int n_ctas,
                      int warps, int lane, unsigned long long* scratch, long long* out_int,
                      double* out_float, void* stream) {
     Bases bases;
     Terms terms;
     if (G < 1 || W != G || n < 0 || n_ctas < 1 || warps < 1 || warps > 32 ||
-        (!idx && n > 0 && (G != 1 || !lane)) ||
-        !make_tables(base_ptrs, base_kinds, nb, shift, term_a, term_b, term_need, n_count,
-                     n_float, &bases, &terms))
+        (!idx && n > 0 && (G != 1 || !lane)) || (per_cell && (G < 2 || !idx)) ||
+        !make_tables(base_ptrs, base_kinds, nb, shift, per_cell, term_a, term_b, term_need,
+                     n_count, n_float, &bases, &terms))
         return -1;
     const int C = n_count + n_float;
+    const size_t table = per_cell ? (size_t)nb * G * sizeof(unsigned long long) : 0;
     size_t smem;
     void (*kernel)(const int*, long long, int, Bases, Terms, int, int, unsigned long long*);
     if (lane) {
-        smem = lane_words(G, n_count, n_float) * warps * sizeof(unsigned long long);
+        smem = lane_words(G, n_count, n_float) * warps * sizeof(unsigned long long) + table;
         if (smem > CLUSTER_SMEM || warps > 8 || n >= (1LL << 32)) return -1;
         const int set = term_set(nb, term_a, term_b, term_need, n_count, n_float);
-        kernel = G > 1 ? lane_kernel<false, true>(nb, set)
-                 : idx ? lane_kernel<true, true>(nb, set)
-                       : lane_kernel<true, false>(nb, set);
+        kernel = per_cell ? lane_kernel<false, true, true>(nb, set)
+                 : G > 1  ? lane_kernel<false, true>(nb, set)
+                 : idx    ? lane_kernel<true, true>(nb, set)
+                          : lane_kernel<true, false>(nb, set);
     } else {
         smem = (size_t)warps * ((size_t)C * G + (size_t)n_float * STAGE_ROWS) *
                sizeof(unsigned long long);
-        if (smem > SMEM_BUDGET) return -1;
-        kernel = FOR_NB(moment_partials, nb);
+        if (smem > SMEM_BUDGET || smem + table > CLUSTER_SMEM) return -1;
+        smem += table;
+        kernel = per_cell ? partials_kernel<true>(nb) : partials_kernel<false>(nb);
     }
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t e = allow_smem(kernel, smem);

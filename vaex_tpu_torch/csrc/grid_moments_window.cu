@@ -11,7 +11,11 @@
 // the term columns in registers from the base columns instead of reading
 // columns formed in device memory.
 //
-// Every base is read less its shift, as in B4 (moments_common.cuh).
+// Every base is read less its shift, as in B4 (moments_common.cuh).  With a
+// shift a cell (TABLE) each part copies its window's slice of the [nb][G]
+// table into shared memory before its planes (8 bytes a base and bin,
+// counted by the wrapper's part plan), and a row subtracts the word of its
+// bin.
 //
 // What bounds it on an H100: the shared-memory atomics, one per term and
 // row, and each part's walk over the rows.  A 32-bit add is native
@@ -117,12 +121,14 @@ __device__ __forceinline__ unsigned part_bases(const Bases& bases, const Terms& 
 // Rows [lo, hi) of the call walked warp by warp with plain loads, from row
 // lo + first * 32 on in steps of step * 32 rows, adding the part's terms
 // [t_lo, t_hi) of the rows of the window [w0, w0 + Wc) (one_window: the
-// window holds every bin).
-template <int NB, int SET>
+// window holds every bin); each base less sh[j], or with TABLE less the
+// word of the row's bin in the window's copy of the tables, tab.
+template <int NB, int SET, bool TABLE>
 __device__ __forceinline__ void walk_rows(const int* __restrict__ idx, long long lo, long long hi,
                                           long long first, long long step, int w0, int Wc,
                                           bool one_window, unsigned need, const Bases& bases,
                                           const unsigned long long (&sh)[BASE_SLOTS(NB)],
+                                          const unsigned long long* tab,
                                           const Terms& terms, int n_count, int n_float, int t_lo,
                                           int t_hi, int W, unsigned* counts, double* sums) {
     const int lane = threadIdx.x & 31;
@@ -161,13 +167,15 @@ __device__ __forceinline__ void walk_rows(const int* __restrict__ idx, long long
                                        min(base + u * step * 32 + lane, hi - 1));
             }
         }
-        // the raw values less their shifts, once every load is issued
+        // the raw values less their shifts, once every load is issued (a
+        // table's bin: the window's own, or the raw bin of the only window)
 #pragma unroll
         for (int u = 0; u < WALK_UNROLL; ++u) {
 #pragma unroll
             for (int j = 0; j < NB; ++j)
                 if ((need >> j & 1u) && (one_window || key[u] >= 0))
-                    v[u][j] = shifted(v[u][j], bases.kind[j], sh[j]);
+                    v[u][j] = shifted(v[u][j], bases.kind[j],
+                                      TABLE ? table_word(tab, j, W, Wc, key[u]) : sh[j]);
         }
 #pragma unroll
         for (int u = 0; u < WALK_UNROLL; ++u) {
@@ -215,7 +223,7 @@ __device__ __forceinline__ void write_part(const Part& part, const Groups& group
     }
 }
 
-template <int NB, int SET>
+template <int NB, int SET, bool TABLE>
 __global__ void __launch_bounds__(1024)
 moment_window_walk(const int* __restrict__ idx, long long n, int G, int W, int n_groups,
                    Groups groups, Bases bases, Terms terms, int n_count, int n_float,
@@ -227,20 +235,23 @@ moment_window_walk(const int* __restrict__ idx, long long n, int G, int W, int n
     }
     const int win = blockIdx.x / n_groups;
     const Part part(groups, blockIdx.x - win * n_groups, n_count);
-    unsigned* counts = reinterpret_cast<unsigned*>(smem);
+    // TABLE: the window's [NB][W] shift words, then the part's planes
+    unsigned long long* planes = smem + (TABLE ? (size_t)NB * W : 0);
+    unsigned* counts = reinterpret_cast<unsigned*>(planes);
     double* sums = reinterpret_cast<double*>(counts + (size_t)part.counts * W);
     const int w0 = win * W;
     const int Wc = min(W, G - w0);
-    for (size_t j = threadIdx.x; j < part.words(W); j += blockDim.x) smem[j] = 0ull;
+    for (size_t j = threadIdx.x; j < part.words(W); j += blockDim.x) planes[j] = 0ull;
     unsigned long long sh[BASE_SLOTS(NB)];
     load_shifts<NB>(bases, sh);
+    if constexpr (TABLE) load_table<NB>(bases, G, w0, Wc, W, smem);
     __syncthreads();
     const int warps = blockDim.x >> 5;
-    walk_rows<NB, SET>(idx, 0, n, (long long)blockIdx.y * warps + (threadIdx.x >> 5),
-                       (long long)gridDim.y * warps, w0, Wc, W >= G,
-                       part_bases(bases, terms, n_count, part.t_lo, part.t_hi), bases, sh, terms,
-                       n_count, n_float,
-                       part.t_lo, part.t_hi, W, counts, sums);
+    walk_rows<NB, SET, TABLE>(idx, 0, n, (long long)blockIdx.y * warps + (threadIdx.x >> 5),
+                              (long long)gridDim.y * warps, w0, Wc, W >= G,
+                              part_bases(bases, terms, n_count, part.t_lo, part.t_hi), bases, sh,
+                              smem, terms, n_count, n_float, part.t_lo, part.t_hi, W, counts,
+                              sums);
     __syncthreads();
     write_part(part, groups, counts, sums, G, W, w0, Wc,
                scratch + (size_t)blockIdx.y * (n_count + n_float) * G);
@@ -249,15 +260,17 @@ moment_window_walk(const int* __restrict__ idx, long long n, int G, int W, int n
 typedef void (*WalkKernel)(const int*, long long, int, int, int, Groups, Bases, Terms, int, int,
                            unsigned long long*);
 
-// The instance for nb bases and the compiled set.
+// The instance for nb bases and the compiled set, with or without a shift
+// table.
+template <bool TABLE>
 static WalkKernel walk_kernel(int nb, int set) {
-    if (set == SET_VAR) return moment_window_walk<1, SET_VAR>;
-    if (set == SET_CORR) return moment_window_walk<2, SET_CORR>;
-    return nb == 0   ? moment_window_walk<0, SET_ANY>
-           : nb == 1 ? moment_window_walk<1, SET_ANY>
-           : nb == 2 ? moment_window_walk<2, SET_ANY>
-           : nb == 3 ? moment_window_walk<3, SET_ANY>
-                     : moment_window_walk<4, SET_ANY>;
+    if (set == SET_VAR) return moment_window_walk<1, SET_VAR, TABLE>;
+    if (set == SET_CORR) return moment_window_walk<2, SET_CORR, TABLE>;
+    return nb == 0   ? moment_window_walk<0, SET_ANY, TABLE>
+           : nb == 1 ? moment_window_walk<1, SET_ANY, TABLE>
+           : nb == 2 ? moment_window_walk<2, SET_ANY, TABLE>
+           : nb == 3 ? moment_window_walk<3, SET_ANY, TABLE>
+                     : moment_window_walk<4, SET_ANY, TABLE>;
 }
 
 extern "C" {
@@ -279,6 +292,8 @@ const char* grid_moments_window_error_string(int code) {
 //     [0, C) that keeps the counts in [0, n_count));
 //   base_ptrs / base_kinds: HOST arrays, nb entries (BASE_F64/F32/I64);
 //   shift: DEVICE array of nb shift words (moments_common.cuh), or null;
+//     per_cell: [nb][G] words instead, a shift a cell (each part keeps
+//     its window's W words a base beside its planes, within CLUSTER_SMEM);
 //   term_a / term_b / term_need: HOST arrays, n_count count terms, then
 //     n_float float terms;
 //   n_slices row slices of n_win * n_groups CTAs of `threads`;
@@ -286,7 +301,7 @@ const char* grid_moments_window_error_string(int code) {
 int grid_moments_window_run(const int* idx, long long n, int G, int W, int n_win,
                             const int* group_lo, int n_groups, const int* term_row,
                             const void* const* base_ptrs,
-                            const int* base_kinds, int nb, const void* shift,
+                            const int* base_kinds, int nb, const void* shift, int per_cell,
                             const int* term_a, const int* term_b,
                             const unsigned* term_need, int n_count, int n_float, int n_slices,
                             int threads, unsigned long long* scratch, long long* out_int,
@@ -297,8 +312,8 @@ int grid_moments_window_run(const int* idx, long long n, int G, int W, int n_win
     if (G < 1 || W < 2 || W % 2 || n_win < 1 || (long long)n_win * W < G || n_groups < 1 ||
         n_groups > MAX_TERMS || n < 0 || n >= (1LL << 31) || threads < 32 || threads > 1024 ||
         threads % 32 || n_slices < 1 || n_slices > 65535 ||
-        !make_tables(base_ptrs, base_kinds, nb, shift, term_a, term_b, term_need, n_count,
-                     n_float, &bases, &terms) ||
+        !make_tables(base_ptrs, base_kinds, nb, shift, per_cell, term_a, term_b, term_need,
+                     n_count, n_float, &bases, &terms) ||
         (long long)C * G > 0x7fffffffLL || (long long)n_win * n_groups > 0x7fffffffLL ||
         group_lo[0] != 0 || group_lo[n_groups] != C)
         return -1;
@@ -313,18 +328,18 @@ int grid_moments_window_run(const int* idx, long long n, int G, int W, int n_win
             return -1;
         rows |= 1u << term_row[k];
     }
-    size_t smem = 0;  // the widest part's planes
+    size_t smem = 0;  // the widest part's planes, beside the window's shift tables
     for (int g = 0; g < n_groups; ++g) {
         const int lo = group_lo[g], hi = group_lo[g + 1];
         if (hi <= lo) return -1;
         const int cnt = max(0, min(hi, n_count) - lo), flt = hi - max(lo, n_count);
-        const size_t bytes = (size_t)W * (4 * cnt + 8 * flt);
+        const size_t bytes = (size_t)W * (4 * cnt + 8 * flt + (per_cell ? 8 * nb : 0));
         if (bytes > CLUSTER_SMEM) return -1;
         smem = bytes > smem ? bytes : smem;
     }
     cudaStream_t s = (cudaStream_t)stream;
-    WalkKernel kernel =
-        walk_kernel(nb, term_set(nb, term_a, term_b, term_need, n_count, n_float));
+    const int set = term_set(nb, term_a, term_b, term_need, n_count, n_float);
+    WalkKernel kernel = per_cell ? walk_kernel<true>(nb, set) : walk_kernel<false>(nb, set);
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;

@@ -7,7 +7,10 @@
 //     value;
 //   shift: null, or a device array of one 8-byte word per base, an int64
 //     for an int64 base and the bits of a double for a float base, read once
-//     by every thread (load_shifts);
+//     by every thread (load_shifts); or, with per_cell, a table of G such
+//     words per base ([nb][G], a shift a cell), of which each CTA copies the
+//     bins it adds into shared memory (load_table) and subtracts the word
+//     of a row's bin (table_word);
 //   terms (at most MAX_TERMS), count terms first, then float terms; a float
 //     term is base[a] * base[b] (base[a] when b < 0); a row adds to a term
 //     only where none of the bases in its `need` bitmask is NaN.
@@ -29,7 +32,9 @@
 struct Bases {
     const void* ptr[MAX_BASES];
     int kind[MAX_BASES];
-    const unsigned long long* shift;  // device, a word per base, or null: no shift
+    // device: a word per base, with per_cell [nb][G] words, or null: no shift
+    const unsigned long long* shift;
+    int per_cell;
 };
 
 struct Terms {
@@ -40,13 +45,15 @@ struct Terms {
 
 // Host side: the tables from HOST arrays, as the wrappers pass them.
 static inline bool make_tables(const void* const* base_ptrs, const int* base_kinds, int nb,
-                               const void* shift, const int* term_a, const int* term_b,
-                               const unsigned* term_need, int n_count, int n_float,
-                               Bases* bases, Terms* terms) {
+                               const void* shift, int per_cell, const int* term_a,
+                               const int* term_b, const unsigned* term_need, int n_count,
+                               int n_float, Bases* bases, Terms* terms) {
     const int C = n_count + n_float;
-    if (nb < 0 || nb > MAX_BASES || C < 1 || C > MAX_TERMS || n_count < 0 || n_float < 0)
+    if (nb < 0 || nb > MAX_BASES || C < 1 || C > MAX_TERMS || n_count < 0 || n_float < 0 ||
+        (per_cell && (!shift || nb < 1)))
         return false;
     bases->shift = (const unsigned long long*)shift;
+    bases->per_cell = per_cell ? 1 : 0;
     for (int j = 0; j < MAX_BASES; ++j) {
         bases->ptr[j] = j < nb ? base_ptrs[j] : nullptr;
         bases->kind[j] = j < nb ? base_kinds[j] : BASE_F64;
@@ -74,6 +81,25 @@ __device__ __forceinline__ void load_shifts(const Bases& bases,
 #pragma unroll
     for (int j = 0; j < BASE_SLOTS(NB); ++j)
         sh[j] = j < NB && bases.shift ? __ldg(bases.shift + j) : 0ull;
+}
+
+// Bins [w0, w0 + Wc) of the NB bases' shift tables (Bases::per_cell, G
+// words a base) into tab[j * W + b], b < Wc: the CTA's copy in shared
+// memory, 8 bytes a base and bin.  Call before a barrier.
+template <int NB>
+__device__ __forceinline__ void load_table(const Bases& bases, int G, int w0, int Wc, int W,
+                                           unsigned long long* tab) {
+    for (int i = threadIdx.x; i < NB * Wc; i += blockDim.x) {
+        const int j = i / Wc, b = i - j * Wc;
+        tab[(size_t)j * W + b] = __ldg(bases.shift + (size_t)j * G + w0 + b);
+    }
+}
+
+// Base j's shift word of the bin b of a table copied by load_table; a bin
+// outside [0, Wc) (a row that adds nothing) reads bin 0.
+__device__ __forceinline__ unsigned long long table_word(const unsigned long long* tab, int j,
+                                                         int W, int Wc, int b) {
+    return tab[(size_t)j * W + ((unsigned)b < (unsigned)Wc ? b : 0)];
 }
 
 // v - s of an int64 base, subtracted in int64 before the cast: exact to one
@@ -178,12 +204,6 @@ __device__ __forceinline__ unsigned set_count(const Terms& t, int k, unsigned mi
     if constexpr (SET == SET_ANY) return (t.need[k] & missing) ? 0u : 1u;
     return missing ? 0u : 1u;
 }
-
-// The instance of a kernel template for nb bases (nb checked by make_tables).
-#define FOR_NB(kernel, nb)                                                               \
-    ((nb) == 0 ? kernel<0> : (nb) == 1 ? kernel<1> : (nb) == 2 ? kernel<2>               \
-                           : (nb) == 3 ? kernel<3> : kernel<4>)
-static_assert(MAX_BASES == 4, "FOR_NB instantiates 0 .. 4 bases");
 
 // The C entry points both moment libraries export next to <name>_run.
 #define MOMENT_LIBRARY_INFO(name)                                   \

@@ -1109,7 +1109,7 @@ class DataFrame:
         @delayed
         def finish(c, sx, sy):
             with np.errstate(divide="ignore", invalid="ignore"):
-                return np.asarray(c) / (np.asarray(sx) * np.asarray(sy))
+                return np.asarray(c) / np.asarray(sx) / np.asarray(sy)
         return self._delay(delay, finish(cov, std_x, std_y), progress)
 
     def cov(self, x, y=None, binby=(), limits=None, shape=128, selection=None, delay=False,
@@ -1144,52 +1144,64 @@ class DataFrame:
         """Per pair (i, j) of ``exprs`` a delayed entry E_ij[x_i x_j] -
         E_i[x_i] E_j[x_j], each mean over the rows where its own expression
         is valid (the product's: where both are), as vaex_tpu defines it,
-        from shifted moments (u_i = x_i - a_i, a_i the expression's
-        :func:`.tasks.moment_shift`): the pair's covar op gives the sums
-        over its rows of u_i u_j, u_i and u_j (P_i = E_ij[u_i]), each
+        from shifted moments (u_i = x_i - a_i): the pair's covar op gives the
+        sums over its rows of u_i u_j, u_i and u_j (P_i = E_ij[u_i]), each
         expression's var op those over its own (M_i = E_i[u_i]), and the
         entry is cov_ij(u) + P_i P_j - M_i M_j + a_j (P_i - M_i) + a_i (P_j -
-        M_j); on the diagonal the var.  Where no value is missing P = M, and
-        nothing cancels the digits of values far from zero.  The kernels
+        M_j); on the diagonal the var.  Where no value is missing P = M.  All
+        the ops go through one :func:`.agg.cell_shifted`: a_i is the frame's
+        shift, or, in a cell one of the var ops flags, every base's own mean
+        there (its table), and where a float64 sum overflowed the ops over
+        x * RESCUE_SCALE, the entry scaled back.  A pair's cells are flagged
+        through its bases' var ops: the rounding of its cov_ij(u), within 2
+        eps sqrt(sum u_i^2 sum u_j^2) over the pair's rows, stays within 2^17
+        eps n / c of sigma_i sigma_j where neither is flagged (c the pair's
+        rows, n their own: equal where no value is missing).  The kernels
         form the terms from the base columns (B4 / B5): no product column is
         made."""
-        from .tasks import moment_shift
         for e in exprs:
             agg_module._not_strings(self, e, "cov")
         binners = self._create_binners(binby, limits, shape)
-        sel = agg_module.selection_expression(selection, self)
         ndim = len(binners)
-        own = [agg_module._moments(self, binners, [e], agg_module.VAR_TERMS, sel) for e in exprs]
-        shift = [moment_shift(self, e).item() for e in exprs]  # host reads of n scalars
+        k = len(exprs)
+        off = [(i, j) for i, j in pairs if i != j]
+        specs = ([([e], agg_module.VAR_TERMS) for e in exprs]
+                 + [([exprs[i], exprs[j]], agg_module.COVAR_TERMS) for i, j in off])
 
-        def grids(rows):  # each term's row as float64 cells, the edges stripped
-            rows = [array_types.to_numpy(g).astype(np.float64) for g in rows]
-            return [agg_module.extract_central(g, ndim) if ndim else g.reshape(()) for g in rows]
+        def shift_of(a, like):  # a base's shift as float64 cells
+            if a is None:
+                return 0.0
+            a = a.to(device=like.device, dtype=torch.float64)
+            return a.reshape(like.shape) if a.dim() == 1 else a
 
-        @delayed
-        def diagonal(r):
-            (n,), (m1, m2) = (grids(part) for part in r)
-            return agg_module.variance(torch.from_numpy(m2), torch.from_numpy(m1),
-                                       torch.from_numpy(n)).numpy().reshape(np.shape(n))
-
-        @delayed
-        def entry(a_i, a_j, r, r_i, r_j):
-            (c,), (sxy, sx, sy) = grids(r[0]), grids(r[1])
-            (n_i,), (s_i, _) = grids(r_i[0]), grids(r_i[1])
-            (n_j,), (s_j, _) = grids(r_j[0]), grids(r_j[1])
-            with np.errstate(divide="ignore", invalid="ignore"):
+        def finish(results, shifts, scales):
+            own = [((n.to(torch.float64),), sums) for (n,), sums in results[:k]]
+            of_pair = dict(zip(off, results[k:]))
+            out = []
+            for i, j in pairs:
+                (n_i,), (s_i, q_i) = own[i]
+                scale = scales[exprs[i]], scales[exprs[j]]
+                if i == j:
+                    out.append(agg_module.variance(q_i, s_i, n_i) / scale[0] / scale[0])
+                    continue
+                (n_j,), (s_j, _) = own[j]
+                (c,), (sxy, sx, sy) = of_pair[(i, j)]
+                c = c.to(torch.float64)
+                a_i, a_j = shift_of(shifts[exprs[i]], s_i), shift_of(shifts[exprs[j]], s_j)
                 p_i, p_j, m_i, m_j = sx / c, sy / c, s_i / n_i, s_j / n_j
-                return ((sxy - sx * sy / c) / c + p_i * p_j - m_i * m_j
-                        + a_j * (p_i - m_i) + a_i * (p_j - m_j))
-        entries = {}
-        for i, j in pairs:
-            if i == j:
-                entries[(i, j)] = diagonal(own[i])
-            else:
-                pair = agg_module._moments(self, binners, [exprs[i], exprs[j]],
-                                           agg_module.COVAR_TERMS, sel)
-                entries[(i, j)] = entry(float(shift[i]), float(shift[j]), pair, own[i], own[j])
-        return entries
+                entry = ((sxy - sx * sy / c) / c + p_i * p_j - m_i * m_j
+                         + a_j * (p_i - m_i) + a_i * (p_j - m_j))
+                out.append(entry / scale[0] / scale[1])  # the product of scales underflows
+            return tuple(out)
+        entries = agg_module.cell_shifted(self, binners, specs,
+                                          agg_module.selection_expression(selection, self),
+                                          finish)
+
+        @delayed
+        def cells(grids, at):  # an entry's float64 cells, the edges stripped
+            g = array_types.to_numpy(grids[at]).astype(np.float64)
+            return agg_module.extract_central(g, ndim) if ndim else g.reshape(())
+        return {pair: cells(entries, at) for at, pair in enumerate(pairs)}
 
     def mode(self, expression, binby=(), limits=None, shape=256, mode_shape=64,
              mode_limits=None, progressbar=False, selection=None):

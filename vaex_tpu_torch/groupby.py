@@ -743,13 +743,13 @@ def _shuffle_channels(df, plan, shards):
     """The exchange's channels over each shard's values and, per output,
     how its [G] result is made from the exchange's (``finish(out)``)."""
     from .agg import (OpCount, OpCountValid, OpMax, OpMin, OpSum, OpSumFloat,
-                      rescued_variance, selection_expression, variance)
+                      selection_expression)
     from .datatype import NAT
     from .ops.grid_extreme import identity
     from .ops.grid_moments import shifted
     from .parallel.shuffle import NU_NAN, NU_NONE, NU_NULL
     from .tasks import moment_input, moment_shift
-    ints, floats, exts, modes, bases, nus = [], [], [], [], [], []
+    ints, floats, exts, modes, bases, base_shifts, nus = [], [], [], [], [], [], []
     finishers = {}
 
     def channel(target, parts):
@@ -834,19 +834,23 @@ def _shuffle_channels(df, plan, shards):
             modes.append(kind)
             finishers[name] = lambda out, op=op, i=i: finished(op, out["ext"][i])
         elif kind in ("std", "var"):
-            # each shard's base less one shift, the same on every shard:
-            # the exchange carries u = x - a, and the sums of u merge
-            parts, shift = [], moment_shift(df, desc.expression)
+            # the exchange carries x as float64, an int base less the frame's
+            # shift (subtracted in int64, so it keeps its digits in float64),
+            # a float base as it is with the frame's shift for its owner
+            parts, shift, owner_shift = [], moment_shift(df, desc.expression), None
             for rows, sel in zip(shards, sels):
                 base, s = moment_input(rows.expr(desc.expression), shift)
-                base = shifted(base, s)
+                if base.dtype == torch.int64:
+                    base, s = shifted(base, s), None
+                owner_shift = s
+                base = base.to(torch.float64)
                 parts.append(base if sel is None else base.masked_fill(~sel, torch.nan))
             i = channel(bases, parts)
+            base_shifts.append(None if owner_shift is None else owner_shift.to(torch.float64))
 
             def var(out, i=i, std=kind == "std", ddof=desc.ddof):
-                counts, (m1, m2), scaled = out["moments"][i]
+                counts, v = out["moments"][i]
                 n = counts.to(torch.float64)
-                v = rescued_variance(variance(m2, m1, n), m2, scaled, n)
                 if ddof:
                     v = torch.where(n > ddof, v * n / (n - ddof), torch.nan)
                 return torch.sqrt(v) if std else v
@@ -886,7 +890,7 @@ def _shuffle_channels(df, plan, shards):
                 return count
             finishers[name] = nunique
     return dict(int_cols=ints, float_cols=floats, ext_cols=exts, ext_modes=modes,
-                bases=bases, nu_cols=nus), finishers
+                bases=bases, base_shifts=base_shifts, nu_cols=nus), finishers
 
 
 

@@ -15,13 +15,19 @@ the base columns, each base read once per row.  The contract:
 * ``bases``: at most ``MAX_BASES`` columns [N], int64, float32 or float64,
   read as float64.  NaN marks a missing value: a masked column reaches the
   wrapper as a float64 copy with NaN in its masked rows.
-* ``shift`` (shifted moments): None, or per base None or a constant that the
-  kernel subtracts from every value before it forms a term, an int64 for an
+* ``shift`` (shifted moments): None, or per base None, a constant that the
+  kernel subtracts from every value before it forms a term, or a shift a
+  cell: a [G] tensor read as ``shift[idx]`` for each row (a row outside [0,
+  G) reads a clamped bin and adds nothing).  Either is an int64 for an
   int64 base (subtracted in int64, then cast: exact to one rounding where
   the span passes 2^63) and a float64 for a float base (subtracted in
-  float64).  var(x) = var(x - a) for any a; with a near the data the float64
-  sums of x and x*x no longer cancel.  The shifts reach the kernels as one
-  8-byte word a base in device memory (:func:`shift_words`): no host read.
+  float64); a table of another dtype or shape raises.  var(x) = var(x - a)
+  for any a, cell by cell; with a near the cell's data the float64 sums of
+  x and x*x no longer cancel.  The constants reach the kernels as one 8-byte
+  word a base in device memory (:func:`shift_words`), a call with a table
+  as [nb, G] words, every base's table or constant broadcast (each CTA
+  copies the bins it adds into shared memory): no host read.  At G = 1 a
+  table is its one word.
 * ``terms``: at most ``MAX_TERMS`` tuples ``(a, b, v0, v1)`` of base
   indices, -1 for none.  A float term (``a >= 0``) adds
   ``base[a] * base[b]`` (``base[a]`` when ``b = -1``) in float64; a count
@@ -105,10 +111,17 @@ def split_terms(terms, n_bases):
     return counts, floats
 
 
-def shift_values(bases, shift):
-    """Per base its shift as a 0-d tensor on the base's device, int64 for an
-    int64 base and float64 for a float one, or None for no shift; ``shift``
-    is None or one entry a base (None, a number or a 0-d tensor)."""
+def _kind(base):
+    """The dtype of a base's shift: int64 for an int64 base, float64 else."""
+    return torch.int64 if base.dtype == torch.int64 else torch.float64
+
+
+def shift_values(bases, shift, G=None):
+    """Per base its shift on the base's device: a 0-d tensor of
+    :func:`_kind`, a [G] table of it, or None for no shift; ``shift`` is None
+    or one entry a base (None, a number, a 0-d tensor or a [G] table).  A
+    table of another dtype or shape raises; at G = 1 a table is its one
+    value."""
     if shift is None:
         return [None] * len(bases)
     shift = list(shift)
@@ -116,16 +129,31 @@ def shift_values(bases, shift):
         raise ValueError(f"{len(shift)} shifts for {len(bases)} bases")
     out = []
     for base, s in zip(bases, shift):
-        dtype = torch.int64 if base.dtype == torch.int64 else torch.float64
-        out.append(None if s is None else
-                   torch.as_tensor(s, device=base.device).to(dtype).reshape(()))
+        dtype = _kind(base)
+        if (isinstance(s, torch.Tensor) and s.dim() == 0 and s.dtype == dtype
+                and s.device == base.device):  # already one of these: the host's fast path
+            out.append(s)
+        elif isinstance(s, torch.Tensor) and s.dim() >= 1:
+            if s.dtype != dtype or s.dim() != 1 or (G is not None and s.shape[0] != G):
+                raise ValueError(f"a shift table must be [G={G}] {dtype} for a {base.dtype} "
+                                 f"base, got {s.dtype} {tuple(s.shape)}")
+            out.append(s.reshape(()) if s.shape[0] == 1 and G == 1 else s)
+        else:
+            out.append(None if s is None else
+                       torch.as_tensor(s, device=base.device).to(dtype).reshape(()))
     return out
 
 
+def per_cell(shifts):
+    """True where one of :func:`shift_values`' shifts is a table."""
+    return any(s is not None and s.dim() == 1 for s in shifts)
+
+
 def shifted(base, s):
-    """``base - s`` in float64 (s None: the base), as the kernels form it: an
-    int64 base subtracts in int64 first and rounds once, its magnitude taken
-    as two exact 32-bit halves; a float base subtracts in float64."""
+    """``base - s`` in float64 (s None: the base; s a tensor of the base's
+    shape: each row less its own), as the kernels form it: an int64 base
+    subtracts in int64 first and rounds once, its magnitude taken as two
+    exact 32-bit halves; a float base subtracts in float64."""
     if s is None:
         return base.to(torch.float64)
     if base.dtype != torch.int64:
@@ -138,24 +166,47 @@ def shifted(base, s):
     return torch.where(below, -f, f)
 
 
-def shift_words(bases, shift, device):
-    """The kernels' shift argument: an int64 tensor on ``device``, one 8-byte
-    word a base (an int64 shift, or a float64 shift's bits; 0 for none), or
-    None where no base has a shift."""
-    values = shift_values(bases, shift)
+def row_shift(s, idx, n):
+    """Each of n rows' shift: a constant as it is, a table read at the row's
+    bin (idx None: bin 0), clamped into [0, G) (a row outside adds nothing)."""
+    if s is None or s.dim() == 0:
+        return s
+    if idx is None:
+        return s[0].expand(n)
+    return s[idx.clamp(0, s.shape[0] - 1).to(torch.int64)]
+
+
+def _words(s):
+    """A shift's 8-byte words: an int64 as it is, a float64's bits."""
+    return s if s.dtype == torch.int64 else s.view(torch.int64)
+
+
+def shift_words(values, device, G=None):
+    """The kernels' shift argument from :func:`shift_values`' ``values``: (an
+    int64 tensor on ``device``, True for a table a base).  Without a table
+    one 8-byte word a base (an int64 shift, or a float64 shift's bits; 0 for
+    none); with one, [nb, G] words, every base's table, constant or 0
+    broadcast over the bins.  (None, False) where no base has a shift."""
     if all(s is None for s in values):
-        return None
+        return None, False
+    if per_cell(values):
+        rows = [torch.zeros(G, dtype=torch.int64, device=device) if s is None
+                else _words(s.to(device)).expand(G) for s in values]
+        return torch.stack(rows).contiguous(), True
     words = [torch.zeros((), dtype=torch.int64, device=device) if s is None
-             else (s if s.dtype == torch.int64 else s.view(torch.int64)).to(device)
-             for s in values]
-    return words[0].reshape(1) if len(words) == 1 else torch.stack(words)  # one base: a view
+             else _words(s).to(device) for s in values]
+    # one base: a view of its word
+    return (words[0].reshape(1) if len(words) == 1 else torch.stack(words)), False
 
 
-def form_terms(idx, bases, terms, shift=None):
+def form_terms(idx, bases, terms, shift=None, G=None):
     """The terms as columns, in plain PyTorch: (count columns [N] int64, 0 or
     1; float columns [N] float64, 0.0 where the term's row is not valid),
-    each base less its shift (:func:`shifted`)."""
-    vals = [shifted(b, s) for b, s in zip(bases, shift_values(bases, shift))]
+    each base less its shift (:func:`shifted`; a table at each row's bin,
+    :func:`row_shift`)."""
+    n = (idx if idx is not None else bases[0]).shape[0]
+    vals = [shifted(b, row_shift(s, idx, n))
+            for b, s in zip(bases, shift_values(bases, shift, G))]
     nan = [torch.isnan(v) for v in vals]
     count_terms, float_terms = split_terms(terms, len(bases))
 
@@ -166,11 +217,11 @@ def form_terms(idx, bases, terms, shift=None):
                 bad = m if bad is None else bad | m
         return bad
 
+    ones = torch.ones(n, dtype=torch.int64, device=vals[0].device if vals else idx.device)
     count_cols = []
     for _, _, need in count_terms:
         bad = invalid(need)
-        count_cols.append(torch.ones_like(idx, dtype=torch.int64) if bad is None
-                          else (~bad).to(torch.int64))
+        count_cols.append(ones if bad is None else (~bad).to(torch.int64))
     float_cols = []
     for a, b, need in float_terms:
         v = vals[a] if b < 0 else vals[a] * vals[b]
@@ -181,7 +232,8 @@ def form_terms(idx, bases, terms, shift=None):
 
 def check_inputs(idx, bases, terms, G, bin0=False, shift=None):
     """The checks both moment kernels' wrappers make before they dispatch;
-    ``bin0``: idx may be None at G = 1 (B4)."""
+    ``bin0``: idx may be None at G = 1 (B4).  Returns the shifts as
+    :func:`shift_values` gives them."""
     if idx is None:
         if not (bin0 and G == 1 and bases):
             raise TypeError("idx may be None only for B4 at G = 1 with a base column")
@@ -202,9 +254,18 @@ def check_inputs(idx, bases, terms, G, bin0=False, shift=None):
     if G < 1:
         raise ValueError(f"nothing to add: G={G}")
     split_terms(terms, len(bases))
-    for s in shift_values(bases, shift):
+    values = shift_values(bases, shift, G)
+    for s in values:
         if s is not None and s.device != rows.device:
             raise ValueError(f"shift on {s.device}, idx on {rows.device}")
+    return values
+
+
+def table_bases(values):
+    """The bases whose shifts a call keeps in shared memory, from
+    :func:`shift_values`' ``values``: all of them where one has a table
+    (:func:`shift_words`), else none."""
+    return len(values) if per_cell(values) else 0
 
 
 def grid_moments_reference(idx, bases, terms, G, shift=None):
@@ -212,7 +273,7 @@ def grid_moments_reference(idx, bases, terms, G, shift=None):
     (idx None: every row in bin 0)."""
     if idx is None:
         idx = torch.zeros(bases[0].shape[0], dtype=torch.int32, device=bases[0].device)
-    count_cols, float_cols = form_terms(idx, bases, terms, shift)
+    count_cols, float_cols = form_terms(idx, bases, terms, shift, int(G))
     return grid_additive_reference(idx, count_cols, float_cols, int(G), False)
 
 
@@ -220,14 +281,23 @@ def grid_moments_window_reference(idx, bases, terms, G, shift=None):
     """The plain PyTorch version of B5: the term columns, then the kernel's
     bin windows (:func:`part_plan`) one after the other, each an
     ``index_add_`` of every term."""
-    count_cols, float_cols = form_terms(idx, bases, terms, shift)
-    W, _, _ = part_plan(int(G), len(terms), len(count_cols))
+    count_cols, float_cols = form_terms(idx, bases, terms, shift, int(G))
+    W, _, _ = part_plan(int(G), len(terms), len(count_cols),
+                        table_bases(shift_values(bases, shift, int(G))))
     return grid_window_reference(idx, count_cols, float_cols, int(G), False, W)
 
 
-def fits(G, C):
-    """True when one warp's ordered [C, G] grid fits B4's shared memory."""
-    return 1 <= C <= MAX_TERMS and warp_bytes(C, G) <= SMEM_BUDGET
+def table_bytes(nb, G):
+    """Shared memory of a B4 CTA's copy of ``nb`` bases' shift tables: 8
+    bytes a base and bin (0 without a table)."""
+    return 8 * nb * G
+
+
+def fits(G, C, nb_table=0):
+    """True when one warp's ordered [C, G] grid fits B4's shared memory, and
+    beside it the shift tables of ``nb_table`` bases."""
+    return (1 <= C <= MAX_TERMS and warp_bytes(C, G) <= SMEM_BUDGET
+            and table_bytes(nb_table, G) <= CLUSTER_SMEM - SMEM_BUDGET)
 
 
 def lane_rows(nb):
@@ -257,23 +327,25 @@ def compiled(n_bases, terms):
     return n_bases if [floats[k][:2] for k in float_order(terms)] == want else 0
 
 
-def route(G, n_count, n_float, compiled_set=1):
+def route(G, n_count, n_float, compiled_set=1, nb_table=0):
     """``lane`` or ``warp``: B4's lane route while a CTA of 227 KiB holds
     ``LANE_MIN_WARPS[compiled_set]`` warps of its lane grids (the set as
-    :func:`compiled` names it), else its warp route."""
+    :func:`compiled` names it) beside the shift tables of ``nb_table``
+    bases, else its warp route."""
     warps = LANE_MIN_WARPS[compiled_set]
-    if warps * lane_warp_bytes(G, n_count, n_float) <= CLUSTER_SMEM:
+    if warps * lane_warp_bytes(G, n_count, n_float) + table_bytes(nb_table, G) <= CLUSTER_SMEM:
         return LANE
     return WARP
 
 
-def lane_plan(n, G, n_count, n_float, nb, sm_count):
+def lane_plan(n, G, n_count, n_float, nb, sm_count, nb_table=0):
     """(n_ctas, warps) of one launch of B4's lane route: as many warps a CTA
-    as its lane grids fit (at most ``MAX_WARPS``), the CTAs the card holds at
-    once, fewer where the rows would give a warp less than its share."""
-    wb = lane_warp_bytes(G, n_count, n_float)
-    warps = max(1, min(MAX_WARPS, CLUSTER_SMEM // wb))
-    ctas_per_sm = max(1, min(SM_THREADS // (warps * 32), SM_SMEM // (warps * wb)))
+    as its lane grids fit beside the shift tables (at most ``MAX_WARPS``),
+    the CTAs the card holds at once, fewer where the rows would give a warp
+    less than its share."""
+    wb, tb = lane_warp_bytes(G, n_count, n_float), table_bytes(nb_table, G)
+    warps = max(1, min(MAX_WARPS, (CLUSTER_SMEM - tb) // wb))
+    ctas_per_sm = max(1, min(SM_THREADS // (warps * 32), SM_SMEM // (warps * wb + tb)))
     rows_per_cta = warps * 32 * lane_rows(nb) * MIN_STEPS_PER_WARP
     n_ctas = max(1, min(sm_count * ctas_per_sm, -(-n // rows_per_cta)))
     return n_ctas, warps
@@ -295,7 +367,7 @@ def _library(name):
             raise RuntimeError("grid_moments_lane_rows disagrees with its wrapper")
         run.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
@@ -303,33 +375,34 @@ def _library(name):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     run.argtypes = [ptr, ctypes.c_longlong, i32, i32, i32,  # idx, n, G, W, n_win
                     ptr, i32, ptr,  # group bounds, term rows
-                    ptr, ptr, i32, ptr,  # bases, shift words
+                    ptr, ptr, i32, ptr, i32,  # bases, shift words, per cell
                     ptr, ptr, ptr, i32, i32,  # terms
                     i32, i32,  # n_slices, threads
                     ptr, ptr, ptr, ptr]
     return lib, run
 
 
-def bin_bytes(C, n_count=1):
+def bin_bytes(C, n_count=1, nb_table=0):
     """Shared memory of one bin of all C terms in a B5 part: a 32-bit word
-    per count term, 8 bytes per float term."""
-    return 4 * n_count + 8 * (C - n_count)
+    per count term, 8 bytes per float term, and 8 a base of its shift
+    tables."""
+    return 4 * n_count + 8 * (C - n_count) + 8 * nb_table
 
 
-def window_width(C, n_count=1):
+def window_width(C, n_count=1, nb_table=0):
     """The widest bin window of B5: one term's plane of it (8 bytes a bin
-    for a float term, 4 where all terms are counts) fills ``CLUSTER_SMEM``;
-    even, so the float planes after 32-bit count planes stay 8-byte
-    aligned."""
-    return (CLUSTER_SMEM // (8 if C > n_count else 4)) & ~1
+    for a float term, 4 where all terms are counts) and the window's slice
+    of ``nb_table`` shift tables fill ``CLUSTER_SMEM``; even, so the float
+    planes after 32-bit count planes stay 8-byte aligned."""
+    return (CLUSTER_SMEM // ((8 if C > n_count else 4) + 8 * nb_table)) & ~1
 
 
-def term_groups(W, C, n_count=1):
+def term_groups(W, C, n_count=1, nb_table=0):
     """The fewest groups of consecutive terms (counts first) whose planes
-    of W bins fit ``CLUSTER_SMEM``, of near-equal size: their boundaries
-    [0, ..., C]."""
+    of W bins, beside the window's shift tables, fit ``CLUSTER_SMEM``, of
+    near-equal size: their boundaries [0, ..., C]."""
     def fits(lo, hi):
-        return W * bin_bytes(hi - lo, max(0, min(hi, n_count) - lo)) <= CLUSTER_SMEM
+        return W * bin_bytes(hi - lo, max(0, min(hi, n_count) - lo), nb_table) <= CLUSTER_SMEM
     bounds, lo = [0], 0  # greedy: the fewest groups
     for k in range(1, C + 1):
         if not fits(lo, k):
@@ -342,28 +415,29 @@ def term_groups(W, C, n_count=1):
     return bounds + [C]
 
 
-def part_plan(G, C, n_count=1):
+def part_plan(G, C, n_count=1, nb_table=0):
     """(W, n_win, group bounds) of a B5 call: the fewest windows of equal
-    even width in which one term's plane fits, then the fewest term groups
-    that fit such a window (:func:`term_groups`)."""
-    n_win = -(-G // window_width(C, n_count))
+    even width in which one term's plane fits beside ``nb_table`` bases'
+    shift tables, then the fewest term groups that fit such a window
+    (:func:`term_groups`)."""
+    n_win = -(-G // window_width(C, n_count, nb_table))
     W = -(-G // n_win)
     W += W & 1
-    return W, n_win, term_groups(W, C, n_count)
+    return W, n_win, term_groups(W, C, n_count, nb_table)
 
 
-def n_parts(G, C, n_count=1):
+def n_parts(G, C, n_count=1, nb_table=0):
     """The CTAs of one row slice of B5: windows times term groups."""
-    _, n_win, bounds = part_plan(G, C, n_count)
+    _, n_win, bounds = part_plan(G, C, n_count, nb_table)
     return n_win * (len(bounds) - 1)
 
 
-def window_plan(n, G, C, sm_count, n_count=1):
+def window_plan(n, G, C, sm_count, n_count=1, nb_table=0):
     """(W, n_win, group bounds, n_slices) of one B5 launch: a CTA per part
     and row slice, the CTAs of all parts together filling the card once."""
-    W, n_win, bounds = part_plan(G, C, n_count)
+    W, n_win, bounds = part_plan(G, C, n_count, nb_table)
     parts = n_win * (len(bounds) - 1)
-    smem = max(W * bin_bytes(hi - lo, max(0, min(hi, n_count) - lo))
+    smem = max(W * bin_bytes(hi - lo, max(0, min(hi, n_count) - lo), nb_table)
                for lo, hi in zip(bounds, bounds[1:]))
     resident = sm_count * max(1, min(SM_THREADS // (WINDOW_WARPS * 32), SM_SMEM // smem))
     rows_per_cta = WINDOW_WARPS * STAGE_ROWS * MIN_STEPS_PER_WARP
@@ -403,13 +477,14 @@ def _launch_b4(idx, bases, terms, G, n_ctas, warps, lane, shift=None):
     base_ptrs, base_kinds, term_a, term_b, term_need = tables
     rows = idx if idx is not None else bases[0]
     counts, sums, scratch = _outputs(rows.device, n_count, n_float, G, n_ctas)
-    words = shift_words(bases, shift, rows.device)
+    words, table = shift_words(shift, rows.device, G)
     lib, run = _library("grid_moments")
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         err = run(None if idx is None else idx.data_ptr(), rows.shape[0], G, G,
                   ctypes.addressof(base_ptrs), ctypes.addressof(base_kinds), len(bases),
-                  None if words is None else words.data_ptr(), ctypes.addressof(term_a), ctypes.addressof(term_b),
+                  None if words is None else words.data_ptr(), int(table),
+                  ctypes.addressof(term_a), ctypes.addressof(term_b),
                   ctypes.addressof(term_need), n_count, n_float,
                   n_ctas, warps, int(lane), scratch.data_ptr(),
                   counts.data_ptr(), sums.data_ptr(), stream)
@@ -445,17 +520,19 @@ def _launch_b5(idx, bases, terms, G, shift=None):
     term_row = (ctypes.c_int * MAX_TERMS)(*range(n_count), *[n_count + k for k in order])
     n, C = idx.shape[0], n_count + n_float
     sm_count = torch.cuda.get_device_properties(idx.device).multi_processor_count
-    W, n_win, bounds, n_slices = window_plan(n, G, C, sm_count, n_count)
+    words, table = shift_words(shift, idx.device, G)
+    W, n_win, bounds, n_slices = window_plan(n, G, C, sm_count, n_count,
+                                             len(bases) if table else 0)
     group_lo = (ctypes.c_int * (MAX_TERMS + 1))(*bounds)
     counts, sums, scratch = _outputs(idx.device, n_count, n_float, G, n_slices)
-    words = shift_words(bases, shift, idx.device)
     lib, run = _library("grid_moments_window")
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream(idx.device).cuda_stream
         err = run(idx.data_ptr(), n, G, W, n_win, ctypes.addressof(group_lo), len(bounds) - 1,
                   ctypes.addressof(term_row),
                   ctypes.addressof(base_ptrs), ctypes.addressof(base_kinds), len(bases),
-                  None if words is None else words.data_ptr(), ctypes.addressof(term_a), ctypes.addressof(term_b),
+                  None if words is None else words.data_ptr(), int(table),
+                  ctypes.addressof(term_a), ctypes.addressof(term_b),
                   ctypes.addressof(term_need), n_count, n_float, n_slices, WINDOW_WARPS * 32,
                   scratch.data_ptr(), counts.data_ptr(), sums.data_ptr(), stream)
     kernel_build.raise_on_error(lib, "grid_moments_window", err)
@@ -468,22 +545,23 @@ def grid_moments(idx, bases, terms, G, shift=None):
     tensors launch the kernel, or raise when it cannot take them."""
     G = int(G)
     bases, terms = list(bases), [tuple(t) for t in terms]
-    check_inputs(idx, bases, terms, G, bin0=True, shift=shift)
+    shift = check_inputs(idx, bases, terms, G, bin0=True, shift=shift)
     rows = idx if idx is not None else bases[0]
     if rows.device.type == "cpu":
         return grid_moments_reference(idx, bases, terms, G, shift)
     check_cuda("grid_moments", rows, bases, [])
     C, n = len(terms), rows.shape[0]
-    if not fits(G, C):
+    nb_table = table_bases(shift)
+    if not fits(G, C, nb_table):
         raise ValueError(f"grid_moments: G={G} with {C} terms does not fit the kernel")
     n_count = sum(t[0] < 0 for t in terms)
-    how = route(G, n_count, C - n_count, compiled(len(bases), terms))
+    how = route(G, n_count, C - n_count, compiled(len(bases), terms), nb_table)
     if how == LANE and n >= 2 ** 32:
         raise ValueError(f"grid_moments: {n} rows in one call; the lane route's 32-bit "
                          f"counts take fewer than 2^32")
     sm_count = torch.cuda.get_device_properties(rows.device).multi_processor_count
     if how == LANE:
-        n_ctas, warps = lane_plan(n, G, n_count, C - n_count, len(bases), sm_count)
+        n_ctas, warps = lane_plan(n, G, n_count, C - n_count, len(bases), sm_count, nb_table)
     else:
         n_ctas, warps = plan(n, G, C, sm_count)
     out = _launch_b4(idx, bases, terms, G, n_ctas, warps, how == LANE, shift)
@@ -498,7 +576,7 @@ def grid_moments_window(idx, bases, terms, G, shift=None):
     cannot take them."""
     G = int(G)
     bases, terms = list(bases), [tuple(t) for t in terms]
-    check_inputs(idx, bases, terms, G, shift=shift)
+    shift = check_inputs(idx, bases, terms, G, shift=shift)
     if idx.device.type == "cpu":
         return grid_moments_window_reference(idx, bases, terms, G, shift)
     check_cuda("grid_moments_window", idx, bases, [])
@@ -510,7 +588,7 @@ def grid_moments_window(idx, bases, terms, G, shift=None):
                          f"counts take fewer than 2^31")
     counts, sums = _launch_b5(idx, bases, terms, G, shift)
     grid_moments_window.launches += 1
-    grid_moments_window.last_parts = n_parts(G, C, len(counts))
+    grid_moments_window.last_parts = n_parts(G, C, len(counts), table_bases(shift))
     return counts, sums
 
 

@@ -325,38 +325,43 @@ def b4_max_g(C):
     return max(1, B4_MAX_GC // C)
 
 
-def moment_strategy(n, G, C, n_count=1, compiled=0):
+def moment_strategy(n, G, C, n_count=1, compiled=0, nb_table=0):
     """``b4``, ``b5``, ``b3-l2``, ``b3``, ``b3×k`` or ``sort`` for an n-row
     call of C moment terms over G bins, ``compiled`` the batch's compiled
-    term set, 0 for none (:func:`.grid_moments.compiled`): B4
+    term set, 0 for none (:func:`.grid_moments.compiled`), ``nb_table`` the
+    bases whose shift tables a kernel keeps in shared memory (a shift a
+    cell: :func:`.grid_moments.table_bases`): B4
     (:func:`.grid_moments.grid_moments`) wherever its lane route takes the
-    grid (:func:`.grid_moments.route`) and on its warp route up to
-    :func:`b4_max_g`, B5 (:func:`.grid_moments.grid_moments_window`) up to
+    grid beside them (:func:`.grid_moments.route`) and on its warp route up
+    to :func:`b4_max_g`, B5 (:func:`.grid_moments.grid_moments_window`) up to
     ``B5_MAX_PARTS`` parts (:func:`.grid_moments.part_plan`), then the wide
     routes over the formed term columns (:func:`_wide`)."""
     if not 1 <= C <= grid_moments.MAX_TERMS or G < 1:
         raise ValueError(f"G={G} with {C} terms: the moment kernels take 1 to "
                          f"{grid_moments.MAX_TERMS} terms")
-    if grid_moments.route(G, n_count, C - n_count, compiled) == grid_moments.LANE or (
-            G <= b4_max_g(C) and grid_moments.fits(G, C)):
+    if grid_moments.route(G, n_count, C - n_count, compiled, nb_table) == grid_moments.LANE or (
+            G <= b4_max_g(C) and grid_moments.fits(G, C, nb_table)):
         return B4
-    if grid_moments.n_parts(G, C, n_count) <= B5_MAX_PARTS:
+    if grid_moments.n_parts(G, C, n_count, nb_table) <= B5_MAX_PARTS:
         return B5
     return _wide(n, G, C)
 
 
 def moment_sums(idx, bases, terms, G, out=None, shift=None):
     """(strategy, counts, sums) of the moment terms (the contract of
-    :mod:`.grid_moments`, each base less its ``shift``) through the route
-    the plan picks.  On the wide routes the terms are formed as columns in
-    torch, shifted as the kernels shift them, and B3 (or ``sort``) adds
-    them.  ``out`` holds per term a [G] row (int64 for a count term, float64
-    else) or None, taken in place as in :func:`grid_sums`.  idx None: every
-    row in bin 0, G = 1, which B4 takes without an index."""
+    :mod:`.grid_moments`, each base less its ``shift``: a constant or a [G]
+    table a base) through the route the plan picks.  On the wide routes the
+    terms are formed as columns in torch, shifted as the kernels shift them
+    (a table read at each row's bin), and B3 (or ``sort``) adds them.
+    ``out`` holds per term a [G] row (int64 for a count term, float64 else)
+    or None, taken in place as in :func:`grid_sums`.  idx None: every row in
+    bin 0, G = 1, which B4 takes without an index."""
     G = int(G)
     n = (idx if idx is not None else bases[0]).shape[0]
     n_count = sum(int(t[0]) < 0 for t in terms)
-    name = moment_strategy(n, G, len(terms), n_count, grid_moments.compiled(len(bases), terms))
+    shift = grid_moments.shift_values(bases, shift, G)  # once: the kernels' host path is short
+    name = moment_strategy(n, G, len(terms), n_count, grid_moments.compiled(len(bases), terms),
+                           grid_moments.table_bases(shift))
     rows = None if out is None else (  # the kernels' count rows, then their float rows
         [row for row, t in zip(out, terms) if int(t[0]) < 0],
         [row for row, t in zip(out, terms) if int(t[0]) >= 0])
@@ -366,7 +371,7 @@ def moment_sums(idx, bases, terms, G, out=None, shift=None):
             return name, counts, sums
         return name, _added(rows[0], counts), _added(rows[1], sums)
     grid_moments.check_inputs(idx, bases, terms, G, shift=shift)
-    count_cols, float_cols = grid_moments.form_terms(idx, bases, terms, shift)
+    count_cols, float_cols = grid_moments.form_terms(idx, bases, terms, shift, G)
     return (name, *_wide_sums(name, idx, count_cols, float_cols, G, False, rows))
 
 

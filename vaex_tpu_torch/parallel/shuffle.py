@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from . import collectives
-from ..agg import RESCUE_SCALE, VAR_TERMS
+from ..agg import RESCUE_SCALE, VAR_TERMS, cancelled, cell_shift, variance
 from ..ops.grid_plan import grid_extremes, grid_sums, moment_sums
 
 NU_VALUE, NU_NAN, NU_NULL, NU_NONE = 0, 1, 2, 3  # aux codes of a nunique channel
@@ -91,24 +91,57 @@ def owner_of(codes, G, gper, S):
                        S)
 
 
+def owner_variance(idx, x, shift, G):
+    """(strategy, counts, var) of an owner's rows of a var channel per local
+    bin: x float64, NaN where a row does not count, ``shift`` the frame's
+    (or None).  The sums less the frame's shift; where a cell lost its
+    digits (:func:`..agg.cancelled`) or a sum is not finite, the sums again
+    less each cell's own mean (the owner holds every row of its cells), and
+    where a sum was not finite also over x * RESCUE_SCALE, taken where the
+    second sums are not finite either.  The decision is the owner's alone:
+    no collective follows it, and every owner gathers its var alike.
+    ``owner_variance.retaken`` counts the owners that took cells again."""
+    name, counts, sums = moment_sums(idx, [x], VAR_TERMS, G, shift=[shift])
+    n = counts[0].to(torch.float64)
+    var = variance(sums[1], sums[0], n)
+    over = ~torch.isfinite(sums).all(0)
+    flag = cancelled(sums[1], sums[0], n) | over
+    any_flag, any_over = torch.stack([flag.any(), over.any()]).tolist()  # one host read
+    if any_flag:
+        owner_variance.retaken += 1
+        table = cell_shift(shift, sums[0], n, False)
+        _, _, again = moment_sums(idx, [x], VAR_TERMS, G, shift=[table])
+        retaken = variance(again[1], again[0], n)
+        if any_over:
+            _, _, tiny = moment_sums(idx, [x * RESCUE_SCALE], VAR_TERMS, G,
+                                     shift=[table * RESCUE_SCALE])
+            retaken = torch.where(torch.isfinite(again).all(0), retaken,
+                                  variance(tiny[1], tiny[0], n) / RESCUE_SCALE / RESCUE_SCALE)
+        var = torch.where(flag, retaken, var)
+    return name, counts[0], var
+
+
+owner_variance.retaken = 0
+
+
 def shuffle_grids(mesh, codes, G, slack=4, int_cols=(), float_cols=(), ext_cols=(),
-                  ext_modes=(), bases=(), nu_cols=()):
+                  ext_modes=(), bases=(), base_shifts=None, nu_cols=()):
     """Every kind of per-group aggregation in one all-to-all
     (vaex_tpu/parallel/shuffle.py:100-229): per local shard ``codes`` (int64,
     a code outside [0, G) drops the row), ``int_cols`` (int64, summed:
     exact mod 2^64), ``float_cols`` (float64, summed), ``ext_cols`` (min or
     max by ``ext_modes``; a row that must not count holds the mode's
     identity), ``bases`` (float64 moment bases of a var: NaN where a row
-    does not count) and ``nu_cols`` ((int64 bits, int32 aux): distinct bits
+    does not count; ``base_shifts`` each one's shift, None: none, see
+    :func:`owner_variance`) and ``nu_cols`` ((int64 bits, int32 aux): distinct bits
     among the rows of aux 0; aux 1 NaN, 2 missing, 3 not counted; their
     presence rides ``int_cols``).  Each of these is a list over channels of
     lists over local shards.
 
     Returns (None, dropped rows) when a bucket overflowed, else (a dict of
     [G] results on ``mesh.first``: "count", "int" [k, G], "float" [k, G],
-    "ext" list, "moments" list of (counts, sums, the sums of u * RESCUE_SCALE
-    where a cell's sum of u^2 is not finite, else the sums again), "nu" list;
-    and 0), and the trace of the exchange."""
+    "ext" list, "moments" list of (counts, var), "nu" list; and 0), and the
+    trace of the exchange."""
     S = mesh.size
     n_rows = collectives.total([c.shape[0] for c in codes], mesh)
     n_local, cap = capacity(mesh, n_rows, slack)
@@ -152,13 +185,10 @@ def shuffle_grids(mesh, codes, G, slack=4, int_cols=(), float_cols=(), ext_cols=
             strategies["extremes"] = name
             out["ext"] = list(grids)
         out["moments"] = []
-        for r in received[e:m]:
-            name, counts, sums = moment_sums(idx, [r[d]], VAR_TERMS, gper)
+        for r, shift in zip(received[e:m], base_shifts or [None] * len(bases)):
+            name, counts, var = owner_variance(idx, r[d], shift, gper)
             strategies["moments"] = name
-            scaled = sums  # the sums of u * RESCUE_SCALE where u^2 overflowed
-            if not bool(torch.isfinite(sums[1]).all()):
-                _, _, scaled = moment_sums(idx, [r[d] * RESCUE_SCALE], VAR_TERMS, gper)
-            out["moments"].append((counts[0], sums, scaled))
+            out["moments"].append((counts, var))
         out["nu"] = [_distinct(idx, received[j][d], received[j + 1][d], gper)
                      for j in range(m, len(received), 2)]
         per_shard.append(out)
@@ -172,9 +202,7 @@ def shuffle_grids(mesh, codes, G, slack=4, int_cols=(), float_cols=(), ext_cols=
               "int": [joined(lambda o, i=i: o["int"][i]) for i in range(len(int_cols))],
               "float": [joined(lambda o, i=i: o["float"][i]) for i in range(len(float_cols))],
               "ext": [joined(lambda o, i=i: o["ext"][i]) for i in range(len(ext_cols))],
-              "moments": [(joined(lambda o, i=i: o["moments"][i][0]),
-                           *(torch.cat(collectives.gather([o["moments"][i][j] for o in per_shard],
-                                                          mesh), dim=1)[:, :G] for j in (1, 2)))
+              "moments": [tuple(joined(lambda o, i=i, j=j: o["moments"][i][j]) for j in (0, 1))
                           for i in range(len(bases))],
               "nu": [joined(lambda o, i=i: o["nu"][i]) for i in range(len(nu_cols))]}
     trace["gather_s"] = time.perf_counter() - t0

@@ -17,7 +17,7 @@ from .datatype import NAT, UINT64, DataType, host_values, order_image
 from .delayed import Promise
 from .ops.binners import fuse_bins, grid_shape, grid_size
 from .ops.grid_extreme import extreme_of_rows
-from .ops.grid_moments import MAX_BASES, MAX_TERMS, shifted
+from .ops.grid_moments import MAX_BASES, MAX_TERMS, row_shift, shifted
 from .ops.nullable import NA, DictNA, unsigned_float
 from .ops.grid_plan import grid_extremes, grid_sums, grid_sums_and_extremes, moment_sums
 from .ops.setops import RowLimitException, SortedSet
@@ -86,8 +86,10 @@ class TaskAggregations(Task):
     ``"sort"``).  Without binners the grid is one
     cell and an extreme is a plain reduction over the rows (``"reduce"``).
     ``strategy`` maps each kind of the last tile to its kernel, e.g.
-    ``{"additive": "b1", "moments": "b5", "extremes": "b3x-direct"}``; the
-    executor writes it into the pass's ``trace_log`` entry.
+    ``{"additive": "b1", "moments": "b5", "extremes": "b3x-direct"}``, and
+    ``"moment_shift": "cell"`` where a moment op takes a shift a cell (a
+    statistic's second pass); the executor writes it into the pass's
+    ``trace_log`` entry.
     """
 
     def __init__(self, df, binners, selection=None):
@@ -135,9 +137,11 @@ class TaskAggregations(Task):
         if "additive" in kinds or riders:
             self._update_additive(kinds.get("additive", []), riders, new_state, idx, G, ctx)
         if "moments" in kinds:
-            names = [self._update_moments(batch, new_state, idx, G, ctx)
-                     for batch in _moment_batches(self.subtasks, kinds["moments"])]
+            batches = _moment_batches(self.subtasks, kinds["moments"])
+            names = [self._update_moments(batch, new_state, idx, G, ctx) for batch in batches]
             self.strategy["moments"] = "+".join(dict.fromkeys(names))
+            if any(s is not None and s.dim() == 1 for b in batches for s in b.shifts):
+                self.strategy["moment_shift"] = "cell"  # a second pass (agg.cell_shifted)
         if "extreme" in kinds and not self.binners:
             rows = ctx.selection_valid(self.selection)
             for i in kinds["extreme"]:
@@ -251,7 +255,7 @@ class TaskAggregations(Task):
         """One kernel call of a moment batch: each batch term's first member
         hands the call its state's row of that term to add the tile into in
         place; the other members holding the term copy that row."""
-        inputs = [moment_input(ctx.expr(e), s) for e, s in zip(batch.bases, batch.shifts)]
+        inputs = [moment_input(ctx.expr(e), s, idx) for e, s in zip(batch.bases, batch.shifts)]
         bases = [b for b, _ in inputs]
         out, copies = [None] * len(batch.terms), []
         for i, slots in batch.members:
@@ -481,25 +485,27 @@ def _moment_data(x):
     return d, missing
 
 
-def moment_input(x, shift=None):
+def moment_input(x, shift=None, idx=None):
     """(a base column of the moment kernels from one tile's NA, the shift
     the kernel subtracts from it): int64, float32 or float64, with NaN in
     the masked rows and the NaT rows of a datetime or timedelta (as
     float64).  An int64 column that becomes float64 so (a masked int, a
-    datetime) is shifted here, in int64 before the cast, and hands the
-    kernel no shift.
+    datetime) is shifted here, in int64 before the cast (a table at each
+    row's bin in ``idx``, the tile's flat bins), and hands the kernel no
+    shift.
 
-    Shifted moments: ``shift`` (:func:`moment_shift`) is one constant per
-    base and pass, the same on every tile and shard, so that the shifted
-    sums still merge by addition; var(x) = var(x - a) for any a.  It is a
-    guess near the data: a stale one (the column written in place since it
-    was read) or an unlucky one (an outlier in the first rows) costs
-    precision, never correctness."""
+    Shifted moments: ``shift`` is the same on every tile and shard, so that
+    the shifted sums still merge by addition; var(x) = var(x - a) for any
+    a, cell by cell.  On a statistic's first pass it is one constant a base
+    (:func:`moment_shift`), a guess near the data; a cell far from it loses
+    digits, and the finisher takes such cells again in a second pass less a
+    shift a cell, a [G] table of the cells' means (:mod:`.agg`,
+    ``cell_shifted``)."""
     d, missing = _moment_data(x)
     shift = None if shift is None else shift.to(d.device)
     if missing is not None:
         if d.dtype == torch.int64 and shift is not None:
-            d, shift = shifted(d, shift), None
+            d, shift = shifted(d, row_shift(shift, idx, d.shape[0])), None
         d = d.to(torch.float64).masked_fill(missing, torch.nan)
     return d.contiguous(), shift
 
@@ -549,21 +555,35 @@ def moment_shift(df, expression):
     return shift
 
 
+def _base_key(expression, shift):
+    """What a batch shares a base under: the expression and, for a shift a
+    cell (a [G] table: a second pass), the table itself, so that a
+    second-pass op never shares a base with a first-pass op or another
+    table's; every constant shift of one expression in a pass is the
+    frame's (:func:`moment_shift`)."""
+    return expression, id(shift) if shift is not None and shift.dim() == 1 else None
+
+
 class _MomentBatch:
-    """The OpMoments of one kernel call: their base expressions and terms,
-    both deduplicated, and per op the batch term of each of its terms."""
+    """The OpMoments of one kernel call: their bases (an expression and its
+    shift, :func:`_base_key`) and terms, both deduplicated, and per op the
+    batch term of each of its terms."""
 
     def __init__(self):
         self.bases, self.shifts, self.terms, self.keys, self.members = [], [], [], [], []
+        self.base_keys = []
 
     def add(self, i, op):
-        """Take op i if the batch stays within the kernels' limits; a base
-        keeps the shift of the first op that names it."""
-        new = [e for e in dict.fromkeys(op.expressions) if e not in self.bases]
-        bases = self.bases + new
-        if len(bases) > MAX_BASES:
+        """Take op i if the batch stays within the kernels' limits; ops share
+        a base where they name one expression with one shift (a constant:
+        the frame's; a table: the same table)."""
+        shifts = op.shifts or [None] * len(op.expressions)
+        named = [_base_key(e, s) for e, s in zip(op.expressions, shifts)]
+        new = [k for k in dict.fromkeys(named) if k not in self.base_keys]
+        base_keys = self.base_keys + new
+        if len(base_keys) > MAX_BASES:
             return False
-        where = [bases.index(e) for e in op.expressions]
+        where = [base_keys.index(k) for k in named]
         terms, keys, slots = list(self.terms), list(self.keys), []
         for term in op.terms:
             a, b, v0, v1 = (where[j] if j >= 0 else -1 for j in term)
@@ -577,9 +597,10 @@ class _MomentBatch:
             slots.append(keys.index(key))
         if len(terms) > MAX_TERMS:
             return False
-        shifts = dict(zip(op.expressions, op.shifts or [None] * len(op.expressions)))
-        self.shifts = self.shifts + [shifts[e] for e in new]
-        self.bases, self.terms, self.keys = bases, terms, keys
+        of_key = dict(zip(named, shifts))
+        self.shifts = self.shifts + [of_key[k] for k in new]
+        self.bases = self.bases + [e for e, _ in new]
+        self.base_keys, self.terms, self.keys = base_keys, terms, keys
         self.members.append((i, slots))
         return True
 
