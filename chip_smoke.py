@@ -436,6 +436,21 @@ Run from the root of the repository on a machine with a CUDA card.  It
     asserted launched, then each against its plain version on the same
     columns; then H2O's q10 timed on this table (median of 5) beside
     PERF.md's P4; it prints its own JSON line.
+31. a shift a cell for the classic moments (ROADMAP C25-C29): config 3's
+    table at 1e8 rows with columns at per-group offsets 0 to 1e12 and 1e10
+    in row 0; std, var and cov binned and per group on B4, B5, B3 and the
+    all-to-all over phase 24's shards, each taking a second pass, against
+    plain torch's two-pass answer (1e-6); then C26's groups beside a shift
+    at 1e17, C27's int64 and datetime64[ns] groups past 2^62 from it and
+    C28's uint64 clock and uint64 groups across 2^63 and near 2^64 at 1e8
+    rows each (binned, per group, by a wide key
+    through the one-sort plan, through the all-to-all), each against plain
+    torch (an int group less its own minimum in int64, then two passes)
+    with no absolute slack, its time and its passes printed; the
+    well-conditioned statistics with no second pass; B4 and B5 with a
+    table against their plain versions; the kernel rows with a shift word
+    and with a table, the third pass and a uint64 base in turns; it
+    prints its own JSON line.
 
     python3 chip_smoke.py --profile 20 21 22 23
 
@@ -8358,6 +8373,182 @@ def phase31_drive(vt, df, cols, n, device, mesh=None, expect_routes=True):
     return routes
 
 
+# C26-C28 at PHASE31_ROWS rows, made on the card: a group near 0 beside a
+# far frame shift (C26, three groups and row 0 alone at 1e17), int groups
+# more than 2^62 from it (C27, int64 and datetime64[ns]), a nanosecond clock
+# as uint64 (C28), and uint64 groups at the clock, across 2^63 and at 2^64 -
+# 10^4 (their order images compared and clamped through the top bit):
+# (groups, the logical dtype of x or None)
+PHASE31_CASES = {"c26": (4, None), "c27 int64": (2, None),
+                 "c27 datetime": (2, np.dtype("datetime64[ns]")),
+                 "c28 uint64": (2, np.dtype("uint64")),
+                 "c28 uint64 past 2^63": (3, np.dtype("uint64"))}
+PHASE31_CASE_ROWS = 100_000_000
+# the turns of a statistic at the bound of the code against the bound of one
+# pass past the first (C26: the third pass's time), and of the uint64 clock
+# against its int64 copy (what a uint64 base costs)
+PHASE31_CASE_TURNS = ("new", "old", "old", "new", "new", "old")
+
+
+def phase31_case_columns(name, n, device, seed=SEED):
+    """(k, x) of reproducer ``name`` (:data:`PHASE31_CASES`), x int64 for
+    the int, datetime and uint64 cases (their nanoseconds, their bits)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    f64, i64 = torch.float64, torch.int64
+    groups = PHASE31_CASES[name][0]
+    k = torch.randint(0, groups - 1 if name == "c26" else groups, (n,), generator=gen,
+                      device=device, dtype=i64)
+    k[0] = groups - 1 if name == "c26" else 0
+    if name == "c26":
+        x = (torch.tensor([0.0, 10.0, 1e3, 0.0], dtype=f64, device=device)[k]
+             + torch.randn(n, generator=gen, device=device, dtype=f64) * 1e-7)
+        x[0] = 1e17
+        return k, x
+    if name == "c27 int64":
+        at, spread = torch.tensor([-2 ** 62, 2 ** 62 - 10_000], dtype=i64, device=device), 100
+        low = -100
+    elif name == "c27 datetime":
+        at = torch.as_tensor(np.array(["1700-01-01", "2100-01-01"], dtype="datetime64[ns]")
+                             .view(np.int64), device=device)
+        low, spread = 0, 10 ** 12
+    elif name == "c28 uint64":  # a nanosecond clock
+        at, low, spread = torch.tensor([1_700_000_000_000_000_000] * 2, device=device), 0, 100
+    else:  # uint64 bits as int64: 2^64 - 10^4 is -10^4, a row past 2^63 - 1 wraps
+        at = torch.tensor([1_700_000_000_000_000_000, 2 ** 63 - 50, -10_000], device=device)
+        low, spread = 0, 100
+    return k, at[k] + torch.randint(low, spread, (n,), generator=gen, device=device, dtype=i64)
+
+
+def phase31_case_frame(vt, name, k, x):
+    logical = PHASE31_CASES[name][1]
+    # kw: k spread past 2^22, a raw key that takes the one-sort plan (C29)
+    return vt.from_dataset(vt.DatasetArrays({"k": k, "kw": k << 23, "x": x, "xi": x},
+                                            logical=None if logical is None else {"x": logical}))
+
+
+def phase31_case_plain(name, k, x, stat):
+    """std or var of x per group in plain torch: a float x two passes
+    (:func:`phase31_plain`); an int, datetime or uint64 x (its order
+    image) each group less its own minimum in int64, then two passes."""
+    groups = PHASE31_CASES[name][0]
+    observed = torch.arange(groups, device=k.device)
+    if x.is_floating_point():
+        return phase31_plain(k, observed, x, stat)
+    v = x ^ -(1 << 63) if PHASE31_CASES[name][1] == np.dtype("uint64") else x
+    low = torch.full((groups,), 2 ** 63 - 1, dtype=torch.int64, device=k.device).scatter_reduce_(
+        0, k, v, "amin")
+    return phase31_plain(k, observed, (v - low[k]).to(torch.float64), stat)
+
+
+def phase31_case_check(name, got, want):
+    """``got`` within PHASE31_RTOL of plain torch's ``want`` and no absolute
+    slack (C26's std of 1e-7 lies within PHASE31_ATOL of a lost 0.0)."""
+    g = torch.as_tensor(np.asarray(got) if not isinstance(got, torch.Tensor) else got)
+    g = g.to(device=want.device, dtype=torch.float64).reshape(want.shape)
+    bad = torch.nonzero(~((g - want).abs() <= PHASE31_RTOL * want.abs())).squeeze(1)
+    check(bad.numel() == 0,
+          f"phase 31 {name}: {bad.numel()} of {want.numel()} cells differ, first "
+          f"{[(int(i), float(g[i]), float(want[i])) for i in bad[:3]]}")
+
+
+def phase31_cases(vt, n, device, mesh=None, reps=3):
+    """Each of :data:`PHASE31_CASES` through the public API: std of x binned
+    by k, std and var per group, the same by the wide key kw (the one-sort
+    plan, where x is a float or an int64 column; a logical column takes the
+    classic one), and (with ``mesh``) per group through the all-to-all over
+    its shards, each answer held to
+    :func:`phase31_case_plain` (:func:`phase31_case_check`); then, with
+    ``reps``, each query timed (median of ``reps``).  Returns {case:
+    {query: {"ms", "second_passes", "further_passes", "unsettled"}}}."""
+    from vaex_tpu_torch import agg, groupby
+    from vaex_tpu_torch.parallel.shuffle import owner_variance
+    a = vt.agg
+
+    def counters():
+        return (agg.cell_shifted.second_passes + owner_variance.retaken,
+                agg.settle.further, agg.settle.unsettled)
+    out = {}
+    for name, (groups, _) in PHASE31_CASES.items():
+        k, x = phase31_case_columns(name, n, device)
+        df = phase31_case_frame(vt, name, k, x)
+        want = {s: phase31_case_plain(name, k, x, s) for s in ("std", "var")}
+
+        def binned(f):
+            return {"std": f.std("x", binby="k", limits=[-0.5, groups - 0.5], shape=groups)}
+
+        def grouped(f, key="k"):
+            res = f.groupby(key, agg={"std": a.std("x"), "var": a.var("x")}, sort=True)
+            return {s: _column(res, s, device) for s in ("std", "var")}
+        queries = {"binned std": (df, binned), "groupby": (df, grouped),
+                   "groupby by kw": (df, lambda f: grouped(f, "kw"))}
+        if mesh is not None:
+            queries["groupby, all-to-all"] = (phase24_sharded(df, mesh), grouped)
+        out[name] = {}
+        for label, (frame, query) in queries.items():
+            shuffle_min_g = groupby.SHUFFLE_MIN_G
+            if frame is not df:
+                groupby.SHUFFLE_MIN_G = 1  # a few groups through the all-to-all
+            try:
+                log, before = frame.executor.trace_log, counters()
+                start = len(log)
+                got = query(frame)
+                after = counters()
+                if frame is not df:
+                    check(any(e.get("shuffle") is True for e in log[start:]),
+                          f"phase 31 {name} {label}: not the all-to-all")
+                if label == "groupby by kw" and PHASE31_CASES[name][1] is None:
+                    check(any(e.get("groupby") == "one-sort" for e in log[start:]),
+                          f"phase 31 {name} {label}: not the one-sort plan")
+                ms = median_s(lambda: query(frame), reps)[0] * 1e3 if reps else None
+            finally:
+                groupby.SHUFFLE_MIN_G = shuffle_min_g
+            for stat, value in got.items():
+                phase31_case_check(f"{name} {label} {stat}", value, want[stat])
+            second, further, unsettled = (b - a0 for a0, b in zip(before, after))
+            check(unsettled == 0, f"phase 31 {name} {label}: {unsettled} cells unsettled")
+            out[name][label] = {"ms": ms, "second_passes": second, "further_passes": further,
+                                "unsettled": unsettled}
+            print(f"phase 31 {name} {label} N={n}: {ms!r} ms (median of {reps}), second passes "
+                  f"{second}, further passes {further}; against plain torch within "
+                  f"{PHASE31_RTOL}", flush=True)
+        del df, k, x, want
+    return out
+
+
+def phase31_case_turns(vt, n, device, reps=3):
+    """In turns :data:`PHASE31_CASE_TURNS` (medians of the turns, each the
+    median of ``reps`` runs): C26's std binned by k at the code's bound
+    (three passes) against a bound of one pass past the first (two, its
+    answer NaN and not read): the third pass's time; and the C28 clock's
+    std binned by k as uint64 (its order image) against its int64 copy,
+    both shifted in the kernel: what a uint64 base costs.  Returns
+    {row: {"new_ms", "old_ms"}}."""
+    from vaex_tpu_torch import agg
+    out = {}
+    for row, name in (("c26 std binned, 3 passes / 2", "c26"),
+                      ("c28 std binned, uint64 / int64", "c28 uint64")):
+        groups = PHASE31_CASES[name][0]
+        k, x = phase31_case_columns(name, n, device)
+        df = phase31_case_frame(vt, name, k, x)
+        bound = agg.MAX_CELL_PASSES
+
+        def run(which, df=df, name=name, groups=groups):
+            col = "xi" if name == "c28 uint64" and which == "old" else "x"
+            agg.MAX_CELL_PASSES = 1 if name == "c26" and which == "old" else bound
+            try:
+                return median_s(lambda: df.std(col, binby="k", limits=[-0.5, groups - 0.5],
+                                               shape=groups), reps)[0] * 1e3
+            finally:
+                agg.MAX_CELL_PASSES = bound
+        times = {"new": [], "old": []}
+        for which in PHASE31_CASE_TURNS:
+            times[which].append(run(which))
+        out[row] = {"new_ms": statistics.median(times["new"]),
+                    "old_ms": statistics.median(times["old"])}
+        del df, k, x
+    return out
+
+
 def phase31_well_conditioned(vt, df, cols2):
     """Statistics whose cells lie near the frame's shift: config 2's group
     (its four std), ``df.std("v3")``, H2O's q6-sd and q9 on the phase's
@@ -8462,10 +8653,12 @@ def phase31_path(vt, plan, gp, probe, label, n=PHASE31_ROWS):
     """Phase 31 on the card: the table made on cuda:0, :func:`phase31_drive`
     once with the kernel counts set to 0 (one device, then the all-to-all
     over phase 24's four shards), every kernel of PHASE31_KERNELS asserted
-    launched; then the well-conditioned statistics with no second pass, B4
-    and B5 with a table against their plain versions, and the three kernel
-    rows timed with a word and with a table in turns.  Returns (launches,
-    the phase's JSON record)."""
+    launched; then C26-C28 (:func:`phase31_cases`) with the counts set to 0
+    again, B4 asserted launched; the well-conditioned statistics with no
+    second pass, B4 and B5 with a table against their plain versions, the
+    three kernel rows timed with a word and with a table in turns, and the
+    third pass and a uint64 base in turns (:func:`phase31_case_turns`).
+    Returns (the drive's launches, the phase's JSON record)."""
     from vaex_tpu_torch import cache
     t_phase = time.perf_counter()
     cols = phase31_columns(n, "cuda")
@@ -8478,6 +8671,12 @@ def phase31_path(vt, plan, gp, probe, label, n=PHASE31_ROWS):
                     "b6-wide": probe.probe.wide_launches}
         print(f"phase 31 launches: {launches}", flush=True)
         phase31_verdict(launches)
+        zero_launches(plan, gp)
+        cases = phase31_cases(vt, PHASE31_CASE_ROWS, "cuda", mesh=phase24_mesh("cuda"))
+        case_launches = launch_counts(plan, gp)
+        print(f"phase 31 C26-C28 launches: {case_launches}", flush=True)
+        check(case_launches[plan.B4] > 0, f"phase 31 C26-C28: B4 launched no time: "
+                                          f"{case_launches}")
         cols2 = config2_columns(CONFIG2_ROWS, "cuda")
         well = phase31_well_conditioned(vt, df, cols2)
         del cols2
@@ -8485,6 +8684,11 @@ def phase31_path(vt, plan, gp, probe, label, n=PHASE31_ROWS):
         print("phase 31: B4 and B5 with a shift table a cell equal their plain versions",
               flush=True)
         turns = phase31_turns(plan, cols)
+        case_turns = phase31_case_turns(vt, PHASE31_CASE_ROWS, "cuda")
+    for name, t in case_turns.items():
+        print(f"[{label}] phase 31 {name} N={PHASE31_CASE_ROWS}: {t['new_ms']!r} / "
+              f"{t['old_ms']!r} ms (medians of {len(PHASE31_CASE_TURNS) // 2} turns of the "
+              f"median of 3, in turns)", flush=True)
     for name, t in turns.items():
         print(f"[{label}] phase 31 {name} N={n}: shift word {t['word_ms']!r} ms, table a cell "
               f"{t['table_ms']!r} ms (medians of {len(PHASE31_TURNS) // 2} turns of {REPS} "
@@ -8498,6 +8702,7 @@ def phase31_path(vt, plan, gp, probe, label, n=PHASE31_ROWS):
                       "routes": {q: {"moments": r, "second_passes": p}
                                  for q, (r, p) in routes.items()},
                       "launches": launches, "well_conditioned": well, "turns": turns,
+                      "cases": cases, "case_launches": case_launches, "case_turns": case_turns,
                       "phase_s": phase_s}
 
 

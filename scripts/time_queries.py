@@ -12,7 +12,12 @@ Each set makes its tables with the checkout's own ``chip_smoke.py``:
 - ``pass``: the single-device pass over config 1 (i1 categorized, x): the
   groupby, ``std(x)``, the 2-D count and the isin count of phase 23 on the
   staged table at 4e8 rows, and the groupby and std streamed from its first
-  1e8 rows written as Arrow IPC.
+  1e8 rows written as Arrow IPC;
+- ``moments``: std at 1e8 rows where no cell is far from the frame's
+  shift: a nanosecond clock (1.7e18 + [0, 100)) as uint64 and its int64
+  copy, whole and binned by k in {0, 1}; H2O's q6-sd (classic B5); and
+  std of v3 (float64) and of v1 (int64) by the raw key id4 * 2^23 + id5
+  (the one-sort plan).
 
 The result cache is off; each query runs once to warm up, then ``--reps``
 times on the host clock to a synchronize.  Prints one JSON line: the card's
@@ -82,7 +87,37 @@ def single_pass(cs, vt, reps):
     return out
 
 
-SETS = {"one-sort": one_sort, "pass": single_pass}
+def moments(cs, vt, reps):
+    import numpy as np
+    import torch
+    out = {}
+    n = 100_000_000
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    k = torch.randint(0, 2, (n,), generator=gen, device="cuda", dtype=torch.int64)
+    x = 1_700_000_000_000_000_000 + torch.randint(0, 100, (n,), generator=gen, device="cuda",
+                                                  dtype=torch.int64)
+    clock = vt.from_dataset(vt.DatasetArrays({"k": k, "x": x, "xi": x},
+                                             logical={"x": np.dtype("uint64")}))
+    for col, label in (("x", "uint64"), ("xi", "int64")):
+        out[f"clock {label} std"] = timed(lambda: clock.std(col), reps)
+        out[f"clock {label} std binned"] = timed(
+            lambda: clock.std(col, binby="k", limits=[-0.5, 1.5], shape=2), reps)
+    del clock, k, x
+    h2o, cols = cs.make_h2o(vt)
+    a = vt.agg
+    out["h2o q6-sd"] = timed(lambda: h2o.groupby(["id4", "id5"],
+                                                 agg={"sd_v3": a.std("v3", ddof=1)}), reps)
+    del h2o
+    wide = vt.from_dataset(vt.DatasetArrays({"kw": (cols["id4"] << 23) + cols["id5"],
+                                             "v1": cols["v1"], "v3": cols["v3"]}))
+    for col in ("v3", "v1"):
+        out[f"one-sort std {col}"] = timed(
+            lambda: wide.groupby("kw", agg={"sd": a.std(col, ddof=1)}), reps)
+        cs.check(wide.executor.trace_log[-1].get("groupby") == "one-sort", f"{col}'s route")
+    return out
+
+
+SETS = {"one-sort": one_sort, "pass": single_pass, "moments": moments}
 
 
 def main(argv=None):

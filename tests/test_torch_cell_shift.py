@@ -25,6 +25,8 @@ path) the frame is well conditioned: the reference takes raw moments
 (vaex_tpu/agg.py:1114), which lose these groups too.
 """
 
+import hypothesis
+import hypothesis.strategies as st
 import numpy as np
 import numpy.testing as npt
 import pytest
@@ -33,10 +35,11 @@ import torch
 import vaex_tpu
 import vaex_tpu_torch
 from torch_port_helpers import assert_special, numpy_stat
-from vaex_tpu_torch import agg, cache, groupby
+from vaex_tpu_torch import agg, cache, groupby, tasks
 from vaex_tpu_torch.ops import grid_moments as gm
 from vaex_tpu_torch.ops import grid_partition as gp
 from vaex_tpu_torch.ops import grid_plan
+from vaex_tpu_torch.ops.nullable import NA
 from vaex_tpu_torch.parallel import distributed_executor
 
 RTOL, ATOL = 1e-6, 1e-7
@@ -101,8 +104,8 @@ def _numpy(stat, k, x, y, valid, groups=G):
     return np.array(out)
 
 
-def _close(got, want, what):
-    npt.assert_allclose(np.asarray(got, dtype=np.float64), want, rtol=RTOL, atol=ATOL,
+def _close(got, want, what, atol=ATOL):
+    npt.assert_allclose(np.asarray(got, dtype=np.float64), want, rtol=RTOL, atol=atol,
                         err_msg=what)
 
 
@@ -460,3 +463,377 @@ def test_the_port_agrees_with_the_reference_where_it_is_well_conditioned():
     for name in ("s", "v", "c", "r"):
         npt.assert_allclose(np.asarray(got[name].values), np.asarray(ref[name].tolist()),
                             rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+# ------------------------------------ C26-C28: the last silent zeros
+
+def _c26():
+    """C26: 20 000 rows, seed 0; k in {0, 1, 2} with x = (0, 10, 1e3)[k] +
+    N(0, 1e-7), row 0 alone in group 3 at 1e17 (the frame's shift): one
+    table from the first pass's means (0 for groups 0-2) leaves groups 1
+    and 2 cancelling."""
+    rng = np.random.default_rng(0)
+    k = rng.integers(0, 3, N)
+    x = np.array([0.0, 10.0, 1e3])[k] + rng.normal(0, 1e-7, N)
+    k[0], x[0] = 3, 1e17
+    return k, x
+
+
+def _c27_int64():
+    """C27: 4000 rows, seed 2; x = (-2^62, 2^62 - 10 000)[k] + an int in
+    [-100, 100), row 0 in group 0: group 1's mean lies past 2^62 from the
+    frame's shift."""
+    rng = np.random.default_rng(2)
+    k = rng.integers(0, 2, 4000)
+    k[0] = 0
+    x = np.array([-2 ** 62, 2 ** 62 - 10_000], dtype=np.int64)[k] + rng.integers(-100, 100, 4000)
+    return k, x
+
+
+def _c27_datetime():
+    """C27's datetime64[ns] form: 4000 rows, seed 3; t = (1700-01-01,
+    2100-01-01)[k] + up to 1e12 ns, row 0 in the 1700 group: 400 years
+    apart, more than 2^62 ns."""
+    rng = np.random.default_rng(3)
+    k = rng.integers(0, 2, 4000)
+    k[0] = 0
+    t = (np.array(["1700-01-01", "2100-01-01"], dtype="datetime64[ns]")[k]
+         + rng.integers(0, 10 ** 12, 4000).astype("timedelta64[ns]"))
+    return k, t
+
+
+def _c28():
+    """C28: a nanosecond clock as uint64, 4000 values 1.7e18 + an int in
+    [0, 100) (seed 1), in two groups: its spread lies below float64's
+    spacing of 256 there."""
+    rng = np.random.default_rng(1)
+    x = np.uint64(1_700_000_000_000_000_000) + rng.integers(0, 100, 4000).astype(np.uint64)
+    return rng.integers(0, 2, 4000), x
+
+
+REPRODUCERS = {"c26": _c26, "c27 int64": _c27_int64, "c27 datetime": _c27_datetime,
+               "c28 uint64": _c28}
+ROUTES = GRID_ROUTES + ["mesh", "all-to-all", "cov"]
+
+
+def _exact_var(values):
+    """The variance of integer values (ints, datetime64's nanoseconds,
+    uint64) in exact arithmetic: (n sum x^2 - (sum x)^2) / n^2."""
+    from fractions import Fraction
+    v = [int(a) for a in np.asarray(values).view(np.int64 if values.dtype.kind in "mM"
+                                                    else values.dtype)]
+    n = len(v)
+    return float(Fraction(n * sum(a * a for a in v) - sum(v) ** 2, n * n)) if n else np.nan
+
+
+def _want(stat, k, x, groups):
+    """Per group numpy's two-pass var or std of a float column, the exact
+    one of an integer, temporal or uint64 column."""
+    out = []
+    for g in range(groups):
+        xs = x[k == g]
+        var = np.var(xs.astype(np.float64)) if xs.dtype.kind == "f" else _exact_var(xs)
+        out.append(var if stat == "var" else np.sqrt(var))
+    return np.array(out)
+
+
+def _limits(groups):
+    return {"binby": "k", "shape": groups, "limits": [-0.5, groups - 0.5]}
+
+
+def _by_route(df, route, groups, monkeypatch):
+    """{(query, stat): the answer} of std and var by k on ``route``: binned
+    and per group on a forced grid route or the 3-shard mesh, per group
+    on the all-to-all, ``df.cov``'s diagonal (var) and its root (std)."""
+    if route in ("mesh", "all-to-all"):
+        df.executor = distributed_executor(3, devices=["cpu"] * 3)
+    if route == "all-to-all":
+        monkeypatch.setattr(groupby, "SHUFFLE_MIN_G", 1)
+    elif route in GRID_ROUTES:
+        _force(route, monkeypatch)
+    got = {}
+    with cache.off():
+        if route == "cov":
+            var = np.asarray(df.cov(["x"], **_limits(groups)))[:, 0, 0]
+            return {("cov", "var"): var, ("cov", "std"): np.sqrt(var)}
+        out = df.groupby("k", agg={"std": agg.std("x"), "var": agg.var("x")}, sort=True)
+        for stat in ("std", "var"):
+            got[("groupby", stat)] = out[stat].values
+            if route != "all-to-all":
+                got[("binby", stat)] = getattr(df, stat)("x", **_limits(groups))
+    return got
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("case", list(REPRODUCERS))
+def test_the_c26_to_c28_reproducers(case, route, monkeypatch):
+    """Each of C26's, C27's (int64 and datetime64[ns]) and C28's frames on
+    every classic route, binned and per group: numpy's two-pass std and var,
+    or exact integer arithmetic, within 1e-6 relative and no absolute slack
+    (C26's spread of 1e-7 lies within 1e-7 of 0.0).  One table from the
+    first pass's means, an int table clamped to 2^62 from the frame's
+    shift and a uint64 base rounded before its shift gave 0.0 for the
+    groups far from the frame's shift (C26, C27) or every group (C28)."""
+    k, x = REPRODUCERS[case]()
+    groups = int(k.max()) + 1
+    df = vaex_tpu_torch.from_arrays(k=k, x=x).to_device("cpu")
+    start = len(df.executor.trace_log)
+    got = _by_route(df, route, groups, monkeypatch)
+    for (query, stat), value in got.items():
+        _close(value, _want(stat, k, x, groups), f"{case} {route} {query} {stat}", atol=0)
+    if route == "all-to-all":
+        assert any(e.get("shuffle") is True for e in df.executor.trace_log)
+    elif route == "mesh":
+        assert df.executor.trace_log[-1]["mesh"]["shards"] == ["cpu"] * 3
+    elif route in GRID_ROUTES:
+        assert route.split()[0] in _moment_routes(df, start)
+
+
+@pytest.mark.parametrize("route", ["one device", "mesh"])
+def test_a_one_sort_int_segment_far_from_row_0_keeps_its_digits(route):
+    """C29: the one-sort groupby (a raw key spanning past 2^22) took an int
+    column less its row 0, whose float64 rounds away the low bits of a
+    segment 2^53 or more from it: C27's group at 2^62 - 10 000 gave a std
+    of 9216, not 58.85.  Each segment is now less its own first row, exact
+    in int64, on one device and on the fused mesh exchange (eight groups,
+    at C27's two places in turn, so that an owner holds both): exact
+    answers."""
+    rng = np.random.default_rng(29)
+    k = rng.integers(0, 8, 4000)
+    k[0] = 0
+    x = (np.array([-2 ** 62, 2 ** 62 - 10_000], dtype=np.int64)[k % 2]
+         + rng.integers(-100, 100, 4000))
+    df = vaex_tpu_torch.from_arrays(k=k * 10_000_000, x=x).to_device("cpu")
+    if route == "mesh":
+        df.executor = distributed_executor(3, devices=["cpu"] * 3)
+    with cache.off():
+        out = df.groupby("k", agg={"std": agg.std("x"), "var": agg.var("x")}, sort=True)
+    log = df.executor.trace_log
+    assert any(e.get("groupby") == "one-sort" or e.get("fused_mesh_groupby") is True
+               for e in log)
+    for stat in ("std", "var"):
+        _close(out[stat].values, _want(stat, k, x, 8), f"one-sort {route} {stat}", atol=0)
+
+
+def test_c26_takes_a_third_pass_and_no_more():
+    """C26's groups at 10 and 1e3 take the frame's shift (1e17), then a
+    table of 0 (their means lie within the first pass's rounding of 0),
+    then their own means: one second pass and one further pass a
+    statistic, and nothing left unsettled."""
+    k, x = _c26()
+    df = vaex_tpu_torch.from_arrays(k=k, x=x).to_device("cpu")
+    second, further, unsettled = (agg.cell_shifted.second_passes, agg.settle.further,
+                                  agg.settle.unsettled)
+    with cache.off():
+        got = df.std("x", **_limits(4))
+    _close(got, _want("std", k, x, 4), "c26 std", atol=0)
+    assert agg.cell_shifted.second_passes == second + 1
+    assert agg.settle.further == further + 1
+    assert agg.settle.unsettled == unsettled
+
+
+def test_the_c25_cases_still_take_one_second_pass():
+    """The motivation table's std, covar and corr (binned and per group)
+    and the C25 reproducer's std and var (both orders): each query takes a
+    second pass and no statistic a further one: one table settles them."""
+    k, x, y, valid = _columns()
+    df = _frame(k, x, y)
+    queries = []
+    for stat in ("std", "covar", "corr"):
+        queries.append(lambda s=stat: _check_binned(df, s, "float64", _numpy(s, k, x, y, valid),
+                                                    s))
+        queries.append(lambda s=stat: df.groupby("k", agg={"v": _aggregator(s)}, sort=True))
+    for order in ORDERS.values():
+        xs = np.array(OVERFLOW["values"])[order]
+        ks = np.array(OVERFLOW["k"], dtype=np.int64)[order]
+        frame = vaex_tpu_torch.from_arrays(k=ks, x=xs).to_device("cpu")
+        for stat in ("std", "var"):
+            queries.append(lambda f=frame, s=stat: getattr(f, s)("x", binby="k", shape=4,
+                                                                 limits=[-0.5, 3.5]))
+            queries.append(lambda f=frame, s=stat: f.groupby(
+                "k", agg={"v": getattr(agg, s)("x")}, sort=True))
+    further = agg.settle.further
+    for query in queries:
+        second = agg.cell_shifted.second_passes
+        with cache.off():
+            query()
+        assert agg.cell_shifted.second_passes > second
+    assert agg.settle.further == further
+
+
+@pytest.mark.parametrize("route", ["binby", "all-to-all"])
+def test_a_cell_unsettled_at_the_bound_is_nan(route, monkeypatch):
+    """With the bound at one pass past the first, C26's groups at 10 and
+    1e3 are still flagged after it and their tables still move: NaN, and
+    counted, never the cancelled 0.0; the groups that settled keep numpy's
+    answer.  At the bound of the code they settle (the reproducer test)."""
+    monkeypatch.setattr(agg, "MAX_CELL_PASSES", 1)
+    k, x = _c26()
+    df = vaex_tpu_torch.from_arrays(k=k, x=x).to_device("cpu")
+    before = agg.settle.unsettled
+    with cache.off():
+        if route == "binby":
+            got = np.asarray(df.std("x", **_limits(4)))
+        else:
+            monkeypatch.setattr(groupby, "SHUFFLE_MIN_G", 1)
+            df.executor = distributed_executor(3, devices=["cpu"] * 3)
+            got = np.asarray(df.groupby("k", agg={"s": agg.std("x")}, sort=True)["s"].values)
+    assert np.isnan(got[1:3]).all()
+    want = _want("std", k, x, 4)
+    _close(got[[0, 3]], want[[0, 3]], f"{route} settled groups", atol=0)
+    assert agg.settle.unsettled == before + 2
+
+
+def test_a_uint64_clock_equals_its_int64_copy():
+    """C28: std and var of the uint64 clock, with and without binby, equal
+    those of its int64 copy and the exact answer; a uint64 base rounded to
+    float64 before its shift gave 0.0 (the int64 copy subtracts exactly)."""
+    k, x = _c28()
+    df = vaex_tpu_torch.from_arrays(k=k, x=x, xi=x.astype(np.int64)).to_device("cpu")
+    with cache.off():
+        for stat in ("std", "var"):
+            exact = _exact_var(x) if stat == "var" else np.sqrt(_exact_var(x))
+            whole = [getattr(df, stat)(c) for c in ("x", "xi")]
+            binned = [getattr(df, stat)(c, **_limits(2)) for c in ("x", "xi")]
+            _close(whole, [exact, exact], f"{stat} of the clock")
+            _close(binned[0], _want(stat, k, x, 2), f"binned {stat}")
+            npt.assert_array_equal(binned[0], binned[1])
+    assert df.std("x") > 28
+
+
+@pytest.mark.parametrize("route", ["binby", "groupby", "mesh", "all-to-all", "cov"])
+def test_a_uint64_base_past_2_63_keeps_its_digits(route, monkeypatch):
+    """uint64 groups at 1.7e18, straddling 2^63 and at 2^64 - 10^4, each a
+    spread of 100, row 0 in the first: the shift and the tables subtract
+    in the order image of the bits (the value less 2^63); exact answers."""
+    rng = np.random.default_rng(11)
+    k = rng.integers(0, 3, 3000)
+    k[0] = 0
+    base = np.array([1_700_000_000_000_000_000, 2 ** 63 - 50, 2 ** 64 - 10_000], dtype=np.uint64)
+    x = base[k] + rng.integers(0, 100, 3000).astype(np.uint64)
+    df = vaex_tpu_torch.from_arrays(k=k, x=x).to_device("cpu")
+    got = _by_route(df, route if route not in ("binby", "groupby") else "b4 lane", 3,
+                    monkeypatch)
+    for (query, stat), value in got.items():
+        if route in ("binby", "groupby") and query != route:
+            continue
+        _close(value, _want(stat, k, x, 3), f"{route} {query} {stat}")
+
+
+def test_the_order_image_subtracts_uint64_bits_exactly():
+    """A uint64 base's moment data is the order image of its bits (the
+    value less 2^63): ``grid_moments.shifted`` of it less a shift's image
+    is the exact difference, one rounding, on either side of 2^63 and
+    across it; less ``agg.ORDER_ZERO``, the unsigned float value."""
+    vals = [0, 5, 2 ** 63 - 1, 2 ** 63, 2 ** 63 + 7, 2 ** 64 - 1]
+    bits = torch.as_tensor(np.array(vals, dtype=np.uint64).view(np.int64))
+    image, missing = tasks.moment_data(NA(bits, None, np.uint64))
+    assert missing is None and image.dtype == torch.int64
+    npt.assert_array_equal(image.numpy(), [v - 2 ** 63 for v in vals])
+    for s in vals:
+        got = gm.shifted(image, torch.tensor(s - 2 ** 63, dtype=torch.int64))
+        npt.assert_array_equal(got.numpy(), [float(v - s) for v in vals])
+    npt.assert_array_equal(gm.shifted(image, agg.ORDER_ZERO).numpy(), [float(v) for v in vals])
+
+
+def test_an_int_table_is_the_rounded_mean_clamped_to_int64():
+    """``agg.cell_shift`` of an int base: a + m1 / n rounded, past 2^62
+    from a as near it, clamped into int64's range (float64's 2^63 is no
+    int64); a uint64 base's table is the order image of its bits."""
+    a = torch.tensor(-2 ** 62, dtype=torch.int64)
+    n = torch.ones(3, dtype=torch.float64)
+    m1 = torch.tensor([2.0 ** 63 - 10_000.0, 2.0 ** 64, -5.0], dtype=torch.float64)
+    got = agg.cell_shift(a, m1, n, True)
+    assert abs(int(got[0]) - (2 ** 62 - 10_000)) <= 1024
+    assert int(got[1]) == 2 ** 63 - 1024  # float64's largest value below 2^63
+    assert abs(int(got[2]) - (-2 ** 62 - 5)) <= 512  # float64's spacing there is 1024
+    top = torch.tensor(8, dtype=torch.int64)  # the image of 2^63 + 8
+    got = agg.cell_shift(top, torch.tensor([-16.0, 2.0 ** 70], dtype=torch.float64),
+                         torch.ones(2, dtype=torch.float64), True)
+    assert [int(v) + 2 ** 63 for v in got] == [2 ** 63 - 8, 2 ** 64 - 1024]
+
+
+# -------------------------------------------------- a hypothesis sweep
+
+SWEEP_DTYPES = ["float64", "float32", "int64", "uint64", "datetime64[ns]"]
+SWEEP_ROWS, SWEEP_G = 800, 4
+
+
+@st.composite
+def _sweep_frames(draw, dtype):
+    """(k, x): SWEEP_G groups whose means are drawn from 0 and the powers
+    of ten to 1e17, each with a spread of its own (a float64 group down to
+    1e-12 of its mean, a float32 one to 1e-4; an int group a width from 1,
+    a constant cell, to 1e6), and row 0, the frame's shift, in a drawn
+    group or alone in one more at a drawn power of ten to 1e17."""
+    seed = draw(st.integers(0, 2 ** 32 - 1))
+    exps = draw(st.lists(st.one_of(st.none(), st.integers(0, 17)), min_size=SWEEP_G,
+                         max_size=SWEEP_G))
+    means = np.array([0.0 if e is None else 10.0 ** e for e in exps])
+    alone = draw(st.booleans())
+    at = draw(st.integers(0, 17) if alone else st.integers(0, SWEEP_G - 1))
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, SWEEP_G, SWEEP_ROWS)
+    if dtype in ("float64", "float32"):
+        low = 12 if dtype == "float64" else 4
+        spread = [max(m, 1.0) * 10.0 ** -draw(st.integers(0, low)) for m in means]
+        x = means[k] + np.array(spread)[k] * rng.normal(0, 1, SWEEP_ROWS)
+    else:
+        width = [10 ** draw(st.integers(0, 6)) for _ in means]
+        x = (means.astype(np.int64)[k]
+             + rng.integers(0, np.array(width)[k]).astype(np.int64))
+    if alone:
+        k[0], x[0] = SWEEP_G, 10 ** at
+    else:
+        k[0] = at
+    if dtype == "float32":
+        x = x.astype(np.float32)
+    elif dtype == "uint64":
+        x = x.astype(np.uint64)
+    elif dtype == "datetime64[ns]":
+        x = x.view("datetime64[ns]")
+    return k, x
+
+
+@pytest.mark.parametrize("route", ["one device", "all-to-all"])
+@pytest.mark.parametrize("dtype", SWEEP_DTYPES)
+def test_the_sweep_of_far_groups(dtype, route, monkeypatch):
+    """Hypothesis-drawn frames (:func:`_sweep_frames`): std and var per
+    group (and binned on one device) against numpy's two-pass answer on
+    float data, exact arithmetic on int64, uint64 and datetime64[ns],
+    within 1e-6 relative and no absolute slack (a spread may be 1e-12)."""
+    if route == "all-to-all":
+        monkeypatch.setattr(groupby, "SHUFFLE_MIN_G", 1)
+
+    @hypothesis.settings(max_examples=60, deadline=None, derandomize=True, database=None,
+                         suppress_health_check=list(hypothesis.HealthCheck))
+    @hypothesis.given(frame=_sweep_frames(dtype))
+    def check(frame):
+        k, x = frame
+        groups = int(k.max()) + 1
+        df = vaex_tpu_torch.from_arrays(k=k, x=x).to_device("cpu")
+        if route == "all-to-all":
+            df.executor = distributed_executor(3, devices=["cpu"] * 3)
+        with cache.off():
+            out = df.groupby("k", agg={"std": agg.std("x"), "var": agg.var("x")}, sort=True)
+            binned = {} if route == "all-to-all" else {
+                stat: getattr(df, stat)("x", **_limits(groups)) for stat in ("std", "var")}
+        for stat in ("std", "var"):
+            want = _want(stat, k, x, groups)
+            _close(out[stat].values, want, f"{dtype} {route} groupby {stat}", atol=0)
+            if stat in binned:
+                _close(binned[stat], want, f"{dtype} binned {stat}", atol=0)
+    check()
+
+
+# ------------------------------------ known problems of the reference
+
+def test_the_reference_gives_a_nanosecond_clock_no_variance():
+    """vaex_tpu's std and var of C28's clock are 0.0 as uint64 and as int64
+    (its raw moments cancel; exact: 28.92 and 836.6): the port is held to
+    exact arithmetic instead (test_a_uint64_clock_equals_its_int64_copy)."""
+    _, x = _c28()
+    ref = vaex_tpu.from_arrays(x=x, xi=x.astype(np.int64))
+    for c in ("x", "xi"):
+        assert float(ref.std(c)) == 0.0 and float(ref.var(c)) == 0.0
+    assert abs(np.sqrt(_exact_var(x)) - 28.924) < 1e-3

@@ -1542,3 +1542,63 @@ def test_the_phase31_checks_refuse_a_wrong_answer():
     chip_smoke.phase31_check("same", want.clone(), want)
     with pytest.raises(RuntimeError, match="phase 31"):
         chip_smoke.phase31_check("off", want * (1 + 1e-5), want)
+
+
+def test_the_phase31_reproducers_on_the_cpu():
+    """C26-C28 at a small size: std of x binned by k, std and var per group
+    on one device, by a wide key (the one-sort plan) and through the
+    all-to-all over four CPU shards, each held to plain torch's answer with
+    no absolute slack; C26 takes a further pass on every classic route,
+    C28's clock no second one (its shift subtracts exactly), and no cell is
+    left unsettled."""
+    from vaex_tpu_torch import cache
+    with cache.off():
+        out = chip_smoke.phase31_cases(vaex_tpu_torch, 20_000, "cpu",
+                                       mesh=chip_smoke.phase24_mesh("cpu"), reps=0)
+    assert set(out) == set(chip_smoke.PHASE31_CASES)
+    assert all(set(q) == {"binned std", "groupby", "groupby by kw", "groupby, all-to-all"}
+               for q in out.values())
+    # the one-sort plan (by kw) takes two passes a segment, never a table
+    classic = [label for label in out["c26"] if label != "groupby by kw"]
+    assert all(out["c26"][label]["further_passes"] > 0 for label in classic)
+    assert all(out["c27 int64"][label]["second_passes"] > 0 for label in classic)
+    assert all(q["second_passes"] == 0 for q in out["c28 uint64"].values())
+
+
+def test_the_phase31_case_turns_on_the_cpu(monkeypatch):
+    """The turns run each query: C26 at the bound of one pass past the
+    first leaves groups 1 and 2 NaN (the old turns), at the code's bound
+    none; C28's uint64 clock and its int64 copy give one std."""
+    answers = []
+
+    def median_s(fn, reps):
+        answers.append(np.asarray(fn(), dtype=np.float64))
+        return 0.0, []
+    monkeypatch.setattr(chip_smoke, "median_s", median_s)
+    out = chip_smoke.phase31_case_turns(vaex_tpu_torch, 20_000, "cpu")
+    assert set(out) == {"c26 std binned, 3 passes / 2", "c28 std binned, uint64 / int64"}
+    turns = chip_smoke.PHASE31_CASE_TURNS
+    c26, c28 = answers[:len(turns)], answers[len(turns):]
+    for which, got in zip(turns, c26):
+        assert np.isnan(got[1:3]).all() == (which == "old") and np.isfinite(got[[0, 3]]).all()
+    assert all(np.array_equal(got, c28[0]) for got in c28) and (c28[0] > 28).all()
+
+
+def test_the_phase31_case_checks_refuse_a_lost_spread():
+    """phase31_case_check refuses C26's lost 0.0 (within PHASE31_ATOL of
+    the std of 1e-7), and the plain answers of the integer cases are the
+    exact ones."""
+    from fractions import Fraction
+    k, x = chip_smoke.phase31_case_columns("c26", 20_000, "cpu")
+    want = chip_smoke.phase31_case_plain("c26", k, x, "std")
+    chip_smoke.phase31_case_check("same", want.clone(), want)
+    with pytest.raises(RuntimeError, match="phase 31"):
+        chip_smoke.phase31_case_check("lost", torch.where(want < 1e-3, 0.0, want), want)
+    for name in ("c27 int64", "c27 datetime", "c28 uint64", "c28 uint64 past 2^63"):
+        k, x = chip_smoke.phase31_case_columns(name, 3_000, "cpu")
+        got = chip_smoke.phase31_case_plain(name, k, x, "var")
+        top = 2 ** 64 if name.startswith("c28") else None  # uint64 bits as int64
+        for g in range(chip_smoke.PHASE31_CASES[name][0]):
+            v = [int(a) % top if top else int(a) for a in x[k == g].tolist()]
+            exact = Fraction(len(v) * sum(a * a for a in v) - sum(v) ** 2, len(v) ** 2)
+            assert abs(float(got[g]) - float(exact)) <= 1e-9 * float(exact), (name, g)

@@ -204,6 +204,11 @@ PLANS = textwrap.dedent("""
     run("cell shift", g, lambda df: df.groupby("k", agg={{"v": a.var("xo")}}, sort=True))
     out["cell shift binned"] = [float(v) for v in g.var("xo", binby="k", limits=[-1.5, 898.5],
                                                           shape=300)]
+    # groups at 10 and 1e3 beside a frame's shift at 1e17 (C26): a further
+    # pass, decided over both processes on the grid route
+    run("further pass", g, lambda df: df.groupby("k", agg={{"s": a.std("xc")}}, sort=True))
+    out["further pass binned"] = [float(v) for v in g.std("xc", binby="k",
+                                                          limits=[-1.5, 898.5], shape=300)]
 
     # a result one process holds in its cache and the other not: both run
     # the pass, whose merge needs them both
@@ -277,6 +282,11 @@ def _plan_inputs():
     # four shards owns (rank 1's), far from the frame's shift (rank 0's
     # first valid x, of a group k < 870)
     g["xo"] = x + np.where(g["k"] >= 870, 1e12, 0.0)
+    # 10 and 1e3 (k >= 870) with a spread of 1e-7, and 1e17 in rank 0's
+    # first row, the frame's shift (C26)
+    g["xc"] = (np.where(g["k"] >= 870, 1e3, 10.0)
+               + np.random.default_rng(26).normal(0, 1e-7, n))
+    g["xc"][np.flatnonzero(g_part == 0)[0]] = 1e17
     return {"g": g, "g_part": g_part, "l": left, "l_part": rng.integers(0, 2, nl),
             "r": right, "r_part": rng.integers(0, 2, nr)}
 
@@ -439,6 +449,27 @@ def test_a_far_group_keeps_its_variance_across_the_processes(plans):
         shuffles = _routes(entry["cell shift"], "shuffle")
         assert shuffles and all(e["shuffle"] is True and e["world"] == 2 for e in shuffles)
         npt.assert_allclose(entry["cell shift binned"], binned, rtol=1e-6)
+
+
+def test_a_group_beside_a_far_shift_settles_across_the_processes(plans):
+    """C26 over two processes: std of xc (10 and 1e3 with a spread of 1e-7
+    beside rank 0's shift at 1e17) per group through the all-to-all and
+    binned by k on the grid route, where both processes decide each further
+    pass over one collective and subtract rank 0's tables: numpy's two-pass
+    std within 1e-6 relative (no absolute slack: the spread is 1e-7) in
+    every group, where one table from the first pass's means gave 0.0."""
+    table = _plan_inputs()["g"]
+    ks = np.unique(table["k"])
+    want = np.array([numpy_stat(table["xc"][table["k"] == key], "std") for key in ks])
+    binned = np.array([numpy_stat(table["xc"][table["k"] == 3 * b], "std") if (
+        table["k"] == 3 * b).any() else np.nan for b in range(300)])
+    for entry in plans:
+        got = entry["further pass"]["columns"]
+        npt.assert_array_equal(np.asarray(got["k"]), ks)
+        npt.assert_allclose(np.asarray(got["s"], dtype=np.float64), want, rtol=1e-6)
+        shuffles = _routes(entry["further pass"], "shuffle")
+        assert shuffles and all(e["shuffle"] is True and e["world"] == 2 for e in shuffles)
+        npt.assert_allclose(entry["further pass binned"], binned, rtol=1e-6)
 
 
 JOINS = {

@@ -1036,22 +1036,45 @@ def _base_rows(terms, j):
 
 
 def cell_shift(a, m1, n, integer):
-    """A base's shift a cell for a second pass, flat [G]: each cell's mean
-    from the first pass's sums, a + m1 / n (a the first pass's shift, None:
-    0); for an int base m1 / n rounded and added in int64.  A float mean is
-    known to about eps sqrt(n) (|a| + |m1 / n|): where 0 lies that close to
-    it (a cell near 0 beside a shift far from it) the shift is 0, and so it
-    is where the mean is not finite (an empty cell, an infinity, or sums
-    past float64, where the frame's shift may be the fault)."""
+    """A base's shift a cell for a further pass, flat [G]: each cell's mean
+    from a pass's sums, a + m1 / n (a that pass's shift, None: 0).  An int
+    base's (a uint64 base's order image's too, :func:`.tasks.moment_data`)
+    is that float mean rounded and clamped to int64's range: a shift needs
+    only to lie near its cell, and float64's 2^63 is no int64.  A float
+    mean is known to about eps sqrt(n) (|a| + |m1 / n|): where 0 lies that
+    close to it (a cell near 0 beside a shift far from it) the shift is 0,
+    and so it is where the mean is not finite (an empty cell, an infinity,
+    or sums past float64, where the frame's shift may be the fault)."""
     mean = (m1 / n).reshape(-1)
     if integer:
-        d = torch.where(torch.isfinite(mean), mean, 0.0).round().clamp(-2.0 ** 62, 2.0 ** 62)
-        d = d.to(torch.int64)
-        return d if a is None else a.to(d.device) + d
+        a = 0.0 if a is None else a.to(mean.device, torch.float64)
+        b = a + torch.where(torch.isfinite(mean), mean, 0.0)
+        return b.round().clamp(-2.0 ** 63, INT64_TOP).to(torch.int64)
     a = 0.0 if a is None else a.to(mean.device)
     b = a + mean
     fuzz = torch.finfo(torch.float64).eps * torch.sqrt(n.reshape(-1)) * (abs(a) + mean.abs())
     return torch.where(torch.isfinite(b) & (b.abs() > fuzz), b, 0.0)
+
+
+# float64's largest value below 2^63: the largest int64 a float mean rounds to
+INT64_TOP = 2.0 ** 63 - 1024
+
+# the order image of a uint64 0 (:func:`.tasks.moment_data`): a uint64
+# base's shift is worth its image less this
+ORDER_ZERO = -(1 << 63)
+
+# the passes past the first that a flagged statistic takes at most
+# (:func:`settle`).  A table's error e, its distance from the cell's mean,
+# shrinks each pass to about eps sqrt(n) (e + the cell's spread), plus the
+# rounding of the mean itself: 2^-29 e at n = 2^46 (:func:`cancelled`'s
+# range), 2^-39 at 1e8 rows.  The second pass starts from the frame's shift,
+# e <= |a| + |mean|; a mean within its own rounding of 0 takes a table of 0
+# (:func:`cell_shift`), so that e is about |mean| or less after it, and the
+# third pass leaves a table at its mean's own rounding (C26: a group at 10,
+# spread 1e-7, beside a shift at 1e17 takes 0, then 10, and settles).  Eight
+# leave room for sums whose rounding grows as n eps (2^-26 at 1e8 rows)
+# rather than as sqrt(n) eps.
+MAX_CELL_PASSES = 8
 
 
 def _mesh(df):
@@ -1080,50 +1103,123 @@ def _picked(flag, a, b):
     return torch.where(torch.isfinite(a) if flag is None else flag, a, b)
 
 
+def _nan_where(flag, a):
+    """``a`` with NaN where ``flag``, for a tensor or a tuple of them."""
+    if isinstance(a, tuple):
+        return tuple(_nan_where(flag, x) for x in a)
+    return torch.where(flag, torch.nan, a)
+
+
+def settle(k, flag, answer, retaken, passes, any_cells):
+    """One step of the rule of the passes past the first, which
+    :func:`cell_shifted` and each owner of the all-to-all
+    (:func:`.parallel.shuffle.owner_variance`) follow.  Pass k past the
+    first took the cells ``flag`` again: its answer ``retaken`` there,
+    ``answer`` elsewhere.  ``passes`` per base: (its table in pass k, that
+    pass's (m1, m2, n), whether its values are integers, the (m1, m2) of
+    the pass over x * RESCUE_SCALE less the table scaled, or None).  The
+    cells flagged before are flagged again where their sums less pass k's
+    tables lost their digits (:func:`cancelled`; from the scaled sums where
+    a cell's own are not finite), and they alone take their next table
+    from that pass's means (:func:`cell_shift`).  Returns (the answer,
+    None) where no such cell's table moved (``any_cells(moved)``, a host
+    read); at MAX_CELL_PASSES (the answer with NaN in the cells whose table
+    still moved: no finite wrong answer, those cells counted in
+    ``settle.unsettled``, None); else (the answer, (the cells still
+    flagged, the next tables)) for pass k + 1, counted in
+    ``settle.further``."""
+    merged = _picked(flag, retaken, answer)
+    lost, nexts = None, {}
+    for e, (t, (m1, m2, n), integer, scaled) in passes.items():
+        f, nexts[e] = cancelled(m2, m1, n, integer), cell_shift(t, m1, n, integer)
+        if scaled is not None:
+            s1, s2 = scaled
+            bad = ~(torch.isfinite(m1) & torch.isfinite(m2))
+            f = torch.where(bad, cancelled(s2, s1, n), f)
+            tiny = cell_shift(t * RESCUE_SCALE, s1, n, False) / RESCUE_SCALE
+            nexts[e] = torch.where(bad.reshape(-1), torch.where(torch.isfinite(tiny), tiny, 0.0),
+                                   nexts[e])
+        lost = f if lost is None else lost | f
+    still = flag & lost
+    moved = still & functools.reduce(
+        torch.logical_or, [(nexts[e] != t).reshape(still.shape) for e, (t, *_) in passes.items()])
+    if not any_cells(moved):
+        return merged, None
+    if k == MAX_CELL_PASSES:
+        settle.unsettled += int(moved.sum())
+        return _nan_where(moved, merged), None
+    settle.further += 1
+    return merged, (still, nexts)
+
+
+settle.further = 0
+settle.unsettled = 0
+
+
 def cell_shifted(df, binners, specs, selection, finish):
     """A promise of ``finish(results, shifts, scales)``, each cell from the
     pass that kept its digits (C25: one shift a frame loses the variance of
-    every cell far from it).
+    every cell far from it; C26: one table from the first pass's sums may
+    not be near enough either).
 
     ``specs``: the moment ops, (expressions, terms) each, every term valid
     where all of the op's bases are (VAR_TERMS, COVAR_TERMS, CORR_TERMS).
     ``finish`` takes per op its result ((counts,), sums), per expression the
-    shift its sums are less (a 0-d tensor, a [G] table or None) and its scale
-    (1.0, or RESCUE_SCALE), and gives a tensor of the cells' shape or a tuple
-    of them.
+    shift its sums are less as float64 (a 0-d tensor, a [G] table or None) and
+    its scale (1.0, or RESCUE_SCALE), and gives a tensor of the cells'
+    shape or a tuple of them.
 
     The first pass takes every op less one shift a base and frame
     (:func:`.tasks.moment_shift`): the same launches and cost as before.  It
-    flags a cell where a base of an op that holds its square lost its
+    flags the cells where a base whose square the op holds lost its
     digits (:func:`cancelled`), and, where an op has a float64 base, where
     one of its sums is not finite (u^2 past float64, or an infinity: C24).
     The flags are read once (:func:`_any_cells`); where no cell is flagged,
-    that pass is the answer.  Else one second pass takes every op again, each
+    that pass is the answer.  Else a second pass takes every op again, each
     base less a shift a cell (:func:`cell_shift`: the cell's mean in the
     first op that holds the base's square), and where a sum was not finite
     also the ops over each float64 base times RESCUE_SCALE, less its table
-    scaled (exact: a power of two).  A flagged cell takes the second pass
-    where ``finish`` gives a finite answer there (a finisher gives NaN or an
-    infinity where a sum it reads is not finite), else the scaled ops';
-    every other cell keeps the first pass.  Over a mesh of processes rank
-    0's tables go to every process.  ``cell_shifted.second_passes`` counts
-    the statistics that took a second pass."""
+    scaled (exact: a power of two), in that pass and in every further one.
+    A flagged cell takes the pass's answer where ``finish`` gives a finite
+    one there (a finisher gives NaN or an infinity where a sum it reads is
+    not finite), else the scaled ops'; every other cell keeps the first
+    pass.  Further passes follow :func:`settle`, each decision read over
+    every process of a mesh (:func:`_any_cells`); over a mesh of processes
+    rank 0's tables go to every process, so that each runs the same passes.
+    ``cell_shifted.second_passes`` counts the statistics that took a second
+    pass."""
     from .delayed import Promise
+    from .ops.grid_moments import shifted
     from .tasks import moment_shift
     exprs = list(dict.fromkeys(e for es, _ in specs for e in es))
     dtypes = {e: _not_strings(df, e, "moments") for e in exprs}
     wide = {e: dtypes[e].numpy == np.float64 for e in exprs}
-    # the bases whose values are integers (their moment data is int64)
-    integer = {e: not (dtypes[e].is_float or dtypes[e].numpy == UINT64) for e in exprs}
+    # the bases whose values are integers (their moment data is int64: a
+    # uint64 base's is its order image, the value less 2^63)
+    integer = {e: not dtypes[e].is_float for e in exprs}
+    unsigned = {e: dtypes[e].numpy == UINT64 for e in exprs}
     frame = {e: moment_shift(df, e) for e in exprs}
     first = [_moments(df, binners, es, terms, selection, [frame[e] for e in es])
              for es, terms in specs]
     ones = {e: 1.0 for e in exprs}
     out = Promise()
 
-    def second_pass(results):
-        answer = finish(results, frame, ones)
-        flag, over, table_of = None, None, {}
+    def values(shifts):  # the shifts' values as ``finish`` takes them
+        return {e: None if t is None else shifted(t, ORDER_ZERO) if unsigned[e]
+                else t.to(torch.float64) for e, t in shifts.items()}
+
+    def sums_of(results, e):
+        """(m1, m2, n) of base e in the first op that holds its square."""
+        for (es, terms), ((n,), sums) in zip(specs, results):
+            if e in es:
+                rows = _base_rows(terms, es.index(e))
+                if rows is not None:
+                    return sums[rows[0]], sums[rows[1]], n.to(torch.float64)
+        raise ValueError(f"no op holds the square of {e!r}")
+
+    def first_pass(results):
+        answer = finish(results, values(frame), ones)
+        flag, over = None, None
         for (es, terms), ((n,), sums) in zip(specs, results):
             n = n.to(torch.float64)
             for j, e in enumerate(es):
@@ -1131,43 +1227,60 @@ def cell_shifted(df, binners, specs, selection, finish):
                 if rows is not None:
                     f = cancelled(sums[rows[1]], sums[rows[0]], n, integer[e])
                     flag = f if flag is None else flag | f
-                    table_of.setdefault(e, (sums[rows[0]], n))
             if any(wide[e] for e in es):
                 f = ~torch.isfinite(sums).all(0)
                 over = f if over is None else over | f
         if over is not None:
             flag = flag | over
-        anys = _any_cells(df, flag, *([] if over is None else [over]))
+        anys = _any_cells(df, flag, *([over] if over is not None else []))
         if not anys[0]:
             out.fulfill(answer)
             return
         cell_shifted.second_passes += 1
-        tables, mesh = {}, _mesh(df)
-        for e in exprs:
-            tables[e] = cell_shift(frame[e], *table_of[e], integer[e])
-            if mesh is not None:
-                from .parallel import collectives
-                tables[e] = collectives.broadcast(tables[e], mesh)
-        again = [_moments(df, binners, es, terms, selection, [tables[e] for e in es])
-                 for es, terms in specs]
-        scaled = anys[-1] if over is not None else False
+        tables = {e: cell_shift(frame[e], *sums_of(results, e)[::2], integer[e]) for e in exprs}
+        scaled = over is not None and anys[-1]
+        again(tables, flag, answer, scaled, 1)
+
+    def again(tables, flag, answer, scaled, k):
+        """Pass k past the first: every op less ``tables``, rank 0's."""
+        mesh = _mesh(df)
+        if mesh is not None:
+            from .parallel import collectives
+            tables = {e: collectives.broadcast(t, mesh) for e, t in tables.items()}
         scale = {e: RESCUE_SCALE if wide[e] and scaled else 1.0 for e in exprs}
         shift = {e: tables[e] * scale[e] if scale[e] != 1.0 else tables[e] for e in exprs}
         name = {e: f"({e}) * {RESCUE_SCALE!r}" if scale[e] != 1.0 else e for e in exprs}
+        plain = [_moments(df, binners, es, terms, selection, [tables[e] for e in es])
+                 for es, terms in specs]
         tiny = [_moments(df, binners, [name[e] for e in es], terms, selection,
                          [shift[e] for e in es]) for es, terms in specs] if scaled else []
 
         def merge(got):
-            results2, results3 = got[:len(specs)], got[len(specs):]
-            retaken = finish(results2, tables, ones)
+            results, results_tiny = got[:len(specs)], got[len(specs):]
+            retaken = finish(results, values(tables), ones)
             if scaled:
-                retaken = _picked(None, retaken, finish(results3, shift, scale))
-            return _picked(flag, retaken, answer)
-        delayed(lambda *got: merge(got))(*again, *tiny).then(out.fulfill, out.reject)
+                retaken = _picked(None, retaken, finish(results_tiny, values(shift), scale))
+            passes = {e: (tables[e], sums_of(results, e), integer[e],
+                          sums_of(results_tiny, e)[:2] if scale[e] != 1.0 else None)
+                      for e in exprs}
+            merged, going_on = settle(k, flag, answer, retaken, passes,
+                                      lambda moved: _any_cells(df, moved)[0])
+            if going_on is None:
+                out.fulfill(merged)
+            else:
+                still, nexts = going_on
+                again(nexts, still, merged, scaled, k + 1)
+
+        def fulfilled(got):
+            try:
+                merge(got)
+            except Exception as e:  # noqa: BLE001 - the statistic's promise takes it
+                out.reject(e)
+        delayed(lambda *got: got)(*plain, *tiny).then(fulfilled, out.reject)
 
     def check(results):
         try:
-            second_pass(results)
+            first_pass(results)
         except Exception as e:  # noqa: BLE001 - the statistic's promise takes it
             out.reject(e)
     delayed(lambda *r: r)(*first).then(check, out.reject)

@@ -492,21 +492,22 @@ def _reduce(packed, columns, key_names, plan, spans, words, pct_name):
             out[name] = torch.full((G,), fill, dtype=values.dtype, device=device).scatter_reduce_(
                 0, seg, values[order], "amin" if kind == "min" else "amax")
         elif kind in ("std", "var"):
-            # two passes a segment over the rows less one shift (exact in
-            # int64 for int keys' values near 2^62): the segment's mean, then
-            # the squares of the deviations from it; nothing cancels
-            # an int column less its first row, exact in int64; a float
+            # two passes a segment over the sorted rows: the segment's mean,
+            # then the squares of the deviations from it; nothing cancels.
+            # An int column less its segment's first row, exact in int64 (a
+            # segment 2^53 or more from another keeps its digits); a float
             # column as it is: a shift of its own (an infinity, the largest
             # float) would swallow the digits of every segment far from it
             c = valid_count(col).to(torch.float64)
-            ok = ~torch.isnan(col) if col.is_floating_point() else None
-            u = shifted(clean, clean[0] if ok is None else None)
+            v = col[order]
+            ok = ~torch.isnan(v) if v.is_floating_point() else None
+            u = shifted(v, v[starts][seg] if ok is None else None)
             if ok is not None:  # a NaN row adds nothing
                 u = u.masked_fill(~ok, 0.0)
-            mean = seg_sum(u, torch.float64) / c
-            dev = u[order] - mean[seg]
+            mean = torch.zeros(G, dtype=torch.float64, device=device).index_add_(0, seg, u) / c
+            dev = u - mean[seg]
             if ok is not None:
-                dev = dev.masked_fill(~ok[order], 0.0)
+                dev = dev.masked_fill(~ok, 0.0)
             var = torch.zeros(G, dtype=torch.float64, device=device).index_add_(
                 0, seg, dev * dev) / c
             ddof = payload[1]

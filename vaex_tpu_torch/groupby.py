@@ -746,10 +746,10 @@ def _shuffle_channels(df, plan, shards):
                       selection_expression)
     from .datatype import NAT
     from .ops.grid_extreme import identity
-    from .ops.grid_moments import shifted
     from .parallel.shuffle import NU_NAN, NU_NONE, NU_NULL
-    from .tasks import moment_input, moment_shift
+    from .tasks import moment_data, moment_shift
     ints, floats, exts, modes, bases, base_shifts, nus = [], [], [], [], [], [], []
+    base_valid = []
     finishers = {}
 
     def channel(target, parts):
@@ -834,19 +834,26 @@ def _shuffle_channels(df, plan, shards):
             modes.append(kind)
             finishers[name] = lambda out, op=op, i=i: finished(op, out["ext"][i])
         elif kind in ("std", "var"):
-            # the exchange carries x as float64, an int base less the frame's
-            # shift (subtracted in int64, so it keeps its digits in float64),
-            # a float base as it is with the frame's shift for its owner
-            parts, shift, owner_shift = [], moment_shift(df, desc.expression), None
+            # the exchange carries a float base as float64 (NaN: a row that
+            # does not count), an int, temporal or uint64 base as its 8-byte
+            # word (a uint64 base's order image), beside its validity where
+            # a row may not count: every owner subtracts the frame's shift
+            # and its tables itself (owner_variance)
+            shift, parts, valid = moment_shift(df, desc.expression), [], []
             for rows, sel in zip(shards, sels):
-                base, s = moment_input(rows.expr(desc.expression), shift)
-                if base.dtype == torch.int64:
-                    base, s = shifted(base, s), None
-                owner_shift = s
-                base = base.to(torch.float64)
-                parts.append(base if sel is None else base.masked_fill(~sel, torch.nan))
+                d, missing = moment_data(rows.expr(desc.expression))
+                bad = missing if sel is None else (~sel if missing is None else missing | ~sel)
+                if d.is_floating_point():
+                    d = d.to(torch.float64)
+                    parts.append(d if bad is None else d.masked_fill(bad, torch.nan))
+                else:
+                    parts.append(d)
+                    valid.append(None if bad is None else ~bad)
             i = channel(bases, parts)
-            base_shifts.append(None if owner_shift is None else owner_shift.to(torch.float64))
+            base_valid.append(None if all(v is None for v in valid) else
+                              [torch.ones_like(p, dtype=torch.bool) if v is None else v
+                               for p, v in zip(parts, valid)])
+            base_shifts.append(shift)
 
             def var(out, i=i, std=kind == "std", ddof=desc.ddof):
                 counts, v = out["moments"][i]
@@ -890,7 +897,8 @@ def _shuffle_channels(df, plan, shards):
                 return count
             finishers[name] = nunique
     return dict(int_cols=ints, float_cols=floats, ext_cols=exts, ext_modes=modes,
-                bases=bases, base_shifts=base_shifts, nu_cols=nus), finishers
+                bases=bases, base_shifts=base_shifts, base_valid=base_valid,
+                nu_cols=nus), finishers
 
 
 

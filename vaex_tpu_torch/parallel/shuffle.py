@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from . import collectives
+from .. import agg
 from ..agg import RESCUE_SCALE, VAR_TERMS, cancelled, cell_shift, variance
 from ..ops.grid_plan import grid_extremes, grid_sums, moment_sums
 
@@ -91,48 +92,72 @@ def owner_of(codes, G, gper, S):
                        S)
 
 
-def owner_variance(idx, x, shift, G):
+def owner_variance(idx, x, shift, G, valid=None):
     """(strategy, counts, var) of an owner's rows of a var channel per local
-    bin: x float64, NaN where a row does not count, ``shift`` the frame's
-    (or None).  The sums less the frame's shift; where a cell lost its
-    digits (:func:`..agg.cancelled`) or a sum is not finite, the sums again
-    less each cell's own mean (the owner holds every row of its cells), and
-    where a sum was not finite also over x * RESCUE_SCALE, taken where the
-    second sums are not finite either.  The decision is the owner's alone:
-    no collective follows it, and every owner gathers its var alike.
+    bin: x float64, NaN where a row does not count, or an int base's int64
+    words (a uint64 base's order image: :func:`..tasks.moment_data`), which
+    count where ``valid`` (None: every row); ``shift`` the frame's, an
+    int64 word for an int base.  An int base with rows that do not count is
+    shifted in int64 before its cast, as a tile's prolog shifts one
+    (:func:`..tasks.moment_prolog`).  The sums less the frame's shift;
+    where a cell lost its digits (:func:`..agg.cancelled`) or a sum is not
+    finite, the sums again less each cell's own mean (the owner holds every
+    row of its cells), and where a sum was not finite also over x *
+    RESCUE_SCALE, taken where the plain sums are not finite; further passes
+    follow :func:`..agg.settle`.  The decision is the owner's alone: no
+    collective follows it, and every owner gathers its var alike.
     ``owner_variance.retaken`` counts the owners that took cells again."""
-    name, counts, sums = moment_sums(idx, [x], VAR_TERMS, G, shift=[shift])
+    from ..tasks import moment_prolog
+    integer = x.dtype == torch.int64
+    missing = None if valid is None else ~valid
+
+    def moments(s, scale=1.0):
+        if integer:
+            base, s = moment_prolog(x, missing, s, idx)
+        else:
+            base, s = (x, s) if scale == 1.0 else (x * scale, s * scale)
+        return moment_sums(idx, [base], VAR_TERMS, G, shift=[s])
+
+    name, counts, sums = moments(shift)
     n = counts[0].to(torch.float64)
     var = variance(sums[1], sums[0], n)
     over = ~torch.isfinite(sums).all(0)
-    flag = cancelled(sums[1], sums[0], n) | over
+    flag = cancelled(sums[1], sums[0], n, integer) | over
     any_flag, any_over = torch.stack([flag.any(), over.any()]).tolist()  # one host read
-    if any_flag:
-        owner_variance.retaken += 1
-        table = cell_shift(shift, sums[0], n, False)
-        _, _, again = moment_sums(idx, [x], VAR_TERMS, G, shift=[table])
-        retaken = variance(again[1], again[0], n)
+    if not any_flag:
+        return name, counts[0], var
+    owner_variance.retaken += 1
+    table, k = cell_shift(shift, sums[0], n, integer), 1
+    while True:
+        _, _, again = moments(table)
+        retaken, scaled = variance(again[1], again[0], n), None
         if any_over:
-            _, _, tiny = moment_sums(idx, [x * RESCUE_SCALE], VAR_TERMS, G,
-                                     shift=[table * RESCUE_SCALE])
+            _, _, tiny = moments(table, RESCUE_SCALE)
             retaken = torch.where(torch.isfinite(again).all(0), retaken,
                                   variance(tiny[1], tiny[0], n) / RESCUE_SCALE / RESCUE_SCALE)
-        var = torch.where(flag, retaken, var)
-    return name, counts[0], var
+            scaled = tiny[0], tiny[1]
+        var, going_on = agg.settle(k, flag, var, retaken,
+                                   {"x": (table, (again[0], again[1], n), integer, scaled)},
+                                   lambda moved: bool(moved.any()))
+        if going_on is None:
+            return name, counts[0], var
+        flag, table, k = going_on[0], going_on[1]["x"], k + 1
 
 
 owner_variance.retaken = 0
 
 
 def shuffle_grids(mesh, codes, G, slack=4, int_cols=(), float_cols=(), ext_cols=(),
-                  ext_modes=(), bases=(), base_shifts=None, nu_cols=()):
+                  ext_modes=(), bases=(), base_shifts=None, base_valid=None, nu_cols=()):
     """Every kind of per-group aggregation in one all-to-all
     (vaex_tpu/parallel/shuffle.py:100-229): per local shard ``codes`` (int64,
     a code outside [0, G) drops the row), ``int_cols`` (int64, summed:
     exact mod 2^64), ``float_cols`` (float64, summed), ``ext_cols`` (min or
     max by ``ext_modes``; a row that must not count holds the mode's
-    identity), ``bases`` (float64 moment bases of a var: NaN where a row
-    does not count; ``base_shifts`` each one's shift, None: none, see
+    identity), ``bases`` (moment bases of a var: float64, NaN where a row
+    does not count, or an int base's int64 words, ``base_valid`` giving
+    the rows that count where some do not, None where all do or for a
+    float base; ``base_shifts`` each one's shift, None: none, see
     :func:`owner_variance`) and ``nu_cols`` ((int64 bits, int32 aux): distinct bits
     among the rows of aux 0; aux 1 NaN, 2 missing, 3 not counted; their
     presence rides ``int_cols``).  Each of these is a list over channels of
@@ -148,7 +173,10 @@ def shuffle_grids(mesh, codes, G, slack=4, int_cols=(), float_cols=(), ext_cols=
     gper = -(-G // S)
     packings = [Packing(owner_of(c, G, gper, S), S, cap) for c in codes]
     dropped = collectives.total([p.overflow for p in packings], mesh)
-    row_bytes = (8 + 8 * (len(int_cols) + len(float_cols) + len(bases)) + 12 * len(nu_cols)
+    base_valid = list(base_valid or [None] * len(bases))
+    valid_cols = [v for v in base_valid if v is not None]
+    row_bytes = (8 + 8 * (len(int_cols) + len(float_cols) + len(bases)) + len(valid_cols)
+                 + 12 * len(nu_cols)
                  + sum(parts[0].element_size() for parts in ext_cols))
     trace = {"shuffle": True, "G": int(G), "devices": S, "world": mesh.world, "rows": n_rows,
              "rows_per_device": n_local, "slack": slack, "capacity": cap,
@@ -160,7 +188,8 @@ def shuffle_grids(mesh, codes, G, slack=4, int_cols=(), float_cols=(), ext_cols=
     from ..ops.grid_extreme import identity
     channels = [(codes, -1)] + [(c, 0) for c in int_cols] + [(c, 0.0) for c in float_cols]
     channels += [(c, identity(c[0].dtype, m)) for c, m in zip(ext_cols, ext_modes)]
-    channels += [(c, float("nan")) for c in bases]
+    channels += [(c, 0 if c[0].dtype == torch.int64 else float("nan")) for c in bases]
+    channels += [(v, False) for v in valid_cols]
     for bits, aux in nu_cols:
         channels += [(bits, 0), (aux, NU_NONE)]
     t0 = time.perf_counter()  # host clock: the exchange's and the gather's walls
@@ -169,6 +198,9 @@ def shuffle_grids(mesh, codes, G, slack=4, int_cols=(), float_cols=(), ext_cols=
     k = 1 + len(int_cols) + len(float_cols)
     e = k + len(ext_cols)
     m = e + len(bases)
+    received_valid = iter(received[m:m + len(valid_cols)])
+    valid_of = [None if v is None else next(received_valid) for v in base_valid]
+    m += len(valid_cols)
     per_shard, strategies = [], {}
     for d in range(len(mesh.devices)):
         g = mesh.rank * len(mesh.devices) + d
@@ -185,8 +217,10 @@ def shuffle_grids(mesh, codes, G, slack=4, int_cols=(), float_cols=(), ext_cols=
             strategies["extremes"] = name
             out["ext"] = list(grids)
         out["moments"] = []
-        for r, shift in zip(received[e:m], base_shifts or [None] * len(bases)):
-            name, counts, var = owner_variance(idx, r[d], shift, gper)
+        for r, shift, v in zip(received[e:e + len(bases)], base_shifts or [None] * len(bases),
+                               valid_of):
+            name, counts, var = owner_variance(idx, r[d], shift, gper,
+                                               None if v is None else v[d])
             strategies["moments"] = name
             out["moments"].append((counts, var))
         out["nu"] = [_distinct(idx, received[j][d], received[j + 1][d], gper)

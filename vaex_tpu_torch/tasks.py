@@ -18,7 +18,7 @@ from .delayed import Promise
 from .ops.binners import fuse_bins, grid_shape, grid_size
 from .ops.grid_extreme import extreme_of_rows
 from .ops.grid_moments import MAX_BASES, MAX_TERMS, row_shift, shifted
-from .ops.nullable import NA, DictNA, unsigned_float
+from .ops.nullable import NA, DictNA
 from .ops.grid_plan import grid_extremes, grid_sums, grid_sums_and_extremes, moment_sums
 from .ops.setops import RowLimitException, SortedSet
 from .utils import fingerprint, identity
@@ -467,16 +467,19 @@ def _flush_strings(state):
 SHIFT_ROWS = 1024
 
 
-def _moment_data(x):
+def moment_data(x):
     """(values, missing rows or None) of one tile's NA: int64 for integer,
-    bool and temporal values (NaT missing), the unsigned float of uint64
-    bits, float32 or float64 for floats."""
+    bool and temporal values (NaT missing), float32 or float64 for floats;
+    for uint64 values their order image (:func:`.datatype.order_image`,
+    the value less 2^63 as an int64), so that a uint64 base and its shifts
+    subtract exactly in int64 as an int64 base's do: (x - 2^63) - (s - 2^63)
+    is x - s.  Only a shift's own value differs, by 2^63."""
     d, missing = x.data, x.mask
     if x.logical is not None and x.logical.kind in "mM":
         nat = d == NAT
         missing = nat if missing is None else missing | nat
-    if x.logical == UINT64:  # uint64 bits: their float value
-        d = unsigned_float(d)
+    if x.logical == UINT64:
+        d = order_image(d)
     elif d.is_floating_point():
         if d.dtype not in (torch.float32, torch.float64):
             d = d.to(torch.float64)
@@ -489,10 +492,16 @@ def moment_input(x, shift=None, idx=None):
     """(a base column of the moment kernels from one tile's NA, the shift
     the kernel subtracts from it): int64, float32 or float64, with NaN in
     the masked rows and the NaT rows of a datetime or timedelta (as
-    float64).  An int64 column that becomes float64 so (a masked int, a
-    datetime) is shifted here, in int64 before the cast (a table at each
-    row's bin in ``idx``, the tile's flat bins), and hands the kernel no
-    shift.
+    float64).  :func:`moment_prolog` of :func:`moment_data`."""
+    return moment_prolog(*moment_data(x), shift, idx)
+
+
+def moment_prolog(d, missing, shift=None, idx=None):
+    """The base and the kernel's shift of values ``d`` (int64, float32 or
+    float64) and their ``missing`` rows.  An int64 column that becomes
+    float64 so (a masked int, a datetime) is shifted here, in int64 before
+    the cast (:func:`.ops.grid_moments.shifted`: a table at each row's bin
+    in ``idx``, the tile's flat bins), and hands the kernel no shift.
 
     Shifted moments: ``shift`` is the same on every tile and shard, so that
     the shifted sums still merge by addition; var(x) = var(x - a) for any
@@ -501,7 +510,6 @@ def moment_input(x, shift=None, idx=None):
     digits, and the finisher takes such cells again in a second pass less a
     shift a cell, a [G] table of the cells' means (:mod:`.agg`,
     ``cell_shifted``)."""
-    d, missing = _moment_data(x)
     shift = None if shift is None else shift.to(d.device)
     if missing is not None:
         if d.dtype == torch.int64 and shift is not None:
@@ -528,11 +536,11 @@ def moment_shift(df, expression):
     """The shift of ``expression``'s moment base (:func:`moment_input`): its
     first valid value among the frame's first ``SHIFT_ROWS`` rows (filter
     or not), 0 where none is valid, NaN or infinite; an int64 0-d tensor for
-    integer and temporal values (their counts), float64 else, on the
-    device the rows are read on, never read by the host.  Evaluated once and
-    remembered on the dataset node (:func:`_shift_key`); over a mesh of
-    several processes rank 0's shift, broadcast, so that every shard
-    shifts alike."""
+    integer and temporal values (their counts) and for uint64 values (their
+    order image), float64 else, on the device the rows are read on, never read by
+    the host.  Evaluated once and remembered on the dataset node
+    (:func:`_shift_key`); over a mesh of several processes rank 0's shift,
+    broadcast, so that every shard shifts alike."""
     mesh = getattr(df.executor, "sharded", None)
     group = mesh is not None and mesh.group is not None
     memo = df.dataset.remembered
@@ -540,7 +548,7 @@ def moment_shift(df, expression):
     if key in memo and not group:
         return memo[key]
     n = min(SHIFT_ROWS, df.dataset.row_count)
-    d, missing = _moment_data(df._evaluate_tile(expression, 0, n, filtered=False))
+    d, missing = moment_data(df._evaluate_tile(expression, 0, n, filtered=False))
     valid = torch.ones_like(d, dtype=torch.bool) if missing is None else ~missing
     if d.is_floating_point():
         d = d.to(torch.float64)
