@@ -47,6 +47,8 @@ DENSE_RANK = "Do not port: the dense_rank hint of BinnerOrdinal"
 TILE_ROWS = "Do not port: TILE_ROWS_MIN / TILE_ROWS_MAX"
 FASTAPI = "Do not port: server/asgi.py create_fastapi_app, which checks no token"
 TAP = "Do not port: io/votable.py tap_query, which needs a network"
+STDERR_TRACE = ("Do not port: utils.trace, the VAEX_TPU_TRACE printer of a block's time to "
+                "stderr; the port records spans in memory (vaex_tpu_torch/tracing.py)")
 PALLAS = ("TPU design: vaex_tpu/ops/pallas_*.py, the Pallas kernels; their Hopper "
           "counterparts are vaex_tpu_torch/ops/grid_*.py and probe.py (ROADMAP queue B)")
 GRIDAGG = ("TPU design: vaex_tpu/ops/gridagg.py, the XLA and Pallas routes of the channel "
@@ -68,6 +70,8 @@ F32_SHUFFLE = ("TPU design: vaex_tpu/parallel/shuffle.py:116, channels summed ex
                "f32 on a chip without f64; the port's all-to-all sums f64")
 
 NOT_PORTED = {
+    "utils.trace": STDERR_TRACE,
+    "utils.TRACE": STDERR_TRACE,
     # modules
     "hostkern": HOSTKERN,
     "ops.gridagg": GRIDAGG,

@@ -48,6 +48,7 @@ import functools
 import numpy as np
 import torch
 
+from . import tracing
 from .datatype import NAT, UINT64, DataType, order_image
 from .delayed import delayed
 from .expression import Expression
@@ -505,7 +506,8 @@ class OpTopK(AggOperation):
     def update(self, state, idx, G, ctx):
         x = ctx.expr(self.expressions[0])
         valid = _counted(x, idx, G, self.dtype_in)
-        cells, values = idx[valid], x.data[valid]
+        with tracing.host_read("nth-rows", 2):
+            cells, values = idx[valid], x.data[valid]
         if x.logical == UINT64:  # uint64 values order as their images
             values = order_image(values)
         if not values.numel():
@@ -1092,7 +1094,8 @@ def _any_cells(df, *flags):
     if mesh is not None:
         from .parallel import collectives
         anys = collectives.reduce([anys], "or", mesh)
-    return anys.tolist()
+    with tracing.host_read("any-cells"):
+        return anys.tolist()
 
 
 def _picked(flag, a, b):
@@ -1146,7 +1149,8 @@ def settle(k, flag, answer, retaken, passes, any_cells):
     if not any_cells(moved):
         return merged, None
     if k == MAX_CELL_PASSES:
-        settle.unsettled += int(moved.sum())
+        with tracing.host_read("settle"):
+            settle.unsettled += int(moved.sum())
         return _nan_where(moved, merged), None
     settle.further += 1
     return merged, (still, nexts)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import tracing
 from .datatype import torch_dtype
 
 # the numpy kinds of string arrays (vaex_tpu/array_types.py:25)
@@ -73,7 +74,8 @@ def to_numpy(x, strict=False):
     an arrow string array as an object array of str, masked where null.
     ``strict`` changes nothing, as in vaex_tpu."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        with tracing.host_read("to-numpy"):
+            return x.detach().cpu().numpy()
     if isinstance(x, np.ndarray):  # includes np.ma.MaskedArray
         return x
     if is_arrow(x):

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from . import agg as agg_module
-from . import array_types, expresso, settings
+from . import array_types, expresso, settings, tracing
 from . import selections as selections_module
 from .column import (STRINGS, Column, ColumnDictionary, ColumnMasked, ColumnString,
                      ColumnHost, ColumnVirtualConstant, column_to, placed_device, tile_of)
@@ -1444,17 +1444,18 @@ class DataFrame:
         not a copy; ``progress`` changes nothing, as in vaex_tpu
         (vaex_tpu/dataframe.py:1739-1755)."""
         from .groupby import GroupBy
-        if agg is not None:
-            from .fused_groupby import try_fused_sort_groupby
-            result = try_fused_sort_groupby(self, by, agg, sort=sort, ascending=ascending,
-                                            row_limit=row_limit, delay=delay)
-            if result is not None:
-                return result
-        gb = GroupBy(self, by=by, sort=sort, ascending=ascending, combine=assume_sparse,
-                     row_limit=row_limit, copy=copy)
-        if agg is None:
-            return gb
-        return gb.agg(agg, delay=delay)
+        with tracing.span("groupby"):
+            if agg is not None:
+                from .fused_groupby import try_fused_sort_groupby
+                result = try_fused_sort_groupby(self, by, agg, sort=sort, ascending=ascending,
+                                                row_limit=row_limit, delay=delay)
+                if result is not None:
+                    return result
+            gb = GroupBy(self, by=by, sort=sort, ascending=ascending, combine=assume_sparse,
+                         row_limit=row_limit, copy=copy)
+            if agg is None:
+                return gb
+            return gb.agg(agg, delay=delay)
 
     def binby(self, by=None, agg=None, limits=None, shape=128, sort=False, delay=False,
               progress=None):
@@ -1463,10 +1464,11 @@ class DataFrame:
         (:class:`~vaex_tpu_torch.groupby.BinBy`), with ``delay`` in a
         fulfilled promise; ``progress`` changes nothing, as in vaex_tpu."""
         from .groupby import BinBy
-        bb = BinBy(self, by=by, limits=limits, shape=shape, sort=sort)
-        if agg is None:
-            return bb
-        return bb.agg(agg, delay=delay)
+        with tracing.span("binby"):
+            bb = BinBy(self, by=by, limits=limits, shape=shape, sort=sort)
+            if agg is None:
+                return bb
+            return bb.agg(agg, delay=delay)
 
     # ------------------------------------------------------------- set API
     def _set(self, expression, keep_counts=False, limit=None, limit_raise=True, delay=False):

@@ -69,6 +69,14 @@ row-writing tasks see the rows where they are.  ``trace_log`` records the
 shards and their rows under ``mesh``; the result cache keys a sharded
 pass's results by the mesh.
 
+While :mod:`.tracing` records, a pass is a ``pass`` span holding a ``tile``
+span a tile (its ``prolog``: the tile's inputs and filter; the binning is
+the aggregation task's own ``prolog``) and a ``finalize`` span (merge,
+finalize, the cache store).  Its ``trace_log`` entry splits its host time
+``wall_s`` into ``enqueue_s`` (start to the end of the tile loop) and
+``finalize_s``, and counts its blocking host reads (``syncs``), recording
+or not.
+
 Not ported yet (ROADMAP queue A): the whole-pass loop.
 """
 
@@ -79,7 +87,7 @@ import time
 
 import torch
 
-from . import cache, settings
+from . import cache, settings, tracing
 from .column import column_key, column_to, placed_device, slice_column, tile_of
 from .stream import TileStream, is_host_column, ring_tile_rows, stream_mode
 from .datatype import rides_logical
@@ -87,7 +95,7 @@ from .ops.nullable import NA, DictNA
 from .scopes import (DeviceScope, HostScope, column_names, expression_is_device, host_chunk,
                      resolve_variables, ship, variable_names)
 from .tasks import TaskAggregations
-from .utils import Signal, trace
+from .utils import Signal
 
 logger = logging.getLogger("vaex_tpu_torch.execution")
 
@@ -189,7 +197,7 @@ class ExecutorLocal(Executor):
         while self.tasks:
             df, tasks = self._pop_tasks()
             try:
-                with trace(f"pass[{','.join(t.name for t in tasks)}]"):
+                with tracing.span("pass"):
                     self._execute_pass(df, tasks)
             except Exception as e:
                 for task in tasks:
@@ -199,6 +207,7 @@ class ExecutorLocal(Executor):
 
     def _execute_pass(self, df, tasks):
         t_start = time.perf_counter()
+        syncs = tracing.host_read.count
         self.signal_begin.emit()
         mesh = self.sharded
         tasks = _from_cache(df, tasks, mesh)
@@ -233,17 +242,20 @@ class ExecutorLocal(Executor):
             for shard_inputs, r1, r2, t in walks:
                 states = [task.initial_state(shard_inputs.device, r2 - r1) for task in tasks]
                 for i1 in range(r1, max(r2, r1 + 1), t):
-                    i2 = min(i1 + t, r2)
-                    streamed = None
-                    if tiles is not None:
-                        j1, j2, streamed = next(tiles)
-                        if (j1, j2) != (i1, i2):
-                            raise RuntimeError(f"the stream gave rows {(j1, j2)} for {(i1, i2)}")
-                    ctx = shard_inputs.context(df, dataset, i1, i2, streamed)
-                    ctx.base = r1
-                    if filter_expression is not None:
-                        ctx.row_valid = ctx.boolean(filter_expression)
-                    states = [task.update(s, ctx) for task, s in zip(tasks, states)]
+                    with tracing.span("tile"):
+                        i2 = min(i1 + t, r2)
+                        streamed = None
+                        if tiles is not None:
+                            j1, j2, streamed = next(tiles)
+                            if (j1, j2) != (i1, i2):
+                                raise RuntimeError(
+                                    f"the stream gave rows {(j1, j2)} for {(i1, i2)}")
+                        with tracing.span("prolog"):
+                            ctx = shard_inputs.context(df, dataset, i1, i2, streamed)
+                            ctx.base = r1
+                            if filter_expression is not None:
+                                ctx.row_valid = ctx.boolean(filter_expression)
+                        states = [task.update(s, ctx) for task, s in zip(tasks, states)]
                     n_tiles += 1
                     done += i2 - i1
                     progress = done / n_total if n_total else 1.0
@@ -258,18 +270,27 @@ class ExecutorLocal(Executor):
                 stream.close()
         if stream is not None:
             stream.commit()
-        if mesh is None:
-            states = shard_states[0]
-        else:
-            states = [task.merge([s[k] for s in shard_states], mesh)
-                      for k, task in enumerate(tasks)]
-        for task, state in zip(tasks, states):
-            task.finalize(state)
-            if getattr(task, "_cache_key", None) is not None:
-                cache.store(task._cache_key, task.result)
+        t_loop = time.perf_counter()
+        with tracing.span("finalize"):
+            if mesh is None:
+                states = shard_states[0]
+            else:
+                states = [task.merge([s[k] for s in shard_states], mesh)
+                          for k, task in enumerate(tasks)]
+            for task, state in zip(tasks, states):
+                task.finalize(state)
+                if getattr(task, "_cache_key", None) is not None:
+                    cache.store(task._cache_key, task.result)
+        t_end = time.perf_counter()
         self.trace_log.append({
             "pass": self.passes,
-            "wall_s": time.perf_counter() - t_start,  # host enqueue time
+            # the pass's host time, call to return; the enqueue of its tiles
+            # (start to the end of the tile loop); merge, finalize and the
+            # cache store; the blocking host reads it made (tracing.host_read)
+            "wall_s": time.perf_counter() - t_start,
+            "enqueue_s": t_loop - t_start,
+            "finalize_s": t_end - t_loop,
+            "syncs": tracing.host_read.count - syncs,
             "rows": n_total,
             "tile_rows": walks[0][3],
             "tiles": n_tiles,

@@ -79,14 +79,13 @@ import time
 import numpy as np
 import torch
 
-from . import cache
+from . import cache, tracing
 from .agg import interp_order_stats
 from .column import ColumnDictionary, tile_of
 from .datatype import DataType
 from .execution import _pass_device
 from .expression import Expression
 from .ops.grid_moments import shifted
-from .utils import trace
 
 # the most rows the one sort takes (vaex_tpu/tasks.py:146)
 DENSE_RANK_MAX_ROWS = 1 << 27
@@ -176,7 +175,7 @@ def _fused_sort_groupby(df, by, actions, ascending, row_limit):
     plan = _agg_plan(df, parse_actions(df, key_names, actions))
     if plan is None:
         return None
-    with trace("one-sort candidates pre-pass"):
+    with tracing.span("plan"):
         info = _dense_candidates(key_names, df, row_limit)
     if any(info[name][2] != n for name in key_names if name in info):
         return None  # a key with missing values
@@ -200,7 +199,7 @@ def _fused_sort_groupby(df, by, actions, ascending, row_limit):
         result = from_dict(dict(columns))
         result.dataset.device = next(iter(columns.values())).device
     else:
-        with trace("one-sort groupby"):
+        with tracing.span("one-sort"):
             result = _run(df, key_names, plan, ascending[0], info, mesh)
         if result is None:
             return None
@@ -279,6 +278,7 @@ def _run(df, key_names, plan, ascending, remembered, mesh=None):
     forgets it."""
     from .groupby import _forget
     t_start = time.perf_counter()
+    syncs = tracing.host_read.count
     dataset = df.dataset_for_execution()
     names = sorted(set(key_names) | {p[0] for _, kind, p in plan if p is not None})
     if mesh is None:
@@ -295,8 +295,9 @@ def _run(df, key_names, plan, ascending, remembered, mesh=None):
         return None
     keys = [[shard[name].to(torch.int64) for name in key_names] for shard in shards]
     # per shard one read of every key's (min, max); an empty shard bounds nothing
-    bounds = [torch.stack([torch.stack(torch.aminmax(k)) for k in ks]).tolist()
-              if ks[0].numel() else [(2 ** 63 - 1, -2 ** 63)] * len(ks) for ks in keys]
+    with tracing.host_read("key-bounds", sum(1 for ks in keys if ks[0].numel())):
+        bounds = [torch.stack([torch.stack(torch.aminmax(k)) for k in ks]).tolist()
+                  if ks[0].numel() else [(2 ** 63 - 1, -2 ** 63)] * len(ks) for ks in keys]
     if mesh is None:
         bounds = [(min(b[i][0] for b in bounds), max(b[i][1] for b in bounds))
                   for i in range(len(key_names))]
@@ -323,12 +324,22 @@ def _run(df, key_names, plan, ascending, remembered, mesh=None):
             df.executor.trace_log.append(record)
             return None
         out, G, n_rows = done
+    t_sorted = time.perf_counter()
     if not ascending:
         out = {name: v.flip(0) for name, v in out.items()}
+    from . import from_dict
+    result = from_dict(out)
+    result.dataset.device = device
+    t_end = time.perf_counter()
     df.executor.passes += 1
     df.executor.trace_log.append({
         "pass": df.executor.passes,
+        # as a pass's (execution.py): host time call to return, then its
+        # enqueue (loads, the sort, the reductions) and the result frame
         "wall_s": time.perf_counter() - t_start,
+        "enqueue_s": t_sorted - t_start,
+        "finalize_s": t_end - t_sorted,
+        "syncs": tracing.host_read.count - syncs,
         "rows": n_rows,
         "device": str(device),
         "groupby": "one-sort",
@@ -337,9 +348,6 @@ def _run(df, key_names, plan, ascending, remembered, mesh=None):
         "groups": G,
         **record,
     })
-    from . import from_dict
-    result = from_dict(out)
-    result.dataset.device = device
     return result
 
 
@@ -381,8 +389,9 @@ def _run_mesh(mesh, packed, shards, key_names, plan, spans, words, pct_name, rec
     S = mesh.size
     values = [n for n in shards[0] if n not in key_names]
     # per shard one read of the leading word's (min, max)
-    bounds = [torch.stack(torch.aminmax(w[0])).tolist() if w[0].numel() else (2 ** 62, -1)
-              for w in packed]
+    with tracing.host_read("word-bounds", sum(1 for w in packed if w[0].numel())):
+        bounds = [torch.stack(torch.aminmax(w[0])).tolist() if w[0].numel() else (2 ** 62, -1)
+                  for w in packed]
     kmin = collectives.extreme([lo for lo, _ in bounds], "min", mesh)
     kmax = collectives.extreme([hi for _, hi in bounds], "max", mesh)
     width = max((kmax - kmin) // S + 1, 1)
@@ -447,13 +456,16 @@ def _reduce(packed, columns, key_names, plan, spans, words, pct_name):
     order, lead = _order(packed, pct_values)
     sorted_words = [lead] + [w[order] for w in packed[1:]]
     start = torch.zeros(order.shape[0], dtype=torch.bool, device=device)
-    start[0] = True
+    with tracing.host_read("segment-start"):  # a copy from the host
+        start[0] = True
     for w in sorted_words:
         start[1:] |= w[1:] != w[:-1]
-    starts = torch.nonzero(start).squeeze(1)
+    with tracing.host_read("segments"):
+        starts = torch.nonzero(start).squeeze(1)
     G = starts.shape[0]
     seg = torch.cumsum(start, 0) - 1
-    counts = torch.diff(starts, append=starts.new_tensor([order.shape[0]]))
+    with tracing.host_read("segment-end"):  # a copy from the host
+        counts = torch.diff(starts, append=starts.new_tensor([order.shape[0]]))
 
     def seg_sum(values, dtype):
         out = torch.zeros(G, dtype=dtype, device=device)

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from . import agg as agg_module
+from . import tracing
 from .agg import AggregatorDescriptor
 from .expression import Expression
 from . import array_types
@@ -52,7 +53,7 @@ from .column import ColumnDictionary, placed_device
 from .dataset import DatasetArrays
 from .ops.binners import BinnerOrdinal, BinnerScalar
 from .ops.setops import RowLimitException  # noqa: F401  (vaex_tpu exports it here too)
-from .utils import fingerprint, trace
+from .utils import fingerprint
 
 # a sharded groupby of more groups than this exchanges its rows (the
 # all-to-all of :mod:`.parallel.shuffle`) instead of giving every shard the
@@ -192,8 +193,7 @@ class GrouperCombined:
         outside = [df.count(selection=f"(({g.expression}) < {g.lo}) | "
                                       f"(({g.expression}) > {g.lo + g.N - 1})", delay=True)
                    for g in groupers if g.dense]
-        with trace("grouper-combined set build"):
-            self.set = df._set(self.expression, limit=row_limit)
+        self.set = df._set(self.expression, limit=row_limit)
         if any(int(count.get()) for count in outside):
             raise StaleRange(self.expression)
         self.N = self.set.n_keys
@@ -201,8 +201,7 @@ class GrouperCombined:
         self.ordinal_expression = f"_ordinal_values({self.expression}, {var})"
         self.binner = BinnerOrdinal(self.ordinal_expression, 0, self.N)
         self.sort_indices = None
-        with trace("grouper-combined decode"):
-            self.bin_values_per_key = self._decode(multipliers)
+        self.bin_values_per_key = self._decode(multipliers)
 
     def _decode(self, multipliers):
         """Per grouper the bin value of every fused key: one floor-divide
@@ -243,7 +242,9 @@ def _key_column(g, codes):
     :class:`ColumnDictionary` over string labels, a host gather else."""
     if getattr(g, "arrow_labels", None) is not None:
         return ColumnDictionary(codes.to(torch.int32), g.arrow_labels)
-    return g.bin_values_raw[codes.cpu().numpy()]
+    with tracing.host_read("key-codes"):
+        codes = codes.cpu().numpy()
+    return g.bin_values_raw[codes]
 
 
 class BinnerTime:
@@ -332,7 +333,8 @@ def _sampled_range_too_wide(df, name):
     wide = False
     if len(col):
         sample = col[::max(1, len(col) // 4096)]
-        wide = int(sample.max()) - int(sample.min()) + 1 > DENSE_RANGE_MAX
+        with tracing.host_read("sample-range", 2):
+            wide = int(sample.max()) - int(sample.min()) + 1 > DENSE_RANGE_MAX
     mesh = getattr(df.executor, "sharded", None)
     if mesh is not None and mesh.group is not None:
         # each process samples its own rows: one wide sample makes the
@@ -493,18 +495,19 @@ class GroupByBase:
     def _plan(self):
         """The groupers and binners, from what is remembered of the keys'
         ranges or from a fresh pre-pass."""
-        raw = [key for key in self.by_keys
-               if not isinstance(key, BinnerTime) and not self.df.is_category(key)]
-        with trace("dense-candidates pre-pass"):
+        with tracing.span("plan"):
+            raw = [key for key in self.by_keys
+                   if not isinstance(key, BinnerTime) and not self.df.is_category(key)]
             dense_info = _dense_candidates(raw, self.df, self.row_limit)
-        self.groupers = [_make_grouper(key, self.df, self.sort, asc, self.row_limit, dense_info)
-                         for key, asc in zip(self.by_keys, self.ascending)]
-        self.combined = None
-        self.by = self.groupers
-        if len(self.groupers) > 1 and _should_combine(self.groupers, self.combine):
-            self.combined = GrouperCombined(self.groupers, self.df, row_limit=self.row_limit)
-            self.by = [self.combined]
-        self.binners = tuple(g.binner for g in self.by)
+            self.groupers = [_make_grouper(key, self.df, self.sort, asc, self.row_limit,
+                                           dense_info)
+                             for key, asc in zip(self.by_keys, self.ascending)]
+            self.combined = None
+            self.by = self.groupers
+            if len(self.groupers) > 1 and _should_combine(self.groupers, self.combine):
+                self.combined = GrouperCombined(self.groupers, self.df, row_limit=self.row_limit)
+                self.by = [self.combined]
+            self.binners = tuple(g.binner for g in self.by)
 
     @property
     def groupby_expression(self):
@@ -579,8 +582,14 @@ class GroupBy(GroupByBase):
             counts = next((p for _, desc, p in promises if _is_count_star(desc)), None)
             if counts is None:
                 [counts] = agg_module.count("*").add_tasks(self.df, self.binners)
-        with trace("groupby agg pass (execute)"):
-            self.df.execute()
+        self.df.execute()
+        with tracing.span("assemble"):
+            return self._assemble(promises, counts, ndim)
+
+    def _assemble(self, promises, counts, ndim):
+        """The result frame from the pass's grids: the edges stripped, a
+        dense grouper's edge cells checked (:class:`StaleRange`), the cells
+        some row has kept."""
         grids = {name: agg_module.extract_central(p.get(), ndim) for name, _, p in promises}
         self._logical = {name: desc.logical_dtype(self.df) for name, desc, _ in promises}
         if counts is not None:
@@ -589,16 +598,18 @@ class GroupBy(GroupByBase):
             # the range the grouper was built on
             for axis, g in enumerate(self.by):
                 if g.dense:
-                    edges = torch.tensor([0, 1, g.N + 2], device=counts.device)
-                    if int(counts.index_select(axis, edges).sum()):
+                    with tracing.host_read("edge-index"):  # a copy from the host
+                        edges = torch.tensor([0, 1, g.N + 2], device=counts.device)
+                    with tracing.host_read("edge-check"):
+                        stale = int(counts.index_select(axis, edges).sum())
+                    if stale:
                         raise StaleRange(g.expression)
             counts = agg_module.extract_central(counts, ndim)
-        with trace("groupby assemble"):
-            if self.combined is not None:
-                return self._assemble_combined(grids)
-            if ndim == 1:
-                return self._assemble_one(grids, counts)
-            return self._assemble_cartesian(grids, counts)
+        if self.combined is not None:
+            return self._assemble_combined(grids)
+        if ndim == 1:
+            return self._assemble_one(grids, counts)
+        return self._assemble_cartesian(grids, counts)
 
     def _try_shuffle_agg(self, parsed):
         """The result through the all-to-all (:mod:`.parallel.shuffle`), or
@@ -628,20 +639,20 @@ class GroupBy(GroupByBase):
                 parts.append(f"(astype({g.ordinal_expression}, 'int64') * {mult})")
                 mult *= n
             ordinal = " + ".join(parts[::-1])
-        with trace("shuffle groupby (all-to-all)"):
-            out = _run_shuffle_plan(self.df, ordinal, plan, G, mesh,
-                                    dense=[g.expression for g in self.by if g.dense])
+        out = _run_shuffle_plan(self.df, ordinal, plan, G, mesh,
+                                dense=[g.expression for g in self.by if g.dense])
         if out is None:
             return None
         grids, counts = out
         self._logical = {name: desc.logical_dtype(self.df) for name, desc in parsed}
         grids = {name: grid.reshape(shape) for name, grid in grids.items()}
         counts = counts.reshape(shape)
-        if self.combined is not None:
-            return self._assemble_combined(grids)
-        if len(self.by) == 1:
-            return self._assemble_one(grids, counts)
-        return self._assemble_cartesian(grids, counts)
+        with tracing.span("assemble"):
+            if self.combined is not None:
+                return self._assemble_combined(grids)
+            if len(self.by) == 1:
+                return self._assemble_one(grids, counts)
+            return self._assemble_cartesian(grids, counts)
 
     def _assemble_one(self, grids, counts):
         """One key: its bins in order; of a dense grouper the bins some row
@@ -649,7 +660,8 @@ class GroupBy(GroupByBase):
         g = self.groupers[0]
         keys, order = g.bin_values, None
         if g.dense:
-            order = torch.nonzero(counts > 0).squeeze(1)
+            with tracing.host_read("compact"):
+                order = torch.nonzero(counts > 0).squeeze(1)
             if g.sort_indices is not None:
                 order = order.flip(0)
             keys = order + g.lo
@@ -669,9 +681,13 @@ class GroupBy(GroupByBase):
         (vaex_tpu/groupby.py:963-982).  Unlike vaex_tpu, which sorts them
         ascending whatever ``ascending`` says, each key sorts in its own
         direction."""
-        keep = torch.nonzero(counts.reshape(-1) > 0).squeeze(1)
-        cells = np.unravel_index(keep.cpu().numpy(), tuple(counts.shape))
-        columns = {name: _key_column(g, torch.as_tensor(codes).to(keep.device))
+        with tracing.host_read("compact"):
+            keep = torch.nonzero(counts.reshape(-1) > 0).squeeze(1)
+        with tracing.host_read("cells"):
+            cells = np.unravel_index(keep.cpu().numpy(), tuple(counts.shape))
+        with tracing.host_read("cell-codes", len(cells)):  # copies from the host
+            cells = [torch.as_tensor(codes).to(keep.device) for codes in cells]
+        columns = {name: _key_column(g, codes)
                    for name, g, codes in zip(self.by_names, self.groupers, cells)}
         for name, grid in grids.items():
             columns[name] = grid.reshape(-1)[keep.to(grid.device)]

@@ -142,6 +142,11 @@ pass's running state, which every route leaves holding their old value plus
 the tile's (the min / max of both for the extremes), in place; ``sort``
 scatters straight into them (:mod:`.grid_sort`), the kernels' tile grids
 are added into them.
+
+While :mod:`..tracing` records, each of :func:`grid_sums`,
+:func:`moment_sums`, :func:`grid_extremes` and
+:func:`grid_sums_and_extremes` is a ``launch:<route>`` span, from its entry
+to the return of its kernel's enqueue.
 """
 
 from __future__ import annotations
@@ -149,6 +154,7 @@ from __future__ import annotations
 import torch
 
 from . import grid_additive, grid_moments, grid_partition, grid_sort, grid_window
+from .. import tracing
 from .grid_additive import MAX_COLS, n_channels
 
 B1, B2, B3, B4, B5 = "b1", "b2", "b3", "b4", "b5"
@@ -303,6 +309,7 @@ def _column_sums(idx, int_cols, float_cols, G, count, out):
             torch.stack(float_rows) if float_rows else _empty(idx, G, torch.float64))
 
 
+@tracing.launched
 def grid_sums(idx, int_cols, float_cols, G, count, out=None):
     """(strategy, int_sums, float_sums) through the route the plan picks;
     ``out`` (int rows, float rows: per channel, the count first, a [G] int64
@@ -347,6 +354,7 @@ def moment_strategy(n, G, C, n_count=1, compiled=0, nb_table=0):
     return _wide(n, G, C)
 
 
+@tracing.launched
 def moment_sums(idx, bases, terms, G, out=None, shift=None):
     """(strategy, counts, sums) of the moment terms (the contract of
     :mod:`.grid_moments`, each base less its ``shift``: a constant or a [G]
@@ -424,6 +432,7 @@ def _taken(out, grids, modes):
         row, g, out=row) for row, g, mode in zip(out, grids, modes)]
 
 
+@tracing.launched
 def grid_extremes(idx, cols, modes, valids, G, out=None):
     """(strategy, grids): the per-bin extremes of any number of columns
     through B3x, in calls of :func:`_extreme_batch` columns, or all of them
@@ -462,6 +471,7 @@ def _apart(G, name, C, count, n_cols):
     return name == B3_L2 and n_cols >= B3X_APART_MIN_COLS
 
 
+@tracing.launched
 def grid_sums_and_extremes(idx, int_cols, float_cols, G, count, cols, modes, valids,
                            out=None, ext_out=None):
     """(additive strategy, extreme strategy, shared, int_sums, float_sums,

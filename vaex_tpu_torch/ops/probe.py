@@ -38,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from . import kernel_build
+from .. import tracing
 
 # mirrors SMEM_BUDGET / MAX_LEVELS in csrc/probe.cu (checked at load)
 SMEM_BUDGET = 227 * 1024
@@ -335,10 +336,17 @@ def probe(keys, x, tree=None):
     tensors take the plain version; CUDA tensors launch the kernel on
     ``tree`` (built here when not given: :func:`build_tree`), or raise.
     ``probe.launches`` counts the launches, ``probe.wide_launches`` those of
-    the ``b6-wide`` route."""
+    the ``b6-wide`` route.  A ``launch:<route>`` span (:mod:`..tracing`)
+    holds the call, ``launch:plain`` on the CPU."""
+    return _probe(keys, x, tree)[1]
+
+
+@tracing.launched
+def _probe(keys, x, tree):
+    """(route, ordinals): :func:`probe`'s."""
     check_inputs(keys, x)
     if x.device.type == "cpu":
-        return probe_reference(keys, x)
+        return "plain", probe_reference(keys, x)
     if x.device.type != "cuda":
         raise ValueError(f"probe runs on CPU or CUDA tensors, not {x.device}")
     M, n = keys.shape[0], x.shape[0]
@@ -375,7 +383,7 @@ def probe(keys, x, tree=None):
     kernel_build.raise_on_error(lib, "probe", err)
     probe.launches += 1
     probe.wide_launches += int(tree.route == B6_WIDE)
-    return out
+    return tree.route, out
 
 
 probe.launches = 0

@@ -13,6 +13,7 @@ import functools
 import numpy as np
 import torch
 
+from . import tracing
 from .datatype import NAT, UINT64, DataType, host_values, order_image
 from .delayed import Promise
 from .ops.binners import fuse_bins, grid_shape, grid_size
@@ -130,8 +131,9 @@ class TaskAggregations(Task):
         for i, op in enumerate(self.subtasks):
             kinds.setdefault(op.kind, []).append(i)
         # without binners the extremes reduce the valid rows and need no index
-        idx = (self._flat_indices(ctx, kinds.keys()) if self.binners or kinds.keys() - {"extreme"}
-               else None)
+        with tracing.span("prolog"):
+            idx = (self._flat_indices(ctx, kinds.keys())
+                   if self.binners or kinds.keys() - {"extreme"} else None)
         # the extremes of a binned task ride the additive batch's call
         riders = kinds.get("extreme", []) if self.binners else []
         if "additive" in kinds or riders:
@@ -350,7 +352,8 @@ class TaskSetCreate(Task):
         drop = None if keep is None else ~keep
         if x.mask is not None:
             null = x.mask if keep is None else x.mask & keep
-            state["null"] += int(null.sum())
+            with tracing.host_read("null-count"):
+                state["null"] += int(null.sum())
             drop = x.mask if drop is None else drop | x.mask
         if state["labels"] is not x.labels:
             _flush_strings(state)
@@ -376,11 +379,13 @@ class TaskSetCreate(Task):
             missing = nat if missing is None else missing | nat
         if missing is not None:
             null = missing if keep is None else missing & keep
-            state["null"] += int(null.sum())
+            with tracing.host_read("null-count"):
+                state["null"] += int(null.sum())
             keep = ~missing if keep is None else keep & ~missing
         if data.is_floating_point():
             nan = torch.isnan(data) if keep is None else torch.isnan(data) & keep
-            n_nan = int(nan.sum())
+            with tracing.host_read("nan-count"):
+                n_nan = int(nan.sum())
             if n_nan:
                 state["nan"] += n_nan
                 keep = ~nan if keep is None else keep & ~nan
@@ -554,7 +559,10 @@ def moment_shift(df, expression):
         d = d.to(torch.float64)
         valid &= torch.isfinite(d)
     zero = torch.zeros((), dtype=d.dtype, device=d.device)
-    shift = zero if n == 0 else torch.where(valid.any(), d[valid.to(torch.uint8).argmax()], zero)
+    shift = zero
+    if n:  # the first valid row's value (indexed by a device scalar: a host read)
+        with tracing.host_read("shift-row"):
+            shift = torch.where(valid.any(), d[valid.to(torch.uint8).argmax()], zero)
     if group:
         from .parallel import collectives
         shift = collectives.broadcast(shift, mesh)

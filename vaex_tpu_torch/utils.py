@@ -1,4 +1,4 @@
-"""Small shared helpers: fingerprints, name mangling, tracing.
+"""Small shared helpers: fingerprints, name mangling.
 
 Fingerprints are stable content hashes of (nested) Python values, numpy
 arrays and torch tensors, used to identify datasets and frames.
@@ -6,14 +6,11 @@ arrays and torch tensors, used to identify datasets and frames.
 
 from __future__ import annotations
 
-import contextlib
 import hashlib
 import itertools
 import keyword
 import os
 import re
-import sys
-import time
 
 import numpy as np
 import torch
@@ -162,22 +159,3 @@ def ceil_div(a: int, b: int) -> int:
 def round_up(a: int, b: int) -> int:
     """``a`` rounded up to a multiple of ``b``."""
     return ceil_div(a, b) * b
-
-
-TRACE = os.environ.get("VAEX_TPU_TORCH_TRACE", "") not in ("", "0")
-
-
-@contextlib.contextmanager
-def trace(name):
-    """Env-gated stage tracing (VAEX_TPU_TORCH_TRACE=1): prints the host wall
-    time of the wrapped block to stderr.  Device work is asynchronous, so a
-    span measures what the host waited for, not what the card did."""
-    if not TRACE:
-        yield
-        return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        print(f"[trace] {name}: {(time.perf_counter() - t0) * 1e3:.1f} ms",
-              file=sys.stderr, flush=True)
