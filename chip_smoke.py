@@ -161,8 +161,11 @@ Run from the root of the repository on a machine with a CUDA card.  It
     keys for q10; keys, ints, counts, min / max, top-k and medians exact,
     sums and means within the bound of phase 4, sd and r2 within it carried
     through their formulas), q10 on the one-sort route in its unpacked mode,
-    with B1, B2, b3-l2, B5 and b3x-l2 launched; then each question timed
-    against plain torch (5 repetitions, medians);
+    with B1, B2, b3-l2, B5, b3x-l2 and b3x-l2-topk launched (q8: a call of
+    the top-k's rounds kernel for each op and tile, no tile on the sort);
+    the rounds kernel at q8's shape (k = 1 and 2, both ends) exact against
+    its plain version and the op's sort, and timed beside them; then each
+    question timed against plain torch (5 repetitions, medians);
 18. drives BASELINE config 4, a join with isin and value_counts, with the
     shapes of benchmarks/join_isin.py:28-37 made on the card from seed 42:
     first the join's edges at 1e6 x 1e5 rows against a plain torch join
@@ -507,7 +510,8 @@ SET_KEYS = {"k100": 100, "k2000": 2000, "k1e6": H2O_K6}
 # their launches in the config 2 phase; every kernel's launches in the
 # config 3 and config 4 phases ("config3_launches", "config4_launches"); for
 # B6 its time at config 4's join (the 1e9 fact keys among the 1e7 dim keys),
-# J1's launches and the ms of J1's copies to the host
+# J1's launches and the ms of J1's copies to the host; for b3x-l2-topk its
+# times at q8's k = 1 ("k1_*") beside k = 2's
 EXTRA_KEYS = ("phase31_word_ms", "phase31_table_ms", "phase31_var_word_ms",
               "phase31_var_table_ms", "phase21_l2_launches", "library_add_ms", "isin_ms", "wide_launches", "wide_ms", "wide_plain_ms",
               "config2_launches", "wide_library_ms", "wide_isin_ms", "wide_bound_ms", "wide_max_abs_err",
@@ -517,7 +521,10 @@ EXTRA_KEYS = ("phase31_word_ms", "phase31_table_ms", "phase31_var_word_ms",
               "var_library_ms", "var_max_abs_err", "g1_ms", "g1_plain_ms", "g1_bound_ms",
               "g1_library_ms", "g1_max_abs_err", "warp_ms", "join_ms", "join_plain_ms",
               "join_library_ms", "join_bound_ms", "join_max_abs_err", "join_route",
-              "j1_launches", "j1_dtoh_ms")
+              "j1_launches", "j1_dtoh_ms", "k1_ms", "k1_plain_ms", "k1_bound_ms",
+              "k1_library_ms")
+# b3x-l2-topk's keys at k = 1 beside those at k = 2 (q8's two ops)
+TOPK_K1_KEYS = ("ms", "plain_ms", "bound_ms", "library_ms")
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"int": 67e12, "f64": 33.5e12}
 
@@ -2116,13 +2123,15 @@ def launch_counts(plan, gp):
               for name, kernel in {**plan.KERNELS, **plan.MOMENT_KERNELS}.items()}
     direct = gp.grid_partition_extreme.direct_launches
     counts.update({plan.B3X: gp.grid_partition_extreme.launches - direct,
-                   plan.B3X_DIRECT: direct, plan.B3X_L2: gp.grid_resident_extreme.launches})
+                   plan.B3X_DIRECT: direct, plan.B3X_L2: gp.grid_resident_extreme.launches,
+                   plan.B3X_L2_TOPK: plan.grid_topk.grid_topk.launches})
     return counts
 
 
 def zero_launches(plan, gp):
     for kernel in (*plan.KERNELS.values(), *plan.MOMENT_KERNELS.values(),
-                   gp.grid_partition_extreme, gp.grid_resident_extreme):
+                   gp.grid_partition_extreme, gp.grid_resident_extreme,
+                   plan.grid_topk.grid_topk):
         kernel.launches = 0
     gp.grid_partition_extreme.direct_launches = 0
 
@@ -2433,8 +2442,10 @@ CONFIG3_ROWS = 100_000_000
 CONFIG3_K = 100
 CONFIG3_KEYS = ("id1", "id2", "id3", "id4", "id5", "id6")
 # the kernels the phase must launch: B1 (q1, q4), B2 (q2, q9's count grid),
-# b3-l2 (q3, q5), B5 (q6's sd, q9's corr), b3x-l2 (q7)
-CONFIG3_KERNELS = ("b1", "b2", "b3-l2", "b5", "b3x-l2")
+# b3-l2 (q3, q5), B5 (q6's sd, q9's corr), b3x-l2 (q7), b3x-l2-topk (q8)
+CONFIG3_KERNELS = ("b1", "b2", "b3-l2", "b5", "b3x-l2", "b3x-l2-topk")
+# q8's top-k ops: nth_largest(v3, 0) and nth_largest(v3, 1), k = 1 and 2
+CONFIG3_TOPK_KS = (1, 2)
 
 
 def config3_span(key, n):
@@ -2685,20 +2696,77 @@ def config3_drive(vt, df, n, device):
     return routes
 
 
-def config3_path(vt, plan, gp, probe, label, n=CONFIG3_ROWS):
+def topk_timing(cols, plan, agg, label):
+    """The top-k's rounds kernel (``b3x-l2-topk``) at q8's shape, on the
+    config 3 table's own id6 and v3: for k = 1 and 2, largest and smallest,
+    exact against its plain version and against the op's sort
+    (``agg.topk_sort``, which it replaces); then, largest, its time beside
+    theirs and its bound (a round reads idx 4 B and the value 8 B a row and
+    compares once; the [G, k] state read and written once).  Returns the
+    kernel line's keys at k = 2 and ``k1_*`` at k = 1."""
+    gt = plan.grid_topk
+    idx, v = cols["id6"].to(torch.int32), cols["v3"]
+    n, G = idx.shape[0], int(idx.max()) + 1
+    valid = idx >= 0
+    out, err = {}, 0.0
+    for k in CONFIG3_TOPK_KS:
+        check(plan.topk_strategy(G, k, v.dtype, "cuda") == plan.B3X_L2_TOPK,
+              f"q8's shape (G = {G}, k = {k}) takes b3x-l2-topk")
+
+        def states(largest):
+            return [torch.full((G, k), gt.fill(v.dtype, largest), dtype=v.dtype,
+                               device=idx.device) for _ in range(2)]
+        for largest in (True, False):
+            got, want = states(largest)
+            gt.grid_topk(idx, v, None, G, k, largest, got)
+            gt.grid_topk_reference(idx, v, None, G, k, largest, want)
+            check(torch.equal(got, want), f"b3x-l2-topk k = {k} largest = {largest} against "
+                                          f"its plain version at q8's shape")
+            check(torch.equal(got, agg.topk_sort(states(largest)[0], idx, v, valid, G, largest)),
+                  f"b3x-l2-topk k = {k} largest = {largest} against the sort at q8's shape")
+            err = max(err, float((got - want).masked_fill(got == want, 0.0).abs().max()))
+        kernel, plain = states(True)
+        kernel_ms = cuda_ms(lambda: gt.grid_topk(idx, v, None, G, k, True, kernel), 5)
+        plain_ms = cuda_ms(lambda: gt.grid_topk_reference(idx, v, None, G, k, True, plain), 2)
+        library_ms = cuda_ms(lambda: agg.topk_sort(states(True)[0], idx, v, valid, G, True), 2)
+        bound_ms, bound_by = bound(k * n * 12 + 2 * 8 * G * k, {"f64": k * n})
+        print(f"[{label}] b3x-l2-topk at q8's shape N={n} G={G} k={k}: kernel {kernel_ms!r} ms "
+              f"vs plain {plain_ms!r} ms, the sort it replaces {library_ms!r} ms; bound "
+              f"{bound_ms!r} ms by {bound_by} at {PEAK_BYTES / 1e12} TB/s", flush=True)
+        at = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "library_ms": library_ms}
+        out.update(at if k == 2 else {f"k1_{key}": at[key] for key in TOPK_K1_KEYS})
+    out["err"] = err
+    return out
+
+
+def config3_path(vt, plan, gp, probe, agg, label, n=CONFIG3_ROWS):
     """The config 3 phase on the card: the ten questions driven once with
     every kernel count set to 0 (:func:`config3_drive`), the hand-written
-    kernels of their classic passes asserted launched, then each question
-    timed against plain torch.  Returns (launches per kernel during the
-    drive, B6's too, per question (port s, plain s))."""
+    kernels of their classic passes asserted launched (q8's top-k on
+    ``b3x-l2-topk``, a call for each op and tile), q8's kernel checked and
+    timed at its shape (:func:`topk_timing`), then each question timed
+    against plain torch.  Returns (launches per kernel during the drive,
+    B6's too, per question (port s, plain s), the top-k kernel's keys)."""
+    from vaex_tpu_torch.settings import TILE_ROWS
     df = vt.from_dataset(vt.DatasetArrays(config3_columns(n, "cuda")))
     zero_launches(plan, gp)
     probe.probe.launches = 0
-    config3_drive(vt, df, n, "cuda")
+    topk_routes = dict(agg.OpTopK.routes)
+    routes = config3_drive(vt, df, n, "cuda")
     launches = {**launch_counts(plan, gp), "b6": probe.probe.launches}
     print(f"launches during config 3: {launches}", flush=True)
     for name in CONFIG3_KERNELS:
         check(launches[name] > 0, f"{name} was not launched during config 3: {launches}")
+    topk_calls = len(CONFIG3_TOPK_KS) * -(-n // TILE_ROWS)  # an op and tile each
+    check(launches[plan.B3X_L2_TOPK] == topk_calls,
+          f"q8 made {launches[plan.B3X_L2_TOPK]} calls of b3x-l2-topk, not {topk_calls}")
+    check(agg.OpTopK.routes["rounds"] - topk_routes["rounds"] == topk_calls
+          and agg.OpTopK.routes["sort"] == topk_routes["sort"],
+          f"q8's tile updates by route: {agg.OpTopK.routes}, before {topk_routes}")
+    check(plan.B3X_L2_TOPK in [task.get("topk") for task in routes["q8"]],
+          f"q8's strategies {routes['q8']}")
+    topk = topk_timing({name: df.dataset[name] for name in ("id6", "v3")}, plan, agg, label)
     plain = config3_plain({name: df.dataset[name] for name in df.dataset}, n)
     times = {}
     for q, query in config3_questions(vt).items():
@@ -2707,7 +2775,7 @@ def config3_path(vt, plan, gp, probe, label, n=CONFIG3_ROWS):
         times[q] = (port_med, plain_med)
         print(f"[{label}] config 3 {q} N={n}: median {port_med!r} s (port) vs {plain_med!r} s "
               f"(plain torch), reps {REPS}; port s {port_s}; plain s {plain_s}", flush=True)
-    return launches, times
+    return launches, times, topk
 
 
 # BASELINE config 4 (BASELINE.json configs[3]): a join of a fact table of
@@ -8737,7 +8805,8 @@ def main():
     sources = {plan.B1: "grid_additive", plan.B2: "grid_window", plan.B3: "grid_partition",
                plan.B4: "grid_moments", plan.B5: "grid_moments_window", "b6": "probe",
                plan.B3X: "grid_partition", plan.B3X_L2: "grid_partition",
-               plan.B3X_DIRECT: "grid_partition", plan.B3_L2: "grid_partition"}
+               plan.B3X_DIRECT: "grid_partition", plan.B3_L2: "grid_partition",
+               plan.B3X_L2_TOPK: "grid_topk"}
     for name, (path, seconds, log) in kernel_build.build(*dict.fromkeys(
             sources.values())).items():
         print(f"built {os.path.relpath(path, HERE)} in {seconds:.1f} s")
@@ -8803,7 +8872,7 @@ def main():
     results[MAIN_SIZES[0]]["config2_launches"] = config2_launches[plan.B1]
     moments[plan.B4]["config2_launches"] = config2_launches[plan.B4]
 
-    config3_launches, config3_times = config3_path(vt, plan, gp, probe, label)
+    config3_launches, config3_times, topk = config3_path(vt, plan, gp, probe, agg, label)
     torch.cuda.empty_cache()  # the config 3 table is gone with its frame
     print(f"[{label}] config 3 medians (port s, plain torch s): {json.dumps(config3_times)}",
           flush=True)
@@ -8868,7 +8937,8 @@ def main():
                 plan.B5: (stats_launches[plan.B5], moments[plan.B5]),
                 "b6": (sets_launches["b6"], sets),
                 **{route: (binby_launches[route], extremes[route])
-                   for route in (plan.B3X_L2, plan.B3X, plan.B3X_DIRECT)}}
+                   for route in (plan.B3X_L2, plan.B3X, plan.B3X_DIRECT)},
+                plan.B3X_L2_TOPK: (config3_launches[plan.B3X_L2_TOPK], topk)}
     replaces = {plan.B1: "vaex_tpu/ops/pallas_gridagg.py:474",
                 plan.B2: "vaex_tpu/ops/pallas_gridagg.py:239",
                 plan.B3: "vaex_tpu/ops/pallas_partition.py:72",
@@ -8876,10 +8946,12 @@ def main():
                 plan.B5: "vaex_tpu/ops/pallas_gridagg.py:126",
                 "b6": "vaex_tpu/ops/pallas_probe.py:37",
                 **dict.fromkeys((plan.B3X_L2, plan.B3X, plan.B3X_DIRECT),
-                                "vaex_tpu/ops/pallas_partition.py:287")}
+                                "vaex_tpu/ops/pallas_partition.py:287"),
+                plan.B3X_L2_TOPK: "vaex_tpu/agg.py:629-716 (XLA sorts, no Pallas kernel)"}
     names = {plan.B3X_L2: "grid_resident_extreme (b3x-l2)",
              plan.B3X: "grid_partition_extreme (b3x)",
-             plan.B3X_DIRECT: "grid_partition_extreme (b3x-direct)"}
+             plan.B3X_DIRECT: "grid_partition_extreme (b3x-direct)",
+             plan.B3X_L2_TOPK: "grid_topk (b3x-l2-topk)"}
     print(label)
     print(json.dumps({"kernels": [{
         "name": names.get(name, sources[name]),

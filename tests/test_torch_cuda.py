@@ -19,6 +19,7 @@ from vaex_tpu_torch.ops import grid_extreme as ge
 from vaex_tpu_torch.ops import grid_moments as gm
 from vaex_tpu_torch.ops import grid_partition as gp
 from vaex_tpu_torch.ops import grid_plan
+from vaex_tpu_torch.ops import grid_topk as gt
 from vaex_tpu_torch.ops import grid_window as gw
 from vaex_tpu_torch.ops import probe
 
@@ -1180,6 +1181,98 @@ def test_percentiles_and_top_k_on_the_card(cuda):
     assert grid_plan.KERNELS[name].launches - launches[name] >= 3  # one call a tile
     assert strategies["percentile_exact"] == strategies["topk"] == "sort"
     _same_frames(got, want)
+
+
+def _topk_rows(n, G, device, kind, seed=0):
+    """idx over G cells with rows outside [0, G) (sorted: runs of one cell
+    across neighbouring lanes), and values of the kind: float64 with NaN,
+    +-inf and -0.0, float32, int64 of few values (ties) with the type's
+    ends, or int64 with NaT; a mask of missing rows."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    idx = torch.randint(-2, G + 3, (n,), generator=g, device=device, dtype=torch.int32)
+    if kind == "sorted":
+        idx = idx.sort().values
+    if kind in ("f64", "f32", "sorted"):
+        v = torch.randn(n, generator=g, device=device, dtype=torch.float64).round()
+        for step, special in ((13, float("nan")), (17, float("inf")), (19, float("-inf")),
+                              (23, -0.0)):
+            v[::step] = special
+        v = v.to(torch.float32) if kind == "f32" else v
+    else:
+        v = torch.randint(1, 6, (n,), generator=g, device=device, dtype=torch.int64)
+        v[::29] = torch.iinfo(torch.int64).min
+        v[::31] = torch.iinfo(torch.int64).max
+    mask = torch.rand(n, generator=g, device=device) < 0.1
+    return idx, v, mask
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32", "i64", "nat", "sorted"])
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 16])
+def test_topk_kernel_matches_plain(cuda, k, kind):
+    """``grid_topk`` (the rounds kernel) folding three tiles into one state,
+    largest and smallest, against its plain version on the CPU: exact by
+    value."""
+    G, n = 1 << 16, 3_000_000
+    idx, v, mask = _topk_rows(n, G, cuda, kind)
+    for largest in (True, False):
+        state = torch.full((G, k), gt.fill(v.dtype, largest), dtype=v.dtype, device=cuda)
+        plain = state.cpu()
+        before = gt.grid_topk.launches
+        for t in range(3):
+            rows = slice(t * n // 3, (t + 1) * n // 3)
+            m = None if t == 1 else mask[rows]  # a tile with no mask
+            route, _ = gt.grid_topk(idx[rows], v[rows], m, G, k, largest, state,
+                                    nat=kind == "nat")
+            assert route == gt.ROUTE
+            gt.grid_topk_reference(idx[rows].cpu(), v[rows].cpu(), None if m is None else m.cpu(),
+                                   G, k, largest, plain, nat=kind == "nat")
+        torch.cuda.synchronize()
+        assert gt.grid_topk.launches == before + 3
+        npt.assert_array_equal(state.cpu().numpy(), plain.numpy())
+
+
+def test_topk_kernel_past_l2_matches_plain(cuda):
+    """Past L2 (2e6 cells, the plan's most slots there), both ends: the
+    kernel against its plain version, exact by value."""
+    G, n, k = 2_000_003, 6_000_000, gt.K_PAST_L2
+    assert not gt.resident_fits(G)
+    assert grid_plan.topk_strategy(G, k, torch.float64, "cuda") == gt.ROUTE
+    idx, v, mask = _topk_rows(n, G, cuda, "f64", seed=3)
+    for largest in (True, False):
+        state = torch.full((G, k), gt.fill(v.dtype, largest), dtype=v.dtype, device=cuda)
+        plain = state.cpu()
+        gt.grid_topk(idx, v, mask, G, k, largest, state)
+        gt.grid_topk_reference(idx.cpu(), v.cpu(), mask.cpu(), G, k, largest, plain)
+        npt.assert_array_equal(state.cpu().numpy(), plain.numpy())
+
+
+def test_topk_rounds_route_on_the_card(cuda):
+    """The rounds route of ``OpTopK`` at G = 2^20 over three tiles (a float
+    column, a ties-heavy int column of values 1..5, a selection) against
+    the same query on the CPU's sort; every tile and op takes the route."""
+    rng = np.random.default_rng(8)
+    n, G = 6_000_000, 1 << 20
+    f = rng.uniform(0, 100, n)
+    f[::37] = np.nan
+    arrays = {"u": rng.uniform(0, 1, n), "f": f, "i": rng.integers(1, 6, n),
+              "s": rng.uniform(0, 1, n)}
+    aggs = {"a": agg.max_n("f", 3), "b": agg.nth_largest("i", 1), "c": agg.min_n("i", 4),
+            "d": agg.nth_smallest("f", 0, selection="s > 0.5")}
+    on_card = vaex_tpu_torch.from_arrays(**arrays).to_device(cuda)
+    on_cpu = vaex_tpu_torch.from_arrays(**arrays).to_device("cpu")
+    on_card._tile_rows = on_cpu._tile_rows = n // 3
+    routes, launches = dict(agg.OpTopK.routes), gt.grid_topk.launches
+    args = dict(by=["u"], limits=[0, 1], shape=G, agg=aggs)
+    got = on_card.binby(**args)
+    strategies = on_card.executor.trace_log[-1]["strategies"]
+    assert [task["topk"] for task in strategies] == [grid_plan.B3X_L2_TOPK] * 2
+    assert agg.OpTopK.routes["rounds"] - routes["rounds"] == 4 * 3  # an op and tile each
+    assert agg.OpTopK.routes["sort"] == routes["sort"]
+    assert gt.grid_topk.launches - launches == 4 * 3
+    want = on_cpu.binby(**args)
+    assert on_cpu.executor.trace_log[-1]["strategies"][0]["topk"] == "sort"
+    for name in aggs:
+        npt.assert_array_equal(np.asarray(got[name]), np.asarray(want[name]), err_msg=name)
 
 
 def _index_keys(kind, M, g):

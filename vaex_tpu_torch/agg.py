@@ -21,7 +21,8 @@ the others of their kind:
   through the additive plan;
 * ``own`` (:class:`OpTopK`, :class:`OpPercentileExact`): each folds a tile
   itself with torch sorts and gathers (XLA sorts in the reference, no
-  Pallas kernel).
+  Pallas kernel); a top-k of few slots over many cells takes a kernel of
+  rounds instead (:func:`.ops.grid_plan.topk_strategy`).
 
 A descriptor's ``selection=`` (a boolean expression) sends its operation to
 the aggregation task of that selection, whose bin indices drop the rows the
@@ -54,6 +55,8 @@ from .delayed import delayed
 from .expression import Expression
 from .ops.binners import grid_size
 from .ops.grid_extreme import identity
+from .ops.grid_plan import SORT, topk_strategy
+from .ops.grid_topk import grid_topk
 from .ops.nullable import unsigned_float
 from .utils import find_valid_name, fingerprint
 
@@ -478,16 +481,40 @@ def _counted(x, idx, G, dtype_in):
     return valid
 
 
+def topk_sort(state, idx, values, valid, G, largest):
+    """The sort route of a top-k for one tile: the ``valid`` rows sorted by
+    (cell, value) put each cell's best values at its segment's start, and
+    the [G, k] ``state`` merges with the tile's k slots by a row-wise sort of
+    both.  Returns the new state."""
+    with tracing.host_read("nth-rows", 2):
+        cells, values = idx[valid], values[valid]
+    if not values.numel():
+        return state
+    cells, values = sort_pairs(cells, values, descending=largest)
+    starts, counts = _segments(cells, G)
+    k = state.shape[1]
+    slots = torch.arange(k, device=state.device)
+    best = values.to(state.dtype)[(starts[:, None] + slots).clamp(max=values.numel() - 1)]
+    tile = torch.where(slots < counts[:, None], best,
+                       identity(state.dtype, "max" if largest else "min"))
+    both = torch.cat([state, tile], dim=1).sort(dim=1, descending=largest).values
+    return both[:, :k]
+
+
 class OpTopK(AggOperation):
     """Per cell the k largest (or smallest) values in descending (ascending)
-    order (vaex_tpu/agg.py:629-716): per tile one (cell, value) sort puts
-    each cell's best values at its segment's start, and the [G, k] state
-    merges with a tile's by a row-wise sort of both.  A slot no value fills
-    holds the identity: NaN for a float column once finished, the int
-    type's min (max) for an int column, as the reference leaves it."""
+    order (vaex_tpu/agg.py:629-716).  Each tile takes
+    :func:`.ops.grid_plan.topk_strategy`'s route, ``strategy`` the last
+    one's: on ``b3x-l2-topk`` the kernel of rounds merges the tile into the
+    [G, k] state in place (:func:`.ops.grid_topk.grid_topk`); on ``sort``
+    :func:`topk_sort` does.  ``OpTopK.routes`` counts the tile updates by
+    route.  A slot no value fills holds the identity: NaN for a float column
+    once finished, the int type's min (max) for an int column, as the
+    reference leaves it."""
 
     name = "topk"
     kind = "own"  # folds each tile itself (``update``)
+    routes = {"rounds": 0, "sort": 0}
 
     def __init__(self, expressions, k, largest=True, dtype_in=None):
         super().__init__(expressions, dtype_in)
@@ -505,20 +532,16 @@ class OpTopK(AggOperation):
 
     def update(self, state, idx, G, ctx):
         x = ctx.expr(self.expressions[0])
-        valid = _counted(x, idx, G, self.dtype_in)
-        with tracing.host_read("nth-rows", 2):
-            cells, values = idx[valid], x.data[valid]
-        if x.logical == UINT64:  # uint64 values order as their images
-            values = order_image(values)
-        if not values.numel():
-            return state
-        cells, values = sort_pairs(cells, values, descending=self.largest)
-        starts, counts = _segments(cells, G)
-        slots = torch.arange(self.k, device=state.device)
-        best = values.to(state.dtype)[(starts[:, None] + slots).clamp(max=values.numel() - 1)]
-        tile = torch.where(slots < counts[:, None], best, self._fill())
-        both = torch.cat([state, tile], dim=1).sort(dim=1, descending=self.largest).values
-        return both[:, :self.k]
+        # uint64 values order as their images
+        values = order_image(x.data) if x.logical == UINT64 else x.data
+        self.strategy = topk_strategy(G, self.k, values.dtype if values.dtype == state.dtype
+                                      else None, idx.device.type)
+        if self.strategy != SORT:
+            OpTopK.routes["rounds"] += 1
+            return grid_topk(idx, values.contiguous(), x.mask, G, self.k, self.largest, state,
+                             nat=DataType(self.dtype_in).is_temporal)[1]
+        OpTopK.routes["sort"] += 1
+        return topk_sort(state, idx, values, _counted(x, idx, G, self.dtype_in), G, self.largest)
 
     def merge(self, parts, mesh):
         """Every shard's [G, k] best values gathered, then the k best of them

@@ -137,6 +137,15 @@ at 1 000 003 3.437 against 3.577 and 5.043 against 3.748: ``_apart``
 beside B2 in at most ``B3X_APART_B2_WINDOWS`` = 2 windows, or beside
 ``b3-l2`` from ``B3X_APART_MIN_COLS`` = 2 extreme columns.
 
+A per-cell top-k of k slots (``agg.OpTopK``) takes :func:`topk_strategy`'s
+route: ``b3x-l2-topk`` (:func:`.grid_topk.grid_topk`, k rounds over the
+rows into grids that stay in L2 to 1 468 006 cells) for int64, float64 or
+float32 values on a CUDA tile whose grid is past B3x's direct route, k <=
+``grid_topk.K_MAX`` = 16 while a round's [G, 2] key pairs and [G] counts fit
+``grid_partition.RESIDENT_BYTES`` and k <= ``grid_topk.K_PAST_L2`` = 8 past
+it (where the sort beat the rounds at k = 16 from 4e6 cells), the op's own
+sort by (cell, value) everywhere else (``sort``).
+
 Every function that adds a tile takes ``out``: the rows (grids) of the
 pass's running state, which every route leaves holding their old value plus
 the tile's (the min / max of both for the extremes), in place; ``sort``
@@ -153,13 +162,14 @@ from __future__ import annotations
 
 import torch
 
-from . import grid_additive, grid_moments, grid_partition, grid_sort, grid_window
+from . import grid_additive, grid_moments, grid_partition, grid_sort, grid_topk, grid_window
 from .. import tracing
 from .grid_additive import MAX_COLS, n_channels
 
 B1, B2, B3, B4, B5 = "b1", "b2", "b3", "b4", "b5"
 B3_L2 = "b3-l2"
 B3X, B3X_DIRECT, B3X_L2 = "b3x", "b3x-direct", "b3x-l2"
+B3X_L2_TOPK = grid_topk.ROUTE
 SORT = grid_sort.SORT
 SPLIT = "×"  # "b3×2": B3's partition in two calls
 # extreme columns per call over a partition (the kernel takes MAX_EXT): the
@@ -400,6 +410,19 @@ def extreme_strategy(n, G, n_cols, n_int=0, n_float=0, count=False):
         return B3X_L2
     if grid_partition.extreme_call_fits(n, G, n_cols, n_int, n_float, count):
         return B3X
+    return SORT
+
+
+def topk_strategy(G, k, dtype, device_type):
+    """``b3x-l2-topk`` or ``sort`` for one tile of a top-k of k slots over G
+    cells of ``dtype`` values on a ``device_type`` ("cuda" or "cpu") tile:
+    the rounds past B3x's direct route, to ``grid_topk.K_MAX`` slots while a
+    round's grids stay in L2 and ``grid_topk.K_PAST_L2`` past it; the sort
+    elsewhere (few cells, larger k, other dtypes, CPU tensors)."""
+    k_max = grid_topk.K_MAX if grid_topk.resident_fits(G) else grid_topk.K_PAST_L2
+    if (device_type == "cuda" and 1 <= k <= k_max and dtype in grid_topk.TYPES
+            and not grid_partition.extreme_direct_fits(G, 1)):
+        return B3X_L2_TOPK
     return SORT
 
 

@@ -84,7 +84,8 @@ class TaskAggregations(Task):
     nunique's presence grid of [cell, value ordinal] (``"presence"``); a
     top-k, an exact percentile and a nunique of sorted pairs fold each tile
     themselves (``"topk"``, ``"percentile_exact"``, ``"nunique"``:
-    ``"sort"``).  Without binners the grid is one
+    ``"sort"``; a top-k of few slots over many cells on the card
+    ``"b3x-l2-topk"``, ``agg.OpTopK``).  Without binners the grid is one
     cell and an extreme is a plain reduction over the rows (``"reduce"``).
     ``strategy`` maps each kind of the last tile to its kernel, e.g.
     ``{"additive": "b1", "moments": "b5", "extremes": "b3x-direct"}``, and
@@ -167,8 +168,9 @@ class TaskAggregations(Task):
             if names:
                 self.strategy[kind] = "+".join(dict.fromkeys(names))
         for i in kinds.get("own", []):
-            new_state[i] = self.subtasks[i].update(new_state[i], idx, G, ctx)
-            self.strategy[self.subtasks[i].name] = "sort"
+            op = self.subtasks[i]
+            new_state[i] = op.update(new_state[i], idx, G, ctx)
+            self.strategy[op.name] = getattr(op, "strategy", "sort")
         return new_state
 
     def _update_additive(self, members, riders, new_state, idx, G, ctx):
